@@ -1,0 +1,49 @@
+"""State conversion to and from numpy.
+
+Keys are the field names of the JAX package's ``Geometry`` and
+``ModelState`` (geometry fields at the top level), so a state can be
+carried between the two packages as a dict of numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .state import Geometry, ModelState
+
+_GEOMETRY = tuple(f.name for f in dataclasses.fields(Geometry))
+_STATE = tuple(f.name for f in dataclasses.fields(ModelState)
+               if f.name != "geometry")
+
+
+def state_from_numpy(arrays: dict, device="cpu", dtype=torch.float64
+                     ) -> ModelState:
+    """ModelState from ``{field name: numpy array}``; floating fields get
+    ``dtype``, integer fields (cell_type) keep theirs. Fields the port does
+    not carry raise ValueError."""
+    unknown = set(arrays) - set(_GEOMETRY) - set(_STATE)
+    if unknown:
+        raise ValueError(f"fields not carried by pism_tpu_torch: {sorted(unknown)}")
+
+    def tensor(a):
+        a = np.asarray(a)
+        dt = dtype if np.issubdtype(a.dtype, np.floating) else None
+        return torch.tensor(a, dtype=dt, device=device)   # a copy
+
+    geom = Geometry(**{k: tensor(arrays[k]) for k in _GEOMETRY})
+    return ModelState(geometry=geom, **{
+        k: tensor(arrays[k]) for k in _STATE if arrays.get(k) is not None})
+
+
+def state_to_numpy(state: ModelState) -> dict:
+    """``{field name: numpy array}`` of every field that is set."""
+    out = {k: getattr(state.geometry, k).detach().cpu().numpy()
+           for k in _GEOMETRY}
+    for k in _STATE:
+        v = getattr(state, k)
+        if v is not None:
+            out[k] = v.detach().cpu().numpy()
+    return out

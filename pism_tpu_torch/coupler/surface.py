@@ -1,0 +1,43 @@
+"""Surface (climate) boundary models (port of
+``pism_tpu/coupler/surface.py``: the data types and the base class the PDD
+model builds on)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class SurfaceInputs(NamedTuple):
+    smb: torch.Tensor          # surface mass balance [m/s ice equivalent]
+    temperature: torch.Tensor  # ice surface temperature [K]
+    melt: Optional[torch.Tensor] = None          # m/s ice equivalent
+    runoff: Optional[torch.Tensor] = None        # m/s (melt - refreeze)
+    accumulation: Optional[torch.Tensor] = None  # m/s (snowfall)
+
+
+class SurfaceCarry(NamedTuple):
+    """Model-state fields threaded through stateful surface models: the PDD
+    snow/firn bookkeeping depths (and an albedo slot the PDD passes on)."""
+
+    snow: Optional[torch.Tensor] = None    # m ice equivalent
+    firn: Optional[torch.Tensor] = None    # m ice equivalent
+    albedo: Optional[torch.Tensor] = None  # 1
+
+
+class SurfaceModel:
+    """Base interface (PISM ``surface::SurfaceModel``): ``model(geometry, t)``
+    is the stateless climatology; a stateful model also integrates
+    ``update(geometry, t, dt, carry)`` over [t, t+dt]."""
+
+    stateful = False
+
+    def __call__(self, geometry, t) -> SurfaceInputs:
+        raise NotImplementedError
+
+    def update(self, geometry, t, dt, carry: SurfaceCarry):
+        return self(geometry, t), carry
+
+    def max_timestep(self, t) -> float:
+        return float("inf")

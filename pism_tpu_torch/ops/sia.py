@@ -1,0 +1,124 @@
+"""Shallow-ice approximation (SIA) diffusivity and flux (port of
+``pism_tpu/ops/sia.py``): Mahaffy and Haseloff staggered surface
+gradients and the thermomechanical diffusivity
+
+    D = 2 e (rho g)^n |grad s|^(n-1) K,
+    K = int_0^H A(E(z), p(H - z)) (H - z)^(n+1) dz   (z above base),
+
+then q = -D grad(s) on the faces. This is the plain path of the JAX
+package (its fused SIA kernels need Mahaffy gradients and no bed-smoother
+theta; the chain uses Haseloff gradients and the bed smoother).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import stencils as st
+from .. import state as S
+
+
+class StaggeredGrad(NamedTuple):
+    """Surface gradient on east and north faces."""
+    sx_e: torch.Tensor
+    sy_e: torch.Tensor
+    sx_n: torch.Tensor
+    sy_n: torch.Tensor
+
+
+class SIAFlux(NamedTuple):
+    De: torch.Tensor   # diffusivity on east faces [m^2/s]
+    Dn: torch.Tensor
+    qe: torch.Tensor   # diffusive flux (vertically integrated) [m^2/s]
+    qn: torch.Tensor
+    max_D: torch.Tensor  # 0-dim, for adaptive dt
+
+
+def surface_gradient_mahaffy(surface, grid, sh) -> StaggeredGrad:
+    """Mahaffy (1976): one-sided across the face, 4-point average along it."""
+    dx, dy = grid.dx, grid.dy
+    return StaggeredGrad(
+        sx_e=st.grad_x_east(surface, dx, sh),
+        sy_e=st.grad_y_east(surface, dy, sh),
+        sx_n=st.grad_x_north(surface, dx, sh),
+        sy_n=st.grad_y_north(surface, dy, sh),
+    )
+
+
+def surface_gradient_haseloff(geometry, grid, sh) -> StaggeredGrad:
+    """Mahaffy gradients with the margin fix: faces between an icy cell and
+    an ice-free cell whose surface is higher get zero across-face gradient
+    (no flow up onto ice-free ground)."""
+    s = geometry.ice_surface_elevation
+    icy = S.icy(geometry.cell_type)
+    g = surface_gradient_mahaffy(s, grid, sh)
+    icy_e, icy_n = sh(icy, 0, 1), sh(icy, 1, 0)
+    s_e, s_n = sh(s, 0, 1), sh(s, 1, 0)
+    wall_e = (icy & ~icy_e & (s_e > s)) | (~icy & icy_e & (s > s_e))
+    wall_n = (icy & ~icy_n & (s_n > s)) | (~icy & icy_n & (s > s_n))
+    return StaggeredGrad(sx_e=torch.where(wall_e, 0.0, g.sx_e), sy_e=g.sy_e,
+                         sx_n=g.sx_n, sy_n=torch.where(wall_n, 0.0, g.sy_n))
+
+
+def surface_gradient(geometry, grid, sh, method: str = "mahaffy"
+                     ) -> StaggeredGrad:
+    if method == "haseloff":
+        return surface_gradient_haseloff(geometry, grid, sh)
+    if method == "mahaffy":
+        return surface_gradient_mahaffy(geometry.ice_surface_elevation, grid, sh)
+    raise NotImplementedError(
+        f"stress_balance.sia.surface_gradient_method = {method!r} is not "
+        "implemented in pism_tpu_torch (supported: 'haseloff', 'mahaffy')")
+
+
+def _softness_integral(flow_law, E3, H_face, z, n: float, enhancement: float):
+    """K = int_0^H A(E(z), p) (H-z)^(n+1) dz on one set of faces; E3 is the
+    enthalpy averaged onto the faces. Trapezoid on levels clipped to H."""
+    H = H_face[..., None]
+    depth = torch.clamp(H - z, min=0.0)
+    A = flow_law.softness(E3, flow_law.EC.pressure(depth))
+    f = enhancement * A * depth ** (n + 1.0)
+    w = torch.diff(torch.minimum(z, H), dim=-1)
+    return torch.sum(0.5 * (f[..., 1:] + f[..., :-1]) * w, dim=-1)
+
+
+def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
+                enhancement: float = 1.0, rho: float = 910.0, g: float = 9.81,
+                gradient_method: str = "mahaffy",
+                theta_e: Optional[torch.Tensor] = None,
+                theta_n: Optional[torch.Tensor] = None,
+                d_limit: Optional[float] = None) -> SIAFlux:
+    """Staggered diffusivity and diffusive flux.
+
+    theta_e/theta_n: bed-smoother multipliers on the faces; d_limit: cap on
+    D (PISM ``stress_balance.sia.limit_diffusivity``)."""
+    H = geometry.ice_thickness
+    grad = surface_gradient(geometry, grid, sh, gradient_method)
+    z = torch.as_tensor(grid.z, dtype=H.dtype, device=H.device)
+
+    Ke = _softness_integral(flow_law, st.avg_to_east(enthalpy, sh),
+                            st.avg_to_east(H, sh), z, n, enhancement)
+    Kn = _softness_integral(flow_law, st.avg_to_north(enthalpy, sh),
+                            st.avg_to_north(H, sh), z, n, enhancement)
+    C = 2.0 * (rho * g) ** n
+    De = C * (grad.sx_e ** 2 + grad.sy_e ** 2) ** ((n - 1.0) / 2.0) * Ke
+    Dn = C * (grad.sx_n ** 2 + grad.sy_n ** 2) ** ((n - 1.0) / 2.0) * Kn
+    if theta_e is not None:
+        De = De * theta_e
+    if theta_n is not None:
+        Dn = Dn * theta_n
+    if d_limit is not None:
+        De = torch.clamp(De, max=d_limit)
+        Dn = torch.clamp(Dn, max=d_limit)
+    return SIAFlux(De=De, Dn=Dn, qe=-De * grad.sx_e, qn=-Dn * grad.sy_n,
+                   max_D=torch.maximum(torch.max(De), torch.max(Dn)))
+
+
+def max_timestep_diffusivity(max_D: float, dx: float, dy: float,
+                             adaptive_ratio: float = 0.12) -> float:
+    """Explicit-diffusion stability limit (PISM
+    ``max_timestep_diffusivity``): dt = 2 R / (D (1/dx^2 + 1/dy^2))."""
+    return 2.0 * adaptive_ratio / (max(max_D, 1e-30)
+                                   * (1.0 / dx ** 2 + 1.0 / dy ** 2))

@@ -1,0 +1,240 @@
+"""Shelfy-stream approximation (SSA): matrix-free operator and solvers
+(port of ``pism_tpu/ops/ssa.py``).
+
+Continuous problem (velocities u, v; vertically integrated):
+    d/dx(2 nuH (2 u_x + v_y)) + d/dy(nuH (u_y + v_x)) - beta u = rho g H s_x
+    d/dy(2 nuH (2 v_y + u_x)) + d/dx(nuH (u_y + v_x)) - beta v = rho g H s_y
+nu = (B/2) (eps_eff^2)^((1-n)/(2n)),
+eps_eff^2 = u_x^2 + v_y^2 + u_x v_y + (1/4)(u_y + v_x)^2 + eps_reg^2.
+
+The operator itself is the hand-written kernel of
+``ops/kernels/ssa_matvec.py``. The Krylov loop is a host loop: its stop
+test is one ``.item()`` per BiCGStab iteration (the JAX package's
+``lax.while_loop`` at ``pism_tpu/ops/ssa.py:349-374``), which keeps the
+iteration counts identical to the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import stencils as st
+from .kernels.ssa_matvec import ssa_matvec
+from ..util.hostsync import host
+from ..util.tridiag import solve_batched_pcr
+from ..util.units import SEC_PER_YEAR
+
+
+class NuH(NamedTuple):
+    e: torch.Tensor   # nuH on east faces [Pa s m]
+    n: torch.Tensor   # nuH on north faces
+
+
+def _face_strain_rates(u, v, dx, dy, sh):
+    """(u_x, v_y, u_y, v_x) on east faces and on north faces [1/s]."""
+    east = (st.grad_x_east(u, dx, sh), st.grad_y_east(v, dy, sh),
+            st.grad_y_east(u, dy, sh), st.grad_x_east(v, dx, sh))
+    north = (st.grad_x_north(u, dx, sh), st.grad_y_north(v, dy, sh),
+             st.grad_y_north(u, dy, sh), st.grad_x_north(v, dx, sh))
+    return east, north
+
+
+def _nuH(u, v, hardness_B, H, dx, dy, sh, n_glen, eps_reg2, extension_nuH,
+         extension_mask, tangent_coefficients):
+    SPY = SEC_PER_YEAR
+    q = (1.0 - n_glen) / (2.0 * n_glen)
+    rescale = SPY ** ((n_glen - 1.0) / n_glen)
+    reg2_a = eps_reg2 * SPY * SPY
+
+    def face_nuH(rates, B_f, H_f):
+        # strain rates arrive in 1/s; convert to 1/year
+        ux, vy, uy, vx = (g * SPY for g in rates)
+        eps2 = ux ** 2 + vy ** 2 + ux * vy + 0.25 * (uy + vx) ** 2 + reg2_a
+        nuH = 0.5 * B_f * eps2 ** q * rescale * H_f
+        if not tangent_coefficients:
+            return nuH, None
+        # d nuH = k c (deps2/dux dux + deps2/dvy dvy + deps2/duy (duy + dvx))
+        # with c = q eps2^(q-1) (the 1/year scaling of the tangents folded
+        # in) and k = B/2 rescale H. The two factors are kept apart, as the
+        # chain rule orders them, so that float32 stays in range: their
+        # product alone reaches ~1e35 where eps2 sits at its floor.
+        c = q * eps2 ** (q - 1.0) * SPY
+        k = 0.5 * B_f * rescale * H_f
+        return nuH, (c * (2.0 * ux + vy), c * (2.0 * vy + ux),
+                     c * (0.5 * (uy + vx)), k)
+
+    east, north = _face_strain_rates(u, v, dx, dy, sh)
+    nuH_e, c_e = face_nuH(east, st.avg_to_east(hardness_B, sh),
+                          st.avg_to_east(H, sh))
+    nuH_n, c_n = face_nuH(north, st.avg_to_north(hardness_B, sh),
+                          st.avg_to_north(H, sh))
+    if extension_nuH is not None:
+        m = extension_mask.to(u.dtype)
+        ext_e = st.avg_to_east(m, sh) > 0.49
+        ext_n = st.avg_to_north(m, sh) > 0.49
+        nuH_e = torch.where(ext_e, extension_nuH, nuH_e)
+        nuH_n = torch.where(ext_n, extension_nuH, nuH_n)
+        if tangent_coefficients:
+            c_e = c_e[:3] + (torch.where(ext_e, 0.0, c_e[3]),)
+            c_n = c_n[:3] + (torch.where(ext_n, 0.0, c_n[3]),)
+    return NuH(e=nuH_e, n=nuH_n), (c_e, c_n)
+
+
+def compute_nuH(u, v, hardness_B, H, dx, dy, sh, *, n_glen=3.0,
+                eps_reg2=1e-31, extension_nuH=None,
+                extension_mask=None) -> NuH:
+    """Staggered effective viscosity times thickness.
+
+    hardness_B, H: cell-centered vertically averaged hardness and thickness.
+    eps_reg2: Schoof regularization (strain-rate)^2 floor, in (1/s)^2.
+    extension_nuH / extension_mask: where the mask is set, the strength
+    extension constant replaces nuH (PISM ``SSAStrengthExtension``).
+
+    Strain rates are taken in 1/year: SI strain-rate squares (~1e-27)
+    raised to negative fractional powers overflow float32 (and their
+    forward-mode tangents overflow harder); per-year magnitudes (~1e-5)
+    keep the value and its JVP in range. SPY^((n-1)/n) restores SI nuH.
+    """
+    return _nuH(u, v, hardness_B, H, dx, dy, sh, n_glen, eps_reg2,
+                extension_nuH, extension_mask, False)[0]
+
+
+def linearize_nuH(u, v, hardness_B, H, dx, dy, sh, *, n_glen=3.0,
+                  eps_reg2=1e-31, extension_nuH=None, extension_mask=None):
+    """``compute_nuH`` at (u, v) and its forward-mode derivative.
+
+    Returns ``(nuH, tangent)`` where ``tangent(du, dv)`` is the NuH of
+    d nuH: per face a fixed linear combination of the face strain rates of
+    (du, dv), with coefficients evaluated once here. It is what
+    ``torch.func.jvp(compute_nuH, (u, v), (du, dv))`` returns, without
+    re-evaluating the primal at every call (the JAX package hoists the
+    primal the same way with ``jax.linearize``)."""
+    nuH, (c_e, c_n) = _nuH(u, v, hardness_B, H, dx, dy, sh, n_glen,
+                           eps_reg2, extension_nuH, extension_mask, True)
+
+    def tangent(du, dv):
+        east, north = _face_strain_rates(du, dv, dx, dy, sh)
+        out = []
+        for (dux, dvy, duy, dvx), (a1, a2, a3, k) in ((east, c_e), (north, c_n)):
+            out.append((a1 * dux + a2 * dvy + a3 * (duy + dvx)) * k)
+        return NuH(e=out[0], n=out[1])
+
+    return nuH, tangent
+
+
+def apply_operator(u, v, nuH: NuH, beta, dx, dy):
+    """A(u, v) = -div T + beta (u, v) through the matvec kernel (its plain
+    torch version on CPU tensors)."""
+    return ssa_matvec(u, v, nuH.e, nuH.n, beta, dx, dy)
+
+
+def operator_diagonal(nuH: NuH, beta, dx, dy, sh):
+    """Diagonal (u and v own-coefficients) of the operator."""
+    nuH_w = sh(nuH.e, 0, -1)
+    nuH_s = sh(nuH.n, -1, 0)
+    diag_u = (4.0 * (nuH.e + nuH_w) / dx ** 2
+              + (nuH.n + nuH_s) / dy ** 2 + beta)
+    diag_v = (4.0 * (nuH.n + nuH_s) / dy ** 2
+              + (nuH.e + nuH_w) / dx ** 2 + beta)
+    return diag_u, diag_v
+
+
+def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh):
+    """Alternating-direction line preconditioner: the u-equation is relaxed
+    exactly along x-lines and the v-equation along y-lines, with the
+    transverse and drag terms lumped on the diagonal. Each application is
+    one batched PCR solve per component (the default path of the JAX
+    package: ``line_pcr_impl = xla``, ``line_pcr_dtype = f32``,
+    ``line_block = 0``)."""
+    nuH_w = sh(nuH.e, 0, -1)
+    nuH_s = sh(nuH.n, -1, 0)
+    diag_u, diag_v = operator_diagonal(nuH, beta, dx, dy, sh)
+    au = -4.0 * nuH_w / dx ** 2
+    cu = -4.0 * nuH.e / dx ** 2
+    av = -4.0 * nuH_s / dy ** 2
+    cv = -4.0 * nuH.n / dy ** 2
+    bu = torch.where(bc_mask, 1.0, torch.clamp(diag_u, min=1e-12))
+    bv = torch.where(bc_mask, 1.0, torch.clamp(diag_v, min=1e-12))
+    # Dirichlet rows are identities; decouple their neighbors from them
+    au = torch.where(bc_mask | sh(bc_mask, 0, -1), 0.0, au)
+    cu = torch.where(bc_mask | sh(bc_mask, 0, 1), 0.0, cu)
+    av = torch.where(bc_mask | sh(bc_mask, -1, 0), 0.0, av)
+    cv = torch.where(bc_mask | sh(bc_mask, 1, 0), 0.0, cv)
+    # row-equilibrate (unit diagonal)
+    au, cu = au / bu, cu / bu
+    av, cv = av / bv, cv / bv
+    # v-lines run along y: solve them on the transposed (Mx, My) layout
+    avT, cvT, bvT = av.T, cv.T, bv.T
+
+    def precond(r):
+        ru, rv = r
+        one = torch.ones_like(ru)
+        zu = solve_batched_pcr(au.to(ru.dtype), one, cu.to(ru.dtype),
+                               ru / bu.to(ru.dtype))
+        zv = solve_batched_pcr(avT.to(rv.dtype), one.T, cvT.to(rv.dtype),
+                               rv.T / bvT.to(rv.dtype)).T.contiguous()
+        return zu, zv
+
+    return precond
+
+
+def _dot(a, b, dot_dtype=None):
+    if dot_dtype is not None:
+        return (torch.sum(a[0].to(dot_dtype) * b[0].to(dot_dtype))
+                + torch.sum(a[1].to(dot_dtype) * b[1].to(dot_dtype)))
+    return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
+
+
+def _nz(x):
+    """x with exact zeros replaced by 1e-300 (0 in float32, as in JAX)."""
+    return torch.where(x == 0, 1e-300, x)
+
+
+def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
+                   max_iter=300, dot_dtype=None):
+    """Right-preconditioned BiCGStab on pairs of (My, Mx) tensors.
+
+    Returns ``(x, iterations, |r|^2)``; ``iterations`` is a host int. The
+    loop's stop test is one host sync per iteration."""
+    def dot(p, q):
+        return _dot(p, q, dot_dtype)
+
+    def axpy(a, x, y):  # a*x + y (scalar cast to the vector dtype)
+        return (a.to(x[0].dtype) * x[0] + y[0], a.to(x[1].dtype) * x[1] + y[1])
+
+    Ax0 = matvec(x0)
+    r0 = (b[0] - Ax0[0], b[1] - Ax0[1])
+    rhat = r0
+    b_norm2 = dot(b, b)
+    tol2 = torch.clamp(rtol ** 2 * b_norm2, min=atol ** 2)
+    one = torch.ones((), dtype=b_norm2.dtype, device=b_norm2.device)
+    x, r = x0, r0
+    p = v = (torch.zeros_like(b[0]), torch.zeros_like(b[1]))
+    rho = alpha = omega = one
+    it = 0
+    while it < max_iter and host(dot(r, r) > tol2):
+        rho_new = dot(rhat, r)
+        beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
+        om = omega.to(p[0].dtype)
+        p = axpy(beta, (p[0] - om * v[0], p[1] - om * v[1]), r)
+        y = precond(p)
+        v = matvec(y)
+        alpha = rho_new / _nz(dot(rhat, v))
+        s = axpy(-alpha, v, r)
+        z = precond(s)
+        t = matvec(z)
+        omega = dot(t, s) / _nz(dot(t, t))
+        x = axpy(alpha, y, axpy(omega, z, x))
+        r = axpy(-omega, t, s)
+        rho = rho_new
+        it += 1
+    # breakdown guard: near-breakdown (rho/omega cancellation, worst in f32)
+    # explodes the recurrences and the NaN residual exits the loop above;
+    # never hand a diverged iterate back to the Newton/Picard caller
+    rfin2 = dot(r, r)
+    r02 = dot(r0, r0)
+    ok = rfin2 <= r02          # False for NaN too
+    x = (torch.where(ok, x[0], x0[0]), torch.where(ok, x[1], x0[1]))
+    return x, it, torch.where(ok, rfin2, r02)

@@ -1,0 +1,104 @@
+"""Staggered-grid finite-difference building blocks (port of
+``pism_tpu/ops/stencils.py``).
+
+Conventions
+-----------
+- arrays are ``(My, Mx[, ...])``; axis 0 is y ("j"), axis 1 is x ("i").
+- staggered fields live on cell faces: ``E[j, i]`` is the face between
+  ``(j, i)`` and ``(j, i+1)``; ``N[j, i]`` between ``(j, i)`` and
+  ``(j+1, i)``. The last row/column of faces sits on the domain boundary.
+- boundaries use edge-replication (zero-gradient) ghosts. The port runs
+  non-periodic grids only; a periodic grid raises when a component is
+  built (``Shifter``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def _clamped_index(n: int, s: int, device: torch.device) -> torch.Tensor:
+    return torch.clamp(torch.arange(n) + s, 0, n - 1).to(device)
+
+
+def _shift_axis(a: torch.Tensor, s: int, dim: int) -> torch.Tensor:
+    """b[k] = a[clamp(k + s)] along ``dim`` (one gather)."""
+    if s == 0:
+        return a
+    return a.index_select(dim, _clamped_index(a.shape[dim], s, a.device))
+
+
+def shift(a: torch.Tensor, jy: int, ix: int) -> torch.Tensor:
+    """Return b with b[j, i] = a[j + jy, i + ix] (edge-clamped ghosts)."""
+    return _shift_axis(_shift_axis(a, jy, 0), ix, 1)
+
+
+class Shifter:
+    """Bound shift for a grid: ``sh = Shifter(grid); sh(a, jy, ix)``."""
+
+    def __init__(self, grid):
+        if grid.periodic_x or grid.periodic_y:
+            raise NotImplementedError(
+                f"grid.periodicity = {grid.periodicity!r} is not implemented "
+                "in pism_tpu_torch (supported: 'none')")
+
+    def __call__(self, a, jy: int, ix: int):
+        return shift(a, jy, ix)
+
+
+# ---------------------------------------------------------------------------
+# Staggered averages and gradients
+# ---------------------------------------------------------------------------
+
+def avg_to_east(a, sh):
+    """Average cell values onto east faces."""
+    return 0.5 * (a + sh(a, 0, 1))
+
+
+def avg_to_north(a, sh):
+    return 0.5 * (a + sh(a, 1, 0))
+
+
+def grad_x_east(s, dx, sh):
+    """d(s)/dx on east faces: forward difference."""
+    return (sh(s, 0, 1) - s) / dx
+
+
+def grad_y_north(s, dy, sh):
+    return (sh(s, 1, 0) - s) / dy
+
+
+def grad_y_east(s, dy, sh):
+    """d(s)/dy on east faces (Mahaffy 4-point average)."""
+    return (sh(s, 1, 0) + sh(s, 1, 1) - sh(s, -1, 0) - sh(s, -1, 1)) / (4.0 * dy)
+
+
+def grad_x_north(s, dx, sh):
+    return (sh(s, 0, 1) + sh(s, 1, 1) - sh(s, 0, -1) - sh(s, 1, -1)) / (4.0 * dx)
+
+
+def centered_grad(s, dx, dy, sh):
+    """Centered gradient at cell centers."""
+    gx = (sh(s, 0, 1) - sh(s, 0, -1)) / (2.0 * dx)
+    gy = (sh(s, 1, 0) - sh(s, -1, 0)) / (2.0 * dy)
+    return gx, gy
+
+
+def div_staggered(QE, QN, dx, dy, sh):
+    """Divergence at cell centers of a staggered face flux (QE, QN).
+
+    div[j,i] = (QE[j,i] - QE[j,i-1])/dx + (QN[j,i] - QN[j-1,i])/dy
+    """
+    return (QE - sh(QE, 0, -1)) / dx + (QN - sh(QN, -1, 0)) / dy
+
+
+def upwind_flux_east(u_face, a, sh):
+    """First-order upwind advective face value: a from the upwind side."""
+    return torch.where(u_face >= 0.0, a, sh(a, 0, 1)) * u_face
+
+
+def upwind_flux_north(v_face, a, sh):
+    return torch.where(v_face >= 0.0, a, sh(a, 1, 0)) * v_face

@@ -1,0 +1,87 @@
+"""Model setups.
+
+``hybrid_greenland_model`` is the synthetic-Greenland hybrid chain that
+``bench.py`` measures (``bench.py:151-193``), reproduced number for number:
+extents, grid, config, geometry, latitude/longitude/precipitation, and the
+float64 -> float32 cast after ``prepare_state``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import Config
+from .coupler.atmosphere import SeariseGreenland
+from .coupler.ocean import Constant as OceanConstant
+from .coupler.pdd import TemperatureIndex
+from .grid import Grid
+from .model.icemodel import IceModel
+from .state import Geometry, ModelState, new_geometry
+
+SPY = 3.15569259747e7
+
+
+def to_dtype(state: ModelState, dtype) -> ModelState:
+    """Cast every float64 field of the state to ``dtype``."""
+    def cast(x):
+        return x.to(dtype) if torch.is_tensor(x) and x.dtype == torch.float64 \
+            else x
+    geom = Geometry(**{f.name: cast(getattr(state.geometry, f.name))
+                       for f in dataclasses.fields(Geometry)})
+    return ModelState(geometry=geom, **{
+        f.name: cast(getattr(state, f.name))
+        for f in dataclasses.fields(ModelState) if f.name != "geometry"})
+
+
+def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cpu",
+                           extra_cfg=None):
+    """The north-star chain: returns (model, initial state, grid).
+
+    ``dtype``: "float32" or "float64" field precision; ``device``: the torch
+    device every field lives on."""
+    device = torch.device(device)
+    Lx, Ly = 750e3, 1400e3
+    Mx = int(2 * Lx / (km * 1e3)) + 1
+    My = int(2 * Ly / (km * 1e3)) + 1
+    grid = Grid(Mx=Mx, My=My, Lx=Lx, Ly=Ly, Mz=41, Lz=4000.0)
+    cfg = Config({
+        "stress_balance.model": "ssa+sia",
+        "energy.model": "enthalpy",
+        "basal_resistance.pseudo_plastic.enabled": True,
+        "basal_resistance.pseudo_plastic.q": 0.25,
+        "basal_yield_stress.model": "mohr_coulomb",
+        "calving.methods": "thickness_calving",
+        "geometry.remove_icebergs": True,
+        "geometry.part_grid.enabled": True,
+        "time_stepping.skip.enabled": True,
+        "time_stepping.skip.max": 10,
+        "runtime.float_dtype": dtype,
+        "runtime.device_loop": True,
+    })
+    if extra_cfg:
+        cfg.update(extra_cfg)
+
+    X, Y = np.meshgrid(grid.x, grid.y)
+    r2 = (X / (0.55 * Lx)) ** 2 + (Y / (0.8 * Ly)) ** 2
+    bed = 400.0 - 900.0 * r2 + 150.0 * np.sin(X / 120e3) * np.cos(Y / 160e3)
+    H = 2800.0 * np.maximum(1.0 - r2, 0.0) ** 1.5 * (bed > -600)
+    lat = 60.0 + (Y + Ly) / (2 * Ly) * 23.0
+    lon = -42.0 + X / Lx * 10.0
+    precip = np.clip(0.6 - 0.25 * (lat - 60.0) / 23.0, 0.05, None) / SPY
+
+    def t64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    atm = SeariseGreenland(latitude=t64(lat), longitude=t64(lon),
+                           precipitation=t64(precip))
+    surface = TemperatureIndex(atmosphere=atm, config=cfg)
+    model = IceModel(grid=grid, config=cfg, surface=surface,
+                     ocean=OceanConstant(config=cfg), device=device)
+    state = model.prepare_state(ModelState(geometry=new_geometry(
+        t64(H), t64(bed))))
+    if dtype == "float32":
+        state = to_dtype(state, torch.float32)
+    return model, state, grid

@@ -1,0 +1,116 @@
+"""Card-only tests of pism_tpu_torch: the CUDA kernels against their plain
+torch versions, and the 100 km chain on the card against the CPU.
+
+They skip without a CUDA card. This file imports no JAX, so on a machine
+with a card and no JAX it runs without the JAX-loading conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from pism_tpu_torch import setups  # noqa: E402
+from pism_tpu_torch.convert import state_to_numpy  # noqa: E402
+from pism_tpu_torch.ops.kernels import ssa_matvec as K  # noqa: E402
+
+DX, DY = 20e3, 25e3
+SPY = 3.15569259747e7
+# float64 agrees to rounding; float32 to its own rounding of the stencil
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    a = {k: rng.normal(size=shape) * 1e-5 for k in ("u", "v", "du", "dv")}
+    a["nuH_e"] = rng.uniform(1e13, 1e16, size=shape)
+    a["nuH_n"] = rng.uniform(1e13, 1e16, size=shape)
+    a["dnuH_e"] = rng.normal(size=shape) * 1e14
+    a["dnuH_n"] = rng.normal(size=shape) * 1e14
+    a["beta"] = rng.uniform(0.0, 1e10, size=shape)
+    a["dbeta"] = rng.normal(size=shape) * 1e8
+    return {k: torch.tensor(v, dtype=dtype, device=device) for k, v in a.items()}
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(24, 40), (141, 76), (561, 301)])
+def test_kernels_match_plain(cuda, dtype, shape):
+    """Matvec and fused JVP (with and without a drag tangent) at a small
+    shape and at the 20 km and 5 km grids; each call launches once."""
+    x = _inputs(shape, dtype, cuda, 9)
+    mv = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"], DX, DY)
+    n0 = K.LAUNCHES
+    got, ref = K.ssa_matvec(*mv), K.ssa_matvec_plain(*mv)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == n0 + 1
+    for g, r in zip(got, ref):
+        assert _rel(g, r) < TOL[dtype]
+    for dbeta in (None, x["dbeta"]):
+        jv = (x["u"], x["v"], x["du"], x["dv"], x["nuH_e"], x["nuH_n"],
+              x["dnuH_e"], x["dnuH_n"], x["beta"], dbeta, DX, DY)
+        n0 = K.JVP_LAUNCHES
+        got, ref = K.ssa_matvec_jvp(*jv), K.ssa_matvec_jvp_plain(*jv)
+        torch.cuda.synchronize()
+        assert K.JVP_LAUNCHES == n0 + 1
+        for g, r in zip(got, ref):
+            assert _rel(g, r) < TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_function_jvp_on_the_card(cuda):
+    """torch.func.jvp through the autograd.Function (the fused kernel) against
+    torch.func.jvp of the plain version."""
+    x = _inputs((24, 40), torch.float64, cuda, 10)
+    args = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"])
+    tangents = (x["du"], x["dv"], x["dnuH_e"], x["dnuH_n"], x["dbeta"])
+    _, jf = torch.func.jvp(lambda *a: K.SSAMatvec.apply(*a, DX, DY),
+                           args, tangents)
+    _, jp = torch.func.jvp(lambda *a: K.ssa_matvec_plain(*a, DX, DY),
+                           args, tangents)
+    for g, r in zip(jf, jp):
+        assert _rel(g, r) < 1e-12
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_mixed_devices(cuda):
+    x = _inputs((8, 8), torch.float64, cuda, 11)
+    with pytest.raises(ValueError):
+        K.ssa_matvec(x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"].cpu(),
+                     DX, DY)
+
+
+@pytest.mark.cuda
+def test_chain_on_the_card_matches_cpu(cuda):
+    """The 100 km chain in float64 for one model year: equal step counts;
+    H to 1e-5 of max H and the volume to 1e-8, because the SSA solve
+    amplifies the rounding differences of the two devices (a 1e-15 input
+    change moves u by ~1e-5 of max|u|)."""
+    runs = {}
+    for where in ("cpu", cuda):
+        model, state, _ = setups.hybrid_greenland_model("float64", 100.0,
+                                                        device=where)
+        n0 = K.JVP_LAUNCHES
+        state, t, stats = model.step_once(state, 0.0, SPY)
+        runs[str(where)] = (state_to_numpy(state), stats, K.JVP_LAUNCHES - n0)
+    (a, sa, la), (b, sb, lb) = runs["cpu"], runs[str(cuda)]
+    assert la == 0 and lb > 0
+    assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
+    Ha, Hb = a["ice_thickness"], b["ice_thickness"]
+    assert np.all(np.isfinite(Hb))
+    assert np.abs(Hb - Ha).max() <= 1e-5 * Ha.max()
+    assert abs(Hb.sum() - Ha.sum()) <= 1e-8 * Ha.sum()
