@@ -2,17 +2,34 @@
 
     python3 chip_smoke.py
 
-Phase 1 builds the SSA matvec kernels from ``pism_tpu_torch/csrc`` and
-holds them against their plain torch versions on the card, value and JVP,
-at the 20 km (76x141) and 5 km (301x561) grid shapes: relative max-norm
-error 1e-12 in float64 and 1e-5 in float32. It times both with CUDA events.
-It then runs the 100 km chain for one model year in float64 on the card
-and on the CPU (plain torch path) and compares the two.
+Phase 1 builds the kernels from ``pism_tpu_torch/csrc`` (one ``nvcc`` per
+source, all started together) and holds each against its plain torch
+version on the card, relative max-norm error:
+  K1 ``ssa_matvec`` and ``ssa_matvec_jvp`` at the 20 km (141x76) and 5 km
+  (301x561) grids, 1e-12 in float64 and 1e-5 in float32;
+  K2b ``pcr_lines`` and K2 ``pcr_lines_sub`` on random diagonally dominant
+  unit-diagonal systems, lines of n = 76, 141, 301, 561 over batches of 141,
+  76, 561, 301, both layouts, 1e-12 / 1e-5;
+  K3 ``sia_flux_thermo`` at 61x61x61 and 561x301x41, 1e-12 / 1e-4.
+It times each with CUDA events and the profiler's device time, then runs
+the 100 km chain with the PCR kernels for one model year in float64 on the
+card and on the CPU (plain torch path) and compares the two.
 
-Phase 2 drives the main path: the 20 km synthetic-Greenland hybrid chain
-in float32 for 10 model years through ``IceModel.step_once``, with the
-kernels' launch counters reset just before and read just after.
-Phase 3 runs the 5 km chain for 0.5 model years.
+Every path below is driven through ``IceModel.step_once`` with the kernels'
+launch counters set to 0 just before it and read just after:
+  phase 2: the default config (``line_pcr_impl = xla``, plain torch PCR),
+    20 km float32 for 2 model years (cut from 10 to keep the script's time);
+  phase 2b: path A (``line_pcr_impl = pallas_sublane``), 20 km for 10 model
+    years as two calls, 2 a then 8 a; after 2 a its steps and dt-limit hits
+    equal phase 2's and the ice volume is within 2e-4. Then one
+    preconditioner application, the kernels against ``xla``, on its state,
+    one Krylov iteration profiled with each, the Krylov iterations of one
+    step profiled, one profiled step and a timed breakdown of 1 a;
+  phase 3: path A at 5 km for 0.5 model years;
+  phase 4: path B, EISMINT II A at 61x61x61 float32 from zero ice, 5000
+    model years, then 2000 timed, a few steps profiled and a timed
+    breakdown of 100 a; then 1000 more
+    with ``sia.pallas = off`` against the same 1000 on K3.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -25,6 +42,7 @@ import sys
 import time
 
 SPY = 3.15569259747e7
+PATH_A = {"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"}
 
 
 def _require_cuda():
@@ -54,18 +72,104 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _device_profile(fn, reps):
+    """(device µs per call, device ops per call) from the profiler's CUDA
+    activity; (None, None) if the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):   # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        total = sum(e.time_range.elapsed_us() for e in dev)
+        if dev and total > 0:
+            return total / reps, len(dev) / reps
+    return None, None
+
+
+def _counters():
+    from pism_tpu_torch.ops.kernels import pcr, sia_thermo, ssa_matvec
+    from pism_tpu_torch.util import hostsync
+    return ((ssa_matvec, "LAUNCHES", "ssa_matvec"),
+            (ssa_matvec, "JVP_LAUNCHES", "ssa_matvec_jvp"),
+            (pcr, "LAUNCHES", "pcr_lines"),
+            (pcr, "SUB_LAUNCHES", "pcr_lines_sub"),
+            (sia_thermo, "LAUNCHES", "sia_flux_thermo"),
+            (hostsync, "COUNT", "host_syncs"))
+
+
+def reset_counts():
+    for mod, attr, _ in _counters():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(mod, attr) for mod, attr, name in _counters()}
+
+
+def _check_launches(label, counts, launched, idle):
+    for name in launched:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: {name} was never launched")
+    for name in idle:
+        if counts[name] != 0:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} "
+                                 "times off its path")
+
+
+def _kernel_case(name, kern, plain, args, tol, label, reps=200):
+    """Kernel against plain version on the same inputs, then both timed.
+    Returns (events ms, plain events ms, max abs err)."""
+    import torch
+    got = kern(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = max(_rel_err(g, r) for g, r in zip(got, ref))
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    if not err <= tol:
+        raise AssertionError(f"{name} {label}: relative error {err:.3e} > "
+                             f"{tol:.0e}")
+    ms = _time_ms(lambda: kern(*args), reps)
+    plain_ms = _time_ms(lambda: plain(*args), reps)
+    dev_us, _ = _device_profile(lambda: kern(*args), 50)
+    plain_us, plain_ops = _device_profile(lambda: plain(*args), 50)
+    dev = "not measured" if dev_us is None or plain_us is None else (
+        f"{dev_us:.2f} us / {plain_us:.2f} us in {plain_ops:.0f} ops")
+    print(f"phase1: {name} {label} rel_err {err:.3e} (tol {tol:.0e}) events "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; device {dev}")
+    return ms, plain_ms, abs_err
+
+
 def phase1_kernels(dev):
-    """Kernel against plain version at the chain's shapes; returns timings
-    {kernel name: (ms, plain_ms, max_abs_err)} at the 20 km shape, f32."""
+    """Every kernel against its plain version at the paths' shapes; returns
+    {kernel name: (ms, plain_ms, max_abs_err)} at the 20 km f32 shapes (K3:
+    EISMINT II's 61x61x61 f32)."""
     import numpy as np
     import torch
+    import pism_tpu_torch as pt
+    from pism_tpu_torch.ops.kernels import _build
+    from pism_tpu_torch.ops.kernels import pcr as K2
+    from pism_tpu_torch.ops.kernels import sia_thermo as K3
     from pism_tpu_torch.ops.kernels import ssa_matvec as K
+    from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter
+    from pism_tpu_torch.physics.rheology import PatersonBudd
 
     t0 = time.time()
-    K.build()
-    print(f"phase1: built ssa_matvec kernels in {time.time() - t0:.1f} s")
+    _build.build("ssa_matvec", "pcr", "sia_thermo")
+    print(f"phase1: built ssa_matvec, pcr, sia_thermo in {time.time() - t0:.1f} s")
     out = {}
     rng = np.random.default_rng(20240601)
+    tols = ((torch.float64, 1e-12), (torch.float32, 1e-5))
+
+    # K1 ---------------------------------------------------------------
     for (My, Mx), km in (((141, 76), 20), ((561, 301), 5)):
         dx = dy = km * 1e3
         arrs = {k: rng.normal(size=(My, Mx)) * 1e-5
@@ -75,49 +179,76 @@ def phase1_kernels(dev):
         arrs["dnuH_e"] = rng.normal(size=(My, Mx)) * 1e14
         arrs["dnuH_n"] = rng.normal(size=(My, Mx)) * 1e14
         arrs["beta"] = rng.uniform(0.0, 1e10, size=(My, Mx))
-        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for dtype, tol in tols:
             t = {k: torch.tensor(a, dtype=dtype, device=dev)
                  for k, a in arrs.items()}
             mv = (t["u"], t["v"], t["nuH_e"], t["nuH_n"], t["beta"], dx, dy)
             jv = (t["u"], t["v"], t["du"], t["dv"], t["nuH_e"], t["nuH_n"],
                   t["dnuH_e"], t["dnuH_n"], t["beta"], None, dx, dy)
-            res = {}
             for name, kern, plain, args in (
                     ("ssa_matvec", K.ssa_matvec, K.ssa_matvec_plain, mv),
                     ("ssa_matvec_jvp", K.ssa_matvec_jvp,
                      K.ssa_matvec_jvp_plain, jv)):
-                got = kern(*args)
-                torch.cuda.synchronize()
-                ref = plain(*args)
-                err = max(_rel_err(got[0], ref[0]), _rel_err(got[1], ref[1]))
-                abs_err = max(float((got[i] - ref[i]).abs().max())
-                              for i in range(2))
-                if not err <= tol:
-                    raise AssertionError(
-                        f"{name} {tuple(t['u'].shape)} {dtype}: relative "
-                        f"error {err:.3e} > {tol:.0e}")
-                ms = _time_ms(lambda: kern(*args), 200)
-                plain_ms = _time_ms(lambda: plain(*args), 200)
-                res[name] = (ms, plain_ms, abs_err)
-                print(f"phase1: {name} {My}x{Mx} {str(dtype)[6:]} "
-                      f"rel_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms "
-                      f"plain {plain_ms:.4f} ms")
-            if km == 20 and dtype == torch.float32:
-                out = res
+                r = _kernel_case(name, kern, plain, args, tol,
+                                 f"{My}x{Mx} {str(dtype)[6:]}")
+                if km == 20 and dtype == torch.float32:
+                    out[name] = r
+
+    # K2 / K2b: (n, batch) of the u-lines (lanes) and v-lines (sub) -----
+    for n, batch in ((76, 141), (141, 76), (301, 561), (561, 301)):
+        a = rng.uniform(-0.45, 0.0, size=(n, batch))
+        c = rng.uniform(-0.45, 0.0, size=(n, batch))
+        d = rng.normal(size=(n, batch))
+        for dtype, tol in tols:
+            sub = [torch.tensor(x, dtype=dtype, device=dev)
+                   for x in (a, np.ones((n, batch)), c, d)]
+            lanes = [x.T.contiguous() for x in sub]
+            label = f"n={n} batch={batch} {str(dtype)[6:]}"
+            r = _kernel_case("pcr_lines_sub", K2.pcr_lines_sub,
+                             K2.pcr_lines_sub_plain, sub, tol, label)
+            if (n, batch) == (141, 76) and dtype == torch.float32:
+                out["pcr_lines_sub"] = r     # the 20 km v-lines
+            r = _kernel_case("pcr_lines", K2.pcr_lines, K2.pcr_lines_plain,
+                             lanes, tol, label)
+            if (n, batch) == (76, 141) and dtype == torch.float32:
+                out["pcr_lines"] = r         # the 20 km u-lines
+
+    # K3 ---------------------------------------------------------------
+    EC = EnthalpyConverter()
+    for (My, Mx, Mz), Lz, km in (((61, 61, 61), 5000.0, 25),
+                                 ((561, 301, 41), 4000.0, 5)):
+        Y, X = np.meshgrid(np.linspace(-1, 1, My), np.linspace(-1, 1, Mx),
+                           indexing="ij")
+        H = np.maximum(3000.0 * (1.0 - X ** 2 - Y ** 2), 0.0)
+        s = H + rng.uniform(0.0, 5.0, size=H.shape) * (H > 0)
+        E = 1.0e5 + rng.uniform(0.0, 8e4, size=(My, Mx, Mz))
+        z = pt.Grid(Mx=Mx, My=My, Lx=1e5, Ly=1e5, Mz=Mz, Lz=Lz).z
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+            args = [torch.tensor(x, dtype=dtype, device=dev)
+                    for x in (H, s, E, z)]
+            kw = dict(enhancement=1.0, dx=km * 1e3, dy=km * 1e3, EC=EC,
+                      pb_law=PatersonBudd(EC=EC))
+            r = _kernel_case(
+                "sia_flux_thermo",
+                lambda *x: K3.sia_flux_thermo(*x, **kw)[:4],
+                lambda *x: tuple(K3.sia_flux_thermo_plain(*x, **kw)[i]
+                                 for i in (2, 3, 0, 1)),
+                args, tol, f"{My}x{Mx}x{Mz} {str(dtype)[6:]}", reps=50)
+            if Mz == 61 and dtype == torch.float32:
+                out["sia_flux_thermo"] = r
     return out
 
 
 def phase1_chain_reference(dev):
-    """The 100 km chain, one model year in float64: the card (kernels)
-    against the CPU (plain torch path) on identical inputs."""
-    import torch
+    """The 100 km chain on path A, one model year in float64: the card
+    (kernels) against the CPU (plain torch path) on identical inputs."""
     from pism_tpu_torch import setups
     from pism_tpu_torch.convert import state_to_numpy
 
     runs = {}
     for where in ("cpu", dev):
-        model, state, _ = setups.hybrid_greenland_model("float64", 100.0,
-                                                        device=where)
+        model, state, _ = setups.hybrid_greenland_model(
+            "float64", 100.0, device=where, extra_cfg=PATH_A)
         state, t, stats = model.step_once(state, 0.0, SPY)
         runs[str(where)] = (state_to_numpy(state), stats.nsteps)
     (a, na), (b, nb) = runs["cpu"], runs[str(dev)]
@@ -127,7 +258,7 @@ def phase1_chain_reference(dev):
                   / abs(a["ice_thickness"]).max())
     vol_err = abs(float(a["ice_thickness"].sum()) - float(b["ice_thickness"].sum())) \
         / float(a["ice_thickness"].sum())
-    print(f"phase1: 100 km chain 1 a float64, card vs cpu: steps {nb} "
+    print(f"phase1: 100 km chain (path A) 1 a float64, card vs cpu: steps {nb} "
           f"H max err {H_err:.3e} of max H, volume rel err {vol_err:.3e}")
     # the SSA solve amplifies roundoff (a 1e-15 input change moves u by
     # ~1e-5), so H agrees to ~1e-6 of max H and the volume to ~1e-9
@@ -135,48 +266,327 @@ def phase1_chain_reference(dev):
         raise AssertionError("100 km chain: card and cpu disagree")
 
 
-def run_chain(dev, km, years, label):
-    """One chain run through step_once; returns its stats and wall time."""
+def _check_hybrid_state(label, state, grid, stats, t, t_want):
     import torch
-    from pism_tpu_torch import setups
-    from pism_tpu_torch.ops.kernels import ssa_matvec as K
-    from pism_tpu_torch.util import hostsync
-
-    model, state, grid = setups.hybrid_greenland_model("float32", km, device=dev)
-    torch.cuda.synchronize()
-    K.LAUNCHES = 0
-    K.JVP_LAUNCHES = 0
-    hostsync.COUNT = 0
-    t0 = time.time()
-    state, t, stats = model.step_once(state, 0.0, years * SPY)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {"ssa_matvec": K.LAUNCHES, "ssa_matvec_jvp": K.JVP_LAUNCHES}
-
-    H = state.geometry.ice_thickness
-    fields = {"ice_thickness": H, "enthalpy": state.enthalpy,
-              "u_ssa": state.u_ssa, "v_ssa": state.v_ssa,
-              "basal_melt_rate": state.basal_melt_rate}
+    fields = {"ice_thickness": state.geometry.ice_thickness,
+              "enthalpy": state.enthalpy, "u_ssa": state.u_ssa,
+              "v_ssa": state.v_ssa, "basal_melt_rate": state.basal_melt_rate}
     for name, f in fields.items():
         if not bool(torch.isfinite(f).all()):
             raise AssertionError(f"{label}: non-finite {name}")
     if tuple(state.enthalpy.shape) != grid.shape3:
         raise AssertionError(f"{label}: enthalpy shape {tuple(state.enthalpy.shape)}")
-    if stats.nsteps <= 0 or abs(t - years * SPY) > 1e-3:
+    if stats.nsteps <= 0 or abs(t - t_want) > 1e-3:
         raise AssertionError(f"{label}: {stats.nsteps} steps reached t = {t}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{label}: {name} was never launched")
+
+
+def _report(label, grid, years, stats, wall, counts, H):
     n = stats.nsteps
     volume = float(H.double().sum()) * grid.dx * grid.dy
-    print(f"{label}: grid {grid.My}x{grid.Mx}x{grid.Mz} float32, {years} a: "
-          f"steps {n}, wall {wall:.3f} s, {1e3 * wall / n:.2f} ms/step, "
+    print(f"{label}: grid {grid.My}x{grid.Mx}x{grid.Mz} {str(H.dtype)[6:]}, "
+          f"{years} a: steps {n}, wall {wall:.3f} s, {1e3 * wall / n:.2f} ms/step, "
           f"Newton sweeps {stats.ssa_newton_iters} ({stats.ssa_newton_iters / n:.2f}/step), "
           f"Krylov its {stats.ssa_krylov_iters} ({stats.ssa_krylov_iters / n:.2f}/step), "
           f"host syncs {stats.host_syncs} ({stats.host_syncs / n:.1f}/step), "
-          f"launches {launches}, dt-limit hits {stats.limit_hits_dict()}, "
+          f"launches {counts}, dt-limit hits {stats.limit_hits_dict()}, "
           f"ice volume {volume:.6e} m^3, max H {float(H.max()):.2f} m")
-    return stats, wall, launches
+    return volume
+
+
+def run_hybrid(dev, km, segments, label, extra_cfg, launched, idle):
+    """The hybrid chain through consecutive step_once calls of
+    ``segments`` model years each; returns (model, state, t, [(stats,
+    wall, volume) per segment], counts)."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.model.icemodel import _merge_stats
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float32", km, device=dev, extra_cfg=extra_cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t, out, total, wall_total = 0.0, [], None, 0.0
+    for years in segments:
+        t0 = time.time()
+        state, t, stats = model.step_once(state, t, years * SPY)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        total, wall_total = _merge_stats(total, stats), wall_total + wall
+        out.append((stats, wall, float(state.geometry.ice_thickness.double().sum())
+                    * grid.dx * grid.dy))
+        if len(segments) > 1:
+            print(f"{label}: segment of {years} a: steps {stats.nsteps}, wall "
+                  f"{wall:.3f} s, {1e3 * wall / stats.nsteps:.2f} ms/step, "
+                  f"Krylov its {stats.ssa_krylov_iters}")
+    counts = read_counts()
+    _check_hybrid_state(label, state, grid, total, t, sum(segments) * SPY)
+    _check_launches(label, counts, launched, idle)
+    _report(label, grid, sum(segments), total, wall_total, counts,
+            state.geometry.ice_thickness)
+    return model, state, t, out, counts
+
+
+def check_preconditioner(model, state, t):
+    """One preconditioner application on the chain's own nuH and beta:
+    the PCR kernels (pallas_sublane) against the plain torch PCR (xla)."""
+    import torch
+    from pism_tpu_torch.ops import ssa as ssa_ops
+
+    tau_c = model.yield_stress.compute(state, t=t)
+    P = model.ssa.build_problem(state, tau_c)
+    u, v = P["free"]((state.u_ssa, state.v_ssa))
+    nuH, beta = P["make_nuH"](u, v), P["beta_fn"](u, v)
+    g = torch.Generator(device=state.u_ssa.device).manual_seed(7)
+    r = tuple(torch.randn(u.shape, generator=g, device=u.device, dtype=u.dtype)
+              for _ in range(2))
+    pre = {impl: ssa_ops.make_line_preconditioner(
+        nuH, beta, P["bc_mask"], model.grid.dx, model.grid.dy, model.sh, impl)
+        for impl in ("xla", "pallas_sublane")}
+    got, ref = pre["pallas_sublane"](r), pre["xla"](r)
+    torch.cuda.synchronize()
+    err = max(_rel_err(a, b) for a, b in zip(got, ref))
+    if not err <= 1e-5:
+        raise AssertionError(f"preconditioner: pallas_sublane against xla "
+                             f"relative error {err:.3e} > 1e-5")
+    line = []
+    for impl in ("xla", "pallas_sublane"):
+        ms = _time_ms(lambda: pre[impl](r), 50)
+        dev_us, ops = _device_profile(lambda: pre[impl](r), 20)
+        line.append(f"{impl} {ms:.4f} ms, device {dev_us:.2f} us in "
+                    f"{ops:.0f} ops" if dev_us is not None else
+                    f"{impl} {ms:.4f} ms, device not measured")
+    print(f"phase2b: preconditioner on the 20 km state at the end of the run, "
+          f"pallas_sublane vs xla rel_err {err:.3e} (tol 1e-5); "
+          + "; ".join(line))
+
+
+def profile_steps(model, state, t, years, label):
+    """Steps under the profiler's CUDA activity: device ops (launches),
+    device time and the busy share of the profiled wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _, _, stats = model.step_once(state, t, years * SPY)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    n = stats.nsteps
+    print(f"{label}: profiled {n} step(s): {len(dev)} device ops "
+          f"({len(dev) / n:.0f} per step), Krylov its "
+          f"{stats.ssa_krylov_iters}, device time {busy:.1f} ms of "
+          f"{1e3 * wall:.1f} ms profiled wall, busy share "
+          f"{busy / (1e3 * wall):.3f}")
+
+
+def _patched(targets, wrap):
+    """Context: each (object, attribute) in ``targets`` replaced by
+    ``wrap(label, original)`` for the duration."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+        try:
+            for (obj, name, label), (_, _, orig) in zip(targets, saved):
+                setattr(obj, name, wrap(label, orig))
+            yield
+        finally:
+            for obj, name, orig in saved:
+                setattr(obj, name, orig)
+    return ctx()
+
+
+def breakdown(model, state, t, years, label):
+    """Inclusive ms per step of the step's components, from host timers
+    around each call with the card synchronised on entry and exit (the
+    synchronisation itself lengthens the step a little)."""
+    import torch
+    from pism_tpu_torch.ops import ssa as ssa_ops
+
+    targets = [(model.stress_balance, "update", "stress balance"),
+               (model, "_mass_substep", "mass transport"),
+               (model.energy_model, "step", "energy")]
+    if model.ssa is not None:
+        targets += [(model.ssa, "solve", "SSA solve"),
+                    (ssa_ops, "bicgstab_solve", "BiCGStab"),
+                    (model.surface, "update", "surface (PDD)"),
+                    (model.calving, "step", "calving")]
+    acc = {lab: 0.0 for _, _, lab in targets}
+
+    def wrap(lab, orig):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            acc[lab] += time.perf_counter() - t0
+            return out
+        return timed
+
+    with _patched(targets, wrap):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, stats = model.step_once(state, t, years * SPY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = stats.nsteps
+    parts = ", ".join(f"{lab} {1e3 * v / n:.1f}" for lab, v in acc.items())
+    print(f"{label}: timed {n} steps, {1e3 * wall / n:.1f} ms/step "
+          f"(Krylov its {stats.ssa_krylov_iters / n:.1f}/step); inclusive "
+          f"ms/step: {parts}")
+
+
+def profile_bicgstab(model, state, t, years, label):
+    """Device ops per Krylov iteration inside the chain's own Newton
+    solves: each BiCGStab call of the steps runs under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pism_tpu_torch.ops import ssa as ssa_ops
+
+    acc = {"ops": 0, "its": 0, "us": 0.0, "host": 0.0}
+
+    def wrap(lab, orig):
+        def profiled(*a, **k):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                torch.cuda.synchronize()
+                acc["host"] += time.perf_counter() - t0
+            dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            acc["ops"] += len(dev)
+            acc["us"] += sum(e.time_range.elapsed_us() for e in dev)
+            acc["its"] += out[1]
+            return out
+        return profiled
+
+    with _patched([(ssa_ops, "bicgstab_solve", "BiCGStab")], wrap):
+        model.step_once(state, t, years * SPY)
+    k = max(acc["its"], 1)
+    print(f"{label}: inside the Newton solves: {acc['its']} Krylov its, "
+          f"{acc['ops'] / k:.0f} device ops and {acc['us'] / k:.1f} us of "
+          f"device time per Krylov it, {1e3 * acc['host'] / k:.3f} ms of "
+          f"profiled host time per Krylov it")
+
+
+def profile_krylov(model, state, t):
+    """Device ops, device time and host time per BiCGStab iteration on the
+    chain's frozen Picard system, with each preconditioner route: the
+    difference between solves capped at 21 and at 1 iterations (rtol 0)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pism_tpu_torch.ops import ssa as ssa_ops
+
+    tau_c = model.yield_stress.compute(state, t=t)
+    P = model.ssa.build_problem(state, tau_c)
+    bc = P["bc_mask"]
+    u, v = P["free"]((state.u_ssa, state.v_ssa))
+    nuH, beta = P["make_nuH"](u, v), P["beta_fn"](u, v)
+
+    def matvec(x):
+        Au, Av = P["apply"](*P["free"](x), nuH, beta)
+        return torch.where(bc, x[0], Au), torch.where(bc, x[1], Av)
+
+    b = P["free"]((P["bx"], P["by"]))
+    x0 = (torch.zeros_like(b[0]), torch.zeros_like(b[1]))
+    for impl in ("xla", "pallas_sublane"):
+        pre = ssa_ops.make_line_preconditioner(
+            nuH, beta, bc, model.grid.dx, model.grid.dy, model.sh, impl)
+        res = {}
+        for k in (1, 21):
+            ssa_ops.bicgstab_solve(matvec, b, x0, pre, rtol=0.0, max_iter=k)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                _, its, _ = ssa_ops.bicgstab_solve(matvec, b, x0, pre,
+                                                   rtol=0.0, max_iter=k)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            res[k] = (its, len(dev), sum(e.time_range.elapsed_us() for e in dev),
+                      wall)
+        (i1, n1, d1, w1), (i21, n21, d21, w21) = res[1], res[21]
+        m = max(i21 - i1, 1)
+        print(f"phase2b: one Krylov iteration ({impl}) on the 20 km frozen "
+              f"Picard system: {(n21 - n1) / m:.0f} device ops, device "
+              f"{(d21 - d1) / m:.1f} us, profiled host {1e3 * (w21 - w1) / m:.3f} "
+              f"ms ({i21} - {i1} iterations)")
+
+
+def phase4_eismint(dev):
+    """Path B: EISMINT II A at 61x61x61 float32 from zero ice."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.verification.eismint2 import EXPECTED_A
+
+    model, state, grid = setups.eismint2_model("float32", device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state, t, warm = model.step_once(state, 0.0, 5000.0 * SPY)
+    torch.cuda.synchronize()
+    warm_wall = time.time() - t0
+    t0 = time.time()
+    state, t, stats = model.step_once(state, t, 2000.0 * SPY)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    for name, f in (("ice_thickness", state.geometry.ice_thickness),
+                    ("enthalpy", state.enthalpy),
+                    ("basal_melt_rate", state.basal_melt_rate)):
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"phase4: non-finite {name}")
+    if abs(t - 7000.0 * SPY) > 1e-3 or stats.nsteps <= 0:
+        raise AssertionError(f"phase4: {stats.nsteps} steps reached t = {t}")
+    _check_launches("phase4", counts, ("sia_flux_thermo",),
+                    ("ssa_matvec", "ssa_matvec_jvp", "pcr_lines",
+                     "pcr_lines_sub"))
+    H = state.geometry.ice_thickness.double()
+    cell = grid.dx * grid.dy
+    n = stats.nsteps
+    print(f"phase4: EISMINT II A {grid.My}x{grid.Mx}x{grid.Mz} float32: "
+          f"warm-up 5000 a in {warm.nsteps} steps, {warm_wall:.3f} s; timed "
+          f"2000 a: steps {n}, dt-limit hits {stats.limit_hits_dict()}, wall "
+          f"{wall:.3f} s, {1e3 * wall / n:.3f} ms/step, "
+          f"{2000.0 / wall * 3600.0:.1f} model years per wall hour, "
+          f"host syncs {stats.host_syncs / n:.1f}/step, launches {counts}")
+    print(f"phase4: at 7 ka (not steady state; for information): volume "
+          f"{float(H.sum()) * cell / 1e9:.4e} km^3 (EXPECTED_A "
+          f"{EXPECTED_A['volume_km3']:.4e}), area "
+          f"{float((H > 0).sum()) * cell / 1e6:.4e} km^2 "
+          f"({EXPECTED_A['area_km2']:.4e}), divide thickness "
+          f"{float(H[grid.My // 2, grid.Mx // 2]):.1f} m "
+          f"({EXPECTED_A['divide_thickness_m']:.1f})")
+
+    profile_steps(model, state, t, 10.0, "phase4")
+    breakdown(model, state, t, 100.0, "phase4")
+
+    # the same 1000 a on K3 and on the plain path
+    off, _, _ = setups.eismint2_model(
+        "float32", device=dev, extra_cfg={"stress_balance.sia.pallas": "off"})
+    res = {}
+    for name, m in (("K3", model), ("off", off)):
+        reset_counts()
+        s1, _, st1 = m.step_once(state, t, 1000.0 * SPY)
+        torch.cuda.synchronize()
+        res[name] = (st1, float(s1.geometry.ice_thickness.double().sum()),
+                     read_counts()["sia_flux_thermo"])
+    (sk, vk, lk), (so, vo, lo) = res["K3"], res["off"]
+    rel = abs(vk - vo) / vo
+    print(f"phase4: 1000 a K3 against sia.pallas=off: steps {sk.nsteps} / "
+          f"{so.nsteps}, dt-limit hits {sk.limit_hits_dict()} / "
+          f"{so.limit_hits_dict()}, volume rel diff {rel:.3e} (tol 2e-4), "
+          f"K3 launches {lk} / {lo}")
+    if sk.nsteps != so.nsteps or not rel <= 2e-4 or lk <= 0 or lo != 0:
+        raise AssertionError("phase4: K3 and the plain path disagree")
+    return counts
 
 
 def main():
@@ -192,20 +602,49 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     print(f"versions: python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    start = time.time()
 
     timings = phase1_kernels(dev)
     phase1_chain_reference(dev)
-    _, _, launches = run_chain(dev, 20.0, 10.0, "phase2")
-    run_chain(dev, 5.0, 0.5, "phase3")
+
+    pcr_names = ("pcr_lines", "pcr_lines_sub")
+    k1 = ("ssa_matvec", "ssa_matvec_jvp")
+    _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2", None, k1,
+                                   pcr_names + ("sia_flux_thermo",))
+    model, state, t, (a2, a8), counts_a = run_hybrid(
+        dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names,
+        ("sia_flux_thermo",))
+    (s2, _, v2), (sa, _, va) = p2, a2
+    rel = abs(va - v2) / v2
+    print(f"phase2b: after 2 a against phase 2: steps {sa.nsteps} / "
+          f"{s2.nsteps}, dt-limit hits {sa.limit_hits_dict()} / "
+          f"{s2.limit_hits_dict()}, volume rel diff {rel:.3e} (tol 2e-4)")
+    if sa.nsteps != s2.nsteps or sa.limit_hits_dict() != s2.limit_hits_dict() \
+            or not rel <= 2e-4:
+        raise AssertionError("phase2b: path A and the default path disagree")
+    check_preconditioner(model, state, t)
+    profile_krylov(model, state, t)
+    profile_bicgstab(model, state, t, 0.01, "phase2b")
+    profile_steps(model, state, t, 0.01, "phase2b")
+    breakdown(model, state, t, 1.0, "phase2b")
+    model, state, t, _, _ = run_hybrid(dev, 5.0, (0.5,), "phase3", PATH_A,
+                                       k1 + pcr_names, ("sia_flux_thermo",))
+    profile_bicgstab(model, state, t, 0.01, "phase3")
+    breakdown(model, state, t, 0.25, "phase3")
+    counts_b = phase4_eismint(dev)
+    print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     kernels = []
-    for name, replaces in (
-            ("ssa_matvec", "pism_tpu/ops/pallas_kernels.py:325"),
-            ("ssa_matvec_jvp", "pism_tpu/ops/pallas_kernels.py:407")):
+    for name, source, replaces, counts in (
+            ("ssa_matvec", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts_a),
+            ("ssa_matvec_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts_a),
+            ("pcr_lines", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts_a),
+            ("pcr_lines_sub", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts_a),
+            ("sia_flux_thermo", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_b)):
         ms, plain_ms, err = timings[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": "pism_tpu_torch/csrc/ssa_matvec.cu",
-                        "replaces": replaces, "launches": launches[name],
+                        "source": f"pism_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(smi)
     print(json.dumps({"kernels": kernels}))

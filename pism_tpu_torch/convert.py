@@ -1,8 +1,10 @@
-"""State conversion to and from numpy.
+"""State and climate conversion to and from numpy.
 
 Keys are the field names of the JAX package's ``Geometry`` and
-``ModelState`` (geometry fields at the top level), so a state can be
-carried between the two packages as a dict of numpy arrays.
+``ModelState`` (geometry fields at the top level), so a state (the hybrid
+chain's or an EISMINT II setup's) can be carried between the two packages
+as a dict of numpy arrays; ``surface_to_numpy`` does the same for what a
+surface model returns.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ _STATE = tuple(f.name for f in dataclasses.fields(ModelState)
 def state_from_numpy(arrays: dict, device="cpu", dtype=torch.float64
                      ) -> ModelState:
     """ModelState from ``{field name: numpy array}``; floating fields get
-    ``dtype``, integer fields (cell_type) keep theirs. Fields the port does
-    not carry raise ValueError."""
+    ``dtype``, integer fields (cell_type) keep theirs. Entries that are None
+    (fields not set) are skipped; fields the port does not carry raise
+    ValueError."""
+    arrays = {k: v for k, v in arrays.items() if v is not None}
     unknown = set(arrays) - set(_GEOMETRY) - set(_STATE)
     if unknown:
         raise ValueError(f"fields not carried by pism_tpu_torch: {sorted(unknown)}")
@@ -35,7 +39,7 @@ def state_from_numpy(arrays: dict, device="cpu", dtype=torch.float64
 
     geom = Geometry(**{k: tensor(arrays[k]) for k in _GEOMETRY})
     return ModelState(geometry=geom, **{
-        k: tensor(arrays[k]) for k in _STATE if arrays.get(k) is not None})
+        k: tensor(arrays[k]) for k in _STATE if k in arrays})
 
 
 def state_to_numpy(state: ModelState) -> dict:
@@ -47,3 +51,10 @@ def state_to_numpy(state: ModelState) -> dict:
         if v is not None:
             out[k] = v.detach().cpu().numpy()
     return out
+
+
+def surface_to_numpy(surface, state: ModelState, t: float) -> dict:
+    """``{"smb": ..., "temperature": ...}`` of ``surface(geometry, t)``."""
+    out = surface(state.geometry, t)
+    return {"smb": out.smb.detach().cpu().numpy(),
+            "temperature": out.temperature.detach().cpu().numpy()}

@@ -1,10 +1,12 @@
 """Surface (climate) boundary models (port of
-``pism_tpu/coupler/surface.py``: the data types and the base class the PDD
-model builds on)."""
+``pism_tpu/coupler/surface.py``: the data types, the base class the PDD
+model builds on, and the stateless ``FunctionSurface`` of the verification
+setups)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -41,3 +43,15 @@ class SurfaceModel:
 
     def max_timestep(self, t) -> float:
         return float("inf")
+
+
+@dataclass
+class FunctionSurface(SurfaceModel):
+    """Wraps fn(geometry, t) -> (smb, temperature); used by the verification
+    setups (EISMINT II's radially symmetric climate)."""
+
+    fn: Callable
+
+    def __call__(self, geometry, t) -> SurfaceInputs:
+        smb, temp = self.fn(geometry, t)
+        return SurfaceInputs(smb, temp)

@@ -1,6 +1,7 @@
 """The model's time stepping (port of ``pism_tpu/model/icemodel.py`` for
-the hybrid ``ssa+sia`` chain): orders the sub-model updates within a step
-and selects the adaptive time step as the min over stability limits.
+the hybrid ``ssa+sia`` chain and the SIA-only ``sia`` chain): orders the
+sub-model updates within a step and selects the adaptive time step as the
+min over stability limits.
 
 The JAX package runs a whole segment as one ``lax.while_loop`` on the
 device (``pism_tpu/model/icemodel.py:776-791``). Here the step loop is a
@@ -9,11 +10,13 @@ chosen on the host from one sync per step that reads the five maxima the
 stability limits need. Every other host decision is counted by
 ``util/hostsync.py``; ``StepStats.host_syncs`` reports them.
 
-Components built here are exactly the chain's: enthalpy energy with the
-minimal bedrock unit, the SSAFD + SIA stress balance, Mohr-Coulomb yield
-stress, null hydrology, thickness calving with iceberg removal, part-grid
-mass transport with skip substeps, a PDD surface model and a constant
-ocean. Any other configured component raises NotImplementedError.
+Components built here are exactly the two chains': enthalpy energy with
+the minimal bedrock unit, the SIA stress balance and, with ``ssa+sia``,
+the SSAFD solve, Mohr-Coulomb yield stress and null hydrology; thickness
+calving with iceberg removal or no calving; part-grid mass transport with
+skip substeps; a stateful PDD surface model or a stateless one (EISMINT
+II's climate); an optional constant ocean. Any other configured component
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,7 +103,7 @@ def _round_to(x: float, dtype) -> float:
 class IceModel:
     grid: Grid
     config: Config
-    surface: object = None     # stateful SurfaceModel (PDD)
+    surface: object = None     # SurfaceModel: stateful (PDD) or stateless
     ocean: object = None       # OceanModel (sub-shelf melt), optional
     device: object = None      # torch device of every field; default cpu
 
@@ -119,18 +122,22 @@ class IceModel:
         if cfg.get_number("time_stepping.dt_force") > 0.0:
             raise NotImplementedError(
                 "time_stepping.dt_force > 0 is not implemented in pism_tpu_torch")
-        if self.surface is None or not getattr(self.surface, "stateful", False):
-            raise NotImplementedError(
-                "pism_tpu_torch drives a stateful (PDD) surface model only")
+        if self.surface is None:
+            raise NotImplementedError("pism_tpu_torch needs a surface model")
+        self.stateful_surface = getattr(self.surface, "stateful", False)
         self.sh = Shifter(self.grid)
         self.EC = EnthalpyConverter.from_config(cfg)
         self.dtype = torch.float64 \
             if cfg.get_string("runtime.float_dtype") == "float64" else torch.float32
         self.energy_model = EnergyModel(grid=self.grid, config=cfg, EC=self.EC)
-        self.ssa = SSAFD(grid=self.grid, config=cfg,
-                         flow_law=flow_law_from_config(cfg, "ssa", self.EC))
-        self.yield_stress = MohrCoulombYieldStress(cfg)
-        self.hydrology = NullTransport(grid=self.grid, config=cfg)
+        # the SSA and what feeds it exist only with an SSA in the model
+        # (pism_tpu/model/icemodel.py:185-206)
+        self.ssa = self.yield_stress = self.hydrology = None
+        if "ssa" in cfg.get_string("stress_balance.model"):
+            self.ssa = SSAFD(grid=self.grid, config=cfg,
+                             flow_law=flow_law_from_config(cfg, "ssa", self.EC))
+            self.yield_stress = MohrCoulombYieldStress(cfg)
+            self.hydrology = NullTransport(grid=self.grid, config=cfg)
         self.calving = calving_from_config(self.grid, cfg)
         self.btu = btu_from_config(self.grid, cfg)
         self.geothermal = cfg.get_number("bootstrapping.defaults.geothermal_flux")
@@ -178,13 +185,15 @@ class IceModel:
         cand[0] = self.max_dt
         cand[1] = self.skip_max * sia_ops.max_timestep_diffusivity(
             max_D, grid.dx, grid.dy, self.adaptive_ratio)
-        cand[2] = self.skip_max * (self.cfl_factor * ge.max_timestep_cfl_2d(
-            max_ue, max_vn, grid.dx, grid.dy))
+        if self.ssa is not None:
+            cand[2] = self.skip_max * (self.cfl_factor * ge.max_timestep_cfl_2d(
+                max_ue, max_vn, grid.dx, grid.dy))
         cand[3] = self.cfl_factor * max_timestep_cfl_3d(
             max_u3, max_v3, grid.dx, grid.dy)
-        lim = self.hydrology.max_timestep()
-        if lim is not None:
-            cand[4] = lim
+        if self.hydrology is not None:
+            lim = self.hydrology.max_timestep()
+            if lim is not None:
+                cand[4] = lim
         cand[5] = self.surface.max_timestep(t)
         idx = min(range(len(cand)), key=cand.__getitem__)
         dt = cand[idx]
@@ -252,15 +261,20 @@ class IceModel:
         dtype = state.geometry.ice_thickness.dtype
 
         # 1-2. stress balance and adaptive dt ------------------------------
-        tau_c = self.yield_stress.compute(state, t=t)
+        tau_c = None
+        if self.yield_stress is not None:
+            tau_c = self.yield_stress.compute(state, t=t)
         sb = self.stress_balance.update(state, tau_c)
         dt, dt_limit_idx, max_D = self._compute_dt(sb, t, t_end)
         dt_f = _round_to(dt, dtype)
 
-        smb_in, carry = self.surface.update(
-            state.geometry, t, dt_f,
-            SurfaceCarry(snow=state.snow_depth, firn=state.firn_depth))
-        state = state.replace(snow_depth=carry.snow, firn_depth=carry.firn)
+        if self.stateful_surface:
+            smb_in, carry = self.surface.update(
+                state.geometry, t, dt_f,
+                SurfaceCarry(snow=state.snow_depth, firn=state.firn_depth))
+            state = state.replace(snow_depth=carry.snow, firn_depth=carry.firn)
+        else:
+            smb_in = self.surface(state.geometry, t)
 
         # 3. energy (enthalpy) step ---------------------------------------
         H = state.geometry.ice_thickness
@@ -275,7 +289,8 @@ class IceModel:
                               basal_melt_rate=eres.basal_melt_rate)
 
         # 5. hydrology -----------------------------------------------------
-        state = self.hydrology.step(state, dt_f)
+        if self.hydrology is not None:
+            state = self.hydrology.step(state, dt_f)
 
         # 7. mass transport, skip_max cheap substeps per expensive update --
         geometry = state.geometry
@@ -346,18 +361,20 @@ class IceModel:
         H = state.geometry.ice_thickness
         z2 = torch.zeros_like(H)
         kw = {}
-        if state.tillwat is None:
+        if self.hydrology is not None and state.tillwat is None:
             kw["tillwat"] = z2
         if state.basal_melt_rate is None:
             kw["basal_melt_rate"] = z2
-        if state.u_ssa is None:
-            kw["u_ssa"] = z2
-        if state.v_ssa is None:
-            kw["v_ssa"] = z2
-        if state.snow_depth is None:
-            kw["snow_depth"] = z2
-        if state.firn_depth is None:
-            kw["firn_depth"] = z2
+        if self.ssa is not None:
+            if state.u_ssa is None:
+                kw["u_ssa"] = z2
+            if state.v_ssa is None:
+                kw["v_ssa"] = z2
+        if self.stateful_surface:
+            if state.snow_depth is None:
+                kw["snow_depth"] = z2
+            if state.firn_depth is None:
+                kw["firn_depth"] = z2
         if state.enthalpy is None:
             smb = self.surface(state.geometry, 0.0)
             G0 = state.geothermal_flux if state.geothermal_flux is not None \

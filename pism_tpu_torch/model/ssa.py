@@ -54,7 +54,8 @@ class SSAFD:
         require(cfg, "stress_balance.ssa.method", ("fd",))
         require(cfg, "stress_balance.ssa.fd.krylov_method", ("bicgstab",))
         require(cfg, "stress_balance.ssa.fd.preconditioner", ("line",))
-        require(cfg, "stress_balance.ssa.fd.line_pcr_impl", ("xla",))
+        require(cfg, "stress_balance.ssa.fd.line_pcr_impl",
+                ("xla", "pallas_sublane"))
         require(cfg, "stress_balance.ssa.fd.line_pcr_dtype", ("f32",))
         require(cfg, "stress_balance.ssa.fd.line_block", (0,))
         require(cfg, "stress_balance.ssa.fd.drag_jacobian", ("picard",))
@@ -62,6 +63,7 @@ class SSAFD:
         require(cfg, "stress_balance.ssa.fd.lateral_drag.enabled", (False,))
         require(cfg, "basal_resistance.beta_lateral_margin", (0.0,))
         require(cfg, "stress_balance.ssa.fd.extrapolate_initial_guess", (False,))
+        self.pcr_impl = cfg.get_string("stress_balance.ssa.fd.line_pcr_impl")
         self.sh = Shifter(self.grid)
         self.n_glen = cfg.get_number("stress_balance.ssa.Glen_exponent")
         self.e_ssa = cfg.get_number("stress_balance.ssa.enhancement_factor")
@@ -273,7 +275,7 @@ class SSAFD:
 
         def make_precond(nuH, beta):
             return ssa_ops.make_line_preconditioner(nuH, beta, bc_mask,
-                                                    dx, dy, sh)
+                                                    dx, dy, sh, self.pcr_impl)
 
         def zeros_where_bc(x):
             return (torch.where(bc_mask, x[0], 0.0),

@@ -1,7 +1,8 @@
 """Composite stress balance (port of ``pism_tpu/model/stressbalance.py``,
-the ``ssa+sia`` branch of ``update``): the SSA sliding velocity, the SIA
-diffusive flux on the bed-smoothed geometry, and (for the energy model) the
-3D velocities, strain heating and basal frictional heating.
+the ``ssa+sia`` and ``sia`` branches of ``update``): the SSA sliding
+velocity (``ssa+sia`` only; ``sia`` has no sliding), the SIA diffusive flux
+on the bed-smoothed geometry, and (for the energy model) the 3D
+velocities, strain heating and basal frictional heating.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ class StressBalanceResult(NamedTuple):
     u_base: torch.Tensor      # cell-centered sliding velocity
     v_base: torch.Tensor
     max_diffusivity: torch.Tensor
-    u_ssa: torch.Tensor       # SSA velocity (next step's warm start)
-    v_ssa: torch.Tensor
+    u_ssa: Optional[torch.Tensor]   # SSA velocity (next step's warm start);
+    v_ssa: Optional[torch.Tensor]   # None without an SSA
     sia3: Optional[sia3d.SIA3D]
     basal_frictional_heating: Optional[torch.Tensor]
     ssa_newton_iters: int = 0   # Newton sweeps of this SSA solve
@@ -42,12 +43,13 @@ class StressBalance:
     grid: object
     config: object
     sia_flow_law: object
-    ssa: object
+    ssa: object = None
     compute_3d: bool = True
 
     def __post_init__(self):
         cfg = self.config
-        require(cfg, "stress_balance.model", ("ssa+sia",))
+        require(cfg, "stress_balance.model", ("ssa+sia", "sia"))
+        self.model = cfg.get_string("stress_balance.model")
         require(cfg, "stress_balance.vertical_velocity_approximation",
                 ("centered",))
         require(cfg, "stress_balance.sia.e_age_coupling", (False,))
@@ -70,6 +72,9 @@ class StressBalance:
         self.d_limit = (cfg.get_number("stress_balance.sia.max_diffusivity")
                         if cfg.get_flag("stress_balance.sia.limit_diffusivity")
                         else None)
+        require(cfg, "stress_balance.sia.pallas", ("auto", "on", "off"))
+        self.sia_pallas = {"auto": None, "on": True, "off": False}[
+            cfg.get_string("stress_balance.sia.pallas")]
 
     def _apply_bed_smoother(self, geometry):
         """Schoof (2003) roughness parameterization: grounded SIA columns see
@@ -88,20 +93,29 @@ class StressBalance:
         return (replace(geometry, ice_thickness=H_sia),
                 st.avg_to_east(th, self.sh), st.avg_to_north(th, self.sh))
 
-    def sia_flux(self, geometry, enthalpy, theta_e=None, theta_n=None):
+    def sia_flux(self, geometry, enthalpy, theta_e=None, theta_n=None,
+                 pallas=None):
         return sia_ops.diffusivity(
             self.sia_flow_law, geometry, enthalpy, self.grid, self.sh,
             n=self.n_sia, enhancement=self.e_sia, rho=self.rho, g=self.g,
             gradient_method=self.gradient_method, theta_e=theta_e,
-            theta_n=theta_n, d_limit=self.d_limit)
+            theta_n=theta_n, pallas=pallas, d_limit=self.d_limit)
 
     def update(self, state: S.ModelState, yield_stress) -> StressBalanceResult:
-        u_ssa, v_ssa, info = self.ssa.solve(state, yield_stress,
-                                            diagnostics=True)
+        u_ssa = v_ssa = None
+        info = {"newton_iters": 0, "krylov_iters": 0}
+        if self.model == "ssa+sia":
+            u_ssa, v_ssa, info = self.ssa.solve(state, yield_stress,
+                                                diagnostics=True)
 
         geom, th_e, th_n = self._apply_bed_smoother(state.geometry)
-        flux = self.sia_flux(geom, state.enthalpy, th_e, th_n)
-        u_e, v_n = ge.face_velocities(u_ssa, v_ssa, self.sh)
+        flux = self.sia_flux(geom, state.enthalpy, th_e, th_n,
+                             pallas=self.sia_pallas)
+        if u_ssa is not None:
+            u_e, v_n = ge.face_velocities(u_ssa, v_ssa, self.sh)
+            u_b, v_b = u_ssa, v_ssa
+        else:
+            u_e = v_n = u_b = v_b = torch.zeros_like(flux.qe)
 
         sia3 = friction = None
         if self.compute_3d:
@@ -111,14 +125,16 @@ class StressBalance:
                 g=self.g, u_base=u_ssa, v_base=v_ssa,
                 basal_melt_rate=state.basal_melt_rate,
                 max_diffusivity=self.d_limit, icy_threshold=self.icy_thresh)
-            # tau_b . u_b = beta(|u|) |u|^2  [W/m^2]
-            beta = self.ssa.sliding_law.beta(yield_stress, u_ssa, v_ssa)
-            friction = torch.where(S.grounded_ice(state.geometry.cell_type),
-                                   beta * (u_ssa ** 2 + v_ssa ** 2), 0.0)
+            if u_ssa is not None:
+                # tau_b . u_b = beta(|u|) |u|^2  [W/m^2]
+                beta = self.ssa.sliding_law.beta(yield_stress, u_ssa, v_ssa)
+                friction = torch.where(
+                    S.grounded_ice(state.geometry.cell_type),
+                    beta * (u_ssa ** 2 + v_ssa ** 2), 0.0)
 
         return StressBalanceResult(
             qe=flux.qe, qn=flux.qn, u_face_e=u_e, v_face_n=v_n,
-            u_base=u_ssa, v_base=v_ssa, max_diffusivity=flux.max_D,
+            u_base=u_b, v_base=v_b, max_diffusivity=flux.max_D,
             u_ssa=u_ssa, v_ssa=v_ssa, sia3=sia3,
             basal_frictional_heating=friction,
             ssa_newton_iters=info["newton_iters"],

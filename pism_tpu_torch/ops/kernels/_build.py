@@ -1,0 +1,114 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each source ``pism_tpu_torch/csrc/<name>.cu`` has a plain C interface and
+is compiled by ``nvcc`` for ``sm_90a`` at first use into
+``build/kernels/<hash of source and flags>/lib<name>.so`` at the repository
+root (ignored by git), then loaded with ctypes. A library is built once per
+source hash; :func:`build` compiles several sources at once, one ``nvcc``
+process each, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or PATH)")
+    return nvcc
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_ROOT / key / f"lib{name}.so"
+
+
+def build(*names: str) -> None:
+    """Compile the named sources that are not built yet, in parallel."""
+    jobs = []
+    try:
+        for name in names:
+            lib_path = _lib_path(name)
+            if lib_path.exists():
+                continue
+            lib_path.parent.mkdir(parents=True, exist_ok=True)
+            # build beside the target, then rename: concurrent builds never
+            # load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
+            os.close(fd)
+            src = CSRC / f"{name}.cu"
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, tmp, lib_path, proc))
+        failed = []
+        for src, tmp, lib_path, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, lib_path)
+            else:
+                failed.append(f"nvcc failed on {src}:\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    build(name)
+    return ctypes.CDLL(str(_lib_path(name)))
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """Call a C entry point with the current stream of ``device`` as its
+    last argument; raise if it reports a CUDA error."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+
+
+def check(name: str, *tensors) -> None:
+    """Raise unless the tensors are contiguous and share one dtype (float32
+    or float64) and one device (cpu or cuda)."""
+    import torch
+
+    t0 = tensors[0]
+    if t0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} takes float32 or float64, not {t0.dtype}")
+    if t0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {t0.device}")
+    for t in tensors:
+        if t.device != t0.device:
+            raise ValueError(f"{name} inputs lie on different devices")
+        if t.dtype != t0.dtype:
+            raise TypeError(f"{name} inputs have different dtypes")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")

@@ -1,0 +1,154 @@
+"""Fused thermomechanical SIA diffusivity and flux: the hand-written CUDA
+kernel and its plain version.
+
+Replaces the TPU kernel ``sia_flux_thermo_pallas_padded``
+(``pism_tpu/ops/pallas_kernels.py:195``, body ``_sia_thermo_body`` at
+``:80``, wrapper ``sia_flux_thermo_pallas`` at ``:176``): Mahaffy face
+gradients, the Paterson-Budd (or GPBLD) softness of each level from the
+enthalpy, the trapezoid K = int A (H - z)^(n+1) dz over levels clipped to
+H, D = 2 (rho g)^n |grad s|^(n-1) K capped at ``d_cap``, and q = -D grad s,
+in one pass. The kernel, ``pism_tpu_torch/csrc/sia_thermo.cu``, runs one
+thread per cell for both of its faces; its notes say what bounds it.
+
+Routing: a CUDA tensor launches the kernel (built by ``_build.py``); a CPU
+tensor runs the plain torch version. There is no fallback from one to the
+other. ``LAUNCHES`` counts launches of the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+LAUNCHES = 0
+
+
+def _constants(n, enhancement, rho, g, dx, dy, EC, pb_law, d_cap):
+    """The kernel's constants (``pallas_kernels.py:229-234``), in the order
+    of ``struct Params`` of the CUDA source."""
+    return (float(n), 2.0 * (rho * g) ** n, float(dx), float(dy),
+            EC.T_melting, EC.T_ref, EC.c_i, EC.L0, EC.beta, rho * g,
+            pb_law.A_cold * enhancement, pb_law.A_warm * enhancement,
+            pb_law.Q_cold, pb_law.Q_warm, pb_law.T_critical, pb_law.R,
+            getattr(pb_law, "water_frac_coeff", 0.0),
+            getattr(pb_law, "water_frac_observed_limit", 0.0),
+            math.inf if d_cap is None else float(d_cap))
+
+
+# ---------------------------------------------------------------------------
+# plain torch version (CPU path, tests, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def _pad_edge2(a):
+    return F.pad(a[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+
+
+def sia_flux_thermo_plain(H, s, E, z, *, n=3.0, enhancement=1.0, rho=910.0,
+                          g=9.81, dx, dy, EC, pb_law, d_cap=None):
+    """(qe, qn, De, Dn) on (My, Mx) from H, s (My, Mx), E (My, Mx, Mz) and
+    the levels z (Mz,), in plain torch (any device)."""
+    (_, C, _, _, T_melting, T_ref, c_i, L0, beta, rho_g, A_cold, A_warm,
+     Q_cold, Q_warm, T_crit, R, wfc, wfl, cap) = _constants(
+        n, enhancement, rho, g, dx, dy, EC, pb_law, d_cap)
+    Hp, sp = _pad_edge2(H), _pad_edge2(s)
+    Ep = F.pad(E.movedim(-1, 0)[None], (1, 1, 1, 1),
+               mode="replicate")[0].movedim(0, -1)
+    c = (slice(1, -1), slice(1, -1))
+    e = (slice(1, -1), slice(2, None))
+    nn = (slice(2, None), slice(1, -1))
+    ne = (slice(2, None), slice(2, None))
+    s_ = (slice(0, -2), slice(1, -1))
+    se = (slice(0, -2), slice(2, None))
+    w = (slice(1, -1), slice(0, -2))
+    nw = (slice(2, None), slice(0, -2))
+
+    H_e = 0.5 * (Hp[c] + Hp[e])
+    H_n = 0.5 * (Hp[c] + Hp[nn])
+    E_e = 0.5 * (Ep[c] + Ep[e])
+    E_n = 0.5 * (Ep[c] + Ep[nn])
+    sx_e = (sp[e] - sp[c]) / dx
+    sy_e = (sp[nn] + sp[ne] - sp[s_] - sp[se]) / (4.0 * dy)
+    sy_n = (sp[nn] - sp[c]) / dy
+    sx_n = (sp[e] + sp[ne] - sp[w] - sp[nw]) / (4.0 * dx)
+
+    def K_integral(E3, Hf):
+        Hc = Hf[..., None]
+        depth = torch.clamp(Hc - z, min=0.0)
+        p = 101325.0 + rho_g * depth
+        Tm = T_melting - beta * p
+        Es = c_i * (Tm - T_ref)
+        T = torch.where(E3 < Es, T_ref + E3 / c_i, Tm)
+        T_pa = T - Tm + T_melting
+        cold = T_pa < T_crit
+        A = torch.where(cold, torch.full_like(T_pa, A_cold), A_warm)
+        Q = torch.where(cold, torch.full_like(T_pa, Q_cold), Q_warm)
+        soft = A * torch.exp(-Q / (R * T_pa))
+        omega = torch.clamp(torch.clamp((E3 - Es) / L0, 0.0, 1.0), max=wfl)
+        f = soft * (1.0 + wfc * omega) * depth ** (n + 1.0)
+        zc = torch.minimum(z, Hc)
+        return torch.sum(0.5 * (f[..., :-1] + f[..., 1:])
+                         * (zc[..., 1:] - zc[..., :-1]), dim=-1)
+
+    De = torch.clamp(C * (sx_e * sx_e + sy_e * sy_e) ** ((n - 1.0) / 2.0)
+                     * K_integral(E_e, H_e), max=cap)
+    Dn = torch.clamp(C * (sx_n * sx_n + sy_n * sy_n) ** ((n - 1.0) / 2.0)
+                     * K_integral(E_n, H_n), max=cap)
+    return -De * sx_e, -Dn * sy_n, De, Dn
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = _build.library("sia_thermo")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for prec in ("f32", "f64"):
+        fn = getattr(lib, f"pism_sia_flux_thermo_{prec}")
+        fn.argtypes = [p] * 8 + [i, i, i, ctypes.POINTER(ctypes.c_double), p]
+        fn.restype = i
+    lib.pism_sia_thermo_nparams.restype = i
+    return lib
+
+
+def sia_flux_thermo(H, s, E, z, *, n=3.0, enhancement=1.0, rho=910.0,
+                    g=9.81, dx, dy, EC, pb_law, d_cap=None):
+    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_thermo_pallas``.
+
+    CUDA tensors launch the kernel; CPU tensors run
+    ``sia_flux_thermo_plain``. ``max_D`` is the larger of the two faces'
+    maxima, taken outside the kernel as the JAX wrapper takes it."""
+    _build.check("sia_flux_thermo", H, s, E, z)
+    My, Mx = H.shape
+    if s.shape != H.shape or E.dim() != 3 or E.shape[:2] != H.shape \
+            or z.shape != (E.shape[2],):
+        raise ValueError(
+            f"sia_flux_thermo takes H, s (My, Mx), E (My, Mx, Mz) and z (Mz,), "
+            f"got {tuple(H.shape)}, {tuple(s.shape)}, {tuple(E.shape)}, "
+            f"{tuple(z.shape)}")
+    if H.device.type == "cpu":
+        qe, qn, De, Dn = sia_flux_thermo_plain(
+            H, s, E, z, n=n, enhancement=enhancement, rho=rho, g=g, dx=dx,
+            dy=dy, EC=EC, pb_law=pb_law, d_cap=d_cap)
+    else:
+        global LAUNCHES
+        lib = _library()
+        consts = _constants(n, enhancement, rho, g, dx, dy, EC, pb_law, d_cap)
+        if len(consts) != lib.pism_sia_thermo_nparams():
+            raise RuntimeError("sia_thermo.cu takes another set of constants")
+        qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
+        fn = lib.pism_sia_flux_thermo_f32 if H.dtype == torch.float32 \
+            else lib.pism_sia_flux_thermo_f64
+        _build.launch(fn, "sia_flux_thermo", H.device, H.data_ptr(),
+                      s.data_ptr(), E.data_ptr(), z.data_ptr(), qe.data_ptr(),
+                      qn.data_ptr(), De.data_ptr(), Dn.data_ptr(), My, Mx,
+                      E.shape[2], (ctypes.c_double * len(consts))(*consts))
+        LAUNCHES += 1
+    return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))

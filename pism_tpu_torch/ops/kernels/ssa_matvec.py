@@ -12,33 +12,24 @@ halves the launches of every Newton matvec; cutting the launches of a whole
 Krylov iteration (a CUDA graph) is the next step.
 
 Routing: a CUDA tensor launches the kernel (built with ``nvcc`` at first use
-into ``build/kernels/<source hash>/`` at the repository root, loaded with
-ctypes); a CPU tensor runs the plain torch version in this module. There is
-no fallback from one to the other. ``LAUNCHES`` counts launches of the
-matvec kernel and ``JVP_LAUNCHES`` those of the fused JVP kernel.
+by ``_build.py`` and loaded with ctypes); a CPU tensor runs the plain torch
+version in this module. There is no fallback from one to the other.
+``LAUNCHES`` counts launches of the matvec kernel and ``JVP_LAUNCHES``
+those of the fused JVP kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 LAUNCHES = 0
 JVP_LAUNCHES = 0
-
-_SOURCE = pathlib.Path(__file__).resolve().parents[2] / "csrc" / "ssa_matvec.cu"
-_BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 
 # ---------------------------------------------------------------------------
@@ -108,32 +99,9 @@ def ssa_matvec_jvp_plain(u, v, du, dv, nuH_e, nuH_n, dnuH_e, dnuH_n, beta,
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _BUILD_ROOT / key
-    lib_path = out_dir / "libssa_matvec.so"
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or os.path.join(
-            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the ssa_matvec kernel cannot "
-                               "be built (set CUDA_HOME or PATH)")
-        out_dir.mkdir(parents=True, exist_ok=True)
-        # build beside the target, then rename: concurrent builds never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        try:
-            subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                           check=True, capture_output=True, text=True)
-            os.replace(tmp, lib_path)
-        except subprocess.CalledProcessError as err:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{err.stderr}") from err
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(lib_path))
+    """The kernel library (built at first use by ``_build``), with the
+    argument types of its entry points set."""
+    lib = _build.library("ssa_matvec")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for prec in ("f32", "f64"):
         fn = getattr(lib, f"pism_ssa_matvec_{prec}")
@@ -152,35 +120,21 @@ def build() -> None:
 
 
 def _check(*tensors):
-    t0 = tensors[0]
-    if t0.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ssa_matvec takes float32 or float64, not {t0.dtype}")
+    _build.check("ssa_matvec", *tensors)
     for t in tensors:
-        if t.device != t0.device:
-            raise ValueError("ssa_matvec inputs lie on different devices")
-        if t.dtype != t0.dtype:
-            raise TypeError("ssa_matvec inputs have different dtypes")
-        if t.dim() != 2 or t.shape != t0.shape:
+        if t.dim() != 2 or t.shape != tensors[0].shape:
             raise ValueError(
                 f"ssa_matvec takes 2D tensors of one shape, got {tuple(t.shape)} "
-                f"and {tuple(t0.shape)}")
-        if not t.is_contiguous():
-            raise ValueError("ssa_matvec takes contiguous tensors")
-    if t0.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssa_matvec runs on cpu or cuda, not {t0.device}")
+                f"and {tuple(tensors[0].shape)}")
 
 
 def _launch(name, inputs, outputs, shape, dx, dy):
     prec = "f32" if outputs[0].dtype == torch.float32 else "f64"
     fn = getattr(_library(), f"pism_{name}_{prec}")
-    device = outputs[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[None if t is None else t.data_ptr() for t in inputs],
-                 *[t.data_ptr() for t in outputs],
-                 int(shape[0]), int(shape[1]), float(dx), float(dy), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+    _build.launch(fn, name, outputs[0].device,
+                  *[None if t is None else t.data_ptr() for t in inputs],
+                  *[t.data_ptr() for t in outputs],
+                  int(shape[0]), int(shape[1]), float(dx), float(dy))
 
 
 def ssa_matvec(u, v, nuH_e, nuH_n, beta, dx, dy):

@@ -5,9 +5,12 @@ gradients and the thermomechanical diffusivity
     D = 2 e (rho g)^n |grad s|^(n-1) K,
     K = int_0^H A(E(z), p(H - z)) (H - z)^(n+1) dz   (z above base),
 
-then q = -D grad(s) on the faces. This is the plain path of the JAX
-package (its fused SIA kernels need Mahaffy gradients and no bed-smoother
-theta; the chain uses Haseloff gradients and the bed smoother).
+then q = -D grad(s) on the faces. ``diffusivity`` routes as the JAX
+package does (``pism_tpu/ops/sia.py:170-270``): the fused kernel K3
+(``ops/kernels/sia_thermo.py``) where it computes the same quantity, else
+the plain path here. The hybrid chain, with Haseloff gradients and the bed
+smoother, takes the plain path; EISMINT II, with Mahaffy gradients and no
+bed-smoother theta, takes the kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import stencils as st
+from .kernels import sia_thermo as K3
 from .. import state as S
 
 
@@ -84,20 +88,60 @@ def _softness_integral(flow_law, E3, H_face, z, n: float, enhancement: float):
     return torch.sum(0.5 * (f[..., 1:] + f[..., :-1]) * w, dim=-1)
 
 
+def _kernel_eligible(flow_law, enthalpy, grid, H, gradient_method,
+                     theta_e, theta_n, enhancement) -> bool:
+    """The ``auto`` rule of the JAX package's ``_pallas_eligible``
+    (``pism_tpu/ops/sia.py:170-190``) with a CUDA card where it has a TPU:
+    the kernel computes the identical quantity for float32 fields, Mahaffy
+    gradients, clamped (non-periodic) ghosts, a Paterson-Budd-family law,
+    no bed-smoother multipliers and a scalar enhancement factor."""
+    return (H.device.type == "cuda"
+            and H.dtype == torch.float32
+            and gradient_method == "mahaffy"
+            and theta_e is None and theta_n is None
+            and not grid.periodic_x and not grid.periodic_y
+            and enthalpy is not None
+            and all(hasattr(flow_law, a) for a in
+                    ("A_cold", "A_warm", "Q_cold", "Q_warm", "T_critical", "R"))
+            and not torch.is_tensor(enhancement))
+
+
 def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
                 enhancement: float = 1.0, rho: float = 910.0, g: float = 9.81,
                 gradient_method: str = "mahaffy",
                 theta_e: Optional[torch.Tensor] = None,
                 theta_n: Optional[torch.Tensor] = None,
+                pallas: Optional[bool] = None,
                 d_limit: Optional[float] = None) -> SIAFlux:
     """Staggered diffusivity and diffusive flux.
 
     theta_e/theta_n: bed-smoother multipliers on the faces; d_limit: cap on
-    D (PISM ``stress_balance.sia.limit_diffusivity``)."""
+    D (PISM ``stress_balance.sia.limit_diffusivity``). pallas
+    (``stress_balance.sia.pallas``): True takes the kernel route K3 whatever
+    theta is, as the JAX package does (it returns before theta is applied);
+    on CPU tensors that route runs K3's plain version. False takes the plain
+    path; None decides by :func:`_kernel_eligible`."""
     H = geometry.ice_thickness
-    grad = surface_gradient(geometry, grid, sh, gradient_method)
     z = torch.as_tensor(grid.z, dtype=H.dtype, device=H.device)
+    use_kernel = pallas
+    if use_kernel is None:
+        use_kernel = _kernel_eligible(flow_law, enthalpy, grid, H,
+                                      gradient_method, theta_e, theta_n,
+                                      enhancement)
+    if use_kernel:
+        if enthalpy is None:
+            raise NotImplementedError(
+                "the isothermal SIA kernel (energy.model = none) is not "
+                "implemented in pism_tpu_torch")
+        # the energy solve leaves E level-major in memory; the kernel reads
+        # it (My, Mx, Mz)-contiguous
+        return SIAFlux(*K3.sia_flux_thermo(
+            H.contiguous(), geometry.ice_surface_elevation.contiguous(),
+            enthalpy.contiguous(), z, n=n,
+            enhancement=enhancement, rho=rho, g=g, dx=grid.dx, dy=grid.dy,
+            EC=flow_law.EC, pb_law=flow_law, d_cap=d_limit))
 
+    grad = surface_gradient(geometry, grid, sh, gradient_method)
     Ke = _softness_integral(flow_law, st.avg_to_east(enthalpy, sh),
                             st.avg_to_east(H, sh), z, n, enhancement)
     Kn = _softness_integral(flow_law, st.avg_to_north(enthalpy, sh),

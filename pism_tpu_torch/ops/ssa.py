@@ -8,7 +8,9 @@ nu = (B/2) (eps_eff^2)^((1-n)/(2n)),
 eps_eff^2 = u_x^2 + v_y^2 + u_x v_y + (1/4)(u_y + v_x)^2 + eps_reg^2.
 
 The operator itself is the hand-written kernel of
-``ops/kernels/ssa_matvec.py``. The Krylov loop is a host loop: its stop
+``ops/kernels/ssa_matvec.py``; with ``line_pcr_impl = pallas_sublane`` the
+line preconditioner solves with the kernels of ``ops/kernels/pcr.py``. The
+Krylov loop is a host loop: its stop
 test is one ``.item()`` per BiCGStab iteration (the JAX package's
 ``lax.while_loop`` at ``pism_tpu/ops/ssa.py:349-374``), which keeps the
 iteration counts identical to the reference.
@@ -21,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from . import stencils as st
+from .kernels.pcr import pcr_lines, pcr_lines_sub
 from .kernels.ssa_matvec import ssa_matvec
 from ..util.hostsync import host
 from ..util.tridiag import solve_batched_pcr
@@ -141,13 +144,22 @@ def operator_diagonal(nuH: NuH, beta, dx, dy, sh):
     return diag_u, diag_v
 
 
-def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh):
+def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
+                             pcr_impl: str = "xla"):
     """Alternating-direction line preconditioner: the u-equation is relaxed
     exactly along x-lines and the v-equation along y-lines, with the
     transverse and drag terms lumped on the diagonal. Each application is
-    one batched PCR solve per component (the default path of the JAX
-    package: ``line_pcr_impl = xla``, ``line_pcr_dtype = f32``,
-    ``line_block = 0``)."""
+    one batched PCR solve per component (the JAX package's
+    ``line_pcr_dtype = f32``, ``line_block = 0``).
+
+    ``pcr_impl``: ``xla`` solves with the plain torch PCR, the v-lines on the
+    transposed layout; ``pallas_sublane`` with the PCR kernels
+    (``ops/kernels/pcr.py``) directly on the (My, Mx) layout, the u-lines
+    along its last axis and the v-lines along axis -2, so no transposes."""
+    if pcr_impl not in ("xla", "pallas_sublane"):
+        raise NotImplementedError(
+            f"stress_balance.ssa.fd.line_pcr_impl = {pcr_impl!r} is not "
+            "implemented in pism_tpu_torch (supported: 'xla', 'pallas_sublane')")
     nuH_w = sh(nuH.e, 0, -1)
     nuH_s = sh(nuH.n, -1, 0)
     diag_u, diag_v = operator_diagonal(nuH, beta, dx, dy, sh)
@@ -165,6 +177,19 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh):
     # row-equilibrate (unit diagonal)
     au, cu = au / bu, cu / bu
     av, cv = av / bv, cv / bv
+
+    if pcr_impl == "pallas_sublane":
+        def precond(r):
+            ru, rv = r
+            one = torch.ones_like(ru)
+            zu = pcr_lines(au.to(ru.dtype), one, cu.to(ru.dtype),
+                           ru / bu.to(ru.dtype))
+            zv = pcr_lines_sub(av.to(rv.dtype), one, cv.to(rv.dtype),
+                               rv / bv.to(rv.dtype))
+            return zu, zv
+
+        return precond
+
     # v-lines run along y: solve them on the transposed (Mx, My) layout
     avT, cvT, bvT = av.T, cv.T, bv.T
 

@@ -1,7 +1,7 @@
 """Flow laws (port of ``pism_tpu/physics/rheology.py``): the
-Paterson-Budd base and the polythermal GPBLD law, the default of both the
-SIA and the SSA. Other laws raise ``NotImplementedError`` in
-:func:`flow_law_from_config`.
+Paterson-Budd law (``pb``, EISMINT II's SIA law) and the polythermal GPBLD
+law, the default of both the SIA and the SSA. Other laws raise
+``NotImplementedError`` in :func:`flow_law_from_config`.
 """
 
 from __future__ import annotations
@@ -74,16 +74,16 @@ class GPBLD(PatersonBudd):
 
 
 def flow_law_from_config(config, which: str = "sia",
-                         EC: EnthalpyConverter = None) -> GPBLD:
-    """Factory (PISM ``rheology::FlowLawFactory``), ``gpbld`` only."""
+                         EC: EnthalpyConverter = None) -> PatersonBudd:
+    """Factory (PISM ``rheology::FlowLawFactory``), ``pb`` and ``gpbld``."""
     from ..config import require
 
-    require(config, f"stress_balance.{which}.flow_law", ("gpbld",))
+    require(config, f"stress_balance.{which}.flow_law", ("gpbld", "pb"))
     if which == "sia":
         require(config, "flow_law.grain_aware_GK", (False,))
     if EC is None:
         EC = EnthalpyConverter.from_config(config)
-    return GPBLD(
+    pb_kw = dict(
         n=config.get_number(f"stress_balance.{which}.Glen_exponent"), EC=EC,
         A_cold=config.get_number("flow_law.Paterson_Budd.A_cold"),
         A_warm=config.get_number("flow_law.Paterson_Budd.A_warm"),
@@ -91,6 +91,11 @@ def flow_law_from_config(config, which: str = "sia",
         Q_warm=config.get_number("flow_law.Paterson_Budd.Q_warm"),
         T_critical=config.get_number("flow_law.Paterson_Budd.T_critical"),
         R=config.get_number("constants.ideal_gas_constant"),
+    )
+    if config.get_string(f"stress_balance.{which}.flow_law") == "pb":
+        return PatersonBudd(**pb_kw)
+    return GPBLD(
+        **pb_kw,
         water_frac_coeff=config.get_number("flow_law.gpbld.water_frac_coeff"),
         water_frac_observed_limit=config.get_number(
             "flow_law.gpbld.water_frac_observed_limit"),

@@ -3,7 +3,8 @@
 ``hybrid_greenland_model`` is the synthetic-Greenland hybrid chain that
 ``bench.py`` measures (``bench.py:151-193``), reproduced number for number:
 extents, grid, config, geometry, latitude/longitude/precipitation, and the
-float64 -> float32 cast after ``prepare_state``.
+float64 -> float32 cast after ``prepare_state``. ``eismint2_model`` is
+``bench.py``'s second chain, EISMINT II experiment A (``bench.py:95-103``).
 """
 
 from __future__ import annotations
@@ -85,3 +86,25 @@ def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cpu",
     if dtype == "float32":
         state = to_dtype(state, torch.float32)
     return model, state, grid
+
+
+#: EISMINT II's bed is flat, so the bed smoother's theta is exactly 1 and
+#: switching it off is the same physics; without theta the SIA kernel K3
+#: takes the flux (the JAX package's default 5 km range declines it)
+EISMINT2_CFG = {"stress_balance.sia.bed_smoother.range": 0.0}
+
+
+def eismint2_model(dtype: str, Mx: int = 61, Mz: int = 61, device="cpu",
+                   extra_cfg=None):
+    """EISMINT II experiment A from zero ice: returns (model, initial
+    state, grid). The config is the JAX setup's plus ``EISMINT2_CFG`` and
+    ``extra_cfg``; ``dtype`` is "float32" or "float64"."""
+    from .verification import eismint2
+
+    es = eismint2.setup("A", Mx=Mx, Mz=Mz, Lz=5000.0,
+                        dtype=getattr(torch, dtype), device=device)
+    es.config.update({"runtime.float_dtype": dtype, **EISMINT2_CFG,
+                      **(extra_cfg or {})})
+    model = IceModel(grid=es.grid, config=es.config, surface=es.surface,
+                     device=device)
+    return model, es.state, es.grid

@@ -1,5 +1,7 @@
-"""Card-only tests of pism_tpu_torch: the CUDA kernels against their plain
-torch versions, and the 100 km chain on the card against the CPU.
+"""Card-only tests of pism_tpu_torch: the CUDA kernels (SSA matvec, PCR
+line solves, fused thermomechanical SIA) against their plain torch
+versions, the 100 km chain on the card against the CPU, and EISMINT II A
+through the SIA kernel against the CPU.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -15,7 +17,11 @@ torch.set_num_threads(2)
 
 from pism_tpu_torch import setups  # noqa: E402
 from pism_tpu_torch.convert import state_to_numpy  # noqa: E402
+from pism_tpu_torch.ops.kernels import pcr as K2  # noqa: E402
+from pism_tpu_torch.ops.kernels import sia_thermo as K3  # noqa: E402
 from pism_tpu_torch.ops.kernels import ssa_matvec as K  # noqa: E402
+from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter  # noqa: E402
+from pism_tpu_torch.physics.rheology import GPBLD, PatersonBudd  # noqa: E402
 
 DX, DY = 20e3, 25e3
 SPY = 3.15569259747e7
@@ -114,3 +120,85 @@ def test_chain_on_the_card_matches_cpu(cuda):
     assert np.all(np.isfinite(Hb))
     assert np.abs(Hb - Ha).max() <= 1e-5 * Ha.max()
     assert abs(Hb.sum() - Ha.sum()) <= 1e-8 * Ha.sum()
+
+
+def _tridiag(shape, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-0.45, 0.0, size=shape)
+    c = rng.uniform(-0.45, 0.0, size=shape)
+    b = 1.0 + rng.uniform(0.0, 0.1, size=shape)
+    d = rng.normal(size=shape)
+    return [torch.tensor(x, dtype=dtype, device=device) for x in (a, b, c, d)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,batch", [(1, 5), (2, 3), (37, 9), (76, 141),
+                                     (141, 76), (301, 561), (561, 301),
+                                     (3000, 4)])
+def test_pcr_kernels_match_plain(cuda, dtype, n, batch):
+    """Both layouts at the chain's line shapes and beyond one block's lines;
+    the kernels round as the plain version does, so they agree to the last
+    bit but for the division's rounding."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    sub = _tridiag((n, batch), n, dtype, cuda)
+    lanes = [x.T.contiguous() for x in sub]
+    n0, s0 = K2.LAUNCHES, K2.SUB_LAUNCHES
+    got_sub, got = K2.pcr_lines_sub(*sub), K2.pcr_lines(*lanes)
+    torch.cuda.synchronize()
+    assert (K2.LAUNCHES, K2.SUB_LAUNCHES) == (n0 + 1, s0 + 1)
+    assert _rel(got_sub, K2.pcr_lines_sub_plain(*sub)) <= tol
+    assert _rel(got, K2.pcr_lines_plain(*lanes)) <= tol
+    assert _rel(got.T, got_sub) <= tol
+
+
+def _sia_inputs(shape, dtype, device, seed=5):
+    My, Mx, Mz = shape
+    rng = np.random.default_rng(seed)
+    Y, X = np.meshgrid(np.linspace(-1, 1, My), np.linspace(-1, 1, Mx),
+                       indexing="ij")
+    H = np.maximum(3000.0 * (1.0 - X ** 2 - Y ** 2), 0.0)
+    s = H + rng.uniform(0.0, 5.0, size=H.shape) * (H > 0)
+    z = 5000.0 * np.linspace(0.0, 1.0, Mz) ** 2
+    E = 1.0e5 + rng.uniform(0.0, 8e4, size=shape)
+    return [torch.tensor(x, dtype=dtype, device=device) for x in (H, s, E, z)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("law", [PatersonBudd, GPBLD])
+@pytest.mark.parametrize("shape", [(61, 61, 61), (30, 17, 5)])
+def test_sia_thermo_kernel_matches_plain(cuda, dtype, law, shape):
+    tol = {torch.float64: 1e-12, torch.float32: 1e-4}[dtype]
+    H, s, E, z = _sia_inputs(shape, dtype, cuda)
+    kw = dict(enhancement=1.5, dx=25e3, dy=25e3,
+              EC=EnthalpyConverter(), pb_law=law(EC=EnthalpyConverter()))
+    for d_cap in (None, 2.0):
+        n0 = K3.LAUNCHES
+        got = K3.sia_flux_thermo(H, s, E, z, d_cap=d_cap, **kw)
+        torch.cuda.synchronize()
+        assert K3.LAUNCHES == n0 + 1
+        ref = K3.sia_flux_thermo_plain(H, s, E, z, d_cap=d_cap, **kw)
+        for g, r in zip(got[:4], (ref[2], ref[3], ref[0], ref[1])):
+            assert _rel(g, r) <= tol
+
+
+@pytest.mark.cuda
+def test_eismint2_on_the_card_matches_cpu(cuda):
+    """EISMINT II A at 21x21x21 in float64 for 5000 model years: the card
+    (K3 under ``auto``... which needs float32, so ``sia.pallas = on``)
+    against the CPU (K3's plain version): equal steps, H to 1e-10 of
+    max H."""
+    runs = {}
+    for where in ("cpu", cuda):
+        model, state, _ = setups.eismint2_model(
+            "float64", Mx=21, Mz=21, device=where,
+            extra_cfg={"stress_balance.sia.pallas": "on"})
+        n0 = K3.LAUNCHES
+        state, t, stats = model.step_once(state, 0.0, 5000.0 * SPY)
+        runs[str(where)] = (state_to_numpy(state), stats, K3.LAUNCHES - n0)
+    (a, sa, la), (b, sb, lb) = runs["cpu"], runs[str(cuda)]
+    assert la == 0 and lb == sb.nsteps > 0
+    assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
+    Ha, Hb = a["ice_thickness"], b["ice_thickness"]
+    assert np.abs(Hb - Ha).max() <= 1e-10 * Ha.max()

@@ -24,6 +24,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import pism_tpu_torch, pism_tpu_torch.setups, pism_tpu_torch.convert\n"
         "import pism_tpu_torch.model.icemodel, pism_tpu_torch.ops.kernels.ssa_matvec\n"
+        "import pism_tpu_torch.ops.kernels.pcr, pism_tpu_torch.ops.kernels.sia_thermo\n"
+        "import pism_tpu_torch.verification.eismint2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pism_tpu' or m.startswith('pism_tpu.'))\n"
         "assert not bad, bad\n"
@@ -74,9 +76,9 @@ def test_config_lookups_match():
 
 
 @pytest.mark.parametrize("override", [
-    {"stress_balance.sia.flow_law": "pb"},
+    {"stress_balance.ssa.fd.line_pcr_dtype": "bf16"},
     {"stress_balance.ssa.flow_law": "isothermal_glen"},
-    {"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"},
+    {"stress_balance.model": "weertman_sliding+sia"},
     {"stress_balance.ssa.fd.line_block": 64},
     {"stress_balance.ssa.fd.preconditioner": "mg"},
     {"stress_balance.ssa.fd.krylov_method": "cg"},
@@ -88,7 +90,7 @@ def test_config_lookups_match():
     {"stress_balance.ssa.fd.velocity_change_rtol": 0.0,
      "runtime.float_dtype": "float32"},
     {"age.enabled": True},
-    {"stress_balance.model": "sia"},
+    {"energy.model": "none"},
 ])
 def test_unsupported_config_raises(override):
     from pism_tpu_torch import setups
@@ -113,3 +115,15 @@ def test_supported_config_builds():
     assert state.geometry.ice_thickness.dtype == torch.float32
     assert state.enthalpy.shape == grid.shape3
     assert model.skip_max == 10
+
+
+def test_line_pcr_kernels_config_builds():
+    """``line_pcr_impl = pallas_sublane`` (path A) builds; its
+    preconditioner is the PCR kernels' route."""
+    from pism_tpu_torch import setups
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float32", km=200.0,
+        extra_cfg={"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"})
+    assert model.ssa.pcr_impl == "pallas_sublane"
+    assert state.geometry.ice_thickness.dtype == torch.float32
