@@ -10,10 +10,14 @@ version on the card, relative max-norm error:
   K2b ``pcr_lines`` and K2 ``pcr_lines_sub`` on random diagonally dominant
   unit-diagonal systems, lines of n = 76, 141, 301, 561 over batches of 141,
   76, 561, 301, both layouts, 1e-12 / 1e-5;
-  K3 ``sia_flux_thermo`` at 61x61x61 and 561x301x41, 1e-12 / 1e-4.
-It times each with CUDA events and the profiler's device time, then runs
-the 100 km chain with the PCR kernels for one model year in float64 on the
-card and on the CPU (plain torch path) and compares the two.
+  K3 ``sia_flux_thermo`` at 61x61x61 and 561x301x41, 1e-12 / 1e-4;
+  K4 ``sia_flux`` at 61x61 and 601x601 on a dome with an ice-free margin,
+  with and without a binding diffusivity cap, 1e-12 / 2e-5.
+It times each with CUDA events and the profiler's device time and computes
+its bound (the larger of its bytes over 3.35 TB/s and its operations over
+67 TFLOP/s, float32), then runs the 100 km chain with the PCR kernels for
+one model year in float64 on the card and on the CPU (plain torch path) and
+compares the two.
 
 Every path below is driven through ``IceModel.step_once`` with the kernels'
 launch counters set to 0 just before it and read just after:
@@ -29,7 +33,14 @@ launch counters set to 0 just before it and read just after:
   phase 4: path B, EISMINT II A at 61x61x61 float32 from zero ice, 5000
     model years, then 2000 timed, a few steps profiled and a timed
     breakdown of 100 a; then 1000 more
-    with ``sia.pallas = off`` against the same 1000 on K3.
+    with ``sia.pallas = off`` against the same 1000 on K3;
+  phase 5: path C, the isothermal SIA (Halfar test B, K4): (a) 61x61
+    float64 for 1000 model years with ``sia.pallas = on``, the card against
+    the CPU, and its errors against the exact solution; (b) 601x601 float32
+    (3 km) under ``auto`` for 200 model years from t0, timed, then a few
+    steps profiled and a timed breakdown of 2 a; (c) the same 200 a with ``sia.pallas = off`` against
+    (b); (d) Halfar test C and the runner's letters A, D, H and L at 61x61
+    float64 on the card, under the JAX package's test thresholds.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -37,15 +48,33 @@ JSON kernel record; the last line is the device record.
 """
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
 
 SPY = 3.15569259747e7
 PATH_A = {"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"}
+# one NVIDIA H100 SXM at its full power limit (NVIDIA's data sheet): device
+# memory rate, and the float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# path C at full width: Halfar test B at 3 km over the 1800 km square
+HALFAR_MX, HALFAR_YEARS = 601, 200.0
+# operations of each kernel, counted from its plain version's arithmetic:
+# per cell (K1, K1 JVP without a drag tangent, K4), per element and round
+# of cyclic reduction (K2/K2b), per face and level of the softness integral
+# plus per face (K3)
+OPS = {"ssa_matvec": 52, "ssa_matvec_jvp": 102, "pcr_round": 14,
+       "sia_thermo_level": 37, "sia_thermo_face": 15, "sia_flux": 36}
 
 
 def _require_cuda():
+    # the script drives one card: show the process only the first one
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0" if visible is None \
+        else visible.split(",")[0]
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -72,9 +101,10 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _device_profile(fn, reps):
+def _device_profile(fn, reps, match=None):
     """(device µs per call, device ops per call) from the profiler's CUDA
-    activity; (None, None) if the profiler records no device time."""
+    activity, of the ops whose name contains ``match`` if given; (None,
+    None) if the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -86,22 +116,36 @@ def _device_profile(fn, reps):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and (match is None or match in e.name)]
         total = sum(e.time_range.elapsed_us() for e in dev)
         if dev and total > 0:
             return total / reps, len(dev) / reps
     return None, None
 
 
+def _bound(nbytes, nops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for a float32 function that moves ``nbytes`` and does ``nops``."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * nops / F32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _counters():
-    from pism_tpu_torch.ops.kernels import pcr, sia_thermo, ssa_matvec
+    from pism_tpu_torch.ops.kernels import pcr, sia_iso, sia_thermo, ssa_matvec
     from pism_tpu_torch.util import hostsync
     return ((ssa_matvec, "LAUNCHES", "ssa_matvec"),
             (ssa_matvec, "JVP_LAUNCHES", "ssa_matvec_jvp"),
             (pcr, "LAUNCHES", "pcr_lines"),
             (pcr, "SUB_LAUNCHES", "pcr_lines_sub"),
             (sia_thermo, "LAUNCHES", "sia_flux_thermo"),
+            (sia_iso, "LAUNCHES", "sia_flux"),
             (hostsync, "COUNT", "host_syncs"))
+
+
+KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "pcr_lines", "pcr_lines_sub",
+           "sia_flux_thermo", "sia_flux")
 
 
 def reset_counts():
@@ -123,9 +167,14 @@ def _check_launches(label, counts, launched, idle):
                                  "times off its path")
 
 
-def _kernel_case(name, kern, plain, args, tol, label, reps=200):
-    """Kernel against plain version on the same inputs, then both timed.
-    Returns (events ms, plain events ms, max abs err)."""
+def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
+                 match=None):
+    """Kernel against plain version on the same inputs, then both timed,
+    and the kernel's bound from the bytes of its tensor inputs and outputs
+    (each counted once) and ``nops`` operations. ``match`` names the CUDA
+    kernel, whose device time alone is printed too. Returns the kernel's
+    record: events ms, plain events ms, max abs err, bound ms and what sets
+    the bound."""
     import torch
     got = kern(*args)
     torch.cuda.synchronize()
@@ -137,34 +186,47 @@ def _kernel_case(name, kern, plain, args, tol, label, reps=200):
     if not err <= tol:
         raise AssertionError(f"{name} {label}: relative error {err:.3e} > "
                              f"{tol:.0e}")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*args, *got) if torch.is_tensor(t))
+    bound_ms, bound_by = _bound(nbytes, nops)
     ms = _time_ms(lambda: kern(*args), reps)
     plain_ms = _time_ms(lambda: plain(*args), reps)
     dev_us, _ = _device_profile(lambda: kern(*args), 50)
     plain_us, plain_ops = _device_profile(lambda: plain(*args), 50)
     dev = "not measured" if dev_us is None or plain_us is None else (
         f"{dev_us:.2f} us / {plain_us:.2f} us in {plain_ops:.0f} ops")
+    if match is not None:
+        alone, _ = _device_profile(lambda: kern(*args), 50, match)
+        dev += (", the kernel alone not measured" if alone is None
+                else f", the kernel alone {alone:.2f} us")
     print(f"phase1: {name} {label} rel_err {err:.3e} (tol {tol:.0e}) events "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; device {dev}")
-    return ms, plain_ms, abs_err
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; device {dev}; "
+          f"bound {1e3 * bound_ms:.2f} us ({bound_by}: {nbytes} bytes, "
+          f"{nops:.0f} operations)")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": abs_err,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase1_kernels(dev):
     """Every kernel against its plain version at the paths' shapes; returns
-    {kernel name: (ms, plain_ms, max_abs_err)} at the 20 km f32 shapes (K3:
-    EISMINT II's 61x61x61 f32)."""
+    {kernel name: record of ``_kernel_case``} at the 20 km f32 shapes (K3:
+    EISMINT II's 61x61x61 f32; K4: path C's 601x601 f32)."""
     import numpy as np
     import torch
     import pism_tpu_torch as pt
     from pism_tpu_torch.ops.kernels import _build
     from pism_tpu_torch.ops.kernels import pcr as K2
+    from pism_tpu_torch.ops.kernels import sia_iso as K4
     from pism_tpu_torch.ops.kernels import sia_thermo as K3
     from pism_tpu_torch.ops.kernels import ssa_matvec as K
     from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter
     from pism_tpu_torch.physics.rheology import PatersonBudd
+    from pism_tpu_torch.verification import halfar
 
     t0 = time.time()
-    _build.build("ssa_matvec", "pcr", "sia_thermo")
-    print(f"phase1: built ssa_matvec, pcr, sia_thermo in {time.time() - t0:.1f} s")
+    _build.build("ssa_matvec", "pcr", "sia_thermo", "sia_iso")
+    print(f"phase1: built ssa_matvec, pcr, sia_thermo, sia_iso in "
+          f"{time.time() - t0:.1f} s")
     out = {}
     rng = np.random.default_rng(20240601)
     tols = ((torch.float64, 1e-12), (torch.float32, 1e-5))
@@ -190,7 +252,8 @@ def phase1_kernels(dev):
                     ("ssa_matvec_jvp", K.ssa_matvec_jvp,
                      K.ssa_matvec_jvp_plain, jv)):
                 r = _kernel_case(name, kern, plain, args, tol,
-                                 f"{My}x{Mx} {str(dtype)[6:]}")
+                                 f"{My}x{Mx} {str(dtype)[6:]}",
+                                 OPS[name] * My * Mx)
                 if km == 20 and dtype == torch.float32:
                     out[name] = r
 
@@ -204,12 +267,13 @@ def phase1_kernels(dev):
                    for x in (a, np.ones((n, batch)), c, d)]
             lanes = [x.T.contiguous() for x in sub]
             label = f"n={n} batch={batch} {str(dtype)[6:]}"
+            nops = OPS["pcr_round"] * n * batch * math.ceil(math.log2(n))
             r = _kernel_case("pcr_lines_sub", K2.pcr_lines_sub,
-                             K2.pcr_lines_sub_plain, sub, tol, label)
+                             K2.pcr_lines_sub_plain, sub, tol, label, nops)
             if (n, batch) == (141, 76) and dtype == torch.float32:
                 out["pcr_lines_sub"] = r     # the 20 km v-lines
             r = _kernel_case("pcr_lines", K2.pcr_lines, K2.pcr_lines_plain,
-                             lanes, tol, label)
+                             lanes, tol, label, nops)
             if (n, batch) == (76, 141) and dtype == torch.float32:
                 out["pcr_lines"] = r         # the 20 km u-lines
 
@@ -233,9 +297,34 @@ def phase1_kernels(dev):
                 lambda *x: K3.sia_flux_thermo(*x, **kw)[:4],
                 lambda *x: tuple(K3.sia_flux_thermo_plain(*x, **kw)[i]
                                  for i in (2, 3, 0, 1)),
-                args, tol, f"{My}x{Mx}x{Mz} {str(dtype)[6:]}", reps=50)
+                args, tol, f"{My}x{Mx}x{Mz} {str(dtype)[6:]}",
+                2 * My * Mx * (OPS["sia_thermo_level"] * Mz
+                               + OPS["sia_thermo_face"]), reps=50)
             if Mz == 61 and dtype == torch.float32:
                 out["sia_flux_thermo"] = r
+
+    # K4: the Halfar dome at t0 (an ice-free margin around it) with surface
+    # noise on the ice, at path C's spacing for each grid ----------------
+    sol = halfar.test_B()
+    for M in (61, HALFAR_MX):
+        grid = pt.Grid(Mx=M, My=M, Lx=900e3, Ly=900e3)
+        H = sol.thickness(sol.t0, grid.radius)
+        s = H + rng.uniform(0.0, 5.0, size=H.shape) * (H > 0)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
+            args = [torch.tensor(x, dtype=dtype, device=dev) for x in (H, s)]
+            for d_cap in (None, 0.5):
+                kw = dict(A=halfar.A_SOFTNESS, dx=grid.dx, dy=grid.dy,
+                          d_cap=d_cap)
+                gam = K4.gamma(halfar.A_SOFTNESS)
+                r = _kernel_case(
+                    "sia_flux", lambda *x: K4.sia_flux(*x, **kw)[:4],
+                    lambda *x: tuple(K4.sia_flux_plain(
+                        *x, gamma=gam, dx=grid.dx, dy=grid.dy,
+                        d_cap=d_cap)[i] for i in (2, 3, 0, 1)),
+                    args, tol, f"{M}x{M} {str(dtype)[6:]} d_cap={d_cap}",
+                    OPS["sia_flux"] * M * M, match="sia_iso_kernel")
+                if M == HALFAR_MX and dtype == torch.float32 and d_cap is None:
+                    out["sia_flux"] = r
     return out
 
 
@@ -409,8 +498,9 @@ def breakdown(model, state, t, years, label):
     from pism_tpu_torch.ops import ssa as ssa_ops
 
     targets = [(model.stress_balance, "update", "stress balance"),
-               (model, "_mass_substep", "mass transport"),
-               (model.energy_model, "step", "energy")]
+               (model, "_mass_substep", "mass transport")]
+    if model.energy_model is not None:
+        targets += [(model.energy_model, "step", "energy")]
     if model.ssa is not None:
         targets += [(model.ssa, "solve", "SSA solve"),
                     (ssa_ops, "bicgstab_solve", "BiCGStab"),
@@ -546,8 +636,7 @@ def phase4_eismint(dev):
     if abs(t - 7000.0 * SPY) > 1e-3 or stats.nsteps <= 0:
         raise AssertionError(f"phase4: {stats.nsteps} steps reached t = {t}")
     _check_launches("phase4", counts, ("sia_flux_thermo",),
-                    ("ssa_matvec", "ssa_matvec_jvp", "pcr_lines",
-                     "pcr_lines_sub"))
+                    tuple(k for k in KERNELS if k != "sia_flux_thermo"))
     H = state.geometry.ice_thickness.double()
     cell = grid.dx * grid.dy
     n = stats.nsteps
@@ -589,6 +678,145 @@ def phase4_eismint(dev):
     return counts
 
 
+def _halfar_errors(label, errs, limits):
+    """Raise unless every error norm is under its limit."""
+    over = {k: (errs[k], v) for k, v in limits.items() if not errs[k] < v}
+    if over:
+        raise AssertionError(f"{label}: errors over their limits {over}")
+
+
+def _volume_drift(state, V0):
+    return abs(float(state.geometry.ice_thickness.double().sum()) - V0) / V0
+
+
+def phase5_halfar(dev):
+    """Path C: Halfar test B through K4, and the isothermal verification
+    letters. Returns the launch counts of (b), the main path."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.convert import state_to_numpy
+    from pism_tpu_torch.verification import exact_steady as es
+    from pism_tpu_torch.verification import halfar, runner
+
+    # (a) 61x61 float64, 1000 a, K4 on the card against its plain version
+    # on the CPU; the errors under tests/test_halfar.py's thresholds
+    on = {"stress_balance.sia.pallas": "on"}
+    runs = {}
+    for where in ("cpu", dev):
+        model, state, grid, sol = setups.halfar_model(
+            "B", 61, "float64", device=where, extra_cfg=on)
+        state, t, stats = model.step_once(state, sol.t0, 1000.0 * SPY)
+        runs[str(where)] = (state, t, stats)
+    (sa, ta, sta), (sb, tb, stb) = runs["cpu"], runs[str(dev)]
+    Ha = state_to_numpy(sa)["ice_thickness"]
+    Hb = state_to_numpy(sb)["ice_thickness"]
+    H_err = float(abs(Hb - Ha).max() / abs(Ha).max())
+    print(f"phase5a: Halfar B 61x61 float64 1000 a, card (K4) vs cpu: steps "
+          f"{stb.nsteps} / {sta.nsteps}, dt-limit hits {stb.limit_hits_dict()}"
+          f" / {sta.limit_hits_dict()}, H max err {H_err:.3e} of max H")
+    if stb.nsteps != sta.nsteps or stb.limit_hits_dict() != sta.limit_hits_dict() \
+            or not H_err <= 1e-7:
+        raise AssertionError("phase5a: card and cpu disagree")
+    _halfar_errors("phase5a", setups.halfar_report(sol, sb, grid, tb),
+                   {"dome_H": 5.0, "avg_H": 15.0, "max_H": 400.0})
+
+    # (b) the main path: 601x601 float32 under auto (K4) ------------------
+    model, state, grid, sol = setups.halfar_model(
+        "B", HALFAR_MX, "float32", device=dev)
+    V0 = float(state.geometry.ice_thickness.double().sum())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    s_k4, t, stats = model.step_once(state, sol.t0, HALFAR_YEARS * SPY)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    H = s_k4.geometry.ice_thickness
+    if not bool(torch.isfinite(H).all()) or tuple(H.shape) != grid.shape2 \
+            or H.dtype != torch.float32:
+        raise AssertionError("phase5b: non-finite or misshapen thickness")
+    if stats.nsteps <= 0 or abs(t - sol.t0 - HALFAR_YEARS * SPY) > 1e-3:
+        raise AssertionError(f"phase5b: {stats.nsteps} steps reached t = {t}")
+    _check_launches("phase5b", counts, ("sia_flux",),
+                    tuple(k for k in KERNELS if k != "sia_flux"))
+    n = stats.nsteps
+    drift_k4 = _volume_drift(s_k4, V0)
+    print(f"phase5b: Halfar B {grid.My}x{grid.Mx} float32 (sia.pallas = auto)"
+          f", {HALFAR_YEARS} a from t0: steps {n}, dt-limit hits "
+          f"{stats.limit_hits_dict()}, wall {wall:.3f} s, "
+          f"{1e3 * wall / n:.3f} ms/step, "
+          f"{HALFAR_YEARS / wall * 3600.0:.1f} model years per wall hour, "
+          f"host syncs {stats.host_syncs / n:.2f}/step, K4 launches "
+          f"{counts['sia_flux']} ({counts['sia_flux'] / n:.2f}/step), "
+          f"launches {counts}, volume drift {drift_k4:.3e}")
+    setups.halfar_report(sol, s_k4, grid, t)
+    profile_steps(model, s_k4, t, 0.2, "phase5b")
+    breakdown(model, s_k4, t, 2.0, "phase5b")
+
+    # (c) the same on the plain path --------------------------------------
+    off, state, _, _ = setups.halfar_model(
+        "B", HALFAR_MX, "float32", device=dev,
+        extra_cfg={"stress_balance.sia.pallas": "off"})
+    reset_counts()
+    t0 = time.time()
+    s_off, t_off, st_off = off.step_once(state, sol.t0, HALFAR_YEARS * SPY)
+    torch.cuda.synchronize()
+    wall_off = time.time() - t0
+    k4_off = read_counts()["sia_flux"]
+    H_err = float((s_off.geometry.ice_thickness - H).abs().max() / H.abs().max())
+    drift_off = _volume_drift(s_off, V0)
+    # zero SMB: the flux form conserves volume up to float32 rounding, at
+    # most 1e-8 of it per step (3.3e-10 per step measured at 201x201)
+    drift_tol = 1e-8 * max(n, st_off.nsteps)
+    print(f"phase5c: the same {HALFAR_YEARS} a with sia.pallas = off: steps "
+          f"{st_off.nsteps} / {n}, dt-limit hits {st_off.limit_hits_dict()}, "
+          f"{1e3 * wall_off / st_off.nsteps:.3f} ms/step, K4 launches "
+          f"{k4_off}, H max diff {H_err:.3e} of max H (tol 1e-4), volume "
+          f"drift {drift_off:.3e} (K4 {drift_k4:.3e}; tol {drift_tol:.1e})")
+    if abs(st_off.nsteps - n) > 1 or not H_err <= 1e-4 or k4_off != 0 \
+            or not max(drift_k4, drift_off) <= drift_tol:
+        raise AssertionError("phase5c: K4 and the plain path disagree")
+
+    # (d) test C (0.6 t0 to t0) and the runner's letters at 61x61 float64
+    # on the card, under tests/test_halfar.py's and
+    # tests/test_exact_steady.py's thresholds -----------------------------
+    t0 = time.time()
+    c_t0 = halfar.test_C().t0
+    model, state, grid, sol = setups.halfar_model(
+        "C", 61, "float64", device=dev, t_start=0.6 * c_t0)
+    state, t, stats = model.step_once(state, 0.6 * c_t0, 0.4 * c_t0)
+    _halfar_errors("phase5d C", setups.halfar_report(sol, state, grid, t),
+                   {"dome_H": 40.0, "avg_H": 30.0})
+    steps, final = {"C": stats.nsteps}, {}
+    real = runner._run_sia
+
+    def run_sia(*a, **k):
+        final["state"], final["stats"] = out = real(*a, **k)
+        return out
+    limits = {"A": (2000.0, {"dome_H": 30.0, "avg_H": 100.0, "max_H": 1500.0}),
+              "D": (2500.0, {"dome_H": 35.0, "avg_H": 110.0}),
+              "H": (None, {"dome_H": 60.0, "avg_H": 40.0, "bed": 1e-6}),
+              "L": (1000.0, {"dome_H": 15.0, "avg_H": 160.0, "max_H": 1600.0})}
+    runner._run_sia = run_sia
+    try:
+        for letter, (years, lim) in limits.items():
+            errs = runner.run_test(letter, Mx=61, years=years, device=dev)
+            steps[letter] = final["stats"].nsteps
+            if letter == "H":
+                # the bed must be -f H wherever there is ice (isostasy)
+                g = final["state"].geometry
+                icy = g.ice_thickness > 1.0
+                errs["bed"] = float((g.bed_elevation + es.test_H().f
+                                     * g.ice_thickness)[icy].abs().max())
+            _halfar_errors(f"phase5d {letter}", errs, lim)
+    finally:
+        runner._run_sia = real
+    print(f"phase5d: Halfar C and letters A, D, H, L at 61x61 float64 on the "
+          f"card under their thresholds: steps {steps}, "
+          f"{time.time() - t0:.1f} s")
+    return counts
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -609,11 +837,11 @@ def main():
 
     pcr_names = ("pcr_lines", "pcr_lines_sub")
     k1 = ("ssa_matvec", "ssa_matvec_jvp")
+    sia = ("sia_flux_thermo", "sia_flux")
     _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2", None, k1,
-                                   pcr_names + ("sia_flux_thermo",))
+                                   pcr_names + sia)
     model, state, t, (a2, a8), counts_a = run_hybrid(
-        dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names,
-        ("sia_flux_thermo",))
+        dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names, sia)
     (s2, _, v2), (sa, _, va) = p2, a2
     rel = abs(va - v2) / v2
     print(f"phase2b: after 2 a against phase 2: steps {sa.nsteps} / "
@@ -628,26 +856,32 @@ def main():
     profile_steps(model, state, t, 0.01, "phase2b")
     breakdown(model, state, t, 1.0, "phase2b")
     model, state, t, _, _ = run_hybrid(dev, 5.0, (0.5,), "phase3", PATH_A,
-                                       k1 + pcr_names, ("sia_flux_thermo",))
+                                       k1 + pcr_names, sia)
     profile_bicgstab(model, state, t, 0.01, "phase3")
     breakdown(model, state, t, 0.25, "phase3")
     counts_b = phase4_eismint(dev)
+    t5 = time.time()
+    counts_c = phase5_halfar(dev)
+    print(f"phase5: {time.time() - t5:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
+    # no single PyTorch call computes any of these functions (library_ms)
     kernels = []
     for name, source, replaces, counts in (
             ("ssa_matvec", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts_a),
             ("ssa_matvec_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts_a),
             ("pcr_lines", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts_a),
             ("pcr_lines_sub", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts_a),
-            ("sia_flux_thermo", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_b)):
-        ms, plain_ms, err = timings[name]
+            ("sia_flux_thermo", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_b),
+            ("sia_flux", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_c)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        **timings[name], "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    # the run drives one card (cuda:0), which CUDA_VISIBLE_DEVICES restricts
+    # the process to, so this count is 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,33 +5,18 @@ getters with unit conversion, override files, and tracking of parameters that
 were actually read (PISM reports unused overrides). The config is a plain
 host-side object read when components are built.
 
-A copy of ``pism_tpu/config/config.py`` over the SAME parameter database:
-``pism_tpu/config/parameters.py`` has no imports, so it is loaded by file
-path (``importlib.util.spec_from_file_location``), which does not run
-``pism_tpu/__init__.py`` (that one imports jax).
+A copy of ``pism_tpu/config/config.py``; ``parameters.py`` beside it is the
+port's own copy of the JAX package's parameter database (names, defaults,
+units and documentation kept identical, which a test checks key for key).
 """
 
 from __future__ import annotations
 
-import importlib.util
 import json
-import pathlib
 from typing import Any, Dict, Iterable, Optional
 
 from ..util.units import convert
-
-
-def _load_parameters() -> Dict[str, tuple]:
-    path = (pathlib.Path(__file__).resolve().parents[2]
-            / "pism_tpu" / "config" / "parameters.py")
-    spec = importlib.util.spec_from_file_location(
-        "pism_tpu_torch.config._parameters", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.PARAMETERS
-
-
-PARAMETERS = _load_parameters()
+from .parameters import PARAMETERS
 
 
 def require(config: "Config", name: str, allowed: Iterable[Any]) -> None:

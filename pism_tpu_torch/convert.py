@@ -21,7 +21,7 @@ _STATE = tuple(f.name for f in dataclasses.fields(ModelState)
                if f.name != "geometry")
 
 
-def state_from_numpy(arrays: dict, device="cpu", dtype=torch.float64
+def state_from_numpy(arrays: dict, device="cuda", dtype=torch.float64
                      ) -> ModelState:
     """ModelState from ``{field name: numpy array}``; floating fields get
     ``dtype``, integer fields (cell_type) keep theirs. Entries that are None

@@ -1,7 +1,7 @@
 """Surface (climate) boundary models (port of
 ``pism_tpu/coupler/surface.py``: the data types, the base class the PDD
-model builds on, and the stateless ``FunctionSurface`` of the verification
-setups)."""
+model builds on, the stateless ``FunctionSurface`` of the verification
+setups and the spatially uniform ``Uniform``)."""
 
 from __future__ import annotations
 
@@ -55,3 +55,16 @@ class FunctionSurface(SurfaceModel):
     def __call__(self, geometry, t) -> SurfaceInputs:
         smb, temp = self.fn(geometry, t)
         return SurfaceInputs(smb, temp)
+
+
+@dataclass
+class Uniform(SurfaceModel):
+    """Spatially uniform, constant in time."""
+
+    smb: float = 0.0          # m/s ice equivalent
+    temperature: float = 263.15
+
+    def __call__(self, geometry, t) -> SurfaceInputs:
+        H = geometry.ice_thickness
+        return SurfaceInputs(smb=torch.full_like(H, self.smb),
+                             temperature=torch.full_like(H, self.temperature))

@@ -1,5 +1,6 @@
 """Calving and iceberg removal (port of ``pism_tpu/model/calving.py``:
-``thickness_calving`` and ``remove_icebergs``; other methods raise).
+``thickness_calving``, ``ocean_kill`` with an explicit kill mask, and
+``remove_icebergs``; other methods raise).
 
 Icebergs are removed by a flood fill from grounded ice over the icy mask.
 The JAX package runs it as a ``lax.while_loop`` until no cell changes
@@ -59,6 +60,9 @@ class CalvingModel:
 
     grid: object
     config: object
+    # "ocean_kill": calve all ice in these cells (PISM ``calving
+    # ocean_kill``); the port takes the mask only from its caller
+    ocean_kill_mask: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         cfg = self.config
@@ -66,10 +70,15 @@ class CalvingModel:
         m = cfg.get_string("calving.methods")
         self.methods = tuple(s.strip() for s in m.split(",") if s.strip())
         for name in self.methods:
-            if name != "thickness_calving":
+            if name not in ("thickness_calving", "ocean_kill"):
                 raise NotImplementedError(
                     f"calving method {name!r} is not implemented in "
-                    "pism_tpu_torch (supported: 'thickness_calving')")
+                    "pism_tpu_torch (supported: 'thickness_calving', "
+                    "'ocean_kill')")
+        if "ocean_kill" in self.methods and self.ocean_kill_mask is None:
+            raise NotImplementedError(
+                "ocean_kill without an explicit kill mask (PISM's default "
+                "from the input file) is not implemented in pism_tpu_torch")
         require(cfg, "calving.float_kill.enabled", (False,))
         require(cfg, "calving.thickness_calving.file", ("",))
         require(cfg, "frontal_melt.models", ("", "none"))
@@ -86,10 +95,18 @@ class CalvingModel:
         icy = S.icy(mask)
         H = geometry.ice_thickness
         C_in = H + geometry.ice_area_specific_volume
+        kill = None
+        if "ocean_kill" in self.methods:
+            kill = self.ocean_kill_mask.to(device=H.device, dtype=torch.bool)
+            H = torch.where(kill, 0.0, H)
         if "thickness_calving" in self.methods and self.H_threshold > 0:
             front = front_mask(icy, mask == S.MASK_ICE_FREE_OCEAN, self.sh)
             calve = front & S.floating_ice(mask) & (H < self.H_threshold)
-            geometry = geometry.replace(ice_thickness=torch.where(calve, 0.0, H))
+            H = torch.where(calve, 0.0, H)
+        geometry = geometry.replace(ice_thickness=H)
+        if kill is not None:
+            geometry = geometry.replace(ice_area_specific_volume=torch.where(
+                kill, 0.0, geometry.ice_area_specific_volume))
         if self.remove_bergs:
             geometry = remove_icebergs(geometry, self.sh)
         if not with_parts:

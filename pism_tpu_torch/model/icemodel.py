@@ -1,7 +1,8 @@
 """The model's time stepping (port of ``pism_tpu/model/icemodel.py`` for
-the hybrid ``ssa+sia`` chain and the SIA-only ``sia`` chain): orders the
-sub-model updates within a step and selects the adaptive time step as the
-min over stability limits.
+the hybrid ``ssa+sia`` chain, the thermomechanical SIA-only chain and the
+isothermal SIA chain of the verification tests): orders the sub-model
+updates within a step and selects the adaptive time step as the min over
+stability limits.
 
 The JAX package runs a whole segment as one ``lax.while_loop`` on the
 device (``pism_tpu/model/icemodel.py:776-791``). Here the step loop is a
@@ -10,13 +11,19 @@ chosen on the host from one sync per step that reads the five maxima the
 stability limits need. Every other host decision is counted by
 ``util/hostsync.py``; ``StepStats.host_syncs`` reports them.
 
-Components built here are exactly the two chains': enthalpy energy with
-the minimal bedrock unit, the SIA stress balance and, with ``ssa+sia``,
-the SSAFD solve, Mohr-Coulomb yield stress and null hydrology; thickness
-calving with iceberg removal or no calving; part-grid mass transport with
-skip substeps; a stateful PDD surface model or a stateless one (EISMINT
-II's climate); an optional constant ocean. Any other configured component
-raises NotImplementedError.
+Components built here are exactly the chains': enthalpy energy with the
+minimal bedrock unit, or no energy model (``energy.model = none``, the
+isothermal SIA with no 3D velocities); the SIA stress balance and, with
+``ssa+sia``, the SSAFD solve, Mohr-Coulomb yield stress and null
+hydrology; thickness calving with iceberg removal, ocean-kill calving
+given as a ``calving`` component, or no calving; pointwise isostasy or no
+bed deformation; part-grid mass transport with skip substeps; a stateful
+PDD surface model or a stateless one; an optional constant ocean. Any
+other configured component raises NotImplementedError.
+
+``device`` (default ``"cuda"``) is where every field lives:
+``prepare_state`` moves the state there, and on a machine without a card
+torch raises rather than the model running on the CPU.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..physics.rheology import flow_law_from_config
 from ..coupler.surface import SurfaceCarry
 from ..util import hostsync
 from . import geometry_evolution as ge
+from .beddef import bed_deformation_from_config
 from .btu import btu_from_config
 from .calving import calving_from_config
 from .energy import EnergyModel, bootstrap_enthalpy
@@ -105,14 +113,18 @@ class IceModel:
     config: Config
     surface: object = None     # SurfaceModel: stateful (PDD) or stateless
     ocean: object = None       # OceanModel (sub-shelf melt), optional
-    device: object = None      # torch device of every field; default cpu
+    calving: object = None     # CalvingModel; default from the config
+    device: object = "cuda"    # torch device of every field
 
     def __post_init__(self):
         cfg = self.config
-        self.device = torch.device("cpu" if self.device is None else self.device)
+        self.device = torch.device(self.device)
         require(cfg, "runtime.float_dtype", ("float32", "float64"))
-        require(cfg, "energy.model", ("enthalpy",))
-        require(cfg, "bed_deformation.model", ("none", ""))
+        require(cfg, "energy.model", ("enthalpy", "none"))
+        if cfg.get_string("energy.model") == "none":
+            # the isothermal SIA chain of the verification tests
+            require(cfg, "stress_balance.model", ("sia",))
+            require(cfg, "stress_balance.sia.flow_law", ("isothermal_glen",))
         require(cfg, "frontal_melt.models", ("", "none"))
         require(cfg, "ocean.always_grounded", (False,))
         require(cfg, "time_stepping.adaptive_timestepping", (True,))
@@ -129,7 +141,11 @@ class IceModel:
         self.EC = EnthalpyConverter.from_config(cfg)
         self.dtype = torch.float64 \
             if cfg.get_string("runtime.float_dtype") == "float64" else torch.float32
-        self.energy_model = EnergyModel(grid=self.grid, config=cfg, EC=self.EC)
+        self.energy_model = self.btu = None
+        if cfg.get_string("energy.model") == "enthalpy":
+            self.energy_model = EnergyModel(grid=self.grid, config=cfg,
+                                            EC=self.EC)
+            self.btu = btu_from_config(self.grid, cfg)
         # the SSA and what feeds it exist only with an SSA in the model
         # (pism_tpu/model/icemodel.py:185-206)
         self.ssa = self.yield_stress = self.hydrology = None
@@ -138,13 +154,14 @@ class IceModel:
                              flow_law=flow_law_from_config(cfg, "ssa", self.EC))
             self.yield_stress = MohrCoulombYieldStress(cfg)
             self.hydrology = NullTransport(grid=self.grid, config=cfg)
-        self.calving = calving_from_config(self.grid, cfg)
-        self.btu = btu_from_config(self.grid, cfg)
+        if self.calving is None:
+            self.calving = calving_from_config(self.grid, cfg)
+        self.bed_deformation = bed_deformation_from_config(self.grid, cfg)
         self.geothermal = cfg.get_number("bootstrapping.defaults.geothermal_flux")
         self.stress_balance = StressBalance(
             grid=self.grid, config=cfg,
             sia_flow_law=flow_law_from_config(cfg, "sia", self.EC),
-            ssa=self.ssa, compute_3d=True)
+            ssa=self.ssa, compute_3d=self.energy_model is not None)
 
         self.rho_i = cfg.get_number("constants.ice.density")
         self.rho_w = cfg.get_number("constants.sea_water.density")
@@ -176,11 +193,14 @@ class IceModel:
         With skip, the mass-transport limits allow skip_max substeps per
         expensive update, so the step is skip_max times the mass limit."""
         grid = self.grid
-        # the one sync of the dt choice: the five maxima the limits need
-        max_D, max_ue, max_vn, max_u3, max_v3 = hostsync.host(torch.stack([
-            sb.max_diffusivity, torch.max(torch.abs(sb.u_face_e)),
-            torch.max(torch.abs(sb.v_face_n)), sb.sia3.max_u,
-            sb.sia3.max_v]).to(torch.float64))
+        # the one sync of the dt choice: the maxima the limits need (the 3D
+        # CFL limit exists only with the 3D velocities)
+        maxima = [sb.max_diffusivity, torch.max(torch.abs(sb.u_face_e)),
+                  torch.max(torch.abs(sb.v_face_n))]
+        if sb.sia3 is not None:
+            maxima += [sb.sia3.max_u, sb.sia3.max_v]
+        vals = hostsync.host(torch.stack(maxima).to(torch.float64))
+        max_D, max_ue, max_vn = vals[:3]
         cand = [math.inf] * len(DT_LIMITS)
         cand[0] = self.max_dt
         cand[1] = self.skip_max * sia_ops.max_timestep_diffusivity(
@@ -188,8 +208,9 @@ class IceModel:
         if self.ssa is not None:
             cand[2] = self.skip_max * (self.cfl_factor * ge.max_timestep_cfl_2d(
                 max_ue, max_vn, grid.dx, grid.dy))
-        cand[3] = self.cfl_factor * max_timestep_cfl_3d(
-            max_u3, max_v3, grid.dx, grid.dy)
+        if sb.sia3 is not None:
+            cand[3] = self.cfl_factor * max_timestep_cfl_3d(
+                vals[3], vals[4], grid.dx, grid.dy)
         if self.hydrology is not None:
             lim = self.hydrology.max_timestep()
             if lim is not None:
@@ -278,15 +299,17 @@ class IceModel:
 
         # 3. energy (enthalpy) step ---------------------------------------
         H = state.geometry.ice_thickness
-        G = state.geothermal_flux.to(dtype) if state.geothermal_flux is not None \
-            else torch.full_like(H, self.geothermal)
-        _, G = self.btu.step(state.bedrock_temperature, None, G, dt_f)
-        eres = self.energy_model.step(
-            state, sb.sia3, smb_in.temperature, dt_f, geothermal_flux=G,
-            frictional_heating=sb.basal_frictional_heating,
-            tillwat=state.tillwat)
-        state = state.replace(enthalpy=eres.enthalpy,
-                              basal_melt_rate=eres.basal_melt_rate)
+        if self.energy_model is not None:
+            G = state.geothermal_flux.to(dtype) \
+                if state.geothermal_flux is not None \
+                else torch.full_like(H, self.geothermal)
+            _, G = self.btu.step(state.bedrock_temperature, None, G, dt_f)
+            eres = self.energy_model.step(
+                state, sb.sia3, smb_in.temperature, dt_f, geothermal_flux=G,
+                frictional_heating=sb.basal_frictional_heating,
+                tillwat=state.tillwat)
+            state = state.replace(enthalpy=eres.enthalpy,
+                                  basal_melt_rate=eres.basal_melt_rate)
 
         # 5. hydrology -----------------------------------------------------
         if self.hydrology is not None:
@@ -325,6 +348,12 @@ class IceModel:
 
         state = state.replace(geometry=geometry, u_ssa=sb.u_ssa, v_ssa=sb.v_ssa)
 
+        # 9. bed deformation -----------------------------------------------
+        if self.bed_deformation is not None:
+            state = self.bed_deformation.step(state, dt_f, t=t + dt_f)
+            state = state.replace(geometry=S.ensure_consistency(
+                state.geometry, self.rho_i, self.rho_w, self.Hmin))
+
         f64 = torch.float64
         hits = list(stats.limit_hits)
         hits[dt_limit_idx] += 1
@@ -355,7 +384,9 @@ class IceModel:
         return state, t, stats
 
     def prepare_state(self, state: S.ModelState) -> S.ModelState:
-        """Fill in the fields the chain's components need."""
+        """Move the state to the model's device and fill in the fields the
+        chain's components need."""
+        state = S.map_tensors(state, lambda x: x.to(self.device))
         state = state.replace(geometry=S.ensure_consistency(
             state.geometry, self.rho_i, self.rho_w, self.Hmin, self.subgl))
         H = state.geometry.ice_thickness
@@ -363,7 +394,7 @@ class IceModel:
         kw = {}
         if self.hydrology is not None and state.tillwat is None:
             kw["tillwat"] = z2
-        if state.basal_melt_rate is None:
+        if self.energy_model is not None and state.basal_melt_rate is None:
             kw["basal_melt_rate"] = z2
         if self.ssa is not None:
             if state.u_ssa is None:
@@ -375,7 +406,10 @@ class IceModel:
                 kw["snow_depth"] = z2
             if state.firn_depth is None:
                 kw["firn_depth"] = z2
-        if state.enthalpy is None:
+        if self.bed_deformation is not None and state.bed_reference is None:
+            state = self.bed_deformation.initialize(state.replace(**kw))
+            kw = {}
+        if self.energy_model is not None and state.enthalpy is None:
             smb = self.surface(state.geometry, 0.0)
             G0 = state.geothermal_flux if state.geothermal_flux is not None \
                 else self.geothermal

@@ -1,16 +1,23 @@
 """Shallow-ice approximation (SIA) diffusivity and flux (port of
 ``pism_tpu/ops/sia.py``): Mahaffy and Haseloff staggered surface
-gradients and the thermomechanical diffusivity
+gradients and the diffusivity
 
     D = 2 e (rho g)^n |grad s|^(n-1) K,
     K = int_0^H A(E(z), p(H - z)) (H - z)^(n+1) dz   (z above base),
 
-then q = -D grad(s) on the faces. ``diffusivity`` routes as the JAX
-package does (``pism_tpu/ops/sia.py:170-270``): the fused kernel K3
-(``ops/kernels/sia_thermo.py``) where it computes the same quantity, else
-the plain path here. The hybrid chain, with Haseloff gradients and the bed
-smoother, takes the plain path; EISMINT II, with Mahaffy gradients and no
-bed-smoother theta, takes the kernel.
+which for an isothermal law (no enthalpy field, ``energy.model = none``)
+is the closed form K = A H^(n+2) / (n+2); then q = -D grad(s) on the
+faces. ``diffusivity`` routes as the JAX package does
+(``pism_tpu/ops/sia.py:225-270``): a fused kernel where it computes the same
+quantity (K3, ``ops/kernels/sia_thermo.py``, with an enthalpy field; K4,
+``ops/kernels/sia_iso.py``, without one), else the plain path here. The
+hybrid chain, with Haseloff gradients and the bed smoother, takes the
+plain path; EISMINT II and the Halfar setup, with Mahaffy gradients and no
+bed-smoother theta, take a kernel.
+
+The JAX package declines its isothermal kernel above 490,000 cells
+(``pism_tpu/ops/sia.py:238-239``) because the TPU kernel is one VMEM block.
+The CUDA kernel has no such limit, so the port's ``auto`` rule has none.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import stencils as st
+from .kernels import sia_iso as K4
 from .kernels import sia_thermo as K3
 from .. import state as S
 
@@ -88,22 +96,38 @@ def _softness_integral(flow_law, E3, H_face, z, n: float, enhancement: float):
     return torch.sum(0.5 * (f[..., 1:] + f[..., :-1]) * w, dim=-1)
 
 
-def _kernel_eligible(flow_law, enthalpy, grid, H, gradient_method,
-                     theta_e, theta_n, enhancement) -> bool:
+def _isothermal_softness(flow_law, dtype, device="cpu"):
+    """The law's softness as a 0-dim tensor of the field dtype (the JAX
+    package evaluates it at zero enthalpy and pressure)."""
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return flow_law.softness(zero, zero)
+
+
+def _iso_kernel_eligible(grid, H, gradient_method, theta_e, theta_n,
+                         enhancement) -> bool:
     """The ``auto`` rule of the JAX package's ``_pallas_eligible``
-    (``pism_tpu/ops/sia.py:170-190``) with a CUDA card where it has a TPU:
-    the kernel computes the identical quantity for float32 fields, Mahaffy
-    gradients, clamped (non-periodic) ghosts, a Paterson-Budd-family law,
-    no bed-smoother multipliers and a scalar enhancement factor."""
+    (``pism_tpu/ops/sia.py:170-190``, ``:227-239``) for K4, with a CUDA card
+    where it has a TPU: the kernel computes the identical quantity for
+    float32 fields, Mahaffy gradients, clamped (non-periodic) ghosts, no
+    bed-smoother multipliers and a scalar enhancement factor. No cell-count
+    limit (see the module's docstring)."""
     return (H.device.type == "cuda"
             and H.dtype == torch.float32
             and gradient_method == "mahaffy"
             and theta_e is None and theta_n is None
             and not grid.periodic_x and not grid.periodic_y
-            and enthalpy is not None
+            and not torch.is_tensor(enhancement))
+
+
+def _kernel_eligible(flow_law, enthalpy, grid, H, gradient_method,
+                     theta_e, theta_n, enhancement) -> bool:
+    """The same rule for K3: K4's, plus an enthalpy field and a
+    Paterson-Budd-family law."""
+    return (enthalpy is not None
             and all(hasattr(flow_law, a) for a in
                     ("A_cold", "A_warm", "Q_cold", "Q_warm", "T_critical", "R"))
-            and not torch.is_tensor(enhancement))
+            and _iso_kernel_eligible(grid, H, gradient_method, theta_e,
+                                     theta_n, enhancement))
 
 
 def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
@@ -117,22 +141,33 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
 
     theta_e/theta_n: bed-smoother multipliers on the faces; d_limit: cap on
     D (PISM ``stress_balance.sia.limit_diffusivity``). pallas
-    (``stress_balance.sia.pallas``): True takes the kernel route K3 whatever
-    theta is, as the JAX package does (it returns before theta is applied);
-    on CPU tensors that route runs K3's plain version. False takes the plain
-    path; None decides by :func:`_kernel_eligible`."""
+    (``stress_balance.sia.pallas``): True takes the kernel route (K3 with
+    an enthalpy field, K4 without) whatever theta is, as the JAX package
+    does (it returns before theta is applied); on CPU tensors that route
+    runs the kernel's plain version. False takes the plain path; None
+    decides by :func:`_iso_kernel_eligible` (no enthalpy) or
+    :func:`_kernel_eligible`."""
     H = geometry.ice_thickness
-    z = torch.as_tensor(grid.z, dtype=H.dtype, device=H.device)
     use_kernel = pallas
-    if use_kernel is None:
+    if use_kernel is None and enthalpy is None:
+        use_kernel = _iso_kernel_eligible(grid, H, gradient_method, theta_e,
+                                          theta_n, enhancement)
+    elif use_kernel is None:
         use_kernel = _kernel_eligible(flow_law, enthalpy, grid, H,
                                       gradient_method, theta_e, theta_n,
                                       enhancement)
+    if use_kernel and enthalpy is None:
+        # A rounded to the field dtype (on the host: no device sync), then
+        # gamma in float64 from it, as the JAX package does
+        # (``pism_tpu/ops/sia.py:265-266``)
+        A = float(_isothermal_softness(flow_law, H.dtype))
+        return SIAFlux(*K4.sia_flux(
+            H.contiguous(), geometry.ice_surface_elevation.contiguous(), A=A,
+            n=n, enhancement=enhancement, rho=rho, g=g, dx=grid.dx,
+            dy=grid.dy, d_cap=d_limit))
+    if enthalpy is not None:
+        z = torch.as_tensor(grid.z, dtype=H.dtype, device=H.device)
     if use_kernel:
-        if enthalpy is None:
-            raise NotImplementedError(
-                "the isothermal SIA kernel (energy.model = none) is not "
-                "implemented in pism_tpu_torch")
         # the energy solve leaves E level-major in memory; the kernel reads
         # it (My, Mx, Mz)-contiguous
         return SIAFlux(*K3.sia_flux_thermo(
@@ -142,10 +177,17 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
             EC=flow_law.EC, pb_law=flow_law, d_cap=d_limit))
 
     grad = surface_gradient(geometry, grid, sh, gradient_method)
-    Ke = _softness_integral(flow_law, st.avg_to_east(enthalpy, sh),
-                            st.avg_to_east(H, sh), z, n, enhancement)
-    Kn = _softness_integral(flow_law, st.avg_to_north(enthalpy, sh),
-                            st.avg_to_north(H, sh), z, n, enhancement)
+    H_e, H_n = st.avg_to_east(H, sh), st.avg_to_north(H, sh)
+    if enthalpy is None:
+        # isothermal closed form: K = e A H^(n+2) / (n+2)
+        A = _isothermal_softness(flow_law, H.dtype, H.device)
+        Ke = enhancement * A * H_e ** (n + 2.0) / (n + 2.0)
+        Kn = enhancement * A * H_n ** (n + 2.0) / (n + 2.0)
+    else:
+        Ke = _softness_integral(flow_law, st.avg_to_east(enthalpy, sh), H_e,
+                                z, n, enhancement)
+        Kn = _softness_integral(flow_law, st.avg_to_north(enthalpy, sh),
+                                H_n, z, n, enhancement)
     C = 2.0 * (rho * g) ** n
     De = C * (grad.sx_e ** 2 + grad.sy_e ** 2) ** ((n - 1.0) / 2.0) * Ke
     Dn = C * (grad.sx_n ** 2 + grad.sy_n ** 2) ** ((n - 1.0) / 2.0) * Kn

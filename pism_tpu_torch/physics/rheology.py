@@ -1,6 +1,7 @@
 """Flow laws (port of ``pism_tpu/physics/rheology.py``): the
-Paterson-Budd law (``pb``, EISMINT II's SIA law) and the polythermal GPBLD
-law, the default of both the SIA and the SSA. Other laws raise
+Paterson-Budd law (``pb``, EISMINT II's SIA law), the polythermal GPBLD
+law, the default of both the SIA and the SSA, and the isothermal Glen law
+of the verification tests (SIA only). Other laws raise
 ``NotImplementedError`` in :func:`flow_law_from_config`.
 """
 
@@ -11,6 +12,30 @@ from dataclasses import dataclass, field
 import torch
 
 from .enthalpy_converter import EnthalpyConverter
+
+
+@dataclass(frozen=True)
+class IsothermalGlen:
+    """Constant softness (PISM ``rheology::IsothermalGlen``)."""
+
+    n: float = 3.0
+    EC: EnthalpyConverter = field(default_factory=EnthalpyConverter)
+    A: float = 3.1689e-24  # Pa^-3 s^-1
+
+    def softness(self, E, p):
+        return torch.full_like(_floating(E), self.A)
+
+    def hardness(self, E, p):
+        return torch.full_like(_floating(E), self.A ** (-1.0 / self.n))
+
+
+def _floating(E):
+    """E as a floating tensor (an integer or Python value becomes float64,
+    as ``jnp.result_type(E, 1.0)`` does under x64)."""
+    if isinstance(E, (int, float)):
+        return torch.tensor(float(E), dtype=torch.float64)
+    E = torch.as_tensor(E)
+    return E if E.is_floating_point() else E.to(torch.float64)
 
 
 @dataclass(frozen=True)
@@ -75,14 +100,22 @@ class GPBLD(PatersonBudd):
 
 def flow_law_from_config(config, which: str = "sia",
                          EC: EnthalpyConverter = None) -> PatersonBudd:
-    """Factory (PISM ``rheology::FlowLawFactory``), ``pb`` and ``gpbld``."""
+    """Factory (PISM ``rheology::FlowLawFactory``): ``pb`` and ``gpbld``,
+    and ``isothermal_glen`` for the SIA."""
     from ..config import require
 
-    require(config, f"stress_balance.{which}.flow_law", ("gpbld", "pb"))
+    laws = ("gpbld", "pb", "isothermal_glen") if which == "sia" \
+        else ("gpbld", "pb")
+    require(config, f"stress_balance.{which}.flow_law", laws)
     if which == "sia":
         require(config, "flow_law.grain_aware_GK", (False,))
     if EC is None:
         EC = EnthalpyConverter.from_config(config)
+    name = config.get_string(f"stress_balance.{which}.flow_law")
+    if name == "isothermal_glen":
+        return IsothermalGlen(
+            n=config.get_number(f"stress_balance.{which}.Glen_exponent"),
+            EC=EC, A=config.get_number("flow_law.isothermal_Glen.ice_softness"))
     pb_kw = dict(
         n=config.get_number(f"stress_balance.{which}.Glen_exponent"), EC=EC,
         A_cold=config.get_number("flow_law.Paterson_Budd.A_cold"),
@@ -92,7 +125,7 @@ def flow_law_from_config(config, which: str = "sia",
         T_critical=config.get_number("flow_law.Paterson_Budd.T_critical"),
         R=config.get_number("constants.ideal_gas_constant"),
     )
-    if config.get_string(f"stress_balance.{which}.flow_law") == "pb":
+    if name == "pb":
         return PatersonBudd(**pb_kw)
     return GPBLD(
         **pb_kw,

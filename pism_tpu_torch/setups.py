@@ -5,11 +5,11 @@
 extents, grid, config, geometry, latitude/longitude/precipitation, and the
 float64 -> float32 cast after ``prepare_state``. ``eismint2_model`` is
 ``bench.py``'s second chain, EISMINT II experiment A (``bench.py:95-103``).
+``halfar_model`` is the isothermal verification chain, Halfar tests B and
+C, with ``halfar_report`` its error report.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -20,24 +20,18 @@ from .coupler.ocean import Constant as OceanConstant
 from .coupler.pdd import TemperatureIndex
 from .grid import Grid
 from .model.icemodel import IceModel
-from .state import Geometry, ModelState, new_geometry
+from .state import ModelState, map_tensors, new_geometry
 
 SPY = 3.15569259747e7
 
 
 def to_dtype(state: ModelState, dtype) -> ModelState:
     """Cast every float64 field of the state to ``dtype``."""
-    def cast(x):
-        return x.to(dtype) if torch.is_tensor(x) and x.dtype == torch.float64 \
-            else x
-    geom = Geometry(**{f.name: cast(getattr(state.geometry, f.name))
-                       for f in dataclasses.fields(Geometry)})
-    return ModelState(geometry=geom, **{
-        f.name: cast(getattr(state, f.name))
-        for f in dataclasses.fields(ModelState) if f.name != "geometry"})
+    return map_tensors(state, lambda x: x.to(dtype)
+                       if x.dtype == torch.float64 else x)
 
 
-def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cpu",
+def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cuda",
                            extra_cfg=None):
     """The north-star chain: returns (model, initial state, grid).
 
@@ -94,7 +88,7 @@ def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cpu",
 EISMINT2_CFG = {"stress_balance.sia.bed_smoother.range": 0.0}
 
 
-def eismint2_model(dtype: str, Mx: int = 61, Mz: int = 61, device="cpu",
+def eismint2_model(dtype: str, Mx: int = 61, Mz: int = 61, device="cuda",
                    extra_cfg=None):
     """EISMINT II experiment A from zero ice: returns (model, initial
     state, grid). The config is the JAX setup's plus ``EISMINT2_CFG`` and
@@ -108,3 +102,74 @@ def eismint2_model(dtype: str, Mx: int = 61, Mz: int = 61, device="cpu",
     model = IceModel(grid=es.grid, config=es.config, surface=es.surface,
                      device=device)
     return model, es.state, es.grid
+
+
+#: The Halfar dome's bed is flat, so the bed smoother's theta is exactly 1
+#: and switching it off is the same physics; without theta the isothermal
+#: SIA kernel K4 takes the flux (the default 5 km range declines it)
+HALFAR_CFG = {"stress_balance.sia.bed_smoother.range": 0.0}
+
+
+def halfar_model(test: str = "B", Mx: int = 61, dtype: str = "float64",
+                 device="cuda", extra_cfg=None, t_start=None):
+    """Halfar similarity test B (zero accumulation) or C (M = 5 H / t) on
+    an Mx x Mx grid over the 1800 km square, from the exact dome at
+    ``t_start`` (seconds; default the solution's t0): the CLI's
+    ``-test B/C`` setup (``pism_tpu/cli.py:454-478``) with
+    ``tests/test_halfar.py``'s Mahaffy gradients and ``HALFAR_CFG``.
+    Returns (model, initial state, grid, solution). ``dtype`` is "float32"
+    or "float64"."""
+    from .coupler.surface import FunctionSurface
+    from .verification import halfar
+
+    name = test.upper()
+    if name not in ("B", "C"):
+        raise NotImplementedError(f"Halfar test {test!r} (supported: B, C)")
+    sol = halfar.test_B() if name == "B" else halfar.test_C()
+    device = torch.device(device)
+    grid = Grid(Mx=Mx, My=Mx, Lx=900e3, Ly=900e3)
+    cfg = Config({
+        "stress_balance.model": "sia",
+        "stress_balance.sia.flow_law": "isothermal_glen",
+        "flow_law.isothermal_Glen.ice_softness": halfar.A_SOFTNESS,
+        "stress_balance.sia.surface_gradient_method": "mahaffy",
+        "energy.model": "none",
+        "runtime.float_dtype": dtype,
+        **HALFAR_CFG,
+    })
+    if extra_cfg:
+        cfg.update(extra_cfg)
+    lam = sol.lam
+
+    def smb(geometry, t):
+        H = geometry.ice_thickness
+        return lam / t * H, torch.full_like(H, 263.15)
+
+    model = IceModel(grid=grid, config=cfg, surface=FunctionSurface(smb),
+                     device=device)
+    t_start = sol.t0 if t_start is None else t_start
+    H0 = torch.as_tensor(sol.thickness(t_start, grid.radius),
+                         dtype=torch.float64, device=device)
+    state = model.prepare_state(ModelState(geometry=new_geometry(
+        H0, torch.zeros_like(H0))))
+    if dtype == "float32":
+        state = to_dtype(state, torch.float32)
+    return model, state, grid, sol
+
+
+def halfar_report(sol, state: ModelState, grid, t: float) -> dict:
+    """The CLI's error report of a Halfar run (``pism_tpu/cli.py:973-982``):
+    prints the pismv-style table at model time ``t`` and returns
+    ``halfar.error_norms`` against the exact thickness."""
+    from .verification import halfar
+    from .verification.runner import _report
+
+    He = sol.thickness(t, grid.radius)
+    e = halfar.error_norms(
+        state.geometry.ice_thickness.double().cpu().numpy(), He)
+    test = "B" if sol.lam == 0.0 else "C"
+    _report(f"test {test} (Halfar, t = {t / SPY:.0f} a)",
+            [("geometry", {"prcnt_volume": 100.0 * e["rel_volume"],
+                           "max_H": e["max_H"], "avg_H": e["avg_H"],
+                           "dome_H": e["dome_H"]})])
+    return e

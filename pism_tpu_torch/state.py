@@ -157,6 +157,20 @@ class ModelState:
     geothermal_flux: Optional[torch.Tensor] = None    # 2D bheatflx W/m^2
     snow_depth: Optional[torch.Tensor] = None         # PDD snow bookkeeping m
     firn_depth: Optional[torch.Tensor] = None         # PDD firn bookkeeping m
+    bed_load_reference: Optional[torch.Tensor] = None  # ice load at the reference bed m
+    bed_reference: Optional[torch.Tensor] = None      # undeformed bed + initial load
 
     def replace(self, **kw) -> "ModelState":
         return dataclasses.replace(self, **kw)
+
+
+def map_tensors(state: ModelState, fn) -> ModelState:
+    """``state`` with ``fn`` applied to every tensor field, the geometry's
+    included (a cast or a move to another device)."""
+    def f(x):
+        return fn(x) if torch.is_tensor(x) else x
+    geom = Geometry(**{k.name: f(getattr(state.geometry, k.name))
+                       for k in dataclasses.fields(Geometry)})
+    return ModelState(geometry=geom, **{
+        k.name: f(getattr(state, k.name))
+        for k in dataclasses.fields(ModelState) if k.name != "geometry"})

@@ -56,7 +56,7 @@ class EISMINT2Setup:
 
 def setup(experiment: str = "A", Mx: int = 61, Mz: int = 61,
           Lz: float = 5000.0, dtype=torch.float64,
-          device="cpu") -> EISMINT2Setup:
+          device="cuda") -> EISMINT2Setup:
     """Grid, config, initial state (zero ice) and climate of one
     experiment, every field in ``dtype`` on ``device``."""
     name = experiment.upper()

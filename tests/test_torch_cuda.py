@@ -1,7 +1,7 @@
 """Card-only tests of pism_tpu_torch: the CUDA kernels (SSA matvec, PCR
-line solves, fused thermomechanical SIA) against their plain torch
-versions, the 100 km chain on the card against the CPU, and EISMINT II A
-through the SIA kernel against the CPU.
+line solves, fused thermomechanical and isothermal SIA) against their plain
+torch versions, the 100 km chain on the card against the CPU, and EISMINT
+II A and Halfar test B through the SIA kernels against the CPU.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -18,6 +18,7 @@ torch.set_num_threads(2)
 from pism_tpu_torch import setups  # noqa: E402
 from pism_tpu_torch.convert import state_to_numpy  # noqa: E402
 from pism_tpu_torch.ops.kernels import pcr as K2  # noqa: E402
+from pism_tpu_torch.ops.kernels import sia_iso as K4  # noqa: E402
 from pism_tpu_torch.ops.kernels import sia_thermo as K3  # noqa: E402
 from pism_tpu_torch.ops.kernels import ssa_matvec as K  # noqa: E402
 from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter  # noqa: E402
@@ -197,6 +198,69 @@ def test_eismint2_on_the_card_matches_cpu(cuda):
         n0 = K3.LAUNCHES
         state, t, stats = model.step_once(state, 0.0, 5000.0 * SPY)
         runs[str(where)] = (state_to_numpy(state), stats, K3.LAUNCHES - n0)
+    (a, sa, la), (b, sb, lb) = runs["cpu"], runs[str(cuda)]
+    assert la == 0 and lb == sb.nsteps > 0
+    assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
+    Ha, Hb = a["ice_thickness"], b["ice_thickness"]
+    assert np.abs(Hb - Ha).max() <= 1e-10 * Ha.max()
+
+
+def _dome(shape, dtype, device, seed=6):
+    """A Halfar-like dome over the inner 70% of the square, an ice-free
+    margin around it, and surface noise on the ice."""
+    My, Mx = shape
+    rng = np.random.default_rng(seed)
+    Y, X = np.meshgrid(np.linspace(-1, 1, My), np.linspace(-1, 1, Mx),
+                       indexing="ij")
+    r = np.sqrt(X ** 2 + Y ** 2) / 0.7
+    H = 3600.0 * np.maximum(1.0 - r ** (4.0 / 3.0), 0.0) ** (3.0 / 7.0)
+    s = H + rng.uniform(0.0, 5.0, size=H.shape) * (H > 0)
+    return [torch.tensor(x, dtype=dtype, device=device) for x in (H, s)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(61, 61), (601, 601), (17, 30)])
+def test_sia_iso_kernel_matches_plain(cuda, dtype, shape):
+    """K4 against its plain version, with and without a diffusivity cap
+    that binds; one launch per call."""
+    tol = {torch.float64: 1e-12, torch.float32: 2e-5}[dtype]
+    H, s = _dome(shape, dtype, cuda)
+    dx = 1800e3 / (shape[1] - 1)
+    kw = dict(A=4e-25, enhancement=1.5, dx=dx, dy=dx)
+    gam = K4.gamma(4e-25, enhancement=1.5)
+    max_D = None
+    for d_cap in (None, "half"):
+        if d_cap == "half":
+            d_cap = 0.5 * max_D
+        n0 = K4.LAUNCHES
+        got = K4.sia_flux(H, s, d_cap=d_cap, **kw)
+        torch.cuda.synchronize()
+        assert K4.LAUNCHES == n0 + 1
+        ref = K4.sia_flux_plain(H, s, gamma=gam, dx=dx, dy=dx, d_cap=d_cap)
+        for g, r in zip(got[:4], (ref[2], ref[3], ref[0], ref[1])):
+            assert bool(torch.isfinite(g).all())
+            assert _rel(g, r) <= tol
+        if d_cap is None:
+            max_D = float(got[4])
+            assert max_D > 0.0
+        else:
+            assert float(got[4]) == pytest.approx(d_cap, rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_halfar_on_the_card_matches_cpu(cuda):
+    """Halfar test B at 31x31 in float64 for 300 model years with
+    ``sia.pallas = on``: K4 on the card against its plain version on the
+    CPU, equal steps and dt-limit hits, H to 1e-10 of max H."""
+    runs = {}
+    for where in ("cpu", cuda):
+        model, state, _, sol = setups.halfar_model(
+            "B", Mx=31, device=where,
+            extra_cfg={"stress_balance.sia.pallas": "on"})
+        n0 = K4.LAUNCHES
+        state, t, stats = model.step_once(state, sol.t0, 300.0 * SPY)
+        runs[str(where)] = (state_to_numpy(state), stats, K4.LAUNCHES - n0)
     (a, sa, la), (b, sb, lb) = runs["cpu"], runs[str(cuda)]
     assert la == 0 and lb == sb.nsteps > 0
     assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()

@@ -65,9 +65,10 @@ def runs():
     out = {"jax": (jax_to_numpy(js), float(tj), sj)}
     for pallas in ("auto", "on"):
         tm, ts, _ = setups.eismint2_model(
-            "float64", Mx=MX, Mz=MZ,
+            "float64", Mx=MX, Mz=MZ, device="cpu",
             extra_cfg={"stress_balance.sia.pallas": pallas})
-        ts, tt, st = tm.step_once(state_from_numpy(d0), 0.0, YEARS * SPY)
+        ts, tt, st = tm.step_once(state_from_numpy(d0, device="cpu"), 0.0,
+                                  YEARS * SPY)
         out[pallas] = (state_to_numpy(ts), tt, st)
     return out
 
@@ -77,7 +78,7 @@ def test_setups_equal(experiment):
     """Grid, config, initial state and climate (at t = 0 and on a nonzero
     geometry) of each ported experiment."""
     je = j_e2.setup(experiment, Mx=MX, Mz=MZ)
-    te = t_e2.setup(experiment, Mx=MX, Mz=MZ)
+    te = t_e2.setup(experiment, Mx=MX, Mz=MZ, device="cpu")
     for name in ("x", "y", "z", "dx", "dy", "shape3"):
         np.testing.assert_array_equal(getattr(te.grid, name),
                                       getattr(je.grid, name))
@@ -101,7 +102,7 @@ def test_setups_equal(experiment):
 @pytest.mark.parametrize("experiment", ["E", "G", "H", "I", "J", "K", "L"])
 def test_unported_experiments_raise(experiment):
     with pytest.raises(NotImplementedError):
-        t_e2.setup(experiment, Mx=MX, Mz=MZ)
+        t_e2.setup(experiment, Mx=MX, Mz=MZ, device="cpu")
 
 
 def test_expected_a_is_the_reference():
@@ -140,7 +141,7 @@ def test_bed_smoother_is_identity_on_the_flat_bed():
     out = []
     for rng in (5.0e3, 0.0):
         tm, ts, _ = setups.eismint2_model(
-            "float64", Mx=MX, Mz=MZ,
+            "float64", Mx=MX, Mz=MZ, device="cpu",
             extra_cfg={"stress_balance.sia.bed_smoother.range": rng})
         ts, _, st = tm.step_once(ts, 0.0, 500.0 * SPY)
         out.append((state_to_numpy(ts)["ice_thickness"], st.nsteps))

@@ -26,7 +26,8 @@ SPY = 3.15569259747e7
 def runs():
     out = {}
     for dtype in ("float32", "float64"):
-        model, state, _ = setups.hybrid_greenland_model(dtype, km=100)
+        model, state, _ = setups.hybrid_greenland_model(dtype, km=100,
+                                                        device="cpu")
         state, t, stats = model.step_once(state, 0.0, 2.0 * SPY)
         out[dtype] = (state_to_numpy(state), t, stats)
     return out

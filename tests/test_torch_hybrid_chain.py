@@ -99,7 +99,7 @@ def chain():
     d0_jax, d0_torch = jax_to_numpy(js), state_to_numpy(ts)
     d, n_ties = break_pressure_melting_ties(d0_jax, grid, tm.EC)
     js, tj, sj = jm.step_once(numpy_to_jax(d), 0.0, YEARS * SPY)
-    ts, tt, st = tm.step_once(state_from_numpy(d), 0.0, YEARS * SPY)
+    ts, tt, st = tm.step_once(state_from_numpy(d, device="cpu"), 0.0, YEARS * SPY)
     return dict(d0_jax=d0_jax, d0_torch=d0_torch, n_ties=n_ties,
                 jax=(jax_to_numpy(js), float(tj), sj),
                 torch=(state_to_numpy(ts), tt, st), grid=grid)

@@ -2,6 +2,7 @@
 identical grids and config lookups, and NotImplementedError for every
 configuration value the port does not implement."""
 
+import pathlib
 import subprocess
 import sys
 
@@ -36,9 +37,61 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "clean"
 
 
+_PURITY = """
+import importlib, os, pkgutil, sys
+root = sys.argv[1]
+jax_pkg = os.path.join(root, "pism_tpu") + os.sep
+opened = []
+
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes)):
+        opened.append(os.path.abspath(os.fsdecode(args[0])))
+
+sys.addaudithook(hook)
+import pism_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pism_tpu_torch.__path__,
+                                               "pism_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(p for p in opened if p.startswith(jax_pkg))
+assert not bad, bad
+mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pism_tpu"))
+assert not mods, mods
+own = os.path.join(root, "pism_tpu_torch", "config")
+assert any(p.startswith(own) and "parameters" in os.path.basename(p)
+           for p in opened), "the hook saw no read of the port's own copy"
+print(len(names), "modules")
+"""
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """A fresh interpreter imports every module of the port under an audit
+    hook on ``open``: no file under ``pism_tpu/`` is read and neither jax nor
+    pism_tpu is in ``sys.modules``."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _PURITY, str(root)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=root)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 30
+
+
 def test_one_parameter_database():
     assert T_PARAMETERS == J_PARAMETERS
     assert len(T_PARAMETERS) > 500
+
+
+def test_parameter_copy_matches_key_for_key():
+    """The port's own copy (``pism_tpu_torch/config/parameters.py``):
+    every name, default, unit and description equals the JAX package's."""
+    from pism_tpu_torch.config import parameters
+
+    assert pathlib.Path(parameters.__file__).parent.name == "config"
+    assert "pism_tpu_torch" in pathlib.Path(parameters.__file__).parts
+    assert T_PARAMETERS is not J_PARAMETERS
+    assert list(T_PARAMETERS) == list(J_PARAMETERS)
+    for key, value in J_PARAMETERS.items():
+        assert T_PARAMETERS[key] == value, key
 
 
 @pytest.mark.parametrize("kw", [
@@ -105,13 +158,15 @@ def test_unsupported_config_raises(override):
         return
     dtype = override.pop("runtime.float_dtype", "float64")
     with pytest.raises(NotImplementedError):
-        setups.hybrid_greenland_model(dtype, km=200.0, extra_cfg=override)
+        setups.hybrid_greenland_model(dtype, km=200.0, device="cpu",
+                                      extra_cfg=override)
 
 
 def test_supported_config_builds():
     from pism_tpu_torch import setups
 
-    model, state, grid = setups.hybrid_greenland_model("float32", km=200.0)
+    model, state, grid = setups.hybrid_greenland_model("float32", km=200.0,
+                                                       device="cpu")
     assert state.geometry.ice_thickness.dtype == torch.float32
     assert state.enthalpy.shape == grid.shape3
     assert model.skip_max == 10
@@ -123,7 +178,43 @@ def test_line_pcr_kernels_config_builds():
     from pism_tpu_torch import setups
 
     model, state, grid = setups.hybrid_greenland_model(
-        "float32", km=200.0,
+        "float32", km=200.0, device="cpu",
         extra_cfg={"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"})
     assert model.ssa.pcr_impl == "pallas_sublane"
     assert state.geometry.ice_thickness.dtype == torch.float32
+
+
+def _entry_points():
+    from pism_tpu_torch import convert, setups
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.verification import eismint2, runner
+
+    return {"setups.hybrid_greenland_model": setups.hybrid_greenland_model,
+            "setups.eismint2_model": setups.eismint2_model,
+            "setups.halfar_model": setups.halfar_model,
+            "verification.eismint2.setup": eismint2.setup,
+            "verification.runner.run_test": runner.run_test,
+            "convert.state_from_numpy": convert.state_from_numpy,
+            "IceModel": IceModel}
+
+
+@pytest.mark.parametrize("name", list(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    import inspect
+
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_does_not_fall_back_to_the_cpu():
+    """Without ``device`` a setup puts its fields on the card; on a machine
+    without one the call raises torch's own error instead of running on the
+    CPU."""
+    from pism_tpu_torch import setups
+
+    if torch.cuda.is_available():
+        _, state, _, _ = setups.halfar_model("B", Mx=11)
+        assert state.geometry.ice_thickness.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            setups.halfar_model("B", Mx=11)

@@ -65,13 +65,14 @@ def numpy_to_jax(d):
 @pytest.fixture(scope="module")
 def models():
     jm, js, _ = bench.hybrid_greenland_model("float64", km=100)
-    tm, _, grid = setups.hybrid_greenland_model("float64", km=100)
+    tm, _, grid = setups.hybrid_greenland_model("float64", km=100,
+                                                 device="cpu")
     return jm, tm, grid, jax_to_numpy(js)
 
 
 def _solve_both(models, d):
     jm, tm, _, _ = models
-    js, ts = numpy_to_jax(d), state_from_numpy(d)
+    js, ts = numpy_to_jax(d), state_from_numpy(d, device="cpu")
     ju, jv, ji = jm.ssa.solve(js, jm.yield_stress.compute(js),
                               diagnostics=True)
     tu, tv, ti = tm.ssa.solve(ts, tm.yield_stress.compute(ts),
