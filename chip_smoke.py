@@ -12,7 +12,15 @@ version on the card, relative max-norm error:
   76, 561, 301, both layouts, 1e-12 / 1e-5;
   K3 ``sia_flux_thermo`` at 61x61x61 and 561x301x41, 1e-12 / 1e-4;
   K4 ``sia_flux`` at 61x61 and 601x601 on a dome with an ice-free margin,
-  with and without a binding diffusivity cap, 1e-12 / 2e-5.
+  with and without a binding diffusivity cap, 1e-12 / 2e-5;
+  K5 ``ssa_matvec_halo`` and ``ssa_matvec_halo_jvp``, the matvec per shard
+  of a mesh of this one card, at 142x76 and 561x301 on 2x2 and 29x37 on
+  2x4: one shard's launch against its plain version (K1's tolerances), and
+  the whole sharded call (halo exchange, launches, gather) against the
+  plain sharded call and against K1 on the whole field (asserted equal to
+  the bit);
+  K6, K3 per shard (61x61x61 on 2x2) and K4 per shard (601x601 on 2x2),
+  against unsharded K3/K4 (asserted equal to the bit).
 It times each with CUDA events and the profiler's device time and computes
 its bound (the larger of its bytes over 3.35 TB/s and its operations over
 67 TFLOP/s, float32), then runs the 100 km chain with the PCR kernels for
@@ -137,6 +145,8 @@ def _counters():
     from pism_tpu_torch.util import hostsync
     return ((ssa_matvec, "LAUNCHES", "ssa_matvec"),
             (ssa_matvec, "JVP_LAUNCHES", "ssa_matvec_jvp"),
+            (ssa_matvec, "HALO_LAUNCHES", "ssa_matvec_halo"),
+            (ssa_matvec, "HALO_JVP_LAUNCHES", "ssa_matvec_halo_jvp"),
             (pcr, "LAUNCHES", "pcr_lines"),
             (pcr, "SUB_LAUNCHES", "pcr_lines_sub"),
             (sia_thermo, "LAUNCHES", "sia_flux_thermo"),
@@ -144,7 +154,8 @@ def _counters():
             (hostsync, "COUNT", "host_syncs"))
 
 
-KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "pcr_lines", "pcr_lines_sub",
+KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_matvec_halo",
+           "ssa_matvec_halo_jvp", "pcr_lines", "pcr_lines_sub",
            "sia_flux_thermo", "sia_flux")
 
 
@@ -325,6 +336,159 @@ def phase1_kernels(dev):
                     OPS["sia_flux"] * M * M, match="sia_iso_kernel")
                 if M == HALFAR_MX and dtype == torch.float32 and d_cap is None:
                     out["sia_flux"] = r
+    out.update(phase1_sharded(dev, rng))
+    return out
+
+
+def _us(fn, reps=50):
+    """'<device us> us in <ops> ops' of one call, from the profiler."""
+    us, ops = _device_profile(fn, reps)
+    return "not measured" if us is None else f"{us:.2f} us in {ops:.0f} ops"
+
+
+def phase1_sharded(dev, rng):
+    """K5 and K6 on meshes of the one card. K5: one shard's launch against
+    its plain version (the record, at the 20 km f32 shard), then the whole
+    sharded call against the plain sharded call (K1's tolerances) and
+    against K1 on the whole field (equal to the bit), timed against K1's one
+    launch. K6: K3 and K4 per shard against the unsharded kernels, equal
+    to the bit."""
+    import numpy as np
+    import torch
+    import pism_tpu_torch as pt
+    from pism_tpu_torch.ops import sharded as S
+    from pism_tpu_torch.ops.kernels import sia_iso as K4
+    from pism_tpu_torch.ops.kernels import sia_thermo as K3
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+    from pism_tpu_torch.parallel import make_mesh
+    from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter
+    from pism_tpu_torch.physics.rheology import PatersonBudd
+    from pism_tpu_torch.verification import halfar
+
+    out = {}
+    tols = ((torch.float64, 1e-12), (torch.float32, 1e-5))
+    for (My, Mx), km, mshape in (((142, 76), 20, (2, 2)),
+                                 ((561, 301), 5, (2, 2)),
+                                 ((29, 37), 20, (2, 4))):
+        ny, nx = mshape
+        mesh = make_mesh([dev] * (ny * nx), mshape)
+        py, px = S._pad_amounts((My, Mx), mesh)
+        dx = dy = km * 1e3
+        arrs = {k: rng.normal(size=(My, Mx)) * 1e-5
+                for k in ("u", "v", "du", "dv")}
+        arrs["nuH_e"] = rng.uniform(1e13, 1e16, size=(My, Mx))
+        arrs["nuH_n"] = rng.uniform(1e13, 1e16, size=(My, Mx))
+        arrs["dnuH_e"] = rng.normal(size=(My, Mx)) * 1e14
+        arrs["dnuH_n"] = rng.normal(size=(My, Mx)) * 1e14
+        arrs["beta"] = rng.uniform(0.0, 1e10, size=(My, Mx))
+        for dtype, tol in tols:
+            t = {k: torch.tensor(a, dtype=dtype, device=dev)
+                 for k, a in arrs.items()}
+            label = (f"{My}x{Mx} on {ny}x{nx} ({(My + py) // ny}x"
+                     f"{(Mx + px) // nx} shards) {str(dtype)[6:]}")
+            # the blocks of the last shard (its ghosts come from neighbours)
+            b2 = S._blocks([t[k] for k in ("u", "v", "du", "dv")], 2, mesh,
+                           py, px)
+            b1 = S._blocks([t[k] for k in ("nuH_e", "nuH_n", "dnuH_e",
+                                           "dnuH_n")], 1, mesh, py, px)
+            b0 = S._blocks([t["beta"]], 0, mesh, py, px)
+            up, vp, dup, dvp = (b[-1][-1] for b in b2)
+            ne, nn, dne, dnn = (b[-1][-1] for b in b1)
+            beta = b0[0][-1][-1]
+            my, mx = beta.shape
+            k1_mv = (t["u"], t["v"], t["nuH_e"], t["nuH_n"], t["beta"], dx, dy)
+            k1_jv = (t["u"], t["v"], t["du"], t["dv"], t["nuH_e"], t["nuH_n"],
+                     t["dnuH_e"], t["dnuH_n"], t["beta"], None, dx, dy)
+            for name, kern, plain, args, whole, whole_plain, k1, k1_args in (
+                    ("ssa_matvec_halo", K.ssa_matvec_halo,
+                     K.ssa_matvec_halo_plain,
+                     (nx == 1, ny == 1, up, vp, ne, nn, beta, dx, dy),
+                     S.ssa_matvec_sharded, S.ssa_matvec_sharded_plain,
+                     K.ssa_matvec, k1_mv),
+                    ("ssa_matvec_halo_jvp", K.ssa_matvec_halo_jvp,
+                     K.ssa_matvec_halo_jvp_plain,
+                     (nx == 1, ny == 1, up, vp, dup, dvp, ne, nn, dne, dnn,
+                      beta, None, dx, dy),
+                     S.ssa_matvec_sharded_jvp, S.ssa_matvec_sharded_jvp_plain,
+                     K.ssa_matvec_jvp, k1_jv)):
+                base = "ssa_matvec" if name == "ssa_matvec_halo" \
+                    else "ssa_matvec_jvp"
+                r = _kernel_case(name, kern, plain, args, tol,
+                                 f"one shard of {label}",
+                                 OPS[base] * my * mx, match="halo")
+                if km == 20 and mshape == (2, 2) and dtype == torch.float32:
+                    out[name] = r
+                wargs = k1_args[:-2] + (mesh,) + k1_args[-2:]
+                got, ref, one = whole(*wargs), whole_plain(*wargs), k1(*k1_args)
+                torch.cuda.synchronize()
+                err = max(_rel_err(g, q) for g, q in zip(got, ref))
+                diff = max(float((g - q).abs().max()) for g, q in zip(got, one))
+                ms = _time_ms(lambda: whole(*wargs), 100)
+                ms1 = _time_ms(lambda: k1(*k1_args), 100)
+                print(f"phase1: {name} {label}: the sharded call against the "
+                      f"plain sharded call rel_err {err:.3e} (tol {tol:.0e}), "
+                      f"max |K5 - K1| {diff:.3e}; events {ms:.4f} ms against "
+                      f"K1 {ms1:.4f} ms; device {_us(lambda: whole(*wargs))} "
+                      f"against K1 {_us(lambda: k1(*k1_args))}")
+                if not err <= tol:
+                    raise AssertionError(f"{name} {label}: sharded call "
+                                         f"against its plain version {err:.3e}")
+                if diff != 0.0:
+                    raise AssertionError(f"{name} {label}: K5 differs from K1 "
+                                         f"by {diff:.3e}")
+
+    # K6: K3 and K4 per shard of a 2x2 mesh against the unsharded kernels
+    mesh = make_mesh([dev] * 4, (2, 2))
+    EC = EnthalpyConverter()
+    M, Mz = 61, 61
+    Y, X = np.meshgrid(np.linspace(-1, 1, M), np.linspace(-1, 1, M),
+                       indexing="ij")
+    H = np.maximum(3000.0 * (1.0 - X ** 2 - Y ** 2), 0.0)
+    sfc = H + rng.uniform(0.0, 5.0, size=H.shape) * (H > 0)
+    E = 1.0e5 + rng.uniform(0.0, 8e4, size=(M, M, Mz))
+    z = pt.Grid(Mx=M, My=M, Lx=1e5, Ly=1e5, Mz=Mz, Lz=5000.0).z
+    sol = halfar.test_B()
+    grid = pt.Grid(Mx=HALFAR_MX, My=HALFAR_MX, Lx=900e3, Ly=900e3)
+    Hh = sol.thickness(sol.t0, grid.radius)
+    sh = Hh + rng.uniform(0.0, 5.0, size=Hh.shape) * (Hh > 0)
+    for dtype in (torch.float64, torch.float32):
+        a3 = [torch.tensor(x, dtype=dtype, device=dev) for x in (H, sfc, E, z)]
+        kw3 = dict(enhancement=1.0, dx=25e3, dy=25e3, EC=EC,
+                   pb_law=PatersonBudd(EC=EC), d_cap=None)
+        a4 = [torch.tensor(x, dtype=dtype, device=dev) for x in (Hh, sh)]
+        kw4 = dict(A=halfar.A_SOFTNESS, dx=grid.dx, dy=grid.dy, d_cap=None)
+        for name, label, fields, whole, sharded in (
+                ("sia_flux_thermo", f"{M}x{M}x{Mz}", a3[:3],
+                 lambda: K3.sia_flux_thermo(*a3, **kw3),
+                 lambda: S.sia_flux_thermo_sharded(*a3, mesh, **kw3)),
+                ("sia_flux", f"{HALFAR_MX}x{HALFAR_MX}", a4,
+                 lambda: K4.sia_flux(*a4, **kw4),
+                 lambda: S.sia_flux_sharded(*a4, mesh, **kw4))):
+            ref, got = whole(), sharded()
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, q) for g, q in zip(got, ref))
+            # one shard's launch: its one-ghost blocks in, four faces out
+            blocks = [b[0][0] for b in S._blocks(
+                fields, 1, mesh, *S._pad_amounts(fields[0].shape, mesh))]
+            cells = blocks[0].numel()
+            nbytes = (sum(b.numel() for b in blocks) + 4 * cells
+                      + (Mz if name == "sia_flux_thermo" else 0)) \
+                * blocks[0].element_size()
+            nops = cells * (2 * (OPS["sia_thermo_level"] * Mz
+                                 + OPS["sia_thermo_face"])
+                            if name == "sia_flux_thermo" else OPS["sia_flux"])
+            bound_ms, bound_by = _bound(nbytes, nops)
+            print(f"phase1: K6 {name} {label} {str(dtype)[6:]} per shard of "
+                  f"2x2 against unsharded: equal {same}; events "
+                  f"{_time_ms(sharded, 50):.4f} ms against "
+                  f"{_time_ms(whole, 50):.4f} ms; device {_us(sharded)} "
+                  f"against {_us(whole)}; one shard's launch on "
+                  f"{tuple(blocks[0].shape)} blocks bound "
+                  f"{1e3 * bound_ms:.3f} us ({bound_by}: {nbytes} bytes, "
+                  f"{nops} operations)")
+            if not same:
+                raise AssertionError(f"K6 {name} {label}: per-shard result "
+                                     "differs from the unsharded kernel")
     return out
 
 
@@ -533,7 +697,8 @@ def breakdown(model, state, t, years, label):
 
 def profile_bicgstab(model, state, t, years, label):
     """Device ops per Krylov iteration inside the chain's own Newton
-    solves: each BiCGStab call of the steps runs under the profiler."""
+    solves: each BiCGStab call of the steps runs under the profiler.
+    Returns (device ops, device us, profiled host ms) per iteration."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -563,6 +728,7 @@ def profile_bicgstab(model, state, t, years, label):
           f"{acc['ops'] / k:.0f} device ops and {acc['us'] / k:.1f} us of "
           f"device time per Krylov it, {1e3 * acc['host'] / k:.3f} ms of "
           f"profiled host time per Krylov it")
+    return acc["ops"] / k, acc["us"] / k, 1e3 * acc["host"] / k
 
 
 def profile_krylov(model, state, t):
@@ -611,7 +777,9 @@ def profile_krylov(model, state, t):
 
 
 def phase4_eismint(dev):
-    """Path B: EISMINT II A at 61x61x61 float32 from zero ice."""
+    """Path B: EISMINT II A at 61x61x61 float32 from zero ice. Returns the
+    launch counts of the timed 2000 a, the state and time at 7 ka, and the
+    K3 run of the last 1000 a (state, stats)."""
     import torch
     from pism_tpu_torch import setups
     from pism_tpu_torch.verification.eismint2 import EXPECTED_A
@@ -666,8 +834,8 @@ def phase4_eismint(dev):
         s1, _, st1 = m.step_once(state, t, 1000.0 * SPY)
         torch.cuda.synchronize()
         res[name] = (st1, float(s1.geometry.ice_thickness.double().sum()),
-                     read_counts()["sia_flux_thermo"])
-    (sk, vk, lk), (so, vo, lo) = res["K3"], res["off"]
+                     read_counts()["sia_flux_thermo"], s1)
+    (sk, vk, lk, k3_state), (so, vo, lo, _) = res["K3"], res["off"]
     rel = abs(vk - vo) / vo
     print(f"phase4: 1000 a K3 against sia.pallas=off: steps {sk.nsteps} / "
           f"{so.nsteps}, dt-limit hits {sk.limit_hits_dict()} / "
@@ -675,7 +843,7 @@ def phase4_eismint(dev):
           f"K3 launches {lk} / {lo}")
     if sk.nsteps != so.nsteps or not rel <= 2e-4 or lk <= 0 or lo != 0:
         raise AssertionError("phase4: K3 and the plain path disagree")
-    return counts
+    return counts, (state, t), (k3_state, sk)
 
 
 def _halfar_errors(label, errs, limits):
@@ -817,6 +985,157 @@ def phase5_halfar(dev):
     return counts
 
 
+def _compare_meshed(label, ref, got, H_tol):
+    """Equal steps and dt-limit hits, H within ``H_tol`` of max H; prints
+    whether H is equal to the bit. ``ref``/``got``: (state, stats)."""
+    import torch
+    (sa, sta), (sb, stb) = ref, got
+    Ha, Hb = sa.geometry.ice_thickness, sb.geometry.ice_thickness
+    H_err = float((Hb - Ha).abs().max() / Ha.abs().max())
+    va, vb = float(Ha.double().sum()), float(Hb.double().sum())
+    rel = abs(vb - va) / va
+    print(f"{label}: meshed against unmeshed: steps {stb.nsteps} / "
+          f"{sta.nsteps}, dt-limit hits {stb.limit_hits_dict()} / "
+          f"{sta.limit_hits_dict()}, H max diff {H_err:.3e} of max H (tol "
+          f"{H_tol:.0e}), H bit-equal {torch.equal(Ha, Hb)}, volume rel diff "
+          f"{rel:.3e}")
+    if not bool(torch.isfinite(Hb).all()):
+        raise AssertionError(f"{label}: non-finite thickness")
+    if stb.nsteps != sta.nsteps \
+            or stb.limit_hits_dict() != sta.limit_hits_dict() \
+            or not H_err <= H_tol:
+        raise AssertionError(f"{label}: the meshed run and the unmeshed run "
+                             "disagree")
+    return rel
+
+
+def _ms_per_step(wall, stats):
+    return 1e3 * wall / max(stats.nsteps, 1)
+
+
+def _in_turns(label, run, unmeshed, meshed):
+    """``run(model) -> (state, t, stats)`` in turns, unmeshed, meshed,
+    meshed, unmeshed (the two compared within one call), each with the
+    launch counts set to 0 just before it and read just after. Prints the
+    ms/step of each; returns {name: [(state, t, stats, wall, counts)]}."""
+    import torch
+    out = {"unmeshed": [], "meshed": []}
+    for name in ("unmeshed", "meshed", "meshed", "unmeshed"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        state, t, stats = run(unmeshed if name == "unmeshed" else meshed)
+        torch.cuda.synchronize()
+        out[name].append((state, t, stats, time.time() - t0, read_counts()))
+    ms = {name: [_ms_per_step(r[3], r[2]) for r in runs]
+          for name, runs in out.items()}
+    mean = {name: sum(v) / len(v) for name, v in ms.items()}
+    print(f"{label}: ms/step in turns, unmeshed {ms['unmeshed'][0]:.3f}, "
+          f"meshed {ms['meshed'][0]:.3f}, meshed {ms['meshed'][1]:.3f}, "
+          f"unmeshed {ms['unmeshed'][1]:.3f}; meshed / unmeshed "
+          f"{mean['meshed'] / mean['unmeshed']:.3f}")
+    return out
+
+
+def phase6_meshed_hybrid(dev, mesh):
+    """Path D: the 20 km hybrid chain on path A on a 2x2 mesh of the one
+    card (K5 per shard) for 2 a, against an unmeshed IceModel on the same
+    142x76x41 grid, config, surface and ocean, in turns. Returns the first
+    meshed run's launch counts."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    model, state0, grid = setups.hybrid_greenland_model(
+        "float32", 20.0, device=dev, extra_cfg=PATH_A, mesh=mesh)
+    ref = IceModel(grid=grid, config=model.config, surface=model.surface,
+                   ocean=model.ocean, device=dev)
+    runs = _in_turns("phase6", lambda m: m.step_once(state0, 0.0, 2.0 * SPY),
+                     ref, model)
+    for name in ("unmeshed", "meshed"):
+        state, t, stats, wall, counts = runs[name][0]
+        _check_hybrid_state(f"phase6 {name}", state, grid, stats, t, 2.0 * SPY)
+        n = stats.nsteps
+        print(f"phase6: {name} 20 km path A {grid.My}x{grid.Mx}x{grid.Mz} "
+              f"float32, 2 a: steps {n}, Newton sweeps "
+              f"{stats.ssa_newton_iters / n:.2f}/step, Krylov its "
+              f"{stats.ssa_krylov_iters / n:.2f}/step, host syncs "
+              f"{stats.host_syncs / n:.1f}/step, launches {counts} "
+              f"({counts['ssa_matvec_halo'] / n:.1f} K5 and "
+              f"{counts['ssa_matvec_halo_jvp'] / n:.1f} K5 JVP per step)")
+    _check_launches("phase6", runs["unmeshed"][0][4],
+                    ("ssa_matvec", "ssa_matvec_jvp"),
+                    ("ssa_matvec_halo", "ssa_matvec_halo_jvp"))
+    counts = runs["meshed"][0][4]
+    _check_launches("phase6", counts,
+                    ("ssa_matvec_halo", "ssa_matvec_halo_jvp", "pcr_lines",
+                     "pcr_lines_sub"),
+                    ("ssa_matvec", "ssa_matvec_jvp", "sia_flux_thermo",
+                     "sia_flux"))
+    (sa, _, sta, _, _), (sb, tb, stb, _, _) = \
+        runs["unmeshed"][0], runs["meshed"][0]
+    rel = _compare_meshed("phase6", (sa, sta), (sb, stb), 1e-5)
+    if not rel <= 2e-4:
+        raise AssertionError(f"phase6: volume rel diff {rel:.3e} > 2e-4")
+    profile_steps(ref, sa, tb, 0.01, "phase6 unmeshed")
+    profile_steps(model, sb, tb, 0.01, "phase6 meshed")
+    per = {name: profile_bicgstab(m, s, tb, 0.01, f"phase6 {name}")
+           for name, m, s in (("unmeshed", ref, sa), ("meshed", model, sb))}
+    (oa, ua, ha), (ob, ub, hb) = per["unmeshed"], per["meshed"]
+    print(f"phase6: the decomposition's share of a Krylov iteration (1 - "
+          f"unmeshed / meshed): device ops {1 - oa / ob:.3f}, device time "
+          f"{1 - ua / ub:.3f}, profiled host time {1 - ha / hb:.3f}")
+    return counts
+
+
+def phase6b_eismint(dev, mesh, start, k3_run):
+    """EISMINT II A on the 2x2 mesh (K3 per shard) over phase 4's last
+    1000 a, in turns with an unmeshed model; both against phase 4's
+    unmeshed K3 run of the same 1000 a."""
+    import torch
+    from pism_tpu_torch import setups
+
+    state, t = start
+    k3_state, k3_stats = k3_run
+    ref, _, grid = setups.eismint2_model("float32", device=dev)
+    model, _, _ = setups.eismint2_model("float32", device=dev, mesh=mesh)
+    runs = _in_turns("phase6b", lambda m: m.step_once(state, t, 1000.0 * SPY),
+                     ref, model)
+    s, _, st, _, counts = runs["meshed"][0]
+    _check_launches("phase6b", counts, ("sia_flux_thermo",),
+                    tuple(k for k in KERNELS if k != "sia_flux_thermo"))
+    print(f"phase6b: EISMINT II A {grid.My}x{grid.Mx}x{grid.Mz} float32 on "
+          f"2x2, 1000 a: steps {st.nsteps}, K3 launches "
+          f"{counts['sia_flux_thermo'] / st.nsteps:.2f}/step")
+    if not torch.equal(runs["unmeshed"][0][0].geometry.ice_thickness,
+                       k3_state.geometry.ice_thickness):
+        raise AssertionError("phase6b: the unmeshed run differs from phase 4's")
+    _compare_meshed("phase6b", (k3_state, k3_stats), (s, st), 1e-6)
+
+
+def phase6c_halfar(dev, mesh):
+    """Halfar B at 601x601 float32 on the 2x2 mesh (K4 per shard) for 20 a
+    from t0, in turns with the unmeshed run of the same 20 a."""
+    from pism_tpu_torch import setups
+
+    ref, state, grid, sol = setups.halfar_model("B", HALFAR_MX, "float32",
+                                                device=dev)
+    model, _, _, _ = setups.halfar_model("B", HALFAR_MX, "float32",
+                                         device=dev, mesh=mesh)
+    runs = _in_turns("phase6c",
+                     lambda m: m.step_once(state, sol.t0, 20.0 * SPY),
+                     ref, model)
+    for name in ("unmeshed", "meshed"):
+        _, _, st, _, counts = runs[name][0]
+        _check_launches(f"phase6c {name}", counts, ("sia_flux",),
+                        tuple(k for k in KERNELS if k != "sia_flux"))
+        print(f"phase6c: Halfar B {grid.My}x{grid.Mx} float32 {name}, 20 a "
+              f"from t0: steps {st.nsteps}, K4 launches "
+              f"{counts['sia_flux'] / st.nsteps:.2f}/step")
+    (sa, _, sta, _, _), (sb, _, stb, _, _) = \
+        runs["unmeshed"][0], runs["meshed"][0]
+    _compare_meshed("phase6c", (sa, sta), (sb, stb), 1e-6)
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -859,10 +1178,17 @@ def main():
                                        k1 + pcr_names, sia)
     profile_bicgstab(model, state, t, 0.01, "phase3")
     breakdown(model, state, t, 0.25, "phase3")
-    counts_b = phase4_eismint(dev)
+    counts_b, eismint_7ka, k3_run = phase4_eismint(dev)
     t5 = time.time()
     counts_c = phase5_halfar(dev)
     print(f"phase5: {time.time() - t5:.1f} s")
+    from pism_tpu_torch.parallel import make_mesh
+    mesh = make_mesh([dev] * 4, (2, 2))
+    t6 = time.time()
+    counts_d = phase6_meshed_hybrid(dev, mesh)
+    phase6b_eismint(dev, mesh, eismint_7ka, k3_run)
+    phase6c_halfar(dev, mesh)
+    print(f"phase6: {time.time() - t6:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # no single PyTorch call computes any of these functions (library_ms)
@@ -873,7 +1199,9 @@ def main():
             ("pcr_lines", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts_a),
             ("pcr_lines_sub", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts_a),
             ("sia_flux_thermo", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_b),
-            ("sia_flux", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_c)):
+            ("sia_flux", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_c),
+            ("ssa_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:108", counts_d),
+            ("ssa_matvec_halo_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

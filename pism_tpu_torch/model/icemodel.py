@@ -23,7 +23,11 @@ other configured component raises NotImplementedError.
 
 ``device`` (default ``"cuda"``) is where every field lives:
 ``prepare_state`` moves the state there, and on a machine without a card
-torch raises rather than the model running on the CPU.
+torch raises rather than the model running on the CPU. ``mesh`` (a
+``parallel.mesh.Mesh``) decomposes the kernel routes: the SSA matvec and
+its JVP (K5) and the SIA flux kernels (K3/K4) run per shard on halo-padded
+blocks, while every field stays whole on ``device``
+(``pism_tpu/model/icemodel.py:146-150``).
 """
 
 from __future__ import annotations
@@ -115,6 +119,7 @@ class IceModel:
     ocean: object = None       # OceanModel (sub-shelf melt), optional
     calving: object = None     # CalvingModel; default from the config
     device: object = "cuda"    # torch device of every field
+    mesh: object = None        # ("y", "x") Mesh of the kernel routes
 
     def __post_init__(self):
         cfg = self.config
@@ -151,7 +156,8 @@ class IceModel:
         self.ssa = self.yield_stress = self.hydrology = None
         if "ssa" in cfg.get_string("stress_balance.model"):
             self.ssa = SSAFD(grid=self.grid, config=cfg,
-                             flow_law=flow_law_from_config(cfg, "ssa", self.EC))
+                             flow_law=flow_law_from_config(cfg, "ssa", self.EC),
+                             mesh=self.mesh)
             self.yield_stress = MohrCoulombYieldStress(cfg)
             self.hydrology = NullTransport(grid=self.grid, config=cfg)
         if self.calving is None:
@@ -161,7 +167,8 @@ class IceModel:
         self.stress_balance = StressBalance(
             grid=self.grid, config=cfg,
             sia_flow_law=flow_law_from_config(cfg, "sia", self.EC),
-            ssa=self.ssa, compute_3d=self.energy_model is not None)
+            ssa=self.ssa, compute_3d=self.energy_model is not None,
+            mesh=self.mesh)
 
         self.rho_i = cfg.get_number("constants.ice.density")
         self.rho_w = cfg.get_number("constants.sea_water.density")

@@ -5,7 +5,9 @@ A few Picard sweeps with drag-regularization continuation enter the basin
 (skipped on warm starts), then safeguarded Newton-Picard sweeps solve
 J d = -F by line-preconditioned BiCGStab. The operator and its
 forward-mode derivative are the hand-written kernels of
-``ops/kernels/ssa_matvec.py``.
+``ops/kernels/ssa_matvec.py``: K1 on the whole field, or, with a ("y", "x")
+``mesh`` of more than one device, K5 per shard (``ops/sharded.py``; JAX
+``pism_tpu/model/ssa.py:372-379``).
 
 Front treatment (PISM's calving-front stress boundary condition):
 ice-free cells are Dirichlet u = 0 rows decoupled from the ice, no
@@ -35,8 +37,10 @@ import torch
 
 from .. import state as S
 from ..config import require
+from ..ops import sharded
 from ..ops import ssa as ssa_ops
 from ..ops.kernels.ssa_matvec import ssa_matvec_jvp
+from ..ops.sia import _sharded_mesh
 from ..ops.stencils import Shifter
 from ..physics.basal import SlidingLaw
 from ..util.hostsync import host
@@ -48,6 +52,9 @@ class SSAFD:
     config: object
     flow_law: object
     sliding_law: Optional[SlidingLaw] = None
+    # ("y", "x") Mesh: with more than one device the matvec and its JVP run
+    # per shard through K5
+    mesh: object = None
 
     def __post_init__(self):
         cfg = self.config
@@ -228,8 +235,23 @@ class SSAFD:
         def beta_fn(u, v, reg=None):
             return self.sliding_law.beta(tc_eff, u, v, reg=reg) + self.beta_floor
 
+        # the operator, and its derivative with beta frozen:
+        # A(du; nuH, beta) + A(u; dnuH, 0) in one fused launch (per shard)
+        mesh = self.mesh if _sharded_mesh(self.mesh) else None
+
         def apply_op(u, v, nuH, beta):
+            if mesh is not None:
+                return sharded.ssa_matvec_sharded(u, v, nuH.e, nuH.n, beta,
+                                                  mesh, dx, dy)
             return ssa_ops.apply_operator(u, v, nuH, beta, dx, dy)
+
+        def apply_jvp(u, v, du, dv, nuH, dnuH, beta):
+            if mesh is not None:
+                return sharded.ssa_matvec_sharded_jvp(
+                    u, v, du, dv, nuH.e, nuH.n, dnuH.e, dnuH.n, beta, None,
+                    mesh, dx, dy)
+            return ssa_matvec_jvp(u, v, du, dv, nuH.e, nuH.n, dnuH.e, dnuH.n,
+                                  beta, None, dx, dy)
 
         def residual(uv):
             u, v = free(uv)
@@ -238,7 +260,8 @@ class SSAFD:
             return free((Au - bx, Av - by))
 
         return dict(residual=residual, free=free, make_nuH=make_nuH,
-                    linearize_nuH=linearize_nuH, beta_fn=beta_fn, apply=apply_op, bc_mask=bc_mask,
+                    linearize_nuH=linearize_nuH, beta_fn=beta_fn, apply=apply_op,
+                    apply_jvp=apply_jvp, bc_mask=bc_mask,
                     bx=bx, by=by, icy=icy, tau_c=tau_c)
 
     def solve(self, state: S.ModelState, tau_c=None, u0=None, v0=None,
@@ -261,6 +284,7 @@ class SSAFD:
         make_nuH, beta_fn = P["make_nuH"], P["beta_fn"]
         linearize_nuH = P["linearize_nuH"]
         bc_mask, bx, by = P["bc_mask"], P["bx"], P["by"]
+        apply_jvp = P["apply_jvp"]
         chg_rtol_cfg = self.chg_rtol
 
         kdd = self.krylov_dot_dtype
@@ -394,8 +418,7 @@ class SSAFD:
             def jmv(d):
                 fd = free(d)
                 dn = d_nuH(*fd)
-                J = free(ssa_matvec_jvp(u, v, fd[0], fd[1], nuH.e, nuH.n,
-                                        dn.e, dn.n, beta, None, dx, dy))
+                J = free(apply_jvp(u, v, fd[0], fd[1], nuH, dn, beta))
                 bc = zeros_where_bc(d)
                 return J[0] + bc[0], J[1] + bc[1]
 

@@ -45,6 +45,8 @@ class StressBalance:
     sia_flow_law: object
     ssa: object = None
     compute_3d: bool = True
+    # ("y", "x") Mesh: the SIA kernel routes run per shard under it
+    mesh: object = None
 
     def __post_init__(self):
         cfg = self.config
@@ -99,7 +101,8 @@ class StressBalance:
             self.sia_flow_law, geometry, enthalpy, self.grid, self.sh,
             n=self.n_sia, enhancement=self.e_sia, rho=self.rho, g=self.g,
             gradient_method=self.gradient_method, theta_e=theta_e,
-            theta_n=theta_n, pallas=pallas, d_limit=self.d_limit)
+            theta_n=theta_n, pallas=pallas, mesh=self.mesh,
+            d_limit=self.d_limit)
 
     def update(self, state: S.ModelState, yield_stress) -> StressBalanceResult:
         u_ssa = v_ssa = None

@@ -99,36 +99,40 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def sia_flux(H, s, *, A, n=3.0, enhancement=1.0, rho=910.0, g=9.81, dx, dy,
-             d_cap=None):
-    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_pallas``.
-
-    ``A`` is the softness as a Python float (the caller rounds it to the
-    field dtype first, as the JAX package does). CUDA tensors launch the
-    kernel; CPU tensors run ``sia_flux_plain``. ``max_D`` is the larger of
-    the two faces' maxima, taken outside the kernel as the JAX wrapper
-    takes it."""
+def sia_flux_faces(H, s, *, A, n=3.0, enhancement=1.0, rho=910.0, g=9.81,
+                   dx, dy, d_cap=None):
+    """(qe, qn, De, Dn) on (My, Mx). ``A`` is the softness as a Python
+    float (the caller rounds it to the field dtype first, as the JAX package
+    does). CUDA tensors launch the kernel; CPU tensors run
+    ``sia_flux_plain``."""
     _build.check("sia_flux", H, s)
     if H.dim() != 2 or s.shape != H.shape:
         raise ValueError(f"sia_flux takes H and s of one (My, Mx) shape, got "
                          f"{tuple(H.shape)} and {tuple(s.shape)}")
     gam = gamma(A, n, enhancement, rho, g)
     if H.device.type == "cpu":
-        qe, qn, De, Dn = sia_flux_plain(H, s, gamma=gam, n=n, dx=dx, dy=dy,
-                                        d_cap=d_cap)
-    else:
-        global LAUNCHES
-        lib = _library()
-        consts = _constants(gam, n, dx, dy, d_cap)
-        if len(consts) != lib.pism_sia_iso_nparams():
-            raise RuntimeError("sia_iso.cu takes another set of constants")
-        qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
-        fn = lib.pism_sia_flux_f32 if H.dtype == torch.float32 \
-            else lib.pism_sia_flux_f64
-        My, Mx = H.shape
-        _build.launch(fn, "sia_flux", H.device, H.data_ptr(), s.data_ptr(),
-                      qe.data_ptr(), qn.data_ptr(), De.data_ptr(),
-                      Dn.data_ptr(), My, Mx,
-                      (ctypes.c_double * len(consts))(*consts))
-        LAUNCHES += 1
+        return sia_flux_plain(H, s, gamma=gam, n=n, dx=dx, dy=dy, d_cap=d_cap)
+    global LAUNCHES
+    lib = _library()
+    consts = _constants(gam, n, dx, dy, d_cap)
+    if len(consts) != lib.pism_sia_iso_nparams():
+        raise RuntimeError("sia_iso.cu takes another set of constants")
+    qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
+    fn = lib.pism_sia_flux_f32 if H.dtype == torch.float32 \
+        else lib.pism_sia_flux_f64
+    My, Mx = H.shape
+    _build.launch(fn, "sia_flux", H.device, H.data_ptr(), s.data_ptr(),
+                  qe.data_ptr(), qn.data_ptr(), De.data_ptr(),
+                  Dn.data_ptr(), My, Mx,
+                  (ctypes.c_double * len(consts))(*consts))
+    LAUNCHES += 1
+    return qe, qn, De, Dn
+
+
+def sia_flux(H, s, **kw):
+    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_pallas``, from
+    :func:`sia_flux_faces` (same arguments). ``max_D`` is the larger of the
+    two faces' maxima, taken outside the kernel as the JAX wrapper takes
+    it."""
+    qe, qn, De, Dn = sia_flux_faces(H, s, **kw)
     return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))

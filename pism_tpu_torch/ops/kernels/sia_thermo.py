@@ -118,13 +118,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def sia_flux_thermo(H, s, E, z, *, n=3.0, enhancement=1.0, rho=910.0,
-                    g=9.81, dx, dy, EC, pb_law, d_cap=None):
-    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_thermo_pallas``.
-
-    CUDA tensors launch the kernel; CPU tensors run
-    ``sia_flux_thermo_plain``. ``max_D`` is the larger of the two faces'
-    maxima, taken outside the kernel as the JAX wrapper takes it."""
+def sia_flux_thermo_faces(H, s, E, z, *, n=3.0, enhancement=1.0, rho=910.0,
+                          g=9.81, dx, dy, EC, pb_law, d_cap=None):
+    """(qe, qn, De, Dn) on (My, Mx). CUDA tensors launch the kernel; CPU
+    tensors run ``sia_flux_thermo_plain``."""
     _build.check("sia_flux_thermo", H, s, E, z)
     My, Mx = H.shape
     if s.shape != H.shape or E.dim() != 3 or E.shape[:2] != H.shape \
@@ -134,21 +131,29 @@ def sia_flux_thermo(H, s, E, z, *, n=3.0, enhancement=1.0, rho=910.0,
             f"got {tuple(H.shape)}, {tuple(s.shape)}, {tuple(E.shape)}, "
             f"{tuple(z.shape)}")
     if H.device.type == "cpu":
-        qe, qn, De, Dn = sia_flux_thermo_plain(
+        return sia_flux_thermo_plain(
             H, s, E, z, n=n, enhancement=enhancement, rho=rho, g=g, dx=dx,
             dy=dy, EC=EC, pb_law=pb_law, d_cap=d_cap)
-    else:
-        global LAUNCHES
-        lib = _library()
-        consts = _constants(n, enhancement, rho, g, dx, dy, EC, pb_law, d_cap)
-        if len(consts) != lib.pism_sia_thermo_nparams():
-            raise RuntimeError("sia_thermo.cu takes another set of constants")
-        qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
-        fn = lib.pism_sia_flux_thermo_f32 if H.dtype == torch.float32 \
-            else lib.pism_sia_flux_thermo_f64
-        _build.launch(fn, "sia_flux_thermo", H.device, H.data_ptr(),
-                      s.data_ptr(), E.data_ptr(), z.data_ptr(), qe.data_ptr(),
-                      qn.data_ptr(), De.data_ptr(), Dn.data_ptr(), My, Mx,
-                      E.shape[2], (ctypes.c_double * len(consts))(*consts))
-        LAUNCHES += 1
+    global LAUNCHES
+    lib = _library()
+    consts = _constants(n, enhancement, rho, g, dx, dy, EC, pb_law, d_cap)
+    if len(consts) != lib.pism_sia_thermo_nparams():
+        raise RuntimeError("sia_thermo.cu takes another set of constants")
+    qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
+    fn = lib.pism_sia_flux_thermo_f32 if H.dtype == torch.float32 \
+        else lib.pism_sia_flux_thermo_f64
+    _build.launch(fn, "sia_flux_thermo", H.device, H.data_ptr(),
+                  s.data_ptr(), E.data_ptr(), z.data_ptr(), qe.data_ptr(),
+                  qn.data_ptr(), De.data_ptr(), Dn.data_ptr(), My, Mx,
+                  E.shape[2], (ctypes.c_double * len(consts))(*consts))
+    LAUNCHES += 1
+    return qe, qn, De, Dn
+
+
+def sia_flux_thermo(H, s, E, z, **kw):
+    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_thermo_pallas``,
+    from :func:`sia_flux_thermo_faces` (same arguments). ``max_D`` is the
+    larger of the two faces' maxima, taken outside the kernel as the JAX
+    wrapper takes it."""
+    qe, qn, De, Dn = sia_flux_thermo_faces(H, s, E, z, **kw)
     return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))

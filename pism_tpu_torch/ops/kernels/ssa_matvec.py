@@ -1,6 +1,7 @@
-"""SSA operator matvec: the hand-written CUDA kernel and its plain version.
+"""SSA operator matvec: the hand-written CUDA kernels and their plain
+versions.
 
-Replaces the TPU kernel ``_ssa_matvec_kernel``
+K1 replaces the TPU kernel ``_ssa_matvec_kernel``
 (``pism_tpu/ops/pallas_kernels.py:325``, reached through
 ``_ssa_matvec_raw`` and ``ssa_matvec_pallas`` with the custom JVP at
 ``:407-426``). The kernel, ``pism_tpu_torch/csrc/ssa_matvec.cu``, runs one
@@ -11,11 +12,21 @@ forward-mode derivative is fused into one pass (``ssa_matvec_jvp``), which
 halves the launches of every Newton matvec; cutting the launches of a whole
 Krylov iteration (a CUDA graph) is the next step.
 
+K5 (``ssa_matvec_halo``, ``ssa_matvec_halo_jvp``) replaces
+``_ssa_matvec_sharded_kernel`` (``pism_tpu/ops/pallas_sharded.py:108``,
+reached through ``_ssa_matvec_sharded_raw`` at ``:175``): the operator on
+one shard of a mesh, read from blocks padded with ghost cells, two for the
+velocities and one for nuH, with two flags that say whether the shard owns
+the grid's west and south edges. ``ops/sharded.py`` exchanges the halos
+and launches it per shard; on one card K5 over any mesh gives K1's result
+on the whole field bit for bit, since both run the same device code.
+
 Routing: a CUDA tensor launches the kernel (built with ``nvcc`` at first use
 by ``_build.py`` and loaded with ctypes); a CPU tensor runs the plain torch
 version in this module. There is no fallback from one to the other.
-``LAUNCHES`` counts launches of the matvec kernel and ``JVP_LAUNCHES``
-those of the fused JVP kernel.
+``LAUNCHES`` counts launches of the matvec kernel, ``JVP_LAUNCHES`` those of
+the fused JVP kernel, and ``HALO_LAUNCHES`` / ``HALO_JVP_LAUNCHES`` those
+of K5 and its fused JVP.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from . import _build
 
 LAUNCHES = 0
 JVP_LAUNCHES = 0
+HALO_LAUNCHES = 0
+HALO_JVP_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +106,78 @@ def ssa_matvec_jvp_plain(u, v, du, dv, nuH_e, nuH_n, dnuH_e, dnuH_n, beta,
     return t1[0] + mx, t1[1] + my
 
 
+def _minus_div_halo(up, vp, nuH_e, nuH_n, west, south, dx, dy):
+    """-div T on one shard: ``_ssa_matvec_sharded_kernel`` statement for
+    statement. up, vp: (my+4, mx+4) with two ghosts; nuH_e, nuH_n:
+    (my+2, mx+2) with one; west/south: the shard owns that edge of the
+    grid."""
+    my, mx = up.shape[0] - 4, up.shape[1] - 4
+    # extended region: cell (i, j), i = -1..my-1 <-> padded row i+2
+    c = (slice(1, my + 2), slice(1, mx + 2))
+    e = (slice(1, my + 2), slice(2, mx + 3))
+    nn = (slice(2, my + 3), slice(1, mx + 2))
+    ne = (slice(2, my + 3), slice(2, mx + 3))
+    s_ = (slice(0, my + 1), slice(1, mx + 2))
+    se = (slice(0, my + 1), slice(2, mx + 3))
+    w = (slice(1, my + 2), slice(0, mx + 1))
+    nw = (slice(2, my + 3), slice(0, mx + 1))
+
+    ux_e = (up[e] - up[c]) / dx
+    vx_e = (vp[e] - vp[c]) / dx
+    uy_e = (up[nn] + up[ne] - up[s_] - up[se]) / (4.0 * dy)
+    vy_e = (vp[nn] + vp[ne] - vp[s_] - vp[se]) / (4.0 * dy)
+    uy_n = (up[nn] - up[c]) / dy
+    vy_n = (vp[nn] - vp[c]) / dy
+    ux_n = (up[e] + up[ne] - up[w] - up[nw]) / (4.0 * dx)
+    vx_n = (vp[e] + vp[ne] - vp[w] - vp[nw]) / (4.0 * dx)
+
+    nuHe = nuH_e[0:my + 1, 0:mx + 1]
+    nuHn = nuH_n[0:my + 1, 0:mx + 1]
+
+    Txx_e = 2.0 * nuHe * (2.0 * ux_e + vy_e)
+    Txy_n = nuHn * (uy_n + vx_n)
+    Tyy_n = 2.0 * nuHn * (2.0 * vy_n + ux_n)
+    Txy_e = nuHe * (uy_e + vx_e)
+
+    cTxx, wTxx = Txx_e[1:, 1:], Txx_e[1:, :-1]
+    cTxy_e, wTxy_e = Txy_e[1:, 1:], Txy_e[1:, :-1]
+    cTxy_n, sTxy_n = Txy_n[1:, 1:], Txy_n[:-1, 1:]
+    cTyy, sTyy = Tyy_n[1:, 1:], Tyy_n[:-1, 1:]
+
+    col = torch.arange(mx, device=up.device).expand(my, mx)
+    row = torch.arange(my, device=up.device)[:, None].expand(my, mx)
+    wclamp = (col == 0) & bool(west)
+    sclamp = (row == 0) & bool(south)
+    wTxx = torch.where(wclamp, cTxx, wTxx)
+    wTxy_e = torch.where(wclamp, cTxy_e, wTxy_e)
+    sTxy_n = torch.where(sclamp, cTxy_n, sTxy_n)
+    sTyy = torch.where(sclamp, cTyy, sTyy)
+
+    div_x = (cTxx - wTxx) / dx + (cTxy_n - sTxy_n) / dy
+    div_y = (cTxy_e - wTxy_e) / dx + (cTyy - sTyy) / dy
+    return -div_x, -div_y
+
+
+def ssa_matvec_halo_plain(west, south, up, vp, nuH_e, nuH_n, beta, dx, dy):
+    """K5 on one shard in plain torch (any device): (Au, Av) of the
+    shard's (my, mx) cells."""
+    mx_, my_ = _minus_div_halo(up, vp, nuH_e, nuH_n, west, south, dx, dy)
+    return mx_ + beta * up[2:-2, 2:-2], my_ + beta * vp[2:-2, 2:-2]
+
+
+def ssa_matvec_halo_jvp_plain(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
+                              dnuH_e, dnuH_n, beta, dbeta, dx, dy):
+    """K5's fused JVP on one shard in plain torch, as
+    ``ssa_matvec_jvp_plain``; ``dbeta`` None means a frozen drag
+    coefficient."""
+    t1 = ssa_matvec_halo_plain(west, south, dup, dvp, nuH_e, nuH_n, beta,
+                               dx, dy)
+    mx_, my_ = _minus_div_halo(up, vp, dnuH_e, dnuH_n, west, south, dx, dy)
+    if dbeta is not None:
+        mx_, my_ = mx_ + dbeta * up[2:-2, 2:-2], my_ + dbeta * vp[2:-2, 2:-2]
+    return t1[0] + mx_, t1[1] + my_
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -109,6 +194,12 @@ def _library() -> ctypes.CDLL:
         fn.restype = i
         fn = getattr(lib, f"pism_ssa_matvec_jvp_{prec}")
         fn.argtypes = [p] * 12 + [i, i, d, d, p]
+        fn.restype = i
+        fn = getattr(lib, f"pism_ssa_matvec_halo_{prec}")
+        fn.argtypes = [p] * 7 + [i, i, i, i, d, d, p]
+        fn.restype = i
+        fn = getattr(lib, f"pism_ssa_matvec_halo_jvp_{prec}")
+        fn.argtypes = [p] * 12 + [i, i, i, i, d, d, p]
         fn.restype = i
     return lib
 
@@ -128,13 +219,15 @@ def _check(*tensors):
                 f"and {tuple(tensors[0].shape)}")
 
 
-def _launch(name, inputs, outputs, shape, dx, dy):
+def _launch(name, inputs, outputs, ints, dx, dy):
+    """Launch ``pism_<name>_<f32|f64>`` with the pointers of ``inputs``
+    (None for a null one) and ``outputs``, then ``ints``, dx and dy."""
     prec = "f32" if outputs[0].dtype == torch.float32 else "f64"
     fn = getattr(_library(), f"pism_{name}_{prec}")
     _build.launch(fn, name, outputs[0].device,
                   *[None if t is None else t.data_ptr() for t in inputs],
                   *[t.data_ptr() for t in outputs],
-                  int(shape[0]), int(shape[1]), float(dx), float(dy))
+                  *[int(i) for i in ints], float(dx), float(dy))
 
 
 def ssa_matvec(u, v, nuH_e, nuH_n, beta, dx, dy):
@@ -165,6 +258,56 @@ def ssa_matvec_jvp(u, v, du, dv, nuH_e, nuH_n, dnuH_e, dnuH_n, beta, dbeta,
     Ju, Jv = torch.empty_like(u), torch.empty_like(v)
     _launch("ssa_matvec_jvp", (*ts, dbeta), (Ju, Jv), u.shape, dx, dy)
     JVP_LAUNCHES += 1
+    return Ju, Jv
+
+
+def _check_halo(vel, nuH, flat):
+    """Raise unless the blocks of one shard have K5's shapes: velocities
+    (my+4, mx+4), nuH (my+2, mx+2), beta and dbeta (my, mx)."""
+    _build.check("ssa_matvec_halo", *vel, *nuH, *flat)
+    my, mx = flat[0].shape
+    for ts, g in ((vel, 2), (nuH, 1), (flat, 0)):
+        for t in ts:
+            if tuple(t.shape) != (my + 2 * g, mx + 2 * g):
+                raise ValueError(
+                    f"ssa_matvec_halo takes blocks with {g} ghost(s) around "
+                    f"a {my}x{mx} shard, got {tuple(t.shape)}")
+
+
+def ssa_matvec_halo(west, south, up, vp, nuH_e, nuH_n, beta, dx, dy):
+    """K5: (Au, Av) of one shard's (my, mx) cells from its padded blocks
+    (``_check_halo``); west/south: the shard owns that edge of the grid.
+    CUDA tensors launch the kernel; CPU tensors run
+    ``ssa_matvec_halo_plain``."""
+    _check_halo((up, vp), (nuH_e, nuH_n), (beta,))
+    if up.device.type == "cpu":
+        return ssa_matvec_halo_plain(west, south, up, vp, nuH_e, nuH_n, beta,
+                                     dx, dy)
+    global HALO_LAUNCHES
+    Au, Av = torch.empty_like(beta), torch.empty_like(beta)
+    _launch("ssa_matvec_halo", (up, vp, nuH_e, nuH_n, beta), (Au, Av),
+            (*beta.shape, west, south), dx, dy)
+    HALO_LAUNCHES += 1
+    return Au, Av
+
+
+def ssa_matvec_halo_jvp(west, south, up, vp, dup, dvp, nuH_e, nuH_n, dnuH_e,
+                        dnuH_n, beta, dbeta, dx, dy):
+    """K5's fused JVP on one shard: A(du, dv; nuH, beta) + A(u, v; dnuH,
+    dbeta), with ``dbeta`` None for a frozen drag coefficient. CUDA tensors
+    launch the kernel; CPU tensors run ``ssa_matvec_halo_jvp_plain``."""
+    _check_halo((up, vp, dup, dvp), (nuH_e, nuH_n, dnuH_e, dnuH_n),
+                (beta,) if dbeta is None else (beta, dbeta))
+    if up.device.type == "cpu":
+        return ssa_matvec_halo_jvp_plain(west, south, up, vp, dup, dvp,
+                                         nuH_e, nuH_n, dnuH_e, dnuH_n, beta,
+                                         dbeta, dx, dy)
+    global HALO_JVP_LAUNCHES
+    Ju, Jv = torch.empty_like(beta), torch.empty_like(beta)
+    _launch("ssa_matvec_halo_jvp",
+            (up, vp, dup, dvp, nuH_e, nuH_n, dnuH_e, dnuH_n, beta, dbeta),
+            (Ju, Jv), (*beta.shape, west, south), dx, dy)
+    HALO_JVP_LAUNCHES += 1
     return Ju, Jv
 
 

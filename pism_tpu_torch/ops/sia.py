@@ -15,6 +15,10 @@ hybrid chain, with Haseloff gradients and the bed smoother, takes the
 plain path; EISMINT II and the Halfar setup, with Mahaffy gradients and no
 bed-smoother theta, take a kernel.
 
+With a ("y", "x") mesh of more than one device, a kernel route runs the
+kernel per shard on halo-padded blocks (``ops/sharded.py``), as the JAX
+package routes through ``ops.pallas_sharded`` (``:240-255``).
+
 The JAX package declines its isothermal kernel above 490,000 cells
 (``pism_tpu/ops/sia.py:238-239``) because the TPU kernel is one VMEM block.
 The CUDA kernel has no such limit, so the port's ``auto`` rule has none.
@@ -26,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import sharded
 from . import stencils as st
 from .kernels import sia_iso as K4
 from .kernels import sia_thermo as K3
@@ -103,6 +108,13 @@ def _isothermal_softness(flow_law, dtype, device="cpu"):
     return flow_law.softness(zero, zero)
 
 
+def _sharded_mesh(mesh) -> bool:
+    """A ("y", "x") device mesh with more than one device: route the kernels
+    through ``ops/sharded.py`` (``pism_tpu/ops/sia.py:163-167``)."""
+    return (mesh is not None and getattr(mesh, "size", 1) > 1
+            and tuple(mesh.axis_names) == ("y", "x"))
+
+
 def _iso_kernel_eligible(grid, H, gradient_method, theta_e, theta_n,
                          enhancement) -> bool:
     """The ``auto`` rule of the JAX package's ``_pallas_eligible``
@@ -136,6 +148,7 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
                 theta_e: Optional[torch.Tensor] = None,
                 theta_n: Optional[torch.Tensor] = None,
                 pallas: Optional[bool] = None,
+                mesh=None,
                 d_limit: Optional[float] = None) -> SIAFlux:
     """Staggered diffusivity and diffusive flux.
 
@@ -146,8 +159,11 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
     does (it returns before theta is applied); on CPU tensors that route
     runs the kernel's plain version. False takes the plain path; None
     decides by :func:`_iso_kernel_eligible` (no enthalpy) or
-    :func:`_kernel_eligible`."""
+    :func:`_kernel_eligible`. mesh: with a sharded ("y", "x") mesh the
+    kernel route runs per shard (``ops/sharded.py``)."""
     H = geometry.ice_thickness
+    s = geometry.ice_surface_elevation
+    sharded_route = _sharded_mesh(mesh)
     use_kernel = pallas
     if use_kernel is None and enthalpy is None:
         use_kernel = _iso_kernel_eligible(grid, H, gradient_method, theta_e,
@@ -161,20 +177,23 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
         # gamma in float64 from it, as the JAX package does
         # (``pism_tpu/ops/sia.py:265-266``)
         A = float(_isothermal_softness(flow_law, H.dtype))
-        return SIAFlux(*K4.sia_flux(
-            H.contiguous(), geometry.ice_surface_elevation.contiguous(), A=A,
-            n=n, enhancement=enhancement, rho=rho, g=g, dx=grid.dx,
-            dy=grid.dy, d_cap=d_limit))
+        kw = dict(A=A, n=n, enhancement=enhancement, rho=rho, g=g,
+                  dx=grid.dx, dy=grid.dy, d_cap=d_limit)
+        if sharded_route:
+            return SIAFlux(*sharded.sia_flux_sharded(H, s, mesh, **kw))
+        return SIAFlux(*K4.sia_flux(H.contiguous(), s.contiguous(), **kw))
     if enthalpy is not None:
         z = torch.as_tensor(grid.z, dtype=H.dtype, device=H.device)
     if use_kernel:
+        kw = dict(n=n, enhancement=enhancement, rho=rho, g=g, dx=grid.dx,
+                  dy=grid.dy, EC=flow_law.EC, pb_law=flow_law, d_cap=d_limit)
+        if sharded_route:
+            return SIAFlux(*sharded.sia_flux_thermo_sharded(
+                H, s, enthalpy, z, mesh, **kw))
         # the energy solve leaves E level-major in memory; the kernel reads
         # it (My, Mx, Mz)-contiguous
         return SIAFlux(*K3.sia_flux_thermo(
-            H.contiguous(), geometry.ice_surface_elevation.contiguous(),
-            enthalpy.contiguous(), z, n=n,
-            enhancement=enhancement, rho=rho, g=g, dx=grid.dx, dy=grid.dy,
-            EC=flow_law.EC, pb_law=flow_law, d_cap=d_limit))
+            H.contiguous(), s.contiguous(), enthalpy.contiguous(), z, **kw))
 
     grad = surface_gradient(geometry, grid, sh, gradient_method)
     H_e, H_n = st.avg_to_east(H, sh), st.avg_to_north(H, sh)

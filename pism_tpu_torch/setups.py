@@ -7,6 +7,13 @@ float64 -> float32 cast after ``prepare_state``. ``eismint2_model`` is
 ``bench.py``'s second chain, EISMINT II experiment A (``bench.py:95-103``).
 ``halfar_model`` is the isothermal verification chain, Halfar tests B and
 C, with ``halfar_report`` its error report.
+
+Each takes ``mesh``, a ``parallel.mesh.Mesh`` (e.g.
+``make_mesh(["cuda:0"] * 4, (2, 2))``), which decomposes the model's kernel
+routes. ``hybrid_greenland_model`` then rounds My and Mx up to mesh
+multiples as ``bench.py:154-157`` does (a row or column of extra ocean at
+the domain edge); the SIA-only setups keep their grid, since the sharded
+SIA kernels pad internally.
 """
 
 from __future__ import annotations
@@ -32,15 +39,19 @@ def to_dtype(state: ModelState, dtype) -> ModelState:
 
 
 def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cuda",
-                           extra_cfg=None):
+                           extra_cfg=None, mesh=None):
     """The north-star chain: returns (model, initial state, grid).
 
     ``dtype``: "float32" or "float64" field precision; ``device``: the torch
-    device every field lives on."""
+    device every field lives on; ``mesh``: see the module's docstring."""
     device = torch.device(device)
     Lx, Ly = 750e3, 1400e3
     Mx = int(2 * Lx / (km * 1e3)) + 1
     My = int(2 * Ly / (km * 1e3)) + 1
+    if mesh is not None:
+        ny, nx = mesh.shape["y"], mesh.shape["x"]
+        My += (-My) % ny
+        Mx += (-Mx) % nx
     grid = Grid(Mx=Mx, My=My, Lx=Lx, Ly=Ly, Mz=41, Lz=4000.0)
     cfg = Config({
         "stress_balance.model": "ssa+sia",
@@ -74,7 +85,7 @@ def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cuda",
                            precipitation=t64(precip))
     surface = TemperatureIndex(atmosphere=atm, config=cfg)
     model = IceModel(grid=grid, config=cfg, surface=surface,
-                     ocean=OceanConstant(config=cfg), device=device)
+                     ocean=OceanConstant(config=cfg), device=device, mesh=mesh)
     state = model.prepare_state(ModelState(geometry=new_geometry(
         t64(H), t64(bed))))
     if dtype == "float32":
@@ -89,7 +100,7 @@ EISMINT2_CFG = {"stress_balance.sia.bed_smoother.range": 0.0}
 
 
 def eismint2_model(dtype: str, Mx: int = 61, Mz: int = 61, device="cuda",
-                   extra_cfg=None):
+                   extra_cfg=None, mesh=None):
     """EISMINT II experiment A from zero ice: returns (model, initial
     state, grid). The config is the JAX setup's plus ``EISMINT2_CFG`` and
     ``extra_cfg``; ``dtype`` is "float32" or "float64"."""
@@ -100,7 +111,7 @@ def eismint2_model(dtype: str, Mx: int = 61, Mz: int = 61, device="cuda",
     es.config.update({"runtime.float_dtype": dtype, **EISMINT2_CFG,
                       **(extra_cfg or {})})
     model = IceModel(grid=es.grid, config=es.config, surface=es.surface,
-                     device=device)
+                     device=device, mesh=mesh)
     return model, es.state, es.grid
 
 
@@ -111,7 +122,7 @@ HALFAR_CFG = {"stress_balance.sia.bed_smoother.range": 0.0}
 
 
 def halfar_model(test: str = "B", Mx: int = 61, dtype: str = "float64",
-                 device="cuda", extra_cfg=None, t_start=None):
+                 device="cuda", extra_cfg=None, t_start=None, mesh=None):
     """Halfar similarity test B (zero accumulation) or C (M = 5 H / t) on
     an Mx x Mx grid over the 1800 km square, from the exact dome at
     ``t_start`` (seconds; default the solution's t0): the CLI's
@@ -146,7 +157,7 @@ def halfar_model(test: str = "B", Mx: int = 61, dtype: str = "float64",
         return lam / t * H, torch.full_like(H, 263.15)
 
     model = IceModel(grid=grid, config=cfg, surface=FunctionSurface(smb),
-                     device=device)
+                     device=device, mesh=mesh)
     t_start = sol.t0 if t_start is None else t_start
     H0 = torch.as_tensor(sol.thickness(t_start, grid.radius),
                          dtype=torch.float64, device=device)

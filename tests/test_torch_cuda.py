@@ -1,7 +1,10 @@
 """Card-only tests of pism_tpu_torch: the CUDA kernels (SSA matvec, PCR
 line solves, fused thermomechanical and isothermal SIA) against their plain
 torch versions, the 100 km chain on the card against the CPU, and EISMINT
-II A and Halfar test B through the SIA kernels against the CPU.
+II A and Halfar test B through the SIA kernels against the CPU; K5 (the
+matvec per shard of a mesh of the card) against its plain version and
+against K1 on the whole field, and K3/K4 per shard against the unsharded
+kernels, equal to the bit.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -17,10 +20,13 @@ torch.set_num_threads(2)
 
 from pism_tpu_torch import setups  # noqa: E402
 from pism_tpu_torch.convert import state_to_numpy  # noqa: E402
+from pism_tpu_torch.model.icemodel import IceModel  # noqa: E402
+from pism_tpu_torch.ops import sharded as S  # noqa: E402
 from pism_tpu_torch.ops.kernels import pcr as K2  # noqa: E402
 from pism_tpu_torch.ops.kernels import sia_iso as K4  # noqa: E402
 from pism_tpu_torch.ops.kernels import sia_thermo as K3  # noqa: E402
 from pism_tpu_torch.ops.kernels import ssa_matvec as K  # noqa: E402
+from pism_tpu_torch.parallel import make_mesh  # noqa: E402
 from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter  # noqa: E402
 from pism_tpu_torch.physics.rheology import GPBLD, PatersonBudd  # noqa: E402
 
@@ -266,3 +272,125 @@ def test_halfar_on_the_card_matches_cpu(cuda):
     assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
     Ha, Hb = a["ice_thickness"], b["ice_thickness"]
     assert np.abs(Hb - Ha).max() <= 1e-10 * Ha.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape,mesh_shape", [((142, 76), (2, 2)),
+                                              ((29, 37), (2, 4)),
+                                              ((561, 301), (2, 2)),
+                                              ((40, 24), (1, 8))])
+def test_k5_matches_plain_and_k1(cuda, dtype, shape, mesh_shape):
+    """The sharded matvec and its fused JVP (with and without a drag
+    tangent) on a mesh of the one card: one K5 launch per shard, within
+    K1's tolerance of the plain sharded version and equal to K1 on the
+    whole field to the bit (the same device code)."""
+    mesh = make_mesh([cuda] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+    x = _inputs(shape, dtype, cuda, 12)
+    mv = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"])
+    n0 = K.HALO_LAUNCHES
+    got = S.ssa_matvec_sharded(*mv, mesh, DX, DY)
+    torch.cuda.synchronize()
+    assert K.HALO_LAUNCHES == n0 + mesh.size
+    for g, r, k1 in zip(got, S.ssa_matvec_sharded_plain(*mv, mesh, DX, DY),
+                        K.ssa_matvec(*mv, DX, DY)):
+        assert _rel(g, r) < TOL[dtype]
+        assert torch.equal(g, k1)
+    for dbeta in (None, x["dbeta"]):
+        jv = (x["u"], x["v"], x["du"], x["dv"], x["nuH_e"], x["nuH_n"],
+              x["dnuH_e"], x["dnuH_n"], x["beta"], dbeta)
+        n0 = K.HALO_JVP_LAUNCHES
+        got = S.ssa_matvec_sharded_jvp(*jv, mesh, DX, DY)
+        torch.cuda.synchronize()
+        assert K.HALO_JVP_LAUNCHES == n0 + mesh.size
+        for g, r, k1 in zip(got,
+                            S.ssa_matvec_sharded_jvp_plain(*jv, mesh, DX, DY),
+                            K.ssa_matvec_jvp(*jv, DX, DY)):
+            assert _rel(g, r) < TOL[dtype]
+            assert torch.equal(g, k1)
+
+
+@pytest.mark.cuda
+def test_k5_function_jvp_on_the_card(cuda):
+    """torch.func.jvp through ``SSAMatvecSharded`` (the fused K5 JVP) against
+    torch.func.jvp of the plain whole-field operator."""
+    mesh = make_mesh([cuda] * 4, (2, 2))
+    x = _inputs((24, 40), torch.float64, cuda, 13)
+    args = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"])
+    tangents = (x["du"], x["dv"], x["dnuH_e"], x["dnuH_n"], x["dbeta"])
+    _, jf = torch.func.jvp(
+        lambda *a: S.SSAMatvecSharded.apply(*a, mesh, DX, DY), args, tangents)
+    _, jp = torch.func.jvp(lambda *a: K.ssa_matvec_plain(*a, DX, DY),
+                           args, tangents)
+    for g, r in zip(jf, jp):
+        assert _rel(g, r) < 1e-12
+
+
+@pytest.mark.cuda
+def test_k5_across_cards(cuda):
+    """A 1x2 mesh of two distinct cards: the halo strips travel between
+    them and the result lands on the input's card, equal to K1's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    mesh = make_mesh(["cuda:0", "cuda:1"], (1, 2))
+    x = _inputs((60, 40), torch.float64, torch.device("cuda:0"), 14)
+    mv = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"])
+    got = S.ssa_matvec_sharded(*mv, mesh, DX, DY)
+    for g, k1 in zip(got, K.ssa_matvec(*mv, DX, DY)):
+        assert g.device == torch.device("cuda:0")
+        assert torch.equal(g, k1)
+
+
+@pytest.mark.cuda
+def test_meshed_chains_across_cards(cuda):
+    """A mesh of every card (``make_mesh()``): Halfar test B at 61x61 in
+    float64 (K4 per shard, ``sia.pallas = on``) for 300 model years and
+    the 100 km hybrid chain in float64 (K5 per shard) for one model year,
+    against the unmeshed runs on the first card: equal steps and H to the
+    bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    mesh = make_mesh()
+    dev = torch.device("cuda:0")
+    on = {"stress_balance.sia.pallas": "on"}
+    runs = []
+    for m in (None, mesh):
+        model, state, _, sol = setups.halfar_model("B", 61, device=dev,
+                                                   extra_cfg=on, mesh=m)
+        runs.append(model.step_once(state, sol.t0, 300.0 * SPY))
+    model, state, grid = setups.hybrid_greenland_model("float64", 100.0,
+                                                       device=dev, mesh=mesh)
+    ref = IceModel(grid=grid, config=model.config, surface=model.surface,
+                   ocean=model.ocean, device=dev)
+    runs += [m.step_once(state, 0.0, SPY) for m in (ref, model)]
+    for (a, _, sa), (b, _, sb) in (runs[:2], runs[2:]):
+        assert sb.nsteps == sa.nsteps > 0
+        assert b.geometry.ice_thickness.device == dev
+        assert torch.equal(a.geometry.ice_thickness, b.geometry.ice_thickness)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4)])
+def test_k6_equals_unsharded(cuda, dtype, mesh_shape):
+    """K3 and K4 per shard on one-ghost blocks (61 pads to the mesh)
+    against the unsharded kernels: equal to the bit, one launch per
+    shard."""
+    mesh = make_mesh([cuda] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+    H, s, E, z = _sia_inputs((61, 61, 13), dtype, cuda)
+    kw = dict(enhancement=1.5, dx=25e3, dy=25e3, EC=EnthalpyConverter(),
+              pb_law=PatersonBudd(EC=EnthalpyConverter()), d_cap=None)
+    n0 = K3.LAUNCHES
+    got = S.sia_flux_thermo_sharded(H, s, E, z, mesh, **kw)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES == n0 + mesh.size
+    for g, r in zip(got, K3.sia_flux_thermo(H, s, E, z, **kw)):
+        assert torch.equal(g, r)
+    H, s = _dome((61, 61), dtype, cuda)
+    kw = dict(A=4e-25, enhancement=1.5, dx=30e3, dy=30e3, d_cap=None)
+    n0 = K4.LAUNCHES
+    got = S.sia_flux_sharded(H, s, mesh, **kw)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == n0 + mesh.size
+    for g, r in zip(got, K4.sia_flux(H, s, **kw)):
+        assert torch.equal(g, r)
