@@ -9,7 +9,11 @@ version on the card, relative max-norm error:
   (301x561) grids, 1e-12 in float64 and 1e-5 in float32;
   K2b ``pcr_lines`` and K2 ``pcr_lines_sub`` on random diagonally dominant
   unit-diagonal systems, lines of n = 76, 141, 301, 561 over batches of 141,
-  76, 561, 301, both layouts, 1e-12 / 1e-5;
+  76, 561, 301, both layouts: the one-shot form (a factor and an apply
+  launch) in both dtypes, and in float32 the apply launch alone (with the
+  row scale) and the factor launch alone (unit diagonal implicit), all
+  asserted equal to the bit; beside them ``torch.linalg.solve`` on the dense
+  batched matrices, the one PyTorch call that solves the same systems;
   K3 ``sia_flux_thermo`` at 61x61x61 and 561x301x41, 1e-12 / 1e-4;
   K4 ``sia_flux`` at 61x61 and 601x601 on a dome with an ice-free margin,
   with and without a binding diffusivity cap, 1e-12 / 2e-5;
@@ -72,10 +76,12 @@ F32_OPS_PER_S = 67e12
 HALFAR_MX, HALFAR_YEARS = 601, 200.0
 # operations of each kernel, counted from its plain version's arithmetic:
 # per cell (K1, K1 JVP without a drag tangent, K4), per element and round
-# of cyclic reduction (K2/K2b), per face and level of the softness integral
+# of cyclic reduction (K2/K2b: 10 in the factor's a, b, c recurrences, 4 in
+# the apply's d recurrence), per face and level of the softness integral
 # plus per face (K3)
-OPS = {"ssa_matvec": 52, "ssa_matvec_jvp": 102, "pcr_round": 14,
-       "sia_thermo_level": 37, "sia_thermo_face": 15, "sia_flux": 36}
+OPS = {"ssa_matvec": 52, "ssa_matvec_jvp": 102, "pcr_factor_round": 10,
+       "pcr_apply_round": 4, "sia_thermo_level": 37, "sia_thermo_face": 15,
+       "sia_flux": 36}
 
 
 def _require_cuda():
@@ -149,6 +155,8 @@ def _counters():
             (ssa_matvec, "HALO_JVP_LAUNCHES", "ssa_matvec_halo_jvp"),
             (pcr, "LAUNCHES", "pcr_lines"),
             (pcr, "SUB_LAUNCHES", "pcr_lines_sub"),
+            (pcr, "FACTOR_LAUNCHES", "pcr_factor_lines"),
+            (pcr, "SUB_FACTOR_LAUNCHES", "pcr_factor_lines_sub"),
             (sia_thermo, "LAUNCHES", "sia_flux_thermo"),
             (sia_iso, "LAUNCHES", "sia_flux"),
             (hostsync, "COUNT", "host_syncs"))
@@ -156,6 +164,7 @@ def _counters():
 
 KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_matvec_halo",
            "ssa_matvec_halo_jvp", "pcr_lines", "pcr_lines_sub",
+           "pcr_factor_lines", "pcr_factor_lines_sub",
            "sia_flux_thermo", "sia_flux")
 
 
@@ -179,26 +188,31 @@ def _check_launches(label, counts, launched, idle):
 
 
 def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
-                 match=None):
+                 match=None, nbytes=None, unpack=None):
     """Kernel against plain version on the same inputs, then both timed,
-    and the kernel's bound from the bytes of its tensor inputs and outputs
-    (each counted once) and ``nops`` operations. ``match`` names the CUDA
-    kernel, whose device time alone is printed too. Returns the kernel's
-    record: events ms, plain events ms, max abs err, bound ms and what sets
-    the bound."""
+    and the kernel's bound from ``nbytes`` (by default the bytes of its
+    tensor inputs and outputs, each counted once) and ``nops`` operations.
+    ``match`` names the CUDA kernel, whose device time alone is printed
+    too; ``unpack`` turns a result that is no tensor into the tensors to
+    compare. Returns the kernel's record: events ms, plain events ms, max
+    abs err, bound ms and what sets the bound."""
     import torch
     got = kern(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
+    if unpack is not None:
+        got, ref = unpack(got), unpack(ref)
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
-    err = max(_rel_err(g, r) for g, r in zip(got, ref))
-    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    err = max(_rel_err(g, r) for g, r in zip(got, ref) if g.numel())
+    abs_err = max(float((g - r).abs().max())
+                  for g, r in zip(got, ref) if g.numel())
     if not err <= tol:
         raise AssertionError(f"{name} {label}: relative error {err:.3e} > "
                              f"{tol:.0e}")
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*args, *got) if torch.is_tensor(t))
+    if nbytes is None:
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*args, *got) if torch.is_tensor(t))
     bound_ms, bound_by = _bound(nbytes, nops)
     ms = _time_ms(lambda: kern(*args), reps)
     plain_ms = _time_ms(lambda: plain(*args), reps)
@@ -216,6 +230,28 @@ def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
           f"{nops:.0f} operations)")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": abs_err,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _dense_solve_ms(a, c, d, sub, x, label):
+    """ms of ``torch.linalg.solve`` on the dense batched matrices of the
+    unit-diagonal line systems, the one PyTorch call that solves them (a
+    yardstick: the port never calls it). ``sub``: the systems run along
+    axis -2. Its solution must agree with the kernels' ``x`` to 1e-4."""
+    import torch
+    if sub:
+        a, c, d, x = a.T, c.T, d.T, x.T
+    A = (torch.diag_embed(torch.ones_like(d))
+         + torch.diag_embed(a[:, 1:], offset=-1)
+         + torch.diag_embed(c[:, :-1], offset=1))
+    rhs = d.unsqueeze(-1).contiguous()
+    err = _rel_err(torch.linalg.solve(A, rhs).squeeze(-1), x)
+    if not err <= 1e-4:
+        raise AssertionError(f"torch.linalg.solve {label}: {err:.3e} > 1e-4")
+    ms = _time_ms(lambda: torch.linalg.solve(A, rhs), 5)
+    print(f"phase1: torch.linalg.solve on {tuple(A.shape)} dense matrices "
+          f"({'axis -2' if sub else 'last axis'} lines, {label}): events "
+          f"{ms:.4f} ms, rel_err against the kernels {err:.3e}")
+    return ms
 
 
 def phase1_kernels(dev):
@@ -268,25 +304,71 @@ def phase1_kernels(dev):
                 if km == 20 and dtype == torch.float32:
                     out[name] = r
 
-    # K2 / K2b: (n, batch) of the u-lines (lanes) and v-lines (sub) -----
+    # K2 / K2b: (n, batch) of the u-lines (lanes) and v-lines (sub): the
+    # one-shot form in both dtypes, then in float32 the apply launch alone
+    # (unit diagonal implicit, with the row scale: the path's call) and the
+    # factor launch alone, all equal to the bit (tolerance 0) ------------
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     for n, batch in ((76, 141), (141, 76), (301, 561), (561, 301)):
         a = rng.uniform(-0.45, 0.0, size=(n, batch))
         c = rng.uniform(-0.45, 0.0, size=(n, batch))
         d = rng.normal(size=(n, batch))
-        for dtype, tol in tols:
+        scale = rng.uniform(0.5, 2.0, size=(n, batch))
+        rounds = math.ceil(math.log2(n))
+        for dtype in (torch.float64, torch.float32):
             sub = [torch.tensor(x, dtype=dtype, device=dev)
-                   for x in (a, np.ones((n, batch)), c, d)]
+                   for x in (a, np.ones((n, batch)), c, d, scale)]
             lanes = [x.T.contiguous() for x in sub]
             label = f"n={n} batch={batch} {str(dtype)[6:]}"
-            nops = OPS["pcr_round"] * n * batch * math.ceil(math.log2(n))
-            r = _kernel_case("pcr_lines_sub", K2.pcr_lines_sub,
-                             K2.pcr_lines_sub_plain, sub, tol, label, nops)
-            if (n, batch) == (141, 76) and dtype == torch.float32:
-                out["pcr_lines_sub"] = r     # the 20 km v-lines
-            r = _kernel_case("pcr_lines", K2.pcr_lines, K2.pcr_lines_plain,
-                             lanes, tol, label, nops)
-            if (n, batch) == (76, 141) and dtype == torch.float32:
-                out["pcr_lines"] = r         # the 20 km u-lines
+            nops = (OPS["pcr_factor_round"] + OPS["pcr_apply_round"]) \
+                * n * batch * rounds
+            _kernel_case("pcr_lines_sub", K2.pcr_lines_sub,
+                         K2.pcr_lines_sub_plain, sub[:4], 0.0, label, nops)
+            _kernel_case("pcr_lines", K2.pcr_lines, K2.pcr_lines_plain,
+                         lanes[:4], 0.0, label, nops)
+            if dtype != torch.float32:
+                continue
+            field = n * batch * sub[0].element_size()
+            for name, ts, make, make_plain, shape20 in (
+                    ("pcr_lines_sub", sub, K2.pcr_factor_lines_sub,
+                     K2.pcr_factor_lines_sub_plain, (141, 76)),   # v-lines
+                    ("pcr_lines", lanes, K2.pcr_factor_lines,
+                     K2.pcr_factor_lines_plain, (76, 141))):      # u-lines
+                ta, _, tc, td, ts_ = ts
+                f, fp = make(ta, None, tc), make_plain(ta, None, tc)
+                # the function's own bytes: a, c, scale and r in, x out
+                r = _kernel_case(
+                    name, lambda r_, s_: K2.pcr_apply(f, r_, s_),
+                    lambda r_, s_: K2.pcr_apply_plain(fp, r_, s_), (td, ts_),
+                    0.0, f"apply {label}",
+                    (OPS["pcr_apply_round"] * rounds + 2) * n * batch,
+                    match="pcr_apply_kernel", nbytes=5 * field)
+                # the same launch after 256 MB of other writes, which
+                # leave none of the factor's table in the 50 MB L2
+                def cold():
+                    flush.zero_()
+                    K2.pcr_apply(f, td, ts_)
+                cold_us, _ = _device_profile(cold, 30, "pcr_apply_kernel")
+                print(f"phase1: {name} apply {label}: the kernel alone after "
+                      "256 MB of other writes "
+                      + ("not measured" if cold_us is None
+                         else f"{cold_us:.2f} us"))
+                lib_ms = _dense_solve_ms(ta, tc, td / ts_,
+                                         name == "pcr_lines_sub",
+                                         K2.pcr_apply(f, td, ts_), label)
+                if (n, batch) == shape20:
+                    out[name] = {**r, "library_ms": lib_ms}
+                fname = name.replace("pcr_", "pcr_factor_")
+                r = _kernel_case(
+                    fname, lambda a_, c_: make(a_, None, c_),
+                    lambda a_, c_: make_plain(a_, None, c_), (ta, tc), 0.0,
+                    f"{label}; table {f.table.numel() * 4} bytes",
+                    OPS["pcr_factor_round"] * rounds * n * batch,
+                    match="pcr_factor_kernel",
+                    nbytes=2 * field + f.table.numel() * 4,
+                    unpack=lambda f_: f_.coefficients())
+                if (n, batch) == shape20:
+                    out[fname] = r
 
     # K3 ---------------------------------------------------------------
     EC = EnthalpyConverter()
@@ -1068,7 +1150,8 @@ def phase6_meshed_hybrid(dev, mesh):
     counts = runs["meshed"][0][4]
     _check_launches("phase6", counts,
                     ("ssa_matvec_halo", "ssa_matvec_halo_jvp", "pcr_lines",
-                     "pcr_lines_sub"),
+                     "pcr_lines_sub", "pcr_factor_lines",
+                     "pcr_factor_lines_sub"),
                     ("ssa_matvec", "ssa_matvec_jvp", "sia_flux_thermo",
                      "sia_flux"))
     (sa, _, sta, _, _), (sb, tb, stb, _, _) = \
@@ -1154,7 +1237,8 @@ def main():
     timings = phase1_kernels(dev)
     phase1_chain_reference(dev)
 
-    pcr_names = ("pcr_lines", "pcr_lines_sub")
+    pcr_names = ("pcr_lines", "pcr_lines_sub", "pcr_factor_lines",
+                 "pcr_factor_lines_sub")
     k1 = ("ssa_matvec", "ssa_matvec_jvp")
     sia = ("sia_flux_thermo", "sia_flux")
     _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2", None, k1,
@@ -1191,13 +1275,16 @@ def main():
     print(f"phase6: {time.time() - t6:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
-    # no single PyTorch call computes any of these functions (library_ms)
+    # library_ms: torch.linalg.solve on the dense matrices for the line
+    # solves; no single PyTorch call computes any of the other functions
     kernels = []
     for name, source, replaces, counts in (
             ("ssa_matvec", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts_a),
             ("ssa_matvec_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts_a),
             ("pcr_lines", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts_a),
             ("pcr_lines_sub", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts_a),
+            ("pcr_factor_lines", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts_a),
+            ("pcr_factor_lines_sub", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts_a),
             ("sia_flux_thermo", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_b),
             ("sia_flux", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_c),
             ("ssa_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:108", counts_d),
@@ -1205,7 +1292,7 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],
-                        **timings[name], "library_ms": None})
+                        "library_ms": None, **timings[name]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     # the run drives one card (cuda:0), which CUDA_VISIBLE_DEVICES restricts

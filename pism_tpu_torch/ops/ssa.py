@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from . import stencils as st
-from .kernels.pcr import pcr_lines, pcr_lines_sub
+from .kernels.pcr import pcr_apply, pcr_factor_lines, pcr_factor_lines_sub
 from .kernels.ssa_matvec import ssa_matvec
 from ..util.hostsync import host
 from ..util.tridiag import solve_batched_pcr
@@ -155,7 +155,9 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
     ``pcr_impl``: ``xla`` solves with the plain torch PCR, the v-lines on the
     transposed layout; ``pallas_sublane`` with the PCR kernels
     (``ops/kernels/pcr.py``) directly on the (My, Mx) layout, the u-lines
-    along its last axis and the v-lines along axis -2, so no transposes."""
+    along its last axis and the v-lines along axis -2, so no transposes:
+    the lines are factored when the preconditioner is built, and an
+    application is two apply launches and nothing else."""
     if pcr_impl not in ("xla", "pallas_sublane"):
         raise NotImplementedError(
             f"stress_balance.ssa.fd.line_pcr_impl = {pcr_impl!r} is not "
@@ -179,14 +181,15 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
     av, cv = av / bv, cv / bv
 
     if pcr_impl == "pallas_sublane":
+        # the lines are factored here, with the unit diagonal implicit; an
+        # application is two apply launches on residuals of the
+        # coefficients' dtype (pcr_apply raises on another)
+        fu = pcr_factor_lines(au, None, cu)
+        fv = pcr_factor_lines_sub(av, None, cv)
+
         def precond(r):
             ru, rv = r
-            one = torch.ones_like(ru)
-            zu = pcr_lines(au.to(ru.dtype), one, cu.to(ru.dtype),
-                           ru / bu.to(ru.dtype))
-            zv = pcr_lines_sub(av.to(rv.dtype), one, cv.to(rv.dtype),
-                               rv / bv.to(rv.dtype))
-            return zu, zv
+            return pcr_apply(fu, ru, bu), pcr_apply(fv, rv, bv)
 
         return precond
 

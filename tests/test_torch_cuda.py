@@ -142,21 +142,59 @@ def _tridiag(shape, seed, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n,batch", [(1, 5), (2, 3), (37, 9), (76, 141),
                                      (141, 76), (301, 561), (561, 301),
-                                     (3000, 4)])
+                                     (3000, 4), (4096, 3), (4800, 2)])
 def test_pcr_kernels_match_plain(cuda, dtype, n, batch):
-    """Both layouts at the chain's line shapes and beyond one block's lines;
-    the kernels round as the plain version does, so they agree to the last
-    bit but for the division's rounding."""
-    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    """Both layouts at the chain's line shapes, at n = 1 and n not a power
+    of two, and on lines longer than a block's threads: the one-shot form,
+    the factor alone (b given, and the unit diagonal implicit) and the
+    apply alone (with and without a scale) round as the plain versions do,
+    so all are equal to the bit. A block is one line, so no batch leaves a
+    ragged last block; 3000 and 4096 slots take four per thread (4096 a
+    whole block of 1024 threads), 4800 take 32."""
     sub = _tridiag((n, batch), n, dtype, cuda)
     lanes = [x.T.contiguous() for x in sub]
+    scale = 0.5 + torch.rand((n, batch), dtype=dtype, device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(n))
     n0, s0 = K2.LAUNCHES, K2.SUB_LAUNCHES
+    f0, fs0 = K2.FACTOR_LAUNCHES, K2.SUB_FACTOR_LAUNCHES
     got_sub, got = K2.pcr_lines_sub(*sub), K2.pcr_lines(*lanes)
     torch.cuda.synchronize()
     assert (K2.LAUNCHES, K2.SUB_LAUNCHES) == (n0 + 1, s0 + 1)
-    assert _rel(got_sub, K2.pcr_lines_sub_plain(*sub)) <= tol
-    assert _rel(got, K2.pcr_lines_plain(*lanes)) <= tol
-    assert _rel(got.T, got_sub) <= tol
+    assert (K2.FACTOR_LAUNCHES, K2.SUB_FACTOR_LAUNCHES) == (f0 + 1, fs0 + 1)
+    assert torch.equal(got_sub, K2.pcr_lines_sub_plain(*sub))
+    assert torch.equal(got, K2.pcr_lines_plain(*lanes))
+    assert torch.equal(got.T, got_sub)
+
+    for is_sub, (a, b, c, d), sc, make, make_plain in (
+            (True, sub, scale, K2.pcr_factor_lines_sub,
+             K2.pcr_factor_lines_sub_plain),
+            (False, lanes, scale.T.contiguous(), K2.pcr_factor_lines,
+             K2.pcr_factor_lines_plain)):
+        for unit in (False, True):
+            fp = make_plain(a, None if unit else b, c)
+            f = make(a, None if unit else b, c)
+            assert f.sub == is_sub and f.table is not None
+            for g, q in zip(f.coefficients(), fp.coefficients()):
+                assert torch.equal(g, q)
+            for s_ in (None, sc):
+                x = K2.pcr_apply(f, d, s_)
+                torch.cuda.synchronize()
+                assert torch.equal(x, K2.pcr_apply_plain(fp, d, s_))
+
+
+@pytest.mark.cuda
+def test_pcr_kernels_refuse_what_they_do_not_take(cuda):
+    """A line too long for a block's shared memory, a plain factor and
+    a right-hand side of another dtype than the factor's raise; nothing
+    falls back to the plain version."""
+    a, b, c, d = _tridiag((8, 6), 3, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        K2.pcr_apply(K2.pcr_factor_lines_sub(a, b, c), d.double())
+    long = _tridiag((4, 10000), 4, torch.float32, cuda)
+    with pytest.raises(RuntimeError):
+        K2.pcr_lines(*long)                           # 6 n floats > 227 KB
+    with pytest.raises(ValueError):
+        K2.pcr_apply(K2.pcr_factor_lines_plain(a, b, c), d)
 
 
 def _sia_inputs(shape, dtype, device, seed=5):

@@ -1,8 +1,11 @@
 """K2 and K2b, the PCR line-solve kernels: their plain torch versions in
 pism_tpu_torch against the TPU kernels ``pcr_fused_sub`` (system on axis
 -2) and ``pcr_fused`` (system on the last axis) run in interpret mode, on
-random diagonally dominant systems; and the line preconditioner with
-``line_pcr_impl = pallas_sublane`` against the JAX package's.
+random diagonally dominant systems, in the one-shot form and as a factor
+(unit diagonal implicit) followed by an apply with a scale; the plain factor
+and apply against the plain PCR solve, equal to the bit; and the line
+preconditioner with ``line_pcr_impl = pallas_sublane`` against the JAX
+package's.
 
 Tolerance 1e-12 of the largest value, float64: the same eliminations in the
 same order, so only rounding differs.
@@ -60,6 +63,112 @@ def test_lines_matches_tpu_kernel(batch, n):
     got = K2.pcr_lines(*(torch.from_numpy(x) for x in (a, b, c, d)))
     assert got.shape == (batch, n)
     assert _rel(got.numpy(), ref) <= 1e-12
+
+
+_FACTOR_SHAPES = [(1, 7), (2, 5), (37, 9), (141, 76), (561, 6)]   # (n, batch)
+
+
+def _unit_system(shape, seed):
+    """(a, c, r, scale): unit-diagonal rows, a residual and the row scale
+    the line preconditioner divides it by."""
+    a, _, c, r = _system(shape, seed)
+    scale = np.random.default_rng(seed + 100).uniform(0.5, 2.0, size=shape)
+    return a, c, r, scale
+
+
+@pytest.mark.parametrize("n,batch", _FACTOR_SHAPES)
+def test_factor_apply_sub_matches_tpu_kernel(n, batch):
+    """Factor with the unit diagonal implicit, apply with a scale, on axis
+    -2, against the TPU kernel on (a, ones, c, r / scale); n = 561 runs ten
+    rounds."""
+    a, c, r, scale = _unit_system((n, batch), n + 2)
+    ref = pcr_fused_sub(jnp.asarray(a), jnp.ones((n, batch)), jnp.asarray(c),
+                        jnp.asarray(r / scale), interpret=True)
+    T = torch.from_numpy
+    f = K2.pcr_factor_lines_sub(T(a), None, T(c))
+    got = K2.pcr_apply(f, T(r), T(scale))
+    assert f.sub and (f.n, f.batch) == (n, batch)
+    assert got.shape == (n, batch) and got.is_contiguous()
+    assert _rel(got.numpy(), ref) <= 1e-12
+
+
+@pytest.mark.parametrize("n,batch", _FACTOR_SHAPES)
+def test_factor_apply_lines_matches_tpu_kernel(n, batch):
+    a, c, r, scale = _unit_system((batch, n), n + 3)
+    ref = pcr_fused(jnp.asarray(a), jnp.ones((batch, n)), jnp.asarray(c),
+                    jnp.asarray(r / scale), interpret=True)
+    T = torch.from_numpy
+    f = K2.pcr_factor_lines(T(a), None, T(c))
+    got = K2.pcr_apply(f, T(r), T(scale))
+    assert not f.sub and (f.n, f.batch) == (n, batch)
+    assert got.shape == (batch, n)
+    assert _rel(got.numpy(), ref) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sub", [True, False])
+@pytest.mark.parametrize("unit", [True, False])
+@pytest.mark.parametrize("n,batch", [(1, 4), (2, 3), (37, 9), (141, 19)])
+def test_factor_apply_equals_plain_pcr_to_the_bit(dtype, sub, unit, n, batch):
+    """apply_plain(factor_plain(a, b, c), d) is solve_batched_pcr(a, b, c, d)
+    operation for operation, in both dtypes and layouts, with b given or
+    the unit diagonal implicit, with and without a scale."""
+    a, b, c, d = (torch.from_numpy(x).to(dtype)
+                  for x in _system((n, batch) if sub else (batch, n), n + 4))
+    scale = 1.0 + torch.rand(d.shape, dtype=dtype,
+                             generator=torch.Generator().manual_seed(n))
+    if unit:
+        b = torch.ones_like(a)
+    solve = K2.pcr_lines_sub_plain if sub else K2.pcr_lines_plain
+    make = K2.pcr_factor_lines_sub_plain if sub else K2.pcr_factor_lines_plain
+    wrapped = K2.pcr_factor_lines_sub if sub else K2.pcr_factor_lines
+    f = make(a, None if unit else b, c)
+    assert torch.equal(K2.pcr_apply_plain(f, d), solve(a, b, c, d))
+    assert torch.equal(K2.pcr_apply_plain(f, d, scale),
+                       solve(a, b, c, d / scale))
+    # the wrappers take the plain versions on CPU tensors
+    assert torch.equal(K2.pcr_apply(wrapped(a, None if unit else b, c), d, scale),
+                       solve(a, b, c, d / scale))
+    alpha, gamma, b_last = f.coefficients()
+    rounds = 0 if n == 1 else int(np.ceil(np.log2(n)))
+    assert alpha.shape == gamma.shape == (rounds, *d.shape)
+    assert b_last.shape == d.shape and alpha.dtype == dtype
+
+
+@pytest.mark.parametrize("sub", [True, False])
+def test_one_factor_serves_several_right_hand_sides(sub):
+    n, batch = 76, 23
+    shape = (n, batch) if sub else (batch, n)
+    a, b, c, _ = (torch.from_numpy(x) for x in _system(shape, 21))
+    f = (K2.pcr_factor_lines_sub if sub else K2.pcr_factor_lines)(a, b, c)
+    solve = K2.pcr_lines_sub if sub else K2.pcr_lines
+    g = torch.Generator().manual_seed(3)
+    for _ in range(4):
+        d = torch.randn(shape, dtype=torch.float64, generator=g)
+        x = K2.pcr_apply(f, d)
+        assert torch.equal(x, solve(a, b, c, d))
+        # it solves the system it was factored from
+        xs = x if not sub else x.T
+        am, bm, cm, dm = ((t if not sub else t.T) for t in (a, b, c, d))
+        res = bm * xs - dm
+        res[:, 1:] += am[:, 1:] * xs[:, :-1]
+        res[:, :-1] += cm[:, :-1] * xs[:, 1:]
+        assert float(res.abs().max()) <= 1e-12
+
+
+def test_apply_checks_inputs():
+    a, b, c, d = (torch.from_numpy(x) for x in _system((8, 6), 2))
+    f = K2.pcr_factor_lines(a, b, c)
+    with pytest.raises(ValueError):
+        K2.pcr_apply(f, d[:, :-1].contiguous())       # another shape
+    with pytest.raises(ValueError):
+        K2.pcr_apply(f, d.float())                    # another dtype
+    with pytest.raises(ValueError):
+        K2.pcr_apply(f, d, d.T)                       # scale not contiguous
+    with pytest.raises(TypeError):
+        K2.pcr_factor_lines_sub(a, b.float(), c)
+    with pytest.raises(ValueError):
+        K2.pcr_factor_lines(a, None, c[:, :-1].contiguous())
 
 
 def test_edge_coefficients_are_ignored():
