@@ -6,7 +6,11 @@ Phase 1 builds the kernels from ``pism_tpu_torch/csrc`` (one ``nvcc`` per
 source, all started together) and holds each against its plain torch
 version on the card, relative max-norm error:
   K1 ``ssa_matvec`` and ``ssa_matvec_jvp`` at the 20 km (141x76) and 5 km
-  (301x561) grids, 1e-12 in float64 and 1e-5 in float32;
+  (301x561) grids, 1e-12 in float64 and 1e-5 in float32; the Newton matvec
+  ``ssa_newton_matvec`` there too, against its plain version (K1's
+  tolerances) and against the composition it replaced on the card (the
+  plain torch tangent, the fused JVP launch and the Dirichlet selects),
+  asserted equal to the bit and timed beside it;
   K2b ``pcr_lines`` and K2 ``pcr_lines_sub`` on random diagonally dominant
   unit-diagonal systems, lines of n = 76, 141, 301, 561 over batches of 141,
   76, 561, 301, both layouts: the one-shot form (a factor and an apply
@@ -17,12 +21,13 @@ version on the card, relative max-norm error:
   K3 ``sia_flux_thermo`` at 61x61x61 and 561x301x41, 1e-12 / 1e-4;
   K4 ``sia_flux`` at 61x61 and 601x601 on a dome with an ice-free margin,
   with and without a binding diffusivity cap, 1e-12 / 2e-5;
-  K5 ``ssa_matvec_halo`` and ``ssa_matvec_halo_jvp``, the matvec per shard
-  of a mesh of this one card, at 142x76 and 561x301 on 2x2 and 29x37 on
-  2x4: one shard's launch against its plain version (K1's tolerances), and
-  the whole sharded call (halo exchange, launches, gather) against the
-  plain sharded call and against K1 on the whole field (asserted equal to
-  the bit);
+  K5 ``ssa_matvec_halo``, ``ssa_matvec_halo_jvp`` and
+  ``ssa_newton_matvec_halo``, per shard of a mesh of this one card, at
+  142x76 and 561x301 on 2x2 and 29x37 on 2x4: one shard's launch against
+  its plain version (K1's tolerances), and the whole sharded call (halo
+  exchange, launches, gather; for the Newton matvec the direction's only,
+  the frozen fields padded once) against the plain sharded call and
+  against the unsharded kernel (asserted equal to the bit);
   K6, K3 per shard (61x61x61 on 2x2) and K4 per shard (601x601 on 2x2),
   against unsharded K3/K4 (asserted equal to the bit).
 It times each with CUDA events and the profiler's device time and computes
@@ -39,8 +44,10 @@ launch counters set to 0 just before it and read just after:
     years as two calls, 2 a then 8 a; after 2 a its steps and dt-limit hits
     equal phase 2's and the ice volume is within 2e-4. Then one
     preconditioner application, the kernels against ``xla``, on its state,
-    one Krylov iteration profiled with each, the Krylov iterations of one
-    step profiled, one profiled step and a timed breakdown of 1 a;
+    the Newton matvec on the chain's own linearization against its plain
+    version and the replaced composition, one Krylov iteration profiled
+    with each preconditioner route, the Krylov iterations of one step
+    profiled, one profiled step and a timed breakdown of 1 a;
   phase 3: path A at 5 km for 0.5 model years;
   phase 4: path B, EISMINT II A at 61x61x61 float32 from zero ice, 5000
     model years, then 2000 timed, a few steps profiled and a timed
@@ -79,7 +86,9 @@ HALFAR_MX, HALFAR_YEARS = 601, 200.0
 # of cyclic reduction (K2/K2b: 10 in the factor's a, b, c recurrences, 4 in
 # the apply's d recurrence), per face and level of the softness integral
 # plus per face (K3)
-OPS = {"ssa_matvec": 52, "ssa_matvec_jvp": 102, "pcr_factor_round": 10,
+# (the Newton matvec: the JVP's 102, the tangent's 19 a face and 4 selects)
+OPS = {"ssa_matvec": 52, "ssa_matvec_jvp": 102, "ssa_newton_matvec": 144,
+       "pcr_factor_round": 10,
        "pcr_apply_round": 4, "sia_thermo_level": 37, "sia_thermo_face": 15,
        "sia_flux": 36}
 
@@ -153,6 +162,8 @@ def _counters():
             (ssa_matvec, "JVP_LAUNCHES", "ssa_matvec_jvp"),
             (ssa_matvec, "HALO_LAUNCHES", "ssa_matvec_halo"),
             (ssa_matvec, "HALO_JVP_LAUNCHES", "ssa_matvec_halo_jvp"),
+            (ssa_matvec, "NEWTON_LAUNCHES", "ssa_newton_matvec"),
+            (ssa_matvec, "HALO_NEWTON_LAUNCHES", "ssa_newton_matvec_halo"),
             (pcr, "LAUNCHES", "pcr_lines"),
             (pcr, "SUB_LAUNCHES", "pcr_lines_sub"),
             (pcr, "FACTOR_LAUNCHES", "pcr_factor_lines"),
@@ -162,8 +173,9 @@ def _counters():
             (hostsync, "COUNT", "host_syncs"))
 
 
-KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_matvec_halo",
-           "ssa_matvec_halo_jvp", "pcr_lines", "pcr_lines_sub",
+KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_newton_matvec",
+           "ssa_matvec_halo", "ssa_matvec_halo_jvp", "ssa_newton_matvec_halo",
+           "pcr_lines", "pcr_lines_sub",
            "pcr_factor_lines", "pcr_factor_lines_sub",
            "sia_flux_thermo", "sia_flux")
 
@@ -254,6 +266,80 @@ def _dense_solve_ms(a, c, d, sub, x, label):
     return ms
 
 
+def _newton_args(rng, shape, dtype, dev):
+    """A frozen Newton system and a direction, as ``ssa_newton_matvec``
+    takes them (u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta, bc):
+    coefficients (a1, a2, a3, k) that give dnuH ~ 1e14 with k zero on a
+    tenth of the faces (the icy-face mask), and a Dirichlet mask holding
+    the grid's edges and a tenth of the cells."""
+    import numpy as np
+    import torch
+    a = [rng.normal(size=shape) * s for s in (1e-5, 1e-5, 1e-6, 1e-6)]
+    a += [rng.uniform(1e13, 1e16, size=shape) for _ in range(2)]
+    for _ in range(2):
+        c = rng.normal(size=(*shape, 4)) * 1e10
+        c[..., 3] = rng.uniform(1e13, 1e15, size=shape) \
+            * (rng.uniform(size=shape) > 0.1)
+        a.append(c)
+    a.append(rng.uniform(0.0, 1e10, size=shape))
+    bc = rng.uniform(size=shape) < 0.1
+    bc[0, :] = bc[-1, :] = bc[:, 0] = bc[:, -1] = True
+    return tuple(torch.tensor(x, dtype=dtype, device=dev) for x in a) \
+        + (torch.tensor(bc, device=dev),)
+
+
+def _replaced_composition(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta,
+                          bc, dx, dy, mesh=None):
+    """The Newton matvec as the parent composed it on the card: free the
+    direction, the plain torch tangent, one fused JVP launch (per shard
+    under ``mesh``), free, the Dirichlet rows."""
+    import torch
+    from pism_tpu_torch.ops import sharded as S
+    from pism_tpu_torch.ops import ssa as ssa_ops
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+    from pism_tpu_torch.ops.stencils import shift
+    fu, fv = torch.where(bc, 0.0, du), torch.where(bc, 0.0, dv)
+    dn = ssa_ops.NuHTangent(coef_e.unbind(-1), coef_n.unbind(-1), dx, dy,
+                            shift)(fu, fv)
+    jvp_args = (u, v, fu, fv, nuH_e, nuH_n, dn.e, dn.n, beta, None)
+    Ju, Jv = (K.ssa_matvec_jvp(*jvp_args, dx, dy) if mesh is None
+              else S.ssa_matvec_sharded_jvp(*jvp_args, mesh, dx, dy))
+    return (torch.where(bc, 0.0, Ju) + torch.where(bc, du, 0.0),
+            torch.where(bc, 0.0, Jv) + torch.where(bc, dv, 0.0))
+
+
+def _check_replaced(name, label, got, args, mesh=None):
+    """``got`` against the replaced composition on the same inputs: equal
+    to the bit; both timed (CUDA events, the profiler's device time)."""
+    import torch
+    ref = _replaced_composition(*args, mesh=mesh)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, r) for g, r in zip(got, ref))
+    diff = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    ms = _time_ms(lambda: _replaced_composition(*args, mesh=mesh), 50)
+    print(f"phase1: {name} {label}: the replaced composition (plain tangent, "
+          f"{'ssa_matvec_jvp' if mesh is None else 'ssa_matvec_sharded_jvp'}"
+          f", selects) events {ms:.4f} ms, device "
+          f"{_us(lambda: _replaced_composition(*args, mesh=mesh))}; equal to "
+          f"it to the bit {same} (max |diff| {diff:.3e})")
+    if not same:
+        raise AssertionError(f"{name} {label}: differs from the composition "
+                             f"it replaces by {diff:.3e}")
+
+
+def _newton_case(label, args, tol):
+    """The Newton matvec against its plain version (``_kernel_case``) and
+    against the composition it replaces; returns the kernel's record."""
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+    r = _kernel_case("ssa_newton_matvec", K.ssa_newton_matvec,
+                     K.ssa_newton_matvec_plain, args, tol, label,
+                     OPS["ssa_newton_matvec"] * args[0].numel(),
+                     match="newton")
+    _check_replaced("ssa_newton_matvec", label, K.ssa_newton_matvec(*args),
+                    args)
+    return r
+
+
 def phase1_kernels(dev):
     """Every kernel against its plain version at the paths' shapes; returns
     {kernel name: record of ``_kernel_case``} at the 20 km f32 shapes (K3:
@@ -278,7 +364,8 @@ def phase1_kernels(dev):
     rng = np.random.default_rng(20240601)
     tols = ((torch.float64, 1e-12), (torch.float32, 1e-5))
 
-    # K1 ---------------------------------------------------------------
+    # K1 and the Newton matvec -----------------------------------------
+    nrng = np.random.default_rng(20261016)
     for (My, Mx), km in (((141, 76), 20), ((561, 301), 5)):
         dx = dy = km * 1e3
         arrs = {k: rng.normal(size=(My, Mx)) * 1e-5
@@ -303,6 +390,11 @@ def phase1_kernels(dev):
                                  OPS[name] * My * Mx)
                 if km == 20 and dtype == torch.float32:
                     out[name] = r
+            r = _newton_case(f"{My}x{Mx} {str(dtype)[6:]}",
+                             _newton_args(nrng, (My, Mx), dtype, dev)
+                             + (dx, dy), tol)
+            if km == 20 and dtype == torch.float32:
+                out["ssa_newton_matvec"] = r
 
     # K2 / K2b: (n, batch) of the u-lines (lanes) and v-lines (sub): the
     # one-shot form in both dtypes, then in float32 the apply launch alone
@@ -448,6 +540,7 @@ def phase1_sharded(dev, rng):
     from pism_tpu_torch.verification import halfar
 
     out = {}
+    nrng = np.random.default_rng(20261017)
     tols = ((torch.float64, 1e-12), (torch.float32, 1e-5))
     for (My, Mx), km, mshape in (((142, 76), 20, (2, 2)),
                                  ((561, 301), 5, (2, 2)),
@@ -518,6 +611,9 @@ def phase1_sharded(dev, rng):
                 if diff != 0.0:
                     raise AssertionError(f"{name} {label}: K5 differs from K1 "
                                          f"by {diff:.3e}")
+            _newton_sharded(nrng, dev, mesh, (My, Mx), dtype, tol, label,
+                            dx, dy, out if km == 20 and mshape == (2, 2)
+                            and dtype == torch.float32 else {})
 
     # K6: K3 and K4 per shard of a 2x2 mesh against the unsharded kernels
     mesh = make_mesh([dev] * 4, (2, 2))
@@ -572,6 +668,79 @@ def phase1_sharded(dev, rng):
                 raise AssertionError(f"K6 {name} {label}: per-shard result "
                                      "differs from the unsharded kernel")
     return out
+
+
+def _newton_sharded(rng, dev, mesh, shape, dtype, tol, label, dx, dy, out):
+    """The Newton matvec per shard: the last shard's launch against its
+    plain version (its record into ``out["ssa_newton_matvec_halo"]``), then one prepared system's matvec against
+    the plain sharded one, the unsharded kernel and the replaced sharded
+    composition (the last two equal to the bit), the preparation timed
+    apart."""
+    import torch
+    from pism_tpu_torch.ops import sharded as S
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+    args = _newton_args(rng, shape, dtype, dev)
+    u, v, du, dv, ne, nn, ce, cn, beta, bc = args
+    ny, nx = mesh.shape["y"], mesh.shape["x"]
+    py, px = S._pad_amounts(shape, mesh)
+    two = [b[-1][-1] for b in S._blocks((u, v, du, dv, bc), 2, mesh, py, px)]
+    one = [b[-1][-1] for b in S._blocks((ne, nn, ce, cn), 1, mesh, py, px)]
+    b0 = S._blocks((beta,), 0, mesh, py, px)[0][-1][-1]
+    r = _kernel_case("ssa_newton_matvec_halo", K.ssa_newton_matvec_halo,
+                     K.ssa_newton_matvec_halo_plain,
+                     (nx == 1, ny == 1, *two[:4], *one, b0, two[4], dx, dy),
+                     tol, f"one shard of {label}",
+                     OPS["ssa_newton_matvec"] * b0.numel(), match="newton")
+    out["ssa_newton_matvec_halo"] = r
+    frozen = (u, v, ne, nn, ce, cn, beta, bc)
+    mv = S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy)
+    got = mv(du, dv)
+    ref = S.ssa_newton_matvec_sharded_plain(*frozen, mesh, dx, dy)(du, dv)
+    whole = K.ssa_newton_matvec(*args, dx, dy)
+    torch.cuda.synchronize()
+    err = max(_rel_err(g, q) for g, q in zip(got, ref))
+    same = all(torch.equal(g, w) for g, w in zip(got, whole))
+    print(f"phase1: ssa_newton_matvec_halo {label}: the sharded matvec "
+          f"against the plain sharded one rel_err {err:.3e} (tol {tol:.0e}),"
+          f" equal to the unsharded kernel {same}; events per matvec "
+          f"{_time_ms(lambda: mv(du, dv), 100):.4f} ms against the unsharded"
+          f" {_time_ms(lambda: K.ssa_newton_matvec(*args, dx, dy), 100):.4f}"
+          f" ms, the preparation once per sweep "
+          f"{_time_ms(lambda: S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy), 20):.4f}"
+          f" ms; device per matvec {_us(lambda: mv(du, dv))}, the "
+          f"preparation {_us(lambda: S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy))}")
+    if not err <= tol or not same:
+        raise AssertionError(f"ssa_newton_matvec_halo {label}: sharded "
+                             f"{err:.3e} from plain, equal to unsharded "
+                             f"{same}")
+    _check_replaced("ssa_newton_matvec_halo", label, got, (*args, dx, dy),
+                    mesh)
+
+
+def check_newton_matvec(model, state, t):
+    """The Newton matvec on the 20 km chain's own linearization at the
+    state's velocity (coefficients across float32's range), a random
+    direction of the velocity's size: the kernel against its plain version
+    and against the composition it replaces."""
+    import torch
+    tau_c = model.yield_stress.compute(state, t=t)
+    P = model.ssa.build_problem(state, tau_c)
+    u, v = P["free"]((state.u_ssa, state.v_ssa))
+    nuH, coefs = P["linearize_nuH"](u, v)
+    g = torch.Generator(device=u.device).manual_seed(11)
+    d = tuple(torch.randn(u.shape, generator=g, device=u.device,
+                          dtype=u.dtype) * u.abs().max() for _ in range(2))
+    spans = []
+    for face, c in zip("en", coefs):
+        for k, name in enumerate(("a1", "a2", "a3", "k")):
+            a = c[..., k].abs()
+            spans.append(f"{name}_{face} {float(a[a > 0].min()):.1e}.."
+                         f"{float(a.max()):.1e}")
+    print(f"phase2b: the chain's tangent coefficients (nonzero |.|): "
+          + ", ".join(spans))
+    _newton_case("on the 20 km chain's linearization",
+                 (u, v, *d, nuH.e, nuH.n, *coefs, P["beta_fn"](u, v),
+                  P["bc_mask"], model.grid.dx, model.grid.dy), 1e-5)
 
 
 def phase1_chain_reference(dev):
@@ -1143,17 +1312,19 @@ def phase6_meshed_hybrid(dev, mesh):
               f"{stats.ssa_krylov_iters / n:.2f}/step, host syncs "
               f"{stats.host_syncs / n:.1f}/step, launches {counts} "
               f"({counts['ssa_matvec_halo'] / n:.1f} K5 and "
-              f"{counts['ssa_matvec_halo_jvp'] / n:.1f} K5 JVP per step)")
+              f"{counts['ssa_newton_matvec_halo'] / n:.1f} Newton matvec "
+              f"launches per step)")
     _check_launches("phase6", runs["unmeshed"][0][4],
-                    ("ssa_matvec", "ssa_matvec_jvp"),
-                    ("ssa_matvec_halo", "ssa_matvec_halo_jvp"))
+                    ("ssa_matvec", "ssa_newton_matvec"),
+                    ("ssa_matvec_jvp", "ssa_matvec_halo",
+                     "ssa_matvec_halo_jvp", "ssa_newton_matvec_halo"))
     counts = runs["meshed"][0][4]
     _check_launches("phase6", counts,
-                    ("ssa_matvec_halo", "ssa_matvec_halo_jvp", "pcr_lines",
-                     "pcr_lines_sub", "pcr_factor_lines",
+                    ("ssa_matvec_halo", "ssa_newton_matvec_halo",
+                     "pcr_lines", "pcr_lines_sub", "pcr_factor_lines",
                      "pcr_factor_lines_sub"),
-                    ("ssa_matvec", "ssa_matvec_jvp", "sia_flux_thermo",
-                     "sia_flux"))
+                    ("ssa_matvec", "ssa_matvec_jvp", "ssa_newton_matvec",
+                     "ssa_matvec_halo_jvp", "sia_flux_thermo", "sia_flux"))
     (sa, _, sta, _, _), (sb, tb, stb, _, _) = \
         runs["unmeshed"][0], runs["meshed"][0]
     rel = _compare_meshed("phase6", (sa, sta), (sb, stb), 1e-5)
@@ -1239,12 +1410,14 @@ def main():
 
     pcr_names = ("pcr_lines", "pcr_lines_sub", "pcr_factor_lines",
                  "pcr_factor_lines_sub")
-    k1 = ("ssa_matvec", "ssa_matvec_jvp")
-    sia = ("sia_flux_thermo", "sia_flux")
+    k1 = ("ssa_matvec", "ssa_newton_matvec")
+    # the old JVP kernels and the per-shard ones are off these paths
+    off = ("ssa_matvec_jvp", "ssa_matvec_halo", "ssa_matvec_halo_jvp",
+           "ssa_newton_matvec_halo", "sia_flux_thermo", "sia_flux")
     _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2", None, k1,
-                                   pcr_names + sia)
+                                   pcr_names + off)
     model, state, t, (a2, a8), counts_a = run_hybrid(
-        dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names, sia)
+        dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names, off)
     (s2, _, v2), (sa, _, va) = p2, a2
     rel = abs(va - v2) / v2
     print(f"phase2b: after 2 a against phase 2: steps {sa.nsteps} / "
@@ -1254,12 +1427,13 @@ def main():
             or not rel <= 2e-4:
         raise AssertionError("phase2b: path A and the default path disagree")
     check_preconditioner(model, state, t)
+    check_newton_matvec(model, state, t)
     profile_krylov(model, state, t)
     profile_bicgstab(model, state, t, 0.01, "phase2b")
     profile_steps(model, state, t, 0.01, "phase2b")
     breakdown(model, state, t, 1.0, "phase2b")
     model, state, t, _, _ = run_hybrid(dev, 5.0, (0.5,), "phase3", PATH_A,
-                                       k1 + pcr_names, sia)
+                                       k1 + pcr_names, off)
     profile_bicgstab(model, state, t, 0.01, "phase3")
     breakdown(model, state, t, 0.25, "phase3")
     counts_b, eismint_7ka, k3_run = phase4_eismint(dev)
@@ -1281,6 +1455,7 @@ def main():
     for name, source, replaces, counts in (
             ("ssa_matvec", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts_a),
             ("ssa_matvec_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts_a),
+            ("ssa_newton_matvec", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts_a),
             ("pcr_lines", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts_a),
             ("pcr_lines_sub", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts_a),
             ("pcr_factor_lines", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts_a),
@@ -1288,7 +1463,8 @@ def main():
             ("sia_flux_thermo", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_b),
             ("sia_flux", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_c),
             ("ssa_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:108", counts_d),
-            ("ssa_matvec_halo_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d)):
+            ("ssa_matvec_halo_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d),
+            ("ssa_newton_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

@@ -12,7 +12,8 @@ integrates the budget over [t, t+dt] in sub-intervals whose count follows
 dt (``surface.pdd.max_evals_per_year``). In the JAX package that count is
 traced from dt and the loop is a ``fori_loop`` (``pism_tpu/coupler/
 pdd.py:197-199, 288``); here dt is a host float, so the count and the
-balance-year rollover test are host arithmetic and need no sync.
+balance-year rollover test are host arithmetic in the field dtype and need
+no sync.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..config import require
@@ -96,9 +98,17 @@ class TemperatureIndex(SurfaceModel):
         firn = carry.firn if carry.firn is not None else torch.zeros_like(H)
         N_max = self.n_intervals
         evals = 2.0 * N_max   # n_intervals was derived as evals/2
-        N = int(min(max(math.ceil(dt * evals / SEC_PER_YEAR), 1), N_max))
-        dt_i = dt / N
-        dt_if = _round_to(dt_i, dtype)
+        # the count and the interval length in the field dtype, as the JAX
+        # package forms them from its field-dtype dt (pism_tpu/coupler/
+        # pdd.py:197-199): a float32 product can land on a whole number
+        # where the float64 one lies just above it. Numpy scalars of that
+        # dtype round as JAX does, with no device sync.
+        f = np.float32 if dtype == torch.float32 else np.float64
+        dt_f = f(dt)
+        N = int(min(max(math.ceil(dt_f * f(evals) / f(SEC_PER_YEAR)), 1),
+                    N_max))
+        dt_i = dt_f / f(N)
+        dt_if = float(dt_i)
 
         smb = torch.zeros_like(H)
         melt_a = torch.zeros_like(H)
@@ -106,9 +116,11 @@ class TemperatureIndex(SurfaceModel):
         acc_a = torch.zeros_like(H)
         # balance year just before the step start, so a rollover landing
         # exactly on a step boundary promotes snow -> firn in this step
-        yr = self._balance_year(t - 1e-3 * dt_i)
+        yr = self._balance_year(t - float(f(1e-3) * dt_i))
         for k in range(N):
-            tk = t + (k + 0.5) * dt_i        # model time stays float64
+            # the offset in the field dtype, the model time float64 (JAX's
+            # promotion of a float64 clock plus a field-dtype product)
+            tk = t + float(f(k + 0.5) * dt_i)
             atm = self.atmosphere(geometry, tk)
             Ta, Tj = atm.temperature, atm.temperature_july
             frac = tk / SEC_PER_YEAR - math.floor(tk / SEC_PER_YEAR)

@@ -34,15 +34,18 @@
 //
 //   J(d) = [A(du, dv; nuH, beta)] + [A(u, v; dnuH, dbeta)]
 //
-// in one pass, so a Newton matvec is one launch instead of two.
+// in one pass (SSAMatvec.jvp). The SSA solve's Newton sweeps call the
+// Newton matvec further down instead, which also forms dnuH and the
+// Dirichlet rows (the TPU package's _ssa_matvec_jvp and
+// _ssa_matvec_sharded_jvp of pallas_kernels.py:407 / pallas_sharded.py:225
+// reached through jax.linearize of the residual).
 //
 // What bounds them: per cell the plain matvec reads u, v, nuH_e, nuH_n, beta
 // and writes Au, Av, 28 bytes in float32 (0.3 MB at the 20 km grid, 4.7 MB
 // at 5 km; 80 KB per shard of the 20 km grid on a 2x2 mesh). Neighbour
 // reads hit L1/L2. At these shapes the kernels are bound by launch latency,
-// not by the 3.35 TB/s of device memory; the design therefore spends
-// nothing on tiling or shared memory, and the next step is to cut launches
-// (a CUDA graph over a Krylov iteration).
+// not by the 3.35 TB/s of device memory, so these spend nothing on tiling
+// or shared memory.
 //
 // C interface for ctypes: every function returns cudaGetLastError() after
 // the launch (0 = success). The kernels allocate nothing and launch on the
@@ -236,6 +239,285 @@ dim3 grid_for(int My, int Mx) {
   return dim3((Mx + kBlockX - 1) / kBlockX, (My + kBlockY - 1) / kBlockY);
 }
 
+// ---------------------------------------------------------------------------
+// The Newton matvec: K1's JVP and K5's JVP redesigned as the whole matvec
+// of a Newton sweep, one launch per call:
+//
+//   fd     = d where ~bc else 0
+//   dnuH_f = ((a1_f dux_f + a2_f dvy_f) + a3_f (duy_f + dvx_f)) k_f
+//   J      = A(fd; nuH, beta) + A(u, v; dnuH, 0)
+//   out    = d where bc else J
+//
+// with (dux, dvy, duy, dvx)_f the face strain rates of fd and (a1, a2, a3,
+// k)_f the per-face tangent coefficients of the sweep's linearization
+// (ops/ssa.py linearize_nuH; k carries the icy-face mask). It replaces a
+// plain torch tangent (~95 device ops), the fused JVP launch and the
+// Dirichlet selects. A block owns a 32x8 tile of cells: it stages the
+// tile's fd, u and v with two ghost cells in shared memory (bc applied on
+// load), computes every east and north face of the tile plus the west
+// column and the south row of faces once (dnuH and the two stress terms),
+// then forms the divergence from the faces in shared memory. The old JVP
+// kernels evaluate six face stencils per cell, each reading its eight
+// neighbours from device memory.
+//
+// Rounding: dnuH is the plain torch tangent statement for statement. On
+// the card torch divides a tensor by a Python scalar as a product with the
+// scalar's reciprocal (rounded in the field dtype), and runs each statement
+// as its own rounded op, so the tangent is written with _rn intrinsics
+// (no FMA contraction) and the reciprocals come from the launcher. The
+// stresses and the divergence are K1's expressions, so the result is the
+// composition it replaces (tangent, fused JVP launch, selects) to the bit.
+//
+// What bounds it: per cell it reads u, v, du, dv, nuH_e, nuH_n, beta, the
+// 8 coefficients and bc, and writes two values: 69 bytes in float32, 0.74
+// MB at the 20 km grid and 11.6 MB at 5 km. The 5 km launch is bound by
+// device memory (3.5 us at 3.35 TB/s), the 20 km one by launch latency.
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// the staged tile: cells j0-2 .. j0+kBlockY, i0-2 .. i0+kBlockX
+constexpr int kTileW = kBlockX + 3;
+constexpr int kTileH = kBlockY + 3;
+
+template <typename T>
+using Tile = T[kTileH][kTileW];
+
+// (d/dx, d/dy) of one field on a face
+template <typename T>
+struct Grad {
+  T x, y;
+};
+
+// the gradients of K1's face_stress on the east / north face of tile cell
+// (r, c): one-sided across the face, 4-point averages along it
+template <typename T>
+__device__ __forceinline__ Grad<T> grad_east(const Tile<T>& s, int r, int c,
+                                             T dx, T dy) {
+  return {(s[r][c + 1] - s[r][c]) / dx,
+          (s[r + 1][c] + s[r + 1][c + 1] - s[r - 1][c] - s[r - 1][c + 1]) /
+              (T(4) * dy)};
+}
+
+template <typename T>
+__device__ __forceinline__ Grad<T> grad_north(const Tile<T>& s, int r, int c,
+                                              T dx, T dy) {
+  return {(s[r][c + 1] + s[r + 1][c + 1] - s[r][c - 1] - s[r + 1][c - 1]) /
+              (T(4) * dx),
+          (s[r + 1][c] - s[r][c]) / dy};
+}
+
+// the same gradients as the plain tangent rounds them (ops/stencils.py
+// grad_x_east, grad_y_east, grad_x_north, grad_y_north on the card)
+template <typename T>
+__device__ __forceinline__ Grad<T> grad_east_rn(const Tile<T>& s, int r, int c,
+                                                T inv_dx, T inv_4dy) {
+  return {mul_rn(sub_rn(s[r][c + 1], s[r][c]), inv_dx),
+          mul_rn(sub_rn(sub_rn(add_rn(s[r + 1][c], s[r + 1][c + 1]),
+                               s[r - 1][c]), s[r - 1][c + 1]), inv_4dy)};
+}
+
+template <typename T>
+__device__ __forceinline__ Grad<T> grad_north_rn(const Tile<T>& s, int r,
+                                                 int c, T inv_4dx, T inv_dy) {
+  return {mul_rn(sub_rn(sub_rn(add_rn(s[r][c + 1], s[r + 1][c + 1]),
+                               s[r][c - 1]), s[r + 1][c - 1]), inv_4dx),
+          mul_rn(sub_rn(s[r + 1][c], s[r][c]), inv_dy)};
+}
+
+// dnuH = ((a1 dux + a2 dvy) + a3 (duy + dvx)) k; cf = (a1, a2, a3, k)
+template <typename T>
+__device__ __forceinline__ T tangent(const T* __restrict__ cf, Grad<T> du,
+                                     Grad<T> dv) {
+  return mul_rn(add_rn(add_rn(mul_rn(cf[0], du.x), mul_rn(cf[1], dv.y)),
+                       mul_rn(cf[2], add_rn(du.y, dv.x))),
+                cf[3]);
+}
+
+// The faces of a tile in shared memory: east faces of tile columns -1 ..
+// kBlockX-1 (slot c+1), north faces of tile rows -1 .. kBlockY-1 (slot
+// r+1); term 1 is the direction's stresses with nuH, term 2 the
+// linearization point's with dnuH.
+template <typename T>
+struct Faces {
+  T xx1[kBlockY][kBlockX + 1], xy1[kBlockY][kBlockX + 1];
+  T xx2[kBlockY][kBlockX + 1], xy2[kBlockY][kBlockX + 1];
+  T nxy1[kBlockY + 1][kBlockX], yy1[kBlockY + 1][kBlockX];
+  T nxy2[kBlockY + 1][kBlockX], yy2[kBlockY + 1][kBlockX];
+};
+
+template <typename T>
+struct Steps {
+  T dx, dy, inv_dx, inv_dy, inv_4dx, inv_4dy;
+};
+
+// east face of tile cell (tr, tc) (tile-array row tr+2, column tc+2);
+// cf: its four coefficients
+template <typename T>
+__device__ __forceinline__ void east_face(
+    const Tile<T>& fu, const Tile<T>& fv, const Tile<T>& u, const Tile<T>& v,
+    T nu, const T* __restrict__ cf, int tr, int tc, Steps<T> h, Faces<T>& f) {
+  const int r = tr + 2, c = tc + 2;
+  const T dnu = tangent(cf, grad_east_rn(fu, r, c, h.inv_dx, h.inv_4dy),
+                        grad_east_rn(fv, r, c, h.inv_dx, h.inv_4dy));
+  const Grad<T> fu_ = grad_east(fu, r, c, h.dx, h.dy);
+  const Grad<T> fv_ = grad_east(fv, r, c, h.dx, h.dy);
+  const Grad<T> u_ = grad_east(u, r, c, h.dx, h.dy);
+  const Grad<T> v_ = grad_east(v, r, c, h.dx, h.dy);
+  f.xx1[tr][tc + 1] = T(2) * nu * (T(2) * fu_.x + fv_.y);
+  f.xy1[tr][tc + 1] = nu * (fu_.y + fv_.x);
+  f.xx2[tr][tc + 1] = T(2) * dnu * (T(2) * u_.x + v_.y);
+  f.xy2[tr][tc + 1] = dnu * (u_.y + v_.x);
+}
+
+template <typename T>
+__device__ __forceinline__ void north_face(
+    const Tile<T>& fu, const Tile<T>& fv, const Tile<T>& u, const Tile<T>& v,
+    T nu, const T* __restrict__ cf, int tr, int tc, Steps<T> h, Faces<T>& f) {
+  const int r = tr + 2, c = tc + 2;
+  const T dnu = tangent(cf, grad_north_rn(fu, r, c, h.inv_4dx, h.inv_dy),
+                        grad_north_rn(fv, r, c, h.inv_4dx, h.inv_dy));
+  const Grad<T> fu_ = grad_north(fu, r, c, h.dx, h.dy);
+  const Grad<T> fv_ = grad_north(fv, r, c, h.dx, h.dy);
+  const Grad<T> u_ = grad_north(u, r, c, h.dx, h.dy);
+  const Grad<T> v_ = grad_north(v, r, c, h.dx, h.dy);
+  f.nxy1[tr + 1][tc] = nu * (fu_.y + fv_.x);
+  f.yy1[tr + 1][tc] = T(2) * nu * (T(2) * fv_.y + fu_.x);
+  f.nxy2[tr + 1][tc] = dnu * (u_.y + v_.x);
+  f.yy2[tr + 1][tc] = T(2) * dnu * (T(2) * v_.y + u_.x);
+}
+
+// K1's layout: whole (My, Mx) fields, neighbours clamped to the grid; a
+// cell's velocities and its faces share one offset, and the grid's own
+// west/south edges close the divergence.
+struct NewtonClamped {
+  int My, Mx;
+  __device__ __forceinline__ size_t cell(int j, int i) const {
+    return (size_t)clampi(j, My) * Mx + clampi(i, Mx);
+  }
+  __device__ __forceinline__ size_t face(int j, int i) const {
+    return cell(j, i);
+  }
+  __device__ __forceinline__ bool west_edge(int i) const { return i == 0; }
+  __device__ __forceinline__ bool south_edge(int j) const { return j == 0; }
+};
+
+// K5's layout: one shard's (my, mx) cells in blocks with two ghosts (u, v,
+// du, dv, bc) and one (nuH, coefficients); offsets past the ghosts (cells
+// of a ragged tile that produce no output) are clamped into the block.
+struct NewtonPadded {
+  int my, mx, west, south;
+  __device__ __forceinline__ static int clamp_to(int k, int lo, int hi) {
+    return k < lo ? lo : (k > hi ? hi : k);
+  }
+  __device__ __forceinline__ size_t cell(int j, int i) const {
+    return (size_t)(clamp_to(j, -2, my + 1) + 2) * (mx + 4) +
+           (clamp_to(i, -2, mx + 1) + 2);
+  }
+  __device__ __forceinline__ size_t face(int j, int i) const {
+    return (size_t)(clamp_to(j, -1, my) + 1) * (mx + 2) +
+           (clamp_to(i, -1, mx) + 1);
+  }
+  __device__ __forceinline__ bool west_edge(int i) const {
+    return west && i == 0;
+  }
+  __device__ __forceinline__ bool south_edge(int j) const {
+    return south && j == 0;
+  }
+};
+
+// ny, nx: the cells that get an output; beta, Ju, Jv are (ny, nx).
+// coef_e, coef_n: (a1, a2, a3, k) per face, on a last axis of 4.
+template <typename T, typename Layout>
+__global__ void __launch_bounds__(kBlockX * kBlockY) ssa_newton_matvec_kernel(
+    const T* __restrict__ u, const T* __restrict__ v,
+    const T* __restrict__ du, const T* __restrict__ dv,
+    const T* __restrict__ nuHe, const T* __restrict__ nuHn,
+    const T* __restrict__ coef_e, const T* __restrict__ coef_n,
+    const T* __restrict__ beta, const unsigned char* __restrict__ bc,
+    T* __restrict__ Ju, T* __restrict__ Jv, Layout L, int ny, int nx,
+    Steps<T> h) {
+  __shared__ Tile<T> s_fu, s_fv, s_u, s_v;
+  __shared__ Faces<T> f;
+  const int tc = threadIdx.x, tr = threadIdx.y;
+  const int i0 = blockIdx.x * kBlockX, j0 = blockIdx.y * kBlockY;
+
+  for (int k = tr * kBlockX + tc; k < kTileH * kTileW;
+       k += kBlockX * kBlockY) {
+    const int r = k / kTileW, c = k - r * kTileW;
+    const size_t o = L.cell(j0 - 2 + r, i0 - 2 + c);
+    const bool fixed = bc[o] != 0;
+    s_fu[r][c] = fixed ? T(0) : du[o];
+    s_fv[r][c] = fixed ? T(0) : dv[o];
+    s_u[r][c] = u[o];
+    s_v[r][c] = v[o];
+  }
+  __syncthreads();
+
+  const int j = j0 + tr, i = i0 + tc;
+  size_t o = L.face(j, i);
+  east_face(s_fu, s_fv, s_u, s_v, nuHe[o], coef_e + 4 * o, tr, tc, h, f);
+  north_face(s_fu, s_fv, s_u, s_v, nuHn[o], coef_n + 4 * o, tr, tc, h, f);
+  if (tc == 0) {   // the west column of faces
+    o = L.face(j, i0 - 1);
+    east_face(s_fu, s_fv, s_u, s_v, nuHe[o], coef_e + 4 * o, tr, -1, h, f);
+  }
+  if (tr == 0) {   // the south row of faces
+    o = L.face(j0 - 1, i);
+    north_face(s_fu, s_fv, s_u, s_v, nuHn[o], coef_n + 4 * o, -1, tc, h, f);
+  }
+  __syncthreads();
+
+  if (i >= nx || j >= ny) return;
+  // at a closed edge the west (south) face is the cell's own east (north)
+  // face, so that term of the divergence is exactly 0 (K1's clamp)
+  const int we = L.west_edge(i) ? tc + 1 : tc;
+  const int so = L.south_edge(j) ? tr + 1 : tr;
+  const T div_x1 = (f.xx1[tr][tc + 1] - f.xx1[tr][we]) / h.dx +
+                   (f.nxy1[tr + 1][tc] - f.nxy1[so][tc]) / h.dy;
+  const T div_y1 = (f.xy1[tr][tc + 1] - f.xy1[tr][we]) / h.dx +
+                   (f.yy1[tr + 1][tc] - f.yy1[so][tc]) / h.dy;
+  const T div_x2 = (f.xx2[tr][tc + 1] - f.xx2[tr][we]) / h.dx +
+                   (f.nxy2[tr + 1][tc] - f.nxy2[so][tc]) / h.dy;
+  const T div_y2 = (f.xy2[tr][tc + 1] - f.xy2[tr][we]) / h.dx +
+                   (f.yy2[tr + 1][tc] - f.yy2[so][tc]) / h.dy;
+  const T mx1 = -div_x1, my1 = -div_y1, mx2 = -div_x2, my2 = -div_y2;
+  const size_t k = (size_t)j * nx + i, c = L.cell(j, i);
+  const T t1u = mx1 + beta[k] * s_fu[tr + 2][tc + 2];
+  const T t1v = my1 + beta[k] * s_fv[tr + 2][tc + 2];
+  const bool fixed = bc[c] != 0;
+  Ju[k] = fixed ? du[c] : t1u + mx2;
+  Jv[k] = fixed ? dv[c] : t1v + my2;
+}
+
+// the steps in the field dtype and their reciprocals as torch forms them
+// on the host for a tensor divided by a Python scalar
+template <typename T>
+Steps<T> steps(double dx, double dy) {
+  return {T(dx), T(dy), T(1) / T(dx), T(1) / T(dy), T(1) / T(4.0 * dx),
+          T(1) / T(4.0 * dy)};
+}
+
+template <typename T, typename Layout>
+int launch_newton(const void* u, const void* v, const void* du,
+                  const void* dv, const void* nuHe, const void* nuHn,
+                  const void* coef_e, const void* coef_n, const void* beta,
+                  const void* bc, void* Ju, void* Jv, Layout L, int ny,
+                  int nx, double dx, double dy, void* stream) {
+  ssa_newton_matvec_kernel<T, Layout>
+      <<<grid_for(ny, nx), dim3(kBlockX, kBlockY), 0,
+         (cudaStream_t)stream>>>(
+          (const T*)u, (const T*)v, (const T*)du, (const T*)dv,
+          (const T*)nuHe, (const T*)nuHn, (const T*)coef_e,
+          (const T*)coef_n, (const T*)beta, (const unsigned char*)bc,
+          (T*)Ju, (T*)Jv, L, ny, nx, steps<T>(dx, dy));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_matvec(const void* u, const void* v, const void* nuHe,
                   const void* nuHn, const void* beta, void* Au, void* Av,
@@ -291,6 +573,61 @@ int launch_halo_jvp(const void* up, const void* vp, const void* dup,
 }  // namespace
 
 extern "C" {
+
+// The Newton matvec on whole (My, Mx) fields (K1's clamped indexing);
+// coef_e, coef_n: (My, Mx, 4); bc: (My, Mx) bytes, nonzero on Dirichlet rows.
+int pism_ssa_newton_matvec_f32(const void* u, const void* v, const void* du,
+                               const void* dv, const void* nuHe,
+                               const void* nuHn, const void* coef_e,
+                               const void* coef_n, const void* beta,
+                               const void* bc, void* Ju, void* Jv, int My,
+                               int Mx, double dx, double dy, void* stream) {
+  return launch_newton<float>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n, beta,
+                              bc, Ju, Jv, NewtonClamped{My, Mx}, My, Mx, dx,
+                              dy, stream);
+}
+
+int pism_ssa_newton_matvec_f64(const void* u, const void* v, const void* du,
+                               const void* dv, const void* nuHe,
+                               const void* nuHn, const void* coef_e,
+                               const void* coef_n, const void* beta,
+                               const void* bc, void* Ju, void* Jv, int My,
+                               int Mx, double dx, double dy, void* stream) {
+  return launch_newton<double>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n,
+                               beta, bc, Ju, Jv, NewtonClamped{My, Mx}, My,
+                               Mx, dx, dy, stream);
+}
+
+// The Newton matvec on one shard of my x mx cells (K5's blocks): up, vp,
+// dup, dvp, bcp with two ghosts; nuHe, nuHn, coef_e, coef_n with one; beta,
+// Ju, Jv (my, mx). west/south: the shard owns the grid's west/south edge.
+int pism_ssa_newton_matvec_halo_f32(const void* up, const void* vp,
+                                    const void* dup, const void* dvp,
+                                    const void* nuHe, const void* nuHn,
+                                    const void* coef_e, const void* coef_n,
+                                    const void* beta, const void* bcp,
+                                    void* Ju, void* Jv, int my, int mx,
+                                    int west, int south, double dx,
+                                    double dy, void* stream) {
+  return launch_newton<float>(up, vp, dup, dvp, nuHe, nuHn, coef_e, coef_n,
+                              beta, bcp, Ju, Jv,
+                              NewtonPadded{my, mx, west, south}, my, mx, dx,
+                              dy, stream);
+}
+
+int pism_ssa_newton_matvec_halo_f64(const void* up, const void* vp,
+                                    const void* dup, const void* dvp,
+                                    const void* nuHe, const void* nuHn,
+                                    const void* coef_e, const void* coef_n,
+                                    const void* beta, const void* bcp,
+                                    void* Ju, void* Jv, int my, int mx,
+                                    int west, int south, double dx,
+                                    double dy, void* stream) {
+  return launch_newton<double>(up, vp, dup, dvp, nuHe, nuHn, coef_e, coef_n,
+                               beta, bcp, Ju, Jv,
+                               NewtonPadded{my, mx, west, south}, my, mx, dx,
+                               dy, stream);
+}
 
 int pism_ssa_matvec_f32(const void* u, const void* v, const void* nuHe,
                         const void* nuHn, const void* beta, void* Au,

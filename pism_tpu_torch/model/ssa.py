@@ -3,11 +3,11 @@
 
 A few Picard sweeps with drag-regularization continuation enter the basin
 (skipped on warm starts), then safeguarded Newton-Picard sweeps solve
-J d = -F by line-preconditioned BiCGStab. The operator and its
-forward-mode derivative are the hand-written kernels of
-``ops/kernels/ssa_matvec.py``: K1 on the whole field, or, with a ("y", "x")
-``mesh`` of more than one device, K5 per shard (``ops/sharded.py``; JAX
-``pism_tpu/model/ssa.py:372-379``).
+J d = -F by line-preconditioned BiCGStab. The operator and the Newton
+matvec are the hand-written kernels of ``ops/kernels/ssa_matvec.py``: K1
+and ``ssa_newton_matvec`` on the whole field, or, with a ("y", "x")
+``mesh`` of more than one device, K5 and ``ssa_newton_matvec_halo`` per
+shard (``ops/sharded.py``; JAX ``pism_tpu/model/ssa.py:372-379``).
 
 Front treatment (PISM's calving-front stress boundary condition):
 ice-free cells are Dirichlet u = 0 rows decoupled from the ice, no
@@ -39,7 +39,7 @@ from .. import state as S
 from ..config import require
 from ..ops import sharded
 from ..ops import ssa as ssa_ops
-from ..ops.kernels.ssa_matvec import ssa_matvec_jvp
+from ..ops.kernels.ssa_matvec import ssa_newton_matvec
 from ..ops.sia import _sharded_mesh
 from ..ops.stencils import Shifter
 from ..physics.basal import SlidingLaw
@@ -216,16 +216,16 @@ class SSAFD:
                                (nuH.n + self.epsilon) * keep_n)
 
         def linearize_nuH(u, v):
-            """make_nuH at (u, v) and its forward-mode derivative."""
+            """make_nuH at (u, v) and the coefficient planes of its
+            forward-mode derivative: (a1, a2, a3, k) on a last axis, east
+            and north, with keep folded into k (exact: keep is 0 or 1)."""
             nuH, tangent = ssa_ops.linearize_nuH(u, v, B, H, dx, dy, sh,
                                                  **nuH_kw)
-
-            def d_nuH(du, dv):
-                t = tangent(du, dv)
-                return ssa_ops.NuH(t.e * keep_e, t.n * keep_n)
-
+            coefs = tuple(torch.stack((*c[:3], c[3] * keep), -1)
+                          for c, keep in ((tangent.e, keep_e),
+                                          (tangent.n, keep_n)))
             return ssa_ops.NuH((nuH.e + self.epsilon) * keep_e,
-                               (nuH.n + self.epsilon) * keep_n), d_nuH
+                               (nuH.n + self.epsilon) * keep_n), coefs
 
         if gf is not None:
             tc_eff = tau_c * torch.where(icy, gf, 0.0)
@@ -235,8 +235,9 @@ class SSAFD:
         def beta_fn(u, v, reg=None):
             return self.sliding_law.beta(tc_eff, u, v, reg=reg) + self.beta_floor
 
-        # the operator, and its derivative with beta frozen:
-        # A(du; nuH, beta) + A(u; dnuH, 0) in one fused launch (per shard)
+        # the operator, and the Newton matvec with beta frozen:
+        # A(free d; nuH, beta) + A(u; dnuH(free d), 0) on the free rows and
+        # d on the Dirichlet rows, one launch (per shard)
         mesh = self.mesh if _sharded_mesh(self.mesh) else None
 
         def apply_op(u, v, nuH, beta):
@@ -245,13 +246,15 @@ class SSAFD:
                                                   mesh, dx, dy)
             return ssa_ops.apply_operator(u, v, nuH, beta, dx, dy)
 
-        def apply_jvp(u, v, du, dv, nuH, dnuH, beta):
+        def newton_matvec(u, v, nuH, coefs, beta):
+            """jmv(d) of the sweep linearized at (u, v); under a mesh the
+            linearization is split and padded here, once."""
             if mesh is not None:
-                return sharded.ssa_matvec_sharded_jvp(
-                    u, v, du, dv, nuH.e, nuH.n, dnuH.e, dnuH.n, beta, None,
-                    mesh, dx, dy)
-            return ssa_matvec_jvp(u, v, du, dv, nuH.e, nuH.n, dnuH.e, dnuH.n,
-                                  beta, None, dx, dy)
+                mv = sharded.ssa_newton_matvec_sharded(
+                    u, v, nuH.e, nuH.n, *coefs, beta, bc_mask, mesh, dx, dy)
+                return lambda d: mv(*d)
+            return lambda d: ssa_newton_matvec(u, v, d[0], d[1], nuH.e, nuH.n,
+                                               *coefs, beta, bc_mask, dx, dy)
 
         def residual(uv):
             u, v = free(uv)
@@ -261,7 +264,7 @@ class SSAFD:
 
         return dict(residual=residual, free=free, make_nuH=make_nuH,
                     linearize_nuH=linearize_nuH, beta_fn=beta_fn, apply=apply_op,
-                    apply_jvp=apply_jvp, bc_mask=bc_mask,
+                    newton_matvec=newton_matvec, bc_mask=bc_mask,
                     bx=bx, by=by, icy=icy, tau_c=tau_c)
 
     def solve(self, state: S.ModelState, tau_c=None, u0=None, v0=None,
@@ -284,7 +287,7 @@ class SSAFD:
         make_nuH, beta_fn = P["make_nuH"], P["beta_fn"]
         linearize_nuH = P["linearize_nuH"]
         bc_mask, bx, by = P["bc_mask"], P["bx"], P["by"]
-        apply_jvp = P["apply_jvp"]
+        newton_matvec = P["newton_matvec"]
         chg_rtol_cfg = self.chg_rtol
 
         kdd = self.krylov_dot_dtype
@@ -408,19 +411,13 @@ class SSAFD:
         while keep_going():
             u, v = free(uv)
             # Newton linearization built by hand once per sweep (beta
-            # frozen, the Picard drag Jacobian):
-            # J d = K1(d; nuH, beta) + K1(u; dnuH(d), 0), one fused launch,
-            # with dnuH the forward-mode derivative of the plain make_nuH
-            nuH, d_nuH = linearize_nuH(u, v)
+            # frozen, the Picard drag Jacobian): J d = A(d; nuH, beta) +
+            # A(u; dnuH(d), 0) with dnuH the forward-mode derivative of the
+            # plain make_nuH, one launch per matvec
+            nuH, coefs = linearize_nuH(u, v)
             beta = beta_fn(u, v)
             precond = make_precond(nuH, beta)
-
-            def jmv(d):
-                fd = free(d)
-                dn = d_nuH(*fd)
-                J = free(apply_jvp(u, v, fd[0], fd[1], nuH, dn, beta))
-                bc = zeros_where_bc(d)
-                return J[0] + bc[0], J[1] + bc[1]
+            jmv = newton_matvec(u, v, nuH, coefs, beta)
 
             # Eisenstat-Walker (choice 2) forcing, clamped to
             # [ksp_rtol, ksp_rtol_max]; tightened 30x after a stagnated sweep

@@ -8,9 +8,8 @@ K1 replaces the TPU kernel ``_ssa_matvec_kernel``
 thread per cell with clamped neighbour indexing; its notes say what bounds
 it. In float32 it moves 28 B/cell (0.3 MB at 20 km, 4.7 MB at 5 km), so at
 the chain's shapes it is bound by launch latency, not by bandwidth. The
-forward-mode derivative is fused into one pass (``ssa_matvec_jvp``), which
-halves the launches of every Newton matvec; cutting the launches of a whole
-Krylov iteration (a CUDA graph) is the next step.
+forward-mode derivative is fused into one pass (``ssa_matvec_jvp``, the
+rule of ``SSAMatvec.jvp``).
 
 K5 (``ssa_matvec_halo``, ``ssa_matvec_halo_jvp``) replaces
 ``_ssa_matvec_sharded_kernel`` (``pism_tpu/ops/pallas_sharded.py:108``,
@@ -21,12 +20,23 @@ the grid's west and south edges. ``ops/sharded.py`` exchanges the halos
 and launches it per shard; on one card K5 over any mesh gives K1's result
 on the whole field bit for bit, since both run the same device code.
 
+The SSA solve's Newton sweeps take neither JVP: ``ssa_newton_matvec`` (and
+``ssa_newton_matvec_halo`` per shard) is the whole Newton matvec in one
+launch. It frees the direction on the Dirichlet rows, forms the viscosity
+tangent dnuH from the sweep's per-face coefficients (``ops/ssa.py``
+``linearize_nuH``), applies the bilinear JVP with beta frozen and writes the
+Dirichlet rows: what the plain tangent, the fused JVP launch and three
+selects computed (what the JAX package's ``jax.linearize`` of the residual
+computes, ``pism_tpu/model/ssa.py:717-725``). The kernel tiles the grid in
+shared memory and computes each face once; its notes say what bounds it.
+
 Routing: a CUDA tensor launches the kernel (built with ``nvcc`` at first use
 by ``_build.py`` and loaded with ctypes); a CPU tensor runs the plain torch
 version in this module. There is no fallback from one to the other.
 ``LAUNCHES`` counts launches of the matvec kernel, ``JVP_LAUNCHES`` those of
-the fused JVP kernel, and ``HALO_LAUNCHES`` / ``HALO_JVP_LAUNCHES`` those
-of K5 and its fused JVP.
+the fused JVP kernel, ``NEWTON_LAUNCHES`` those of the Newton matvec, and
+``HALO_LAUNCHES`` / ``HALO_JVP_LAUNCHES`` / ``HALO_NEWTON_LAUNCHES`` those
+of K5, its fused JVP and its Newton matvec.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ LAUNCHES = 0
 JVP_LAUNCHES = 0
 HALO_LAUNCHES = 0
 HALO_JVP_LAUNCHES = 0
+NEWTON_LAUNCHES = 0
+HALO_NEWTON_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +124,14 @@ def _minus_div_halo(up, vp, nuH_e, nuH_n, west, south, dx, dy):
     (my+2, mx+2) with one; west/south: the shard owns that edge of the
     grid."""
     my, mx = up.shape[0] - 4, up.shape[1] - 4
+    return _minus_div_ext(up, vp, nuH_e[0:my + 1, 0:mx + 1],
+                          nuH_n[0:my + 1, 0:mx + 1], west, south, dx, dy)
+
+
+def _minus_div_ext(up, vp, nuHe, nuHn, west, south, dx, dy):
+    """``_minus_div_halo`` with nuH given on the faces of the extended
+    region only, (my+1, mx+1): cells -1 .. my-1 by -1 .. mx-1."""
+    my, mx = up.shape[0] - 4, up.shape[1] - 4
     # extended region: cell (i, j), i = -1..my-1 <-> padded row i+2
     c = (slice(1, my + 2), slice(1, mx + 2))
     e = (slice(1, my + 2), slice(2, mx + 3))
@@ -130,9 +150,6 @@ def _minus_div_halo(up, vp, nuH_e, nuH_n, west, south, dx, dy):
     vy_n = (vp[nn] - vp[c]) / dy
     ux_n = (up[e] + up[ne] - up[w] - up[nw]) / (4.0 * dx)
     vx_n = (vp[e] + vp[ne] - vp[w] - vp[nw]) / (4.0 * dx)
-
-    nuHe = nuH_e[0:my + 1, 0:mx + 1]
-    nuHn = nuH_n[0:my + 1, 0:mx + 1]
 
     Txx_e = 2.0 * nuHe * (2.0 * ux_e + vy_e)
     Txy_n = nuHn * (uy_n + vx_n)
@@ -178,6 +195,74 @@ def ssa_matvec_halo_jvp_plain(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
     return t1[0] + mx_, t1[1] + my_
 
 
+def _neighbours(p, o, ny, nx):
+    """The views c, e, w, n, ne, nw, s, se of the padded array ``p`` over
+    an ny x nx region whose first cell is ``p[o, o]``."""
+    def at(dj, di):
+        return p[o + dj:o + dj + ny, o + di:o + di + nx]
+    return {"c": at(0, 0), "e": at(0, 1), "w": at(0, -1), "n": at(1, 0),
+            "ne": at(1, 1), "nw": at(1, -1), "s": at(-1, 0), "se": at(-1, 1)}
+
+
+def _tangent(fu, fv, coef_e, coef_n, dx, dy):
+    """d nuH on the east and north faces of a region (the neighbour views
+    of the direction, ``_neighbours``): the tangent of ``ops/ssa.py``
+    ``linearize_nuH`` statement for statement, from its coefficients
+    (a1, a2, a3, k) on a last axis."""
+    a1, a2, a3, k = coef_e.unbind(-1)
+    dux = (fu["e"] - fu["c"]) / dx
+    dvy = (fv["n"] + fv["ne"] - fv["s"] - fv["se"]) / (4.0 * dy)
+    duy = (fu["n"] + fu["ne"] - fu["s"] - fu["se"]) / (4.0 * dy)
+    dvx = (fv["e"] - fv["c"]) / dx
+    dnuH_e = (a1 * dux + a2 * dvy + a3 * (duy + dvx)) * k
+    a1, a2, a3, k = coef_n.unbind(-1)
+    dux = (fu["e"] + fu["ne"] - fu["w"] - fu["nw"]) / (4.0 * dx)
+    dvy = (fv["n"] - fv["c"]) / dy
+    duy = (fu["n"] - fu["c"]) / dy
+    dvx = (fv["e"] + fv["ne"] - fv["w"] - fv["nw"]) / (4.0 * dx)
+    dnuH_n = (a1 * dux + a2 * dvy + a3 * (duy + dvx)) * k
+    return dnuH_e, dnuH_n
+
+
+def ssa_newton_matvec_plain(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n,
+                            beta, bc_mask, dx, dy):
+    """The Newton matvec in plain torch (any device), as the kernel forms
+    it: fd = (du, dv) zeroed on ``bc_mask``; dnuH of fd from the per-face
+    coefficients ``coef_e``, ``coef_n`` ((My, Mx, 4): a1, a2, a3, k);
+    A(fd; nuH, beta) + A(u, v; dnuH, 0) on the free rows, (du, dv) on the
+    Dirichlet rows."""
+    My, Mx = u.shape
+    fu = torch.where(bc_mask, 0.0, du)
+    fv = torch.where(bc_mask, 0.0, dv)
+    dnuH_e, dnuH_n = _tangent(_neighbours(_pad_edge(fu), 1, My, Mx),
+                              _neighbours(_pad_edge(fv), 1, My, Mx),
+                              coef_e, coef_n, dx, dy)
+    t1u, t1v = ssa_matvec_plain(fu, fv, nuH_e, nuH_n, beta, dx, dy)
+    mx, my = _minus_div(u, v, dnuH_e, dnuH_n, dx, dy)
+    return (torch.where(bc_mask, du, t1u + mx),
+            torch.where(bc_mask, dv, t1v + my))
+
+
+def ssa_newton_matvec_halo_plain(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
+                                 coef_e, coef_n, beta, bcp, dx, dy):
+    """The Newton matvec on one shard in plain torch (any device): blocks
+    as K5's, with ``bcp`` and the direction's given two ghosts and the
+    coefficients one; dnuH is formed on the faces of K5's extended region,
+    the west column and south row of faces included, from the ghosts."""
+    my, mx = beta.shape
+    fup = torch.where(bcp, 0.0, dup)
+    fvp = torch.where(bcp, 0.0, dvp)
+    dnuH_e, dnuH_n = _tangent(_neighbours(fup, 1, my + 1, mx + 1),
+                              _neighbours(fvp, 1, my + 1, mx + 1),
+                              coef_e[0:my + 1, 0:mx + 1],
+                              coef_n[0:my + 1, 0:mx + 1], dx, dy)
+    t1u, t1v = ssa_matvec_halo_plain(west, south, fup, fvp, nuH_e, nuH_n,
+                                     beta, dx, dy)
+    mx_, my_ = _minus_div_ext(up, vp, dnuH_e, dnuH_n, west, south, dx, dy)
+    bc, du, dv = bcp[2:-2, 2:-2], dup[2:-2, 2:-2], dvp[2:-2, 2:-2]
+    return torch.where(bc, du, t1u + mx_), torch.where(bc, dv, t1v + my_)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -199,6 +284,12 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [p] * 7 + [i, i, i, i, d, d, p]
         fn.restype = i
         fn = getattr(lib, f"pism_ssa_matvec_halo_jvp_{prec}")
+        fn.argtypes = [p] * 12 + [i, i, i, i, d, d, p]
+        fn.restype = i
+        fn = getattr(lib, f"pism_ssa_newton_matvec_{prec}")
+        fn.argtypes = [p] * 12 + [i, i, d, d, p]
+        fn.restype = i
+        fn = getattr(lib, f"pism_ssa_newton_matvec_halo_{prec}")
         fn.argtypes = [p] * 12 + [i, i, i, i, d, d, p]
         fn.restype = i
     return lib
@@ -308,6 +399,62 @@ def ssa_matvec_halo_jvp(west, south, up, vp, dup, dvp, nuH_e, nuH_n, dnuH_e,
             (up, vp, dup, dvp, nuH_e, nuH_n, dnuH_e, dnuH_n, beta, dbeta),
             (Ju, Jv), (*beta.shape, west, south), dx, dy)
     HALO_JVP_LAUNCHES += 1
+    return Ju, Jv
+
+
+def _check_faces_and_mask(name, like, coefs, face_shape, bc, bc_shape):
+    """Raise unless the coefficient planes are (face_shape, 4) tensors of
+    ``like``'s dtype and device, and ``bc`` a contiguous bool tensor of
+    ``bc_shape`` on that device."""
+    _build.check(name, like, *coefs)
+    for c in coefs:
+        if tuple(c.shape) != (*face_shape, 4):
+            raise ValueError(f"{name} takes coefficients of shape "
+                             f"{(*face_shape, 4)}, got {tuple(c.shape)}")
+    if bc.dtype != torch.bool or bc.device != like.device \
+            or not bc.is_contiguous() or tuple(bc.shape) != tuple(bc_shape):
+        raise ValueError(f"{name} takes a contiguous bool mask of shape "
+                         f"{tuple(bc_shape)} on {like.device}")
+
+
+def ssa_newton_matvec(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta,
+                      bc_mask, dx, dy):
+    """The Newton matvec of a sweep linearized at (u, v), one launch: see
+    ``ssa_newton_matvec_plain``. (My, Mx) fields; ``coef_e``, ``coef_n``
+    (My, Mx, 4); ``bc_mask`` bool. CUDA tensors launch the kernel; CPU
+    tensors run ``ssa_newton_matvec_plain``."""
+    _check(u, v, du, dv, nuH_e, nuH_n, beta)
+    _check_faces_and_mask("ssa_newton_matvec", u, (coef_e, coef_n), u.shape,
+                          bc_mask, u.shape)
+    ts = (u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta, bc_mask)
+    if u.device.type == "cpu":
+        return ssa_newton_matvec_plain(*ts, dx, dy)
+    global NEWTON_LAUNCHES
+    Ju, Jv = torch.empty_like(u), torch.empty_like(v)
+    _launch("ssa_newton_matvec", ts, (Ju, Jv), u.shape, dx, dy)
+    NEWTON_LAUNCHES += 1
+    return Ju, Jv
+
+
+def ssa_newton_matvec_halo(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
+                           coef_e, coef_n, beta, bcp, dx, dy):
+    """The Newton matvec on one shard's (my, mx) cells from K5's blocks
+    (``_check_halo``), ``bcp`` (my+4, mx+4) and the coefficients
+    (my+2, mx+2, 4); west/south: the shard owns that edge of the grid.
+    CUDA tensors launch the kernel; CPU tensors run
+    ``ssa_newton_matvec_halo_plain``."""
+    _check_halo((up, vp, dup, dvp), (nuH_e, nuH_n), (beta,))
+    my, mx = beta.shape
+    _check_faces_and_mask("ssa_newton_matvec_halo", beta, (coef_e, coef_n),
+                          (my + 2, mx + 2), bcp, (my + 4, mx + 4))
+    ts = (up, vp, dup, dvp, nuH_e, nuH_n, coef_e, coef_n, beta, bcp)
+    if up.device.type == "cpu":
+        return ssa_newton_matvec_halo_plain(west, south, *ts, dx, dy)
+    global HALO_NEWTON_LAUNCHES
+    Ju, Jv = torch.empty_like(beta), torch.empty_like(beta)
+    _launch("ssa_newton_matvec_halo", ts, (Ju, Jv), (my, mx, west, south),
+            dx, dy)
+    HALO_NEWTON_LAUNCHES += 1
     return Ju, Jv
 
 

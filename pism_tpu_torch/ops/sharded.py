@@ -6,8 +6,10 @@ halo-padded local blocks, this module splits the whole fields over a
 :class:`~pism_tpu_torch.parallel.mesh.Mesh`, fills the ghosts from the
 neighbouring blocks (``parallel/halo.py``), launches the kernel once per
 shard on the shard's device and gathers the results back onto the input's
-device: the SSA matvec through K5 (``ssa_matvec_halo``) and the fused SIA
-fluxes through K3/K4 (the JAX package's K6).
+device: the SSA matvec through K5 (``ssa_matvec_halo``), the Newton matvec
+(``ssa_newton_matvec_halo``; its frozen fields are padded once per Newton
+sweep, the direction per call) and the fused SIA fluxes through K3/K4 (the
+JAX package's K6).
 
 Grids are typically odd (Mx = 2L/dx + 1), so the fields are first
 edge-padded up to the next mesh multiple on the high (north, east) ends and
@@ -127,6 +129,48 @@ def ssa_matvec_sharded_jvp_plain(u, v, du, dv, nuH_e, nuH_n, dnuH_e, dnuH_n,
     """:func:`ssa_matvec_sharded_jvp` through the plain version."""
     return _ssa(K.ssa_matvec_halo_jvp_plain, (u, v, du, dv),
                 (nuH_e, nuH_n, dnuH_e, dnuH_n), (beta, dbeta), mesh, dx, dy)
+
+
+def _newton_system(kernel, u, v, nuH_e, nuH_n, coef_e, coef_n, beta,
+                   bc_mask, mesh, dx, dy):
+    """The Newton matvec of a sweep under ``mesh``, in two steps. Here,
+    once per sweep, the linearization's fields are split and halo-padded:
+    u, v and ``bc_mask`` with two ghosts, nuH and the coefficient planes
+    with one, beta with none. The returned ``matvec(du, dv)`` pads only the
+    direction (two ghosts), runs ``kernel`` per shard and gathers."""
+    My, Mx = u.shape
+    py, px = _pad_amounts(u.shape, mesh)
+    frozen = (_blocks((u, v), 2, mesh, py, px)
+              + _blocks((nuH_e, nuH_n, coef_e, coef_n), 1, mesh, py, px)
+              + _blocks((beta,), 0, mesh, py, px)
+              + _blocks((bc_mask,), 2, mesh, py, px))
+
+    def shard(iy, ix, up, vp, ne, nn, ce, cn, b, bcp, dup, dvp):
+        return kernel(ix == 0, iy == 0, up, vp, dup, dvp, ne, nn, ce, cn, b,
+                      bcp, dx, dy)
+
+    def matvec(du, dv):
+        return _per_shard(shard, mesh,
+                          frozen + _blocks((du, dv), 2, mesh, py, px),
+                          u.device, My, Mx)
+
+    return matvec
+
+
+def ssa_newton_matvec_sharded(u, v, nuH_e, nuH_n, coef_e, coef_n, beta,
+                              bc_mask, mesh, dx, dy):
+    """``matvec(du, dv)``: ``ssa_newton_matvec`` on the whole field, one
+    launch of ``ssa_newton_matvec_halo`` per shard of ``mesh``; equal to
+    the unsharded kernel."""
+    return _newton_system(K.ssa_newton_matvec_halo, u, v, nuH_e, nuH_n,
+                          coef_e, coef_n, beta, bc_mask, mesh, dx, dy)
+
+
+def ssa_newton_matvec_sharded_plain(u, v, nuH_e, nuH_n, coef_e, coef_n,
+                                    beta, bc_mask, mesh, dx, dy):
+    """:func:`ssa_newton_matvec_sharded` through the plain version."""
+    return _newton_system(K.ssa_newton_matvec_halo_plain, u, v, nuH_e, nuH_n,
+                          coef_e, coef_n, beta, bc_mask, mesh, dx, dy)
 
 
 class _SSAMatvecShardedJVP(torch.autograd.Function):

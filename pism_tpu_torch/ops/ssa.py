@@ -18,6 +18,7 @@ iteration counts identical to the reference.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -104,27 +105,41 @@ def compute_nuH(u, v, hardness_B, H, dx, dy, sh, *, n_glen=3.0,
                 extension_nuH, extension_mask, False)[0]
 
 
+@dataclass(frozen=True)
+class NuHTangent:
+    """The forward-mode derivative of nuH at a point: per face a fixed
+    linear combination of the face strain rates of the direction,
+    d nuH = ((a1 dux + a2 dvy) + a3 (duy + dvx)) k, with the coefficient
+    planes ``e`` = (a1, a2, a3, k) on east faces and ``n`` on north faces.
+    Called with (du, dv) it returns the NuH of d nuH."""
+    e: tuple
+    n: tuple
+    dx: float
+    dy: float
+    sh: object
+
+    def __call__(self, du, dv):
+        east, north = _face_strain_rates(du, dv, self.dx, self.dy, self.sh)
+        out = []
+        for (dux, dvy, duy, dvx), (a1, a2, a3, k) in ((east, self.e),
+                                                      (north, self.n)):
+            out.append((a1 * dux + a2 * dvy + a3 * (duy + dvx)) * k)
+        return NuH(e=out[0], n=out[1])
+
+
 def linearize_nuH(u, v, hardness_B, H, dx, dy, sh, *, n_glen=3.0,
                   eps_reg2=1e-31, extension_nuH=None, extension_mask=None):
     """``compute_nuH`` at (u, v) and its forward-mode derivative.
 
-    Returns ``(nuH, tangent)`` where ``tangent(du, dv)`` is the NuH of
-    d nuH: per face a fixed linear combination of the face strain rates of
-    (du, dv), with coefficients evaluated once here. It is what
-    ``torch.func.jvp(compute_nuH, (u, v), (du, dv))`` returns, without
-    re-evaluating the primal at every call (the JAX package hoists the
-    primal the same way with ``jax.linearize``)."""
+    Returns ``(nuH, tangent)`` where ``tangent`` is a :class:`NuHTangent`
+    whose coefficient planes are evaluated once here; ``tangent(du, dv)``
+    is what ``torch.func.jvp(compute_nuH, (u, v), (du, dv))`` returns,
+    without re-evaluating the primal at every call (the JAX package hoists
+    the primal the same way with ``jax.linearize``). The Newton matvec
+    kernel takes the planes themselves (``ops/kernels/ssa_matvec.py``)."""
     nuH, (c_e, c_n) = _nuH(u, v, hardness_B, H, dx, dy, sh, n_glen,
                            eps_reg2, extension_nuH, extension_mask, True)
-
-    def tangent(du, dv):
-        east, north = _face_strain_rates(du, dv, dx, dy, sh)
-        out = []
-        for (dux, dvy, duy, dvx), (a1, a2, a3, k) in ((east, c_e), (north, c_n)):
-            out.append((a1 * dux + a2 * dvy + a3 * (duy + dvx)) * k)
-        return NuH(e=out[0], n=out[1])
-
-    return nuH, tangent
+    return nuH, NuHTangent(c_e, c_n, dx, dy, sh)
 
 
 def apply_operator(u, v, nuH: NuH, beta, dx, dy):

@@ -1,9 +1,10 @@
-"""Card-only tests of pism_tpu_torch: the CUDA kernels (SSA matvec, PCR
-line solves, fused thermomechanical and isothermal SIA) against their plain
-torch versions, the 100 km chain on the card against the CPU, and EISMINT
-II A and Halfar test B through the SIA kernels against the CPU; K5 (the
-matvec per shard of a mesh of the card) against its plain version and
-against K1 on the whole field, and K3/K4 per shard against the unsharded
+"""Card-only tests of pism_tpu_torch: the CUDA kernels (SSA matvec, the
+Newton matvec, PCR line solves, fused thermomechanical and isothermal SIA)
+against their plain torch versions, the 100 km chain on the card against
+the CPU, and EISMINT II A and Halfar test B through the SIA kernels against
+the CPU; K5 (the matvec per shard of a mesh of the card) against its plain
+version and against K1 on the whole field, the Newton matvec per shard
+against the unsharded one, and K3/K4 per shard against the unsharded
 kernels, equal to the bit.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
@@ -22,10 +23,12 @@ from pism_tpu_torch import setups  # noqa: E402
 from pism_tpu_torch.convert import state_to_numpy  # noqa: E402
 from pism_tpu_torch.model.icemodel import IceModel  # noqa: E402
 from pism_tpu_torch.ops import sharded as S  # noqa: E402
+from pism_tpu_torch.ops import ssa as ssa_ops  # noqa: E402
 from pism_tpu_torch.ops.kernels import pcr as K2  # noqa: E402
 from pism_tpu_torch.ops.kernels import sia_iso as K4  # noqa: E402
 from pism_tpu_torch.ops.kernels import sia_thermo as K3  # noqa: E402
 from pism_tpu_torch.ops.kernels import ssa_matvec as K  # noqa: E402
+from pism_tpu_torch.ops.stencils import shift  # noqa: E402
 from pism_tpu_torch.parallel import make_mesh  # noqa: E402
 from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter  # noqa: E402
 from pism_tpu_torch.physics.rheology import GPBLD, PatersonBudd  # noqa: E402
@@ -117,16 +120,102 @@ def test_chain_on_the_card_matches_cpu(cuda):
     for where in ("cpu", cuda):
         model, state, _ = setups.hybrid_greenland_model("float64", 100.0,
                                                         device=where)
-        n0 = K.JVP_LAUNCHES
+        n0 = (K.NEWTON_LAUNCHES, K.JVP_LAUNCHES)
         state, t, stats = model.step_once(state, 0.0, SPY)
-        runs[str(where)] = (state_to_numpy(state), stats, K.JVP_LAUNCHES - n0)
-    (a, sa, la), (b, sb, lb) = runs["cpu"], runs[str(cuda)]
-    assert la == 0 and lb > 0
+        runs[str(where)] = (state_to_numpy(state), stats,
+                            K.NEWTON_LAUNCHES - n0[0], K.JVP_LAUNCHES - n0[1])
+    (a, sa, la, ja), (b, sb, lb, jb) = runs["cpu"], runs[str(cuda)]
+    assert la == 0 and lb > 0 and ja == jb == 0
     assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
     Ha, Hb = a["ice_thickness"], b["ice_thickness"]
     assert np.all(np.isfinite(Hb))
     assert np.abs(Hb - Ha).max() <= 1e-5 * Ha.max()
     assert abs(Hb.sum() - Ha.sum()) <= 1e-8 * Ha.sum()
+
+
+def _newton_inputs(shape, dtype, device, seed):
+    """A frozen Newton system: the linearization point, a direction, nuH,
+    coefficient planes (a1, a2, a3, k; k zero on a tenth of the faces, as
+    the icy-face mask leaves it) that give dnuH ~ 1e14, beta, and a
+    Dirichlet mask holding the grid's edges and a tenth of the cells."""
+    rng = np.random.default_rng(seed)
+    a = {k: rng.normal(size=shape) * 1e-5 for k in ("u", "v")}
+    a.update({k: rng.normal(size=shape) * 1e-6 for k in ("du", "dv")})
+    a["nuH_e"] = rng.uniform(1e13, 1e16, size=shape)
+    a["nuH_n"] = rng.uniform(1e13, 1e16, size=shape)
+    for f in ("coef_e", "coef_n"):
+        c = rng.normal(size=(*shape, 4)) * 1e10
+        c[..., 3] = rng.uniform(1e13, 1e15, size=shape) \
+            * (rng.uniform(size=shape) > 0.1)
+        a[f] = c
+    a["beta"] = rng.uniform(0.0, 1e10, size=shape)
+    x = {k: torch.tensor(v, dtype=dtype, device=device) for k, v in a.items()}
+    bc = rng.uniform(size=shape) < 0.1
+    bc[0, :] = bc[-1, :] = bc[:, 0] = bc[:, -1] = True
+    x["bc"] = torch.tensor(bc, device=device)
+    return x
+
+
+NEWTON_ARGS = ("u", "v", "du", "dv", "nuH_e", "nuH_n", "coef_e", "coef_n",
+               "beta", "bc")
+
+
+def _replaced_composition(x):
+    """What the Newton matvec replaces, on the tensors' device: free the
+    direction, the plain torch tangent, the fused JVP launch, free, the
+    Dirichlet rows."""
+    bc = x["bc"]
+    fu, fv = torch.where(bc, 0.0, x["du"]), torch.where(bc, 0.0, x["dv"])
+    dn = ssa_ops.NuHTangent(x["coef_e"].unbind(-1), x["coef_n"].unbind(-1),
+                            DX, DY, shift)(fu, fv)
+    Ju, Jv = K.ssa_matvec_jvp(x["u"], x["v"], fu, fv, x["nuH_e"], x["nuH_n"],
+                              dn.e, dn.n, x["beta"], None, DX, DY)
+    return (torch.where(bc, 0.0, Ju) + torch.where(bc, x["du"], 0.0),
+            torch.where(bc, 0.0, Jv) + torch.where(bc, x["dv"], 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(24, 40), (141, 76), (561, 301)])
+def test_newton_matvec_matches_plain(cuda, dtype, shape):
+    """The Newton matvec against its plain version (one launch per call)
+    and against the composition it replaces on the card, to the bit: the
+    tangent rounds as torch's ops do there, the stresses as K1's JVP."""
+    x = _newton_inputs(shape, dtype, cuda, 15)
+    args = [x[k] for k in NEWTON_ARGS]
+    n0 = K.NEWTON_LAUNCHES
+    got = K.ssa_newton_matvec(*args, DX, DY)
+    torch.cuda.synchronize()
+    assert K.NEWTON_LAUNCHES == n0 + 1
+    for g, r, c in zip(got, K.ssa_newton_matvec_plain(*args, DX, DY),
+                       _replaced_composition(x)):
+        assert _rel(g, r) < TOL[dtype]
+        assert torch.equal(g, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape,mesh_shape", [((142, 76), (2, 2)),
+                                              ((29, 37), (2, 4))])
+def test_newton_matvec_halo_equals_unsharded(cuda, dtype, shape, mesh_shape):
+    """The Newton matvec per shard of a mesh of the card: one launch per
+    shard and call, within K1's tolerance of the plain sharded version and
+    equal to the unsharded kernel to the bit, for two directions of one
+    prepared system."""
+    mesh = make_mesh([cuda] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
+    x = _newton_inputs(shape, dtype, cuda, 16)
+    frozen = [x[k] for k in NEWTON_ARGS if k not in ("du", "dv")]
+    mv = S.ssa_newton_matvec_sharded(*frozen, mesh, DX, DY)
+    mv_plain = S.ssa_newton_matvec_sharded_plain(*frozen, mesh, DX, DY)
+    for d in ((x["du"], x["dv"]), (x["dv"], x["u"])):
+        n0 = K.HALO_NEWTON_LAUNCHES
+        got = mv(*d)
+        torch.cuda.synchronize()
+        assert K.HALO_NEWTON_LAUNCHES == n0 + mesh.size
+        whole = K.ssa_newton_matvec(x["u"], x["v"], *d, *frozen[2:], DX, DY)
+        for g, r, w in zip(got, mv_plain(*d), whole):
+            assert _rel(g, r) < TOL[dtype]
+            assert torch.equal(g, w)
 
 
 def _tridiag(shape, seed, dtype, device):

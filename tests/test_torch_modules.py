@@ -3,6 +3,7 @@ counterpart on identical float64 inputs (made with numpy from a seed, on
 the 100 km synthetic-Greenland geometry): 1e-10 relative unless stated."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -270,6 +271,47 @@ def test_pdd_update(setup, t0, dt):
     check(tcar.firn, jcar.firn, name="firn")
     check(tsurf(tgeometry(setup["geom"]), t0).smb,
           jsurf(jgeometry(setup["geom"]), t0).smb, name="climatology")
+
+
+def _pdd_count(dt, f, evals=52.0):
+    return math.ceil(f(dt) * f(evals) / f(SPY))
+
+
+def test_pdd_trip_count_in_the_field_dtype(setup):
+    """A float32 dt at which ceil(dt evals / SPY) is one less in float32
+    than in float64 (26 intervals a year): the port's float32 update takes
+    JAX's count and interval length. Both packages evaluate the same
+    float32 expressions, so they agree to float32 rounding (1e-5 of the
+    largest value); a count off by one moves the SMB by ~1e-3 of it."""
+    dt = np.float32(0.25 * SPY)
+    while _pdd_count(dt, np.float32) == _pdd_count(dt, np.float64):
+        dt = np.nextafter(dt, np.float32(np.inf))
+    assert abs(float(dt) - 0.25 * SPY) < 1.0
+    g32 = {k: (v.astype(np.float32) if v.dtype == np.float64 else v)
+           for k, v in setup["geom"].items()}
+    jsurf = j_pdd.TemperatureIndex(atmosphere=j_atm.SeariseGreenland(
+        latitude=jnp.asarray(setup["lat"]), longitude=jnp.asarray(setup["lon"]),
+        precipitation=jnp.asarray(setup["precip"], jnp.float32)),
+        config=setup["jc"])
+    tsurf = t_pdd.TemperatureIndex(atmosphere=t_atm.SeariseGreenland(
+        latitude=T(setup["lat"]), longitude=T(setup["lon"]),
+        precipitation=T(setup["precip"].astype(np.float32))),
+        config=setup["tc"])
+    rng = np.random.default_rng(6)
+    snow = rng.uniform(0.0, 0.5, size=setup["u"].shape).astype(np.float32)
+    firn = rng.uniform(0.0, 0.5, size=setup["u"].shape).astype(np.float32)
+    t0 = 0.3 * SPY
+    # the JAX step hands the PDD a float64 clock and a field-dtype dt
+    js, jcar = jsurf.update(jgeometry(g32), jnp.asarray(t0, jnp.float64),
+                            jnp.asarray(dt),
+                            JCarry(jnp.asarray(snow), jnp.asarray(firn), None))
+    ts, tcar = tsurf.update(tgeometry(g32), t0, float(dt),
+                            TCarry(T(snow), T(firn)))
+    for name in ("smb", "melt", "runoff", "accumulation"):
+        assert getattr(ts, name).dtype == torch.float32
+        check(getattr(ts, name), getattr(js, name), 1e-5, name)
+    check(tcar.snow, jcar.snow, 1e-5, "snow")
+    check(tcar.firn, jcar.firn, 1e-5, "firn")
 
 
 def test_energy_step(setup):
