@@ -6,7 +6,9 @@ Phase 1 builds the kernels from ``pism_tpu_torch/csrc`` (one ``nvcc`` per
 source, all started together) and holds each against its plain torch
 version on the card, relative max-norm error:
   K1 ``ssa_matvec`` and ``ssa_matvec_jvp`` at the 20 km (141x76) and 5 km
-  (301x561) grids, 1e-12 in float64 and 1e-5 in float32; the Newton matvec
+  (301x561) grids, 1e-12 in float64 and 1e-5 in float32, and
+  ``ssa_matvec`` at 9x33, 33x9 and 2x70, which no tile of its kernel
+  divides; the Newton matvec
   ``ssa_newton_matvec`` there too, against its plain version (K1's
   tolerances) and against the composition it replaced on the card (the
   plain torch tangent, the fused JVP launch and the Dirichlet selects),
@@ -23,7 +25,8 @@ version on the card, relative max-norm error:
   with and without a binding diffusivity cap, 1e-12 / 2e-5;
   K5 ``ssa_matvec_halo``, ``ssa_matvec_halo_jvp`` and
   ``ssa_newton_matvec_halo``, per shard of a mesh of this one card, at
-  142x76 and 561x301 on 2x2 and 29x37 on 2x4: one shard's launch against
+  142x76 and 561x301 on 2x2, 29x37 on 2x4, and 9x33 on 1x4 and 33x9 on
+  4x1 (9x9 shards, smaller than one tile): one shard's launch against
   its plain version (K1's tolerances), and the whole sharded call (halo
   exchange, launches, gather; for the Newton matvec the direction's only,
   the frozen fields padded once) against the plain sharded call and
@@ -32,7 +35,9 @@ version on the card, relative max-norm error:
   against unsharded K3/K4 (asserted equal to the bit).
 It times each with CUDA events and the profiler's device time and computes
 its bound (the larger of its bytes over 3.35 TB/s and its operations over
-67 TFLOP/s, float32), then runs the 100 km chain with the PCR kernels for
+67 TFLOP/s, float32); beside the bounds it prints the launch floor, the
+device time of the smallest launch the card runs (a one-element
+``zero_()``). Then it runs the 100 km chain with the PCR kernels for
 one model year in float64 on the card and on the CPU (plain torch path) and
 compares the two.
 
@@ -360,6 +365,12 @@ def phase1_kernels(dev):
     _build.build("ssa_matvec", "pcr", "sia_thermo", "sia_iso")
     print(f"phase1: built ssa_matvec, pcr, sia_thermo, sia_iso in "
           f"{time.time() - t0:.1f} s")
+    one = torch.zeros(1, device=dev)
+    floor_us, _ = _device_profile(one.zero_, 50)
+    print("phase1: launch floor, the device time of the smallest launch the "
+          "card runs (a one-element zero_()), for information beside the "
+          "bounds: " + ("not measured" if floor_us is None
+                        else f"{floor_us:.3f} us"))
     out = {}
     rng = np.random.default_rng(20240601)
     tols = ((torch.float64, 1e-12), (torch.float32, 1e-5))
@@ -387,7 +398,9 @@ def phase1_kernels(dev):
                      K.ssa_matvec_jvp_plain, jv)):
                 r = _kernel_case(name, kern, plain, args, tol,
                                  f"{My}x{Mx} {str(dtype)[6:]}",
-                                 OPS[name] * My * Mx)
+                                 OPS[name] * My * Mx,
+                                 match="ssa_matvec_tile"
+                                 if name == "ssa_matvec" else None)
                 if km == 20 and dtype == torch.float32:
                     out[name] = r
             r = _newton_case(f"{My}x{Mx} {str(dtype)[6:]}",
@@ -395,6 +408,20 @@ def phase1_kernels(dev):
                              + (dx, dy), tol)
             if km == 20 and dtype == torch.float32:
                 out["ssa_newton_matvec"] = r
+    # K1 at shapes that no tile of its kernel divides: narrower or shorter
+    # than one tile, ragged on either axis
+    rrng = np.random.default_rng(20261018)
+    for My, Mx in ((9, 33), (33, 9), (2, 70)):
+        arrs = [rrng.normal(size=(My, Mx)) * 1e-5 for _ in range(2)] \
+            + [rrng.uniform(1e13, 1e16, size=(My, Mx)) for _ in range(2)] \
+            + [rrng.uniform(0.0, 1e10, size=(My, Mx))]
+        for dtype, tol in tols:
+            mv = [torch.tensor(a, dtype=dtype, device=dev) for a in arrs]
+            _kernel_case("ssa_matvec", K.ssa_matvec, K.ssa_matvec_plain,
+                         (*mv, 20e3, 20e3), tol,
+                         f"{My}x{Mx} {str(dtype)[6:]}",
+                         OPS["ssa_matvec"] * My * Mx, reps=50,
+                         match="ssa_matvec_tile")
 
     # K2 / K2b: (n, batch) of the u-lines (lanes) and v-lines (sub): the
     # one-shot form in both dtypes, then in float32 the apply launch alone
@@ -544,7 +571,9 @@ def phase1_sharded(dev, rng):
     tols = ((torch.float64, 1e-12), (torch.float32, 1e-5))
     for (My, Mx), km, mshape in (((142, 76), 20, (2, 2)),
                                  ((561, 301), 5, (2, 2)),
-                                 ((29, 37), 20, (2, 4))):
+                                 ((29, 37), 20, (2, 4)),
+                                 ((9, 33), 20, (1, 4)),
+                                 ((33, 9), 20, (4, 1))):
         ny, nx = mshape
         mesh = make_mesh([dev] * (ny * nx), mshape)
         py, px = S._pad_amounts((My, Mx), mesh)
@@ -590,7 +619,9 @@ def phase1_sharded(dev, rng):
                     else "ssa_matvec_jvp"
                 r = _kernel_case(name, kern, plain, args, tol,
                                  f"one shard of {label}",
-                                 OPS[base] * my * mx, match="halo")
+                                 OPS[base] * my * mx,
+                                 match="ssa_matvec_tile" if base == "ssa_matvec"
+                                 else "halo_jvp")
                 if km == 20 and mshape == (2, 2) and dtype == torch.float32:
                     out[name] = r
                 wargs = k1_args[:-2] + (mesh,) + k1_args[-2:]

@@ -2,50 +2,68 @@
 //
 // K1 replaces the TPU kernel _ssa_matvec_kernel of
 // pism_tpu/ops/pallas_kernels.py (called through _ssa_matvec_raw /
-// ssa_matvec_pallas and its custom JVP). It computes what that kernel
-// computes, one thread per cell:
+// ssa_matvec_pallas and its custom JVP); K5 replaces its sharded twin
+// _ssa_matvec_sharded_kernel of pism_tpu/ops/pallas_sharded.py (reached
+// through _ssa_matvec_sharded_raw). Both compute
 //
 //   A(u, v) = -div T + beta (u, v)
 //
 // with east-face stresses Txx_e = 2 nuH_e (2 u_x + v_y), Txy_e = nuH_e
 // (u_y + v_x) and north-face stresses Txy_n = nuH_n (u_y + v_x), Tyy_n =
 // 2 nuH_n (2 v_y + u_x); face gradients are one-sided across the face and
-// 4-point averages along it. Clamped neighbour indexing replaces the edge
-// padding of the TPU kernel, and the west and south face stresses are
-// recomputed in the thread at the clamped indices i-1 and j-1: at i = 0 the
-// west stress is the east stress itself, so that term of the divergence is
-// exactly 0 (likewise at j = 0), which is the closure of the TPU kernel's
-// shift_w / shift_s.
+// 4-point averages along it. K1 reads whole (My, Mx) fields with its
+// neighbours clamped to the grid, which replaces the edge padding of the
+// TPU kernel. K5 reads one shard of a mesh from blocks padded with ghost
+// cells (two for u and v, one for nuH; beta has none) that the halo
+// exchange filled, so the west/south faces of the shard's first
+// column/row come from the neighbouring shard; where the shard owns the
+// grid's west (south) edge, a flag restores the clamp (the TPU kernel's
+// wclamp / sclamp).
 //
-// K5 replaces _ssa_matvec_sharded_kernel of pism_tpu/ops/pallas_sharded.py
-// (reached through _ssa_matvec_sharded_raw): the same operator on one shard
-// of a mesh, read from blocks padded with ghost cells (two for u and v, one
-// for nuH; beta has none) that the halo exchange filled. Its neighbour
-// indices are offsets into the padded block instead of clamped indices, so
-// the west/south face stresses of the shard's first column/row come from
-// the neighbouring shard; where the shard owns the grid's west (south)
-// edge, a flag restores the clamp (the TPU kernel's wclamp / sclamp). The
-// face stresses and the divergence are the same device code as K1's, so on
-// one card K5 over any mesh gives K1's result on the whole field, bit for
-// bit.
+// One kernel template, ssa_matvec_tile_kernel, serves both; a layout
+// struct (Clamped for K1, Padded for K5) turns a cell or a face into an
+// offset. A block is a 32x4 tile of cells, a warp one row of it, a thread
+// one cell. Each thread reads its 3x3 neighbourhood of u and v, the nuH of
+// its faces and beta at once (one round trip to memory), then computes
+// its cell's east and north face stresses. The west face is the east face
+// of the lane beside, passed by __shfl_up_sync; the south face is the
+// north face of the row below, passed through shared memory (one
+// barrier); the tile's first column (row) computes its west (south) face
+// from the same neighbourhood. At a closed grid edge the west (south) face
+// is the cell's own east (north) face, so that term of the divergence is
+// exactly 0: the closure of the TPU kernel's shift_w / shift_s. So each
+// face is computed once (the tile's west column and south row twice): 21
+// loads and 13 divisions a cell with the divergence's 4, where a thread
+// that also computed the faces of its west and south neighbours spent 57
+// loads and 28 divisions. The face stresses and the divergence keep the expressions of
+// face_stress and minus_div below, in their order (no division turned
+// into a product), so nvcc rounds and contracts them alike: the result is
+// the per-cell kernel's to the bit, and K5 over any mesh of one card gives
+// K1's result on the whole field, bit for bit.
+//
+// What bounds them: per cell they read u, v, nuH_e, nuH_n, beta and write
+// Au, Av, 28 bytes in float32 (0.3 MB at the 20 km grid, 4.7 MB at 5 km;
+// 80 KB per shard of the 20 km grid on a 2x2 mesh), 0.09, 1.41 and 0.02
+// us at 3.35 TB/s. None of the paths' launches comes near that: at the 20
+// km grid and its shards a launch is bound by its latency (one round trip,
+// the face arithmetic, a barrier, the divergence; 108 blocks of 128
+// threads at 141x76, fewer than the card's 132 SMs), at 5 km by the issue
+// of the face arithmetic. The
+// tile shape and the register design were chosen by timing (PERF.md): a
+// variant that stages the tile in shared memory was slower at three of
+// the paths' four shapes and no faster at the fourth.
 //
 // The JVP entry points fuse the forward-mode derivative of the operator,
 // which is bilinear in ((u, v), (nuH, beta)):
 //
 //   J(d) = [A(du, dv; nuH, beta)] + [A(u, v; dnuH, dbeta)]
 //
-// in one pass (SSAMatvec.jvp). The SSA solve's Newton sweeps call the
-// Newton matvec further down instead, which also forms dnuH and the
-// Dirichlet rows (the TPU package's _ssa_matvec_jvp and
-// _ssa_matvec_sharded_jvp of pallas_kernels.py:407 / pallas_sharded.py:225
-// reached through jax.linearize of the residual).
-//
-// What bounds them: per cell the plain matvec reads u, v, nuH_e, nuH_n, beta
-// and writes Au, Av, 28 bytes in float32 (0.3 MB at the 20 km grid, 4.7 MB
-// at 5 km; 80 KB per shard of the 20 km grid on a 2x2 mesh). Neighbour
-// reads hit L1/L2. At these shapes the kernels are bound by launch latency,
-// not by the 3.35 TB/s of device memory, so these spend nothing on tiling
-// or shared memory.
+// in one pass (SSAMatvec.jvp), one thread per cell through face_stress
+// and minus_div. The SSA solve's Newton sweeps call the Newton matvec
+// further down instead, which also forms dnuH and the Dirichlet rows (the
+// TPU package's _ssa_matvec_jvp and _ssa_matvec_sharded_jvp of
+// pallas_kernels.py:407 / pallas_sharded.py:225 reached through
+// jax.linearize of the residual).
 //
 // C interface for ctypes: every function returns cudaGetLastError() after
 // the launch (0 = success). The kernels allocate nothing and launch on the
@@ -131,24 +149,6 @@ __device__ __forceinline__ void minus_div(
   *mdy = -div_y;
 }
 
-template <typename T>
-__global__ void ssa_matvec_kernel(
-    const T* __restrict__ u, const T* __restrict__ v,
-    const T* __restrict__ nuHe, const T* __restrict__ nuHn,
-    const T* __restrict__ beta, T* __restrict__ Au, T* __restrict__ Av,
-    int My, int Mx, T dx, T dy) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= Mx || j >= My) return;
-  const ClampedIndex at{My, Mx};
-  T mx, my;
-  minus_div(u, v, nuHe, nuHn, j, i, i > 0 ? i - 1 : 0, j > 0 ? j - 1 : 0, at,
-            at, dx, dy, &mx, &my);
-  const size_t k = (size_t)j * Mx + i;
-  Au[k] = mx + beta[k] * u[k];
-  Av[k] = my + beta[k] * v[k];
-}
-
 // J(d) = A(du, dv; nuH, beta) + A(u, v; dnuH, dbeta); dbeta may be null
 // (a frozen drag coefficient).
 template <typename T>
@@ -177,27 +177,6 @@ __global__ void ssa_matvec_jvp_kernel(
   }
   Ju[k] = t1u + t2u;
   Jv[k] = t1v + t2v;
-}
-
-// K5: A(u, v) on one shard of my x mx cells. up, vp: (my+4, mx+4) blocks
-// with two ghosts; nuHe, nuHn: (my+2, mx+2) with one; beta, Au, Av:
-// (my, mx). west/south: the shard owns the grid's west/south edge.
-template <typename T>
-__global__ void ssa_matvec_halo_kernel(
-    const T* __restrict__ up, const T* __restrict__ vp,
-    const T* __restrict__ nuHe, const T* __restrict__ nuHn,
-    const T* __restrict__ beta, T* __restrict__ Au, T* __restrict__ Av,
-    int my, int mx, int west, int south, T dx, T dy) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= mx || j >= my) return;
-  const PaddedIndex at{mx + 4, 2}, nu_at{mx + 2, 1};
-  T rx, ry;
-  minus_div(up, vp, nuHe, nuHn, j, i, (west && i == 0) ? 0 : i - 1,
-            (south && j == 0) ? 0 : j - 1, at, nu_at, dx, dy, &rx, &ry);
-  const size_t k = (size_t)j * mx + i, c = at(j, i);
-  Au[k] = rx + beta[k] * up[c];
-  Av[k] = ry + beta[k] * vp[c];
 }
 
 // K5's JVP on one shard, the blocks as for K5 (du, dv with two ghosts,
@@ -230,6 +209,191 @@ __global__ void ssa_matvec_halo_jvp_kernel(
   }
   Ju[k] = t1u + t2u;
   Jv[k] = t1v + t2v;
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K5: the operator matvec, one tiled body for both layouts
+
+// K1's layout: whole (My, Mx) fields, neighbours clamped to the grid; a
+// cell's velocities and its faces share one offset, and the grid's own
+// west/south edges close the divergence.
+struct Clamped {
+  int My, Mx;
+  __device__ __forceinline__ size_t cell(int j, int i) const {
+    return (size_t)clampi(j, My) * Mx + clampi(i, Mx);
+  }
+  __device__ __forceinline__ size_t face(int j, int i) const {
+    return cell(j, i);
+  }
+  __device__ __forceinline__ bool west_edge(int i) const { return i == 0; }
+  __device__ __forceinline__ bool south_edge(int j) const { return j == 0; }
+};
+
+// K5's layout: one shard's (my, mx) cells in blocks with two ghosts (the
+// velocities; in the Newton matvec also du, dv, bc) and one (nuH; the
+// Newton coefficients); offsets past the ghosts (cells of a ragged tile
+// that produce no output) are clamped into the block.
+struct Padded {
+  int my, mx, west, south;
+  __device__ __forceinline__ static int clamp_to(int k, int lo, int hi) {
+    return k < lo ? lo : (k > hi ? hi : k);
+  }
+  __device__ __forceinline__ size_t cell(int j, int i) const {
+    return (size_t)(clamp_to(j, -2, my + 1) + 2) * (mx + 4) +
+           (clamp_to(i, -2, mx + 1) + 2);
+  }
+  __device__ __forceinline__ size_t face(int j, int i) const {
+    return (size_t)(clamp_to(j, -1, my) + 1) * (mx + 2) +
+           (clamp_to(i, -1, mx) + 1);
+  }
+  __device__ __forceinline__ bool west_edge(int i) const {
+    return west && i == 0;
+  }
+  __device__ __forceinline__ bool south_edge(int j) const {
+    return south && j == 0;
+  }
+};
+
+// (d/dx, d/dy) of one field on a face
+template <typename T>
+struct Grad {
+  T x, y;
+};
+
+// the gradients of face_stress on the east / north face of cell (r, c) of
+// a 2D array s of one field (a neighbourhood in registers, a tile in
+// shared memory): one-sided across the face, 4-point averages along it
+template <typename T, typename S>
+__device__ __forceinline__ Grad<T> grad_east(const S& s, int r, int c, T dx,
+                                             T dy) {
+  return {(s[r][c + 1] - s[r][c]) / dx,
+          (s[r + 1][c] + s[r + 1][c + 1] - s[r - 1][c] - s[r - 1][c + 1]) /
+              (T(4) * dy)};
+}
+
+template <typename T, typename S>
+__device__ __forceinline__ Grad<T> grad_north(const S& s, int r, int c, T dx,
+                                              T dy) {
+  return {(s[r][c + 1] + s[r + 1][c + 1] - s[r][c - 1] - s[r + 1][c - 1]) /
+              (T(4) * dx),
+          (s[r + 1][c] - s[r][c]) / dy};
+}
+
+// the stresses on one face of a cell: (Txx_e, Txy_e) on an east face,
+// (Txy_n, Tyy_n) on a north face
+template <typename T>
+struct EastFace {
+  T xx, xy;
+};
+
+template <typename T>
+struct NorthFace {
+  T xy, yy;
+};
+
+// face_stress's expressions on the east / north face of cell (r, c) of
+// the neighbourhoods nbu (u) and nbv (v), with that face's nuH
+template <typename T, typename S>
+__device__ __forceinline__ EastFace<T> east_face_stress(const S& nbu,
+                                                        const S& nbv, int r,
+                                                        int c, T nu, T dx,
+                                                        T dy) {
+  const Grad<T> gu = grad_east(nbu, r, c, dx, dy);
+  const Grad<T> gv = grad_east(nbv, r, c, dx, dy);
+  return {T(2) * nu * (T(2) * gu.x + gv.y), nu * (gu.y + gv.x)};
+}
+
+template <typename T, typename S>
+__device__ __forceinline__ NorthFace<T> north_face_stress(const S& nbu,
+                                                          const S& nbv, int r,
+                                                          int c, T nu, T dx,
+                                                          T dy) {
+  const Grad<T> gu = grad_north(nbu, r, c, dx, dy);
+  const Grad<T> gv = grad_north(nbv, r, c, dx, dy);
+  return {nu * (gu.y + gv.x), T(2) * nu * (T(2) * gv.y + gu.x)};
+}
+
+// A(u, v) of the (ny, nx) cells that get an output; beta, Au, Av are
+// (ny, nx), u, v, nuHe, nuHn as the layout says. A block is a BX x BY tile
+// (BX divides the warp, so a warp holds whole rows of it) and a thread one
+// cell: it reads its 3x3 neighbourhood of u and v and computes its cell's
+// east and north faces; the west face is the east face of the lane beside
+// (__shfl_up_sync), the south face the north face of the row below
+// (shared memory, one barrier). The tile's first column (row) computes its
+// west (south) faces itself, from the same neighbourhood.
+template <typename T, typename Layout, int BX, int BY>
+__global__ void __launch_bounds__(BX * BY) ssa_matvec_tile_kernel(
+    const T* __restrict__ u, const T* __restrict__ v,
+    const T* __restrict__ nuHe, const T* __restrict__ nuHn,
+    const T* __restrict__ beta, T* __restrict__ Au, T* __restrict__ Av,
+    Layout L, int ny, int nx, T dx, T dy) {
+  static_assert(32 % BX == 0, "a warp holds whole rows of the tile");
+  __shared__ T s_xy[BY][BX], s_yy[BY][BX];   // the tile's north faces
+  const int tc = threadIdx.x, tr = threadIdx.y;
+  const int i = blockIdx.x * BX + tc, j = blockIdx.y * BY + tr;
+
+  // every read of device memory at once, so that a thread waits for one
+  // round trip: the neighbourhoods, the nuH of the cell's faces (and of
+  // its west / south face in the tile's first column / row) and beta
+  T nbu[3][3], nbv[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const size_t a = L.cell(j - 1 + r, i - 1 + c);
+      nbu[r][c] = u[a];
+      nbv[r][c] = v[a];
+    }
+  }
+  const size_t o = L.face(j, i);
+  const T nu_e = nuHe[o], nu_n = nuHn[o];
+  const T nu_w = tc == 0 ? nuHe[L.face(j, i - 1)] : T(0);
+  const T nu_s = tr == 0 ? nuHn[L.face(j - 1, i)] : T(0);
+  const bool owned = i < nx && j < ny;
+  const size_t k = (size_t)j * nx + i;
+  const T b = owned ? beta[k] : T(0);
+
+  const EastFace<T> e = east_face_stress(nbu, nbv, 1, 1, nu_e, dx, dy);
+  const NorthFace<T> n = north_face_stress(nbu, nbv, 1, 1, nu_n, dx, dy);
+  s_xy[tr][tc] = n.xy;
+  s_yy[tr][tc] = n.yy;
+  EastFace<T> w = {__shfl_up_sync(0xffffffffu, e.xx, 1),
+                   __shfl_up_sync(0xffffffffu, e.xy, 1)};
+  if (tc == 0) w = east_face_stress(nbu, nbv, 1, 0, nu_w, dx, dy);
+  NorthFace<T> s = {T(0), T(0)};
+  if (tr == 0) s = north_face_stress(nbu, nbv, 0, 1, nu_s, dx, dy);
+  __syncthreads();
+  if (tr > 0) s = {s_xy[tr - 1][tc], s_yy[tr - 1][tc]};
+
+  if (!owned) return;
+  // at a closed edge the west (south) face is the cell's own east (north)
+  // face, so that term of the divergence is exactly 0 (K1's clamp)
+  if (L.west_edge(i)) w = e;
+  if (L.south_edge(j)) s = n;
+  const T div_x = (e.xx - w.xx) / dx + (n.xy - s.xy) / dy;
+  const T div_y = (e.xy - w.xy) / dx + (n.yy - s.yy) / dy;
+  const T mx = -div_x, my = -div_y;
+  Au[k] = mx + b * nbu[1][1];
+  Av[k] = my + b * nbv[1][1];
+}
+
+// The tile of K1 and K5, chosen by timing 32x8, 32x4, 16x8 and 16x4 at the
+// paths' shapes, beside a variant that stages the tile in shared memory
+// (scripts/ssa_matvec_tiles.py; the times are in PERF.md).
+constexpr int kMatvecX = 32;
+constexpr int kMatvecY = 4;
+
+template <typename T, int BX = kMatvecX, int BY = kMatvecY, typename Layout>
+int launch_matvec(const void* u, const void* v, const void* nuHe,
+                  const void* nuHn, const void* beta, void* Au, void* Av,
+                  Layout L, int ny, int nx, double dx, double dy,
+                  void* stream) {
+  ssa_matvec_tile_kernel<T, Layout, BX, BY>
+      <<<dim3((nx + BX - 1) / BX, (ny + BY - 1) / BY), dim3(BX, BY), 0,
+         (cudaStream_t)stream>>>(
+          (const T*)u, (const T*)v, (const T*)nuHe, (const T*)nuHn,
+          (const T*)beta, (T*)Au, (T*)Av, L, ny, nx, (T)dx, (T)dy);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kBlockX = 32;
@@ -286,30 +450,6 @@ constexpr int kTileH = kBlockY + 3;
 
 template <typename T>
 using Tile = T[kTileH][kTileW];
-
-// (d/dx, d/dy) of one field on a face
-template <typename T>
-struct Grad {
-  T x, y;
-};
-
-// the gradients of K1's face_stress on the east / north face of tile cell
-// (r, c): one-sided across the face, 4-point averages along it
-template <typename T>
-__device__ __forceinline__ Grad<T> grad_east(const Tile<T>& s, int r, int c,
-                                             T dx, T dy) {
-  return {(s[r][c + 1] - s[r][c]) / dx,
-          (s[r + 1][c] + s[r + 1][c + 1] - s[r - 1][c] - s[r - 1][c + 1]) /
-              (T(4) * dy)};
-}
-
-template <typename T>
-__device__ __forceinline__ Grad<T> grad_north(const Tile<T>& s, int r, int c,
-                                              T dx, T dy) {
-  return {(s[r][c + 1] + s[r + 1][c + 1] - s[r][c - 1] - s[r + 1][c - 1]) /
-              (T(4) * dx),
-          (s[r + 1][c] - s[r][c]) / dy};
-}
 
 // the same gradients as the plain tangent rounds them (ops/stencils.py
 // grad_x_east, grad_y_east, grad_x_north, grad_y_north on the card)
@@ -390,45 +530,6 @@ __device__ __forceinline__ void north_face(
   f.nxy2[tr + 1][tc] = dnu * (u_.y + v_.x);
   f.yy2[tr + 1][tc] = T(2) * dnu * (T(2) * v_.y + u_.x);
 }
-
-// K1's layout: whole (My, Mx) fields, neighbours clamped to the grid; a
-// cell's velocities and its faces share one offset, and the grid's own
-// west/south edges close the divergence.
-struct NewtonClamped {
-  int My, Mx;
-  __device__ __forceinline__ size_t cell(int j, int i) const {
-    return (size_t)clampi(j, My) * Mx + clampi(i, Mx);
-  }
-  __device__ __forceinline__ size_t face(int j, int i) const {
-    return cell(j, i);
-  }
-  __device__ __forceinline__ bool west_edge(int i) const { return i == 0; }
-  __device__ __forceinline__ bool south_edge(int j) const { return j == 0; }
-};
-
-// K5's layout: one shard's (my, mx) cells in blocks with two ghosts (u, v,
-// du, dv, bc) and one (nuH, coefficients); offsets past the ghosts (cells
-// of a ragged tile that produce no output) are clamped into the block.
-struct NewtonPadded {
-  int my, mx, west, south;
-  __device__ __forceinline__ static int clamp_to(int k, int lo, int hi) {
-    return k < lo ? lo : (k > hi ? hi : k);
-  }
-  __device__ __forceinline__ size_t cell(int j, int i) const {
-    return (size_t)(clamp_to(j, -2, my + 1) + 2) * (mx + 4) +
-           (clamp_to(i, -2, mx + 1) + 2);
-  }
-  __device__ __forceinline__ size_t face(int j, int i) const {
-    return (size_t)(clamp_to(j, -1, my) + 1) * (mx + 2) +
-           (clamp_to(i, -1, mx) + 1);
-  }
-  __device__ __forceinline__ bool west_edge(int i) const {
-    return west && i == 0;
-  }
-  __device__ __forceinline__ bool south_edge(int j) const {
-    return south && j == 0;
-  }
-};
 
 // ny, nx: the cells that get an output; beta, Ju, Jv are (ny, nx).
 // coef_e, coef_n: (a1, a2, a3, k) per face, on a last axis of 4.
@@ -519,17 +620,6 @@ int launch_newton(const void* u, const void* v, const void* du,
 }
 
 template <typename T>
-int launch_matvec(const void* u, const void* v, const void* nuHe,
-                  const void* nuHn, const void* beta, void* Au, void* Av,
-                  int My, int Mx, double dx, double dy, void* stream) {
-  ssa_matvec_kernel<T><<<grid_for(My, Mx), dim3(kBlockX, kBlockY), 0,
-                         (cudaStream_t)stream>>>(
-      (const T*)u, (const T*)v, (const T*)nuHe, (const T*)nuHn,
-      (const T*)beta, (T*)Au, (T*)Av, My, Mx, (T)dx, (T)dy);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_jvp(const void* u, const void* v, const void* du, const void* dv,
                const void* nuHe, const void* nuHn, const void* dnuHe,
                const void* dnuHn, const void* beta, const void* dbeta,
@@ -540,18 +630,6 @@ int launch_jvp(const void* u, const void* v, const void* du, const void* dv,
       (const T*)u, (const T*)v, (const T*)du, (const T*)dv, (const T*)nuHe,
       (const T*)nuHn, (const T*)dnuHe, (const T*)dnuHn, (const T*)beta,
       (const T*)dbeta, (T*)Ju, (T*)Jv, My, Mx, (T)dx, (T)dy);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_halo(const void* up, const void* vp, const void* nuHe,
-                const void* nuHn, const void* beta, void* Au, void* Av, int my,
-                int mx, int west, int south, double dx, double dy,
-                void* stream) {
-  ssa_matvec_halo_kernel<T><<<grid_for(my, mx), dim3(kBlockX, kBlockY), 0,
-                              (cudaStream_t)stream>>>(
-      (const T*)up, (const T*)vp, (const T*)nuHe, (const T*)nuHn,
-      (const T*)beta, (T*)Au, (T*)Av, my, mx, west, south, (T)dx, (T)dy);
   return (int)cudaGetLastError();
 }
 
@@ -583,7 +661,7 @@ int pism_ssa_newton_matvec_f32(const void* u, const void* v, const void* du,
                                const void* bc, void* Ju, void* Jv, int My,
                                int Mx, double dx, double dy, void* stream) {
   return launch_newton<float>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n, beta,
-                              bc, Ju, Jv, NewtonClamped{My, Mx}, My, Mx, dx,
+                              bc, Ju, Jv, Clamped{My, Mx}, My, Mx, dx,
                               dy, stream);
 }
 
@@ -594,7 +672,7 @@ int pism_ssa_newton_matvec_f64(const void* u, const void* v, const void* du,
                                const void* bc, void* Ju, void* Jv, int My,
                                int Mx, double dx, double dy, void* stream) {
   return launch_newton<double>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n,
-                               beta, bc, Ju, Jv, NewtonClamped{My, Mx}, My,
+                               beta, bc, Ju, Jv, Clamped{My, Mx}, My,
                                Mx, dx, dy, stream);
 }
 
@@ -611,7 +689,7 @@ int pism_ssa_newton_matvec_halo_f32(const void* up, const void* vp,
                                     double dy, void* stream) {
   return launch_newton<float>(up, vp, dup, dvp, nuHe, nuHn, coef_e, coef_n,
                               beta, bcp, Ju, Jv,
-                              NewtonPadded{my, mx, west, south}, my, mx, dx,
+                              Padded{my, mx, west, south}, my, mx, dx,
                               dy, stream);
 }
 
@@ -625,7 +703,7 @@ int pism_ssa_newton_matvec_halo_f64(const void* up, const void* vp,
                                     double dy, void* stream) {
   return launch_newton<double>(up, vp, dup, dvp, nuHe, nuHn, coef_e, coef_n,
                                beta, bcp, Ju, Jv,
-                               NewtonPadded{my, mx, west, south}, my, mx, dx,
+                               Padded{my, mx, west, south}, my, mx, dx,
                                dy, stream);
 }
 
@@ -633,16 +711,16 @@ int pism_ssa_matvec_f32(const void* u, const void* v, const void* nuHe,
                         const void* nuHn, const void* beta, void* Au,
                         void* Av, int My, int Mx, double dx, double dy,
                         void* stream) {
-  return launch_matvec<float>(u, v, nuHe, nuHn, beta, Au, Av, My, Mx, dx, dy,
-                              stream);
+  return launch_matvec<float>(u, v, nuHe, nuHn, beta, Au, Av,
+                              Clamped{My, Mx}, My, Mx, dx, dy, stream);
 }
 
 int pism_ssa_matvec_f64(const void* u, const void* v, const void* nuHe,
                         const void* nuHn, const void* beta, void* Au,
                         void* Av, int My, int Mx, double dx, double dy,
                         void* stream) {
-  return launch_matvec<double>(u, v, nuHe, nuHn, beta, Au, Av, My, Mx, dx,
-                               dy, stream);
+  return launch_matvec<double>(u, v, nuHe, nuHn, beta, Au, Av,
+                               Clamped{My, Mx}, My, Mx, dx, dy, stream);
 }
 
 int pism_ssa_matvec_jvp_f32(const void* u, const void* v, const void* du,
@@ -670,8 +748,9 @@ int pism_ssa_matvec_halo_f32(const void* up, const void* vp,
                              const void* beta, void* Au, void* Av, int my,
                              int mx, int west, int south, double dx,
                              double dy, void* stream) {
-  return launch_halo<float>(up, vp, nuHe, nuHn, beta, Au, Av, my, mx, west,
-                            south, dx, dy, stream);
+  return launch_matvec<float>(up, vp, nuHe, nuHn, beta, Au, Av,
+                              Padded{my, mx, west, south}, my, mx, dx, dy,
+                              stream);
 }
 
 int pism_ssa_matvec_halo_f64(const void* up, const void* vp,
@@ -679,8 +758,9 @@ int pism_ssa_matvec_halo_f64(const void* up, const void* vp,
                              const void* beta, void* Au, void* Av, int my,
                              int mx, int west, int south, double dx,
                              double dy, void* stream) {
-  return launch_halo<double>(up, vp, nuHe, nuHn, beta, Au, Av, my, mx, west,
-                             south, dx, dy, stream);
+  return launch_matvec<double>(up, vp, nuHe, nuHn, beta, Au, Av,
+                               Padded{my, mx, west, south}, my, mx, dx, dy,
+                               stream);
 }
 
 int pism_ssa_matvec_halo_jvp_f32(const void* up, const void* vp,

@@ -4,12 +4,14 @@ versions.
 K1 replaces the TPU kernel ``_ssa_matvec_kernel``
 (``pism_tpu/ops/pallas_kernels.py:325``, reached through
 ``_ssa_matvec_raw`` and ``ssa_matvec_pallas`` with the custom JVP at
-``:407-426``). The kernel, ``pism_tpu_torch/csrc/ssa_matvec.cu``, runs one
-thread per cell with clamped neighbour indexing; its notes say what bounds
-it. In float32 it moves 28 B/cell (0.3 MB at 20 km, 4.7 MB at 5 km), so at
-the chain's shapes it is bound by launch latency, not by bandwidth. The
-forward-mode derivative is fused into one pass (``ssa_matvec_jvp``, the
-rule of ``SSAMatvec.jvp``).
+``:407-426``). The kernel, ``pism_tpu_torch/csrc/ssa_matvec.cu``, tiles
+the grid: a block stages its tile of u and v in shared memory with clamped
+neighbour indexing and computes each face stress once; its notes say what
+bounds it. In float32 it moves 28 B/cell (0.3 MB at 20 km, 4.7 MB at 5
+km), so at the chain's shapes it is bound by launch latency and the face
+arithmetic, not by bandwidth. The forward-mode derivative is fused into
+one pass (``ssa_matvec_jvp``, the rule of ``SSAMatvec.jvp``), one thread
+per cell.
 
 K5 (``ssa_matvec_halo``, ``ssa_matvec_halo_jvp``) replaces
 ``_ssa_matvec_sharded_kernel`` (``pism_tpu/ops/pallas_sharded.py:108``,
@@ -18,7 +20,8 @@ one shard of a mesh, read from blocks padded with ghost cells, two for the
 velocities and one for nuH, with two flags that say whether the shard owns
 the grid's west and south edges. ``ops/sharded.py`` exchanges the halos
 and launches it per shard; on one card K5 over any mesh gives K1's result
-on the whole field bit for bit, since both run the same device code.
+on the whole field bit for bit, since both run the same tiled kernel
+(a layout struct tells whole fields from padded blocks).
 
 The SSA solve's Newton sweeps take neither JVP: ``ssa_newton_matvec`` (and
 ``ssa_newton_matvec_halo`` per shard) is the whole Newton matvec in one

@@ -64,10 +64,13 @@ def _rel(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(24, 40), (141, 76), (561, 301)])
+@pytest.mark.parametrize("shape", [(24, 40), (141, 76), (561, 301),
+                                   (9, 33), (33, 9), (2, 70)])
 def test_kernels_match_plain(cuda, dtype, shape):
     """Matvec and fused JVP (with and without a drag tangent) at a small
-    shape and at the 20 km and 5 km grids; each call launches once."""
+    shape, at the 20 km and 5 km grids and at shapes that no tile of the
+    matvec kernel divides (narrower or shorter than one tile, ragged on
+    either axis); each call launches once."""
     x = _inputs(shape, dtype, cuda, 9)
     mv = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"], DX, DY)
     n0 = K.LAUNCHES
@@ -406,12 +409,16 @@ def test_halfar_on_the_card_matches_cpu(cuda):
 @pytest.mark.parametrize("shape,mesh_shape", [((142, 76), (2, 2)),
                                               ((29, 37), (2, 4)),
                                               ((561, 301), (2, 2)),
-                                              ((40, 24), (1, 8))])
+                                              ((40, 24), (1, 8)),
+                                              ((9, 33), (1, 4)),
+                                              ((33, 9), (4, 1))])
 def test_k5_matches_plain_and_k1(cuda, dtype, shape, mesh_shape):
     """The sharded matvec and its fused JVP (with and without a drag
     tangent) on a mesh of the one card: one K5 launch per shard, within
     K1's tolerance of the plain sharded version and equal to K1 on the
-    whole field to the bit (the same device code)."""
+    whole field to the bit (the same device code). The last two meshes
+    cut 9x9 shards, smaller than one tile of the matvec kernel on one axis
+    and ragged on the other."""
     mesh = make_mesh([cuda] * (mesh_shape[0] * mesh_shape[1]), mesh_shape)
     x = _inputs(shape, dtype, cuda, 12)
     mv = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"])

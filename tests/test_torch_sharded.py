@@ -88,11 +88,10 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
-def _matvec_inputs(dtype, seed=11):
+def _matvec_inputs(dtype, seed=11, shape=(MY, MX)):
     """u, v, nuH_e, nuH_n, beta at tests/test_sharding.py's scales, and
     tangents of all five."""
     rng = np.random.default_rng(seed)
-    shape = (MY, MX)
     x = [rng.normal(size=shape) * 1e-5, rng.normal(size=shape) * 1e-5,
          rng.uniform(1e13, 1e15, size=shape),
          rng.uniform(1e13, 1e15, size=shape),
@@ -133,13 +132,21 @@ def test_k5_matches_jax(jax_devices, dtype, shape):
         assert _rel(gf, w) <= TOL_K5[dtype]
 
 
-@pytest.mark.parametrize("shape", [(2, 4), (2, 2), (4, 2), (1, 8), (8, 1)])
+@pytest.mark.parametrize(
+    "shape,grid",
+    [((2, 4), (MY, MX)), ((2, 2), (MY, MX)), ((4, 2), (MY, MX)),
+     ((1, 8), (MY, MX)), ((8, 1), (MY, MX)), ((1, 4), (9, 33)),
+     ((4, 1), (33, 9))],
+    ids=["shape0", "shape1", "shape2", "shape3", "shape4", "9x33-on-1x4",
+         "33x9-on-4x1"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_k5_equals_k1(dtype, shape):
+def test_k5_equals_k1(dtype, shape, grid):
     """The sharded plain version is the unsharded one to the bit, with and
-    without a drag tangent."""
+    without a drag tangent; on the uneven grid, and on grids cut into 9x9
+    shards (smaller than one tile of the CUDA kernel, as the card tests
+    cut them)."""
     mesh = make_mesh(["cpu"] * (shape[0] * shape[1]), shape)
-    x, t = _matvec_inputs(dtype, seed=12)
+    x, t = _matvec_inputs(dtype, seed=12, shape=grid)
     u, v, ne, nn, b = [torch.tensor(a) for a in x]
     du, dv, dne, dnn, db = [torch.tensor(a) for a in t]
     got = S.ssa_matvec_sharded(u, v, ne, nn, b, mesh, 20e3, 25e3)

@@ -25,15 +25,15 @@ DX, DY = 20e3, 25e3
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
 
-def _inputs(seed):
+def _inputs(seed, shape=(My, Mx)):
     rng = np.random.default_rng(seed)
-    return dict(u=rng.normal(size=(My, Mx)) * 1e-5,
-                v=rng.normal(size=(My, Mx)) * 1e-5,
-                nuHe=rng.uniform(1e13, 1e16, size=(My, Mx)),
-                nuHn=rng.uniform(1e13, 1e16, size=(My, Mx)),
-                beta=rng.uniform(0.0, 1e10, size=(My, Mx)),
-                tu=rng.normal(size=(My, Mx)) * 1e-5,
-                tv=rng.normal(size=(My, Mx)) * 1e-5)
+    return dict(u=rng.normal(size=shape) * 1e-5,
+                v=rng.normal(size=shape) * 1e-5,
+                nuHe=rng.uniform(1e13, 1e16, size=shape),
+                nuHn=rng.uniform(1e13, 1e16, size=shape),
+                beta=rng.uniform(0.0, 1e10, size=shape),
+                tu=rng.normal(size=shape) * 1e-5,
+                tv=rng.normal(size=shape) * 1e-5)
 
 
 def _rel(a, b):
@@ -41,9 +41,20 @@ def _rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_matvec_matches_pallas(dtype):
-    x = {k: a.astype(dtype) for k, a in _inputs(1).items()}
+# the shapes of the card tests (tests/test_torch_cuda.py), so that the plain
+# version the card holds the kernel against is itself held to the TPU
+# kernel there: 24x40, the 20 km and 5 km grids, and shapes that no tile of
+# the CUDA kernel divides
+MATVEC_CASES = [
+    pytest.param(dtype, shape, id=name if shape == (My, Mx)
+                 else f"{name}-{shape[0]}x{shape[1]}")
+    for shape in [(My, Mx), (141, 76), (561, 301), (9, 33), (33, 9), (2, 70)]
+    for dtype, name in [(np.float64, "float64"), (np.float32, "float32")]]
+
+
+@pytest.mark.parametrize("dtype,shape", MATVEC_CASES)
+def test_matvec_matches_pallas(dtype, shape):
+    x = {k: a.astype(dtype) for k, a in _inputs(1, shape).items()}
     ref = ssa_matvec_pallas(*(jnp.asarray(x[k]) for k in
                               ("u", "v", "nuHe", "nuHn", "beta")),
                             DX, DY, True)
