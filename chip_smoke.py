@@ -20,9 +20,13 @@ version on the card, relative max-norm error:
   row scale) and the factor launch alone (unit diagonal implicit), all
   asserted equal to the bit; beside them ``torch.linalg.solve`` on the dense
   batched matrices, the one PyTorch call that solves the same systems;
-  K3 ``sia_flux_thermo`` at 61x61x61 and 561x301x41, 1e-12 / 1e-4;
+  K3 ``sia_flux_thermo`` at 61x61x61, 141x76x41 and 561x301x41 (the
+  three routes of its kernel) with E level-major (as the energy step
+  leaves it, the path's layout) and contiguous, 1e-12 / 1e-4;
   K4 ``sia_flux`` at 61x61 and 601x601 on a dome with an ice-free margin,
   with and without a binding diffusivity cap, 1e-12 / 2e-5;
+  for K3 and K4 the max of D from the launch against the faces' max,
+  asserted equal to the bit;
   K5 ``ssa_matvec_halo``, ``ssa_matvec_halo_jvp`` and
   ``ssa_newton_matvec_halo``, per shard of a mesh of this one card, at
   142x76 and 561x301 on 2x2, 29x37 on 2x4, and 9x33 on 1x4 and 33x9 on
@@ -247,6 +251,22 @@ def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
           f"{nops:.0f} operations)")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": abs_err,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _check_max(name, label, result):
+    """The max_D of one SIA launch (De, Dn, qe, qn, max_D) against
+    torch.maximum(torch.max(De), torch.max(Dn)) of its faces: equal to the
+    bit."""
+    import torch
+    De, Dn, max_D = result[0], result[1], result[4]
+    ref = torch.maximum(torch.max(De), torch.max(Dn))
+    bits = torch.int32 if ref.dtype == torch.float32 else torch.int64
+    same = bool(max_D.view(bits) == ref.view(bits))
+    print(f"phase1: {name} {label}: max_D from the launch {float(max_D)!r}, "
+          f"the faces' max {float(ref)!r}, equal to the bit {same}")
+    if not same:
+        raise AssertionError(f"{name} {label}: max_D differs from the faces' "
+                             "max")
 
 
 def _dense_solve_ms(a, c, d, sub, x, label):
@@ -491,7 +511,10 @@ def phase1_kernels(dev):
 
     # K3 ---------------------------------------------------------------
     EC = EnthalpyConverter()
+    # 61^3 and 141x76x41 take the level kernel (narrow and wide blocks),
+    # 561x301x41 the column kernel
     for (My, Mx, Mz), Lz, km in (((61, 61, 61), 5000.0, 25),
+                                 ((141, 76, 41), 4000.0, 20),
                                  ((561, 301, 41), 4000.0, 5)):
         Y, X = np.meshgrid(np.linspace(-1, 1, My), np.linspace(-1, 1, Mx),
                            indexing="ij")
@@ -502,18 +525,26 @@ def phase1_kernels(dev):
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
             args = [torch.tensor(x, dtype=dtype, device=dev)
                     for x in (H, s, E, z)]
+            # E as the energy step leaves it: (Mz, My, Mx) in memory
+            lm = args[2].movedim(-1, 0).contiguous().movedim(0, -1)
             kw = dict(enhancement=1.0, dx=km * 1e3, dy=km * 1e3, EC=EC,
                       pb_law=PatersonBudd(EC=EC))
-            r = _kernel_case(
-                "sia_flux_thermo",
-                lambda *x: K3.sia_flux_thermo(*x, **kw)[:4],
-                lambda *x: tuple(K3.sia_flux_thermo_plain(*x, **kw)[i]
-                                 for i in (2, 3, 0, 1)),
-                args, tol, f"{My}x{Mx}x{Mz} {str(dtype)[6:]}",
-                2 * My * Mx * (OPS["sia_thermo_level"] * Mz
-                               + OPS["sia_thermo_face"]), reps=50)
-            if Mz == 61 and dtype == torch.float32:
-                out["sia_flux_thermo"] = r
+            for layout, E_ in (("level-major", lm), ("contiguous", args[2])):
+                a = [args[0], args[1], E_, args[3]]
+                label = f"{My}x{Mx}x{Mz} {str(dtype)[6:]} E {layout}"
+                r = _kernel_case(
+                    "sia_flux_thermo",
+                    lambda *x: K3.sia_flux_thermo(*x, **kw)[:4],
+                    lambda *x: tuple(K3.sia_flux_thermo_plain(*x, **kw)[i]
+                                     for i in (2, 3, 0, 1)),
+                    a, tol, label,
+                    2 * My * Mx * (OPS["sia_thermo_level"] * Mz
+                                   + OPS["sia_thermo_face"]), reps=50)
+                _check_max("sia_flux_thermo", label,
+                           K3.sia_flux_thermo(*a, **kw))
+                if Mz == 61 and dtype == torch.float32 \
+                        and layout == "level-major":
+                    out["sia_flux_thermo"] = r
 
     # K4: the Halfar dome at t0 (an ice-free margin around it) with surface
     # noise on the ice, at path C's spacing for each grid ----------------
@@ -528,13 +559,15 @@ def phase1_kernels(dev):
                 kw = dict(A=halfar.A_SOFTNESS, dx=grid.dx, dy=grid.dy,
                           d_cap=d_cap)
                 gam = K4.gamma(halfar.A_SOFTNESS)
+                label = f"{M}x{M} {str(dtype)[6:]} d_cap={d_cap}"
                 r = _kernel_case(
                     "sia_flux", lambda *x: K4.sia_flux(*x, **kw)[:4],
                     lambda *x: tuple(K4.sia_flux_plain(
                         *x, gamma=gam, dx=grid.dx, dy=grid.dy,
                         d_cap=d_cap)[i] for i in (2, 3, 0, 1)),
-                    args, tol, f"{M}x{M} {str(dtype)[6:]} d_cap={d_cap}",
-                    OPS["sia_flux"] * M * M, match="sia_iso_kernel")
+                    args, tol, label, OPS["sia_flux"] * M * M,
+                    match="sia_iso_kernel")
+                _check_max("sia_flux", label, K4.sia_flux(*args, **kw))
                 if M == HALFAR_MX and dtype == torch.float32 and d_cap is None:
                     out["sia_flux"] = r
     out.update(phase1_sharded(dev, rng))

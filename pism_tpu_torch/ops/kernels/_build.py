@@ -2,10 +2,10 @@
 
 Each source ``pism_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/<hash of source and flags>/lib<name>.so`` at the repository
-root (ignored by git), then loaded with ctypes. A library is built once per
-source hash; :func:`build` compiles several sources at once, one ``nvcc``
-process each, all started together.
+``build/kernels/<hash of source, headers and flags>/lib<name>.so`` at the
+repository root (ignored by git), then loaded with ctypes. A library is
+built once per source hash; :func:`build` compiles several sources at once,
+one ``nvcc`` process each, all started together.
 """
 
 from __future__ import annotations
@@ -35,7 +35,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers of csrc/ count in the key: a source may include them
+    src = b"".join(p.read_bytes() for p in (CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / key / f"lib{name}.so"
 
@@ -95,9 +97,11 @@ def launch(fn, name: str, device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
 
-def check(name: str, *tensors) -> None:
-    """Raise unless the tensors are contiguous and share one dtype (float32
-    or float64) and one device (cpu or cuda)."""
+def check(name: str, *tensors, strided=()) -> None:
+    """Raise unless the tensors (and those of ``strided``) share one dtype
+    (float32 or float64) and one device (cpu or cuda), and the tensors are
+    contiguous; a kernel reads those of ``strided`` through their
+    strides."""
     import torch
 
     t0 = tensors[0]
@@ -105,10 +109,42 @@ def check(name: str, *tensors) -> None:
         raise TypeError(f"{name} takes float32 or float64, not {t0.dtype}")
     if t0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {t0.device}")
-    for t in tensors:
+    for t in (*tensors, *strided):
         if t.device != t0.device:
             raise ValueError(f"{name} inputs lie on different devices")
         if t.dtype != t0.dtype:
             raise TypeError(f"{name} inputs have different dtypes")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
+
+
+_WORK = {}
+
+
+def workspace(name: str, device):
+    """The two int64 words of work that kernel ``name`` takes the max of a
+    grid with on ``device`` (``csrc/grid_max.cuh``): a ticket, 0, and the
+    max's key, the least int64, which every launch leaves as it found them.
+    Made once per device; launches that share them run in order on one
+    stream."""
+    import torch
+
+    key = (name, str(device))
+    w = _WORK.get(key)
+    if w is None:
+        w = _WORK[key] = torch.tensor([0, -2 ** 63], dtype=torch.int64,
+                                      device=device)
+    return w
+
+
+def max_out(name: str, like, with_max: bool):
+    """(max_D, (work, max_D) pointers) for a launch of kernel ``name`` that
+    takes the max of a grid into a new 0-dim tensor of ``like``'s dtype and
+    device, or (None, (None, None)) for a launch without it."""
+    import torch
+
+    if not with_max:
+        return None, (None, None)
+    max_D = torch.empty((), dtype=like.dtype, device=like.device)
+    return max_D, (workspace(name, like.device).data_ptr(), max_D.data_ptr())

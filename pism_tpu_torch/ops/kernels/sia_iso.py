@@ -6,9 +6,10 @@ Replaces the TPU kernel ``sia_flux_pallas_padded``
 wrapper ``sia_flux_pallas`` at ``:281``): Mahaffy face gradients,
 D = gamma H^(n+2) |grad s|^(n-1) capped at ``d_cap`` with
 gamma = 2 e A (rho g)^n / (n+2), and q = -D grad s on the east and north
-faces, in one pass. The kernel, ``pism_tpu_torch/csrc/sia_iso.cu``, runs one
-thread per cell for both of its faces and reads H and s unpadded with
-clamped indices; its notes say what bounds it.
+faces, in one pass, with max(D) in the same launch. The kernel,
+``pism_tpu_torch/csrc/sia_iso.cu``, runs a thread per few cells of one
+column for both faces of each and reads H and s unpadded with clamped
+indices; its notes say what bounds it.
 
 Routing: a CUDA tensor launches the kernel (built by ``_build.py``); a CPU
 tensor runs the plain torch version. There is no fallback from one to the
@@ -93,46 +94,67 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for prec in ("f32", "f64"):
         fn = getattr(lib, f"pism_sia_flux_{prec}")
-        fn.argtypes = [p] * 6 + [i, i, ctypes.POINTER(ctypes.c_double), p]
+        fn.argtypes = [p] * 8 + [i, i, ctypes.POINTER(ctypes.c_double), p]
         fn.restype = i
     lib.pism_sia_iso_nparams.restype = i
     return lib
 
 
-def sia_flux_faces(H, s, *, A, n=3.0, enhancement=1.0, rho=910.0, g=9.81,
-                   dx, dy, d_cap=None):
-    """(qe, qn, De, Dn) on (My, Mx). ``A`` is the softness as a Python
-    float (the caller rounds it to the field dtype first, as the JAX package
-    does). CUDA tensors launch the kernel; CPU tensors run
-    ``sia_flux_plain``."""
+def _check(H, s):
     _build.check("sia_flux", H, s)
     if H.dim() != 2 or s.shape != H.shape:
         raise ValueError(f"sia_flux takes H and s of one (My, Mx) shape, got "
                          f"{tuple(H.shape)} and {tuple(s.shape)}")
-    gam = gamma(A, n, enhancement, rho, g)
-    if H.device.type == "cpu":
-        return sia_flux_plain(H, s, gamma=gam, n=n, dx=dx, dy=dy, d_cap=d_cap)
+
+
+def _launch(H, s, with_max, *, A, n=3.0, enhancement=1.0, rho=910.0,
+            g=9.81, dx, dy, d_cap=None):
+    """One launch on CUDA tensors: (qe, qn, De, Dn, max_D), max_D None
+    unless ``with_max``."""
     global LAUNCHES
     lib = _library()
-    consts = _constants(gam, n, dx, dy, d_cap)
+    consts = _constants(gamma(A, n, enhancement, rho, g), n, dx, dy, d_cap)
     if len(consts) != lib.pism_sia_iso_nparams():
         raise RuntimeError("sia_iso.cu takes another set of constants")
+    My, Mx = H.shape
     qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
+    max_D, scratch = _build.max_out("sia_flux", H, with_max)
     fn = lib.pism_sia_flux_f32 if H.dtype == torch.float32 \
         else lib.pism_sia_flux_f64
-    My, Mx = H.shape
     _build.launch(fn, "sia_flux", H.device, H.data_ptr(), s.data_ptr(),
                   qe.data_ptr(), qn.data_ptr(), De.data_ptr(),
-                  Dn.data_ptr(), My, Mx,
+                  Dn.data_ptr(), *scratch, My, Mx,
                   (ctypes.c_double * len(consts))(*consts))
     LAUNCHES += 1
-    return qe, qn, De, Dn
+    return qe, qn, De, Dn, max_D
+
+
+def _plain(H, s, *, A, n=3.0, enhancement=1.0, rho=910.0, g=9.81, dx, dy,
+           d_cap=None):
+    return sia_flux_plain(H, s, gamma=gamma(A, n, enhancement, rho, g), n=n,
+                          dx=dx, dy=dy, d_cap=d_cap)
+
+
+def sia_flux_faces(H, s, **kw):
+    """(qe, qn, De, Dn) on (My, Mx) from H and s (My, Mx). Keywords: ``A``,
+    the softness as a Python float (the caller rounds it to the field dtype
+    first, as the JAX package does), ``n``, ``enhancement``, ``rho``,
+    ``g``, ``dx``, ``dy``, ``d_cap``. CUDA tensors launch the kernel
+    (without its max of D); CPU tensors run ``sia_flux_plain``."""
+    _check(H, s)
+    if H.device.type == "cpu":
+        return _plain(H, s, **kw)
+    return _launch(H, s, False, **kw)[:4]
 
 
 def sia_flux(H, s, **kw):
-    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_pallas``, from
-    :func:`sia_flux_faces` (same arguments). ``max_D`` is the larger of the
-    two faces' maxima, taken outside the kernel as the JAX wrapper takes
-    it."""
-    qe, qn, De, Dn = sia_flux_faces(H, s, **kw)
-    return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))
+    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_pallas`` (same
+    arguments as :func:`sia_flux_faces`). On CUDA tensors ``max_D`` comes
+    from the kernel's own launch; on CPU tensors it is the larger of the two
+    faces' maxima, as the JAX wrapper takes it."""
+    _check(H, s)
+    if H.device.type == "cpu":
+        qe, qn, De, Dn = _plain(H, s, **kw)
+        return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))
+    qe, qn, De, Dn, max_D = _launch(H, s, True, **kw)
+    return De, Dn, qe, qn, max_D

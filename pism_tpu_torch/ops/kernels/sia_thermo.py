@@ -109,51 +109,68 @@ def sia_flux_thermo_plain(H, s, E, z, *, n=3.0, enhancement=1.0, rho=910.0,
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _build.library("sia_thermo")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for prec in ("f32", "f64"):
         fn = getattr(lib, f"pism_sia_flux_thermo_{prec}")
-        fn.argtypes = [p] * 8 + [i, i, i, ctypes.POINTER(ctypes.c_double), p]
+        fn.argtypes = [p] * 10 + [i, i, i, ll, ll, ll,
+                                  ctypes.POINTER(ctypes.c_double), p]
         fn.restype = i
     lib.pism_sia_thermo_nparams.restype = i
     return lib
 
 
-def sia_flux_thermo_faces(H, s, E, z, *, n=3.0, enhancement=1.0, rho=910.0,
-                          g=9.81, dx, dy, EC, pb_law, d_cap=None):
-    """(qe, qn, De, Dn) on (My, Mx). CUDA tensors launch the kernel; CPU
-    tensors run ``sia_flux_thermo_plain``."""
-    _build.check("sia_flux_thermo", H, s, E, z)
-    My, Mx = H.shape
-    if s.shape != H.shape or E.dim() != 3 or E.shape[:2] != H.shape \
-            or z.shape != (E.shape[2],):
+def _check(H, s, E, z):
+    _build.check("sia_flux_thermo", H, s, z, strided=(E,))
+    if H.dim() != 2 or s.shape != H.shape or E.dim() != 3 \
+            or E.shape[:2] != H.shape or z.shape != (E.shape[2],):
         raise ValueError(
             f"sia_flux_thermo takes H, s (My, Mx), E (My, Mx, Mz) and z (Mz,), "
             f"got {tuple(H.shape)}, {tuple(s.shape)}, {tuple(E.shape)}, "
             f"{tuple(z.shape)}")
-    if H.device.type == "cpu":
-        return sia_flux_thermo_plain(
-            H, s, E, z, n=n, enhancement=enhancement, rho=rho, g=g, dx=dx,
-            dy=dy, EC=EC, pb_law=pb_law, d_cap=d_cap)
+
+
+def _launch(H, s, E, z, with_max, *, n=3.0, enhancement=1.0, rho=910.0,
+            g=9.81, dx, dy, EC, pb_law, d_cap=None):
+    """One launch on CUDA tensors: (qe, qn, De, Dn, max_D), max_D None
+    unless ``with_max``."""
     global LAUNCHES
     lib = _library()
     consts = _constants(n, enhancement, rho, g, dx, dy, EC, pb_law, d_cap)
     if len(consts) != lib.pism_sia_thermo_nparams():
         raise RuntimeError("sia_thermo.cu takes another set of constants")
+    My, Mx = H.shape
     qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
+    max_D, scratch = _build.max_out("sia_flux_thermo", H, with_max)
     fn = lib.pism_sia_flux_thermo_f32 if H.dtype == torch.float32 \
         else lib.pism_sia_flux_thermo_f64
     _build.launch(fn, "sia_flux_thermo", H.device, H.data_ptr(),
                   s.data_ptr(), E.data_ptr(), z.data_ptr(), qe.data_ptr(),
-                  qn.data_ptr(), De.data_ptr(), Dn.data_ptr(), My, Mx,
-                  E.shape[2], (ctypes.c_double * len(consts))(*consts))
+                  qn.data_ptr(), De.data_ptr(), Dn.data_ptr(), *scratch, My,
+                  Mx, E.shape[2], *E.stride(),
+                  (ctypes.c_double * len(consts))(*consts))
     LAUNCHES += 1
-    return qe, qn, De, Dn
+    return qe, qn, De, Dn, max_D
+
+
+def sia_flux_thermo_faces(H, s, E, z, **kw):
+    """(qe, qn, De, Dn) on (My, Mx) from H, s (My, Mx, contiguous), E
+    (My, Mx, Mz, any strides) and z (Mz,); keywords of
+    :func:`sia_flux_thermo_plain`. CUDA tensors launch the kernel (without
+    its max of D); CPU tensors run ``sia_flux_thermo_plain``."""
+    _check(H, s, E, z)
+    if H.device.type == "cpu":
+        return sia_flux_thermo_plain(H, s, E, z, **kw)
+    return _launch(H, s, E, z, False, **kw)[:4]
 
 
 def sia_flux_thermo(H, s, E, z, **kw):
-    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_thermo_pallas``,
-    from :func:`sia_flux_thermo_faces` (same arguments). ``max_D`` is the
-    larger of the two faces' maxima, taken outside the kernel as the JAX
-    wrapper takes it."""
-    qe, qn, De, Dn = sia_flux_thermo_faces(H, s, E, z, **kw)
-    return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))
+    """(De, Dn, qe, qn, max_D), the return of ``sia_flux_thermo_pallas``
+    (same arguments as :func:`sia_flux_thermo_faces`). On CUDA tensors
+    ``max_D`` comes from the kernel's own launch; on CPU tensors it is the
+    larger of the two faces' maxima, as the JAX wrapper takes it."""
+    _check(H, s, E, z)
+    if H.device.type == "cpu":
+        qe, qn, De, Dn = sia_flux_thermo_plain(H, s, E, z, **kw)
+        return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))
+    qe, qn, De, Dn, max_D = _launch(H, s, E, z, True, **kw)
+    return De, Dn, qe, qn, max_D

@@ -191,9 +191,9 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
             return SIAFlux(*sharded.sia_flux_thermo_sharded(
                 H, s, enthalpy, z, mesh, **kw))
         # the energy solve leaves E level-major in memory; the kernel reads
-        # it (My, Mx, Mz)-contiguous
+        # it in place through its strides
         return SIAFlux(*K3.sia_flux_thermo(
-            H.contiguous(), s.contiguous(), enthalpy.contiguous(), z, **kw))
+            H.contiguous(), s.contiguous(), enthalpy, z, **kw))
 
     grad = surface_gradient(geometry, grid, sh, gradient_method)
     H_e, H_n = st.avg_to_east(H, sh), st.avg_to_north(H, sh)

@@ -2,10 +2,11 @@
 Newton matvec, PCR line solves, fused thermomechanical and isothermal SIA)
 against their plain torch versions, the 100 km chain on the card against
 the CPU, and EISMINT II A and Halfar test B through the SIA kernels against
-the CPU; K5 (the matvec per shard of a mesh of the card) against its plain
-version and against K1 on the whole field, the Newton matvec per shard
-against the unsharded one, and K3/K4 per shard against the unsharded
-kernels, equal to the bit.
+the CPU, their max of D from the launch against the faces' max; K5 (the
+matvec per shard of a mesh of the card) against its plain version and
+against K1 on the whole field, the Newton matvec per shard against the
+unsharded one, and K3/K4 per shard against the unsharded kernels, equal to
+the bit.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -304,7 +305,8 @@ def _sia_inputs(shape, dtype, device, seed=5):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("law", [PatersonBudd, GPBLD])
-@pytest.mark.parametrize("shape", [(61, 61, 61), (30, 17, 5)])
+@pytest.mark.parametrize("shape", [(61, 61, 61), (30, 17, 5), (33, 33, 61),
+                                   (9, 33, 13), (33, 9, 7)])
 def test_sia_thermo_kernel_matches_plain(cuda, dtype, law, shape):
     tol = {torch.float64: 1e-12, torch.float32: 1e-4}[dtype]
     H, s, E, z = _sia_inputs(shape, dtype, cuda)
@@ -318,6 +320,96 @@ def test_sia_thermo_kernel_matches_plain(cuda, dtype, law, shape):
         ref = K3.sia_flux_thermo_plain(H, s, E, z, d_cap=d_cap, **kw)
         for g, r in zip(got[:4], (ref[2], ref[3], ref[0], ref[1])):
             assert _rel(g, r) <= tol
+
+
+def _same_bits(a, b):
+    """Equal in every bit (a NaN equal to a NaN)."""
+    i = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return bool(((a.view(i) == b.view(i))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _level_major(E):
+    """E (My, Mx, Mz) as a view of a contiguous (Mz, My, Mx) array, the
+    layout the energy step leaves."""
+    return E.movedim(-1, 0).contiguous().movedim(0, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(61, 61, 61), (30, 17, 5), (33, 33, 61)])
+def test_sia_thermo_layouts_equal(cuda, dtype, shape):
+    """K3 reads E through its strides: level-major and contiguous E give
+    the same bits, each in one launch."""
+    H, s, E, z = _sia_inputs(shape, dtype, cuda)
+    Elm = _level_major(E)
+    assert not Elm.is_contiguous()
+    kw = dict(enhancement=1.5, dx=25e3, dy=25e3, EC=EnthalpyConverter(),
+              pb_law=GPBLD(EC=EnthalpyConverter()))
+    n0 = K3.LAUNCHES
+    a = K3.sia_flux_thermo(H, s, E, z, **kw)
+    b = K3.sia_flux_thermo(H, s, Elm, z, **kw)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES == n0 + 2
+    for g, r in zip(a, b):
+        assert _same_bits(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Mz", [(torch.float64, 1), (torch.float32, 1),
+                                      (torch.float64, 2), (torch.float32, 2),
+                                      (torch.float64, 5), (torch.float32, 5),
+                                      (torch.float64, 61),
+                                      (torch.float32, 61),
+                                      (torch.float64, 401)])
+def test_sia_thermo_any_Mz(cuda, dtype, Mz):
+    """K3 against its plain version from one level (K = 0) to more levels
+    than shared memory holds at once, level-major E."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-4}[dtype]
+    H, s, E, z = _sia_inputs((17, 30, Mz), dtype, cuda)
+    E = _level_major(E)
+    kw = dict(enhancement=1.5, dx=25e3, dy=25e3, EC=EnthalpyConverter(),
+              pb_law=PatersonBudd(EC=EnthalpyConverter()))
+    got = K3.sia_flux_thermo(H, s, E, z, **kw)
+    ref = K3.sia_flux_thermo_plain(H, s, E, z, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got[:4], (ref[2], ref[3], ref[0], ref[1])):
+        assert bool(torch.isfinite(g).all())
+        if Mz == 1:
+            assert float(g.abs().max()) == 0.0 == float(r.abs().max())
+        else:
+            assert _rel(g, r) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("nan", [False, True])
+def test_max_D_from_the_launch(cuda, dtype, kernel, nan):
+    """max_D of the kernel's own launch is torch.maximum(torch.max(De),
+    torch.max(Dn)) to the bit, NaN included; its two words of work are
+    back as they were."""
+    if kernel == "K3":
+        H, s, E, z = _sia_inputs((61, 61, 61), dtype, cuda)
+        if nan:
+            H[20, 30] = float("nan")
+        kw = dict(enhancement=1.5, dx=25e3, dy=25e3, EC=EnthalpyConverter(),
+                  pb_law=GPBLD(EC=EnthalpyConverter()))
+        De, Dn, _, _, max_D = K3.sia_flux_thermo(H, s, _level_major(E), z,
+                                                 **kw)
+    else:
+        H, s = _dome((601, 601), dtype, cuda)
+        if nan:
+            H[200, 300] = float("nan")
+        De, Dn, _, _, max_D = K4.sia_flux(H, s, A=4e-25, enhancement=1.5,
+                                          dx=3e3, dy=3e3)
+    torch.cuda.synchronize()
+    assert max_D.shape == () and max_D.dtype == dtype
+    assert bool(torch.isnan(max_D)) == nan
+    assert _same_bits(max_D, torch.maximum(torch.max(De), torch.max(Dn)))
+    from pism_tpu_torch.ops.kernels import _build
+    name = "sia_flux_thermo" if kernel == "K3" else "sia_flux"
+    assert _build.workspace(name, H.device).tolist() == [0, -2 ** 63]
 
 
 @pytest.mark.cuda
@@ -356,7 +448,8 @@ def _dome(shape, dtype, device, seed=6):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(61, 61), (601, 601), (17, 30)])
+@pytest.mark.parametrize("shape", [(61, 61), (601, 601), (17, 30), (303, 303),
+                                   (9, 33), (33, 9), (5, 70)])
 def test_sia_iso_kernel_matches_plain(cuda, dtype, shape):
     """K4 against its plain version, with and without a diffusivity cap
     that binds; one launch per call."""

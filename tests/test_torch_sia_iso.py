@@ -2,8 +2,9 @@
 against the TPU kernel ``sia_flux_pallas`` run in interpret mode, on the
 setup of tests/test_pallas.py (the Halfar test-B dome at t0 on 61x61 over
 the 1800 km square), with and without a diffusivity cap; the isothermal
-branch of ``ops.sia.diffusivity`` against the JAX package's; the routing
-of K4 under ``stress_balance.sia.pallas``; and the ``IsothermalGlen`` law.
+branch of ``ops.sia.diffusivity`` against the JAX package's; the
+wrapper's max of D; the routing of K4 under ``stress_balance.sia.pallas``;
+and the ``IsothermalGlen`` law.
 
 Tolerances: 1e-12 of the largest value in float64 (rounding only); 2e-5 in
 float32, the reference's own tolerance for this kernel
@@ -111,6 +112,29 @@ def test_wrapper_checks_shapes_and_types():
         K4.sia_flux(H.T, s, **kw)
     with pytest.raises(TypeError):
         K4.sia_flux(H.to(torch.int64), s.to(torch.int64), **kw)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nan", [False, True])
+def test_max_D_is_the_faces_max(nan, dtype):
+    """``max_D`` is torch.maximum(torch.max(De), torch.max(Dn)): a NaN
+    thickness makes it NaN; the per-shard entry point returns the faces
+    only."""
+    grid, H, s = _inputs(dtype)
+    if nan:
+        H[20, 30] = np.nan
+    kw = dict(A=halfar.A_SOFTNESS, dx=grid.dx, dy=grid.dy)
+    H, s = torch.from_numpy(H), torch.from_numpy(s)
+    De, Dn, qe, qn, max_D = K4.sia_flux(H, s, **kw)
+    assert max_D.shape == () and max_D.dtype == De.dtype
+    assert bool(torch.isnan(max_D)) == nan
+    if not nan:
+        assert float(max_D) > 0.0
+        assert torch.equal(max_D, torch.maximum(De.max(), Dn.max()))
+    faces = K4.sia_flux_faces(H, s, **kw)
+    assert len(faces) == 4
+    for g, r in zip(faces, (qe, qn, De, Dn)):
+        assert torch.equal(g.nan_to_num(), r.nan_to_num())
 
 
 def _laws(A=halfar.A_SOFTNESS):
