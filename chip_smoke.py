@@ -70,6 +70,22 @@ launch counters set to 0 just before it and read just after:
     (b); (d) Halfar test C and the runner's letters A, D, H and L at 61x61
     float64 on the card, under the JAX package's test thresholds.
 
+  phase 7: the command line (``pism_tpu_torch.cli.main``, every file
+    netcdf3): (a) EISMINT II A 61x61x61 float32 on K3 for 1000 a with
+    scalar and spatial series, a snapshot and ``-o_size medium``, equal to
+    the bit (steps, dt-limit hits, H, E) to ``setups.eismint2_model`` run
+    by ``IceModel.run`` with the same output times, its file read back to
+    the bit, then ``python -m pism_tpu_torch -eisII B -i`` for 200 a;
+    (b) Halfar B 61x61 float64 for 1000 a on the card against
+    ``-platform cpu`` (equal steps, H within 1e-10 of max) and the exact
+    solution, then K4's route at 601x601 float32 for 20 a, equal to the bit
+    to ``setups.halfar_model`` run by ``IceModel.run``; (c) phase 2b's end
+    state saved and continued by ``-i`` for 0.5 a, equal to the bit (H, E,
+    u, steps, Newton sweeps, Krylov iterations) to an in-memory run with
+    zero SMB. Each run prints its wall time, ms per step, launches per
+    step, output seconds and file sizes; (a) and (b) also the device ops
+    per step through ``step_once`` and through ``IceModel.run``.
+
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
 JSON kernel record; the last line is the device record.
@@ -1454,6 +1470,283 @@ def phase6c_halfar(dev, mesh):
     _compare_meshed("phase6c", (sa, sta), (sb, stb), 1e-6)
 
 
+# -- phase 7: the command line --------------------------------------------
+
+def _recording_run(records):
+    """Context: ``IceModel.run`` appends (model, output, state, stats, run
+    wall seconds) of every call to ``records``."""
+    import torch
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    def wrap(label, orig):
+        def run(self, state, run_time, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, stats = orig(self, state, run_time, *a, **k)
+            torch.cuda.synchronize()
+            records.append((self, k.get("output"), st, stats,
+                            time.perf_counter() - t0))
+            return st, stats
+        return run
+
+    return _patched([(IceModel, "run", "run")], wrap)
+
+
+def _cli(label, argv, files=()):
+    """``pism_tpu_torch.cli.main(argv)`` with the launch counters set to 0
+    just before and read just after; prints its wall time, ms per step,
+    launches per step, the output's seconds and the files' sizes. Returns
+    (model, state, stats, counts)."""
+    import torch
+    from pism_tpu_torch import cli
+
+    records = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _recording_run(records):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0 or len(records) != 1:
+        raise AssertionError(f"{label}: main returned {rc}, {len(records)} runs")
+    model, out, state, stats, run_wall = records[0]
+    n = stats.nsteps
+    per = {k: round(v / n, 2) for k, v in counts.items() if v}
+    sizes = {os.path.basename(f): os.path.getsize(f) for f in files}
+    print(f"{label}: {' '.join(argv[:4])} ...: steps {n}, dt-limit hits "
+          f"{stats.limit_hits_dict()}, main() wall {wall:.3f} s, run wall "
+          f"{run_wall:.3f} s, {1e3 * run_wall / n:.2f} ms/step, launches per "
+          f"step {per}; output: {out.main_seconds:.3f} s on the main thread "
+          f"inside the run, {out.writer_seconds:.3f} s on the writer thread, "
+          f"{wall - run_wall:.3f} s of main() outside the run (set-up, "
+          f"close, final write); files {sizes}")
+    return model, state, stats, counts
+
+
+def _equal(label, pairs):
+    import torch
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{label}: not equal to the bit: {bad}")
+
+
+def _records(path):
+    from pism_tpu_torch.io.nc4 import File
+    with File(path, "r") as f:
+        return len(f.read("time"))
+
+
+def profile_run(model, state, t, years, label):
+    """The same window through ``step_once`` and through ``IceModel.run``
+    (no output) under the profiler's CUDA activity: device ops per step of
+    each, and what run adds (its segment-boundary checks)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pism_tpu_torch.util.timecal import Time
+
+    ops = {}
+    for name in ("step_once", "run"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if name == "run":
+                _, stats = model.run(state, Time(t, t + years * SPY))
+            else:
+                _, _, stats = model.step_once(state, t, years * SPY)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ops[name] = (len(dev), stats.nsteps)
+    (a, n), (b, m) = ops["step_once"], ops["run"]
+    print(f"{label}: {years} a profiled: step_once {n} steps, {a} device ops "
+          f"({a / n:.1f} per step); IceModel.run without output {m} steps, "
+          f"{b} device ops ({b / m:.1f} per step); run adds {b - a} ops "
+          f"over the window (prepare_state, the segment-boundary checks)")
+
+
+def phase7a_eismint(dev, d):
+    """EISMINT II A at 61x61x61 float32 on K3 through the CLI with all three
+    series and -o_size medium, against setups.eismint2_model run by
+    IceModel.run with the same output times; then -eisII B -i."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.cli import parse_times
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.model.output import OutputManager
+    from pism_tpu_torch.util.timecal import Time
+
+    f = {k: os.path.join(d, k + ".nc") for k in ("a", "ts", "ex", "snap", "b")}
+    argv = ["-eisII", "A", "-Mx", "61", "-Mz", "61", "-y", "1000",
+            "-config", "runtime.float_dtype=float32",
+            "-config", "stress_balance.sia.bed_smoother.range=0",
+            "-ts_file", f["ts"], "-ts_times", "0:100:1000",
+            "-extra_file", f["ex"], "-extra_times", "0:500:1000",
+            "-save_times", "500", "-save_file", f["snap"],
+            "-o_size", "medium", "-o_format", "netcdf3", "-o", f["a"],
+            "-verbose", "1"]
+    model, state, stats, counts = _cli(
+        "phase7a", argv, [f["a"], f["ts"], f["ex"], f["snap"]])
+    _check_launches("phase7a", counts, ("sia_flux_thermo",),
+                    tuple(k for k in KERNELS if k != "sia_flux_thermo"))
+
+    ref, s0, grid = setups.eismint2_model("float32", device=dev)
+    out = OutputManager(
+        grid=grid, config=ref.config, format="netcdf3",
+        ts_times=parse_times("0:100:1000", SPY), ts_file=f["ts"] + ".ref",
+        extra_times=parse_times("0:500:1000", SPY), extra_file=f["ex"] + ".ref",
+        snapshot_times=[500 * SPY], snapshot_file=f["snap"] + ".ref")
+    t0 = time.perf_counter()
+    rs, rst = ref.run(s0, Time(0.0, 1000 * SPY), output=out)
+    out.close()
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    loaded, t_end = ckpt.load_state(f["a"], device=dev)
+    n_ts, n_ex = _records(f["ts"]), _records(f["ex"])
+    print(f"phase7a: against setups.eismint2_model + IceModel.run "
+          f"({ref_wall:.3f} s): steps {stats.nsteps} / {rst.nsteps}, "
+          f"dt-limit hits {stats.limit_hits_dict()} / "
+          f"{rst.limit_hits_dict()}; ts records {n_ts} (11), ex records "
+          f"{n_ex} (3); state dtype {str(state.geometry.ice_thickness.dtype)[6:]}")
+    if stats.nsteps != rst.nsteps \
+            or stats.limit_hits_dict() != rst.limit_hits_dict() \
+            or (n_ts, n_ex) != (11, 3) or abs(t_end - 1000 * SPY) > 1e-3:
+        raise AssertionError("phase7a: the CLI run and the reference differ")
+    _equal("phase7a run", [
+        ("thk", state.geometry.ice_thickness, rs.geometry.ice_thickness),
+        ("enthalpy", state.enthalpy, rs.enthalpy)])
+    _equal("phase7a load_state", [
+        ("thk", loaded.geometry.ice_thickness, state.geometry.ice_thickness),
+        ("enthalpy", loaded.enthalpy, state.enthalpy)])
+    profile_run(model, state, t_end, 100.0, "phase7a")
+
+    # the continuation of experiment B from A's file, as a module run
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pism_tpu_torch", "-eisII", "B", "-i", f["a"],
+         "-y", "200", "-config", "runtime.float_dtype=float32",
+         "-config", "stress_balance.sia.bed_smoother.range=0",
+         "-o", f["b"], "-o_format", "netcdf3", "-verbose", "1"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"phase7a: python -m pism_tpu_torch -eisII B "
+                             f"failed: {out.stderr[-2000:]}")
+    sb, tb = ckpt.load_state(f["b"], device=dev)
+    H = sb.geometry.ice_thickness
+    if not bool(torch.isfinite(H).all()) or abs(tb - 1200 * SPY) > 1e-3:
+        raise AssertionError(f"phase7a: -eisII B reached t = {tb}")
+    print(f"phase7a: python -m pism_tpu_torch -eisII B -i a.nc -y 200: "
+          f"{time.perf_counter() - t0:.1f} s (a new process), max H "
+          f"{float(H.max()):.1f} m at {tb / SPY:.1f} a")
+
+
+def phase7b_halfar(dev, d):
+    """Halfar B through the CLI: 61x61 float64 on the card against
+    -platform cpu and the exact solution; then K4's route at 601x601
+    float32 against setups.halfar_model run by IceModel.run."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.util.timecal import Time
+    from pism_tpu_torch.verification import halfar
+
+    runs = {}
+    for plat in ("cuda", "cpu"):
+        f = os.path.join(d, f"b61_{plat}.nc")
+        argv = ["-test", "B", "-Mx", "61", "-y", "1000", "-o", f,
+                "-o_format", "netcdf3", "-verbose", "1"]
+        if plat == "cpu":
+            argv += ["-platform", "cpu"]
+        runs[plat] = _cli(f"phase7b {plat}", argv, [f])
+    (_, sg, stg, _), (_, sc, stc, _) = runs["cuda"], runs["cpu"]
+    Hg = sg.geometry.ice_thickness.cpu()
+    Hc = sc.geometry.ice_thickness
+    rel = float((Hg - Hc).abs().max() / Hc.abs().max())
+    sol = halfar.test_B()
+    grid = runs["cuda"][0].grid
+    t_end = sol.t0 + 1000 * SPY
+    errs = halfar.error_norms(Hg.numpy(), sol.thickness(t_end, grid.radius))
+    print(f"phase7b: 61x61 float64 card / cpu: steps {stg.nsteps} / "
+          f"{stc.nsteps}, dt-limit hits {stg.limit_hits_dict()} / "
+          f"{stc.limit_hits_dict()}, H max diff {rel:.3e} of max H (tol "
+          f"1e-10); errors {errs}")
+    if stg.nsteps != stc.nsteps \
+            or stg.limit_hits_dict() != stc.limit_hits_dict() or not rel <= 1e-10:
+        raise AssertionError("phase7b: the card and the cpu disagree")
+    _halfar_errors("phase7b", errs, {"dome_H": 5.0, "avg_H": 15.0,
+                                     "rel_volume": 0.01})
+
+    f = os.path.join(d, "b601.nc")
+    argv = ["-test", "B", "-Mx", "601", "-y", "20",
+            "-config", "stress_balance.sia.surface_gradient_method=mahaffy",
+            "-config", "stress_balance.sia.bed_smoother.range=0",
+            "-config", "runtime.float_dtype=float32",
+            "-o", f, "-o_format", "netcdf3", "-verbose", "1"]
+    model, state, stats, counts = _cli("phase7b K4", argv, [f])
+    _check_launches("phase7b K4", counts, ("sia_flux",),
+                    tuple(k for k in KERNELS if k != "sia_flux"))
+    ref, s0, _, sol = setups.halfar_model("B", Mx=601, dtype="float32",
+                                          device=dev)
+    rs, rst = ref.run(s0, Time(sol.t0, sol.t0 + 20 * SPY))
+    print(f"phase7b K4: against setups.halfar_model + IceModel.run: steps "
+          f"{stats.nsteps} / {rst.nsteps}, K4 launches {counts['sia_flux']} "
+          f"(once per step)")
+    if stats.nsteps != rst.nsteps or counts["sia_flux"] != stats.nsteps:
+        raise AssertionError("phase7b K4: the CLI run and the reference differ")
+    _equal("phase7b K4", [("thk", state.geometry.ice_thickness,
+                           rs.geometry.ice_thickness)])
+    profile_run(model, state, sol.t0 + 20 * SPY, 0.5, "phase7b K4")
+
+
+def phase7c_restart(dev, d, model, state, t):
+    """Phase 2b's end state (20 km, path A) saved and continued for 0.5 a
+    by ``-i``, against an in-memory IceModel with zero SMB from the same
+    state."""
+    from pism_tpu_torch.coupler.surface import Uniform
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.util.timecal import Time
+
+    f, g = os.path.join(d, "p2b.nc"), os.path.join(d, "p2b_cont.nc")
+    ckpt.save_state(f, state, model.grid, t, config=model.config,
+                    format="netcdf3")
+    argv = ["-i", f, "-y", "0.5", "-o", g, "-o_format", "netcdf3",
+            "-verbose", "1"]
+    _, sc, stc, counts = _cli("phase7c", argv, [f, g])
+    _check_launches("phase7c", counts,
+                    ("ssa_matvec", "ssa_newton_matvec", "pcr_lines",
+                     "pcr_lines_sub", "pcr_factor_lines",
+                     "pcr_factor_lines_sub"),
+                    ("ssa_matvec_jvp", "ssa_matvec_halo", "ssa_matvec_halo_jvp",
+                     "ssa_newton_matvec_halo", "sia_flux_thermo", "sia_flux"))
+    ref = IceModel(grid=model.grid, config=model.config,
+                   surface=Uniform(smb=0.0), device=dev)
+    rs, rst = ref.run(state, Time(t, t + 0.5 * SPY))
+    print(f"phase7c: -i of the 20 km path A state at {t / SPY:.1f} a, 0.5 a "
+          f"against IceModel(surface=Uniform(0)).run: steps {stc.nsteps} / "
+          f"{rst.nsteps}, Newton sweeps {stc.ssa_newton_iters} / "
+          f"{rst.ssa_newton_iters}, Krylov its {stc.ssa_krylov_iters} / "
+          f"{rst.ssa_krylov_iters}")
+    if (stc.nsteps, stc.ssa_newton_iters, stc.ssa_krylov_iters) != \
+            (rst.nsteps, rst.ssa_newton_iters, rst.ssa_krylov_iters):
+        raise AssertionError("phase7c: the restart and the reference differ")
+    _equal("phase7c", [
+        ("thk", sc.geometry.ice_thickness, rs.geometry.ice_thickness),
+        ("enthalpy", sc.enthalpy, rs.enthalpy), ("u_ssa", sc.u_ssa, rs.u_ssa)])
+
+
+def phase7_cli(dev, path_a):
+    """The command line on the card (every file netcdf3, in a temporary
+    directory): 7a EISMINT II A on K3, 7b Halfar B (K4), 7c the 20 km
+    path A restart (K1, the Newton matvec, K2, K2b)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        phase7a_eismint(dev, d)
+        phase7b_halfar(dev, d)
+        phase7c_restart(dev, d, *path_a)
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -1482,6 +1775,7 @@ def main():
                                    pcr_names + off)
     model, state, t, (a2, a8), counts_a = run_hybrid(
         dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names, off)
+    path_a = (model, state, t)
     (s2, _, v2), (sa, _, va) = p2, a2
     rel = abs(va - v2) / v2
     print(f"phase2b: after 2 a against phase 2: steps {sa.nsteps} / "
@@ -1511,6 +1805,9 @@ def main():
     phase6b_eismint(dev, mesh, eismint_7ka, k3_run)
     phase6c_halfar(dev, mesh)
     print(f"phase6: {time.time() - t6:.1f} s")
+    t7 = time.time()
+    phase7_cli(dev, path_a)
+    print(f"phase7: {time.time() - t7:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

@@ -1,10 +1,13 @@
 """pism_tpu_torch: the PyTorch and CUDA port of pism_tpu.
 
-It runs the synthetic-Greenland hybrid chain (``setups.py``) on one
-device, with the SSA operator matvec as a hand-written CUDA kernel for
-Hopper (``csrc/ssa_matvec.cu``). It imports torch and numpy only, never
-jax or pism_tpu; config names, state-field names and the step order are
-those of ``pism_tpu`` so any state can be run through both packages.
+It runs the synthetic-Greenland hybrid chain, EISMINT II and the
+verification tests (``setups.py``, ``verification/``) on one device, with
+hand-written CUDA kernels for Hopper (``csrc/``), from Python
+(``IceModel.run``) or the command line (``python -m pism_tpu_torch``). It
+imports torch, numpy and scipy (h5py only to open a NetCDF-4 file), never
+jax or pism_tpu; config names, state-field names, file variables and the
+step order are those of ``pism_tpu``, so any state can be run through both
+packages.
 """
 
 from .config import Config

@@ -28,6 +28,10 @@ class MassTransportResult(NamedTuple):
     flux_divergence: torch.Tensor       # m/s
     nonneg_flux: torch.Tensor           # ice created by the H>=0 clip (m^3/s)
     Href: Optional[torch.Tensor] = None  # part-grid area-specific volume [m]
+    # per-cell rates [m/s] of the flow and of the H >= 0 clip (with
+    # ``fields``, for the per-cell budget)
+    flow_field: Optional[torch.Tensor] = None
+    nonneg_field: Optional[torch.Tensor] = None
 
 
 def advective_flux(u_face_e, v_face_n, H, sh):
@@ -61,10 +65,12 @@ def limit_flux(Qe, Qn, H, dt, dx: float, dy: float, sh) -> FluxLimited:
 
 def flow_step(geometry: S.Geometry, dt: float, Qe, Qn, grid, sh,
               part_grid: bool = False,
-              part_grid_iterations: int = 2) -> MassTransportResult:
+              part_grid_iterations: int = 2,
+              fields: bool = False) -> MassTransportResult:
     """Apply -div(Q) dt with flux limiting; with ``part_grid`` (Albrecht et
     al. 2011) inflow into ice-free ocean cells next to the front fills the
-    area-specific volume Href until the cell is promoted to full ice."""
+    area-specific volume Href until the cell is promoted to full ice.
+    ``fields`` adds the per-cell flow and clip rates to the result."""
     H = geometry.ice_thickness
     dx, dy = grid.dx, grid.dy
     Qe, Qn = limit_flux(Qe, Qn, H, dt, dx, dy, sh)
@@ -121,20 +127,31 @@ def flow_step(geometry: S.Geometry, dt: float, Qe, Qn, grid, sh,
         H_new = H + dH
 
     clipped = torch.clamp(H_new, min=0.0)
-    nonneg = torch.sum((clipped - H_new) / max(dt, 1e-30)) * dx * dy
-    return MassTransportResult(thickness=clipped, flux_divergence=div,
-                               nonneg_flux=nonneg, Href=Href)
+    nonneg_field = (clipped - H_new) / max(dt, 1e-30)
+    nonneg = torch.sum(nonneg_field) * dx * dy
+    if not fields:
+        return MassTransportResult(thickness=clipped, flux_divergence=div,
+                                   nonneg_flux=nonneg, Href=Href)
+    return MassTransportResult(
+        thickness=clipped, flux_divergence=div, nonneg_flux=nonneg, Href=Href,
+        flow_field=(H_new - H) / max(dt, 1e-30), nonneg_field=nonneg_field)
 
 
-def source_term_step(H, dt: float, smb, bmb, dx: float, dy: float):
+def source_term_step(H, dt: float, smb, bmb, dx: float, dy: float,
+                     fields: bool = False):
     """Apply surface mass balance then basal melt with H >= 0 clipping;
-    returns (H, applied smb volume rate, applied bmb volume rate)."""
+    returns (H, applied smb volume rate, applied bmb volume rate), and with
+    ``fields`` also the per-cell applied rates [m/s, dH convention]."""
     dt_safe = max(dt, 1e-30)
     H1 = torch.clamp(H + dt * smb, min=0.0)
     H_new = torch.clamp(H1 - dt * bmb, min=0.0)
     area = dx * dy
-    smb_applied = torch.sum((H1 - H) / dt_safe) * area
-    bmb_applied = torch.sum((H_new - H1) / dt_safe) * area * -1.0
+    smb_field = (H1 - H) / dt_safe
+    bmb_field = (H_new - H1) / dt_safe
+    smb_applied = torch.sum(smb_field) * area
+    bmb_applied = torch.sum(bmb_field) * area * -1.0
+    if fields:
+        return H_new, smb_applied, bmb_applied, smb_field, bmb_field
     return H_new, smb_applied, bmb_applied
 
 

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -50,6 +50,8 @@ from ..physics.hydrology import NullTransport
 from ..physics.rheology import flow_law_from_config
 from ..coupler.surface import SurfaceCarry
 from ..util import hostsync
+from ..util.logger import log
+from ..util.timecal import Time
 from . import geometry_evolution as ge
 from .beddef import bed_deformation_from_config
 from .btu import btu_from_config
@@ -57,6 +59,27 @@ from .calving import calving_from_config
 from .energy import EnergyModel, bootstrap_enthalpy
 from .ssa import SSAFD
 from .stressbalance import StressBalance, StressBalanceResult
+
+class CellBudget(NamedTuple):
+    """Per-cell time-integrated thickness changes [m] (dH convention, float64)
+    for the spatial ``tendency_of_ice_amount_due_to_*`` diagnostics (PISM
+    ``GeometryEvolution``'s per-cell conservation fields). The port fills it
+    only in runs whose output asks for such a diagnostic."""
+    flow: torch.Tensor
+    smb: torch.Tensor
+    bmb: torch.Tensor
+    nonneg: torch.Tensor
+    discharge: torch.Tensor
+    # the discharge split per mechanism
+    calving: torch.Tensor
+    frontal_melt: torch.Tensor
+    forced_retreat: torch.Tensor
+
+    @staticmethod
+    def zero(shape, device):
+        z = torch.zeros(shape, dtype=torch.float64, device=device)
+        return CellBudget(*(z,) * 8)
+
 
 # Which adaptive-dt limit bound the step; indexes StepStats.limit_hits
 DT_LIMITS = ("max_dt", "sia_diffusivity", "cfl_2d", "cfl_3d", "hydrology",
@@ -77,6 +100,9 @@ class StepStats:
     sum_nonneg: object = 0.0
     sum_discharge: object = 0.0  # calving and iceberg removal [m^3]
     sum_calving: object = 0.0
+    sum_frontal_melt: object = 0.0    # frontal-melt retreat part [m^3]
+    sum_forced_retreat: object = 0.0  # prescribed-retreat part [m^3]
+    cell: Optional[CellBudget] = None  # per-cell budget (None = not tracked)
     limit_hits: List[int] = field(default_factory=lambda: [0] * len(DT_LIMITS))
     max_diffusivity: float = 0.0
     ssa_newton_iters: int = 0    # Newton sweeps over all SSA solves
@@ -99,6 +125,11 @@ def _merge_stats(a: Optional[StepStats], b: StepStats) -> StepStats:
         sum_nonneg=a.sum_nonneg + b.sum_nonneg,
         sum_discharge=a.sum_discharge + b.sum_discharge,
         sum_calving=a.sum_calving + b.sum_calving,
+        sum_frontal_melt=a.sum_frontal_melt + b.sum_frontal_melt,
+        sum_forced_retreat=a.sum_forced_retreat + b.sum_forced_retreat,
+        cell=b.cell if a.cell is None else (
+            a.cell if b.cell is None else CellBudget(
+                *(x + y for x, y in zip(a.cell, b.cell)))),
         limit_hits=[x + y for x, y in zip(a.limit_hits, b.limit_hits)],
         max_diffusivity=max(a.max_diffusivity, b.max_diffusivity),
         ssa_newton_iters=a.ssa_newton_iters + b.ssa_newton_iters,
@@ -245,10 +276,11 @@ class IceModel:
         return min(dt, t_end - t), idx, max_D
 
     def _mass_substep(self, state, sb, smb, geometry, t, dt_sub,
-                      qe_d=None, qn_d=None):
+                      qe_d=None, qn_d=None, cells=False):
         """One mass-continuity substep with frozen sliding velocities; the
         SIA diffusive flux is recomputed from the current geometry unless
-        supplied."""
+        supplied. With ``cells`` the returned values also hold the per-cell
+        flow, SMB, BMB and clip rates."""
         grid, sh = self.grid, self.sh
         if qe_d is None:
             flux = self.stress_balance.sia_flux(geometry, state.enthalpy)
@@ -257,7 +289,8 @@ class IceModel:
                                            geometry.ice_thickness, sh)
         res = ge.flow_step(geometry, dt_sub, qe_d + qe_adv, qn_d + qn_adv,
                            grid, sh, part_grid=self.part_grid,
-                           part_grid_iterations=self.part_grid_iters)
+                           part_grid_iterations=self.part_grid_iters,
+                           fields=cells)
         geometry = geometry.replace(ice_area_specific_volume=res.Href)
         H = res.thickness
         bmb = torch.zeros_like(H)
@@ -276,13 +309,17 @@ class IceModel:
             else:
                 bmb = bmb + torch.where(floating, shelf_melt, 0.0)
         smb_eff = smb if self.use_smb else torch.zeros_like(H)
-        H, smb_app, bmb_app = ge.source_term_step(H, dt_sub, smb_eff, bmb,
-                                                  grid.dx, grid.dy)
+        src = ge.source_term_step(H, dt_sub, smb_eff, bmb, grid.dx, grid.dy,
+                                  fields=cells)
+        H, smb_app, bmb_app = src[:3]
         geometry = S.ensure_consistency(geometry.replace(ice_thickness=H),
                                         self.rho_i, self.rho_w, self.Hmin,
                                         self.subgl)
         div_vol = torch.sum(res.flux_divergence) * grid.dx * grid.dy
-        return geometry, (smb_app, bmb_app, div_vol, res.nonneg_flux)
+        vals = (smb_app, bmb_app, div_vol, res.nonneg_flux)
+        if cells:
+            vals += (res.flow_field, src[3], src[4], res.nonneg_field)
+        return geometry, vals
 
     def _step(self, state: S.ModelState, t: float, t_end: float,
               stats: StepStats):
@@ -325,26 +362,29 @@ class IceModel:
         # 7. mass transport, skip_max cheap substeps per expensive update --
         geometry = state.geometry
         zero = torch.zeros((), dtype=dtype, device=H.device)
-        smb_app = bmb_app = div_vol = nonneg = zero
+        cells = stats.cell is not None
+        vals = (zero,) * 4 + ((torch.zeros_like(H),) * 4 if cells else ())
         if self.geometry_evolves:
             if self.skip_max > 1:
                 dt_sub = _round_to(dt_f / self.skip_max, dtype)
                 qe_f = None if self.refresh_diffusivity else sb.qe
                 qn_f = None if self.refresh_diffusivity else sb.qn
-                acc = (zero, zero, zero, zero)
+                acc = vals
                 for _ in range(self.skip_max):
                     geometry, vals = self._mass_substep(
-                        state, sb, smb_in.smb, geometry, t, dt_sub, qe_f, qn_f)
+                        state, sb, smb_in.smb, geometry, t, dt_sub, qe_f, qn_f,
+                        cells=cells)
                     acc = tuple(a + v for a, v in zip(acc, vals))
-                smb_app, bmb_app, div_vol, nonneg = \
-                    (v / self.skip_max for v in acc)
+                vals = tuple(v / self.skip_max for v in acc)
             else:
-                geometry, (smb_app, bmb_app, div_vol, nonneg) = \
-                    self._mass_substep(state, sb, smb_in.smb, geometry, t,
-                                       dt_f, sb.qe, sb.qn)
+                geometry, vals = self._mass_substep(
+                    state, sb, smb_in.smb, geometry, t, dt_f, sb.qe, sb.qn,
+                    cells=cells)
+        smb_app, bmb_app, div_vol, nonneg = vals[:4]
 
         # 8. calving and iceberg removal -----------------------------------
         discharge_vol = calving_vol = zero
+        calved = None
         if self.calving is not None:
             cell_area = self.grid.dx * self.grid.dy
             geometry, calved = self.calving.step(geometry, with_parts=True)
@@ -373,6 +413,9 @@ class IceModel:
             sum_nonneg=stats.sum_nonneg + (dt * nonneg).to(f64),
             sum_discharge=stats.sum_discharge + discharge_vol.to(f64),
             sum_calving=stats.sum_calving + calving_vol.to(f64),
+            sum_frontal_melt=stats.sum_frontal_melt,
+            sum_forced_retreat=stats.sum_forced_retreat,
+            cell=self._add_cells(stats.cell, dt, vals[4:], calved),
             limit_hits=hits,
             max_diffusivity=max(stats.max_diffusivity, max_D),
             ssa_newton_iters=stats.ssa_newton_iters + sb.ssa_newton_iters,
@@ -380,11 +423,31 @@ class IceModel:
             host_syncs=stats.host_syncs)
         return state, t + dt, stats
 
-    def _advance(self, state, t0: float, t_end: float):
+    @staticmethod
+    def _add_cells(cell, dt, fields, calved):
+        """The per-cell budget after a step of ``dt`` seconds: the rates of
+        the mass transport times dt, and the calved thickness as the
+        discharge (calving is the port's only discharge mechanism)."""
+        if cell is None:
+            return None
+        f64 = torch.float64
+        flow, smb, bmb, nonneg = (dt * f.to(f64) for f in fields)
+        d = cell.discharge if calved is None else cell.discharge + calved
+        c = cell.calving if calved is None else cell.calving + calved
+        return CellBudget(flow=cell.flow + flow, smb=cell.smb + smb,
+                          bmb=cell.bmb + bmb, nonneg=cell.nonneg + nonneg,
+                          discharge=d, calving=c,
+                          frontal_melt=cell.frontal_melt,
+                          forced_retreat=cell.forced_retreat)
+
+    def _advance(self, state, t0: float, t_end: float, cells: bool = False):
         """One segment: at most ``time_stepping.max_steps_per_segment``
-        steps toward t_end (the bound of the JAX device loop)."""
+        steps toward t_end (the bound of the JAX device loop); ``cells``
+        fills the per-cell budget of the returned stats."""
         syncs0 = hostsync.COUNT
-        t, stats = t0, StepStats()
+        t = t0
+        stats = StepStats(cell=CellBudget.zero(
+            self.grid.shape2, self.device) if cells else None)
         while t < t_end - 1e-6 and stats.nsteps < self.max_steps:
             state, t, stats = self._step(state, t, t_end, stats)
         stats.host_syncs = hostsync.COUNT - syncs0
@@ -425,7 +488,152 @@ class IceModel:
                 geothermal=G0).to(H.dtype)
         return state.replace(**kw)
 
+    # ------------------------------------------------------------- checks
+    def _check_state(self, state: S.ModelState, t: float,
+                     format: str = "netcdf4") -> None:
+        """The segment-boundary checks of ``_check_thickness`` and
+        ``_check_health`` from one host read."""
+        H = state.geometry.ice_thickness
+        vals = [torch.max(H).to(torch.float64),
+                torch.isnan(H).any().to(torch.float64)]
+        if state.u_ssa is not None:
+            vals.append(torch.isnan(state.u_ssa).any().to(torch.float64))
+        if state.enthalpy is not None and self.energy_model is not None:
+            vals.append(self._n_low_temperature(state).to(torch.float64))
+        vals = hostsync.host(torch.stack(vals))
+        self._check_thickness(state, vals[0])
+        self._check_health(state, t, vals, format)
+
+    def _n_low_temperature(self, state):
+        """Ice cells below ``energy.minimum_allowed_temperature``."""
+        T_min = self.config.get_number("energy.minimum_allowed_temperature")
+        H = state.geometry.ice_thickness
+        z = torch.as_tensor(self.grid.z, dtype=H.dtype, device=H.device)
+        H3 = H[..., None]
+        p = self.EC.pressure(torch.clamp(H3 - z, min=0.0))
+        T = self.EC.temperature(state.enthalpy, p)
+        in_ice = (z <= H3) & S.icy(state.geometry.cell_type)[..., None]
+        return torch.sum(in_ice & (T < T_min))
+
+    def _check_health(self, state: S.ModelState, t: float, vals,
+                      format: str = "netcdf4") -> None:
+        """Non-finite state detection at segment boundaries: PISM's SSAFD
+        failure path dumps the state to ``SSAFD_failed.nc`` (in the run's
+        output format) and aborts; a broken solve surfaces here as NaNs.
+        Too many ice cells below ``energy.minimum_allowed_temperature``
+        (beyond ``energy.max_low_temperature_count``) abort the run too.
+        ``vals`` is ``_check_state``'s host read."""
+        bad = vals[1] > 0 or (state.u_ssa is not None and vals[2] > 0)
+        if bad:
+            from ..io import checkpoint as ckpt
+            path = "SSAFD_failed.nc"
+            try:
+                ckpt.save_state(path, state, self.grid, t, config=self.config,
+                                format=format)
+            except Exception:
+                path = "(state dump failed)"
+            raise RuntimeError(
+                "non-finite model state at t = "
+                f"{t / 3.15569259747e7:.3f} a (solver failure); "
+                f"state dumped to {path}")
+        if state.enthalpy is not None and self.energy_model is not None:
+            n_low = int(vals[-1])
+            n_max = self.config.get_int("energy.max_low_temperature_count")
+            if n_low > n_max:
+                T_min = self.config.get_number(
+                    "energy.minimum_allowed_temperature")
+                raise RuntimeError(
+                    f"{n_low} ice cells below "
+                    f"energy.minimum_allowed_temperature ({T_min:.1f} K) "
+                    f"at t = {t / 3.15569259747e7:.3f} a (limit {n_max})")
+
+    def _check_thickness(self, state: S.ModelState, Hmax: float) -> None:
+        """PISM aborts when the ice reaches the top of the computational box
+        (``IceModel::check_maximum_ice_thickness``) or exceeds
+        ``geometry.ice_thickness.max``; ``Hmax`` is the largest thickness."""
+        H_cap = self.config.get_number("geometry.ice_thickness.max")
+        if H_cap > 0.0 and Hmax > H_cap:
+            raise RuntimeError(
+                f"ice thickness ({Hmax:.1f} m) exceeds "
+                f"geometry.ice_thickness.max ({H_cap:.1f} m)")
+        if self.energy_model is None:
+            return
+        if Hmax >= self.grid.Lz:
+            raise RuntimeError(
+                f"ice thickness ({Hmax:.1f} m) reaches the top of the "
+                f"computational box (Lz = {self.grid.Lz:.1f} m); increase "
+                "grid.Lz (PISM aborts identically)")
+
+    def _check_diffusivity(self, stats: StepStats) -> None:
+        """PISM's SIAFD max_diffusivity stop: without the limit_diffusivity
+        cap, a diffusivity beyond the sanity limit stops the run unless
+        max_diffusivity_allow_unlimited."""
+        cfg = self.config
+        if (self.stress_balance.has_sia
+                and self.stress_balance.d_limit is None
+                and not cfg.get_flag(
+                    "stress_balance.sia.max_diffusivity_allow_unlimited")):
+            d_cap = cfg.get_number("stress_balance.sia.max_diffusivity")
+            d_seen = stats.max_diffusivity
+            if d_seen > d_cap:
+                raise RuntimeError(
+                    f"SIA diffusivity ({d_seen:.1f} m2/s) exceeds "
+                    f"stress_balance.sia.max_diffusivity ({d_cap:.1f}); "
+                    "set stress_balance.sia.limit_diffusivity or "
+                    "max_diffusivity_allow_unlimited (PISM stops "
+                    "identically)")
+
     # ------------------------------------------------------------------ API
+    def run(self, state: S.ModelState, time: Time,
+            segment_seconds: Optional[float] = None,
+            callback: Optional[Callable] = None,
+            output: Optional[object] = None,
+            signals: Optional[object] = None):
+        """Advance from ``time.start`` to ``time.end``; returns (state,
+        StepStats of the whole run, or None if no segment ran).
+
+        Segments last ``runtime.segment_years`` and end on ``output``'s next
+        requested time (an ``OutputManager``), so records land exactly.
+        After each segment the state is checked (thickness, NaNs, cold
+        ice, the SIA diffusivity stop), ``output.process`` and
+        ``callback(state, t, stats)`` run, and ``signals`` (a
+        ``SignalMonitor``) is polled: SIGUSR1 writes a backup, SIGTERM ends
+        the run after the segment (PISM ``IceModel::process_signals``)."""
+        if segment_seconds is None:
+            segment_seconds = self.config.get_number("runtime.segment_years",
+                                                     "seconds")
+        fmt = output.format if output is not None \
+            else self.config.get_string("output.format")
+        state = self.prepare_state(state)
+        self._check_thickness(
+            state, hostsync.host(torch.max(state.geometry.ice_thickness)))
+        t = time.start
+        total = None
+        cells = False
+        if output is not None:
+            output.start(state, t, self)
+            cells = output.needs_cell_budget
+        while t < time.end - 1e-6:
+            t_seg = min(t + segment_seconds, time.end)
+            if output is not None:
+                t_seg = min(t_seg, output.next_time(t))
+            state, t, stats = self._advance(state, t, t_seg, cells=cells)
+            self._check_state(state, t, fmt)
+            self._check_diffusivity(stats)
+            total = _merge_stats(total, stats)
+            if output is not None:
+                output.process(state, t, self, stats=total)
+            if callback is not None:
+                callback(state, t, stats)
+            if signals is not None:
+                if signals.take_backup_request() and output is not None:
+                    output.write_backup(state, t)
+                if signals.stop_requested():
+                    log.message(1, "caught SIGTERM: stopping at t = %.2f a",
+                                t / 3.15569259747e7)
+                    break
+        return state, total
+
     def step_once(self, state: S.ModelState, t: float, dt_cap: float):
         """Advance by up to dt_cap seconds (adaptive steps inside); returns
         (state, t, StepStats)."""

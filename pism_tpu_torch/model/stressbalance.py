@@ -1,6 +1,6 @@
 """Composite stress balance (port of ``pism_tpu/model/stressbalance.py``,
 the ``ssa+sia`` and ``sia`` branches of ``update``): the SSA sliding
-velocity (``ssa+sia`` only; ``sia`` has no sliding), the SIA diffusive flux
+velocity (``ssa+sia``; ``sia`` carries the state's own, if any), the SIA diffusive flux
 on the bed-smoothed geometry, and (for the energy model) the 3D
 velocities, strain heating and basal frictional heating.
 """
@@ -52,6 +52,9 @@ class StressBalance:
         cfg = self.config
         require(cfg, "stress_balance.model", ("ssa+sia", "sia"))
         self.model = cfg.get_string("stress_balance.model")
+        # both ported models carry the SIA (``run`` reads it for the
+        # max_diffusivity stop)
+        self.has_sia = "sia" in self.model.split("+")
         require(cfg, "stress_balance.vertical_velocity_approximation",
                 ("centered",))
         require(cfg, "stress_balance.sia.e_age_coupling", (False,))
@@ -105,7 +108,9 @@ class StressBalance:
             d_limit=self.d_limit)
 
     def update(self, state: S.ModelState, yield_stress) -> StressBalanceResult:
-        u_ssa = v_ssa = None
+        # without an SSA a state's sliding velocities (say, of a restart
+        # file) are carried and advect the ice, as in the JAX package
+        u_ssa, v_ssa = state.u_ssa, state.v_ssa
         info = {"newton_iters": 0, "krylov_iters": 0}
         if self.model == "ssa+sia":
             u_ssa, v_ssa, info = self.ssa.solve(state, yield_stress,
@@ -128,7 +133,7 @@ class StressBalance:
                 g=self.g, u_base=u_ssa, v_base=v_ssa,
                 basal_melt_rate=state.basal_melt_rate,
                 max_diffusivity=self.d_limit, icy_threshold=self.icy_thresh)
-            if u_ssa is not None:
+            if u_ssa is not None and self.ssa is not None:
                 # tau_b . u_b = beta(|u|) |u|^2  [W/m^2]
                 beta = self.ssa.sliding_law.beta(yield_stress, u_ssa, v_ssa)
                 friction = torch.where(

@@ -197,9 +197,12 @@ def run_L(Mx=61, years=1000.0, config=None, device="cuda"):
     return errs
 
 
-def run_test(letter, *, Mx=None, years=None, config=None, device="cuda"):
+def run_test(letter, *, Mx=None, My=None, Mz=None, years=None, config=None,
+             device="cuda"):
     """Dispatch a verification run by pismv letter (A, D, H, L). Returns the
-    error dict (also printed as a pismv-style table)."""
+    error dict (also printed as a pismv-style table). ``My`` and ``Mz`` are
+    accepted as the JAX package's runner accepts them; the ported letters
+    run on square 2D grids, so they use neither."""
     letter = str(letter).upper()
     fn = {"A": run_A, "D": run_D, "H": run_H, "L": run_L}.get(letter)
     if fn is None:

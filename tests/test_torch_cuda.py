@@ -621,3 +621,61 @@ def test_k6_equals_unsharded(cuda, dtype, mesh_shape):
     assert K4.LAUNCHES == n0 + mesh.size
     for g, r in zip(got, K4.sia_flux(H, s, **kw)):
         assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_cli_runs_on_the_card_with_classic_files(cuda, tmp_path):
+    """``pism_tpu_torch.cli.main`` without ``-platform``: the run, its
+    series and its state file on the card in netcdf3; the state reads back
+    on the card to the bit, and equals the same command line with
+    ``-platform cpu`` (Halfar B, float64) within 1e-10 of max H."""
+    from pism_tpu_torch import cli
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.io.nc4 import File
+
+    states = {}
+    for plat in ("cuda", "cpu"):
+        d = tmp_path / plat
+        d.mkdir()
+        argv = ["-test", "B", "-Mx", "31", "-y", "100", "-o", str(d / "b.nc"),
+                "-o_format", "netcdf3", "-verbose", "0",
+                "-ts_file", str(d / "ts.nc"), "-ts_times", "430:10:520",
+                "-extra_file", str(d / "ex.nc"), "-extra_times", "450:50:500"]
+        if plat == "cpu":
+            argv += ["-platform", "cpu"]
+        assert cli.main(argv) == 0
+        for name in ("b.nc", "ts.nc", "ex.nc"):
+            with open(d / name, "rb") as fh:
+                assert fh.read(3) == b"CDF"
+        states[plat], _ = ckpt.load_state(str(d / "b.nc"), device=plat)
+    Hg = states["cuda"].geometry.ice_thickness
+    assert Hg.device.type == "cuda"
+    Hc = states["cpu"].geometry.ice_thickness
+    assert float((Hg.cpu() - Hc).abs().max()) <= 1e-10 * float(Hc.max())
+    with File(str(tmp_path / "cuda" / "ex.nc"), "r") as f:
+        assert f.read("thk").shape[0] == 2
+
+
+@pytest.mark.cuda
+def test_cli_eismint_k3_restart_on_the_card(cuda, tmp_path):
+    """EISMINT II A 21x21x11 float32 on K3 through the CLI, then B from its
+    file: the launches happen and the continuation starts from the saved
+    state to the bit."""
+    from pism_tpu_torch import cli
+    from pism_tpu_torch.io import checkpoint as ckpt
+
+    a, b = str(tmp_path / "a.nc"), str(tmp_path / "b.nc")
+    cfg = ["-config", "runtime.float_dtype=float32",
+           "-config", "stress_balance.sia.bed_smoother.range=0"]
+    K3.LAUNCHES = 0
+    assert cli.main(["-eisII", "A", "-Mx", "21", "-Mz", "11", "-y", "200",
+                     "-o", a, "-o_format", "netcdf3", "-verbose", "0"]
+                    + cfg) == 0
+    assert K3.LAUNCHES > 0
+    s, t = ckpt.load_state(a)
+    assert s.enthalpy.dtype == torch.float32 and s.enthalpy.is_cuda
+    assert cli.main(["-eisII", "B", "-i", a, "-y", "50", "-o", b,
+                     "-o_format", "netcdf3", "-verbose", "0"] + cfg) == 0
+    s2, t2 = ckpt.load_state(b)
+    assert t2 == pytest.approx(t + 50 * SPY, rel=1e-12)
+    assert bool(torch.isfinite(s2.geometry.ice_thickness).all())

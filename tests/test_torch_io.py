@@ -1,0 +1,299 @@
+"""NetCDF I/O of the port (``pism_tpu_torch/io``) against the JAX
+package's: a saved state reads back to the bit in both formats (absent
+fields stay absent); a file written by either package is read by the
+other with equal arrays, time, grid and non-default config, in both
+formats; a run restarted through a file is bit-identical to the
+uninterrupted one (``tests/test_io.py``'s Halfar B and hybrid-chain-with-
+PDD cases); and NetCDF-4 without h5py raises, naming ``-o_format
+netcdf3``. Inputs are made by numpy from a seed.
+"""
+
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from pism_tpu import Config as JConfig, Grid as JGrid  # noqa: E402
+from pism_tpu.io import checkpoint as j_ckpt  # noqa: E402
+from pism_tpu.state import ModelState as JModelState  # noqa: E402
+from pism_tpu.state import new_geometry as j_new_geometry  # noqa: E402
+from pism_tpu_torch import Config, Grid  # noqa: E402
+from pism_tpu_torch.io import checkpoint as ckpt  # noqa: E402
+from pism_tpu_torch.io.nc4 import File  # noqa: E402
+from pism_tpu_torch.state import ModelState, new_geometry  # noqa: E402
+
+SPY = 3.15569259747e7
+GRID = dict(Mx=11, My=9, Lx=100e3, Ly=80e3, Mz=5, Lz=3000.0, Mbz=3,
+            Lbz=500.0)
+CFG = {"grid.Mx": 11, "stress_balance.sia.enhancement_factor": 3.0,
+       "time.calendar": "360_day", "run_info.title": "io test"}
+FIELDS2 = ("basal_melt_rate", "u_ssa", "v_ssa", "tillwat", "snow_depth")
+
+
+def _arrays(seed):
+    rng = np.random.default_rng(seed)
+    g = Grid(**GRID)
+    a = {"H": rng.uniform(0.0, 2000.0, g.shape2),
+         "bed": rng.uniform(-500.0, 500.0, g.shape2),
+         "enthalpy": rng.uniform(1e5, 3e5, g.shape3),
+         "bedrock_temperature": rng.uniform(250.0, 270.0,
+                                            g.shape2 + (g.Mbz,))}
+    for name in FIELDS2:
+        a[name] = rng.normal(size=g.shape2)
+    a["H"][0, :3] = 0.0
+    return a
+
+
+def _torch_state(a, dtype=torch.float64):
+    def T(x):
+        return torch.as_tensor(x, dtype=dtype)
+    return ModelState(geometry=new_geometry(T(a["H"]), T(a["bed"])),
+                      enthalpy=T(a["enthalpy"]),
+                      bedrock_temperature=T(a["bedrock_temperature"]),
+                      **{n: T(a[n]) for n in FIELDS2})
+
+
+def _jax_state(a):
+    return JModelState(geometry=j_new_geometry(jnp.asarray(a["H"]),
+                                               jnp.asarray(a["bed"])),
+                       enthalpy=jnp.asarray(a["enthalpy"]),
+                       bedrock_temperature=jnp.asarray(
+                           a["bedrock_temperature"]),
+                       **{n: jnp.asarray(a[n]) for n in FIELDS2})
+
+
+def _np(x):
+    return x.numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _assert_states_equal(s, ref):
+    for name in ("ice_thickness", "bed_elevation", "sea_level",
+                 "ice_area_specific_volume", "ice_surface_elevation",
+                 "cell_type"):
+        np.testing.assert_array_equal(_np(getattr(s.geometry, name)),
+                                      _np(getattr(ref.geometry, name)), name)
+    for name in ("enthalpy", "bedrock_temperature") + FIELDS2:
+        np.testing.assert_array_equal(_np(getattr(s, name)),
+                                      _np(getattr(ref, name)), name)
+
+
+@pytest.mark.parametrize("fmt", ["netcdf4", "netcdf3"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_roundtrip_to_the_bit(tmp_path, fmt, dtype):
+    grid = Grid(**GRID)
+    cfg = Config({**CFG, "runtime.float_dtype": dtype})
+    state = _torch_state(_arrays(1), getattr(torch, dtype))
+    path = str(tmp_path / "s.nc")
+    ckpt.save_state(path, state, grid, 123.0 * SPY, config=cfg, format=fmt)
+    with open(path, "rb") as fh:
+        assert (fh.read(3) == b"CDF") == (fmt == "netcdf3")
+    assert ckpt.load_grid(path) == grid
+    assert ckpt.load_config(path).non_default() == cfg.non_default()
+    back, t = ckpt.load_state(path, device="cpu")
+    assert t == 123.0 * SPY
+    _assert_states_equal(back, state)
+    assert back.geometry.ice_thickness.dtype == getattr(torch, dtype)
+    assert back.till_phi is None and back.firn_depth is None
+    with File(path, "r") as f:
+        assert f.read_attrs("time")["calendar"] == "360_day"
+        assert f.read("mask").dtype == np.int32
+        assert f.get_global_attr("title") == "io test"
+
+
+@pytest.mark.parametrize("fmt", ["netcdf4", "netcdf3"])
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_files_read_across_packages(tmp_path, fmt, writer):
+    a = _arrays(2)
+    path = str(tmp_path / "s.nc")
+    t = 42.5 * SPY
+    if writer == "jax":
+        j_ckpt.save_state(path, _jax_state(a), JGrid(**GRID), t,
+                          config=JConfig(CFG), format=fmt)
+        state, t2 = ckpt.load_state(path, device="cpu")
+        grid, cfg = ckpt.load_grid(path), ckpt.load_config(path)
+        ref = _torch_state(a)
+    else:
+        ckpt.save_state(path, _torch_state(a), Grid(**GRID), t,
+                        config=Config(CFG), format=fmt)
+        state, t2 = j_ckpt.load_state(path)
+        grid, cfg = j_ckpt.load_grid(path), j_ckpt.load_config(path)
+        ref = _jax_state(a)
+    assert t2 == t
+    assert {k: getattr(grid, k) for k in GRID} == GRID
+    assert cfg.non_default() == Config(CFG).non_default()
+    _assert_states_equal(state, ref)
+
+
+def test_unported_state_variables_raise(tmp_path):
+    """A file holding state of a component the port does not carry (here
+    the ice age) cannot be continued by the port."""
+    a = _arrays(3)
+    path = str(tmp_path / "s.nc")
+    g = JGrid(**GRID)
+    j_ckpt.save_state(path, _jax_state(a).replace(
+        age=jnp.zeros(g.shape3)), g, 0.0, config=JConfig(CFG),
+        format="netcdf3")
+    with pytest.raises(NotImplementedError, match="age"):
+        ckpt.load_state(path, device="cpu")
+
+
+def _halfar(fmt, tmp_path):
+    from pism_tpu_torch.coupler.surface import Uniform
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.verification import halfar
+
+    sol = halfar.test_B()
+    grid = Grid(Mx=31, My=31, Lx=900e3, Ly=900e3)
+    cfg = Config({"stress_balance.model": "sia",
+                  "stress_balance.sia.flow_law": "isothermal_glen",
+                  "flow_law.isothermal_Glen.ice_softness": halfar.A_SOFTNESS,
+                  "energy.model": "none"})
+    H0 = torch.as_tensor(sol.thickness(sol.t0, grid.radius))
+    state0 = ModelState(geometry=new_geometry(H0, torch.zeros_like(H0)))
+    model = IceModel(grid=grid, config=cfg, surface=Uniform(smb=0.0),
+                     device="cpu")
+    return model, state0, grid, cfg, sol.t0, 50 * SPY, 100 * SPY
+
+
+def _hybrid_pdd(fmt, tmp_path):
+    from pism_tpu_torch.coupler.atmosphere import SeariseGreenland
+    from pism_tpu_torch.coupler.pdd import TemperatureIndex
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    grid = Grid(Mx=20, My=24, Lx=200e3, Ly=240e3, Mz=15, Lz=3000.0)
+    cfg = Config({"stress_balance.model": "ssa+sia",
+                  "energy.model": "enthalpy",
+                  "basal_resistance.pseudo_plastic.enabled": True,
+                  "basal_yield_stress.model": "mohr_coulomb",
+                  "hydrology.model": "null",
+                  "geometry.part_grid.enabled": True})
+    X, Y = np.meshgrid(grid.x, grid.y)
+    r2 = (X / 150e3) ** 2 + (Y / 190e3) ** 2
+    bed = torch.as_tensor(200.0 - 700.0 * r2)
+    H = torch.as_tensor(1500.0 * np.maximum(1.0 - r2, 0.0))
+    atm = SeariseGreenland(latitude=torch.as_tensor(70.0 + Y / 240e3),
+                           longitude=torch.as_tensor(-40.0 + X / 200e3),
+                           precipitation=torch.full(grid.shape2, 0.4 / SPY,
+                                                    dtype=torch.float64))
+    model = IceModel(grid=grid, config=cfg,
+                     surface=TemperatureIndex(atmosphere=atm, config=cfg),
+                     device="cpu")
+    state0 = model.prepare_state(ModelState(geometry=new_geometry(H, bed)))
+    return model, state0, grid, cfg, 0.0, 0.75 * SPY, 1.5 * SPY
+
+
+@pytest.mark.parametrize("case,fmt", [(_halfar, "netcdf4"),
+                                      (_halfar, "netcdf3"),
+                                      (_hybrid_pdd, "netcdf3")],
+                         ids=["halfar_B-netcdf4", "halfar_B-netcdf3",
+                              "hybrid_pdd-netcdf3"])
+def test_restart_through_file_bit_stable(tmp_path, fmt, case):
+    """Two segments in memory against the same two with the state saved
+    and read back between them: every field of the end state equal to the
+    bit (``tests/test_io.py:69`` and ``:100``; the hybrid chain over 0.75 a
+    + 0.75 a instead of 3 a + 3 a, to keep the test short)."""
+    model, state0, grid, cfg, t0, seg, total = case(fmt, tmp_path)
+    sB, tB, _ = model.step_once(state0, t0, seg)
+    sA, tA, _ = model.step_once(sB, tB, t0 + total - tB)
+
+    path = str(tmp_path / "restart.nc")
+    ckpt.save_state(path, sB, grid, tB, config=cfg, format=fmt)
+    sB2, tB2 = ckpt.load_state(path, config=cfg, device="cpu")
+    assert tB2 == tB
+    sB3, tB3, _ = model.step_once(sB2, tB2, t0 + total - tB2)
+    assert tB3 == tA
+    for name in ("enthalpy", "u_ssa", "v_ssa", "snow_depth", "firn_depth",
+                 "basal_melt_rate", "tillwat"):
+        a, b = getattr(sA, name), getattr(sB3, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+    assert torch.equal(sA.geometry.ice_thickness, sB3.geometry.ice_thickness)
+    if case is _hybrid_pdd:
+        assert float(sB.snow_depth.max()) > 0
+
+
+_NO_H5PY = """
+import sys
+sys.modules["h5py"] = None        # as on a machine without h5py
+import numpy as np
+from pism_tpu_torch.io.nc4 import File, NetCDF4Unavailable
+out = sys.argv[1]
+for mode in ("w", "r"):
+    try:
+        File(sys.argv[2] if mode == "r" else out + "/x.nc", mode)
+    except NetCDF4Unavailable as e:
+        assert "-o_format netcdf3" in str(e), e
+    else:
+        raise AssertionError("no error for mode " + mode)
+with File(out + "/c.nc", "w", format="netcdf3") as f:
+    f.define_dimension("x", 3, np.arange(3.0))
+    f.write("v", np.ones(3), ("x",))
+with File(out + "/c.nc", "r") as f:
+    assert f.read("v").tolist() == [1.0, 1.0, 1.0]
+print("ok")
+"""
+
+
+def test_netcdf4_without_h5py_raises(tmp_path):
+    """Without h5py a NetCDF-4 file can be neither written nor read, and
+    the error names ``-o_format netcdf3``; classic files still work."""
+    h5 = tmp_path / "h5.nc"
+    with File(str(h5), "w") as f:
+        f.define_dimension("x", 2, np.arange(2.0))
+    out = subprocess.run([sys.executable, "-c", _NO_H5PY, str(tmp_path),
+                          str(h5)], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert not (tmp_path / "x.nc").exists()
+
+
+def test_classic_file_is_not_appended(tmp_path):
+    path = str(tmp_path / "c.nc")
+    ckpt.save_state(path, _torch_state(_arrays(4)), Grid(**GRID), 0.0,
+                    format="netcdf3")
+    with pytest.raises(ValueError, match="classic"):
+        File(path, "a")
+
+
+def test_netcdf4_structure(tmp_path):
+    """The port's NetCDF-4 files are HDF5 with netCDF-4 dimension scales,
+    as the JAX package's (``tests/test_io.py::test_nc4_structure``)."""
+    import h5py
+
+    path = str(tmp_path / "s.nc")
+    ckpt.save_state(path, _torch_state(_arrays(5)), Grid(**GRID), 1.0)
+    with h5py.File(path, "r") as h5:
+        assert "_NCProperties" in h5.attrs
+        assert h5["y"].attrs["CLASS"] == b"DIMENSION_SCALE"
+        assert h5["thk"].shape == (1, 9, 11)
+        assert h5["enthalpy"].shape == (1, 9, 11, 5)
+        assert h5["litho_temp"].shape == (1, 9, 11, 3)
+        assert h5["thk"].attrs["units"] == "m"
+
+
+def test_append_diagnostics_equals_one_pass(tmp_path):
+    """``append_diagnostics`` on a NetCDF-4 state file writes the values
+    that ``save_state(..., diagnostics=...)`` writes in one pass."""
+    from pism_tpu_torch import setups
+
+    model, state, grid, _ = setups.halfar_model("B", Mx=11, device="cpu")
+    names = ["thk", "velbar_mag", "diffusivity", "sftgif", "no_such_name"]
+    one, two = str(tmp_path / "one.nc"), str(tmp_path / "two.nc")
+    values = ckpt.diagnostic_values(names, state, model, 0.0)
+    assert sorted(values) == ["diffusivity", "sftgif", "thk", "velbar_mag"]
+    ckpt.save_state(one, state, grid, 0.0, config=model.config,
+                    format="netcdf3", diagnostics=values)
+    ckpt.save_state(two, state, grid, 0.0, config=model.config)
+    ckpt.append_diagnostics(two, names, state, model, 0.0)
+    with File(one, "r") as a, File(two, "r") as b:
+        assert sorted(a.variables()) == sorted(b.variables())
+        for v in a.variables():
+            np.testing.assert_array_equal(a.read(v), b.read(v), v)
+            assert a.read_attrs(v).get("units") == b.read_attrs(v).get("units")
