@@ -85,6 +85,26 @@ launch counters set to 0 just before it and read just after:
     zero SMB. Each run prints its wall time, ms per step, launches per
     step, output seconds and file sizes; (a) and (b) also the device ops
     per step through ``step_once`` and through ``IceModel.run``.
+  phase 8: the std-greenland workflow through the command line (float32,
+    every file netcdf3): the data file synthesized at 5 km (301x561) with
+    SeaRISE's polar-stereographic ``proj``; (a) ``io.bootstrap.bootstrap``
+    onto the 20 km grid (141x76x41) on the card against the CPU (the
+    regridded fields to the bit, E within 4 float32 ulps), and of a copy
+    with a climatic_mass_balance (the smb heuristic's Robin profile, E
+    within 4 float32 ulps of T times c_i), then stage 1 (``-bootstrap``,
+    SIA, 10 a), stage 2 (no mass, 10 a) and stage 3 (``ssa+sia``
+    pseudo-plastic, skip 10, path A, 1 a), each restarting from the last
+    and equal to the bit (H, E, u, steps, Newton and Krylov counts) to the
+    same stage driven from Python (the factory and ``IceModel.run``; stage
+    3's SSA solves print their Newton sweeps and final residual against
+    the tolerance); stage 2's H equals stage 1's, stage 3 launches K1, the
+    Newton matvec, K2 and K2b, and the outputs carry lat/lon from the
+    projection; then a ``stress_balance.ssa.dirichlet_bc`` run from stage
+    3's state with a strip of fixed velocities (equal to the BC to the
+    bit, the lift one K1 launch per Picard sweep); (b) the bootstrap at
+    5 km (the identity regrid, H equal to the file's) and 0.05 a of stage
+    3 on path A. Each run prints its wall time, ms and launches per step,
+    steps, dt-limit hits and file sizes; the bootstraps their host seconds.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -1513,11 +1533,12 @@ def _cli(label, argv, files=()):
         raise AssertionError(f"{label}: main returned {rc}, {len(records)} runs")
     model, out, state, stats, run_wall = records[0]
     n = stats.nsteps
-    per = {k: round(v / n, 2) for k, v in counts.items() if v}
+    per = {k: round(v / n, 2) for k, v in counts.items() if v} if n else {}
+    per_step = f"{1e3 * run_wall / n:.2f} ms/step" if n else "no steps"
     sizes = {os.path.basename(f): os.path.getsize(f) for f in files}
     print(f"{label}: {' '.join(argv[:4])} ...: steps {n}, dt-limit hits "
           f"{stats.limit_hits_dict()}, main() wall {wall:.3f} s, run wall "
-          f"{run_wall:.3f} s, {1e3 * run_wall / n:.2f} ms/step, launches per "
+          f"{run_wall:.3f} s, {per_step}, launches per "
           f"step {per}; output: {out.main_seconds:.3f} s on the main thread "
           f"inside the run, {out.writer_seconds:.3f} s on the writer thread, "
           f"{wall - run_wall:.3f} s of main() outside the run (set-up, "
@@ -1747,6 +1768,318 @@ def phase7_cli(dev, path_a):
         phase7c_restart(dev, d, *path_a)
 
 
+# -- phase 8: the std-greenland workflow ----------------------------------
+
+def _same_bits(label, pairs):
+    _equal(label, pairs)
+    print(f"{label}: equal to the bit: {', '.join(n for n, _, _ in pairs)}")
+
+
+def _python_stage(dev, cfg_path, grid, state, t0, years):
+    """The stage a command line ran, driven from Python: its config (read
+    back from its output), the coupler chains through the factory,
+    ``IceModel.run`` from ``state``. Returns (state, stats)."""
+    from pism_tpu_torch.coupler import factory as cf
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.util.timecal import Time
+
+    cfg = ckpt.load_config(cfg_path)
+    atm = cf.atmosphere_from_config(
+        cfg, cf.inputs_from_files(cfg, grid, "atmosphere", dev), grid=grid)
+    surface = cf.surface_from_config(
+        cfg, cf.inputs_from_files(cfg, grid, "surface", dev), atmosphere=atm)
+    model = IceModel(grid=grid, config=cfg, surface=surface, device=dev)
+    return model.run(state, Time(t0, t0 + years * SPY))
+
+
+def _with_climatic_mass_balance(src, dst):
+    """A classic copy of the data file ``src`` with a climatic_mass_balance
+    field, its precipitation less 300 kg m-2 year-1 (accumulation in the
+    wet south, ablation in the dry north), so that the smb heuristic of
+    io.bootstrap takes the Robin profile."""
+    from pism_tpu_torch.io.nc4 import File
+
+    with File(src, "r") as f:
+        x, y = f.read("x"), f.read("y")
+        fields = {n: (f.read(n), f.read_attrs(n)) for n in f.variables()}
+        proj = f.get_global_attr("proj")
+    with File(dst, "w", format="netcdf3") as f:
+        f.define_dimension("y", len(y), y, attrs={"units": "m"})
+        f.define_dimension("x", len(x), x, attrs={"units": "m"})
+        for name, (a, attrs) in fields.items():
+            f.write(name, a, ("y", "x"), attrs)
+        f.write("climatic_mass_balance", fields["precipitation"][0] - 300.0,
+                ("y", "x"), {"units": "kg m-2 year-1"})
+        if proj:
+            f.set_global_attr("proj", proj)
+
+
+def _bootstrap_card_vs_cpu(dev, boot, grid, cfg, label, robin=False):
+    """io.bootstrap.bootstrap on the card against the same on the CPU moved
+    to the card: the regridded fields to the bit, E within float32
+    rounding (``robin``: the file has a climatic_mass_balance, so E comes
+    from the erf chain of the Robin profile); prints the host seconds of
+    its parts. Returns the card's state."""
+    import torch
+    from pism_tpu_torch.io.bootstrap import bootstrap, read_and_regrid
+
+    t0 = time.perf_counter()
+    read_and_regrid(boot, grid)
+    t_regrid = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg = bootstrap(boot, grid, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = bootstrap(boot, grid, cfg, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    g, c = sg.geometry, sc.geometry
+    _same_bits(f"{label} bootstrap card / cpu", [
+        ("thk", g.ice_thickness, c.ice_thickness.to(dev)),
+        ("topg", g.bed_elevation, c.bed_elevation.to(dev)),
+        ("bmelt", sg.basal_melt_rate, sc.basal_melt_rate.to(dev)),
+        ("usurf", g.ice_surface_elevation, c.ice_surface_elevation.to(dev)),
+        ("mask", g.cell_type, c.cell_type.to(dev))])
+    Ec = sc.enthalpy.to(dev)
+    if robin:
+        # T = T_s + (G/k)(sqrt(pi)/2) q [erf(H/q) - erf(z/q)]: CUDA's erff
+        # (2 ulps) and the CPU's (1 ulp) differ, which moves T by at most
+        # 3 ulps of erf times (G/k)(sqrt(pi)/2) q, below (G/k) H ulps ~ one
+        # ulp of T; with T's own roundings, 4 float32 ulps of T at the
+        # melting point (2^-15 K each), times c_i into E [J/kg]
+        c_i = cfg.get_number("constants.ice.specific_heat_capacity")
+        tol = 4 * 2.0 ** -15 * c_i
+        err = float((sg.enthalpy - Ec).abs().max())
+        what = (f"E card / cpu max abs err {err:.4e} J/kg (tol {tol:.4e}, 4 "
+                "float32 ulps of T at 273.15 K times c_i; the erf chain)")
+    else:
+        # E = enthalpy(min(T_s + G/k depth, T_m(p)), 0, p): a few float32
+        # operations on each device, whose contraction may differ: 4 ulps
+        tol = 4 * 2.0 ** -23
+        err = _rel_err(sg.enthalpy, Ec)
+        what = (f"E card / cpu max rel err {err:.3e} (tol {tol:.3e}, 4 "
+                "float32 ulps)")
+    n_diff = int((sg.enthalpy != Ec).sum())
+    print(f"{label} bootstrap: {grid.My}x{grid.Mx}x{grid.Mz} from the "
+          f"data file: host read + regrid {t_regrid:.3f} s, bootstrap on the "
+          f"card {t_card:.3f} s (heuristic and the rest "
+          f"{t_card - t_regrid:.3f} s), on the CPU {t_cpu:.3f} s; {what}, "
+          f"{n_diff} of {sg.enthalpy.numel()} values differ")
+    if not err <= tol:
+        raise AssertionError(f"{label}: bootstrap E card / cpu {err:.3e}")
+    return sg
+
+
+def _recording_solve(orig, solves):
+    """SSAFD.solve that keeps each solve's diagnostics (device scalars, read
+    after the run) and returns what it returns."""
+    def solve(*a, **k):
+        out = orig(*a, **k)
+        if k.get("diagnostics"):
+            solves.append(out[2])
+        return out
+    return solve
+
+
+def _print_solves(label, solves, nsteps):
+    """Newton sweeps and the final |F|^2 against the tolerance of each SSA
+    solve of a run."""
+    sweeps = [int(i["newton_iters"]) for i in solves]
+    ratio = [float(i["F2_final"] / i["tol2"]) for i in solves]
+    met = sum(r <= 1.0 for r in ratio)
+    print(f"{label}: {len(solves)} SSA solves over {nsteps} steps, Newton "
+          f"sweeps {sweeps} ({sum(sweeps) / max(nsteps, 1):.2f} a step), "
+          f"final |F|^2 / tolerance {[f'{r:.3e}' for r in ratio]}; "
+          f"{met} of {len(solves)} reached the tolerance")
+
+
+def _dirichlet_run(dev, d, src_state, grid, t, cfg):
+    """The 20 km state with a strip of cells held at non-zero velocities
+    (bc_mask, u_bc, v_bc in the -i file, stress_balance.ssa.dirichlet_bc),
+    a cold SSA start: the velocity equals the BC there to the bit, and the
+    lift of the BC values is a K1 launch per Picard sweep."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.ops import ssa as ssa_ops
+
+    H = src_state.geometry.ice_thickness.double().cpu().numpy()
+    mask = np.zeros(H.shape)
+    My, Mx = H.shape
+    mask[int(0.3 * My):int(0.7 * My), int(0.4 * Mx)] = 1.0
+    mask[H < 100.0] = 0.0
+    u_bc = np.where(mask > 0, 100.0, 0.0)
+    v_bc = np.where(mask > 0, -40.0, 0.0)
+    f, g = os.path.join(d, "g_bc.nc"), os.path.join(d, "g_bc_out.nc")
+    ckpt.save_state(f, src_state, grid, t, config=cfg, format="netcdf3",
+                    extra_2d={"bc_mask": (mask, {}),
+                              "u_bc": (u_bc, {"units": "m year-1"}),
+                              "v_bc": (v_bc, {"units": "m year-1"})})
+    fixed = torch.tensor(mask > 0, device=dev)
+    bcu = torch.where(fixed, torch.tensor(u_bc / SPY, device=dev).float(), 0.0)
+    seen = {"lift": 0, "picard": 0}
+
+    def wrap(label, orig):
+        def fn(*a, **k):
+            # the lift: K1 on the BC values, called by the Picard sweep
+            # itself (not through its matvec or the residual)
+            if label == "apply" and sys._getframe(2).f_code.co_name == \
+                    "picard_iter" and torch.equal(a[0], bcu):
+                seen["lift"] += 1
+            if label == "krylov" and getattr(a[0], "__name__", "") == "matvec":
+                seen["picard"] += 1
+            return orig(*a, **k)
+        return fn
+
+    argv = ["-i", f, "-y", "0.1", "-o", g, "-o_format", "netcdf3",
+            "-config", "stress_balance.ssa.dirichlet_bc=true",
+            "-config", "stress_balance.ssa.read_initial_guess=false",
+            "-verbose", "1"]
+    with _patched([(ssa_ops, "apply_operator", "apply"),
+                   (ssa_ops, "bicgstab_solve", "krylov")], wrap):
+        _, st, stats, counts = _cli("phase8a dirichlet", argv, [f, g])
+    on = fixed
+    _same_bits("phase8a dirichlet u, v on the BC strip", [
+        ("u", st.u_ssa[on], bcu[on]),
+        ("v", st.v_ssa[on], torch.where(
+            fixed, torch.tensor(v_bc / SPY, device=dev).float(), 0.0)[on])])
+    print(f"phase8a dirichlet: {int(on.sum())} BC cells; K1 launches "
+          f"{counts['ssa_matvec']}, of which {seen['lift']} the lift, one per "
+          f"Picard sweep ({seen['picard']} sweeps); Newton sweeps "
+          f"{stats.ssa_newton_iters}, Krylov its {stats.ssa_krylov_iters}")
+    if seen["lift"] != seen["picard"] or seen["lift"] == 0:
+        raise AssertionError("phase8a dirichlet: the lift is not one K1 "
+                             "launch per Picard sweep")
+
+
+def phase8_workflow(dev, d, data_km=5.0, model_km=20.0,
+                    years=(10.0, 10.0, 1.0), years_b=(0.01, 0.05)):
+    """The std-greenland workflow through the command line at published
+    widths, float32, every file netcdf3: (a) the 5 km data file bootstrapped
+    onto the 20 km grid, stages 1-3 (``years``), each equal to the bit to
+    the same stage driven from Python, and a -ssa_dirichlet_bc run; (b) the
+    5 km bootstrap (the identity regrid) and a short stage 3 (``years_b``:
+    the bootstrap stage's and stage 3's lengths)."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import Config, Grid
+    from pism_tpu_torch.examples.std_greenland_workflow import (
+        SEARISE_PROJ, stage_argv, synthesize_bootstrap_file, volume_of)
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.io.nc4 import File
+    from pism_tpu_torch.model.ssa import SSAFD
+    from pism_tpu_torch.util import nccmp
+
+    boot = os.path.join(d, "g_boot.nc")
+    t0 = time.perf_counter()
+    nx, ny = synthesize_bootstrap_file(boot, data_km, "netcdf3", SEARISE_PROJ)
+    print(f"phase8: data file {nx}x{ny} ({data_km:g} km) written in "
+          f"{time.perf_counter() - t0:.3f} s, {os.path.getsize(boot)} bytes")
+    files = tuple(os.path.join(d, n) for n in
+                  ("g_pre.nc", "g_nomass.nc", "g_spunup.nc"))
+    argv = stage_argv(boot, files, model_km, years, "netcdf3")
+    argv[2].extend(["-config",
+                    "stress_balance.ssa.fd.line_pcr_impl=pallas_sublane"])
+    grid = Grid(Mx=int(1500 / model_km) + 1, My=int(2800 / model_km) + 1,
+                Mz=41, Lx=750e3, Ly=1400e3, Lz=4000.0)
+    cfg = Config({"runtime.float_dtype": "float32",
+                  "atmosphere.searise_greenland.file": boot})
+    s_boot = _bootstrap_card_vs_cpu(dev, boot, grid, cfg, "phase8a")
+    # the smb heuristic's Robin profile, from a copy with an SMB field
+    boot_cmb = os.path.join(d, "g_boot_cmb.nc")
+    _with_climatic_mass_balance(boot, boot_cmb)
+    s_robin = _bootstrap_card_vs_cpu(dev, boot_cmb, grid, cfg,
+                                     "phase8a smb", robin=True)
+    if torch.equal(s_robin.enthalpy, s_boot.enthalpy):
+        raise AssertionError("phase8a smb: the bootstrap did not take the "
+                             "Robin profile")
+
+    pcr = ("pcr_lines", "pcr_lines_sub", "pcr_factor_lines",
+           "pcr_factor_lines_sub")
+    k1 = ("ssa_matvec", "ssa_newton_matvec")
+    off = ("ssa_matvec_jvp", "ssa_matvec_halo", "ssa_matvec_halo_jvp",
+           "ssa_newton_matvec_halo", "sia_flux_thermo", "sia_flux")
+    results, t_prev, prev = [], 0.0, s_boot
+    for k, label in enumerate(("phase8a stage1", "phase8a stage2",
+                               "phase8a stage3")):
+        model, st, stats, counts = _cli(label, argv[k], [files[k]])
+        if k < 2:
+            _check_launches(label, counts, (), k1 + pcr + off)
+        else:
+            _check_launches(label, counts, k1 + pcr, off)
+        solves = []
+        with _patched([(SSAFD, "solve", "solve")],
+                      lambda _, orig: _recording_solve(orig, solves)):
+            ref, rst = _python_stage(dev, files[k], grid, prev, t_prev,
+                                     years[k])
+        if solves:
+            _print_solves(label, solves, rst.nsteps)
+        pairs = [("thk", st.geometry.ice_thickness, ref.geometry.ice_thickness),
+                 ("enthalpy", st.enthalpy, ref.enthalpy)]
+        if k == 2:
+            pairs += [("u_ssa", st.u_ssa, ref.u_ssa)]
+        counts_py = (rst.nsteps, rst.ssa_newton_iters, rst.ssa_krylov_iters)
+        if (stats.nsteps, stats.ssa_newton_iters, stats.ssa_krylov_iters) \
+                != counts_py:
+            raise AssertionError(f"{label}: the CLI and Python differ")
+        _same_bits(f"{label} CLI / io.bootstrap + factory + IceModel.run "
+                   f"(steps, Newton, Krylov {counts_py})", pairs)
+        for name, f in (("thk", st.geometry.ice_thickness),
+                        ("enthalpy", st.enthalpy)):
+            if not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"{label}: non-finite {name}")
+        results.append((st, stats, volume_of(files[k])[0]))
+        prev, t_prev = ckpt.load_state(files[k], device=dev)
+    _same_bits("phase8a stage2 thk / stage1 thk", [
+        ("thk", results[1][0].geometry.ice_thickness,
+         results[0][0].geometry.ice_thickness)])
+    v1, v2, v3 = (r[2] for r in results)
+    print(f"phase8a: volumes {v1:.1f} / {v2:.1f} / {v3:.1f} km^3 (stage 3 "
+          f"above 0.2x stage 1: {v3 > 0.2 * v1})")
+    if not (v3 > 0.2 * v1 and abs(v2 - v1) < 0.02 * v1):
+        raise AssertionError("phase8a: the workflow's check failed")
+    st3 = results[2][0]
+    _check_hybrid_state("phase8a stage3", st3, grid, results[2][1],
+                        t_prev, sum(years) * SPY)
+    with File(files[2], "r") as f:
+        if f.get_global_attr("proj") != SEARISE_PROJ \
+                or not f.has_variable("lat_bnds"):
+            raise AssertionError("phase8a: no projection in the output")
+    # the stage-1 output's lat/lon as util/projection.py gives them
+    from pism_tpu_torch.util import projection as prj
+    lon, lat = prj.lonlat_for_grid(grid, prj.from_proj_string(SEARISE_PROJ))
+    with File(files[0], "r") as f:
+        if not (np.array_equal(f.read("lat"), lat)
+                and np.array_equal(f.read("lon"), lon)):
+            raise AssertionError("phase8a: lat/lon differ from the projection")
+    if nccmp.compare(files[0], files[1], ["lat", "lon", "lat_bnds"]):
+        raise AssertionError("phase8a: lat/lon changed between stages")
+    _dirichlet_run(dev, d, st3, grid, t_prev, ckpt.load_config(files[2]))
+
+    # 8b: the 5 km bootstrap (the identity regrid) and a short stage 3
+    g5 = Grid(Mx=nx, My=ny, Mz=41, Lx=750e3, Ly=1400e3, Lz=4000.0)
+    s5 = _bootstrap_card_vs_cpu(dev, boot, g5, cfg, "phase8b")
+    with File(boot, "r") as f:
+        thk = np.maximum(np.nan_to_num(f.read("thk")), 0.0)
+    _same_bits("phase8b identity regrid thk", [
+        ("thk", s5.geometry.ice_thickness,
+         torch.tensor(thk, device=dev).float())])
+    f5 = tuple(os.path.join(d, n) for n in ("g5_boot.nc", "", "g5_spun.nc"))
+    a5 = stage_argv(boot, f5, data_km, (years_b[0], 0.0, years_b[1]),
+                    "netcdf3")
+    _cli("phase8b bootstrap", a5[0], [f5[0]])
+    a5[2][a5[2].index("-i") + 1] = f5[0]
+    a5[2].extend(["-config",
+                  "stress_balance.ssa.fd.line_pcr_impl=pallas_sublane"])
+    _, st5, stats5, counts5 = _cli("phase8b stage3", a5[2], [f5[0], f5[2]])
+    _check_launches("phase8b stage3", counts5, k1 + pcr, off)
+    _, t5 = ckpt.load_state(f5[2], device=dev)
+    _check_hybrid_state("phase8b stage3", st5, g5, stats5, t5,
+                        sum(years_b) * SPY)
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -1808,6 +2141,12 @@ def main():
     t7 = time.time()
     phase7_cli(dev, path_a)
     print(f"phase7: {time.time() - t7:.1f} s")
+    import tempfile
+    t8 = time.time()
+    print(f"phase8: {smi}")
+    with tempfile.TemporaryDirectory() as d:
+        phase8_workflow(dev, d)
+    print(f"phase8: {time.time() - t8:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

@@ -1,5 +1,5 @@
 """The command line (port of ``pism_tpu/cli.py``; PISM's ``pismv``
-verification runs, the EISMINT II experiments and the plain restart).
+verification runs, the EISMINT II experiments, bootstrapping and restarts).
 
 Routes of the port:
 
@@ -7,7 +7,16 @@ Routes of the port:
 - ``-test B/C``: the Halfar similarity solutions with an error report;
 - ``-eisII A/B/C/D/F``: EISMINT II from zero ice, or, with ``-i``, from a
   saved state (experiments B-D restart from A's end state);
-- ``-i FILE``: continue a state saved by either package, with zero SMB.
+- ``-i FILE -bootstrap``: a state from a data file on its own grid
+  (``io/bootstrap.py``) on the grid of ``-Mx/-My/-Mz/-Lx/-Ly/-Lz``;
+- ``-i FILE``: continue a state saved by either package; the coupler
+  chains stored in its config are rebuilt (zero SMB without one).
+
+With each route, ``-regrid_file``/``-regrid_vars`` replace 2D fields by
+ones regridded from another file, the coupler flags (``-atmosphere``,
+``-surface``, ``-ocean``, ``-sea_level``) build chains through
+``coupler/factory.py``, and ``stress_balance.ssa.dirichlet_bc`` reads the
+SSA's Dirichlet velocities from ``-i``.
 
 Every parser option of the JAX CLI parses. The options that need a module
 the port does not carry yet raise NotImplementedError naming the ROADMAP
@@ -20,6 +29,10 @@ Examples:
       -ts_file ts.nc -ts_times 0:100:1000 -extra_file ex.nc \\
       -extra_times 0:500:1000
   python -m pism_tpu_torch -i a.nc -y 100 -o b.nc -o_format netcdf3
+  python -m pism_tpu_torch -i g_boot.nc -bootstrap -Mx 76 -My 141 -Mz 41 \\
+      -Lx 750 -Ly 1400 -Lz 4000 -stress_balance sia \\
+      -atmosphere searise_greenland -surface pdd -y 100 -o g_pre.nc \\
+      -o_format netcdf3
 """
 
 from __future__ import annotations
@@ -234,15 +247,149 @@ def _unported(what: str, item: str):
 def _refuse_unported(args):
     """Options that need a module the port does not carry yet."""
     for flag, item in (("list_params", "4"), ("list_diagnostics", "3"),
-                       ("bootstrap", "3 (io/bootstrap.py)"),
-                       ("regrid_file", "3 (io/bootstrap.py)"),
                        ("regional", "7"), ("no_model_strip", "7"),
-                       ("atmosphere", "8"), ("surface", "8"), ("ocean", "8"),
-                       ("sea_level", "8"), ("inverse", "10"), ("view", "4")):
+                       ("inverse", "10"), ("view", "4")):
         if getattr(args, flag) not in (None, False):
             raise _unported(f"-{flag}", item)
     if args.test and args.test.upper() not in tuple("ABCDHL"):
         raise _unported(f"-test {args.test}", "5")
+
+
+def _regrid(args, grid, state):
+    """PISM ``-regrid_file``/``-regrid_vars``: the named 2D fields replaced
+    by values regridded from another file where those are not NaN (the
+    regridder clamps to the file's edges, so only NaN data keeps the
+    restored values)."""
+    import torch
+
+    from .io.bootstrap import read_and_regrid
+    from .io.checkpoint import _STATE_VARS
+    from .util.logger import log
+
+    names = [s.strip() for s in args.regrid_vars.split(",") if s.strip()]
+    fields = read_and_regrid(args.regrid_file, grid, variables=names)
+    geom = state.geometry
+    by_var = {v[0]: k for k, v in _STATE_VARS.items() if v[2] == 2}
+    by_var.update(thk="ice_thickness", topg="bed_elevation")
+    for var, arr in fields.items():
+        if var not in by_var:
+            print(f"warning: -regrid_vars {var!r} is not a regriddable 2D "
+                  "state variable; skipped", file=sys.stderr)
+            continue
+        name = by_var[var]
+        owner = geom if var in ("thk", "topg") else state
+        old = getattr(owner, name)
+        if old is None:
+            old = torch.zeros_like(geom.ice_thickness)
+        new = torch.as_tensor(arr).to(old.device)
+        new = torch.where(torch.isnan(new), old, new.to(old.dtype))
+        if owner is geom:
+            geom = geom.replace(**{name: new})
+        else:
+            state = state.replace(**{name: new})
+    log.message(2, "regridded %s from %s", ",".join(fields), args.regrid_file)
+    return state.replace(geometry=geom)
+
+
+def _couplers(args, cfg, grid, device):
+    """The coupler chains of the flags, or on a ``-i`` restart of the
+    chains stored in the file's config: ``(surface, ocean, sea_level)``,
+    each None where nothing selects one."""
+    import torch
+
+    from .coupler import factory as cf
+    from .io.bootstrap import (lonlat_from_projection, read_and_regrid,
+                               read_forcing_fields)
+
+    nd = cfg.non_default()
+    atm_sel = args.atmosphere or (args.i and nd.get("atmosphere.models"))
+    surf_sel = args.surface or (args.i and not args.eisII
+                                and nd.get("surface.models"))
+    ocean_sel = args.ocean or (args.i and nd.get("ocean.models"))
+    sl_sel = args.sea_level or (args.i and nd.get("sea_level.models"))
+    fdt = torch.float32 if cfg.get_string("runtime.float_dtype") == "float32" \
+        else torch.float64
+
+    def field(a):
+        return torch.as_tensor(a).to(device=device, dtype=fdt)
+
+    surface = ocean = sea_level = atm = None
+    if atm_sel:
+        cfg.update({"atmosphere.models": atm_sel})
+        inputs = cf.inputs_from_files(cfg, grid, "atmosphere", device)
+        if args.i and str(atm_sel).split(",")[0] == "searise_greenland":
+            # PISM reads the parameterization's inputs (lat/lon and the
+            # precipitation map) from the input file when no forcing file
+            # gives them; lat/lon from its projection if it has none
+            flds = read_and_regrid(args.i, grid, variables=[
+                "lat", "latitude", "lon", "longitude"])
+            lat = flds.get("lat", flds.get("latitude"))
+            lon = flds.get("lon", flds.get("longitude"))
+            if (lat is None or lon is None) and cfg.get_flag(
+                    "grid.recompute_longitude_and_latitude"):
+                lon_p, lat_p = lonlat_from_projection(args.i, grid)
+                lat = lat if lat is not None else lat_p
+                lon = lon if lon is not None else lon_p
+            if lat is not None:
+                inputs.setdefault("latitude", field(lat))
+            if lon is not None:
+                inputs.setdefault("longitude", field(lon))
+            if "precipitation" not in inputs:
+                pf, _ = read_forcing_fields(args.i, grid, ["precipitation"])
+                if "precipitation" in pf:
+                    p = pf["precipitation"]
+                    inputs["precipitation"] = field(p[-1] if p.ndim == 3
+                                                    else p)
+        atm = cf.atmosphere_from_config(cfg, inputs=inputs, grid=grid)
+    elif surf_sel and any(m in surf_sel for m in ("simple", "pdd")):
+        # a restored surface chain that needs an atmosphere whose own chain
+        # is the default (not stored as non-default): built from the config
+        atm = cf.atmosphere_from_config(
+            cfg, inputs=cf.inputs_from_files(cfg, grid, "atmosphere", device),
+            grid=grid)
+    if surf_sel:
+        cfg.update({"surface.models": surf_sel})
+        surface = cf.surface_from_config(
+            cfg, inputs=cf.inputs_from_files(cfg, grid, "surface", device),
+            atmosphere=atm)
+    elif atm is not None:
+        from .coupler.surface import Simple
+        surface = Simple(atmosphere=atm)
+    if ocean_sel:
+        cfg.update({"ocean.models": ocean_sel})
+        ocean = cf.ocean_from_config(
+            cfg, inputs=cf.inputs_from_files(cfg, grid, "ocean", device),
+            grid=grid)
+    if sl_sel:
+        cfg.update({"sea_level.models": sl_sel})
+        sea_level = cf.sea_level_from_config(
+            cfg, inputs=cf.inputs_from_files(cfg, grid, "sea_level", device))
+    return surface, ocean, sea_level
+
+
+def _dirichlet_bc(args, grid, model, device, dtype):
+    """PISM ``-ssa_dirichlet_bc``: ``bc_mask`` and ``u_bc``/``v_bc`` (m/year
+    in files) from ``-i`` fix the SSA velocity where the mask is set."""
+    import torch
+
+    from .io.bootstrap import read_and_regrid
+
+    flds = read_and_regrid(args.i, grid,
+                           ["bc_mask", "u_bc", "v_bc", "u_ssa_bc", "v_ssa_bc"])
+    bcm = flds.get("bc_mask")
+    ub = flds.get("u_bc", flds.get("u_ssa_bc"))
+    vb = flds.get("v_bc", flds.get("v_ssa_bc"))
+    if bcm is None or ub is None or vb is None:
+        raise SystemExit("-config stress_balance.ssa.dirichlet_bc=True needs "
+                         "bc_mask, u_bc and v_bc variables in the -i file")
+    if model.ssa is None:
+        raise SystemExit("ssa.dirichlet_bc needs an SSA stress balance")
+    model.ssa.bc_mask = torch.as_tensor(np.nan_to_num(bcm) > 0.5,
+                                        device=device)
+    model.ssa.bc_u = torch.as_tensor(np.nan_to_num(ub) / SEC_PER_YEAR).to(
+        device=device, dtype=dtype)
+    model.ssa.bc_v = torch.as_tensor(np.nan_to_num(vb) / SEC_PER_YEAR).to(
+        device=device, dtype=dtype)
 
 
 def _device(platform):
@@ -324,6 +471,22 @@ def main(argv=None):
             return lam / t * H, torch.full_like(H, 263.15)
 
         surface = FunctionSurface(smb)
+    elif args.i and args.bootstrap:
+        from .coupler.surface import Uniform
+        from .io.bootstrap import bootstrap
+        cfg = Config()
+        # the grid's parameters must be set before it is built (the
+        # overrides are applied again later with everything else)
+        _apply_config_overrides(cfg, args.config)
+        grid = Grid(Mx=args.Mx or cfg.get_int("grid.Mx"),
+                    My=args.My or cfg.get_int("grid.My"),
+                    Lx=args.Lx * 1e3 if args.Lx else cfg.get_number("grid.Lx"),
+                    Ly=args.Ly * 1e3 if args.Ly else cfg.get_number("grid.Ly"),
+                    Mz=args.Mz or cfg.get_int("grid.Mz"),
+                    Lz=args.Lz or cfg.get_number("grid.Lz"),
+                    registration=cfg.get_string("grid.registration"))
+        state = bootstrap(args.i, grid, cfg, device=device)
+        surface = Uniform(smb=0.0)
     elif args.i:
         from .coupler.surface import Uniform
         grid = ckpt.load_grid(args.i)
@@ -341,6 +504,9 @@ def main(argv=None):
             proj = f.get_global_attr("proj")
         if proj is not None:
             cfg.update({"grid.projection": str(proj)})
+
+    if args.regrid_file:
+        state = _regrid(args, grid, state)
 
     if args.config_override:
         if args.config_override.endswith(".json"):
@@ -392,7 +558,10 @@ def main(argv=None):
     cfg.update({"runtime.verbosity": args.verbose})
     if args.i:
         cfg.update({"input.file": args.i})
-    cfg.update({"input.bootstrap": False})
+    cfg.update({"input.bootstrap": bool(args.bootstrap)})
+    if args.regrid_file:
+        cfg.update({"input.regrid.file": args.regrid_file,
+                    "input.regrid.vars": args.regrid_vars})
     cfg.update({"output.file": args.o})
     if args.ys is not None:
         cfg.update({"time.start": args.ys})
@@ -401,12 +570,9 @@ def main(argv=None):
     if args.y is not None:
         cfg.update({"time.run_length": args.y})
 
-    # restarts rebuild the coupler chains recorded in the stored config
-    nd = cfg.non_default()
-    for key in ("atmosphere.models", "ocean.models", "sea_level.models") + (
-            () if args.eisII else ("surface.models",)):
-        if args.i and nd.get(key):
-            raise _unported(f"{key} = {nd[key]!r} in {args.i}", "8")
+    # the coupler flags; restarts rebuild the chains stored in the config
+    surf, ocean, sea_level = _couplers(args, cfg, grid, device)
+    surface = surf if surf is not None else surface
     if cfg.get_int("grid.Nx") or cfg.get_int("grid.Ny"):
         raise _unported("a device mesh (grid.Nx / grid.Ny)", "4")
 
@@ -430,7 +596,8 @@ def main(argv=None):
                     calendar=Calendar(cfg.get_string("time.calendar")),
                     reference_date=cfg.get_string("time.reference_date"))
 
-    model = IceModel(grid=grid, config=cfg, surface=surface, device=device)
+    model = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
+                     sea_level=sea_level, device=device)
     # the fields take the configured dtype (the EISMINT II and Halfar
     # states are built in float64 before -config is read)
     fdt = torch.float32 if cfg.get_string("runtime.float_dtype") == "float32" \
@@ -443,8 +610,7 @@ def main(argv=None):
         # cold-start the SSA instead of warm-starting from the input file
         state = state.replace(u_ssa=None, v_ssa=None)
     if cfg.get_flag("stress_balance.ssa.dirichlet_bc") and args.i:
-        raise _unported("stress_balance.ssa.dirichlet_bc (read from -i)",
-                        "3 (io/bootstrap.py)")
+        _dirichlet_bc(args, grid, model, device, fdt)
 
     # output flags fall back to their config parameters; the CLI values
     # mirror back in for provenance

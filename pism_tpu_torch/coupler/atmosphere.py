@@ -1,14 +1,21 @@
-"""Atmosphere boundary models (port of ``pism_tpu/coupler/atmosphere.py``,
-``SeariseGreenland`` only): near-surface air temperature [K] and
+"""Atmosphere boundary models (port of ``pism_tpu/coupler/atmosphere.py``:
+``Uniform``, ``Given``, ``SeariseGreenland`` and the scalar modifiers
+``DeltaT`` and ``DeltaP``): near-surface air temperature [K] and
 precipitation [m/s ice equivalent] from geometry and model time.
+
+Model time is a host float; ``Given``'s time stack is a
+``util.forcing.TimeStack``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..util.forcing import TimeStack
 
 
 class AtmosphereInputs(NamedTuple):
@@ -20,6 +27,45 @@ class AtmosphereInputs(NamedTuple):
 class AtmosphereModel:
     def __call__(self, geometry, t) -> AtmosphereInputs:
         raise NotImplementedError
+
+
+@dataclass
+class Uniform(AtmosphereModel):
+    temperature: float = 263.15
+    temperature_july: Optional[float] = None
+    precipitation: float = 0.0  # m/s ice equivalent
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        H = geometry.ice_thickness
+        Tj = self.temperature_july if self.temperature_july is not None \
+            else self.temperature
+        return AtmosphereInputs(torch.full_like(H, self.temperature),
+                                torch.full_like(H, Tj),
+                                torch.full_like(H, self.precipitation))
+
+
+@dataclass
+class Given(AtmosphereModel, TimeStack):
+    """Prescribed fields (PISM ``-atmosphere given``): single slices or
+    ``(Nt, My, Mx)`` stacks with a ``times`` axis [s]. Air temperature is
+    piecewise-linear in time, precipitation (a "time: mean" flux)
+    piecewise-constant; ``period`` > 0 cycles the series. With a time axis
+    ``temperature_july`` stays the instantaneous temperature, so the PDD's
+    cosine cycle drops out."""
+
+    temperature: torch.Tensor
+    precipitation: torch.Tensor
+    temperature_july: Optional[torch.Tensor] = None
+    times: Optional[np.ndarray] = None    # (Nt,) [s], sorted
+    period: float = 0.0                   # [s]; > 0 cycles the series
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        dt_ = geometry.ice_thickness.dtype
+        Ta = self._linear(self.temperature, t, dt_)
+        Tj = Ta if self.temperature_july is None \
+            else self.temperature_july.to(dt_)
+        return AtmosphereInputs(Ta, Tj,
+                                self._constant(self.precipitation, t, dt_))
 
 
 @dataclass
@@ -57,3 +103,33 @@ class SeariseGreenland(AtmosphereModel):
         T_jul = c["d_mj"] + c["gamma_mj"] * h + c["c_mj"] * lat \
             + c["kappa_mj"] * lon
         return AtmosphereInputs(T_ma, T_jul, self.precipitation.to(dt_))
+
+
+@dataclass
+class DeltaT(AtmosphereModel):
+    """Scalar temperature offset (PISM ``-atmosphere ...,delta_T``):
+    ``offset(t)`` is a host callable of model time, K
+    (``util.forcing.ScalarForcing``)."""
+
+    inner: AtmosphereModel
+    offset: Callable
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        a = self.inner(geometry, t)
+        dT = self.offset(t)
+        return AtmosphereInputs(a.temperature + dT, a.temperature_july + dT,
+                                a.precipitation)
+
+
+@dataclass
+class DeltaP(AtmosphereModel):
+    """Scalar precipitation offset (PISM ``-atmosphere ...,delta_P``),
+    m s-1 ice equivalent."""
+
+    inner: AtmosphereModel
+    offset: Callable
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        a = self.inner(geometry, t)
+        return AtmosphereInputs(a.temperature, a.temperature_july,
+                                a.precipitation + self.offset(t))

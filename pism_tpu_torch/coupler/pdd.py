@@ -61,6 +61,8 @@ class TemperatureIndex(SurfaceModel):
         require(cfg, "surface.pdd.fausto.enabled", (False,))
         require(cfg, "surface.pdd.std_dev.param_enabled", (False,))
         require(cfg, "surface.pdd.std_dev.file", ("",))
+        # the JAX model ramps sigma with latitude when given one
+        require(cfg, "surface.pdd.std_dev.lapse_lat_rate", (0.0,))
         self.factor_snow = cfg.get_number("surface.pdd.factor_snow", "m K-1 s-1")
         self.factor_ice = cfg.get_number("surface.pdd.factor_ice", "m K-1 s-1")
         self.refreeze = cfg.get_number("surface.pdd.refreeze")

@@ -1,14 +1,17 @@
 """Surface (climate) boundary models (port of
 ``pism_tpu/coupler/surface.py``: the data types, the base class the PDD
 model builds on, the stateless ``FunctionSurface`` of the verification
-setups and the spatially uniform ``Uniform``)."""
+setups, ``Uniform``, ``Simple``, ``Given`` and the ``DeltaT`` modifier)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..util.forcing import TimeStack
 
 
 class SurfaceInputs(NamedTuple):
@@ -68,3 +71,61 @@ class Uniform(SurfaceModel):
         H = geometry.ice_thickness
         return SurfaceInputs(smb=torch.full_like(H, self.smb),
                              temperature=torch.full_like(H, self.temperature))
+
+
+@dataclass
+class Simple(SurfaceModel):
+    """PISM ``-surface simple``: SMB = the atmosphere's precipitation, ice
+    surface temperature = its mean-annual air temperature."""
+
+    atmosphere: object          # AtmosphereModel
+
+    def __call__(self, geometry, t) -> SurfaceInputs:
+        a = self.atmosphere(geometry, t)
+        return SurfaceInputs(a.precipitation, a.temperature)
+
+
+@dataclass
+class Given(SurfaceModel, TimeStack):
+    """Prescribed fields (PISM ``-surface given``): single slices or
+    ``(Nt, My, Mx)`` stacks with a ``times`` axis [s]; SMB (a "time: mean"
+    flux) piecewise-constant, temperature piecewise-linear; ``period`` > 0
+    cycles the series."""
+
+    smb_field: torch.Tensor
+    temperature_field: torch.Tensor
+    times: Optional[np.ndarray] = None    # (Nt,) [s], sorted
+    period: float = 0.0                   # [s]; > 0 cycles the series
+
+    def __call__(self, geometry, t) -> SurfaceInputs:
+        return SurfaceInputs(
+            self._constant(self.smb_field, t, self.smb_field.dtype),
+            self._linear(self.temperature_field, t,
+                         self.temperature_field.dtype))
+
+
+@dataclass
+class DeltaT(SurfaceModel):
+    """PISM ``-surface ...,delta_T``: a scalar ice-surface-temperature
+    offset ``offset(t)`` [K] (a host callable) on an inner model, stateful
+    when the inner model is (the PDD's carry passes through)."""
+
+    inner: SurfaceModel
+    offset: Callable            # t -> K
+
+    @property
+    def stateful(self) -> bool:
+        return bool(getattr(self.inner, "stateful", False))
+
+    def _transform(self, s: SurfaceInputs, t) -> SurfaceInputs:
+        return s._replace(temperature=s.temperature + self.offset(t))
+
+    def __call__(self, geometry, t) -> SurfaceInputs:
+        return self._transform(self.inner(geometry, t), t)
+
+    def update(self, geometry, t, dt, carry: SurfaceCarry):
+        s, carry = self.inner.update(geometry, t, dt, carry)
+        return self._transform(s, t), carry
+
+    def max_timestep(self, t) -> float:
+        return self.inner.max_timestep(t)

@@ -83,6 +83,37 @@ def _setup_dims(f, grid: Grid, config: Optional[Config] = None):
             "units": "m", "axis": "Z", "positive": "up"})
 
 
+def write_projection(f, grid: Grid, config: Config):
+    """With ``grid.projection`` set: the ``proj`` attribute and, when the
+    string parses, the mandatory ``lat``/``lon`` and their CF cell bounds
+    ``lat_bnds``/``lon_bnds`` (PISM stores them in every output file;
+    JAX ``pism_tpu/io/checkpoint.py:125-155``). The bounds' ``nv4``
+    dimension goes through ``has_dimension``, so classic files get them
+    too."""
+    from ..util import projection as prj
+
+    proj = config.get_string("grid.projection")
+    if not proj:
+        return
+    f.set_global_attr("proj", proj)
+    try:
+        ps = prj.from_proj_string(proj)
+    except ValueError:
+        return
+    lon, lat = prj.lonlat_for_grid(grid, ps)
+    f.write("lat", lat, ("y", "x"), {"units": "degrees_north",
+                                     "standard_name": "latitude",
+                                     "bounds": "lat_bnds"})
+    f.write("lon", lon, ("y", "x"), {"units": "degrees_east",
+                                     "standard_name": "longitude",
+                                     "bounds": "lon_bnds"})
+    lon_b, lat_b = prj.lonlat_bounds_for_grid(grid, ps)
+    if not f.has_dimension("nv4"):
+        f.define_dimension("nv4", 4)
+    f.write("lat_bnds", lat_b, ("y", "x", "nv4"), {"units": "degrees_north"})
+    f.write("lon_bnds", lon_b, ("y", "x", "nv4"), {"units": "degrees_east"})
+
+
 def _write_diagnostics(f, grid: Grid, values: dict, n: int):
     from ..model import diagnostics as dg
     for name, v in values.items():
@@ -104,11 +135,6 @@ def save_state(path: str, state: S.ModelState, grid: Grid, t: float,
     extra_2d: time-independent 2D fields ``{name: (array, attrs)}``;
     diagnostics: ``{name: array}`` of ``diagnostic_values``, written in the
     same pass (the ``-o_size`` sets; a classic file cannot be appended to)."""
-    if config is not None and config.get_string("grid.projection"):
-        raise NotImplementedError(
-            "grid.projection (lat/lon and the mapping in output files) is "
-            "not implemented in pism_tpu_torch (ROADMAP Queue 1 item 3: "
-            "util/projection.py)")
     with File(path, "w", format=format) as f:
         _setup_dims(f, grid, config)
         n = f.append_time(t)
@@ -139,6 +165,7 @@ def save_state(path: str, state: S.ModelState, grid: Grid, t: float,
             _write_diagnostics(f, grid, diagnostics, n)
         if config is not None:
             f.set_global_attr("pism_config", config.to_json())
+            write_projection(f, grid, config)
         f.set_global_attr("source", "pism_tpu")
         f.set_global_attr("grid_json", _grid_json(grid))
         if config is not None:

@@ -13,6 +13,7 @@ Dirichlet at E_s(p_b) with the melt rate from the flux imbalance.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -176,16 +177,34 @@ class EnergyModel:
 
 
 def bootstrap_enthalpy(grid, EC: EnthalpyConverter, thickness, surface_T,
-                       geothermal=0.042, k_i=2.10):
-    """Initial 3D enthalpy guess: the conduction-only profile
-    T(z) = T_s + (G/k)(H - z), capped at the pressure-melting point. (The
-    JAX package selects it whenever no SMB field is passed, which is how
-    ``IceModel.prepare_state`` calls it.)"""
+                       smb=None, geothermal=0.042, k_i=2.10,
+                       heuristic: str = "smb", rho=910.0, c_i=2009.0):
+    """Initial 3D enthalpy guess (PISM ``src/energy/utilities.cc`` bootstrap
+    profiles, selected by ``bootstrapping.temperature_heuristic``):
+
+    - ``"smb"`` with an SMB field: the Robin (1955) advective-conductive
+      steady profile T(z) = T_s + (G/k)(sqrt(pi)/2) q [erf(H/q) - erf(z/q)]
+      with q = sqrt(2 kappa H / a) and a the accumulation rate [m/s];
+    - ``"quartic_guess"``, or no SMB (as ``IceModel.prepare_state`` calls
+      it): the conduction-only profile T(z) = T_s + (G/k)(H - z).
+
+    Both are capped at the pressure-melting point. ``geothermal`` is a
+    number or a 2D field."""
     H = thickness
     z = torch.as_tensor(grid.z, dtype=H.dtype, device=H.device)
-    depth = torch.clamp(H[..., None] - z, min=0.0)
-    T = surface_T[..., None] + geothermal / k_i * depth
+    Hc = H[..., None]
+    depth = torch.clamp(Hc - z, min=0.0)
+    G = geothermal[..., None] if torch.is_tensor(geothermal) else geothermal
+    Ts = surface_T[..., None]
+    if heuristic == "smb" and smb is not None:
+        kappa = k_i / (rho * c_i)
+        a = torch.clamp(smb[..., None], min=1e-12)   # m/s
+        q = torch.sqrt(2.0 * kappa * torch.clamp(Hc, min=1.0) / a)
+        zz = torch.clamp(Hc - depth, min=0.0)        # height above the base
+        T = Ts + (G / k_i) * (math.sqrt(math.pi) / 2.0) * q \
+            * (torch.special.erf(Hc / q) - torch.special.erf(zz / q))
+    else:
+        T = Ts + G / k_i * depth
     p = EC.pressure(depth)
     T = torch.minimum(T, EC.melting_temperature(p))
     return EC.enthalpy(T, 0.0, p)
-

@@ -18,7 +18,8 @@ isothermal SIA with no 3D velocities); the SIA stress balance and, with
 hydrology; thickness calving with iceberg removal, ocean-kill calving
 given as a ``calving`` component, or no calving; pointwise isostasy or no
 bed deformation; part-grid mass transport with skip substeps; a stateful
-PDD surface model or a stateless one; an optional constant ocean. Any
+PDD surface model or a stateless one; an optional constant ocean; an
+optional sea-level model, evaluated before each step's dynamics. Any
 other configured component raises NotImplementedError.
 
 ``device`` (default ``"cuda"``) is where every field lives:
@@ -148,6 +149,7 @@ class IceModel:
     config: Config
     surface: object = None     # SurfaceModel: stateful (PDD) or stateless
     ocean: object = None       # OceanModel (sub-shelf melt), optional
+    sea_level: object = None   # SeaLevelModel, optional
     calving: object = None     # CalvingModel; default from the config
     device: object = "cuda"    # torch device of every field
     mesh: object = None        # ("y", "x") Mesh of the kernel routes
@@ -324,6 +326,15 @@ class IceModel:
     def _step(self, state: S.ModelState, t: float, t_end: float,
               stats: StepStats):
         dtype = state.geometry.ice_thickness.dtype
+
+        # 0. sea-level forcing, before the dynamics, so the flotation mask
+        # sees the current value --------------------------------------------
+        if self.sea_level is not None:
+            geom = state.geometry
+            sl = self.sea_level(geom, t).to(dtype).expand(geom.sea_level.shape)
+            state = state.replace(geometry=S.ensure_consistency(
+                geom.replace(sea_level=sl), self.rho_i, self.rho_w, self.Hmin,
+                self.subgl))
 
         # 1-2. stress balance and adaptive dt ------------------------------
         tau_c = None

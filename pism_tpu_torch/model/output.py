@@ -171,6 +171,8 @@ class OutputManager:
             self._extra_f = File(self.extra_file, "w", format=self.format)
             ckpt._setup_dims(self._extra_f, self.grid, self.config)
             self._setup_bounds(self._extra_f)
+            if self.config is not None:
+                ckpt.write_projection(self._extra_f, self.grid, self.config)
         if self.ts_file and self._ts:
             self._ts_f = File(self.ts_file, "w", format=self.format)
             units, cal = "seconds since 1-1-1", "365_day"

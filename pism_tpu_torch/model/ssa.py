@@ -9,6 +9,11 @@ and ``ssa_newton_matvec`` on the whole field, or, with a ("y", "x")
 ``mesh`` of more than one device, K5 and ``ssa_newton_matvec_halo`` per
 shard (``ops/sharded.py``; JAX ``pism_tpu/model/ssa.py:372-379``).
 
+Static Dirichlet boundary conditions (``bc_mask``, ``bc_u``, ``bc_v``;
+PISM ``-ssa_dirichlet_bc``) join the ice-free rows: their values are lifted
+into the right-hand side of each Picard sweep (one more operator launch)
+and the Newton matvec's Dirichlet rows take the joint mask.
+
 Front treatment (PISM's calving-front stress boundary condition):
 ice-free cells are Dirichlet u = 0 rows decoupled from the ice, no
 membrane stress crosses icy<->ice-free faces, and the depth-integrated
@@ -52,6 +57,11 @@ class SSAFD:
     config: object
     flow_law: object
     sliding_law: Optional[SlidingLaw] = None
+    # optional static Dirichlet BC: where bc_mask, the velocity is fixed to
+    # (bc_u, bc_v) [m/s] (PISM -ssa_dirichlet_bc)
+    bc_mask: Optional[torch.Tensor] = None
+    bc_u: Optional[torch.Tensor] = None
+    bc_v: Optional[torch.Tensor] = None
     # ("y", "x") Mesh: with more than one device the matvec and its JVP run
     # per shard through K5
     mesh: object = None
@@ -198,13 +208,27 @@ class SSAFD:
         grounded_ice_mask = S.grounded_ice(mask)
         gf = geom.cell_grounded_fraction if self.subgl_drag else None
 
-        # Dirichlet rows: ice-free cells, decoupled, with value 0 (so the
-        # JAX package's full() and free() coincide here)
-        bc_mask = ~icy
+        # Dirichlet rows: ice-free cells (decoupled, value 0) and the static
+        # BC; free() zeroes them, full() puts in their values (without a BC
+        # the two coincide)
+        bc_u = bc_v = None
+        if self.bc_mask is not None:
+            fixed = self.bc_mask.to(torch.bool)
+            bc_mask = fixed | ~icy
+            bc_u = torch.where(fixed, self.bc_u.to(dtype), 0.0)
+            bc_v = torch.where(fixed, self.bc_v.to(dtype), 0.0)
+        else:
+            bc_mask = ~icy
 
         def free(x):
             return (torch.where(bc_mask, 0.0, x[0]),
                     torch.where(bc_mask, 0.0, x[1]))
+
+        def full(x):
+            if bc_u is None:
+                return free(x)
+            return (torch.where(bc_mask, bc_u, x[0]),
+                    torch.where(bc_mask, bc_v, x[1]))
 
         nuH_kw = dict(n_glen=self.n_glen, eps_reg2=self.eps_reg2,
                       extension_nuH=self.extension_nuH,
@@ -257,15 +281,16 @@ class SSAFD:
                                                *coefs, beta, bc_mask, dx, dy)
 
         def residual(uv):
-            u, v = free(uv)
+            u, v = full(uv)
             nuH = make_nuH(u, v)
             Au, Av = apply_op(u, v, nuH, beta_fn(u, v))
             return free((Au - bx, Av - by))
 
-        return dict(residual=residual, free=free, make_nuH=make_nuH,
-                    linearize_nuH=linearize_nuH, beta_fn=beta_fn, apply=apply_op,
+        return dict(residual=residual, free=free, full=full,
+                    make_nuH=make_nuH, linearize_nuH=linearize_nuH,
+                    beta_fn=beta_fn, apply=apply_op,
                     newton_matvec=newton_matvec, bc_mask=bc_mask,
-                    bx=bx, by=by, icy=icy, tau_c=tau_c)
+                    bc_u=bc_u, bc_v=bc_v, bx=bx, by=by, icy=icy, tau_c=tau_c)
 
     def solve(self, state: S.ModelState, tau_c=None, u0=None, v0=None,
               diagnostics: bool = False):
@@ -284,6 +309,7 @@ class SSAFD:
 
         P = self.build_problem(state, tau_c)
         apply_op, free, residual = P["apply"], P["free"], P["residual"]
+        full, bc_u, bc_v = P["full"], P["bc_u"], P["bc_v"]
         make_nuH, beta_fn = P["make_nuH"], P["beta_fn"]
         linearize_nuH = P["linearize_nuH"]
         bc_mask, bx, by = P["bc_mask"], P["bx"], P["by"]
@@ -336,7 +362,7 @@ class SSAFD:
         decay = (reg_final / reg0) ** (1.0 / nwarm)
 
         def picard_iter(i, uv, reg=None, max_iter=None):
-            u, v = free(uv)
+            u, v = full(uv)
             nuH = make_nuH(u, v)
             if reg is None:
                 reg = max(reg0 * decay ** (i + 1.0), reg_final)
@@ -348,9 +374,14 @@ class SSAFD:
                 bc = zeros_where_bc(x)
                 return out[0] + bc[0], out[1] + bc[1]
 
-            # Dirichlet values are 0, so the RHS needs no correction
+            rhs = (bx, by)
+            if bc_u is not None:
+                # the lift of the Dirichlet values into the RHS (ice-free
+                # rows are 0 and need none)
+                Aub, Avb = apply_op(bc_u, bc_v, nuH, beta)
+                rhs = (bx - Aub, by - Avb)
             sol, _, _ = ssa_ops.bicgstab_solve(
-                matvec, free((bx, by)), free(uv), make_precond(nuH, beta),
+                matvec, free(rhs), free(uv), make_precond(nuH, beta),
                 rtol=self.warmup_ksp_rtol,
                 max_iter=self.ksp_max if max_iter is None else max_iter,
                 dot_dtype=ddt)
@@ -409,7 +440,7 @@ class SSAFD:
             return host((F2 > newton_tol2) & (improving | retry))
 
         while keep_going():
-            u, v = free(uv)
+            u, v = full(uv)
             # Newton linearization built by hand once per sweep (beta
             # frozen, the Picard drag Jacobian): J d = A(d; nuH, beta) +
             # A(u; dnuH(d), 0) with dnuH the forward-mode derivative of the
@@ -510,7 +541,7 @@ class SSAFD:
             it += 1
             ktot += kit
 
-        u, v = free(uv)
+        u, v = full(uv)
         u = torch.clamp(u, -self.max_speed, self.max_speed)
         v = torch.clamp(v, -self.max_speed, self.max_speed)
         if diagnostics:

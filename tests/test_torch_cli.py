@@ -235,9 +235,14 @@ def test_shorthands_set_the_config(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-bootstrap", "-i", "x.nc"], ["-regrid_file", "x.nc"], ["-regional"],
-    ["-no_model_strip", "30"], ["-atmosphere", "uniform"],
-    ["-surface", "pdd"], ["-ocean", "pik"], ["-sea_level", "constant"],
+    ["-test", "B", "-Mx", "11", "-atmosphere", "yearly_cycle"],
+    ["-test", "B", "-Mx", "11", "-sea_level", "constant",
+     "-config", "ocean.delta_sl_2d.file=x.nc"], ["-regional"],
+    ["-no_model_strip", "30"],
+    ["-test", "B", "-Mx", "11", "-atmosphere", "uniform,anomaly"],
+    ["-test", "B", "-Mx", "11", "-surface", "pdd,cache"],
+    ["-test", "B", "-Mx", "11", "-ocean", "pik"],
+    ["-test", "B", "-Mx", "11", "-sea_level", "constant,delta_sl_2d"],
     ["-inverse"], ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
     ["-test", "E"], ["-test", "F"], ["-test", "G"], ["-test", "I"],
     ["-test", "J"], ["-test", "K"], ["-test", "M"], ["-test", "N"],
@@ -316,3 +321,344 @@ def test_cli_module_entry_reads_nothing_of_the_jax_package(tmp_path):
     for name in ("b.nc", "ts.nc", "ex.nc"):
         with open(tmp_path / name, "rb") as fh:
             assert fh.read(3) == b"CDF"
+
+
+
+# -- the std-greenland workflow through both command lines ----------------
+
+def _untie(src, dst):
+    """``src``'s state with the enthalpies that sit exactly at the
+    pressure-melting value moved 1 J/kg below it, written to ``dst``
+    (the JAX package decides those ties at random under ``jit``;
+    tests/test_torch_hybrid_chain.py); returns how many moved."""
+    from pism_tpu_torch.physics.enthalpy_converter import EnthalpyConverter
+    cfg = t_ckpt.load_config(src)
+    st, t = t_ckpt.load_state(src, device="cpu")
+    grid = t_ckpt.load_grid(src)
+    EC = EnthalpyConverter.from_config(cfg)
+    depth = torch.clamp(st.geometry.ice_thickness[..., None]
+                        - torch.as_tensor(grid.z), min=0.0)
+    Es = EC.enthalpy_cts(EC.pressure(depth))
+    tie = (st.enthalpy - Es).abs() <= 1e-9 * Es.abs()
+    st = st.replace(enthalpy=torch.where(tie, st.enthalpy - 1.0, st.enthalpy))
+    t_ckpt.save_state(dst, st, grid, t, config=cfg, format="netcdf3")
+    return int(tie.sum())
+
+
+def _both_clis(argv_of):
+    """``argv_of(pkg, fmt)`` through both packages' main (the JAX package
+    writing NetCDF-4, the port classic files): {pkg: (steps, hits)}."""
+    import contextlib
+    import io
+
+    out = {}
+    for pkg, main, fmt, extra in (
+            ("jax", j_cli.main, "netcdf4", []),
+            ("torch", t_cli.main, "netcdf3", ["-platform", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(argv_of(pkg, fmt) + extra + [
+                "-config", "time_stepping.count_time_steps=true"]) == 0
+        m = re.search(r"count_time_steps: (\d+) adaptive steps \(binding "
+                      r"limits: (\{.*\})\)", buf.getvalue())
+        out[pkg] = (int(m.group(1)), eval(m.group(2))) if m else (0, {})
+    return out
+
+
+@pytest.fixture(scope="module")
+def workflow(tmp_path_factory):
+    """The std-greenland workflow at 100 km (16 x 29 x 41, float64) through
+    both command lines: the bootstrap (zero length), stage 1 (SIA, 2 a),
+    stage 2 (no mass, 2 a) and stage 3 (hybrid, 2 a; and its first 0.5 a
+    alone). Each package continues from its own file, except where the
+    enthalpy ties are moved off (after the bootstrap and before stage 3):
+    both continue from the port's untied file there."""
+    from pism_tpu_torch.examples.std_greenland_workflow import (
+        stage_argv, synthesize_bootstrap_file)
+
+    d = tmp_path_factory.mktemp("std_greenland")
+    boot = str(d / "g_boot.nc")
+    synthesize_bootstrap_file(boot, 100.0, "netcdf4")
+    f = {(p, k): str(d / f"{p}_{k}.nc") for p in ("jax", "torch")
+         for k in ("b0", "pre", "nomass", "spun", "s3a")}
+
+    def argv(p, fmt, stage, src=None, out=None, y=None):
+        files = (f[p, "pre"], f[p, "nomass"], f[p, "spun"])
+        a = stage_argv(boot, files, 100.0, (2.0, 2.0, 2.0), fmt,
+                       dtype="float64")[stage]
+        for flag, val in (("-i", src), ("-o", out), ("-y", y)):
+            if val is not None:
+                a[a.index(flag) + 1] = str(val)
+        return a
+
+    def stage1(p, fmt):
+        a = argv(p, fmt, 0)
+        return ["-i", str(d / "tie0.nc")] + a[a.index("-stress_balance"):]
+
+    res = {"files": f, "boot": boot, "dir": d}
+    res["b0"] = _both_clis(lambda p, fmt: argv(p, fmt, 0, out=f[p, "b0"],
+                                               y=0))
+    res["ties0"] = _untie(f["torch", "b0"], str(d / "tie0.nc"))
+    res["pre"] = _both_clis(stage1)
+    res["nomass"] = _both_clis(lambda p, fmt: argv(p, fmt, 1))
+    res["ties2"] = _untie(f["torch", "nomass"], str(d / "tie2.nc"))
+    res["s3a"] = _both_clis(lambda p, fmt: argv(
+        p, fmt, 2, src=d / "tie2.nc", out=f[p, "s3a"], y=0.5))
+    res["spun"] = _both_clis(lambda p, fmt: argv(p, fmt, 2,
+                                                 src=d / "tie2.nc"))
+    return res
+
+
+def _cmp(a, b, names, tol_of_max):
+    """The port's nccmp on ``names``, each within ``tol_of_max`` of its
+    max |value| in ``b``."""
+    from pism_tpu_torch.util import nccmp
+    bad = []
+    for name in names:
+        with File(b, "r") as fb:
+            scale = float(np.abs(np.asarray(fb.read(name), float)).max())
+        bad += nccmp.compare(a, b, [name], atol=tol_of_max * scale)
+    return [str(m) for m in bad]
+
+
+def test_workflow_bootstrap_matches(workflow):
+    """The bootstrap through both command lines: the same variables, every
+    field within 1e-12 of its max."""
+    f = workflow["files"]
+    a, b = f["torch", "b0"], f["jax", "b0"]
+    with File(a, "r") as fa, File(b, "r") as fb:
+        names = sorted(set(fa.variables()))
+        assert names == sorted(set(fb.variables()))
+    names = [n for n in names if n not in ("time", "mask")]
+    assert _cmp(a, b, names, 1e-12) == []
+    assert workflow["b0"]["torch"] == workflow["b0"]["jax"]
+    assert workflow["ties0"] > 0
+
+
+@pytest.mark.parametrize("stage", ["pre", "nomass"])
+def test_workflow_sia_stages_match(workflow, stage):
+    """Stages 1 and 2: equal steps and dt-limit hits, H within 1e-9 of
+    max|H|, E within 1e-9 relative, the PDD's snow within 1e-9."""
+    f = workflow["files"]
+    steps = workflow[stage]
+    assert steps["torch"] == steps["jax"] and steps["torch"][0] > 0
+    a, b = f["torch", stage], f["jax", stage]
+    assert _cmp(a, b, ["thk", "usurf", "enthalpy", "snow_depth",
+                       "firn_depth"], 1e-9) == []
+
+
+def test_workflow_no_mass_stage_keeps_thickness(workflow):
+    f = workflow["files"]
+    with File(f["torch", "pre"], "r") as fa, \
+            File(f["torch", "nomass"], "r") as fb:
+        np.testing.assert_array_equal(fa.read("thk")[-1], fb.read("thk")[-1])
+        assert fb.read("time")[-1] - fa.read("time")[-1] == \
+            pytest.approx(2.0 * SPY)
+
+
+def test_workflow_hybrid_stage_matches(workflow):
+    """Stage 3's first 0.5 a (one step: the cold SSA solve) at the hybrid
+    chain's tolerances (tests/test_torch_hybrid_chain.py). Its SSA solves
+    do not converge in either package (at this 100 km state the Newton
+    loop stagnates at |F|^2 ~ 1e7 tolerance, 42 sweeps, in both), so from
+    the second step on the two runs part as rounding decides; over the
+    stage's 2 a they are held to equal steps and dt-limit hits and the
+    ice volume within 1e-3, and the workflow's own check."""
+    from pism_tpu_torch.examples.std_greenland_workflow import volume_of
+    f = workflow["files"]
+    assert workflow["s3a"]["torch"] == workflow["s3a"]["jax"]
+    a, b = f["torch", "s3a"], f["jax", "s3a"]
+    assert _cmp(a, b, ["thk", "usurf", "enthalpy", "Href"], 5e-7) == []
+    assert _cmp(a, b, ["u_ssa", "v_ssa"], 5e-2) == []
+    assert workflow["spun"]["torch"] == workflow["spun"]["jax"]
+    (vj, _), (vt, thk) = volume_of(f["jax", "spun"]), \
+        volume_of(f["torch", "spun"])
+    assert abs(vt - vj) <= 1e-3 * vj
+    v1 = volume_of(f["torch", "pre"])[0]
+    v2 = volume_of(f["torch", "nomass"])[0]
+    assert np.isfinite(thk).all() and vt > 0.2 * v1 and abs(v2 - v1) < 0.02 * v1
+
+
+def test_regrid_file_matches(workflow, tmp_path):
+    """``-regrid_file``/``-regrid_vars`` over a restart: the named 2D
+    fields replaced where the file has data (NaN keeps the restored
+    value; points outside its extent take its edge values), a name that is
+    no 2D state variable skipped; both packages alike."""
+    f = workflow["files"]
+    src = str(tmp_path / "regrid.nc")
+    with File(workflow["boot"], "r") as fb:
+        x, y = fb.read("x"), fb.read("y")
+        thk = 0.9 * np.asarray(fb.read("thk"))
+    thk[10:14, 5:9] = np.nan
+    sel = slice(2, -2)
+    with File(src, "w") as fo:
+        fo.define_dimension("y", y[sel].size, y[sel])
+        fo.define_dimension("x", x[sel].size, x[sel])
+        fo.write("thk", thk[sel, sel], ("y", "x"), {"units": "m"})
+        fo.write("bmelt", np.full(thk[sel, sel].shape, 1e-9), ("y", "x"),
+                 {"units": "m s-1"})
+        fo.write("lat", np.zeros(thk[sel, sel].shape), ("y", "x"), {})
+    outs = {}
+
+    def argv(p, fmt):
+        outs[p] = str(tmp_path / f"{p}.nc")
+        return ["-i", f[p, "pre"], "-y", "0", "-o", outs[p], "-o_format", fmt,
+                "-regrid_file", src, "-regrid_vars", "thk,bmelt,lat",
+                "-verbose", "1"]
+
+    _both_clis(argv)
+    assert _cmp(outs["torch"], outs["jax"], ["thk", "bmelt", "usurf"],
+                1e-12) == []
+    with File(outs["torch"], "r") as fo, File(f["torch", "pre"], "r") as fi:
+        new, old = fo.read("thk")[-1], fi.read("thk")[-1]
+        assert not np.array_equal(new, old)
+        np.testing.assert_array_equal(fo.read("bmelt")[-1], 1e-9)
+        cfg = t_ckpt.load_config(outs["torch"])
+        assert cfg.get_string("input.regrid.file") == src
+
+
+def test_stored_chains_are_rebuilt_on_restart(workflow, tmp_path):
+    """A plain ``-i`` restart rebuilds the coupler chains stored in the
+    file's config (searise_greenland + pdd, with the data file named
+    there): equal to the bit to the run that names them, and to the JAX
+    package's restart within 1e-9."""
+    f = workflow["files"]
+    outs = {}
+
+    def argv(p, fmt, name="plain"):
+        outs[p, name] = str(tmp_path / f"{p}_{name}.nc")
+        return ["-i", f["torch", "pre"], "-y", "0.5", "-o", outs[p, name],
+                "-o_format", fmt, "-verbose", "1"]
+
+    _both_clis(argv)
+    cfg = t_ckpt.load_config(f["torch", "pre"]).non_default()
+    assert cfg["atmosphere.models"] == "searise_greenland"
+    assert cfg["surface.models"] == "pdd"
+    flags = ["-atmosphere", "searise_greenland", "-surface", "pdd"]
+    assert t_cli.main(argv("torch", "netcdf3", "flags") + flags
+                      + ["-platform", "cpu"]) == 0
+    from pism_tpu_torch.util import nccmp
+    names = ["thk", "enthalpy", "snow_depth", "firn_depth"]
+    assert nccmp.compare(outs["torch", "plain"], outs["torch", "flags"],
+                         names) == []
+    assert _cmp(outs["torch", "plain"], outs["jax", "plain"], names,
+                1e-9) == []
+
+
+PROJ = "+proj=stere +lat_0=90 +lat_ts=71 +lon_0=-39 +k=1 +x_0=0 +y_0=0"
+
+
+@pytest.mark.parametrize("fmt", ["netcdf3", "netcdf4"])
+def test_bootstrap_outputs_carry_the_projection(tmp_path, fmt):
+    """A data file with a ``proj`` attribute: the run adopts it, and its
+    state file and spatial series carry ``proj``, lat/lon and their cell
+    bounds from ``util/projection.py`` in either format; the JAX package's
+    NetCDF-4 state file holds the same."""
+    from pism_tpu_torch.examples.std_greenland_workflow import (
+        stage_argv, synthesize_bootstrap_file)
+    from pism_tpu_torch.util import nccmp
+    from pism_tpu_torch.util import projection as prj
+
+    boot = str(tmp_path / "boot.nc")
+    synthesize_bootstrap_file(boot, 100.0, fmt, proj=PROJ)
+    out, ex = str(tmp_path / "o.nc"), str(tmp_path / "ex.nc")
+    a = stage_argv(boot, (out, "", ""), 100.0, (1.0, 0, 0), fmt,
+                   Mz=11, dtype="float64")[0]
+    assert t_cli.main(a + ["-platform", "cpu", "-extra_file", ex,
+                           "-extra_times", "1"]) == 0
+    grid = t_ckpt.load_grid(out)
+    lon, lat = prj.lonlat_for_grid(grid, prj.from_proj_string(PROJ))
+    lon_b, lat_b = prj.lonlat_bounds_for_grid(grid, prj.from_proj_string(PROJ))
+    for path in (out, ex):
+        with File(path, "r") as fo:
+            assert fo.get_global_attr("proj") == PROJ
+            np.testing.assert_array_equal(fo.read("lat"), lat)
+            np.testing.assert_array_equal(fo.read("lon"), lon)
+            np.testing.assert_array_equal(fo.read("lat_bnds"), lat_b)
+            np.testing.assert_array_equal(fo.read("lon_bnds"), lon_b)
+    jout = str(tmp_path / "j.nc")
+    ja = stage_argv(boot, (jout, "", ""), 100.0, (0, 0, 0), "netcdf4",
+                    Mz=11, dtype="float64")[0]
+    assert j_cli.main(ja) == 0
+    assert nccmp.compare(out, jout, ["lat", "lon", "lat_bnds", "lon_bnds"],
+                         atol=1e-12) == []
+
+
+def test_ssa_dirichlet_bc_from_the_input_file(workflow, tmp_path):
+    """``stress_balance.ssa.dirichlet_bc`` reads ``bc_mask``, ``u_bc`` and
+    ``v_bc`` (m/year) from ``-i``: the solved velocity equals the BC on the
+    mask to the bit, and one hybrid step agrees with the JAX package's at
+    the hybrid chain's tolerances."""
+    f = workflow["files"]
+    src = str(workflow["dir"] / "tie2.nc")
+    st, t = t_ckpt.load_state(src, device="cpu")
+    grid = t_ckpt.load_grid(src)
+    cfg = t_ckpt.load_config(src)
+    H = st.geometry.ice_thickness.numpy()
+    mask = np.zeros(H.shape)
+    mask[8:20, 7] = 1.0
+    mask[H < 100.0] = 0.0
+    u_bc = np.where(mask > 0, 120.0, 0.0)
+    v_bc = np.where(mask > 0, -35.0, 0.0)
+    inp = str(tmp_path / "bc.nc")
+    t_ckpt.save_state(inp, st, grid, t, config=cfg, format="netcdf4",
+                      extra_2d={"bc_mask": (mask, {}),
+                                "u_bc": (u_bc, {"units": "m year-1"}),
+                                "v_bc": (v_bc, {"units": "m year-1"})})
+    outs = {}
+
+    def argv(p, fmt):
+        outs[p] = str(tmp_path / f"{p}.nc")
+        return ["-i", inp, "-y", "0.5", "-o", outs[p], "-o_format", fmt,
+                "-stress_balance", "ssa+sia", "-pseudo_plastic",
+                "-pseudo_plastic_q", "0.25", "-skip", "-skip_max", "10",
+                "-config", "geometry.update.enabled=true",
+                "-config", "stress_balance.ssa.dirichlet_bc=true",
+                "-verbose", "1"]
+
+    steps = _both_clis(argv)
+    assert steps["torch"] == steps["jax"]
+    with File(outs["torch"], "r") as fo:
+        u, v = fo.read("u_ssa")[-1], fo.read("v_ssa")[-1]
+    on = mask > 0
+    assert on.sum() >= 5
+    np.testing.assert_array_equal(u[on], (u_bc / SPY)[on])
+    np.testing.assert_array_equal(v[on], (v_bc / SPY)[on])
+    assert _cmp(outs["torch"], outs["jax"], ["thk", "enthalpy"], 5e-7) == []
+    assert _cmp(outs["torch"], outs["jax"], ["u_ssa", "v_ssa"], 5e-2) == []
+
+
+def test_bootstrap_takes_searise_inputs_from_the_input_file(tmp_path):
+    """``-atmosphere searise_greenland`` with no forcing file named: lat,
+    lon and precipitation come from ``-i`` (the acceptance command's form,
+    on the default 1500 km half-widths, so the file's edges are clamped);
+    one step through both command lines gives the same PDD snow (which
+    the atmosphere's inputs drive) within 1e-9 of max, and the same
+    thickness wherever the basal melt agrees: the bootstrap's enthalpy
+    ties at the melting point, which the JAX package decides at random,
+    set the basal melt of the first energy step, which the mass transport
+    uses (1e-2 m in 0.01 a where they differ)."""
+    from pism_tpu_torch.examples.std_greenland_workflow import (
+        synthesize_bootstrap_file)
+
+    boot = str(tmp_path / "boot.nc")
+    synthesize_bootstrap_file(boot, 100.0, "netcdf4")
+    outs = {}
+
+    def argv(p, fmt):
+        outs[p] = str(tmp_path / f"{p}.nc")
+        return ["-i", boot, "-bootstrap", "-Mx", "16", "-My", "29", "-Mz",
+                "11", "-Lz", "4000", "-stress_balance", "sia",
+                "-atmosphere", "searise_greenland", "-surface", "pdd",
+                "-y", "0.01", "-o", outs[p], "-o_format", fmt,
+                "-config", "runtime.float_dtype=float64", "-verbose", "1"]
+
+    steps = _both_clis(argv)
+    assert steps["torch"] == steps["jax"] and steps["torch"][0] > 0
+    assert _cmp(outs["torch"], outs["jax"], ["snow_depth", "topg"],
+                1e-9) == []
+    with File(outs["torch"], "r") as ft, File(outs["jax"], "r") as fj:
+        same = np.abs(ft.read("bmelt") - fj.read("bmelt")) <= 1e-20
+        Ht, Hj = ft.read("thk"), fj.read("thk")
+    assert same.mean() > 0.8
+    assert np.abs(Ht - Hj)[same].max() <= 1e-9 * np.abs(Hj).max()

@@ -679,3 +679,64 @@ def test_cli_eismint_k3_restart_on_the_card(cuda, tmp_path):
     s2, t2 = ckpt.load_state(b)
     assert t2 == pytest.approx(t + 50 * SPY, rel=1e-12)
     assert bool(torch.isfinite(s2.geometry.ice_thickness).all())
+
+
+def _with_climatic_mass_balance(src, dst):
+    """A classic copy of the data file ``src`` with a climatic_mass_balance
+    field (its precipitation less 300 kg m-2 year-1), so that the smb
+    heuristic takes the Robin profile."""
+    from pism_tpu_torch.io.nc4 import File
+
+    with File(src, "r") as f:
+        x, y = f.read("x"), f.read("y")
+        fields = {n: (f.read(n), f.read_attrs(n)) for n in f.variables()}
+        proj = f.get_global_attr("proj")
+    with File(dst, "w", format="netcdf3") as f:
+        f.define_dimension("y", len(y), y, attrs={"units": "m"})
+        f.define_dimension("x", len(x), x, attrs={"units": "m"})
+        for name, (a, attrs) in fields.items():
+            f.write(name, a, ("y", "x"), attrs)
+        f.write("climatic_mass_balance", fields["precipitation"][0] - 300.0,
+                ("y", "x"), {"units": "kg m-2 year-1"})
+        f.set_global_attr("proj", proj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", ["conduction", "robin"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_bootstrap_on_the_card_equals_the_cpu(cuda, tmp_path, dtype,
+                                              profile):
+    """``io.bootstrap.bootstrap`` of the synthetic std-greenland file onto
+    the 20 km grid: the regridded fields on the card equal the CPU's to the
+    bit (host float64 regridding, then a cast); the enthalpy, computed on
+    each device, within 1e-12 (float64) or 1e-6 (float32) of its max. With
+    a climatic_mass_balance in the file (``robin``) the smb heuristic's erf
+    chain makes E: float32 within 4 ulps of T at 273.15 K times c_i, as
+    ``chip_smoke.py`` phase 8 holds it (CUDA's erff and the CPU's differ by
+    up to 3 ulps of erf)."""
+    from pism_tpu_torch import Config, Grid
+    from pism_tpu_torch.examples.std_greenland_workflow import (
+        SEARISE_PROJ, synthesize_bootstrap_file)
+    from pism_tpu_torch.io.bootstrap import bootstrap
+
+    path = str(tmp_path / "boot.nc")
+    synthesize_bootstrap_file(path, 20.0, "netcdf3", SEARISE_PROJ)
+    if profile == "robin":
+        path, src = str(tmp_path / "boot_cmb.nc"), path
+        _with_climatic_mass_balance(src, path)
+    grid = Grid(Mx=76, My=141, Mz=41, Lx=750e3, Ly=1400e3, Lz=4000.0)
+    cfg = Config({"runtime.float_dtype": dtype})
+    g, c = (state_to_numpy(bootstrap(path, grid, cfg, device=d))
+            for d in (cuda, "cpu"))
+    assert sorted(g) == sorted(c)
+    for name in ("ice_thickness", "bed_elevation", "basal_melt_rate",
+                 "cell_type", "ice_surface_elevation"):
+        np.testing.assert_array_equal(g[name], c[name], err_msg=name)
+    E, Ec = g["enthalpy"], c["enthalpy"]
+    if dtype == "float64":
+        assert np.abs(E - Ec).max() <= 1e-12 * np.abs(Ec).max()
+    elif profile == "robin":
+        c_i = cfg.get_number("constants.ice.specific_heat_capacity")
+        assert np.abs(E - Ec).max() <= 4 * 2.0 ** -15 * c_i
+    else:
+        assert np.abs(E - Ec).max() <= 1e-6 * np.abs(Ec).max()
