@@ -106,6 +106,21 @@ launch counters set to 0 just before it and read just after:
     3 on path A. Each run prints its wall time, ms and launches per step,
     steps, dt-limit hits and file sizes; the bootstraps their host seconds.
 
+  phase 9: the PISM-PIK Antarctic chain (BASELINE config 4,
+    ``setups.antarctica_pik_model``): (a) 251x251x31 float32 on path A,
+    the JAX example's first 10 a, a timed 10 a and 3 a with PICO, calving
+    and Lingle-Clark timed apart (and the host syncs of a PICO call);
+    finite fields, a shelf with PICO melt, K1, the Newton matvec, K2 and
+    K2b launched; (b) 125 km float64 on the card against the CPU: one step
+    across the Lingle-Clark update held close, three to 12 a by steps,
+    dt-limit hits and volume, PICO's box index and distances equal on the
+    initial and end geometry, one Lingle-Clark solve (cuFFT against
+    pocketFFT) within 1e-12; (c) the command line: a 16 km data file
+    (dry ocean, warm shelf water, two basins), ``-bootstrap`` with the PIK
+    flags for 1 a, equal to the bit to the same run from Python, and a
+    plain ``-i`` restart for 1 a equal to the bit to the run continued in
+    memory, with eigen calving acting.
+
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
 JSON kernel record; the last line is the device record.
@@ -2080,6 +2095,365 @@ def phase8_workflow(dev, d, data_km=5.0, model_km=20.0,
                         sum(years_b) * SPY)
 
 
+# -- phase 9: the PISM-PIK Antarctic chain -------------------------------
+
+#: the JAX example's width (251 x 251 x 31) and first segment; the timed
+#: window after it and the components' window
+PIK_KM, PIK_FIRST, PIK_WINDOW, PIK_PARTS = 16.0, 10.0, 10.0, 3.0
+#: the card-against-CPU chain: 125 km (33 x 33 x 31); at 50-100 km the
+#: reference's PICO gives non-finite melt on the initial state
+PIK_CHECK_KM = 125.0
+
+
+def _pik_fields(state):
+    return {"thk": state.geometry.ice_thickness, "enthalpy": state.enthalpy,
+            "u_ssa": state.u_ssa, "v_ssa": state.v_ssa,
+            "topg": state.geometry.bed_elevation,
+            "viscous_bed_displacement": state.bed_uplift}
+
+
+def _pik_check(label, model, state, grid, stats, t, t_want):
+    """Finite fields of the expected shapes, the steps reached ``t_want``,
+    a shelf with PICO melt under it. Returns the floating mask."""
+    import torch
+    from pism_tpu_torch import state as S
+    for name, f in _pik_fields(state).items():
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    if tuple(state.enthalpy.shape) != grid.shape3 \
+            or tuple(state.bed_uplift.shape) != grid.shape2:
+        raise AssertionError(f"{label}: field shapes")
+    if stats.nsteps <= 0 or abs(t - t_want) > 1e-3:
+        raise AssertionError(f"{label}: {stats.nsteps} steps reached t = {t}")
+    floating = S.floating_ice(state.geometry.cell_type)
+    melt = model.ocean(state.geometry, t)
+    if not bool(floating.any()) or not float(melt[floating].max()) > 0.0:
+        raise AssertionError(f"{label}: no shelf with PICO melt under it")
+    return floating
+
+
+def _pik_report(label, grid, years, stats, wall, counts, state, floating):
+    """The JAX example's keys (volume, shelf area, max speed) beside ms per
+    step, steps per model year, the solver counts and launches per step."""
+    n = stats.nsteps
+    H = state.geometry.ice_thickness.double()
+    per = {k: round(v / n, 2) for k, v in counts.items() if v} if counts \
+        else {}
+    print(f"{label}: grid {grid.My}x{grid.Mx}x{grid.Mz} "
+          f"{str(state.geometry.ice_thickness.dtype)[6:]}, {years:g} a: steps "
+          f"{n}, wall {wall:.3f} s, {1e3 * wall / n:.2f} ms/step, "
+          f"{n / years:.2f} steps per model year, dt-limit hits "
+          f"{stats.limit_hits_dict()}, Newton sweeps {stats.ssa_newton_iters / n:.2f}"
+          f"/step, Krylov its {stats.ssa_krylov_iters / n:.2f}/step, host syncs "
+          f"{stats.host_syncs / n:.1f}/step, launches per step {per}; "
+          f"volume_1e6_km3 {float(H.sum()) * grid.dx * grid.dy / 1e15:.6f}, "
+          f"shelf_area_1e3_km2 "
+          f"{float(floating.sum()) * grid.dx * grid.dy / 1e9:.1f}, "
+          f"max_speed_m_a {float(state.u_ssa.abs().max()) * SPY:.2f}, "
+          f"calving {float(stats.sum_calving) / 1e9:.3f} km^3, discharge "
+          f"{float(stats.sum_discharge) / 1e9:.3f} km^3, sub-shelf and basal "
+          f"melt {float(stats.sum_bmb) / 1e9:.3f} km^3")
+
+
+def pik_components(model, state, t, years, label):
+    """Inclusive ms per step of PICO, calving and Lingle-Clark (and the
+    stress balance and mass transport around them), from host timers with
+    the card synchronised on entry and exit, and the host syncs one PICO
+    call takes."""
+    import torch
+    from pism_tpu_torch.util import hostsync
+
+    targets = [(model.stress_balance, "update", "stress balance"),
+               (model, "_mass_substep", "mass transport (PICO inside)"),
+               (model.ocean, "inputs", "PICO"),
+               (model.calving, "step", "calving"),
+               (model.bed_deformation, "step", "Lingle-Clark")]
+    acc = {lab: 0.0 for _, _, lab in targets}
+    calls = {"n": 0, "syncs": 0}
+
+    def wrap(lab, orig):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            s0, t0 = hostsync.COUNT, time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            acc[lab] += time.perf_counter() - t0
+            if lab == "PICO":
+                calls["n"] += 1
+                calls["syncs"] += hostsync.COUNT - s0
+            return out
+        return timed
+
+    with _patched(targets, wrap):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, t, stats = model.step_once(state, t, years * SPY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = stats.nsteps
+    parts = ", ".join(f"{lab} {1e3 * v / n:.1f}" for lab, v in acc.items())
+    # the bed solves once per update interval: one solve alone
+    lc = model.bed_deformation
+    lc._solve(state, lc.update_interval)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lc._solve(state, lc.update_interval)
+    torch.cuda.synchronize()
+    lc_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"{label}: timed {n} steps, {1e3 * wall / n:.1f} ms/step; inclusive "
+          f"ms/step: {parts}; PICO {calls['n']} calls ({calls['n'] / n:.0f} "
+          f"per step), {calls['syncs'] / max(calls['n'], 1):.1f} host syncs "
+          f"per call; one Lingle-Clark solve {lc_ms:.2f} ms (one per "
+          f"{lc.update_interval / SPY:g} a)")
+    return state, t
+
+
+def phase9a_pik(dev, k1, pcr, off):
+    """The PIK chain at 16 km float32 on path A: the JAX example's first
+    10 a, a timed window, the components' window; PICO melting the shelf.
+    Returns the first segment's launch counts."""
+    import torch
+    from pism_tpu_torch import setups
+
+    model, state, grid = setups.antarctica_pik_model(
+        "float32", PIK_KM, device=dev, extra_cfg=PATH_A)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, t, s1 = model.step_once(state, 0.0, PIK_FIRST * SPY)
+    torch.cuda.synchronize()
+    w1 = time.perf_counter() - t0
+    counts = read_counts()
+    _check_launches("phase9a", counts, k1 + pcr, off)
+    floating = _pik_check("phase9a", model, state, grid, s1, t,
+                          PIK_FIRST * SPY)
+    _pik_report(f"phase9a first {PIK_FIRST:g} a", grid, PIK_FIRST, s1, w1,
+                counts, state, floating)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, t, s2 = model.step_once(state, t, PIK_WINDOW * SPY)
+    torch.cuda.synchronize()
+    w2 = time.perf_counter() - t0
+    c2 = read_counts()
+    floating = _pik_check("phase9a", model, state, grid, s2, t,
+                          (PIK_FIRST + PIK_WINDOW) * SPY)
+    _pik_report(f"phase9a timed {PIK_WINDOW:g} a", grid, PIK_WINDOW, s2, w2,
+                c2, state, floating)
+    # the example's uniform atmosphere rains on the ocean too: the mass
+    # step turns every ocean cell into a floating film, no front is left
+    # (phase 9c's data file keeps the ocean dry and calves)
+    _pik_calving("phase9a", model, state, t,
+                 float(s1.sum_calving) + float(s2.sum_calving))
+    pik_components(model, state, t, PIK_PARTS, "phase9a components")
+    return counts
+
+
+def _pik_calving(label, model, state, t, calved):
+    """Prints the calving volume, the eigen-calving rate at the front, the
+    ice-free ocean cells and the thinnest floating ice; returns (calving
+    volume, max eigen-calving rate)."""
+    from pism_tpu_torch import state as S
+    from pism_tpu_torch.model import diagnostics as dg
+    eigen = dg.SPATIAL["eigen_calving_rate"].func(state, model, t)
+    g = state.geometry
+    floating = S.floating_ice(g.cell_type)
+    print(f"{label}: calving {calved / 1e9:.3f} km^3, eigen-calving rate at "
+          f"the front up to {float(eigen.max()) * SPY:.1f} m/a on "
+          f"{int((eigen > 0).sum())} cells; ice-free ocean cells "
+          f"{int((g.cell_type == S.MASK_ICE_FREE_OCEAN).sum())}, floating "
+          f"cells {int(floating.sum())}, the thinnest "
+          f"{float(g.ice_thickness[floating].min()):.3f} m")
+    return calved, float(eigen.max())
+
+
+def phase9b_card_vs_cpu(dev):
+    """The chain at PIK_CHECK_KM in float64 on path A, on the card and on
+    the CPU from the same state: one step from 9.5 a (across the
+    Lingle-Clark update at 10 a; its SSA solve starts from equal states)
+    with the fields held close, then on to 12 a with equal steps and
+    dt-limit hits and the volume in the 2e-4 envelope (the chain's later
+    solves stop on stagnation, so the trajectories part as rounding
+    decides); then on the CPU's end geometry PICO's box index, d_gl and
+    d_if equal on card and CPU, and one Lingle-Clark solve (cuFFT against
+    pocketFFT) within 1e-12."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.convert import state_to_numpy
+    from pism_tpu_torch.state import map_tensors
+
+    def rel(a, b, name):
+        return float(abs(a[name] - b[name]).max() / abs(a[name]).max())
+
+    runs = {}
+    for where in ("cpu", dev):
+        model, state, grid = setups.antarctica_pik_model(
+            "float64", PIK_CHECK_KM, device=where, extra_cfg=PATH_A)
+        init = map_tensors(state, lambda x: x.cpu())
+        state, t, s1 = model.step_once(state, 9.5 * SPY, 1.0 * SPY)
+        one = state_to_numpy(state)
+        state, t, s2 = model.step_once(state, t, 12.0 * SPY - t)
+        runs[str(where)] = (model, state, (s1, s2), one)
+    (mc, sc, stc, a1), (md, sd, std, b1) = runs["cpu"], runs[str(dev)]
+    errs = {n: rel(a1, b1, n) for n in ("ice_thickness", "enthalpy", "u_ssa",
+                                        "bed_elevation", "bed_uplift")}
+    vol = [abs(float(x["ice_thickness"].sum()) - float(y["ice_thickness"].sum()))
+           / float(x["ice_thickness"].sum())
+           for x, y in ((a1, b1), (state_to_numpy(sc), state_to_numpy(sd)))]
+    tol = {"ice_thickness": 1e-8, "enthalpy": 1e-8, "u_ssa": 1e-6,
+           "bed_elevation": 1e-8, "bed_uplift": 1e-8}
+    print(f"phase9b: {PIK_CHECK_KM:g} km float64, card vs cpu: one step "
+          f"9.5-10.5 a: steps {std[0].nsteps} / {stc[0].nsteps}, errors of "
+          f"max {', '.join(f'{n} {e:.3e} (tol {tol[n]:.0e})' for n, e in errs.items())}, "
+          f"volume {vol[0]:.3e} (tol 1e-10); to 12 a: steps {std[1].nsteps} / "
+          f"{stc[1].nsteps}, dt-limit hits {std[1].limit_hits_dict()} / "
+          f"{stc[1].limit_hits_dict()}, volume {vol[1]:.3e} (tol 2e-4)")
+    if any(x.nsteps != y.nsteps or x.limit_hits_dict() != y.limit_hits_dict()
+           for x, y in zip(std, stc)) \
+            or any(errs[n] > tol[n] for n in tol) \
+            or not (vol[0] <= 1e-10 and vol[1] <= 2e-4):
+        raise AssertionError("phase9b: the card and the CPU disagree")
+    for name, src in (("initial", init), ("end", sc)):
+        geom = {str(w): map_tensors(src, lambda x: x.to(w))
+                for w in ("cpu", dev)}
+        pc = mc.ocean.boxes(geom["cpu"].geometry)
+        pd = md.ocean.boxes(geom[str(dev)].geometry)
+        same = [torch.equal(x, y.cpu()) for x, y in zip(pc, pd)]
+        nb = torch.bincount(pc.box.flatten(), minlength=6).tolist()
+        print(f"phase9b: PICO on the CPU's {name} geometry, card vs cpu: box, "
+              f"d_gl, d_if equal {same}; cells per box {nb}")
+        if not all(same):
+            raise AssertionError("phase9b: PICO's boxes differ on the card")
+    load = geom["cpu"].geometry.ice_thickness * 1.05
+    beds = []
+    for w in ("cpu", dev):
+        st = geom[str(w)]
+        st = st.replace(geometry=st.geometry.replace(
+            ice_thickness=load.to(w)))
+        out = runs[str(w)][0].bed_deformation._solve(st, 10.0 * SPY)
+        beds.append((out.geometry.bed_elevation.cpu(), out.bed_uplift.cpu()))
+    errs = [float((x - y).abs().max() / x.abs().max())
+            for x, y in zip(*beds)]
+    print(f"phase9b: one Lingle-Clark solve (10 a, load +5%), cuFFT vs "
+          f"pocketFFT: bed {errs[0]:.3e}, viscous displacement {errs[1]:.3e} "
+          f"of their max (tol 1e-12)")
+    if not max(errs) <= 1e-12:
+        raise AssertionError("phase9b: the Lingle-Clark solves differ")
+
+
+def phase9c_cli(dev, d, k1, pcr, off, years=1.0, km=PIK_KM, platform=()):
+    """The PIK chain's command line at 16 km float32 on path A from a
+    synthetic data file (netcdf3, its ocean dry): -bootstrap with the PIK
+    flags for ``years`` (the bed updated every year), equal to the bit to
+    the same run driven from Python; then a plain -i restart for
+    ``years``, equal to the bit to the first run continued in memory; eigen
+    calving acting on the fronts over both."""
+    import torch
+    from pism_tpu_torch.examples.antarctica_pik import (
+        bootstrap_argv, couplers, model_grid, synthesize_data_file)
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.io.bootstrap import bootstrap
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.util.timecal import Time
+
+    data = os.path.join(d, "ant.nc")
+    t0 = time.perf_counter()
+    synthesize_data_file(data, km, "netcdf3")
+    print(f"phase9c: data file {os.path.getsize(data)} bytes written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    o1, o2 = os.path.join(d, "ant_1.nc"), os.path.join(d, "ant_2.nc")
+    argv = bootstrap_argv(data, o1, km, years, "netcdf3", extra=(
+        "-config", "bed_deformation.update_interval=1",
+        "-config", "stress_balance.ssa.fd.line_pcr_impl=pallas_sublane",
+        *platform))
+    model, st1, stats1, counts = _cli("phase9c bootstrap", argv, [o1])
+    _check_launches("phase9c bootstrap", counts, k1 + pcr, off)
+    _pik_check("phase9c bootstrap", model, st1, model.grid, stats1,
+               years * SPY, years * SPY)
+    # the same run from Python
+    cfg = ckpt.load_config(o1)
+    grid = model_grid(km)
+    surface, ocean = couplers(cfg, grid, data, dev)
+    twin = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
+                    device=dev)
+    st, stats = twin.run(bootstrap(data, grid, cfg, device=dev),
+                         Time(0.0, years * SPY))
+    if (stats.nsteps, stats.ssa_newton_iters, stats.ssa_krylov_iters) != \
+            (stats1.nsteps, stats1.ssa_newton_iters, stats1.ssa_krylov_iters):
+        raise AssertionError("phase9c: the CLI and Python differ in counts")
+    _same_bits(f"phase9c CLI / io.bootstrap + factory + IceModel.run (steps "
+               f"{stats.nsteps})", [(k, v, _pik_fields(st)[k])
+                                    for k, v in _pik_fields(st1).items()])
+    # a plain -i restart against the run continued in memory
+    _, st2, stats2, counts2 = _cli(
+        "phase9c restart", ["-i", o1, "-y", f"{years:g}", "-o", o2,
+                            "-o_format", "netcdf3", "-verbose", "1",
+                            *platform], [o1, o2])
+    _check_launches("phase9c restart", counts2, k1 + pcr, off)
+    cont, stc = model.run(st1, Time(years * SPY, 2.0 * years * SPY))
+    if stc.nsteps != stats2.nsteps:
+        raise AssertionError("phase9c: the restart took other steps")
+    _same_bits(f"phase9c -i restart / in-memory continuation (steps "
+               f"{stc.nsteps})", [(k, v, _pik_fields(cont)[k])
+                                  for k, v in _pik_fields(st2).items()])
+    if torch.equal(st2.bed_uplift, st1.bed_uplift):
+        raise AssertionError("phase9c: the restart did not move the bed")
+    calved, eigen = _pik_calving(
+        "phase9c", model, st2, 2.0 * years * SPY,
+        float(stats1.sum_calving) + float(stats2.sum_calving))
+    if not (calved < 0.0 and eigen > 0.0):
+        raise AssertionError("phase9c: no calving, or no eigen-calving rate")
+    _eigen_retreat("phase9c", model, st2, 2.0 * years * SPY)
+
+
+def _eigen_retreat(label, model, state, t):
+    """One calving step on ``state`` over the dt that moves the fastest
+    front cell half a cell, with the model's eigen-calving K and with K =
+    0: the eigen run holds no more ice anywhere (H + Href), and less at
+    the front cells where eigen_calving_rate * dt > 0 or at their
+    neighbours (part-grid turns a front cell facing open water into a
+    partial cell, and shrinks the partial cells seaward of it first)."""
+    from types import SimpleNamespace
+
+    from pism_tpu_torch.model import diagnostics as dg
+    cm = model.calving
+    rate = dg.SPATIAL["eigen_calving_rate"].func(state, model, t)
+    dt = 0.5 * model.grid.dx / float(rate.max())
+    sb = SimpleNamespace(u_ssa=state.u_ssa, v_ssa=state.v_ssa)
+    hard = model._calving_hardness(state)
+    content = []
+    K = cm.eigen_K
+    for k in (K, 0.0):
+        cm.eigen_K = k
+        try:
+            g = cm.step(state.geometry, sb, dt, t=t, hardness_B=hard)
+        finally:
+            cm.eigen_K = K
+        content.append(g.ice_thickness + g.ice_area_specific_volume)
+    loss = content[1] - content[0]
+    acting = rate * dt > 0.0
+    sh = model.sh
+    near = acting | sh(acting, 0, 1) | sh(acting, 0, -1) \
+        | sh(acting, 1, 0) | sh(acting, -1, 0)
+    fell = near & (loss > 0.0)
+    print(f"{label}: one calving step of {dt / SPY:.4f} a against K = 0: "
+          f"{int(acting.sum())} front cells with eigen_calving_rate * dt > "
+          f"0, {int(fell.sum())} cells at or next to them lost ice, "
+          f"{float(loss.sum()) * model.grid.dx * model.grid.dy / 1e9:.3f} "
+          f"km^3 in all, min loss {float(loss.min()):.3e} m")
+    if not (bool(fell.any()) and float(loss.min()) >= 0.0):
+        raise AssertionError(f"{label}: eigen calving removes no ice at the "
+                             f"front")
+
+
+def phase9_pik(dev, k1, pcr, off):
+    import tempfile
+    counts = phase9a_pik(dev, k1, pcr, off)
+    phase9b_card_vs_cpu(dev)
+    with tempfile.TemporaryDirectory() as d:
+        phase9c_cli(dev, d, k1, pcr, off)
+    return counts
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -2147,6 +2521,10 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         phase8_workflow(dev, d)
     print(f"phase8: {time.time() - t8:.1f} s")
+    t9 = time.time()
+    print(f"phase9: {smi}")
+    phase9_pik(dev, k1, pcr_names, off)
+    print(f"phase9: {time.time() - t9:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

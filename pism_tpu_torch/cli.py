@@ -33,6 +33,12 @@ Examples:
       -Lx 750 -Ly 1400 -Lz 4000 -stress_balance sia \\
       -atmosphere searise_greenland -surface pdd -y 100 -o g_pre.nc \\
       -o_format netcdf3
+  python -m pism_tpu_torch -i ant.nc -bootstrap -Mx 251 -My 251 -Mz 31 \\
+      -Lx 2000 -Ly 2000 -Lz 5000 -stress_balance ssa+sia -pik \\
+      -atmosphere pik -surface pik -ocean pico \\
+      -calving eigen_calving,thickness_calving -bed_def lc \\
+      -config ocean.pico.file=ant.nc \\
+      -config atmosphere.searise_greenland.file=ant.nc -y 10 -o ant_10.nc
 """
 
 from __future__ import annotations
@@ -298,7 +304,8 @@ def _couplers(args, cfg, grid, device):
     import torch
 
     from .coupler import factory as cf
-    from .io.bootstrap import (lonlat_from_projection, read_and_regrid,
+    from .io.bootstrap import (latitude_from_projection,
+                               lonlat_from_projection, read_and_regrid,
                                read_forcing_fields)
 
     nd = cfg.non_default()
@@ -317,7 +324,8 @@ def _couplers(args, cfg, grid, device):
     if atm_sel:
         cfg.update({"atmosphere.models": atm_sel})
         inputs = cf.inputs_from_files(cfg, grid, "atmosphere", device)
-        if args.i and str(atm_sel).split(",")[0] == "searise_greenland":
+        if args.i and str(atm_sel).split(",")[0] in ("searise_greenland",
+                                                     "pik"):
             # PISM reads the parameterization's inputs (lat/lon and the
             # precipitation map) from the input file when no forcing file
             # gives them; lat/lon from its projection if it has none
@@ -341,7 +349,7 @@ def _couplers(args, cfg, grid, device):
                     inputs["precipitation"] = field(p[-1] if p.ndim == 3
                                                     else p)
         atm = cf.atmosphere_from_config(cfg, inputs=inputs, grid=grid)
-    elif surf_sel and any(m in surf_sel for m in ("simple", "pdd")):
+    elif surf_sel and any(m in surf_sel for m in ("simple", "pdd", "pik")):
         # a restored surface chain that needs an atmosphere whose own chain
         # is the default (not stored as non-default): built from the config
         atm = cf.atmosphere_from_config(
@@ -349,9 +357,19 @@ def _couplers(args, cfg, grid, device):
             grid=grid)
     if surf_sel:
         cfg.update({"surface.models": surf_sel})
-        surface = cf.surface_from_config(
-            cfg, inputs=cf.inputs_from_files(cfg, grid, "surface", device),
-            atmosphere=atm)
+        inputs = cf.inputs_from_files(cfg, grid, "surface", device)
+        if args.i and "pik" in surf_sel:
+            # the latitude-dependent surface model reads lat from the input
+            # file (PISM's mandatory lat/lon), else from its projection
+            flds = read_and_regrid(args.i, grid,
+                                   variables=["lat", "latitude"])
+            lat = flds.get("lat", flds.get("latitude"))
+            if lat is None and cfg.get_flag(
+                    "grid.recompute_longitude_and_latitude"):
+                lat = latitude_from_projection(args.i, grid)
+            if lat is not None:
+                inputs["latitude"] = field(lat)
+        surface = cf.surface_from_config(cfg, inputs=inputs, atmosphere=atm)
     elif atm is not None:
         from .coupler.surface import Simple
         surface = Simple(atmosphere=atm)

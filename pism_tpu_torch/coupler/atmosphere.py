@@ -1,6 +1,6 @@
 """Atmosphere boundary models (port of ``pism_tpu/coupler/atmosphere.py``:
-``Uniform``, ``Given``, ``SeariseGreenland`` and the scalar modifiers
-``DeltaT`` and ``DeltaP``): near-surface air temperature [K] and
+``Uniform``, ``Given``, ``SeariseGreenland``, ``PIK`` and the scalar
+modifiers ``DeltaT`` and ``DeltaP``): near-surface air temperature [K] and
 precipitation [m/s ice equivalent] from geometry and model time.
 
 Model time is a host float; ``Given``'s time stack is a
@@ -103,6 +103,37 @@ class SeariseGreenland(AtmosphereModel):
         T_jul = c["d_mj"] + c["gamma_mj"] * h + c["c_mj"] * lat \
             + c["kappa_mj"] * lon
         return AtmosphereInputs(T_ma, T_jul, self.precipitation.to(dt_))
+
+
+@dataclass
+class PIK(AtmosphereModel):
+    """PISM ``-atmosphere pik``: Antarctic air temperature from surface
+    elevation h and latitude.
+
+    ``parameterization``:
+    - ``martin`` (default): mean-annual temperature of Martin et al. (2011)
+      eq. 1, T_ma = 273.15 + 34.46 - 0.00914 h - 0.68775 |lat|; the summer
+      temperature is the annual one;
+    - ``martin_huybrechts_dewolde``: Martin's mean-annual temperature and
+      the Huybrechts & de Wolde (1999) summer temperature
+      T_s = 273.15 + 16.81 - 0.00692 h - 0.27937 |lat|.
+
+    Precipitation is supplied (PISM reads it from the input file)."""
+
+    latitude: torch.Tensor       # degrees (negative south)
+    precipitation: torch.Tensor  # m/s ice equivalent
+    parameterization: str = "martin"
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        dt_ = geometry.ice_thickness.dtype
+        h = torch.clamp(geometry.ice_surface_elevation, min=0.0)
+        lat = torch.abs(self.latitude.to(dt_))
+        T_ma = 273.15 + 34.46 - 0.00914 * h - 0.68775 * lat
+        if self.parameterization == "martin_huybrechts_dewolde":
+            T_s = 273.15 + 16.81 - 0.00692 * h - 0.27937 * lat
+        else:
+            T_s = T_ma
+        return AtmosphereInputs(T_ma, T_s, self.precipitation.to(dt_))
 
 
 @dataclass

@@ -8,10 +8,11 @@ to right. The factory functions take an ``inputs`` dict of loaded fields
 (tensors on the model's device) and forcing callables;
 ``inputs_from_files`` fills it from the files the config names. The port builds these names:
 
-- atmosphere ``uniform``, ``given``, ``searise_greenland``; modifiers
-  ``delta_T``, ``delta_P``;
-- surface ``simple``, ``uniform``, ``given``, ``pdd``; modifier ``delta_T``;
-- ocean ``constant``;
+- atmosphere ``uniform``, ``given``, ``searise_greenland``, ``pik``;
+  modifiers ``delta_T``, ``delta_P``;
+- surface ``simple``, ``uniform``, ``given``, ``pdd``, ``pik``; modifier
+  ``delta_T``;
+- ocean ``constant``, ``pik``, ``pico``; modifier ``delta_T``;
 - sea level ``constant``; modifier ``delta_sl``.
 
 Every other name raises NotImplementedError (ROADMAP Queue 1 item 8).
@@ -72,7 +73,8 @@ def atmosphere_from_config(config, inputs: Optional[Mapping] = None,
                            grid=None):
     """The atmosphere chain of ``atmosphere.models``. Inputs: ``given``
     (air_temp, precipitation [, air_temp_summer, times]),
-    ``searise_greenland`` (latitude, longitude, precipitation); modifiers
+    ``searise_greenland`` (latitude, longitude, precipitation), ``pik``
+    (latitude, precipitation); modifiers
     ``delta_T`` and ``delta_P`` (callables of model time)."""
     inputs = inputs or {}
     base, mods = _split(config.get_string("atmosphere.models"))
@@ -98,6 +100,12 @@ def atmosphere_from_config(config, inputs: Optional[Mapping] = None,
             longitude=_need(inputs, "longitude", base),
             precipitation=_need(inputs, "precipitation", base),
             config=config)
+    elif base == "pik":
+        model = _atm.PIK(
+            latitude=_need(inputs, "latitude", base),
+            precipitation=_need(inputs, "precipitation", base),
+            parameterization=config.get_string(
+                "atmosphere.pik.parameterization"))
     else:
         raise _refuse("atmosphere", base)
     for mod in mods:
@@ -116,8 +124,9 @@ def atmosphere_from_config(config, inputs: Optional[Mapping] = None,
 def surface_from_config(config, inputs: Optional[Mapping] = None,
                         atmosphere=None):
     """The surface chain of ``surface.models``: ``simple`` and ``pdd`` (on
-    ``atmosphere``), ``uniform``, ``given`` (climatic_mass_balance,
-    ice_surface_temp [, times]); modifier ``delta_T``."""
+    ``atmosphere``), ``pik`` (on ``atmosphere``; latitude), ``uniform``,
+    ``given`` (climatic_mass_balance, ice_surface_temp [, times]); modifier
+    ``delta_T``."""
     inputs = inputs or {}
     base, mods = _split(config.get_string("surface.models"))
 
@@ -140,6 +149,9 @@ def surface_from_config(config, inputs: Optional[Mapping] = None,
     elif base == "pdd":
         from .pdd import TemperatureIndex
         model = TemperatureIndex(atmosphere=need_atm(base), config=config)
+    elif base == "pik":
+        model = _srf.PIK(atmosphere=need_atm(base),
+                         latitude=_need(inputs, "latitude", base))
     else:
         raise _refuse("surface", base)
     for mod in mods:
@@ -153,16 +165,37 @@ def surface_from_config(config, inputs: Optional[Mapping] = None,
 
 # ---------------------------------------------------------------- ocean
 def ocean_from_config(config, inputs: Optional[Mapping] = None, grid=None):
-    """The ocean chain of ``ocean.models``: ``constant`` alone."""
+    """The ocean chain of ``ocean.models``: ``constant``, ``pik``, ``pico``
+    (theta_ocean, salinity_ocean [, basins, times]; needs ``grid``);
+    modifier ``delta_T`` (a callable of model time)."""
+    inputs = inputs or {}
     base, mods = _split(config.get_string("ocean.models"))
-    if base != "constant":
+    if base == "constant":
+        model = _ocn.Constant(config=config)
+    elif base == "pik":
+        model = _ocn.PIK(config=config)
+    elif base == "pico":
+        from .pico import Pico
+        if grid is None:
+            raise ValueError("ocean model 'pico' needs the grid")
+        model = Pico(
+            temperature_ocean=_need(inputs, "theta_ocean", base),
+            salinity_ocean=_need(inputs, "salinity_ocean", base),
+            config=config, basin_mask=inputs.get("basins"), grid=grid,
+            times=inputs.get("times"),
+            period=stack_period(config, "ocean.pico", inputs.get("times")))
+    else:
         raise _refuse("ocean", base)
     for mod in mods:
-        raise _refuse("ocean", mod, modifier=True)
+        if mod == "delta_T":
+            model = _ocn.DeltaT(inner=model,
+                                offset=_need(inputs, "delta_T", mod))
+        else:
+            raise _refuse("ocean", mod, modifier=True)
     # the JAX factory wraps a melange back pressure modifier around any
     # chain when this fraction is > 0
     require(config, "ocean.melange_back_pressure_fraction", (0.0,))
-    return _ocn.Constant(config=config)
+    return model
 
 
 # ---------------------------------------------------------------- sea level
@@ -198,8 +231,7 @@ _UNPORTED_FILES = {
                 "surface.force_to_thickness.file",
                 "surface.debm_simple.paleo.file",
                 "surface.debm_simple.albedo_input.file"),
-    "ocean": ("ocean.given.file", "ocean.th.file", "ocean.pico.file",
-              "ocean.pico.basins_file", "ocean.delta_T.file",
+    "ocean": ("ocean.given.file", "ocean.th.file",
               "ocean.frac_MBP.file", "ocean.delta_MBP.file",
               "ocean.frac_SMB.file", "ocean.anomaly.file"),
     "sea_level": ("ocean.delta_sl_2d.file",),
@@ -276,6 +308,14 @@ def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
                     f"surface.given.smb_max ({smb_cap:.3e} m/s) - check the "
                     "input units")
         scalar("surface.delta_T.file", "delta_T")
+    elif group == "ocean":
+        spatial("ocean.pico.file",
+                ["theta_ocean", "salinity_ocean", "basins"])
+        # drainage basins may come from their own file
+        spatial("ocean.pico.basins_file", ["basins"])
+        if "basins" in inputs and inputs["basins"].ndim == 3:
+            inputs["basins"] = inputs["basins"][-1]
+        scalar("ocean.delta_T.file", "delta_T")
     elif group == "sea_level":
         scalar("sea_level.delta_sl.file", "delta_SL")
         # the reference's -ocean ...,delta_SL file option, an alias

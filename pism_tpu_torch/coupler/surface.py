@@ -86,6 +86,25 @@ class Simple(SurfaceModel):
 
 
 @dataclass
+class PIK(SurfaceModel):
+    """PISM ``-surface pik``: SMB = the atmosphere's precipitation; the ice
+    surface temperature from the Martin et al. (2011, TC) Antarctic
+    parameterization T_s [K] = 273.15 + 30 - 0.0075 h - 0.68775 |lat|
+    (h the surface elevation [m], lat in degrees), capped at the melting
+    point."""
+
+    atmosphere: object
+    latitude: torch.Tensor      # degrees (negative in the south)
+
+    def __call__(self, geometry, t) -> SurfaceInputs:
+        a = self.atmosphere(geometry, t)
+        h = geometry.ice_surface_elevation
+        lat = torch.abs(self.latitude.to(h.dtype))
+        T = 273.15 + 30.0 - 0.0075 * h - 0.68775 * lat
+        return SurfaceInputs(a.precipitation, torch.clamp(T, max=273.15))
+
+
+@dataclass
 class Given(SurfaceModel, TimeStack):
     """Prescribed fields (PISM ``-surface given``): single slices or
     ``(Nt, My, Mx)`` stacks with a ``times`` axis [s]; SMB (a "time: mean"

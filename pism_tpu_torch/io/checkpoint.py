@@ -37,6 +37,7 @@ _STATE_VARS = {
     "v_ssa": ("v_ssa", {"units": "m s-1"}, 2),
     "tillwat": ("tillwat", {"units": "m"}, 2),
     "till_phi": ("tillphi", {"units": "degrees"}, 2),
+    "bed_uplift": ("viscous_bed_displacement", {"units": "m"}, 2),
     "bed_load_reference": ("bed_def_load_reference", {"units": "m"}, 2),
     "bed_reference": ("bed_def_reference", {"units": "m"}, 2),
     "geothermal_flux": ("bheatflx", {"units": "W m-2", "long_name":
@@ -49,9 +50,9 @@ _STATE_VARS = {
 }
 
 #: state variables of the JAX package's components the port does not carry
-#: (hydrology, age, bed deformation, fracture, isochrones, dEBM): a file
-#: that holds one cannot be continued here
-_UNPORTED_VARS = ("viscous_bed_displacement", "bwat", "bwp", "bwatflux",
+#: (hydrology, age, fracture, isochrones, dEBM): a file that holds one
+#: cannot be continued here
+_UNPORTED_VARS = ("bwat", "bwp", "bwatflux",
                   "age", "ch_enthalpy", "fracture_density", "fracture_age",
                   "albedo", "isochronal_layer_thickness")
 

@@ -6,7 +6,10 @@ A registry of functions ``(state, model, t) -> tensor`` with CF metadata
 (``thk``, ``usurf``, ``velbar_mag``, ``mask``) and of ``-o_size medium``
 (``output.sizes.medium``), the scalars of the default ``-ts_vars``
 (``ice_volume_glacierized``, ``ice_area_glacierized``, ``max_velocity``)
-with ``ice_volume``, and the interval-averaged rates: the scalar ones
+with ``ice_volume``, the fields of the PIK chain (``shelfbmassflux``,
+``shelfbtemp``, the ``pico_*`` set, the eigen, von Mises, Hayhurst and
+total retreat rates, ``dbdt_total``, ``viscous_bed_displacement``), and
+the interval-averaged rates: the scalar ones
 (``Window``, ``RATE``) from ``StepStats``' volume sums, and the spatial
 ones (``Window2D``, ``SPATIAL_RATE``) from its per-cell ``CellBudget``.
 Names, units, long names and formulas are the JAX package's; where it
@@ -18,6 +21,7 @@ an output channel asks for it (``require_known``).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, NamedTuple
 
 import torch
@@ -220,6 +224,198 @@ def _sftgrf(state, model, t):
          "floating_ice_shelf_area_fraction")
 def _sftflf(state, model, t):
     return _sftgif(state, model, t) - _sftgrf(state, model, t)
+
+
+# --------------------------------------------------------------------------
+# ocean, calving and bed deformation (the PIK chain's fields)
+# --------------------------------------------------------------------------
+
+@spatial("shelfbmassflux", "kg m-2 s-1", "sub-shelf mass flux (melt positive)")
+def _shelfbmf(state, model, t):
+    if model.ocean is None:
+        return _zeros2(state)
+    return model.ocean(state.geometry, t) * model.rho_i
+
+
+@spatial("shelfbtemp", "K", "ice temperature at the ice-shelf base")
+def _shelfbtemp(state, model, t):
+    if model.ocean is None:
+        return _zeros2(state)
+    return model.ocean.inputs(state.geometry, t).shelf_base_temperature
+
+
+@spatial("dbdt_total", "m", "total bed displacement since initialization")
+def _dbdt_total(state, model, t):
+    if state.bed_reference is None:
+        return _zeros2(state)
+    return state.geometry.bed_elevation - state.bed_reference
+
+
+@spatial("viscous_bed_displacement", "m",
+         "Lingle-Clark viscous half-space bed displacement (model state)")
+def _viscous_bed(state, model, t):
+    if state.bed_uplift is None:
+        return _zeros2(state)
+    return state.bed_uplift
+
+
+def _calving_front(state, model):
+    from . import calving as cv
+    mask = state.geometry.cell_type
+    return cv.front_mask(S.icy(mask), mask == S.MASK_ICE_FREE_OCEAN,
+                         model.sh)
+
+
+def _ssa_uv(state):
+    H = state.geometry.ice_thickness
+    u = state.u_ssa if state.u_ssa is not None else torch.zeros_like(H)
+    v = state.v_ssa if state.v_ssa is not None else torch.zeros_like(H)
+    return u, v
+
+
+@spatial("eigen_calving_rate", "m s-1",
+         "horizontal calving rate due to eigen-calving")
+def _eigen_calving_rate(state, model, t):
+    cm = model.calving
+    if cm is None or "eigen_calving" not in cm.methods:
+        return _zeros2(state)
+    u, v = _ssa_uv(state)
+    l1, l2 = cm._strain_eigenvalues(u, v)
+    rate = cm.eigen_K * torch.clamp(l1, min=0.0) * torch.clamp(l2, min=0.0)
+    front = _calving_front(state, model)
+    floating = S.floating_ice(state.geometry.cell_type)
+    return torch.where(front & floating, rate, 0.0)
+
+
+@spatial("vonmises_calving_rate", "m s-1",
+         "horizontal calving rate due to von Mises calving")
+def _vonmises_calving_rate(state, model, t):
+    cm = model.calving
+    if cm is None or "vonmises_calving" not in cm.methods \
+            or model.ssa is None:
+        return _zeros2(state)
+    u, v = _ssa_uv(state)
+    B = model.ssa._hardness(state)
+    l1, l2 = cm._strain_eigenvalues(u, v)
+    e1, e2 = torch.clamp(l1, min=0.0), torch.clamp(l2, min=0.0)
+    eff = torch.sqrt(0.5 * (e1 ** 2 + e2 ** 2))
+    sigma = math.sqrt(3.0) * B * eff ** (1.0 / cm.n_glen)
+    speed = torch.sqrt(u ** 2 + v ** 2)
+    rate = speed * sigma / cm.vm_sigma_max
+    front = _calving_front(state, model)
+    floating = S.floating_ice(state.geometry.cell_type)
+    return torch.where(front & floating, rate, 0.0)
+
+
+@spatial("hayhurst_calving_rate", "m s-1",
+         "horizontal calving rate due to Hayhurst-stress calving")
+def _hayhurst_calving_rate(state, model, t):
+    cm = model.calving
+    if cm is None or "hayhurst_calving" not in cm.methods:
+        return _zeros2(state)
+    rate = cm.hayhurst_rate(state.geometry)
+    front = _calving_front(state, model)
+    marine = state.geometry.sea_level - state.geometry.bed_elevation > 0.0
+    return torch.where(front & marine, rate, 0.0)
+
+
+@spatial("total_retreat_rate", "m s-1",
+         "total horizontal retreat rate (all active calving laws + frontal "
+         "melt) at front cells")
+def _total_retreat_rate(state, model, t):
+    # frontal melt is not ported: its retreat rate is zero
+    return (_eigen_calving_rate(state, model, t)
+            + _vonmises_calving_rate(state, model, t)
+            + _hayhurst_calving_rate(state, model, t)
+            + _zeros2(state))
+
+
+def _pico(model):
+    from ..coupler.pico import Pico
+    m = model.ocean
+    while m is not None:   # through the modifiers' ``inner`` links
+        if isinstance(m, Pico):
+            return m
+        m = getattr(m, "inner", None)
+    return None
+
+
+def _pico_solve(p, state, model, t):
+    """The PICO solve of (state, t), run once for all the pico_* fields of
+    one record (kept on the model with the state object itself, as
+    ``_sb`` keeps the stress balance)."""
+    cached = getattr(model, "_diag_pico_cache", None)
+    if cached is not None and cached[0] is state and cached[1] == t:
+        return cached[2]
+    fields = p.solve(state.geometry, t)
+    model._diag_pico_cache = (state, t, fields)
+    return fields
+
+
+def _pico_field(name, units, long_name, get):
+    def fn(state, model, t):
+        p = _pico(model)
+        if p is None:
+            return _zeros2(state)
+        return get(_pico_solve(p, state, model, t), state)
+    SPATIAL[name] = Diagnostic(fn, units, long_name)
+
+
+for _args in (
+        ("pico_box_mask", "", "PICO ocean box index (0 outside ice shelves)",
+         lambda f, s: f.box),
+        ("pico_temperature_box", "K", "PICO ocean box water temperature",
+         lambda f, s: f.temperature),
+        ("pico_salinity_box", "g kg-1", "PICO ocean box water salinity",
+         lambda f, s: f.salinity),
+        ("pico_overturning", "m3 s-1", "PICO basin overturning flux",
+         lambda f, s: f.overturning),
+        ("pico_contshelf_mask", "",
+         "PICO continental-shelf averaging domain mask",
+         lambda f, s: f.contshelf.to(s.geometry.ice_thickness.dtype)),
+        ("pico_basal_melt_rate", "m s-1",
+         "PICO sub-shelf melt rate (ice equivalent)", lambda f, s: f.melt),
+        ("pico_basal_temperature", "K", "PICO shelf-base temperature",
+         lambda f, s: f.T_basal)):
+    _pico_field(*_args)
+
+
+@spatial("pico_shelf_mask", "",
+         "ice-shelf numbering (connected floating components)")
+def _pico_shelf_mask(state, model, t):
+    """Connected floating components by a min-label flood fill, numbered
+    1..n in the order of their smallest cell index."""
+    from ..util.hostsync import fixed_point
+    g = state.geometry
+    shelf = S.floating_ice(g.cell_type)
+    My, Mx = shelf.shape
+    idx = torch.arange(1, My * Mx + 1, dtype=torch.float32,
+                       device=shelf.device).reshape(My, Mx)
+    big = 4.0e9
+    sh = model.sh
+
+    def sweep(lab):
+        nbr = torch.minimum(torch.minimum(sh(lab, 0, 1), sh(lab, 0, -1)),
+                            torch.minimum(sh(lab, 1, 0), sh(lab, -1, 0)))
+        return torch.where(shelf, torch.minimum(lab, nbr), lab)
+
+    # the JAX loop runs until nothing changes: no iteration bound
+    lab = fixed_point(sweep, torch.where(shelf, idx, big), math.inf)
+    flat = torch.where(shelf, lab, big).ravel()
+    uniq = torch.unique(flat)   # sorted; ``big`` last, as JAX's padding
+    rank_of = torch.searchsorted(uniq, flat)
+    out = (rank_of + 1).reshape(My, Mx)
+    return torch.where(shelf, out, 0).to(g.ice_thickness.dtype)
+
+
+@spatial("pico_basin_mask", "", "PICO drainage basin index")
+def _pico_basin(state, model, t):
+    p = _pico(model)
+    if p is None or p.basin_mask is None:
+        return _zeros2(state)
+    return torch.as_tensor(p.basin_mask).to(
+        device=state.geometry.ice_thickness.device,
+        dtype=state.geometry.ice_thickness.dtype)
 
 
 # --------------------------------------------------------------------------

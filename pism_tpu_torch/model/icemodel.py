@@ -14,13 +14,16 @@ stability limits need. Every other host decision is counted by
 Components built here are exactly the chains': enthalpy energy with the
 minimal bedrock unit, or no energy model (``energy.model = none``, the
 isothermal SIA with no 3D velocities); the SIA stress balance and, with
-``ssa+sia``, the SSAFD solve, Mohr-Coulomb yield stress and null
-hydrology; thickness calving with iceberg removal, ocean-kill calving
-given as a ``calving`` component, or no calving; pointwise isostasy or no
-bed deformation; part-grid mass transport with skip substeps; a stateful
-PDD surface model or a stateless one; an optional constant ocean; an
-optional sea-level model, evaluated before each step's dynamics. Any
-other configured component raises NotImplementedError.
+``ssa+sia``, the SSAFD solve, Mohr-Coulomb yield stress (with
+``topg_to_phi`` and slippery grounding lines) and null hydrology; the
+calving component of ``model/calving.py`` (thickness, ocean-kill and
+float-kill calving, the eigen, von Mises and Hayhurst rate laws with
+their front-retreat dt limit, iceberg removal), or no calving; pointwise
+isostasy, Lingle-Clark or no bed deformation; part-grid mass transport
+with skip substeps; a stateful PDD surface model or a stateless one; an
+optional ocean model (``constant``, ``pik``, PICO, evaluated in every
+mass substep); an optional sea-level model, evaluated before each step's
+dynamics. Any other configured component raises NotImplementedError.
 
 ``device`` (default ``"cuda"``) is where every field lives:
 ``prepare_state`` moves the state there, and on a machine without a card
@@ -37,6 +40,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Callable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import state as S
@@ -195,6 +199,10 @@ class IceModel:
             self.hydrology = NullTransport(grid=self.grid, config=cfg)
         if self.calving is None:
             self.calving = calving_from_config(self.grid, cfg)
+        # the front-retreat rate dt limit (either config name enables it)
+        self.front_retreat_cfl = self.calving is not None and (
+            cfg.get_flag("calving.front_retreat.use_cfl")
+            or cfg.get_flag("geometry.front_retreat.use_cfl"))
         self.bed_deformation = bed_deformation_from_config(self.grid, cfg)
         self.geothermal = cfg.get_number("bootstrapping.defaults.geothermal_flux")
         self.stress_balance = StressBalance(
@@ -228,10 +236,13 @@ class IceModel:
         self.max_steps = cfg.get_int("time_stepping.max_steps_per_segment")
 
     # ------------------------------------------------------------------ step
-    def _compute_dt(self, sb: StressBalanceResult, t: float, t_end: float):
+    def _compute_dt(self, sb: StressBalanceResult, t: float, t_end: float,
+                    front_retreat_rate=None):
         """Adaptive dt and the index of its binding limit (host floats).
         With skip, the mass-transport limits allow skip_max substeps per
-        expensive update, so the step is skip_max times the mass limit."""
+        expensive update, so the step is skip_max times the mass limit.
+        ``front_retreat_rate`` is the calving front's max retreat rate (a
+        0-dim tensor), read in the same sync."""
         grid = self.grid
         # the one sync of the dt choice: the maxima the limits need (the 3D
         # CFL limit exists only with the 3D velocities)
@@ -239,6 +250,8 @@ class IceModel:
                   torch.max(torch.abs(sb.v_face_n))]
         if sb.sia3 is not None:
             maxima += [sb.sia3.max_u, sb.sia3.max_v]
+        if front_retreat_rate is not None:
+            maxima.append(front_retreat_rate)
         vals = hostsync.host(torch.stack(maxima).to(torch.float64))
         max_D, max_ue, max_vn = vals[:3]
         cand = [math.inf] * len(DT_LIMITS)
@@ -256,6 +269,9 @@ class IceModel:
             if lim is not None:
                 cand[4] = lim
         cand[5] = self.surface.max_timestep(t)
+        if front_retreat_rate is not None:
+            cand[9] = self.calving.max_timestep_from_rate(
+                vals[-1], front_retreat_rate.dtype)
         idx = min(range(len(cand)), key=cand.__getitem__)
         dt = cand[idx]
         res = self.resolution
@@ -341,7 +357,11 @@ class IceModel:
         if self.yield_stress is not None:
             tau_c = self.yield_stress.compute(state, t=t)
         sb = self.stress_balance.update(state, tau_c)
-        dt, dt_limit_idx, max_D = self._compute_dt(sb, t, t_end)
+        fr_rate = None
+        if self.front_retreat_cfl:
+            fr_rate = self.calving.max_rate(
+                state.geometry, sb, hardness_B=self._calving_hardness(state))
+        dt, dt_limit_idx, max_D = self._compute_dt(sb, t, t_end, fr_rate)
         dt_f = _round_to(dt, dtype)
 
         if self.stateful_surface:
@@ -393,16 +413,27 @@ class IceModel:
                     cells=cells)
         smb_app, bmb_app, div_vol, nonneg = vals[:4]
 
-        # 8. calving and iceberg removal -----------------------------------
-        discharge_vol = calving_vol = zero
-        calved = None
+        # 8. calving, front retreat and iceberg removal ---------------------
+        discharge_vol = zero
+        parts_vol = (zero,) * 3
+        discharge = parts = None
         if self.calving is not None:
             cell_area = self.grid.dx * self.grid.dy
-            geometry, calved = self.calving.step(geometry, with_parts=True)
+            C_pre = geometry.ice_thickness + geometry.ice_area_specific_volume
+            geometry, parts = self.calving.step(
+                geometry, sb, dt_f, t=t,
+                hardness_B=self._calving_hardness(
+                    state.replace(geometry=geometry)),
+                with_parts=True)
             geometry = S.ensure_consistency(geometry, self.rho_i, self.rho_w,
                                             self.Hmin, self.subgl)
-            discharge_vol = torch.sum(calved) * cell_area
-            calving_vol = torch.sum(calved) * cell_area
+            # the ice content removed (H + Href, so that partial-cell
+            # conversions do not count; <= 0)
+            discharge = geometry.ice_thickness \
+                + geometry.ice_area_specific_volume - C_pre
+            discharge_vol = torch.sum(discharge) * cell_area
+            parts_vol = tuple(torch.sum(parts[k]) * cell_area for k in (
+                "calving", "frontal_melt", "forced_retreat"))
 
         state = state.replace(geometry=geometry, u_ssa=sb.u_ssa, v_ssa=sb.v_ssa)
 
@@ -423,10 +454,11 @@ class IceModel:
             sum_bmb=stats.sum_bmb + (dt * bmb_app).to(f64),
             sum_nonneg=stats.sum_nonneg + (dt * nonneg).to(f64),
             sum_discharge=stats.sum_discharge + discharge_vol.to(f64),
-            sum_calving=stats.sum_calving + calving_vol.to(f64),
-            sum_frontal_melt=stats.sum_frontal_melt,
-            sum_forced_retreat=stats.sum_forced_retreat,
-            cell=self._add_cells(stats.cell, dt, vals[4:], calved),
+            sum_calving=stats.sum_calving + parts_vol[0].to(f64),
+            sum_frontal_melt=stats.sum_frontal_melt + parts_vol[1].to(f64),
+            sum_forced_retreat=stats.sum_forced_retreat
+            + parts_vol[2].to(f64),
+            cell=self._add_cells(stats.cell, dt, vals[4:], discharge, parts),
             limit_hits=hits,
             max_diffusivity=max(stats.max_diffusivity, max_D),
             ssa_newton_iters=stats.ssa_newton_iters + sb.ssa_newton_iters,
@@ -434,22 +466,35 @@ class IceModel:
             host_syncs=stats.host_syncs)
         return state, t + dt, stats
 
+    def _calving_hardness(self, state):
+        """The vertically averaged hardness the von Mises law needs (from
+        the SSA's flow law), else None."""
+        if self.calving is not None and self.ssa is not None \
+                and "vonmises_calving" in self.calving.methods:
+            return self.ssa._hardness(state)
+        return None
+
     @staticmethod
-    def _add_cells(cell, dt, fields, calved):
+    def _add_cells(cell, dt, fields, discharge, parts):
         """The per-cell budget after a step of ``dt`` seconds: the rates of
-        the mass transport times dt, and the calved thickness as the
-        discharge (calving is the port's only discharge mechanism)."""
+        the mass transport times dt, the calving's discharge and its split
+        per mechanism."""
         if cell is None:
             return None
         f64 = torch.float64
         flow, smb, bmb, nonneg = (dt * f.to(f64) for f in fields)
-        d = cell.discharge if calved is None else cell.discharge + calved
-        c = cell.calving if calved is None else cell.calving + calved
+        if discharge is None:
+            return cell._replace(flow=cell.flow + flow, smb=cell.smb + smb,
+                                 bmb=cell.bmb + bmb,
+                                 nonneg=cell.nonneg + nonneg)
         return CellBudget(flow=cell.flow + flow, smb=cell.smb + smb,
                           bmb=cell.bmb + bmb, nonneg=cell.nonneg + nonneg,
-                          discharge=d, calving=c,
-                          frontal_melt=cell.frontal_melt,
-                          forced_retreat=cell.forced_retreat)
+                          discharge=cell.discharge + discharge,
+                          calving=cell.calving + parts["calving"],
+                          frontal_melt=cell.frontal_melt
+                          + parts["frontal_melt"],
+                          forced_retreat=cell.forced_retreat
+                          + parts["forced_retreat"])
 
     def _advance(self, state, t0: float, t_end: float, cells: bool = False):
         """One segment: at most ``time_stepping.max_steps_per_segment``
@@ -487,6 +532,29 @@ class IceModel:
                 kw["snow_depth"] = z2
             if state.firn_depth is None:
                 kw["firn_depth"] = z2
+        if state.till_phi is None \
+                and getattr(self.yield_stress, "t2p_enabled", False):
+            # PISM -topg_to_phi: the friction angle from the initial bed
+            kw["till_phi"] = self.yield_stress.topg_to_phi(
+                state.geometry.bed_elevation)
+        if self.calving is not None and "ocean_kill" in self.calving.methods \
+                and self.calving.ocean_kill_mask is None:
+            okf = self.config.get_string("calving.ocean_kill.file")
+            if okf:
+                # cells with thk <= 0 in the file form the kill mask
+                from ..io.bootstrap import read_and_regrid
+                flds = read_and_regrid(okf, self.grid,
+                                       ["thk", "land_ice_thickness"])
+                thk = flds.get("thk", flds.get("land_ice_thickness"))
+                if thk is None:
+                    raise ValueError(f"{okf!r} has no thk variable")
+                self.calving.ocean_kill_mask = torch.as_tensor(
+                    np.nan_to_num(thk) <= 0.0, device=self.device)
+            else:
+                # PISM's default: the input's ice-free ocean; here the
+                # initial state's
+                self.calving.ocean_kill_mask = \
+                    state.geometry.cell_type == S.MASK_ICE_FREE_OCEAN
         if self.bed_deformation is not None and state.bed_reference is None:
             state = self.bed_deformation.initialize(state.replace(**kw))
             kw = {}

@@ -2,7 +2,9 @@
 till yield stress and the (pseudo-)plastic sliding-law drag coefficient.
 
 - tau_c = c0 + tan(phi) N_till, with N_till from the till water amount
-  (Bueler & van Pelt 2015);
+  (Bueler & van Pelt 2015); phi from the bed elevation with
+  ``topg_to_phi``, and no till drag at marine grounding lines with
+  ``slippery_grounding_lines``;
 - beta(u) for tau_b = -beta(|u|) u:
       beta = tau_c |u|^(q-1) / u_threshold^q      (pseudo-plastic)
       beta = tau_c / sqrt(|u|^2 + u_reg^2)         (plastic, q = 0)
@@ -28,10 +30,8 @@ class MohrCoulombYieldStress:
     def __post_init__(self):
         cfg = self.config
         require(cfg, "basal_yield_stress.model", ("mohr_coulomb",))
-        for flag in ("basal_yield_stress.mohr_coulomb.topg_to_phi.enabled",
-                     "basal_yield_stress.mohr_coulomb.tillphi_opt.enabled",
-                     "basal_yield_stress.add_transportable_water",
-                     "basal_yield_stress.slippery_grounding_lines"):
+        for flag in ("basal_yield_stress.mohr_coulomb.tillphi_opt.enabled",
+                     "basal_yield_stress.add_transportable_water"):
             require(cfg, flag, (False,))
         require(cfg, "basal_yield_stress.mohr_coulomb.delta.file", ("",))
         self.c0 = cfg.get_number("basal_yield_stress.mohr_coulomb.till_cohesion")
@@ -49,6 +49,21 @@ class MohrCoulombYieldStress:
         self.rho_i = cfg.get_number("constants.ice.density")
         self.g = cfg.get_number("constants.standard_gravity")
         self.tau_c_ice_free = cfg.get_number("basal_yield_stress.ice_free_bedrock")
+        self.t2p_enabled = cfg.get_flag(
+            "basal_yield_stress.mohr_coulomb.topg_to_phi.enabled")
+        self.t2p = tuple(cfg.get_number(
+            "basal_yield_stress.mohr_coulomb.topg_to_phi." + k)
+            for k in ("phi_min", "phi_max", "topg_min", "topg_max"))
+        self.slippery_gl = cfg.get_flag(
+            "basal_yield_stress.slippery_grounding_lines")
+
+    def topg_to_phi(self, bed):
+        """Till friction angle from the bed elevation (PISM
+        ``-topg_to_phi``): phi_min below topg_min, a linear ramp to phi_max
+        at topg_max."""
+        phi_min, phi_max, b_min, b_max = self.t2p
+        w = torch.clamp((bed - b_min) / max(b_max - b_min, 1e-30), 0.0, 1.0)
+        return phi_min + (phi_max - phi_min) * w
 
     def effective_pressure(self, tillwat, P_overburden):
         """Bueler & van Pelt (2015) eq. 23: N_till from till water amount."""
@@ -72,7 +87,18 @@ class MohrCoulombYieldStress:
         # ice-free bedrock is strong; floating ice and ocean have no till drag
         tau_c = torch.where(mask == S.MASK_ICE_FREE_BEDROCK,
                             self.tau_c_ice_free, tau_c)
-        return torch.where(S.ocean(mask), 0.0, tau_c)
+        tau_c = torch.where(S.ocean(mask), 0.0, tau_c)
+        if self.slippery_gl:
+            # grounded marine cells touching the ocean slide freely; the
+            # neighbours wrap at the domain edges, as the JAX package's
+            # jnp.roll does
+            o = S.ocean(mask)
+            nbr = (torch.roll(o, 1, 0) | torch.roll(o, -1, 0)
+                   | torch.roll(o, 1, 1) | torch.roll(o, -1, 1))
+            gl = S.grounded_ice(mask) & (state.geometry.bed_elevation
+                                         < state.geometry.sea_level) & nbr
+            tau_c = torch.where(gl, 0.0, tau_c)
+        return tau_c
 
 
 @dataclass(frozen=True)

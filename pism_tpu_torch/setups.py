@@ -6,7 +6,10 @@ extents, grid, config, geometry, latitude/longitude/precipitation, and the
 float64 -> float32 cast after ``prepare_state``. ``eismint2_model`` is
 ``bench.py``'s second chain, EISMINT II experiment A (``bench.py:95-103``).
 ``halfar_model`` is the isothermal verification chain, Halfar tests B and
-C, with ``halfar_report`` its error report.
+C, with ``halfar_report`` its error report. ``antarctica_pik_model`` is
+the PISM-PIK Antarctic chain of ``examples/antarctica_pik.py:61-117``
+(BASELINE config 4): PICO, eigen and thickness calving, Lingle-Clark and
+the PIK surface on a synthetic marine ice sheet.
 
 Each takes ``mesh``, a ``parallel.mesh.Mesh`` (e.g.
 ``make_mesh(["cuda:0"] * 4, (2, 2))``), which decomposes the model's kernel
@@ -184,3 +187,89 @@ def halfar_report(sol, state: ModelState, grid, t: float) -> dict:
                            "max_H": e["max_H"], "avg_H": e["avg_H"],
                            "dome_H": e["dome_H"]})])
     return e
+
+
+def antarctic_geometry(grid):
+    """The JAX example's synthetic Antarctica on ``grid`` (numpy float64):
+    (thickness, bed, latitude). A marine ice sheet on an overdeepened bed
+    with two embayments (Ross and Weddell analogs) that grow shelves."""
+    X, Y = np.meshgrid(grid.x, grid.y)
+    r = np.sqrt(X ** 2 + Y ** 2)
+    theta = np.arctan2(Y, X)
+    # continent: bed above sea level inside ~1300 km, marine margins
+    bed = 900.0 - 1500.0 * (r / 1500e3) ** 2 \
+        + 120.0 * np.sin(X / 180e3) * np.sin(Y / 230e3)
+    for ang, width in ((-1.6, 0.5), (2.4, 0.6)):
+        emb = np.exp(-((theta - ang) / width) ** 2) * (r / 1800e3).clip(0, 1)
+        bed = bed - 1100.0 * emb
+    H = np.where(r < 1500e3,
+                 3300.0 * np.maximum(1.0 - r / 1700e3, 0.0) ** 0.8, 0.0)
+    H = np.where(bed < -1400.0, 0.0, H)         # no seed ice in deep ocean
+    lat = -90.0 + r / 111.2e3                    # degrees south
+    return H, bed, lat
+
+
+#: the JAX example's config (``examples/antarctica_pik.py:67-85``)
+ANTARCTICA_PIK_CFG = {
+    "stress_balance.model": "ssa+sia",
+    "energy.model": "enthalpy",
+    "basal_resistance.pseudo_plastic.enabled": True,
+    "basal_resistance.pseudo_plastic.q": 0.75,
+    "basal_yield_stress.model": "mohr_coulomb",
+    "hydrology.model": "null",
+    "calving.methods": "eigen_calving,thickness_calving",
+    "calving.eigen_calving.K": 1.0e17,
+    "calving.thickness_calving.threshold": 150.0,
+    "geometry.remove_icebergs": True,
+    "geometry.part_grid.enabled": True,
+    "geometry.grounded_cell_fraction": True,
+    "bed_deformation.model": "lc",
+    "time_stepping.skip.enabled": True,
+    "time_stepping.skip.max": 10,
+    "runtime.device_loop": True,
+}
+
+
+def antarctica_pik_model(dtype: str, km: float = 16.0, device="cuda",
+                         extra_cfg=None, Mz: int = 31):
+    """The PISM-PIK Antarctic chain of ``examples/antarctica_pik.py``: a
+    4,000 x 4,000 km domain at ``km`` spacing (251 x 251 x 31 at 16 km),
+    the hybrid SSA+SIA stress balance, enthalpy, pseudo-plastic
+    Mohr-Coulomb sliding, PICO, eigen and thickness calving with iceberg
+    removal, part-grid, the sub-grid grounding line, Lingle-Clark, and the
+    PIK surface on a uniform atmosphere. Returns (model, initial state,
+    grid); ``dtype`` is "float32" or "float64" (the state is prepared in
+    float64 and cast, as the example does)."""
+    from .coupler.atmosphere import Uniform as AtmUniform
+    from .coupler.pico import Pico
+    from .coupler.surface import PIK as SurfacePIK
+
+    device = torch.device(device)
+    dx = km * 1e3
+    L = 2000e3                       # half-width: 4000 x 4000 km domain
+    Mx = int(2 * L / dx) + 1
+    grid = Grid(Mx=Mx, My=Mx, Lx=L, Ly=L, Mz=Mz, Lz=5000.0)
+    cfg = Config(dict(ANTARCTICA_PIK_CFG, **{"runtime.float_dtype": dtype}))
+    if extra_cfg:
+        cfg.update(extra_cfg)
+    H, bed, lat = antarctic_geometry(grid)
+
+    def t64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    surface = SurfacePIK(
+        atmosphere=AtmUniform(temperature=248.0, precipitation=0.25 / SPY),
+        latitude=t64(lat))
+    ocean = Pico(temperature_ocean=torch.full(grid.shape2, 271.45,
+                                              dtype=torch.float64,
+                                              device=device),
+                 salinity_ocean=torch.full(grid.shape2, 34.65,
+                                           dtype=torch.float64, device=device),
+                 config=cfg, grid=grid)
+    model = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
+                     device=device)
+    state = model.prepare_state(ModelState(geometry=new_geometry(
+        t64(H), t64(bed))))
+    if dtype == "float32":
+        state = to_dtype(state, torch.float32)
+    return model, state, grid

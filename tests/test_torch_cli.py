@@ -241,7 +241,7 @@ def test_shorthands_set_the_config(tmp_path):
     ["-no_model_strip", "30"],
     ["-test", "B", "-Mx", "11", "-atmosphere", "uniform,anomaly"],
     ["-test", "B", "-Mx", "11", "-surface", "pdd,cache"],
-    ["-test", "B", "-Mx", "11", "-ocean", "pik"],
+    ["-test", "B", "-Mx", "11", "-ocean", "th"],
     ["-test", "B", "-Mx", "11", "-sea_level", "constant,delta_sl_2d"],
     ["-inverse"], ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
     ["-test", "E"], ["-test", "F"], ["-test", "G"], ["-test", "I"],
@@ -662,3 +662,149 @@ def test_bootstrap_takes_searise_inputs_from_the_input_file(tmp_path):
         Ht, Hj = ft.read("thk"), fj.read("thk")
     assert same.mean() > 0.8
     assert np.abs(Ht - Hj)[same].max() <= 1e-9 * np.abs(Hj).max()
+
+
+# -- the PISM-PIK Antarctic chain through the command line ------------------
+
+@pytest.fixture(scope="module")
+def pik(tmp_path_factory):
+    """The PIK chain's command line (``examples/antarctica_pik.py``'s
+    ``bootstrap_argv``: -bootstrap -pik -atmosphere pik -surface pik -ocean
+    pico -calving eigen_calving,thickness_calving -bed_def lc) on the
+    synthetic Antarctic data file at 200 km (21 x 21 x 11, float64; the
+    Lingle-Clark update every year instead of every 10 a): the
+    bootstrap (zero length) through both command lines, then 2 a of both
+    from the port's untied file; the port's run continued by a plain -i
+    restart for 1 a. ``IceModel.run`` is recorded, so the port's runs can
+    be continued in memory."""
+    from pism_tpu_torch.examples.antarctica_pik import (
+        bootstrap_argv, synthesize_data_file)
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    d = tmp_path_factory.mktemp("antarctica_pik")
+    data = str(d / "ant.nc")
+    synthesize_data_file(data, 200.0, "netcdf4")
+    f = {(p, k): str(d / f"{p}_{k}.nc") for p in ("jax", "torch")
+         for k in ("b0", "run")}
+
+    def argv(p, fmt, out, y, src=None):
+        # the bed updated every year, so every run here moves it
+        a = bootstrap_argv(data, out, 200.0, y, fmt, Mz=11, dtype="float64",
+                           extra=("-config",
+                                  "bed_deformation.update_interval=1"))
+        a = [x for x in a if x != "-verbose" and x != "1"]
+        if src is not None:   # the same flags on a -i of ``src``
+            a = ["-i", src] + a[a.index("-stress_balance"):]
+        return a
+
+    res = {"files": f, "data": data, "dir": d}
+    res["b0"] = _both_clis(lambda p, fmt: argv(p, fmt, f[p, "b0"], 0.0))
+    tie = str(d / "tie0.nc")
+    res["ties"] = _untie(f["torch", "b0"], tie)
+    records = []
+    orig = IceModel.run
+
+    def run(self, state, time, *a, **k):
+        out = orig(self, state, time, *a, **k)
+        records.append((self, time, out[0]))
+        return out
+
+    IceModel.run = run
+    try:
+        res["run"] = _both_clis(lambda p, fmt: argv(p, fmt, f[p, "run"], 2.0,
+                                                    src=tie))
+        rst = str(d / "restart.nc")
+        assert t_cli.main(["-i", f["torch", "run"], "-y", "1", "-o", rst,
+                           "-o_format", "netcdf3", "-platform", "cpu",
+                           "-verbose", "0"]) == 0
+    finally:
+        IceModel.run = orig
+    res["records"] = records
+    res["restart"] = rst
+    return res
+
+
+def test_pik_bootstrap_matches(pik):
+    """The PIK bootstrap through both command lines: the same variables,
+    every field within 1e-12 of its max (the Lingle-Clark references and
+    viscous displacement included)."""
+    f = pik["files"]
+    a, b = f["torch", "b0"], f["jax", "b0"]
+    with File(a, "r") as fa, File(b, "r") as fb:
+        names = sorted(set(fa.variables()))
+        assert names == sorted(set(fb.variables()))
+    assert "viscous_bed_displacement" in names and "lat" in names
+    names = [n for n in names if n not in ("time", "mask")]
+    assert _cmp(a, b, names, 1e-12) == []
+    assert pik["ties"] > 0
+
+
+def test_pik_run_matches(pik):
+    """2 a of the chain from the untied bootstrap through both command
+    lines: equal steps and dt-limit hits, H within 5e-7 of max H (from the
+    second SSA solve on the two packages' stagnating solves part, as in
+    tests/test_torch_antarctica.py; measured 2.2e-7) and the viscous
+    displacement too (linear in the load, which carries H's difference;
+    8.1e-8), the bed within 1e-9 of its max (1.7e-12)."""
+    f = pik["files"]
+    steps = pik["run"]
+    assert steps["torch"] == steps["jax"] and steps["torch"][0] > 0
+    a, b = f["torch", "run"], f["jax", "run"]
+    assert _cmp(a, b, ["thk", "usurf", "Href", "viscous_bed_displacement"],
+                5e-7) == []
+    assert _cmp(a, b, ["topg"], 1e-9) == []
+
+
+def test_pik_cli_equals_python(pik):
+    """The CLI's 2 a run equals, to the bit, the same run driven from
+    Python: the untied file's state, the couplers through the factory
+    from the run's stored config and the data file, ``IceModel.run``."""
+    import dataclasses
+
+    from pism_tpu_torch.examples.antarctica_pik import couplers
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.util.timecal import Time
+
+    f = pik["files"]
+    cfg = t_ckpt.load_config(f["torch", "run"])
+    grid = t_ckpt.load_grid(f["torch", "run"])
+    tie = str(pik["dir"] / "tie0.nc")
+    st0, t0 = t_ckpt.load_state(tie, config=cfg, device="cpu")
+    surface, ocean = couplers(cfg, grid, tie, "cpu")
+    model = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
+                     device="cpu")
+    st, _ = model.run(st0.replace(u_ssa=None, v_ssa=None),
+                      Time(t0, t0 + 2.0 * SPY))
+    cli_state = t_ckpt.load_state(f["torch", "run"], device="cpu")[0]
+    # (not the grounded fraction: the step recomputes it without the
+    # sub-grid rule after the bed update, as the JAX step does, and
+    # load_state with it)
+    for fld in dataclasses.fields(st.geometry):
+        if fld.name != "cell_grounded_fraction":
+            assert torch.equal(getattr(st.geometry, fld.name),
+                               getattr(cli_state.geometry, fld.name)), fld.name
+    for name in ("enthalpy", "u_ssa", "bed_uplift", "bed_reference",
+                 "bed_load_reference"):
+        assert torch.equal(getattr(st, name), getattr(cli_state, name)), name
+
+
+def test_pik_restart_continues_to_the_bit(pik):
+    """A plain -i restart of the 2 a run (its chains rebuilt from the
+    stored config; lat from the file's projection, precipitation and PICO's
+    ocean from the data file) equals the first run's state continued in
+    memory for the same 1 a, to the bit: H, E, u, the bed, the viscous
+    displacement and the Lingle-Clark references."""
+    from pism_tpu_torch.util.timecal import Time
+
+    model, time, end = [r for r in pik["records"]
+                        if r[0].device.type == "cpu"][-2]
+    st, _ = model.run(end, Time(time.end, time.end + SPY))
+    rst = t_ckpt.load_state(pik["restart"], device="cpu")[0]
+    assert torch.equal(st.geometry.ice_thickness, rst.geometry.ice_thickness)
+    assert torch.equal(st.geometry.bed_elevation, rst.geometry.bed_elevation)
+    for name in ("enthalpy", "u_ssa", "v_ssa", "bed_uplift", "bed_reference",
+                 "bed_load_reference"):
+        assert torch.equal(getattr(st, name), getattr(rst, name)), name
+    # the restart's year moved the bed
+    first = t_ckpt.load_state(pik["files"]["torch", "run"], device="cpu")[0]
+    assert not torch.equal(rst.bed_uplift, first.bed_uplift)

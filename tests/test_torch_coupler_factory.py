@@ -1,9 +1,12 @@
 """The coupler factory and its models, pism_tpu_torch against pism_tpu on
 the CPU in float64: every chain the port builds gives the same fields at a
 few model times (1e-12 relative), built from the same inputs and from the
-same forcing files (``inputs_from_files``); every name the port does not
-build raises. Then the sea-level update through one ``IceModel`` step, and
-the wiring of this slice's config keys: every key the JAX twins read on
+same forcing files (``inputs_from_files``), the PIK atmosphere and surface
+and the ocean chains (``constant``, ``pik``, PICO with and without basins,
+``delta_T``) included; every name the port does not build raises. Then the
+sea-level update through one ``IceModel`` step, and the wiring of the
+config keys of these modules and of the PIK chain's (PICO, calving,
+Lingle-Clark, the Mohr-Coulomb options): every key the JAX twins read on
 these paths is read by the port or refused when set off its default.
 """
 
@@ -109,10 +112,11 @@ BASE = {"runtime.float_dtype": "float64",
 
 ATMOSPHERE = ["uniform", "given", "searise_greenland",
               "searise_greenland,delta_T", "given,delta_T,delta_P",
-              "uniform,delta_P"]
+              "uniform,delta_P", "pik", "pik,delta_T,delta_P"]
 SURFACE = [("simple", "searise_greenland"), ("uniform", "uniform"),
            ("given", "uniform"), ("given,delta_T", "uniform"),
-           ("simple,delta_T", "given,delta_P")]
+           ("simple,delta_T", "given,delta_P"), ("pik", "uniform"),
+           ("pik,delta_T", "pik")]
 
 
 @pytest.mark.parametrize("chain", ATMOSPHERE)
@@ -127,6 +131,20 @@ def test_atmosphere_chains_match(chain):
     for t in TIMES:
         for name, a, b in zip(("T", "T_july", "P"), tm(tg, t), jm(jg, t)):
             _close(a, b, f"{chain} {name} at {t / SPY} a")
+
+
+def test_atmosphere_pik_summer_parameterization_matches():
+    f = _fields()
+    jg, tg = _geoms(f)
+    cfg = dict(BASE, **{"atmosphere.models": "pik",
+                        "atmosphere.pik.parameterization":
+                        "martin_huybrechts_dewolde"})
+    jm = j_cf.atmosphere_from_config(JConfig(cfg), _inputs(f, "jax"))
+    tm = t_cf.atmosphere_from_config(Config(cfg), _inputs(f, "torch"))
+    a, b = tm(tg, 0.0), jm(jg, 0.0)
+    for name, x, y in zip(("T", "T_july", "P"), a, b):
+        _close(x, y, name)
+    assert not torch.equal(a.temperature, a.temperature_july)
 
 
 @pytest.mark.parametrize("chain,atm", SURFACE)
@@ -188,6 +206,54 @@ def test_sea_level_and_ocean_match(chain):
     jo = j_cf.ocean_from_config(JConfig(BASE))
     to = t_cf.ocean_from_config(Config(BASE))
     _close(to(tg, 0.0), jo(jg, 0.0), "ocean constant")
+
+
+def _ocean_inputs(f, pkg, basins=True):
+    rng = np.random.default_rng(8)
+    shp = f["H"].shape
+    theta = 272.8 + rng.uniform(0.0, 0.4, shp)
+    salt = 34.6 + rng.uniform(0.0, 0.2, shp)
+    b = np.where(np.arange(shp[1])[None, :] < shp[1] // 2, 1, 2) \
+        * np.ones(shp, int)
+    t, v = _series()
+    if pkg == "jax":
+        out = {"theta_ocean": jnp.asarray(theta),
+               "salinity_ocean": jnp.asarray(salt),
+               "delta_T": JScalar.from_arrays(t, v)}
+        if basins:
+            out["basins"] = jnp.asarray(b)
+    else:
+        out = {"theta_ocean": torch.tensor(theta),
+               "salinity_ocean": torch.tensor(salt),
+               "delta_T": ScalarForcing.from_arrays(t, v)}
+        if basins:
+            out["basins"] = torch.tensor(b)
+    return out
+
+
+@pytest.mark.parametrize("chain,basins", [
+    ("constant", True), ("constant,delta_T", True), ("pik", True),
+    ("pik,delta_T", True), ("pico", True), ("pico", False),
+    ("pico,delta_T", True)])
+def test_ocean_chains_match(chain, basins):
+    """Melt and shelf-base temperature of every ocean chain (``inputs``),
+    and the melt the step takes (``__call__``)."""
+    f = _fields()
+    jg, tg = _geoms(f)
+    cfg = dict(BASE, **{"ocean.models": chain})
+    jm = j_cf.ocean_from_config(JConfig(cfg), _ocean_inputs(f, "jax", basins),
+                                grid=JGrid(**GRID))
+    tm = t_cf.ocean_from_config(Config(cfg),
+                                _ocean_inputs(f, "torch", basins),
+                                grid=Grid(**GRID))
+    for t in TIMES:
+        a, b = tm.inputs(tg, t), jm.inputs(jg, t)
+        _close(a.shelf_base_melt, b.shelf_base_melt, f"{chain} melt")
+        _close(a.shelf_base_temperature, b.shelf_base_temperature,
+               f"{chain} T")
+        _close(tm(tg, t), jm(jg, t), f"{chain} call")
+    assert tm.water_column_pressure(tg, 0.0) is None \
+        and jm.water_column_pressure(jg, 0.0) is None
 
 
 def _write_forcing(d, f, nan=False):
@@ -280,6 +346,49 @@ def test_chains_from_files_match(tmp_path, atm, surf, sl):
         _close(tl(tg, t), jl(jg, t), f"sea level at {t / SPY}")
 
 
+def test_ocean_from_files_matches(tmp_path):
+    """PICO from ``ocean.pico.file`` (theta_ocean, salinity_ocean) and
+    ``ocean.pico.basins_file``, with ``ocean.delta_T.file``."""
+    f = _fields()
+    jg, tg = _geoms(f)
+    g = Grid(**GRID)
+    rng = np.random.default_rng(9)
+    pico, bas, dT = (str(tmp_path / n) for n in ("pico.nc", "basins.nc",
+                                                 "dT.nc"))
+    with File(pico, "w") as fh:
+        fh.define_dimension("y", g.My, g.y)
+        fh.define_dimension("x", g.Mx, g.x)
+        fh.write("theta_ocean", 272.8 + rng.uniform(0, 0.4, g.shape2),
+                 ("y", "x"), {"units": "K"})
+        fh.write("salinity_ocean", 34.6 + rng.uniform(0, 0.2, g.shape2),
+                 ("y", "x"), {"units": "g/kg"})
+    with File(bas, "w") as fh:
+        fh.define_dimension("y", g.My, g.y)
+        fh.define_dimension("x", g.Mx, g.x)
+        fh.write("basins", np.where(g.x[None, :] < 0, 1.0, 2.0)
+                 * np.ones(g.shape2), ("y", "x"))
+    t, v = _series()
+    with File(dT, "w") as fh:
+        fh.define_dimension("time", len(t), np.asarray(t), attrs={
+            "units": "years since 1-1-1"})
+        fh.write("delta_T", np.asarray(v), ("time",))
+    cfg = dict(BASE, **{"ocean.models": "pico,delta_T",
+                        "ocean.pico.file": pico,
+                        "ocean.pico.basins_file": bas,
+                        "ocean.delta_T.file": dT})
+    jc, tc = JConfig(cfg), Config(cfg)
+    ji = j_cf.inputs_from_files(jc, JGrid(**GRID), "ocean")
+    ti = t_cf.inputs_from_files(tc, Grid(**GRID), "ocean", "cpu")
+    assert sorted(ti) == sorted(ji) == ["basins", "delta_T", "salinity_ocean",
+                                        "theta_ocean"]
+    jm = j_cf.ocean_from_config(jc, ji, grid=JGrid(**GRID))
+    tm = t_cf.ocean_from_config(tc, ti, grid=Grid(**GRID))
+    for t in TIMES:
+        a, b = tm.inputs(tg, t), jm.inputs(jg, t)
+        _close(a.shelf_base_melt, b.shelf_base_melt, "melt")
+        _close(a.shelf_base_temperature, b.shelf_base_temperature, "T")
+
+
 def test_forcing_that_does_not_cover_the_grid_raises(tmp_path):
     f = _fields()
     cfg = dict(BASE, **_write_forcing(tmp_path, f, nan=True))
@@ -291,7 +400,7 @@ def test_forcing_that_does_not_cover_the_grid_raises(tmp_path):
 
 @pytest.mark.parametrize("key,chain,exc", [
     ("atmosphere.models", "yearly_cycle", NotImplementedError),
-    ("atmosphere.models", "pik", NotImplementedError),
+    ("atmosphere.models", "one_station", NotImplementedError),
     ("atmosphere.models", "uniform,elevation_change", NotImplementedError),
     ("atmosphere.models", "uniform,frac_P", NotImplementedError),
     ("atmosphere.models", "no_such_model", NotImplementedError),
@@ -300,8 +409,8 @@ def test_forcing_that_does_not_cover_the_grid_raises(tmp_path):
     ("surface.models", "pdd,cache", NotImplementedError),
     ("surface.models", "simple,anomaly", NotImplementedError),
     ("surface.models", "simple,no_such_modifier", NotImplementedError),
-    ("ocean.models", "pico", NotImplementedError),
-    ("ocean.models", "constant,delta_T", NotImplementedError),
+    ("ocean.models", "th", NotImplementedError),
+    ("ocean.models", "pik,delta_SMB", NotImplementedError),
     ("sea_level.models", "constant,delta_sl_2d", NotImplementedError),
     ("sea_level.models", "tides", NotImplementedError),
 ])
@@ -433,7 +542,8 @@ def _port_reads(run, over=None):
 
 def _wiring_paths(tmp_path):
     """(name, jax run, port run) of each path of modules 3-11 the port
-    supports, each a function of a config."""
+    supports and of the PIK chain's modules, each a function of a
+    config."""
     f = _fields()
     boot = str(tmp_path / "boot.nc")
     from pism_tpu_torch.examples.std_greenland_workflow import (
@@ -474,18 +584,73 @@ def _wiring_paths(tmp_path):
                                       device="cpu")),
         ("factory", chains(j_cf, ji, JGrid(**GRID), None),
          chains(t_cf, ti, Grid(**GRID), "cpu")),
+        ("pik", _pik_path("jax", f), _pik_path("torch", f)),
     ]
+
+
+def _pik_path(pkg, f):
+    """The PIK chain's modules: the pik couplers, PICO with basins and the
+    ocean delta_T, every calving law, Lingle-Clark and the Mohr-Coulomb
+    options of this slice."""
+    if pkg == "jax":
+        from pism_tpu.model import beddef, calving
+        from pism_tpu.physics import basal
+        cf, grid, geoms = j_cf, JGrid(**GRID), _geoms(f)[0]
+        state = __import__("pism_tpu.state", fromlist=["x"]).ModelState(
+            geometry=geoms)
+    else:
+        from pism_tpu_torch.model import beddef, calving
+        from pism_tpu_torch.physics import basal
+        from pism_tpu_torch.state import ModelState
+        cf, grid, geoms = t_cf, Grid(**GRID), _geoms(f)[1]
+        state = ModelState(geometry=geoms)
+    inputs = dict(_inputs(f, pkg), **_ocean_inputs(f, pkg))
+
+    def run(cfg):
+        cfg.update({"atmosphere.models": "pik", "surface.models": "pik",
+                    "ocean.models": "pico,delta_T",
+                    "calving.methods": "eigen_calving,vonmises_calving,"
+                    "hayhurst_calving,thickness_calving,float_kill",
+                    "bed_deformation.model": "lc",
+                    "basal_yield_stress.mohr_coulomb.topg_to_phi.enabled":
+                    True,
+                    "basal_yield_stress.slippery_grounding_lines": True})
+        a = cf.atmosphere_from_config(cfg, inputs)
+        cf.surface_from_config(cfg, inputs, atmosphere=a)
+        cf.ocean_from_config(cfg, inputs, grid=grid).inputs(geoms, 0.0)
+        cfg.update({"ocean.models": "pik"})
+        cf.ocean_from_config(cfg, inputs, grid=grid)
+        calving.CalvingModel(grid=grid, config=cfg)
+        beddef.LingleClark(grid=grid, config=cfg).initialize(state)
+        y = basal.MohrCoulombYieldStress(cfg)
+        y.compute(state.replace(till_phi=y.topg_to_phi(
+            geoms.bed_elevation)))
+    return run
 
 
 #: keys the JAX twins read whose value matters only through another key
 #: (the gate), which the port refuses off its default: the gate is tested
-GATED = {
+GATED_PDD = {
     "surface.pdd.std_dev.param_a": "surface.pdd.std_dev.param_enabled",
     "surface.pdd.std_dev.param_b": "surface.pdd.std_dev.param_enabled",
     "surface.pdd.std_dev.lapse_lat_base": "surface.pdd.std_dev.lapse_lat_rate",
 }
+_OPT = "basal_yield_stress.mohr_coulomb.tillphi_opt."
+GATED_PIK = {
+    **{_OPT + k: _OPT + "enabled"
+       for k in ("dh_min", "dphi_max", "dphi_scale", "dt", "phi_max",
+                 "phi_min")},
+    "basal_yield_stress.mohr_coulomb.till_log_factor_transportable_water":
+    "basal_yield_stress.add_transportable_water",
+    "frontal_melt.include_floating_ice": "frontal_melt.models",
+}
+GATED = {**GATED_PDD, **GATED_PIK}
 #: read by the JAX PDD and never used there (pism_tpu/coupler/pdd.py:83)
 UNUSED = {"constants.fresh_water.density"}
+#: read on a path and used by no module of it: the JAX atmosphere factory
+#: records the summer peak day on every model for the PDD's yearly cycle
+#: (pism_tpu/coupler/factory.py:111-114); the port's PDD reads it itself
+UNUSED_ON = {"pik": {"atmosphere.fausto_air_temp.summer_peak_day"}}
 
 
 def test_parameter_wiring(tmp_path):
@@ -496,14 +661,16 @@ def test_parameter_wiring(tmp_path):
     from pism_tpu_torch.config.parameters import PARAMETERS
     unread = {}
     for name, jrun, trun in _wiring_paths(tmp_path):
-        missing = _jax_reads(jrun) - _port_reads(trun) - UNUSED
+        missing = _jax_reads(jrun) - _port_reads(trun) - UNUSED \
+            - UNUSED_ON.get(name, set())
         for key in sorted(missing):
             key = GATED.get(key, key)
             with pytest.raises(NotImplementedError):
                 _port_reads(trun, {key: _off_default(PARAMETERS[key][0])})
         unread[name] = missing
     # (a refusal reads its key too: what is left are the gated keys)
-    assert unread == {"bootstrap": set(), "factory": set(GATED)}
+    assert unread == {"bootstrap": set(), "factory": set(GATED_PDD),
+                      "pik": set(GATED_PIK)}
 
 
 def test_cli_sections_name_their_keys():

@@ -6,7 +6,8 @@ the CPU, their max of D from the launch against the faces' max; K5 (the
 matvec per shard of a mesh of the card) against its plain version and
 against K1 on the whole field, the Newton matvec per shard against the
 unsharded one, and K3/K4 per shard against the unsharded kernels, equal to
-the bit.
+the bit; PICO and Lingle-Clark on the card against the CPU, and one step of
+the 16 km PIK chain.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -740,3 +741,94 @@ def test_bootstrap_on_the_card_equals_the_cpu(cuda, tmp_path, dtype,
         assert np.abs(E - Ec).max() <= 4 * 2.0 ** -15 * c_i
     else:
         assert np.abs(E - Ec).max() <= 1e-6 * np.abs(Ec).max()
+
+
+# -- the PISM-PIK Antarctic chain ------------------------------------------
+
+def _pik_state(km):
+    """The PIK chain's initial float64 state on the CPU."""
+    return setups.antarctica_pik_model("float64", km=km, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basins", [False, True])
+def test_pico_on_the_card_equals_the_cpu(cuda, basins):
+    """PICO at 16 km (251 x 251) on the card and on the CPU from the same
+    float64 geometry: box index, d_gl and d_if equal; melt, temperatures,
+    salinity and overturning within 1e-12 of their max without basins, and
+    within 1e-10 with them: the per-basin sums over 63,001 cells reduce in
+    another order on the card, and the box cascade amplifies that (melt
+    2.5e-12 of its max on an H100)."""
+    from pism_tpu_torch.coupler.pico import Pico
+    from pism_tpu_torch.state import map_tensors
+
+    model, state, grid = _pik_state(16.0)
+    X = np.meshgrid(grid.x, grid.y)[0]
+    b = torch.tensor(np.where(X < 0, 1, 2)) if basins else None
+    out = {}
+    for dev in ("cpu", cuda):
+        p = Pico(temperature_ocean=torch.full(grid.shape2, 271.45,
+                                              dtype=torch.float64, device=dev),
+                 salinity_ocean=torch.full(grid.shape2, 34.65,
+                                           dtype=torch.float64, device=dev),
+                 config=model.config, grid=grid,
+                 basin_mask=None if b is None else b.to(dev))
+        g = map_tensors(state, lambda x: x.to(dev)).geometry
+        out[str(dev)] = {k: v.cpu() for k, v in p.solve(g, 0.0)._asdict()
+                         .items()}
+    a, c = out["cpu"], out[str(cuda)]
+    for name in ("box", "d_gl", "d_if", "contshelf"):
+        assert torch.equal(a[name], c[name]), name
+    tol = 1e-10 if basins else 1e-12
+    for name in ("melt", "T_basal", "temperature", "salinity", "overturning"):
+        scale = a[name].abs().max().clamp_min(1e-300)
+        assert float((a[name] - c[name]).abs().max() / scale) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elastic", [False, True])
+def test_lingle_clark_on_the_card_equals_the_cpu(cuda, elastic):
+    """One Lingle-Clark solve at 16 km (cuFFT against pocketFFT) from the
+    same float64 state with an added load: the bed and the viscous
+    displacement within 1e-12 of their max."""
+    from pism_tpu_torch.config import Config
+    from pism_tpu_torch.model.beddef import LingleClark
+    from pism_tpu_torch.state import map_tensors
+
+    model, state, grid = _pik_state(16.0)
+    H = state.geometry.ice_thickness * 1.1
+    state = state.replace(geometry=state.geometry.replace(ice_thickness=H))
+    cfg = Config({"bed_deformation.lc.elastic_model": elastic})
+    out = []
+    for dev in ("cpu", cuda):
+        lc = LingleClark(grid=grid, config=cfg)
+        s = lc.step(map_tensors(state, lambda x: x.to(dev)), 3.0 * SPY,
+                    t=10.0 * SPY)
+        out.append((s.geometry.bed_elevation.cpu(), s.bed_uplift.cpu()))
+    for a, c in zip(*out):
+        assert float((a - c).abs().max() / a.abs().max()) <= 1e-12
+    assert float(out[0][1].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_pik_chain_step_on_the_card(cuda):
+    """One step of the 16 km chain (251 x 251 x 31, float32, path A) on the
+    card: finite fields, a shelf, PICO melt under it, K1, the Newton matvec
+    and K2/K2b launched."""
+    from pism_tpu_torch.state import floating_ice
+
+    model, state, grid = setups.antarctica_pik_model(
+        "float32", km=16.0, device=cuda,
+        extra_cfg={"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"})
+    n0 = (K.LAUNCHES, K.NEWTON_LAUNCHES, K2.SUB_LAUNCHES, K2.LAUNCHES)
+    state, t, stats = model.step_once(state, 0.0, 0.5 * SPY)
+    torch.cuda.synchronize()
+    assert stats.nsteps >= 1
+    for f in (state.geometry.ice_thickness, state.enthalpy, state.u_ssa):
+        assert bool(torch.isfinite(f).all())
+    floating = floating_ice(state.geometry.cell_type)
+    assert bool(floating.any())
+    melt = model.ocean(state.geometry, t)
+    assert float(melt[floating].max()) > 0.0
+    n1 = (K.LAUNCHES, K.NEWTON_LAUNCHES, K2.SUB_LAUNCHES, K2.LAUNCHES)
+    assert all(b > a for a, b in zip(n0, n1))

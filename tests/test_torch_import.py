@@ -137,8 +137,8 @@ def test_config_lookups_match():
     {"stress_balance.ssa.fd.krylov_method": "cg"},
     {"grid.periodicity": "xy"},
     {"hydrology.model": "routing"},
-    {"bed_deformation.model": "lc"},
-    {"calving.methods": "eigen_calving"},
+    {"bed_deformation.model": "given"},
+    {"calving.methods": "prescribed_retreat"},
     {"surface.pdd.method": "random_process"},
     {"stress_balance.ssa.fd.velocity_change_rtol": 0.0,
      "runtime.float_dtype": "float32"},
@@ -192,6 +192,7 @@ def _entry_points():
     return {"setups.hybrid_greenland_model": setups.hybrid_greenland_model,
             "setups.eismint2_model": setups.eismint2_model,
             "setups.halfar_model": setups.halfar_model,
+            "setups.antarctica_pik_model": setups.antarctica_pik_model,
             "verification.eismint2.setup": eismint2.setup,
             "verification.runner.run_test": runner.run_test,
             "convert.state_from_numpy": convert.state_from_numpy,
