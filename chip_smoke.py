@@ -65,8 +65,9 @@ launch counters set to 0 just before it and read just after:
   phase 5: path C, the isothermal SIA (Halfar test B, K4): (a) 61x61
     float64 for 1000 model years with ``sia.pallas = on``, the card against
     the CPU, and its errors against the exact solution; (b) 601x601 float32
-    (3 km) under ``auto`` for 200 model years from t0, timed, then a few
-    steps profiled and a timed breakdown of 2 a; (c) the same 200 a with ``sia.pallas = off`` against
+    (3 km) under ``auto`` for 50 model years from t0 (cut from 200 to keep
+    the script's time), timed, then a few steps profiled and a timed
+    breakdown of 2 a; (c) the same 50 a with ``sia.pallas = off`` against
     (b); (d) Halfar test C and the runner's letters A, D, H and L at 61x61
     float64 on the card, under the JAX package's test thresholds.
 
@@ -120,6 +121,26 @@ launch counters set to 0 just before it and read just after:
     flags for 1 a, equal to the bit to the same run from Python, and a
     plain ``-i`` restart for 1 a equal to the bit to the run continued in
     memory, with eigen calving acting.
+  phase 10: MISMIP3d and MISMIP experiment 1 (BASELINE config 2,
+    ``setups.mismip3d_model``, ``setups.mismip_model``): (a) MISMIP3d at
+    1 km (1601x101) float32 on path A through ``IceModel.run``: Stnd from
+    the Vialov start for 5 a, a timed 30 a, then P75S and P75R for 10 a
+    each with ``GivenYieldStress`` fields as the example builds them; ms
+    per step, steps per model year, dt-limit hits, Newton sweeps, Krylov
+    iterations, host syncs and launches per step, the grounding line on
+    the centre and edge rows after each phase; finite fields, K1, the
+    Newton matvec and K2/K2b launched, K3, K4 and K5 idle; on the state
+    after the timed Stnd window, K1 and the Newton matvec (1e-5) and the
+    PCR factor and apply on the 1601-long u-lines and the 101-long v-lines
+    (to the bit) against their plain versions; (b) MISMIP3d at
+    50 km float64 on the card against the CPU (equal steps and dt-limit
+    hits, volume within 1e-10); (c) MISMIP experiment 1 on its periodic-y
+    grid at 151x7: float32 through the periodic route (the padded-block K1
+    and Newton matvec launch, the whole-field ones stay idle), float64 on
+    the card against the CPU (the first step within 1e-12, 10 a by steps,
+    dt-limit hits and volume), the route against the plain periodic
+    stencils on the card's state in both dtypes (K1's tolerances), and the
+    route timed at 151x7 and 1601x101.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -140,7 +161,7 @@ PATH_A = {"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # path C at full width: Halfar test B at 3 km over the 1800 km square
-HALFAR_MX, HALFAR_YEARS = 601, 200.0
+HALFAR_MX, HALFAR_YEARS = 601, 50.0
 # operations of each kernel, counted from its plain version's arithmetic:
 # per cell (K1, K1 JVP without a drag tangent, K4), per element and round
 # of cyclic reduction (K2/K2b: 10 in the factor's a, b, c recurrences, 4 in
@@ -260,7 +281,7 @@ def _check_launches(label, counts, launched, idle):
 
 
 def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
-                 match=None, nbytes=None, unpack=None):
+                 match=None, nbytes=None, unpack=None, phase="phase1"):
     """Kernel against plain version on the same inputs, then both timed,
     and the kernel's bound from ``nbytes`` (by default the bytes of its
     tensor inputs and outputs, each counted once) and ``nops`` operations.
@@ -296,7 +317,7 @@ def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
         alone, _ = _device_profile(lambda: kern(*args), 50, match)
         dev += (", the kernel alone not measured" if alone is None
                 else f", the kernel alone {alone:.2f} us")
-    print(f"phase1: {name} {label} rel_err {err:.3e} (tol {tol:.0e}) events "
+    print(f"{phase}: {name} {label} rel_err {err:.3e} (tol {tol:.0e}) events "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; device {dev}; "
           f"bound {1e3 * bound_ms:.2f} us ({bound_by}: {nbytes} bytes, "
           f"{nops:.0f} operations)")
@@ -384,7 +405,7 @@ def _replaced_composition(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta,
             torch.where(bc, 0.0, Jv) + torch.where(bc, dv, 0.0))
 
 
-def _check_replaced(name, label, got, args, mesh=None):
+def _check_replaced(name, label, got, args, mesh=None, phase="phase1"):
     """``got`` against the replaced composition on the same inputs: equal
     to the bit; both timed (CUDA events, the profiler's device time)."""
     import torch
@@ -393,7 +414,7 @@ def _check_replaced(name, label, got, args, mesh=None):
     same = all(torch.equal(g, r) for g, r in zip(got, ref))
     diff = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     ms = _time_ms(lambda: _replaced_composition(*args, mesh=mesh), 50)
-    print(f"phase1: {name} {label}: the replaced composition (plain tangent, "
+    print(f"{phase}: {name} {label}: the replaced composition (plain tangent, "
           f"{'ssa_matvec_jvp' if mesh is None else 'ssa_matvec_sharded_jvp'}"
           f", selects) events {ms:.4f} ms, device "
           f"{_us(lambda: _replaced_composition(*args, mesh=mesh))}; equal to "
@@ -403,16 +424,16 @@ def _check_replaced(name, label, got, args, mesh=None):
                              f"it replaces by {diff:.3e}")
 
 
-def _newton_case(label, args, tol):
+def _newton_case(label, args, tol, phase="phase1"):
     """The Newton matvec against its plain version (``_kernel_case``) and
     against the composition it replaces; returns the kernel's record."""
     from pism_tpu_torch.ops.kernels import ssa_matvec as K
     r = _kernel_case("ssa_newton_matvec", K.ssa_newton_matvec,
                      K.ssa_newton_matvec_plain, args, tol, label,
                      OPS["ssa_newton_matvec"] * args[0].numel(),
-                     match="newton")
+                     match="newton", phase=phase)
     _check_replaced("ssa_newton_matvec", label, K.ssa_newton_matvec(*args),
-                    args)
+                    args, phase=phase)
     return r
 
 
@@ -832,11 +853,12 @@ def _newton_sharded(rng, dev, mesh, shape, dtype, tol, label, dx, dy, out):
                     mesh)
 
 
-def check_newton_matvec(model, state, t):
-    """The Newton matvec on the 20 km chain's own linearization at the
-    state's velocity (coefficients across float32's range), a random
-    direction of the velocity's size: the kernel against its plain version
-    and against the composition it replaces."""
+def check_newton_matvec(model, state, t, label="on the 20 km chain's "
+                        "linearization", phase="phase2b"):
+    """The Newton matvec on a chain's own linearization at the state's
+    velocity (coefficients across float32's range), a random direction of
+    the velocity's size: the kernel against its plain version and against
+    the composition it replaces."""
     import torch
     tau_c = model.yield_stress.compute(state, t=t)
     P = model.ssa.build_problem(state, tau_c)
@@ -851,11 +873,11 @@ def check_newton_matvec(model, state, t):
             a = c[..., k].abs()
             spans.append(f"{name}_{face} {float(a[a > 0].min()):.1e}.."
                          f"{float(a.max()):.1e}")
-    print(f"phase2b: the chain's tangent coefficients (nonzero |.|): "
+    print(f"{phase}: the chain's tangent coefficients (nonzero |.|): "
           + ", ".join(spans))
-    _newton_case("on the 20 km chain's linearization",
-                 (u, v, *d, nuH.e, nuH.n, *coefs, P["beta_fn"](u, v),
-                  P["bc_mask"], model.grid.dx, model.grid.dy), 1e-5)
+    _newton_case(label, (u, v, *d, nuH.e, nuH.n, *coefs, P["beta_fn"](u, v),
+                         P["bc_mask"], model.grid.dx, model.grid.dy), 1e-5,
+                 phase=phase)
 
 
 def phase1_chain_reference(dev):
@@ -2454,6 +2476,329 @@ def phase9_pik(dev, k1, pcr, off):
     return counts
 
 
+# -- phase 10: MISMIP3d and MISMIP experiment 1 (BASELINE config 2) --------
+
+#: model years of phase 10a at 1 km: Stnd's first window, its timed window,
+#: P75S, P75R (cut from the protocol's 15,000 + 100 + 2,000 a)
+MISMIP3D_YEARS = (5.0, 30.0, 10.0, 10.0)
+#: phase 10b's span at 50 km and phase 10c's spans at 151x7 (f32, f64)
+MISMIP3D_CHECK_YEARS, MISMIP1_YEARS = 30.0, (10.0, 10.0)
+
+
+def _mismip_check(label, state, grid, dtype):
+    """Finite fields of the run's shape and dtype."""
+    import torch
+    g = state.geometry
+    for name, f in (("ice_thickness", g.ice_thickness),
+                    ("ice_area_specific_volume", g.ice_area_specific_volume),
+                    ("cell_grounded_fraction", g.cell_grounded_fraction),
+                    ("u_ssa", state.u_ssa), ("v_ssa", state.v_ssa)):
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+        if tuple(f.shape) != grid.shape2 or f.dtype != dtype:
+            raise AssertionError(f"{label}: {name} is {tuple(f.shape)} "
+                                 f"{f.dtype}")
+    if state.enthalpy is not None:
+        raise AssertionError(f"{label}: an enthalpy field without energy")
+
+
+def _mismip_run(model, state, t, years):
+    """``years`` of ``IceModel.run`` from t: (state, t, stats, wall s)."""
+    import torch
+    from pism_tpu_torch import Time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = model.run(state, Time(t, t + years * SPY))
+    torch.cuda.synchronize()
+    return state, t + years * SPY, stats, time.perf_counter() - t0
+
+
+def _mismip_report(label, grid, years, stats, wall, counts, state):
+    n = stats.nsteps
+    H = state.geometry.ice_thickness.double()
+    per = {k: round(v / n, 2) for k, v in counts.items() if v}
+    print(f"{label}: {grid.My}x{grid.Mx} {str(state.geometry.ice_thickness.dtype)[6:]}, "
+          f"{years:g} a: steps {n} ({n / years:.2f} per model year), wall "
+          f"{wall:.3f} s, {1e3 * wall / n:.2f} ms/step, dt-limit hits "
+          f"{stats.limit_hits_dict()}, Newton sweeps "
+          f"{stats.ssa_newton_iters / n:.2f}/step, Krylov its "
+          f"{stats.ssa_krylov_iters / n:.2f}/step, host syncs "
+          f"{stats.host_syncs / n:.1f}/step, launches per step {per}, "
+          f"volume {float(H.sum()) * grid.dx * grid.dy / 1e9:.6f} km^3, "
+          f"max |u| {float(state.u_ssa.abs().max()) * SPY:.2f} m/a")
+
+
+def check_path_kernels(model, state, t, label, phase):
+    """K1 and the line kernels K2/K2b on a state's own linearization and
+    preconditioner systems, at the shapes its path gives them (the u-lines
+    along x, the v-lines along y), each against its plain version: K1 at
+    1e-5 in float32 on a random direction of the velocity's size, the PCR
+    factor and apply to the bit; then the Newton matvec
+    (``check_newton_matvec``)."""
+    import math
+    import torch
+    from pism_tpu_torch.ops import ssa as ssa_ops
+    from pism_tpu_torch.ops.kernels import pcr as K2
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+
+    grid = model.grid
+    P = model.ssa.build_problem(state, model.yield_stress.compute(state, t=t))
+    u, v = P["free"]((state.u_ssa, state.v_ssa))
+    nuH, beta = P["make_nuH"](u, v), P["beta_fn"](u, v)
+    g = torch.Generator(device=u.device).manual_seed(13)
+    du, dv, ru, rv = (torch.randn(u.shape, generator=g, device=u.device,
+                                  dtype=u.dtype) for _ in range(4))
+    du, dv = du * u.abs().max(), dv * u.abs().max()
+    shape = f"{grid.My}x{grid.Mx} {str(u.dtype)[6:]} {label}"
+    _kernel_case("ssa_matvec", K.ssa_matvec, K.ssa_matvec_plain,
+                 (du, dv, nuH.e, nuH.n, beta, grid.dx, grid.dy), 1e-5, shape,
+                 OPS["ssa_matvec"] * grid.My * grid.Mx, reps=50,
+                 match="ssa_matvec_tile", phase=phase)
+    au, cu, bu, av, cv, bv = ssa_ops.line_systems(
+        nuH, beta, P["bc_mask"], grid.dx, grid.dy, model.ssa.sh)
+    field = grid.My * grid.Mx * u.element_size()
+    for name, make, make_plain, a, c, r, b, n in (
+            ("pcr_lines", K2.pcr_factor_lines, K2.pcr_factor_lines_plain,
+             au, cu, ru, bu, grid.Mx),
+            ("pcr_lines_sub", K2.pcr_factor_lines_sub,
+             K2.pcr_factor_lines_sub_plain, av, cv, rv, bv, grid.My)):
+        rounds = math.ceil(math.log2(n))
+        lines = f"n={n} batch={grid.My * grid.Mx // n} {shape}"
+        f, fp = make(a, None, c), make_plain(a, None, c)
+        _kernel_case(name, lambda r_, s_: K2.pcr_apply(f, r_, s_),
+                     lambda r_, s_: K2.pcr_apply_plain(fp, r_, s_), (r, b),
+                     0.0, f"apply {lines}",
+                     (OPS["pcr_apply_round"] * rounds + 2) * grid.My * grid.Mx,
+                     reps=50, match="pcr_apply_kernel", nbytes=5 * field,
+                     phase=phase)
+        _kernel_case(name.replace("pcr_", "pcr_factor_"),
+                     lambda a_, c_: make(a_, None, c_),
+                     lambda a_, c_: make_plain(a_, None, c_), (a, c), 0.0,
+                     f"{lines}; table {f.table.numel() * 4} bytes",
+                     OPS["pcr_factor_round"] * rounds * grid.My * grid.Mx,
+                     reps=50, match="pcr_factor_kernel",
+                     nbytes=2 * field + f.table.numel() * 4,
+                     unpack=lambda f_: f_.coefficients(), phase=phase)
+    check_newton_matvec(model, state, t, f"{grid.My}x{grid.Mx} {label}",
+                        phase)
+
+
+def phase10a_mismip3d(dev, k1, pcr, off):
+    """MISMIP3d at 1 km (1601 x 101) float32 on path A through
+    ``IceModel.run``: Stnd from the Vialov start, a timed Stnd window, then
+    P75S and P75R with ``GivenYieldStress`` fields as the example builds
+    them; the grounding line on the centre and edge rows after each
+    phase. After the timed Stnd window, K1, the Newton matvec and K2/K2b
+    are held against their plain versions on that state's own systems
+    (``check_path_kernels``)."""
+    import dataclasses
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.physics.basal import GivenYieldStress
+    from pism_tpu_torch.verification import mismip as m3
+
+    model, state, grid = setups.mismip3d_model("float32", km=1.0, device=dev,
+                                               extra_cfg=PATH_A)
+    mid, edge = grid.My // 2, 0
+    first, timed, p75s, p75r = MISMIP3D_YEARS
+    print(f"phase10a: MISMIP3d {grid.Mx}x{grid.My} (dx {grid.dx:.0f} m), "
+          f"tau_c0 {m3.TAU_C0:.1f} Pa; grounding line at the start: centre "
+          f"{m3.gl_x(state, grid, mid) / 1e3:.3f} km, edge "
+          f"{m3.gl_x(state, grid, edge) / 1e3:.3f} km")
+    t, gl_stnd = 0.0, None
+    for label, years, ys in (
+            ("Stnd first", first, None), ("Stnd timed", timed, None),
+            ("P75S", p75s, "pert"), ("P75R", p75r, None)):
+        m = model
+        if ys == "pert":
+            m = dataclasses.replace(model, yield_stress=GivenYieldStress(
+                model.config, tau_c=m3.tau_c_perturbed(grid, m3.TAU_C0,
+                                                       gl_stnd)))
+        reset_counts()
+        state, t, stats, wall = _mismip_run(m, state, t, years)
+        counts = read_counts()
+        _mismip_check(f"phase10a {label}", state, grid, torch.float32)
+        _check_launches(f"phase10a {label}", counts, k1 + pcr, off)
+        _mismip_report(f"phase10a {label}", grid, years, stats, wall, counts,
+                       state)
+        gl_c, gl_e = m3.gl_x(state, grid, mid), m3.gl_x(state, grid, edge)
+        print(f"phase10a {label}: grounding line centre {gl_c / 1e3:.3f} km, "
+              f"edge {gl_e / 1e3:.3f} km")
+        if not (0.0 < gl_e and 0.0 < gl_c < 800e3):
+            raise AssertionError(f"phase10a {label}: no grounding line")
+        if label == "Stnd timed":
+            gl_stnd = gl_c
+            check_path_kernels(model, state, t, "on the 1 km Stnd state",
+                               "phase10a")
+
+
+def phase10b_card_vs_cpu(dev):
+    """MISMIP3d at 50 km (33 x 3) float64 on the card and on the CPU from
+    the same state: equal steps and dt-limit hits, the volume within 1e-10
+    (the SSA solves stop on the velocity-change test, so the kernels'
+    one-ulp differences from the plain versions grow over the steps:
+    1.55e-12 after 30 a measured on an H100)."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.convert import state_to_numpy
+
+    runs = {}
+    for where in ("cpu", dev):
+        model, state, grid = setups.mismip3d_model("float64", km=50.0,
+                                                   device=where)
+        state, t, stats = model.step_once(state, 0.0,
+                                          MISMIP3D_CHECK_YEARS * SPY)
+        runs[str(where)] = (state_to_numpy(state), stats)
+    (a, sa), (b, sb) = runs["cpu"], runs[str(dev)]
+    V = a["ice_thickness"].sum()
+    rel = abs(b["ice_thickness"].sum() - V) / V
+    H_err = abs(b["ice_thickness"] - a["ice_thickness"]).max() \
+        / abs(a["ice_thickness"]).max()
+    print(f"phase10b: MISMIP3d {grid.Mx}x{grid.My} float64 "
+          f"{MISMIP3D_CHECK_YEARS:g} a, card vs cpu: steps {sb.nsteps} / "
+          f"{sa.nsteps}, dt-limit hits {sb.limit_hits_dict()} / "
+          f"{sa.limit_hits_dict()}, volume rel diff {rel:.3e} (tol 1e-10), "
+          f"H max diff {H_err:.3e} of max H")
+    if sb.nsteps != sa.nsteps or sb.limit_hits_dict() != sa.limit_hits_dict() \
+            or not rel <= 1e-10:
+        raise AssertionError("phase10b: card and cpu disagree")
+
+
+def _periodic_route_case(label, state, model, dtype, rng, timed):
+    """On ``state`` (cast to ``dtype``) the SSA's periodic route, the
+    operator and the Newton matvec of the state's own linearization
+    applied to a random direction (the operator applied to the state's own
+    velocity is the driving stress, a sum that cancels to 1e-4 of its
+    terms in float32), against the plain periodic stencils on the card
+    (K1's tolerances); timed as a kernel record when ``timed``."""
+    import torch
+    from pism_tpu_torch.ops import ssa as ssa_ops
+    from pism_tpu_torch.setups import to_dtype
+
+    s = to_dtype(state, dtype)
+    ssa, grid = model.ssa, model.grid
+    dx, dy, sh, periodic = grid.dx, grid.dy, ssa.sh, ssa.periodic
+    P = ssa.build_problem(s, model.yield_stress.compute(s))
+    u, v = s.u_ssa, s.v_ssa
+    nuH, coefs = P["linearize_nuH"](u, v)
+    beta = P["beta_fn"](u, v)
+    tangent = ssa_ops.NuHTangent(coefs[0].unbind(-1), coefs[1].unbind(-1),
+                                 dx, dy, sh)
+    bc = P["bc_mask"]
+    du, dv = (torch.tensor(rng.normal(size=grid.shape2) * 1e-6, dtype=dtype,
+                           device=u.device) for _ in range(2))
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    mv = ssa_ops.ssa_newton_matvec_periodic(u, v, nuH.e, nuH.n, *coefs, beta,
+                                            bc, dx, dy, periodic)
+    got = mv(du, dv)
+    ref = ssa_ops.newton_matvec_stencil(u, v, du, dv, nuH, tangent, beta, bc,
+                                        dx, dy, sh)
+    err = max(_rel_err(g, r) for g, r in zip(got, ref))
+    print(f"phase10c: the Newton matvec's periodic route on the state, "
+          f"{str(dtype)[6:]}: rel_err {err:.3e} (tol {tol:.0e}) against the "
+          "plain periodic stencils")
+    if not err <= tol:
+        raise AssertionError(f"phase10c: Newton matvec route {err:.3e}")
+    return _kernel_case(
+        "ssa_matvec_halo (periodic route)",
+        lambda *a: ssa_ops.apply_operator(*a, dx, dy, periodic),
+        lambda *a: ssa_ops.apply_operator_stencil(*a, dx, dy, sh),
+        (du, dv, nuH, beta), tol, f"{label} {str(dtype)[6:]}",
+        OPS["ssa_matvec"] * grid.My * grid.Mx, match="ssa_matvec_tile",
+        nbytes=7 * grid.My * grid.Mx * u.element_size(),
+        reps=200 if timed else 3, phase="phase10c")
+
+
+def phase10c_mismip_periodic(dev, pcr):
+    """MISMIP experiment 1 on its periodic-y grid (151 x 7): float32 on the
+    card through the periodic route (the padded-block K1 and Newton matvec
+    launch, K1's whole-field instances stay idle), float64 card against
+    CPU, and the route against the plain periodic operator on the card's
+    state in both dtypes; then the route alone at 1601 x 101."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import Grid, setups
+    from pism_tpu_torch.convert import state_to_numpy
+    from pism_tpu_torch.ops import ssa as ssa_ops
+    from pism_tpu_torch.ops.stencils import Shifter
+    from pism_tpu_torch.verification import mismip
+
+    y32, y64 = MISMIP1_YEARS
+    model, state, grid = setups.mismip_model("float32", 151, 7, device=dev)
+    reset_counts()
+    state, t, stats, wall = _mismip_run(model, state, 0.0, y32)
+    counts = read_counts()
+    _mismip_check("phase10c", state, grid, torch.float32)
+    _check_launches("phase10c", counts,
+                    ("ssa_matvec_halo", "ssa_newton_matvec_halo"),
+                    ("ssa_matvec", "ssa_newton_matvec", "ssa_matvec_jvp",
+                     "ssa_matvec_halo_jvp", "sia_flux_thermo", "sia_flux")
+                    + pcr)
+    _mismip_report("phase10c periodic", grid, y32, stats, wall, counts, state)
+    print(f"phase10c: grounding line (centre row) "
+          f"{mismip.grounding_line_position(state.geometry, grid) / 1e3:.1f} "
+          "km")
+
+    # float64, card against CPU: the first step (1 a, from equal states)
+    # held close, then on to y64 a by steps, dt-limit hits and volume (the
+    # 2e-4 envelope: the chain's solves stop on stagnation, and one of them
+    # turns a one-ulp difference into 2.6e-4 of max |u|, measured on an
+    # H100, so the trajectories part)
+    runs = {}
+    for where in ("cpu", dev):
+        m, s, _ = setups.mismip_model("float64", 151, 7, device=where)
+        s1, t1, st1 = m.step_once(s, 0.0, 1.0 * SPY)
+        s, _, st = m.step_once(s1, t1, (y64 - 1.0) * SPY)
+        runs[str(where)] = (state_to_numpy(s1), st1, s, st, m)
+    (a1, sta1, sa, sta, _), (b1, stb1, sb, stb, mb) = runs["cpu"], runs[str(dev)]
+    errs = {k: float(abs(b1[k] - a1[k]).max() / abs(a1[k]).max())
+            for k in ("ice_thickness", "u_ssa")}
+    a, b = state_to_numpy(sa), state_to_numpy(sb)
+    V = a["ice_thickness"].sum()
+    rel = abs(b["ice_thickness"].sum() - V) / V
+    print(f"phase10c: 151x7 float64 card vs cpu: the first step "
+          f"({stb1.nsteps} / {sta1.nsteps}, Newton sweeps "
+          f"{stb1.ssa_newton_iters} / {sta1.ssa_newton_iters}) H {errs['ice_thickness']:.3e}, "
+          f"u {errs['u_ssa']:.3e} of their max (tol 1e-12); to {y64:g} a: "
+          f"steps {stb.nsteps} / {sta.nsteps}, dt-limit hits "
+          f"{stb.limit_hits_dict()} / {sta.limit_hits_dict()}, volume rel "
+          f"diff {rel:.3e} (tol 2e-4)")
+    if stb1.nsteps != sta1.nsteps or max(errs.values()) > 1e-12 \
+            or stb.nsteps != sta.nsteps \
+            or stb.limit_hits_dict() != sta.limit_hits_dict() or not rel <= 2e-4:
+        raise AssertionError("phase10c: card and cpu disagree")
+
+    rng = np.random.default_rng(20261017)
+    for dtype in (torch.float32, torch.float64):
+        _periodic_route_case("151x7 on the card's state", sb, mb, dtype, rng,
+                             dtype == torch.float32)
+    # the route alone at 1601 x 101 (periodic in y) on random fields
+    g = Grid(Mx=1601, My=101, Lx=800e3, Ly=50e3, periodicity="y")
+    f = {k: torch.tensor(rng.normal(size=g.shape2) * 1e-5,
+                         dtype=torch.float32, device=dev) for k in ("u", "v")}
+    nuH = ssa_ops.NuH(*(torch.tensor(rng.uniform(1e13, 1e16, size=g.shape2),
+                                     dtype=torch.float32, device=dev)
+                        for _ in range(2)))
+    beta = torch.tensor(rng.uniform(0.0, 1e10, size=g.shape2),
+                        dtype=torch.float32, device=dev)
+    sh = Shifter(g)
+    _kernel_case("ssa_matvec_halo (periodic route)",
+                 lambda *a: ssa_ops.apply_operator(*a, g.dx, g.dy, (True, False)),
+                 lambda *a: ssa_ops.apply_operator_stencil(*a, g.dx, g.dy, sh),
+                 (f["u"], f["v"], nuH, beta), 1e-5, "1601x101 float32",
+                 OPS["ssa_matvec"] * g.My * g.Mx, match="ssa_matvec_tile",
+                 nbytes=7 * g.My * g.Mx * 4, phase="phase10c")
+
+
+def phase10_mismip(dev, k1, pcr, off):
+    t = time.time()
+    phase10a_mismip3d(dev, k1, pcr, off)
+    print(f"phase10a: {time.time() - t:.1f} s")
+    t = time.time()
+    phase10b_card_vs_cpu(dev)
+    phase10c_mismip_periodic(dev, pcr)
+    print(f"phase10bc: {time.time() - t:.1f} s")
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -2525,6 +2870,10 @@ def main():
     print(f"phase9: {smi}")
     phase9_pik(dev, k1, pcr_names, off)
     print(f"phase9: {time.time() - t9:.1f} s")
+    t10 = time.time()
+    print(f"phase10: {smi}")
+    phase10_mismip(dev, k1, pcr_names, off)
+    print(f"phase10: {time.time() - t10:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

@@ -12,10 +12,12 @@ stability limits need. Every other host decision is counted by
 ``util/hostsync.py``; ``StepStats.host_syncs`` reports them.
 
 Components built here are exactly the chains': enthalpy energy with the
-minimal bedrock unit, or no energy model (``energy.model = none``, the
-isothermal SIA with no 3D velocities); the SIA stress balance and, with
-``ssa+sia``, the SSAFD solve, Mohr-Coulomb yield stress (with
-``topg_to_phi`` and slippery grounding lines) and null hydrology; the
+minimal bedrock unit, or no energy model (``energy.model = none``: the
+isothermal SIA, or MISMIP's isothermal ``ssa+sia``, with no 3D
+velocities, the dt chosen from the 2D face velocities); the SIA stress
+balance and, with ``ssa+sia``, the SSAFD solve, the yield stress of
+``basal_yield_stress.model`` (Mohr-Coulomb with ``topg_to_phi`` and
+slippery grounding lines, constant, or given) and null hydrology; the
 calving component of ``model/calving.py`` (thickness, ocean-kill and
 float-kill calving, the eigen, von Mises and Hayhurst rate laws with
 their front-retreat dt limit, iceberg removal), or no calving; pointwise
@@ -49,7 +51,7 @@ from ..grid import Grid
 from ..ops import sia as sia_ops
 from ..ops.sia3d import max_timestep_cfl_3d
 from ..ops.stencils import Shifter
-from ..physics.basal import MohrCoulombYieldStress
+from ..physics.basal import yield_stress_from_config
 from ..physics.enthalpy_converter import EnthalpyConverter
 from ..physics.hydrology import NullTransport
 from ..physics.rheology import flow_law_from_config
@@ -155,6 +157,7 @@ class IceModel:
     ocean: object = None       # OceanModel (sub-shelf melt), optional
     sea_level: object = None   # SeaLevelModel, optional
     calving: object = None     # CalvingModel; default from the config
+    yield_stress: object = None  # with an SSA; default from the config
     device: object = "cuda"    # torch device of every field
     mesh: object = None        # ("y", "x") Mesh of the kernel routes
 
@@ -164,9 +167,12 @@ class IceModel:
         require(cfg, "runtime.float_dtype", ("float32", "float64"))
         require(cfg, "energy.model", ("enthalpy", "none"))
         if cfg.get_string("energy.model") == "none":
-            # the isothermal SIA chain of the verification tests
-            require(cfg, "stress_balance.model", ("sia",))
+            # the isothermal chains: the SIA of the verification tests and
+            # MISMIP's ssa+sia
             require(cfg, "stress_balance.sia.flow_law", ("isothermal_glen",))
+            if "ssa" in cfg.get_string("stress_balance.model"):
+                require(cfg, "stress_balance.ssa.flow_law",
+                        ("isothermal_glen",))
         require(cfg, "frontal_melt.models", ("", "none"))
         require(cfg, "ocean.always_grounded", (False,))
         require(cfg, "time_stepping.adaptive_timestepping", (True,))
@@ -190,12 +196,13 @@ class IceModel:
             self.btu = btu_from_config(self.grid, cfg)
         # the SSA and what feeds it exist only with an SSA in the model
         # (pism_tpu/model/icemodel.py:185-206)
-        self.ssa = self.yield_stress = self.hydrology = None
+        self.ssa = self.hydrology = None
         if "ssa" in cfg.get_string("stress_balance.model"):
             self.ssa = SSAFD(grid=self.grid, config=cfg,
                              flow_law=flow_law_from_config(cfg, "ssa", self.EC),
                              mesh=self.mesh)
-            self.yield_stress = MohrCoulombYieldStress(cfg)
+            if self.yield_stress is None:
+                self.yield_stress = yield_stress_from_config(cfg, self.grid)
             self.hydrology = NullTransport(grid=self.grid, config=cfg)
         if self.calving is None:
             self.calving = calving_from_config(self.grid, cfg)

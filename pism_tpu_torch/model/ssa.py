@@ -7,7 +7,13 @@ J d = -F by line-preconditioned BiCGStab. The operator and the Newton
 matvec are the hand-written kernels of ``ops/kernels/ssa_matvec.py``: K1
 and ``ssa_newton_matvec`` on the whole field, or, with a ("y", "x")
 ``mesh`` of more than one device, K5 and ``ssa_newton_matvec_halo`` per
-shard (``ops/sharded.py``; JAX ``pism_tpu/model/ssa.py:372-379``).
+shard (``ops/sharded.py``; JAX ``pism_tpu/model/ssa.py:372-379``). On a
+periodic grid both run as their padded-block instances on the whole field
+wrap-padded (``ops/ssa.py``), where the JAX package takes its plain
+operator; a mesh with a periodic grid raises NotImplementedError.
+
+Without an enthalpy field (``energy.model = none``) the hardness is the
+flow law's at zero enthalpy and pressure, as in the JAX package.
 
 Static Dirichlet boundary conditions (``bc_mask``, ``bc_u``, ``bc_v``;
 PISM ``-ssa_dirichlet_bc``) join the ice-free rows: their values are lifted
@@ -45,8 +51,8 @@ from ..config import require
 from ..ops import sharded
 from ..ops import ssa as ssa_ops
 from ..ops.kernels.ssa_matvec import ssa_newton_matvec
-from ..ops.sia import _sharded_mesh
 from ..ops.stencils import Shifter
+from ..parallel.mesh import is_sharded, refuse_periodic_mesh
 from ..physics.basal import SlidingLaw
 from ..util.hostsync import host
 
@@ -81,6 +87,8 @@ class SSAFD:
         require(cfg, "basal_resistance.beta_lateral_margin", (0.0,))
         require(cfg, "stress_balance.ssa.fd.extrapolate_initial_guess", (False,))
         self.pcr_impl = cfg.get_string("stress_balance.ssa.fd.line_pcr_impl")
+        refuse_periodic_mesh(self.grid, self.mesh)
+        self.periodic = (self.grid.periodic_y, self.grid.periodic_x)
         self.sh = Shifter(self.grid)
         self.n_glen = cfg.get_number("stress_balance.ssa.Glen_exponent")
         self.e_ssa = cfg.get_number("stress_balance.ssa.enhancement_factor")
@@ -160,8 +168,11 @@ class SSAFD:
 
     def _hardness(self, state: S.ModelState):
         H = state.geometry.ice_thickness
-        z = torch.as_tensor(self.grid.z, dtype=H.dtype, device=H.device)
-        B = self.flow_law.averaged_hardness(H, state.enthalpy, z)
+        if state.enthalpy is None:
+            B = self.flow_law.hardness(torch.zeros_like(H), torch.zeros_like(H))
+        else:
+            z = torch.as_tensor(self.grid.z, dtype=H.dtype, device=H.device)
+            B = self.flow_law.averaged_hardness(H, state.enthalpy, z)
         # SSA enhancement factor scales softness: B -> B * e^(-1/n)
         return B * self.e_ssa ** (-1.0 / self.n_glen)
 
@@ -262,20 +273,26 @@ class SSAFD:
         # the operator, and the Newton matvec with beta frozen:
         # A(free d; nuH, beta) + A(u; dnuH(free d), 0) on the free rows and
         # d on the Dirichlet rows, one launch (per shard)
-        mesh = self.mesh if _sharded_mesh(self.mesh) else None
+        mesh = self.mesh if is_sharded(self.mesh) else None
+        periodic = self.periodic
 
         def apply_op(u, v, nuH, beta):
             if mesh is not None:
                 return sharded.ssa_matvec_sharded(u, v, nuH.e, nuH.n, beta,
                                                   mesh, dx, dy)
-            return ssa_ops.apply_operator(u, v, nuH, beta, dx, dy)
+            return ssa_ops.apply_operator(u, v, nuH, beta, dx, dy, periodic)
 
         def newton_matvec(u, v, nuH, coefs, beta):
-            """jmv(d) of the sweep linearized at (u, v); under a mesh the
-            linearization is split and padded here, once."""
+            """jmv(d) of the sweep linearized at (u, v); under a mesh, or
+            on a periodic grid, the linearization is padded here, once."""
             if mesh is not None:
                 mv = sharded.ssa_newton_matvec_sharded(
                     u, v, nuH.e, nuH.n, *coefs, beta, bc_mask, mesh, dx, dy)
+                return lambda d: mv(*d)
+            if any(periodic):
+                mv = ssa_ops.ssa_newton_matvec_periodic(
+                    u, v, nuH.e, nuH.n, *coefs, beta, bc_mask, dx, dy,
+                    periodic)
                 return lambda d: mv(*d)
             return lambda d: ssa_newton_matvec(u, v, d[0], d[1], nuH.e, nuH.n,
                                                *coefs, beta, bc_mask, dx, dy)

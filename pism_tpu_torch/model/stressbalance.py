@@ -2,7 +2,9 @@
 the ``ssa+sia`` and ``sia`` branches of ``update``): the SSA sliding
 velocity (``ssa+sia``; ``sia`` carries the state's own, if any), the SIA diffusive flux
 on the bed-smoothed geometry, and (for the energy model) the 3D
-velocities, strain heating and basal frictional heating.
+velocities, strain heating and basal frictional heating. Without an
+energy model (``compute_3d = False``) the result holds the sliding
+velocities and the 2D maxima only.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..ops import sia as sia_ops
 from ..ops import sia3d
 from ..ops import stencils as st
 from ..ops.stencils import Shifter
+from ..parallel.mesh import refuse_periodic_mesh
 from . import geometry_evolution as ge
 
 
@@ -61,6 +64,7 @@ class StressBalance:
         require(cfg, "stress_balance.ssa.fd.brutal_sliding", (False,))
         require(cfg, "stress_balance.sia.surface_gradient_method",
                 ("haseloff", "mahaffy"))
+        refuse_periodic_mesh(self.grid, self.mesh)
         self.sh = Shifter(self.grid)
         self.n_sia = cfg.get_number("stress_balance.sia.Glen_exponent")
         self.e_sia = cfg.get_number("stress_balance.sia.enhancement_factor")

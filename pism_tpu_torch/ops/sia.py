@@ -35,6 +35,7 @@ from . import stencils as st
 from .kernels import sia_iso as K4
 from .kernels import sia_thermo as K3
 from .. import state as S
+from ..parallel.mesh import is_sharded
 
 
 class StaggeredGrad(NamedTuple):
@@ -108,13 +109,6 @@ def _isothermal_softness(flow_law, dtype, device="cpu"):
     return flow_law.softness(zero, zero)
 
 
-def _sharded_mesh(mesh) -> bool:
-    """A ("y", "x") device mesh with more than one device: route the kernels
-    through ``ops/sharded.py`` (``pism_tpu/ops/sia.py:163-167``)."""
-    return (mesh is not None and getattr(mesh, "size", 1) > 1
-            and tuple(mesh.axis_names) == ("y", "x"))
-
-
 def _iso_kernel_eligible(grid, H, gradient_method, theta_e, theta_n,
                          enhancement) -> bool:
     """The ``auto`` rule of the JAX package's ``_pallas_eligible``
@@ -163,7 +157,7 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
     kernel route runs per shard (``ops/sharded.py``)."""
     H = geometry.ice_thickness
     s = geometry.ice_surface_elevation
-    sharded_route = _sharded_mesh(mesh)
+    sharded_route = is_sharded(mesh)
     use_kernel = pallas
     if use_kernel is None and enthalpy is None:
         use_kernel = _iso_kernel_eligible(grid, H, gradient_method, theta_e,

@@ -8,7 +8,11 @@ nu = (B/2) (eps_eff^2)^((1-n)/(2n)),
 eps_eff^2 = u_x^2 + v_y^2 + u_x v_y + (1/4)(u_y + v_x)^2 + eps_reg^2.
 
 The operator itself is the hand-written kernel of
-``ops/kernels/ssa_matvec.py``; with ``line_pcr_impl = pallas_sublane`` the
+``ops/kernels/ssa_matvec.py``: K1 on the whole field, or, on a periodic
+grid, the kernel's padded-block instance (K5's, ``ssa_matvec_halo``) on
+the field wrap-padded along its periodic axes, one launch (the JAX package
+sends periodic grids through its plain operator instead,
+``pism_tpu/model/ssa.py:453-464``); with ``line_pcr_impl = pallas_sublane`` the
 line preconditioner solves with the kernels of ``ops/kernels/pcr.py``. The
 Krylov loop is a host loop: its stop
 test is one ``.item()`` per BiCGStab iteration (the JAX package's
@@ -25,7 +29,7 @@ import torch
 
 from . import stencils as st
 from .kernels.pcr import pcr_apply, pcr_factor_lines, pcr_factor_lines_sub
-from .kernels.ssa_matvec import ssa_matvec
+from .kernels import ssa_matvec as K
 from ..util.hostsync import host
 from ..util.tridiag import solve_batched_pcr
 from ..util.units import SEC_PER_YEAR
@@ -142,10 +146,92 @@ def linearize_nuH(u, v, hardness_B, H, dx, dy, sh, *, n_glen=3.0,
     return nuH, NuHTangent(c_e, c_n, dx, dy, sh)
 
 
-def apply_operator(u, v, nuH: NuH, beta, dx, dy):
+def apply_operator(u, v, nuH: NuH, beta, dx, dy, periodic=(False, False)):
     """A(u, v) = -div T + beta (u, v) through the matvec kernel (its plain
-    torch version on CPU tensors)."""
-    return ssa_matvec(u, v, nuH.e, nuH.n, beta, dx, dy)
+    torch version on CPU tensors); ``periodic`` (y, x): the grid's
+    periodic axes, which take the wrap-padded route."""
+    if periodic[0] or periodic[1]:
+        return ssa_matvec_periodic(u, v, nuH.e, nuH.n, beta, dx, dy, periodic)
+    return K.ssa_matvec(u, v, nuH.e, nuH.n, beta, dx, dy)
+
+
+# ---------------------------------------------------------------------------
+# the kernels on a periodic grid: one padded block
+# ---------------------------------------------------------------------------
+
+def ssa_matvec_periodic(u, v, nuH_e, nuH_n, beta, dx, dy, periodic):
+    """K1 on a grid periodic along ``periodic`` = (y, x): the padded-block
+    kernel ``ssa_matvec_halo`` launched once on the whole field, with two
+    ghosts of u, v and one of nuH that wrap around a periodic axis and
+    repeat the edge on the other, and the edge flags set only on the
+    closed axes. The ghosts give the west (south) faces of the first
+    column (row) the values of the faces across the wrap, which is what
+    the periodic stencil computes."""
+    py, px = periodic
+    return K.ssa_matvec_halo(
+        not px, not py, st.pad_ghosts(u, 2, py, px), st.pad_ghosts(v, 2, py, px),
+        st.pad_ghosts(nuH_e, 1, py, px), st.pad_ghosts(nuH_n, 1, py, px),
+        beta.contiguous(), dx, dy)
+
+
+def ssa_newton_matvec_periodic(u, v, nuH_e, nuH_n, coef_e, coef_n, beta,
+                               bc_mask, dx, dy, periodic):
+    """``matvec(du, dv)``: the Newton matvec of a sweep linearized at (u, v)
+    on a periodic grid, one launch of ``ssa_newton_matvec_halo`` on the
+    whole field. The sweep's fields are padded here, once (u, v and the
+    mask two ghosts, nuH and the coefficient planes one); a call pads only
+    the direction."""
+    py, px = periodic
+
+    def pad(a, g):
+        return st.pad_ghosts(a, g, py, px)
+
+    frozen = (pad(u, 2), pad(v, 2), pad(nuH_e, 1), pad(nuH_n, 1),
+              pad(coef_e, 1), pad(coef_n, 1), beta.contiguous(),
+              pad(bc_mask, 2))
+
+    def matvec(du, dv):
+        up, vp, ne, nn, ce, cn, b, bcp = frozen
+        return K.ssa_newton_matvec_halo(not px, not py, up, vp, pad(du, 2),
+                                        pad(dv, 2), ne, nn, ce, cn, b, bcp,
+                                        dx, dy)
+
+    return matvec
+
+
+def _minus_div_stencil(u, v, nuH: NuH, dx, dy, sh):
+    """-div T in the JAX package's stencil form (``pism_tpu/ops/ssa.py``
+    ``apply_operator``), statement for statement, with ``sh``'s ghosts."""
+    Txx_e = 2.0 * nuH.e * (2.0 * st.grad_x_east(u, dx, sh)
+                           + st.grad_y_east(v, dy, sh))
+    Txy_n = nuH.n * (st.grad_y_north(u, dy, sh) + st.grad_x_north(v, dx, sh))
+    div_x = st.div_staggered(Txx_e, Txy_n, dx, dy, sh)
+    Tyy_n = 2.0 * nuH.n * (2.0 * st.grad_y_north(v, dy, sh)
+                           + st.grad_x_north(u, dx, sh))
+    Txy_e = nuH.e * (st.grad_y_east(u, dy, sh) + st.grad_x_east(v, dx, sh))
+    div_y = st.div_staggered(Txy_e, Tyy_n, dx, dy, sh)
+    return -div_x, -div_y
+
+
+def apply_operator_stencil(u, v, nuH: NuH, beta, dx, dy, sh):
+    """The operator in plain torch stencils on any grid (the periodic
+    route's reference)."""
+    mx, my = _minus_div_stencil(u, v, nuH, dx, dy, sh)
+    return mx + beta * u, my + beta * v
+
+
+def newton_matvec_stencil(u, v, du, dv, nuH: NuH, tangent, beta, bc_mask,
+                          dx, dy, sh):
+    """The Newton matvec in plain torch stencils (the periodic route's
+    reference): the direction freed on ``bc_mask``, dnuH =
+    ``tangent``(free direction) (a :class:`NuHTangent`), A(free d; nuH,
+    beta) + A(u; dnuH, 0) on the free rows and d on the Dirichlet rows."""
+    fu = torch.where(bc_mask, 0.0, du)
+    fv = torch.where(bc_mask, 0.0, dv)
+    t1u, t1v = apply_operator_stencil(fu, fv, nuH, beta, dx, dy, sh)
+    mx, my = _minus_div_stencil(u, v, tangent(fu, fv), dx, dy, sh)
+    return (torch.where(bc_mask, du, t1u + mx),
+            torch.where(bc_mask, dv, t1v + my))
 
 
 def operator_diagonal(nuH: NuH, beta, dx, dy, sh):
@@ -157,6 +243,32 @@ def operator_diagonal(nuH: NuH, beta, dx, dy, sh):
     diag_v = (4.0 * (nuH.n + nuH_s) / dy ** 2
               + (nuH.e + nuH_w) / dx ** 2 + beta)
     return diag_u, diag_v
+
+
+def line_systems(nuH, beta, bc_mask, dx, dy, sh):
+    """The line preconditioner's row-equilibrated tridiagonal systems:
+    (au, cu, bu) of the u-lines along x and (av, cv, bv) of the v-lines
+    along y, with the unit diagonal implicit and b the row scale; the
+    transverse and drag terms lumped on b, the Dirichlet rows identities
+    decoupled from their neighbours."""
+    nuH_w = sh(nuH.e, 0, -1)
+    nuH_s = sh(nuH.n, -1, 0)
+    diag_u, diag_v = operator_diagonal(nuH, beta, dx, dy, sh)
+    au = -4.0 * nuH_w / dx ** 2
+    cu = -4.0 * nuH.e / dx ** 2
+    av = -4.0 * nuH_s / dy ** 2
+    cv = -4.0 * nuH.n / dy ** 2
+    bu = torch.where(bc_mask, 1.0, torch.clamp(diag_u, min=1e-12))
+    bv = torch.where(bc_mask, 1.0, torch.clamp(diag_v, min=1e-12))
+    # Dirichlet rows are identities; decouple their neighbors from them
+    au = torch.where(bc_mask | sh(bc_mask, 0, -1), 0.0, au)
+    cu = torch.where(bc_mask | sh(bc_mask, 0, 1), 0.0, cu)
+    av = torch.where(bc_mask | sh(bc_mask, -1, 0), 0.0, av)
+    cv = torch.where(bc_mask | sh(bc_mask, 1, 0), 0.0, cv)
+    # row-equilibrate (unit diagonal)
+    au, cu = au / bu, cu / bu
+    av, cv = av / bv, cv / bv
+    return au, cu, bu, av, cv, bv
 
 
 def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
@@ -177,24 +289,7 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
         raise NotImplementedError(
             f"stress_balance.ssa.fd.line_pcr_impl = {pcr_impl!r} is not "
             "implemented in pism_tpu_torch (supported: 'xla', 'pallas_sublane')")
-    nuH_w = sh(nuH.e, 0, -1)
-    nuH_s = sh(nuH.n, -1, 0)
-    diag_u, diag_v = operator_diagonal(nuH, beta, dx, dy, sh)
-    au = -4.0 * nuH_w / dx ** 2
-    cu = -4.0 * nuH.e / dx ** 2
-    av = -4.0 * nuH_s / dy ** 2
-    cv = -4.0 * nuH.n / dy ** 2
-    bu = torch.where(bc_mask, 1.0, torch.clamp(diag_u, min=1e-12))
-    bv = torch.where(bc_mask, 1.0, torch.clamp(diag_v, min=1e-12))
-    # Dirichlet rows are identities; decouple their neighbors from them
-    au = torch.where(bc_mask | sh(bc_mask, 0, -1), 0.0, au)
-    cu = torch.where(bc_mask | sh(bc_mask, 0, 1), 0.0, cu)
-    av = torch.where(bc_mask | sh(bc_mask, -1, 0), 0.0, av)
-    cv = torch.where(bc_mask | sh(bc_mask, 1, 0), 0.0, cv)
-    # row-equilibrate (unit diagonal)
-    au, cu = au / bu, cu / bu
-    av, cv = av / bv, cv / bv
-
+    au, cu, bu, av, cv, bv = line_systems(nuH, beta, bc_mask, dx, dy, sh)
     if pcr_impl == "pallas_sublane":
         # the lines are factored here, with the unit diagonal implicit; an
         # application is two apply launches on residuals of the

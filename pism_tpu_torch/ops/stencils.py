@@ -7,9 +7,9 @@ Conventions
 - staggered fields live on cell faces: ``E[j, i]`` is the face between
   ``(j, i)`` and ``(j, i+1)``; ``N[j, i]`` between ``(j, i)`` and
   ``(j+1, i)``. The last row/column of faces sits on the domain boundary.
-- boundaries use edge-replication (zero-gradient) ghosts. The port runs
-  non-periodic grids only; a periodic grid raises when a component is
-  built (``Shifter``).
+- ghosts wrap around a periodic axis and repeat the edge (zero-gradient)
+  on the others; every component that builds a ``Shifter`` inherits the
+  wrap, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,29 +24,57 @@ def _clamped_index(n: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.clamp(torch.arange(n) + s, 0, n - 1).to(device)
 
 
-def _shift_axis(a: torch.Tensor, s: int, dim: int) -> torch.Tensor:
-    """b[k] = a[clamp(k + s)] along ``dim`` (one gather)."""
+@functools.lru_cache(maxsize=64)
+def _wrapped_index(n: int, s: int, device: torch.device) -> torch.Tensor:
+    return torch.remainder(torch.arange(n) + s, n).to(device)
+
+
+def _shift_axis(a: torch.Tensor, s: int, dim: int,
+                periodic: bool = False) -> torch.Tensor:
+    """b[k] = a[k + s] along ``dim``, the index wrapped (periodic) or
+    clamped (one gather)."""
     if s == 0:
         return a
-    return a.index_select(dim, _clamped_index(a.shape[dim], s, a.device))
+    index = _wrapped_index if periodic else _clamped_index
+    return a.index_select(dim, index(a.shape[dim], s, a.device))
 
 
-def shift(a: torch.Tensor, jy: int, ix: int) -> torch.Tensor:
-    """Return b with b[j, i] = a[j + jy, i + ix] (edge-clamped ghosts)."""
-    return _shift_axis(_shift_axis(a, jy, 0), ix, 1)
+def shift(a: torch.Tensor, jy: int, ix: int, periodic_y: bool = False,
+          periodic_x: bool = False) -> torch.Tensor:
+    """Return b with b[j, i] = a[j + jy, i + ix] (ghosts by wrap or clamp)."""
+    return _shift_axis(_shift_axis(a, jy, 0, periodic_y), ix, 1, periodic_x)
+
+
+@functools.lru_cache(maxsize=64)
+def _ghost_index(My: int, Mx: int, g: int, periodic_y: bool, periodic_x: bool,
+                 device: torch.device) -> torch.Tensor:
+    def axis(n, periodic):
+        k = torch.arange(-g, n + g)
+        return torch.remainder(k, n) if periodic else torch.clamp(k, 0, n - 1)
+    return (axis(My, periodic_y)[:, None] * Mx
+            + axis(Mx, periodic_x)[None, :]).reshape(-1).to(device)
+
+
+def pad_ghosts(a: torch.Tensor, g: int, periodic_y: bool = False,
+               periodic_x: bool = False) -> torch.Tensor:
+    """``a`` (2D, or (y, x, ...)) with ``g`` ghost cells on both sides of
+    its y and x axes: wrapped around a periodic axis, repeating the edge on
+    the others (the values ``shift`` reads there); one gather, contiguous."""
+    My, Mx = a.shape[0], a.shape[1]
+    index = _ghost_index(My, Mx, g, periodic_y, periodic_x, a.device)
+    return a.reshape(My * Mx, *a.shape[2:]).index_select(0, index).view(
+        My + 2 * g, Mx + 2 * g, *a.shape[2:])
 
 
 class Shifter:
-    """Bound shift for a grid: ``sh = Shifter(grid); sh(a, jy, ix)``."""
+    """Bind grid periodicity once: ``sh = Shifter(grid); sh(a, jy, ix)``."""
 
     def __init__(self, grid):
-        if grid.periodic_x or grid.periodic_y:
-            raise NotImplementedError(
-                f"grid.periodicity = {grid.periodicity!r} is not implemented "
-                "in pism_tpu_torch (supported: 'none')")
+        self.py = grid.periodic_y
+        self.px = grid.periodic_x
 
     def __call__(self, a, jy: int, ix: int):
-        return shift(a, jy, ix)
+        return shift(a, jy, ix, self.py, self.px)
 
 
 # ---------------------------------------------------------------------------

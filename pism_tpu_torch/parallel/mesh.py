@@ -85,6 +85,22 @@ def make_mesh(devices: Optional[Sequence] = None, shape: Optional[tuple] = None,
     return Mesh([devices[iy * nx:(iy + 1) * nx] for iy in range(ny)])
 
 
+def is_sharded(mesh) -> bool:
+    """A ("y", "x") device mesh with more than one device: the kernel
+    routes go through ``ops/sharded.py`` (``pism_tpu/ops/sia.py:163-167``)."""
+    return (mesh is not None and getattr(mesh, "size", 1) > 1
+            and tuple(mesh.axis_names) == ("y", "x"))
+
+
+def refuse_periodic_mesh(grid, mesh) -> None:
+    """Raise NotImplementedError for a sharded mesh on a periodic grid: the
+    routes decompose non-periodic grids only (ROADMAP Queue 1 item 11)."""
+    if (grid.periodic_x or grid.periodic_y) and is_sharded(mesh):
+        raise NotImplementedError(
+            f"a mesh with grid.periodicity = {grid.periodicity!r} is not "
+            "implemented in pism_tpu_torch")
+
+
 def shard_state(state, mesh: Mesh):
     """Move every tensor of the state to the mesh's first device: fields
     stay whole there, and the kernel routes decompose them per call (the

@@ -1,10 +1,12 @@
-"""Basal strength (port of ``pism_tpu/physics/basal.py``): the Mohr-Coulomb
-till yield stress and the (pseudo-)plastic sliding-law drag coefficient.
+"""Basal strength (port of ``pism_tpu/physics/basal.py``): the till yield
+stress and the (pseudo-)plastic sliding-law drag coefficient.
 
-- tau_c = c0 + tan(phi) N_till, with N_till from the till water amount
-  (Bueler & van Pelt 2015); phi from the bed elevation with
+- Mohr-Coulomb: tau_c = c0 + tan(phi) N_till, with N_till from the till
+  water amount (Bueler & van Pelt 2015); phi from the bed elevation with
   ``topg_to_phi``, and no till drag at marine grounding lines with
   ``slippery_grounding_lines``;
+- a constant tau_c, or a prescribed tau_c field (an array, or ``tauc``
+  read from ``basal_yield_stress.given.file``); ocean cells have none;
 - beta(u) for tau_b = -beta(|u|) u:
       beta = tau_c |u|^(q-1) / u_threshold^q      (pseudo-plastic)
       beta = tau_c / sqrt(|u|^2 + u_reg^2)         (plastic, q = 0)
@@ -15,6 +17,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import state as S
@@ -99,6 +102,67 @@ class MohrCoulombYieldStress:
                                          < state.geometry.sea_level) & nbr
             tau_c = torch.where(gl, 0.0, tau_c)
         return tau_c
+
+
+@dataclass
+class ConstantYieldStress:
+    """tau_c = ``basal_yield_stress.constant.value`` (PISM
+    ``ConstantYieldStress``)."""
+
+    config: object
+
+    def __post_init__(self):
+        self.value = self.config.get_number("basal_yield_stress.constant.value")
+
+    def compute(self, state: S.ModelState, t=None):
+        H = state.geometry.ice_thickness
+        tau_c = torch.full_like(H, self.value)
+        return torch.where(S.ocean(state.geometry.cell_type), 0.0, tau_c)
+
+
+@dataclass
+class GivenYieldStress:
+    """A prescribed till yield stress field (PISM ``-yield_stress given``;
+    the MISMIP3d friction perturbations). ``tau_c``: an (My, Mx) array
+    [Pa], or, left None, ``tauc`` read from
+    ``basal_yield_stress.given.file`` onto ``grid``."""
+
+    config: object
+    tau_c: object = None
+    grid: object = None
+
+    def __post_init__(self):
+        if self.tau_c is None:
+            path = self.config.get_string("basal_yield_stress.given.file")
+            if not path or self.grid is None:
+                raise ValueError(
+                    "-yield_stress given needs a tau_c array or "
+                    "basal_yield_stress.given.file (and a grid)")
+            from ..io.bootstrap import read_and_regrid
+            self.tau_c = np.nan_to_num(
+                read_and_regrid(path, self.grid, ["tauc"])["tauc"])
+        self._field = {}
+
+    def compute(self, state: S.ModelState, t=None):
+        H = state.geometry.ice_thickness
+        key = (H.dtype, H.device)
+        if key not in self._field:   # one copy to the device per dtype
+            self._field[key] = torch.as_tensor(self.tau_c, dtype=H.dtype,
+                                               device=H.device)
+        return torch.where(S.ocean(state.geometry.cell_type), 0.0,
+                           self._field[key])
+
+
+def yield_stress_from_config(config, grid=None):
+    """The yield stress model ``basal_yield_stress.model`` names."""
+    require(config, "basal_yield_stress.model",
+            ("constant", "mohr_coulomb", "given"))
+    name = config.get_string("basal_yield_stress.model")
+    if name == "constant":
+        return ConstantYieldStress(config)
+    if name == "given":
+        return GivenYieldStress(config, grid=grid)
+    return MohrCoulombYieldStress(config)
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Flow laws (port of ``pism_tpu/physics/rheology.py``): the
 Paterson-Budd law (``pb``, EISMINT II's SIA law), the polythermal GPBLD
 law, the default of both the SIA and the SSA, and the isothermal Glen law
-of the verification tests (SIA only). Other laws raise
+of the verification tests and MISMIP (SIA and SSA). Other laws raise
 ``NotImplementedError`` in :func:`flow_law_from_config`.
 """
 
@@ -27,6 +27,28 @@ class IsothermalGlen:
 
     def hardness(self, E, p):
         return torch.full_like(_floating(E), self.A ** (-1.0 / self.n))
+
+    def averaged_hardness(self, thickness, E_column, z):
+        return _averaged_hardness(self, thickness, E_column, z)
+
+
+def _averaged_hardness(law, thickness, E_column, z):
+    """Vertical average of the law's hardness over the ice column (the
+    SSA's B; the JAX package's ``FlowLaw.averaged_hardness``).
+
+    E_column: (..., Mz); z: (Mz,) levels. Trapezoid rule restricted to
+    z <= H."""
+    H = thickness[..., None]
+    depth = torch.clamp(H - z, min=0.0)
+    p = law.EC.pressure(depth)
+    B = law.hardness(E_column, p)
+    z_c = torch.minimum(z, H)
+    w = torch.diff(z_c, dim=-1)
+    B_mid = 0.5 * (B[..., 1:] + B[..., :-1])
+    integral = torch.sum(B_mid * w, dim=-1)
+    return torch.where(thickness > 0.0,
+                       integral / torch.clamp(thickness, min=1e-9),
+                       B[..., 0])
 
 
 def _floating(E):
@@ -65,21 +87,7 @@ class PatersonBudd:
         return self.softness(E, p) ** (-1.0 / self.n)
 
     def averaged_hardness(self, thickness, E_column, z):
-        """Vertical average of hardness over the ice column (the SSA's B).
-
-        E_column: (..., Mz); z: (Mz,) levels. Trapezoid rule restricted to
-        z <= H."""
-        H = thickness[..., None]
-        depth = torch.clamp(H - z, min=0.0)
-        p = self.EC.pressure(depth)
-        B = self.hardness(E_column, p)
-        z_c = torch.minimum(z, H)
-        w = torch.diff(z_c, dim=-1)
-        B_mid = 0.5 * (B[..., 1:] + B[..., :-1])
-        integral = torch.sum(B_mid * w, dim=-1)
-        return torch.where(thickness > 0.0,
-                           integral / torch.clamp(thickness, min=1e-9),
-                           B[..., 0])
+        return _averaged_hardness(self, thickness, E_column, z)
 
 
 @dataclass(frozen=True)
@@ -100,13 +108,12 @@ class GPBLD(PatersonBudd):
 
 def flow_law_from_config(config, which: str = "sia",
                          EC: EnthalpyConverter = None) -> PatersonBudd:
-    """Factory (PISM ``rheology::FlowLawFactory``): ``pb`` and ``gpbld``,
-    and ``isothermal_glen`` for the SIA."""
+    """Factory (PISM ``rheology::FlowLawFactory``): ``pb``, ``gpbld`` and
+    ``isothermal_glen``."""
     from ..config import require
 
-    laws = ("gpbld", "pb", "isothermal_glen") if which == "sia" \
-        else ("gpbld", "pb")
-    require(config, f"stress_balance.{which}.flow_law", laws)
+    require(config, f"stress_balance.{which}.flow_law",
+            ("gpbld", "pb", "isothermal_glen"))
     if which == "sia":
         require(config, "flow_law.grain_aware_GK", (False,))
     if EC is None:

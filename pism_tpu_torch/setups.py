@@ -9,7 +9,11 @@ float64 -> float32 cast after ``prepare_state``. ``eismint2_model`` is
 C, with ``halfar_report`` its error report. ``antarctica_pik_model`` is
 the PISM-PIK Antarctic chain of ``examples/antarctica_pik.py:61-117``
 (BASELINE config 4): PICO, eigen and thickness calving, Lingle-Clark and
-the PIK surface on a synthetic marine ice sheet.
+the PIK surface on a synthetic marine ice sheet. ``mismip3d_model`` is
+MISMIP3d's Stnd experiment of ``examples/mismip3d.py:59-146`` (BASELINE
+config 2) and ``mismip_model`` MISMIP experiment 1 of
+``verification/mismip.py`` on its periodic grid: the isothermal SSA+SIA
+with no energy model and a given or constant yield stress.
 
 Each takes ``mesh``, a ``parallel.mesh.Mesh`` (e.g.
 ``make_mesh(["cuda:0"] * 4, (2, 2))``), which decomposes the model's kernel
@@ -273,3 +277,48 @@ def antarctica_pik_model(dtype: str, km: float = 16.0, device="cuda",
     if dtype == "float32":
         state = to_dtype(state, torch.float32)
     return model, state, grid
+
+
+def _prepared(model, state, dtype):
+    """``model.prepare_state`` in float64, then the cast to ``dtype``."""
+    state = model.prepare_state(state)
+    if dtype == "float32":
+        state = to_dtype(state, torch.float32)
+    return state
+
+
+def mismip3d_model(dtype: str, km: float = 1.0, device="cuda",
+                   extra_cfg=None):
+    """MISMIP3d's Stnd experiment (``verification/mismip.py``
+    ``setup_3d``): the [-800, 800] x [-50, 50] km channel at ``km``
+    spacing (1601 x 101 at 1 km) from the near-steady Vialov profile, with
+    the uniform friction ``TAU_C0`` through ``GivenYieldStress``. Returns
+    (model, initial state, grid); ``dtype`` is "float32" or "float64".
+    P75S and P75R swap the yield stress:
+    ``dataclasses.replace(model, yield_stress=...)``."""
+    from .physics.basal import GivenYieldStress
+    from .verification import mismip
+
+    ms = mismip.setup_3d(km * 1e3, float32=dtype == "float32", device=device)
+    if extra_cfg:
+        ms.config.update(extra_cfg)
+    model = IceModel(grid=ms.grid, config=ms.config, surface=ms.surface,
+                     calving=ms.calving,
+                     yield_stress=GivenYieldStress(
+                         ms.config,
+                         tau_c=np.full(ms.grid.shape2, mismip.TAU_C0)),
+                     device=device)
+    return model, _prepared(model, ms.state, dtype), ms.grid
+
+
+def mismip_model(dtype: str, Mx: int = 151, My: int = 7, device="cuda"):
+    """MISMIP experiment 1 (``verification/mismip.py``) on its periodic-y
+    grid of Mx x My cells over [-1500, 1500] km: returns (model, initial
+    state, grid); ``dtype`` is "float32" or "float64"."""
+    from .verification import mismip
+
+    ms = mismip.setup(Mx=Mx, My=My, device=device)
+    ms.config.update({"runtime.float_dtype": dtype})
+    model = IceModel(grid=ms.grid, config=ms.config, surface=ms.surface,
+                     calving=ms.calving, device=device)
+    return model, _prepared(model, ms.state, dtype), ms.grid

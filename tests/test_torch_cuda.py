@@ -7,7 +7,10 @@ matvec per shard of a mesh of the card) against its plain version and
 against K1 on the whole field, the Newton matvec per shard against the
 unsharded one, and K3/K4 per shard against the unsharded kernels, equal to
 the bit; PICO and Lingle-Clark on the card against the CPU, and one step of
-the 16 km PIK chain.
+the 16 km PIK chain; the SSA operator and Newton matvec on periodic grids
+(the padded-block kernels on the wrap-padded field) against the plain
+periodic stencils, and MISMIP3d and MISMIP experiment 1 on the card
+against the CPU.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -236,15 +239,17 @@ def _tridiag(shape, seed, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n,batch", [(1, 5), (2, 3), (37, 9), (76, 141),
                                      (141, 76), (301, 561), (561, 301),
+                                     (1601, 101), (101, 1601),
                                      (3000, 4), (4096, 3), (4800, 2)])
 def test_pcr_kernels_match_plain(cuda, dtype, n, batch):
-    """Both layouts at the chain's line shapes, at n = 1 and n not a power
-    of two, and on lines longer than a block's threads: the one-shot form,
-    the factor alone (b given, and the unit diagonal implicit) and the
-    apply alone (with and without a scale) round as the plain versions do,
-    so all are equal to the bit. A block is one line, so no batch leaves a
-    ragged last block; 3000 and 4096 slots take four per thread (4096 a
-    whole block of 1024 threads), 4800 take 32."""
+    """Both layouts at the chain's line shapes and MISMIP3d's at 1 km
+    (1601 x 101), at n = 1 and n not a power of two, and on lines longer
+    than a block's threads: the one-shot form, the factor alone (b given,
+    and the unit diagonal implicit) and the apply alone (with and without
+    a scale) round as the plain versions do, so all are equal to the bit.
+    A block is one line, so no batch leaves a ragged last block; 1601,
+    3000 and 4096 slots take four per thread (4096 a whole block of 1024
+    threads), 4800 take 32."""
     sub = _tridiag((n, batch), n, dtype, cuda)
     lanes = [x.T.contiguous() for x in sub]
     scale = 0.5 + torch.rand((n, batch), dtype=dtype, device=cuda,
@@ -832,3 +837,77 @@ def test_pik_chain_step_on_the_card(cuda):
     assert float(melt[floating].max()) > 0.0
     n1 = (K.LAUNCHES, K.NEWTON_LAUNCHES, K2.SUB_LAUNCHES, K2.LAUNCHES)
     assert all(b > a for a, b in zip(n0, n1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("periodicity", ["x", "y", "xy"])
+@pytest.mark.parametrize("shape", [(7, 151), (101, 1601), (9, 33), (33, 9)])
+def test_periodic_route_matches_plain(cuda, dtype, periodicity, shape):
+    """The SSA operator and the Newton matvec on a periodic grid: one launch
+    of the padded-block kernels on the wrap-padded field against the plain
+    periodic stencils on the card (K1's tolerances), and against the
+    route's plain version on the CPU."""
+    from pism_tpu_torch.grid import Grid
+    from pism_tpu_torch.ops.stencils import Shifter
+
+    grid = Grid(Mx=shape[1], My=shape[0], Lx=1e5, Ly=1e5,
+                periodicity=periodicity)
+    sh, periodic = Shifter(grid), (grid.periodic_y, grid.periodic_x)
+    a = _inputs(shape, dtype, cuda, 21)
+    rng = np.random.default_rng(22)
+    B = torch.tensor(rng.uniform(1e8, 3e8, size=shape), dtype=dtype,
+                     device=cuda)
+    H = torch.tensor(rng.uniform(10.0, 2000.0, size=shape), dtype=dtype,
+                     device=cuda)
+    bc = torch.tensor(rng.random(shape) < 0.2, device=cuda)
+    nuH = ssa_ops.NuH(a["nuH_e"], a["nuH_n"])
+    n0 = (K.HALO_LAUNCHES, K.HALO_NEWTON_LAUNCHES)
+    got = ssa_ops.apply_operator(a["u"], a["v"], nuH, a["beta"], DX, DY,
+                                 periodic)
+    ref = ssa_ops.apply_operator_stencil(a["u"], a["v"], nuH, a["beta"], DX,
+                                         DY, sh)
+    cpu = ssa_ops.apply_operator(*(x.cpu() for x in (a["u"], a["v"])),
+                                 ssa_ops.NuH(*(x.cpu() for x in nuH)),
+                                 a["beta"].cpu(), DX, DY, periodic)
+    for g, r, c in zip(got, ref, cpu):
+        assert _rel(g, r) < TOL[dtype] and _rel(g.cpu(), c) < TOL[dtype]
+    lin, tangent = ssa_ops.linearize_nuH(a["u"], a["v"], B, H, DX, DY, sh)
+    coefs = tuple(torch.stack(c, -1) for c in (tangent.e, tangent.n))
+    mv = ssa_ops.ssa_newton_matvec_periodic(a["u"], a["v"], lin.e, lin.n,
+                                            *coefs, a["beta"], bc, DX, DY,
+                                            periodic)
+    got = mv(a["du"], a["dv"])
+    ref = ssa_ops.newton_matvec_stencil(a["u"], a["v"], a["du"], a["dv"], lin,
+                                        tangent, a["beta"], bc, DX, DY, sh)
+    for g, r in zip(got, ref):
+        assert _rel(g, r) < TOL[dtype]
+    assert (K.HALO_LAUNCHES, K.HALO_NEWTON_LAUNCHES) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mismip3d", "mismip1"])
+def test_mismip_on_the_card_matches_cpu(cuda, which):
+    """MISMIP3d at 50 km and MISMIP experiment 1 at 51 x 5 (periodic y),
+    float64, 20 a on the card and on the CPU: equal steps and dt-limit
+    hits, the volume within 1e-10; the periodic run through the
+    padded-block kernels only."""
+    runs = {}
+    for where in ("cpu", cuda):
+        if which == "mismip3d":
+            model, state, grid = setups.mismip3d_model("float64", km=50.0,
+                                                       device=where)
+        else:
+            model, state, grid = setups.mismip_model("float64", 51, 5,
+                                                     device=where)
+        n0 = (K.LAUNCHES, K.HALO_LAUNCHES, K.HALO_NEWTON_LAUNCHES)
+        state, t, stats = model.step_once(state, 0.0, 20.0 * SPY)
+        n1 = (K.LAUNCHES, K.HALO_LAUNCHES, K.HALO_NEWTON_LAUNCHES)
+        runs[str(where)] = (state_to_numpy(state), stats, n0, n1)
+    (a, sa, _, _), (b, sb, n0, n1) = runs["cpu"], runs[str(cuda)]
+    assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
+    V = a["ice_thickness"].sum()
+    assert abs(b["ice_thickness"].sum() - V) <= 1e-10 * V
+    assert np.all(np.isfinite(b["u_ssa"]))
+    if which == "mismip1":
+        assert n1[0] == n0[0] and n1[1] > n0[1] and n1[2] > n0[2]

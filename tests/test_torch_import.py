@@ -130,7 +130,7 @@ def test_config_lookups_match():
 
 @pytest.mark.parametrize("override", [
     {"stress_balance.ssa.fd.line_pcr_dtype": "bf16"},
-    {"stress_balance.ssa.flow_law": "isothermal_glen"},
+    {"stress_balance.ssa.flow_law": "hooke"},
     {"stress_balance.model": "weertman_sliding+sia"},
     {"stress_balance.ssa.fd.line_block": 64},
     {"stress_balance.ssa.fd.preconditioner": "mg"},
@@ -149,12 +149,16 @@ def test_unsupported_config_raises(override):
     from pism_tpu_torch import setups
 
     if "grid.periodicity" in override:
-        # the port's grid comes from the setup; a periodic grid raises in
-        # every component that builds a Shifter
+        # the port's grid comes from the setup; a periodic grid raises with
+        # a mesh, in the SSA and the stress balance
         grid = pt.Grid(Mx=8, My=8, Lx=1e5, Ly=1e5, periodicity="xy")
-        from pism_tpu_torch.ops.stencils import Shifter
+        from pism_tpu_torch.model.ssa import SSAFD
+        from pism_tpu_torch.parallel import make_mesh
+        from pism_tpu_torch.physics.rheology import flow_law_from_config
+        cfg = pt.Config({})
         with pytest.raises(NotImplementedError):
-            Shifter(grid)
+            SSAFD(grid=grid, config=cfg, flow_law=flow_law_from_config(
+                cfg, "ssa"), mesh=make_mesh(["cpu"] * 4, (2, 2)))
         return
     dtype = override.pop("runtime.float_dtype", "float64")
     with pytest.raises(NotImplementedError):
@@ -187,12 +191,16 @@ def test_line_pcr_kernels_config_builds():
 def _entry_points():
     from pism_tpu_torch import convert, setups
     from pism_tpu_torch.model.icemodel import IceModel
-    from pism_tpu_torch.verification import eismint2, runner
+    from pism_tpu_torch.verification import eismint2, mismip, runner
 
     return {"setups.hybrid_greenland_model": setups.hybrid_greenland_model,
             "setups.eismint2_model": setups.eismint2_model,
             "setups.halfar_model": setups.halfar_model,
             "setups.antarctica_pik_model": setups.antarctica_pik_model,
+            "setups.mismip3d_model": setups.mismip3d_model,
+            "setups.mismip_model": setups.mismip_model,
+            "verification.mismip.setup": mismip.setup,
+            "verification.mismip.setup_3d": mismip.setup_3d,
             "verification.eismint2.setup": eismint2.setup,
             "verification.runner.run_test": runner.run_test,
             "convert.state_from_numpy": convert.state_from_numpy,

@@ -266,7 +266,13 @@ def test_isothermal_glen_from_config():
     tl = t_rh.flow_law_from_config(pt.Config(over), "sia")
     assert isinstance(tl, t_rh.IsothermalGlen)
     assert (tl.A, tl.n) == (jl.A, jl.n)
+    # the SSA takes it too (MISMIP); a law the port lacks raises
+    over = {"stress_balance.ssa.flow_law": "isothermal_glen",
+            "flow_law.isothermal_Glen.ice_softness": 1e-25}
+    jl = j_rh.flow_law_from_config(JConfig(over), "ssa")
+    tl = t_rh.flow_law_from_config(pt.Config(over), "ssa")
+    assert isinstance(tl, t_rh.IsothermalGlen)
+    assert (tl.A, tl.n) == (jl.A, jl.n)
     with pytest.raises(NotImplementedError):
         t_rh.flow_law_from_config(
-            pt.Config({"stress_balance.ssa.flow_law": "isothermal_glen"}),
-            "ssa")
+            pt.Config({"stress_balance.ssa.flow_law": "hooke"}), "ssa")
