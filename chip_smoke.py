@@ -141,6 +141,23 @@ launch counters set to 0 just before it and read just after:
     dt-limit hits and volume), the route against the plain periodic
     stencils on the card's state in both dtypes (K1's tolerances), and the
     route timed at 151x7 and 1601x101.
+  phase 11: the ensemble (BASELINE config 5, ``parallel/ensemble.py``,
+    ``setups.paleo_ensemble_model``): (a) the paleo ensemble at its
+    published width, 100 members at 41x41x21 float32 through
+    ``EnsembleRunner``, 50 a then a timed 450 a: member-years per wall
+    hour, lockstep steps and each member's, ms, host syncs and kernel
+    launches per lockstep step, the busy share of a profiled window, the
+    volume range and the volume-dT correlation (above 0.9), and the
+    coldest, middle and warmest members against solo runs on the card
+    (equal steps and hits, H within 1e-4 of max H, printed whether equal
+    to the bit); (b) the same with Mahaffy gradients and no bed smoother,
+    16 members, 100 a, so that K3 launches once a lockstep step for all
+    members, and on its state K3's member-axis launch against its plain
+    version (1e-4), against one launch per member (to the bit, the (B,)
+    max(D) against each member's faces' max) and timed against them; (c)
+    Halfar B ensembles at 601x601 float32 (SMB scales 0..7, 20 a), K4 the
+    same way (2e-5); (d) 4 members at 100 km float64 on the card against
+    the CPU (equal steps and hits, volumes within 1e-10).
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -251,6 +268,8 @@ def _counters():
             (pcr, "SUB_FACTOR_LAUNCHES", "pcr_factor_lines_sub"),
             (sia_thermo, "LAUNCHES", "sia_flux_thermo"),
             (sia_iso, "LAUNCHES", "sia_flux"),
+            (sia_thermo, "MEMBER_LAUNCHES", "sia_flux_thermo_members"),
+            (sia_iso, "MEMBER_LAUNCHES", "sia_flux_members"),
             (hostsync, "COUNT", "host_syncs"))
 
 
@@ -258,7 +277,8 @@ KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_newton_matvec",
            "ssa_matvec_halo", "ssa_matvec_halo_jvp", "ssa_newton_matvec_halo",
            "pcr_lines", "pcr_lines_sub",
            "pcr_factor_lines", "pcr_factor_lines_sub",
-           "sia_flux_thermo", "sia_flux")
+           "sia_flux_thermo", "sia_flux", "sia_flux_thermo_members",
+           "sia_flux_members")
 
 
 def reset_counts():
@@ -2799,6 +2819,377 @@ def phase10_mismip(dev, k1, pcr, off):
     print(f"phase10bc: {time.time() - t:.1f} s")
 
 
+# -- phase 11: the ensemble (BASELINE config 5) ----------------------------
+
+#: the paleo ensemble at its published width (examples/paleo_ensemble.py):
+#: members, km, the first segment and the end [a]
+PALEO_MEMBERS, PALEO_KM, PALEO_FIRST, PALEO_YEARS = 100, 40.0, 50.0, 500.0
+#: the K3 route (Mahaffy gradients, no bed smoother): members and years
+K3_MEMBERS, K3_YEARS = 16, 100.0
+#: the K4 route (Halfar B at path C's 601x601): members and years
+K4_MEMBERS, K4_YEARS = 8, 20.0
+K3_ROUTE = {"stress_balance.sia.surface_gradient_method": "mahaffy",
+            "stress_balance.sia.bed_smoother.range": 0.0}
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _lockstep(stats):
+    """Lockstep steps of a segment: the most any member took (a member
+    steps from the segment's start until it is done)."""
+    return max(s.nsteps for s in stats)
+
+
+def _ensemble_check(label, state, stats, years):
+    """Finite fields of every member, each member's last step bound by the
+    segment's end (so each reached it)."""
+    import torch
+    for name in ("ice_thickness", "enthalpy", "basal_melt_rate"):
+        f = getattr(state.geometry, name, None) if name == "ice_thickness" \
+            else getattr(state, name)
+        if f is not None and not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    short = [b for b, s in enumerate(stats)
+             if s.limit_hits_dict().get("end_of_segment") != 1]
+    if short:
+        raise AssertionError(f"{label}: members {short} did not reach the "
+                             f"end of the {years} a segment")
+
+
+def _ensemble_report(label, n, stats, wall, years, counts):
+    """Prints and returns (lockstep steps, ms per lockstep step)."""
+    lock = _lockstep(stats)
+    steps = [s.nsteps for s in stats]
+    syncs = stats[0].host_syncs
+    per_step = {k: round(counts[k] / lock, 2) for k in KERNELS if counts[k]}
+    print(f"{label}: {n} members, {years} a: lockstep steps {lock}, member "
+          f"steps {min(steps)}-{max(steps)}, wall {wall:.3f} s, "
+          f"{1e3 * wall / lock:.2f} ms per lockstep step, "
+          f"{n * years / wall * 3600.0:.1f} member-years per wall hour, host "
+          f"syncs {syncs} ({syncs / lock:.2f} per lockstep step), kernel "
+          f"launches per lockstep step {per_step} (the segments' counts "
+          f"together), dt-limit hits of member 0 "
+          f"{stats[0].limit_hits_dict()}")
+    return lock, 1e3 * wall / lock
+
+
+def _profile_ensemble(runner, state, t0, years, label):
+    """One segment under the profiler's CUDA activity: device ops per
+    lockstep step and the busy share of the profiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.time()
+        _, stats = runner.run_segment(state, t0, t0 + years * SPY)
+        _sync()
+        wall = time.time() - w0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    lock = _lockstep(stats)
+    print(f"{label}: profiled {years} a, {lock} lockstep steps: {len(dev)} "
+          f"device ops ({len(dev) / lock:.0f} per lockstep step), device "
+          f"time {busy:.1f} ms of {1e3 * wall:.1f} ms profiled wall, busy "
+          f"share {busy / (1e3 * wall):.3f}")
+
+
+def _member_vs_solo(label, model, batched, out, seg_stats, members, bounds,
+                    tol):
+    """Members of an ensemble against solo runs of the same members on the
+    card over the same segments ``bounds`` [s]: equal steps and dt-limit
+    hits per segment; H to the bit, else within ``tol`` of max H."""
+    import torch
+    from pism_tpu_torch.parallel.ensemble import member
+    for b in members:
+        st = member(batched, b)
+        t = bounds[0]
+        for k, t_end in enumerate(bounds[1:]):
+            st, t, solo = model.step_once(st, t, t_end - t)
+            ens = seg_stats[k][b]
+            if solo.nsteps != ens.nsteps \
+                    or solo.limit_hits_dict() != ens.limit_hits_dict():
+                raise AssertionError(
+                    f"{label}: member {b} segment {k}: steps {ens.nsteps} / "
+                    f"solo {solo.nsteps}, hits {ens.limit_hits_dict()} / "
+                    f"{solo.limit_hits_dict()}")
+        H, Hs = out.geometry.ice_thickness[b], st.geometry.ice_thickness
+        same = torch.equal(H, Hs)
+        err = float((H - Hs).abs().max() / Hs.abs().max())
+        print(f"{label}: member {b} against its solo run on the card: steps "
+              f"{[s[b].nsteps for s in seg_stats]}, hits equal, H equal to "
+              f"the bit {same} (max diff {err:.3e} of max H, tol {tol:.0e})")
+        if not err <= tol:
+            raise AssertionError(f"{label}: member {b} differs from its solo "
+                                 f"run by {err:.3e} of max H")
+
+
+def _members_kernel_case(name, label, batched_fn, single_fn, plain_fn, args,
+                         tol, nops, match):
+    """A member-axis launch against its plain version (``_kernel_case``),
+    against one launch per member (to the bit, (B,) max(D) included) and
+    its max(D) against each member's faces' max (to the bit); one batched
+    launch timed against the B single launches. Returns the record."""
+    import torch
+    r = _kernel_case(name, lambda *x: batched_fn(*x)[:4],
+                     lambda *x: tuple(plain_fn(*x)[i] for i in (2, 3, 0, 1)),
+                     args, tol, label, nops, reps=50, phase="phase11")
+    got = batched_fn(*args)
+    B = got[0].shape[0]
+    singles = [single_fn(*(a[b] if a.dim() > 1 else a for a in args))
+               for b in range(B)]
+    _sync()
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for b, one in enumerate(singles):
+        for k, (g, o) in enumerate(zip(got, one)):
+            gb = g[b]
+            if not torch.equal(gb.view(bits[gb.dtype]), o.view(bits[o.dtype])):
+                raise AssertionError(f"{name} {label}: member {b} output {k} "
+                                     "differs from its single launch")
+        De, Dn = got[0][b], got[1][b]
+        ref = torch.maximum(torch.max(De), torch.max(Dn))
+        if not torch.equal(got[4][b].view(bits[ref.dtype]),
+                           ref.view(bits[ref.dtype])):
+            raise AssertionError(f"{name} {label}: member {b}'s max(D) is not "
+                                 "its faces' max")
+    def singles():
+        for b in range(B):
+            single_fn(*(a[b] if a.dim() > 1 else a for a in args))
+
+    batched_ms = _time_ms(lambda: batched_fn(*args), 50)
+    singles_ms = _time_ms(singles, 20)
+    one_us = _kernel_us(lambda: batched_fn(*args), match, 1)
+    many_us = _kernel_us(singles, match, B)
+    one_g, many_g = _graph_us(lambda: batched_fn(*args)), _graph_us(singles)
+    print(f"phase11: {name} {label}: one launch for {B} members equal to the "
+          f"bit to {B} single launches, (B,) max(D) equal to each member's "
+          f"faces' max; events one launch {batched_ms:.4f} ms, {B} launches "
+          f"{singles_ms:.4f} ms; the kernel alone {one_us} against {many_us} "
+          f"in {B} launches (profiler); replayed from a CUDA graph, without "
+          f"the host, {one_g:.2f} us against {many_g:.2f} us")
+    return r
+
+
+def _graph_us(fn, reps=20):
+    """Device µs per call of ``fn`` replayed from a CUDA graph of ``reps``
+    calls (CUDA events around the replay): the launches' device time
+    without the host's, gaps between them included."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    _sync()
+    return 1e3 * start.elapsed_time(end) / (5 * reps)
+
+
+def _kernel_us(fn, match, launches, reps=20):
+    """The profiler's device time of the kernels named ``match`` per call
+    of ``fn``, which launches them ``launches`` times, as text; a trace that
+    holds another count of them (the profiler drops events now and then)
+    is taken again, up to three times, else "not measured"."""
+    for _ in range(3):
+        us, ops = _device_profile(fn, reps, match)
+        if ops is not None and round(ops * reps) == launches * reps:
+            return f"{us:.2f} us"
+    return "not measured"
+
+
+def phase11a_paleo(dev, smi):
+    """The paleo ensemble at its published width through EnsembleRunner:
+    100 members at 41x41x21 float32, 50 a then 450 a timed; the coldest,
+    middle and warmest members against solo runs on the card."""
+    import numpy as np
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    model, batched, grid, dT = setups.paleo_ensemble_model(
+        PALEO_MEMBERS, PALEO_KM, device=dev)
+    runner = EnsembleRunner(model)
+    _sync()
+    reset_counts()
+    w0 = time.time()
+    s50, st50 = runner.run_segment(batched, 0.0, PALEO_FIRST * SPY)
+    _sync()
+    wall50 = time.time() - w0
+    w0 = time.time()
+    out, st = runner.run_segment(s50, PALEO_FIRST * SPY, PALEO_YEARS * SPY)
+    _sync()
+    wall = time.time() - w0
+    counts = read_counts()
+    # Haseloff gradients and the 5 km bed smoother: the plain SIA path, as
+    # the JAX example takes on the TPU
+    _check_launches("phase11a", counts, (), KERNELS)
+    _ensemble_check("phase11a first", s50, st50, PALEO_FIRST)
+    _ensemble_check("phase11a", out, st, PALEO_YEARS - PALEO_FIRST)
+    print(f"phase11a: {smi}")
+    _ensemble_report(f"phase11a first {PALEO_FIRST} a (untimed warm-up)",
+                     PALEO_MEMBERS, st50, wall50, PALEO_FIRST, counts)
+    _ensemble_report(f"phase11a timed {grid.Mx}x{grid.My}x{grid.Mz} float32",
+                     PALEO_MEMBERS, st, wall, PALEO_YEARS - PALEO_FIRST,
+                     counts)
+    vols = out.geometry.ice_thickness.double().sum(dim=(1, 2)).cpu().numpy() \
+        * grid.dx * grid.dy / 1e15
+    corr = float(np.corrcoef(dT, vols)[0, 1])
+    print(f"phase11a: volume range {vols.min():.4f}-{vols.max():.4f} 1e6 "
+          f"km^3, volume-dT correlation {corr:.4f}")
+    if not corr > 0.9:
+        raise AssertionError(f"phase11a: volume-dT correlation {corr:.3f}")
+    _profile_ensemble(runner, out, PALEO_YEARS * SPY, 40.0, "phase11a")
+    _member_vs_solo("phase11a", model, batched, out, (st50, st),
+                    (0, PALEO_MEMBERS // 2, PALEO_MEMBERS - 1),
+                    (0.0, PALEO_FIRST * SPY, PALEO_YEARS * SPY), 1e-4)
+
+
+def phase11b_k3(dev):
+    """The K3 route: the paleo ensemble with Mahaffy gradients and no bed
+    smoother, 16 members, 100 a; then K3 on the ensemble's own state.
+    Returns (K3's member-axis record, launch counts of the run)."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.ops.kernels import sia_thermo as K3
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    model, batched, grid, _ = setups.paleo_ensemble_model(
+        K3_MEMBERS, PALEO_KM, device=dev, extra_cfg=K3_ROUTE)
+    runner = EnsembleRunner(model)
+    _sync()
+    reset_counts()
+    w0 = time.time()
+    out, st = runner.run_segment(batched, 0.0, K3_YEARS * SPY)
+    _sync()
+    wall = time.time() - w0
+    counts = read_counts()
+    path = ("sia_flux_thermo", "sia_flux_thermo_members")
+    _check_launches("phase11b", counts, path,
+                    tuple(k for k in KERNELS if k not in path))
+    _ensemble_check("phase11b", out, st, K3_YEARS)
+    lock, _ = _ensemble_report("phase11b (K3 route)", K3_MEMBERS, st, wall,
+                               K3_YEARS, counts)
+    if counts["sia_flux_thermo_members"] != lock:
+        raise AssertionError("phase11b: K3 was not launched once a lockstep "
+                             "step")
+    sb = model.stress_balance
+    kw = dict(n=sb.n_sia, enhancement=sb.e_sia, rho=sb.rho, g=sb.g,
+              dx=grid.dx, dy=grid.dy, EC=sb.sia_flow_law.EC,
+              pb_law=sb.sia_flow_law, d_cap=sb.d_limit)
+    H = out.geometry.ice_thickness
+    import torch
+    z = torch.as_tensor(grid.z, dtype=H.dtype, device=H.device)
+    args = (H, out.geometry.ice_surface_elevation, out.enthalpy, z)
+    B, My, Mx, Mz = out.enthalpy.shape
+    r = _members_kernel_case(
+        "sia_flux_thermo_members", f"{B}x{My}x{Mx}x{Mz} float32 E level-major "
+        "(the ensemble's state)",
+        lambda *x: K3.sia_flux_thermo(*x, **kw),
+        lambda *x: K3.sia_flux_thermo(*x, **kw),
+        lambda *x: K3.sia_flux_thermo_plain(*x, **kw), args, 1e-4,
+        2 * B * My * Mx * (OPS["sia_thermo_level"] * Mz
+                           + OPS["sia_thermo_face"]), "sia_thermo")
+    return r, counts
+
+
+def phase11c_k4(dev):
+    """The K4 route: Halfar B ensembles at 601x601 float32 (SMB scales
+    0..7), 20 a; then K4 on the ensemble's own state. Returns (K4's
+    member-axis record, launch counts of the run)."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.ops.kernels import sia_iso as K4
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    # one segment of 20 a (~0.5k steps) whatever the steps per segment
+    model, batched, grid, sol, scales = setups.halfar_ensemble_model(
+        K4_MEMBERS, HALFAR_MX, "float32", device=dev,
+        extra_cfg={"time_stepping.max_steps_per_segment": 5000})
+    runner = EnsembleRunner(model)
+    _sync()
+    reset_counts()
+    w0 = time.time()
+    out, st = runner.run_segment(batched, sol.t0, sol.t0 + K4_YEARS * SPY)
+    _sync()
+    wall = time.time() - w0
+    counts = read_counts()
+    path = ("sia_flux", "sia_flux_members")
+    _check_launches("phase11c", counts, path,
+                    tuple(k for k in KERNELS if k not in path))
+    _ensemble_check("phase11c", out, st, K4_YEARS)
+    lock, _ = _ensemble_report("phase11c (K4 route)", K4_MEMBERS, st, wall,
+                               K4_YEARS, counts)
+    if counts["sia_flux_members"] != lock:
+        raise AssertionError("phase11c: K4 was not launched once a lockstep "
+                             "step")
+    V = out.geometry.ice_thickness.double().sum(dim=(1, 2)).cpu()
+    print(f"phase11c: member volumes {[f'{float(v):.6e}' for v in V]} m "
+          "(cell sums, SMB scales 0..7)")
+    if not bool((V[1:] > V[:-1]).all()):
+        raise AssertionError("phase11c: more accumulation, not more volume")
+    sb = model.stress_balance
+    A = float(torch.tensor(sb.sia_flow_law.A, dtype=torch.float32))
+    kw = dict(A=A, n=sb.n_sia, enhancement=sb.e_sia, rho=sb.rho, g=sb.g,
+              dx=grid.dx, dy=grid.dy, d_cap=sb.d_limit)
+    gam = K4.gamma(A, sb.n_sia, sb.e_sia, sb.rho, sb.g)
+    H = out.geometry.ice_thickness
+    args = (H, out.geometry.ice_surface_elevation)
+    B, My, Mx = H.shape
+    return _members_kernel_case(
+        "sia_flux_members", f"{B}x{My}x{Mx} float32 (the ensemble's state)",
+        lambda *x: K4.sia_flux(*x, **kw), lambda *x: K4.sia_flux(*x, **kw),
+        lambda *x: K4.sia_flux_plain(*x, gamma=gam, n=sb.n_sia, dx=grid.dx,
+                                     dy=grid.dy, d_cap=sb.d_limit),
+        args, 2e-5, OPS["sia_flux"] * B * My * Mx, "sia_iso_kernel"), counts
+
+
+def phase11d_card_vs_cpu(dev):
+    """A 4-member paleo ensemble at 100 km in float64 on the card and on
+    the CPU: equal steps and hits per member, volumes within 1e-10."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    runs = {}
+    for where in ("cpu", dev):
+        model, batched, grid, _ = setups.paleo_ensemble_model(
+            4, 100.0, dtype="float64", device=where)
+        out, st = EnsembleRunner(model).run_segment(batched, 0.0, 300.0 * SPY)
+        runs[str(where)] = (out.geometry.ice_thickness.sum(dim=(1, 2)).cpu(),
+                            st)
+    (va, sa), (vb, sb) = runs["cpu"], runs[str(dev)]
+    rel = float(((vb - va).abs() / va.abs()).max())
+    same = [a.nsteps == b.nsteps and a.limit_hits == b.limit_hits
+            for a, b in zip(sa, sb)]
+    print(f"phase11d: 4-member paleo ensemble 100 km float64, 300 a, card "
+          f"against CPU: member steps {[s.nsteps for s in sb]} / "
+          f"{[s.nsteps for s in sa]}, hits equal {all(same)}, volume max rel "
+          f"diff {rel:.3e} (tol 1e-10)")
+    if not all(same) or not rel <= 1e-10:
+        raise AssertionError("phase11d: the card and the CPU disagree")
+
+
+def phase11_ensemble(dev, smi):
+    t = time.time()
+    phase11a_paleo(dev, smi)
+    print(f"phase11a: {time.time() - t:.1f} s")
+    k3, counts_k3 = phase11b_k3(dev)
+    k4, counts_k4 = phase11c_k4(dev)
+    phase11d_card_vs_cpu(dev)
+    return (k3, counts_k3), (k4, counts_k4)
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -2874,6 +3265,11 @@ def main():
     print(f"phase10: {smi}")
     phase10_mismip(dev, k1, pcr_names, off)
     print(f"phase10: {time.time() - t10:.1f} s")
+    t11 = time.time()
+    print(f"phase11: {smi}")
+    (k3m, counts_k3m), (k4m, counts_k4m) = phase11_ensemble(dev, smi)
+    timings["sia_flux_thermo_members"], timings["sia_flux_members"] = k3m, k4m
+    print(f"phase11: {time.time() - t11:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line
@@ -2891,7 +3287,9 @@ def main():
             ("sia_flux", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_c),
             ("ssa_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:108", counts_d),
             ("ssa_matvec_halo_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d),
-            ("ssa_newton_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d)):
+            ("ssa_newton_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d),
+            ("sia_flux_thermo_members", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_k3m),
+            ("sia_flux_members", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_k4m)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

@@ -5,6 +5,7 @@ setups, ``Uniform``, ``Simple``, ``Given`` and the ``DeltaT`` modifier)."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -47,16 +48,41 @@ class SurfaceModel:
     def max_timestep(self, t) -> float:
         return float("inf")
 
+    def members(self, geometry, t) -> SurfaceInputs:
+        """The climate of an ensemble's members: ``geometry`` with a leading
+        member axis, ``t`` their model times (a float64 tensor, one per
+        member). Models that have no member form raise."""
+        raise NotImplementedError(
+            f"the surface model {type(self).__name__} on an ensemble's member "
+            "axis is not implemented in pism_tpu_torch (supported: Uniform, "
+            "FunctionSurface)")
+
 
 @dataclass
 class FunctionSurface(SurfaceModel):
     """Wraps fn(geometry, t) -> (smb, temperature); used by the verification
-    setups (EISMINT II's radially symmetric climate)."""
+    setups (EISMINT II's radially symmetric climate). On an ensemble's
+    member axis ``fn`` sees one member at a time (``torch.func.vmap`` over
+    the geometry's fields and the members' times), as the JAX package's
+    ``vmap`` over the whole step shows it one member."""
 
     fn: Callable
 
     def __call__(self, geometry, t) -> SurfaceInputs:
         smb, temp = self.fn(geometry, t)
+        return SurfaceInputs(smb, temp)
+
+    def members(self, geometry, t) -> SurfaceInputs:
+        import torch.func
+
+        names = [f.name for f in dataclasses.fields(geometry)]
+
+        def one(t_, *fields):
+            return tuple(self.fn(type(geometry)(**dict(zip(names, fields))),
+                                 t_))
+
+        smb, temp = torch.func.vmap(one)(
+            t, *(getattr(geometry, n) for n in names))
         return SurfaceInputs(smb, temp)
 
 
@@ -71,6 +97,9 @@ class Uniform(SurfaceModel):
         H = geometry.ice_thickness
         return SurfaceInputs(smb=torch.full_like(H, self.smb),
                              temperature=torch.full_like(H, self.temperature))
+
+    def members(self, geometry, t) -> SurfaceInputs:
+        return self(geometry, None)
 
 
 @dataclass

@@ -9,6 +9,11 @@
 // larger, so the result does not depend on the order in which the blocks
 // finish. Shared by the SIA kernels (sia_thermo.cu, sia_iso.cu), whose
 // wrappers take max(D) from it.
+//
+// On an ensemble's member axis a launch takes one max per member: a key per
+// member (a block folds into its member's), one ticket for the launch, and
+// the last block's threads turn all the keys back into values at once, so
+// it is still two round trips, whatever the number of members.
 
 #pragma once
 
@@ -98,24 +103,32 @@ __device__ __forceinline__ T block_max(T v) {
   return v;
 }
 
-// max of v over the grid into *out. work: two words, a ticket (0) and the
-// max's key (LLONG_MIN) between launches. Thread 0 of each block adds its
-// block's key with atomicMax and takes a ticket; the one that takes the
-// last reads the key, writes the max and puts both words back. Every
-// thread of every block calls it; NT = threads per block, a multiple of
-// 32.
+// max of v over the blocks of member `member` into out[member], for each
+// of the launch's nkeys members. work: a ticket (0) and the members' keys
+// (LLONG_MIN each) between launches. Thread 0 of each block adds its
+// block's key with atomicMax and takes a ticket; the threads of the block
+// that takes the last read the keys, write the maxima and put every word
+// back. Every thread of every block calls it; NT = threads per block, a
+// multiple of 32.
 template <typename T, int NT>
 __device__ __forceinline__ void grid_max(T v, unsigned long long* work,
-                                         T* out) {
+                                         T* out, int member = 0,
+                                         int nkeys = 1) {
+  __shared__ bool last;
   v = block_max<T, NT>(v);
-  if (threadIdx.x + threadIdx.y * blockDim.x != 0) return;
+  const int t = threadIdx.x + threadIdx.y * blockDim.x;
   long long* key = (long long*)(work + 1);
-  atomicMax(key, max_key(v));
-  if (take_ticket(work) == (unsigned long long)gridDim.x * gridDim.y - 1) {
-    *out = from_key<T>((long long)atomicExch(work + 1,
-                                             (unsigned long long)LLONG_MIN));
-    work[0] = 0ull;
+  if (t == 0) {
+    atomicMax(key + member, max_key(v));
+    last = take_ticket(work) ==
+           (unsigned long long)gridDim.x * gridDim.y * gridDim.z - 1;
   }
+  __syncthreads();
+  if (!last) return;
+  for (int m = t; m < nkeys; m += NT)
+    out[m] = from_key<T>((long long)atomicExch(
+        (unsigned long long*)(key + m), (unsigned long long)LLONG_MIN));
+  if (t == 0) work[0] = 0ull;
 }
 
 }  // namespace

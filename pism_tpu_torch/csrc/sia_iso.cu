@@ -45,6 +45,13 @@
 // max of D is taken once per resident block. Neighbouring threads take
 // neighbouring x, so every read and write is coalesced.
 //
+// An ensemble's members (the JAX package vmaps this kernel, and pallas_call
+// gives each member its own grid steps) are blockIdx.y: B members of one
+// grid in one launch, H, s and the outputs (B, My, Mx) contiguous, each
+// member's tiles walked by its own blocks (the resident blocks shared out
+// among the members), and a max of D per member. A member's cells compute
+// what a launch of that member alone computes.
+//
 // C interface for ctypes: every function returns cudaGetLastError() after
 // the launch (0 = success). The kernel allocates nothing and launches on
 // the stream it is given; the caller gives it grid_max's two words of work
@@ -174,15 +181,22 @@ __device__ __forceinline__ T iso_cells(const T* __restrict__ H,
 }
 
 // A block walks the tiles of BX x (BY RY) cells blockIdx.x, blockIdx.x +
-// gridDim.x, ...: a grid of the blocks the card holds at once, so that the
-// max of D is taken once per resident block
+// gridDim.x, ... of member blockIdx.y: a grid of the blocks the card holds
+// at once, so that the max of D is taken once per resident block
 template <typename T, int BX, int BY, int RY, bool Pow1>
 __global__ void __launch_bounds__(BX * BY) sia_iso_kernel(
     const T* __restrict__ H, const T* __restrict__ s, T* __restrict__ qe,
     T* __restrict__ qn, T* __restrict__ De, T* __restrict__ Dn,
-    unsigned long long* __restrict__ work, T* __restrict__ maxD, int My,
-    int Mx, int tiles_x, int tiles,
+    unsigned long long* __restrict__ work, T* __restrict__ maxD, int B,
+    int My, int Mx, int tiles_x, int tiles,
     Params<T> p) {
+  const size_t m = (size_t)blockIdx.y * My * Mx;   // the member's offset
+  H += m;
+  s += m;
+  qe += m;
+  qn += m;
+  De += m;
+  Dn += m;
   T D = -T(INFINITY);
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int i = (t % tiles_x) * BX + threadIdx.x;
@@ -190,7 +204,7 @@ __global__ void __launch_bounds__(BX * BY) sia_iso_kernel(
     D = max_nan(D, iso_cells<T, RY, Pow1>(H, s, qe, qn, De, Dn, i, j0, My, Mx,
                                           p));
   }
-  if (maxD != nullptr) grid_max<T, BX * BY>(D, work, maxD);
+  if (maxD != nullptr) grid_max<T, BX * BY>(D, work, maxD, blockIdx.y, B);
 }
 
 // fast: pow(0, n + 2) without pow where exact (see thickness_term)
@@ -226,9 +240,10 @@ int sm_count() {
   return sms;
 }
 
+// the resident blocks shared out among the B members, at least one each
 template <typename T, int BX, int BY, int RY, bool Pow1>
 int launch_iso(const void* H, const void* s, void* qe, void* qn, void* De,
-               void* Dn, void* work, void* maxD, int My, int Mx,
+               void* Dn, void* work, void* maxD, int B, int My, int Mx,
                const Params<T>& p, cudaStream_t stream) {
   static int per_sm = 0;
   if (per_sm == 0 &&
@@ -237,10 +252,11 @@ int launch_iso(const void* H, const void* s, void* qe, void* qn, void* De,
           cudaSuccess)
     return (int)cudaGetLastError();
   const int2 t = iso_tiles(My, Mx, BX, BY, RY);
-  const int blocks = min(t.y, per_sm * sm_count());
-  sia_iso_kernel<T, BX, BY, RY, Pow1><<<blocks, dim3(BX, BY), 0, stream>>>(
-      (const T*)H, (const T*)s, (T*)qe, (T*)qn, (T*)De, (T*)Dn,
-      (unsigned long long*)work, (T*)maxD, My, Mx, t.x, t.y, p);
+  const int blocks = min(t.y, max(per_sm * sm_count() / B, 1));
+  sia_iso_kernel<T, BX, BY, RY, Pow1>
+      <<<dim3(blocks, B), dim3(BX, BY), 0, stream>>>(
+          (const T*)H, (const T*)s, (T*)qe, (T*)qn, (T*)De, (T*)Dn,
+          (unsigned long long*)work, (T*)maxD, B, My, Mx, t.x, t.y, p);
   return (int)cudaGetLastError();
 }
 
@@ -248,29 +264,31 @@ int launch_iso(const void* H, const void* s, void* qe, void* qn, void* De,
 // in float32 and pow(0, n + 2) on ice-free faces
 template <typename T, int BX, int BY, int RY>
 int launch_tile(const void* H, const void* s, void* qe, void* qn, void* De,
-                void* Dn, void* work, void* maxD, int My, int Mx,
+                void* Dn, void* work, void* maxD, int B, int My, int Mx,
                 const double* c, cudaStream_t stream, bool always_pow) {
-  if (My <= 0 || Mx <= 0) return 0;
+  if (B <= 0 || My <= 0 || Mx <= 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidValue;
   const Params<T> p = params_from<T>(c, !always_pow);
   if (!always_pow && sizeof(T) == sizeof(float) && c[2] == 1.0)
     return launch_iso<T, BX, BY, RY, true>(H, s, qe, qn, De, Dn, work, maxD,
-                                           My, Mx, p, stream);
+                                           B, My, Mx, p, stream);
   return launch_iso<T, BX, BY, RY, false>(H, s, qe, qn, De, Dn, work, maxD,
-                                          My, Mx, p, stream);
+                                          B, My, Mx, p, stream);
 }
 
-// two rows a thread where the cells are more than the card holds threads,
-// else one (PERF.md has the times)
+// two rows a thread where the cells (of all members) are more than the
+// card holds threads, else one (PERF.md has the times)
 template <typename T>
 int launch_sia_iso(const void* H, const void* s, void* qe, void* qn,
-                   void* De, void* Dn, void* work, void* maxD, int My, int Mx,
-                   const double* c, void* stream) {
+                   void* De, void* Dn, void* work, void* maxD, int B, int My,
+                   int Mx, const double* c, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if ((long long)My * Mx >= (long long)sm_count() * kIsoTwoRowsCellsPerSM)
+  if ((long long)B * My * Mx >=
+      (long long)sm_count() * kIsoTwoRowsCellsPerSM)
     return launch_tile<T, kIsoX, kIsoY, 2>(H, s, qe, qn, De, Dn, work, maxD,
-                                           My, Mx, c, st, false);
-  return launch_tile<T, kIsoX, kIsoY, 1>(H, s, qe, qn, De, Dn, work, maxD, My,
-                                         Mx, c, st, false);
+                                           B, My, Mx, c, st, false);
+  return launch_tile<T, kIsoX, kIsoY, 1>(H, s, qe, qn, De, Dn, work, maxD, B,
+                                         My, Mx, c, st, false);
 }
 
 }  // namespace
@@ -283,14 +301,32 @@ int pism_sia_iso_nparams() { return kParams; }
 int pism_sia_flux_f32(const void* H, const void* s, void* qe, void* qn,
                       void* De, void* Dn, void* work, void* maxD, int My,
                       int Mx, const double* params, void* stream) {
-  return launch_sia_iso<float>(H, s, qe, qn, De, Dn, work, maxD, My, Mx,
+  return launch_sia_iso<float>(H, s, qe, qn, De, Dn, work, maxD, 1, My, Mx,
                                params, stream);
 }
 
 int pism_sia_flux_f64(const void* H, const void* s, void* qe, void* qn,
                       void* De, void* Dn, void* work, void* maxD, int My,
                       int Mx, const double* params, void* stream) {
-  return launch_sia_iso<double>(H, s, qe, qn, De, Dn, work, maxD, My, Mx,
+  return launch_sia_iso<double>(H, s, qe, qn, De, Dn, work, maxD, 1, My, Mx,
+                                params, stream);
+}
+
+// B members in one launch, every array (B, My, Mx) contiguous; maxD (B
+// values) may be null, and then work (a ticket and B keys) is not touched
+int pism_sia_flux_members_f32(const void* H, const void* s, void* qe,
+                              void* qn, void* De, void* Dn, void* work,
+                              void* maxD, int B, int My, int Mx,
+                              const double* params, void* stream) {
+  return launch_sia_iso<float>(H, s, qe, qn, De, Dn, work, maxD, B, My, Mx,
+                               params, stream);
+}
+
+int pism_sia_flux_members_f64(const void* H, const void* s, void* qe,
+                              void* qn, void* De, void* Dn, void* work,
+                              void* maxD, int B, int My, int Mx,
+                              const double* params, void* stream) {
+  return launch_sia_iso<double>(H, s, qe, qn, De, Dn, work, maxD, B, My, Mx,
                                 params, stream);
 }
 

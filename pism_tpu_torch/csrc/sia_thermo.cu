@@ -60,6 +60,14 @@
 // pointer (one shard of a mesh, whose ghost cells must not count) that
 // step is left out.
 //
+// An ensemble's members (the JAX package vmaps this kernel, and pallas_call
+// gives each member its own grid steps) are blockIdx.z: B members of one
+// grid in one launch, H, s and the outputs (B, My, Mx) contiguous, E with
+// a member stride beside its three others, and a max of D per member. A
+// member's cells compute what a launch of that member alone computes, the
+// same expressions in the same order; the route is picked by the cells of
+// all members, and every route gives a thread per cell's bits.
+//
 // C interface for ctypes: every function returns cudaGetLastError() after
 // the launch (0 = success). The kernel allocates nothing and launches on the
 // stream it is given; the caller gives it grid_max's two words of work
@@ -206,12 +214,21 @@ __global__ void __launch_bounds__(TX * TY) sia_thermo_kernel(
     const T* __restrict__ H, const T* __restrict__ s, const T* __restrict__ E,
     const T* __restrict__ z, T* __restrict__ qe, T* __restrict__ qn,
     T* __restrict__ De, T* __restrict__ Dn, unsigned long long* __restrict__ work,
-    T* __restrict__ maxD, int My, int Mx,
-    int Mz, long long sy, long long sx, long long sz, Params<T> p) {
+    T* __restrict__ maxD, int B, int My, int Mx,
+    int Mz, long long sb, long long sy, long long sx, long long sz,
+    Params<T> p) {
   // the integrand of the chunk's levels, [face][level][cell], and the
   // chunk's levels
   __shared__ T f[2][kChunk][TX];
   __shared__ T zs[kChunk];
+  const size_t m = (size_t)blockIdx.z * My * Mx;   // the member's offset
+  H += m;
+  s += m;
+  E += blockIdx.z * sb;
+  qe += m;
+  qn += m;
+  De += m;
+  Dn += m;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int i = blockIdx.x * TX + tx, j = blockIdx.y;
   const bool in = i < Mx;
@@ -278,7 +295,7 @@ __global__ void __launch_bounds__(TX * TY) sia_thermo_kernel(
       qn[x.c] = q;
     }
   }
-  if (maxD != nullptr) grid_max<T, TX * TY>(D, work, maxD);
+  if (maxD != nullptr) grid_max<T, TX * TY>(D, work, maxD, blockIdx.z, B);
 }
 
 // A thread per cell walks the column, both faces at once: for launches of
@@ -289,8 +306,17 @@ __global__ void __launch_bounds__(kColumnX * kColumnY) sia_thermo_column_kernel(
     const T* __restrict__ H, const T* __restrict__ s, const T* __restrict__ E,
     const T* __restrict__ z, T* __restrict__ qe, T* __restrict__ qn,
     T* __restrict__ De, T* __restrict__ Dn, unsigned long long* __restrict__ work,
-    T* __restrict__ maxD, int My, int Mx,
-    int Mz, long long sy, long long sx, long long sz, Params<T> p) {
+    T* __restrict__ maxD, int B, int My, int Mx,
+    int Mz, long long sb, long long sy, long long sx, long long sz,
+    Params<T> p) {
+  const size_t m = (size_t)blockIdx.z * My * Mx;   // the member's offset
+  H += m;
+  s += m;
+  E += blockIdx.z * sb;
+  qe += m;
+  qn += m;
+  De += m;
+  Dn += m;
   const int i = blockIdx.x * kColumnX + threadIdx.x;
   const int j = blockIdx.y * kColumnY + threadIdx.y;
   T D = -T(INFINITY);
@@ -328,7 +354,7 @@ __global__ void __launch_bounds__(kColumnX * kColumnY) sia_thermo_column_kernel(
     D = max_nan(De_, Dn_);
   }
   if (maxD != nullptr)
-    grid_max<T, kColumnX * kColumnY>(D, work, maxD);
+    grid_max<T, kColumnX * kColumnY>(D, work, maxD, blockIdx.z, B);
 }
 
 template <typename T>
@@ -376,13 +402,14 @@ bool skip_exact(const double* c) {
          wfl >= 0.0 && wfl <= 1e10 && T_pa0 >= 1.0 && R * T_pa0 >= 1e-30;
 }
 
-// What one launch reads and writes (E with its element strides); work and
-// maxD as grid_max takes them, maxD null for no max
+// What one launch reads and writes (E with its element strides, sb
+// between members); work and maxD as grid_max takes them (B values), maxD
+// null for no max
 struct Launch {
   const void *H, *s, *E, *z;
   void *qe, *qn, *De, *Dn, *work, *maxD;
-  int My, Mx, Mz;
-  long long sy, sx, sz;
+  int B, My, Mx, Mz;
+  long long sb, sy, sx, sz;
   cudaStream_t stream;
 };
 
@@ -395,29 +422,33 @@ int sm_count() {
   return sms;
 }
 
-// The kernel and block of a launch, by its cells per SM: the level kernel
+// The kernel and block of a launch, by its cells per SM (of all its
+// members): the level kernel
 // with a narrow block (8 cells x 32 level threads) while the cells are few,
 // with a wide one (32 x 8) where a block's fixed cost (the serial sum, the
 // block's max) weighs more than the parallel levels save, and a thread per
 // column where the cells alone fill the card (PERF.md has the times)
 enum class Route { kNarrow, kWide, kColumns };
 
-Route route_for(int My, int Mx) {
-  const long long cells = (long long)My * Mx, sms = sm_count();
+Route route_for(int B, int My, int Mx) {
+  const long long cells = (long long)B * My * Mx, sms = sm_count();
   if (cells < sms * kNarrowCellsPerSM) return Route::kNarrow;
   if (cells < sms * kColumnCellsPerSM) return Route::kWide;
   return Route::kColumns;
 }
 
-dim3 level_grid(int My, int Mx, int TX) { return dim3((Mx + TX - 1) / TX, My); }
+dim3 level_grid(int B, int My, int Mx, int TX) {
+  return dim3((Mx + TX - 1) / TX, My, B);
+}
 
-dim3 column_grid(int My, int Mx) {
-  return dim3((Mx + kColumnX - 1) / kColumnX, (My + kColumnY - 1) / kColumnY);
+dim3 column_grid(int B, int My, int Mx) {
+  return dim3((Mx + kColumnX - 1) / kColumnX, (My + kColumnY - 1) / kColumnY,
+              B);
 }
 
 template <typename T, int TX, int TY>
 int launch_levels(const Launch& a, const Params<T>& p, bool skip) {
-  const dim3 grid = level_grid(a.My, a.Mx, TX), block(TX, TY);
+  const dim3 grid = level_grid(a.B, a.My, a.Mx, TX), block(TX, TY);
   const T *H = (const T*)a.H, *s = (const T*)a.s, *E = (const T*)a.E;
   const T* z = (const T*)a.z;
   T *qe = (T*)a.qe, *qn = (T*)a.qn, *De = (T*)a.De, *Dn = (T*)a.Dn;
@@ -425,18 +456,18 @@ int launch_levels(const Launch& a, const Params<T>& p, bool skip) {
   unsigned long long* work = (unsigned long long*)a.work;
   if (skip)
     sia_thermo_kernel<T, TX, TY, true><<<grid, block, 0, a.stream>>>(
-        H, s, E, z, qe, qn, De, Dn, work, maxD, a.My, a.Mx, a.Mz,
-        a.sy, a.sx, a.sz, p);
+        H, s, E, z, qe, qn, De, Dn, work, maxD, a.B, a.My, a.Mx, a.Mz,
+        a.sb, a.sy, a.sx, a.sz, p);
   else
     sia_thermo_kernel<T, TX, TY, false><<<grid, block, 0, a.stream>>>(
-        H, s, E, z, qe, qn, De, Dn, work, maxD, a.My, a.Mx, a.Mz,
-        a.sy, a.sx, a.sz, p);
+        H, s, E, z, qe, qn, De, Dn, work, maxD, a.B, a.My, a.Mx, a.Mz,
+        a.sb, a.sy, a.sx, a.sz, p);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_columns(const Launch& a, const Params<T>& p, bool skip) {
-  const dim3 grid = column_grid(a.My, a.Mx), block(kColumnX, kColumnY);
+  const dim3 grid = column_grid(a.B, a.My, a.Mx), block(kColumnX, kColumnY);
   const T *H = (const T*)a.H, *s = (const T*)a.s, *E = (const T*)a.E;
   const T* z = (const T*)a.z;
   T *qe = (T*)a.qe, *qn = (T*)a.qn, *De = (T*)a.De, *Dn = (T*)a.Dn;
@@ -444,26 +475,26 @@ int launch_columns(const Launch& a, const Params<T>& p, bool skip) {
   unsigned long long* work = (unsigned long long*)a.work;
   if (skip)
     sia_thermo_column_kernel<T, true><<<grid, block, 0, a.stream>>>(
-        H, s, E, z, qe, qn, De, Dn, work, maxD, a.My, a.Mx, a.Mz,
-        a.sy, a.sx, a.sz, p);
+        H, s, E, z, qe, qn, De, Dn, work, maxD, a.B, a.My, a.Mx, a.Mz,
+        a.sb, a.sy, a.sx, a.sz, p);
   else
     sia_thermo_column_kernel<T, false><<<grid, block, 0, a.stream>>>(
-        H, s, E, z, qe, qn, De, Dn, work, maxD, a.My, a.Mx, a.Mz,
-        a.sy, a.sx, a.sz, p);
+        H, s, E, z, qe, qn, De, Dn, work, maxD, a.B, a.My, a.Mx, a.Mz,
+        a.sb, a.sy, a.sx, a.sz, p);
   return (int)cudaGetLastError();
 }
 
 bool launchable(const Launch& a) {
-  return a.My > 0 && a.Mx > 0 && a.Mz >= 1 && a.My <= 65535;
+  return a.My > 0 && a.Mx > 0 && a.Mz >= 1 && a.My <= 65535 && a.B <= 65535;
 }
 
 template <typename T>
 int launch_sia_thermo(const Launch& a, const double* c) {
-  if (a.My <= 0 || a.Mx <= 0) return 0;
+  if (a.B <= 0 || a.My <= 0 || a.Mx <= 0) return 0;
   if (!launchable(a)) return (int)cudaErrorInvalidValue;
   const Params<T> p = params_from<T>(c);
   const bool skip = skip_exact(c);
-  switch (route_for(a.My, a.Mx)) {
+  switch (route_for(a.B, a.My, a.Mx)) {
     case Route::kNarrow:
       return launch_levels<T, kNarrowX, kNarrowY>(a, p, skip);
     case Route::kWide: return launch_levels<T, kWideX, kWideY>(a, p, skip);
@@ -485,8 +516,8 @@ int pism_sia_flux_thermo_f32(const void* H, const void* s, const void* E,
                              int Mz, long long sy, long long sx, long long sz,
                              const double* params, void* stream) {
   return launch_sia_thermo<float>(
-      Launch{H, s, E, z, qe, qn, De, Dn, work, maxD, My, Mx, Mz, sy, sx, sz,
-             (cudaStream_t)stream},
+      Launch{H, s, E, z, qe, qn, De, Dn, work, maxD, 1, My, Mx, Mz, 0, sy, sx,
+             sz, (cudaStream_t)stream},
       params);
 }
 
@@ -496,8 +527,37 @@ int pism_sia_flux_thermo_f64(const void* H, const void* s, const void* E,
                              int Mz, long long sy, long long sx, long long sz,
                              const double* params, void* stream) {
   return launch_sia_thermo<double>(
-      Launch{H, s, E, z, qe, qn, De, Dn, work, maxD, My, Mx, Mz, sy, sx, sz,
-             (cudaStream_t)stream},
+      Launch{H, s, E, z, qe, qn, De, Dn, work, maxD, 1, My, Mx, Mz, 0, sy, sx,
+             sz, (cudaStream_t)stream},
+      params);
+}
+
+// B members in one launch: H, s and the outputs (B, My, Mx) contiguous, E
+// (B, My, Mx, Mz) with element strides sb, sy, sx, sz; maxD (B values) may
+// be null, and then work (a ticket and B keys) is not touched
+int pism_sia_flux_thermo_members_f32(const void* H, const void* s,
+                                     const void* E, const void* z, void* qe,
+                                     void* qn, void* De, void* Dn, void* work,
+                                     void* maxD, int B, int My, int Mx,
+                                     int Mz, long long sb, long long sy,
+                                     long long sx, long long sz,
+                                     const double* params, void* stream) {
+  return launch_sia_thermo<float>(
+      Launch{H, s, E, z, qe, qn, De, Dn, work, maxD, B, My, Mx, Mz, sb, sy,
+             sx, sz, (cudaStream_t)stream},
+      params);
+}
+
+int pism_sia_flux_thermo_members_f64(const void* H, const void* s,
+                                     const void* E, const void* z, void* qe,
+                                     void* qn, void* De, void* Dn, void* work,
+                                     void* maxD, int B, int My, int Mx,
+                                     int Mz, long long sb, long long sy,
+                                     long long sx, long long sz,
+                                     const double* params, void* stream) {
+  return launch_sia_thermo<double>(
+      Launch{H, s, E, z, qe, qn, De, Dn, work, maxD, B, My, Mx, Mz, sb, sy,
+             sx, sz, (cudaStream_t)stream},
       params);
 }
 

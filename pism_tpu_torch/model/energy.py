@@ -9,6 +9,11 @@ Horizontal advection is explicit first-order upwind; vertical advection
 and conduction are implicit. Basal boundary: cold grounded base ->
 Neumann (geothermal + friction heating); temperate or floating base ->
 Dirichlet at E_s(p_b) with the melt rate from the flux imbalance.
+
+On an ensemble's member axis (``lead = 1``: E ``(B, My, Mx, Mz)``) the time
+step is a host float or a per-member tensor of the field dtype shaped
+``(B, 1, 1)``; each column's solve is its own, so a member computes what a
+run of it alone computes.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ class EnergyModel:
     grid: object
     config: object
     EC: EnthalpyConverter
+    lead: int = 0    # leading member dims of the fields
 
     def __post_init__(self):
         cfg = self.config
@@ -55,13 +61,15 @@ class EnergyModel:
         self.bulge_max = cfg.get_number("energy.enthalpy.cold_bulge_max")
         self.drain_target = cfg.get_number("energy.drainage_target_water_fraction")
         self.basal_melt_max = cfg.get_number("energy.basal_melt.max", "m s-1")
-        self.sh = Shifter(self.grid)
+        self.sh = Shifter(self.grid, self.lead)
 
-    def step(self, state: S.ModelState, sia3: SIA3D, surface_T, dt: float,
+    def step(self, state: S.ModelState, sia3: SIA3D, surface_T, dt,
              geothermal_flux, frictional_heating=None,
              tillwat=None) -> EnergyStepResult:
-        """Advance enthalpy by dt. surface_T: ice surface temperature [K];
-        geothermal_flux [W/m^2]; frictional_heating: tau_b . u_b [W/m^2]."""
+        """Advance enthalpy by dt (a host float, or per member a tensor of
+        the field dtype shaped to the 2D fields). surface_T: ice surface
+        temperature [K]; geothermal_flux [W/m^2]; frictional_heating:
+        tau_b . u_b [W/m^2]."""
         EC, grid, sh = self.EC, self.grid, self.sh
         E = state.enthalpy
         H = state.geometry.ice_thickness
@@ -71,6 +79,7 @@ class EnergyModel:
         dz = torch.as_tensor(np.diff(z_np), dtype=E.dtype, device=E.device)
         z1 = torch.tensor(z_np[1], dtype=E.dtype).item()   # host, no sync
         Hc = H[..., None]
+        dt3 = dt[..., None] if torch.is_tensor(dt) else dt   # for 3D fields
 
         G = geothermal_flux
         if frictional_heating is not None:
@@ -120,10 +129,10 @@ class EnergyModel:
         w_pos = torch.clamp(w, min=0.0)
         w_neg = torch.clamp(w, max=0.0)
 
-        a = dt * (-kap_below / (dz_l3 * dz_c) - w_pos / dz_l3)
-        c = dt * (-kap_above / (dz_u3 * dz_c) + w_neg / dz_u3)
+        a = dt3 * (-kap_below / (dz_l3 * dz_c) - w_pos / dz_l3)
+        c = dt3 * (-kap_above / (dz_u3 * dz_c) + w_neg / dz_u3)
         b = 1.0 - a - c
-        d = E + dt * (sia3.strain_heating / self.rho + rhs_adv)
+        d = E + dt3 * (sia3.strain_heating / self.rho + rhs_adv)
 
         # -- air rows (levels above the ice surface): E = E_sfc --------------
         is_air = z > Hc
@@ -152,14 +161,14 @@ class EnergyModel:
         # -- drainage of excess liquid water --------------------------------
         omega = EC.water_fraction(E_new, p3)
         excess = torch.clamp(omega - self.drain_target, min=0.0)
-        drained = torch.clamp(excess, max=self.drain_rate * dt)
+        drained = torch.clamp(excess, max=S.dt_scale(self.drain_rate, dt3))
         E_new = E_new - drained * self.L
         mid_drain = 0.5 * (drained[..., 1:] + drained[..., :-1])
         # the reference adds two boolean arrays, which JAX evaluates as a
         # logical or: the weight is 0.5 wherever either level is in the ice
         in_ice_mid = 0.5 * ((z[:-1] < Hc) | (z[1:] < Hc)).to(E.dtype)
-        drain_flux = torch.sum(mid_drain * in_ice_mid * dz, dim=-1) \
-            / max(dt, 1e-30)
+        drain_flux = S.dt_divide(
+            torch.sum(mid_drain * in_ice_mid * dz, dim=-1), dt)
 
         # -- basal melt budget (grounded) ------------------------------------
         q_ice = -(kap_m[..., 0] * self.rho) * (E_new[..., 1] - E_new[..., 0]) \

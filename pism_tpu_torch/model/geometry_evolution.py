@@ -6,6 +6,10 @@
 
 with first-order upwind advective flux, donor-cell flux limiting that keeps
 H >= 0, optional part-grid front advance, and the source terms.
+
+On an ensemble's member axis (``(B, My, Mx)`` fields, a ``Shifter`` with
+``lead = 1``) dt is a per-member tensor shaped ``(B, 1, 1)`` (see
+``state.dt_divide``) and the volume sums are per member.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ def limit_flux(Qe, Qn, H, dt, dx: float, dy: float, sh) -> FluxLimited:
     out_n = torch.clamp(Qn, min=0.0)
     out_s = torch.clamp(-sh(Qn, -1, 0), min=0.0)
     outflow = (out_e + out_w) * dy + (out_n + out_s) * dx
-    available = H * dx * dy / max(dt, 1e-30)
+    available = S.dt_divide(H * dx * dy, dt)
     alpha = torch.where(outflow > 0.0,
                         torch.clamp(available / torch.clamp(outflow, min=1e-30),
                                     max=1.0),
@@ -63,7 +67,7 @@ def limit_flux(Qe, Qn, H, dt, dx: float, dy: float, sh) -> FluxLimited:
     return FluxLimited(Qe_lim, Qn_lim)
 
 
-def flow_step(geometry: S.Geometry, dt: float, Qe, Qn, grid, sh,
+def flow_step(geometry: S.Geometry, dt, Qe, Qn, grid, sh,
               part_grid: bool = False,
               part_grid_iterations: int = 2,
               fields: bool = False) -> MassTransportResult:
@@ -127,29 +131,29 @@ def flow_step(geometry: S.Geometry, dt: float, Qe, Qn, grid, sh,
         H_new = H + dH
 
     clipped = torch.clamp(H_new, min=0.0)
-    nonneg_field = (clipped - H_new) / max(dt, 1e-30)
-    nonneg = torch.sum(nonneg_field) * dx * dy
+    nonneg_field = S.dt_divide(clipped - H_new, dt)
+    nonneg = S.member_sum(nonneg_field, sh.lead) * dx * dy
     if not fields:
         return MassTransportResult(thickness=clipped, flux_divergence=div,
                                    nonneg_flux=nonneg, Href=Href)
     return MassTransportResult(
         thickness=clipped, flux_divergence=div, nonneg_flux=nonneg, Href=Href,
-        flow_field=(H_new - H) / max(dt, 1e-30), nonneg_field=nonneg_field)
+        flow_field=S.dt_divide(H_new - H, dt), nonneg_field=nonneg_field)
 
 
-def source_term_step(H, dt: float, smb, bmb, dx: float, dy: float,
-                     fields: bool = False):
+def source_term_step(H, dt, smb, bmb, dx: float, dy: float,
+                     fields: bool = False, lead: int = 0):
     """Apply surface mass balance then basal melt with H >= 0 clipping;
     returns (H, applied smb volume rate, applied bmb volume rate), and with
-    ``fields`` also the per-cell applied rates [m/s, dH convention]."""
-    dt_safe = max(dt, 1e-30)
+    ``fields`` also the per-cell applied rates [m/s, dH convention].
+    ``lead``: leading member dims (the sums are then per member)."""
     H1 = torch.clamp(H + dt * smb, min=0.0)
     H_new = torch.clamp(H1 - dt * bmb, min=0.0)
     area = dx * dy
-    smb_field = (H1 - H) / dt_safe
-    bmb_field = (H_new - H1) / dt_safe
-    smb_applied = torch.sum(smb_field) * area
-    bmb_applied = torch.sum(bmb_field) * area * -1.0
+    smb_field = S.dt_divide(H1 - H, dt)
+    bmb_field = S.dt_divide(H_new - H1, dt)
+    smb_applied = S.member_sum(smb_field, lead) * area
+    bmb_applied = S.member_sum(bmb_field, lead) * area * -1.0
     if fields:
         return H_new, smb_applied, bmb_applied, smb_field, bmb_field
     return H_new, smb_applied, bmb_applied

@@ -34,6 +34,16 @@ torch raises rather than the model running on the CPU. ``mesh`` (a
 its JVP (K5) and the SIA flux kernels (K3/K4) run per shard on halo-padded
 blocks, while every field stays whole on ``device``
 (``pism_tpu/model/icemodel.py:146-150``).
+
+``member_axis`` builds the model of an ensemble's members
+(``parallel/ensemble.py``): every field has a leading member axis, the
+members run in lockstep with a dt each (``_advance_members``, one host sync
+a step of a ``(B, k)`` tensor of maxima, the host math of the dt choice per
+member), and a member that reached the segment's end or its step bound is
+frozen: its new values are computed and discarded, as the JAX package's
+``vmap`` of its device loop selects. It takes the SIA chains only
+(``stress_balance.model = sia``, a stateless surface with a member form,
+no calving, ocean, sea level, bed deformation or mesh).
 """
 
 from __future__ import annotations
@@ -144,6 +154,48 @@ def _merge_stats(a: Optional[StepStats], b: StepStats) -> StepStats:
         host_syncs=a.host_syncs + b.host_syncs)
 
 
+class _Members:
+    """The host bookkeeping of an ensemble's lockstep segment: each
+    member's model time, step count, dt range, dt-limit hits, max(D) and
+    last dt on the host, and its volume sums on the device (float64,
+    ``(4, B)``: flux divergence, SMB, BMB, the H >= 0 clip)."""
+
+    def __init__(self, n: int, t0: float, device):
+        self.t = [t0] * n
+        self.nsteps = [0] * n
+        self.dt_min = [math.inf] * n
+        self.dt_max = [0.0] * n
+        self.hits = [[0] * len(DT_LIMITS) for _ in range(n)]
+        self.max_D = [0.0] * n
+        self.last_dt = [None] * n
+        self.sums = torch.zeros((4, n), dtype=torch.float64, device=device)
+
+    def add(self, sums, active):
+        """Add a step's volumes (4, B) of the members ``active`` (B,)."""
+        self.sums = self.sums + torch.where(active, sums, 0.0)
+
+    def step(self, b: int, dt: float, idx: int, max_D: float):
+        """Member ``b`` took a step of ``dt`` bound by limit ``idx``."""
+        self.nsteps[b] += 1
+        self.dt_min[b] = min(self.dt_min[b], dt)
+        self.dt_max[b] = max(self.dt_max[b], dt)
+        self.hits[b][idx] += 1
+        self.max_D[b] = max(self.max_D[b], max_D)
+        self.t[b] += dt
+        self.last_dt[b] = dt
+
+    def stats(self, host_syncs: int):
+        """A StepStats per member."""
+        return [StepStats(nsteps=self.nsteps[b], dt_min=self.dt_min[b],
+                          dt_max=self.dt_max[b],
+                          sum_div_flux=self.sums[0, b],
+                          sum_smb=self.sums[1, b], sum_bmb=self.sums[2, b],
+                          sum_nonneg=self.sums[3, b], limit_hits=self.hits[b],
+                          max_diffusivity=self.max_D[b],
+                          host_syncs=host_syncs)
+                for b in range(len(self.t))]
+
+
 def _round_to(x: float, dtype) -> float:
     """A host float rounded to a field dtype (the JAX step casts dt so)."""
     return torch.tensor(x, dtype=dtype).item()
@@ -160,10 +212,12 @@ class IceModel:
     yield_stress: object = None  # with an SSA; default from the config
     device: object = "cuda"    # torch device of every field
     mesh: object = None        # ("y", "x") Mesh of the kernel routes
+    member_axis: bool = False  # fields carry an ensemble's member axis
 
     def __post_init__(self):
         cfg = self.config
         self.device = torch.device(self.device)
+        self.lead = 1 if self.member_axis else 0
         require(cfg, "runtime.float_dtype", ("float32", "float64"))
         require(cfg, "energy.model", ("enthalpy", "none"))
         if cfg.get_string("energy.model") == "none":
@@ -185,14 +239,14 @@ class IceModel:
         if self.surface is None:
             raise NotImplementedError("pism_tpu_torch needs a surface model")
         self.stateful_surface = getattr(self.surface, "stateful", False)
-        self.sh = Shifter(self.grid)
+        self.sh = Shifter(self.grid, self.lead)
         self.EC = EnthalpyConverter.from_config(cfg)
         self.dtype = torch.float64 \
             if cfg.get_string("runtime.float_dtype") == "float64" else torch.float32
         self.energy_model = self.btu = None
         if cfg.get_string("energy.model") == "enthalpy":
             self.energy_model = EnergyModel(grid=self.grid, config=cfg,
-                                            EC=self.EC)
+                                            EC=self.EC, lead=self.lead)
             self.btu = btu_from_config(self.grid, cfg)
         # the SSA and what feeds it exist only with an SSA in the model
         # (pism_tpu/model/icemodel.py:185-206)
@@ -216,7 +270,7 @@ class IceModel:
             grid=self.grid, config=cfg,
             sia_flow_law=flow_law_from_config(cfg, "sia", self.EC),
             ssa=self.ssa, compute_3d=self.energy_model is not None,
-            mesh=self.mesh)
+            mesh=self.mesh, lead=self.lead)
 
         self.rho_i = cfg.get_number("constants.ice.density")
         self.rho_w = cfg.get_number("constants.sea_water.density")
@@ -241,25 +295,52 @@ class IceModel:
         self.refresh_diffusivity = cfg.get_flag(
             "time_stepping.skip.refresh_diffusivity")
         self.max_steps = cfg.get_int("time_stepping.max_steps_per_segment")
+        if self.member_axis:
+            # the stress balance refuses ssa+sia on the member axis
+            for what, present in (
+                    ("a mesh", self.mesh is not None),
+                    ("an ocean model", self.ocean is not None),
+                    ("a sea-level model", self.sea_level is not None),
+                    ("a stateful surface model", self.stateful_surface),
+                    ("calving", self.calving is not None),
+                    ("bed deformation", self.bed_deformation is not None)):
+                if present:
+                    raise NotImplementedError(
+                        f"{what} in an ensemble is not implemented in "
+                        "pism_tpu_torch (ROADMAP Queue 1 item 11)")
 
     # ------------------------------------------------------------------ step
-    def _compute_dt(self, sb: StressBalanceResult, t: float, t_end: float,
-                    front_retreat_rate=None):
-        """Adaptive dt and the index of its binding limit (host floats).
-        With skip, the mass-transport limits allow skip_max substeps per
-        expensive update, so the step is skip_max times the mass limit.
-        ``front_retreat_rate`` is the calving front's max retreat rate (a
-        0-dim tensor), read in the same sync."""
-        grid = self.grid
-        # the one sync of the dt choice: the maxima the limits need (the 3D
-        # CFL limit exists only with the 3D velocities)
-        maxima = [sb.max_diffusivity, torch.max(torch.abs(sb.u_face_e)),
-                  torch.max(torch.abs(sb.v_face_n))]
+    def _dt_maxima(self, sb: StressBalanceResult, front_retreat_rate=None):
+        """The maxima the dt limits need, stacked on the last axis: (k,),
+        or (B, k) on the member axis (the 3D CFL limit exists only with the
+        3D velocities)."""
+        maxima = [sb.max_diffusivity,
+                  S.member_max(torch.abs(sb.u_face_e), self.lead),
+                  S.member_max(torch.abs(sb.v_face_n), self.lead)]
         if sb.sia3 is not None:
             maxima += [sb.sia3.max_u, sb.sia3.max_v]
         if front_retreat_rate is not None:
             maxima.append(front_retreat_rate)
-        vals = hostsync.host(torch.stack(maxima).to(torch.float64))
+        return torch.stack(maxima, dim=-1).to(torch.float64)
+
+    def _compute_dt(self, sb: StressBalanceResult, t: float, t_end: float,
+                    front_retreat_rate=None):
+        """Adaptive dt, the index of its binding limit and max(D) (host
+        floats), from one sync. ``front_retreat_rate`` is the calving
+        front's max retreat rate (a 0-dim tensor), read in the same sync."""
+        vals = hostsync.host(self._dt_maxima(sb, front_retreat_rate))
+        dt, idx = self._choose_dt(
+            vals, t, t_end, None if front_retreat_rate is None
+            else front_retreat_rate.dtype)
+        return dt, idx, vals[0]
+
+    def _choose_dt(self, vals, t: float, t_end: float, front_retreat_dtype=None):
+        """The dt choice's host math from the host maxima ``vals`` (of one
+        member): the stability limits, resolution rounding, hit_multiples,
+        the min dt floor and the segment's end. With skip, the
+        mass-transport limits allow skip_max substeps per expensive update,
+        so the step is skip_max times the mass limit."""
+        grid = self.grid
         max_D, max_ue, max_vn = vals[:3]
         cand = [math.inf] * len(DT_LIMITS)
         cand[0] = self.max_dt
@@ -268,7 +349,7 @@ class IceModel:
         if self.ssa is not None:
             cand[2] = self.skip_max * (self.cfl_factor * ge.max_timestep_cfl_2d(
                 max_ue, max_vn, grid.dx, grid.dy))
-        if sb.sia3 is not None:
+        if self.stress_balance.compute_3d:
             cand[3] = self.cfl_factor * max_timestep_cfl_3d(
                 vals[3], vals[4], grid.dx, grid.dy)
         if self.hydrology is not None:
@@ -276,9 +357,9 @@ class IceModel:
             if lim is not None:
                 cand[4] = lim
         cand[5] = self.surface.max_timestep(t)
-        if front_retreat_rate is not None:
+        if front_retreat_dtype is not None:
             cand[9] = self.calving.max_timestep_from_rate(
-                vals[-1], front_retreat_rate.dtype)
+                vals[-1], front_retreat_dtype)
         idx = min(range(len(cand)), key=cand.__getitem__)
         dt = cand[idx]
         res = self.resolution
@@ -298,7 +379,7 @@ class IceModel:
         dt = max(dt, self.min_dt) if math.isfinite(dt) else self.min_dt
         if t_end - t <= dt:
             idx = 8
-        return min(dt, t_end - t), idx, max_D
+        return min(dt, t_end - t), idx
 
     def _mass_substep(self, state, sb, smb, geometry, t, dt_sub,
                       qe_d=None, qn_d=None, cells=False):
@@ -335,12 +416,13 @@ class IceModel:
                 bmb = bmb + torch.where(floating, shelf_melt, 0.0)
         smb_eff = smb if self.use_smb else torch.zeros_like(H)
         src = ge.source_term_step(H, dt_sub, smb_eff, bmb, grid.dx, grid.dy,
-                                  fields=cells)
+                                  fields=cells, lead=self.lead)
         H, smb_app, bmb_app = src[:3]
         geometry = S.ensure_consistency(geometry.replace(ice_thickness=H),
                                         self.rho_i, self.rho_w, self.Hmin,
-                                        self.subgl)
-        div_vol = torch.sum(res.flux_divergence) * grid.dx * grid.dy
+                                        self.subgl, self.lead)
+        div_vol = S.member_sum(res.flux_divergence, self.lead) \
+            * grid.dx * grid.dy
         vals = (smb_app, bmb_app, div_vol, res.nonneg_flux)
         if cells:
             vals += (res.flow_field, src[3], src[4], res.nonneg_field)
@@ -379,45 +461,12 @@ class IceModel:
         else:
             smb_in = self.surface(state.geometry, t)
 
-        # 3. energy (enthalpy) step ---------------------------------------
-        H = state.geometry.ice_thickness
-        if self.energy_model is not None:
-            G = state.geothermal_flux.to(dtype) \
-                if state.geothermal_flux is not None \
-                else torch.full_like(H, self.geothermal)
-            _, G = self.btu.step(state.bedrock_temperature, None, G, dt_f)
-            eres = self.energy_model.step(
-                state, sb.sia3, smb_in.temperature, dt_f, geothermal_flux=G,
-                frictional_heating=sb.basal_frictional_heating,
-                tillwat=state.tillwat)
-            state = state.replace(enthalpy=eres.enthalpy,
-                                  basal_melt_rate=eres.basal_melt_rate)
-
-        # 5. hydrology -----------------------------------------------------
-        if self.hydrology is not None:
-            state = self.hydrology.step(state, dt_f)
-
-        # 7. mass transport, skip_max cheap substeps per expensive update --
-        geometry = state.geometry
-        zero = torch.zeros((), dtype=dtype, device=H.device)
         cells = stats.cell is not None
-        vals = (zero,) * 4 + ((torch.zeros_like(H),) * 4 if cells else ())
-        if self.geometry_evolves:
-            if self.skip_max > 1:
-                dt_sub = _round_to(dt_f / self.skip_max, dtype)
-                qe_f = None if self.refresh_diffusivity else sb.qe
-                qn_f = None if self.refresh_diffusivity else sb.qn
-                acc = vals
-                for _ in range(self.skip_max):
-                    geometry, vals = self._mass_substep(
-                        state, sb, smb_in.smb, geometry, t, dt_sub, qe_f, qn_f,
-                        cells=cells)
-                    acc = tuple(a + v for a, v in zip(acc, vals))
-                vals = tuple(v / self.skip_max for v in acc)
-            else:
-                geometry, vals = self._mass_substep(
-                    state, sb, smb_in.smb, geometry, t, dt_f, sb.qe, sb.qn,
-                    cells=cells)
+        dt_sub = _round_to(dt_f / self.skip_max, dtype) \
+            if self.skip_max > 1 else dt_f
+        state, geometry, vals = self._energy_and_mass(state, sb, smb_in, t,
+                                                      dt_f, dt_sub, cells)
+        zero = torch.zeros((), dtype=dtype, device=geometry.ice_thickness.device)
         smb_app, bmb_app, div_vol, nonneg = vals[:4]
 
         # 8. calving, front retreat and iceberg removal ---------------------
@@ -473,6 +522,52 @@ class IceModel:
             host_syncs=stats.host_syncs)
         return state, t + dt, stats
 
+    def _energy_and_mass(self, state, sb, smb_in, t, dt_f, dt_sub, cells):
+        """The step's energy, hydrology and mass transport (skip_max cheap
+        substeps of ``dt_sub`` per expensive update): (state, geometry,
+        vals), vals the volume rates of ``_mass_substep`` (0-dim, or per
+        member). ``dt_f``, ``dt_sub``: host floats in the field dtype, or
+        per-member tensors of it shaped (B, 1, 1)."""
+        # 3. energy (enthalpy) step ---------------------------------------
+        H = state.geometry.ice_thickness
+        dtype = H.dtype
+        if self.energy_model is not None:
+            G = state.geothermal_flux.to(dtype) \
+                if state.geothermal_flux is not None \
+                else torch.full_like(H, self.geothermal)
+            _, G = self.btu.step(state.bedrock_temperature, None, G, dt_f)
+            eres = self.energy_model.step(
+                state, sb.sia3, smb_in.temperature, dt_f, geothermal_flux=G,
+                frictional_heating=sb.basal_frictional_heating,
+                tillwat=state.tillwat)
+            state = state.replace(enthalpy=eres.enthalpy,
+                                  basal_melt_rate=eres.basal_melt_rate)
+
+        # 5. hydrology -----------------------------------------------------
+        if self.hydrology is not None:
+            state = self.hydrology.step(state, dt_f)
+
+        # 7. mass transport, skip_max cheap substeps per expensive update --
+        geometry = state.geometry
+        zero = torch.zeros(H.shape[:self.lead], dtype=dtype, device=H.device)
+        vals = (zero,) * 4 + ((torch.zeros_like(H),) * 4 if cells else ())
+        if self.geometry_evolves:
+            if self.skip_max > 1:
+                qe_f = None if self.refresh_diffusivity else sb.qe
+                qn_f = None if self.refresh_diffusivity else sb.qn
+                acc = vals
+                for _ in range(self.skip_max):
+                    geometry, vals = self._mass_substep(
+                        state, sb, smb_in.smb, geometry, t, dt_sub, qe_f, qn_f,
+                        cells=cells)
+                    acc = tuple(a + v for a, v in zip(acc, vals))
+                vals = tuple(v / self.skip_max for v in acc)
+            else:
+                geometry, vals = self._mass_substep(
+                    state, sb, smb_in.smb, geometry, t, dt_f, sb.qe, sb.qn,
+                    cells=cells)
+        return state, geometry, vals
+
     def _calving_hardness(self, state):
         """The vertically averaged hardness the von Mises law needs (from
         the SSA's flow law), else None."""
@@ -515,6 +610,93 @@ class IceModel:
             state, t, stats = self._step(state, t, t_end, stats)
         stats.host_syncs = hostsync.COUNT - syncs0
         return state, t, stats
+
+    # ------------------------------------------------------- member axis
+    def _advance_members(self, state, t0: float, t_end: float):
+        """One segment of an ensemble's members in lockstep, the JAX
+        package's ``vmap`` of its device loop
+        (``pism_tpu/model/icemodel.py:776-791``): while any member is below
+        ``t_end`` and its bound of ``time_stepping.max_steps_per_segment``
+        steps, every member steps, each with its own dt, and the others are
+        frozen. Returns (state, the members' times, their StepStats; each
+        one's ``host_syncs`` counts the segment's)."""
+        syncs0 = hostsync.COUNT
+        run = _Members(state.geometry.ice_thickness.shape[0], t0, self.device)
+        while True:
+            active = [t < t_end - 1e-6 and n < self.max_steps
+                      for t, n in zip(run.t, run.nsteps)]
+            if not any(active):
+                break
+            state = self._step_members(state, t_end, active, run)
+        return state, run.t, run.stats(hostsync.COUNT - syncs0)
+
+    def _step_members(self, state, t_end: float, active, run: "_Members"):
+        """One lockstep step: the stress balance of every member, one host
+        sync of the ``(B, k)`` maxima, each member's dt chosen on the host
+        as ``_compute_dt`` chooses it (a frozen member takes its last dt, so
+        its discarded values stay finite), one copy of the members' times
+        and time steps to the device, the energy and mass steps with a dt
+        per member, and the frozen members' old values kept."""
+        dtype = state.geometry.ice_thickness.dtype
+        sb = self.stress_balance.update(state, None)
+        rows = hostsync.host(self._dt_maxima(sb))
+        dts, idxs = [], []
+        for b, row in enumerate(rows):
+            if active[b]:
+                dt, idx = self._choose_dt(row, run.t[b], t_end)
+            else:
+                dt, idx = run.last_dt[b], None
+                if dt is None:
+                    dt = self._choose_dt(row, run.t[b], math.inf)[0]
+            dts.append(dt)
+            idxs.append(idx)
+        # dt in the field dtype, and the substep's, rounded per member as
+        # _round_to rounds a host float
+        field = np.float32 if dtype == torch.float32 else np.float64
+        dt_f = np.asarray(dts).astype(field).astype(np.float64)
+        dt_sub = (dt_f / self.skip_max).astype(field).astype(np.float64) \
+            if self.skip_max > 1 else dt_f
+        host = torch.tensor(np.stack([np.asarray(run.t), dt_f, dt_sub,
+                                      np.asarray(active, np.float64)]))
+        t_d, dt_d, sub_d, act_d = host.to(self.device).unbind(0)
+        n = len(rows)
+        dt_t = dt_d.to(dtype)
+        smb_in = self.surface.members(state.geometry, t_d)
+        new, geometry, vals = self._energy_and_mass(
+            state, sb, smb_in, None, dt_t.view(n, 1, 1),
+            sub_d.to(dtype).view(n, 1, 1), False)
+        new = new.replace(geometry=geometry, u_ssa=sb.u_ssa, v_ssa=sb.v_ssa)
+        act = act_d > 0.0
+        state = new if all(active) else S.select_members(act, new, state)
+        smb_app, bmb_app, div_vol, nonneg = vals[:4]
+        run.add(torch.stack([dt_t * div_vol, dt_t * smb_app, dt_t * bmb_app,
+                             dt_t * nonneg]).to(torch.float64), act)
+        for b in range(n):
+            if active[b]:
+                run.step(b, dts[b], idxs[b], rows[b][0])
+        return state
+
+    def _check_members(self, state, ts, stats) -> None:
+        """The segment-boundary checks of ``_check_state`` and the
+        diffusivity stop for every member of an ensemble, from one host
+        read; a failing member is named."""
+        H = state.geometry.ice_thickness
+        f64 = torch.float64
+        cols = [S.member_max(H, 1).to(f64),
+                torch.isnan(H).flatten(1).any(1).to(f64)]
+        if state.u_ssa is not None:
+            cols.append(torch.isnan(state.u_ssa).flatten(1).any(1).to(f64))
+        if state.enthalpy is not None and self.energy_model is not None:
+            cols.append(self._n_low_temperature(state).to(f64))
+        rows = hostsync.host(torch.stack(cols, dim=-1))
+        for b, (row, t, st) in enumerate(zip(rows, ts, stats)):
+            try:
+                member = S.map_tensors(state, lambda x: x[b])
+                self._check_thickness(member, row[0])
+                self._check_health(member, t, row)
+                self._check_diffusivity(st)
+            except RuntimeError as err:
+                raise RuntimeError(f"ensemble member {b}: {err}") from err
 
     def prepare_state(self, state: S.ModelState) -> S.ModelState:
         """Move the state to the model's device and fill in the fields the
@@ -599,7 +781,7 @@ class IceModel:
         p = self.EC.pressure(torch.clamp(H3 - z, min=0.0))
         T = self.EC.temperature(state.enthalpy, p)
         in_ice = (z <= H3) & S.icy(state.geometry.cell_type)[..., None]
-        return torch.sum(in_ice & (T < T_min))
+        return S.member_sum(in_ice & (T < T_min), self.lead)
 
     def _check_health(self, state: S.ModelState, t: float, vals,
                       format: str = "netcdf4") -> None:

@@ -5,6 +5,11 @@ on the bed-smoothed geometry, and (for the energy model) the 3D
 velocities, strain heating and basal frictional heating. Without an
 energy model (``compute_3d = False``) the result holds the sliding
 velocities and the 2D maxima only.
+
+On an ensemble's member axis (``lead = 1``) the ``sia`` model runs on
+``(B, My, Mx[, Mz])`` fields with per-member maxima; ``ssa+sia`` there
+raises NotImplementedError (ROADMAP Queue 1 item 11: per-member Newton and
+Krylov convergence).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ class StressBalance:
     compute_3d: bool = True
     # ("y", "x") Mesh: the SIA kernel routes run per shard under it
     mesh: object = None
+    lead: int = 0    # leading member dims of the fields (an ensemble's 1)
 
     def __post_init__(self):
         cfg = self.config
@@ -58,6 +64,12 @@ class StressBalance:
         # both ported models carry the SIA (``run`` reads it for the
         # max_diffusivity stop)
         self.has_sia = "sia" in self.model.split("+")
+        if self.lead and self.model != "sia":
+            raise NotImplementedError(
+                f"stress_balance.model = {self.model!r} in an ensemble is not "
+                "implemented in pism_tpu_torch (only 'sia'; the ssa+sia "
+                "ensemble, with per-member Newton and Krylov convergence, is "
+                "ROADMAP Queue 1 item 11)")
         require(cfg, "stress_balance.vertical_velocity_approximation",
                 ("centered",))
         require(cfg, "stress_balance.sia.e_age_coupling", (False,))
@@ -65,7 +77,7 @@ class StressBalance:
         require(cfg, "stress_balance.sia.surface_gradient_method",
                 ("haseloff", "mahaffy"))
         refuse_periodic_mesh(self.grid, self.mesh)
-        self.sh = Shifter(self.grid)
+        self.sh = Shifter(self.grid, self.lead)
         self.n_sia = cfg.get_number("stress_balance.sia.Glen_exponent")
         self.e_sia = cfg.get_number("stress_balance.sia.enhancement_factor")
         self.rho = cfg.get_number("constants.ice.density")

@@ -6,6 +6,8 @@ its diffusivity is multiplied by theta = <(1 - b~/H)^(-(n+2)/n)>^(-n) in
 [0, 1], evaluated through a 4th-order Taylor expansion with the moments
 C2, C3, C4 of the residual relief b~ = b - b_s. Window sums at the domain
 edge use the shrunken window (the mean over the cells that exist).
+Fields may carry leading member dims (an ensemble's ``(B, My, Mx)``): each
+member's bed is smoothed on its own, its theta from its own thickness.
 """
 
 from __future__ import annotations
@@ -25,9 +27,15 @@ class SmoothedBed(NamedTuple):
     C4: torch.Tensor       # <b~^4> [m^4]
 
 
+def _images(a):
+    """``a`` (..., My, Mx) as a batch of one-channel images."""
+    return a.reshape(-1, 1, *a.shape[-2:])
+
+
 def _window_mean(a, ny: int, nx: int):
-    return F.avg_pool2d(a[None, None], (2 * ny + 1, 2 * nx + 1), stride=1,
-                        padding=(ny, nx), count_include_pad=False)[0, 0]
+    return F.avg_pool2d(_images(a), (2 * ny + 1, 2 * nx + 1), stride=1,
+                        padding=(ny, nx),
+                        count_include_pad=False).reshape(a.shape)
 
 
 def preprocess_bed(bed, dx: float, dy: float, smoothing_range: float
@@ -38,8 +46,8 @@ def preprocess_bed(bed, dx: float, dy: float, smoothing_range: float
     ny = max(int(math.ceil(smoothing_range / dy)), 1)
     b_s = _window_mean(bed, ny, nx)
     tl = bed - b_s   # residual ("topographic local") relief
-    maxtl = F.max_pool2d(tl[None, None], (2 * ny + 1, 2 * nx + 1), stride=1,
-                         padding=(ny, nx))[0, 0]
+    maxtl = F.max_pool2d(_images(tl), (2 * ny + 1, 2 * nx + 1), stride=1,
+                         padding=(ny, nx)).reshape(tl.shape)
     return SmoothedBed(bed=b_s, maxtl=torch.clamp(maxtl, min=0.0),
                        C2=_window_mean(tl ** 2, ny, nx),
                        C3=_window_mean(tl ** 3, ny, nx),

@@ -122,29 +122,32 @@ def check(name: str, *tensors, strided=()) -> None:
 _WORK = {}
 
 
-def workspace(name: str, device):
-    """The two int64 words of work that kernel ``name`` takes the max of a
-    grid with on ``device`` (``csrc/grid_max.cuh``): a ticket, 0, and the
-    max's key, the least int64, which every launch leaves as it found them.
-    Made once per device; launches that share them run in order on one
-    stream."""
+def workspace(name: str, device, nkeys: int = 1):
+    """The int64 words of work that kernel ``name`` takes the max of a grid
+    of ``nkeys`` members with on ``device`` (``csrc/grid_max.cuh``): a
+    ticket, 0, and a key per member, the least int64, which every launch
+    leaves as it found them. Made once per device and member count;
+    launches that share them run in order on one stream."""
     import torch
 
-    key = (name, str(device))
+    key = (name, str(device), nkeys)
     w = _WORK.get(key)
     if w is None:
-        w = _WORK[key] = torch.tensor([0, -2 ** 63], dtype=torch.int64,
-                                      device=device)
+        w = _WORK[key] = torch.tensor([0] + [-2 ** 63] * nkeys,
+                                      dtype=torch.int64, device=device)
     return w
 
 
-def max_out(name: str, like, with_max: bool):
+def max_out(name: str, like, with_max: bool, members: int = 0):
     """(max_D, (work, max_D) pointers) for a launch of kernel ``name`` that
-    takes the max of a grid into a new 0-dim tensor of ``like``'s dtype and
-    device, or (None, (None, None)) for a launch without it."""
+    takes the max of a grid into a new tensor of ``like``'s dtype and
+    device, 0-dim, or one value per member for a launch of ``members`` > 0
+    members; (None, (None, None)) for a launch without it."""
     import torch
 
     if not with_max:
         return None, (None, None)
-    max_D = torch.empty((), dtype=like.dtype, device=like.device)
-    return max_D, (workspace(name, like.device).data_ptr(), max_D.data_ptr())
+    max_D = torch.empty((members,) if members else (), dtype=like.dtype,
+                        device=like.device)
+    return max_D, (workspace(name, like.device, max(members, 1)).data_ptr(),
+                   max_D.data_ptr())

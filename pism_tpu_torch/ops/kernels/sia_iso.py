@@ -11,9 +11,15 @@ faces, in one pass, with max(D) in the same launch. The kernel,
 column for both faces of each and reads H and s unpadded with clamped
 indices; its notes say what bounds it.
 
+An ensemble's members go in with a leading member axis (H, s ``(B, My,
+Mx)``): one launch for all of them, with a ``(B,)`` max(D) from that
+launch, each member computed as a launch of it alone computes it (the JAX
+package's ``pallas_call`` under ``vmap``).
+
 Routing: a CUDA tensor launches the kernel (built by ``_build.py``); a CPU
 tensor runs the plain torch version. There is no fallback from one to the
-other. ``LAUNCHES`` counts launches of the kernel.
+other. ``LAUNCHES`` counts launches of the kernel, ``MEMBER_LAUNCHES``
+those of them with a member axis.
 """
 
 from __future__ import annotations
@@ -23,11 +29,12 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
+from .sia_thermo import _faces_max, _pad_edge2
 
 LAUNCHES = 0
+MEMBER_LAUNCHES = 0
 
 
 def gamma(A, n=3.0, enhancement=1.0, rho=910.0, g=9.81) -> float:
@@ -46,23 +53,19 @@ def _constants(gamma_, n, dx, dy, d_cap):
 # plain torch version (CPU path, tests, and the reference on the card)
 # ---------------------------------------------------------------------------
 
-def _pad_edge2(a):
-    return F.pad(a[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-
-
 def sia_flux_plain(H, s, *, gamma, n=3.0, dx, dy, d_cap=None):
     """(qe, qn, De, Dn) on (My, Mx) from H and s (My, Mx): ``_sia_kernel``
     statement for statement on edge-padded copies, in plain torch (any
-    device)."""
+    device); with a leading member axis, each member on its own."""
     Hp, sp = _pad_edge2(H), _pad_edge2(s)
-    c = (slice(1, -1), slice(1, -1))
-    e = (slice(1, -1), slice(2, None))
-    nn = (slice(2, None), slice(1, -1))
-    ne = (slice(2, None), slice(2, None))
-    s_ = (slice(0, -2), slice(1, -1))
-    se = (slice(0, -2), slice(2, None))
-    w = (slice(1, -1), slice(0, -2))
-    nw = (slice(2, None), slice(0, -2))
+    c = (..., slice(1, -1), slice(1, -1))
+    e = (..., slice(1, -1), slice(2, None))
+    nn = (..., slice(2, None), slice(1, -1))
+    ne = (..., slice(2, None), slice(2, None))
+    s_ = (..., slice(0, -2), slice(1, -1))
+    se = (..., slice(0, -2), slice(2, None))
+    w = (..., slice(1, -1), slice(0, -2))
+    nw = (..., slice(2, None), slice(0, -2))
 
     H_e = 0.5 * (Hp[c] + Hp[e])
     H_n = 0.5 * (Hp[c] + Hp[nn])
@@ -93,8 +96,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.library("sia_iso")
     p, i = ctypes.c_void_p, ctypes.c_int
     for prec in ("f32", "f64"):
-        fn = getattr(lib, f"pism_sia_flux_{prec}")
-        fn.argtypes = [p] * 8 + [i, i, ctypes.POINTER(ctypes.c_double), p]
+        fn = getattr(lib, f"pism_sia_flux_members_{prec}")
+        fn.argtypes = [p] * 8 + [i, i, i, ctypes.POINTER(ctypes.c_double), p]
         fn.restype = i
     lib.pism_sia_iso_nparams.restype = i
     return lib
@@ -102,30 +105,32 @@ def _library() -> ctypes.CDLL:
 
 def _check(H, s):
     _build.check("sia_flux", H, s)
-    if H.dim() != 2 or s.shape != H.shape:
-        raise ValueError(f"sia_flux takes H and s of one (My, Mx) shape, got "
-                         f"{tuple(H.shape)} and {tuple(s.shape)}")
+    if H.dim() not in (2, 3) or s.shape != H.shape:
+        raise ValueError(f"sia_flux takes H and s of one ([B,] My, Mx) shape, "
+                         f"got {tuple(H.shape)} and {tuple(s.shape)}")
 
 
 def _launch(H, s, with_max, *, A, n=3.0, enhancement=1.0, rho=910.0,
             g=9.81, dx, dy, d_cap=None):
-    """One launch on CUDA tensors: (qe, qn, De, Dn, max_D), max_D None
-    unless ``with_max``."""
-    global LAUNCHES
+    """One launch on CUDA tensors, for every member of a leading member
+    axis: (qe, qn, De, Dn, max_D), max_D None unless ``with_max``."""
+    global LAUNCHES, MEMBER_LAUNCHES
     lib = _library()
     consts = _constants(gamma(A, n, enhancement, rho, g), n, dx, dy, d_cap)
     if len(consts) != lib.pism_sia_iso_nparams():
         raise RuntimeError("sia_iso.cu takes another set of constants")
-    My, Mx = H.shape
+    members = H.shape[0] if H.dim() == 3 else 0
+    My, Mx = H.shape[-2:]
     qe, qn, De, Dn = (torch.empty_like(H) for _ in range(4))
-    max_D, scratch = _build.max_out("sia_flux", H, with_max)
-    fn = lib.pism_sia_flux_f32 if H.dtype == torch.float32 \
-        else lib.pism_sia_flux_f64
+    max_D, scratch = _build.max_out("sia_flux", H, with_max, members)
+    fn = lib.pism_sia_flux_members_f32 if H.dtype == torch.float32 \
+        else lib.pism_sia_flux_members_f64
     _build.launch(fn, "sia_flux", H.device, H.data_ptr(), s.data_ptr(),
                   qe.data_ptr(), qn.data_ptr(), De.data_ptr(),
-                  Dn.data_ptr(), *scratch, My, Mx,
+                  Dn.data_ptr(), *scratch, max(members, 1), My, Mx,
                   (ctypes.c_double * len(consts))(*consts))
     LAUNCHES += 1
+    MEMBER_LAUNCHES += members > 0
     return qe, qn, De, Dn, max_D
 
 
@@ -136,7 +141,8 @@ def _plain(H, s, *, A, n=3.0, enhancement=1.0, rho=910.0, g=9.81, dx, dy,
 
 
 def sia_flux_faces(H, s, **kw):
-    """(qe, qn, De, Dn) on (My, Mx) from H and s (My, Mx). Keywords: ``A``,
+    """(qe, qn, De, Dn) on ([B,] My, Mx) from H and s ([B,] My, Mx).
+    Keywords: ``A``,
     the softness as a Python float (the caller rounds it to the field dtype
     first, as the JAX package does), ``n``, ``enhancement``, ``rho``,
     ``g``, ``dx``, ``dy``, ``d_cap``. CUDA tensors launch the kernel
@@ -149,12 +155,13 @@ def sia_flux_faces(H, s, **kw):
 
 def sia_flux(H, s, **kw):
     """(De, Dn, qe, qn, max_D), the return of ``sia_flux_pallas`` (same
-    arguments as :func:`sia_flux_faces`). On CUDA tensors ``max_D`` comes
-    from the kernel's own launch; on CPU tensors it is the larger of the two
-    faces' maxima, as the JAX wrapper takes it."""
+    arguments as :func:`sia_flux_faces`; ``max_D`` 0-dim, or ``(B,)`` with
+    a member axis). On CUDA tensors ``max_D`` comes from the kernel's own
+    launch; on CPU tensors it is the larger of the two faces' maxima, as
+    the JAX wrapper takes it."""
     _check(H, s)
     if H.device.type == "cpu":
         qe, qn, De, Dn = _plain(H, s, **kw)
-        return De, Dn, qe, qn, torch.maximum(torch.max(De), torch.max(Dn))
+        return De, Dn, qe, qn, _faces_max(De, Dn)
     qe, qn, De, Dn, max_D = _launch(H, s, True, **kw)
     return De, Dn, qe, qn, max_D

@@ -22,6 +22,11 @@ package routes through ``ops.pallas_sharded`` (``:240-255``).
 The JAX package declines its isothermal kernel above 490,000 cells
 (``pism_tpu/ops/sia.py:238-239``) because the TPU kernel is one VMEM block.
 The CUDA kernel has no such limit, so the port's ``auto`` rule has none.
+
+On an ensemble's member axis (a ``Shifter`` with ``lead = 1``: H and s
+``(B, My, Mx)``, E ``(B, My, Mx, Mz)``) each member's gradients, softness integral and max(D)
+are its own; a kernel route is one launch for all members with a ``(B,)``
+max(D) from that launch.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ class SIAFlux(NamedTuple):
     Dn: torch.Tensor
     qe: torch.Tensor   # diffusive flux (vertically integrated) [m^2/s]
     qn: torch.Tensor
-    max_D: torch.Tensor  # 0-dim, for adaptive dt
+    max_D: torch.Tensor  # 0-dim (or one per member), for adaptive dt
 
 
 def surface_gradient_mahaffy(surface, grid, sh) -> StaggeredGrad:
@@ -211,8 +216,10 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
     if d_limit is not None:
         De = torch.clamp(De, max=d_limit)
         Dn = torch.clamp(Dn, max=d_limit)
+    lead = sh.lead
     return SIAFlux(De=De, Dn=Dn, qe=-De * grad.sx_e, qn=-Dn * grad.sy_n,
-                   max_D=torch.maximum(torch.max(De), torch.max(Dn)))
+                   max_D=torch.maximum(S.member_max(De, lead),
+                                       S.member_max(Dn, lead)))
 
 
 def max_timestep_diffusivity(max_D: float, dx: float, dy: float,

@@ -5,6 +5,9 @@
     I(z) = int_0^z A(E, p) (H - z')^n dz'
     w(z) = w_b - int_0^z (u_x + v_y) dz'
     Phi(z) = 2 e A(E, p) tau(z)^(n+1),  tau = rho g (H - z) |grad s|.
+
+On an ensemble's member axis (a ``Shifter`` with ``lead = 1``) the CFL
+maxima are per member.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import stencils as st
+from ..state import member_max
 
 
 class SIA3D(NamedTuple):
@@ -21,7 +25,7 @@ class SIA3D(NamedTuple):
     v: torch.Tensor
     w: torch.Tensor
     strain_heating: torch.Tensor  # (My, Mx, Mz) W/m^3
-    max_u: torch.Tensor           # 0-dim, for the 3D CFL
+    max_u: torch.Tensor           # 0-dim (or per member), for the 3D CFL
     max_v: torch.Tensor
 
 
@@ -84,9 +88,10 @@ def sia_3d(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
 
     # 3D CFL maxima over icy columns only
     icy3 = Hc > icy_threshold
+    lead = sh.lead
     return SIA3D(u=u, v=v, w=w, strain_heating=Phi,
-                 max_u=torch.max(torch.abs(torch.where(icy3, u, 0.0))),
-                 max_v=torch.max(torch.abs(torch.where(icy3, v, 0.0))))
+                 max_u=member_max(torch.abs(torch.where(icy3, u, 0.0)), lead),
+                 max_v=member_max(torch.abs(torch.where(icy3, v, 0.0)), lead))
 
 
 def max_timestep_cfl_3d(max_u: float, max_v: float, dx: float,

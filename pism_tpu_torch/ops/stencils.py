@@ -4,6 +4,11 @@
 Conventions
 -----------
 - arrays are ``(My, Mx[, ...])``; axis 0 is y ("j"), axis 1 is x ("i").
+  An ensemble's fields carry a leading member axis, ``(B, My, Mx[, ...])``
+  (the JAX package's ``stack_states`` layout): ``lead``, the number of
+  leading member dims, puts y and x at dims ``lead`` and ``lead + 1``. It
+  is given, never guessed from shapes (61x61x61 would be ambiguous); with
+  ``lead = 0`` every function is what it was.
 - staggered fields live on cell faces: ``E[j, i]`` is the face between
   ``(j, i)`` and ``(j, i+1)``; ``N[j, i]`` between ``(j, i)`` and
   ``(j+1, i)``. The last row/column of faces sits on the domain boundary.
@@ -40,9 +45,11 @@ def _shift_axis(a: torch.Tensor, s: int, dim: int,
 
 
 def shift(a: torch.Tensor, jy: int, ix: int, periodic_y: bool = False,
-          periodic_x: bool = False) -> torch.Tensor:
-    """Return b with b[j, i] = a[j + jy, i + ix] (ghosts by wrap or clamp)."""
-    return _shift_axis(_shift_axis(a, jy, 0, periodic_y), ix, 1, periodic_x)
+          periodic_x: bool = False, lead: int = 0) -> torch.Tensor:
+    """Return b with b[j, i] = a[j + jy, i + ix] (ghosts by wrap or clamp);
+    y and x are dims ``lead`` and ``lead + 1``."""
+    return _shift_axis(_shift_axis(a, jy, lead, periodic_y), ix, lead + 1,
+                       periodic_x)
 
 
 @functools.lru_cache(maxsize=64)
@@ -56,25 +63,30 @@ def _ghost_index(My: int, Mx: int, g: int, periodic_y: bool, periodic_x: bool,
 
 
 def pad_ghosts(a: torch.Tensor, g: int, periodic_y: bool = False,
-               periodic_x: bool = False) -> torch.Tensor:
-    """``a`` (2D, or (y, x, ...)) with ``g`` ghost cells on both sides of
-    its y and x axes: wrapped around a periodic axis, repeating the edge on
-    the others (the values ``shift`` reads there); one gather, contiguous."""
-    My, Mx = a.shape[0], a.shape[1]
+               periodic_x: bool = False, lead: int = 0) -> torch.Tensor:
+    """``a`` (2D, or (y, x, ...), after ``lead`` member dims) with ``g``
+    ghost cells on both sides of its y and x axes: wrapped around a
+    periodic axis, repeating the edge on the others (the values ``shift``
+    reads there); one gather, contiguous."""
+    head, (My, Mx), tail = a.shape[:lead], a.shape[lead:lead + 2], \
+        a.shape[lead + 2:]
     index = _ghost_index(My, Mx, g, periodic_y, periodic_x, a.device)
-    return a.reshape(My * Mx, *a.shape[2:]).index_select(0, index).view(
-        My + 2 * g, Mx + 2 * g, *a.shape[2:])
+    return a.reshape(*head, My * Mx, *tail).index_select(lead, index).view(
+        *head, My + 2 * g, Mx + 2 * g, *tail)
 
 
 class Shifter:
-    """Bind grid periodicity once: ``sh = Shifter(grid); sh(a, jy, ix)``."""
+    """Bind grid periodicity and the member dims once: ``sh =
+    Shifter(grid); sh(a, jy, ix)``. ``lead``: the leading member dims of
+    the fields it shifts (1 on an ensemble's member axis)."""
 
-    def __init__(self, grid):
+    def __init__(self, grid, lead: int = 0):
         self.py = grid.periodic_y
         self.px = grid.periodic_x
+        self.lead = lead
 
     def __call__(self, a, jy: int, ix: int):
-        return shift(a, jy, ix, self.py, self.px)
+        return shift(a, jy, ix, self.py, self.px, self.lead)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,15 @@ cards the mesh names distinct ones and the halo strips travel between them
 
 The model's fields stay whole on one device; only the kernel routes
 (``ops/sharded.py``) decompose them, at the points where the JAX package
-calls ``shard_map``. The ensemble axis "e" is not ported.
+calls ``shard_map``.
+
+``make_mesh(devices, ensemble=ne)`` builds the ensemble axis "e" alone, an
+``EnsembleMesh`` of ne devices (y x x = 1): ``parallel/ensemble.py`` places
+an ensemble's members on it, a group of consecutive members per device, and
+the members on one device run as one batch. A device may repeat here too,
+so ``make_mesh(["cuda:0"] * 4, ensemble=4)`` is one card. The ("e", "y",
+"x") mesh with y x x > 1 raises NotImplementedError (ROADMAP Queue 1 item
+11).
 """
 
 from __future__ import annotations
@@ -65,13 +73,40 @@ class Mesh:
         return f"Mesh(shape={self.shape}, devices={self.devices})"
 
 
+class EnsembleMesh:
+    """The ensemble axis "e" of ``ne`` devices (the JAX package's ("e",
+    "y", "x") mesh with y = x = 1): ``axis_names``, ``shape``, ``size``
+    and ``devices`` (one per member group, in member order)."""
+
+    axis_names = ("e", "y", "x")
+
+    def __init__(self, devices: Sequence):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("an ensemble mesh needs a device")
+
+    @property
+    def shape(self) -> dict:
+        return {"e": len(self.devices), "y": 1, "x": 1}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def __repr__(self):
+        return f"EnsembleMesh(shape={self.shape}, devices={self.devices})"
+
+
 def make_mesh(devices: Optional[Sequence] = None, shape: Optional[tuple] = None,
-              ensemble: int = 1) -> Mesh:
+              ensemble: int = 1):
     """Build a ("y", "x") mesh of ``devices`` (default: every CUDA device;
-    raises without one) in ``shape`` (default :func:`best_factorization`)."""
-    if ensemble != 1:
-        raise NotImplementedError(
-            "the ensemble mesh axis 'e' is not implemented in pism_tpu_torch")
+    raises without one) in ``shape`` (default :func:`best_factorization`);
+    with ``ensemble`` > 1 the ensemble axis ("e", "y", "x") of
+    ``ensemble`` x y x x devices, of which y x x = 1 is implemented."""
     if devices is None:
         n = torch.cuda.device_count()
         if n == 0:
@@ -79,6 +114,21 @@ def make_mesh(devices: Optional[Sequence] = None, shape: Optional[tuple] = None,
                                "['cpu'] * 8, for a CPU mesh)")
         devices = [f"cuda:{i}" for i in range(n)]
     devices = list(devices)
+    if ensemble > 1:
+        if len(devices) % ensemble:
+            raise ValueError(f"{len(devices)} devices not divisible by "
+                             f"ensemble={ensemble}")
+        ny, nx = shape if shape else best_factorization(
+            len(devices) // ensemble)
+        if ny * nx != 1:
+            raise NotImplementedError(
+                f"an ensemble mesh with a ({ny}, {nx}) domain decomposition "
+                "(e x (y, x)) is not implemented in pism_tpu_torch (ROADMAP "
+                "Queue 1 item 11)")
+        if ensemble != len(devices):
+            raise ValueError(f"{len(devices)} devices do not fill an "
+                             f"ensemble axis of {ensemble}")
+        return EnsembleMesh(devices)
     ny, nx = shape if shape else best_factorization(len(devices))
     if ny * nx != len(devices):
         raise ValueError(f"{len(devices)} devices do not fill a {ny}x{nx} mesh")

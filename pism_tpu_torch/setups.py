@@ -14,6 +14,10 @@ MISMIP3d's Stnd experiment of ``examples/mismip3d.py:59-146`` (BASELINE
 config 2) and ``mismip_model`` MISMIP experiment 1 of
 ``verification/mismip.py`` on its periodic grid: the isothermal SSA+SIA
 with no energy model and a given or constant yield stress.
+``paleo_ensemble_model`` is the paleo parameter ensemble of
+``examples/paleo_ensemble.py`` (BASELINE config 5): thermo-coupled SIA
+members that differ in a temperature offset, stacked on a member axis for
+``parallel.ensemble.EnsembleRunner``.
 
 Each takes ``mesh``, a ``parallel.mesh.Mesh`` (e.g.
 ``make_mesh(["cuda:0"] * 4, (2, 2))``), which decomposes the model's kernel
@@ -24,6 +28,8 @@ SIA kernels pad internally.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -175,6 +181,37 @@ def halfar_model(test: str = "B", Mx: int = 61, dtype: str = "float64",
     return model, state, grid, sol
 
 
+def halfar_ensemble_model(members: int = 8, Mx: int = 61,
+                          dtype: str = "float64", device="cuda",
+                          extra_cfg=None):
+    """An ensemble of Halfar test B domes (the JAX package's
+    ``tests/test_ensemble.py``): members with SMB scales 0, 1, 2, ... of
+    0.3 m/a, the member's scale riding in on ``ice_area_specific_volume``,
+    on ``halfar_model``'s grid and config (Mahaffy gradients, ``HALFAR_CFG``:
+    the isothermal kernel K4's route in float32). Returns (model, batched
+    state, grid, solution, scales (numpy))."""
+    from .coupler.surface import FunctionSurface
+    from .parallel.ensemble import broadcast_state
+
+    model, state, grid, sol = halfar_model("B", Mx, dtype, device=device,
+                                           extra_cfg=extra_cfg)
+
+    def smb(geometry, t):
+        scale = geometry.ice_area_specific_volume[0, 0]
+        H = geometry.ice_thickness
+        return scale * 0.3 / SPY * torch.ones_like(H), torch.full_like(H, 253.15)
+
+    model = dataclasses.replace(model, surface=FunctionSurface(smb))
+    scales = np.arange(members, dtype=np.float64)
+    batched = broadcast_state(state, members)
+    Href = torch.tensor(scales, dtype=getattr(torch, dtype),
+                        device=torch.device(device))
+    batched = batched.replace(geometry=batched.geometry.replace(
+        ice_area_specific_volume=Href[:, None, None].expand(
+            members, *grid.shape2).contiguous()))
+    return model, batched, grid, sol, scales
+
+
 def halfar_report(sol, state: ModelState, grid, t: float) -> dict:
     """The CLI's error report of a Halfar run (``pism_tpu/cli.py:973-982``):
     prints the pismv-style table at model time ``t`` and returns
@@ -322,3 +359,72 @@ def mismip_model(dtype: str, Mx: int = 151, My: int = 7, device="cuda"):
     model = IceModel(grid=ms.grid, config=ms.config, surface=ms.surface,
                      calving=ms.calving, device=device)
     return model, _prepared(model, ms.state, dtype), ms.grid
+
+
+#: The paleo ensemble's members' temperature offsets span [-8, 4] K
+#: (``examples/paleo_ensemble.py:73``)
+PALEO_DT_RANGE = (-8.0, 4.0)
+
+
+def paleo_smb(geometry, t):
+    """The paleo ensemble's climate of one member
+    (``examples/paleo_ensemble.py:75-84``): the member's offset dT rides in
+    on ``ice_area_specific_volume`` (unused by the SIA chains); a lapse-rate
+    temperature, precipitation scaled by exp(0.07 dT), and warming
+    ablation. Returns (smb [m/s], ice surface temperature [K])."""
+    dT = geometry.ice_area_specific_volume[0, 0]   # the member's parameter
+    h = geometry.ice_surface_elevation
+    T = 248.0 - 6.0e-3 * h + dT
+    precip = 0.35 / SPY * torch.exp(0.07 * dT)
+    # crude height-desert + warming ablation
+    melt = 1.0e-9 * torch.clamp(T - 263.15, min=0.0)
+    smb = precip - melt
+    return (torch.broadcast_to(smb, h.shape),
+            torch.broadcast_to(torch.clamp(T, max=273.15), h.shape))
+
+
+def paleo_ensemble_model(members: int = 16, km: float = 40.0, dtype=None,
+                         device="cuda", extra_cfg=None, Mz: int = 21):
+    """The paleo ensemble of ``examples/paleo_ensemble.py:56-105``, number
+    for number: the 1600 km square at ``km`` spacing (41 x 41 x 21 at 40
+    km, Lz 4 km), SIA with enthalpy, a parabolic dome on a bowl-shaped bed,
+    ``FunctionSurface(paleo_smb)``, and ``members`` offsets dT evenly over
+    ``PALEO_DT_RANGE``. The initial state is prepared in float64 (its
+    enthalpy from dT = 0), cast to ``dtype`` (default: float32 on the card,
+    float64 on the CPU, as the example chooses), replicated per member,
+    and each member's dT written into its ``ice_area_specific_volume``.
+    ``Mz`` cuts the column for small test grids. Returns (model, batched
+    state, grid, dT (numpy))."""
+    from .coupler.surface import FunctionSurface
+    from .parallel.ensemble import broadcast_state
+
+    device = torch.device(device)
+    if dtype is None:
+        dtype = "float64" if device.type == "cpu" else "float32"
+    dx = km * 1e3
+    L = 800e3
+    Mx = int(2 * L / dx) + 1
+    grid = Grid(Mx=Mx, My=Mx, Lx=L, Ly=L, Mz=Mz, Lz=4000.0)
+    cfg = Config({
+        "stress_balance.model": "sia",
+        "energy.model": "enthalpy",
+        "runtime.float_dtype": dtype,
+    })
+    if extra_cfg:
+        cfg.update(extra_cfg)
+    X, Y = np.meshgrid(grid.x, grid.y)
+    r = np.sqrt(X ** 2 + Y ** 2)
+    H0 = np.where(r < 500e3, 2500.0 * (1 - (r / 600e3) ** 2), 0.0).clip(0)
+    bed = 100.0 - 300.0 * (r / 800e3) ** 2
+    model = IceModel(grid=grid, config=cfg, surface=FunctionSurface(paleo_smb),
+                     device=device)
+    geom = new_geometry(torch.tensor(H0, device=device),
+                        torch.tensor(bed, device=device))
+    state = _prepared(model, ModelState(geometry=geom), dtype)
+    dT = np.linspace(*PALEO_DT_RANGE, members)
+    batched = broadcast_state(state, members)
+    Href = torch.tensor(dT, dtype=getattr(torch, dtype), device=device)
+    batched = batched.replace(geometry=batched.geometry.replace(
+        ice_area_specific_volume=Href[:, None, None].expand(
+            members, *grid.shape2).contiguous()))
+    return model, batched, grid, dT

@@ -3,6 +3,12 @@
 ``Geometry`` and ``ModelState`` are dataclasses of torch tensors on one
 device; ``replace`` returns a new object, as in the JAX package. Cell-type
 mask values match PISM's ``MASK_*`` constants.
+
+An ensemble's state has a leading member axis on every field (2D fields
+``(B, My, Mx)``, 3D ``(B, My, Mx, Mz)``), the layout of the JAX package's
+``parallel/ensemble.stack_states``; functions that shift take ``lead``, the
+number of those leading dims, and the helpers at the end reduce or scale
+per member.
 """
 
 from __future__ import annotations
@@ -61,10 +67,11 @@ def new_geometry(thickness, bed, sea_level=None, Href=None,
                               compute_grounded_fraction=subgl)
 
 
-def grounded_fraction(H, b, sl, mu):
+def grounded_fraction(H, b, sl, mu, lead: int = 0):
     """Sub-grid grounded area fraction by linear interpolation of the
     flotation excess F = mu H - (sl - b) between neighboring cell centers
-    (PISM ``grounded_cell_fraction()``). Edge-clamped ghosts."""
+    (PISM ``grounded_cell_fraction()``). Edge-clamped ghosts; ``lead``
+    leading member dims."""
     from .ops.stencils import shift
 
     F = mu * H - torch.clamp(sl - b, min=0.0)
@@ -81,16 +88,18 @@ def grounded_fraction(H, b, sl, mu):
 
     gf = 0.0
     for jy, ix in ((0, 1), (0, -1), (1, 0), (-1, 0)):
-        F_mid = 0.5 * (F + shift(F, jy, ix))   # value at the face
+        F_mid = 0.5 * (F + shift(F, jy, ix, lead=lead))   # value at the face
         gf = gf + lam(F, F_mid)
     return torch.clamp(gf / 4.0, 0.0, 1.0).to(H.dtype)
 
 
 def ensure_consistency(g: Geometry, ice_density: float, ocean_density: float,
                        ice_free_thickness: float = 0.01,
-                       compute_grounded_fraction: bool = False) -> Geometry:
+                       compute_grounded_fraction: bool = False,
+                       lead: int = 0) -> Geometry:
     """Recompute surface elevation, cell type, grounded fraction from
-    (H, bed, sea_level) via the flotation criterion."""
+    (H, bed, sea_level) via the flotation criterion; ``lead`` leading
+    member dims."""
     H, b, sl = g.ice_thickness, g.bed_elevation, g.sea_level
     mu = ice_density / ocean_density
     water_depth = torch.clamp(sl - b, min=0.0)
@@ -106,7 +115,7 @@ def ensure_consistency(g: Geometry, ice_density: float, ocean_density: float,
     ).to(torch.int32)
 
     if compute_grounded_fraction:
-        gf = grounded_fraction(H, b, sl, mu)
+        gf = grounded_fraction(H, b, sl, mu, lead)
         gf = torch.where(has_ice, gf,
                          torch.where(b < sl, 0.0, 1.0).to(H.dtype))
     else:
@@ -174,4 +183,63 @@ def map_tensors(state: ModelState, fn) -> ModelState:
                        for k in dataclasses.fields(Geometry)})
     return ModelState(geometry=geom, **{
         k.name: f(getattr(state, k.name))
+        for k in dataclasses.fields(ModelState) if k.name != "geometry"})
+
+
+# ---------------------------------------------------------------------------
+# The member axis
+# ---------------------------------------------------------------------------
+
+def member_sum(x: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """The sum over a field's grid dims: 0-dim, or one value per member
+    (shape ``x.shape[:lead]``) with ``lead`` leading member dims."""
+    if lead == 0:
+        return torch.sum(x)
+    return torch.sum(x, dim=tuple(range(lead, x.dim())))
+
+
+def member_max(x: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """The max over a field's grid dims, as :func:`member_sum` sums."""
+    if lead == 0:
+        return torch.max(x)
+    return torch.amax(x, dim=tuple(range(lead, x.dim())))
+
+
+def dt_divide(x: torch.Tensor, dt) -> torch.Tensor:
+    """``x / max(dt, 1e-30)``. ``dt``: a host float, or a per-member tensor
+    (the field dtype, shaped to broadcast) holding such floats. Torch on
+    the card divides by a host float as a product with its reciprocal, and
+    on the CPU divides; a tensor ``dt`` is taken the same way, so that a
+    member computes what a run of it alone computes."""
+    if not torch.is_tensor(dt):
+        return x / max(dt, 1e-30)
+    dt = torch.clamp(dt, min=1e-30)
+    return x * torch.reciprocal(dt) if x.device.type == "cuda" else x / dt
+
+
+def dt_scale(c: float, dt):
+    """``c * dt`` formed as a host product (float64) and then rounded to
+    the field dtype where a field takes it, for a host float or a
+    per-member tensor ``dt`` (see :func:`dt_divide`)."""
+    if not torch.is_tensor(dt):
+        return c * dt
+    return (c * dt.to(torch.float64)).to(dt.dtype)
+
+
+def select_members(active: torch.Tensor, new: ModelState,
+                   old: ModelState) -> ModelState:
+    """``new`` where the member is ``active`` (a ``(B,)`` bool tensor), else
+    ``old``: every field of an ensemble's state, the geometry's included
+    (the select of a ``vmap``-ed device loop that freezes finished
+    members)."""
+    def pick(a, b):
+        if a is None or b is None:
+            return a
+        return torch.where(active.view(-1, *(1,) * (a.dim() - 1)), a, b)
+
+    geom = Geometry(**{k.name: pick(getattr(new.geometry, k.name),
+                                    getattr(old.geometry, k.name))
+                       for k in dataclasses.fields(Geometry)})
+    return ModelState(geometry=geom, **{
+        k.name: pick(getattr(new, k.name), getattr(old, k.name))
         for k in dataclasses.fields(ModelState) if k.name != "geometry"})

@@ -911,3 +911,132 @@ def test_mismip_on_the_card_matches_cpu(cuda, which):
     assert np.all(np.isfinite(b["u_ssa"]))
     if which == "mismip1":
         assert n1[0] == n0[0] and n1[1] > n0[1] and n1[2] > n0[2]
+
+
+# -- the SIA kernels on an ensemble's member axis ---------------------------
+
+def _members(kernel, B, dtype, device, level_major=True):
+    """B members of different domes (and enthalpies): (args of the
+    wrapper, its keywords)."""
+    if kernel == "K3":
+        xs = [_sia_inputs((41, 41, 21), dtype, device, seed=20 + b)
+              for b in range(B)]
+        H = torch.stack([x[0] * (0.8 + 0.1 * b) for b, x in enumerate(xs)])
+        s = torch.stack([x[1] for x in xs]) + H - torch.stack(
+            [x[0] for x in xs])
+        E = torch.stack([x[2] for x in xs])
+        if level_major:   # per member level-major, as the energy step leaves
+            E = E.movedim(-1, 0).contiguous().movedim(0, -1)
+        kw = dict(enhancement=1.5, dx=40e3, dy=40e3, EC=EnthalpyConverter(),
+                  pb_law=GPBLD(EC=EnthalpyConverter()))
+        return (H, s, E, xs[0][3]), kw
+    xs = [_dome((61, 47), dtype, device, seed=30 + b) for b in range(B)]
+    H = torch.stack([x[0] * (0.8 + 0.1 * b) for b, x in enumerate(xs)])
+    s = torch.stack([x[1] for x in xs]) + H - torch.stack([x[0] for x in xs])
+    return (H, s), dict(A=4e-25, enhancement=1.5, dx=3e3, dy=3e3)
+
+
+def _wrapper(kernel):
+    return K3.sia_flux_thermo if kernel == "K3" else K4.sia_flux
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("B", [2, 7, 100])
+def test_member_launch_equals_single_launches(cuda, kernel, dtype, B):
+    """One launch for B members: each member's outputs equal to the bit
+    those of a launch of it alone, and the (B,) max(D) each member's faces'
+    max; the wrapper counts one launch, with a member axis."""
+    args, kw = _members(kernel, B, dtype, cuda)
+    mod = K3 if kernel == "K3" else K4
+    n0, m0 = mod.LAUNCHES, mod.MEMBER_LAUNCHES
+    got = _wrapper(kernel)(*args, **kw)
+    assert (mod.LAUNCHES - n0, mod.MEMBER_LAUNCHES - m0) == (1, 1)
+    assert got[4].shape == (B,)
+    for b in range(B):
+        one = _wrapper(kernel)(*(a[b] if a.dim() > 1 else a for a in args),
+                               **kw)
+        for g, o in zip(got, one):
+            assert _same_bits(g[b], o)
+        assert _same_bits(got[4][b], torch.maximum(torch.max(got[0][b]),
+                                                   torch.max(got[1][b])))
+    torch.cuda.synchronize()
+    from pism_tpu_torch.ops.kernels import _build
+    name = "sia_flux_thermo" if kernel == "K3" else "sia_flux"
+    assert _build.workspace(name, cuda, B).tolist() == [0] + [-2 ** 63] * B
+
+
+def _todays_launch(kernel, args, kw):
+    """The single-field C entry point (``pism_sia_flux_thermo_<prec>``,
+    ``pism_sia_flux_<prec>``), which takes no member axis: (qe, qn, De, Dn,
+    max_D)."""
+    import ctypes
+    from pism_tpu_torch.ops.kernels import _build
+    H = args[0]
+    prec = "f32" if H.dtype == torch.float32 else "f64"
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    out = [torch.empty_like(H) for _ in range(4)]
+    max_D = torch.empty((), dtype=H.dtype, device=H.device)
+    name = "sia_flux_thermo" if kernel == "K3" else "sia_flux"
+    work = _build.workspace(name, H.device).data_ptr()
+    if kernel == "K3":
+        lib = _build.library("sia_thermo")
+        fn = getattr(lib, f"pism_sia_flux_thermo_{prec}")
+        fn.argtypes = [p] * 10 + [i, i, i, ll, ll, ll,
+                                  ctypes.POINTER(ctypes.c_double), p]
+        c = K3._constants(3.0, kw["enhancement"], 910.0, 9.81, kw["dx"],
+                          kw["dy"], kw["EC"], kw["pb_law"], None)
+        H, s, E, z = args
+        _build.launch(fn, name, H.device, H.data_ptr(), s.data_ptr(),
+                      E.data_ptr(), z.data_ptr(), *(o.data_ptr() for o in out),
+                      work, max_D.data_ptr(), *H.shape, E.shape[2],
+                      *E.stride(), (ctypes.c_double * len(c))(*c))
+    else:
+        lib = _build.library("sia_iso")
+        fn = getattr(lib, f"pism_sia_flux_{prec}")
+        fn.argtypes = [p] * 8 + [i, i, ctypes.POINTER(ctypes.c_double), p]
+        c = K4._constants(K4.gamma(kw["A"], 3.0, kw["enhancement"]), 3.0,
+                          kw["dx"], kw["dy"], None)
+        H, s = args
+        _build.launch(fn, name, H.device, H.data_ptr(), s.data_ptr(),
+                      *(o.data_ptr() for o in out), work, max_D.data_ptr(),
+                      *H.shape, (ctypes.c_double * len(c))(*c))
+    return (*out, max_D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_one_member_is_todays_launch(cuda, kernel, dtype):
+    """A member axis of one member, and a field without one, give the bits
+    of the single-field entry point (the launch before the member axis)."""
+    args, kw = _members(kernel, 1, dtype, cuda)
+    qe, qn, De, Dn, max_D = _todays_launch(
+        kernel, [a[0] if a.dim() > 1 else a for a in args], kw)
+    for got in (_wrapper(kernel)(*args, **kw),
+                _wrapper(kernel)(*(a[0] if a.dim() > 1 else a for a in args),
+                                 **kw)):
+        got = [g.reshape(g.shape[-2:]) if g.dim() > 1 else g.reshape(())
+               for g in got]
+        for g, o in zip(got, (De, Dn, qe, qn, max_D)):
+            assert _same_bits(g, o)
+
+
+@pytest.mark.cuda
+def test_paleo_ensemble_on_the_card_matches_cpu(cuda):
+    """Three paleo members at 100 km in float64, 200 a: the card against
+    the CPU, equal steps and dt-limit hits per member, H within 1e-10 of
+    max H."""
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+    out = {}
+    for where in ("cpu", cuda):
+        model, batched, grid, _ = setups.paleo_ensemble_model(
+            3, 100.0, dtype="float64", device=where, Mz=11)
+        st, stats = EnsembleRunner(model).run_segment(batched, 0.0,
+                                                     200.0 * SPY)
+        out[str(where)] = (st.geometry.ice_thickness.cpu(), stats)
+    (Ha, sa), (Hb, sb) = out["cpu"], out[str(cuda)]
+    assert [s.nsteps for s in sa] == [s.nsteps for s in sb]
+    assert [s.limit_hits for s in sa] == [s.limit_hits for s in sb]
+    assert float((Hb - Ha).abs().max() / Ha.abs().max()) <= 1e-10

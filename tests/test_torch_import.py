@@ -27,6 +27,8 @@ def test_port_imports_no_jax():
         "import pism_tpu_torch.model.icemodel, pism_tpu_torch.ops.kernels.ssa_matvec\n"
         "import pism_tpu_torch.ops.kernels.pcr, pism_tpu_torch.ops.kernels.sia_thermo\n"
         "import pism_tpu_torch.verification.eismint2\n"
+        "import pism_tpu_torch.parallel.ensemble\n"
+        "import pism_tpu_torch.examples.paleo_ensemble\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pism_tpu' or m.startswith('pism_tpu.'))\n"
         "assert not bad, bad\n"
@@ -199,6 +201,7 @@ def _entry_points():
             "setups.antarctica_pik_model": setups.antarctica_pik_model,
             "setups.mismip3d_model": setups.mismip3d_model,
             "setups.mismip_model": setups.mismip_model,
+            "setups.paleo_ensemble_model": setups.paleo_ensemble_model,
             "verification.mismip.setup": mismip.setup,
             "verification.mismip.setup_3d": mismip.setup_3d,
             "verification.eismint2.setup": eismint2.setup,
