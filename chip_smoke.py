@@ -158,6 +158,25 @@ launch counters set to 0 just before it and read just after:
     Halfar B ensembles at 601x601 float32 (SMB scales 0..7, 20 a), K4 the
     same way (2e-5); (d) 4 members at 100 km float64 on the card against
     the CPU (equal steps and hits, volumes within 1e-10).
+  phase 12: the ssa+sia ensemble (``setups.hybrid_ensemble_model``, the
+    hybrid chain's members differing in their till friction angle, 15-40
+    degrees): (a) 100 members at 141x76x41 float32 on path A through
+    ``EnsembleRunner``, 2 a then a timed 3 a: lockstep steps and each
+    member's, Newton sweeps and Krylov iterations per lockstep step (the
+    lockstep's, and each member's min / median / max), host syncs and
+    kernel launches per lockstep step, ms per lockstep step, member-years
+    per wall hour, the busy share of a profiled window; every SSA kernel
+    launched on the member axis and none singly; the members' median
+    sliding speed over grounded ice against the till angle (correlation
+    below -0.9; the mean is printed too, set by a few margin cells at the
+    speed clamp); (b) members 0, 50 and 99 over the 2 a: equal to the bit to
+    their runs as 1-member ensembles (H, E, u_ssa, steps, hits, Newton and
+    Krylov counts) and within phase 2b's envelope of their solo chains
+    (equal steps and hits, volume within 2e-4); (c) on the ensemble's
+    linearization K1, the Newton matvec, K2b and K2 factor and apply and
+    the member dot against 100 single launches (to the bit) and their
+    plain versions, timed against them; (d) 4 members at 100 km float64,
+    2 a, card against CPU (equal steps and hits, volumes within 1e-7).
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -254,7 +273,8 @@ def _bound(nbytes, nops):
 
 
 def _counters():
-    from pism_tpu_torch.ops.kernels import pcr, sia_iso, sia_thermo, ssa_matvec
+    from pism_tpu_torch.ops.kernels import (member_dot, pcr, sia_iso,
+                                            sia_thermo, ssa_matvec)
     from pism_tpu_torch.util import hostsync
     return ((ssa_matvec, "LAUNCHES", "ssa_matvec"),
             (ssa_matvec, "JVP_LAUNCHES", "ssa_matvec_jvp"),
@@ -270,6 +290,15 @@ def _counters():
             (sia_iso, "LAUNCHES", "sia_flux"),
             (sia_thermo, "MEMBER_LAUNCHES", "sia_flux_thermo_members"),
             (sia_iso, "MEMBER_LAUNCHES", "sia_flux_members"),
+            (ssa_matvec, "MEMBER_LAUNCHES", "ssa_matvec_members"),
+            (ssa_matvec, "NEWTON_MEMBER_LAUNCHES",
+             "ssa_newton_matvec_members"),
+            (pcr, "MEMBER_LAUNCHES", "pcr_lines_members"),
+            (pcr, "SUB_MEMBER_LAUNCHES", "pcr_lines_sub_members"),
+            (pcr, "MEMBER_FACTOR_LAUNCHES", "pcr_factor_lines_members"),
+            (pcr, "SUB_MEMBER_FACTOR_LAUNCHES",
+             "pcr_factor_lines_sub_members"),
+            (member_dot, "LAUNCHES", "member_dot"),
             (hostsync, "COUNT", "host_syncs"))
 
 
@@ -278,7 +307,10 @@ KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_newton_matvec",
            "pcr_lines", "pcr_lines_sub",
            "pcr_factor_lines", "pcr_factor_lines_sub",
            "sia_flux_thermo", "sia_flux", "sia_flux_thermo_members",
-           "sia_flux_members")
+           "sia_flux_members", "ssa_matvec_members",
+           "ssa_newton_matvec_members", "pcr_lines_members",
+           "pcr_lines_sub_members", "pcr_factor_lines_members",
+           "pcr_factor_lines_sub_members", "member_dot")
 
 
 def reset_counts():
@@ -361,7 +393,7 @@ def _check_max(name, label, result):
                              "max")
 
 
-def _dense_solve_ms(a, c, d, sub, x, label):
+def _dense_solve_ms(a, c, d, sub, x, label, phase="phase1"):
     """ms of ``torch.linalg.solve`` on the dense batched matrices of the
     unit-diagonal line systems, the one PyTorch call that solves them (a
     yardstick: the port never calls it). ``sub``: the systems run along
@@ -377,7 +409,7 @@ def _dense_solve_ms(a, c, d, sub, x, label):
     if not err <= 1e-4:
         raise AssertionError(f"torch.linalg.solve {label}: {err:.3e} > 1e-4")
     ms = _time_ms(lambda: torch.linalg.solve(A, rhs), 5)
-    print(f"phase1: torch.linalg.solve on {tuple(A.shape)} dense matrices "
+    print(f"{phase}: torch.linalg.solve on {tuple(A.shape)} dense matrices "
           f"({'axis -2' if sub else 'last axis'} lines, {label}): events "
           f"{ms:.4f} ms, rel_err against the kernels {err:.3e}")
     return ms
@@ -474,8 +506,8 @@ def phase1_kernels(dev):
     from pism_tpu_torch.verification import halfar
 
     t0 = time.time()
-    _build.build("ssa_matvec", "pcr", "sia_thermo", "sia_iso")
-    print(f"phase1: built ssa_matvec, pcr, sia_thermo, sia_iso in "
+    _build.build("ssa_matvec", "pcr", "sia_thermo", "sia_iso", "member_dot")
+    print(f"phase1: built ssa_matvec, pcr, sia_thermo, sia_iso, member_dot in "
           f"{time.time() - t0:.1f} s")
     one = torch.zeros(1, device=dev)
     floor_us, _ = _device_profile(one.zero_, 50)
@@ -3190,6 +3222,341 @@ def phase11_ensemble(dev, smi):
     return (k3, counts_k3), (k4, counts_k4)
 
 
+# -- phase 12: the ssa+sia ensemble (the hybrid chain on a member axis) ----
+
+#: the hybrid chain's ensemble: members, km, the warm-up and the timed
+#: segment [a], the members held against their own runs
+HYB_MEMBERS, HYB_KM, HYB_FIRST, HYB_TIMED = 100, 20.0, 2.0, 3.0
+HYB_SOLO = (0, 50, 99)
+#: the member-axis kernels of the SSA solve (and their single launches,
+#: which the ensemble must not take)
+SSA_MEMBER_KERNELS = ("ssa_matvec_members", "ssa_newton_matvec_members",
+                      "pcr_lines_members", "pcr_lines_sub_members",
+                      "pcr_factor_lines_members",
+                      "pcr_factor_lines_sub_members", "member_dot")
+
+
+def _hybrid_report(label, n, stats, wall, years, counts):
+    """Prints the lockstep figures of a segment of the hybrid ensemble;
+    returns (lockstep steps, ms per lockstep step)."""
+    import numpy as np
+    lock = _lockstep(stats)
+    steps = [s.nsteps for s in stats]
+    syncs = stats[0].host_syncs
+    newton = np.array([s.ssa_newton_iters / s.nsteps for s in stats])
+    krylov = np.array([s.ssa_krylov_iters / s.nsteps for s in stats])
+    per_step = {k: round(counts[k] / lock, 2) for k in KERNELS if counts[k]}
+
+    def spread(x):
+        return f"{x.min():.2f} / {np.median(x):.2f} / {x.max():.2f}"
+
+    print(f"{label}: {n} members, {years} a: lockstep steps {lock}, member "
+          f"steps {min(steps)}-{max(steps)}; Newton sweeps per lockstep step "
+          f"{stats[0].ssa_lockstep_newton / lock:.2f} (the lockstep's), each "
+          f"member's per own step min / median / max {spread(newton)}; "
+          f"Krylov iterations per lockstep step "
+          f"{stats[0].ssa_lockstep_krylov / lock:.2f} (the lockstep's), each "
+          f"member's {spread(krylov)}; host syncs {syncs} "
+          f"({syncs / lock:.2f} per lockstep step); kernel launches per "
+          f"lockstep step {per_step}; wall {wall:.3f} s, "
+          f"{1e3 * wall / lock:.2f} ms per lockstep step, "
+          f"{n * years / wall * 3600.0:.1f} member-years per wall hour; "
+          f"dt-limit hits of member 0 {stats[0].limit_hits_dict()}")
+    return lock, 1e3 * wall / lock
+
+
+def _hybrid_run(runner, state, t0, years, label):
+    """One segment with the launch counts set to 0 before it and read after
+    it: (state, stats, wall, counts); the member-axis kernels must launch and
+    no single-member kernel."""
+    _sync()
+    reset_counts()
+    w0 = time.time()
+    out, st = runner.run_segment(state, t0 * SPY, (t0 + years) * SPY)
+    _sync()
+    wall = time.time() - w0
+    counts = read_counts()
+    _check_launches(label, counts, SSA_MEMBER_KERNELS,
+                    tuple(k for k in KERNELS if k not in SSA_MEMBER_KERNELS))
+    _ensemble_check(label, out, st, years)
+    import torch
+    if not bool(torch.isfinite(out.u_ssa).all()):
+        raise AssertionError(f"{label}: non-finite u_ssa")
+    return out, st, wall, counts
+
+
+def phase12a_hybrid(dev, smi):
+    """The hybrid chain's ensemble at its width: 100 members at 141x76x41
+    float32 on path A through EnsembleRunner, 2 a then 3 a timed; the
+    sliding speed against the till angle. Returns (model, runner, initial
+    batched state, the 2 a state and stats, the 5 a state, counts)."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    model, batched, grid, phi = setups.hybrid_ensemble_model(
+        HYB_MEMBERS, HYB_KM, device=dev, extra_cfg=PATH_A)
+    runner = EnsembleRunner(model)
+    s2, st2, wall2, counts2 = _hybrid_run(runner, batched, 0.0, HYB_FIRST,
+                                          "phase12a first")
+    out, st, wall, counts = _hybrid_run(runner, s2, HYB_FIRST, HYB_TIMED,
+                                        "phase12a")
+    print(f"phase12a: {smi}")
+    _hybrid_report(f"phase12a first {HYB_FIRST} a (untimed warm-up)",
+                   HYB_MEMBERS, st2, wall2, HYB_FIRST, counts2)
+    _hybrid_report(f"phase12a timed {grid.My}x{grid.Mx}x{grid.Mz} float32 "
+                   "path A", HYB_MEMBERS, st, wall, HYB_TIMED, counts)
+    # velbase_mag over grounded ice per member: its median, and its mean,
+    # which a few thin margin cells at the SSA's speed clamp (50 km/a a
+    # component) set, whatever the till angle
+    grounded = out.geometry.cell_type == 2
+    speed = torch.sqrt(out.u_ssa.double() ** 2
+                       + out.v_ssa.double() ** 2) * SPY
+    median = np.array([float(torch.median(speed[b][grounded[b]]))
+                       for b in range(HYB_MEMBERS)])
+    mean = ((speed * grounded).sum(dim=(1, 2))
+            / grounded.sum(dim=(1, 2))).cpu().numpy()
+    clamped = (speed >= 0.99 * model.ssa.max_speed * SPY) & grounded
+    corr = float(np.corrcoef(phi, median)[0, 1])
+    vols = out.geometry.ice_thickness.double().sum(dim=(1, 2)).cpu().numpy() \
+        * grid.dx * grid.dy / 1e15
+    print(f"phase12a: members' median sliding speed over grounded ice "
+          f"{median[0]:.4e} (phi {phi[0]:.1f}) to {median[-1]:.4e} m/a (phi "
+          f"{phi[-1]:.1f}), correlation with phi {corr:.4f} (must be below "
+          f"-0.9); the mean {mean[0]:.4g} to {mean[-1]:.4g} m/a, correlation "
+          f"{float(np.corrcoef(phi, mean)[0, 1]):.4f}, set by "
+          f"{int(clamped.sum(dim=(1, 2)).min())}-"
+          f"{int(clamped.sum(dim=(1, 2)).max())} grounded cells a member at "
+          f"the speed clamp; volumes {vols.min():.6f}-{vols.max():.6f} 1e6 "
+          "km^3")
+    if not corr < -0.9:
+        raise AssertionError(f"phase12a: sliding-phi correlation {corr:.3f}")
+    _profile_ensemble(runner, out, (HYB_FIRST + HYB_TIMED) * SPY, 0.25,
+                      "phase12a")
+    return model, runner, batched, s2, st2, counts
+
+
+def phase12b_members(model, runner, batched, s2, st2):
+    """Members 0, 50 and 99 over the 2 a warm-up: each equal to the bit to
+    its run as a 1-member ensemble (H, E, u_ssa, steps, hits, Newton and
+    Krylov counts), and within phase 2b's envelope of its solo chain
+    (equal steps and dt-limit hits, volume within 2e-4)."""
+    import torch
+    from pism_tpu_torch.parallel.ensemble import member, stack_states
+
+    for b in HYB_SOLO:
+        one, (so,) = runner.run_segment(stack_states([member(batched, b)]),
+                                        0.0, HYB_FIRST * SPY)
+        e = st2[b]
+        same = {name: torch.equal(getattr(one, name)[0],
+                                  getattr(s2, name)[b])
+                for name in ("enthalpy", "u_ssa", "v_ssa", "snow_depth")}
+        same["H"] = torch.equal(one.geometry.ice_thickness[0],
+                                s2.geometry.ice_thickness[b])
+        counts = ((so.nsteps, so.limit_hits, so.ssa_newton_iters,
+                   so.ssa_krylov_iters)
+                  == (e.nsteps, e.limit_hits, e.ssa_newton_iters,
+                      e.ssa_krylov_iters))
+        st, t, solo = model.step_once(member(batched, b), 0.0,
+                                      HYB_FIRST * SPY)
+        V = float(st.geometry.ice_thickness.double().sum())
+        Ve = float(s2.geometry.ice_thickness[b].double().sum())
+        rel = abs(Ve - V) / V
+        print(f"phase12b: member {b}: as a 1-member ensemble equal to the "
+              f"bit {same}, counts (steps, hits, Newton {e.ssa_newton_iters},"
+              f" Krylov {e.ssa_krylov_iters}) equal {counts}; solo chain: "
+              f"steps {solo.nsteps} / {e.nsteps}, hits "
+              f"{solo.limit_hits_dict()} / {e.limit_hits_dict()}, Newton "
+              f"{solo.ssa_newton_iters}, Krylov {solo.ssa_krylov_iters}, "
+              f"volume rel diff {rel:.3e} (tol 2e-4)")
+        if not (all(same.values()) and counts):
+            raise AssertionError(f"phase12b: member {b} differs from its "
+                                 "1-member ensemble")
+        if solo.nsteps != e.nsteps \
+                or solo.limit_hits_dict() != e.limit_hits_dict() \
+                or not rel <= 2e-4:
+            raise AssertionError(f"phase12b: member {b} and its solo chain "
+                                 "disagree")
+
+
+def _member_ssa_case(name, label, fn, plain, args, single, tol, nops, match,
+                     unpack=None, nbytes=None):
+    """A member-axis launch ``fn(*args)`` against its plain version
+    (``_kernel_case``: error, events, profiler, bound) and against member
+    b's single launch ``single(b)``, to the bit for every member; one launch
+    timed against the B single launches (the profiler, a CUDA-graph
+    replay). ``unpack`` turns a result into tensors with the members
+    leading. Returns the record."""
+    import torch
+    r = _kernel_case(name, fn, plain, args, tol, label, nops, reps=50,
+                     unpack=unpack, nbytes=nbytes, phase="phase12c")
+    unpack = unpack or (lambda x: x if isinstance(x, tuple) else (x,))
+    got = unpack(fn(*args))
+    B = got[0].shape[0]
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for b in range(B):
+        for k, (g, o) in enumerate(zip(got, unpack(single(b)))):
+            g = g[b].reshape(o.shape)
+            if not torch.equal(g.view(bits[g.dtype]), o.view(bits[o.dtype])):
+                raise AssertionError(f"{name} {label}: member {b} output {k} "
+                                     "differs from its single launch")
+
+    def singles():
+        for b in range(B):
+            single(b)
+
+    one_us = _kernel_us(lambda: fn(*args), match, 1)
+    many_us = _kernel_us(singles, match, B)
+    one_g, many_g = _graph_us(lambda: fn(*args)), _graph_us(singles)
+    print(f"phase12c: {name} {label}: one launch for {B} members equal to "
+          f"the bit to {B} single launches; the kernel alone {one_us} "
+          f"against {many_us} in {B} launches (profiler); from a CUDA graph "
+          f"{one_g:.2f} us against {many_g:.2f} us")
+    return r
+
+
+def phase12c_kernels(model, state):
+    """On the ensemble's linearization at its 2 a state (every member's
+    operator, drag and line systems of a Newton sweep): K1, the Newton
+    matvec, K2b and K2 factor and apply, and the member dot against B single
+    launches and their plain versions. Returns their records."""
+    import torch
+    from pism_tpu_torch.ops import ssa as ssa_ops
+    from pism_tpu_torch.ops.kernels import member_dot as KD
+    from pism_tpu_torch.ops.kernels import pcr as K2
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K1
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    ssa = EnsembleRunner(model).twin(state.u_ssa.device).ssa
+    P = ssa.build_problem(state, model.yield_stress.compute(state))
+    u, v = P["full"]((state.u_ssa, state.v_ssa))
+    nuH, (ce, cn) = P["linearize_nuH"](u, v)
+    beta, bc = P["beta_fn"](u, v), P["bc_mask"]
+    dx, dy = ssa.grid.dx, ssa.grid.dy
+    au, cu, bu, av, cv, bv = ssa_ops.line_systems(nuH, beta, bc, dx, dy,
+                                                  ssa.sh)
+    B, My, Mx = u.shape
+    g = torch.Generator(device=u.device).manual_seed(12)
+
+    def rand(s=1.0):
+        return torch.randn(u.shape, generator=g, device=u.device,
+                           dtype=u.dtype) * s
+
+    scale = float(u.abs().max())
+    du, dv, ru, rv = rand(scale), rand(scale), rand(), rand()
+    label = f"{B}x{My}x{Mx} float32 (the ensemble's linearization"
+    n = B * My * Mx
+    out = {}
+    a1 = (du, dv, nuH.e, nuH.n, beta)
+    out["ssa_matvec_members"] = _member_ssa_case(
+        "ssa_matvec_members", label + ")",
+        lambda *a: K1.ssa_matvec(*a, dx, dy),
+        lambda *a: K1.ssa_matvec_plain(*a, dx, dy), a1,
+        lambda b: K1.ssa_matvec(*(x[b] for x in a1), dx, dy), 1e-5,
+        OPS["ssa_matvec"] * n, "ssa_matvec_tile")
+    a2 = (u, v, du, dv, nuH.e, nuH.n, ce, cn, beta, bc)
+    out["ssa_newton_matvec_members"] = _member_ssa_case(
+        "ssa_newton_matvec_members", label + ")",
+        lambda *a: K1.ssa_newton_matvec(*a, dx, dy),
+        lambda *a: K1.ssa_newton_matvec_plain(*a, dx, dy), a2,
+        lambda b: K1.ssa_newton_matvec(*(x[b] for x in a2), dx, dy), 1e-5,
+        OPS["ssa_newton_matvec"] * n, "newton")
+    a3 = (u, v, du, dv)
+    out["member_dot"] = _member_ssa_case(
+        "member_dot", label + ")",
+        lambda a0, a1_, b0, b1: KD.member_dot((a0, a1_), (b0, b1)),
+        lambda a0, a1_, b0, b1: KD.member_dot_plain((a0, a1_), (b0, b1)),
+        a3, lambda b: KD.member_dot(*(tuple(x[b:b + 1] for x in p)
+                                      for p in ((u, v), (du, dv)))),
+        1e-5, 4 * n, "member_dot")
+
+    def members_first(f):
+        return tuple(x.movedim(-3, 0) if x.dim() == 4 else x
+                     for x in f.coefficients())
+
+    for sub, (a, c, r, s) in ((False, (au, cu, ru, bu)),
+                              (True, (av, cv, rv, bv))):
+        factor = K2.pcr_factor_lines_sub if sub else K2.pcr_factor_lines
+        plain = K2.pcr_factor_lines_sub_plain if sub \
+            else K2.pcr_factor_lines_plain
+        lines = "v-lines (axis -2)" if sub else "u-lines (last axis)"
+        rounds = math.ceil(math.log2(My if sub else Mx))
+        name = "pcr_lines_sub_members" if sub else "pcr_lines_members"
+        fname = name.replace("pcr_lines", "pcr_factor_lines")
+        singles = [factor(a[b], None, c[b]) for b in range(B)]
+        out[fname] = _member_ssa_case(
+            fname, f"{label}, {lines})",
+            lambda a_, c_, f=factor: f(a_, None, c_),
+            lambda a_, c_, f=plain: f(a_, None, c_), (a, c),
+            lambda b, f=factor, a=a, c=c: f(a[b], None, c[b]), 0.0,
+            OPS["pcr_factor_round"] * n * rounds, "pcr_factor",
+            unpack=members_first)
+        fac = factor(a, None, c)
+        pfac = plain(a, None, c)
+        rec = _member_ssa_case(
+            name, f"{label}, {lines})",
+            lambda r_, s_, f=fac: K2.pcr_apply(f, r_, s_),
+            lambda r_, s_, f=pfac: K2.pcr_apply_plain(f, r_, s_), (r, s),
+            lambda b, fs=singles, r=r, s=s: K2.pcr_apply(fs[b], r[b], s[b]),
+            0.0, OPS["pcr_apply_round"] * n * rounds, "pcr_apply",
+            nbytes=5 * n * r.element_size())
+        x = K2.pcr_apply(fac, r, s)
+        fold = (lambda t: t.transpose(1, 2).reshape(B * Mx, My)) if sub \
+            else (lambda t: t.reshape(B * My, Mx))
+        rec["library_ms"] = _dense_solve_ms(
+            fold(a), fold(c), fold(r / s), False, fold(x),
+            f"{B} members, {lines}", phase="phase12c")
+        out[name] = rec
+    return out
+
+
+def phase12d_card_vs_cpu(dev):
+    """A 4-member hybrid ensemble at 100 km in float64, path A, 2 a on the
+    card and on the CPU: equal steps and dt-limit hits per member, volumes
+    within 1e-7. The SSA solve amplifies the two devices' rounding (their
+    dot products sum in another order): phase 1 holds the 100 km chain's
+    default member to 1e-8 over 1 a; on an NVIDIA H100 the member with
+    till_phi 15 took 34 Newton sweeps on the card and 32 on the CPU over
+    these 2 a and ended 1.5e-8 apart in volume."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    runs = {}
+    for where in ("cpu", dev):
+        model, batched, grid, _ = setups.hybrid_ensemble_model(
+            4, 100.0, dtype="float64", device=where, extra_cfg=PATH_A)
+        out, st = EnsembleRunner(model).run_segment(batched, 0.0, 2.0 * SPY)
+        runs[str(where)] = (out.geometry.ice_thickness.sum(dim=(1, 2)).cpu(),
+                            st)
+    (va, sa), (vb, sb) = runs["cpu"], runs[str(dev)]
+    rel = float(((vb - va).abs() / va.abs()).max())
+    same = [a.nsteps == b.nsteps and a.limit_hits == b.limit_hits
+            for a, b in zip(sa, sb)]
+    print(f"phase12d: 4-member hybrid ensemble 100 km float64, 2 a, card "
+          f"against CPU: member steps {[s.nsteps for s in sb]} / "
+          f"{[s.nsteps for s in sa]}, hits equal {all(same)}, Newton sweeps "
+          f"{[s.ssa_newton_iters for s in sb]} / "
+          f"{[s.ssa_newton_iters for s in sa]}, Krylov iterations "
+          f"{[s.ssa_krylov_iters for s in sb]} / "
+          f"{[s.ssa_krylov_iters for s in sa]}, volume max rel diff "
+          f"{rel:.3e} (tol 1e-7)")
+    if not all(same) or not rel <= 1e-7:
+        raise AssertionError("phase12d: the card and the CPU disagree")
+
+
+def phase12_hybrid_ensemble(dev, smi):
+    """Phase 12; returns (the member-axis kernels' records, the timed
+    run's launch counts)."""
+    t = time.time()
+    model, runner, batched, s2, st2, counts = phase12a_hybrid(dev, smi)
+    print(f"phase12a: {time.time() - t:.1f} s")
+    phase12b_members(model, runner, batched, s2, st2)
+    records = phase12c_kernels(model, s2)
+    phase12d_card_vs_cpu(dev)
+    return records, counts
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -3270,6 +3637,11 @@ def main():
     (k3m, counts_k3m), (k4m, counts_k4m) = phase11_ensemble(dev, smi)
     timings["sia_flux_thermo_members"], timings["sia_flux_members"] = k3m, k4m
     print(f"phase11: {time.time() - t11:.1f} s")
+    t12 = time.time()
+    print(f"phase12: {smi}")
+    records12, counts12 = phase12_hybrid_ensemble(dev, smi)
+    timings.update(records12)
+    print(f"phase12: {time.time() - t12:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line
@@ -3289,7 +3661,14 @@ def main():
             ("ssa_matvec_halo_jvp", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d),
             ("ssa_newton_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d),
             ("sia_flux_thermo_members", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_k3m),
-            ("sia_flux_members", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_k4m)):
+            ("sia_flux_members", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_k4m),
+            ("ssa_matvec_members", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts12),
+            ("ssa_newton_matvec_members", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts12),
+            ("pcr_lines_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts12),
+            ("pcr_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts12),
+            ("pcr_factor_lines_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts12),
+            ("pcr_factor_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts12),
+            ("member_dot", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts12)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

@@ -4,7 +4,10 @@ Keys are the field names of the JAX package's ``Geometry`` and
 ``ModelState`` (geometry fields at the top level), so a state (the hybrid
 chain's or an EISMINT II setup's) can be carried between the two packages
 as a dict of numpy arrays; ``surface_to_numpy`` does the same for what a
-surface model returns.
+surface model returns. An ensemble's batched state, every array with a
+leading member axis (the layout ``jax.vmap`` takes and
+``parallel.ensemble.stack_states`` builds), converts the same way, member
+for member.
 """
 
 from __future__ import annotations

@@ -28,9 +28,27 @@ class AtmosphereModel:
     def __call__(self, geometry, t) -> AtmosphereInputs:
         raise NotImplementedError
 
+    def members(self, geometry, t) -> AtmosphereInputs:
+        """The air over an ensemble's members: ``geometry`` with a leading
+        member axis, ``t`` their model times (a host list). Models whose
+        fields do not change in time give their one evaluation; others
+        raise."""
+        raise NotImplementedError(
+            f"the atmosphere model {type(self).__name__} on an ensemble's "
+            "member axis is not implemented in pism_tpu_torch (supported: "
+            "Uniform, SeariseGreenland, PIK)")
+
+
+class _Steady:
+    """An atmosphere that does not change in time: its member form is one
+    evaluation on the members' geometry."""
+
+    def members(self, geometry, t) -> AtmosphereInputs:
+        return self(geometry, None)
+
 
 @dataclass
-class Uniform(AtmosphereModel):
+class Uniform(_Steady, AtmosphereModel):
     temperature: float = 263.15
     temperature_july: Optional[float] = None
     precipitation: float = 0.0  # m/s ice equivalent
@@ -69,7 +87,7 @@ class Given(AtmosphereModel, TimeStack):
 
 
 @dataclass
-class SeariseGreenland(AtmosphereModel):
+class SeariseGreenland(_Steady, AtmosphereModel):
     """Fausto et al. (2009) Greenland temperature parameterization (PISM
     ``atmosphere::SeariseGreenland``):
       T_ma  = d_ma + gamma_ma h + c_ma lat + kappa_ma lon
@@ -106,7 +124,7 @@ class SeariseGreenland(AtmosphereModel):
 
 
 @dataclass
-class PIK(AtmosphereModel):
+class PIK(_Steady, AtmosphereModel):
     """PISM ``-atmosphere pik``: Antarctic air temperature from surface
     elevation h and latitude.
 

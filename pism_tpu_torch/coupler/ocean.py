@@ -25,6 +25,14 @@ class OceanModel:
     def inputs(self, geometry, t) -> OceanInputs:
         raise NotImplementedError
 
+    def members(self, geometry, t):
+        """The melt rate under an ensemble's members: ``geometry`` with a
+        leading member axis, ``t`` their model times. Models that have no
+        member form raise."""
+        raise NotImplementedError(
+            f"the ocean model {type(self).__name__} on an ensemble's member "
+            "axis is not implemented in pism_tpu_torch (supported: Constant)")
+
     def water_column_pressure(self, geometry, t):
         """None: the hydrostatic default (the melange back-pressure
         modifiers that raise it are not ported)."""
@@ -57,6 +65,10 @@ class Constant(OceanModel):
     def _melt(self, H):
         return torch.full_like(H, self.melt_rate
                                + self.heat_flux / (self.rho_i * self.L))
+
+    def members(self, geometry, t):
+        """Constant in time: one evaluation on the members' geometry."""
+        return self(geometry, None)
 
     def inputs(self, geometry, t) -> OceanInputs:
         H = geometry.ice_thickness

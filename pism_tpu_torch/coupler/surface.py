@@ -57,6 +57,16 @@ class SurfaceModel:
             "axis is not implemented in pism_tpu_torch (supported: Uniform, "
             "FunctionSurface)")
 
+    def members_update(self, geometry, t, dt, carry: SurfaceCarry):
+        """``update`` of a stateful model for an ensemble's members:
+        ``geometry`` and ``carry`` with a leading member axis, ``t`` and
+        ``dt`` host lists of the members' times and steps. Models that have
+        no member form raise."""
+        raise NotImplementedError(
+            f"the stateful surface model {type(self).__name__} on an "
+            "ensemble's member axis is not implemented in pism_tpu_torch "
+            "(supported: the PDD, TemperatureIndex)")
+
 
 @dataclass
 class FunctionSurface(SurfaceModel):

@@ -76,6 +76,18 @@
 // carried d along stopped at 7,264 and 3,632), an apply up to 29,056 and
 // 14,528.
 //
+// The member axis of an ensemble, (B, My, Mx) arrays, in one launch:
+//   - the systems on the last axis (K2b): member b's line y is line b My + y
+//     of a (B My, Mx) array, the same address as in a (batch, n) array of
+//     B My lines, so the wrapper folds the members into the batch and the
+//     entries above take them as they are;
+//   - the systems on axis -2 (K2): (B, n, batch) is no (n, B batch) array,
+//     so the *_sub_members entries take a member stride, blockIdx.y the
+//     member and gridDim.y = B; member m's line l is table line m batch + l.
+// A member's line is then a single launch's line, the same operations in the
+// same order, so each member equals a single launch on its own systems to
+// the bit; a single launch is the case B = 1.
+//
 // C interface for ctypes: every function returns cudaGetLastError() after
 // the launch (0 = success), or cudaErrorInvalidValue when a line does not
 // fit in shared memory.
@@ -96,13 +108,20 @@ __device__ __forceinline__ double add_rn(double x, double y) { return __dadd_rn(
 __device__ __forceinline__ float div_rn(float x, float y) { return __fdiv_rn(x, y); }
 __device__ __forceinline__ double div_rn(double x, double y) { return __ddiv_rn(x, y); }
 
-// Address of element k of line `line` in the (n, batch) or (batch, n)
-// arrays. kSub: the line is a column of an (n, batch) array, else a row of
-// a (batch, n) array.
+// Address of element k of line `line` of member blockIdx.y in the (n,
+// batch) or (batch, n) arrays of each member. kSub: the line is a column of
+// an (n, batch) array, else a row of a (batch, n) array.
 template <bool kSub>
 __device__ __forceinline__ size_t element_address(int k, int n, int batch,
                                                   int line) {
-  return kSub ? (size_t)k * batch + line : (size_t)line * n + k;
+  return (size_t)blockIdx.y * n * batch +
+         (kSub ? (size_t)k * batch + line : (size_t)line * n + k);
+}
+
+// Row (member blockIdx.y, line) of the table's planes of gridDim.y batch n
+// elements: the planes hold the members' lines in turn.
+__device__ __forceinline__ size_t table_line(int n, int batch, int line) {
+  return ((size_t)blockIdx.y * batch + line) * n;
 }
 
 // The a, b, c recurrences of one line, all rounds; b == nullptr is the unit
@@ -118,8 +137,8 @@ __global__ void pcr_factor_kernel(const T* __restrict__ a,
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int slots = n;
   const int line = blockIdx.x;
-  const size_t plane = (size_t)n * batch;
-  T* tq = table + (size_t)line * n;
+  const size_t plane = (size_t)n * batch * gridDim.y;
+  T* tq = table + table_line(n, batch, line);
 
   {
     T* A = smem; T* B = A + slots; T* C = B + slots;
@@ -198,8 +217,8 @@ pcr_apply_kernel(const T* __restrict__ table, const T* __restrict__ r,
   const int slots = n;
   T* nxt = cur + slots;
   const int line = blockIdx.x;
-  const size_t plane = (size_t)n * batch;
-  const T* tq = table + (size_t)line * n;
+  const size_t plane = (size_t)n * batch * gridDim.y;
+  const T* tq = table + table_line(n, batch, line);
   constexpr int kUnroll = kItems <= 8 ? kItems : 1;
   constexpr int kAhead = RoundsAhead<T, kItems>::kValue;
   T d[kItems], b_last[kItems], alpha[kAhead][kItems], gamma[kAhead][kItems];
@@ -281,14 +300,15 @@ int prepare(Kernel kernel, size_t smem) {
 
 template <typename T, bool kSub>
 int launch_factor(const void* a, const void* b, const void* c, void* table,
-                  int n, int batch, void* stream) {
-  if (n <= 0 || batch <= 0) return 0;
+                  int n, int batch, void* stream, int members = 1) {
+  if (n <= 0 || batch <= 0 || members <= 0) return 0;
   const size_t smem = 6 * (size_t)n * sizeof(T);
   const int err = prepare(pcr_factor_kernel<T, kSub>, smem);
   if (err != 0) return err;
   int threads = (n + 31) / 32 * 32;
   if (threads > kFactorThreads) threads = kFactorThreads;
-  pcr_factor_kernel<T, kSub><<<batch, threads, smem, (cudaStream_t)stream>>>(
+  pcr_factor_kernel<T, kSub>
+      <<<dim3(batch, members), threads, smem, (cudaStream_t)stream>>>(
       (const T*)a, (const T*)b, (const T*)c, (T*)table, n, batch,
       ceil_log2(n));
   return (int)cudaGetLastError();
@@ -296,13 +316,13 @@ int launch_factor(const void* a, const void* b, const void* c, void* table,
 
 template <typename T, bool kSub, int kItems>
 int launch_apply_items(const void* table, const void* r, const void* scale,
-                       void* x, int n, int batch, void* stream) {
+                       void* x, int n, int batch, void* stream, int members) {
   const size_t smem = 2 * (size_t)n * sizeof(T);
   const int err = prepare(pcr_apply_kernel<T, kSub, kItems>, smem);
   if (err != 0) return err;
   const int threads = ((n + kItems - 1) / kItems + 31) / 32 * 32;
   pcr_apply_kernel<T, kSub, kItems>
-      <<<batch, threads, smem, (cudaStream_t)stream>>>(
+      <<<dim3(batch, members), threads, smem, (cudaStream_t)stream>>>(
           (const T*)table, (const T*)r, (const T*)scale, (T*)x, n, batch,
           ceil_log2(n));
   return (int)cudaGetLastError();
@@ -312,13 +332,16 @@ int launch_apply_items(const void* table, const void* r, const void* scale,
 // else 32 (a line that fits in shared memory has fewer than 32,768 slots).
 template <typename T, bool kSub>
 int launch_apply(const void* table, const void* r, const void* scale, void* x,
-                 int n, int batch, void* stream) {
-  if (n <= 0 || batch <= 0) return 0;
+                 int n, int batch, void* stream, int members = 1) {
+  if (n <= 0 || batch <= 0 || members <= 0) return 0;
   if (n <= kMaxThreads)
-    return launch_apply_items<T, kSub, 1>(table, r, scale, x, n, batch, stream);
+    return launch_apply_items<T, kSub, 1>(table, r, scale, x, n, batch,
+                                          stream, members);
   if (n <= 4 * kMaxThreads)
-    return launch_apply_items<T, kSub, 4>(table, r, scale, x, n, batch, stream);
-  return launch_apply_items<T, kSub, 32>(table, r, scale, x, n, batch, stream);
+    return launch_apply_items<T, kSub, 4>(table, r, scale, x, n, batch,
+                                          stream, members);
+  return launch_apply_items<T, kSub, 32>(table, r, scale, x, n, batch,
+                                         stream, members);
 }
 
 }  // namespace
@@ -372,6 +395,39 @@ int pism_pcr_apply_lines_sub_f64(const void* table, const void* r,
                                  const void* scale, void* x, int n, int batch,
                                  void* stream) {
   return launch_apply<double, true>(table, r, scale, x, n, batch, stream);
+}
+
+// (B, n, batch) arrays, the systems along axis -2 of each member: one
+// launch for the B members; the table holds B batch lines a plane.
+int pism_pcr_factor_lines_sub_members_f32(const void* a, const void* b,
+                                          const void* c, void* table, int n,
+                                          int batch, int members,
+                                          void* stream) {
+  return launch_factor<float, true>(a, b, c, table, n, batch, stream, members);
+}
+
+int pism_pcr_factor_lines_sub_members_f64(const void* a, const void* b,
+                                          const void* c, void* table, int n,
+                                          int batch, int members,
+                                          void* stream) {
+  return launch_factor<double, true>(a, b, c, table, n, batch, stream,
+                                     members);
+}
+
+int pism_pcr_apply_lines_sub_members_f32(const void* table, const void* r,
+                                         const void* scale, void* x, int n,
+                                         int batch, int members,
+                                         void* stream) {
+  return launch_apply<float, true>(table, r, scale, x, n, batch, stream,
+                                   members);
+}
+
+int pism_pcr_apply_lines_sub_members_f64(const void* table, const void* r,
+                                         const void* scale, void* x, int n,
+                                         int batch, int members,
+                                         void* stream) {
+  return launch_apply<double, true>(table, r, scale, x, n, batch, stream,
+                                    members);
 }
 
 }  // extern "C"

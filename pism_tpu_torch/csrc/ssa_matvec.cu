@@ -65,6 +65,15 @@
 // pallas_kernels.py:407 / pallas_sharded.py:225 reached through
 // jax.linearize of the residual).
 //
+// The member axis of an ensemble: K1 and the Newton matvec also take (B,
+// My, Mx) fields (coefficient planes (B, My, Mx, 4)), all members in one
+// launch (pism_ssa_matvec_members_*, pism_ssa_newton_matvec_members_*):
+// blockIdx.z is the member, whose fields start My Mx cells further on
+// (its coefficient planes 4 My Mx). The layout ClampedMembers says so; the
+// member's tile is then K1's, the same expressions on the same values, so
+// member b of the launch equals a single launch on member b to the bit.
+// The single-field layouts keep kMembers false and compile as before.
+//
 // C interface for ctypes: every function returns cudaGetLastError() after
 // the launch (0 = success). The kernels allocate nothing and launch on the
 // stream they are given.
@@ -218,6 +227,7 @@ __global__ void ssa_matvec_halo_jvp_kernel(
 // cell's velocities and its faces share one offset, and the grid's own
 // west/south edges close the divergence.
 struct Clamped {
+  static constexpr bool kMembers = false;
   int My, Mx;
   __device__ __forceinline__ size_t cell(int j, int i) const {
     return (size_t)clampi(j, My) * Mx + clampi(i, Mx);
@@ -229,11 +239,18 @@ struct Clamped {
   __device__ __forceinline__ bool south_edge(int j) const { return j == 0; }
 };
 
+// K1's layout on an ensemble's member axis: (B, My, Mx) fields, member
+// blockIdx.z at My Mx cells a member; within a member, Clamped's offsets.
+struct ClampedMembers : Clamped {
+  static constexpr bool kMembers = true;
+};
+
 // K5's layout: one shard's (my, mx) cells in blocks with two ghosts (the
 // velocities; in the Newton matvec also du, dv, bc) and one (nuH; the
 // Newton coefficients); offsets past the ghosts (cells of a ragged tile
 // that produce no output) are clamped into the block.
 struct Padded {
+  static constexpr bool kMembers = false;
   int my, mx, west, south;
   __device__ __forceinline__ static int clamp_to(int k, int lo, int hi) {
     return k < lo ? lo : (k > hi ? hi : k);
@@ -329,6 +346,10 @@ __global__ void __launch_bounds__(BX * BY) ssa_matvec_tile_kernel(
     Layout L, int ny, int nx, T dx, T dy) {
   static_assert(32 % BX == 0, "a warp holds whole rows of the tile");
   __shared__ T s_xy[BY][BX], s_yy[BY][BX];   // the tile's north faces
+  if (Layout::kMembers) {   // member blockIdx.z: its fields
+    const size_t m = (size_t)blockIdx.z * ny * nx;
+    u += m; v += m; nuHe += m; nuHn += m; beta += m; Au += m; Av += m;
+  }
   const int tc = threadIdx.x, tr = threadIdx.y;
   const int i = blockIdx.x * BX + tc, j = blockIdx.y * BY + tr;
 
@@ -387,10 +408,11 @@ template <typename T, int BX = kMatvecX, int BY = kMatvecY, typename Layout>
 int launch_matvec(const void* u, const void* v, const void* nuHe,
                   const void* nuHn, const void* beta, void* Au, void* Av,
                   Layout L, int ny, int nx, double dx, double dy,
-                  void* stream) {
+                  void* stream, int members = 1) {
+  if (members <= 0) return 0;
   ssa_matvec_tile_kernel<T, Layout, BX, BY>
-      <<<dim3((nx + BX - 1) / BX, (ny + BY - 1) / BY), dim3(BX, BY), 0,
-         (cudaStream_t)stream>>>(
+      <<<dim3((nx + BX - 1) / BX, (ny + BY - 1) / BY, members), dim3(BX, BY),
+         0, (cudaStream_t)stream>>>(
           (const T*)u, (const T*)v, (const T*)nuHe, (const T*)nuHn,
           (const T*)beta, (T*)Au, (T*)Av, L, ny, nx, (T)dx, (T)dy);
   return (int)cudaGetLastError();
@@ -544,6 +566,11 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) ssa_newton_matvec_kernel(
     Steps<T> h) {
   __shared__ Tile<T> s_fu, s_fv, s_u, s_v;
   __shared__ Faces<T> f;
+  if (Layout::kMembers) {   // member blockIdx.z: its fields and planes
+    const size_t m = (size_t)blockIdx.z * ny * nx;
+    u += m; v += m; du += m; dv += m; nuHe += m; nuHn += m; beta += m;
+    bc += m; Ju += m; Jv += m; coef_e += 4 * m; coef_n += 4 * m;
+  }
   const int tc = threadIdx.x, tr = threadIdx.y;
   const int i0 = blockIdx.x * kBlockX, j0 = blockIdx.y * kBlockY;
 
@@ -608,10 +635,13 @@ int launch_newton(const void* u, const void* v, const void* du,
                   const void* dv, const void* nuHe, const void* nuHn,
                   const void* coef_e, const void* coef_n, const void* beta,
                   const void* bc, void* Ju, void* Jv, Layout L, int ny,
-                  int nx, double dx, double dy, void* stream) {
+                  int nx, double dx, double dy, void* stream,
+                  int members = 1) {
+  if (members <= 0) return 0;
+  dim3 grid = grid_for(ny, nx);
+  grid.z = members;
   ssa_newton_matvec_kernel<T, Layout>
-      <<<grid_for(ny, nx), dim3(kBlockX, kBlockY), 0,
-         (cudaStream_t)stream>>>(
+      <<<grid, dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
           (const T*)u, (const T*)v, (const T*)du, (const T*)dv,
           (const T*)nuHe, (const T*)nuHn, (const T*)coef_e,
           (const T*)coef_n, (const T*)beta, (const unsigned char*)bc,
@@ -705,6 +735,49 @@ int pism_ssa_newton_matvec_halo_f64(const void* up, const void* vp,
                                beta, bcp, Ju, Jv,
                                Padded{my, mx, west, south}, my, mx, dx,
                                dy, stream);
+}
+
+// K1 and the Newton matvec on an ensemble's member axis: (B, My, Mx)
+// fields, coef_e, coef_n (B, My, Mx, 4), bc (B, My, Mx) bytes; one launch
+// for the B members.
+int pism_ssa_matvec_members_f32(const void* u, const void* v,
+                                const void* nuHe, const void* nuHn,
+                                const void* beta, void* Au, void* Av, int B,
+                                int My, int Mx, double dx, double dy,
+                                void* stream) {
+  return launch_matvec<float>(u, v, nuHe, nuHn, beta, Au, Av,
+                              ClampedMembers{{My, Mx}}, My, Mx, dx, dy,
+                              stream, B);
+}
+
+int pism_ssa_matvec_members_f64(const void* u, const void* v,
+                                const void* nuHe, const void* nuHn,
+                                const void* beta, void* Au, void* Av, int B,
+                                int My, int Mx, double dx, double dy,
+                                void* stream) {
+  return launch_matvec<double>(u, v, nuHe, nuHn, beta, Au, Av,
+                               ClampedMembers{{My, Mx}}, My, Mx, dx, dy,
+                               stream, B);
+}
+
+int pism_ssa_newton_matvec_members_f32(
+    const void* u, const void* v, const void* du, const void* dv,
+    const void* nuHe, const void* nuHn, const void* coef_e,
+    const void* coef_n, const void* beta, const void* bc, void* Ju, void* Jv,
+    int B, int My, int Mx, double dx, double dy, void* stream) {
+  return launch_newton<float>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n, beta,
+                              bc, Ju, Jv, ClampedMembers{{My, Mx}}, My, Mx,
+                              dx, dy, stream, B);
+}
+
+int pism_ssa_newton_matvec_members_f64(
+    const void* u, const void* v, const void* du, const void* dv,
+    const void* nuHe, const void* nuHn, const void* coef_e,
+    const void* coef_n, const void* beta, const void* bc, void* Ju, void* Jv,
+    int B, int My, int Mx, double dx, double dy, void* stream) {
+  return launch_newton<double>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n,
+                               beta, bc, Ju, Jv, ClampedMembers{{My, Mx}}, My,
+                               Mx, dx, dy, stream, B);
 }
 
 int pism_ssa_matvec_f32(const void* u, const void* v, const void* nuHe,

@@ -12,6 +12,12 @@ The JAX package runs it as a ``lax.while_loop`` until no cell changes
 (``pism_tpu/model/calving.py:60``); here it is
 ``util.hostsync.fixed_point``, which reads the change flag once per few
 sweeps.
+
+On an ensemble's member axis (``lead = 1``, ``(B, My, Mx)`` fields)
+``thickness_calving`` and iceberg removal run for all members at once; the
+flood fill sweeps until no member changes (under ``vmap`` the JAX loop runs
+until its last member is done, the others frozen at their fixed point).
+The other methods raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -39,11 +45,12 @@ def front_mask(icy, ice_free_ocean, sh):
 
 
 def remove_icebergs(geometry, sh, max_iters: Optional[int] = None):
-    """Drop floating cells not connected (4-neighborhood) to grounded ice."""
+    """Drop floating cells not connected (4-neighborhood) to grounded ice;
+    ``sh.lead`` leading member dims."""
     mask = geometry.cell_type
     icy = S.icy(mask)
     if max_iters is None:
-        max_iters = mask.shape[0] + mask.shape[1]
+        max_iters = mask.shape[-2] + mask.shape[-1]
     reached = fixed_point(
         lambda r: r | (icy & (sh(r, 0, 1) | sh(r, 0, -1) | sh(r, 1, 0)
                               | sh(r, -1, 0))),
@@ -65,12 +72,19 @@ class CalvingModel:
     # ocean_kill``); left None, ``IceModel.prepare_state`` takes it from
     # calving.ocean_kill.file or the initial state's ice-free ocean
     ocean_kill_mask: Optional[torch.Tensor] = None
+    lead: int = 0    # leading member dims of the fields (an ensemble's 1)
 
     def __post_init__(self):
         cfg = self.config
-        self.sh = Shifter(self.grid)
+        self.sh = Shifter(self.grid, self.lead)
         m = cfg.get_string("calving.methods")
         self.methods = tuple(s.strip() for s in m.split(",") if s.strip())
+        if self.lead and (set(self.methods) - {"thickness_calving"}
+                          or cfg.get_flag("calving.float_kill.enabled")):
+            raise NotImplementedError(
+                f"calving.methods = {m!r} in an ensemble is not implemented "
+                "in pism_tpu_torch (supported: thickness_calving and iceberg "
+                "removal; ROADMAP Queue 1 item 11)")
         for name in self.methods:
             if name not in ("thickness_calving", "ocean_kill",
                             "float_kill") + RATE_METHODS:
@@ -320,9 +334,9 @@ class CalvingModel:
         return geometry, parts
 
 
-def calving_from_config(grid, config):
+def calving_from_config(grid, config, lead: int = 0):
     if not config.get_string("calving.methods") \
             and not config.get_flag("calving.float_kill.enabled") \
             and not config.get_flag("geometry.remove_icebergs"):
         return None
-    return CalvingModel(grid=grid, config=config)
+    return CalvingModel(grid=grid, config=config, lead=lead)

@@ -9,7 +9,9 @@ H >= 0, optional part-grid front advance, and the source terms.
 
 On an ensemble's member axis (``(B, My, Mx)`` fields, a ``Shifter`` with
 ``lead = 1``) dt is a per-member tensor shaped ``(B, 1, 1)`` (see
-``state.dt_divide``) and the volume sums are per member.
+``state.dt_divide``), the volume sums are per member, and part-grid's
+fills, promotions and redistribution run per member (they only shift and
+select within a member's grid).
 """
 
 from __future__ import annotations

@@ -41,13 +41,18 @@ members run in lockstep with a dt each (``_advance_members``, one host sync
 a step of a ``(B, k)`` tensor of maxima, the host math of the dt choice per
 member), and a member that reached the segment's end or its step bound is
 frozen: its new values are computed and discarded, as the JAX package's
-``vmap`` of its device loop selects. It takes the SIA chains only
-(``stress_balance.model = sia``, a stateless surface with a member form,
-no calving, ocean, sea level, bed deformation or mesh).
+``vmap`` of its device loop selects (its SSA does not solve). It takes the
+SIA chains and the hybrid ``ssa+sia`` chain: the SSA with per-member Newton
+and Krylov convergence, the yield stress, null hydrology, a stateless
+surface with a member form or the PDD (its snow and firn carried per
+member), the constant ocean, ``thickness_calving`` and iceberg removal,
+part-grid. A mesh, sea level, bed deformation, another ocean model or
+calving method, or another stateful surface raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Callable, List, NamedTuple, Optional
@@ -65,6 +70,8 @@ from ..physics.basal import yield_stress_from_config
 from ..physics.enthalpy_converter import EnthalpyConverter
 from ..physics.hydrology import NullTransport
 from ..physics.rheology import flow_law_from_config
+from ..coupler.ocean import Constant as ConstantOcean
+from ..coupler.pdd import TemperatureIndex
 from ..coupler.surface import SurfaceCarry
 from ..util import hostsync
 from ..util.logger import log
@@ -124,6 +131,10 @@ class StepStats:
     max_diffusivity: float = 0.0
     ssa_newton_iters: int = 0    # Newton sweeps over all SSA solves
     ssa_krylov_iters: int = 0    # BiCGStab iterations over all SSA solves
+    # an ensemble member's: the sweeps and Newton-Krylov iterations the
+    # lockstep of its segment ran (the same for every member)
+    ssa_lockstep_newton: int = 0
+    ssa_lockstep_krylov: int = 0
     host_syncs: int = 0
 
     def limit_hits_dict(self):
@@ -156,9 +167,11 @@ def _merge_stats(a: Optional[StepStats], b: StepStats) -> StepStats:
 
 class _Members:
     """The host bookkeeping of an ensemble's lockstep segment: each
-    member's model time, step count, dt range, dt-limit hits, max(D) and
-    last dt on the host, and its volume sums on the device (float64,
-    ``(4, B)``: flux divergence, SMB, BMB, the H >= 0 clip)."""
+    member's model time, step count, dt range, dt-limit hits, max(D), last
+    dt and SSA Newton and Krylov counts on the host, and its volume sums on
+    the device (float64, ``(5, B)``: flux divergence, SMB, BMB, the H >= 0
+    clip, calving); and the SSA sweeps and Newton-Krylov iterations the
+    lockstep ran, summed over its steps."""
 
     def __init__(self, n: int, t0: float, device):
         self.t = [t0] * n
@@ -168,14 +181,19 @@ class _Members:
         self.hits = [[0] * len(DT_LIMITS) for _ in range(n)]
         self.max_D = [0.0] * n
         self.last_dt = [None] * n
-        self.sums = torch.zeros((4, n), dtype=torch.float64, device=device)
+        self.newton = [0] * n
+        self.krylov = [0] * n
+        self.lockstep_newton = self.lockstep_krylov = 0
+        self.sums = torch.zeros((5, n), dtype=torch.float64, device=device)
 
     def add(self, sums, active):
-        """Add a step's volumes (4, B) of the members ``active`` (B,)."""
+        """Add a step's volumes (5, B) of the members ``active`` (B,)."""
         self.sums = self.sums + torch.where(active, sums, 0.0)
 
-    def step(self, b: int, dt: float, idx: int, max_D: float):
-        """Member ``b`` took a step of ``dt`` bound by limit ``idx``."""
+    def step(self, b: int, dt: float, idx: int, max_D: float,
+             newton: int = 0, krylov: int = 0):
+        """Member ``b`` took a step of ``dt`` bound by limit ``idx``, its
+        SSA solve ``newton`` sweeps and ``krylov`` iterations."""
         self.nsteps[b] += 1
         self.dt_min[b] = min(self.dt_min[b], dt)
         self.dt_max[b] = max(self.dt_max[b], dt)
@@ -183,6 +201,8 @@ class _Members:
         self.max_D[b] = max(self.max_D[b], max_D)
         self.t[b] += dt
         self.last_dt[b] = dt
+        self.newton[b] += newton
+        self.krylov[b] += krylov
 
     def stats(self, host_syncs: int):
         """A StepStats per member."""
@@ -190,8 +210,15 @@ class _Members:
                           dt_max=self.dt_max[b],
                           sum_div_flux=self.sums[0, b],
                           sum_smb=self.sums[1, b], sum_bmb=self.sums[2, b],
-                          sum_nonneg=self.sums[3, b], limit_hits=self.hits[b],
+                          sum_nonneg=self.sums[3, b],
+                          sum_discharge=self.sums[4, b],
+                          sum_calving=self.sums[4, b],
+                          limit_hits=self.hits[b],
                           max_diffusivity=self.max_D[b],
+                          ssa_newton_iters=self.newton[b],
+                          ssa_krylov_iters=self.krylov[b],
+                          ssa_lockstep_newton=self.lockstep_newton,
+                          ssa_lockstep_krylov=self.lockstep_krylov,
                           host_syncs=host_syncs)
                 for b in range(len(self.t))]
 
@@ -254,12 +281,15 @@ class IceModel:
         if "ssa" in cfg.get_string("stress_balance.model"):
             self.ssa = SSAFD(grid=self.grid, config=cfg,
                              flow_law=flow_law_from_config(cfg, "ssa", self.EC),
-                             mesh=self.mesh)
+                             mesh=self.mesh, lead=self.lead)
             if self.yield_stress is None:
                 self.yield_stress = yield_stress_from_config(cfg, self.grid)
             self.hydrology = NullTransport(grid=self.grid, config=cfg)
         if self.calving is None:
-            self.calving = calving_from_config(self.grid, cfg)
+            self.calving = calving_from_config(self.grid, cfg, self.lead)
+        elif self.calving.lead != self.lead:
+            # a model's calving taken to its member-axis twin, or back
+            self.calving = dataclasses.replace(self.calving, lead=self.lead)
         # the front-retreat rate dt limit (either config name enables it)
         self.front_retreat_cfl = self.calving is not None and (
             cfg.get_flag("calving.front_retreat.use_cfl")
@@ -296,13 +326,19 @@ class IceModel:
             "time_stepping.skip.refresh_diffusivity")
         self.max_steps = cfg.get_int("time_stepping.max_steps_per_segment")
         if self.member_axis:
-            # the stress balance refuses ssa+sia on the member axis
+            # the calving model refuses its other methods on the member
+            # axis, the surfaces and the atmosphere their missing member
+            # forms when called
             for what, present in (
                     ("a mesh", self.mesh is not None),
-                    ("an ocean model", self.ocean is not None),
+                    ("an ocean model other than constant",
+                     self.ocean is not None
+                     and not isinstance(self.ocean, ConstantOcean)),
                     ("a sea-level model", self.sea_level is not None),
-                    ("a stateful surface model", self.stateful_surface),
-                    ("calving", self.calving is not None),
+                    ("a stateful surface model other than the PDD",
+                     self.stateful_surface
+                     and not isinstance(self.surface, TemperatureIndex)),
+                    ("the front-retreat dt limit", self.front_retreat_cfl),
                     ("bed deformation", self.bed_deformation is not None)):
                 if present:
                     raise NotImplementedError(
@@ -403,7 +439,8 @@ class IceModel:
         if state.basal_melt_rate is not None and self.use_bmr:
             bmb = bmb + state.basal_melt_rate
         if self.ocean is not None:
-            shelf_melt = self.ocean(geometry, t)
+            shelf_melt = self.ocean.members(geometry, t) if self.lead \
+                else self.ocean(geometry, t)
             floating = S.floating_ice(geometry.cell_type)
             if self.bmr_grounded_frac and self.subgl:
                 # sub-shelf melt acts on the floating part of partially
@@ -631,14 +668,20 @@ class IceModel:
         return state, run.t, run.stats(hostsync.COUNT - syncs0)
 
     def _step_members(self, state, t_end: float, active, run: "_Members"):
-        """One lockstep step: the stress balance of every member, one host
-        sync of the ``(B, k)`` maxima, each member's dt chosen on the host
-        as ``_compute_dt`` chooses it (a frozen member takes its last dt, so
-        its discarded values stay finite), one copy of the members' times
-        and time steps to the device, the energy and mass steps with a dt
-        per member, and the frozen members' old values kept."""
+        """One lockstep step, ``_step``'s order for every member: the yield
+        stress and the stress balance (the SSA of the active members, each
+        converging on its own), one host sync of the ``(B, k)`` maxima,
+        each member's dt chosen on the host as ``_compute_dt`` chooses it (a
+        frozen member takes its last dt, so its discarded values stay
+        finite), one copy of the members' times and time steps to the
+        device, the surface (the PDD with each member's time, dt and
+        carry), the energy and mass steps with a dt per member, calving
+        and iceberg removal, and the frozen members' old values kept."""
         dtype = state.geometry.ice_thickness.dtype
-        sb = self.stress_balance.update(state, None)
+        tau_c = None
+        if self.yield_stress is not None:
+            tau_c = self.yield_stress.compute(state)
+        sb = self.stress_balance.update(state, tau_c, active=active)
         rows = hostsync.host(self._dt_maxima(sb))
         dts, idxs = [], []
         for b, row in enumerate(rows):
@@ -661,19 +704,39 @@ class IceModel:
         t_d, dt_d, sub_d, act_d = host.to(self.device).unbind(0)
         n = len(rows)
         dt_t = dt_d.to(dtype)
-        smb_in = self.surface.members(state.geometry, t_d)
+        old = state
+        if self.stateful_surface:
+            smb_in, carry = self.surface.members_update(
+                state.geometry, run.t, dt_f.tolist(),
+                SurfaceCarry(snow=state.snow_depth, firn=state.firn_depth))
+            state = state.replace(snow_depth=carry.snow, firn_depth=carry.firn)
+        else:
+            smb_in = self.surface.members(state.geometry, t_d)
         new, geometry, vals = self._energy_and_mass(
             state, sb, smb_in, None, dt_t.view(n, 1, 1),
             sub_d.to(dtype).view(n, 1, 1), False)
+        discharge = torch.zeros_like(dt_t)
+        if self.calving is not None:
+            C_pre = geometry.ice_thickness + geometry.ice_area_specific_volume
+            geometry = S.ensure_consistency(
+                self.calving.step(geometry, sb, dt_t.view(n, 1, 1)),
+                self.rho_i, self.rho_w, self.Hmin, self.subgl, self.lead)
+            discharge = S.member_sum(
+                geometry.ice_thickness + geometry.ice_area_specific_volume
+                - C_pre, 1) * (self.grid.dx * self.grid.dy)
         new = new.replace(geometry=geometry, u_ssa=sb.u_ssa, v_ssa=sb.v_ssa)
         act = act_d > 0.0
-        state = new if all(active) else S.select_members(act, new, state)
+        state = new if all(active) else S.select_members(act, new, old)
         smb_app, bmb_app, div_vol, nonneg = vals[:4]
         run.add(torch.stack([dt_t * div_vol, dt_t * smb_app, dt_t * bmb_app,
-                             dt_t * nonneg]).to(torch.float64), act)
+                             dt_t * nonneg, discharge]).to(torch.float64), act)
         for b in range(n):
             if active[b]:
-                run.step(b, dts[b], idxs[b], rows[b][0])
+                solve = (sb.ssa_newton_iters[b], sb.ssa_krylov_iters[b]) \
+                    if self.ssa is not None else (0, 0)
+                run.step(b, dts[b], idxs[b], rows[b][0], *solve)
+        run.lockstep_newton += sb.ssa_lockstep_newton
+        run.lockstep_krylov += sb.ssa_lockstep_krylov
         return state
 
     def _check_members(self, state, ts, stats) -> None:

@@ -36,7 +36,15 @@ Decisions are evaluated on the device in the field dtype, as in JAX.
 
 Branches ported: float64 fields (float64 solve) and float32 fields with the
 velocity-change stop active (the pure-f32 production solve). The ``mixed``
-and ``float64``-island solves of float32 fields raise NotImplementedError.
+and ``float64``-island solves of float32 fields raise NotImplementedError;
+so does the float64 polish, which only the ``mixed`` solve runs.
+
+On an ensemble's member axis (``lead = 1``: fields ``(B, My, Mx)``, the
+twin of the JAX solve under ``jax.vmap``) every member takes its own
+warm-up, Newton sweeps, line search and Krylov iterations: each decision
+above becomes one host read of a ``(B,)`` mask, members whose loop ended are
+frozen by selects, and the kernels launch once for all members. A mesh or a
+periodic grid there raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ class SSAFD:
     # ("y", "x") Mesh: with more than one device the matvec and its JVP run
     # per shard through K5
     mesh: object = None
+    lead: int = 0    # leading member dims of the fields (an ensemble's 1)
 
     def __post_init__(self):
         cfg = self.config
@@ -89,7 +98,12 @@ class SSAFD:
         self.pcr_impl = cfg.get_string("stress_balance.ssa.fd.line_pcr_impl")
         refuse_periodic_mesh(self.grid, self.mesh)
         self.periodic = (self.grid.periodic_y, self.grid.periodic_x)
-        self.sh = Shifter(self.grid)
+        if self.lead and (self.mesh is not None or any(self.periodic)):
+            raise NotImplementedError(
+                "the SSA on an ensemble's member axis with a mesh or a "
+                "periodic grid is not implemented in pism_tpu_torch (ROADMAP "
+                "Queue 1 item 11)")
+        self.sh = Shifter(self.grid, self.lead)
         self.n_glen = cfg.get_number("stress_balance.ssa.Glen_exponent")
         self.e_ssa = cfg.get_number("stress_balance.ssa.enhancement_factor")
         self.rho = cfg.get_number("constants.ice.density")
@@ -310,15 +324,27 @@ class SSAFD:
                     bc_u=bc_u, bc_v=bc_v, bx=bx, by=by, icy=icy, tau_c=tau_c)
 
     def solve(self, state: S.ModelState, tau_c=None, u0=None, v0=None,
-              diagnostics: bool = False):
+              diagnostics: bool = False, active=None):
         """Solve for (u, v). With ``diagnostics=True`` also return a dict with
         the Newton sweep count, the total Krylov iterations (host ints) and
-        the residual norms, as the JAX package's ``info``."""
+        the residual norms, as the JAX package's ``info``.
+
+        On an ensemble's member axis (``lead`` = 1) every member runs its own
+        warm-up, Newton sweeps and Krylov iterations in lockstep, the
+        ``vmap`` of the JAX solve: each host decision reads one (B,) mask, a
+        member whose loop ended is frozen (a select keeps its iterate), and
+        a branch that only some members take is evaluated for all and
+        selected. ``active`` (a host list of B bools) leaves the other
+        members at their initial guess (members the ensemble's step
+        discards). The counts are then lists, one per member, and the
+        diagnostics add ``lockstep_newton`` and ``lockstep_krylov``, the
+        sweeps and Krylov iterations the lockstep ran."""
         geom = state.geometry
         H = geom.ice_thickness
         dtype = H.dtype
         dx, dy = self.grid.dx, self.grid.dy
         sh = self.sh
+        lead = self.lead
         if dtype != torch.float64 and self.solve_dtype != "float32":
             raise NotImplementedError(
                 f"the {self.solve_dtype!r} SSA solve of {dtype} fields is not "
@@ -341,7 +367,14 @@ class SSAFD:
             else None
 
         def dot(a, b_):
-            return ssa_ops._dot(a, b_, ddt)
+            return ssa_ops._dot(a, b_, ddt, lead)
+
+        def col(s):
+            return ssa_ops.member_col(s, lead)
+
+        def where2(take, a, b_):
+            return (torch.where(col(take), a[0], b_[0]),
+                    torch.where(col(take), a[1], b_[1]))
 
         def make_precond(nuH, beta):
             return ssa_ops.make_line_preconditioner(nuH, beta, bc_mask,
@@ -372,6 +405,37 @@ class SSAFD:
         # pure-f32 production path
         noisy_floor = chg_rtol_cfg > 0.0 and dtype != torch.float64
 
+        # every host decision below reads one flag per member (a list of one
+        # in a single solve); a branch that only some members take is
+        # evaluated for all of them and selected by the flags' device mask
+        if lead:
+            n = H.shape[0]
+            active = [True] * n if active is None else list(active)
+            act_d = torch.tensor(active, device=H.device)
+        else:
+            n, active, act_d = 1, [True], None
+
+        def read(cond):
+            flags = host(cond)
+            return flags if lead else [flags]
+
+        def pick(flags, mask, a, b_, members=active):
+            """``a`` for the members whose flag is set, else ``b_`` (pairs of
+            fields, per-member scalars, tuples of them): no select when the
+            flags of ``members`` agree (the others' results are discarded),
+            else by the device mask ``mask()``."""
+            relevant = [f for f, m in zip(flags, members) if m]
+            if all(relevant):
+                return a
+            if not any(relevant):
+                return b_
+            return ssa_ops.member_select(mask(), a, b_)
+
+        def caps(cap, members):
+            """The Krylov bound: per member (0 off ``members``), or a host
+            int in a single solve."""
+            return [cap if m else 0 for m in members] if lead else cap
+
         # ---- Picard warmup with drag-regularization continuation --------
         reg0 = 1000.0 / 3.15569259747e7   # m/s
         reg_final = self.sliding_law.plastic_reg
@@ -401,24 +465,30 @@ class SSAFD:
                 matvec, free(rhs), free(uv), make_precond(nuH, beta),
                 rtol=self.warmup_ksp_rtol,
                 max_iter=self.ksp_max if max_iter is None else max_iter,
-                dot_dtype=ddt)
+                dot_dtype=ddt, lead=lead)
             return free(sol)
 
         # warm-start detection: skip the continuation when the initial true
         # residual is already below warmup_skip_rtol * |b|
         F0_pre = residual(free(uv))
         F20_pre = dot(F0_pre, F0_pre)
-        skip_warmup = host(F20_pre < self.warmup_skip_rtol ** 2 * b_norm2)
-        if not skip_warmup:
-            # adaptive warmup: stop once a sweep moves the velocity < 3%
-            i, chg2 = 0, None
-            while i < self.picard_warmup and (
-                    chg2 is None or host(chg2 > 0.03 ** 2)):
-                uv_new = picard_iter(i, uv)
-                d_ = (uv_new[0] - uv[0], uv_new[1] - uv[1])
-                chg2 = dot(d_, d_) / torch.clamp(dot(uv_new, uv_new), min=1e-300)
-                uv = uv_new
-                i += 1
+        skip_d = F20_pre < self.warmup_skip_rtol ** 2 * b_norm2
+        skip_warmup = read(skip_d)
+        # adaptive warmup: a member stops once a sweep moves it < 3%; the
+        # sweeps' Krylov loops skip the members out of it
+        warm = [a and not s for a, s in zip(active, skip_warmup)]
+        warmed = any(warm)
+        warm_d = ~skip_d if act_d is None else ~skip_d & act_d
+        i = 0
+        while i < self.picard_warmup and any(warm):
+            uv_new = picard_iter(i, uv, max_iter=caps(self.ksp_max, warm))
+            d_ = (uv_new[0] - uv[0], uv_new[1] - uv[1])
+            chg2 = dot(d_, d_) / torch.clamp(dot(uv_new, uv_new), min=1e-300)
+            uv = pick(warm, lambda: warm_d, uv_new, uv)
+            i += 1
+            if i < self.picard_warmup:
+                warm_d = warm_d & (chg2 > 0.03 ** 2)
+                warm = read(warm_d)
 
         # ---- safeguarded Newton-Picard ----------------------------------
         alphas = torch.tensor([1.0, 0.5, 0.25, 0.0625, 0.01], dtype=dtype,
@@ -432,20 +502,23 @@ class SSAFD:
             chg_tol = max(chg_tol, chg_rtol_cfg)
         chg_tol2 = chg_tol ** 2
 
-        if skip_warmup:
+        if not warmed:
             F, F2 = F0_pre, F20_pre
         else:
+            # (a member that skipped the warm-up gets its F0_pre again)
             F = residual(uv)
             F2 = dot(F, F)
         F20 = F2
-        sdt = F2.dtype
-        chg2 = torch.ones((), dtype=sdt, device=H.device)
-        F2prev = torch.full((), float("inf"), dtype=sdt, device=H.device)
-        eta_c = torch.full((), self.ksp_rtol_max, dtype=sdt, device=H.device)
-        it, ktot = 0, 0
+        chg2 = torch.ones_like(F2)
+        F2prev = torch.full_like(F2, float("inf"))
+        eta_c = torch.full_like(F2, self.ksp_rtol_max)
+        it, lock_krylov = 0, 0
+        ktot, sweeps = [0] * n, [0] * n
         hist = []
+        going_d, going = act_d, active
 
         def keep_going():
+            nonlocal going_d, going
             if it >= self.newton_max:
                 return False
             improving = (F2 < stag * F2prev) & (chg2 > chg_tol2)
@@ -454,7 +527,11 @@ class SSAFD:
             retry = (eta_c > self.ksp_rtol * 1.01) & (F2 > 1e4 * newton_tol2)
             if chg_rtol_cfg > 0.0:
                 retry = retry & (chg2 > chg_tol2)   # the hard velocity stop
-            return host((F2 > newton_tol2) & (improving | retry))
+            go = (F2 > newton_tol2) & (improving | retry)
+            # a member that stopped stays stopped
+            going_d = go if going_d is None else going_d & go
+            going = read(going_d)
+            return any(going)
 
         while keep_going():
             u, v = full(uv)
@@ -488,12 +565,17 @@ class SSAFD:
             negF = (-F[0], -F[1])
             zero = (torch.zeros_like(negF[0]), torch.zeros_like(negF[1]))
             # near-tolerance Krylov cap: |F| within 32x of target
-            kmax = self.ksp_max
-            if noisy_floor and host(F2 < 1024.0 * newton_tol2):
-                kmax = min(self.near_ksp_cap, self.ksp_max)
+            cap = [self.ksp_max] * n
+            if noisy_floor:
+                near_cap = min(self.near_ksp_cap, self.ksp_max)
+                cap = [near_cap if c else self.ksp_max
+                       for c in read(F2 < 1024.0 * newton_tol2)]
+            kmax = [c if g else 0 for c, g in zip(cap, going)] if lead \
+                else cap[0]
             d, kit, _ = ssa_ops.bicgstab_solve(
                 jmv, negF, zero, precond, rtol=eta, max_iter=kmax,
-                dot_dtype=ddt)
+                dot_dtype=ddt, lead=lead)
+            kit = kit if lead else [kit]
             d = free(d)
 
             def trial_norm(alpha):
@@ -503,49 +585,57 @@ class SSAFD:
             # full step first; backtracking only when alpha = 1 fails
             # sufficient decrease
             n1 = trial_norm(alphas[0])
-            if host(n1 < 0.5 * F2):
+            full_d = n1 < 0.5 * F2
+            if all(f for f, g in zip(read(full_d), going) if g):
                 ak = alphas[0]
             else:
                 norms = torch.stack([n1] + [trial_norm(alphas[k])
                                             for k in range(1, len(alphas))])
-                ak = alphas[torch.argmin(norms)]
-            newton_uv = (uv[0] + ak * d[0], uv[1] + ak * d[1])
+                ak = alphas[torch.argmin(norms)] if not lead else torch.where(
+                    full_d, alphas[0], alphas[torch.argmin(norms, dim=0)])
+            newton_uv = (uv[0] + col(ak) * d[0], uv[1] + col(ak) * d[1])
             F_newton = residual(newton_uv)
             newton_F2 = dot(F_newton, F_newton)
 
-            sufficient = host(newton_F2 < 0.5 * F2)
-            if sufficient:
-                uv_new, F_new, F2_new = newton_uv, F_newton, newton_F2
-            elif noisy_floor and host(F2 < 16.0 * newton_tol2):
+            suff_d = newton_F2 < 0.5 * F2
+            sufficient = read(suff_d)
+            fallback = [g and not s for g, s in zip(going, sufficient)]
+            near, near_d = [False] * n, None
+            if noisy_floor and any(fallback):
+                near_d = F2 < 16.0 * newton_tol2
+                near = read(near_d)
+            new = (newton_uv, F_newton, newton_F2)
+            keep = [f and e for f, e in zip(fallback, near)]
+            if any(keep):
                 # near tolerance: accept an improving Newton step or keep
                 take = newton_F2 < F2
-                uv_new = (torch.where(take, newton_uv[0], uv[0]),
-                          torch.where(take, newton_uv[1], uv[1]))
-                F_new = (torch.where(take, F_newton[0], F[0]),
-                         torch.where(take, F_newton[1], F[1]))
-                F2_new = torch.where(take, newton_F2, F2)
-            else:
+                new = pick(keep, lambda: ~suff_d & near_d,
+                           (where2(take, newton_uv, uv),
+                            where2(take, F_newton, F),
+                            torch.where(take, newton_F2, F2)), new, going)
+            picard = [f and not e for f, e in zip(fallback, near)]
+            if any(picard):
                 # Picard safeguard: a frozen-coefficient sweep to the warmup
                 # tolerance; Newton only if it beats both
-                picard_uv = free(picard_iter(
-                    0, uv, reg=reg_final,
-                    max_iter=(min(self.safeguard_ksp_cap, self.ksp_max)
-                              if noisy_floor else self.ksp_max)))
+                cap = (min(self.safeguard_ksp_cap, self.ksp_max)
+                       if noisy_floor else self.ksp_max)
+                picard_uv = free(picard_iter(0, uv, reg=reg_final,
+                                             max_iter=caps(cap, picard)))
                 picard_F = residual(picard_uv)
                 picard_F2 = dot(picard_F, picard_F)
                 take_newton = (newton_F2 < picard_F2) & (newton_F2 < F2)
                 # allow moderate residual increases only
                 picard_ok = picard_F2 < 1e2 * F2
-                cand_uv = (torch.where(picard_ok, picard_uv[0], uv[0]),
-                           torch.where(picard_ok, picard_uv[1], uv[1]))
-                cand_F = (torch.where(picard_ok, picard_F[0], F[0]),
-                          torch.where(picard_ok, picard_F[1], F[1]))
+                cand_uv = where2(picard_ok, picard_uv, uv)
+                cand_F = where2(picard_ok, picard_F, F)
                 cand_F2 = torch.where(picard_ok, picard_F2, F2)
-                uv_new = (torch.where(take_newton, newton_uv[0], cand_uv[0]),
-                          torch.where(take_newton, newton_uv[1], cand_uv[1]))
-                F_new = (torch.where(take_newton, F_newton[0], cand_F[0]),
-                         torch.where(take_newton, F_newton[1], cand_F[1]))
-                F2_new = torch.where(take_newton, newton_F2, cand_F2)
+                new = pick(picard, lambda: ~suff_d if near_d is None
+                           else ~suff_d & ~near_d,
+                           (where2(take_newton, newton_uv, cand_uv),
+                            where2(take_newton, F_newton, cand_F),
+                            torch.where(take_newton, newton_F2, cand_F2)),
+                           new, going)
+            uv_new, F_new, F2_new = new
             # stagnation measure: relative velocity change of this sweep
             dchg = (uv_new[0] - uv[0], uv_new[1] - uv[1])
             chg2_new = dot(dchg, dchg) / torch.clamp(dot(uv_new, uv_new),
@@ -553,19 +643,28 @@ class SSAFD:
             if diagnostics:
                 hist.append((F2_new / torch.clamp(b_norm2, min=1e-300),
                              chg2_new, eta, kit, ak, sufficient))
-            uv, F, F2prev, F2, chg2, eta_c = \
-                uv_new, F_new, F2, F2_new, chg2_new, eta
+            # the members that stopped keep their iterate
+            uv, F, F2prev, F2, chg2, eta_c = pick(
+                going, lambda: going_d,
+                (uv_new, F_new, F2, F2_new, chg2_new, eta),
+                (uv, F, F2prev, F2, chg2, eta_c))
             it += 1
-            ktot += kit
+            ktot = [k + c for k, c in zip(ktot, kit)]
+            sweeps = [w + g for w, g in zip(sweeps, going)]
+            lock_krylov += max(kit)
 
         u, v = full(uv)
         u = torch.clamp(u, -self.max_speed, self.max_speed)
         v = torch.clamp(v, -self.max_speed, self.max_speed)
         if diagnostics:
-            info = {"newton_iters": it, "krylov_iters": ktot,
+            info = {"newton_iters": sweeps if lead else it,
+                    "krylov_iters": ktot if lead else ktot[0],
                     "F2_initial": F20, "F2_final": F2,
-                    "F2_warmstart": F20_pre, "warmup_skipped": skip_warmup,
+                    "F2_warmstart": F20_pre,
+                    "warmup_skipped": skip_warmup if lead else skip_warmup[0],
                     "b_norm2": b_norm2, "tol2": newton_tol2,
                     "trace": hist}
+            if lead:
+                info.update(lockstep_newton=it, lockstep_krylov=lock_krylov)
             return u, v, info
         return u, v

@@ -6,10 +6,10 @@ velocities, strain heating and basal frictional heating. Without an
 energy model (``compute_3d = False``) the result holds the sliding
 velocities and the 2D maxima only.
 
-On an ensemble's member axis (``lead = 1``) the ``sia`` model runs on
-``(B, My, Mx[, Mz])`` fields with per-member maxima; ``ssa+sia`` there
-raises NotImplementedError (ROADMAP Queue 1 item 11: per-member Newton and
-Krylov convergence).
+On an ensemble's member axis (``lead = 1``) both models run on
+``(B, My, Mx[, Mz])`` fields with per-member maxima; with ``ssa+sia`` the
+SSA solve (built with the same ``lead``) converges per member in lockstep
+and its counts are per member.
 """
 
 from __future__ import annotations
@@ -44,6 +44,10 @@ class StressBalanceResult(NamedTuple):
     basal_frictional_heating: Optional[torch.Tensor]
     ssa_newton_iters: int = 0   # Newton sweeps of this SSA solve
     ssa_krylov_iters: int = 0   # BiCGStab iterations of this SSA solve
+    # on the member axis the two above are lists (one count per member),
+    # and these the sweeps and Newton-Krylov iterations the lockstep ran
+    ssa_lockstep_newton: int = 0
+    ssa_lockstep_krylov: int = 0
 
 
 @dataclass
@@ -64,12 +68,9 @@ class StressBalance:
         # both ported models carry the SIA (``run`` reads it for the
         # max_diffusivity stop)
         self.has_sia = "sia" in self.model.split("+")
-        if self.lead and self.model != "sia":
-            raise NotImplementedError(
-                f"stress_balance.model = {self.model!r} in an ensemble is not "
-                "implemented in pism_tpu_torch (only 'sia'; the ssa+sia "
-                "ensemble, with per-member Newton and Krylov convergence, is "
-                "ROADMAP Queue 1 item 11)")
+        if self.ssa is not None and self.ssa.lead != self.lead:
+            raise ValueError("the SSA and the stress balance take different "
+                             "member dims")
         require(cfg, "stress_balance.vertical_velocity_approximation",
                 ("centered",))
         require(cfg, "stress_balance.sia.e_age_coupling", (False,))
@@ -123,14 +124,18 @@ class StressBalance:
             theta_n=theta_n, pallas=pallas, mesh=self.mesh,
             d_limit=self.d_limit)
 
-    def update(self, state: S.ModelState, yield_stress) -> StressBalanceResult:
+    def update(self, state: S.ModelState, yield_stress,
+               active=None) -> StressBalanceResult:
+        """``active``: on the member axis, the members whose SSA solves (a
+        host list; the others' results are discarded by the caller)."""
         # without an SSA a state's sliding velocities (say, of a restart
         # file) are carried and advect the ice, as in the JAX package
         u_ssa, v_ssa = state.u_ssa, state.v_ssa
         info = {"newton_iters": 0, "krylov_iters": 0}
         if self.model == "ssa+sia":
-            u_ssa, v_ssa, info = self.ssa.solve(state, yield_stress,
-                                                diagnostics=True)
+            u_ssa, v_ssa, info = self.ssa.solve(
+                state, yield_stress, diagnostics=True,
+                **({"active": active} if self.lead else {}))
 
         geom, th_e, th_n = self._apply_bed_smoother(state.geometry)
         flux = self.sia_flux(geom, state.enthalpy, th_e, th_n,
@@ -162,4 +167,6 @@ class StressBalance:
             u_ssa=u_ssa, v_ssa=v_ssa, sia3=sia3,
             basal_frictional_heating=friction,
             ssa_newton_iters=info["newton_iters"],
-            ssa_krylov_iters=info["krylov_iters"])
+            ssa_krylov_iters=info["krylov_iters"],
+            ssa_lockstep_newton=info.get("lockstep_newton", 0),
+            ssa_lockstep_krylov=info.get("lockstep_krylov", 0))

@@ -25,11 +25,19 @@ The JAX package launches its kernel only for float32 on the TPU
 (``pism_tpu/ops/ssa.py:230-232``). Here CUDA tensors of either float dtype
 launch the kernels, because the arithmetic is the same in both.
 
+On an ensemble's member axis the systems come as (B, batch, n) or (B, n,
+batch) tensors, all members in one launch: on the last axis the members
+fold into the batch (B batch lines, the kernels' own indexing), on axis -2
+the ``*_sub_members`` entries take a member stride. Member b equals a
+single launch on member b's systems to the bit.
+
 Routing: CUDA tensors launch the kernels (built by ``_build.py``); CPU
 tensors run the plain torch versions (``*_plain``). There is no fallback
 from one to the other. ``LAUNCHES`` counts apply launches on the last axis
 and ``SUB_LAUNCHES`` those on axis -2; ``FACTOR_LAUNCHES`` and
-``SUB_FACTOR_LAUNCHES`` count the factor launches.
+``SUB_FACTOR_LAUNCHES`` count the factor launches; the ``MEMBER_`` counts
+(``MEMBER_LAUNCHES``, ``SUB_MEMBER_LAUNCHES``, ``MEMBER_FACTOR_LAUNCHES``,
+``SUB_MEMBER_FACTOR_LAUNCHES``) the same launches on a member axis.
 """
 
 from __future__ import annotations
@@ -48,17 +56,23 @@ LAUNCHES = 0
 SUB_LAUNCHES = 0
 FACTOR_LAUNCHES = 0
 SUB_FACTOR_LAUNCHES = 0
+MEMBER_LAUNCHES = 0
+SUB_MEMBER_LAUNCHES = 0
+MEMBER_FACTOR_LAUNCHES = 0
+SUB_MEMBER_FACTOR_LAUNCHES = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class LineFactor:
     """Factored line systems of one shape, dtype and device.
 
     ``sub``: the systems run along axis -2 of (n, batch) tensors, else along
-    the last axis of (batch, n) tensors. A factor made by the kernel holds
-    ``table``, (2 rounds + 1, batch, n): alpha and gamma of each round in
-    turn, then the last b, line by line in both layouts; a plain one holds
-    ``plain`` = (alpha, gamma, b), the rounds leading, with the system on
-    the last axis."""
+    the last axis of (batch, n) tensors; a leading member axis, (B, ...),
+    holds an ensemble's members. A factor made by the kernel holds
+    ``table``, (2 rounds + 1, [B,] batch, n): alpha and gamma of each round
+    in turn, then the last b, line by line in both layouts; a plain one
+    holds ``plain`` = (alpha, gamma, b), the rounds leading, with the system
+    on the last axis."""
     sub: bool
     shape: tuple
     dtype: torch.dtype
@@ -68,11 +82,16 @@ class LineFactor:
 
     @property
     def n(self) -> int:
-        return self.shape[0] if self.sub else self.shape[1]
+        return self.shape[-2] if self.sub else self.shape[-1]
 
     @property
     def batch(self) -> int:
-        return self.shape[1] if self.sub else self.shape[0]
+        return self.shape[-1] if self.sub else self.shape[-2]
+
+    @property
+    def members(self) -> int:
+        """B on a member axis, else 0."""
+        return self.shape[0] if len(self.shape) == 3 else 0
 
     def coefficients(self):
         """(alpha, gamma, b): alpha and gamma (rounds, \\*shape), the last b
@@ -80,6 +99,11 @@ class LineFactor:
         t = self.table
         parts = (t[0:-1:2], t[1:-1:2], t[-1]) if self.plain is None else self.plain
         return tuple(x.transpose(-1, -2) if self.sub else x for x in parts)
+
+
+def _t(x):
+    """The last two axes swapped (a 2D tensor's transpose)."""
+    return x.transpose(-1, -2)
 
 
 def _rounds(n: int) -> int:
@@ -98,7 +122,7 @@ def pcr_lines_plain(a, b, c, d):
 
 def pcr_lines_sub_plain(a, b, c, d):
     """The same solve along axis -2 of (n, batch) tensors."""
-    return solve_batched_pcr(a.T, b.T, c.T, d.T).T
+    return _t(solve_batched_pcr(_t(a), _t(b), _t(c), _t(d)))
 
 
 def _factor_plain(a, b, c):
@@ -124,16 +148,17 @@ def _factor_plain(a, b, c):
 
 
 def pcr_factor_lines_plain(a, b, c) -> LineFactor:
-    """Plain factor of (batch, n) systems on the last axis; ``b=None`` is
-    the unit diagonal."""
+    """Plain factor of ([B,] batch, n) systems on the last axis;
+    ``b=None`` is the unit diagonal."""
     return LineFactor(False, tuple(a.shape), a.dtype, a.device,
                       plain=_factor_plain(a, b, c))
 
 
 def pcr_factor_lines_sub_plain(a, b, c) -> LineFactor:
-    """Plain factor of (n, batch) systems on axis -2."""
+    """Plain factor of ([B,] n, batch) systems on axis -2."""
     return LineFactor(True, tuple(a.shape), a.dtype, a.device,
-                      plain=_factor_plain(a.T, None if b is None else b.T, c.T))
+                      plain=_factor_plain(_t(a), None if b is None else _t(b),
+                                          _t(c)))
 
 
 def pcr_apply_plain(factor: LineFactor, r, scale=None):
@@ -143,13 +168,13 @@ def pcr_apply_plain(factor: LineFactor, r, scale=None):
     alphas, gammas, b = factor.plain
     d = r if scale is None else r / scale
     if factor.sub:
-        d = d.T
+        d = _t(d)
     s = 1
     for alpha, gamma in zip(alphas, gammas):
         d = d + alpha * _shift_z(d, -s) + gamma * _shift_z(d, +s)
         s *= 2
     x = d / b
-    return x.T.contiguous() if factor.sub else x
+    return _t(x).contiguous() if factor.sub else x
 
 
 # ---------------------------------------------------------------------------
@@ -168,47 +193,75 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"pism_pcr_apply_{entry}_{prec}")
             fn.argtypes = [p] * 4 + [i, i, p]
             fn.restype = i
+            for kind in ("factor", "apply"):
+                if entry == "lines_sub":
+                    fn = getattr(lib, f"pism_pcr_{kind}_lines_sub_members_{prec}")
+                    fn.argtypes = [p] * 4 + [i, i, i, p]
+                    fn.restype = i
     return lib
 
 
 def _check(entry, *tensors):
+    """Raise unless the tensors are 2D, or 3D (a member axis), of one
+    shape."""
     _build.check(f"pcr_{entry}", *tensors)
     for t in tensors:
-        if t.dim() != 2 or t.shape != tensors[0].shape:
-            raise ValueError(f"pcr_{entry} takes 2D tensors of one shape, "
-                             f"got {tuple(t.shape)} and {tuple(tensors[0].shape)}")
+        if t.dim() not in (2, 3) or t.shape != tensors[0].shape:
+            raise ValueError(f"pcr_{entry} takes 2D (or, with a member axis, "
+                             f"3D) tensors of one shape, got {tuple(t.shape)} "
+                             f"and {tuple(tensors[0].shape)}")
 
 
-def _entry(kind, sub, dtype):
+def _entry(kind, sub, dtype, members):
+    """(name, C function) of a launch: on axis -2 with members, the
+    ``*_sub_members`` entry; on the last axis members fold into the batch."""
     prec = "f32" if dtype == torch.float32 else "f64"
     name = f"pcr_{kind}_lines_sub" if sub else f"pcr_{kind}_lines"
-    return name, getattr(_library(), f"pism_{name}_{prec}")
+    c_name = name + ("_members" if sub and members else "")
+    return name, getattr(_library(), f"pism_{c_name}_{prec}")
+
+
+def _sizes(f: LineFactor, sub):
+    """(n, batch, members) of a launch on ``f``'s systems; the last axis
+    folds the members into the batch (line b batch + l of a (B batch, n)
+    array)."""
+    if f.members and not sub:
+        return f.n, f.members * f.batch, 0
+    return f.n, f.batch, f.members
 
 
 def _factor(sub, a, b, c):
     global FACTOR_LAUNCHES, SUB_FACTOR_LAUNCHES
+    global MEMBER_FACTOR_LAUNCHES, SUB_MEMBER_FACTOR_LAUNCHES
     given = (a, c) if b is None else (a, b, c)
     _check("factor_lines_sub" if sub else "factor_lines", *given)
     if a.device.type == "cpu":
         return (pcr_factor_lines_sub_plain if sub
                 else pcr_factor_lines_plain)(a, b, c)
-    n, batch = (a.shape[0], a.shape[1]) if sub else (a.shape[1], a.shape[0])
-    table = torch.empty((2 * _rounds(n) + 1, batch, n), dtype=a.dtype,
-                        device=a.device)
-    name, fn = _entry("factor", sub, a.dtype)
+    f = LineFactor(sub, tuple(a.shape), a.dtype, a.device)
+    lead = (f.members,) if f.members else ()
+    table = torch.empty((2 * _rounds(f.n) + 1, *lead, f.batch, f.n),
+                        dtype=a.dtype, device=a.device)
+    name, fn = _entry("factor", sub, a.dtype, f.members)
+    n, batch, members = _sizes(f, sub)
     _build.launch(fn, name, a.device, a.data_ptr(),
                   None if b is None else b.data_ptr(), c.data_ptr(),
-                  table.data_ptr(), n, batch)
-    if sub:
+                  table.data_ptr(), n, batch, *((members,) if members else ()))
+    if f.members:
+        if sub:
+            SUB_MEMBER_FACTOR_LAUNCHES += 1
+        else:
+            MEMBER_FACTOR_LAUNCHES += 1
+    elif sub:
         SUB_FACTOR_LAUNCHES += 1
     else:
         FACTOR_LAUNCHES += 1
-    return LineFactor(sub, tuple(a.shape), a.dtype, a.device, table=table)
+    return dataclasses.replace(f, table=table)
 
 
 def pcr_factor_lines(a, b, c) -> LineFactor:
-    """Factor the tridiagonal systems along the last axis of (batch, n)
-    tensors; ``b=None`` is the unit diagonal.
+    """Factor the tridiagonal systems along the last axis of ([B,] batch,
+    n) tensors; ``b=None`` is the unit diagonal.
 
     CUDA tensors launch the kernel; CPU tensors run
     ``pcr_factor_lines_plain``."""
@@ -216,8 +269,8 @@ def pcr_factor_lines(a, b, c) -> LineFactor:
 
 
 def pcr_factor_lines_sub(a, b, c) -> LineFactor:
-    """Factor the tridiagonal systems along axis -2 of (n, batch) tensors,
-    the lines strided by the batch width.
+    """Factor the tridiagonal systems along axis -2 of ([B,] n, batch)
+    tensors, the lines strided by the batch width.
 
     CUDA tensors launch the kernel; CPU tensors run
     ``pcr_factor_lines_sub_plain``."""
@@ -230,7 +283,7 @@ def pcr_apply(factor: LineFactor, r, scale=None):
 
     A factor made on the card launches the apply kernel on CUDA tensors; a
     plain factor runs ``pcr_apply_plain`` on CPU tensors."""
-    global LAUNCHES, SUB_LAUNCHES
+    global LAUNCHES, SUB_LAUNCHES, MEMBER_LAUNCHES, SUB_MEMBER_LAUNCHES
     given = (r,) if scale is None else (r, scale)
     _check("apply", *given)
     if (tuple(r.shape), r.dtype, r.device) != (factor.shape, factor.dtype,
@@ -244,11 +297,17 @@ def pcr_apply(factor: LineFactor, r, scale=None):
         raise ValueError("pcr_apply: a plain factor of CUDA tensors goes "
                          "through pcr_apply_plain")
     x = torch.empty_like(r)
-    name, fn = _entry("apply", factor.sub, r.dtype)
+    name, fn = _entry("apply", factor.sub, r.dtype, factor.members)
+    n, batch, members = _sizes(factor, factor.sub)
     _build.launch(fn, name, r.device, factor.table.data_ptr(), r.data_ptr(),
                   None if scale is None else scale.data_ptr(), x.data_ptr(),
-                  factor.n, factor.batch)
-    if factor.sub:
+                  n, batch, *((members,) if members else ()))
+    if factor.members:
+        if factor.sub:
+            SUB_MEMBER_LAUNCHES += 1
+        else:
+            MEMBER_LAUNCHES += 1
+    elif factor.sub:
         SUB_LAUNCHES += 1
     else:
         LAUNCHES += 1

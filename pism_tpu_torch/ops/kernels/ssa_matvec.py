@@ -33,13 +33,20 @@ selects computed (what the JAX package's ``jax.linearize`` of the residual
 computes, ``pism_tpu/model/ssa.py:717-725``). The kernel tiles the grid in
 shared memory and computes each face once; its notes say what bounds it.
 
+On an ensemble's member axis K1 and the Newton matvec take (B, My, Mx)
+fields (the coefficient planes (B, My, Mx, 4)), one launch for all members
+(``pism_ssa_matvec_members_*``, ``pism_ssa_newton_matvec_members_*``:
+``blockIdx.z`` the member); member b equals a single launch on member b to
+the bit. The plain versions take the leading axis too.
+
 Routing: a CUDA tensor launches the kernel (built with ``nvcc`` at first use
 by ``_build.py`` and loaded with ctypes); a CPU tensor runs the plain torch
 version in this module. There is no fallback from one to the other.
 ``LAUNCHES`` counts launches of the matvec kernel, ``JVP_LAUNCHES`` those of
-the fused JVP kernel, ``NEWTON_LAUNCHES`` those of the Newton matvec, and
-``HALO_LAUNCHES`` / ``HALO_JVP_LAUNCHES`` / ``HALO_NEWTON_LAUNCHES`` those
-of K5, its fused JVP and its Newton matvec.
+the fused JVP kernel, ``NEWTON_LAUNCHES`` those of the Newton matvec,
+``MEMBER_LAUNCHES`` / ``NEWTON_MEMBER_LAUNCHES`` their member-axis
+launches, and ``HALO_LAUNCHES`` / ``HALO_JVP_LAUNCHES`` /
+``HALO_NEWTON_LAUNCHES`` those of K5, its fused JVP and its Newton matvec.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ HALO_LAUNCHES = 0
 HALO_JVP_LAUNCHES = 0
 NEWTON_LAUNCHES = 0
 HALO_NEWTON_LAUNCHES = 0
+MEMBER_LAUNCHES = 0
+NEWTON_MEMBER_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -65,19 +74,22 @@ HALO_NEWTON_LAUNCHES = 0
 # ---------------------------------------------------------------------------
 
 def _pad_edge(a):
-    return F.pad(a[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    """``a`` ((My, Mx), or (B, My, Mx) on the member axis) with one edge
+    ghost on each side of its last two axes."""
+    p = F.pad(a.reshape(-1, 1, *a.shape[-2:]), (1, 1, 1, 1), mode="replicate")
+    return p.view(*a.shape[:-2], a.shape[-2] + 2, a.shape[-1] + 2)
 
 
 def _minus_div(u, v, nuH_e, nuH_n, dx, dy):
     up, vp = _pad_edge(u), _pad_edge(v)
-    c = (slice(1, -1), slice(1, -1))
-    e = (slice(1, -1), slice(2, None))
-    nn = (slice(2, None), slice(1, -1))
-    ne = (slice(2, None), slice(2, None))
-    s_ = (slice(0, -2), slice(1, -1))
-    se = (slice(0, -2), slice(2, None))
-    w = (slice(1, -1), slice(0, -2))
-    nw = (slice(2, None), slice(0, -2))
+    c = (..., slice(1, -1), slice(1, -1))
+    e = (..., slice(1, -1), slice(2, None))
+    nn = (..., slice(2, None), slice(1, -1))
+    ne = (..., slice(2, None), slice(2, None))
+    s_ = (..., slice(0, -2), slice(1, -1))
+    se = (..., slice(0, -2), slice(2, None))
+    w = (..., slice(1, -1), slice(0, -2))
+    nw = (..., slice(2, None), slice(0, -2))
 
     ux_e = (up[e] - up[c]) / dx
     vx_e = (vp[e] - vp[c]) / dx
@@ -94,10 +106,10 @@ def _minus_div(u, v, nuH_e, nuH_n, dx, dy):
     Txy_e = nuH_e * (uy_e + vx_e)
 
     def shift_w(T):   # clamp-shift one column west
-        return torch.cat([T[:, :1], T[:, :-1]], dim=1)
+        return torch.cat([T[..., :1], T[..., :-1]], dim=-1)
 
     def shift_s(T):   # clamp-shift one row south
-        return torch.cat([T[:1, :], T[:-1, :]], dim=0)
+        return torch.cat([T[..., :1, :], T[..., :-1, :]], dim=-2)
 
     div_x = (Txx_e - shift_w(Txx_e)) / dx + (Txy_n - shift_s(Txy_n)) / dy
     div_y = (Txy_e - shift_w(Txy_e)) / dx + (Tyy_n - shift_s(Tyy_n)) / dy
@@ -105,7 +117,8 @@ def _minus_div(u, v, nuH_e, nuH_n, dx, dy):
 
 
 def ssa_matvec_plain(u, v, nuH_e, nuH_n, beta, dx, dy):
-    """A(u, v) = -div T + beta (u, v) in plain torch (any device)."""
+    """A(u, v) = -div T + beta (u, v) in plain torch (any device), on
+    (My, Mx) or (B, My, Mx) fields."""
     mx, my = _minus_div(u, v, nuH_e, nuH_n, dx, dy)
     return mx + beta * u, my + beta * v
 
@@ -199,10 +212,10 @@ def ssa_matvec_halo_jvp_plain(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
 
 
 def _neighbours(p, o, ny, nx):
-    """The views c, e, w, n, ne, nw, s, se of the padded array ``p`` over
-    an ny x nx region whose first cell is ``p[o, o]``."""
+    """The views c, e, w, n, ne, nw, s, se of the padded array ``p`` (its
+    last two axes) over an ny x nx region whose first cell is ``p[o, o]``."""
     def at(dj, di):
-        return p[o + dj:o + dj + ny, o + di:o + di + nx]
+        return p[..., o + dj:o + dj + ny, o + di:o + di + nx]
     return {"c": at(0, 0), "e": at(0, 1), "w": at(0, -1), "n": at(1, 0),
             "ne": at(1, 1), "nw": at(1, -1), "s": at(-1, 0), "se": at(-1, 1)}
 
@@ -233,8 +246,8 @@ def ssa_newton_matvec_plain(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n,
     it: fd = (du, dv) zeroed on ``bc_mask``; dnuH of fd from the per-face
     coefficients ``coef_e``, ``coef_n`` ((My, Mx, 4): a1, a2, a3, k);
     A(fd; nuH, beta) + A(u, v; dnuH, 0) on the free rows, (du, dv) on the
-    Dirichlet rows."""
-    My, Mx = u.shape
+    Dirichlet rows. On the member axis every field has a leading (B,)."""
+    My, Mx = u.shape[-2:]
     fu = torch.where(bc_mask, 0.0, du)
     fv = torch.where(bc_mask, 0.0, dv)
     dnuH_e, dnuH_n = _tangent(_neighbours(_pad_edge(fu), 1, My, Mx),
@@ -295,6 +308,12 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, f"pism_ssa_newton_matvec_halo_{prec}")
         fn.argtypes = [p] * 12 + [i, i, i, i, d, d, p]
         fn.restype = i
+        fn = getattr(lib, f"pism_ssa_matvec_members_{prec}")
+        fn.argtypes = [p] * 7 + [i, i, i, d, d, p]
+        fn.restype = i
+        fn = getattr(lib, f"pism_ssa_newton_matvec_members_{prec}")
+        fn.argtypes = [p] * 12 + [i, i, i, d, d, p]
+        fn.restype = i
     return lib
 
 
@@ -304,13 +323,16 @@ def build() -> None:
     _library()
 
 
-def _check(*tensors):
+def _check(*tensors, members=False):
+    """Raise unless the tensors are 2D (3D with ``members``: a leading
+    member axis) and of one shape."""
     _build.check("ssa_matvec", *tensors)
+    dim = 3 if members else 2
     for t in tensors:
-        if t.dim() != 2 or t.shape != tensors[0].shape:
+        if t.dim() != dim or t.shape != tensors[0].shape:
             raise ValueError(
-                f"ssa_matvec takes 2D tensors of one shape, got {tuple(t.shape)} "
-                f"and {tuple(tensors[0].shape)}")
+                f"ssa_matvec takes {dim}D tensors of one shape, got "
+                f"{tuple(t.shape)} and {tuple(tensors[0].shape)}")
 
 
 def _launch(name, inputs, outputs, ints, dx, dy):
@@ -325,16 +347,22 @@ def _launch(name, inputs, outputs, ints, dx, dy):
 
 
 def ssa_matvec(u, v, nuH_e, nuH_n, beta, dx, dy):
-    """A(u, v) = -div T + beta (u, v) on (My, Mx) tensors.
+    """A(u, v) = -div T + beta (u, v) on (My, Mx) tensors, or on (B, My,
+    Mx) tensors of an ensemble's members (one launch for all).
 
     CUDA tensors launch the kernel; CPU tensors run ``ssa_matvec_plain``."""
-    _check(u, v, nuH_e, nuH_n, beta)
+    members = u.dim() == 3
+    _check(u, v, nuH_e, nuH_n, beta, members=members)
     if u.device.type == "cpu":
         return ssa_matvec_plain(u, v, nuH_e, nuH_n, beta, dx, dy)
-    global LAUNCHES
+    global LAUNCHES, MEMBER_LAUNCHES
     Au, Av = torch.empty_like(u), torch.empty_like(v)
-    _launch("ssa_matvec", (u, v, nuH_e, nuH_n, beta), (Au, Av), u.shape, dx, dy)
-    LAUNCHES += 1
+    name = "ssa_matvec_members" if members else "ssa_matvec"
+    _launch(name, (u, v, nuH_e, nuH_n, beta), (Au, Av), u.shape, dx, dy)
+    if members:
+        MEMBER_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return Au, Av
 
 
@@ -424,18 +452,24 @@ def ssa_newton_matvec(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta,
                       bc_mask, dx, dy):
     """The Newton matvec of a sweep linearized at (u, v), one launch: see
     ``ssa_newton_matvec_plain``. (My, Mx) fields; ``coef_e``, ``coef_n``
-    (My, Mx, 4); ``bc_mask`` bool. CUDA tensors launch the kernel; CPU
-    tensors run ``ssa_newton_matvec_plain``."""
-    _check(u, v, du, dv, nuH_e, nuH_n, beta)
+    (My, Mx, 4); ``bc_mask`` bool; on an ensemble's member axis each with a
+    leading (B,), one launch for all members. CUDA tensors launch the
+    kernel; CPU tensors run ``ssa_newton_matvec_plain``."""
+    members = u.dim() == 3
+    _check(u, v, du, dv, nuH_e, nuH_n, beta, members=members)
     _check_faces_and_mask("ssa_newton_matvec", u, (coef_e, coef_n), u.shape,
                           bc_mask, u.shape)
     ts = (u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta, bc_mask)
     if u.device.type == "cpu":
         return ssa_newton_matvec_plain(*ts, dx, dy)
-    global NEWTON_LAUNCHES
+    global NEWTON_LAUNCHES, NEWTON_MEMBER_LAUNCHES
     Ju, Jv = torch.empty_like(u), torch.empty_like(v)
-    _launch("ssa_newton_matvec", ts, (Ju, Jv), u.shape, dx, dy)
-    NEWTON_LAUNCHES += 1
+    if members:
+        _launch("ssa_newton_matvec_members", ts, (Ju, Jv), u.shape, dx, dy)
+        NEWTON_MEMBER_LAUNCHES += 1
+    else:
+        _launch("ssa_newton_matvec", ts, (Ju, Jv), u.shape, dx, dy)
+        NEWTON_LAUNCHES += 1
     return Ju, Jv
 
 

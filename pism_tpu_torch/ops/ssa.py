@@ -18,6 +18,12 @@ Krylov loop is a host loop: its stop
 test is one ``.item()`` per BiCGStab iteration (the JAX package's
 ``lax.while_loop`` at ``pism_tpu/ops/ssa.py:349-374``), which keeps the
 iteration counts identical to the reference.
+
+On an ensemble's member axis (fields ``(B, My, Mx)``, a ``Shifter`` with
+``lead = 1``) the operator, the Newton matvec and the line solves launch
+once for all members, the dot products are per member
+(``ops/kernels/member_dot.py``) and ``bicgstab_solve`` runs every member's
+iteration in lockstep, the ``vmap`` of the JAX loop.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from . import stencils as st
+from .kernels.member_dot import member_dot
 from .kernels.pcr import pcr_apply, pcr_factor_lines, pcr_factor_lines_sub
 from .kernels import ssa_matvec as K
 from ..util.hostsync import host
@@ -284,7 +291,9 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
     (``ops/kernels/pcr.py``) directly on the (My, Mx) layout, the u-lines
     along its last axis and the v-lines along axis -2, so no transposes:
     the lines are factored when the preconditioner is built, and an
-    application is two apply launches and nothing else."""
+    application is two apply launches and nothing else. An ensemble's (B,
+    My, Mx) fields take both routes as they are, the kernels launched once
+    for all members."""
     if pcr_impl not in ("xla", "pallas_sublane"):
         raise NotImplementedError(
             f"stress_balance.ssa.fd.line_pcr_impl = {pcr_impl!r} is not "
@@ -304,21 +313,29 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
         return precond
 
     # v-lines run along y: solve them on the transposed (Mx, My) layout
-    avT, cvT, bvT = av.T, cv.T, bv.T
+    def T(x):
+        return x.transpose(-1, -2)
+
+    avT, cvT, bvT = T(av), T(cv), T(bv)
 
     def precond(r):
         ru, rv = r
         one = torch.ones_like(ru)
         zu = solve_batched_pcr(au.to(ru.dtype), one, cu.to(ru.dtype),
                                ru / bu.to(ru.dtype))
-        zv = solve_batched_pcr(avT.to(rv.dtype), one.T, cvT.to(rv.dtype),
-                               rv.T / bvT.to(rv.dtype)).T.contiguous()
+        zv = T(solve_batched_pcr(avT.to(rv.dtype), T(one), cvT.to(rv.dtype),
+                                 T(rv) / bvT.to(rv.dtype))).contiguous()
         return zu, zv
 
     return precond
 
 
-def _dot(a, b, dot_dtype=None):
+def _dot(a, b, dot_dtype=None, lead=0):
+    """sum(a0 b0) + sum(a1 b1) of pairs of fields: 0-dim, or with ``lead``
+    = 1 (an ensemble's (B, My, Mx) fields) one per member through
+    ``member_dot``."""
+    if lead:
+        return member_dot(a, b, dot_dtype)
     if dot_dtype is not None:
         return (torch.sum(a[0].to(dot_dtype) * b[0].to(dot_dtype))
                 + torch.sum(a[1].to(dot_dtype) * b[1].to(dot_dtype)))
@@ -330,32 +347,41 @@ def _nz(x):
     return torch.where(x == 0, 1e-300, x)
 
 
+def member_col(s, lead):
+    """A per-member scalar ((B,), with ``lead`` = 1) shaped to scale (B, My,
+    Mx) fields; a 0-dim one (or ``lead`` = 0) as it is."""
+    return s.view(-1, 1, 1) if lead and s.dim() else s
+
+
 def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
-                   max_iter=300, dot_dtype=None):
+                   max_iter=300, dot_dtype=None, lead=0):
     """Right-preconditioned BiCGStab on pairs of (My, Mx) tensors.
 
     Returns ``(x, iterations, |r|^2)``; ``iterations`` is a host int. The
-    loop's stop test is one host sync per iteration."""
+    loop's stop test is one host sync per iteration.
+
+    On an ensemble's member axis (``lead`` = 1, pairs of (B, My, Mx)
+    tensors) each member iterates on its own, the ``vmap`` of the JAX loop
+    (``pism_tpu/ops/ssa.py:318-374``): rho, alpha, omega, the tolerance
+    (``rtol`` may be a (B,) tensor), the iteration bound (``max_iter`` may
+    be a list of B host ints; 0 leaves the member at ``x0``) and the stop
+    test are per member; a member that stopped is frozen, its x, r and
+    count kept by a select, while the others go on. The lockstep loop
+    reads one (B,) mask an iteration; ``iterations`` is a list of B ints."""
     def dot(p, q):
-        return _dot(p, q, dot_dtype)
+        return _dot(p, q, dot_dtype, lead)
+
+    def col(a):
+        return member_col(a, lead)
 
     def axpy(a, x, y):  # a*x + y (scalar cast to the vector dtype)
-        return (a.to(x[0].dtype) * x[0] + y[0], a.to(x[1].dtype) * x[1] + y[1])
+        return (col(a.to(x[0].dtype)) * x[0] + y[0],
+                col(a.to(x[1].dtype)) * x[1] + y[1])
 
-    Ax0 = matvec(x0)
-    r0 = (b[0] - Ax0[0], b[1] - Ax0[1])
-    rhat = r0
-    b_norm2 = dot(b, b)
-    tol2 = torch.clamp(rtol ** 2 * b_norm2, min=atol ** 2)
-    one = torch.ones((), dtype=b_norm2.dtype, device=b_norm2.device)
-    x, r = x0, r0
-    p = v = (torch.zeros_like(b[0]), torch.zeros_like(b[1]))
-    rho = alpha = omega = one
-    it = 0
-    while it < max_iter and host(dot(r, r) > tol2):
+    def body(x, r, p, v, rho, alpha, omega):
         rho_new = dot(rhat, r)
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
-        om = omega.to(p[0].dtype)
+        om = col(omega.to(p[0].dtype))
         p = axpy(beta, (p[0] - om * v[0], p[1] - om * v[1]), r)
         y = precond(p)
         v = matvec(y)
@@ -366,13 +392,53 @@ def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
         omega = dot(t, s) / _nz(dot(t, t))
         x = axpy(alpha, y, axpy(omega, z, x))
         r = axpy(-omega, t, s)
-        rho = rho_new
-        it += 1
+        return x, r, p, v, rho_new, alpha, omega
+
+    Ax0 = matvec(x0)
+    r0 = (b[0] - Ax0[0], b[1] - Ax0[1])
+    rhat = r0
+    b_norm2 = dot(b, b)
+    tol2 = torch.clamp(rtol ** 2 * b_norm2, min=atol ** 2)
+    one = torch.ones_like(b_norm2)
+    zero = (torch.zeros_like(b[0]), torch.zeros_like(b[1]))
+    carry = (x0, r0, zero, zero, one, one, one)
+    if not lead:
+        it = 0
+        while it < max_iter and host(dot(carry[1], carry[1]) > tol2):
+            carry = body(*carry)
+            it += 1
+    else:
+        n = b_norm2.shape[0]
+        cap = list(max_iter) if isinstance(max_iter, (list, tuple)) \
+            else [max_iter] * n
+        cap_d = torch.tensor(cap, device=b_norm2.device)
+        it = [0] * n
+        it_d = torch.zeros_like(cap_d)
+        # a loop at its bound reads nothing, as the single loop's test
+        while any(k < c for k, c in zip(it, cap)):
+            go_d = (dot(carry[1], carry[1]) > tol2) & (it_d < cap_d)
+            go = host(go_d)
+            if not any(go):
+                break
+            new = body(*carry)
+            carry = new if all(go) else tuple(
+                member_select(go_d, a, b_) for a, b_ in zip(new, carry))
+            it_d = it_d + go_d
+            it = [k + g for k, g in zip(it, go)]
+    x, r = carry[:2]
     # breakdown guard: near-breakdown (rho/omega cancellation, worst in f32)
     # explodes the recurrences and the NaN residual exits the loop above;
     # never hand a diverged iterate back to the Newton/Picard caller
     rfin2 = dot(r, r)
     r02 = dot(r0, r0)
     ok = rfin2 <= r02          # False for NaN too
-    x = (torch.where(ok, x[0], x0[0]), torch.where(ok, x[1], x0[1]))
+    x = (torch.where(col(ok), x[0], x0[0]), torch.where(col(ok), x[1], x0[1]))
     return x, it, torch.where(ok, rfin2, r02)
+
+
+def member_select(take, a, b):
+    """Per member: ``a`` where the (B,) mask ``take`` is set, else ``b``;
+    pairs of fields, fields, or per-member scalars."""
+    if isinstance(a, tuple):
+        return tuple(member_select(take, x, y) for x, y in zip(a, b))
+    return torch.where(take.view(-1, *(1,) * (a.dim() - 1)), a, b)

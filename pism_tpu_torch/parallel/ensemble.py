@@ -9,13 +9,19 @@ written out: an ensemble's state is the members' states stacked on a
 leading axis (:func:`stack_states`, 2D fields ``(B, My, Mx)``, 3D fields
 ``(B, My, Mx, Mz)``), and :class:`EnsembleRunner` runs the model's twin
 built with ``member_axis=True`` (``IceModel._advance_members``): one host
-sync a lockstep step for the dt choice of every member, and the SIA kernels
-(K3, K4) launched once for all members.
+sync a lockstep step for the dt choice of every member, the SIA kernels
+(K3, K4) launched once for all members, and in the hybrid ``ssa+sia`` chain
+the SSA solve's kernels (K1, the Newton matvec, K2/K2b, the member dot)
+too, each member converging on its own with one host read of a ``(B,)``
+mask per lockstep decision.
 
-Per-member parameters reach the climate through the state, as in the JAX
-package's example: a ``FunctionSurface`` hook reads the member's value from
-a field it carries (``ice_area_specific_volume`` in the SIA chains, where
-part-grid is off), and sees one member at a time.
+Per-member parameters reach the model through the state, as in the JAX
+package: a ``FunctionSurface`` hook reads the member's value from a field
+it carries (``ice_area_specific_volume`` in the SIA chains, where part-grid
+is off) and sees one member at a time; the hybrid chain's members differ in
+their ``till_phi`` field, which Mohr-Coulomb reads. Every field of the
+state is stacked, the SSA velocities and the PDD's snow and firn depths
+(the surface carry) included.
 """
 
 from __future__ import annotations
@@ -70,9 +76,10 @@ class EnsembleRunner:
 
     ``model``: an ``IceModel`` of the SIA chains (``stress_balance.model =
     sia``, ``energy.model = enthalpy`` or ``none``) whose surface has a
-    member form (``Uniform``, ``FunctionSurface``); the runner builds its
-    member-axis twin per device. Other configurations raise
-    NotImplementedError there (ROADMAP Queue 1 item 11)."""
+    member form (``Uniform``, ``FunctionSurface``), or of the hybrid chain
+    (``setups.hybrid_ensemble_model``); the runner builds its member-axis
+    twin per device. Other configurations raise NotImplementedError there
+    (``IceModel``'s refusals, ROADMAP Queue 1 item 11)."""
 
     model: object
 

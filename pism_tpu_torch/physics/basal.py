@@ -2,7 +2,8 @@
 stress and the (pseudo-)plastic sliding-law drag coefficient.
 
 - Mohr-Coulomb: tau_c = c0 + tan(phi) N_till, with N_till from the till
-  water amount (Bueler & van Pelt 2015); phi from the bed elevation with
+  water amount (Bueler & van Pelt 2015); phi the state's ``till_phi`` field
+  (an ensemble's members may differ in it), from the bed elevation with
   ``topg_to_phi``, and no till drag at marine grounding lines with
   ``slippery_grounding_lines``;
 - a constant tau_c, or a prescribed tau_c field (an array, or ``tauc``
@@ -94,10 +95,11 @@ class MohrCoulombYieldStress:
         if self.slippery_gl:
             # grounded marine cells touching the ocean slide freely; the
             # neighbours wrap at the domain edges, as the JAX package's
-            # jnp.roll does
+            # jnp.roll does; y and x are the last two axes (an ensemble's
+            # fields lead with the member axis)
             o = S.ocean(mask)
-            nbr = (torch.roll(o, 1, 0) | torch.roll(o, -1, 0)
-                   | torch.roll(o, 1, 1) | torch.roll(o, -1, 1))
+            nbr = (torch.roll(o, 1, -2) | torch.roll(o, -1, -2)
+                   | torch.roll(o, 1, -1) | torch.roll(o, -1, -1))
             gl = S.grounded_ice(mask) & (state.geometry.bed_elevation
                                          < state.geometry.sea_level) & nbr
             tau_c = torch.where(gl, 0.0, tau_c)

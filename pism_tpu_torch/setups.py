@@ -17,7 +17,8 @@ with no energy model and a given or constant yield stress.
 ``paleo_ensemble_model`` is the paleo parameter ensemble of
 ``examples/paleo_ensemble.py`` (BASELINE config 5): thermo-coupled SIA
 members that differ in a temperature offset, stacked on a member axis for
-``parallel.ensemble.EnsembleRunner``.
+``parallel.ensemble.EnsembleRunner``; ``hybrid_ensemble_model`` the hybrid
+chain's ensemble, members that differ in their till friction angle.
 
 Each takes ``mesh``, a ``parallel.mesh.Mesh`` (e.g.
 ``make_mesh(["cuda:0"] * 4, (2, 2))``), which decomposes the model's kernel
@@ -104,6 +105,33 @@ def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cuda",
     if dtype == "float32":
         state = to_dtype(state, torch.float32)
     return model, state, grid
+
+
+#: The hybrid ensemble's members' till friction angles span [15, 40] degrees
+TILL_PHI_RANGE = (15.0, 40.0)
+
+
+def hybrid_ensemble_model(members: int, km: float = 20.0,
+                          dtype: str = "float32", device="cuda",
+                          extra_cfg=None):
+    """An ensemble of the hybrid chain (``hybrid_greenland_model``: SSA+SIA,
+    enthalpy, SeaRISE air and the PDD, the constant ocean, thickness
+    calving and iceberg removal, part-grid, pseudo-plastic Mohr-Coulomb
+    sliding, skip 10) whose members differ only in their till friction
+    angle: member b's ``till_phi`` is phi_b everywhere, the phi_b evenly
+    spaced over ``TILL_PHI_RANGE``. The JAX package's Mohr-Coulomb reads the
+    same field (``pism_tpu/state.py:187``). Returns (model, batched state,
+    grid, phi (numpy)); ``EnsembleRunner(model)`` runs it."""
+    from .parallel.ensemble import broadcast_state
+
+    model, state, grid = hybrid_greenland_model(dtype, km, device=device,
+                                                extra_cfg=extra_cfg)
+    phi = np.linspace(*TILL_PHI_RANGE, members)
+    batched = broadcast_state(state, members)
+    field = torch.tensor(phi, dtype=getattr(torch, dtype),
+                         device=torch.device(device))
+    return (model, batched.replace(till_phi=field[:, None, None].expand(
+        members, *grid.shape2).contiguous()), grid, phi)
 
 
 #: EISMINT II's bed is flat, so the bed smoother's theta is exactly 1 and

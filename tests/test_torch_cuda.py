@@ -1040,3 +1040,154 @@ def test_paleo_ensemble_on_the_card_matches_cpu(cuda):
     assert [s.nsteps for s in sa] == [s.nsteps for s in sb]
     assert [s.limit_hits for s in sa] == [s.limit_hits for s in sb]
     assert float((Hb - Ha).abs().max() / Ha.abs().max()) <= 1e-10
+
+
+def _ssa_members(kernel, B, dtype, device):
+    """(member-axis call, member b's single call, plain call) of one of the
+    SSA solve's member-axis kernels on random (B, 41, 23) inputs."""
+    from pism_tpu_torch.ops.kernels import member_dot as KD
+    rng = np.random.default_rng(40 + B)
+    shape = (B, 41, 23)
+
+    def t(x):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    u, v, du, dv = (t(rng.normal(size=shape) * 1e-5) for _ in range(4))
+    ne, nn, beta = (t(rng.uniform(1e13, 1e16, size=shape)) for _ in range(3))
+    du, dv = du * 0.1, dv * 0.1
+    if kernel == "ssa_matvec":
+        args = (u, v, ne, nn, beta)
+        return (lambda: K.ssa_matvec(*args, DX, DY),
+                lambda b: K.ssa_matvec(*(a[b] for a in args), DX, DY),
+                lambda: K.ssa_matvec_plain(*args, DX, DY))
+    if kernel == "ssa_newton_matvec":
+        ce, cn = (t(rng.normal(size=(*shape, 4)) * 1e10) for _ in range(2))
+        bc = torch.tensor(rng.uniform(size=shape) < 0.1, device=device)
+        args = (u, v, du, dv, ne, nn, ce, cn, beta, bc)
+        return (lambda: K.ssa_newton_matvec(*args, DX, DY),
+                lambda b: K.ssa_newton_matvec(*(a[b] for a in args), DX, DY),
+                lambda: K.ssa_newton_matvec_plain(*args, DX, DY))
+    if kernel == "member_dot":
+        # |r|^2-like sums (no cancellation, so the relative error is the
+        # summation order's alone)
+        w, z = u + du, v + dv
+        return (lambda: KD.member_dot((u, v), (w, z)),
+                lambda b: KD.member_dot((u[b:b + 1], v[b:b + 1]),
+                                        (w[b:b + 1], z[b:b + 1]))[0],
+                lambda: KD.member_dot_plain((u, v), (w, z)))
+    a, c = (t(rng.uniform(-0.2, 0.2, size=shape)) for _ in range(2))
+    r, s = t(rng.normal(size=shape)), t(rng.uniform(1.0, 2.0, size=shape))
+    sub = kernel == "pcr_lines_sub"
+    factor = K2.pcr_factor_lines_sub if sub else K2.pcr_factor_lines
+    plain = K2.pcr_factor_lines_sub_plain if sub else K2.pcr_factor_lines_plain
+
+    def members_first(f):
+        return tuple(x.movedim(-3, 0) if x.dim() == 4 else x
+                     for x in f.coefficients())
+
+    def one(b):
+        f = factor(a[b], None, c[b])
+        return (K2.pcr_apply(f, r[b], s[b]), *f.coefficients())
+
+    def batched():
+        f = factor(a, None, c)
+        return (K2.pcr_apply(f, r, s), *members_first(f))
+
+    def reference():
+        f = plain(a.cpu(), None, c.cpu())
+        return tuple(x.to(device) for x in (
+            K2.pcr_apply_plain(f, r.cpu(), s.cpu()), *members_first(f)))
+
+    return batched, one, reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["ssa_matvec", "ssa_newton_matvec",
+                                    "pcr_lines", "pcr_lines_sub",
+                                    "member_dot"])
+@pytest.mark.parametrize("B", [1, 3, 100])
+def test_ssa_member_launch_equals_single_launches(cuda, kernel, dtype, B):
+    """The SSA solve's member-axis launches (K1, the Newton matvec, K2b and
+    K2 factor and apply, the member dot): each member equal to the bit to
+    a launch of it alone, and the plain version at the kernels' tolerances
+    (``PERF.md`` section 6: the PCR kernels exactly, the dot as a sum in
+    another order)."""
+    batched, one, plain = _ssa_members(kernel, B, dtype, cuda)
+    got = batched()
+    got = got if isinstance(got, tuple) else (got,)
+    for b in range(B):
+        ref = one(b)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g, o in zip(got, ref):
+            assert _same_bits(g[b].reshape(o.shape), o)
+    tol = 0.0 if kernel.startswith("pcr") else TOL[dtype]
+    for g, p in zip(got, plain() if isinstance(plain(), tuple)
+                    else (plain(),)):
+        assert _rel(g, p) <= tol
+
+
+@pytest.mark.cuda
+def test_ssa_member_launches_count_once(cuda):
+    """One launch and one member count per call for all members; no single
+    launch counted."""
+    from pism_tpu_torch.ops.kernels import member_dot as KD
+    counters = ((K, "MEMBER_LAUNCHES", "LAUNCHES", "ssa_matvec"),
+                (K, "NEWTON_MEMBER_LAUNCHES", "NEWTON_LAUNCHES",
+                 "ssa_newton_matvec"),
+                (K2, "MEMBER_LAUNCHES", "LAUNCHES", "pcr_lines"),
+                (K2, "SUB_MEMBER_LAUNCHES", "SUB_LAUNCHES", "pcr_lines_sub"),
+                (KD, "LAUNCHES", None, "member_dot"))
+    for mod, member_count, single, kernel in counters:
+        batched, _, _ = _ssa_members(kernel, 7, torch.float32, cuda)
+        m0 = getattr(mod, member_count)
+        s0 = getattr(mod, single) if single else None
+        batched()
+        assert getattr(mod, member_count) - m0 == 1
+        if single:
+            assert getattr(mod, single) == s0
+
+
+@pytest.mark.cuda
+def test_hybrid_ensemble_members_independent_of_the_batch(cuda):
+    """Three hybrid-chain members at 100 km, float32, path A, 1 a on the
+    card: each equal to the bit to its run as a 1-member ensemble."""
+    from pism_tpu_torch.parallel.ensemble import (EnsembleRunner, member,
+                                                  stack_states)
+    model, batched, _, _ = setups.hybrid_ensemble_model(
+        3, 100.0, device=cuda,
+        extra_cfg={"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"})
+    runner = EnsembleRunner(model)
+    out, stats = runner.run_segment(batched, 0.0, SPY)
+    for b in range(3):
+        one, (s1,) = runner.run_segment(stack_states([member(batched, b)]),
+                                        0.0, SPY)
+        assert torch.equal(one.geometry.ice_thickness[0],
+                           out.geometry.ice_thickness[b])
+        assert torch.equal(one.enthalpy[0], out.enthalpy[b])
+        assert torch.equal(one.u_ssa[0], out.u_ssa[b])
+        assert (s1.nsteps, s1.ssa_newton_iters, s1.ssa_krylov_iters) == (
+            stats[b].nsteps, stats[b].ssa_newton_iters,
+            stats[b].ssa_krylov_iters)
+
+
+@pytest.mark.cuda
+def test_hybrid_ensemble_on_the_card_matches_cpu(cuda):
+    """Three hybrid-chain members at 100 km in float64 on path A, 2 a: the
+    card against the CPU, equal steps and dt-limit hits per member, volumes
+    within 1e-8 (the 100 km chain's bound in chip_smoke.py phase 1: the SSA
+    solve amplifies the devices' rounding)."""
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+    out = {}
+    for where in ("cpu", cuda):
+        model, batched, _, _ = setups.hybrid_ensemble_model(
+            3, 100.0, dtype="float64", device=where,
+            extra_cfg={"stress_balance.ssa.fd.line_pcr_impl":
+                       "pallas_sublane"})
+        st, stats = EnsembleRunner(model).run_segment(batched, 0.0, 2 * SPY)
+        out[str(where)] = (st.geometry.ice_thickness.sum(dim=(1, 2)).cpu(),
+                           stats)
+    (Va, sa), (Vb, sb) = out["cpu"], out[str(cuda)]
+    assert [s.nsteps for s in sa] == [s.nsteps for s in sb]
+    assert [s.limit_hits for s in sa] == [s.limit_hits for s in sb]
+    assert float(((Vb - Va).abs() / Va).max()) <= 1e-8

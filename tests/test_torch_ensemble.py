@@ -449,16 +449,52 @@ def test_ensemble_sharded_over_mesh():
 
 
 @pytest.mark.parametrize("extra", [
-    {"stress_balance.model": "ssa+sia"},
-    {"calving.methods": "thickness_calving"},
-    {"bed_deformation.model": "iso"}])
+    {"mesh": (2, 2)},
+    {"sea_level": 0.0},
+    {"bed_deformation.model": "iso"},
+    {"ocean": "pico"},
+    {"ocean": "pik"},
+    {"calving.methods": "eigen_calving,thickness_calving"}])
 def test_ensemble_refuses_what_it_cannot_run(extra):
-    model, _, _ = _t_halfar(Mx=11)
-    cfg = pt.Config(dict(_halfar_cfg(), **extra))
-    if extra.get("stress_balance.model") == "ssa+sia":
-        cfg.update({"stress_balance.ssa.flow_law": "isothermal_glen"})
-    with pytest.raises(NotImplementedError):
-        EnsembleRunner(dataclasses.replace(model, config=cfg))
+    """The hybrid chain's ensemble takes its own components (the next
+    test); a mesh, sea level, bed deformation, PICO or the PIK ocean, and
+    eigen calving are not ported to the member axis and raise."""
+    from pism_tpu_torch.coupler import ocean, pico, sealevel
+    from pism_tpu_torch.parallel import make_mesh
+    extra = dict(extra)
+    mesh = extra.pop("mesh", None)
+    model, _, grid = setups.hybrid_greenland_model(
+        "float64", km=100, device="cpu",
+        mesh=None if mesh is None else make_mesh(["cpu"] * 4, mesh),
+        extra_cfg={k: v for k, v in extra.items() if "." in k})
+    if "sea_level" in extra:
+        model = dataclasses.replace(
+            model, sea_level=sealevel.Constant(extra["sea_level"]))
+    if extra.get("ocean") == "pik":
+        model = dataclasses.replace(model, ocean=ocean.PIK(model.config))
+    if extra.get("ocean") == "pico":
+        full = torch.full(grid.shape2, 271.45, dtype=torch.float64)
+        model = dataclasses.replace(model, ocean=pico.Pico(
+            temperature_ocean=full, salinity_ocean=full * 0.0 + 34.65,
+            config=model.config, grid=grid))
+    what = {"mesh": "a mesh", "sea_level": "sea-level",
+            "bed_deformation.model": "bed deformation",
+            "ocean": "ocean model", "calving.methods": "calving.methods"}
+    with pytest.raises(NotImplementedError, match=what[next(iter(
+            {"mesh": 0} if mesh is not None else extra))]):
+        EnsembleRunner(model)
+
+
+def test_ensemble_takes_the_hybrid_chain():
+    """SSA+SIA, the PDD, the constant ocean, thickness calving, iceberg
+    removal and part-grid run on the member axis: the twin's components
+    take its member dims."""
+    model, _, _ = setups.hybrid_greenland_model("float64", km=100,
+                                                device="cpu")
+    twin = EnsembleRunner(model).twin("cpu")
+    assert twin.ssa.lead == 1 and twin.calving.lead == 1
+    assert twin.stress_balance.lead == 1 and twin.calving.remove_bergs
+    assert model.ssa.lead == 0 and model.calving.lead == 0
 
 
 def test_jax_package_is_the_reference():

@@ -26,6 +26,7 @@ def test_port_imports_no_jax():
         "import pism_tpu_torch, pism_tpu_torch.setups, pism_tpu_torch.convert\n"
         "import pism_tpu_torch.model.icemodel, pism_tpu_torch.ops.kernels.ssa_matvec\n"
         "import pism_tpu_torch.ops.kernels.pcr, pism_tpu_torch.ops.kernels.sia_thermo\n"
+        "import pism_tpu_torch.ops.kernels.member_dot\n"
         "import pism_tpu_torch.verification.eismint2\n"
         "import pism_tpu_torch.parallel.ensemble\n"
         "import pism_tpu_torch.examples.paleo_ensemble\n"
@@ -202,6 +203,7 @@ def _entry_points():
             "setups.mismip3d_model": setups.mismip3d_model,
             "setups.mismip_model": setups.mismip_model,
             "setups.paleo_ensemble_model": setups.paleo_ensemble_model,
+            "setups.hybrid_ensemble_model": setups.hybrid_ensemble_model,
             "verification.mismip.setup": mismip.setup,
             "verification.mismip.setup_3d": mismip.setup_3d,
             "verification.eismint2.setup": eismint2.setup,
