@@ -4,7 +4,8 @@
 
 Phase 1 builds the kernels from ``pism_tpu_torch/csrc`` (one ``nvcc`` per
 source, all started together) and holds each against its plain torch
-version on the card, relative max-norm error:
+version on the card, relative max-norm error (the paths' cases, float32 at
+their shapes and layouts, also timed):
   K1 ``ssa_matvec`` and ``ssa_matvec_jvp`` at the 20 km (141x76) and 5 km
   (301x561) grids, 1e-12 in float64 and 1e-5 in float32, and
   ``ssa_matvec`` at 9x33, 33x9 and 2x70, which no tile of its kernel
@@ -109,7 +110,8 @@ launch counters set to 0 just before it and read just after:
 
   phase 9: the PISM-PIK Antarctic chain (BASELINE config 4,
     ``setups.antarctica_pik_model``): (a) 251x251x31 float32 on path A,
-    the JAX example's first 10 a, a timed 10 a and 3 a with PICO, calving
+    the JAX example's first 10 a, a timed 5 a (cut from 10 to make room
+    for phase 13) and 3 a with PICO, calving
     and Lingle-Clark timed apart (and the host syncs of a PICO call);
     finite fields, a shelf with PICO melt, K1, the Newton matvec, K2 and
     K2b launched; (b) 125 km float64 on the card against the CPU: one step
@@ -175,8 +177,33 @@ launch counters set to 0 just before it and read just after:
     (equal steps and hits, volume within 2e-4); (c) on the ensemble's
     linearization K1, the Newton matvec, K2b and K2 factor and apply and
     the member dot against 100 single launches (to the bit) and their
-    plain versions, timed against them; (d) 4 members at 100 km float64,
-    2 a, card against CPU (equal steps and hits, volumes within 1e-7).
+    plain versions, timed against them, and the member dot against
+    ``torch.linalg.vecdot``; (d) 4 members at 100 km float64, 2 a, card
+    against CPU (equal steps and hits, volumes within 1e-7).
+  phase 13: the Antarctic ensemble (BASELINE config 5's "100-member
+    Antarctic paleo ensemble", ``setups.antarctica_pik_ensemble_model``:
+    the PISM-PIK chain from its data file, members differing in PICO's
+    ocean temperature, 0-2 K warmer): (a) 100 members at 251x251x31
+    float32 on path A through ``EnsembleRunner``, 1 a then a timed 2 a:
+    phase 12's lockstep figures, the peak device memory, the busy share of
+    a profiled window, and PICO's, calving's and Lingle-Clark's ms per
+    lockstep step with PICO's host syncs per call; finite fields, every
+    SSA kernel launched on the member axis and none singly (K3, K4, K5
+    idle), calving in every member, the bed moved in every member, a shelf
+    with PICO melt in every member, the members' sub-shelf and basal melt
+    against dT (correlation above 0.9); (b) members 0, 50 and 99 over the
+    1 a: equal to the bit to their 1-member ensembles (H, Href, E, u_ssa,
+    the bed, the viscous displacement, PICO's box index, steps, hits,
+    Newton and Krylov counts) and within phase 2b's envelope of their solo
+    chains; (c) on the 3 a state, ``Pico.members`` against 100 single PICO
+    calls (its melt within 1e-4 of the single form's, whose basin sums
+    add in torch's order) and one member-axis Lingle-Clark solve against
+    100 single solves, to the bit, timed; (e) (c) of phase 12 on that
+    state (100x251x251: K2b's and K2's lines of n = 251), and PICO's basin
+    sums (``member_sum`` over 300 basin rows) against one launch per row
+    and torch's sum; the kernel record's member-axis entries are phase
+    13's; (d) 4 members at 125 km float64, 2 a, card against CPU (equal
+    steps and hits, volumes within 1e-7).
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -333,14 +360,17 @@ def _check_launches(label, counts, launched, idle):
 
 
 def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
-                 match=None, nbytes=None, unpack=None, phase="phase1"):
-    """Kernel against plain version on the same inputs, then both timed,
-    and the kernel's bound from ``nbytes`` (by default the bytes of its
-    tensor inputs and outputs, each counted once) and ``nops`` operations.
-    ``match`` names the CUDA kernel, whose device time alone is printed
-    too; ``unpack`` turns a result that is no tensor into the tensors to
-    compare. Returns the kernel's record: events ms, plain events ms, max
-    abs err, bound ms and what sets the bound."""
+                 match=None, nbytes=None, unpack=None, phase="phase1",
+                 timed=True):
+    """Kernel against plain version on the same inputs, then (if
+    ``timed``) both timed, and the kernel's bound from ``nbytes`` (by
+    default the bytes of its tensor inputs and outputs, each counted once)
+    and ``nops`` operations. ``match`` names the CUDA kernel, whose device
+    time alone is printed too; ``unpack`` turns a result that is no tensor
+    into the tensors to compare. Returns the kernel's record: events ms,
+    plain events ms, max abs err, bound ms and what sets the bound (the
+    error alone if not timed). Phase 1 times the paths' cases only
+    (float32, their shapes and layouts); the others are checked."""
     import torch
     got = kern(*args)
     torch.cuda.synchronize()
@@ -355,6 +385,10 @@ def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
     if not err <= tol:
         raise AssertionError(f"{name} {label}: relative error {err:.3e} > "
                              f"{tol:.0e}")
+    if not timed:
+        print(f"{phase}: {name} {label} rel_err {err:.3e} (tol {tol:.0e}); "
+              "not timed")
+        return {"max_abs_err": abs_err}
     if nbytes is None:
         nbytes = sum(t.numel() * t.element_size()
                      for t in (*args, *got) if torch.is_tensor(t))
@@ -457,35 +491,40 @@ def _replaced_composition(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta,
             torch.where(bc, 0.0, Jv) + torch.where(bc, dv, 0.0))
 
 
-def _check_replaced(name, label, got, args, mesh=None, phase="phase1"):
+def _check_replaced(name, label, got, args, mesh=None, phase="phase1",
+                    timed=True):
     """``got`` against the replaced composition on the same inputs: equal
-    to the bit; both timed (CUDA events, the profiler's device time)."""
+    to the bit; if ``timed``, the composition timed (CUDA events, the
+    profiler's device time)."""
     import torch
     ref = _replaced_composition(*args, mesh=mesh)
     torch.cuda.synchronize()
     same = all(torch.equal(g, r) for g, r in zip(got, ref))
     diff = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    ms = _time_ms(lambda: _replaced_composition(*args, mesh=mesh), 50)
+    times = ""
+    if timed:
+        ms = _time_ms(lambda: _replaced_composition(*args, mesh=mesh), 50)
+        times = (f" events {ms:.4f} ms, device "
+                 f"{_us(lambda: _replaced_composition(*args, mesh=mesh))};")
     print(f"{phase}: {name} {label}: the replaced composition (plain tangent, "
           f"{'ssa_matvec_jvp' if mesh is None else 'ssa_matvec_sharded_jvp'}"
-          f", selects) events {ms:.4f} ms, device "
-          f"{_us(lambda: _replaced_composition(*args, mesh=mesh))}; equal to "
-          f"it to the bit {same} (max |diff| {diff:.3e})")
+          f", selects){times} equal to it to the bit {same} (max |diff| "
+          f"{diff:.3e})")
     if not same:
         raise AssertionError(f"{name} {label}: differs from the composition "
                              f"it replaces by {diff:.3e}")
 
 
-def _newton_case(label, args, tol, phase="phase1"):
+def _newton_case(label, args, tol, phase="phase1", timed=True):
     """The Newton matvec against its plain version (``_kernel_case``) and
     against the composition it replaces; returns the kernel's record."""
     from pism_tpu_torch.ops.kernels import ssa_matvec as K
     r = _kernel_case("ssa_newton_matvec", K.ssa_newton_matvec,
                      K.ssa_newton_matvec_plain, args, tol, label,
                      OPS["ssa_newton_matvec"] * args[0].numel(),
-                     match="newton", phase=phase)
+                     match="newton", phase=phase, timed=timed)
     _check_replaced("ssa_newton_matvec", label, K.ssa_newton_matvec(*args),
-                    args, phase=phase)
+                    args, phase=phase, timed=timed)
     return r
 
 
@@ -544,12 +583,13 @@ def phase1_kernels(dev):
                                  f"{My}x{Mx} {str(dtype)[6:]}",
                                  OPS[name] * My * Mx,
                                  match="ssa_matvec_tile"
-                                 if name == "ssa_matvec" else None)
+                                 if name == "ssa_matvec" else None,
+                                 timed=dtype == torch.float32)
                 if km == 20 and dtype == torch.float32:
                     out[name] = r
             r = _newton_case(f"{My}x{Mx} {str(dtype)[6:]}",
                              _newton_args(nrng, (My, Mx), dtype, dev)
-                             + (dx, dy), tol)
+                             + (dx, dy), tol, timed=dtype == torch.float32)
             if km == 20 and dtype == torch.float32:
                 out["ssa_newton_matvec"] = r
     # K1 at shapes that no tile of its kernel divides: narrower or shorter
@@ -565,7 +605,7 @@ def phase1_kernels(dev):
                          (*mv, 20e3, 20e3), tol,
                          f"{My}x{Mx} {str(dtype)[6:]}",
                          OPS["ssa_matvec"] * My * Mx, reps=50,
-                         match="ssa_matvec_tile")
+                         match="ssa_matvec_tile", timed=False)
 
     # K2 / K2b: (n, batch) of the u-lines (lanes) and v-lines (sub): the
     # one-shot form in both dtypes, then in float32 the apply launch alone
@@ -585,10 +625,12 @@ def phase1_kernels(dev):
             label = f"n={n} batch={batch} {str(dtype)[6:]}"
             nops = (OPS["pcr_factor_round"] + OPS["pcr_apply_round"]) \
                 * n * batch * rounds
+            f32 = dtype == torch.float32
             _kernel_case("pcr_lines_sub", K2.pcr_lines_sub,
-                         K2.pcr_lines_sub_plain, sub[:4], 0.0, label, nops)
+                         K2.pcr_lines_sub_plain, sub[:4], 0.0, label, nops,
+                         timed=f32)
             _kernel_case("pcr_lines", K2.pcr_lines, K2.pcr_lines_plain,
-                         lanes[:4], 0.0, label, nops)
+                         lanes[:4], 0.0, label, nops, timed=f32)
             if dtype != torch.float32:
                 continue
             field = n * batch * sub[0].element_size()
@@ -663,7 +705,8 @@ def phase1_kernels(dev):
                                      for i in (2, 3, 0, 1)),
                     a, tol, label,
                     2 * My * Mx * (OPS["sia_thermo_level"] * Mz
-                                   + OPS["sia_thermo_face"]), reps=50)
+                                   + OPS["sia_thermo_face"]), reps=50,
+                    timed=dtype == torch.float32 and layout == "level-major")
                 _check_max("sia_flux_thermo", label,
                            K3.sia_flux_thermo(*a, **kw))
                 if Mz == 61 and dtype == torch.float32 \
@@ -690,11 +733,13 @@ def phase1_kernels(dev):
                         *x, gamma=gam, dx=grid.dx, dy=grid.dy,
                         d_cap=d_cap)[i] for i in (2, 3, 0, 1)),
                     args, tol, label, OPS["sia_flux"] * M * M,
-                    match="sia_iso_kernel")
+                    match="sia_iso_kernel",
+                    timed=dtype == torch.float32 and d_cap is None)
                 _check_max("sia_flux", label, K4.sia_flux(*args, **kw))
                 if M == HALFAR_MX and dtype == torch.float32 and d_cap is None:
                     out["sia_flux"] = r
-    out.update(phase1_sharded(dev, rng))
+    print(f"phase1: the single-card kernels {time.time() - t0:.1f} s")
+    out.update(_timed("phase1 sharded", phase1_sharded, dev, rng))
     return out
 
 
@@ -743,6 +788,8 @@ def phase1_sharded(dev, rng):
         arrs["dnuH_n"] = rng.normal(size=(My, Mx)) * 1e14
         arrs["beta"] = rng.uniform(0.0, 1e10, size=(My, Mx))
         for dtype, tol in tols:
+            # the paths' shards (20 and 5 km on 2x2) timed, float32
+            timed = dtype == torch.float32 and mshape == (2, 2)
             t = {k: torch.tensor(a, dtype=dtype, device=dev)
                  for k, a in arrs.items()}
             label = (f"{My}x{Mx} on {ny}x{nx} ({(My + py) // ny}x"
@@ -778,7 +825,7 @@ def phase1_sharded(dev, rng):
                                  f"one shard of {label}",
                                  OPS[base] * my * mx,
                                  match="ssa_matvec_tile" if base == "ssa_matvec"
-                                 else "halo_jvp")
+                                 else "halo_jvp", timed=timed)
                 if km == 20 and mshape == (2, 2) and dtype == torch.float32:
                     out[name] = r
                 wargs = k1_args[:-2] + (mesh,) + k1_args[-2:]
@@ -786,13 +833,16 @@ def phase1_sharded(dev, rng):
                 torch.cuda.synchronize()
                 err = max(_rel_err(g, q) for g, q in zip(got, ref))
                 diff = max(float((g - q).abs().max()) for g, q in zip(got, one))
-                ms = _time_ms(lambda: whole(*wargs), 100)
-                ms1 = _time_ms(lambda: k1(*k1_args), 100)
+                times = ""
+                if timed:
+                    ms = _time_ms(lambda: whole(*wargs), 100)
+                    ms1 = _time_ms(lambda: k1(*k1_args), 100)
+                    times = (f"; events {ms:.4f} ms against K1 {ms1:.4f} ms; "
+                             f"device {_us(lambda: whole(*wargs))} against K1 "
+                             f"{_us(lambda: k1(*k1_args))}")
                 print(f"phase1: {name} {label}: the sharded call against the "
                       f"plain sharded call rel_err {err:.3e} (tol {tol:.0e}), "
-                      f"max |K5 - K1| {diff:.3e}; events {ms:.4f} ms against "
-                      f"K1 {ms1:.4f} ms; device {_us(lambda: whole(*wargs))} "
-                      f"against K1 {_us(lambda: k1(*k1_args))}")
+                      f"max |K5 - K1| {diff:.3e}{times}")
                 if not err <= tol:
                     raise AssertionError(f"{name} {label}: sharded call "
                                          f"against its plain version {err:.3e}")
@@ -844,12 +894,13 @@ def phase1_sharded(dev, rng):
                                  + OPS["sia_thermo_face"])
                             if name == "sia_flux_thermo" else OPS["sia_flux"])
             bound_ms, bound_by = _bound(nbytes, nops)
+            times = "" if dtype != torch.float32 else (
+                f"; events {_time_ms(sharded, 50):.4f} ms against "
+                f"{_time_ms(whole, 50):.4f} ms; device {_us(sharded)} "
+                f"against {_us(whole)}")
             print(f"phase1: K6 {name} {label} {str(dtype)[6:]} per shard of "
-                  f"2x2 against unsharded: equal {same}; events "
-                  f"{_time_ms(sharded, 50):.4f} ms against "
-                  f"{_time_ms(whole, 50):.4f} ms; device {_us(sharded)} "
-                  f"against {_us(whole)}; one shard's launch on "
-                  f"{tuple(blocks[0].shape)} blocks bound "
+                  f"2x2 against unsharded: equal {same}{times}; one shard's "
+                  f"launch on {tuple(blocks[0].shape)} blocks bound "
                   f"{1e3 * bound_ms:.3f} us ({bound_by}: {nbytes} bytes, "
                   f"{nops} operations)")
             if not same:
@@ -874,11 +925,13 @@ def _newton_sharded(rng, dev, mesh, shape, dtype, tol, label, dx, dy, out):
     two = [b[-1][-1] for b in S._blocks((u, v, du, dv, bc), 2, mesh, py, px)]
     one = [b[-1][-1] for b in S._blocks((ne, nn, ce, cn), 1, mesh, py, px)]
     b0 = S._blocks((beta,), 0, mesh, py, px)[0][-1][-1]
+    timed = dtype == torch.float32 and (ny, nx) == (2, 2)
     r = _kernel_case("ssa_newton_matvec_halo", K.ssa_newton_matvec_halo,
                      K.ssa_newton_matvec_halo_plain,
                      (nx == 1, ny == 1, *two[:4], *one, b0, two[4], dx, dy),
                      tol, f"one shard of {label}",
-                     OPS["ssa_newton_matvec"] * b0.numel(), match="newton")
+                     OPS["ssa_newton_matvec"] * b0.numel(), match="newton",
+                     timed=timed)
     out["ssa_newton_matvec_halo"] = r
     frozen = (u, v, ne, nn, ce, cn, beta, bc)
     mv = S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy)
@@ -888,21 +941,25 @@ def _newton_sharded(rng, dev, mesh, shape, dtype, tol, label, dx, dy, out):
     torch.cuda.synchronize()
     err = max(_rel_err(g, q) for g, q in zip(got, ref))
     same = all(torch.equal(g, w) for g, w in zip(got, whole))
+
+    def prepare():
+        return S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy)
+    times = "" if not timed else (
+        f"; events per matvec {_time_ms(lambda: mv(du, dv), 100):.4f} ms "
+        "against the unsharded "
+        f"{_time_ms(lambda: K.ssa_newton_matvec(*args, dx, dy), 100):.4f} "
+        f"ms, the preparation once per sweep {_time_ms(prepare, 20):.4f} ms;"
+        f" device per matvec {_us(lambda: mv(du, dv))}, the preparation "
+        f"{_us(prepare)}")
     print(f"phase1: ssa_newton_matvec_halo {label}: the sharded matvec "
           f"against the plain sharded one rel_err {err:.3e} (tol {tol:.0e}),"
-          f" equal to the unsharded kernel {same}; events per matvec "
-          f"{_time_ms(lambda: mv(du, dv), 100):.4f} ms against the unsharded"
-          f" {_time_ms(lambda: K.ssa_newton_matvec(*args, dx, dy), 100):.4f}"
-          f" ms, the preparation once per sweep "
-          f"{_time_ms(lambda: S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy), 20):.4f}"
-          f" ms; device per matvec {_us(lambda: mv(du, dv))}, the "
-          f"preparation {_us(lambda: S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy))}")
+          f" equal to the unsharded kernel {same}{times}")
     if not err <= tol or not same:
         raise AssertionError(f"ssa_newton_matvec_halo {label}: sharded "
                              f"{err:.3e} from plain, equal to unsharded "
                              f"{same}")
     _check_replaced("ssa_newton_matvec_halo", label, got, (*args, dx, dy),
-                    mesh)
+                    mesh, timed=timed)
 
 
 def check_newton_matvec(model, state, t, label="on the 20 km chain's "
@@ -2173,7 +2230,7 @@ def phase8_workflow(dev, d, data_km=5.0, model_km=20.0,
 
 #: the JAX example's width (251 x 251 x 31) and first segment; the timed
 #: window after it and the components' window
-PIK_KM, PIK_FIRST, PIK_WINDOW, PIK_PARTS = 16.0, 10.0, 10.0, 3.0
+PIK_KM, PIK_FIRST, PIK_WINDOW, PIK_PARTS = 16.0, 10.0, 5.0, 3.0
 #: the card-against-CPU chain: 125 km (33 x 33 x 31); at 50-100 km the
 #: reference's PICO gives non-finite melt on the initial state
 PIK_CHECK_KM = 125.0
@@ -2229,19 +2286,14 @@ def _pik_report(label, grid, years, stats, wall, counts, state, floating):
           f"melt {float(stats.sum_bmb) / 1e9:.3f} km^3")
 
 
-def pik_components(model, state, t, years, label):
-    """Inclusive ms per step of PICO, calving and Lingle-Clark (and the
-    stress balance and mass transport around them), from host timers with
-    the card synchronised on entry and exit, and the host syncs one PICO
-    call takes."""
+def _component_times(targets, run):
+    """``run()`` with each (object, attribute, label) of ``targets`` timed
+    inclusively by host timers, the card synchronised on entry and exit
+    of every call; the label "PICO" also counts its calls and host syncs.
+    Returns (run's result, seconds per label, {"n", "syncs"}, wall s)."""
     import torch
     from pism_tpu_torch.util import hostsync
 
-    targets = [(model.stress_balance, "update", "stress balance"),
-               (model, "_mass_substep", "mass transport (PICO inside)"),
-               (model.ocean, "inputs", "PICO"),
-               (model.calving, "step", "calving"),
-               (model.bed_deformation, "step", "Lingle-Clark")]
     acc = {lab: 0.0 for _, _, lab in targets}
     calls = {"n": 0, "syncs": 0}
 
@@ -2261,9 +2313,26 @@ def pik_components(model, state, t, years, label):
     with _patched(targets, wrap):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, t, stats = model.step_once(state, t, years * SPY)
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return out, acc, calls, wall
+
+
+def pik_components(model, state, t, years, label):
+    """Inclusive ms per step of PICO, calving and Lingle-Clark (and the
+    stress balance and mass transport around them), from host timers with
+    the card synchronised on entry and exit, and the host syncs one PICO
+    call takes."""
+    import torch
+
+    targets = [(model.stress_balance, "update", "stress balance"),
+               (model, "_mass_substep", "mass transport (PICO inside)"),
+               (model.ocean, "inputs", "PICO"),
+               (model.calving, "step", "calving"),
+               (model.bed_deformation, "step", "Lingle-Clark")]
+    (state, t, stats), acc, calls, wall = _component_times(
+        targets, lambda: model.step_once(state, t, years * SPY))
     n = stats.nsteps
     parts = ", ".join(f"{lab} {1e3 * v / n:.1f}" for lab, v in acc.items())
     # the bed solves once per update interval: one solve alone
@@ -2869,6 +2938,14 @@ def _sync():
     torch.cuda.synchronize()
 
 
+def _timed(label, fn, *args):
+    """``fn(*args)``, its wall time printed under ``label``."""
+    t = time.time()
+    result = fn(*args)
+    print(f"{label}: {time.time() - t:.1f} s")
+    return result
+
+
 def _lockstep(stats):
     """Lockstep steps of a segment: the most any member took (a member
     steps from the segment's start until it is done)."""
@@ -3251,7 +3328,8 @@ def _hybrid_report(label, n, stats, wall, years, counts):
         return f"{x.min():.2f} / {np.median(x):.2f} / {x.max():.2f}"
 
     print(f"{label}: {n} members, {years} a: lockstep steps {lock}, member "
-          f"steps {min(steps)}-{max(steps)}; Newton sweeps per lockstep step "
+          f"steps {min(steps)}-{max(steps)} (median {np.median(steps):g}); "
+          f"Newton sweeps per lockstep step "
           f"{stats[0].ssa_lockstep_newton / lock:.2f} (the lockstep's), each "
           f"member's per own step min / median / max {spread(newton)}; "
           f"Krylov iterations per lockstep step "
@@ -3289,7 +3367,7 @@ def phase12a_hybrid(dev, smi):
     """The hybrid chain's ensemble at its width: 100 members at 141x76x41
     float32 on path A through EnsembleRunner, 2 a then 3 a timed; the
     sliding speed against the till angle. Returns (model, runner, initial
-    batched state, the 2 a state and stats, the 5 a state, counts)."""
+    batched state, the 2 a state and stats)."""
     import numpy as np
     import torch
     from pism_tpu_torch import setups
@@ -3334,7 +3412,7 @@ def phase12a_hybrid(dev, smi):
         raise AssertionError(f"phase12a: sliding-phi correlation {corr:.3f}")
     _profile_ensemble(runner, out, (HYB_FIRST + HYB_TIMED) * SPY, 0.25,
                       "phase12a")
-    return model, runner, batched, s2, st2, counts
+    return model, runner, batched, s2, st2
 
 
 def phase12b_members(model, runner, batched, s2, st2):
@@ -3381,16 +3459,17 @@ def phase12b_members(model, runner, batched, s2, st2):
 
 
 def _member_ssa_case(name, label, fn, plain, args, single, tol, nops, match,
-                     unpack=None, nbytes=None):
+                     unpack=None, nbytes=None, phase="phase12c",
+                     singles_timed=True):
     """A member-axis launch ``fn(*args)`` against its plain version
     (``_kernel_case``: error, events, profiler, bound) and against member
     b's single launch ``single(b)``, to the bit for every member; one launch
     timed against the B single launches (the profiler, a CUDA-graph
-    replay). ``unpack`` turns a result into tensors with the members
-    leading. Returns the record."""
+    replay) if ``singles_timed``. ``unpack`` turns a result into tensors
+    with the members leading. Returns the record."""
     import torch
     r = _kernel_case(name, fn, plain, args, tol, label, nops, reps=50,
-                     unpack=unpack, nbytes=nbytes, phase="phase12c")
+                     unpack=unpack, nbytes=nbytes, phase=phase)
     unpack = unpack or (lambda x: x if isinstance(x, tuple) else (x,))
     got = unpack(fn(*args))
     B = got[0].shape[0]
@@ -3401,6 +3480,10 @@ def _member_ssa_case(name, label, fn, plain, args, single, tol, nops, match,
             if not torch.equal(g.view(bits[g.dtype]), o.view(bits[o.dtype])):
                 raise AssertionError(f"{name} {label}: member {b} output {k} "
                                      "differs from its single launch")
+    if not singles_timed:
+        print(f"{phase}: {name} {label}: one launch for {B} members equal to "
+              f"the bit to {B} single launches")
+        return r
 
     def singles():
         for b in range(B):
@@ -3409,18 +3492,20 @@ def _member_ssa_case(name, label, fn, plain, args, single, tol, nops, match,
     one_us = _kernel_us(lambda: fn(*args), match, 1)
     many_us = _kernel_us(singles, match, B)
     one_g, many_g = _graph_us(lambda: fn(*args)), _graph_us(singles)
-    print(f"phase12c: {name} {label}: one launch for {B} members equal to "
+    print(f"{phase}: {name} {label}: one launch for {B} members equal to "
           f"the bit to {B} single launches; the kernel alone {one_us} "
           f"against {many_us} in {B} launches (profiler); from a CUDA graph "
           f"{one_g:.2f} us against {many_g:.2f} us")
     return r
 
 
-def phase12c_kernels(model, state):
-    """On the ensemble's linearization at its 2 a state (every member's
+def phase12c_kernels(model, state, phase="phase12c"):
+    """On an ensemble's linearization at its state (every member's
     operator, drag and line systems of a Newton sweep): K1, the Newton
     matvec, K2b and K2 factor and apply, and the member dot against B single
-    launches and their plain versions. Returns their records."""
+    launches (to the bit) and their plain versions (to the tolerances
+    stated), the dot also against ``torch.linalg.vecdot``. ``phase`` labels
+    the lines. Returns their records."""
     import torch
     from pism_tpu_torch.ops import ssa as ssa_ops
     from pism_tpu_torch.ops.kernels import member_dot as KD
@@ -3454,14 +3539,14 @@ def phase12c_kernels(model, state):
         lambda *a: K1.ssa_matvec(*a, dx, dy),
         lambda *a: K1.ssa_matvec_plain(*a, dx, dy), a1,
         lambda b: K1.ssa_matvec(*(x[b] for x in a1), dx, dy), 1e-5,
-        OPS["ssa_matvec"] * n, "ssa_matvec_tile")
+        OPS["ssa_matvec"] * n, "ssa_matvec_tile", phase=phase)
     a2 = (u, v, du, dv, nuH.e, nuH.n, ce, cn, beta, bc)
     out["ssa_newton_matvec_members"] = _member_ssa_case(
         "ssa_newton_matvec_members", label + ")",
         lambda *a: K1.ssa_newton_matvec(*a, dx, dy),
         lambda *a: K1.ssa_newton_matvec_plain(*a, dx, dy), a2,
         lambda b: K1.ssa_newton_matvec(*(x[b] for x in a2), dx, dy), 1e-5,
-        OPS["ssa_newton_matvec"] * n, "newton")
+        OPS["ssa_newton_matvec"] * n, "newton", phase=phase)
     a3 = (u, v, du, dv)
     out["member_dot"] = _member_ssa_case(
         "member_dot", label + ")",
@@ -3469,7 +3554,20 @@ def phase12c_kernels(model, state):
         lambda a0, a1_, b0, b1: KD.member_dot_plain((a0, a1_), (b0, b1)),
         a3, lambda b: KD.member_dot(*(tuple(x[b:b + 1] for x in p)
                                       for p in ((u, v), (du, dv)))),
-        1e-5, 4 * n, "member_dot")
+        1e-5, 4 * n, "member_dot", phase=phase)
+    # the one PyTorch call for the same (B,) dots: torch.linalg.vecdot over
+    # each member's u and v halves, prepared as one (B, 2 My Mx) pair (its
+    # order of addition is torch's, which the kernel's fixed order is not)
+    uv = torch.cat((u.flatten(1), v.flatten(1)), 1)
+    duv = torch.cat((du.flatten(1), dv.flatten(1)), 1)
+    lib = torch.linalg.vecdot(uv, duv)
+    ref = KD.member_dot_plain((u, v), (du, dv))
+    out["member_dot"]["library_ms"] = _time_ms(
+        lambda: torch.linalg.vecdot(uv, duv), 50)
+    print(f"{phase}: member_dot {label}): torch.linalg.vecdot on the "
+          f"(B, 2 My Mx) pair {out['member_dot']['library_ms']:.4f} ms "
+          f"(events), rel err {_rel_err(lib, ref):.3e} against the plain "
+          "version")
 
     def members_first(f):
         return tuple(x.movedim(-3, 0) if x.dim() == 4 else x
@@ -3491,7 +3589,7 @@ def phase12c_kernels(model, state):
             lambda a_, c_, f=plain: f(a_, None, c_), (a, c),
             lambda b, f=factor, a=a, c=c: f(a[b], None, c[b]), 0.0,
             OPS["pcr_factor_round"] * n * rounds, "pcr_factor",
-            unpack=members_first)
+            unpack=members_first, phase=phase)
         fac = factor(a, None, c)
         pfac = plain(a, None, c)
         rec = _member_ssa_case(
@@ -3500,13 +3598,13 @@ def phase12c_kernels(model, state):
             lambda r_, s_, f=pfac: K2.pcr_apply_plain(f, r_, s_), (r, s),
             lambda b, fs=singles, r=r, s=s: K2.pcr_apply(fs[b], r[b], s[b]),
             0.0, OPS["pcr_apply_round"] * n * rounds, "pcr_apply",
-            nbytes=5 * n * r.element_size())
+            nbytes=5 * n * r.element_size(), phase=phase)
         x = K2.pcr_apply(fac, r, s)
         fold = (lambda t: t.transpose(1, 2).reshape(B * Mx, My)) if sub \
             else (lambda t: t.reshape(B * My, Mx))
         rec["library_ms"] = _dense_solve_ms(
             fold(a), fold(c), fold(r / s), False, fold(x),
-            f"{B} members, {lines}", phase="phase12c")
+            f"{B} members, {lines}", phase=phase)
         out[name] = rec
     return out
 
@@ -3546,14 +3644,341 @@ def phase12d_card_vs_cpu(dev):
 
 
 def phase12_hybrid_ensemble(dev, smi):
-    """Phase 12; returns (the member-axis kernels' records, the timed
-    run's launch counts)."""
+    """Phase 12 (its member-axis kernels' records and launches print; the
+    kernels line takes phase 13's)."""
     t = time.time()
-    model, runner, batched, s2, st2, counts = phase12a_hybrid(dev, smi)
+    model, runner, batched, s2, st2 = phase12a_hybrid(dev, smi)
     print(f"phase12a: {time.time() - t:.1f} s")
     phase12b_members(model, runner, batched, s2, st2)
-    records = phase12c_kernels(model, s2)
+    phase12c_kernels(model, s2)
     phase12d_card_vs_cpu(dev)
+
+
+# -- phase 13: the Antarctic ensemble (BASELINE config 5 on the PIK chain) -
+
+#: the PISM-PIK chain's ensemble from its data file: members, the warm-up
+#: and the timed segment [a], the members held against their own runs, the
+#: profiled and the components' windows [a] (one lockstep step each)
+PIKE_MEMBERS, PIKE_FIRST, PIKE_TIMED = 100, 1.0, 2.0
+PIKE_SOLO = (0, 50, 99)
+PIKE_PROFILE, PIKE_PARTS = 0.25, 0.25
+
+
+def _member_pico(pico, b, solo):
+    """PICO with member b's water, for its solo chain (``temperature_ocean``)
+    or its 1-member ensemble (``member_temperature``)."""
+    import dataclasses
+    mt = pico.member_temperature
+    return dataclasses.replace(pico, **(
+        {"temperature_ocean": mt[b]} if solo
+        else {"member_temperature": mt[b:b + 1]}))
+
+
+def _member_model(model, b, solo):
+    import dataclasses
+    return dataclasses.replace(model, ocean=_member_pico(model.ocean, b, solo))
+
+
+def _pike_components(runner, state, t0, years, label):
+    """Inclusive ms per lockstep step of the twin's stress balance, mass
+    transport (PICO inside), PICO, calving and Lingle-Clark (host timers,
+    the card synchronised on entry and exit), and PICO's host syncs per
+    call. Returns (state, PICO's share of the step)."""
+    twin = runner.twin(state.geometry.ice_thickness.device)
+    targets = [(twin.stress_balance, "update", "stress balance"),
+               (twin, "_mass_substep", "mass transport (PICO inside)"),
+               (twin.ocean, "members", "PICO"),
+               (twin.calving, "step", "calving"),
+               (twin.bed_deformation, "members_step", "Lingle-Clark")]
+    (state, stats), acc, calls, wall = _component_times(
+        targets, lambda: runner.run_segment(state, t0, t0 + years * SPY))
+    lock = _lockstep(stats)
+    parts = ", ".join(f"{lab} {1e3 * v / lock:.1f}" for lab, v in acc.items())
+    print(f"{label}: {years} a, {lock} lockstep steps, "
+          f"{1e3 * wall / lock:.1f} ms per lockstep step with the timers; "
+          f"inclusive ms per lockstep step: {parts}; PICO {calls['n']} calls "
+          f"({calls['n'] / lock:.0f} per lockstep step), "
+          f"{calls['syncs'] / max(calls['n'], 1):.1f} host syncs per call "
+          "(phase 9a prints a solo call's)")
+    return state, acc["PICO"] / wall
+
+
+def phase13a_antarctic(dev, smi):
+    """The PISM-PIK chain's ensemble at its width: 100 members at 251x251x31
+    float32 on path A from the data file, members differing in PICO's
+    ocean temperature (0-2 K warmer), 1 a then 2 a timed. Returns (model,
+    runner, initial batched state, the 1 a state and stats, the 3 a state,
+    dT, counts of the timed run)."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch import state as S
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    torch.cuda.reset_peak_memory_stats()
+    w0 = time.perf_counter()
+    model, batched, grid, dT = setups.antarctica_pik_ensemble_model(
+        PIKE_MEMBERS, PIK_KM, device=dev, extra_cfg=PATH_A)
+    _sync()
+    print(f"phase13a: {smi}; setup (data file, bootstrap, couplers, "
+          f"{PIKE_MEMBERS} copies) {time.perf_counter() - w0:.2f} s")
+    runner = EnsembleRunner(model)
+    s1, st1, wall1, counts1 = _hybrid_run(runner, batched, 0.0, PIKE_FIRST,
+                                          "phase13a first")
+    out, st, wall, counts = _hybrid_run(runner, s1, PIKE_FIRST, PIKE_TIMED,
+                                        "phase13a")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _hybrid_report(f"phase13a first {PIKE_FIRST} a (untimed warm-up)",
+                   PIKE_MEMBERS, st1, wall1, PIKE_FIRST, counts1)
+    _hybrid_report(f"phase13a timed {grid.My}x{grid.Mx}x{grid.Mz} float32 "
+                   "path A", PIKE_MEMBERS, st, wall, PIKE_TIMED, counts)
+    print(f"phase13a: peak device memory {peak:.2f} GiB "
+          "(torch.cuda.max_memory_allocated)")
+    for name in ("bed_elevation", "ice_area_specific_volume"):
+        if not bool(torch.isfinite(getattr(out.geometry, name)).all()):
+            raise AssertionError(f"phase13a: non-finite {name}")
+    if not bool(torch.isfinite(out.bed_uplift).all()):
+        raise AssertionError("phase13a: non-finite bed_uplift")
+    calved = np.array([float(a.sum_calving) + float(b.sum_calving)
+                       for a, b in zip(st1, st)])
+    melted = np.array([float(a.sum_bmb) + float(b.sum_bmb)
+                       for a, b in zip(st1, st)])
+    moved = (out.bed_uplift != batched.bed_uplift).flatten(1).any(1)
+    floating = S.floating_ice(out.geometry.cell_type)
+    melt = model.ocean.members(out.geometry, None)
+    shelf_melt = torch.where(floating, melt, 0.0).amax(dim=(1, 2))
+    vols = out.geometry.ice_thickness.double().sum(dim=(1, 2)).cpu().numpy() \
+        * grid.dx * grid.dy / 1e15
+    corr = float(np.corrcoef(dT, melted)[0, 1])
+    print(f"phase13a: over the {PIKE_FIRST + PIKE_TIMED} a, calving "
+          f"{calved.max() / 1e9:.3f} to {calved.min() / 1e9:.3f} km^3 a "
+          f"member, bed moved in {int(moved.sum())} members, shelf cells "
+          f"{int(floating.sum(dim=(1, 2)).min())}-"
+          f"{int(floating.sum(dim=(1, 2)).max())}, max PICO melt "
+          f"{float(shelf_melt.min()) * SPY:.3f}-"
+          f"{float(shelf_melt.max()) * SPY:.3f} m/a; sub-shelf and basal "
+          f"melt {melted[0] / 1e9:.3f} km^3 (dT {dT[0]:g} K) to "
+          f"{melted[-1] / 1e9:.3f} km^3 (dT {dT[-1]:g} K), correlation with "
+          f"dT {corr:.4f} (must be above 0.9); volumes "
+          f"{vols.min():.6f}-{vols.max():.6f} 1e6 km^3, volume-dT "
+          f"correlation {float(np.corrcoef(dT, vols)[0, 1]):.4f}")
+    if not (calved < 0.0).all():
+        raise AssertionError("phase13a: a member did not calve")
+    if not bool(moved.all()):
+        raise AssertionError("phase13a: Lingle-Clark left a member's bed")
+    if not (bool(floating.any(dim=(1, 2)).all())
+            and bool((shelf_melt > 0.0).all())):
+        raise AssertionError("phase13a: a member has no shelf with PICO melt")
+    if not corr > 0.9:
+        raise AssertionError(f"phase13a: melt-dT correlation {corr:.3f}")
+    t3 = (PIKE_FIRST + PIKE_TIMED) * SPY
+    _profile_ensemble(runner, out, t3, PIKE_PROFILE, "phase13a")
+    _, share = _pike_components(runner, out, t3, PIKE_PARTS,
+                                "phase13a components")
+    print(f"phase13a: PICO's share of a lockstep step {share:.3f}")
+    return model, runner, batched, s1, st1, out, dT, counts
+
+
+def phase13b_members(model, runner, batched, s1, st1):
+    """Members 0, 50 and 99 over the 1 a warm-up: each equal to the bit to
+    its run as a 1-member ensemble (H, Href, E, u_ssa, the bed, the viscous
+    displacement, PICO's box index, steps, hits, Newton and Krylov
+    counts), and within phase 2b's envelope of its solo chain (equal steps
+    and dt-limit hits, volume within 2e-4)."""
+    import torch
+    from pism_tpu_torch.parallel.ensemble import (EnsembleRunner, member,
+                                                  stack_states)
+
+    pico = model.ocean
+    for b in PIKE_SOLO:
+        one_model = _member_model(model, b, solo=False)
+        one, (so,) = EnsembleRunner(one_model).run_segment(
+            stack_states([member(batched, b)]), 0.0, PIKE_FIRST * SPY)
+        same = {n: torch.equal(getattr(one.geometry, n)[0],
+                               getattr(s1.geometry, n)[b])
+                for n in ("ice_thickness", "ice_area_specific_volume",
+                          "bed_elevation")}
+        same.update({n: torch.equal(getattr(one, n)[0], getattr(s1, n)[b])
+                     for n in ("enthalpy", "u_ssa", "v_ssa", "bed_uplift")})
+        same["box"] = torch.equal(
+            one_model.ocean.boxes(one.geometry, 1).box[0],
+            pico.boxes(s1.geometry, 1).box[b])
+        e = st1[b]
+        counts = ((so.nsteps, so.limit_hits, so.ssa_newton_iters,
+                   so.ssa_krylov_iters)
+                  == (e.nsteps, e.limit_hits, e.ssa_newton_iters,
+                      e.ssa_krylov_iters))
+        solo = _member_model(model, b, solo=True)
+        st, _, ss = solo.step_once(member(batched, b), 0.0, PIKE_FIRST * SPY)
+        V = float(st.geometry.ice_thickness.double().sum())
+        Ve = float(s1.geometry.ice_thickness[b].double().sum())
+        rel = abs(Ve - V) / V
+        print(f"phase13b: member {b}: as a 1-member ensemble equal to the "
+              f"bit {same}, counts (steps {e.nsteps}, hits, Newton "
+              f"{e.ssa_newton_iters}, Krylov {e.ssa_krylov_iters}) equal "
+              f"{counts}; solo chain: steps {ss.nsteps} / {e.nsteps}, hits "
+              f"{ss.limit_hits_dict()} / {e.limit_hits_dict()}, Newton "
+              f"{ss.ssa_newton_iters}, Krylov {ss.ssa_krylov_iters}, volume "
+              f"rel diff {rel:.3e} (tol 2e-4)")
+        if not (all(same.values()) and counts):
+            raise AssertionError(f"phase13b: member {b} differs from its "
+                                 "1-member ensemble")
+        if ss.nsteps != e.nsteps \
+                or ss.limit_hits_dict() != e.limit_hits_dict() \
+                or not rel <= 2e-4:
+            raise AssertionError(f"phase13b: member {b} and its solo chain "
+                                 "disagree")
+
+
+#: PICO's member form against its single form, whose basin sums add in
+#: torch's order: the largest difference in melt, of each member's max
+#: melt (3.1e-5-3.2e-5 measured on an NVIDIA H100 80GB HBM3, 700.00 W)
+PICO_SOLO_TOL = 1e-4
+
+
+def _wall_ms(fn, reps=3):
+    """ms per call of ``fn`` on the host's clock, the card synchronised
+    before and after."""
+    _sync()
+    w0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync()
+    return 1e3 * (time.perf_counter() - w0) / reps
+
+
+def phase13c_components(model, state):
+    """On the ensemble's 3 a state: ``Pico.members`` against 100 single
+    PICO calls (box index and distances equal to the single form's, the
+    melt to the bit to each member's 1-member call, and within
+    ``PICO_SOLO_TOL`` of the single form's, which differs by its basin
+    sums' order) and one member-axis Lingle-Clark solve (a dt per member)
+    against 100 single solves, to the bit; each timed against the single
+    calls."""
+    import torch
+    from pism_tpu_torch.parallel.ensemble import member
+
+    pico, lc = model.ocean, model.bed_deformation
+    B = state.geometry.ice_thickness.shape[0]
+    geoms = [member(state, b).geometry for b in range(B)]
+    singles = [_member_pico(pico, b, solo=True) for b in range(B)]
+    ones = [_member_pico(pico, b, solo=False) for b in range(B)]
+    one_ms = _wall_ms(lambda: pico.members(state.geometry, None))
+    melt = pico.members(state.geometry, None)
+    boxes = pico.boxes(state.geometry, 1)
+    pfs = []
+    many_ms = _wall_ms(lambda: pfs.extend(singles[b].solve(geoms[b], 0.0)
+                                          for b in range(B)), 1)
+    solo_diff = 0.0
+    for b, pf in enumerate(pfs):
+        g1 = member(state, slice(b, b + 1)).geometry
+        if not (torch.equal(melt[b], ones[b].members(g1, None)[0])
+                and all(torch.equal(x[b], y) for x, y in
+                        zip(boxes, (pf.box, pf.d_gl, pf.d_if)))):
+            raise AssertionError(f"phase13c: PICO member {b} differs from "
+                                 "its single call")
+        scale = float(pf.melt.abs().max())
+        solo_diff = max(solo_diff,
+                        float((melt[b] - pf.melt).abs().max()) / scale)
+    print(f"phase13c: Pico.members of {B} members: box index and distances "
+          f"equal to {B} single calls, melt equal to the bit to each "
+          f"member's 1-member call and within {solo_diff:.3e} of the single "
+          f"form's max melt (its basin sums in torch's order; tol "
+          f"{PICO_SOLO_TOL:.0e}); {one_ms:.1f} ms against {many_ms:.1f} ms "
+          f"for {B} single calls (synchronised host timers)")
+    if not solo_diff <= PICO_SOLO_TOL:
+        raise AssertionError(f"phase13c: PICO's member form is {solo_diff:.3e}"
+                             " of the max melt from its single form")
+    dts = [(1.0 + b / B) * SPY for b in range(B)]
+    U = state.bed_uplift
+    dt = torch.tensor(dts, dtype=torch.float64, device=U.device).to(
+        U.dtype).view(-1, 1, 1)
+    got = lc._solve(state, dt)
+    members = [member(state, b) for b in range(B)]
+    for b in range(B):
+        want = lc._solve(members[b], dts[b])
+        if not (torch.equal(got.bed_uplift[b], want.bed_uplift)
+                and torch.equal(got.geometry.bed_elevation[b],
+                                want.geometry.bed_elevation)):
+            raise AssertionError(f"phase13c: Lingle-Clark member {b} differs "
+                                 "from its single solve")
+
+    def lc_singles():
+        for b in range(B):
+            lc._solve(members[b], dts[b])
+
+    one_ms = _wall_ms(lambda: lc._solve(state, dt))
+    many_ms = _wall_ms(lc_singles, 1)
+    print(f"phase13c: one Lingle-Clark solve of {B} members (batched cuFFT, "
+          f"a dt each) equal to the bit to {B} single solves; {one_ms:.2f} ms "
+          f"against {many_ms:.2f} ms (synchronised host timers)")
+
+
+def phase13e_kernels(model, state):
+    """Phase 12c's holds on the Antarctic ensemble's 3 a state, 100 x 251 x
+    251 (K2b's and K2's lines of n = 251 on the member axis), and PICO's
+    basin sums: ``member_sum`` over the (B nb, My, Mx) basin rows of the
+    members' water under their shelves against one launch per row (to the
+    bit) and torch's sum of the same rows (1e-5). Returns the records."""
+    import torch
+    from pism_tpu_torch import state as S
+    from pism_tpu_torch.ops.kernels import member_dot as KD
+
+    out = phase12c_kernels(model, state, "phase13e")
+    pico = model.ocean
+    shelf = S.floating_ice(state.geometry.cell_type)
+    x = pico.member_temperature * shelf.to(pico.member_temperature.dtype)
+    rows = torch.where(pico.onehot, x[:, None], 0.0).reshape(
+        -1, *x.shape[-2:])
+    R, My, Mx = rows.shape
+    out["member_sum"] = _member_ssa_case(
+        "member_sum", f"{R}x{My}x{Mx} float32 (PICO's basin rows of "
+        f"{x.shape[0]} members)", KD.member_sum,
+        lambda r: r.sum(dim=(-2, -1)), (rows,),
+        lambda b: KD.member_sum(rows[b:b + 1]), 1e-5, rows.numel(),
+        "member_dot", phase="phase13e", singles_timed=False)
+    return out
+
+
+def phase13d_card_vs_cpu(dev):
+    """A 4-member Antarctic ensemble at 125 km (phase 9b's size) in float64,
+    path A, 2 a on the card and on the CPU: equal steps and dt-limit hits
+    per member, volumes within 1e-7."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    runs = {}
+    for where in ("cpu", dev):
+        model, batched, grid, _ = setups.antarctica_pik_ensemble_model(
+            4, PIK_CHECK_KM, "float64", device=where, extra_cfg=PATH_A)
+        out, st = EnsembleRunner(model).run_segment(batched, 0.0, 2.0 * SPY)
+        runs[str(where)] = (out.geometry.ice_thickness.sum(dim=(1, 2)).cpu(),
+                            st)
+    (va, sa), (vb, sb) = runs["cpu"], runs[str(dev)]
+    rel = float(((vb - va).abs() / va.abs()).max())
+    same = [a.nsteps == b.nsteps and a.limit_hits == b.limit_hits
+            for a, b in zip(sa, sb)]
+    print(f"phase13d: 4-member Antarctic ensemble {PIK_CHECK_KM:g} km "
+          f"float64, 2 a, card against CPU: member steps "
+          f"{[s.nsteps for s in sb]} / {[s.nsteps for s in sa]}, hits equal "
+          f"{all(same)}, Newton sweeps {[s.ssa_newton_iters for s in sb]} / "
+          f"{[s.ssa_newton_iters for s in sa]}, volume max rel diff "
+          f"{rel:.3e} (tol 1e-7)")
+    if not all(same) or not rel <= 1e-7:
+        raise AssertionError("phase13d: the card and the CPU disagree")
+
+
+def phase13_antarctic_ensemble(dev, smi):
+    """Phase 13; returns (the member-axis kernels' records, the timed run's
+    launch counts)."""
+    t = time.time()
+    model, runner, batched, s1, st1, out, _, counts = phase13a_antarctic(
+        dev, smi)
+    print(f"phase13a: {time.time() - t:.1f} s")
+    _timed("phase13b", phase13b_members, model, runner, batched, s1, st1)
+    _timed("phase13c", phase13c_components, model, out)
+    records = _timed("phase13e", phase13e_kernels, model, out)
+    _timed("phase13d", phase13d_card_vs_cpu, dev)
     return records, counts
 
 
@@ -3572,8 +3997,9 @@ def main():
           f"cuda {torch.version.cuda}")
     start = time.time()
 
-    timings = phase1_kernels(dev)
-    phase1_chain_reference(dev)
+    timings = _timed("phase1 kernels", phase1_kernels, dev)
+    _timed("phase1 chain reference", phase1_chain_reference, dev)
+    t2 = time.time()
 
     pcr_names = ("pcr_lines", "pcr_lines_sub", "pcr_factor_lines",
                  "pcr_factor_lines_sub")
@@ -3594,17 +4020,22 @@ def main():
     if sa.nsteps != s2.nsteps or sa.limit_hits_dict() != s2.limit_hits_dict() \
             or not rel <= 2e-4:
         raise AssertionError("phase2b: path A and the default path disagree")
+    print(f"phase2: the runs {time.time() - t2:.1f} s")
+    t2 = time.time()
     check_preconditioner(model, state, t)
     check_newton_matvec(model, state, t)
     profile_krylov(model, state, t)
     profile_bicgstab(model, state, t, 0.01, "phase2b")
     profile_steps(model, state, t, 0.01, "phase2b")
     breakdown(model, state, t, 1.0, "phase2b")
+    print(f"phase2b: the checks and profiles {time.time() - t2:.1f} s")
+    t3 = time.time()
     model, state, t, _, _ = run_hybrid(dev, 5.0, (0.5,), "phase3", PATH_A,
                                        k1 + pcr_names, off)
     profile_bicgstab(model, state, t, 0.01, "phase3")
     breakdown(model, state, t, 0.25, "phase3")
-    counts_b, eismint_7ka, k3_run = phase4_eismint(dev)
+    print(f"phase3: {time.time() - t3:.1f} s")
+    counts_b, eismint_7ka, k3_run = _timed("phase4", phase4_eismint, dev)
     t5 = time.time()
     counts_c = phase5_halfar(dev)
     print(f"phase5: {time.time() - t5:.1f} s")
@@ -3639,13 +4070,21 @@ def main():
     print(f"phase11: {time.time() - t11:.1f} s")
     t12 = time.time()
     print(f"phase12: {smi}")
-    records12, counts12 = phase12_hybrid_ensemble(dev, smi)
-    timings.update(records12)
+    phase12_hybrid_ensemble(dev, smi)
     print(f"phase12: {time.time() - t12:.1f} s")
+    t13 = time.time()
+    print(f"phase13: {smi}")
+    records13, counts13 = phase13_antarctic_ensemble(dev, smi)
+    # the member-axis kernels' entries are this slice's path's: phase 13's
+    # records at 100x251x251 and its timed run's launches (phase 12c's
+    # records at 100x141x76 are in its lines above)
+    timings.update(records13)
+    print(f"phase13: {time.time() - t13:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line
-    # solves; no single PyTorch call computes any of the other functions
+    # solves, torch.linalg.vecdot for the member dot; no single PyTorch
+    # call computes any of the other functions
     kernels = []
     for name, source, replaces, counts in (
             ("ssa_matvec", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts_a),
@@ -3662,13 +4101,13 @@ def main():
             ("ssa_newton_matvec_halo", "ssa_matvec.cu", "pism_tpu/ops/pallas_sharded.py:225", counts_d),
             ("sia_flux_thermo_members", "sia_thermo.cu", "pism_tpu/ops/pallas_kernels.py:195", counts_k3m),
             ("sia_flux_members", "sia_iso.cu", "pism_tpu/ops/pallas_kernels.py:300", counts_k4m),
-            ("ssa_matvec_members", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts12),
-            ("ssa_newton_matvec_members", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts12),
-            ("pcr_lines_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts12),
-            ("pcr_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts12),
-            ("pcr_factor_lines_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts12),
-            ("pcr_factor_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts12),
-            ("member_dot", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts12)):
+            ("ssa_matvec_members", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts13),
+            ("ssa_newton_matvec_members", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:407", counts13),
+            ("pcr_lines_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts13),
+            ("pcr_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts13),
+            ("pcr_factor_lines_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts13),
+            ("pcr_factor_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts13),
+            ("member_dot", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

@@ -426,6 +426,97 @@ def _device(platform):
     return torch.device("cuda")
 
 
+def _configure(args, cfg) -> None:
+    """The flags' config parameters, set on ``cfg``."""
+    if args.i and not cfg.get_string("grid.projection"):
+        # the input file's grid mapping carries over to the outputs
+        from .io.nc4 import File
+        with File(args.i, "r") as f:
+            proj = f.get_global_attr("proj")
+        if proj is not None:
+            cfg.update({"grid.projection": str(proj)})
+
+    if args.config_override:
+        if args.config_override.endswith(".json"):
+            import json
+            with open(args.config_override) as f:
+                cfg.update(json.load(f))
+        else:
+            from .io import checkpoint as ckpt
+            cfg.update(ckpt.load_config(args.config_override).non_default())
+    # component-selection shorthands -> config parameters
+    for flag, key in (("stress_balance", "stress_balance.model"),
+                      ("energy", "energy.model"),
+                      ("hydrology", "hydrology.model"),
+                      ("calving", "calving.methods"),
+                      ("bed_def", "bed_deformation.model")):
+        if getattr(args, flag):
+            cfg.update({key: getattr(args, flag)})
+    if args.skip:
+        cfg.update({"time_stepping.skip.enabled": True})
+    if args.skip_max is not None:
+        cfg.update({"time_stepping.skip.enabled": True,
+                    "time_stepping.skip.max": args.skip_max})
+    for flag, key, _typ in _PARAM_SHORTHANDS:
+        val = getattr(args, flag.lstrip("-"))
+        if val is not None:
+            cfg.update({key: val})
+    if args.pseudo_plastic:
+        cfg.update({"basal_resistance.pseudo_plastic.enabled": True})
+    if args.pik or args.cfbc:
+        cfg.update({"stress_balance.calving_front_stress_bc": True})
+    if args.pik or args.part_grid:
+        cfg.update({"geometry.part_grid.enabled": True})
+    if args.pik or args.kill_icebergs:
+        cfg.update({"geometry.remove_icebergs": True})
+    if args.pik or args.subgl:
+        cfg.update({"geometry.grounded_cell_fraction": True})
+    if args.max_dt is not None:   # stored in years
+        cfg.update({"time_stepping.maximum_time_step": args.max_dt})
+    _apply_config_overrides(cfg, args.config)
+
+    # every option is a config parameter, so the stored config in the
+    # outputs reflects the run's settings
+    if args.platform:
+        cfg.update({"runtime.platform": args.platform})
+    if args.profile:
+        cfg.update({"runtime.profile.directory": args.profile})
+    if args.ts_vars:
+        cfg.update({"output.timeseries.variables": args.ts_vars})
+    cfg.update({"run_info.command": " ".join(sys.argv)})
+    cfg.update({"runtime.verbosity": args.verbose})
+    if args.i:
+        cfg.update({"input.file": args.i})
+    cfg.update({"input.bootstrap": bool(args.bootstrap)})
+    if args.regrid_file:
+        cfg.update({"input.regrid.file": args.regrid_file,
+                    "input.regrid.vars": args.regrid_vars})
+    cfg.update({"output.file": args.o})
+    if args.ys is not None:
+        cfg.update({"time.start": args.ys})
+    if args.ye is not None:
+        cfg.update({"time.end": args.ye})
+    if args.y is not None:
+        cfg.update({"time.run_length": args.y})
+
+
+def bootstrap_config(argv):
+    """The config a ``-i FILE -bootstrap`` run of ``argv`` runs with, its
+    coupler selections included (what the run's outputs store), without
+    bootstrapping or running."""
+    args = build_parser().parse_args(argv)
+    cfg = Config()
+    _apply_config_overrides(cfg, args.config)
+    _configure(args, cfg)
+    for sel, key in ((args.atmosphere, "atmosphere.models"),
+                     (args.surface, "surface.models"),
+                     (args.ocean, "ocean.models"),
+                     (args.sea_level, "sea_level.models")):
+        if sel:
+            cfg.update({key: sel})
+    return cfg
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
@@ -515,78 +606,9 @@ def main(argv=None):
         print("error: need one of -i, -eisII, -test", file=sys.stderr)
         return 1
 
-    if args.i and not cfg.get_string("grid.projection"):
-        # the input file's grid mapping carries over to the outputs
-        from .io.nc4 import File
-        with File(args.i, "r") as f:
-            proj = f.get_global_attr("proj")
-        if proj is not None:
-            cfg.update({"grid.projection": str(proj)})
-
     if args.regrid_file:
         state = _regrid(args, grid, state)
-
-    if args.config_override:
-        if args.config_override.endswith(".json"):
-            import json
-            with open(args.config_override) as f:
-                cfg.update(json.load(f))
-        else:
-            cfg.update(ckpt.load_config(args.config_override).non_default())
-    # component-selection shorthands -> config parameters
-    for flag, key in (("stress_balance", "stress_balance.model"),
-                      ("energy", "energy.model"),
-                      ("hydrology", "hydrology.model"),
-                      ("calving", "calving.methods"),
-                      ("bed_def", "bed_deformation.model")):
-        if getattr(args, flag):
-            cfg.update({key: getattr(args, flag)})
-    if args.skip:
-        cfg.update({"time_stepping.skip.enabled": True})
-    if args.skip_max is not None:
-        cfg.update({"time_stepping.skip.enabled": True,
-                    "time_stepping.skip.max": args.skip_max})
-    for flag, key, _typ in _PARAM_SHORTHANDS:
-        val = getattr(args, flag.lstrip("-"))
-        if val is not None:
-            cfg.update({key: val})
-    if args.pseudo_plastic:
-        cfg.update({"basal_resistance.pseudo_plastic.enabled": True})
-    if args.pik or args.cfbc:
-        cfg.update({"stress_balance.calving_front_stress_bc": True})
-    if args.pik or args.part_grid:
-        cfg.update({"geometry.part_grid.enabled": True})
-    if args.pik or args.kill_icebergs:
-        cfg.update({"geometry.remove_icebergs": True})
-    if args.pik or args.subgl:
-        cfg.update({"geometry.grounded_cell_fraction": True})
-    if args.max_dt is not None:   # stored in years
-        cfg.update({"time_stepping.maximum_time_step": args.max_dt})
-    _apply_config_overrides(cfg, args.config)
-
-    # every option is a config parameter, so the stored config in the
-    # outputs reflects the run's settings
-    if args.platform:
-        cfg.update({"runtime.platform": args.platform})
-    if args.profile:
-        cfg.update({"runtime.profile.directory": args.profile})
-    if args.ts_vars:
-        cfg.update({"output.timeseries.variables": args.ts_vars})
-    cfg.update({"run_info.command": " ".join(sys.argv)})
-    cfg.update({"runtime.verbosity": args.verbose})
-    if args.i:
-        cfg.update({"input.file": args.i})
-    cfg.update({"input.bootstrap": bool(args.bootstrap)})
-    if args.regrid_file:
-        cfg.update({"input.regrid.file": args.regrid_file,
-                    "input.regrid.vars": args.regrid_vars})
-    cfg.update({"output.file": args.o})
-    if args.ys is not None:
-        cfg.update({"time.start": args.ys})
-    if args.ye is not None:
-        cfg.update({"time.end": args.ye})
-    if args.y is not None:
-        cfg.update({"time.run_length": args.y})
+    _configure(args, cfg)
 
     # the coupler flags; restarts rebuild the chains stored in the config
     surf, ocean, sea_level = _couplers(args, cfg, grid, device)

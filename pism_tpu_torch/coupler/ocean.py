@@ -31,7 +31,8 @@ class OceanModel:
         member form raise."""
         raise NotImplementedError(
             f"the ocean model {type(self).__name__} on an ensemble's member "
-            "axis is not implemented in pism_tpu_torch (supported: Constant)")
+            "axis is not implemented in pism_tpu_torch (supported: Constant, "
+            "PIK, Pico, DeltaT over them)")
 
     def water_column_pressure(self, geometry, t):
         """None: the hydrostatic default (the melange back-pressure
@@ -106,6 +107,11 @@ class PIK(OceanModel):
                 / (self.rho_i * self.L)) * dT
         return OceanInputs(melt, T_f)
 
+    def members(self, geometry, t):
+        """Pointwise and constant in time: one evaluation on the members'
+        geometry."""
+        return self(geometry, None)
+
 
 @dataclass
 class DeltaT(OceanModel):
@@ -116,6 +122,10 @@ class DeltaT(OceanModel):
 
     inner: OceanModel
     offset: Callable                  # t -> K
+
+    def members(self, geometry, t):
+        """The melt passes through: the inner model's member form."""
+        return self.inner.members(geometry, t)
 
     def inputs(self, geometry, t) -> OceanInputs:
         o = self.inner.inputs(geometry, t)

@@ -15,6 +15,15 @@ The per-basin sums and maxima are reductions over a basin one-hot built
 once from the static basin labels, so two runs give the same bits.
 The distances are float64 whatever the field dtype, as the JAX package's
 are (it enables x64), so the box indices of a float32 run are its.
+
+``Pico.members`` is the same model on an ensemble's member axis (fields
+``(B, My, Mx)``), the JAX package's ``vmap`` of it: the fills sweep until
+no member changes (a member's fill is its fixed point, whatever the
+others do), the ice-rise seed is each member's own thickest ice, and the
+float sums over a basin go through ``ops/kernels/member_dot.member_sum``,
+whose order does not depend on the number of members (torch's CUDA sum
+picks its block shape by the batch). The members may differ in their
+ambient temperature (``member_temperature``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import state as S
+from ..ops.kernels.member_dot import member_sum
 from ..ops.stencils import Shifter
 from ..util.forcing import TimeStack
 from ..util.hostsync import fixed_point
@@ -93,6 +103,9 @@ class Pico(OceanModel, TimeStack):
     grid: object = None
     times: Optional[np.ndarray] = None   # (Nt,) [s] for forcing stacks
     period: float = 0.0                  # ocean.pico.periodic
+    # (B, My, Mx) T0 [K] of an ensemble's members (``members``); None:
+    # every member takes ``temperature_ocean``
+    member_temperature: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         cfg = self.config
@@ -114,7 +127,7 @@ class Pico(OceanModel, TimeStack):
         self.c_w = cfg.get_number("constants.sea_water.specific_heat_capacity")
         self.L_fus = cfg.get_number(
             "constants.fresh_water.latent_heat_of_fusion")
-        self.sh = Shifter(self.grid)
+        self.sh = (Shifter(self.grid), Shifter(self.grid, 1))  # by lead
         self.nu = self.rho_i / self.rho_w
         self.lam = LATENT / C_P_OCEAN
         self.seg = self.onehot = None
@@ -126,13 +139,14 @@ class Pico(OceanModel, TimeStack):
                 nb, dtype=torch.int32, device=self.seg.device)[:, None, None]
 
     # ------------------------------------------------------------------
-    def boxes(self, geometry) -> PicoGeometry:
+    def boxes(self, geometry, lead: int = 0) -> PicoGeometry:
+        """The box geometry; ``lead`` leading member dims."""
         mask = geometry.cell_type
-        sh = self.sh
+        sh = self.sh[lead]
         shelf = S.floating_ice(mask)
         grounded = S.grounded_ice(mask)
         ocean_free = mask == S.MASK_ICE_FREE_OCEAN
-        max_it = mask.shape[0] + mask.shape[1]
+        max_it = mask.shape[-2] + mask.shape[-1]
 
         gl_grounded = grounded
         if self.exclude_rises:
@@ -140,7 +154,8 @@ class Pico(OceanModel, TimeStack):
             # component holding the thickest grounded ice) do not seed the
             # grounding-line distance
             Hg = torch.where(grounded, geometry.ice_thickness, -1.0)
-            seed = Hg >= torch.max(Hg)
+            Hmax = S.member_max(Hg, lead)
+            seed = Hg >= Hmax.view(*Hmax.shape, 1, 1)
             gl_grounded = fixed_point(
                 lambda m: m | (grounded & _nbr(m, sh)), seed & grounded,
                 max_it)
@@ -155,8 +170,9 @@ class Pico(OceanModel, TimeStack):
             # box extents from the distance to the GL relative to the
             # basin-wide maximum GL distance
             dmax = torch.where(self.onehot, torch.where(
-                shelf & (d_gl < 1e8), d_gl, 0.0), 0.0).amax(dim=(1, 2))
-            dmax_f = torch.clamp(dmax[self.seg.long()], min=1.0)
+                shelf & (d_gl < 1e8), d_gl, 0.0)[..., None, :, :],
+                0.0).amax(dim=(-2, -1))
+            dmax_f = torch.clamp(dmax[..., self.seg.long()], min=1.0)
             r = torch.clamp(d_gl / dmax_f, 0.0, 1.0)
         else:
             r = d_gl / torch.clamp(d_gl + d_if, min=1.0)
@@ -170,48 +186,85 @@ class Pico(OceanModel, TimeStack):
         box = torch.where(shelf & (box == 0), self.n_boxes, box)
         return PicoGeometry(box.to(torch.int32), d_gl, d_if)
 
-    def _per_basin_mean(self, field, where, fallback=None):
+    def _basin_sums(self, x, lead):
+        """Sums of ``x`` over each basin, (nb,) or (B, nb): on the member
+        axis in ``member_sum``'s order."""
+        rows = torch.where(self.onehot, x[..., None, :, :], 0.0)
+        if not lead:
+            return rows.sum(dim=(1, 2))
+        B = x.shape[0]
+        return member_sum(rows.reshape(-1, *x.shape[-2:])).view(B, -1)
+
+    def _per_basin_mean(self, field, where, fallback=None, lead=0):
         """Mean of ``field`` over ``where`` cells per basin, scattered back
         to the cells; basins with no such cell get ``fallback`` (0 with
         None). Returns (mean field, no-data mask)."""
         w = where.to(field.dtype)
-        s = torch.where(self.onehot, field * w, 0.0).sum(dim=(1, 2))
-        n = torch.where(self.onehot, w, 0.0).sum(dim=(1, 2))
+        s = self._basin_sums(field * w, lead)
+        # counts of 0/1: exact in any order
+        n = torch.where(self.onehot, w[..., None, :, :], 0.0).sum(
+            dim=(-2, -1))
         mean = s / torch.clamp(n, min=1.0)
         if fallback is not None:
             mean = torch.where(n > 0, mean, fallback)
         seg = self.seg.long()
-        return mean[seg], (n <= 0)[seg]
+        return mean[..., seg], (n <= 0)[..., seg]
 
     def _per_basin_area(self, member_mask):
         w = member_mask.to(torch.float64)
-        area = torch.where(self.onehot, w, 0.0).sum(dim=(1, 2)) \
-            * self.grid.dx * self.grid.dy
-        return area[self.seg.long()]
+        area = torch.where(self.onehot, w[..., None, :, :], 0.0).sum(
+            dim=(-2, -1)) * self.grid.dx * self.grid.dy
+        return area[..., self.seg.long()]
 
-    def _total_area(self, member_mask):
-        """The shelf-wide box area, float64 and shaped (1, 1) so that it
-        promotes the field arithmetic to float64 as the JAX package's
-        strongly typed float64 sum does."""
-        n = torch.sum(torch.where(member_mask, 1.0, 0.0).to(torch.float64))
+    def _total_area(self, member_mask, lead):
+        """The shelf-wide box area, float64 and shaped (1, 1) (a member's
+        (B, 1, 1)) so that it promotes the field arithmetic to float64 as
+        the JAX package's strongly typed float64 sum does."""
+        n = S.member_sum(torch.where(member_mask, 1.0, 0.0).to(torch.float64),
+                         lead)
         area_cell = self.grid.dx * self.grid.dy
-        return torch.clamp(n * area_cell, min=area_cell).reshape(1, 1)
+        return torch.clamp(n * area_cell, min=area_cell).reshape(
+            *n.shape, 1, 1)
 
     # ------------------------------------------------------------------
     def inputs(self, geometry, t) -> OceanInputs:
         pf = self.solve(geometry, t)
         return OceanInputs(pf.melt, pf.T_basal)
 
+    def members(self, geometry, t):
+        """The melt rate of an ensemble's members (``geometry`` with a
+        leading member axis), each with its ``member_temperature``."""
+        if self.times is not None:
+            raise NotImplementedError(
+                "PICO forcing stacks on an ensemble's member axis are not "
+                "implemented in pism_tpu_torch (ROADMAP Queue 1 item 11)")
+        dtype = geometry.ice_thickness.dtype
+        T0 = self.temperature_ocean
+        if self.member_temperature is not None:
+            T0 = self.member_temperature
+            if T0.shape[0] != geometry.ice_thickness.shape[0]:
+                raise ValueError(
+                    f"PICO has the ocean temperatures of {T0.shape[0]} "
+                    f"members, the geometry {geometry.ice_thickness.shape[0]}")
+        return self._solve(geometry, T0.to(dtype),
+                           self.salinity_ocean.to(dtype), 1).melt
+
     def solve(self, geometry, t) -> PicoFields:
-        pg = self.boxes(geometry)
+        dtype = geometry.ice_thickness.dtype
+        return self._solve(geometry,
+                           self._constant(self.temperature_ocean, t, dtype),
+                           self._constant(self.salinity_ocean, t, dtype), 0)
+
+    def _solve(self, geometry, T0, S0, lead) -> PicoFields:
+        """PICO on ``geometry`` with the ambient (T0, S0) of the field
+        dtype; ``lead`` leading member dims."""
+        pg = self.boxes(geometry, lead)
         shelf = S.floating_ice(geometry.cell_type)
         H = geometry.ice_thickness
         dtype = H.dtype
         # pressure at the shelf base (ice overburden)
         p = self.rho_i * self.g * H
 
-        T0 = self._constant(self.temperature_ocean, t, dtype)
-        S0 = self._constant(self.salinity_ocean, t, dtype)
         cont = torch.zeros(H.shape, dtype=torch.bool, device=H.device)
         no_data = cont
         basins = self.onehot is not None
@@ -222,8 +275,10 @@ class Pico(OceanModel, TimeStack):
                 (geometry.bed_elevation >= self.shelf_depth)
             cont = cont | shelf  # cavity cells where no shelf cells
             T0, no_data = self._per_basin_mean(T0, cont,
-                                               fallback=self.T_dummy)
-            S0, _ = self._per_basin_mean(S0, cont, fallback=self.S_dummy)
+                                               fallback=self.T_dummy,
+                                               lead=lead)
+            S0, _ = self._per_basin_mean(S0, cont, fallback=self.S_dummy,
+                                         lead=lead)
 
         area_cell = self.grid.dx * self.grid.dy
         melt = torch.zeros_like(H)
@@ -232,7 +287,7 @@ class Pico(OceanModel, TimeStack):
         def area(member):
             if basins:
                 return torch.clamp(self._per_basin_area(member), min=area_cell)
-            return self._total_area(member)
+            return self._total_area(member, lead)
 
         # --- box 1 (quadratic; Reese et al. 2018 eq. A6) -------------------
         box1 = pg.box == 1

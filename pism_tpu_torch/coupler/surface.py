@@ -55,7 +55,7 @@ class SurfaceModel:
         raise NotImplementedError(
             f"the surface model {type(self).__name__} on an ensemble's member "
             "axis is not implemented in pism_tpu_torch (supported: Uniform, "
-            "FunctionSurface)")
+            "FunctionSurface, PIK)")
 
     def members_update(self, geometry, t, dt, carry: SurfaceCarry):
         """``update`` of a stateful model for an ensemble's members:
@@ -136,7 +136,14 @@ class PIK(SurfaceModel):
     latitude: torch.Tensor      # degrees (negative in the south)
 
     def __call__(self, geometry, t) -> SurfaceInputs:
-        a = self.atmosphere(geometry, t)
+        return self._surface(self.atmosphere(geometry, t), geometry)
+
+    def members(self, geometry, t) -> SurfaceInputs:
+        """The atmosphere's member form, the latitude broadcast over the
+        members."""
+        return self._surface(self.atmosphere.members(geometry, t), geometry)
+
+    def _surface(self, a, geometry) -> SurfaceInputs:
         h = geometry.ice_surface_elevation
         lat = torch.abs(self.latitude.to(h.dtype))
         T = 273.15 + 30.0 - 0.0075 * h - 0.68775 * lat

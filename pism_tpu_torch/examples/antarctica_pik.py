@@ -49,13 +49,13 @@ def model_grid(km, Mz=31):
     return Grid(Mx=Mx, My=Mx, Lx=L, Ly=L, Mz=Mz, Lz=5000.0)
 
 
-def synthesize_data_file(path, km, format="netcdf4"):
+def synthesize_data_file(path, km, format="netcdf4", theta_offset=0.0):
     """The chain's geometry as a data file on the ``km`` grid: thk, topg,
     precipitation (0.25 m a-1 ice equivalent over ice and land, none over
     the ice-free ocean, as the accumulation maps of Antarctic datasets
     have it), lat/lon from ``ANTARCTIC_PROJ``, theta_ocean and salinity_ocean per
-    basin (warm shelf water), and basins 1 (x < 0) and 2. Returns the
-    grid's Mx.
+    basin (warm shelf water, ``theta_offset`` [K] warmer: an ensemble
+    member's file), and basins 1 (x < 0) and 2. Returns the grid's Mx.
 
     The example's uniform atmosphere rains on the ocean too, and the mass
     step applies it there as the JAX package does, so there every ocean
@@ -75,7 +75,7 @@ def synthesize_data_file(path, km, format="netcdf4"):
     # Deep Water brings it): PICO's box cascade, taken cell by cell with
     # the local pressure as the JAX package takes it, turns non-finite
     # where water colder than the deep drafts' freezing point refreezes
-    theta = np.where(basins == 1.0, 273.65, 274.15)
+    theta = np.where(basins == 1.0, 273.65, 274.15) + theta_offset
     salinity = np.where(basins == 1.0, 34.65, 34.7)
     with File(path, "w", format=format) as f:
         f.define_dimension("y", grid.My, grid.y, attrs={"units": "m"})

@@ -17,6 +17,12 @@ keeps the JAX cast order: the wavenumber tables (float64 on the host) are
 cast to the field dtype, and dt is cast before the division. The update
 interval's gate compares host floats (the step's end time), so it costs no
 sync.
+
+On an ensemble's member axis (``(B, My, Mx)`` fields) ``members_step`` is
+the JAX package's ``vmap`` of its gated step: each member's gate compares
+its own step end, the members whose gate opened are solved in one batched
+transform with a ``(B, 1, 1)`` effective dt each, and the others keep their
+bed and displacement.
 """
 
 from __future__ import annotations
@@ -100,7 +106,7 @@ class LingleClark:
             a, (0, self.Nx - self.grid.Mx, 0, self.Ny - self.grid.My))
 
     def _crop(self, a):
-        return a[:self.grid.My, :self.grid.Mx]
+        return a[..., :self.grid.My, :self.grid.Mx]
 
     def _irfft(self, a_hat):
         return self._crop(torch.fft.irfft2(a_hat, s=(self.Ny, self.Nx)))
@@ -116,7 +122,31 @@ class LingleClark:
             return self._solve(state, max(T, dt))
         return self._solve(state, dt)
 
+    def members_step(self, state: S.ModelState, dts, ends,
+                     active) -> S.ModelState:
+        """``step`` for an ensemble's members: ``dts``, ``ends`` and
+        ``active`` host lists of their steps (in the field dtype), step
+        ends and whether they step. The members whose gate opens are
+        solved with the effective dt each would take alone; no solve runs
+        if no gate opens."""
+        T = self.update_interval
+        if T > 0.0:
+            opens = [a and math.floor(e / T) > math.floor((e - d) / T)
+                     for d, e, a in zip(dts, ends, active)]
+            dts = [max(T, d) for d in dts]
+        else:
+            opens = list(active)
+        if not any(opens):
+            return state
+        U = state.bed_uplift
+        dt = torch.tensor(dts, dtype=torch.float64, device=U.device)
+        solved = self._solve(state, dt.to(U.dtype).view(-1, 1, 1))
+        return S.select_members(torch.tensor(opens, device=U.device),
+                                solved, state)
+
     def _solve(self, state: S.ModelState, dt) -> S.ModelState:
+        """One solve over ``dt``: a host float, or the members' (B, 1, 1)
+        tensor in the field dtype."""
         g = state.geometry
         H_ref = state.bed_load_reference   # reference load thickness
         bed_ref = state.bed_reference      # undeformed bed
@@ -129,11 +159,13 @@ class LingleClark:
         alpha, two_eta_k = self._table(q.dtype, q.device)
         # divisions by 0-dim tensors: the card divides a tensor by a Python
         # scalar as a product with its reciprocal
-        a_coef = two_eta_k / torch.tensor(dt, dtype=q.dtype, device=q.device)
+        if not torch.is_tensor(dt):
+            dt = torch.tensor(dt, dtype=q.dtype, device=q.device)
+        a_coef = two_eta_k / dt
         U_hat_new = ((a_coef - 0.5 * alpha) * U_hat - q_hat) \
             / (a_coef + 0.5 * alpha)
         # k = 0: the mean displacement at its relaxed value
-        U_hat_new[0, 0] = -q_hat[0, 0] / torch.tensor(
+        U_hat_new[..., 0, 0] = -q_hat[..., 0, 0] / torch.tensor(
             self.rho_r * self.g, dtype=q.dtype, device=q.device)
         U_new = self._irfft(U_hat_new)
 

@@ -14,10 +14,12 @@ The JAX package runs it as a ``lax.while_loop`` until no cell changes
 sweeps.
 
 On an ensemble's member axis (``lead = 1``, ``(B, My, Mx)`` fields)
-``thickness_calving`` and iceberg removal run for all members at once; the
-flood fill sweeps until no member changes (under ``vmap`` the JAX loop runs
-until its last member is done, the others frozen at their fixed point).
-The other methods raise NotImplementedError there.
+``thickness_calving``, ``eigen_calving`` (its retreat over a ``(B, 1, 1)``
+dt, its front-retreat rate a max per member) and iceberg removal run for
+all members at once; the flood fill sweeps until no member changes (under
+``vmap`` the JAX loop runs until its last member is done, the others
+frozen at their fixed point). The other methods and float kill raise
+NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -79,12 +81,15 @@ class CalvingModel:
         self.sh = Shifter(self.grid, self.lead)
         m = cfg.get_string("calving.methods")
         self.methods = tuple(s.strip() for s in m.split(",") if s.strip())
-        if self.lead and (set(self.methods) - {"thickness_calving"}
+        if self.lead and (set(self.methods) - {"thickness_calving",
+                                               "eigen_calving"}
                           or cfg.get_flag("calving.float_kill.enabled")):
             raise NotImplementedError(
-                f"calving.methods = {m!r} in an ensemble is not implemented "
-                "in pism_tpu_torch (supported: thickness_calving and iceberg "
-                "removal; ROADMAP Queue 1 item 11)")
+                f"calving.methods = {m!r} (float kill "
+                f"{cfg.get_flag('calving.float_kill.enabled')}) in an "
+                "ensemble is not implemented in pism_tpu_torch (supported: "
+                "thickness_calving, eigen_calving and iceberg removal; "
+                "ROADMAP Queue 1 item 11)")
         for name in self.methods:
             if name not in ("thickness_calving", "ocean_kill",
                             "float_kill") + RATE_METHODS:
@@ -200,10 +205,12 @@ class CalvingModel:
         return total
 
     def max_rate(self, geometry, sb, hardness_B=None):
-        """max of ``applicable_rate``, a 0-dim device tensor: the caller
-        reads it with its other maxima in one host sync and turns it into
-        a dt with ``max_timestep_from_rate``."""
-        return torch.max(self.applicable_rate(geometry, sb, hardness_B))
+        """max of ``applicable_rate``, a 0-dim device tensor (on the member
+        axis one per member, (B,)): the caller reads it with its other
+        maxima in one host sync and turns it into a dt with
+        ``max_timestep_from_rate``."""
+        return S.member_max(self.applicable_rate(geometry, sb, hardness_B),
+                            self.lead)
 
     def max_timestep_from_rate(self, r_max: float, dtype) -> float:
         """dt so that the fastest front cell retreats at most one grid cell
@@ -218,7 +225,9 @@ class CalvingModel:
         seaward of the ice absorb the retreat first (their Href shrinks at
         the icy-neighbour mean thickness), and full front cells with an
         exposed ocean edge become partial cells with
-        ``Href = H (1 - rate dt / dx)``. Returns (H, Href, removed)."""
+        ``Href = H (1 - rate dt / dx)``; ``dt`` a host float, or a
+        member's (B, 1, 1) tensor of such floats. Returns (H, Href,
+        removed)."""
         sh = self.sh
         dx = self.grid.dx
 

@@ -42,12 +42,16 @@ a step of a ``(B, k)`` tensor of maxima, the host math of the dt choice per
 member), and a member that reached the segment's end or its step bound is
 frozen: its new values are computed and discarded, as the JAX package's
 ``vmap`` of its device loop selects (its SSA does not solve). It takes the
-SIA chains and the hybrid ``ssa+sia`` chain: the SSA with per-member Newton
-and Krylov convergence, the yield stress, null hydrology, a stateless
-surface with a member form or the PDD (its snow and firn carried per
-member), the constant ocean, ``thickness_calving`` and iceberg removal,
-part-grid. A mesh, sea level, bed deformation, another ocean model or
-calving method, or another stateful surface raise NotImplementedError.
+SIA chains, the hybrid ``ssa+sia`` chain and the PISM-PIK chain: the SSA
+with per-member Newton and Krylov convergence, the yield stress, null
+hydrology, a stateless surface with a member form (the PIK surface among
+them) or the PDD (its snow and firn carried per member), an ocean model
+with a member form (constant, PIK, PICO, their ``delta_T``),
+``thickness_calving``, ``eigen_calving`` with its front-retreat dt limit
+and iceberg removal, part-grid, the sub-grid grounding line, and
+Lingle-Clark bed deformation (each member's gate on its own step end). A
+mesh, sea level, pointwise isostasy, another calving method or float
+kill, or another stateful surface raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,14 +74,13 @@ from ..physics.basal import yield_stress_from_config
 from ..physics.enthalpy_converter import EnthalpyConverter
 from ..physics.hydrology import NullTransport
 from ..physics.rheology import flow_law_from_config
-from ..coupler.ocean import Constant as ConstantOcean
 from ..coupler.pdd import TemperatureIndex
 from ..coupler.surface import SurfaceCarry
 from ..util import hostsync
 from ..util.logger import log
 from ..util.timecal import Time
 from . import geometry_evolution as ge
-from .beddef import bed_deformation_from_config
+from .beddef import LingleClark, bed_deformation_from_config
 from .btu import btu_from_config
 from .calving import calving_from_config
 from .energy import EnergyModel, bootstrap_enthalpy
@@ -327,19 +330,17 @@ class IceModel:
         self.max_steps = cfg.get_int("time_stepping.max_steps_per_segment")
         if self.member_axis:
             # the calving model refuses its other methods on the member
-            # axis, the surfaces and the atmosphere their missing member
-            # forms when called
+            # axis, the surfaces, the atmosphere and the ocean their missing
+            # member forms when called
             for what, present in (
                     ("a mesh", self.mesh is not None),
-                    ("an ocean model other than constant",
-                     self.ocean is not None
-                     and not isinstance(self.ocean, ConstantOcean)),
                     ("a sea-level model", self.sea_level is not None),
                     ("a stateful surface model other than the PDD",
                      self.stateful_surface
                      and not isinstance(self.surface, TemperatureIndex)),
-                    ("the front-retreat dt limit", self.front_retreat_cfl),
-                    ("bed deformation", self.bed_deformation is not None)):
+                    ("bed deformation other than Lingle-Clark",
+                     self.bed_deformation is not None
+                     and not isinstance(self.bed_deformation, LingleClark))):
                 if present:
                     raise NotImplementedError(
                         f"{what} in an ensemble is not implemented in "
@@ -676,21 +677,28 @@ class IceModel:
         finite), one copy of the members' times and time steps to the
         device, the surface (the PDD with each member's time, dt and
         carry), the energy and mass steps with a dt per member, calving
-        and iceberg removal, and the frozen members' old values kept."""
+        and iceberg removal, the bed deformation (and ``_step``'s mask
+        update after it, without the sub-grid rule), and the frozen
+        members' old values kept."""
         dtype = state.geometry.ice_thickness.dtype
         tau_c = None
         if self.yield_stress is not None:
             tau_c = self.yield_stress.compute(state)
         sb = self.stress_balance.update(state, tau_c, active=active)
-        rows = hostsync.host(self._dt_maxima(sb))
+        fr_rate = fr_dtype = None
+        if self.front_retreat_cfl:
+            fr_rate = self.calving.max_rate(state.geometry, sb)
+            fr_dtype = fr_rate.dtype
+        rows = hostsync.host(self._dt_maxima(sb, fr_rate))
         dts, idxs = [], []
         for b, row in enumerate(rows):
             if active[b]:
-                dt, idx = self._choose_dt(row, run.t[b], t_end)
+                dt, idx = self._choose_dt(row, run.t[b], t_end, fr_dtype)
             else:
                 dt, idx = run.last_dt[b], None
                 if dt is None:
-                    dt = self._choose_dt(row, run.t[b], math.inf)[0]
+                    dt = self._choose_dt(row, run.t[b], math.inf,
+                                         fr_dtype)[0]
             dts.append(dt)
             idxs.append(idx)
         # dt in the field dtype, and the substep's, rounded per member as
@@ -725,6 +733,14 @@ class IceModel:
                 geometry.ice_thickness + geometry.ice_area_specific_volume
                 - C_pre, 1) * (self.grid.dx * self.grid.dy)
         new = new.replace(geometry=geometry, u_ssa=sb.u_ssa, v_ssa=sb.v_ssa)
+        if self.bed_deformation is not None:
+            # each member's gate on its own step end, as _step's
+            ends = [t + d for t, d in zip(run.t, dt_f.tolist())]
+            new = self.bed_deformation.members_step(new, dt_f.tolist(), ends,
+                                                    active)
+            new = new.replace(geometry=S.ensure_consistency(
+                new.geometry, self.rho_i, self.rho_w, self.Hmin,
+                lead=self.lead))
         act = act_d > 0.0
         state = new if all(active) else S.select_members(act, new, old)
         smb_app, bmb_app, div_vol, nonneg = vals[:4]

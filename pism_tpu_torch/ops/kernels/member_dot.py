@@ -10,6 +10,9 @@ member by member under ``jax.vmap``. The kernel,
 fixed order whatever the number of members, so that a member's solve is
 the same in any batch; its notes say why torch's own sum is not.
 
+``member_sum(x)`` is the (B,) sum of one field per member in the same
+order (PICO's basin sums on the member axis).
+
 Routing: CUDA tensors launch the kernel (built by ``_build.py``); CPU
 tensors run ``member_dot_plain``. There is no fallback from one to the
 other. ``LAUNCHES`` counts the launches.
@@ -83,3 +86,13 @@ def member_dot(a, b, dot_dtype=None):
                   ts[0].shape[1] * ts[0].shape[2], ts[0].shape[0])
     LAUNCHES += 1
     return out
+
+
+def member_sum(x):
+    """The (B,) sums of a contiguous (B, My, Mx) field over each member's
+    cells in ``member_dot``'s fixed order, so that a member's sum does not
+    depend on B: half of ``member_dot((x, x), (1, 1))``, which is exact (the
+    two halves are the same sum, and x * 1 is x). CPU tensors sum with
+    torch."""
+    ones = torch.ones_like(x)
+    return 0.5 * member_dot((x, x), (ones, ones))

@@ -35,12 +35,25 @@ import torch
 from .. import state as S
 
 
+def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``torch.stack(xs)`` with each member laid out in memory as ``xs[0]``
+    is (``torch.stack`` lays them out row-major): torch's reductions round
+    by layout, so a member of a state whose enthalpy is level-major, as
+    the energy step and ``load_state`` leave it, computes what the state
+    alone computes."""
+    x = xs[0]
+    order = sorted(range(x.dim()), key=lambda i: -x.stride(i))
+    back = [0] + [order.index(i) + 1 for i in range(x.dim())]
+    return torch.stack([y.permute(order) for y in xs]).permute(back)
+
+
 def stack_states(states: Sequence[S.ModelState]) -> S.ModelState:
     """Stack member states into one state with a leading member axis on
-    every tensor field (the members must set the same fields)."""
+    every tensor field (the members must set the same fields), each laid
+    out as the first member's."""
     def stack(get):
         xs = [get(s) for s in states]
-        return None if xs[0] is None else torch.stack(xs)
+        return None if xs[0] is None else _stack(xs)
 
     geom = S.Geometry(**{k.name: stack(
         lambda s, k=k: getattr(s.geometry, k.name))
@@ -52,9 +65,9 @@ def stack_states(states: Sequence[S.ModelState]) -> S.ModelState:
 
 def broadcast_state(state: S.ModelState, n_members: int) -> S.ModelState:
     """One state replicated into an ``n_members`` batch (a copy per member,
-    so that the members' fields can be written apart)."""
-    return S.map_tensors(state, lambda x: x.expand(
-        n_members, *x.shape).contiguous())
+    so that the members' fields can be written apart, each laid out as the
+    state's field is)."""
+    return S.map_tensors(state, lambda x: _stack([x] * n_members))
 
 
 def member(state: S.ModelState, b: int) -> S.ModelState:

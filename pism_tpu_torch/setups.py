@@ -18,7 +18,9 @@ with no energy model and a given or constant yield stress.
 ``examples/paleo_ensemble.py`` (BASELINE config 5): thermo-coupled SIA
 members that differ in a temperature offset, stacked on a member axis for
 ``parallel.ensemble.EnsembleRunner``; ``hybrid_ensemble_model`` the hybrid
-chain's ensemble, members that differ in their till friction angle.
+chain's ensemble, members that differ in their till friction angle;
+``antarctica_pik_ensemble_model`` the PISM-PIK chain's ensemble of BASELINE
+config 5's name, members that differ in PICO's ocean temperature.
 
 Each takes ``mesh``, a ``parallel.mesh.Mesh`` (e.g.
 ``make_mesh(["cuda:0"] * 4, (2, 2))``), which decomposes the model's kernel
@@ -456,3 +458,61 @@ def paleo_ensemble_model(members: int = 16, km: float = 40.0, dtype=None,
         ice_area_specific_volume=Href[:, None, None].expand(
             members, *grid.shape2).contiguous()))
     return model, batched, grid, dT
+
+
+#: The Antarctic ensemble's members' ocean warming spans [0, 2] K: the JAX
+#: hysteresis sweep's ocean forcing, 0.25 dT for dT in [0, 8] K
+#: (``examples/hysteresis.py:98-101``)
+PIK_THETA_RANGE = (0.0, 2.0)
+
+
+def antarctica_pik_ensemble_model(members: int, km: float = 16.0,
+                                  dtype: str = "float32", device="cuda",
+                                  data=None, extra_cfg=None, Mz: int = 31):
+    """An ensemble of the PISM-PIK chain as a user runs it from a data file
+    (``examples/antarctica_pik.py``: ``synthesize_data_file``, the config
+    the command line builds from ``bootstrap_argv`` with the bed updated
+    every year, ``io.bootstrap.bootstrap`` and the couplers of
+    ``couplers``; 251 x 251 x 31 at 16 km): SSA+SIA, enthalpy,
+    pseudo-plastic Mohr-Coulomb sliding, PICO on two basins, eigen and
+    thickness calving with iceberg removal, part-grid, the sub-grid
+    grounding line, Lingle-Clark and the PIK surface. Member b's PICO
+    ambient temperature is the file's theta_ocean + dT_b, dT_b evenly over
+    ``PIK_THETA_RANGE`` (formed in float64, as the file of
+    ``synthesize_data_file(..., theta_offset=dT_b)`` would be read), so
+    member b is the run of that file. ``data``: the data file (default: one
+    synthesized at ``km`` into a temporary directory); ``extra_cfg`` on
+    top of the command line's config. Returns (model, batched state, grid,
+    dT (numpy)); ``EnsembleRunner(model)`` runs it."""
+    import os
+    import tempfile
+
+    from .cli import bootstrap_config
+    from .examples.antarctica_pik import (bootstrap_argv, couplers,
+                                          model_grid, synthesize_data_file)
+    from .io.bootstrap import bootstrap, read_forcing_fields
+    from .parallel.ensemble import broadcast_state
+
+    device = torch.device(device)
+    with tempfile.TemporaryDirectory() as d:
+        if data is None:
+            data = os.path.join(d, "ant.nc")
+            synthesize_data_file(data, km, "netcdf3")
+        cfg = bootstrap_config(bootstrap_argv(
+            data, os.path.join(d, "unused.nc"), km, 0.0, "netcdf3", Mz=Mz,
+            dtype=dtype,
+            extra=("-config", "bed_deformation.update_interval=1")))
+        if extra_cfg:
+            cfg.update(extra_cfg)
+        grid = model_grid(km, Mz)
+        surface, ocean = couplers(cfg, grid, data, device)
+        theta = read_forcing_fields(data, grid, ["theta_ocean"])[0][
+            "theta_ocean"]
+        dT = np.linspace(*PIK_THETA_RANGE, members)
+        ocean = dataclasses.replace(ocean, member_temperature=torch.as_tensor(
+            theta[None] + dT[:, None, None]).to(device=device,
+                                                dtype=getattr(torch, dtype)))
+        model = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
+                         device=device)
+        state = model.prepare_state(bootstrap(data, grid, cfg, device=device))
+    return model, broadcast_state(state, members), grid, dT

@@ -11,9 +11,11 @@ kernels build under that checkout. Each chain runs through
 ``IceModel.step_once`` in float32 on the card: EISMINT II A at 61x61x61
 from zero ice (path B, K3) for 1,000 a, Halfar B at 601x601 (path C, K4)
 for 2 a, the 20 km hybrid chain on the default path and on path A for 1 a,
-the PIK chain at 125 km for 1 a, MISMIP3d at 50 km for 5 a and MISMIP 1 on
-its periodic 151x7 grid for 2 a. The file keeps each chain's final
-thickness and enthalpy, its steps and dt-limit hits and its volume sums;
+the PIK chain at 125 km for 1 a, the PIK chain from its data file at 100 km
+on path A for 2 a (the bed updated every year, PICO on two basins, eigen
+calving acting), MISMIP3d at 50 km for 5 a and MISMIP 1 on its periodic
+151x7 grid for 2 a. The file keeps each chain's final thickness, enthalpy
+and bed, its steps and dt-limit hits and its volume sums;
 ``--compare`` prints, per chain, whether every one of them is equal to the
 bit, and exits non-zero if one is not.
 """
@@ -25,6 +27,40 @@ import sys
 import time
 
 SPY = 3.15569259747e7
+
+
+def _pik_data_file(device, km=100.0):
+    """The PIK chain as the command line runs it from its data file
+    (``examples/antarctica_pik.py``): the config of a zero-length bootstrap
+    run, ``io.bootstrap.bootstrap`` and the factory's couplers. The config
+    comes from the run's output file, the one route that every checkout's
+    ``cli`` has (``--root`` runs an earlier one)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from pism_tpu_torch import cli
+    from pism_tpu_torch.examples.antarctica_pik import (
+        bootstrap_argv, couplers, model_grid, synthesize_data_file)
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.io.bootstrap import bootstrap
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    with tempfile.TemporaryDirectory() as d:
+        data, out = os.path.join(d, "ant.nc"), os.path.join(d, "b0.nc")
+        synthesize_data_file(data, km, "netcdf3")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(bootstrap_argv(data, out, km, 0.0, "netcdf3", extra=(
+                "-config", "bed_deformation.update_interval=1", "-config",
+                "stress_balance.ssa.fd.line_pcr_impl=pallas_sublane",
+                *(("-platform", "cpu") if str(device) == "cpu" else ()))))
+        cfg, grid = ckpt.load_config(out), model_grid(km)
+        surface, ocean = couplers(cfg, grid, data, device)
+        model = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
+                         device=device)
+        return model, model.prepare_state(bootstrap(data, grid, cfg,
+                                                    device=device))
 
 
 def _chains(setups):
@@ -41,6 +77,7 @@ def _chains(setups):
             0.0, 1.0),
         "pik_125km": (lambda d: setups.antarctica_pik_model(
             "float32", km=125.0, device=d), 0.0, 1.0),
+        "pik_data_100km_path_A": (_pik_data_file, 0.0, 2.0),
         "mismip3d_50km": (lambda d: setups.mismip3d_model(
             "float32", km=50.0, device=d), 0.0, 5.0),
         "mismip1_151x7": (lambda d: setups.mismip_model("float32", device=d),
@@ -68,6 +105,7 @@ def run(out_path):
         arrays[f"{name}/H"] = state.geometry.ice_thickness.cpu().numpy()
         if state.enthalpy is not None:
             arrays[f"{name}/E"] = state.enthalpy.contiguous().cpu().numpy()
+        arrays[f"{name}/bed"] = state.geometry.bed_elevation.cpu().numpy()
         meta[name] = {
             "t": t, "nsteps": stats.nsteps,
             "limit_hits": stats.limit_hits_dict(),

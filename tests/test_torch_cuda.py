@@ -1191,3 +1191,145 @@ def test_hybrid_ensemble_on_the_card_matches_cpu(cuda):
     assert [s.nsteps for s in sa] == [s.nsteps for s in sb]
     assert [s.limit_hits for s in sa] == [s.limit_hits for s in sb]
     assert float(((Vb - Va).abs() / Va).max()) <= 1e-8
+
+
+# -- the PISM-PIK chain on the member axis ----------------------------------
+
+def shelf(seed=3, Mx=29):
+    """A marine ice sheet with a shelf, an ice rise and open ocean on a 700
+    km square (``tests/test_torch_pico.py``'s), its ambient water and
+    basins 1 (x <= 0), 2 and 3 (a corner without shelf data): (grid, H,
+    bed, T0, S0, basins, X, Y). ``tests/test_torch_pik_ensemble.py`` takes
+    it from here, since this file imports no JAX."""
+    from pism_tpu_torch import Grid
+    g = Grid(Mx=Mx, My=Mx, Lx=700e3, Ly=700e3)
+    X, Y = np.meshgrid(g.x, g.y)
+    r = np.sqrt(X ** 2 + Y ** 2)
+    rng = np.random.default_rng(seed)
+    bed = 600.0 - 1400.0 * (r / 500e3) ** 2 \
+        + 700.0 * np.exp(-((X - 500e3) ** 2 + Y ** 2) / 30e3 ** 2)
+    H = np.where(r < 350e3, 2500.0 * np.sqrt(np.clip(1 - (r / 420e3) ** 2,
+                                                       0, None)), 0.0)
+    H = np.where((r >= 350e3) & (r < 580e3), 550.0 - 1.5e-3 * (r - 350e3), H)
+    H = H * (1.0 + 0.05 * rng.uniform(-1, 1, H.shape))
+    T0 = 272.6 + 0.6 * (X + Y) / 1400e3 + rng.uniform(0.0, 0.3, H.shape)
+    S0 = 34.5 + 0.2 * (X - Y) / 1400e3 + rng.uniform(0.0, 0.2, H.shape)
+    basins = np.where(X <= 0.0, 1, 2)
+    basins = np.where((X < -550e3) & (Y < -550e3), 3, basins)
+    return g, H, bed, T0, S0, basins, X, Y
+
+
+def _pik_members(B, dtype, device):
+    """B members of ``shelf``'s ice sheet, H scaled per member, with their
+    ambient water (warmer per member): (grid, member geometries, Pico)."""
+    import dataclasses
+    from pism_tpu_torch import Config, new_geometry
+    from pism_tpu_torch import state as St
+    from pism_tpu_torch.coupler.pico import Pico
+    g, H, bed, T0, S0, basins, _, _ = shelf()
+    scale = 1.0 + 0.2 * np.linspace(-1.0, 1.0, B)
+    geoms = [new_geometry(torch.tensor(H * s, dtype=dtype, device=device),
+                          torch.tensor(bed, dtype=dtype, device=device))
+             for s in scale]
+    gB = St.Geometry(**{f.name: torch.stack([getattr(x, f.name)
+                                             for x in geoms])
+                        for f in dataclasses.fields(St.Geometry)})
+    TB = torch.tensor(T0[None] + np.linspace(0.0, 2.0, B)[:, None, None],
+                      dtype=dtype, device=device)
+    cfg = Config({"runtime.float_dtype":
+                  "float32" if dtype == torch.float32 else "float64"})
+    pico = Pico(temperature_ocean=torch.tensor(T0, device=device),
+                salinity_ocean=torch.tensor(S0, device=device), config=cfg,
+                grid=g, basin_mask=torch.tensor(basins, device=device),
+                member_temperature=TB)
+    return g, gB, pico
+
+
+def _member_geometry(gB, b):
+    """Member ``b`` of ``gB`` (and as a 1-member batch)."""
+    import dataclasses
+    from pism_tpu_torch import state as St
+    return [St.Geometry(**{f.name: getattr(gB, f.name)[k]
+                           for f in dataclasses.fields(St.Geometry)})
+            for k in (b, slice(b, b + 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pico_members_equal_one_member_calls(cuda, dtype):
+    """``Pico.members`` of 100 members on the card against its call on
+    each member alone, to the bit (its basin sums in ``member_sum``'s
+    order, whatever the batch); box index and distances equal to the
+    single form's ``Pico.solve``."""
+    import dataclasses
+    B = 100
+    _, gB, pico = _pik_members(B, dtype, cuda)
+    melt = pico.members(gB, None)
+    boxes = pico.boxes(gB, lead=1)
+    for b in range(B):
+        geom, geom1 = _member_geometry(gB, b)
+        one = dataclasses.replace(
+            pico, member_temperature=pico.member_temperature[b:b + 1])
+        assert torch.equal(melt[b], one.members(geom1, None)[0]), b
+        solo = dataclasses.replace(
+            pico, temperature_ocean=pico.member_temperature[b]).solve(geom,
+                                                                      0.0)
+        for got, want in zip(boxes, (solo.box, solo.d_gl, solo.d_if)):
+            assert torch.equal(got[b], want), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_basin_sums_do_not_depend_on_the_batch(cuda, dtype):
+    """PICO's per-basin float sums at B = 100 against B = 1, to the bit,
+    and against torch's sums of the same basin rows in float64 within 1e-6
+    (float32) or 1e-14 (float64) of each: the sums' rounding."""
+    _, gB, pico = _pik_members(100, dtype, cuda)
+    x = gB.ice_thickness * pico.member_temperature
+    sums = pico._basin_sums(x, 1)
+    for b in range(100):
+        assert torch.equal(sums[b], pico._basin_sums(x[b:b + 1], 1)[0]), b
+    rows = torch.where(pico.onehot, x[:, None], 0.0)
+    want = rows.double().sum(dim=(-2, -1))
+    tol = 1e-6 if dtype == torch.float32 else 1e-14
+    assert sums.shape == want.shape
+    assert float(((sums.double() - want).abs() / want.abs().clamp_min(
+        1e-300)).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lingle_clark_members_equal_single_solves(cuda, dtype):
+    """One member-axis Lingle-Clark solve of 100 members (the batched
+    cuFFT transforms, a (B, 1, 1) dt) against each member's single solve,
+    bed and viscous displacement to the bit."""
+    from pism_tpu_torch import Config, Grid
+    from pism_tpu_torch import state as St
+    from pism_tpu_torch.model.beddef import LingleClark
+    from pism_tpu_torch.parallel.ensemble import member
+    B, M = 100, 61
+    g = Grid(Mx=M, My=M, Lx=2000e3, Ly=2000e3)
+    # no update interval: every member solves over its own dt
+    lc = LingleClark(grid=g, config=Config(
+        {"bed_deformation.update_interval": 0.0}))
+    rng = np.random.default_rng(5)
+    X, Y = np.meshgrid(g.x, g.y)
+    H0 = np.clip(3000.0 * (1 - (X ** 2 + Y ** 2) / 1500e3 ** 2), 0, None)
+    H = H0[None] * (1.0 + 0.1 * rng.uniform(-1, 1, (B, M, M)))
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=cuda)
+
+    bed = t(np.broadcast_to(-500.0 + 1e-4 * X, (B, M, M)))
+    geom = St.new_geometry(t(H), bed)
+    state = St.ModelState(geometry=geom, bed_uplift=t(
+        rng.normal(size=(B, M, M))), bed_reference=bed,
+        bed_load_reference=t(np.broadcast_to(H0, (B, M, M))))
+    dts = list(np.linspace(0.5, 3.0, B) * SPY)
+    ends = [10.0 * SPY] * B
+    got = lc.members_step(state, dts, ends, [True] * B)
+    for b in range(B):
+        want = lc.step(member(state, b), dts[b], t=ends[b])
+        assert torch.equal(got.bed_uplift[b], want.bed_uplift), b
+        assert torch.equal(got.geometry.bed_elevation[b],
+                           want.geometry.bed_elevation), b

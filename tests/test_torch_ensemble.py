@@ -448,38 +448,45 @@ def test_ensemble_sharded_over_mesh():
         runner.shard(batched, make_mesh(["cpu"] * 4, (2, 2)))
 
 
-@pytest.mark.parametrize("extra", [
-    {"mesh": (2, 2)},
-    {"sea_level": 0.0},
-    {"bed_deformation.model": "iso"},
-    {"ocean": "pico"},
-    {"ocean": "pik"},
-    {"calving.methods": "eigen_calving,thickness_calving"}])
-def test_ensemble_refuses_what_it_cannot_run(extra):
-    """The hybrid chain's ensemble takes its own components (the next
-    test); a mesh, sea level, bed deformation, PICO or the PIK ocean, and
-    eigen calving are not ported to the member axis and raise."""
-    from pism_tpu_torch.coupler import ocean, pico, sealevel
+_REFUSED = ({"mesh": (2, 2)},
+            {"sea_level": 0.0},
+            {"bed_deformation.model": "iso"},
+            {"calving.methods": "vonmises_calving,thickness_calving"},
+            {"calving.methods": "hayhurst_calving"},
+            {"calving.float_kill.enabled": True})
+
+
+@pytest.mark.parametrize("chain, extra", [
+    pytest.param(chain, extra,
+                 id=f"extra{i}" if chain == "hybrid" else f"pik-extra{i}")
+    for chain in ("hybrid", "pik") for i, extra in enumerate(_REFUSED)])
+def test_ensemble_refuses_what_it_cannot_run(chain, extra):
+    """The hybrid and the PISM-PIK chains' ensembles take their own
+    components (the next test; PICO, the PIK ocean, eigen calving and
+    Lingle-Clark are tests/test_torch_pik_ensemble.py's); a mesh, sea level,
+    pointwise isostasy, von Mises and Hayhurst calving and float kill are
+    not ported to the member axis and raise, on either chain (the PIK one
+    from its data file at 200 km)."""
+    from pism_tpu_torch.coupler import sealevel
     from pism_tpu_torch.parallel import make_mesh
     extra = dict(extra)
     mesh = extra.pop("mesh", None)
-    model, _, grid = setups.hybrid_greenland_model(
-        "float64", km=100, device="cpu",
-        mesh=None if mesh is None else make_mesh(["cpu"] * 4, mesh),
-        extra_cfg={k: v for k, v in extra.items() if "." in k})
+    mesh = None if mesh is None else make_mesh(["cpu"] * 4, mesh)
+    cfg = {k: v for k, v in extra.items() if "." in k}
+    if chain == "hybrid":
+        model, _, _ = setups.hybrid_greenland_model(
+            "float64", km=100, device="cpu", mesh=mesh, extra_cfg=cfg)
+    else:
+        model, _, _, _ = setups.antarctica_pik_ensemble_model(
+            1, 200.0, "float64", device="cpu", Mz=11, extra_cfg=cfg)
+        model = dataclasses.replace(model, mesh=mesh)
     if "sea_level" in extra:
         model = dataclasses.replace(
             model, sea_level=sealevel.Constant(extra["sea_level"]))
-    if extra.get("ocean") == "pik":
-        model = dataclasses.replace(model, ocean=ocean.PIK(model.config))
-    if extra.get("ocean") == "pico":
-        full = torch.full(grid.shape2, 271.45, dtype=torch.float64)
-        model = dataclasses.replace(model, ocean=pico.Pico(
-            temperature_ocean=full, salinity_ocean=full * 0.0 + 34.65,
-            config=model.config, grid=grid))
     what = {"mesh": "a mesh", "sea_level": "sea-level",
             "bed_deformation.model": "bed deformation",
-            "ocean": "ocean model", "calving.methods": "calving.methods"}
+            "calving.methods": "calving.methods",
+            "calving.float_kill.enabled": "float kill True"}
     with pytest.raises(NotImplementedError, match=what[next(iter(
             {"mesh": 0} if mesh is not None else extra))]):
         EnsembleRunner(model)
