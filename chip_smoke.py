@@ -175,9 +175,11 @@ launch counters set to 0 just before it and read just after:
     their runs as 1-member ensembles (H, E, u_ssa, steps, hits, Newton and
     Krylov counts) and within phase 2b's envelope of their solo chains
     (equal steps and hits, volume within 2e-4); (c) on the ensemble's
-    linearization K1, the Newton matvec, K2b and K2 factor and apply and
-    the member dot against 100 single launches (to the bit) and their
-    plain versions, timed against them, and the member dot against
+    linearization K1, the Newton matvec, K2b and K2 factor and apply, the
+    member dot and the member dots (the Krylov loop's paired dots) against
+    100 single launches (to the bit) and their plain versions, timed
+    against them, each of the member dots against the member dot of its
+    pair (to the bit), the member dot and dots against
     ``torch.linalg.vecdot``; (d) 4 members at 100 km float64, 2 a, card
     against CPU (equal steps and hits, volumes within 1e-7).
   phase 13: the Antarctic ensemble (BASELINE config 5's "100-member
@@ -201,7 +203,7 @@ launch counters set to 0 just before it and read just after:
     100 single solves, to the bit, timed; (e) (c) of phase 12 on that
     state (100x251x251: K2b's and K2's lines of n = 251), and PICO's basin
     sums (``member_sum`` over 300 basin rows) against one launch per row
-    and torch's sum; the kernel record's member-axis entries are phase
+    (to the bit) and torch's sum (its plain version and its yardstick); the kernel record's member-axis entries are phase
     13's; (d) 4 members at 125 km float64, 2 a, card against CPU (equal
     steps and hits, volumes within 1e-7).
 
@@ -326,6 +328,8 @@ def _counters():
             (pcr, "SUB_MEMBER_FACTOR_LAUNCHES",
              "pcr_factor_lines_sub_members"),
             (member_dot, "LAUNCHES", "member_dot"),
+            (member_dot, "DOTS_LAUNCHES", "member_dots"),
+            (member_dot, "SUM_LAUNCHES", "member_sum"),
             (hostsync, "COUNT", "host_syncs"))
 
 
@@ -337,7 +341,8 @@ KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_newton_matvec",
            "sia_flux_members", "ssa_matvec_members",
            "ssa_newton_matvec_members", "pcr_lines_members",
            "pcr_lines_sub_members", "pcr_factor_lines_members",
-           "pcr_factor_lines_sub_members", "member_dot")
+           "pcr_factor_lines_sub_members", "member_dot", "member_dots",
+           "member_sum")
 
 
 def reset_counts():
@@ -3310,7 +3315,8 @@ HYB_SOLO = (0, 50, 99)
 SSA_MEMBER_KERNELS = ("ssa_matvec_members", "ssa_newton_matvec_members",
                       "pcr_lines_members", "pcr_lines_sub_members",
                       "pcr_factor_lines_members",
-                      "pcr_factor_lines_sub_members", "member_dot")
+                      "pcr_factor_lines_sub_members", "member_dot",
+                      "member_dots")
 
 
 def _hybrid_report(label, n, stats, wall, years, counts):
@@ -3343,10 +3349,10 @@ def _hybrid_report(label, n, stats, wall, years, counts):
     return lock, 1e3 * wall / lock
 
 
-def _hybrid_run(runner, state, t0, years, label):
+def _hybrid_run(runner, state, t0, years, label, launched=SSA_MEMBER_KERNELS):
     """One segment with the launch counts set to 0 before it and read after
-    it: (state, stats, wall, counts); the member-axis kernels must launch and
-    no single-member kernel."""
+    it: (state, stats, wall, counts); the kernels ``launched`` (the SSA's
+    member-axis kernels) must launch and no other."""
     _sync()
     reset_counts()
     w0 = time.time()
@@ -3354,8 +3360,8 @@ def _hybrid_run(runner, state, t0, years, label):
     _sync()
     wall = time.time() - w0
     counts = read_counts()
-    _check_launches(label, counts, SSA_MEMBER_KERNELS,
-                    tuple(k for k in KERNELS if k not in SSA_MEMBER_KERNELS))
+    _check_launches(label, counts, launched,
+                    tuple(k for k in KERNELS if k not in launched))
     _ensemble_check(label, out, st, years)
     import torch
     if not bool(torch.isfinite(out.u_ssa).all()):
@@ -3499,13 +3505,65 @@ def _member_ssa_case(name, label, fn, plain, args, single, tol, nops, match,
     return r
 
 
+def _member_dots_pairs(phase, label, KD, x, y):
+    """Each dot of ``member_dots(x, y)`` equal to the bit to ``member_dot``
+    of its pair (x.y also to y.x)."""
+    import torch
+    got = KD.member_dots(x, y)
+    pairs = ((x, x), (x, y), (y, y), (y, x))
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for g, (p, q) in zip((*got, got[1]), pairs):
+        one = KD.member_dot(p, q)
+        if not torch.equal(g.view(bits[g.dtype]), one.view(bits[one.dtype])):
+            raise AssertionError(f"{phase}: member_dots {label}) differs "
+                                 "from member_dot of its pairs")
+    print(f"{phase}: member_dots {label}): x.x, x.y, y.y equal to the bit to "
+          "member_dot of each pair (x.y to y.x too)")
+
+
+def _yardstick(phase, name, label, rec, kern, what, call, ref, rounds=3):
+    """The one PyTorch call ``call`` for kernel ``name``'s function beside
+    the kernel's call ``kern``: CUDA events of each, 100 calls at a time,
+    in turns (kernel, library, library, kernel, then the other way round)
+    ``rounds`` times, since both are host-bound at these sizes and the
+    host drifts; sets the record ``rec``'s ``ms`` and ``library_ms`` to the
+    medians. Also the library call's profiler time and its error against
+    the plain result ``ref``."""
+    import statistics
+    lib = call()
+    times = {"kernel": [], "library": []}
+    for r in range(rounds):
+        order = ("kernel", "library") if r % 2 == 0 else ("library",
+                                                          "kernel")
+        for who in order + order[::-1]:
+            times[who].append(_time_ms(kern if who == "kernel" else call,
+                                       100))
+    rec["ms"] = statistics.median(times["kernel"])
+    rec["library_ms"] = statistics.median(times["library"])
+    dev_us, _ = _device_profile(call, 50)
+    dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
+    verdict = "no slower" if rec["ms"] <= rec["library_ms"] else "slower"
+
+    def spread(v):
+        return f"{1e3 * min(v):.2f}-{1e3 * max(v):.2f}"
+
+    print(f"{phase}: {name} {label}: {what}: device {dev}, rel err "
+          f"{_rel_err(lib, ref):.3e} against the plain version; events a "
+          f"call in turns, median (min-max) of {2 * rounds}: the kernel "
+          f"{1e3 * rec['ms']:.2f} ({spread(times['kernel'])}) us, the "
+          f"library {1e3 * rec['library_ms']:.2f} "
+          f"({spread(times['library'])}) us: the kernel {verdict} than it")
+
+
 def phase12c_kernels(model, state, phase="phase12c"):
     """On an ensemble's linearization at its state (every member's
     operator, drag and line systems of a Newton sweep): K1, the Newton
-    matvec, K2b and K2 factor and apply, and the member dot against B single
-    launches (to the bit) and their plain versions (to the tolerances
-    stated), the dot also against ``torch.linalg.vecdot``. ``phase`` labels
-    the lines. Returns their records."""
+    matvec, K2b and K2 factor and apply, the member dot and the member
+    dots against B single launches (to the bit) and their plain versions
+    (to the tolerances stated), each dot of the member dots against the
+    member dot of its pair (to the bit), the dot and the dots against
+    ``torch.linalg.vecdot``.
+    ``phase`` labels the lines. Returns their records."""
     import torch
     from pism_tpu_torch.ops import ssa as ssa_ops
     from pism_tpu_torch.ops.kernels import member_dot as KD
@@ -3554,20 +3612,33 @@ def phase12c_kernels(model, state, phase="phase12c"):
         lambda a0, a1_, b0, b1: KD.member_dot_plain((a0, a1_), (b0, b1)),
         a3, lambda b: KD.member_dot(*(tuple(x[b:b + 1] for x in p)
                                       for p in ((u, v), (du, dv)))),
-        1e-5, 4 * n, "member_dot", phase=phase)
+        1e-5, 4 * n, "member_sums_kernel", phase=phase)
+    out["member_dots"] = _member_ssa_case(
+        "member_dots", label + ", x = (u, v), y = (du, dv))",
+        lambda x0, x1, y0, y1: KD.member_dots((x0, x1), (y0, y1)),
+        lambda x0, x1, y0, y1: KD.member_dots_plain((x0, x1), (y0, y1)),
+        a3, lambda b: KD.member_dots(*(tuple(x[b:b + 1] for x in p)
+                                       for p in ((u, v), (du, dv)))),
+        1e-5, 12 * n, "member_sums_kernel", phase=phase)
+    _member_dots_pairs(phase, label, KD, (u, v), (du, dv))
     # the one PyTorch call for the same (B,) dots: torch.linalg.vecdot over
     # each member's u and v halves, prepared as one (B, 2 My Mx) pair (its
-    # order of addition is torch's, which the kernel's fixed order is not)
+    # order of addition is torch's, which the kernel's fixed order is not);
+    # for the three dots of two pairs, the same call over the prepared
+    # (B, 3, 2 My Mx) stacks of their pairs
     uv = torch.cat((u.flatten(1), v.flatten(1)), 1)
     duv = torch.cat((du.flatten(1), dv.flatten(1)), 1)
-    lib = torch.linalg.vecdot(uv, duv)
-    ref = KD.member_dot_plain((u, v), (du, dv))
-    out["member_dot"]["library_ms"] = _time_ms(
-        lambda: torch.linalg.vecdot(uv, duv), 50)
-    print(f"{phase}: member_dot {label}): torch.linalg.vecdot on the "
-          f"(B, 2 My Mx) pair {out['member_dot']['library_ms']:.4f} ms "
-          f"(events), rel err {_rel_err(lib, ref):.3e} against the plain "
-          "version")
+    _yardstick(phase, "member_dot", label + ")", out["member_dot"],
+               lambda: KD.member_dot((u, v), (du, dv)),
+               "torch.linalg.vecdot on the (B, 2 My Mx) pair",
+               lambda: torch.linalg.vecdot(uv, duv),
+               KD.member_dot_plain((u, v), (du, dv)))
+    L, R = torch.stack((uv, uv, duv), 1), torch.stack((uv, duv, duv), 1)
+    _yardstick(phase, "member_dots", label + ")", out["member_dots"],
+               lambda: KD.member_dots((u, v), (du, dv)),
+               "torch.linalg.vecdot over the (B, 3, 2 My Mx) pairs (x, x, y) "
+               "and (x, y, y)", lambda: torch.linalg.vecdot(L, R),
+               torch.stack(KD.member_dots_plain((u, v), (du, dv)), 1))
 
     def members_first(f):
         return tuple(x.movedim(-3, 0) if x.dim() == 4 else x
@@ -3723,10 +3794,12 @@ def phase13a_antarctic(dev, smi):
     print(f"phase13a: {smi}; setup (data file, bootstrap, couplers, "
           f"{PIKE_MEMBERS} copies) {time.perf_counter() - w0:.2f} s")
     runner = EnsembleRunner(model)
+    # PICO's basin sums: member_sum
+    launched = SSA_MEMBER_KERNELS + ("member_sum",)
     s1, st1, wall1, counts1 = _hybrid_run(runner, batched, 0.0, PIKE_FIRST,
-                                          "phase13a first")
+                                          "phase13a first", launched)
     out, st, wall, counts = _hybrid_run(runner, s1, PIKE_FIRST, PIKE_TIMED,
-                                        "phase13a")
+                                        "phase13a", launched)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _hybrid_report(f"phase13a first {PIKE_FIRST} a (untimed warm-up)",
                    PIKE_MEMBERS, st1, wall1, PIKE_FIRST, counts1)
@@ -3919,7 +3992,8 @@ def phase13e_kernels(model, state):
     251 (K2b's and K2's lines of n = 251 on the member axis), and PICO's
     basin sums: ``member_sum`` over the (B nb, My, Mx) basin rows of the
     members' water under their shelves against one launch per row (to the
-    bit) and torch's sum of the same rows (1e-5). Returns the records."""
+    bit) and its plain version, torch's sum of the same rows (1e-5), which
+    is also its yardstick. Returns the records."""
     import torch
     from pism_tpu_torch import state as S
     from pism_tpu_torch.ops.kernels import member_dot as KD
@@ -3931,12 +4005,16 @@ def phase13e_kernels(model, state):
     rows = torch.where(pico.onehot, x[:, None], 0.0).reshape(
         -1, *x.shape[-2:])
     R, My, Mx = rows.shape
+    label = (f"{R}x{My}x{Mx} float32 (PICO's basin rows of {x.shape[0]} "
+             "members)")
     out["member_sum"] = _member_ssa_case(
-        "member_sum", f"{R}x{My}x{Mx} float32 (PICO's basin rows of "
-        f"{x.shape[0]} members)", KD.member_sum,
-        lambda r: r.sum(dim=(-2, -1)), (rows,),
+        "member_sum", label, KD.member_sum, KD.member_sum_plain, (rows,),
         lambda b: KD.member_sum(rows[b:b + 1]), 1e-5, rows.numel(),
-        "member_dot", phase="phase13e", singles_timed=False)
+        "member_sums_kernel", phase="phase13e", singles_timed=False)
+    _yardstick("phase13e", "member_sum", label, out["member_sum"],
+               lambda: KD.member_sum(rows), "torch's one sum of the rows",
+               lambda: torch.sum(rows, dim=(-2, -1)),
+               KD.member_sum_plain(rows))
     return out
 
 
@@ -4083,8 +4161,9 @@ def main():
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line
-    # solves, torch.linalg.vecdot for the member dot; no single PyTorch
-    # call computes any of the other functions
+    # solves, torch.linalg.vecdot for the member dot and the member dots,
+    # torch.sum for the member sum; no single PyTorch call
+    # computes any of the other functions
     kernels = []
     for name, source, replaces, counts in (
             ("ssa_matvec", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:325", counts_a),
@@ -4107,7 +4186,9 @@ def main():
             ("pcr_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts13),
             ("pcr_factor_lines_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:482", counts13),
             ("pcr_factor_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts13),
-            ("member_dot", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13)):
+            ("member_dot", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13),
+            ("member_dots", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13),
+            ("member_sum", "member_dot.cu", "pism_tpu/coupler/pico.py:209", counts13)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

@@ -369,6 +369,13 @@ class SSAFD:
         def dot(a, b_):
             return ssa_ops._dot(a, b_, ddt, lead)
 
+        def rel_change2(uv_new, uv):
+            """|uv_new - uv|^2 / |uv_new|^2 (on the member axis both dots
+            in one launch)."""
+            d_ = (uv_new[0] - uv[0], uv_new[1] - uv[1])
+            dd, uu = ssa_ops._dots(d_, uv_new, ("xx", "yy"), ddt, lead)
+            return dd / torch.clamp(uu, min=1e-300)
+
         def col(s):
             return ssa_ops.member_col(s, lead)
 
@@ -482,8 +489,7 @@ class SSAFD:
         i = 0
         while i < self.picard_warmup and any(warm):
             uv_new = picard_iter(i, uv, max_iter=caps(self.ksp_max, warm))
-            d_ = (uv_new[0] - uv[0], uv_new[1] - uv[1])
-            chg2 = dot(d_, d_) / torch.clamp(dot(uv_new, uv_new), min=1e-300)
+            chg2 = rel_change2(uv_new, uv)
             uv = pick(warm, lambda: warm_d, uv_new, uv)
             i += 1
             if i < self.picard_warmup:
@@ -637,9 +643,7 @@ class SSAFD:
                            new, going)
             uv_new, F_new, F2_new = new
             # stagnation measure: relative velocity change of this sweep
-            dchg = (uv_new[0] - uv[0], uv_new[1] - uv[1])
-            chg2_new = dot(dchg, dchg) / torch.clamp(dot(uv_new, uv_new),
-                                                     min=1e-300)
+            chg2_new = rel_change2(uv_new, uv)
             if diagnostics:
                 hist.append((F2_new / torch.clamp(b_norm2, min=1e-300),
                              chg2_new, eta, kit, ak, sufficient))

@@ -85,14 +85,32 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_lib_path(name)))
 
 
-def launch(fn, name: str, device, *args) -> None:
-    """Call a C entry point with the current stream of ``device`` as its
-    last argument; raise if it reports a CUDA error."""
+@functools.lru_cache(maxsize=None)
+def _cuda_calls():
+    """torch's calls for the current device's index and a device's current
+    stream as an int, the raw ones where torch has them (they make no
+    device or Stream object)."""
     import torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return (getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device),
+            raw or (lambda i: torch.cuda.current_stream(i).cuda_stream))
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """Call a C entry point with the current stream of ``device`` (a CUDA
+    device or its index) as its last argument, read at each call so that
+    graph capture sees its stream, with ``device`` made current only while
+    it is not; raise if the entry point reports a CUDA error."""
+    current, stream = _cuda_calls()
+    index = device if isinstance(device, int) else device.index
+    if index == current():
+        err = fn(*args, stream(index))
+    else:
+        import torch
+
+        with torch.cuda.device(index):
+            err = fn(*args, stream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
@@ -105,6 +123,21 @@ def check(name: str, *tensors, strided=()) -> None:
     import torch
 
     t0 = tensors[0]
+    dtype, index, cpu = t0.dtype, t0.get_device(), t0.is_cpu
+    # what every call passes, in a few attribute reads a tensor
+    if (dtype is torch.float32 or dtype is torch.float64) \
+            and (cpu or t0.is_cuda):
+        for t in tensors:
+            if (t.dtype is not dtype or t.get_device() != index
+                    or t.is_cpu is not cpu or not t.is_contiguous()):
+                break
+        else:
+            for t in strided:
+                if (t.dtype is not dtype or t.get_device() != index
+                        or t.is_cpu is not cpu):
+                    break
+            else:
+                return
     if t0.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name} takes float32 or float64, not {t0.dtype}")
     if t0.device.type not in ("cpu", "cuda"):
@@ -122,19 +155,23 @@ def check(name: str, *tensors, strided=()) -> None:
 _WORK = {}
 
 
-def workspace(name: str, device, nkeys: int = 1):
-    """The int64 words of work that kernel ``name`` takes the max of a grid
-    of ``nkeys`` members with on ``device`` (``csrc/grid_max.cuh``): a
-    ticket, 0, and a key per member, the least int64, which every launch
-    leaves as it found them. Made once per device and member count;
-    launches that share them run in order on one stream."""
+def workspace(name: str, device, nkeys: int = 1, words: int = 0):
+    """The int64 words of work of kernel ``name`` on ``device``, made once
+    per device and layout; launches that share them run in order on one
+    stream. With ``words`` 0, those that take the max of a grid of
+    ``nkeys`` members (``csrc/grid_max.cuh``): a ticket, 0, and a key per
+    member, the least int64, which every launch leaves as it found them.
+    Else ``words`` zeros, the first ``nkeys`` of them tickets that every
+    launch leaves at 0 and the rest its scratch (``csrc/member_dot.cu``)."""
     import torch
 
-    key = (name, str(device), nkeys)
+    key = (name, device, nkeys, words)
     w = _WORK.get(key)
     if w is None:
-        w = _WORK[key] = torch.tensor([0] + [-2 ** 63] * nkeys,
-                                      dtype=torch.int64, device=device)
+        w = _WORK[key] = (
+            torch.zeros(words, dtype=torch.int64, device=device) if words
+            else torch.tensor([0] + [-2 ** 63] * nkeys, dtype=torch.int64,
+                              device=device))
     return w
 
 

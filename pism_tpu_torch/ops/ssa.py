@@ -22,8 +22,9 @@ iteration counts identical to the reference.
 On an ensemble's member axis (fields ``(B, My, Mx)``, a ``Shifter`` with
 ``lead = 1``) the operator, the Newton matvec and the line solves launch
 once for all members, the dot products are per member
-(``ops/kernels/member_dot.py``) and ``bicgstab_solve`` runs every member's
-iteration in lockstep, the ``vmap`` of the JAX loop.
+(``ops/kernels/member_dot.py``, the dots that share a point of the loop in
+one launch) and ``bicgstab_solve`` runs every member's iteration in
+lockstep, the ``vmap`` of the JAX loop.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from . import stencils as st
-from .kernels.member_dot import member_dot
+from .kernels.member_dot import member_dot, member_dots, pairs
 from .kernels.pcr import pcr_apply, pcr_factor_lines, pcr_factor_lines_sub
 from .kernels import ssa_matvec as K
 from ..util.hostsync import host
@@ -342,6 +343,15 @@ def _dot(a, b, dot_dtype=None, lead=0):
     return torch.sum(a[0] * b[0]) + torch.sum(a[1] * b[1])
 
 
+def _dots(x, y, which, dot_dtype=None, lead=0):
+    """The dots that ``which`` names among "xx" (x.x), "xy" (x.y) and "yy"
+    (y.y) of the pairs of fields ``x`` and ``y``, in that order: with
+    ``lead`` = 1 in one launch of ``member_dots``, else as ``_dot``s."""
+    if lead:
+        return member_dots(x, y, dot_dtype, which)
+    return tuple(_dot(p, q, dot_dtype) for p, q in pairs(x, y, which))
+
+
 def _nz(x):
     """x with exact zeros replaced by 1e-300 (0 in float32, as in JAX)."""
     return torch.where(x == 0, 1e-300, x)
@@ -367,7 +377,11 @@ def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
     be a list of B host ints; 0 leaves the member at ``x0``) and the stop
     test are per member; a member that stopped is frozen, its x, r and
     count kept by a select, while the others go on. The lockstep loop
-    reads one (B,) mask an iteration; ``iterations`` is a list of B ints."""
+    reads one (B,) mask an iteration; ``iterations`` is a list of B ints.
+    It takes the dots of one point of the loop in one launch
+    (``member_dots``): r.r of the stop test with rhat.r, passed to the
+    body as ``rho_new``, and t.s with t.t, so an iteration launches three
+    dot kernels."""
     def dot(p, q):
         return _dot(p, q, dot_dtype, lead)
 
@@ -378,8 +392,9 @@ def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
         return (col(a.to(x[0].dtype)) * x[0] + y[0],
                 col(a.to(x[1].dtype)) * x[1] + y[1])
 
-    def body(x, r, p, v, rho, alpha, omega):
-        rho_new = dot(rhat, r)
+    def body(x, r, p, v, rho, alpha, omega, rho_new=None):
+        if rho_new is None:
+            rho_new = dot(rhat, r)
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
         om = col(omega.to(p[0].dtype))
         p = axpy(beta, (p[0] - om * v[0], p[1] - om * v[1]), r)
@@ -389,7 +404,8 @@ def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
         s = axpy(-alpha, v, r)
         z = precond(s)
         t = matvec(z)
-        omega = dot(t, s) / _nz(dot(t, t))
+        tt, ts = _dots(t, s, ("xx", "xy"), dot_dtype, lead)
+        omega = ts / _nz(tt)
         x = axpy(alpha, y, axpy(omega, z, x))
         r = axpy(-omega, t, s)
         return x, r, p, v, rho_new, alpha, omega
@@ -416,11 +432,12 @@ def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
         it_d = torch.zeros_like(cap_d)
         # a loop at its bound reads nothing, as the single loop's test
         while any(k < c for k, c in zip(it, cap)):
-            go_d = (dot(carry[1], carry[1]) > tol2) & (it_d < cap_d)
+            rr, rho_new = _dots(carry[1], rhat, ("xx", "xy"), dot_dtype, 1)
+            go_d = (rr > tol2) & (it_d < cap_d)
             go = host(go_d)
             if not any(go):
                 break
-            new = body(*carry)
+            new = body(*carry, rho_new)
             carry = new if all(go) else tuple(
                 member_select(go_d, a, b_) for a, b_ in zip(new, carry))
             it_d = it_d + go_d
@@ -429,8 +446,7 @@ def bicgstab_solve(matvec, b, x0, precond, *, rtol=1e-5, atol=0.0,
     # breakdown guard: near-breakdown (rho/omega cancellation, worst in f32)
     # explodes the recurrences and the NaN residual exits the loop above;
     # never hand a diverged iterate back to the Newton/Picard caller
-    rfin2 = dot(r, r)
-    r02 = dot(r0, r0)
+    rfin2, r02 = _dots(r, r0, ("xx", "yy"), dot_dtype, lead)
     ok = rfin2 <= r02          # False for NaN too
     x = (torch.where(col(ok), x[0], x0[0]), torch.where(col(ok), x[1], x0[1]))
     return x, it, torch.where(ok, rfin2, r02)

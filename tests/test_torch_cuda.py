@@ -1042,12 +1042,49 @@ def test_paleo_ensemble_on_the_card_matches_cpu(cuda):
     assert float((Hb - Ha).abs().max() / Ha.abs().max()) <= 1e-10
 
 
-def _ssa_members(kernel, B, dtype, device):
-    """(member-axis call, member b's single call, plain call) of one of the
-    SSA solve's member-axis kernels on random (B, 41, 23) inputs."""
-    from pism_tpu_torch.ops.kernels import member_dot as KD
+def _member_fields(B, dtype, device, grid):
+    """The member dots' pairs x = (u, v) and y = (u + du, v + dv), and a
+    positive field, as ``_ssa_members`` draws them."""
     rng = np.random.default_rng(40 + B)
-    shape = (B, 41, 23)
+    shape = (B, *grid)
+
+    def t(x):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    u, v, du, dv = (t(rng.normal(size=shape) * 1e-5) for _ in range(4))
+    ne = t(rng.uniform(1e13, 1e16, size=shape))
+    return (u, v), (u + du * 0.1, v + dv * 0.1), ne
+
+
+def _ssa_members(kernel, B, dtype, device, grid=(41, 23), dot_dtype=None):
+    """(member-axis call, member b's single call, plain call) of one of the
+    SSA solve's member-axis kernels on random (B, *grid) inputs; the member
+    dots in ``dot_dtype`` if given (a member sum sums in its field's
+    dtype)."""
+    from pism_tpu_torch.ops.kernels import member_dot as KD
+    if kernel.startswith("member_"):
+        # |r|^2-like sums (no cancellation, so the relative error is the
+        # summation order's alone)
+        x, y, pos = _member_fields(B, dtype, device, grid)
+
+        def one(p, b):
+            return tuple(f[b:b + 1] for f in p)
+
+        if kernel == "member_dot":
+            return (lambda: KD.member_dot(x, y, dot_dtype),
+                    lambda b: KD.member_dot(one(x, b), one(y, b),
+                                            dot_dtype)[0],
+                    lambda: KD.member_dot_plain(x, y, dot_dtype))
+        if kernel == "member_dots":
+            return (lambda: KD.member_dots(x, y, dot_dtype),
+                    lambda b: tuple(d[0] for d in KD.member_dots(
+                        one(x, b), one(y, b), dot_dtype)),
+                    lambda: KD.member_dots_plain(x, y, dot_dtype))
+        return (lambda: KD.member_sum(pos),
+                lambda b: KD.member_sum(pos[b:b + 1])[0],
+                lambda: KD.member_sum_plain(pos))
+    rng = np.random.default_rng(40 + B)
+    shape = (B, *grid)
 
     def t(x):
         return torch.tensor(x, dtype=dtype, device=device)
@@ -1067,14 +1104,6 @@ def _ssa_members(kernel, B, dtype, device):
         return (lambda: K.ssa_newton_matvec(*args, DX, DY),
                 lambda b: K.ssa_newton_matvec(*(a[b] for a in args), DX, DY),
                 lambda: K.ssa_newton_matvec_plain(*args, DX, DY))
-    if kernel == "member_dot":
-        # |r|^2-like sums (no cancellation, so the relative error is the
-        # summation order's alone)
-        w, z = u + du, v + dv
-        return (lambda: KD.member_dot((u, v), (w, z)),
-                lambda b: KD.member_dot((u[b:b + 1], v[b:b + 1]),
-                                        (w[b:b + 1], z[b:b + 1]))[0],
-                lambda: KD.member_dot_plain((u, v), (w, z)))
     a, c = (t(rng.uniform(-0.2, 0.2, size=shape)) for _ in range(2))
     r, s = t(rng.normal(size=shape)), t(rng.uniform(1.0, 2.0, size=shape))
     sub = kernel == "pcr_lines_sub"
@@ -1105,14 +1134,15 @@ def _ssa_members(kernel, B, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kernel", ["ssa_matvec", "ssa_newton_matvec",
                                     "pcr_lines", "pcr_lines_sub",
-                                    "member_dot"])
+                                    "member_dot", "member_dots",
+                                    "member_sum"])
 @pytest.mark.parametrize("B", [1, 3, 100])
 def test_ssa_member_launch_equals_single_launches(cuda, kernel, dtype, B):
     """The SSA solve's member-axis launches (K1, the Newton matvec, K2b and
-    K2 factor and apply, the member dot): each member equal to the bit to
-    a launch of it alone, and the plain version at the kernels' tolerances
-    (``PERF.md`` section 6: the PCR kernels exactly, the dot as a sum in
-    another order)."""
+    K2 factor and apply, the member dot, dots and sum): each member equal
+    to the bit to a launch of it alone, and the plain version at the
+    kernels' tolerances (``PERF.md`` section 6: the PCR kernels exactly,
+    the dots and sums as sums in another order)."""
     batched, one, plain = _ssa_members(kernel, B, dtype, cuda)
     got = batched()
     got = got if isinstance(got, tuple) else (got,)
@@ -1127,17 +1157,68 @@ def test_ssa_member_launch_equals_single_launches(cuda, kernel, dtype, B):
         assert _rel(g, p) <= tol
 
 
+#: the member dots' and sums' precisions: field dtype, dot dtype
+MEMBER_PRECISIONS = {"f32": (torch.float32, None),
+                     "f64": (torch.float64, None),
+                     "f32_f64": (torch.float32, torch.float64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, prec", [
+    (k, p) for k in ("member_dot", "member_dots", "member_sum")
+    for p in ("f32", "f64", "f32_f64")
+    if (k, p) != ("member_sum", "f32_f64")])
+@pytest.mark.parametrize("grid", [(251, 251), (141, 76)])
+@pytest.mark.parametrize("B", [1, 3, 100])
+def test_member_sums_over_chunks_equal_single_launches(cuda, kernel, prec,
+                                                       grid, B):
+    """The member dot, dots and sum where a member spans several chunks of
+    the kernel (at the Antarctic and the 20 km grids; 251 x 251 has an odd
+    cell count, so members start off 16-byte boundaries): each member equal
+    to the bit to a launch of it alone, each dot of ``member_dots`` to
+    ``member_dot`` of its pair, and the plain versions at ``TOL`` of the
+    sum's dtype."""
+    from pism_tpu_torch.ops.kernels import member_dot as KD
+    dtype, dd = MEMBER_PRECISIONS[prec]
+    batched, one, plain = _ssa_members(kernel, B, dtype, cuda, grid, dd)
+    got = batched()
+    got = got if isinstance(got, tuple) else (got,)
+    for b in range(B):
+        ref = one(b)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g, o in zip(got, ref):
+            assert _same_bits(g[b].reshape(o.shape), o)
+    want = plain()
+    for g, p in zip(got, want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == (dd or dtype)
+        assert _rel(g, p) <= TOL[dd or dtype]
+    if kernel == "member_dots":
+        x, y, _ = _member_fields(B, dtype, cuda, grid)
+        for g, (p, q) in zip(got, ((x, x), (x, y), (y, y))):
+            assert _same_bits(g, KD.member_dot(p, q, dd))
+        assert _same_bits(got[1], KD.member_dot(y, x, dd))
+        # the Krylov loop's and the final pairs: the dots asked for only
+        for which, idx in ((("xx", "xy"), (0, 1)), (("xx", "yy"), (0, 2))):
+            sub = KD.member_dots(x, y, dd, which)
+            assert len(sub) == 2
+            assert all(_same_bits(g, got[i]) for g, i in zip(sub, idx))
+
+
 @pytest.mark.cuda
 def test_ssa_member_launches_count_once(cuda):
     """One launch and one member count per call for all members; no single
-    launch counted."""
+    launch counted; the member dot, dots and sum each count their own
+    launch only; the lockstep Krylov loop launches three dot kernels an
+    iteration (one ``member_dot``, two ``member_dots``)."""
     from pism_tpu_torch.ops.kernels import member_dot as KD
     counters = ((K, "MEMBER_LAUNCHES", "LAUNCHES", "ssa_matvec"),
                 (K, "NEWTON_MEMBER_LAUNCHES", "NEWTON_LAUNCHES",
                  "ssa_newton_matvec"),
                 (K2, "MEMBER_LAUNCHES", "LAUNCHES", "pcr_lines"),
                 (K2, "SUB_MEMBER_LAUNCHES", "SUB_LAUNCHES", "pcr_lines_sub"),
-                (KD, "LAUNCHES", None, "member_dot"))
+                (KD, "LAUNCHES", "SUM_LAUNCHES", "member_dot"),
+                (KD, "DOTS_LAUNCHES", "LAUNCHES", "member_dots"),
+                (KD, "SUM_LAUNCHES", "DOTS_LAUNCHES", "member_sum"))
     for mod, member_count, single, kernel in counters:
         batched, _, _ = _ssa_members(kernel, 7, torch.float32, cuda)
         m0 = getattr(mod, member_count)
@@ -1146,6 +1227,29 @@ def test_ssa_member_launches_count_once(cuda):
         assert getattr(mod, member_count) - m0 == 1
         if single:
             assert getattr(mod, single) == s0
+
+    B, cap = 3, [6, 6, 6]
+    rng = np.random.default_rng(3)
+    shift = torch.tensor(rng.uniform(0.5, 3.0, size=B),
+                         device=cuda)[:, None, None]
+    b = tuple(torch.tensor(rng.normal(size=(B, 9, 7)), device=cuda)
+              for _ in range(2))
+
+    def matvec(x):
+        return tuple((4.0 + shift) * c
+                     - (torch.roll(c, 1, -1) + torch.roll(c, -1, -1)
+                        + torch.roll(c, 1, -2) + torch.roll(c, -1, -2))
+                     for c in x)
+
+    d0, p0 = KD.LAUNCHES, KD.DOTS_LAUNCHES
+    _, its, _ = ssa_ops.bicgstab_solve(
+        matvec, b, tuple(torch.zeros_like(c) for c in b), lambda r: r,
+        rtol=1e-30, max_iter=cap, lead=1)
+    assert its == cap
+    # b.b and rhat.v an iteration; the head's and t's pairs an iteration,
+    # and the final r.r with r0.r0
+    assert KD.LAUNCHES - d0 == 1 + 6
+    assert KD.DOTS_LAUNCHES - p0 == 2 * 6 + 1
 
 
 @pytest.mark.cuda

@@ -412,6 +412,117 @@ def test_plain_member_kernels_equal_per_member_calls(kernel):
             assert torch.equal(g[b], o)
 
 
+#: the member kernels' precisions: field dtype, dot or sum dtype
+PRECISIONS = {"f32": (torch.float32, None), "f64": (torch.float64, None),
+              "f32_f64": (torch.float32, torch.float64)}
+
+
+@pytest.mark.parametrize("prec", sorted(PRECISIONS))
+def test_plain_member_dots_equal_member_dot_calls(prec):
+    """``member_dots(x, y)`` (on the CPU its plain version) is x.x, x.y and
+    y.y, each equal to the bit to ``member_dot_plain`` of its pair (and
+    x.y to y.x), so the CPU solve's iterates are those of separate dots."""
+    dtype, dd = PRECISIONS[prec]
+    rng = np.random.default_rng(17)
+    x = tuple(t.to(dtype) for t in _fields(rng, 3, 29, 16, 2))
+    y = tuple(t.to(dtype) for t in _fields(rng, 3, 29, 16, 2))
+    got = KD.member_dots(x, y, dd)
+    plain = KD.member_dots_plain(x, y, dd)
+    want = (KD.member_dot_plain(x, x, dd), KD.member_dot_plain(x, y, dd),
+            KD.member_dot_plain(y, y, dd))
+    for g, p, w in zip(got, plain, want):
+        assert g.dtype == (dd or dtype) and g.shape == (3,)
+        assert torch.equal(g, w) and torch.equal(p, w)
+    assert torch.equal(got[1], KD.member_dot_plain(y, x, dd))
+    assert torch.equal(KD.member_dot(x, y, dd), want[1])
+    # the dots asked for, in the order xx, xy, yy
+    for which, idx in ((("xx", "xy"), (0, 1)), (("yy", "xx"), (0, 2)),
+                       (("xy",), (1,))):
+        sub = KD.member_dots(x, y, dd, which)
+        assert len(sub) == len(idx)
+        assert all(torch.equal(g, want[i]) for g, i in zip(sub, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plain_member_sum_equals_each_members_sum(dtype):
+    """``member_sum`` (on the CPU its plain version) is each member's
+    ``torch.sum``, in the field's dtype."""
+    rng = np.random.default_rng(19)
+    x = _fields(rng, 5, 31, 23, 1)[0].to(dtype)
+    got = KD.member_sum(x)
+    assert got.dtype == dtype and got.shape == (5,)
+    want = torch.stack([torch.sum(x[b]) for b in range(5)])
+    assert torch.equal(got, want)
+    assert torch.equal(KD.member_sum_plain(x), want)
+
+
+@pytest.mark.parametrize("which", [("xx", "xy", "yy"), ("xx", "xy"),
+                                   ("yy", "xx"), ("xy",)])
+def test_member_dot_pairs_in_the_order_xx_xy_yy(which):
+    """``pairs`` gives the field pairs of the dots ``which`` names in the
+    order xx, xy, yy, whatever order ``which`` lists them in; the
+    unbatched solve's ``_dots`` takes its dots of them."""
+    x, y = (torch.zeros(1), torch.zeros(1)), (torch.ones(1), torch.ones(1))
+    want = [p for w, p in zip(("xx", "xy", "yy"), ((x, x), (x, y), (y, y)))
+            if w in which]
+    got = KD.pairs(x, y, which)
+    assert len(got) == len(want)
+    assert all(g[0] is w[0] and g[1] is w[1] for g, w in zip(got, want))
+    rng = np.random.default_rng(23)
+    u = tuple(_fields(rng, 1, 7, 5, 2))
+    v = tuple(_fields(rng, 1, 7, 5, 2))
+    dots = ssa_ops._dots((u[0][0], u[1][0]), (v[0][0], v[1][0]), which)
+    plain = KD.member_dots_plain(u, v, None, which)
+    assert len(dots) == len(plain) == len(want)
+    assert all(torch.equal(d, p[0]) for d, p in zip(dots, plain))
+
+
+def test_member_kernels_refuse_what_they_do_not_take():
+    x = torch.zeros(2, 5, 4)
+    with pytest.raises(ValueError, match="one shape"):
+        KD.member_dots((x, x), (x, torch.zeros(2, 4, 5)))
+    with pytest.raises(ValueError, match=r"\(B, My, Mx\)"):
+        KD.member_sum(torch.zeros(5, 4))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        KD.member_sum(torch.zeros(2, 5, 4, dtype=torch.int32))
+    with pytest.raises(TypeError, match="float64, not"):
+        KD.member_dot((x, x), (x, x), torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        KD.member_sum(torch.zeros(2, 4, 5).transpose(1, 2))
+    for which in (("xx", "zz"), ("xy", "xy")):
+        with pytest.raises(ValueError, match="distinct names"):
+            KD.member_dots((x, x), (x, x), None, which)
+
+
+def test_bicgstab_members_take_three_dot_calls_an_iteration(monkeypatch):
+    """The lockstep loop takes its dots as one ``member_dot`` (rhat.v) and
+    two ``member_dots`` (r.r with rhat.r at the head, t.s with t.t) an
+    iteration, besides a fixed few a solve; its iterates stay those of the
+    unbatched solves (``test_bicgstab_member_converged_early_is_frozen``)."""
+    calls = {"member_dot": 0, "member_dots": 0}
+
+    def counted(name):
+        fn = getattr(ssa_ops, name)
+
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(ssa_ops, name, counted(name))
+    B = 3
+    rng = np.random.default_rng(5)
+    shift = torch.tensor(rng.uniform(0.5, 3.0, size=B))[:, None, None]
+    b = tuple(torch.tensor(rng.normal(size=(B, 9, 7))) for _ in range(2))
+    cap = [6, 6, 6]
+    _, its, _ = _solve(_operator(shift), b, 1e-30, cap, True)
+    assert its == cap
+    # a solve: b.b through member_dot and the final r.r with r0.r0 through
+    # member_dots; the loop: its iterations' three, no head past the bound
+    assert calls == {"member_dot": 1 + 6, "member_dots": 1 + 2 * 6}
+
+
 # -- the hybrid chain as a 3-member ensemble ----------------------------------
 
 def test_hybrid_ensemble_matches_jax_vmap(runs):
