@@ -206,6 +206,25 @@ launch counters set to 0 just before it and read just after:
     (to the bit) and torch's sum (its plain version and its yardstick); the kernel record's member-axis entries are phase
     13's; (d) 4 members at 125 km float64, 2 a, card against CPU (equal
     steps and hits, volumes within 1e-7).
+  phase 14: the SSA verification suite (``-test I, J, M, V, N``,
+    ``verification/ssa_tests.py``): (a) the Newton matvec with the drag
+    tangent of the exact drag Jacobian against its plain version, whole
+    field at 61x61 and 141x76 and its padded-block instance on the
+    periodic 11x61 (I) and 221x5 (N) grids, 1e-12 in float64 and 1e-5 in
+    float32, the float64 periodic cases timed beside their bound; with a
+    zero plane equal to the bit to the launch without one; (b) the five
+    tests through ``cli.main`` at the JAX command line's defaults, float64:
+    report line, Newton sweeps, Krylov iterations, host syncs, wall and
+    launches of each, the same Newton sweeps as the port's CPU run of the
+    test, velocities within 1e-5 of max|u| of it, the error norms within 1%
+    of the JAX command line's (N: 6 sweeps), K1 on every non-periodic
+    operator (M, the multigrid's coarse levels of J), the padded-block
+    route on the periodic grids (I, J, V, N) and the drag tangent in I and
+    N; then N and J once more with each BiCGStab call profiled (device
+    ops, device and host time a Krylov iteration); (c) I and N with
+    ``line_pcr_impl = pallas_sublane``: the PCR kernels
+    launch, the Newton and Krylov counts equal (b)'s, velocities within
+    1e-12.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -233,7 +252,9 @@ HALFAR_MX, HALFAR_YEARS = 601, 50.0
 # the apply's d recurrence), per face and level of the softness integral
 # plus per face (K3)
 # (the Newton matvec: the JVP's 102, the tangent's 19 a face and 4 selects)
+# (the drag tangent: c (u fu + v fv) and its two products and sums, 8 more)
 OPS = {"ssa_matvec": 52, "ssa_matvec_jvp": 102, "ssa_newton_matvec": 144,
+       "ssa_newton_matvec_drag": 152,
        "pcr_factor_round": 10,
        "pcr_apply_round": 4, "sia_thermo_level": 37, "sia_thermo_face": 15,
        "sia_flux": 36}
@@ -311,6 +332,9 @@ def _counters():
             (ssa_matvec, "HALO_JVP_LAUNCHES", "ssa_matvec_halo_jvp"),
             (ssa_matvec, "NEWTON_LAUNCHES", "ssa_newton_matvec"),
             (ssa_matvec, "HALO_NEWTON_LAUNCHES", "ssa_newton_matvec_halo"),
+            (ssa_matvec, "NEWTON_DRAG_LAUNCHES", "ssa_newton_matvec_drag"),
+            (ssa_matvec, "HALO_NEWTON_DRAG_LAUNCHES",
+             "ssa_newton_matvec_halo_drag"),
             (pcr, "LAUNCHES", "pcr_lines"),
             (pcr, "SUB_LAUNCHES", "pcr_lines_sub"),
             (pcr, "FACTOR_LAUNCHES", "pcr_factor_lines"),
@@ -335,6 +359,7 @@ def _counters():
 
 KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_newton_matvec",
            "ssa_matvec_halo", "ssa_matvec_halo_jvp", "ssa_newton_matvec_halo",
+           "ssa_newton_matvec_drag", "ssa_newton_matvec_halo_drag",
            "pcr_lines", "pcr_lines_sub",
            "pcr_factor_lines", "pcr_factor_lines_sub",
            "sia_flux_thermo", "sia_flux", "sia_flux_thermo_members",
@@ -1201,6 +1226,12 @@ def profile_bicgstab(model, state, t, years, label):
     """Device ops per Krylov iteration inside the chain's own Newton
     solves: each BiCGStab call of the steps runs under the profiler.
     Returns (device ops, device us, profiled host ms) per iteration."""
+    return profile_bicgstab_of(
+        lambda: model.step_once(state, t, years * SPY), label)
+
+
+def profile_bicgstab_of(run, label):
+    """``profile_bicgstab`` of the solves that ``run()`` makes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1224,7 +1255,7 @@ def profile_bicgstab(model, state, t, years, label):
         return profiled
 
     with _patched([(ssa_ops, "bicgstab_solve", "BiCGStab")], wrap):
-        model.step_once(state, t, years * SPY)
+        run()
     k = max(acc["its"], 1)
     print(f"{label}: inside the Newton solves: {acc['its']} Krylov its, "
           f"{acc['ops'] / k:.0f} device ops and {acc['us'] / k:.1f} us of "
@@ -4060,6 +4091,282 @@ def phase13_antarctic_ensemble(dev, smi):
     return records, counts
 
 
+# -- phase 14: the SSA verification suite (tests I, J, M, V, N) ------------
+
+#: the JAX command line's report at its defaults (``pism_tpu`` ``cli.main``,
+#: float64 on the CPU): the error norms of each test [m/a] (J: the errors
+#: at 61 and 121 points and the rate), which the card's runs hold within 1%
+SSA_TEST_REPORT = {"I": {"max": 3.441, "avg": 2.264},
+                   "V": {"max": 2.498, "avg": 1.493},
+                   "N": {"max": 219.08, "avg": 84.70},
+                   "M": {"max": 534.07, "avg": 150.73},
+                   "J": {"max": 0.508, "max2": 0.094, "rate": 2.43}}
+#: the kernels each test launches on the card and those it must not
+SSA_TEST_KERNELS = {
+    "I": (("ssa_matvec_halo", "ssa_newton_matvec_halo_drag"),
+          ("ssa_matvec", "ssa_newton_matvec", "ssa_newton_matvec_halo",
+           "ssa_newton_matvec_drag")),
+    "N": (("ssa_matvec_halo", "ssa_newton_matvec_halo_drag"),
+          ("ssa_matvec", "ssa_newton_matvec", "ssa_newton_matvec_halo",
+           "ssa_newton_matvec_drag")),
+    "V": (("ssa_matvec_halo", "ssa_newton_matvec_halo"),
+          ("ssa_matvec", "ssa_newton_matvec", "ssa_newton_matvec_drag",
+           "ssa_newton_matvec_halo_drag")),
+    "M": (("ssa_matvec", "ssa_newton_matvec"),
+          ("ssa_matvec_halo", "ssa_newton_matvec_halo",
+           "ssa_newton_matvec_drag", "ssa_newton_matvec_halo_drag")),
+    "J": (("ssa_matvec", "ssa_matvec_halo", "ssa_newton_matvec_halo"),
+          ("ssa_newton_matvec", "ssa_newton_matvec_drag",
+           "ssa_newton_matvec_halo_drag"))}
+PCR_KERNELS = ("pcr_lines", "pcr_lines_sub", "pcr_factor_lines",
+               "pcr_factor_lines_sub")
+
+
+def _drag_args(rng, shape, dtype, dev):
+    """``_newton_args`` and a drag-tangent plane c = 2 dbeta/d|u|^2 of the
+    magnitude a plastic till gives (beta ~ 1e10 Pa s/m over |u|^2 ~ 1e-10
+    m^2/s^2), negative as the law's."""
+    import torch
+    c = -rng.uniform(1e19, 1e21, size=shape)
+    return _newton_args(rng, shape, dtype, dev) + (
+        torch.tensor(c, dtype=dtype, device=dev),)
+
+
+def _newton_halo(periodic, dx, dy, args):
+    """The Newton matvec on a grid periodic along ``periodic`` = (y, x) as
+    the SSA's periodic route launches it (``ops/ssa.py``
+    ``ssa_newton_matvec_periodic``: one launch of the padded-block
+    instance): (the kernel, its plain version, the blocks). ``args``:
+    ``_drag_args`` without dx, dy (the plane last); the blocks are its
+    fields wrap-padded here once (u, v, the direction and the mask two
+    ghosts, nuH and the coefficient planes one, beta and the plane none),
+    so that the kernel's time is the launch alone."""
+    from pism_tpu_torch.ops import stencils as st
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+    py, px = periodic
+    ghosts = (2, 2, 2, 2, 1, 1, 1, 1, 0, 2)
+    blocks = tuple(st.pad_ghosts(a, g, py, px) if g else a.contiguous()
+                   for a, g in zip(args[:10], ghosts)) + (args[10],)
+
+    def launch(fn):
+        return lambda *a: fn(not px, not py, *a[:10], dx, dy, a[10])
+    return (launch(K.ssa_newton_matvec_halo),
+            launch(K.ssa_newton_matvec_halo_plain), blocks)
+
+
+def _same_bits_without_plane(label, kern, args):
+    """The drag instance with a zero plane against the launch without a
+    plane: equal to the bit."""
+    import torch
+    zero = kern(*args[:-1], torch.zeros_like(args[-1]))
+    none = kern(*args[:-1], None)
+    same = all(torch.equal(a, b) for a, b in zip(zero, none))
+    print(f"phase14a: {label}: with a zero plane equal to the launch without "
+          f"one to the bit {same}")
+    if not same:
+        raise AssertionError(f"phase14a: {label}: a zero drag plane changes "
+                             "the bits")
+
+
+def phase14a_drag_kernel(dev):
+    """The Newton matvec with the drag tangent against its plain version on
+    the card; returns the record of the padded-block instance at N's 221x5
+    float64 (the path's case)."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+
+    rng = np.random.default_rng(20261018)
+    record = None
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        name = str(dtype)[6:]
+        for My, Mx in ((61, 61), (141, 76)):
+            args = _drag_args(rng, (My, Mx), dtype, dev)
+
+            def whole(*a):
+                return K.ssa_newton_matvec(*a[:10], 20e3, 20e3, a[10])
+
+            def whole_plain(*a):
+                return K.ssa_newton_matvec_plain(*a[:10], 20e3, 20e3, a[10])
+
+            _kernel_case("ssa_newton_matvec_drag", whole, whole_plain, args,
+                         tol, f"{My}x{Mx} {name}",
+                         OPS["ssa_newton_matvec_drag"] * My * Mx,
+                         phase="phase14a", timed=False)
+            _same_bits_without_plane(f"whole field {My}x{Mx} {name}", whole,
+                                     args)
+        # the periodic grids of tests I (11x61, periodic in x) and N (221x5,
+        # periodic in y), their steps
+        for (My, Mx), periodic, dx, dy in (
+                ((61, 11), (False, True), 2e3, 2e3),
+                ((5, 221), (True, False), 4e3, 12.5e3)):
+            kern, plain, blocks = _newton_halo(
+                periodic, dx, dy, _drag_args(rng, (My, Mx), dtype, dev))
+            timed = dtype == torch.float64
+            r = _kernel_case(
+                "ssa_newton_matvec_halo_drag", kern, plain, blocks, tol,
+                f"periodic route {My}x{Mx} {name}",
+                OPS["ssa_newton_matvec_drag"] * My * Mx, match="newton",
+                phase="phase14a", timed=timed)
+            _same_bits_without_plane(f"periodic route {My}x{Mx} {name}",
+                                     kern, blocks)
+            if timed and Mx == 221:
+                record = r
+    return record
+
+
+def _ssa_test(letter, device, config=()):
+    """Test ``letter`` at its defaults on ``device``: on the card through
+    ``cli.main`` (the launch counters set to 0 just before and read just
+    after), on the CPU through ``ssa_tests.run_test``. Returns (report
+    line, [(u, v, info) of each solve], counts, wall)."""
+    import contextlib
+    import io
+    import torch
+    from pism_tpu_torch import cli
+    from pism_tpu_torch.model import ssa as ssa_model
+    from pism_tpu_torch.verification import ssa_tests
+
+    solves, orig = [], ssa_model.SSAFD.solve
+
+    def solve(self, *a, **k):
+        out = orig(self, *a, **k)
+        solves.append(out)
+        return out
+
+    out = io.StringIO()
+    ssa_model.SSAFD.solve = solve
+    try:
+        if device == "cpu":
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                ssa_tests.run_test(letter, config=dict(config) or None,
+                                   device="cpu")
+            wall, counts = time.perf_counter() - t0, None
+        else:
+            argv = ["-test", letter]
+            for k, v in config:
+                argv += ["-config", f"{k}={v}"]
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall, counts = time.perf_counter() - t0, read_counts()
+            if rc != 0:
+                raise AssertionError(f"phase14: -test {letter} returned {rc}")
+    finally:
+        ssa_model.SSAFD.solve = orig
+    return out.getvalue().strip().splitlines()[-1], solves, counts, wall
+
+
+def _report_numbers(letter, line):
+    """The error norms of a report line (``ssa_tests``' format)."""
+    import re
+    nums = [float(x) for x in re.findall(r"[-+]?\d+\.\d+", line)]
+    if letter == "J":
+        return {"max": nums[0], "max2": nums[1], "rate": nums[2]}
+    return {"max": nums[-2], "avg": nums[-1]}
+
+
+def _solve_counts(solves):
+    return ([int(s[2]["newton_iters"]) for s in solves],
+            [int(s[2]["krylov_iters"]) for s in solves])
+
+
+def phase14b_tests(dev, smi):
+    """The five tests on the card against their CPU runs and the JAX
+    command line's report; returns ({letter: (solves, counts)}, the
+    phase's launch counts summed over the five)."""
+    import torch
+
+    total, runs = {}, {}
+    for letter in "IVNMJ":
+        cpu_line, cpu_solves, _, cpu_wall = _ssa_test(letter, "cpu")
+        line, solves, counts, wall = _ssa_test(letter, dev)
+        sweeps, krylov = _solve_counts(solves)
+        cpu_sweeps, cpu_krylov = _solve_counts(cpu_solves)
+        n = len(solves)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"phase14b: {smi}: -test {letter}: {line}")
+        print(f"phase14b: -test {letter}: {n} solve(s), Newton sweeps {sweeps}"
+              f" (CPU {cpu_sweeps}), Krylov iterations {krylov} (CPU "
+              f"{cpu_krylov}), host syncs {counts['host_syncs']} "
+              f"({counts['host_syncs'] / n:.0f} a solve), main() wall "
+              f"{wall:.3f} s (CPU run {cpu_wall:.3f} s), launches {launched}")
+        if sweeps != cpu_sweeps:
+            raise AssertionError(f"phase14b: -test {letter}: Newton sweeps "
+                                 f"{sweeps} on the card, {cpu_sweeps} on the "
+                                 "CPU")
+        if letter == "N" and sweeps != [6]:
+            raise AssertionError(f"phase14b: -test N took {sweeps} sweeps, "
+                                 "the JAX command line 6")
+        if letter != "J":
+            (u, v, _), (cu, cv, _) = solves[0], cpu_solves[0]
+            scale = float(torch.maximum(cu.abs().max(), cv.abs().max()))
+            diff = max(float((u.cpu() - cu).abs().max()),
+                       float((v.cpu() - cv).abs().max()))
+            print(f"phase14b: -test {letter}: card against CPU max |diff| "
+                  f"{diff / scale:.3e} of max|u| (tol 1e-5)")
+            if not diff <= 1e-5 * scale:
+                raise AssertionError(f"phase14b: -test {letter}: the card "
+                                     "and the CPU disagree")
+        got, want = _report_numbers(letter, line), SSA_TEST_REPORT[letter]
+        for key, ref in want.items():
+            tol = 0.05 if key == "rate" else 0.01 * ref
+            if not abs(got[key] - ref) <= tol:
+                raise AssertionError(
+                    f"phase14b: -test {letter}: {key} {got[key]} against the "
+                    f"JAX command line's {ref}")
+        on, off = SSA_TEST_KERNELS[letter]
+        _check_launches(f"phase14b -test {letter}", counts, on,
+                        off + PCR_KERNELS)
+        runs[letter] = (solves, counts)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    # where a Krylov iteration's time goes at these sizes: each BiCGStab
+    # call (the warm-up's too) of a second run under the profiler (not I:
+    # its 450 iterations profiled took ~1 min on an H100)
+    for letter in "NJ":
+        profile_bicgstab_of(lambda: _ssa_test(letter, dev),
+                            f"phase14b: -test {letter}")
+    return runs, total
+
+
+def phase14c_pcr(dev, runs):
+    """I and N through the PCR kernels (path A's preconditioner route): the
+    kernels launch, the counts equal (b)'s, the velocities within 1e-12."""
+    for letter in "IN":
+        line, solves, counts, wall = _ssa_test(
+            letter, dev, (("stress_balance.ssa.fd.line_pcr_impl",
+                           "pallas_sublane"),))
+        ref_solves = runs[letter][0]
+        (u, v, info), (ru, rv, rinfo) = solves[0], ref_solves[0]
+        rel = max(_rel_err(u, ru), _rel_err(v, rv))
+        same = _solve_counts(solves) == _solve_counts(ref_solves)
+        print(f"phase14c: -test {letter} with line_pcr_impl = pallas_sublane: "
+              f"{line}; Newton sweeps and Krylov iterations "
+              f"{_solve_counts(solves)} ((b): {_solve_counts(ref_solves)}), "
+              f"velocities rel diff {rel:.3e} (tol 1e-12), main() wall "
+              f"{wall:.3f} s, launches {({k: c for k, c in counts.items() if c})}")
+        if not same or not rel <= 1e-12:
+            raise AssertionError(f"phase14c: -test {letter}: the PCR route "
+                                 "and the default disagree")
+        _check_launches(f"phase14c -test {letter}", counts, PCR_KERNELS, ())
+
+
+def phase14_ssa_verification(dev, smi):
+    """Phase 14; returns (the drag instance's record, the launch counts of
+    (b)'s five tests)."""
+    record = _timed("phase14a", phase14a_drag_kernel, dev)
+    t = time.time()
+    runs, counts = phase14b_tests(dev, smi)
+    print(f"phase14b: {time.time() - t:.1f} s")
+    _timed("phase14c", phase14c_pcr, dev, runs)
+    return record, counts
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -4158,6 +4465,11 @@ def main():
     # records at 100x141x76 are in its lines above)
     timings.update(records13)
     print(f"phase13: {time.time() - t13:.1f} s")
+    t14 = time.time()
+    print(f"phase14: {smi}")
+    timings["ssa_newton_matvec_halo_drag"], counts14 = \
+        phase14_ssa_verification(dev, smi)
+    print(f"phase14: {time.time() - t14:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line
@@ -4188,7 +4500,8 @@ def main():
             ("pcr_factor_lines_sub_members", "pcr.cu", "pism_tpu/ops/pallas_kernels.py:539", counts13),
             ("member_dot", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13),
             ("member_dots", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13),
-            ("member_sum", "member_dot.cu", "pism_tpu/coupler/pico.py:209", counts13)):
+            ("member_sum", "member_dot.cu", "pism_tpu/coupler/pico.py:209", counts13),
+            ("ssa_newton_matvec_halo_drag", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:408", counts14)):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

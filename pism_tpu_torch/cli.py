@@ -5,6 +5,8 @@ Routes of the port:
 
 - ``-test A/D/H/L``: the verification runner (``verification/runner.py``);
 - ``-test B/C``: the Halfar similarity solutions with an error report;
+- ``-test I/J/M/V/N``: the SSA verification tests, one solve each with an
+  error report (``verification/ssa_tests.py``);
 - ``-eisII A/B/C/D/F``: EISMINT II from zero ice, or, with ``-i``, from a
   saved state (experiments B-D restart from A's end state);
 - ``-i FILE -bootstrap``: a state from a data file on its own grid
@@ -257,8 +259,8 @@ def _refuse_unported(args):
                        ("inverse", "10"), ("view", "4")):
         if getattr(args, flag) not in (None, False):
             raise _unported(f"-{flag}", item)
-    if args.test and args.test.upper() not in tuple("ABCDHL"):
-        raise _unported(f"-test {args.test}", "5")
+    if args.test and args.test.upper() not in tuple("ABCDHLIJMVN"):
+        raise _unported(f"-test {args.test}", "2")
 
 
 def _regrid(args, grid, state):
@@ -556,6 +558,14 @@ def main(argv=None):
         runner.run_test(args.test, Mx=args.Mx, My=args.My, Mz=args.Mz,
                         years=args.y, config=over.non_default() or None,
                         device=device)
+        return 0
+    elif args.test and args.test.upper() in tuple("IJMVN"):
+        # the SSA verification tests: one solve each, error report
+        from .verification import ssa_tests
+        over = Config({})
+        _apply_config_overrides(over, args.config or [])
+        ssa_tests.run_test(args.test, Mx=args.Mx, My=args.My,
+                           config=over.non_default() or None, device=device)
         return 0
     elif args.test:
         from .coupler.surface import FunctionSurface

@@ -458,6 +458,22 @@ dim3 grid_for(int My, int Mx) {
 // 8 coefficients and bc, and writes two values: 69 bytes in float32, 0.74
 // MB at the 20 km grid and 11.6 MB at 5 km. The 5 km launch is bound by
 // device memory (3.5 us at 3.35 TB/s), the 20 km one by launch latency.
+//
+// The drag tangent (the exact drag Jacobian, drag_jacobian = exact): with a
+// per-cell plane c = 2 dbeta/d|u|^2 of the sweep (physics/basal.py
+// dbeta_coef), the free rows gain the dbeta (u, v) term of the TPU
+// kernel's JVP with dbeta formed here from the direction,
+//
+//   J += dbeta (u, v),   dbeta = c (u fu + v fv),
+//
+// u, v the linearization point (Dirichlet values included) and (fu, fv)
+// the freed direction. It is a template flag (kDrag): the instances
+// without it are the code they were, so they keep their bits, and the
+// launcher picks the drag instance when it is given a plane. The term is
+// written with _rn intrinsics in the plain version's order, c (u fu + v
+// fv), then (mx2 + dbeta u), then t1 + that, so that it adds no rounding
+// of its own beside the plain version's. One more field is read: 77 bytes
+// a cell in float32, 150 in float64.
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -555,21 +571,23 @@ __device__ __forceinline__ void north_face(
 
 // ny, nx: the cells that get an output; beta, Ju, Jv are (ny, nx).
 // coef_e, coef_n: (a1, a2, a3, k) per face, on a last axis of 4.
-template <typename T, typename Layout>
+// drag: the drag-tangent plane c, (ny, nx) as beta; read with kDrag only.
+template <typename T, typename Layout, bool kDrag>
 __global__ void __launch_bounds__(kBlockX * kBlockY) ssa_newton_matvec_kernel(
     const T* __restrict__ u, const T* __restrict__ v,
     const T* __restrict__ du, const T* __restrict__ dv,
     const T* __restrict__ nuHe, const T* __restrict__ nuHn,
     const T* __restrict__ coef_e, const T* __restrict__ coef_n,
-    const T* __restrict__ beta, const unsigned char* __restrict__ bc,
-    T* __restrict__ Ju, T* __restrict__ Jv, Layout L, int ny, int nx,
-    Steps<T> h) {
+    const T* __restrict__ beta, const T* __restrict__ drag,
+    const unsigned char* __restrict__ bc, T* __restrict__ Ju,
+    T* __restrict__ Jv, Layout L, int ny, int nx, Steps<T> h) {
   __shared__ Tile<T> s_fu, s_fv, s_u, s_v;
   __shared__ Faces<T> f;
   if (Layout::kMembers) {   // member blockIdx.z: its fields and planes
     const size_t m = (size_t)blockIdx.z * ny * nx;
     u += m; v += m; du += m; dv += m; nuHe += m; nuHn += m; beta += m;
     bc += m; Ju += m; Jv += m; coef_e += 4 * m; coef_n += 4 * m;
+    if (kDrag) drag += m;
   }
   const int tc = threadIdx.x, tr = threadIdx.y;
   const int i0 = blockIdx.x * kBlockX, j0 = blockIdx.y * kBlockY;
@@ -618,8 +636,17 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) ssa_newton_matvec_kernel(
   const T t1u = mx1 + beta[k] * s_fu[tr + 2][tc + 2];
   const T t1v = my1 + beta[k] * s_fv[tr + 2][tc + 2];
   const bool fixed = bc[c] != 0;
-  Ju[k] = fixed ? du[c] : t1u + mx2;
-  Jv[k] = fixed ? dv[c] : t1v + my2;
+  if (kDrag) {
+    // dbeta (u, v), dbeta = c (u fu + v fv), in the plain version's order
+    const T uc = s_u[tr + 2][tc + 2], vc = s_v[tr + 2][tc + 2];
+    const T db = mul_rn(drag[k], add_rn(mul_rn(uc, s_fu[tr + 2][tc + 2]),
+                                        mul_rn(vc, s_fv[tr + 2][tc + 2])));
+    Ju[k] = fixed ? du[c] : add_rn(t1u, add_rn(mx2, mul_rn(db, uc)));
+    Jv[k] = fixed ? dv[c] : add_rn(t1v, add_rn(my2, mul_rn(db, vc)));
+  } else {
+    Ju[k] = fixed ? du[c] : t1u + mx2;
+    Jv[k] = fixed ? dv[c] : t1v + my2;
+  }
 }
 
 // the steps in the field dtype and their reciprocals as torch forms them
@@ -630,22 +657,32 @@ Steps<T> steps(double dx, double dy) {
           T(1) / T(4.0 * dy)};
 }
 
+// drag: the drag-tangent plane, or null for the instance without it
 template <typename T, typename Layout>
 int launch_newton(const void* u, const void* v, const void* du,
                   const void* dv, const void* nuHe, const void* nuHn,
                   const void* coef_e, const void* coef_n, const void* beta,
-                  const void* bc, void* Ju, void* Jv, Layout L, int ny,
-                  int nx, double dx, double dy, void* stream,
-                  int members = 1) {
+                  const void* drag, const void* bc, void* Ju, void* Jv,
+                  Layout L, int ny, int nx, double dx, double dy,
+                  void* stream, int members = 1) {
   if (members <= 0) return 0;
   dim3 grid = grid_for(ny, nx);
   grid.z = members;
-  ssa_newton_matvec_kernel<T, Layout>
-      <<<grid, dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-          (const T*)u, (const T*)v, (const T*)du, (const T*)dv,
-          (const T*)nuHe, (const T*)nuHn, (const T*)coef_e,
-          (const T*)coef_n, (const T*)beta, (const unsigned char*)bc,
-          (T*)Ju, (T*)Jv, L, ny, nx, steps<T>(dx, dy));
+  const dim3 block(kBlockX, kBlockY);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (drag != nullptr) {
+    ssa_newton_matvec_kernel<T, Layout, true><<<grid, block, 0, st>>>(
+        (const T*)u, (const T*)v, (const T*)du, (const T*)dv,
+        (const T*)nuHe, (const T*)nuHn, (const T*)coef_e, (const T*)coef_n,
+        (const T*)beta, (const T*)drag, (const unsigned char*)bc, (T*)Ju,
+        (T*)Jv, L, ny, nx, steps<T>(dx, dy));
+  } else {
+    ssa_newton_matvec_kernel<T, Layout, false><<<grid, block, 0, st>>>(
+        (const T*)u, (const T*)v, (const T*)du, (const T*)dv,
+        (const T*)nuHe, (const T*)nuHn, (const T*)coef_e, (const T*)coef_n,
+        (const T*)beta, nullptr, (const unsigned char*)bc, (T*)Ju, (T*)Jv,
+        L, ny, nx, steps<T>(dx, dy));
+  }
   return (int)cudaGetLastError();
 }
 
@@ -683,15 +720,18 @@ int launch_halo_jvp(const void* up, const void* vp, const void* dup,
 extern "C" {
 
 // The Newton matvec on whole (My, Mx) fields (K1's clamped indexing);
-// coef_e, coef_n: (My, Mx, 4); bc: (My, Mx) bytes, nonzero on Dirichlet rows.
+// coef_e, coef_n: (My, Mx, 4); bc: (My, Mx) bytes, nonzero on Dirichlet rows;
+// drag: the drag-tangent plane (My, Mx), or null (beta frozen). The halo and
+// member entry points take it as the whole-field one, with beta's shape.
 int pism_ssa_newton_matvec_f32(const void* u, const void* v, const void* du,
                                const void* dv, const void* nuHe,
                                const void* nuHn, const void* coef_e,
                                const void* coef_n, const void* beta,
-                               const void* bc, void* Ju, void* Jv, int My,
-                               int Mx, double dx, double dy, void* stream) {
+                               const void* drag, const void* bc, void* Ju,
+                               void* Jv, int My, int Mx, double dx,
+                               double dy, void* stream) {
   return launch_newton<float>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n, beta,
-                              bc, Ju, Jv, Clamped{My, Mx}, My, Mx, dx,
+                              drag, bc, Ju, Jv, Clamped{My, Mx}, My, Mx, dx,
                               dy, stream);
 }
 
@@ -699,10 +739,11 @@ int pism_ssa_newton_matvec_f64(const void* u, const void* v, const void* du,
                                const void* dv, const void* nuHe,
                                const void* nuHn, const void* coef_e,
                                const void* coef_n, const void* beta,
-                               const void* bc, void* Ju, void* Jv, int My,
-                               int Mx, double dx, double dy, void* stream) {
+                               const void* drag, const void* bc, void* Ju,
+                               void* Jv, int My, int Mx, double dx,
+                               double dy, void* stream) {
   return launch_newton<double>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n,
-                               beta, bc, Ju, Jv, Clamped{My, Mx}, My,
+                               beta, drag, bc, Ju, Jv, Clamped{My, Mx}, My,
                                Mx, dx, dy, stream);
 }
 
@@ -713,12 +754,13 @@ int pism_ssa_newton_matvec_halo_f32(const void* up, const void* vp,
                                     const void* dup, const void* dvp,
                                     const void* nuHe, const void* nuHn,
                                     const void* coef_e, const void* coef_n,
-                                    const void* beta, const void* bcp,
-                                    void* Ju, void* Jv, int my, int mx,
+                                    const void* beta, const void* drag,
+                                    const void* bcp, void* Ju, void* Jv,
+                                    int my, int mx,
                                     int west, int south, double dx,
                                     double dy, void* stream) {
   return launch_newton<float>(up, vp, dup, dvp, nuHe, nuHn, coef_e, coef_n,
-                              beta, bcp, Ju, Jv,
+                              beta, drag, bcp, Ju, Jv,
                               Padded{my, mx, west, south}, my, mx, dx,
                               dy, stream);
 }
@@ -727,12 +769,13 @@ int pism_ssa_newton_matvec_halo_f64(const void* up, const void* vp,
                                     const void* dup, const void* dvp,
                                     const void* nuHe, const void* nuHn,
                                     const void* coef_e, const void* coef_n,
-                                    const void* beta, const void* bcp,
-                                    void* Ju, void* Jv, int my, int mx,
+                                    const void* beta, const void* drag,
+                                    const void* bcp, void* Ju, void* Jv,
+                                    int my, int mx,
                                     int west, int south, double dx,
                                     double dy, void* stream) {
   return launch_newton<double>(up, vp, dup, dvp, nuHe, nuHn, coef_e, coef_n,
-                               beta, bcp, Ju, Jv,
+                               beta, drag, bcp, Ju, Jv,
                                Padded{my, mx, west, south}, my, mx, dx,
                                dy, stream);
 }
@@ -763,21 +806,24 @@ int pism_ssa_matvec_members_f64(const void* u, const void* v,
 int pism_ssa_newton_matvec_members_f32(
     const void* u, const void* v, const void* du, const void* dv,
     const void* nuHe, const void* nuHn, const void* coef_e,
-    const void* coef_n, const void* beta, const void* bc, void* Ju, void* Jv,
-    int B, int My, int Mx, double dx, double dy, void* stream) {
+    const void* coef_n, const void* beta, const void* drag, const void* bc,
+    void* Ju, void* Jv, int B, int My, int Mx, double dx, double dy,
+    void* stream) {
   return launch_newton<float>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n, beta,
-                              bc, Ju, Jv, ClampedMembers{{My, Mx}}, My, Mx,
-                              dx, dy, stream, B);
+                              drag, bc, Ju, Jv, ClampedMembers{{My, Mx}}, My,
+                              Mx, dx, dy, stream, B);
 }
 
 int pism_ssa_newton_matvec_members_f64(
     const void* u, const void* v, const void* du, const void* dv,
     const void* nuHe, const void* nuHn, const void* coef_e,
-    const void* coef_n, const void* beta, const void* bc, void* Ju, void* Jv,
-    int B, int My, int Mx, double dx, double dy, void* stream) {
+    const void* coef_n, const void* beta, const void* drag, const void* bc,
+    void* Ju, void* Jv, int B, int My, int Mx, double dx, double dy,
+    void* stream) {
   return launch_newton<double>(u, v, du, dv, nuHe, nuHn, coef_e, coef_n,
-                               beta, bc, Ju, Jv, ClampedMembers{{My, Mx}}, My,
-                               Mx, dx, dy, stream, B);
+                               beta, drag, bc, Ju, Jv,
+                               ClampedMembers{{My, Mx}}, My, Mx, dx, dy,
+                               stream, B);
 }
 
 int pism_ssa_matvec_f32(const void* u, const void* v, const void* nuHe,

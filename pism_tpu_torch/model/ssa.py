@@ -37,14 +37,22 @@ Decisions are evaluated on the device in the field dtype, as in JAX.
 Branches ported: float64 fields (float64 solve) and float32 fields with the
 velocity-change stop active (the pure-f32 production solve). The ``mixed``
 and ``float64``-island solves of float32 fields raise NotImplementedError;
-so does the float64 polish, which only the ``mixed`` solve runs.
+so does the float64 polish, which only the ``mixed`` solve runs. The
+preconditioner is ``line`` or ``mg`` (``ops/mg.py``, the multigrid V-cycle
+of the verification tests). The drag Jacobian is ``picard`` (beta frozen)
+or ``exact``: then the Newton matvec carries the drag tangent, dbeta (u, v)
+with dbeta = c (u fu + v fv) and c = 2 dbeta/d|u|^2 of the sweep
+(``physics/basal.py`` ``dbeta_coef``), in the same launch; the JAX package
+differentiates beta inside ``jax.linearize`` (``differentiable_beta``).
+``taud_x``/``taud_y`` prescribe the driving stress (tests I and J).
 
 On an ensemble's member axis (``lead = 1``: fields ``(B, My, Mx)``, the
 twin of the JAX solve under ``jax.vmap``) every member takes its own
 warm-up, Newton sweeps, line search and Krylov iterations: each decision
 above becomes one host read of a ``(B,)`` mask, members whose loop ended are
-frozen by selects, and the kernels launch once for all members. A mesh or a
-periodic grid there raises NotImplementedError.
+frozen by selects, and the kernels launch once for all members. A mesh, a
+periodic grid, ``mg`` or the exact drag Jacobian there raises
+NotImplementedError, as does the exact drag Jacobian under a mesh.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import torch
 
 from .. import state as S
 from ..config import require
-from ..ops import sharded
+from ..ops import mg, sharded
 from ..ops import ssa as ssa_ops
 from ..ops.kernels.ssa_matvec import ssa_newton_matvec
 from ..ops.stencils import Shifter
@@ -76,6 +84,10 @@ class SSAFD:
     bc_mask: Optional[torch.Tensor] = None
     bc_u: Optional[torch.Tensor] = None
     bc_v: Optional[torch.Tensor] = None
+    # optional prescribed driving stress [Pa] (the verification tests
+    # override the geometric driving stress, as PISM's SSATestCase does)
+    taud_x: Optional[torch.Tensor] = None
+    taud_y: Optional[torch.Tensor] = None
     # ("y", "x") Mesh: with more than one device the matvec and its JVP run
     # per shard through K5
     mesh: object = None
@@ -85,24 +97,42 @@ class SSAFD:
         cfg = self.config
         require(cfg, "stress_balance.ssa.method", ("fd",))
         require(cfg, "stress_balance.ssa.fd.krylov_method", ("bicgstab",))
-        require(cfg, "stress_balance.ssa.fd.preconditioner", ("line",))
+        if cfg.get_string("stress_balance.ssa.fd.preconditioner") == "linemg":
+            raise NotImplementedError(
+                "stress_balance.ssa.fd.preconditioner = 'linemg' is not "
+                "implemented in pism_tpu_torch (ROADMAP Queue 1 item 11: its "
+                "inner solves break down)")
+        require(cfg, "stress_balance.ssa.fd.preconditioner", ("line", "mg"))
         require(cfg, "stress_balance.ssa.fd.line_pcr_impl",
                 ("xla", "pallas_sublane"))
         require(cfg, "stress_balance.ssa.fd.line_pcr_dtype", ("f32",))
         require(cfg, "stress_balance.ssa.fd.line_block", (0,))
-        require(cfg, "stress_balance.ssa.fd.drag_jacobian", ("picard",))
+        require(cfg, "stress_balance.ssa.fd.drag_jacobian",
+                ("picard", "exact"))
         require(cfg, "stress_balance.ssa.fd.pallas_matvec", ("auto", "on"))
         require(cfg, "stress_balance.ssa.fd.lateral_drag.enabled", (False,))
         require(cfg, "basal_resistance.beta_lateral_margin", (0.0,))
         require(cfg, "stress_balance.ssa.fd.extrapolate_initial_guess", (False,))
         self.pcr_impl = cfg.get_string("stress_balance.ssa.fd.line_pcr_impl")
+        self.precond_kind = cfg.get_string("stress_balance.ssa.fd.preconditioner")
+        self.exact_drag = cfg.get_string(
+            "stress_balance.ssa.fd.drag_jacobian") == "exact"
         refuse_periodic_mesh(self.grid, self.mesh)
         self.periodic = (self.grid.periodic_y, self.grid.periodic_x)
         if self.lead and (self.mesh is not None or any(self.periodic)):
             raise NotImplementedError(
                 "the SSA on an ensemble's member axis with a mesh or a "
                 "periodic grid is not implemented in pism_tpu_torch (ROADMAP "
-                "Queue 1 item 11)")
+                "Queue 1 item 3)")
+        if self.lead and (self.exact_drag or self.precond_kind == "mg"):
+            raise NotImplementedError(
+                "drag_jacobian = exact and preconditioner = mg on an "
+                "ensemble's member axis are not implemented in "
+                "pism_tpu_torch (ROADMAP Queue 1 item 3)")
+        if self.exact_drag and is_sharded(self.mesh):
+            raise NotImplementedError(
+                "drag_jacobian = exact under a mesh is not implemented in "
+                "pism_tpu_torch (ROADMAP Queue 1 item 10)")
         self.sh = Shifter(self.grid, self.lead)
         self.n_glen = cfg.get_number("stress_balance.ssa.Glen_exponent")
         self.e_ssa = cfg.get_number("stress_balance.ssa.enhancement_factor")
@@ -212,7 +242,10 @@ class SSAFD:
 
         icy = S.icy(mask)
         B = self._hardness(state)
-        bx, by = self.driving_stress(geom, icy)
+        if self.taud_x is not None:
+            bx, by = self.taud_x.to(dtype), self.taud_y.to(dtype)
+        else:
+            bx, by = self.driving_stress(geom, icy)
 
         # calving-front pressure-imbalance terms on front faces
         Tf = self._front_stress(geom)
@@ -284,9 +317,16 @@ class SSAFD:
         def beta_fn(u, v, reg=None):
             return self.sliding_law.beta(tc_eff, u, v, reg=reg) + self.beta_floor
 
-        # the operator, and the Newton matvec with beta frozen:
-        # A(free d; nuH, beta) + A(u; dnuH(free d), 0) on the free rows and
-        # d on the Dirichlet rows, one launch (per shard)
+        def drag_tangent(u, v):
+            """The drag tangent's plane of the exact drag Jacobian at (u, v)
+            (beta_floor has no derivative), or None with beta frozen."""
+            if not self.exact_drag:
+                return None
+            return self.sliding_law.dbeta_coef(tc_eff, u, v)
+
+        # the operator, and the Newton matvec: A(free d; nuH, beta) + A(u;
+        # dnuH(free d), dbeta(free d)) on the free rows and d on the
+        # Dirichlet rows, one launch (per shard); dbeta = 0 with beta frozen
         mesh = self.mesh if is_sharded(self.mesh) else None
         periodic = self.periodic
 
@@ -299,6 +339,7 @@ class SSAFD:
         def newton_matvec(u, v, nuH, coefs, beta):
             """jmv(d) of the sweep linearized at (u, v); under a mesh, or
             on a periodic grid, the linearization is padded here, once."""
+            drag = drag_tangent(u, v)
             if mesh is not None:
                 mv = sharded.ssa_newton_matvec_sharded(
                     u, v, nuH.e, nuH.n, *coefs, beta, bc_mask, mesh, dx, dy)
@@ -306,10 +347,11 @@ class SSAFD:
             if any(periodic):
                 mv = ssa_ops.ssa_newton_matvec_periodic(
                     u, v, nuH.e, nuH.n, *coefs, beta, bc_mask, dx, dy,
-                    periodic)
+                    periodic, drag)
                 return lambda d: mv(*d)
             return lambda d: ssa_newton_matvec(u, v, d[0], d[1], nuH.e, nuH.n,
-                                               *coefs, beta, bc_mask, dx, dy)
+                                               *coefs, beta, bc_mask, dx, dy,
+                                               drag)
 
         def residual(uv):
             u, v = full(uv)
@@ -384,6 +426,9 @@ class SSAFD:
                     torch.where(col(take), a[1], b_[1]))
 
         def make_precond(nuH, beta):
+            if self.precond_kind == "mg":
+                return mg.make_preconditioner(nuH, beta, bc_mask, dx, dy,
+                                              self.periodic)
             return ssa_ops.make_line_preconditioner(nuH, beta, bc_mask,
                                                     dx, dy, sh, self.pcr_impl)
 
@@ -541,10 +586,11 @@ class SSAFD:
 
         while keep_going():
             u, v = full(uv)
-            # Newton linearization built by hand once per sweep (beta
-            # frozen, the Picard drag Jacobian): J d = A(d; nuH, beta) +
-            # A(u; dnuH(d), 0) with dnuH the forward-mode derivative of the
-            # plain make_nuH, one launch per matvec
+            # Newton linearization built by hand once per sweep: J d = A(d;
+            # nuH, beta) + A(u; dnuH(d), dbeta(d)) with dnuH the forward-mode
+            # derivative of the plain make_nuH and dbeta that of beta (0
+            # with the Picard drag Jacobian, beta frozen), one launch per
+            # matvec
             nuH, coefs = linearize_nuH(u, v)
             beta = beta_fn(u, v)
             precond = make_precond(nuH, beta)

@@ -33,6 +33,14 @@ selects computed (what the JAX package's ``jax.linearize`` of the residual
 computes, ``pism_tpu/model/ssa.py:717-725``). The kernel tiles the grid in
 shared memory and computes each face once; its notes say what bounds it.
 
+With the exact drag Jacobian (``drag_jacobian = exact``) the Newton matvec
+also takes the sweep's per-cell plane c = 2 dbeta/d|u|^2
+(``physics/basal.py`` ``dbeta_coef``) and adds dbeta (u, v), dbeta = c (u
+fu + v fv) with (fu, fv) the freed direction, on the free rows: the
+``dbeta`` term of the TPU kernel's JVP (``pallas_kernels.py:408-426``),
+with dbeta formed in the launch. It is a template flag of the kernel, so
+the launches without a plane keep their bits.
+
 On an ensemble's member axis K1 and the Newton matvec take (B, My, Mx)
 fields (the coefficient planes (B, My, Mx, 4)), one launch for all members
 (``pism_ssa_matvec_members_*``, ``pism_ssa_newton_matvec_members_*``:
@@ -46,7 +54,9 @@ version in this module. There is no fallback from one to the other.
 the fused JVP kernel, ``NEWTON_LAUNCHES`` those of the Newton matvec,
 ``MEMBER_LAUNCHES`` / ``NEWTON_MEMBER_LAUNCHES`` their member-axis
 launches, and ``HALO_LAUNCHES`` / ``HALO_JVP_LAUNCHES`` /
-``HALO_NEWTON_LAUNCHES`` those of K5, its fused JVP and its Newton matvec.
+``HALO_NEWTON_LAUNCHES`` those of K5, its fused JVP and its Newton matvec;
+``NEWTON_DRAG_LAUNCHES`` and ``HALO_NEWTON_DRAG_LAUNCHES`` count the Newton
+matvec's launches with a drag tangent (and only those).
 """
 
 from __future__ import annotations
@@ -67,6 +77,8 @@ NEWTON_LAUNCHES = 0
 HALO_NEWTON_LAUNCHES = 0
 MEMBER_LAUNCHES = 0
 NEWTON_MEMBER_LAUNCHES = 0
+NEWTON_DRAG_LAUNCHES = 0
+HALO_NEWTON_DRAG_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +252,25 @@ def _tangent(fu, fv, coef_e, coef_n, dx, dy):
     return dnuH_e, dnuH_n
 
 
+def _free_rows(t1u, t1v, mx, my, u, v, fu, fv, drag):
+    """The free rows t1 + (-div T(u; dnuH)) of the Newton matvec, with the
+    drag tangent dbeta (u, v), dbeta = drag (u fu + v fv), added to the
+    second term when ``drag`` is given (the kernel's order)."""
+    if drag is None:
+        return t1u + mx, t1v + my
+    db = drag * (u * fu + v * fv)
+    return t1u + (mx + db * u), t1v + (my + db * v)
+
+
 def ssa_newton_matvec_plain(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n,
-                            beta, bc_mask, dx, dy):
+                            beta, bc_mask, dx, dy, drag=None):
     """The Newton matvec in plain torch (any device), as the kernel forms
     it: fd = (du, dv) zeroed on ``bc_mask``; dnuH of fd from the per-face
     coefficients ``coef_e``, ``coef_n`` ((My, Mx, 4): a1, a2, a3, k);
-    A(fd; nuH, beta) + A(u, v; dnuH, 0) on the free rows, (du, dv) on the
-    Dirichlet rows. On the member axis every field has a leading (B,)."""
+    A(fd; nuH, beta) + A(u, v; dnuH, dbeta) on the free rows, (du, dv) on
+    the Dirichlet rows; dbeta = drag (u fu + v fv) with ``drag`` the drag
+    tangent's plane, or 0 without one. On the member axis every field has
+    a leading (B,)."""
     My, Mx = u.shape[-2:]
     fu = torch.where(bc_mask, 0.0, du)
     fv = torch.where(bc_mask, 0.0, dv)
@@ -255,16 +279,18 @@ def ssa_newton_matvec_plain(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n,
                               coef_e, coef_n, dx, dy)
     t1u, t1v = ssa_matvec_plain(fu, fv, nuH_e, nuH_n, beta, dx, dy)
     mx, my = _minus_div(u, v, dnuH_e, dnuH_n, dx, dy)
-    return (torch.where(bc_mask, du, t1u + mx),
-            torch.where(bc_mask, dv, t1v + my))
+    Ju, Jv = _free_rows(t1u, t1v, mx, my, u, v, fu, fv, drag)
+    return torch.where(bc_mask, du, Ju), torch.where(bc_mask, dv, Jv)
 
 
 def ssa_newton_matvec_halo_plain(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
-                                 coef_e, coef_n, beta, bcp, dx, dy):
+                                 coef_e, coef_n, beta, bcp, dx, dy,
+                                 drag=None):
     """The Newton matvec on one shard in plain torch (any device): blocks
     as K5's, with ``bcp`` and the direction's given two ghosts and the
     coefficients one; dnuH is formed on the faces of K5's extended region,
-    the west column and south row of faces included, from the ghosts."""
+    the west column and south row of faces included, from the ghosts.
+    ``drag``: the drag tangent's plane, (my, mx) as beta, or None."""
     my, mx = beta.shape
     fup = torch.where(bcp, 0.0, dup)
     fvp = torch.where(bcp, 0.0, dvp)
@@ -276,7 +302,9 @@ def ssa_newton_matvec_halo_plain(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
                                      beta, dx, dy)
     mx_, my_ = _minus_div_ext(up, vp, dnuH_e, dnuH_n, west, south, dx, dy)
     bc, du, dv = bcp[2:-2, 2:-2], dup[2:-2, 2:-2], dvp[2:-2, 2:-2]
-    return torch.where(bc, du, t1u + mx_), torch.where(bc, dv, t1v + my_)
+    Ju, Jv = _free_rows(t1u, t1v, mx_, my_, up[2:-2, 2:-2], vp[2:-2, 2:-2],
+                        fup[2:-2, 2:-2], fvp[2:-2, 2:-2], drag)
+    return torch.where(bc, du, Ju), torch.where(bc, dv, Jv)
 
 
 # ---------------------------------------------------------------------------
@@ -303,16 +331,16 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [p] * 12 + [i, i, i, i, d, d, p]
         fn.restype = i
         fn = getattr(lib, f"pism_ssa_newton_matvec_{prec}")
-        fn.argtypes = [p] * 12 + [i, i, d, d, p]
+        fn.argtypes = [p] * 13 + [i, i, d, d, p]
         fn.restype = i
         fn = getattr(lib, f"pism_ssa_newton_matvec_halo_{prec}")
-        fn.argtypes = [p] * 12 + [i, i, i, i, d, d, p]
+        fn.argtypes = [p] * 13 + [i, i, i, i, d, d, p]
         fn.restype = i
         fn = getattr(lib, f"pism_ssa_matvec_members_{prec}")
         fn.argtypes = [p] * 7 + [i, i, i, d, d, p]
         fn.restype = i
         fn = getattr(lib, f"pism_ssa_newton_matvec_members_{prec}")
-        fn.argtypes = [p] * 12 + [i, i, i, d, d, p]
+        fn.argtypes = [p] * 13 + [i, i, i, d, d, p]
         fn.restype = i
     return lib
 
@@ -449,49 +477,65 @@ def _check_faces_and_mask(name, like, coefs, face_shape, bc, bc_shape):
 
 
 def ssa_newton_matvec(u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta,
-                      bc_mask, dx, dy):
+                      bc_mask, dx, dy, drag=None):
     """The Newton matvec of a sweep linearized at (u, v), one launch: see
     ``ssa_newton_matvec_plain``. (My, Mx) fields; ``coef_e``, ``coef_n``
-    (My, Mx, 4); ``bc_mask`` bool; on an ensemble's member axis each with a
-    leading (B,), one launch for all members. CUDA tensors launch the
-    kernel; CPU tensors run ``ssa_newton_matvec_plain``."""
+    (My, Mx, 4); ``bc_mask`` bool; ``drag`` the drag tangent's (My, Mx)
+    plane or None; on an ensemble's member axis each with a leading (B,),
+    one launch for all members (without a drag tangent). CUDA tensors
+    launch the kernel; CPU tensors run ``ssa_newton_matvec_plain``."""
     members = u.dim() == 3
-    _check(u, v, du, dv, nuH_e, nuH_n, beta, members=members)
+    _check(u, v, du, dv, nuH_e, nuH_n, beta,
+           *(() if drag is None else (drag,)), members=members)
     _check_faces_and_mask("ssa_newton_matvec", u, (coef_e, coef_n), u.shape,
                           bc_mask, u.shape)
-    ts = (u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta, bc_mask)
+    if members and drag is not None:
+        raise NotImplementedError(
+            "the Newton matvec's drag tangent on an ensemble's member axis is "
+            "not implemented in pism_tpu_torch (ROADMAP Queue 1 item 3)")
+    ts = (u, v, du, dv, nuH_e, nuH_n, coef_e, coef_n, beta)
     if u.device.type == "cpu":
-        return ssa_newton_matvec_plain(*ts, dx, dy)
-    global NEWTON_LAUNCHES, NEWTON_MEMBER_LAUNCHES
+        return ssa_newton_matvec_plain(*ts, bc_mask, dx, dy, drag)
+    global NEWTON_LAUNCHES, NEWTON_MEMBER_LAUNCHES, NEWTON_DRAG_LAUNCHES
     Ju, Jv = torch.empty_like(u), torch.empty_like(v)
     if members:
-        _launch("ssa_newton_matvec_members", ts, (Ju, Jv), u.shape, dx, dy)
+        _launch("ssa_newton_matvec_members", (*ts, None, bc_mask), (Ju, Jv),
+                u.shape, dx, dy)
         NEWTON_MEMBER_LAUNCHES += 1
     else:
-        _launch("ssa_newton_matvec", ts, (Ju, Jv), u.shape, dx, dy)
-        NEWTON_LAUNCHES += 1
+        _launch("ssa_newton_matvec", (*ts, drag, bc_mask), (Ju, Jv), u.shape,
+                dx, dy)
+        if drag is None:
+            NEWTON_LAUNCHES += 1
+        else:
+            NEWTON_DRAG_LAUNCHES += 1
     return Ju, Jv
 
 
 def ssa_newton_matvec_halo(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
-                           coef_e, coef_n, beta, bcp, dx, dy):
+                           coef_e, coef_n, beta, bcp, dx, dy, drag=None):
     """The Newton matvec on one shard's (my, mx) cells from K5's blocks
     (``_check_halo``), ``bcp`` (my+4, mx+4) and the coefficients
-    (my+2, mx+2, 4); west/south: the shard owns that edge of the grid.
-    CUDA tensors launch the kernel; CPU tensors run
-    ``ssa_newton_matvec_halo_plain``."""
-    _check_halo((up, vp, dup, dvp), (nuH_e, nuH_n), (beta,))
+    (my+2, mx+2, 4); west/south: the shard owns that edge of the grid;
+    ``drag`` the drag tangent's (my, mx) plane or None. CUDA tensors launch
+    the kernel; CPU tensors run ``ssa_newton_matvec_halo_plain``."""
+    _check_halo((up, vp, dup, dvp), (nuH_e, nuH_n),
+                (beta,) if drag is None else (beta, drag))
     my, mx = beta.shape
     _check_faces_and_mask("ssa_newton_matvec_halo", beta, (coef_e, coef_n),
                           (my + 2, mx + 2), bcp, (my + 4, mx + 4))
-    ts = (up, vp, dup, dvp, nuH_e, nuH_n, coef_e, coef_n, beta, bcp)
+    ts = (up, vp, dup, dvp, nuH_e, nuH_n, coef_e, coef_n, beta)
     if up.device.type == "cpu":
-        return ssa_newton_matvec_halo_plain(west, south, *ts, dx, dy)
-    global HALO_NEWTON_LAUNCHES
+        return ssa_newton_matvec_halo_plain(west, south, *ts, bcp, dx, dy,
+                                            drag)
+    global HALO_NEWTON_LAUNCHES, HALO_NEWTON_DRAG_LAUNCHES
     Ju, Jv = torch.empty_like(beta), torch.empty_like(beta)
-    _launch("ssa_newton_matvec_halo", ts, (Ju, Jv), (my, mx, west, south),
-            dx, dy)
-    HALO_NEWTON_LAUNCHES += 1
+    _launch("ssa_newton_matvec_halo", (*ts, drag, bcp), (Ju, Jv),
+            (my, mx, west, south), dx, dy)
+    if drag is None:
+        HALO_NEWTON_LAUNCHES += 1
+    else:
+        HALO_NEWTON_DRAG_LAUNCHES += 1
     return Ju, Jv
 
 

@@ -183,12 +183,13 @@ def ssa_matvec_periodic(u, v, nuH_e, nuH_n, beta, dx, dy, periodic):
 
 
 def ssa_newton_matvec_periodic(u, v, nuH_e, nuH_n, coef_e, coef_n, beta,
-                               bc_mask, dx, dy, periodic):
+                               bc_mask, dx, dy, periodic, drag=None):
     """``matvec(du, dv)``: the Newton matvec of a sweep linearized at (u, v)
     on a periodic grid, one launch of ``ssa_newton_matvec_halo`` on the
     whole field. The sweep's fields are padded here, once (u, v and the
-    mask two ghosts, nuH and the coefficient planes one); a call pads only
-    the direction."""
+    mask two ghosts, nuH and the coefficient planes one; beta and the drag
+    tangent's plane ``drag``, if given, none); a call pads only the
+    direction."""
     py, px = periodic
 
     def pad(a, g):
@@ -197,12 +198,13 @@ def ssa_newton_matvec_periodic(u, v, nuH_e, nuH_n, coef_e, coef_n, beta,
     frozen = (pad(u, 2), pad(v, 2), pad(nuH_e, 1), pad(nuH_n, 1),
               pad(coef_e, 1), pad(coef_n, 1), beta.contiguous(),
               pad(bc_mask, 2))
+    drag = None if drag is None else drag.contiguous()
 
     def matvec(du, dv):
         up, vp, ne, nn, ce, cn, b, bcp = frozen
         return K.ssa_newton_matvec_halo(not px, not py, up, vp, pad(du, 2),
                                         pad(dv, 2), ne, nn, ce, cn, b, bcp,
-                                        dx, dy)
+                                        dx, dy, drag)
 
     return matvec
 

@@ -11,6 +11,7 @@ stress and the (pseudo-)plastic sliding-law drag coefficient.
 - beta(u) for tau_b = -beta(|u|) u:
       beta = tau_c |u|^(q-1) / u_threshold^q      (pseudo-plastic)
       beta = tau_c / sqrt(|u|^2 + u_reg^2)         (plastic, q = 0)
+  and c = 2 dbeta/d|u|^2, the drag tangent of the exact drag Jacobian.
 """
 
 from __future__ import annotations
@@ -203,3 +204,14 @@ class SlidingLaw:
             sp = torch.sqrt(speed2 + r ** 2)
             return tau_c * sp ** (self.q - 1.0) / self.u_threshold ** self.q
         return tau_c / torch.sqrt(speed2 + r ** 2)
+
+    def dbeta_coef(self, tau_c, u, v):
+        """c = 2 dbeta/d|u|^2 at (u, v), so that the derivative of beta in
+        a direction (du, dv) is c (u du + v dv) (the drag tangent of the
+        exact drag Jacobian; the JAX package differentiates ``beta`` with
+        autodiff): (q - 1) beta / (|u|^2 + r^2), the plastic law's q = 0
+        included; 0 where tau_c is 0."""
+        r = self.plastic_reg
+        s2 = u ** 2 + v ** 2 + r ** 2
+        q = self.q if self.pseudo_plastic else 0.0
+        return (q - 1.0) * self.beta(tau_c, u, v) / s2

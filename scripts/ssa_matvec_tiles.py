@@ -227,9 +227,14 @@ def check_bits(variants, parent, dev, rng):
                 got = K.ssa_newton_matvec(*args, 20e3, 20e3)
                 fn = getattr(parent.lib,
                              f"pism_ssa_newton_matvec_{_prec(args[0])}")
-                fn.argtypes = [P] * 12 + [I, I, D, D, P]
+                # a parent with the drag tangent takes its plane (null here)
+                # between beta and bc
+                ptrs = [t.data_ptr() for t in args]
+                if parent.newton_drag:
+                    ptrs.insert(9, None)
+                fn.argtypes = [P] * (len(ptrs) + 2) + [I, I, D, D, P]
                 want = (torch.empty_like(args[0]), torch.empty_like(args[0]))
-                if fn(*[t.data_ptr() for t in (*args, *want)], *shape, 20e3,
+                if fn(*ptrs, *[t.data_ptr() for t in want], *shape, 20e3,
                       20e3, _stream()):
                     raise RuntimeError("parent Newton matvec launch failed")
                 torch.cuda.synchronize()
@@ -338,6 +343,7 @@ def main():
         parent = Variant("parent", ctypes.CDLL(str(lib_parent)),
                          "pism_ssa_matvec_{prec}",
                          "pism_ssa_matvec_halo_{prec}")
+        parent.newton_drag = "const void* drag" in psrc.read_text()
 
     rng = np.random.default_rng(20261017)
     check_bits(variants, parent, dev, rng)

@@ -244,9 +244,14 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "B", "-Mx", "11", "-ocean", "th"],
     ["-test", "B", "-Mx", "11", "-sea_level", "constant,delta_sl_2d"],
     ["-inverse"], ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
-    ["-test", "E"], ["-test", "F"], ["-test", "G"], ["-test", "I"],
-    ["-test", "J"], ["-test", "K"], ["-test", "M"], ["-test", "N"],
-    ["-test", "O"], ["-test", "P"], ["-test", "V"],
+    ["-test", "E"], ["-test", "F"], ["-test", "G"],
+    ["-test", "I", "-config", "stress_balance.ssa.method=fem"],
+    ["-test", "J", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
+    ["-test", "K"],
+    ["-test", "M", "-config", "stress_balance.ssa.fd.krylov_method=cg"],
+    ["-test", "N", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
+    ["-test", "O"], ["-test", "P"],
+    ["-test", "V", "-config", "stress_balance.ssa.fd.line_block=64"],
     ["-test", "B", "-Mx", "11", "-config", "grid.Nx=2",
      "-config", "grid.Ny=2"],
     ["-test", "B", "-Mx", "11", "-o_size", "big"],

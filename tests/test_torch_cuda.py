@@ -10,6 +10,8 @@ the bit; PICO and Lingle-Clark on the card against the CPU, and one step of
 the 16 km PIK chain; the SSA operator and Newton matvec on periodic grids
 (the padded-block kernels on the wrap-padded field) against the plain
 periodic stencils, and MISMIP3d and MISMIP experiment 1 on the card
+against the CPU; the Newton matvec's drag tangent against its plain
+version, the multigrid preconditioner and the SSA verification tests
 against the CPU.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
@@ -199,6 +201,152 @@ def test_newton_matvec_matches_plain(cuda, dtype, shape):
                        _replaced_composition(x)):
         assert _rel(g, r) < TOL[dtype]
         assert torch.equal(g, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape,periodic", [((24, 40), None),
+                                            ((141, 76), None),
+                                            ((61, 11), (False, True)),
+                                            ((5, 221), (True, False))])
+def test_newton_matvec_drag_tangent(cuda, dtype, shape, periodic):
+    """The Newton matvec with the drag tangent of the exact drag Jacobian,
+    whole field or through the periodic route (the padded-block instance):
+    one launch counted apart from the frozen-beta ones, within K1's
+    tolerance of its plain version (on the CPU too), and with a zero plane
+    equal to the launch without one to the bit."""
+    x = _newton_inputs(shape, dtype, cuda, 17)
+    rng = np.random.default_rng(18)
+    drag = torch.tensor(-rng.uniform(1e19, 1e21, size=shape), dtype=dtype,
+                        device=cuda)
+    args = [x[k] for k in NEWTON_ARGS]
+    if periodic is None:
+        counter = "NEWTON_DRAG_LAUNCHES"
+
+        def run(a, c):
+            return K.ssa_newton_matvec(*a, DX, DY, c)
+
+        def plain(a, c):
+            return K.ssa_newton_matvec_plain(*a, DX, DY, c)
+    else:
+        counter = "HALO_NEWTON_DRAG_LAUNCHES"
+
+        def run(a, c):
+            return ssa_ops.ssa_newton_matvec_periodic(
+                *a[:2], *a[4:], DX, DY, periodic, c)(*a[2:4])
+
+        def plain(a, c):
+            pad = lambda t, g: ssa_ops.st.pad_ghosts(t, g, *periodic)  # noqa
+            return K.ssa_newton_matvec_halo_plain(
+                not periodic[1], not periodic[0],
+                *(pad(t, g) for t, g in zip(a[:8], (2, 2, 2, 2, 1, 1, 1, 1))),
+                a[8], pad(a[9], 2), DX, DY, c)
+    n0 = getattr(K, counter)
+    got = run(args, drag)
+    torch.cuda.synchronize()
+    assert getattr(K, counter) == n0 + 1
+    cpu_args = [a.cpu() for a in args]
+    for g, r, c in zip(got, plain(args, drag), plain(cpu_args, drag.cpu())):
+        assert _rel(g, r) < TOL[dtype]
+        assert _rel(g.cpu(), c) < TOL[dtype]
+    for a, b in zip(run(args, torch.zeros_like(drag)), run(args, None)):
+        assert torch.equal(a, b)
+
+
+SCALINGS = 4
+
+
+def _cpu_envelope(fn, size):
+    """The CPU runs of an SSA verification test with its thickness scaled
+    by 1 + k 1e-15, k = 0 .. SCALINGS-1: (the unscaled run's result, [(Newton
+    sweeps, Krylov total)] of each), the rounding envelope of the solve's
+    counts."""
+    from pism_tpu_torch.verification import ssa_tests
+    solve, out, first = ssa_tests._solve, [], None
+    for k in range(SCALINGS):
+        def scaled(grid, cfg, B, H, *a, k=k, **kw):
+            return solve(grid, cfg, B, np.asarray(H) * (1.0 + k * 1e-15),
+                         *a, **kw)
+        ssa_tests._solve = scaled
+        try:
+            res = fn(*size, device="cpu")
+        finally:
+            ssa_tests._solve = solve
+        first = first or res
+        out.append((int(res.info["newton_iters"]),
+                     int(res.info["krylov_iters"])))
+    return first, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("letter,size", [("I", (11, 31)), ("V", (51, 5)),
+                                         ("N", (111, 5)), ("M", (41, None))])
+def test_ssa_verification_on_the_card_matches_cpu(cuda, letter, size):
+    """Tests I, V, N and M at small sizes, float64, on the card (through
+    the kernels) and on the CPU: velocities within 1e-5 of max|u|, and the
+    card's Newton sweeps one that the CPU run takes with its thickness
+    scaled by 1 + k 1e-15, k = 0..3, and its Krylov total within 10% of
+    the CPU's range under those scalings. Test I at 11x31 takes 6 sweeps
+    on the CPU unscaled and 7 with the scaling k = 2: the count is
+    rounding, which the card's sums round otherwise."""
+    from pism_tpu_torch.verification import ssa_tests
+    fn = getattr(ssa_tests, f"ssa_test_{letter}")
+    a, env = _cpu_envelope(fn, size)
+    n0 = (K.LAUNCHES, K.HALO_LAUNCHES)
+    b = fn(*size, device=cuda)
+    assert (K.LAUNCHES, K.HALO_LAUNCHES) != n0
+    assert int(b.info["newton_iters"]) in {s for s, _ in env}, env
+    kry = [k for _, k in env]
+    assert 0.9 * min(kry) <= int(b.info["krylov_iters"]) <= 1.1 * max(kry), \
+        (int(b.info["krylov_iters"]), env)
+    scale = float(max(a.u.abs().max(), a.v.abs().max()))
+    assert float((b.u.cpu() - a.u).abs().max()) <= 1e-5 * scale
+    assert float((b.v.cpu() - a.v).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_ssa_verification_J_on_the_card_matches_cpu(cuda):
+    """Test J at 17 and 33 points, float64, on the card and on the CPU:
+    equal Newton sweeps, the errors within 1e-5 relative."""
+    from pism_tpu_torch.verification import ssa_tests
+    a = ssa_tests.ssa_test_J(17, device="cpu")
+    n0 = (K.LAUNCHES, K.HALO_LAUNCHES)
+    b = ssa_tests.ssa_test_J(17, device=cuda)
+    assert K.LAUNCHES > n0[0] and K.HALO_LAUNCHES > n0[1]
+    assert [i["newton_iters"] for i in a.info] == \
+        [i["newton_iters"] for i in b.info]
+    for k in ("max", "max2"):
+        assert b.errors[k] == pytest.approx(a.errors[k], rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodicity", ["none", "xy"])
+def test_mg_preconditioner_on_the_card(cuda, periodicity):
+    """The multigrid V-cycle on the card (K1 on the coarse levels, the
+    periodic route on a periodic fine level) against the CPU's plain
+    operators, float64, to 1e-12."""
+    from pism_tpu_torch.grid import Grid
+    from pism_tpu_torch.ops import mg
+    n = 61
+    g = Grid(Mx=n, My=n, Lx=400e3, Ly=400e3, periodicity=periodicity)
+    rng = np.random.default_rng(19)
+    f = lambda a, d: torch.tensor(a, dtype=torch.float64, device=d)  # noqa
+    nuH = [rng.uniform(1e14, 1e16, (n, n)) for _ in range(2)]
+    beta = rng.uniform(0.0, 1e9, (n, n))
+    bc = np.zeros((n, n), bool)
+    bc[0, :] = periodicity == "none"
+    r = [rng.normal(size=(n, n)) for _ in range(2)]
+    out = {}
+    for d in ("cpu", cuda):
+        n0 = (K.LAUNCHES, K.HALO_LAUNCHES)
+        p = mg.make_preconditioner(ssa_ops.NuH(f(nuH[0], d), f(nuH[1], d)),
+                                   f(beta, d), torch.tensor(bc, device=d),
+                                   g.dx, g.dy, (g.periodic_y, g.periodic_x))
+        out[str(d)] = p((f(r[0], d), f(r[1], d)))
+    assert K.LAUNCHES > n0[0]
+    assert (K.HALO_LAUNCHES > n0[1]) == (periodicity == "xy")
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert _rel(b.cpu(), a) < 1e-12
 
 
 @pytest.mark.cuda

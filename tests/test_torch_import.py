@@ -136,7 +136,7 @@ def test_config_lookups_match():
     {"stress_balance.ssa.flow_law": "hooke"},
     {"stress_balance.model": "weertman_sliding+sia"},
     {"stress_balance.ssa.fd.line_block": 64},
-    {"stress_balance.ssa.fd.preconditioner": "mg"},
+    {"stress_balance.ssa.fd.preconditioner": "linemg"},
     {"stress_balance.ssa.fd.krylov_method": "cg"},
     {"grid.periodicity": "xy"},
     {"hydrology.model": "routing"},
