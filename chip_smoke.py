@@ -61,8 +61,8 @@ launch counters set to 0 just before it and read just after:
   phase 3: path A at 5 km for 0.5 model years;
   phase 4: path B, EISMINT II A at 61x61x61 float32 from zero ice, 5000
     model years, then 2000 timed, a few steps profiled and a timed
-    breakdown of 100 a; then 1000 more
-    with ``sia.pallas = off`` against the same 1000 on K3;
+    breakdown of 100 a; then 300 more (cut from 1000)
+    with ``sia.pallas = off`` against the same 300 on K3;
   phase 5: path C, the isothermal SIA (Halfar test B, K4): (a) 61x61
     float64 for 1000 model years with ``sia.pallas = on``, the card against
     the CPU, and its errors against the exact solution; (b) 601x601 float32
@@ -163,7 +163,7 @@ launch counters set to 0 just before it and read just after:
   phase 12: the ssa+sia ensemble (``setups.hybrid_ensemble_model``, the
     hybrid chain's members differing in their till friction angle, 15-40
     degrees): (a) 100 members at 141x76x41 float32 on path A through
-    ``EnsembleRunner``, 2 a then a timed 3 a: lockstep steps and each
+    ``EnsembleRunner``, 2 a then a timed 2 a: lockstep steps and each
     member's, Newton sweeps and Krylov iterations per lockstep step (the
     lockstep's, and each member's min / median / max), host syncs and
     kernel launches per lockstep step, ms per lockstep step, member-years
@@ -186,7 +186,7 @@ launch counters set to 0 just before it and read just after:
     Antarctic paleo ensemble", ``setups.antarctica_pik_ensemble_model``:
     the PISM-PIK chain from its data file, members differing in PICO's
     ocean temperature, 0-2 K warmer): (a) 100 members at 251x251x31
-    float32 on path A through ``EnsembleRunner``, 1 a then a timed 2 a:
+    float32 on path A through ``EnsembleRunner``, 1 a then a timed 1 a:
     phase 12's lockstep figures, the peak device memory, the busy share of
     a profiled window, and PICO's, calving's and Lingle-Clark's ms per
     lockstep step with PICO's host syncs per call; finite fields, every
@@ -225,6 +225,21 @@ launch counters set to 0 just before it and read just after:
     ``line_pcr_impl = pallas_sublane``: the PCR kernels
     launch, the Newton and Krylov counts equal (b)'s, velocities within
     1e-12.
+  phase 15: the rest of the SIA verification suite: (a) EISMINT II at
+    61x61x61 float32 through ``setups.eismint2_model``: G and H (Weertman
+    sliding; H only on temperate bases) from zero ice and A, 3,000 a each,
+    and E (the sector's sliding map) from phase 4's A state at 7 ka for
+    1,000 a: finite fields, the end time reached, K3 once a step and no
+    other kernel, steps, hits, ms/step, volume and the busy share of a
+    profiled 100 a; G slides faster than 1 m/a, H no faster than G, G
+    holds less ice than A, E slides only inside its sector (faster than
+    0.5 m/a there); K3 on G's state against its plain version (1e-4,
+    timed, with its bound); (b) I-L (the trough and mound beds, the bed
+    smoother kept, so the plain SIA route) from zero ice, 1,000 a each: no
+    kernel launched; (c) G and I at 21x21x11 float64, 500 a, card against
+    CPU: equal steps and hits, volumes within 1e-10; (d) ``-test E, F, G,
+    K, O`` through ``cli.main`` at the JAX command line's defaults, report
+    lines and wall, the error numbers within 1e-6 of the port's CPU run.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -246,6 +261,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # path C at full width: Halfar test B at 3 km over the 1800 km square
 HALFAR_MX, HALFAR_YEARS = 601, 50.0
+# the EISMINT II A window that phase 4 holds K3 to the plain path over and
+# phase 6b the meshed run to phase 4's K3 run (cut from 1000 a to keep the
+# script's time); path D's 20 km hybrid window (cut from 2 a)
+EISMINT_CHECK_YEARS, MESH_YEARS = 300.0, 1.0
 # operations of each kernel, counted from its plain version's arithmetic:
 # per cell (K1, K1 JVP without a drag tangent, K4), per element and round
 # of cyclic reduction (K2/K2b: 10 in the factor's a, b, c recurrences, 4 in
@@ -1312,7 +1331,7 @@ def profile_krylov(model, state, t):
 def phase4_eismint(dev):
     """Path B: EISMINT II A at 61x61x61 float32 from zero ice. Returns the
     launch counts of the timed 2000 a, the state and time at 7 ka, and the
-    K3 run of the last 1000 a (state, stats)."""
+    K3 run of the last EISMINT_CHECK_YEARS (state, stats)."""
     import torch
     from pism_tpu_torch import setups
     from pism_tpu_torch.verification.eismint2 import EXPECTED_A
@@ -1358,19 +1377,20 @@ def phase4_eismint(dev):
     profile_steps(model, state, t, 10.0, "phase4")
     breakdown(model, state, t, 100.0, "phase4")
 
-    # the same 1000 a on K3 and on the plain path
+    # the same EISMINT_CHECK_YEARS on K3 and on the plain path
     off, _, _ = setups.eismint2_model(
         "float32", device=dev, extra_cfg={"stress_balance.sia.pallas": "off"})
     res = {}
     for name, m in (("K3", model), ("off", off)):
         reset_counts()
-        s1, _, st1 = m.step_once(state, t, 1000.0 * SPY)
+        s1, _, st1 = m.step_once(state, t, EISMINT_CHECK_YEARS * SPY)
         torch.cuda.synchronize()
         res[name] = (st1, float(s1.geometry.ice_thickness.double().sum()),
                      read_counts()["sia_flux_thermo"], s1)
     (sk, vk, lk, k3_state), (so, vo, lo, _) = res["K3"], res["off"]
     rel = abs(vk - vo) / vo
-    print(f"phase4: 1000 a K3 against sia.pallas=off: steps {sk.nsteps} / "
+    print(f"phase4: {EISMINT_CHECK_YEARS:g} a K3 against sia.pallas=off: "
+          f"steps {sk.nsteps} / "
           f"{so.nsteps}, dt-limit hits {sk.limit_hits_dict()} / "
           f"{so.limit_hits_dict()}, volume rel diff {rel:.3e} (tol 2e-4), "
           f"K3 launches {lk} / {lo}")
@@ -1572,7 +1592,7 @@ def _in_turns(label, run, unmeshed, meshed):
 
 def phase6_meshed_hybrid(dev, mesh):
     """Path D: the 20 km hybrid chain on path A on a 2x2 mesh of the one
-    card (K5 per shard) for 2 a, against an unmeshed IceModel on the same
+    card (K5 per shard) for MESH_YEARS, against an unmeshed IceModel on the same
     142x76x41 grid, config, surface and ocean, in turns. Returns the first
     meshed run's launch counts."""
     from pism_tpu_torch import setups
@@ -1582,14 +1602,16 @@ def phase6_meshed_hybrid(dev, mesh):
         "float32", 20.0, device=dev, extra_cfg=PATH_A, mesh=mesh)
     ref = IceModel(grid=grid, config=model.config, surface=model.surface,
                    ocean=model.ocean, device=dev)
-    runs = _in_turns("phase6", lambda m: m.step_once(state0, 0.0, 2.0 * SPY),
+    runs = _in_turns("phase6",
+                     lambda m: m.step_once(state0, 0.0, MESH_YEARS * SPY),
                      ref, model)
     for name in ("unmeshed", "meshed"):
         state, t, stats, wall, counts = runs[name][0]
-        _check_hybrid_state(f"phase6 {name}", state, grid, stats, t, 2.0 * SPY)
+        _check_hybrid_state(f"phase6 {name}", state, grid, stats, t,
+                            MESH_YEARS * SPY)
         n = stats.nsteps
         print(f"phase6: {name} 20 km path A {grid.My}x{grid.Mx}x{grid.Mz} "
-              f"float32, 2 a: steps {n}, Newton sweeps "
+              f"float32, {MESH_YEARS:g} a: steps {n}, Newton sweeps "
               f"{stats.ssa_newton_iters / n:.2f}/step, Krylov its "
               f"{stats.ssa_krylov_iters / n:.2f}/step, host syncs "
               f"{stats.host_syncs / n:.1f}/step, launches {counts} "
@@ -1625,8 +1647,8 @@ def phase6_meshed_hybrid(dev, mesh):
 
 def phase6b_eismint(dev, mesh, start, k3_run):
     """EISMINT II A on the 2x2 mesh (K3 per shard) over phase 4's last
-    1000 a, in turns with an unmeshed model; both against phase 4's
-    unmeshed K3 run of the same 1000 a."""
+    EISMINT_CHECK_YEARS, in turns with an unmeshed model; both against
+    phase 4's unmeshed K3 run of the same window."""
     import torch
     from pism_tpu_torch import setups
 
@@ -1634,13 +1656,14 @@ def phase6b_eismint(dev, mesh, start, k3_run):
     k3_state, k3_stats = k3_run
     ref, _, grid = setups.eismint2_model("float32", device=dev)
     model, _, _ = setups.eismint2_model("float32", device=dev, mesh=mesh)
-    runs = _in_turns("phase6b", lambda m: m.step_once(state, t, 1000.0 * SPY),
+    runs = _in_turns("phase6b",
+                     lambda m: m.step_once(state, t, EISMINT_CHECK_YEARS * SPY),
                      ref, model)
     s, _, st, _, counts = runs["meshed"][0]
     _check_launches("phase6b", counts, ("sia_flux_thermo",),
                     tuple(k for k in KERNELS if k != "sia_flux_thermo"))
     print(f"phase6b: EISMINT II A {grid.My}x{grid.Mx}x{grid.Mz} float32 on "
-          f"2x2, 1000 a: steps {st.nsteps}, K3 launches "
+          f"2x2, {EISMINT_CHECK_YEARS:g} a: steps {st.nsteps}, K3 launches "
           f"{counts['sia_flux_thermo'] / st.nsteps:.2f}/step")
     if not torch.equal(runs["unmeshed"][0][0].geometry.ice_thickness,
                        k3_state.geometry.ice_thickness):
@@ -3339,7 +3362,8 @@ def phase11_ensemble(dev, smi):
 
 #: the hybrid chain's ensemble: members, km, the warm-up and the timed
 #: segment [a], the members held against their own runs
-HYB_MEMBERS, HYB_KM, HYB_FIRST, HYB_TIMED = 100, 20.0, 2.0, 3.0
+# the timed window cut from 3 a to keep the script's time
+HYB_MEMBERS, HYB_KM, HYB_FIRST, HYB_TIMED = 100, 20.0, 2.0, 2.0
 HYB_SOLO = (0, 50, 99)
 #: the member-axis kernels of the SSA solve (and their single launches,
 #: which the ensemble must not take)
@@ -3402,7 +3426,7 @@ def _hybrid_run(runner, state, t0, years, label, launched=SSA_MEMBER_KERNELS):
 
 def phase12a_hybrid(dev, smi):
     """The hybrid chain's ensemble at its width: 100 members at 141x76x41
-    float32 on path A through EnsembleRunner, 2 a then 3 a timed; the
+    float32 on path A through EnsembleRunner, 2 a then 2 a timed; the
     sliding speed against the till angle. Returns (model, runner, initial
     batched state, the 2 a state and stats)."""
     import numpy as np
@@ -3761,7 +3785,8 @@ def phase12_hybrid_ensemble(dev, smi):
 #: the PISM-PIK chain's ensemble from its data file: members, the warm-up
 #: and the timed segment [a], the members held against their own runs, the
 #: profiled and the components' windows [a] (one lockstep step each)
-PIKE_MEMBERS, PIKE_FIRST, PIKE_TIMED = 100, 1.0, 2.0
+# the timed window cut from 2 a to keep the script's time
+PIKE_MEMBERS, PIKE_FIRST, PIKE_TIMED = 100, 1.0, 1.0
 PIKE_SOLO = (0, 50, 99)
 PIKE_PROFILE, PIKE_PARTS = 0.25, 0.25
 
@@ -3808,7 +3833,7 @@ def _pike_components(runner, state, t0, years, label):
 def phase13a_antarctic(dev, smi):
     """The PISM-PIK chain's ensemble at its width: 100 members at 251x251x31
     float32 on path A from the data file, members differing in PICO's
-    ocean temperature (0-2 K warmer), 1 a then 2 a timed. Returns (model,
+    ocean temperature (0-2 K warmer), 1 a then 1 a timed. Returns (model,
     runner, initial batched state, the 1 a state and stats, the 3 a state,
     dT, counts of the timed run)."""
     import numpy as np
@@ -4367,6 +4392,225 @@ def phase14_ssa_verification(dev, smi):
     return record, counts
 
 
+# -- phase 15: the SIA verification suite, the rest (EISMINT II E and G-L,
+# -test E, F, G, K, O) -------------------------------------------------------
+
+#: every kernel but K3, idle on the EISMINT II routes
+EIS_OTHERS = tuple(k for k in KERNELS if k != "sia_flux_thermo")
+
+
+def _sliding_speed(model, state):
+    """|u_b| [m/a] of the state's stress balance (float64)."""
+    import torch
+    sb = model.stress_balance.update(state, None)
+    return torch.hypot(sb.u_base.double(), sb.v_base.double()) * SPY
+
+
+def _eismint_run(dev, smi, experiment, years, label, k3, state=None, t=0.0):
+    """EISMINT II ``experiment`` at 61x61x61 float32 through
+    ``setups.eismint2_model`` for ``years`` (from zero ice, or from
+    ``state`` at ``t``), the launch counts set to 0 just before and read
+    just after: finite fields, the end time reached, K3 once a step
+    (``k3``) or never, no other kernel. Returns (model, state, t, stats,
+    wall)."""
+    import torch
+    from pism_tpu_torch import setups
+
+    model, s0, grid = setups.eismint2_model("float32", device=dev,
+                                            experiment=experiment)
+    s0 = s0 if state is None else state
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    s1, t1, stats = model.step_once(s0, t, years * SPY)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    for name in ("ice_thickness", "enthalpy", "basal_melt_rate", "u_ssa"):
+        f = getattr(s1.geometry if name == "ice_thickness" else s1, name)
+        if f is not None and not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    n = stats.nsteps
+    if abs(t1 - (t + years * SPY)) > 1e-3 or n <= 0:
+        raise AssertionError(f"{label}: {n} steps reached t = {t1}")
+    per = counts["sia_flux_thermo"] / n
+    if k3:
+        _check_launches(label, counts, ("sia_flux_thermo",), EIS_OTHERS)
+        if per != 1.0:
+            raise AssertionError(f"{label}: K3 launched {per:.2f} a step")
+    else:
+        _check_launches(label, counts, (), KERNELS)
+    H = s1.geometry.ice_thickness.double()
+    vol = float(H.sum()) * grid.dx * grid.dy / 1e9
+    print(f"{label}: {smi}: EISMINT II {experiment} {grid.My}x{grid.Mx}x"
+          f"{grid.Mz} float32, {years:.0f} a: steps {n}, dt-limit hits "
+          f"{stats.limit_hits_dict()}, wall {wall:.3f} s, "
+          f"{1e3 * wall / n:.3f} ms/step, K3 launches {per:.2f}/step, host "
+          f"syncs {stats.host_syncs / n:.1f}/step, volume {vol:.6e} km^3")
+    return model, s1, t1, stats, vol
+
+
+def phase15a_sliding(dev, smi, eismint_7ka):
+    """G and H from zero ice and A over the same 3,000 a; E from phase 4's
+    A state for 1,000 a; K3 on G's state against its plain version.
+    Returns K3's record on G's state."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch.ops.kernels import sia_thermo as K3
+    from pism_tpu_torch.verification import eismint2
+
+    vols, speeds, runs = {}, {}, {}
+    for x in "AGH":
+        model, st, t, _, vols[x] = _eismint_run(
+            dev, smi, x, 3000.0, f"phase15a {x}", True)
+        speeds[x] = float(_sliding_speed(model, st).max())
+        runs[x] = (model, st, t)
+        profile_steps(model, st, t, 100.0, f"phase15a {x}")
+    print(f"phase15a: max sliding speed A {speeds['A']:.4f}, G "
+          f"{speeds['G']:.4f}, H {speeds['H']:.4f} m/a; volume G/A "
+          f"{vols['G'] / vols['A']:.6f}")
+    if not (speeds["A"] == 0.0 and speeds["G"] > 1.0
+            and speeds["H"] <= speeds["G"] and vols["G"] < vols["A"]):
+        raise AssertionError("phase15a: G must slide (> 1 m/a), H no faster "
+                             "than G, and G hold less ice than A")
+    state7, t7 = eismint_7ka
+    model, st, t, _, _ = _eismint_run(dev, smi, "E", 1000.0, "phase15a E",
+                                      True, state=state7, t=t7)
+    profile_steps(model, st, t, 100.0, "phase15a E")
+    sp = _sliding_speed(model, st).cpu().numpy()
+    mu = eismint2.sliding_mu_map_E(model.grid)
+    out_max, in_max = float(sp[mu == 0].max()), float(sp[mu > 0].max())
+    print(f"phase15a E: max sliding speed outside the sector {out_max}, "
+          f"inside {in_max:.4f} m/a")
+    if not (out_max == 0.0 and in_max > 0.5):
+        raise AssertionError("phase15a E: sliding outside the sector, or "
+                             "none inside")
+
+    # K3 on G's state against its plain version
+    model, st, _ = runs["G"]
+    sb = model.stress_balance
+    g = st.geometry
+    args = [g.ice_thickness.contiguous(), g.ice_surface_elevation.contiguous(),
+            st.enthalpy, torch.as_tensor(np.asarray(model.grid.z),
+                                         dtype=g.ice_thickness.dtype,
+                                         device=dev)]
+    kw = dict(n=sb.n_sia, enhancement=sb.e_sia, rho=sb.rho, g=sb.g,
+              dx=model.grid.dx, dy=model.grid.dy, EC=sb.sia_flow_law.EC,
+              pb_law=sb.sia_flow_law, d_cap=sb.d_limit)
+    My, Mx, Mz = model.grid.shape3
+    label = f"on EISMINT II G's state at 3 ka {My}x{Mx}x{Mz} float32"
+    r = _kernel_case(
+        "sia_flux_thermo", lambda *x: K3.sia_flux_thermo(*x, **kw)[:4],
+        lambda *x: tuple(K3.sia_flux_thermo_plain(*x, **kw)[i]
+                         for i in (2, 3, 0, 1)),
+        args, 1e-4, label, 2 * My * Mx * (OPS["sia_thermo_level"] * Mz
+                                          + OPS["sia_thermo_face"]),
+        reps=50, phase="phase15a")
+    _check_max("sia_flux_thermo", label, K3.sia_flux_thermo(*args, **kw))
+    print(f"phase15a: {smi}: K3 record on G's state {json.dumps(r)}")
+    return r
+
+
+def phase15b_beds(dev, smi):
+    """I-L from zero ice, 1,000 a each, on the plain SIA route (their beds
+    keep the bed smoother, so K3 declines)."""
+    for x in "IJKL":
+        _eismint_run(dev, smi, x, 1000.0, f"phase15b {x}", False)
+
+
+def phase15c_card_vs_cpu(dev):
+    """G and I at 21x21x11 float64 for 500 a, card against CPU: equal steps
+    and hits, volumes within 1e-10 relative."""
+    from pism_tpu_torch import setups
+
+    for x in "GI":
+        out = {}
+        for d in (dev, "cpu"):
+            model, s0, _ = setups.eismint2_model("float64", Mx=21, Mz=11,
+                                                 device=d, experiment=x)
+            s1, _, st = model.step_once(s0, 0.0, 500.0 * SPY)
+            out[str(d)] = (st.nsteps, st.limit_hits_dict(),
+                           float(s1.geometry.ice_thickness.sum()))
+        (na, ha, va), (nb, hb, vb) = out[str(dev)], out["cpu"]
+        rel = abs(va - vb) / vb
+        print(f"phase15c: EISMINT II {x} 21x21x11 float64 500 a: steps "
+              f"{na} / {nb} (CPU), hits {ha} / {hb}, volume rel diff "
+              f"{rel:.3e} (tol 1e-10)")
+        if na != nb or ha != hb or not rel <= 1e-10:
+            raise AssertionError(f"phase15c: {x}: the card and the CPU "
+                                 "disagree")
+
+
+def _letter(letter, device):
+    """``-test letter`` at the JAX command line's defaults: on the card
+    through ``cli.main`` (the launch counts set to 0 just before and read
+    just after), on the CPU through ``runner.run_test``. Returns (report
+    lines, errors, counts, wall)."""
+    import contextlib
+    import io
+    import torch
+    from pism_tpu_torch import cli
+    from pism_tpu_torch.verification import runner
+
+    errs, real = [], runner.run_test
+
+    def run_test(*a, **k):
+        errs.append(real(*a, **k))
+        return errs[-1]
+
+    out = io.StringIO()
+    runner.run_test = run_test
+    counts = None
+    try:
+        with contextlib.redirect_stdout(out):
+            if device == "cpu":
+                t0 = time.perf_counter()
+                run_test(letter, device="cpu")
+            else:
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                if cli.main(["-test", letter]) != 0:
+                    raise AssertionError(f"phase15d: -test {letter} failed")
+                torch.cuda.synchronize()
+                counts = read_counts()
+            wall = time.perf_counter() - t0
+    finally:
+        runner.run_test = real
+    return out.getvalue().strip().splitlines(), errs[-1], counts, wall
+
+
+def phase15d_letters(dev, smi):
+    """``-test E, F, G, K, O`` through ``cli.main`` on the card at the JAX
+    command line's defaults, against the port's CPU run of each: the same
+    error numbers within 1e-6 relative (1e-9 absolute at rounding level);
+    no kernel launched (float64: the plain SIA route)."""
+    for letter in "EFGKO":
+        lines, errs, counts, wall = _letter(letter, dev)
+        _, cpu_errs, _, cpu_wall = _letter(letter, "cpu")
+        for line in lines:
+            print(f"phase15d: {line}")
+        print(f"phase15d: {smi}: -test {letter}: main() wall {wall:.3f} s "
+              f"(CPU run {cpu_wall:.3f} s), host syncs "
+              f"{counts['host_syncs']}")
+        _check_launches(f"phase15d -test {letter}", counts, (), KERNELS)
+        bad = {k: (v, cpu_errs[k]) for k, v in errs.items()
+               if not abs(v - cpu_errs[k]) <= max(1e-6 * abs(cpu_errs[k]),
+                                                  1e-9)}
+        if bad:
+            raise AssertionError(f"phase15d: -test {letter}: card against "
+                                 f"CPU {bad}")
+
+
+def phase15_sia_verification(dev, smi, eismint_7ka):
+    """Phase 15; returns K3's record on EISMINT II G's state."""
+    record = _timed("phase15a", phase15a_sliding, dev, smi, eismint_7ka)
+    _timed("phase15b", phase15b_beds, dev, smi)
+    _timed("phase15c", phase15c_card_vs_cpu, dev)
+    _timed("phase15d", phase15d_letters, dev, smi)
+    return record
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -4470,6 +4714,10 @@ def main():
     timings["ssa_newton_matvec_halo_drag"], counts14 = \
         phase14_ssa_verification(dev, smi)
     print(f"phase14: {time.time() - t14:.1f} s")
+    t15 = time.time()
+    print(f"phase15: {smi}")
+    phase15_sia_verification(dev, smi, eismint_7ka)
+    print(f"phase15: {time.time() - t15:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

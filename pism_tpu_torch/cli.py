@@ -3,12 +3,13 @@ verification runs, the EISMINT II experiments, bootstrapping and restarts).
 
 Routes of the port:
 
-- ``-test A/D/H/L``: the verification runner (``verification/runner.py``);
+- ``-test A/D/E/F/G/H/K/L/O``: the verification runner
+  (``verification/runner.py``);
 - ``-test B/C``: the Halfar similarity solutions with an error report;
 - ``-test I/J/M/V/N``: the SSA verification tests, one solve each with an
   error report (``verification/ssa_tests.py``);
-- ``-eisII A/B/C/D/F``: EISMINT II from zero ice, or, with ``-i``, from a
-  saved state (experiments B-D restart from A's end state);
+- ``-eisII A-L``: EISMINT II from zero ice, or, with ``-i``, from a saved
+  state (experiments B-E restart from A's end state);
 - ``-i FILE -bootstrap``: a state from a data file on its own grid
   (``io/bootstrap.py``) on the grid of ``-Mx/-My/-Mz/-Lx/-Ly/-Lz``;
 - ``-i FILE``: continue a state saved by either package; the coupler
@@ -18,7 +19,10 @@ With each route, ``-regrid_file``/``-regrid_vars`` replace 2D fields by
 ones regridded from another file, the coupler flags (``-atmosphere``,
 ``-surface``, ``-ocean``, ``-sea_level``) build chains through
 ``coupler/factory.py``, and ``stress_balance.ssa.dirichlet_bc`` reads the
-SSA's Dirichlet velocities from ``-i``.
+SSA's Dirichlet velocities from ``-i``. ``-stress_balance`` takes
+``sia``, ``ssa+sia``, ``weertman_sliding[+sia]`` and
+``prescribed_sliding[+sia]`` (its velocities from
+``stress_balance.prescribed_sliding.file``).
 
 Every parser option of the JAX CLI parses. The options that need a module
 the port does not carry yet raise NotImplementedError naming the ROADMAP
@@ -30,6 +34,8 @@ Examples:
   python -m pism_tpu_torch -eisII A -y 1000 -o a.nc -o_format netcdf3 \\
       -ts_file ts.nc -ts_times 0:100:1000 -extra_file ex.nc \\
       -extra_times 0:500:1000
+  python -m pism_tpu_torch -eisII G -y 3000 -o g.nc -o_format netcdf3
+  python -m pism_tpu_torch -test K
   python -m pism_tpu_torch -i a.nc -y 100 -o b.nc -o_format netcdf3
   python -m pism_tpu_torch -i g_boot.nc -bootstrap -Mx 76 -My 141 -Mz 41 \\
       -Lx 750 -Ly 1400 -Lz 4000 -stress_balance sia \\
@@ -259,7 +265,7 @@ def _refuse_unported(args):
                        ("inverse", "10"), ("view", "4")):
         if getattr(args, flag) not in (None, False):
             raise _unported(f"-{flag}", item)
-    if args.test and args.test.upper() not in tuple("ABCDHLIJMVN"):
+    if args.test and args.test.upper() not in tuple("ABCDEFGHKLOIJMVN"):
         raise _unported(f"-test {args.test}", "2")
 
 
@@ -536,7 +542,7 @@ def main(argv=None):
     set_verbosity(args.verbose)
 
     t0 = 0.0
-    sol = None
+    sol = sliding_mu = None
     if args.eisII:
         from .verification import eismint2
         if args.i:  # restart experiment B/C/D/... from an A state: the
@@ -550,7 +556,8 @@ def main(argv=None):
             es = eismint2.setup(args.eisII, Mx=args.Mx or 61,
                                 Mz=args.Mz or 61, device=device)
             grid, cfg, state, surface = es.grid, es.config, es.state, es.surface
-    elif args.test and args.test.upper() in tuple("ADHL"):
+        sliding_mu = es.sliding_mu
+    elif args.test and args.test.upper() in tuple("ADEFGHKLO"):
         # pismv-style single-test runs with an error report (runner.py)
         from .verification import runner
         over = Config({})
@@ -647,7 +654,7 @@ def main(argv=None):
                     reference_date=cfg.get_string("time.reference_date"))
 
     model = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
-                     sea_level=sea_level, device=device)
+                     sea_level=sea_level, device=device, sliding_mu=sliding_mu)
     # the fields take the configured dtype (the EISMINT II and Halfar
     # states are built in float64 before -config is read)
     fdt = torch.float32 if cfg.get_string("runtime.float_dtype") == "float32" \

@@ -7,7 +7,10 @@ as a dict of numpy arrays; ``surface_to_numpy`` does the same for what a
 surface model returns. An ensemble's batched state, every array with a
 leading member axis (the layout ``jax.vmap`` takes and
 ``parallel.ensemble.stack_states`` builds), converts the same way, member
-for member.
+for member. The bedrock column ``bedrock_temperature`` (``(..., Mbz)``) is
+a state field like the others; ``setup_to_numpy`` adds an EISMINT II
+setup's per-cell sliding map ``sliding_mu`` (experiment E) to its state's
+fields.
 """
 
 from __future__ import annotations
@@ -61,3 +64,13 @@ def surface_to_numpy(surface, state: ModelState, t: float) -> dict:
     out = surface(state.geometry, t)
     return {"smb": out.smb.detach().cpu().numpy(),
             "temperature": out.temperature.detach().cpu().numpy()}
+
+
+def setup_to_numpy(setup) -> dict:
+    """``state_to_numpy`` of an EISMINT II setup's state, with its
+    ``sliding_mu`` where the experiment has one (E; the ``IceModel`` of
+    either package takes it as a numpy array)."""
+    out = state_to_numpy(setup.state)
+    if setup.sliding_mu is not None:
+        out["sliding_mu"] = setup.sliding_mu.detach().cpu().numpy()
+    return out

@@ -119,10 +119,15 @@ def _write_diagnostics(f, grid: Grid, values: dict, n: int):
     from ..model import diagnostics as dg
     for name, v in values.items():
         d = dg.SPATIAL[name]
-        if v.ndim == 3 and not f.has_dimension("z"):
-            f.define_dimension("z", grid.Mz, grid.z, attrs={
-                "units": "m", "axis": "Z", "positive": "up"})
-        f.write(name, v[None], _XY if v.ndim == 2 else _XY + ("z",),
+        dims = _XY
+        if v.ndim == 3 and v.shape[-1] == grid.Mz:
+            dims = _XY + ("z",)
+            if not f.has_dimension("z"):
+                f.define_dimension("z", grid.Mz, grid.z, attrs={
+                    "units": "m", "axis": "Z", "positive": "up"})
+        elif v.ndim == 3:
+            dims = _XY + ("zb",)   # litho_temp
+        f.write(name, v[None], dims,
                 {"units": d.units, "long_name": d.long_name}, time_index=n)
 
 

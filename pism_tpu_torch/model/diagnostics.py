@@ -8,7 +8,9 @@ A registry of functions ``(state, model, t) -> tensor`` with CF metadata
 (``ice_volume_glacierized``, ``ice_area_glacierized``, ``max_velocity``)
 with ``ice_volume``, the fields of the PIK chain (``shelfbmassflux``,
 ``shelfbtemp``, the ``pico_*`` set, the eigen, von Mises, Hayhurst and
-total retreat rates, ``dbdt_total``, ``viscous_bed_displacement``), and
+total retreat rates, ``dbdt_total``, ``viscous_bed_displacement``), the
+bedrock layer's ``bedtoptemp``, ``heat_flux_from_bedrock`` and
+``litho_temp`` (the column, ``(..., Mbz)``), and
 the interval-averaged rates: the scalar ones
 (``Window``, ``RATE``) from ``StepStats``' volume sums, and the spatial
 ones (``Window2D``, ``SPATIAL_RATE``) from its per-cell ``CellBudget``.
@@ -224,6 +226,36 @@ def _sftgrf(state, model, t):
          "floating_ice_shelf_area_fraction")
 def _sftflf(state, model, t):
     return _sftgif(state, model, t) - _sftgrf(state, model, t)
+
+
+# -- the bedrock thermal layer (PISM bedtoptemp, heat_flux_from_bedrock,
+# BTU_Full's litho_temp) ------------------------------------------------------
+
+@spatial("bedtoptemp", "K", "temperature at the top of the bedrock column")
+def _bedtoptemp(state, model, t):
+    if state.bedrock_temperature is None:
+        return _zeros2(state)
+    return state.bedrock_temperature[..., -1]
+
+
+@spatial("heat_flux_from_bedrock", "W m-2",
+         "conductive upward heat flux at the top of the bedrock",
+         "upward_geothermal_heat_flux_at_ground_level")
+def _bedrock_flux(state, model, t):
+    if state.bedrock_temperature is None or model.grid.Mbz < 2:
+        G = model.config.get_number("bootstrapping.defaults.geothermal_flux")
+        return torch.full_like(state.geometry.ice_thickness, G)
+    k_b = model.config.get_number("energy.bedrock_thermal.conductivity")
+    dzb = model.grid.Lbz / (model.grid.Mbz - 1)
+    T = state.bedrock_temperature
+    return k_b * (T[..., -2] - T[..., -1]) / dzb
+
+
+@spatial("litho_temp", "K", "lithosphere (bedrock thermal layer) temperature")
+def _litho_temp(state, model, t):
+    if state.bedrock_temperature is not None:
+        return state.bedrock_temperature
+    return _zeros2(state)[..., None]
 
 
 # --------------------------------------------------------------------------

@@ -12,10 +12,17 @@ stability limits need. Every other host decision is counted by
 ``util/hostsync.py``; ``StepStats.host_syncs`` reports them.
 
 Components built here are exactly the chains': enthalpy energy with the
-minimal bedrock unit, or no energy model (``energy.model = none``: the
-isothermal SIA, or MISMIP's isothermal ``ssa+sia``, with no 3D
-velocities, the dt chosen from the 2D face velocities); the SIA stress
-balance and, with ``ssa+sia``, the SSAFD solve, the yield stress of
+minimal bedrock unit or, with ``grid.Mbz > 1``, the full one (stepped
+under the ice's basal temperature before the energy step; its column
+from ``energy.bedrock_thermal.file``'s ``litho_temp`` or the steady
+profile), or no energy model (``energy.model = none``: the isothermal
+SIA, the manufactured tests' SIA on a prescribed enthalpy, or MISMIP's
+isothermal ``ssa+sia``, with no 3D velocities, the dt chosen from the 2D
+face velocities); the SIA stress balance with the Weertman sliding law
+(``sliding_mu`` its per-cell coefficient) or a prescribed sliding
+velocity (``prescribed_u``/``prescribed_v``, else
+``stress_balance.prescribed_sliding.file``) and, with ``ssa+sia``, the
+SSAFD solve, the yield stress of
 ``basal_yield_stress.model`` (Mohr-Coulomb with ``topg_to_phi`` and
 slippery grounding lines, constant, or given) and null hydrology; the
 calving component of ``model/calving.py`` (thickness, ocean-kill and
@@ -33,7 +40,8 @@ torch raises rather than the model running on the CPU. ``mesh`` (a
 ``parallel.mesh.Mesh``) decomposes the kernel routes: the SSA matvec and
 its JVP (K5) and the SIA flux kernels (K3/K4) run per shard on halo-padded
 blocks, while every field stays whole on ``device``
-(``pism_tpu/model/icemodel.py:146-150``).
+(``pism_tpu/model/icemodel.py:146-150``). The Weertman and prescribed
+sliding and a bedrock layer raise NotImplementedError under a mesh.
 
 ``member_axis`` builds the model of an ensemble's members
 (``parallel/ensemble.py``): every field has a leading member axis, the
@@ -51,7 +59,8 @@ with a member form (constant, PIK, PICO, their ``delta_T``),
 and iceberg removal, part-grid, the sub-grid grounding line, and
 Lingle-Clark bed deformation (each member's gate on its own step end). A
 mesh, sea level, pointwise isostasy, another calving method or float
-kill, or another stateful surface raise NotImplementedError.
+kill, another stateful surface, the Weertman and prescribed sliding and a
+bedrock layer raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from ..grid import Grid
 from ..ops import sia as sia_ops
 from ..ops.sia3d import max_timestep_cfl_3d
 from ..ops.stencils import Shifter
+from ..parallel.mesh import is_sharded
 from ..physics.basal import yield_stress_from_config
 from ..physics.enthalpy_converter import EnthalpyConverter
 from ..physics.hydrology import NullTransport
@@ -81,7 +91,7 @@ from ..util.logger import log
 from ..util.timecal import Time
 from . import geometry_evolution as ge
 from .beddef import LingleClark, bed_deformation_from_config
-from .btu import btu_from_config
+from .btu import BTUFull, btu_from_config
 from .calving import calving_from_config
 from .energy import EnergyModel, bootstrap_enthalpy
 from .ssa import SSAFD
@@ -243,6 +253,13 @@ class IceModel:
     device: object = "cuda"    # torch device of every field
     mesh: object = None        # ("y", "x") Mesh of the kernel routes
     member_axis: bool = False  # fields carry an ensemble's member axis
+    # per-cell linear sliding coefficient of the Weertman branch (EISMINT
+    # II experiment E's sector) [m s^-1 Pa^-1]
+    sliding_mu: object = None
+    # the sliding velocity of prescribed_sliding[+sia] [m/s]; read from
+    # stress_balance.prescribed_sliding.file when not given
+    prescribed_u: object = None
+    prescribed_v: object = None
 
     def __post_init__(self):
         cfg = self.config
@@ -250,13 +267,10 @@ class IceModel:
         self.lead = 1 if self.member_axis else 0
         require(cfg, "runtime.float_dtype", ("float32", "float64"))
         require(cfg, "energy.model", ("enthalpy", "none"))
-        if cfg.get_string("energy.model") == "none":
-            # the isothermal chains: the SIA of the verification tests and
-            # MISMIP's ssa+sia
-            require(cfg, "stress_balance.sia.flow_law", ("isothermal_glen",))
-            if "ssa" in cfg.get_string("stress_balance.model"):
-                require(cfg, "stress_balance.ssa.flow_law",
-                        ("isothermal_glen",))
+        sb_model = cfg.get_string("stress_balance.model")
+        if cfg.get_string("energy.model") == "none" and "ssa" in sb_model:
+            # MISMIP's isothermal ssa+sia
+            require(cfg, "stress_balance.ssa.flow_law", ("isothermal_glen",))
         require(cfg, "frontal_melt.models", ("", "none"))
         require(cfg, "ocean.always_grounded", (False,))
         require(cfg, "time_stepping.adaptive_timestepping", (True,))
@@ -278,6 +292,14 @@ class IceModel:
             self.energy_model = EnergyModel(grid=self.grid, config=cfg,
                                             EC=self.EC, lead=self.lead)
             self.btu = btu_from_config(self.grid, cfg)
+            for what, present, item in (
+                    ("an ensemble", self.member_axis, "3"),
+                    ("a mesh", is_sharded(self.mesh), "10")):
+                if present and isinstance(self.btu, BTUFull):
+                    raise NotImplementedError(
+                        f"a bedrock thermal layer (grid.Mbz > 1) in {what} "
+                        "is not implemented in pism_tpu_torch (ROADMAP "
+                        f"Queue 1 item {item})")
         # the SSA and what feeds it exist only with an SSA in the model
         # (pism_tpu/model/icemodel.py:185-206)
         self.ssa = self.hydrology = None
@@ -299,11 +321,30 @@ class IceModel:
             or cfg.get_flag("geometry.front_retreat.use_cfl"))
         self.bed_deformation = bed_deformation_from_config(self.grid, cfg)
         self.geothermal = cfg.get_number("bootstrapping.defaults.geothermal_flux")
+        if sb_model.startswith("prescribed_sliding") \
+                and self.prescribed_u is None:
+            path = cfg.get_string("stress_balance.prescribed_sliding.file")
+            if path:
+                from ..io.bootstrap import read_and_regrid
+                flds = read_and_regrid(path, self.grid,
+                                       ["u_ssa", "v_ssa", "ubar", "vbar"])
+                self.prescribed_u = flds.get("u_ssa", flds.get("ubar"))
+                self.prescribed_v = flds.get("v_ssa", flds.get("vbar"))
+
+        def on_device(x):
+            return None if x is None else torch.as_tensor(x, device=self.device)
         self.stress_balance = StressBalance(
             grid=self.grid, config=cfg,
             sia_flow_law=flow_law_from_config(cfg, "sia", self.EC),
             ssa=self.ssa, compute_3d=self.energy_model is not None,
-            mesh=self.mesh, lead=self.lead)
+            mesh=self.mesh, lead=self.lead,
+            sliding_mu=on_device(self.sliding_mu),
+            prescribed_u=on_device(self.prescribed_u),
+            prescribed_v=on_device(self.prescribed_v))
+        if self.energy_model is not None and not self.stress_balance.has_sia:
+            raise ValueError(
+                f"stress_balance.model = {sb_model!r} has no SIA 3D "
+                "velocities for energy.model = enthalpy")
 
         self.rho_i = cfg.get_number("constants.ice.density")
         self.rho_w = cfg.get_number("constants.sea_water.density")
@@ -381,9 +422,12 @@ class IceModel:
         max_D, max_ue, max_vn = vals[:3]
         cand = [math.inf] * len(DT_LIMITS)
         cand[0] = self.max_dt
-        cand[1] = self.skip_max * sia_ops.max_timestep_diffusivity(
-            max_D, grid.dx, grid.dy, self.adaptive_ratio)
-        if self.ssa is not None:
+        if self.stress_balance.has_sia:
+            cand[1] = self.skip_max * sia_ops.max_timestep_diffusivity(
+                max_D, grid.dx, grid.dy, self.adaptive_ratio)
+        if self.stress_balance.model != "sia":
+            # the sliding velocity's limit (the SSA's, Weertman's, the
+            # prescribed field's)
             cand[2] = self.skip_max * (self.cfl_factor * ge.max_timestep_cfl_2d(
                 max_ue, max_vn, grid.dx, grid.dy))
         if self.stress_balance.compute_3d:
@@ -573,7 +617,14 @@ class IceModel:
             G = state.geothermal_flux.to(dtype) \
                 if state.geothermal_flux is not None \
                 else torch.full_like(H, self.geothermal)
-            _, G = self.btu.step(state.bedrock_temperature, None, G, dt_f)
+            if state.bedrock_temperature is not None:
+                # the bedrock column under the ice's basal temperature; its
+                # top flux is the ice's lower boundary condition
+                T_base = self.EC.temperature(state.enthalpy[..., 0],
+                                             self.EC.pressure(H))
+                bed_T, G = self.btu.step(state.bedrock_temperature, T_base,
+                                         G, dt_f)
+                state = state.replace(bedrock_temperature=bed_T)
             eres = self.energy_model.step(
                 state, sb.sia3, smb_in.temperature, dt_f, geothermal_flux=G,
                 frictional_heating=sb.basal_frictional_heating,
@@ -790,7 +841,7 @@ class IceModel:
             kw["tillwat"] = z2
         if self.energy_model is not None and state.basal_melt_rate is None:
             kw["basal_melt_rate"] = z2
-        if self.ssa is not None:
+        if self.stress_balance.model != "sia":
             if state.u_ssa is None:
                 kw["u_ssa"] = z2
             if state.v_ssa is None:
@@ -833,7 +884,31 @@ class IceModel:
             kw["enthalpy"] = bootstrap_enthalpy(
                 self.grid, self.EC, H, smb.temperature,
                 geothermal=G0).to(H.dtype)
+        if isinstance(self.btu, BTUFull) and state.bedrock_temperature is None:
+            kw["bedrock_temperature"] = self._initial_bedrock_temperature(
+                state, kw.get("enthalpy", state.enthalpy))
         return state.replace(**kw)
+
+    def _initial_bedrock_temperature(self, state, E0):
+        """``energy.bedrock_thermal.file``'s ``litho_temp`` (its last
+        record) where that key is set, else the steady conductive column
+        under the ice's basal temperature (JAX
+        ``pism_tpu/model/icemodel.py:920-945``)."""
+        H = state.geometry.ice_thickness
+        path = self.config.get_string("energy.bedrock_thermal.file")
+        if path:
+            from ..io.nc4 import File
+            with File(path, "r") as f:
+                if not f.has_variable("litho_temp"):
+                    raise ValueError(f"{path!r} has no litho_temp")
+                lt = np.asarray(f.read("litho_temp"), float)
+            if lt.ndim == 4:
+                lt = lt[-1]
+            return torch.as_tensor(lt, dtype=H.dtype, device=H.device)
+        T_base = self.EC.temperature(E0[..., 0], self.EC.pressure(H))
+        G0 = state.geothermal_flux if state.geothermal_flux is not None \
+            else self.geothermal
+        return self.btu.init_temperature(T_base, G0)
 
     # ------------------------------------------------------------- checks
     def _check_state(self, state: S.ModelState, t: float,

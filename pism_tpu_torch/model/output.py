@@ -342,11 +342,17 @@ class OutputManager:
             for name, arr in values.items():
                 d = diag.SPATIAL[name]
                 dims = _XY
-                if arr.ndim == 3:
+                if arr.ndim == 3 and arr.shape[-1] == grid.Mz:
                     dims = _XY + ("z",)
                     if not f.has_dimension("z"):
                         f.define_dimension("z", grid.Mz, grid.z, attrs={
                             "units": "m", "axis": "Z", "positive": "up"})
+                elif arr.ndim == 3:
+                    # a layer-indexed field (litho_temp), as the JAX
+                    # package writes it
+                    dims = _XY + ("nl",)
+                    if not f.has_dimension("nl"):
+                        f.define_dimension("nl", arr.shape[-1])
                 f.write(name, arr[None], dims,
                         {"units": d.units, "long_name": d.long_name,
                          "_FillValue": fv}, time_index=n)

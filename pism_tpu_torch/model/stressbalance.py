@@ -1,15 +1,18 @@
 """Composite stress balance (port of ``pism_tpu/model/stressbalance.py``,
-the ``ssa+sia`` and ``sia`` branches of ``update``): the SSA sliding
-velocity (``ssa+sia``; ``sia`` carries the state's own, if any), the SIA diffusive flux
-on the bed-smoothed geometry, and (for the energy model) the 3D
-velocities, strain heating and basal frictional heating. Without an
+the ``ssa+sia``, ``sia``, ``weertman_sliding[+sia]`` and
+``prescribed_sliding[+sia]`` branches of ``update``): the sliding velocity
+(the SSA's with ``ssa+sia``, the Weertman law's, the prescribed fields;
+``sia`` carries the state's own, if any), the SIA diffusive flux on the
+bed-smoothed geometry, and (for the energy model) the 3D velocities,
+strain heating and, with an SSA, basal frictional heating. Without an
 energy model (``compute_3d = False``) the result holds the sliding
 velocities and the 2D maxima only.
 
 On an ensemble's member axis (``lead = 1``) both models run on
 ``(B, My, Mx[, Mz])`` fields with per-member maxima; with ``ssa+sia`` the
 SSA solve (built with the same ``lead``) converges per member in lockstep
-and its counts are per member.
+and its counts are per member. The Weertman and prescribed-sliding
+branches raise NotImplementedError there and under a sharded mesh.
 """
 
 from __future__ import annotations
@@ -26,8 +29,13 @@ from ..ops import sia as sia_ops
 from ..ops import sia3d
 from ..ops import stencils as st
 from ..ops.stencils import Shifter
-from ..parallel.mesh import refuse_periodic_mesh
+from ..parallel.mesh import is_sharded, refuse_periodic_mesh
 from . import geometry_evolution as ge
+
+#: the ported values of ``stress_balance.model`` (the JAX package also takes
+#: none, ssa and blatter)
+MODELS = ("ssa+sia", "sia", "weertman_sliding", "weertman_sliding+sia",
+          "prescribed_sliding", "prescribed_sliding+sia")
 
 
 class StressBalanceResult(NamedTuple):
@@ -60,14 +68,41 @@ class StressBalance:
     # ("y", "x") Mesh: the SIA kernel routes run per shard under it
     mesh: object = None
     lead: int = 0    # leading member dims of the fields (an ensemble's 1)
+    # per-cell linear sliding coefficient mu [m s^-1 Pa^-1] of the Weertman
+    # branch, u_b = -mu tau_d (EISMINT II experiment E's sector)
+    sliding_mu: object = None
+    # the sliding velocity of prescribed_sliding[+sia] [m/s]
+    prescribed_u: object = None
+    prescribed_v: object = None
 
     def __post_init__(self):
         cfg = self.config
-        require(cfg, "stress_balance.model", ("ssa+sia", "sia"))
+        require(cfg, "stress_balance.model", MODELS)
         self.model = cfg.get_string("stress_balance.model")
-        # both ported models carry the SIA (``run`` reads it for the
-        # max_diffusivity stop)
+        # ``run`` reads the SIA's max(D) for the max_diffusivity stop
         self.has_sia = "sia" in self.model.split("+")
+        self.sliding = self.model.split("+")[0] \
+            if self.model.startswith(("weertman", "prescribed")) else None
+        if self.sliding is not None:
+            for what, present, item in (
+                    ("an ensemble's member axis", self.lead, "3"),
+                    ("a mesh", is_sharded(self.mesh), "10")):
+                if present:
+                    raise NotImplementedError(
+                        f"stress_balance.model = {self.model!r} on {what} "
+                        "is not implemented in pism_tpu_torch (ROADMAP "
+                        f"Queue 1 item {item})")
+        if self.sliding == "weertman_sliding":
+            self.k_weertman = cfg.get_number(
+                "stress_balance.weertman_sliding.k")
+            self.m_weertman = cfg.get_number(
+                "stress_balance.weertman_sliding.exponent")
+            self.melt_only = cfg.get_flag(
+                "stress_balance.weertman_sliding.melt_only")
+        elif self.sliding == "prescribed_sliding" \
+                and self.prescribed_u is None:
+            raise ValueError("stress_balance.model = prescribed_sliding needs "
+                             "the prescribed_u and prescribed_v fields")
         if self.ssa is not None and self.ssa.lead != self.lead:
             raise ValueError("the SSA and the stress balance take different "
                              "member dims")
@@ -115,6 +150,35 @@ class StressBalance:
         return (replace(geometry, ice_thickness=H_sia),
                 st.avg_to_east(th, self.sh), st.avg_to_north(th, self.sh))
 
+    def _weertman(self, state: S.ModelState):
+        """Weertman (1957)-type hard-bed sliding (PISM ``WeertmanSliding``):
+        u_b = -k |tau_d|^(m-1) tau_d / N^(m-1), tau_d = -rho g H grad s
+        (centered), N = max(rho g H, 1) the overburden pressure; or
+        u_b = -mu tau_d with the per-cell ``sliding_mu``. Only grounded
+        ice slides, and with ``melt_only`` only where the base is
+        temperate (E_base >= E_s(p_base)). With m = 1 and k = B this is
+        EISMINT II experiment G's law (Payne et al. 2000 eq. 4)."""
+        g = state.geometry
+        H = g.ice_thickness
+        sx, sy = st.centered_grad(g.ice_surface_elevation, self.grid.dx,
+                                  self.grid.dy, self.sh)
+        N = torch.clamp(self.rho * self.g * H, min=1.0)
+        tdx = -self.rho * self.g * H * sx
+        tdy = -self.rho * self.g * H * sy
+        if self.sliding_mu is not None:
+            fac = self.sliding_mu.to(H.dtype)
+        else:
+            # (mag / N) ** 0 is 1 where mag = 0 too, as in the JAX package
+            mag = torch.sqrt(tdx ** 2 + tdy ** 2)
+            fac = self.k_weertman * (mag / N) ** (self.m_weertman - 1.0)
+        sliding = S.grounded_ice(g.cell_type)
+        if self.melt_only and state.enthalpy is not None:
+            EC = self.sia_flow_law.EC
+            E_base = state.enthalpy[..., 0]
+            sliding = sliding & (E_base >= EC.enthalpy_cts(EC.pressure(H)))
+        return (torch.where(sliding, fac * tdx, 0.0),
+                torch.where(sliding, fac * tdy, 0.0))
+
     def sia_flux(self, geometry, enthalpy, theta_e=None, theta_n=None,
                  pallas=None):
         return sia_ops.diffusivity(
@@ -136,10 +200,22 @@ class StressBalance:
             u_ssa, v_ssa, info = self.ssa.solve(
                 state, yield_stress, diagnostics=True,
                 **({"active": active} if self.lead else {}))
+        elif self.sliding == "weertman_sliding":
+            u_ssa, v_ssa = self._weertman(state)
+        elif self.sliding == "prescribed_sliding":
+            H = state.geometry.ice_thickness
+            u_ssa = self.prescribed_u.to(H.dtype)
+            v_ssa = self.prescribed_v.to(H.dtype)
 
-        geom, th_e, th_n = self._apply_bed_smoother(state.geometry)
-        flux = self.sia_flux(geom, state.enthalpy, th_e, th_n,
-                             pallas=self.sia_pallas)
+        if self.has_sia:
+            geom, th_e, th_n = self._apply_bed_smoother(state.geometry)
+            flux = self.sia_flux(geom, state.enthalpy, th_e, th_n,
+                                 pallas=self.sia_pallas)
+        else:
+            zeros = torch.zeros_like(state.geometry.ice_thickness)
+            flux = sia_ops.SIAFlux(zeros, zeros, zeros, zeros,
+                                   torch.zeros((), dtype=zeros.dtype,
+                                               device=zeros.device))
         if u_ssa is not None:
             u_e, v_n = ge.face_velocities(u_ssa, v_ssa, self.sh)
             u_b, v_b = u_ssa, v_ssa
@@ -147,7 +223,7 @@ class StressBalance:
             u_e = v_n = u_b = v_b = torch.zeros_like(flux.qe)
 
         sia3 = friction = None
-        if self.compute_3d:
+        if self.compute_3d and self.has_sia:
             sia3 = sia3d.sia_3d(
                 self.sia_flow_law, state.geometry, state.enthalpy, self.grid,
                 self.sh, n=self.n_sia, enhancement=self.e_sia, rho=self.rho,

@@ -136,25 +136,31 @@ def hybrid_ensemble_model(members: int, km: float = 20.0,
         members, *grid.shape2).contiguous()), grid, phi)
 
 
-#: EISMINT II's bed is flat, so the bed smoother's theta is exactly 1 and
-#: switching it off is the same physics; without theta the SIA kernel K3
-#: takes the flux (the JAX package's default 5 km range declines it)
+#: The bed of EISMINT II A-H is flat, so the bed smoother's theta is exactly
+#: 1 and switching it off is the same physics; without theta the SIA kernel
+#: K3 takes the flux (the JAX package's default 5 km range declines it).
+#: Not for I-L, whose beds make theta differ from 1.
 EISMINT2_CFG = {"stress_balance.sia.bed_smoother.range": 0.0}
 
 
 def eismint2_model(dtype: str, Mx: int = 61, Mz: int = 61, device="cuda",
-                   extra_cfg=None, mesh=None):
-    """EISMINT II experiment A from zero ice: returns (model, initial
-    state, grid). The config is the JAX setup's plus ``EISMINT2_CFG`` and
-    ``extra_cfg``; ``dtype`` is "float32" or "float64"."""
+                   extra_cfg=None, mesh=None, experiment: str = "A"):
+    """An EISMINT II experiment from zero ice (B-E restart from A's state:
+    pass that state to the model instead): returns (model, initial state,
+    grid). The config is the JAX setup's plus ``extra_cfg``, and on the
+    flat beds (A-H) ``EISMINT2_CFG``. I-L keep the JAX setup's 5 km bed
+    smoother: their beds make theta differ from 1, so the SIA takes the
+    plain route there, as in the JAX package. ``dtype`` is "float32" or
+    "float64"."""
     from .verification import eismint2
 
-    es = eismint2.setup("A", Mx=Mx, Mz=Mz, Lz=5000.0,
+    es = eismint2.setup(experiment, Mx=Mx, Mz=Mz, Lz=5000.0,
                         dtype=getattr(torch, dtype), device=device)
-    es.config.update({"runtime.float_dtype": dtype, **EISMINT2_CFG,
-                      **(extra_cfg or {})})
+    flat = "bed" not in eismint2.EXPERIMENTS[experiment.upper()]
+    es.config.update({"runtime.float_dtype": dtype,
+                      **(EISMINT2_CFG if flat else {}), **(extra_cfg or {})})
     model = IceModel(grid=es.grid, config=es.config, surface=es.surface,
-                     device=device, mesh=mesh)
+                     device=device, mesh=mesh, sliding_mu=es.sliding_mu)
     return model, es.state, es.grid
 
 

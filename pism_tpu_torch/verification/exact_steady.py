@@ -1,6 +1,5 @@
 """Exact steady and quasi-steady isothermal SIA solutions of verification
-tests A, D, H and L (port of ``pism_tpu/verification/exact_steady.py``;
-test E's sliding cap needs ``prescribed_sliding`` and is not ported).
+tests A, D, E, H and L (port of ``pism_tpu/verification/exact_steady.py``).
 
 * Test A: steady cap with constant accumulation ``M0`` inside a fixed
   margin ``r = L`` (ice beyond ``L`` is removed by ocean-kill calving):
@@ -11,6 +10,11 @@ test E's sliding cap needs ``prescribed_sliding`` and is not ported).
   compensatory accumulation ``M_c = dH/dt + div(q(H))`` taken by automatic
   differentiation of the exact radial profile (``torch.func`` here, JAX's
   autodiff in the reference; both are exact to rounding).
+
+* Test E: the test-A cap with basal sliding prescribed in an annular
+  sector, u_b = mu tau_b down-gradient with a separable quadratic bump mu,
+  and the compensatory accumulation ``M_A + div(H u_b)``, the divergence
+  taken by automatic differentiation of the closed-form flux.
 
 * Test H: the lambda-family similarity solution over a bed ``b = -f H``
   (pointwise isostasy, ``f = rho_i / rho_r``), with softness
@@ -61,6 +65,97 @@ class SteadyCap:
 
 def test_A() -> SteadyCap:
     return SteadyCap()
+
+
+# ---------------------------------------------------------------- test E
+
+@dataclass(frozen=True)
+class SlidingCap:
+    """Test E (Bueler et al. 2005): the steady test-A cap with basal
+    sliding prescribed in an annular sector and a compensatory
+    accumulation, so that the test-A thickness stays an exact steady state.
+
+    The sliding coefficient is a separable bump
+
+        mu(r, theta) = mu_max * 4 (r - r1)(r2 - r) / (r2 - r1)^2
+                              * 4 (th - th1)(th2 - th) / (th2 - th1)^2
+
+    inside ``r1 < r < r2``, ``th1 < theta < th2`` and zero outside; the
+    basal velocity is ``u_b = mu tau_b`` with ``tau_b = rho g H |grad h|``
+    directed down-gradient (radially outward on the flat-bed cap), and the
+    compensatory accumulation is ``M_E = M_A + div(H u_b)``.
+    """
+
+    cap: SteadyCap = SteadyCap()
+    mu_max: float = 2.5e-11            # m s^-1 Pa^-1 (peak sliding coeff)
+    r1: float = 200.0e3
+    r2: float = 700.0e3
+    th1: float = 10.0 * np.pi / 180.0
+    th2: float = 40.0 * np.pi / 180.0
+    rho: float = RHO_ICE
+    g: float = 9.81
+
+    def thickness(self, r):
+        return self.cap.thickness(r)
+
+    def _fields(self, x, y):
+        """Closed-form (H, u_b, v_b) at float64 tensors (x, y). Every
+        intermediate stays finite (clamped powers, an origin-regularized r
+        and atan2), so differentiating through the sector's masks gives no
+        NaN: the margin singularity of H' lies outside the sector
+        (r2 < L), where the masked branch is exactly zero."""
+        n = self.cap.n
+        G = gamma(self.cap.A, n)
+        p = (n + 1.0) / n
+        L, M0 = self.cap.L, self.cap.M0
+        r = torch.sqrt(x * x + y * y + 1.0)   # +1 m^2: finite grad at origin
+        C = 2.0 * (M0 / (2.0 * G)) ** (1.0 / n)
+        e = n / (2.0 * n + 2.0)
+        inner = C * (L ** p - r ** p)
+        inner_c = torch.clamp(inner, min=1.0)   # >= 1 keeps powers finite
+        H = torch.where(inner > 0.0, inner_c ** e, 0.0)
+        dHdr = e * inner_c ** (e - 1.0) * (-C * p * r ** (p - 1.0))
+        theta = torch.atan2(y, torch.where(torch.abs(x) + torch.abs(y) < 1.0,
+                                           1.0, x))
+        gr = 4.0 * (r - self.r1) * (self.r2 - r) / (self.r2 - self.r1) ** 2
+        gt = 4.0 * (theta - self.th1) * (self.th2 - theta) \
+            / (self.th2 - self.th1) ** 2
+        in_sector = (r > self.r1) & (r < self.r2) & \
+            (theta > self.th1) & (theta < self.th2)
+        mu = torch.where(in_sector, self.mu_max * gr * gt, 0.0)
+        tau_b = self.rho * self.g * H * torch.abs(dHdr)
+        speed = mu * tau_b             # down-gradient = radially outward
+        return H, speed * x / r, speed * y / r
+
+    def sliding_velocity(self, x, y):
+        """(u_b, v_b) as numpy at numpy points (x, y)."""
+        _, u, v = self._fields(torch.as_tensor(np.asarray(x, np.float64)),
+                               torch.as_tensor(np.asarray(y, np.float64)))
+        return u.numpy(), v.numpy()
+
+    def accumulation(self, x, y):
+        """M_E = M_A + div(H u_b) as numpy at numpy points (x, y), the
+        divergence by automatic differentiation of the closed-form flux."""
+        def qx(px, py):
+            H, u, _ = self._fields(px, py)
+            return H * u
+
+        def qy(px, py):
+            H, _, v = self._fields(px, py)
+            return H * v
+
+        div = torch.func.vmap(
+            lambda px, py: torch.func.grad(qx, argnums=0)(px, py)
+            + torch.func.grad(qy, argnums=1)(px, py))
+        X = torch.as_tensor(np.ravel(x), dtype=torch.float64)
+        Y = torch.as_tensor(np.ravel(y), dtype=torch.float64)
+        Mc = div(X, Y).numpy().reshape(np.shape(x))
+        r = np.sqrt(np.asarray(x) ** 2 + np.asarray(y) ** 2)
+        return np.asarray(self.cap.accumulation(r)) + Mc
+
+
+def test_E() -> SlidingCap:
+    return SlidingCap()
 
 
 # ---------------------------------------------------------------- test H

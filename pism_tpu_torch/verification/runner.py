@@ -1,13 +1,16 @@
-"""Verification runs by letter (port of ``pism_tpu/verification/runner.py`` for
-the isothermal SIA letters of PISM's ``pismv``): set up an exact-solution
-test by letter, run it through ``IceModel.step_once``, and print a
-pismv-style numerical-error report.
+"""Verification runs by letter (port of ``pism_tpu/verification/runner.py``
+for the SIA letters of PISM's ``pismv``): set up an exact-solution test by
+letter, run it, and print a pismv-style numerical-error report.
 
 Ported letters: A (steady cap, fixed margin), D (compensatory
-oscillation), H (moving margin with pointwise isostasy) and L (steady cap
-on a non-flat bed). B and C, the Halfar similarity solutions, are
-``setups.halfar_model`` (the CLI's ``-test B/C`` route). Every other letter
-raises ``NotImplementedError``.
+oscillation), E (test A's cap with prescribed sliding in a sector), F
+(thermo-coupled steady dome, the manufactured-solution analog), G (test F
+plus a time-periodic wobble), H (moving margin with pointwise isostasy),
+K (cold conduction column with the bedrock thermal layer), L (steady cap
+on a non-flat bed) and O (warm-based conduction column, exact basal melt
+rate). B and C, the Halfar similarity solutions, are
+``setups.halfar_model`` (the CLI's ``-test B/C`` route); I, J, M, V and N
+are ``ssa_tests.py``. Every other letter raises ``NotImplementedError``.
 
 Every run's fields are float64 on ``device`` (default ``"cuda"``; pass
 ``device="cpu"`` for a run on the CPU).
@@ -20,7 +23,7 @@ import torch
 
 SPY = 3.15569259747e7
 
-SUPPORTED = "ADHL"
+SUPPORTED = "ADEFGHKLO"
 
 
 def _report(title, rows):
@@ -67,10 +70,10 @@ def _ocean_kill(grid, cfg, L, device):
 
 
 def _run_sia(grid, cfg, state, surface, t0, years, calving=None,
-             device="cuda"):
+             device="cuda", **model_kw):
     from ..model.icemodel import IceModel
     model = IceModel(grid=grid, config=cfg, surface=surface, calving=calving,
-                     device=device)
+                     device=device, **model_kw)
     state, tf, stats = model.step_once(state, t0, years * SPY)
     return state, stats
 
@@ -110,6 +113,34 @@ def run_A(Mx=61, years=1000.0, config=None, device="cuda"):
     return errs
 
 
+def run_E(Mx=61, years=1000.0, config=None, device="cuda"):
+    """Test E: the steady test-A cap with prescribed basal sliding in an
+    annular sector and compensatory accumulation (Bueler et al. 2005;
+    ``pismv -test E`` prescribes the sliding velocity too)."""
+    from ..grid import Grid
+    from . import exact_steady as es
+
+    sc = es.test_E()
+    grid = Grid(Mx=Mx, My=Mx, Lx=900e3, Ly=900e3)
+    cfg = _isothermal_config(config)
+    cfg.update({"stress_balance.model": "prescribed_sliding+sia"})
+    X, Y = np.meshgrid(grid.x, grid.y)
+    He = sc.thickness(grid.radius)
+    ub, vb = sc.sliding_velocity(X, Y)
+    surface = _constant_surface(_f64(sc.accumulation(X, Y), device))
+    state = _state(He, np.zeros(grid.shape2), device)
+    state, stats = _run_sia(grid, cfg, state, surface, 0.0, years,
+                            calving=_ocean_kill(grid, cfg, sc.cap.L, device),
+                            device=device, prescribed_u=_f64(ub, device),
+                            prescribed_v=_f64(vb, device))
+    errs = _geometry_errors(state.geometry.ice_thickness.cpu().numpy(), He)
+    base = {"max_ub(m/a)": float(np.abs(ub).max() * SPY),
+            "max_vb(m/a)": float(np.abs(vb).max() * SPY)}
+    _report(f"test E (sliding sector cap, {years:.0f} a, {Mx}x{Mx})",
+            [("geometry", errs), ("base slide", base)])
+    return errs
+
+
 def run_D(Mx=61, years=2500.0, config=None, device="cuda"):
     """Compensatory accumulation oscillation (default: half a period)."""
     from ..coupler.surface import FunctionSurface
@@ -131,6 +162,57 @@ def run_D(Mx=61, years=2500.0, config=None, device="cuda"):
     He = H_exact(years * SPY, grid.radius)
     errs = _geometry_errors(state.geometry.ice_thickness.cpu().numpy(), He)
     _report(f"test D (oscillating cap, {years:.0f} a, {Mx}x{Mx})",
+            [("geometry", errs)])
+    return errs
+
+
+def _manufactured(ms, Mx, Mz, years, config, device):
+    """Run a manufactured thermo-coupled dome (tests F and G) through
+    ``IceModel.run``: the "pb" SIA on the prescribed enthalpy, no energy
+    model. Returns (the initial thickness as numpy, final state, grid)."""
+    from ..config import Config
+    from ..grid import Grid
+    from ..model.icemodel import IceModel
+    from ..util.timecal import Time
+
+    grid = Grid(Mx=Mx, My=Mx, Lx=750e3, Ly=750e3, Mz=Mz, Lz=3500.0)
+    cfg = Config({"stress_balance.model": "sia",
+                  "stress_balance.sia.flow_law": "pb",
+                  "energy.model": "none"})
+    if config:
+        cfg.update(config)
+    state, surface = ms.setup(grid, cfg, device=device)
+    H0 = state.geometry.ice_thickness.cpu().numpy()
+    model = IceModel(grid=grid, config=cfg, surface=surface, device=device)
+    state, stats = model.run(state, Time(0.0, years * SPY))
+    return H0, state, grid
+
+
+def run_F(Mx=61, Mz=31, years=200.0, config=None, device="cuda"):
+    """Thermo-coupled steady dome (manufactured-solution analog of F)."""
+    from .manufactured import ManufacturedThermoSIA
+
+    He, state, _ = _manufactured(ManufacturedThermoSIA(), Mx, Mz, years,
+                                 config, device)
+    errs = _geometry_errors(state.geometry.ice_thickness.cpu().numpy(), He)
+    _report(f"test F (thermo-coupled dome, {years:.0f} a, {Mx}x{Mx}x{Mz})",
+            [("geometry", errs)])
+    return errs
+
+
+def run_G(Mx=61, Mz=31, years=None, config=None, device="cuda"):
+    """Test F plus a time-periodic wobble; by default one whole period,
+    after which the exact solution is the initial state again."""
+    from .manufactured import ManufacturedThermoSIAPeriodic
+
+    ms = ManufacturedThermoSIAPeriodic()
+    if years is None:
+        years = ms.period / SPY
+    _, state, grid = _manufactured(ms, Mx, Mz, years, config, device)
+    He = ms.thickness_t(torch.tensor(years * SPY, dtype=torch.float64),
+                        torch.as_tensor(grid.radius)).numpy()
+    errs = _geometry_errors(state.geometry.ice_thickness.cpu().numpy(), He)
+    _report(f"test G (periodic thermo dome, {years:.0f} a, {Mx}x{Mx}x{Mz})",
             [("geometry", errs)])
     return errs
 
@@ -197,14 +279,114 @@ def run_L(Mx=61, years=1000.0, config=None, device="cuda"):
     return errs
 
 
+def _column(cfg, Mz, H0, device, **grid_kw):
+    """A 3x3 column grid of ice H0 thick and its energy model, with zero
+    velocities and strain heating: (grid, EC, energy model, state without
+    enthalpy, the SIA3D of zeros, the ice pressure on the levels)."""
+    from ..grid import Grid
+    from ..model.energy import EnergyModel
+    from ..ops.sia3d import SIA3D
+    from ..physics.enthalpy_converter import EnthalpyConverter
+
+    grid = Grid(Mx=3, My=3, Lx=10e3, Ly=10e3, Mz=Mz, Lz=1.15 * H0, **grid_kw)
+    EC = EnthalpyConverter.from_config(cfg)
+    em = EnergyModel(grid=grid, config=cfg, EC=EC)
+    state = _state(np.full(grid.shape2, H0), np.zeros(grid.shape2), device)
+    zeros3 = torch.zeros(grid.shape3, dtype=torch.float64, device=device)
+    zero = torch.zeros((), dtype=torch.float64, device=device)
+    sia3 = SIA3D(u=zeros3, v=zeros3, w=zeros3, strain_heating=zeros3,
+                 max_u=zero, max_v=zero)
+    z = torch.as_tensor(grid.z, dtype=torch.float64, device=device)
+    p = EC.pressure(torch.clamp(state.geometry.ice_thickness[..., None] - z,
+                                min=0.0))
+    return grid, EC, em, state, sia3, p
+
+
+def _conduct(em, state, sia3, Ts, G, dt, nsteps):
+    """``nsteps`` energy steps of ``dt`` under surface temperature Ts and
+    geothermal flux G (the JAX runner's ``lax.scan``): (final enthalpy,
+    the last step's basal melt rate)."""
+    H = state.geometry.ice_thickness
+    T_sfc, Gf = torch.full_like(H, Ts), torch.full_like(H, G)
+    E, melt = state.enthalpy, None
+    for _ in range(nsteps):
+        res = em.step(state.replace(enthalpy=E), sia3, T_sfc, dt,
+                      geothermal_flux=Gf)
+        E, melt = res.enthalpy, res.basal_melt_rate
+    return E, melt
+
+
+def run_K(Mz=41, years=300000.0, config=None, device="cuda"):
+    """Cold conduction column: steady linear profile with slope G/k_i,
+    plus the bedrock thermal layer carrying exactly G."""
+    from ..config import Config
+    from ..model.btu import btu_from_config
+
+    cfg = Config(config or {})
+    k_i = cfg.get_number("constants.ice.thermal_conductivity")
+    H0, G, Ts = 1000.0, 0.02, 233.15
+    grid, EC, em, state, sia3, p = _column(cfg, Mz, H0, device, Mbz=11,
+                                           Lbz=1000.0)
+    state = state.replace(enthalpy=EC.enthalpy(torch.full_like(p, Ts), 0.0, p))
+    E_fin, _ = _conduct(em, state, sia3, Ts, G, years * SPY / 200, 200)
+    zn = np.asarray(grid.z)
+    in_ice = zn <= H0 - 1.0
+    T = EC.temperature(E_fin[1, 1], p[1, 1]).cpu().numpy()
+    T_exact = Ts + G / k_i * (H0 - zn)
+    ice_err = float(np.max(np.abs(T - T_exact)[in_ice]))
+    # bedrock: the steady linear profile carrying exactly G
+    btu = btu_from_config(grid, cfg)
+    k_b = cfg.get_number("energy.bedrock_thermal.conductivity")
+    H = state.geometry.ice_thickness
+    T_top, Gf = torch.full_like(H, 260.0), torch.full_like(H, G)
+    bed_T = btu.init_temperature(T_top, Gf)
+    for _ in range(200):
+        bed_T, flux = btu.step(bed_T, T_top, Gf, 2000.0 * SPY)
+    flux_err = abs(float(flux[1, 1]) - G)
+    dT_err = abs(float(bed_T[1, 1, 0] - bed_T[1, 1, -1]) - G * 1000.0 / k_b)
+    errs = {"maxT_ice": ice_err, "bed_flux_err": flux_err,
+            "bed_dT_err": dT_err}
+    _report(f"test K (cold two-layer column, {years:.0f} a, Mz={Mz})",
+            [("temp", errs)])
+    return errs
+
+
+def run_O(Mz=41, years=300000.0, config=None, device="cuda"):
+    """Warm-based conduction column: steady basal melt = flux imbalance
+    over rho_i L."""
+    from ..config import Config
+
+    cfg = Config(config or {})
+    k_i = cfg.get_number("constants.ice.thermal_conductivity")
+    rho_i = cfg.get_number("constants.ice.density")
+    Lf = cfg.get_number("constants.fresh_water.latent_heat_of_fusion")
+    H0, G = 1000.0, 0.042
+    grid, EC, em, state, sia3, p = _column(cfg, Mz, H0, device)
+    Tm_base = float(EC.melting_temperature(EC.pressure(H0)))
+    Ts = Tm_base - 5.0
+    # start temperate
+    state = state.replace(enthalpy=EC.enthalpy(EC.melting_temperature(p),
+                                               0.0, p))
+    _, melt = _conduct(em, state, sia3, Ts, G, years * SPY / 200, 200)
+    M_exact = (G - k_i * (Tm_base - Ts) / H0) / (rho_i * Lf)
+    M = float(melt[1, 1])
+    errs = {"bmelt": M * SPY, "bmelt_exact": M_exact * SPY,
+            "prcnt_err": 100.0 * abs(M - M_exact) / M_exact}
+    _report(f"test O (steady basal melt, {years:.0f} a, Mz={Mz})",
+            [("bmelt", errs)])
+    return errs
+
+
 def run_test(letter, *, Mx=None, My=None, Mz=None, years=None, config=None,
              device="cuda"):
-    """Dispatch a verification run by pismv letter (A, D, H, L). Returns the
-    error dict (also printed as a pismv-style table). ``My`` and ``Mz`` are
-    accepted as the JAX package's runner accepts them; the ported letters
-    run on square 2D grids, so they use neither."""
+    """Dispatch a verification run by pismv letter (A, D, E, F, G, H, K, L,
+    O). Returns the error dict (also printed as a pismv-style table). The
+    runs are on square grids, so ``My`` is accepted, as the JAX package's
+    runner accepts it, and unused; ``Mz`` sets F, G, K and O's levels and
+    ``Mx`` is unused by K and O."""
     letter = str(letter).upper()
-    fn = {"A": run_A, "D": run_D, "H": run_H, "L": run_L}.get(letter)
+    fn = {"A": run_A, "D": run_D, "E": run_E, "F": run_F, "G": run_G,
+          "H": run_H, "K": run_K, "L": run_L, "O": run_O}.get(letter)
     if fn is None:
         raise NotImplementedError(
             f"verification test {letter!r} is not implemented in "
@@ -213,6 +395,8 @@ def run_test(letter, *, Mx=None, My=None, Mz=None, years=None, config=None,
     kw = {"config": config, "device": device}
     if years is not None:
         kw["years"] = years
-    if Mx is not None:
+    if Mx is not None and letter not in "KO":
         kw["Mx"] = Mx
+    if Mz is not None and letter in "FGKO":
+        kw["Mz"] = Mz
     return fn(**kw)

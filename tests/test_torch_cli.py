@@ -244,26 +244,96 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "B", "-Mx", "11", "-ocean", "th"],
     ["-test", "B", "-Mx", "11", "-sea_level", "constant,delta_sl_2d"],
     ["-inverse"], ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
-    ["-test", "E"], ["-test", "F"], ["-test", "G"],
     ["-test", "I", "-config", "stress_balance.ssa.method=fem"],
     ["-test", "J", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
-    ["-test", "K"],
     ["-test", "M", "-config", "stress_balance.ssa.fd.krylov_method=cg"],
     ["-test", "N", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
-    ["-test", "O"], ["-test", "P"],
+    ["-test", "P"],
     ["-test", "V", "-config", "stress_balance.ssa.fd.line_block=64"],
     ["-test", "B", "-Mx", "11", "-config", "grid.Nx=2",
      "-config", "grid.Ny=2"],
     ["-test", "B", "-Mx", "11", "-o_size", "big"],
     ["-test", "B", "-Mx", "11", "-extra_file", "e.nc", "-extra_times", "1",
      "-extra_vars", "temppa"],
-    ["-eisII", "E"],
+    ["-test", "B", "-Mx", "11", "-stress_balance", "ssa"],
 ])
 def test_unported_options_raise(tmp_path, argv):
     with pytest.raises(NotImplementedError):
         t_cli.main(argv + ["-platform", "cpu", "-y", "1", "-verbose", "0",
                            "-o", str(tmp_path / "o.nc"),
                            "-o_format", "netcdf3"])
+
+
+SLIDING = [["-eisII", "G", "-Mx", "21", "-Mz", "11", "-y", "300"],
+           ["-eisII", "L", "-Mx", "21", "-Mz", "11", "-y", "300"],
+           ["-eisII", "E", "-i", "{a}", "-y", "30"]]
+
+
+@pytest.mark.parametrize("argv", SLIDING, ids=["G", "L", "E-restart"])
+def test_cli_sliding_experiments_match(tmp_path, capsys, argv):
+    """EISMINT II G (Weertman sliding from zero ice), L (the mound bed with
+    sliding, the bed smoother on) and E restarted from an A state (the
+    sector's sliding map passed to the model), through both packages'
+    ``main``: equal steps and dt-limit hits, state files within 1e-8 of
+    max (as the A route), the sliding velocity carried as u_ssa/v_ssa."""
+    a = tmp_path / "a.nc"
+    if "{a}" in argv:
+        assert t_cli.main(["-eisII", "A", "-Mx", "21", "-Mz", "11", "-y",
+                           "100", "-o", str(a), "-o_format", "netcdf3",
+                           "-verbose", "0", "-platform", "cpu"]) == 0
+    capsys.readouterr()
+    out = {}
+    for pkg, main, extra in (("jax", j_cli.main, []),
+                             ("torch", t_cli.main, ["-platform", "cpu"])):
+        path = tmp_path / f"{pkg}.nc"
+        assert main([x.format(a=a) for x in argv]
+                    + ["-o", str(path), "-o_format", "netcdf3", "-verbose",
+                       "1", "-config", "time_stepping.count_time_steps=true"]
+                    + extra) == 0
+        out[pkg] = (path, _count(capsys))
+    assert out["torch"][1] == out["jax"][1]
+    _compare_files(out["torch"][0], out["jax"][0], 1e-8)
+    with File(str(out["torch"][0]), "r") as f:
+        assert np.abs(f.read("u_ssa")).max() > 0.0
+
+
+@pytest.mark.parametrize("argv", [["-test", "E", "-Mx", "21", "-y", "100"],
+                                  ["-test", "G", "-Mx", "21", "-Mz", "11",
+                                   "-y", "100"],
+                                  ["-test", "K", "-Mz", "11"],
+                                  ["-test", "O", "-Mz", "11"]],
+                         ids=["E", "G", "K", "O"])
+def test_cli_verification_letters_match(capsys, monkeypatch, argv):
+    """``-test E, G, K, O`` through both packages' ``main``: the report
+    lines equal but for the digits, the numbers within 1e-6 relative (or
+    1e-9 absolute, for errors at rounding level). The JAX package's K
+    loop runs its BTU step under ``jax.jit`` (one compile; eager, each of
+    its 200 calls takes ~0.3 s on the CPU)."""
+    if argv[1] == "K":
+        import jax
+        from pism_tpu.model.btu import BTUFull
+        real = BTUFull.step
+        jitted = {}
+
+        def step(self, *a):
+            if id(self) not in jitted:
+                jitted[id(self)] = (self, jax.jit(lambda *x: real(self, *x)))
+            return jitted[id(self)][1](*a)
+        monkeypatch.setattr(BTUFull, "step", step)
+    capsys.readouterr()
+    text = {}
+    for pkg, main, extra in (("jax", j_cli.main, []),
+                             ("torch", t_cli.main, ["-platform", "cpu"])):
+        assert main(argv + extra) == 0
+        text[pkg] = capsys.readouterr().out.strip().splitlines()
+    num = re.compile(r"[-+]?\d+\.\d+")
+    lines = [(a, b) for a, b in zip(text["jax"], text["torch"])]
+    assert len(text["jax"]) == len(text["torch"]) >= 4
+    assert text["torch"][0].startswith(f"NUMERICAL ERRORS in test {argv[1]} ")
+    for a, b in lines:
+        assert num.sub("#", b) == num.sub("#", a)
+        for x, y in zip(num.findall(a), num.findall(b)):
+            assert float(y) == pytest.approx(float(x), rel=1e-6, abs=1e-9)
 
 
 def test_cli_defaults_to_the_card(tmp_path):

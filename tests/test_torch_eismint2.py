@@ -1,7 +1,10 @@
-"""EISMINT II experiment A, pism_tpu_torch against pism_tpu: the setups,
-and the SIA-only thermomechanical chain from zero ice through
-``IceModel.step_once``, 21x21x21 in float64 for 5000 model years (125
-steps, 53 of them bound by the SIA diffusivity limit).
+"""EISMINT II, pism_tpu_torch against pism_tpu: the setups of experiments
+A-L (E's sliding map, the trough and mound beds of I-L), the SIA-only
+thermomechanical chain of A from zero ice through ``IceModel.step_once``,
+21x21x21 in float64 for 5000 model years (125 steps, 53 of them bound by
+the SIA diffusivity limit), and the chains of G, H, E (Weertman sliding)
+and I (the trough bed) from zero ice, 21x21x11 for 500 a: equal steps and
+hits, H and the sliding speed within 1e-10 of their max.
 
 Both runs use the JAX setup's config with the bed smoother off
 (``stress_balance.sia.bed_smoother.range = 0``, the port's path B): on the
@@ -31,8 +34,8 @@ from pism_tpu import state as JS  # noqa: E402
 from pism_tpu.model.icemodel import IceModel as JIceModel  # noqa: E402
 from pism_tpu.verification import eismint2 as j_e2  # noqa: E402
 from pism_tpu_torch import setups  # noqa: E402
-from pism_tpu_torch.convert import (state_from_numpy, state_to_numpy,  # noqa: E402
-                                    surface_to_numpy)
+from pism_tpu_torch.convert import (setup_to_numpy, state_from_numpy,  # noqa: E402
+                                    state_to_numpy, surface_to_numpy)
 from pism_tpu_torch.verification import eismint2 as t_e2  # noqa: E402
 
 SPY = 3.15569259747e7
@@ -73,10 +76,10 @@ def runs():
     return out
 
 
-@pytest.mark.parametrize("experiment", ["A", "B", "C", "D", "F"])
+@pytest.mark.parametrize("experiment", list("ABCDEFGHIJKL"))
 def test_setups_equal(experiment):
-    """Grid, config, initial state and climate (at t = 0 and on a nonzero
-    geometry) of each ported experiment."""
+    """Grid, config, initial state (the beds of I-L), E's sliding map and
+    the climate (at t = 0 and on a nonzero geometry) of each experiment."""
     je = j_e2.setup(experiment, Mx=MX, Mz=MZ)
     te = t_e2.setup(experiment, Mx=MX, Mz=MZ, device="cpu")
     for name in ("x", "y", "z", "dx", "dy", "shape3"):
@@ -84,7 +87,12 @@ def test_setups_equal(experiment):
                                       getattr(je.grid, name))
     assert te.config.to_dict() == je.config.to_dict()
     assert te.geothermal == je.geothermal
-    a, b = jax_to_numpy(je.state), state_to_numpy(te.state)
+    assert (te.sliding_mu is None) == (je.sliding_mu is None) \
+        == (experiment != "E")
+    a, b = jax_to_numpy(je.state), setup_to_numpy(te)
+    if je.sliding_mu is not None:
+        a["sliding_mu"] = np.asarray(je.sliding_mu)
+        assert b["sliding_mu"].max() > 0.0
     assert sorted(a) == sorted(b)
     for k in a:
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
@@ -100,9 +108,28 @@ def test_setups_equal(experiment):
 
 
 @pytest.mark.parametrize("experiment", ["E", "G", "H", "I", "J", "K", "L"])
-def test_unported_experiments_raise(experiment):
-    with pytest.raises(NotImplementedError):
-        t_e2.setup(experiment, Mx=MX, Mz=MZ, device="cpu")
+def test_experiment_models_build(experiment):
+    """``setups.eismint2_model`` for the sliding and non-flat experiments:
+    the Weertman branch where the experiment slides, E's sliding map on
+    the model's device, and the bed smoother off on the flat beds only
+    (I-L keep the JAX setup's 5 km range: their beds make theta differ
+    from 1)."""
+    model, state, grid = setups.eismint2_model(
+        "float64", Mx=MX, Mz=MZ, device="cpu", experiment=experiment)
+    params = t_e2.EXPERIMENTS[experiment]
+    sliding = params.get("sliding") or params.get("sliding_sector")
+    sb = model.stress_balance
+    assert sb.model == ("weertman_sliding+sia" if sliding else "sia")
+    assert (sb.sliding_mu is not None) == (experiment == "E")
+    rng = model.config.get_number("stress_balance.sia.bed_smoother.range")
+    assert rng == (5.0e3 if "bed" in params else 0.0)
+    assert (state.geometry.bed_elevation.abs().max() > 0) == ("bed" in params)
+    if "bed" in params:
+        from pism_tpu_torch.state import new_geometry
+        bed = state.geometry.bed_elevation
+        icy = new_geometry(torch.full_like(bed, 2000.0), bed)
+        _, th_e, th_n = sb._apply_bed_smoother(icy)
+        assert float((th_e - 1.0).abs().max()) > 1e-3
 
 
 def test_expected_a_is_the_reference():
@@ -147,3 +174,61 @@ def test_bed_smoother_is_identity_on_the_flat_bed():
         out.append((state_to_numpy(ts)["ice_thickness"], st.nsteps))
     assert out[0][1] == out[1][1]
     np.testing.assert_array_equal(out[0][0], out[1][0])
+
+
+# -- the sliding and non-flat experiments through both packages ------------
+
+CHAIN_YEARS = 500.0
+
+
+def _chain_pair(experiment):
+    """One experiment from zero ice, 21x21x11 float64, CHAIN_YEARS through
+    both packages' ``step_once``: the JAX setup's config with
+    ``EISMINT2_CFG`` on the flat beds (as ``setups.eismint2_model``), the
+    JAX package's plain SIA path against the port's ``auto`` route (its
+    plain path on the CPU)."""
+    es = j_e2.setup(experiment, Mx=MX, Mz=11, Lz=5000.0)
+    flat = "bed" not in j_e2.EXPERIMENTS[experiment]
+    es.config.update({"runtime.float_dtype": "float64",
+                      **(setups.EISMINT2_CFG if flat else {})})
+    jm = JIceModel(grid=es.grid, config=es.config, surface=es.surface,
+                   sliding_mu=es.sliding_mu)
+    js, tj, sj = jm.step_once(es.state, 0.0, CHAIN_YEARS * SPY)
+    tm, ts0, _ = setups.eismint2_model("float64", Mx=MX, Mz=11, device="cpu",
+                                       experiment=experiment)
+    np.testing.assert_array_equal(
+        state_to_numpy(ts0)["bed_elevation"],
+        np.asarray(es.state.geometry.bed_elevation))
+    ts, tt, st = tm.step_once(ts0, 0.0, CHAIN_YEARS * SPY)
+    return (jax_to_numpy(js), float(tj), sj), (state_to_numpy(ts), tt, st)
+
+
+@pytest.fixture(scope="module")
+def chains():
+    return {x: _chain_pair(x) for x in "GHEI"}
+
+
+@pytest.mark.parametrize("experiment", list("GHEI"))
+def test_experiment_chains_match(chains, experiment):
+    """Equal steps and dt-limit hits, thickness within 1e-10 of max H; the
+    sliding velocity (carried in the state as u_ssa/v_ssa by the sliding
+    experiments) within 1e-10 of its max."""
+    (a, tj, sj), (b, tt, st) = chains[experiment]
+    assert st.nsteps == int(sj.nsteps) > 0
+    assert st.limit_hits_dict() == {k: int(c) for k, c in
+                                    sj.limit_hits_dict().items() if int(c)}
+    assert tt == pytest.approx(tj, abs=1e-6)
+    Ha = a["ice_thickness"]
+    assert Ha.max() > 100.0
+    assert np.abs(b["ice_thickness"] - Ha).max() <= 1e-10 * Ha.max()
+    assert ("u_ssa" in a) == ("u_ssa" in b) == (experiment != "I")
+    if experiment != "I":
+        sa = np.hypot(a["u_ssa"], a["v_ssa"])
+        sb_ = np.hypot(b["u_ssa"], b["v_ssa"])
+        assert np.abs(sb_ - sa).max() <= 1e-10 * max(sa.max(), 1e-300)
+        if experiment == "G":
+            assert sa.max() * SPY > 1.0
+        if experiment == "E":
+            mu = t_e2.sliding_mu_map_E(t_e2.setup("E", Mx=MX, Mz=11,
+                                                  device="cpu").grid)
+            assert (sb_[mu == 0] == 0).all() and sb_.max() > 0

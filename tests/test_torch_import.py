@@ -134,7 +134,7 @@ def test_config_lookups_match():
 @pytest.mark.parametrize("override", [
     {"stress_balance.ssa.fd.line_pcr_dtype": "bf16"},
     {"stress_balance.ssa.flow_law": "hooke"},
-    {"stress_balance.model": "weertman_sliding+sia"},
+    {"stress_balance.model": "ssa"},
     {"stress_balance.ssa.fd.line_block": 64},
     {"stress_balance.ssa.fd.preconditioner": "linemg"},
     {"stress_balance.ssa.fd.krylov_method": "cg"},
@@ -194,7 +194,8 @@ def test_line_pcr_kernels_config_builds():
 def _entry_points():
     from pism_tpu_torch import convert, setups
     from pism_tpu_torch.model.icemodel import IceModel
-    from pism_tpu_torch.verification import eismint2, mismip, runner
+    from pism_tpu_torch.verification import (eismint2, manufactured, mismip,
+                                             runner)
 
     return {"setups.hybrid_greenland_model": setups.hybrid_greenland_model,
             "setups.eismint2_model": setups.eismint2_model,
@@ -208,6 +209,12 @@ def _entry_points():
             "verification.mismip.setup_3d": mismip.setup_3d,
             "verification.eismint2.setup": eismint2.setup,
             "verification.runner.run_test": runner.run_test,
+            **{f"verification.runner.run_{x}": getattr(runner, f"run_{x}")
+               for x in "EFGKO"},
+            "verification.manufactured.ManufacturedThermoSIA.setup":
+                manufactured.ManufacturedThermoSIA.setup,
+            "verification.manufactured.ManufacturedThermoSIAPeriodic.setup":
+                manufactured.ManufacturedThermoSIAPeriodic.setup,
             "convert.state_from_numpy": convert.state_from_numpy,
             "IceModel": IceModel}
 

@@ -1,11 +1,13 @@
-"""The isothermal verification path (path C), pism_tpu_torch against
-pism_tpu: the exact solutions (Halfar B/C, and tests A, D, H, L of
+"""The SIA verification path (path C), pism_tpu_torch against pism_tpu:
+the exact solutions (Halfar B/C, and tests A, D, E, H, L of
 ``exact_steady``), Halfar test B through both packages' ``step_once``, and
-the runner letters A, D, H and L.
+the runner letters A, D, E, F, G, H, K, L and O (their report lines equal
+but for the digits).
 
 Tolerances. The exact solutions are numpy in both packages (test D's
-compensatory accumulation is automatic differentiation, ``torch.func``
-against ``jax.grad``): equal to 1e-12 relative. The float64 Halfar run takes
+compensatory accumulation, and test E's sliding flux divergence, are
+automatic differentiation, ``torch.func`` against ``jax.grad``): equal to
+1e-12 relative. The float64 Halfar run takes
 the plain SIA path in both packages: equal steps and dt-limit hits, H within
 1e-10 of max H (the SIA is a diffusion, so rounding differences do not
 grow). The float32 run takes the fused kernel route in both packages
@@ -14,7 +16,8 @@ version; see ``_HostGlen`` for how the JAX package is made to reach its
 kernel inside its jitted step loop): equal steps, H within 1e-5 of max H, about 80 float32 ulps of the
 dome after 30 steps. The runner letters run the plain path (Haseloff
 gradients, bed smoother) in float64: H, and for test H the bed, within
-1e-10 of max H.
+1e-10 of max H; their error tables within 1e-6 relative (1e-9 absolute
+for K's errors, which are at rounding level).
 """
 
 import dataclasses
@@ -85,6 +88,21 @@ def test_D_compensatory_accumulation_matches():
         assert _rel(got, np.asarray(jM(t, jnp.asarray(r)))) <= 1e-12
 
 
+def test_E_sliding_cap_matches():
+    """Test E's sliding velocity and compensatory accumulation (the
+    divergence of H u_b by automatic differentiation) on the runner's
+    61x61 grid, the origin and the sector's edges among its points."""
+    jE, tE = j_es.test_E(), t_es.test_E()
+    assert dataclasses.asdict(tE) == dataclasses.asdict(jE)
+    x = np.linspace(-900e3, 900e3, 61)
+    X, Y = np.meshgrid(x, x)
+    for a, b in zip(tE.sliding_velocity(X, Y), jE.sliding_velocity(X, Y)):
+        assert _rel(a, b) <= 1e-12 and np.abs(b).max() > 0
+    M = jE.accumulation(X, Y)
+    assert _rel(tE.accumulation(X, Y), M) <= 1e-12
+    np.testing.assert_array_equal(tE.thickness(RADII), jE.thickness(RADII))
+
+
 class _HostGlen(JIsothermalGlen):
     """The JAX package's isothermal Glen law with its softness as a host
     constant of the field dtype. The JAX kernel route reads A as
@@ -152,26 +170,70 @@ def test_halfar_B_chain_matches(Mx, dtype, years, pallas, tol):
     assert errs == j_halfar.error_norms(Ht, sol.thickness(tt, grid.radius))
 
 
-def _capture(monkeypatch, module):
-    """Record the state each runner letter's ``_run_sia`` returns."""
+def _capture(monkeypatch, cls):
+    """Record (state, stats) of each ``step_once`` and ``run`` of the
+    IceModel class ``cls``: the runner letters' final states."""
     out = []
-    real = module._run_sia
-
-    def run(*a, **k):
-        state, stats = real(*a, **k)
-        out.append((state, stats))
-        return state, stats
-    monkeypatch.setattr(module, "_run_sia", run)
+    for name in ("step_once", "run"):
+        def wrap(self, *a, _real=getattr(cls, name), **k):
+            res = _real(self, *a, **k)
+            out.append((res[0], res[-1]))
+            return res
+        monkeypatch.setattr(cls, name, wrap)
     return out
 
 
-@pytest.mark.parametrize("letter,years", [("A", 100.0), ("D", 100.0),
-                                          ("H", 100.0), ("L", 100.0)])
-def test_runner_letters_match(letter, years, monkeypatch):
-    jout, tout = _capture(monkeypatch, j_runner), _capture(monkeypatch, t_runner)
-    je = j_runner.run_test(letter, Mx=21, years=years)
-    te = t_runner.run_test(letter, Mx=21, years=years, device="cpu")
-    (js, jst), (ts, tst) = jout[0], tout[0]
+def _jit_jax_btu(monkeypatch):
+    """The JAX package's BTUFull.step under ``jax.jit``, one compile per
+    unit: its runner's K loop calls it eagerly 200 times, ~0.3 s a call
+    on the CPU."""
+    import jax
+    from pism_tpu.model.btu import BTUFull
+
+    real, cache = BTUFull.step, {}
+
+    def step(self, *a):
+        if id(self) not in cache:
+            cache[id(self)] = (self, jax.jit(lambda *x: real(self, *x)))
+        return cache[id(self)][1](*a)
+    monkeypatch.setattr(BTUFull, "step", step)
+
+
+#: runner letters with their sizes: the isothermal letters and E at 21x21
+#: for 100 a, F and G at 21x21x11 for 100 a, K and O on 11 levels at the
+#: JAX runner's 300,000 a
+LETTERS = [("A", {"Mx": 21, "years": 100.0}), ("D", {"Mx": 21, "years": 100.0}),
+           ("H", {"Mx": 21, "years": 100.0}), ("L", {"Mx": 21, "years": 100.0}),
+           ("E", {"Mx": 21, "years": 100.0}),
+           ("F", {"Mx": 21, "Mz": 11, "years": 100.0}),
+           ("G", {"Mx": 21, "Mz": 11, "years": 100.0}),
+           ("K", {"Mz": 11}), ("O", {"Mz": 11})]
+
+
+@pytest.mark.parametrize("letter,kw", LETTERS, ids=[x for x, _ in LETTERS])
+def test_runner_letters_match(letter, kw, monkeypatch, capsys):
+    """Equal error tables (1e-6 relative) and report lines (but for the
+    digits); where the letter runs the model, equal steps and H (for test
+    H the bed too) within 1e-10 of max H."""
+    import re
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    jout, tout = _capture(monkeypatch, JIceModel), _capture(monkeypatch,
+                                                           IceModel)
+    if letter == "K":
+        _jit_jax_btu(monkeypatch)
+    je = j_runner.run_test(letter, **kw)
+    jtext = capsys.readouterr().out
+    te = t_runner.run_test(letter, device="cpu", **kw)
+    ttext = capsys.readouterr().out
+    digits = re.compile(r"[-+]?\d+\.\d+(e[-+]?\d+)?")
+    assert digits.sub("#", ttext) == digits.sub("#", jtext)
+    assert ttext.startswith(f"NUMERICAL ERRORS in test {letter} ")
+    assert te == pytest.approx(je, rel=1e-6, abs=1e-9)
+    assert len(tout) == (0 if letter in "KO" else 1)
+    if not tout:
+        return
+    (js, jst), (ts, tst) = jout[-1], tout[0]
     assert tst.nsteps == int(jst.nsteps) > 0
     Hj = np.asarray(js.geometry.ice_thickness)
     Ht = ts.geometry.ice_thickness.numpy()
@@ -180,11 +242,12 @@ def test_runner_letters_match(letter, years, monkeypatch):
         bj = np.asarray(js.geometry.bed_elevation)
         bt = ts.geometry.bed_elevation.numpy()
         assert np.abs(bt - bj).max() <= 1e-10 * Hj.max()
-    assert te == pytest.approx(je, rel=1e-6, abs=1e-9)
 
 
 def test_unported_letters_raise():
-    for letter in ("B", "E", "F", "K", "P"):
+    """B and C are ``setups.halfar_model``, and P (routing hydrology) is
+    not ported."""
+    for letter in ("B", "P"):
         with pytest.raises(NotImplementedError):
             t_runner.run_test(letter, Mx=21, years=1.0, device="cpu")
     with pytest.raises(NotImplementedError):
