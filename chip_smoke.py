@@ -48,13 +48,19 @@ compares the two.
 
 Every path below is driven through ``IceModel.step_once`` with the kernels'
 launch counters set to 0 just before it and read just after:
-  phase 2: the default config (``line_pcr_impl = xla``, plain torch PCR),
-    20 km float32 for 2 model years (cut from 10 to keep the script's time);
+  phase 2: the default config (``line_pcr_impl = xla``, which on the card
+    takes the PCR kernels, K2/K2b launched), 20 km float32 for 2 model
+    years (cut from 10 to keep the script's time), then the same 2 a with
+    the plain torch PCR (``make_line_preconditioner(..., _plain_pcr=True)``,
+    the route the default took on the card before; no PCR launch): equal
+    steps and dt-limit hits, the volume within 2e-4, Newton sweeps and
+    Krylov iterations within 10%, ms/step of both;
   phase 2b: path A (``line_pcr_impl = pallas_sublane``), 20 km for 10 model
     years as two calls, 2 a then 8 a; after 2 a its steps and dt-limit hits
     equal phase 2's and the ice volume is within 2e-4. Then one
-    preconditioner application, the kernels against ``xla``, on its state,
-    the Newton matvec on the chain's own linearization against its plain
+    preconditioner application of the default route (one factor and one
+    apply launch per layout) against the plain PCR on its state, the
+    Newton matvec on the chain's own linearization against its plain
     version and the replaced composition, one Krylov iteration profiled
     with each preconditioner route, the Krylov iterations of one step
     profiled, one profiled step and a timed breakdown of 1 a;
@@ -220,11 +226,11 @@ launch counters set to 0 just before it and read just after:
     of the JAX command line's (N: 6 sweeps), K1 on every non-periodic
     operator (M, the multigrid's coarse levels of J), the padded-block
     route on the periodic grids (I, J, V, N) and the drag tangent in I and
-    N; then N and J once more with each BiCGStab call profiled (device
-    ops, device and host time a Krylov iteration); (c) I and N with
-    ``line_pcr_impl = pallas_sublane``: the PCR kernels
-    launch, the Newton and Krylov counts equal (b)'s, velocities within
-    1e-12.
+    N, and the PCR kernels in I, V, N, M (the default route); then N and
+    J once more with each BiCGStab call profiled (device ops, device and
+    host time a Krylov iteration); (c) I and N with the plain PCR
+    (``_plain_pcr``): no PCR launch, the Newton and Krylov counts equal
+    (b)'s, velocities within 1e-12, the walls of both routes.
   phase 15: the rest of the SIA verification suite: (a) EISMINT II at
     61x61x61 float32 through ``setups.eismint2_model``: G and H (Weertman
     sliding; H only on temperate bases) from zero ice and A, 3,000 a each,
@@ -240,6 +246,25 @@ launch counters set to 0 just before it and read just after:
     CPU: equal steps and hits, volumes within 1e-10; (d) ``-test E, F, G,
     K, O`` through ``cli.main`` at the JAX command line's defaults, report
     lines and wall, the error numbers within 1e-6 of the port's CPU run.
+  phase 16: subglacial hydrology, frontal melt and test P (no kernel of
+    their own): (a) ``-test P`` through ``cli.main`` at the JAX defaults
+    (51x51 float64, 2.5 a in weekly steps): the report, the routing
+    substeps a week, host syncs, wall, no launch, W within the JAX test's
+    bounds (median relative error < 0.15, mean < 0.25, the divide's W
+    below twice the selected max); (b) the 20 km chain (141x76x41 float32,
+    ``setups.hybrid_greenland_model(..., hydrology="routing")``: the
+    PDD's runoff routed from a saturated till, ``add_transportable_water``)
+    from the synthetic initial state, 1 a then 1 a timed: ms/step, the
+    hydrology's ms and share of the step (timed between synchronisations),
+    substeps, host syncs, Newton, Krylov, K1, Newton-matvec and K2/K2b
+    launches per step, max W and the volume; (c) the distributed model,
+    1 a, the same and the range of P / P_overburden; (d) the steady model
+    (its discharge every 0.25 a) with the discharge-routing frontal melt
+    on floating fronts and no thickness calving, 1 a: sweeps per solve,
+    the frontal-melt retreat volume (> 0); (e) 100 km float64 routing,
+    1 a, card against CPU: equal steps, hits and binding limits, W after
+    the first step within 1e-10 of max W, volume and total water within
+    2e-4.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -1125,11 +1150,31 @@ def run_hybrid(dev, km, segments, label, extra_cfg, launched, idle):
     return model, state, t, out, counts
 
 
+#: the line preconditioner's routes on the card: the PCR kernels (either
+#: line_pcr_impl) and the plain torch PCR, reachable there only through
+#: make_line_preconditioner's test-only _plain_pcr
+PCR_ROUTES = (("kernels", {}), ("plain", {"_plain_pcr": True}))
+
+
+def plain_pcr():
+    """Context: every line preconditioner built inside takes the plain
+    PCR (``make_line_preconditioner(..., _plain_pcr=True)``), the route the
+    default config took on the card before it went through the PCR
+    kernels; for comparisons only."""
+    import functools
+    from pism_tpu_torch.ops import ssa as ssa_ops
+    return _patched([(ssa_ops, "make_line_preconditioner", "plain PCR")],
+                    lambda _, orig: functools.partial(orig, _plain_pcr=True))
+
+
 def check_preconditioner(model, state, t):
-    """One preconditioner application on the chain's own nuH and beta:
-    the PCR kernels (pallas_sublane) against the plain torch PCR (xla)."""
+    """One preconditioner application on the chain's own nuH and beta: the
+    default route (``line_pcr_impl = xla``, the PCR kernels on the card,
+    a factor launch per layout at the build and an apply launch per layout
+    per application) against the plain torch PCR (``_plain_pcr``)."""
     import torch
     from pism_tpu_torch.ops import ssa as ssa_ops
+    from pism_tpu_torch.ops.kernels import pcr
 
     tau_c = model.yield_stress.compute(state, t=t)
     P = model.ssa.build_problem(state, tau_c)
@@ -1138,25 +1183,39 @@ def check_preconditioner(model, state, t):
     g = torch.Generator(device=state.u_ssa.device).manual_seed(7)
     r = tuple(torch.randn(u.shape, generator=g, device=u.device, dtype=u.dtype)
               for _ in range(2))
-    pre = {impl: ssa_ops.make_line_preconditioner(
-        nuH, beta, P["bc_mask"], model.grid.dx, model.grid.dy, model.sh, impl)
-        for impl in ("xla", "pallas_sublane")}
-    got, ref = pre["pallas_sublane"](r), pre["xla"](r)
+
+    def n_launched():
+        return (pcr.FACTOR_LAUNCHES, pcr.SUB_FACTOR_LAUNCHES, pcr.LAUNCHES,
+                pcr.SUB_LAUNCHES)
+
+    n0 = n_launched()
+    pre = {route: ssa_ops.make_line_preconditioner(
+        nuH, beta, P["bc_mask"], model.grid.dx, model.grid.dy, model.sh,
+        "xla", **kw) for route, kw in PCR_ROUTES}
+    got = pre["kernels"](r)
     torch.cuda.synchronize()
+    launched = [b - a for a, b in zip(n0, n_launched())]
+    ref = pre["plain"](r)
+    torch.cuda.synchronize()
+    if launched != [1, 1, 1, 1] or [b - a for a, b in zip(
+            n0, n_launched())] != [1, 1, 1, 1]:
+        raise AssertionError(f"preconditioner: the default route launched "
+                             f"{launched} PCR factors/applies, not one each")
     err = max(_rel_err(a, b) for a, b in zip(got, ref))
     if not err <= 1e-5:
-        raise AssertionError(f"preconditioner: pallas_sublane against xla "
-                             f"relative error {err:.3e} > 1e-5")
+        raise AssertionError(f"preconditioner: the default route against the "
+                             f"plain PCR relative error {err:.3e} > 1e-5")
     line = []
-    for impl in ("xla", "pallas_sublane"):
-        ms = _time_ms(lambda: pre[impl](r), 50)
-        dev_us, ops = _device_profile(lambda: pre[impl](r), 20)
-        line.append(f"{impl} {ms:.4f} ms, device {dev_us:.2f} us in "
+    for route, _ in PCR_ROUTES:
+        ms = _time_ms(lambda: pre[route](r), 50)
+        dev_us, ops = _device_profile(lambda: pre[route](r), 20)
+        line.append(f"{route} {ms:.4f} ms, device {dev_us:.2f} us in "
                     f"{ops:.0f} ops" if dev_us is not None else
-                    f"{impl} {ms:.4f} ms, device not measured")
+                    f"{route} {ms:.4f} ms, device not measured")
     print(f"phase2b: preconditioner on the 20 km state at the end of the run, "
-          f"pallas_sublane vs xla rel_err {err:.3e} (tol 1e-5); "
-          + "; ".join(line))
+          f"the default route (line_pcr_impl = xla: one factor and one apply "
+          f"launch per layout) against the plain PCR rel_err {err:.3e} "
+          "(tol 1e-5); " + "; ".join(line))
 
 
 def profile_steps(model, state, t, years, label):
@@ -1304,9 +1363,9 @@ def profile_krylov(model, state, t):
 
     b = P["free"]((P["bx"], P["by"]))
     x0 = (torch.zeros_like(b[0]), torch.zeros_like(b[1]))
-    for impl in ("xla", "pallas_sublane"):
+    for impl, kw in PCR_ROUTES:
         pre = ssa_ops.make_line_preconditioner(
-            nuH, beta, bc, model.grid.dx, model.grid.dy, model.sh, impl)
+            nuH, beta, bc, model.grid.dx, model.grid.dy, model.sh, "xla", **kw)
         res = {}
         for k in (1, 21):
             ssa_ops.bicgstab_solve(matvec, b, x0, pre, rtol=0.0, max_iter=k)
@@ -2909,10 +2968,9 @@ def phase10c_mismip_periodic(dev, pcr):
     counts = read_counts()
     _mismip_check("phase10c", state, grid, torch.float32)
     _check_launches("phase10c", counts,
-                    ("ssa_matvec_halo", "ssa_newton_matvec_halo"),
+                    ("ssa_matvec_halo", "ssa_newton_matvec_halo") + pcr,
                     ("ssa_matvec", "ssa_newton_matvec", "ssa_matvec_jvp",
-                     "ssa_matvec_halo_jvp", "sia_flux_thermo", "sia_flux")
-                    + pcr)
+                     "ssa_matvec_halo_jvp", "sia_flux_thermo", "sia_flux"))
     _mismip_report("phase10c periodic", grid, y32, stats, wall, counts, state)
     print(f"phase10c: grounding line (centre row) "
           f"{mismip.grounding_line_position(state.geometry, grid) / 1e3:.1f} "
@@ -4302,7 +4360,7 @@ def _solve_counts(solves):
 
 def phase14b_tests(dev, smi):
     """The five tests on the card against their CPU runs and the JAX
-    command line's report; returns ({letter: (solves, counts)}, the
+    command line's report; returns ({letter: (solves, counts, wall)}, the
     phase's launch counts summed over the five)."""
     import torch
 
@@ -4345,9 +4403,13 @@ def phase14b_tests(dev, smi):
                     f"phase14b: -test {letter}: {key} {got[key]} against the "
                     f"JAX command line's {ref}")
         on, off = SSA_TEST_KERNELS[letter]
-        _check_launches(f"phase14b -test {letter}", counts, on,
-                        off + PCR_KERNELS)
-        runs[letter] = (solves, counts)
+        # the line preconditioner's tests take the PCR kernels (J: mg)
+        if letter == "J":
+            off = off + PCR_KERNELS
+        else:
+            on = on + PCR_KERNELS
+        _check_launches(f"phase14b -test {letter}", counts, on, off)
+        runs[letter] = (solves, counts, wall)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     # where a Krylov iteration's time goes at these sizes: each BiCGStab
@@ -4360,25 +4422,28 @@ def phase14b_tests(dev, smi):
 
 
 def phase14c_pcr(dev, runs):
-    """I and N through the PCR kernels (path A's preconditioner route): the
-    kernels launch, the counts equal (b)'s, the velocities within 1e-12."""
+    """I and N with the plain PCR (``_plain_pcr``, the default route on the
+    card before it went through the PCR kernels): no PCR launch, the
+    Newton and Krylov counts equal (b)'s, the velocities within 1e-12;
+    the walls of both routes."""
     for letter in "IN":
-        line, solves, counts, wall = _ssa_test(
-            letter, dev, (("stress_balance.ssa.fd.line_pcr_impl",
-                           "pallas_sublane"),))
-        ref_solves = runs[letter][0]
+        with plain_pcr():
+            line, solves, counts, wall = _ssa_test(letter, dev)
+        ref_solves, ref_counts, ref_wall = runs[letter]
         (u, v, info), (ru, rv, rinfo) = solves[0], ref_solves[0]
         rel = max(_rel_err(u, ru), _rel_err(v, rv))
         same = _solve_counts(solves) == _solve_counts(ref_solves)
-        print(f"phase14c: -test {letter} with line_pcr_impl = pallas_sublane: "
-              f"{line}; Newton sweeps and Krylov iterations "
-              f"{_solve_counts(solves)} ((b): {_solve_counts(ref_solves)}), "
-              f"velocities rel diff {rel:.3e} (tol 1e-12), main() wall "
-              f"{wall:.3f} s, launches {({k: c for k, c in counts.items() if c})}")
+        print(f"phase14c: -test {letter} with the plain PCR: {line}; Newton "
+              f"sweeps and Krylov iterations {_solve_counts(solves)} ((b), "
+              f"the PCR kernels: {_solve_counts(ref_solves)}), velocities rel "
+              f"diff {rel:.3e} (tol 1e-12), main() wall {wall:.3f} s ((b): "
+              f"{ref_wall:.3f} s), host syncs {counts['host_syncs']} ((b): "
+              f"{ref_counts['host_syncs']}), launches "
+              f"{({k: c for k, c in counts.items() if c})}")
         if not same or not rel <= 1e-12:
-            raise AssertionError(f"phase14c: -test {letter}: the PCR route "
-                                 "and the default disagree")
-        _check_launches(f"phase14c -test {letter}", counts, PCR_KERNELS, ())
+            raise AssertionError(f"phase14c: -test {letter}: the plain PCR "
+                                 "and the default route disagree")
+        _check_launches(f"phase14c -test {letter}", counts, (), PCR_KERNELS)
 
 
 def phase14_ssa_verification(dev, smi):
@@ -4611,6 +4676,302 @@ def phase15_sia_verification(dev, smi, eismint_7ka):
     return record
 
 
+# -- phase 16: subglacial hydrology, frontal melt and test P -------------------
+
+HYDRO_KM = 20.0
+#: the hybrid chain's kernels: K1, the Newton matvec, K2/K2b
+HYDRO_ON = ("ssa_matvec", "ssa_newton_matvec", "pcr_lines", "pcr_lines_sub",
+            "pcr_factor_lines", "pcr_factor_lines_sub")
+HYDRO_OFF = ("ssa_matvec_jvp", "ssa_matvec_halo", "ssa_matvec_halo_jvp",
+             "ssa_newton_matvec_halo", "sia_flux_thermo", "sia_flux")
+
+
+def phase16a_test_P(dev, smi):
+    """``-test P`` through ``cli.main`` at the JAX defaults (51x51, 2.5 a
+    in weekly steps, float64): the report, the substeps a week, host syncs,
+    wall, no kernel launched, and the JAX test's own bounds on W."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from pism_tpu_torch import cli
+    from pism_tpu_torch.grid import Grid
+    from pism_tpu_torch.physics import hydrology as hyd
+    from pism_tpu_torch.verification.hydrology_exact import RoutingSteady
+
+    last, orig = [], hyd.Routing.step
+
+    def step(self, *a, **k):
+        out = orig(self, *a, **k)
+        last[:] = [out]
+        return out
+
+    out = io.StringIO()
+    hyd.Routing.step = step
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        hyd.SUBCYCLES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-test", "P"])
+        torch.cuda.synchronize()
+        wall, counts, n_sub = time.perf_counter() - t0, read_counts(), \
+            hyd.SUBCYCLES
+    finally:
+        hyd.Routing.step = orig
+    if rc != 0 or not last:
+        raise AssertionError(f"phase16a: -test P returned {rc}")
+    steps = int(2.5 * SPY / (7.0 * 24 * 3600.0))
+    sol, grid = RoutingSteady(), Grid(Mx=51, My=51, Lx=30e3, Ly=30e3)
+    r = grid.radius
+    W = last[0].hydro_W.cpu().numpy()
+    We = sol.water_thickness(r)
+    sel = (r > 0.2 * sol.R_i) & (r < 0.9 * sol.R_i)
+    rel = np.abs(W[sel] - We[sel]) / We[sel]
+    divide = W[r < 0.05 * sol.R_i].max() / We[sel].max()
+    report = " | ".join(out.getvalue().strip().splitlines()[-3:-1])
+    print(f"phase16a: {smi}: -test P (51x51 float64, 2.5 a): {report}; "
+          f"{steps} weekly steps, {n_sub} substeps ({n_sub / steps:.1f} a "
+          f"week), host syncs {counts['host_syncs']} "
+          f"({counts['host_syncs'] / steps:.1f} a step), main() wall "
+          f"{wall:.3f} s; W against the exact steady state: median rel "
+          f"{np.median(rel):.4f} (< 0.15), mean {np.mean(rel):.4f} (< 0.25), "
+          f"divide max W / selected max {divide:.4f} (< 2)")
+    _check_launches("phase16a", counts, (), KERNELS)
+    if not (np.isfinite(W).all() and np.median(rel) < 0.15
+            and np.mean(rel) < 0.25 and divide < 2.0):
+        raise AssertionError("phase16a: -test P outside the JAX test's bounds")
+
+
+def _hydro_timed(model, state, t, years, label, smi):
+    """``years`` of the chain through ``step_once`` with the counters set
+    to 0 just before and read just after and the hydrology's step timed
+    between card synchronisations; prints ms/step, the hydrology's ms and
+    share, substeps, host syncs, Newton and Krylov and launches per step,
+    max W and the volume. Returns (state, t, stats, counts, substeps)."""
+    import torch
+    from pism_tpu_torch.physics import hydrology as hyd
+
+    acc = [0.0]
+
+    def wrap(lab, orig):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            acc[0] += time.perf_counter() - t0
+            return out
+        return timed
+
+    torch.cuda.synchronize()
+    reset_counts()
+    hyd.SUBCYCLES = hyd.STEADY_SWEEPS = 0
+    with _patched([(model.hydrology, "step", "hydrology")], wrap):
+        t0 = time.perf_counter()
+        state, t, stats = model.step_once(state, t, years * SPY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, n_sub = read_counts(), hyd.SUBCYCLES
+    n = stats.nsteps
+    grid = model.grid
+    H = state.geometry.ice_thickness
+    W = state.hydro_W
+    per = {k: round(v / n, 2) for k, v in counts.items()
+           if v and k in HYDRO_ON}
+    print(f"{label}: {smi}: {grid.My}x{grid.Mx}x{grid.Mz} "
+          f"{str(H.dtype)[6:]}, {years:g} a: steps {n}, wall {wall:.3f} s, "
+          f"{1e3 * wall / n:.2f} ms/step, the hydrology "
+          f"{1e3 * acc[0] / n:.2f} ms/step ({acc[0] / wall:.3f} of the step; "
+          f"the rest {1e3 * (wall - acc[0]) / n:.2f}), substeps {n_sub} "
+          f"({n_sub / n:.1f}/step), host syncs {stats.host_syncs / n:.1f}/step "
+          f"(the hydrology's {n_sub / n:.1f}), Newton sweeps "
+          f"{stats.ssa_newton_iters / n:.2f}/step, Krylov its "
+          f"{stats.ssa_krylov_iters / n:.2f}/step, launches per step {per}, "
+          f"dt-limit hits {stats.limit_hits_dict()}, max W "
+          f"{float(W.max()) if W is not None else 0.0:.4f} m, ice volume "
+          f"{float(H.double().sum()) * grid.dx * grid.dy:.6e} m^3")
+    _check_launches(label, counts, HYDRO_ON, HYDRO_OFF)
+    for name in ("ice_thickness", "enthalpy", "u_ssa", "hydro_W", "hydro_P",
+                 "hydro_Q", "tillwat"):
+        f = getattr(state.geometry if name == "ice_thickness" else state,
+                    name)
+        if f is not None and not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    return state, t, stats, counts, n_sub
+
+
+def phase16b_routing(dev, smi):
+    """The 20 km chain (141x76x41 float32, ssa+sia, the PDD's runoff
+    routed, add_transportable_water) from the synthetic initial state:
+    1 a, then 1 a timed."""
+    from pism_tpu_torch import setups
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float32", HYDRO_KM, device=dev, hydrology="routing")
+    state, t, st1, _, _ = _hydro_timed(model, state, 0.0, 1.0,
+                                       "phase16b warm-up", smi)
+    state, t, st2, counts, _ = _hydro_timed(model, state, t, 1.0,
+                                            "phase16b timed", smi)
+    if abs(t - 2.0 * SPY) > 1e-3 or not float(state.hydro_W.max()) > 0.0:
+        raise AssertionError(f"phase16b: t = {t}, max W "
+                             f"{float(state.hydro_W.max())}")
+    _profile_hydrology(model, state, "phase16b")
+    profile_steps(model, state, t, 0.2, "phase16b")
+    return counts, st2.nsteps
+
+
+def _profile_hydrology(model, state, label, years=0.15):
+    """One hydrology step of ``years`` on ``state`` (no runoff) under the
+    profiler: device ops, device time and host time per substep."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pism_tpu_torch.physics import hydrology as hyd
+
+    dt = years * SPY
+    model.hydrology.step(state, dt)
+    torch.cuda.synchronize()
+    n0 = hyd.SUBCYCLES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.hydrology.step(state, dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = max(hyd.SUBCYCLES - n0, 1)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    print(f"{label}: one hydrology step of {years:g} a profiled: {n} "
+          f"substeps, {len(dev) / n:.0f} device ops, {busy / n:.1f} us of "
+          f"device time and {1e3 * wall / n:.3f} ms of profiled host time a "
+          "substep")
+
+
+def phase16c_distributed(dev, smi):
+    """The same chain with the distributed model, 1 a; the range of
+    P / P_overburden under the grounded ice at the end (P is clipped to the
+    overburden of the thickness its step saw, so the mass transport after
+    it can leave P above the new one)."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.state import grounded_ice
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float32", HYDRO_KM, device=dev, hydrology="distributed")
+    state, t, _, _, _ = _hydro_timed(model, state, 0.0, 1.0, "phase16c", smi)
+    H = state.geometry.ice_thickness
+    P_ov = model.rho_i * model.config.get_number(
+        "constants.standard_gravity") * H
+    ice = grounded_ice(state.geometry.cell_type) & (H > 10.0)
+    ratio = (state.hydro_P / torch.clamp(P_ov, min=1.0))[ice]
+    lo, hi = float(ratio.min()), float(ratio.max())
+    # P is clipped to the overburden of the thickness the hydrology saw;
+    # the mass transport after it may thin the ice under P
+    print(f"phase16c: P / P_overburden under the grounded ice (H > 10 m) "
+          f"at the end: {lo:.4f} to {hi:.4f}")
+    if not (0.0 <= lo <= hi < math.inf):
+        raise AssertionError("phase16c: negative or non-finite water "
+                             "pressure")
+
+
+def phase16d_steady(dev, smi):
+    """The same chain with the steady model (its discharge recomputed every
+    0.25 a) and the discharge-routing frontal melt, 1 a: the front retreats
+    by frontal melt alone, floating fronts included (every front cell of
+    the start floats; with thickness calving on, the thickness law takes
+    the front first and the melt removed nothing in 1 a of a CPU run),
+    icebergs removed."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.physics import hydrology as hyd
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float32", HYDRO_KM, device=dev, hydrology="steady",
+        frontal_melt="routing",
+        extra_cfg={"hydrology.steady.flux_update_interval": 0.25,
+                   "calving.methods": "",
+                   "frontal_melt.include_floating_ice": True})
+    solves, orig = [0], model.hydrology._solve_flux
+
+    def solve(*a, **k):
+        solves[0] += 1
+        return orig(*a, **k)
+
+    model.hydrology._solve_flux = solve
+    state, t, stats, _, _ = _hydro_timed(model, state, 0.0, 1.0, "phase16d",
+                                         smi)
+    n = max(solves[0], 1)
+    fm = float(stats.sum_frontal_melt)
+    print(f"phase16d: {solves[0]} steady solves, {hyd.STEADY_SWEEPS} sweeps "
+          f"({hyd.STEADY_SWEEPS / n:.1f} a solve), max discharge "
+          f"{float(state.hydro_Q.max()):.4e} m^2/s; frontal-melt retreat "
+          f"volume {-fm:.6e} m^3 (sum_frontal_melt {fm:.6e}), calving "
+          f"{float(stats.sum_calving):.6e} m^3")
+    if not (solves[0] >= 2 and fm < 0.0):
+        raise AssertionError(f"phase16d: {solves[0]} solves, "
+                             f"sum_frontal_melt {fm}")
+
+
+def phase16e_card_vs_cpu(dev):
+    """100 km float64, routing with add_transportable_water, 1 a, the card
+    against the CPU: equal steps, hits and sequence of binding dt limits;
+    hydro_W after the first step within 1e-10 of max W; at the end the
+    volume and the total water within 2e-4."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.model.icemodel import DT_LIMITS, StepStats, _merge_stats
+
+    runs = {}
+    for where in ("cpu", dev):
+        model, state, grid = setups.hybrid_greenland_model(
+            "float64", 100.0, device=where, hydrology="routing")
+        seq, orig = [], model._compute_dt
+
+        def compute_dt(*a, orig=orig, seq=seq, **k):
+            out = orig(*a, **k)
+            seq.append(DT_LIMITS[out[1]])
+            return out
+
+        model._compute_dt = compute_dt
+        state = model.prepare_state(state)
+        s1, t1, st1 = model._step(state, 0.0, SPY, StepStats())
+        W1 = s1.hydro_W.cpu()
+        s2, t2, st2 = model.step_once(s1, t1, SPY - t1)
+        runs[str(where)] = (W1, s2, _merge_stats(st1, st2), seq)
+    (Wa, sa, sta, qa), (Wb, sb, stb, qb) = runs["cpu"], runs[str(dev)]
+    w1 = float((Wb - Wa).abs().max() / Wa.abs().max().clamp_min(1e-300))
+
+    def water(s):
+        return float((s.tillwat + s.hydro_W).double().sum().cpu())
+
+    def volume(s):
+        return float(s.geometry.ice_thickness.double().sum().cpu())
+
+    dv = abs(volume(sb) - volume(sa)) / volume(sa)
+    dw = abs(water(sb) - water(sa)) / water(sa)
+    print(f"phase16e: 100 km routing float64, 1 a, card against CPU: steps "
+          f"{stb.nsteps} / {sta.nsteps}, hits {stb.limit_hits_dict()} / "
+          f"{sta.limit_hits_dict()}, limits {qb} / {qa}; W after the first "
+          f"step {w1:.3e} of max W (tol 1e-10), max W {float(Wa.max()):.4e}; "
+          f"at the end volume rel diff {dv:.3e}, total water {dw:.3e} (tol "
+          f"2e-4)")
+    if stb.nsteps != sta.nsteps or qb != qa or not w1 <= 1e-10 \
+            or not dv <= 2e-4 or not dw <= 2e-4 or not float(Wa.max()) > 0.0:
+        raise AssertionError("phase16e: the card and the CPU disagree")
+
+
+def phase16_hydrology(dev, smi):
+    """Phase 16; returns (16b's timed launch counts, its steps)."""
+    _timed("phase16a", phase16a_test_P, dev, smi)
+    t = time.time()
+    counts, n = phase16b_routing(dev, smi)
+    print(f"phase16b: {time.time() - t:.1f} s")
+    _timed("phase16c", phase16c_distributed, dev, smi)
+    _timed("phase16d", phase16d_steady, dev, smi)
+    _timed("phase16e", phase16e_card_vs_cpu, dev)
+    return counts, n
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -4636,16 +4997,40 @@ def main():
     # the old JVP kernels and the per-shard ones are off these paths
     off = ("ssa_matvec_jvp", "ssa_matvec_halo", "ssa_matvec_halo_jvp",
            "ssa_newton_matvec_halo", "sia_flux_thermo", "sia_flux")
-    _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2", None, k1,
-                                   pcr_names + off)
+    _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2", None,
+                                   k1 + pcr_names, off)
+    # the default route before it went through the PCR kernels
+    with plain_pcr():
+        _, _, _, (p2p,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2 plain PCR",
+                                        None, k1, pcr_names + off)
+    (s2, w2, v2), (s2p, w2p, v2p) = p2, p2p
+    rel = abs(v2 - v2p) / v2p
+    print(f"phase2: the default route (the PCR kernels) against the plain PCR"
+          f" on the card, 2 a: steps {s2.nsteps} / {s2p.nsteps}, ms/step "
+          f"{1e3 * w2 / s2.nsteps:.2f} / {1e3 * w2p / s2p.nsteps:.2f}, Newton "
+          f"sweeps {s2.ssa_newton_iters} / {s2p.ssa_newton_iters}, Krylov its "
+          f"{s2.ssa_krylov_iters} / {s2p.ssa_krylov_iters}, dt-limit hits "
+          f"{s2.limit_hits_dict()} / {s2p.limit_hits_dict()}, volume rel diff "
+          f"{rel:.3e} (tol 2e-4)")
+    if s2.nsteps != s2p.nsteps or s2.limit_hits_dict() != s2p.limit_hits_dict() \
+            or not rel <= 2e-4 or not all(
+                abs(a - b) <= 0.1 * b for a, b in (
+                    (s2.ssa_newton_iters, s2p.ssa_newton_iters),
+                    (s2.ssa_krylov_iters, s2p.ssa_krylov_iters))):
+        raise AssertionError("phase2: the PCR kernels and the plain PCR "
+                             "disagree (steps, hits, volume, or Newton and "
+                             "Krylov counts beyond 10%)")
     model, state, t, (a2, a8), counts_a = run_hybrid(
         dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names, off)
     path_a = (model, state, t)
-    (s2, _, v2), (sa, _, va) = p2, a2
+    (sa, wa, va) = a2
     rel = abs(va - v2) / v2
     print(f"phase2b: after 2 a against phase 2: steps {sa.nsteps} / "
           f"{s2.nsteps}, dt-limit hits {sa.limit_hits_dict()} / "
-          f"{s2.limit_hits_dict()}, volume rel diff {rel:.3e} (tol 2e-4)")
+          f"{s2.limit_hits_dict()}, ms/step {1e3 * wa / sa.nsteps:.2f} / "
+          f"{1e3 * w2 / s2.nsteps:.2f}, Newton sweeps {sa.ssa_newton_iters} / "
+          f"{s2.ssa_newton_iters}, Krylov its {sa.ssa_krylov_iters} / "
+          f"{s2.ssa_krylov_iters}, volume rel diff {rel:.3e} (tol 2e-4)")
     if sa.nsteps != s2.nsteps or sa.limit_hits_dict() != s2.limit_hits_dict() \
             or not rel <= 2e-4:
         raise AssertionError("phase2b: path A and the default path disagree")
@@ -4718,6 +5103,10 @@ def main():
     print(f"phase15: {smi}")
     phase15_sia_verification(dev, smi, eismint_7ka)
     print(f"phase15: {time.time() - t15:.1f} s")
+    t16 = time.time()
+    print(f"phase16: {smi}")
+    phase16_hydrology(dev, smi)
+    print(f"phase16: {time.time() - t16:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

@@ -3,8 +3,8 @@ verification runs, the EISMINT II experiments, bootstrapping and restarts).
 
 Routes of the port:
 
-- ``-test A/D/E/F/G/H/K/L/O``: the verification runner
-  (``verification/runner.py``);
+- ``-test A/D/E/F/G/H/K/L/O/P``: the verification runner
+  (``verification/runner.py``; P the routing hydrology);
 - ``-test B/C``: the Halfar similarity solutions with an error report;
 - ``-test I/J/M/V/N``: the SSA verification tests, one solve each with an
   error report (``verification/ssa_tests.py``);
@@ -22,7 +22,10 @@ ones regridded from another file, the coupler flags (``-atmosphere``,
 SSA's Dirichlet velocities from ``-i``. ``-stress_balance`` takes
 ``sia``, ``ssa+sia``, ``weertman_sliding[+sia]`` and
 ``prescribed_sliding[+sia]`` (its velocities from
-``stress_balance.prescribed_sliding.file``).
+``stress_balance.prescribed_sliding.file``); ``-hydrology`` takes
+``null``, ``routing``, ``distributed`` and ``steady`` (with an SSA), and
+``-config frontal_melt.models=...`` a frontal melt, its fields from the
+``frontal_melt.*.file`` keys.
 
 Every parser option of the JAX CLI parses. The options that need a module
 the port does not carry yet raise NotImplementedError naming the ROADMAP
@@ -36,6 +39,7 @@ Examples:
       -extra_times 0:500:1000
   python -m pism_tpu_torch -eisII G -y 3000 -o g.nc -o_format netcdf3
   python -m pism_tpu_torch -test K
+  python -m pism_tpu_torch -test P
   python -m pism_tpu_torch -i a.nc -y 100 -o b.nc -o_format netcdf3
   python -m pism_tpu_torch -i g_boot.nc -bootstrap -Mx 76 -My 141 -Mz 41 \\
       -Lx 750 -Ly 1400 -Lz 4000 -stress_balance sia \\
@@ -265,7 +269,7 @@ def _refuse_unported(args):
                        ("inverse", "10"), ("view", "4")):
         if getattr(args, flag) not in (None, False):
             raise _unported(f"-{flag}", item)
-    if args.test and args.test.upper() not in tuple("ABCDEFGHKLOIJMVN"):
+    if args.test and args.test.upper() not in tuple("ABCDEFGHKLOPIJMVN"):
         raise _unported(f"-test {args.test}", "2")
 
 
@@ -557,7 +561,7 @@ def main(argv=None):
                                 Mz=args.Mz or 61, device=device)
             grid, cfg, state, surface = es.grid, es.config, es.state, es.surface
         sliding_mu = es.sliding_mu
-    elif args.test and args.test.upper() in tuple("ADEFGHKLO"):
+    elif args.test and args.test.upper() in tuple("ADEFGHKLOP"):
         # pismv-style single-test runs with an error report (runner.py)
         from .verification import runner
         over = Config({})
@@ -653,8 +657,14 @@ def main(argv=None):
                     calendar=Calendar(cfg.get_string("time.calendar")),
                     reference_date=cfg.get_string("time.reference_date"))
 
+    from .coupler import factory as cf
+    from .coupler.frontalmelt import frontal_melt_from_config
+    frontal_melt = frontal_melt_from_config(
+        cfg, grid, inputs=cf.inputs_from_files(cfg, grid, "frontal_melt",
+                                               device))
     model = IceModel(grid=grid, config=cfg, surface=surface, ocean=ocean,
-                     sea_level=sea_level, device=device, sliding_mu=sliding_mu)
+                     sea_level=sea_level, device=device, sliding_mu=sliding_mu,
+                     frontal_melt=frontal_melt)
     # the fields take the configured dtype (the EISMINT II and Halfar
     # states are built in float64 before -config is read)
     fdt = torch.float32 if cfg.get_string("runtime.float_dtype") == "float32" \

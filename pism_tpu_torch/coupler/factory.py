@@ -13,7 +13,9 @@ to right. The factory functions take an ``inputs`` dict of loaded fields
 - surface ``simple``, ``uniform``, ``given``, ``pdd``, ``pik``; modifier
   ``delta_T``;
 - ocean ``constant``, ``pik``, ``pico``; modifier ``delta_T``;
-- sea level ``constant``; modifier ``delta_sl``.
+- sea level ``constant``; modifier ``delta_sl``;
+- the fields of the frontal-melt models (``coupler/frontalmelt.py``),
+  group ``frontal_melt`` of ``inputs_from_files``.
 
 Every other name raises NotImplementedError (ROADMAP Queue 1 item 8).
 """
@@ -321,4 +323,14 @@ def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
         # the reference's -ocean ...,delta_SL file option, an alias
         if "delta_SL" not in inputs:
             scalar("ocean.delta_SL.file", "delta_SL")
+    elif group == "frontal_melt":
+        spatial("frontal_melt.given.file", ["frontal_melt_rate"])
+        spatial("frontal_melt.routing.file", ["theta_ocean"])
+        spatial("frontal_melt.discharge_given.file",
+                ["theta_ocean", "subglacial_discharge"])
+        # the frontal-melt models take single 2D fields: a time stack
+        # supplies its last record
+        for k in ("frontal_melt_rate", "theta_ocean", "subglacial_discharge"):
+            if k in inputs and inputs[k].ndim == 3:
+                inputs[k] = inputs[k][-1]
     return inputs

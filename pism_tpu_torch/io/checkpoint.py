@@ -37,6 +37,9 @@ _STATE_VARS = {
     "v_ssa": ("v_ssa", {"units": "m s-1"}, 2),
     "tillwat": ("tillwat", {"units": "m"}, 2),
     "till_phi": ("tillphi", {"units": "degrees"}, 2),
+    "hydro_W": ("bwat", {"units": "m"}, 2),
+    "hydro_P": ("bwp", {"units": "Pa"}, 2),
+    "hydro_Q": ("bwatflux", {"units": "m2 s-1"}, 2),
     "bed_uplift": ("viscous_bed_displacement", {"units": "m"}, 2),
     "bed_load_reference": ("bed_def_load_reference", {"units": "m"}, 2),
     "bed_reference": ("bed_def_reference", {"units": "m"}, 2),
@@ -50,10 +53,9 @@ _STATE_VARS = {
 }
 
 #: state variables of the JAX package's components the port does not carry
-#: (hydrology, age, fracture, isochrones, dEBM): a file that holds one
-#: cannot be continued here
-_UNPORTED_VARS = ("bwat", "bwp", "bwatflux",
-                  "age", "ch_enthalpy", "fracture_density", "fracture_age",
+#: (age, fracture, isochrones, dEBM): a file that holds one cannot be
+#: continued here
+_UNPORTED_VARS = ("age", "ch_enthalpy", "fracture_density", "fracture_age",
                   "albedo", "isochronal_layer_thickness")
 
 _XY = ("time", "y", "x")
@@ -219,7 +221,7 @@ def load_state(path: str, config: Optional[Config] = None, device="cuda"):
         if bad:
             raise NotImplementedError(
                 f"{path} holds {', '.join(bad)}, state of components not "
-                "implemented in pism_tpu_torch (ROADMAP Queue 1 items 6-8)")
+                "implemented in pism_tpu_torch (ROADMAP Queue 1 items 5-7)")
 
         def field(var):
             return torch.as_tensor(f.read(var)[-1], dtype=fdt, device=device)

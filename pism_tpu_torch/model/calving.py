@@ -2,10 +2,14 @@
 ``pism_tpu/model/calving.py``): ``thickness_calving``, ``ocean_kill``,
 ``float_kill`` (with ``margin_only`` and ``calve_near_grounding_line``),
 the rate laws ``eigen_calving`` (with ``make_margin_floating``),
-``vonmises_calving`` and ``hayhurst_calving`` applied as a front retreat
-(part-grid aware, or by thickness scaling without part-grid), the
-front-retreat dt limit and iceberg removal. ``prescribed_retreat``, the
-rate-scaling and 2D threshold files and frontal melt raise.
+``vonmises_calving`` and ``hayhurst_calving`` and a frontal-melt rate
+(``coupler/frontalmelt.py``, at marine fronts; floating ones with
+``frontal_melt.include_floating_ice``) summed into one retreat rate and
+applied as a front retreat (part-grid aware, or by thickness scaling
+without part-grid), the retreat split between calving and frontal melt by
+rate share, the front-retreat dt limit and iceberg removal.
+``prescribed_retreat`` and the rate-scaling and 2D threshold files
+raise.
 
 Icebergs are removed by a flood fill from grounded ice over the icy mask.
 The JAX package runs it as a ``lax.while_loop`` until no cell changes
@@ -75,11 +79,15 @@ class CalvingModel:
     # calving.ocean_kill.file or the initial state's ice-free ocean
     ocean_kill_mask: Optional[torch.Tensor] = None
     lead: int = 0    # leading member dims of the fields (an ensemble's 1)
+    # the methods; empty: ``calving.methods``. ("none",) is the front
+    # retreat of a frontal melt with no calving law
+    methods: tuple = ()
 
     def __post_init__(self):
         cfg = self.config
         self.sh = Shifter(self.grid, self.lead)
-        m = cfg.get_string("calving.methods")
+        m = ",".join(self.methods) if self.methods \
+            else cfg.get_string("calving.methods")
         self.methods = tuple(s.strip() for s in m.split(",") if s.strip())
         if self.lead and (set(self.methods) - {"thickness_calving",
                                                "eigen_calving"}
@@ -91,7 +99,7 @@ class CalvingModel:
                 "thickness_calving, eigen_calving and iceberg removal; "
                 "ROADMAP Queue 1 item 11)")
         for name in self.methods:
-            if name not in ("thickness_calving", "ocean_kill",
+            if name not in ("none", "thickness_calving", "ocean_kill",
                             "float_kill") + RATE_METHODS:
                 raise NotImplementedError(
                     f"calving method {name!r} is not implemented in "
@@ -100,7 +108,6 @@ class CalvingModel:
                     "calving.vonmises_calving.sigma_max_file",
                     "calving.rate_scaling.file"):
             require(cfg, key, ("",))
-        require(cfg, "frontal_melt.models", ("", "none"))
         self.H_threshold = cfg.get_number("calving.thickness_calving.threshold")
         self.eigen_K = cfg.get_number("calving.eigen_calving.K")
         self.vm_sigma_max = cfg.get_number("calving.vonmises_calving.sigma_max")
@@ -114,6 +121,7 @@ class CalvingModel:
         self.rho_w = cfg.get_number("constants.sea_water.density")
         self.g = cfg.get_number("constants.standard_gravity")
         self.remove_bergs = cfg.get_flag("geometry.remove_icebergs")
+        self.fm_floating = cfg.get_flag("frontal_melt.include_floating_ice")
         self.float_kill = cfg.get_flag("calving.float_kill.enabled") or \
             "float_kill" in self.methods
         self.fk_margin_only = cfg.get_flag("calving.float_kill.margin_only")
@@ -186,9 +194,17 @@ class CalvingModel:
             return front & (floating | marine)
         return front & floating
 
-    def applicable_rate(self, geometry, sb, hardness_B=None):
+    def _melt_where(self, front, floating, marine):
+        """The cells a frontal-melt rate acts on: marine front cells,
+        floating ones only with ``frontal_melt.include_floating_ice``."""
+        where = front & marine
+        return where if self.fm_floating else where & ~floating
+
+    def applicable_rate(self, geometry, sb, hardness_B=None,
+                        frontal_melt_rate=None):
         """Per-cell horizontal retreat rate [m/s] that ``step`` would apply
-        on its front cells (the dt limit's input)."""
+        on its front cells (the dt limit's input): the laws' rates and the
+        frontal-melt rate."""
         mask = geometry.cell_type
         floating = S.floating_ice(mask)
         front = front_mask(S.icy(mask), mask == S.MASK_ICE_FREE_OCEAN,
@@ -202,15 +218,19 @@ class CalvingModel:
             if "hayhurst_calving" in self.methods:
                 where = front & (floating | marine)
             total = total + torch.where(where, rate, 0.0)
+        if frontal_melt_rate is not None:
+            total = total + torch.where(
+                self._melt_where(front, floating, marine),
+                torch.clamp(frontal_melt_rate, min=0.0), 0.0)
         return total
 
-    def max_rate(self, geometry, sb, hardness_B=None):
+    def max_rate(self, geometry, sb, hardness_B=None, frontal_melt_rate=None):
         """max of ``applicable_rate``, a 0-dim device tensor (on the member
         axis one per member, (B,)): the caller reads it with its other
         maxima in one host sync and turns it into a dt with
         ``max_timestep_from_rate``."""
-        return S.member_max(self.applicable_rate(geometry, sb, hardness_B),
-                            self.lead)
+        return S.member_max(self.applicable_rate(
+            geometry, sb, hardness_B, frontal_melt_rate), self.lead)
 
     def max_timestep_from_rate(self, r_max: float, dtype) -> float:
         """dt so that the fastest front cell retreats at most one grid cell
@@ -260,15 +280,17 @@ class CalvingModel:
         return H, Href, removed_full + dHref
 
     def step(self, geometry, sb=None, dt=0.0, t=0.0, hardness_B=None,
-             with_parts: bool = False):
+             frontal_melt_rate=None, with_parts: bool = False):
         """Apply the calving laws, the rate-based retreat over ``dt``
         seconds (``sb`` gives the SSA velocity, None with no rate law;
         ``hardness_B`` the vertically averaged hardness of the von Mises
-        law) and iceberg removal. With ``with_parts=True`` return
-        ``(geometry, parts)``, ``parts`` the per-mechanism thickness changes
-        [m] (<= 0, counted as H + Href): ``calving`` (the laws and iceberg
-        removal), ``frontal_melt`` and ``forced_retreat`` (zero: neither is
-        ported)."""
+        law; ``frontal_melt_rate`` [m/s] a frontal-melt coupler's rate,
+        summed with the laws' into one retreat rate) and iceberg removal.
+        With ``with_parts=True`` return ``(geometry, parts)``, ``parts`` the
+        per-mechanism thickness changes [m] (<= 0, counted as H + Href):
+        ``calving`` (the laws and iceberg removal), ``frontal_melt`` (the
+        retreat's share of the melt rate) and ``forced_retreat`` (zero:
+        prescribed retreat is not ported)."""
         sh = self.sh
         mask = geometry.cell_type
         icy = S.icy(mask)
@@ -301,14 +323,28 @@ class CalvingModel:
             H = torch.where(calve, 0.0, H)
         C_inst = H + Href   # ice content after the instantaneous laws
 
-        # rate-based retreat: the laws' rates summed into one horizontal
-        # retreat rate and applied together
+        # rate-based retreat: the laws' rates and the frontal melt summed
+        # into one horizontal retreat rate and applied together; the removed
+        # ice is split between the two by rate share
+        marine = geometry.sea_level - geometry.bed_elevation > 0.0
+        rate_c = rate_f = None
         if self.rate_methods:
-            marine = geometry.sea_level - geometry.bed_elevation > 0.0
             r = self.retreat_rate(geometry, sb.u_ssa, sb.v_ssa,
                                   hardness_B=hardness_B)
-            rate = torch.where(self._law_where(front, floating, marine),
-                               torch.clamp(r, min=0.0), 0.0)
+            rate_c = torch.where(self._law_where(front, floating, marine),
+                                 torch.clamp(r, min=0.0), 0.0)
+        if frontal_melt_rate is not None:
+            rate_f = torch.where(self._melt_where(front, floating, marine),
+                                 torch.clamp(frontal_melt_rate, min=0.0), 0.0)
+        share_c = None
+        if rate_c is not None or rate_f is not None:
+            if rate_c is None:
+                rate_c = torch.zeros_like(H)
+            rate = rate_c if rate_f is None else rate_c + rate_f
+            if rate_f is not None:
+                pos = rate > 0.0
+                share_c = torch.where(
+                    pos, rate_c / torch.where(pos, rate, 1.0), 1.0)
             if self.part_grid:
                 H, Href, _ = self._retreat_partgrid(H, Href, rate, dt,
                                                     icy, ifo)
@@ -334,10 +370,13 @@ class CalvingModel:
         # exactly, so its sum is this one to the bit.
         C_out = geometry.ice_thickness + geometry.ice_area_specific_volume
         zero = torch.zeros_like(C_out)
+        rate_d = C_rate - C_inst
         parts = {
-            "calving": (C_inst - (H_in + Href_in)) + (C_rate - C_inst)
+            "calving": (C_inst - (H_in + Href_in))
+            + (rate_d if share_c is None else rate_d * share_c)
             + (C_out - C_rate),
-            "frontal_melt": zero,
+            "frontal_melt": zero if share_c is None
+            else rate_d * (1.0 - share_c),
             "forced_retreat": zero,
         }
         return geometry, parts

@@ -7,8 +7,11 @@ A registry of functions ``(state, model, t) -> tensor`` with CF metadata
 (``output.sizes.medium``), the scalars of the default ``-ts_vars``
 (``ice_volume_glacierized``, ``ice_area_glacierized``, ``max_velocity``)
 with ``ice_volume``, the fields of the PIK chain (``shelfbmassflux``,
-``shelfbtemp``, the ``pico_*`` set, the eigen, von Mises, Hayhurst and
-total retreat rates, ``dbdt_total``, ``viscous_bed_displacement``), the
+``shelfbtemp``, the ``pico_*`` set, the eigen, von Mises, Hayhurst,
+frontal-melt and total retreat rates, ``frontal_melt_rate``,
+``dbdt_total``, ``viscous_bed_displacement``), the hydrology's (``bwat``,
+``bwp``, ``bwprel``, ``effbwp``, ``hydraulic_potential``, ``bwatflux``,
+``bwatvel_x``/``_y``, ``wallmelt``), the
 bedrock layer's ``bedtoptemp``, ``heat_flux_from_bedrock`` and
 ``litho_temp`` (the column, ``(..., Mbz)``), and
 the interval-averaged rates: the scalar ones
@@ -351,15 +354,141 @@ def _hayhurst_calving_rate(state, model, t):
     return torch.where(front & marine, rate, 0.0)
 
 
+@spatial("frontal_melt_rate", "m s-1", "frontal melt rate")
+def _frontal_melt_rate(state, model, t):
+    fm = getattr(model, "frontal_melt", None)
+    if fm is None:
+        return _zeros2(state)
+    return fm(state.geometry, t, state=state)
+
+
+@spatial("frontal_melt_retreat_rate", "m s-1",
+         "retreat rate due to frontal melt, applied at marine front cells")
+def _frontal_melt_retreat_rate(state, model, t):
+    """The melt rate restricted to the front cells it erodes."""
+    fm = getattr(model, "frontal_melt", None)
+    cm = model.calving
+    if fm is None or cm is None:
+        return _zeros2(state)
+    rate = torch.clamp(fm(state.geometry, t, state=state), min=0.0)
+    front = _calving_front(state, model)
+    marine = state.geometry.sea_level - state.geometry.bed_elevation > 0.0
+    where = front & marine
+    if not cm.fm_floating:
+        where = where & ~S.floating_ice(state.geometry.cell_type)
+    return torch.where(where, rate, 0.0)
+
+
 @spatial("total_retreat_rate", "m s-1",
          "total horizontal retreat rate (all active calving laws + frontal "
          "melt) at front cells")
 def _total_retreat_rate(state, model, t):
-    # frontal melt is not ported: its retreat rate is zero
     return (_eigen_calving_rate(state, model, t)
             + _vonmises_calving_rate(state, model, t)
             + _hayhurst_calving_rate(state, model, t)
-            + _zeros2(state))
+            + _frontal_melt_retreat_rate(state, model, t))
+
+
+# -- subglacial hydrology ---------------------------------------------------
+
+@spatial("bwat", "m", "transportable subglacial water thickness")
+def _bwat(state, model, t):
+    return state.hydro_W if state.hydro_W is not None else _zeros2(state)
+
+
+@spatial("bwp", "Pa", "subglacial water pressure")
+def _bwp(state, model, t):
+    return state.hydro_P if state.hydro_P is not None else _zeros2(state)
+
+
+@spatial("bwprel", "1", "water pressure as a fraction of overburden")
+def _bwprel(state, model, t):
+    H = state.geometry.ice_thickness
+    if state.hydro_P is None:
+        return _zeros2(state)
+    P0 = model.rho_i * 9.81 * torch.clamp(H, min=1.0)
+    return torch.where(H > 1.0, state.hydro_P / P0, 0.0)
+
+
+@spatial("effbwp", "Pa", "effective pressure (overburden minus water pressure)")
+def _effbwp(state, model, t):
+    H = state.geometry.ice_thickness
+    if state.hydro_P is None:
+        return _zeros2(state)
+    return torch.clamp(model.rho_i * 9.81 * H - state.hydro_P, min=0.0)
+
+
+@spatial("hydraulic_potential", "Pa",
+         "subglacial hydraulic potential psi = P + rho_w g (b + W)")
+def _hydropot(state, model, t):
+    P = state.hydro_P if state.hydro_P is not None else _zeros2(state)
+    W = state.hydro_W if state.hydro_W is not None else _zeros2(state)
+    return P + 1000.0 * 9.81 * (state.geometry.bed_elevation + W)
+
+
+@spatial("bwatflux", "m2 s-1",
+         "steady subglacial discharge per unit width (hydrology.model=steady)")
+def _bwatflux(state, model, t):
+    return state.hydro_Q if state.hydro_Q is not None else _zeros2(state)
+
+
+def _routing_flux(state, model):
+    """(hydrology, W, face gradients, face fluxes) of the routing family
+    on the state's potential, or None without a routed layer."""
+    hyd = model.hydrology
+    W = state.hydro_W
+    if W is None or hyd is None or not hasattr(hyd, "_face_gradients"):
+        return None
+    H = state.geometry.ice_thickness
+    b = state.geometry.bed_elevation
+    if state.hydro_P is not None:      # distributed: the evolving pressure
+        psi = hyd.rho_w * hyd.g * b + state.hydro_P
+    else:
+        psi = hyd.rho_w * hyd.g * b + hyd.rho_i * hyd.g * H
+    grads = hyd._face_gradients(psi)
+    return hyd, W, grads, hyd._fluxes(W, grads)
+
+
+def _bwatvel(state, model):
+    """The routed water's velocity q/W at cell centres (PISM
+    ``bwatvel``); zero without a routed layer."""
+    r = _routing_flux(state, model)
+    if r is None:
+        return _zeros2(state), _zeros2(state)
+    hyd, W, _, (qe, qn) = r
+    sh = hyd.sh
+    qx = 0.5 * (qe + sh(qe, 0, -1))
+    qy = 0.5 * (qn + sh(qn, -1, 0))
+    Ws = torch.clamp(W, min=1e-6)
+    return qx / Ws, qy / Ws
+
+
+@spatial("bwatvel_x", "m s-1", "x-velocity of subglacial transportable water")
+def _bwatvel_x(state, model, t):
+    return _bwatvel(state, model)[0]
+
+
+@spatial("bwatvel_y", "m s-1", "y-velocity of subglacial transportable water")
+def _bwatvel_y(state, model, t):
+    return _bwatvel(state, model)[1]
+
+
+@spatial("wallmelt", "m s-1",
+         "melt rate from the dissipation of potential energy of the "
+         "lateral subglacial water flow (ice equivalent)")
+def _wallmelt(state, model, t):
+    """The dissipation q . (-grad psi) per unit area, averaged from the
+    faces to the cell centres, as an ice-equivalent melt rate (rho_i L)."""
+    r = _routing_flux(state, model)
+    if r is None:
+        return _zeros2(state)
+    hyd, _, (dpx, dpy, _, _), (qe, qn) = r
+    sh = hyd.sh
+    diss = 0.5 * (torch.clamp(-qe * dpx, min=0.0)
+                  + torch.clamp(-sh(qe, 0, -1) * sh(dpx, 0, -1), min=0.0)) \
+        + 0.5 * (torch.clamp(-qn * dpy, min=0.0)
+                 + torch.clamp(-sh(qn, -1, 0) * sh(dpy, -1, 0), min=0.0))
+    return diss / (model.EC.rho_i * model.EC.L0)
 
 
 def _pico(model):
@@ -611,7 +740,7 @@ class Window2D(NamedTuple):
     d_frontal_melt: object = None
     d_forced_retreat: object = None
     d_topg: object = None   # topg(t) - topg(t_prev), for dbdt
-    d_water: object = None  # tillwat(t) - previous [m]
+    d_water: object = None  # tillwat + bwat at t, less the previous [m]
     cell_area: float = 1.0  # m2, for the per-cell kg s-1 "mass" variants
 
 

@@ -23,11 +23,14 @@ face velocities); the SIA stress balance with the Weertman sliding law
 velocity (``prescribed_u``/``prescribed_v``, else
 ``stress_balance.prescribed_sliding.file``) and, with ``ssa+sia``, the
 SSAFD solve, the yield stress of
-``basal_yield_stress.model`` (Mohr-Coulomb with ``topg_to_phi`` and
-slippery grounding lines, constant, or given) and null hydrology; the
+``basal_yield_stress.model`` (Mohr-Coulomb with ``topg_to_phi``, slippery
+grounding lines and ``add_transportable_water``, constant, or given) and
+the hydrology of ``hydrology.model`` (null, routing, distributed or
+steady, stepped after the energy with the surface model's runoff); the
 calving component of ``model/calving.py`` (thickness, ocean-kill and
-float-kill calving, the eigen, von Mises and Hayhurst rate laws with
-their front-retreat dt limit, iceberg removal), or no calving; pointwise
+float-kill calving, the eigen, von Mises and Hayhurst rate laws and a
+frontal melt of ``frontal_melt.models`` with their front-retreat dt
+limit, iceberg removal), or no calving; pointwise
 isostasy, Lingle-Clark or no bed deformation; part-grid mass transport
 with skip substeps; a stateful PDD surface model or a stateless one; an
 optional ocean model (``constant``, ``pik``, PICO, evaluated in every
@@ -41,7 +44,8 @@ torch raises rather than the model running on the CPU. ``mesh`` (a
 its JVP (K5) and the SIA flux kernels (K3/K4) run per shard on halo-padded
 blocks, while every field stays whole on ``device``
 (``pism_tpu/model/icemodel.py:146-150``). The Weertman and prescribed
-sliding and a bedrock layer raise NotImplementedError under a mesh.
+sliding, a bedrock layer, a hydrology model other than null and frontal
+melt raise NotImplementedError under a mesh.
 
 ``member_axis`` builds the model of an ensemble's members
 (``parallel/ensemble.py``): every field has a leading member axis, the
@@ -59,8 +63,9 @@ with a member form (constant, PIK, PICO, their ``delta_T``),
 and iceberg removal, part-grid, the sub-grid grounding line, and
 Lingle-Clark bed deformation (each member's gate on its own step end). A
 mesh, sea level, pointwise isostasy, another calving method or float
-kill, another stateful surface, the Weertman and prescribed sliding and a
-bedrock layer raise NotImplementedError.
+kill, another stateful surface, the Weertman and prescribed sliding, a
+bedrock layer, a hydrology model other than null and frontal melt raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -82,8 +87,10 @@ from ..ops.stencils import Shifter
 from ..parallel.mesh import is_sharded
 from ..physics.basal import yield_stress_from_config
 from ..physics.enthalpy_converter import EnthalpyConverter
-from ..physics.hydrology import NullTransport
+from ..physics.hydrology import (Distributed, Routing, Steady,
+                                 hydrology_from_config)
 from ..physics.rheology import flow_law_from_config
+from ..coupler.frontalmelt import frontal_melt_from_config
 from ..coupler.pdd import TemperatureIndex
 from ..coupler.surface import SurfaceCarry
 from ..util import hostsync
@@ -92,7 +99,7 @@ from ..util.timecal import Time
 from . import geometry_evolution as ge
 from .beddef import LingleClark, bed_deformation_from_config
 from .btu import BTUFull, btu_from_config
-from .calving import calving_from_config
+from .calving import CalvingModel, calving_from_config
 from .energy import EnergyModel, bootstrap_enthalpy
 from .ssa import SSAFD
 from .stressbalance import StressBalance, StressBalanceResult
@@ -260,6 +267,7 @@ class IceModel:
     # stress_balance.prescribed_sliding.file when not given
     prescribed_u: object = None
     prescribed_v: object = None
+    frontal_melt: object = None   # FrontalMeltModel; default from the config
 
     def __post_init__(self):
         cfg = self.config
@@ -271,7 +279,6 @@ class IceModel:
         if cfg.get_string("energy.model") == "none" and "ssa" in sb_model:
             # MISMIP's isothermal ssa+sia
             require(cfg, "stress_balance.ssa.flow_law", ("isothermal_glen",))
-        require(cfg, "frontal_melt.models", ("", "none"))
         require(cfg, "ocean.always_grounded", (False,))
         require(cfg, "time_stepping.adaptive_timestepping", (True,))
         for flag in ("age.enabled", "age.isochrones.enabled",
@@ -309,9 +316,30 @@ class IceModel:
                              mesh=self.mesh, lead=self.lead)
             if self.yield_stress is None:
                 self.yield_stress = yield_stress_from_config(cfg, self.grid)
-            self.hydrology = NullTransport(grid=self.grid, config=cfg)
+            self.hydrology = hydrology_from_config(self.grid, cfg,
+                                                   self.device)
+        if self.frontal_melt is None:
+            self.frontal_melt = frontal_melt_from_config(cfg)
+        for what, present, item in (
+                ("an ensemble", self.member_axis, "3"),
+                ("a mesh", is_sharded(self.mesh), "10")):
+            if present and isinstance(self.hydrology,
+                                      (Routing, Distributed, Steady)):
+                raise NotImplementedError(
+                    "hydrology.model = "
+                    f"{cfg.get_string('hydrology.model')!r} in {what} is not "
+                    "implemented in pism_tpu_torch (ROADMAP Queue 1 item "
+                    f"{item})")
+            if present and self.frontal_melt is not None:
+                raise NotImplementedError(
+                    f"frontal melt in {what} is not implemented in "
+                    f"pism_tpu_torch (ROADMAP Queue 1 item {item})")
         if self.calving is None:
             self.calving = calving_from_config(self.grid, cfg, self.lead)
+            if self.calving is None and self.frontal_melt is not None:
+                # frontal melt needs the front retreat with no calving law
+                self.calving = CalvingModel(grid=self.grid, config=cfg,
+                                            lead=self.lead, methods=("none",))
         elif self.calving.lead != self.lead:
             # a model's calving taken to its member-axis twin, or back
             self.calving = dataclasses.replace(self.calving, lead=self.lead)
@@ -531,7 +559,8 @@ class IceModel:
         fr_rate = None
         if self.front_retreat_cfl:
             fr_rate = self.calving.max_rate(
-                state.geometry, sb, hardness_B=self._calving_hardness(state))
+                state.geometry, sb, hardness_B=self._calving_hardness(state),
+                frontal_melt_rate=self._frontal_melt(state.geometry, t, state))
         dt, dt_limit_idx, max_D = self._compute_dt(sb, t, t_end, fr_rate)
         dt_f = _round_to(dt, dtype)
 
@@ -547,7 +576,8 @@ class IceModel:
         dt_sub = _round_to(dt_f / self.skip_max, dtype) \
             if self.skip_max > 1 else dt_f
         state, geometry, vals = self._energy_and_mass(state, sb, smb_in, t,
-                                                      dt_f, dt_sub, cells)
+                                                      dt_f, dt_sub, cells,
+                                                      t_next=t + dt)
         zero = torch.zeros((), dtype=dtype, device=geometry.ice_thickness.device)
         smb_app, bmb_app, div_vol, nonneg = vals[:4]
 
@@ -562,6 +592,7 @@ class IceModel:
                 geometry, sb, dt_f, t=t,
                 hardness_B=self._calving_hardness(
                     state.replace(geometry=geometry)),
+                frontal_melt_rate=self._frontal_melt(geometry, t, state),
                 with_parts=True)
             geometry = S.ensure_consistency(geometry, self.rho_i, self.rho_w,
                                             self.Hmin, self.subgl)
@@ -604,12 +635,14 @@ class IceModel:
             host_syncs=stats.host_syncs)
         return state, t + dt, stats
 
-    def _energy_and_mass(self, state, sb, smb_in, t, dt_f, dt_sub, cells):
+    def _energy_and_mass(self, state, sb, smb_in, t, dt_f, dt_sub, cells,
+                         t_next=None):
         """The step's energy, hydrology and mass transport (skip_max cheap
         substeps of ``dt_sub`` per expensive update): (state, geometry,
         vals), vals the volume rates of ``_mass_substep`` (0-dim, or per
         member). ``dt_f``, ``dt_sub``: host floats in the field dtype, or
-        per-member tensors of it shaped (B, 1, 1)."""
+        per-member tensors of it shaped (B, 1, 1); ``t_next`` the step's
+        end time (the steady hydrology's interval test)."""
         # 3. energy (enthalpy) step ---------------------------------------
         H = state.geometry.ice_thickness
         dtype = H.dtype
@@ -634,7 +667,13 @@ class IceModel:
 
         # 5. hydrology -----------------------------------------------------
         if self.hydrology is not None:
-            state = self.hydrology.step(state, dt_f)
+            kw = {}
+            if self.hydrology.input_from_runoff:
+                # the surface model's runoff feeds the subglacial system
+                kw["runoff"] = smb_in.runoff
+            if isinstance(self.hydrology, Steady):
+                kw["t"] = t_next
+            state = self.hydrology.step(state, dt_f, **kw)
 
         # 7. mass transport, skip_max cheap substeps per expensive update --
         geometry = state.geometry
@@ -656,6 +695,13 @@ class IceModel:
                     state, sb, smb_in.smb, geometry, t, dt_f, sb.qe, sb.qn,
                     cells=cells)
         return state, geometry, vals
+
+    def _frontal_melt(self, geometry, t, state):
+        """The frontal-melt rate [m/s] on ``geometry`` at ``t`` (the
+        discharge models read ``state``'s hydrology), else None."""
+        if self.frontal_melt is None:
+            return None
+        return self.frontal_melt(geometry, t, state=state)
 
     def _calving_hardness(self, state):
         """The vertically averaged hardness the von Mises law needs (from
@@ -837,8 +883,23 @@ class IceModel:
         H = state.geometry.ice_thickness
         z2 = torch.zeros_like(H)
         kw = {}
-        if self.hydrology is not None and state.tillwat is None:
-            kw["tillwat"] = z2
+        if self.hydrology is not None:
+            if state.tillwat is None:
+                kw["tillwat"] = z2
+            if isinstance(self.hydrology, Routing) and state.hydro_W is None:
+                kw["hydro_W"] = z2
+            if isinstance(self.hydrology, Distributed) \
+                    and state.hydro_P is None:
+                # the water pressure starts at overburden
+                kw["hydro_P"] = self.rho_i * self.config.get_number(
+                    "constants.standard_gravity") * H
+            if isinstance(self.hydrology, Steady) and state.hydro_Q is None:
+                kw["hydro_Q"] = z2
+            if not isinstance(self.hydrology, Steady) \
+                    and state.hydro_Q is not None:
+                # a stored steady discharge would otherwise shadow the live
+                # hydrology in the frontal melt forever
+                kw["hydro_Q"] = None
         if self.energy_model is not None and state.basal_melt_rate is None:
             kw["basal_melt_rate"] = z2
         if self.stress_balance.model != "sia":

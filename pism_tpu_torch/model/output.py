@@ -218,8 +218,12 @@ class OutputManager:
                 else tuple(_host(x) for x in stats.cell)
             s["H"] = _host(state.geometry.ice_thickness)
             s["topg"] = _host(state.geometry.bed_elevation)
-            s["water"] = None if state.tillwat is None \
-                else _host(state.tillwat)
+            # the subglacial water amount: till plus transportable water
+            water = None if state.tillwat is None else _host(state.tillwat)
+            if state.hydro_W is not None:
+                W = _host(state.hydro_W)
+                water = W if water is None else water + W
+            s["water"] = water
         return s
 
     def start(self, state, t: float, model) -> None:

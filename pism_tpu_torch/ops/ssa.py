@@ -12,8 +12,9 @@ The operator itself is the hand-written kernel of
 grid, the kernel's padded-block instance (K5's, ``ssa_matvec_halo``) on
 the field wrap-padded along its periodic axes, one launch (the JAX package
 sends periodic grids through its plain operator instead,
-``pism_tpu/model/ssa.py:453-464``); with ``line_pcr_impl = pallas_sublane`` the
-line preconditioner solves with the kernels of ``ops/kernels/pcr.py``. The
+``pism_tpu/model/ssa.py:453-464``); the line preconditioner solves with
+the kernels of ``ops/kernels/pcr.py`` on the card under either
+``line_pcr_impl`` (``line_route``). The
 Krylov loop is a host loop: its stop
 test is one ``.item()`` per BiCGStab iteration (the JAX package's
 ``lax.while_loop`` at ``pism_tpu/ops/ssa.py:349-374``), which keeps the
@@ -281,28 +282,43 @@ def line_systems(nuH, beta, bc_mask, dx, dy, sh):
     return au, cu, bu, av, cv, bv
 
 
+def line_route(pcr_impl: str, device) -> str:
+    """The route of the line solves for ``line_pcr_impl`` on ``device``:
+    ``"kernels"`` (the PCR kernels, and on CPU tensors their plain
+    versions) for ``pallas_sublane`` anywhere and for ``xla`` on a CUDA
+    device, ``"plain"`` (the plain torch PCR) for ``xla`` on the CPU, where
+    its results stay what they were. On the card the plain PCR is the
+    kernels' plain version, for tests only."""
+    if pcr_impl not in ("xla", "pallas_sublane"):
+        raise NotImplementedError(
+            f"stress_balance.ssa.fd.line_pcr_impl = {pcr_impl!r} is not "
+            "implemented in pism_tpu_torch (supported: 'xla', 'pallas_sublane')")
+    if pcr_impl == "pallas_sublane" or torch.device(device).type == "cuda":
+        return "kernels"
+    return "plain"
+
+
 def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh,
-                             pcr_impl: str = "xla"):
+                             pcr_impl: str = "xla", _plain_pcr: bool = False):
     """Alternating-direction line preconditioner: the u-equation is relaxed
     exactly along x-lines and the v-equation along y-lines, with the
     transverse and drag terms lumped on the diagonal. Each application is
     one batched PCR solve per component (the JAX package's
     ``line_pcr_dtype = f32``, ``line_block = 0``).
 
-    ``pcr_impl``: ``xla`` solves with the plain torch PCR, the v-lines on the
-    transposed layout; ``pallas_sublane`` with the PCR kernels
-    (``ops/kernels/pcr.py``) directly on the (My, Mx) layout, the u-lines
-    along its last axis and the v-lines along axis -2, so no transposes:
-    the lines are factored when the preconditioner is built, and an
-    application is two apply launches and nothing else. An ensemble's (B,
-    My, Mx) fields take both routes as they are, the kernels launched once
-    for all members."""
-    if pcr_impl not in ("xla", "pallas_sublane"):
-        raise NotImplementedError(
-            f"stress_balance.ssa.fd.line_pcr_impl = {pcr_impl!r} is not "
-            "implemented in pism_tpu_torch (supported: 'xla', 'pallas_sublane')")
+    The route is ``line_route(pcr_impl, device)``. ``"kernels"``: the PCR
+    kernels (``ops/kernels/pcr.py``) directly on the (My, Mx) layout, the
+    u-lines along its last axis and the v-lines along axis -2, so no
+    transposes: the lines are factored when the preconditioner is built,
+    and an application is two apply launches and nothing else.
+    ``"plain"``: the plain torch PCR, the v-lines on the transposed layout.
+    ``_plain_pcr`` takes the plain route on any device (tests and the card
+    check compare the routes with it). An ensemble's (B, My, Mx) fields
+    take both routes as they are, the kernels launched once for all
+    members."""
+    route = line_route(pcr_impl, beta.device)
     au, cu, bu, av, cv, bv = line_systems(nuH, beta, bc_mask, dx, dy, sh)
-    if pcr_impl == "pallas_sublane":
+    if route == "kernels" and not _plain_pcr:
         # the lines are factored here, with the unit diagonal implicit; an
         # application is two apply launches on residuals of the
         # coefficients' dtype (pcr_apply raises on another)

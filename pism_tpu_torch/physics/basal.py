@@ -2,7 +2,8 @@
 stress and the (pseudo-)plastic sliding-law drag coefficient.
 
 - Mohr-Coulomb: tau_c = c0 + tan(phi) N_till, with N_till from the till
-  water amount (Bueler & van Pelt 2015); phi the state's ``till_phi`` field
+  water amount (Bueler & van Pelt 2015; with ``add_transportable_water``
+  the routed layer's tlftw log1p(W / 0.1) added to it); phi the state's ``till_phi`` field
   (an ensemble's members may differ in it), from the bed elevation with
   ``topg_to_phi``, and no till drag at marine grounding lines with
   ``slippery_grounding_lines``;
@@ -35,9 +36,8 @@ class MohrCoulombYieldStress:
     def __post_init__(self):
         cfg = self.config
         require(cfg, "basal_yield_stress.model", ("mohr_coulomb",))
-        for flag in ("basal_yield_stress.mohr_coulomb.tillphi_opt.enabled",
-                     "basal_yield_stress.add_transportable_water"):
-            require(cfg, flag, (False,))
+        require(cfg, "basal_yield_stress.mohr_coulomb.tillphi_opt.enabled",
+                (False,))
         require(cfg, "basal_yield_stress.mohr_coulomb.delta.file", ("",))
         self.c0 = cfg.get_number("basal_yield_stress.mohr_coulomb.till_cohesion")
         self.phi_default = cfg.get_number(
@@ -59,6 +59,10 @@ class MohrCoulombYieldStress:
         self.t2p = tuple(cfg.get_number(
             "basal_yield_stress.mohr_coulomb.topg_to_phi." + k)
             for k in ("phi_min", "phi_max", "topg_min", "topg_max"))
+        self.add_transportable = cfg.get_flag(
+            "basal_yield_stress.add_transportable_water")
+        self.tlftw = cfg.get_number(
+            "basal_yield_stress.mohr_coulomb.till_log_factor_transportable_water")
         self.slippery_gl = cfg.get_flag(
             "basal_yield_stress.slippery_grounding_lines")
 
@@ -83,6 +87,12 @@ class MohrCoulombYieldStress:
         P_ov = self.rho_i * self.g * H
         tillwat = state.tillwat if state.tillwat is not None \
             else torch.zeros_like(H)
+        if self.add_transportable and state.hydro_W is not None:
+            # the routed transportable layer weakens the till on top of the
+            # till water, by a log-saturating term
+            tillwat = torch.clamp(
+                tillwat + self.tlftw * torch.log1p(state.hydro_W / 0.1),
+                0.0, self.W_max)
         N = self.effective_pressure(tillwat, torch.clamp(P_ov, min=1.0))
         if state.till_phi is not None:
             tan_phi = torch.tan(torch.deg2rad(state.till_phi))

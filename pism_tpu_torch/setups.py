@@ -3,7 +3,9 @@
 ``hybrid_greenland_model`` is the synthetic-Greenland hybrid chain that
 ``bench.py`` measures (``bench.py:151-193``), reproduced number for number:
 extents, grid, config, geometry, latitude/longitude/precipitation, and the
-float64 -> float32 cast after ``prepare_state``. ``eismint2_model`` is
+float64 -> float32 cast after ``prepare_state``; its ``hydrology`` and
+``frontal_melt`` options add PISM's ``-hydrology`` choice and the
+discharge-routing frontal melt to that chain. ``eismint2_model`` is
 ``bench.py``'s second chain, EISMINT II experiment A (``bench.py:95-103``).
 ``halfar_model`` is the isothermal verification chain, Halfar tests B and
 C, with ``halfar_report`` its error report. ``antarctica_pik_model`` is
@@ -43,7 +45,7 @@ from .coupler.ocean import Constant as OceanConstant
 from .coupler.pdd import TemperatureIndex
 from .grid import Grid
 from .model.icemodel import IceModel
-from .state import ModelState, map_tensors, new_geometry
+from .state import ModelState, grounded_ice, map_tensors, new_geometry
 
 SPY = 3.15569259747e7
 
@@ -55,11 +57,20 @@ def to_dtype(state: ModelState, dtype) -> ModelState:
 
 
 def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cuda",
-                           extra_cfg=None, mesh=None):
+                           extra_cfg=None, mesh=None, hydrology=None,
+                           frontal_melt=None):
     """The north-star chain: returns (model, initial state, grid).
 
     ``dtype``: "float32" or "float64" field precision; ``device``: the torch
-    device every field lives on; ``mesh``: see the module's docstring."""
+    device every field lives on; ``mesh``: see the module's docstring.
+    ``hydrology``: PISM's ``-hydrology`` choice (``routing``,
+    ``distributed`` or ``steady``; None keeps the null model), fed by the
+    PDD's runoff (``surface_input_from_runoff``), from a till saturated
+    under the grounded ice (as a spun-up till is where water reaches the
+    bed; an empty till would hold all the water of the first years), with
+    the routed water weakening the till (``add_transportable_water``);
+    ``frontal_melt="routing"``: the discharge-routing frontal melt on a
+    synthetic thermal forcing, 1-4 K, warmer to the south."""
     device = torch.device(device)
     Lx, Ly = 750e3, 1400e3
     Mx = int(2 * Lx / (km * 1e3)) + 1
@@ -83,6 +94,12 @@ def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cuda",
         "runtime.float_dtype": dtype,
         "runtime.device_loop": True,
     })
+    if hydrology is not None:
+        cfg.update({"hydrology.model": hydrology,
+                    "hydrology.surface_input_from_runoff": True,
+                    "basal_yield_stress.add_transportable_water": True})
+    if frontal_melt is not None:
+        cfg.update({"frontal_melt.models": frontal_melt})
     if extra_cfg:
         cfg.update(extra_cfg)
 
@@ -100,10 +117,22 @@ def hybrid_greenland_model(dtype: str, km: float = 20.0, device="cuda",
     atm = SeariseGreenland(latitude=t64(lat), longitude=t64(lon),
                            precipitation=t64(precip))
     surface = TemperatureIndex(atmosphere=atm, config=cfg)
+    fm = None
+    if frontal_melt is not None:
+        from .coupler.frontalmelt import frontal_melt_from_config
+        theta = 1.0 + 3.0 * (83.0 - lat) / 23.0
+        fm = frontal_melt_from_config(cfg, grid,
+                                      inputs={"theta_ocean": t64(theta)})
     model = IceModel(grid=grid, config=cfg, surface=surface,
-                     ocean=OceanConstant(config=cfg), device=device, mesh=mesh)
-    state = model.prepare_state(ModelState(geometry=new_geometry(
-        t64(H), t64(bed))))
+                     ocean=OceanConstant(config=cfg), device=device, mesh=mesh,
+                     frontal_melt=fm)
+    geometry = new_geometry(t64(H), t64(bed))
+    tillwat = None
+    if hydrology is not None:
+        tillwat = torch.where(grounded_ice(geometry.cell_type),
+                              cfg.get_number("hydrology.tillwat_max"), 0.0
+                              ).to(torch.float64)
+    state = model.prepare_state(ModelState(geometry=geometry, tillwat=tillwat))
     if dtype == "float32":
         state = to_dtype(state, torch.float32)
     return model, state, grid

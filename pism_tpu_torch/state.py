@@ -163,6 +163,9 @@ class ModelState:
     v_ssa: Optional[torch.Tensor] = None
     tillwat: Optional[torch.Tensor] = None            # till water thickness m
     till_phi: Optional[torch.Tensor] = None           # till friction angle deg
+    hydro_W: Optional[torch.Tensor] = None            # transportable water m
+    hydro_P: Optional[torch.Tensor] = None            # water pressure Pa
+    hydro_Q: Optional[torch.Tensor] = None            # steady discharge m^2/s
     geothermal_flux: Optional[torch.Tensor] = None    # 2D bheatflx W/m^2
     snow_depth: Optional[torch.Tensor] = None         # PDD snow bookkeeping m
     firn_depth: Optional[torch.Tensor] = None         # PDD firn bookkeeping m

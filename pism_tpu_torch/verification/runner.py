@@ -7,8 +7,9 @@ oscillation), E (test A's cap with prescribed sliding in a sector), F
 (thermo-coupled steady dome, the manufactured-solution analog), G (test F
 plus a time-periodic wobble), H (moving margin with pointwise isostasy),
 K (cold conduction column with the bedrock thermal layer), L (steady cap
-on a non-flat bed) and O (warm-based conduction column, exact basal melt
-rate). B and C, the Halfar similarity solutions, are
+on a non-flat bed), O (warm-based conduction column, exact basal melt
+rate) and P (the routing hydrology against its radial steady state,
+``hydrology_exact.py``). B and C, the Halfar similarity solutions, are
 ``setups.halfar_model`` (the CLI's ``-test B/C`` route); I, J, M, V and N
 are ``ssa_tests.py``. Every other letter raises ``NotImplementedError``.
 
@@ -23,7 +24,7 @@ import torch
 
 SPY = 3.15569259747e7
 
-SUPPORTED = "ADEFGHKLO"
+SUPPORTED = "ADEFGHKLOP"
 
 
 def _report(title, rows):
@@ -377,16 +378,64 @@ def run_O(Mz=41, years=300000.0, config=None, device="cuda"):
     return errs
 
 
+def run_P(Mx=51, years=2.5, config=None, device="cuda"):
+    """Routing hydrology against the exact radial steady state: weekly
+    steps of ``Routing`` alone from a dry layer under a saturated till."""
+    from ..config import Config
+    from ..grid import Grid
+    from ..physics.hydrology import Routing
+    from ..state import ModelState, new_geometry
+    from .hydrology_exact import RoutingSteady
+
+    sol = RoutingSteady()
+    grid = Grid(Mx=Mx, My=Mx, Lx=30e3, Ly=30e3)
+    cfg = Config({
+        "hydrology.model": "routing",
+        "hydrology.tillwat_decay_rate": 0.0,
+        "hydrology.hydraulic_conductivity": sol.k,
+        "hydrology.alpha": sol.alpha,
+        "hydrology.beta": sol.beta,
+    })
+    if config:
+        cfg.update(config)
+    r = grid.radius
+    W_max = cfg.get_number("hydrology.tillwat_max")
+
+    def t64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    state = ModelState(
+        geometry=new_geometry(t64(sol.thickness(r)), t64(sol.bed(r))),
+        tillwat=t64(np.full(grid.shape2, W_max)),
+        basal_melt_rate=t64(np.where(r < sol.R_i, sol.melt, 0.0)),
+        hydro_W=t64(np.zeros(grid.shape2)))
+    hydro = Routing(grid=grid, config=cfg)
+    week = 7.0 * 24 * 3600.0
+    for _ in range(int(years * SPY / week)):
+        state = hydro.step(state, week)
+    W = state.hydro_W.cpu().numpy()
+    We = sol.water_thickness(r)
+    sel = (r > 0.2 * sol.R_i) & (r < 0.9 * sol.R_i)
+    rel = np.abs(W[sel] - We[sel]) / We[sel]
+    errs = {"max_W": float(np.abs(W[sel] - We[sel]).max()),
+            "avg_W": float(np.abs(W[sel] - We[sel]).mean()),
+            "median_rel_prcnt": 100.0 * float(np.median(rel))}
+    _report(f"test P (routing steady state, {years:.1f} a, {Mx}x{Mx})",
+            [("hydro W", errs)])
+    return errs
+
+
 def run_test(letter, *, Mx=None, My=None, Mz=None, years=None, config=None,
              device="cuda"):
     """Dispatch a verification run by pismv letter (A, D, E, F, G, H, K, L,
-    O). Returns the error dict (also printed as a pismv-style table). The
+    O, P). Returns the error dict (also printed as a pismv-style table). The
     runs are on square grids, so ``My`` is accepted, as the JAX package's
     runner accepts it, and unused; ``Mz`` sets F, G, K and O's levels and
     ``Mx`` is unused by K and O."""
     letter = str(letter).upper()
     fn = {"A": run_A, "D": run_D, "E": run_E, "F": run_F, "G": run_G,
-          "H": run_H, "K": run_K, "L": run_L, "O": run_O}.get(letter)
+          "H": run_H, "K": run_K, "L": run_L, "O": run_O,
+          "P": run_P}.get(letter)
     if fn is None:
         raise NotImplementedError(
             f"verification test {letter!r} is not implemented in "

@@ -248,7 +248,7 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "J", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
     ["-test", "M", "-config", "stress_balance.ssa.fd.krylov_method=cg"],
     ["-test", "N", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
-    ["-test", "P"],
+    ["-test", "B", "-Mx", "11", "-surface", "elevation"],
     ["-test", "V", "-config", "stress_balance.ssa.fd.line_block=64"],
     ["-test", "B", "-Mx", "11", "-config", "grid.Nx=2",
      "-config", "grid.Ny=2"],
@@ -883,3 +883,65 @@ def test_pik_restart_continues_to_the_bit(pik):
     # the restart's year moved the bed
     first = t_ckpt.load_state(pik["files"]["torch", "run"], device="cpu")[0]
     assert not torch.equal(rst.bed_uplift, first.bed_uplift)
+
+
+def test_test_P_through_main_equals_run_P(capsys):
+    """``-test P`` through the port's ``cli.main`` prints the report of
+    ``runner.run_P`` on the same grid and run length."""
+    from pism_tpu_torch.verification import runner
+
+    assert t_cli.main(["-test", "P", "-Mx", "21", "-y", "0.25",
+                       "-platform", "cpu"]) == 0
+    via_main = capsys.readouterr().out
+    runner.run_P(Mx=21, years=0.25, device="cpu")
+    assert via_main == capsys.readouterr().out
+    assert "test P (routing steady state, 0.2 a, 21x21)" in via_main
+
+
+@pytest.mark.parametrize("hydrology", ["routing", "distributed", "steady"])
+def test_hydrology_refused_on_member_axis_and_mesh(hydrology):
+    """``-hydrology routing|distributed|steady`` on an ensemble's member axis
+    and under a mesh raises, naming ROADMAP Queue 1 items 3 and 10."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.parallel import make_mesh
+    from pism_tpu_torch.parallel.ensemble import EnsembleRunner
+
+    model, *_ = setups.hybrid_ensemble_model(
+        2, 200.0, "float64", device="cpu",
+        extra_cfg={"hydrology.model": hydrology})
+    with pytest.raises(NotImplementedError, match="item 3"):
+        EnsembleRunner(model)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        setups.hybrid_greenland_model("float64", 200.0, device="cpu",
+                                      hydrology=hydrology,
+                                      mesh=make_mesh(["cpu"] * 4, (2, 2)))
+
+
+def test_hydrology_flag_runs(tmp_path):
+    """``-hydrology routing`` builds the routing model in a restart of the
+    hybrid chain, and its state is saved as ``bwat``."""
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.physics.hydrology import Routing
+
+    model, state, grid = setups.hybrid_greenland_model("float64", 200.0,
+                                                       device="cpu")
+    src, out = str(tmp_path / "s.nc"), str(tmp_path / "o.nc")
+    t_ckpt.save_state(src, state, grid, 0.0, config=model.config,
+                      format="netcdf3")
+    built = []
+    orig = Routing.__post_init__
+
+    def spy(self):
+        orig(self)
+        built.append(self)
+
+    Routing.__post_init__ = spy
+    try:
+        assert t_cli.main(["-i", src, "-hydrology", "routing", "-y", "0.2",
+                           "-o", out, "-o_format", "netcdf3", "-platform",
+                           "cpu", "-verbose", "0", "-surface", "uniform"]) == 0
+    finally:
+        Routing.__post_init__ = orig
+    assert built
+    with File(out, "r") as f:
+        assert f.has_variable("bwat")

@@ -640,9 +640,6 @@ GATED_PIK = {
     **{_OPT + k: _OPT + "enabled"
        for k in ("dh_min", "dphi_max", "dphi_scale", "dt", "phi_max",
                  "phi_min")},
-    "basal_yield_stress.mohr_coulomb.till_log_factor_transportable_water":
-    "basal_yield_stress.add_transportable_water",
-    "frontal_melt.include_floating_ice": "frontal_melt.models",
 }
 GATED = {**GATED_PDD, **GATED_PIK}
 #: read by the JAX PDD and never used there (pism_tpu/coupler/pdd.py:83)

@@ -1585,3 +1585,41 @@ def test_lingle_clark_members_equal_single_solves(cuda, dtype):
         assert torch.equal(got.bed_uplift[b], want.bed_uplift), b
         assert torch.equal(got.geometry.bed_elevation[b],
                            want.geometry.bed_elevation), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_default_line_preconditioner_launches_the_pcr_kernels(cuda, dtype):
+    """The default ``line_pcr_impl = xla`` on the card: the preconditioner
+    of the 100 km chain's own linearization takes the PCR kernels (factor
+    launches at its build, apply launches per application) and agrees with
+    the plain PCR (``_plain_pcr=True``) to 1e-5 relative; the plain route
+    launches nothing."""
+    model, state, grid = setups.hybrid_greenland_model(dtype, 100.0,
+                                                       device=cuda)
+    assert model.ssa.pcr_impl == "xla"
+    tau_c = model.yield_stress.compute(state, t=0.0)
+    P = model.ssa.build_problem(state, tau_c)
+    u, v = P["free"]((state.u_ssa, state.v_ssa))
+    nuH, beta = P["make_nuH"](u, v), P["beta_fn"](u, v)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r = tuple(torch.randn(u.shape, generator=g, device=cuda, dtype=u.dtype)
+              for _ in range(2))
+    counts = (K2.FACTOR_LAUNCHES, K2.SUB_FACTOR_LAUNCHES, K2.LAUNCHES,
+              K2.SUB_LAUNCHES)
+    pre = ssa_ops.make_line_preconditioner(
+        nuH, beta, P["bc_mask"], grid.dx, grid.dy, model.sh, "xla")
+    got = pre(r)
+    torch.cuda.synchronize()
+    after = (K2.FACTOR_LAUNCHES, K2.SUB_FACTOR_LAUNCHES, K2.LAUNCHES,
+             K2.SUB_LAUNCHES)
+    assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 1]
+    plain = ssa_ops.make_line_preconditioner(
+        nuH, beta, P["bc_mask"], grid.dx, grid.dy, model.sh, "xla",
+        _plain_pcr=True)
+    ref = plain(r)
+    torch.cuda.synchronize()
+    assert (K2.FACTOR_LAUNCHES, K2.SUB_FACTOR_LAUNCHES, K2.LAUNCHES,
+            K2.SUB_LAUNCHES) == after
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5

@@ -139,7 +139,7 @@ def test_config_lookups_match():
     {"stress_balance.ssa.fd.preconditioner": "linemg"},
     {"stress_balance.ssa.fd.krylov_method": "cg"},
     {"grid.periodicity": "xy"},
-    {"hydrology.model": "routing"},
+    {"basal_yield_stress.mohr_coulomb.tillphi_opt.enabled": True},
     {"bed_deformation.model": "given"},
     {"calving.methods": "prescribed_retreat"},
     {"surface.pdd.method": "random_process"},

@@ -2,9 +2,10 @@
 package's: a saved state reads back to the bit in both formats (absent
 fields stay absent); a file written by either package is read by the
 other with equal arrays, time, grid and non-default config, in both
-formats; a run restarted through a file is bit-identical to the
+formats (the hydrology's ``bwat``, ``bwp`` and ``bwatflux`` among the
+fields); a run restarted through a file is bit-identical to the
 uninterrupted one (``tests/test_io.py``'s Halfar B and hybrid-chain-with-
-PDD cases); and NetCDF-4 without h5py raises, naming ``-o_format
+PDD cases, and the latter with routing and distributed hydrology); and NetCDF-4 without h5py raises, naming ``-o_format
 netcdf3``. Inputs are made by numpy from a seed.
 """
 
@@ -32,7 +33,8 @@ GRID = dict(Mx=11, My=9, Lx=100e3, Ly=80e3, Mz=5, Lz=3000.0, Mbz=3,
             Lbz=500.0)
 CFG = {"grid.Mx": 11, "stress_balance.sia.enhancement_factor": 3.0,
        "time.calendar": "360_day", "run_info.title": "io test"}
-FIELDS2 = ("basal_melt_rate", "u_ssa", "v_ssa", "tillwat", "snow_depth")
+FIELDS2 = ("basal_melt_rate", "u_ssa", "v_ssa", "tillwat", "snow_depth",
+           "hydro_W", "hydro_P", "hydro_Q")
 
 
 def _arrays(seed):
@@ -160,7 +162,7 @@ def _halfar(fmt, tmp_path):
     return model, state0, grid, cfg, sol.t0, 50 * SPY, 100 * SPY
 
 
-def _hybrid_pdd(fmt, tmp_path):
+def _hybrid_pdd(fmt, tmp_path, hydrology="null"):
     from pism_tpu_torch.coupler.atmosphere import SeariseGreenland
     from pism_tpu_torch.coupler.pdd import TemperatureIndex
     from pism_tpu_torch.model.icemodel import IceModel
@@ -170,8 +172,13 @@ def _hybrid_pdd(fmt, tmp_path):
                   "energy.model": "enthalpy",
                   "basal_resistance.pseudo_plastic.enabled": True,
                   "basal_yield_stress.model": "mohr_coulomb",
-                  "hydrology.model": "null",
+                  "hydrology.model": hydrology,
                   "geometry.part_grid.enabled": True})
+    if hydrology != "null":
+        # the routed water from the PDD's runoff, over a saturated till
+        cfg.update({"hydrology.surface_input_from_runoff": True,
+                    "hydrology.tillwat_decay_rate": 0.0,
+                    "basal_yield_stress.add_transportable_water": True})
     X, Y = np.meshgrid(grid.x, grid.y)
     r2 = (X / 150e3) ** 2 + (Y / 190e3) ** 2
     bed = torch.as_tensor(200.0 - 700.0 * r2)
@@ -183,15 +190,28 @@ def _hybrid_pdd(fmt, tmp_path):
     model = IceModel(grid=grid, config=cfg,
                      surface=TemperatureIndex(atmosphere=atm, config=cfg),
                      device="cpu")
-    state0 = model.prepare_state(ModelState(geometry=new_geometry(H, bed)))
+    state0 = model.prepare_state(ModelState(
+        geometry=new_geometry(H, bed),
+        tillwat=None if hydrology == "null" else torch.full_like(H, 2.0)))
     return model, state0, grid, cfg, 0.0, 0.75 * SPY, 1.5 * SPY
+
+
+def _hybrid_routing(fmt, tmp_path):
+    return _hybrid_pdd(fmt, tmp_path, "routing")
+
+
+def _hybrid_distributed(fmt, tmp_path):
+    return _hybrid_pdd(fmt, tmp_path, "distributed")
 
 
 @pytest.mark.parametrize("case,fmt", [(_halfar, "netcdf4"),
                                       (_halfar, "netcdf3"),
-                                      (_hybrid_pdd, "netcdf3")],
+                                      (_hybrid_pdd, "netcdf3"),
+                                      (_hybrid_routing, "netcdf4"),
+                                      (_hybrid_distributed, "netcdf3")],
                          ids=["halfar_B-netcdf4", "halfar_B-netcdf3",
-                              "hybrid_pdd-netcdf3"])
+                              "hybrid_pdd-netcdf3", "hybrid_routing-netcdf4",
+                              "hybrid_distributed-netcdf3"])
 def test_restart_through_file_bit_stable(tmp_path, fmt, case):
     """Two segments in memory against the same two with the state saved
     and read back between them: every field of the end state equal to the
@@ -208,7 +228,8 @@ def test_restart_through_file_bit_stable(tmp_path, fmt, case):
     sB3, tB3, _ = model.step_once(sB2, tB2, t0 + total - tB2)
     assert tB3 == tA
     for name in ("enthalpy", "u_ssa", "v_ssa", "snow_depth", "firn_depth",
-                 "basal_melt_rate", "tillwat"):
+                 "basal_melt_rate", "tillwat", "hydro_W", "hydro_P",
+                 "hydro_Q"):
         a, b = getattr(sA, name), getattr(sB3, name)
         assert (a is None) == (b is None), name
         if a is not None:
@@ -216,6 +237,11 @@ def test_restart_through_file_bit_stable(tmp_path, fmt, case):
     assert torch.equal(sA.geometry.ice_thickness, sB3.geometry.ice_thickness)
     if case is _hybrid_pdd:
         assert float(sB.snow_depth.max()) > 0
+    if case in (_hybrid_routing, _hybrid_distributed):
+        assert float(sB.hydro_W.max()) > 0
+        with File(path, "r") as f:
+            assert f.has_variable("bwat") and f.has_variable("bwp") \
+                == (case is _hybrid_distributed)
 
 
 _NO_H5PY = """
@@ -297,3 +323,82 @@ def test_append_diagnostics_equals_one_pass(tmp_path):
         for v in a.variables():
             np.testing.assert_array_equal(a.read(v), b.read(v), v)
             assert a.read_attrs(v).get("units") == b.read_attrs(v).get("units")
+
+
+HYDRO_DIAGS = ("bwat", "bwp", "bwprel", "effbwp", "hydraulic_potential",
+               "bwatflux", "bwatvel_x", "bwatvel_y", "wallmelt",
+               "frontal_melt_rate", "frontal_melt_retreat_rate",
+               "total_retreat_rate")
+
+
+@pytest.mark.parametrize("hydrology", ["routing", "distributed", "steady"])
+def test_hydrology_and_frontal_melt_diagnostics_match(hydrology):
+    """The hydrology's and the frontal melt's spatial diagnostics equal the
+    JAX package's on one state (1e-12 relative)."""
+    from pism_tpu.coupler.surface import Uniform as JUniform
+    from pism_tpu.model import diagnostics as j_dg
+    from pism_tpu.model.icemodel import IceModel as JIceModel
+    from pism_tpu_torch.coupler.surface import Uniform
+    from pism_tpu_torch.model import diagnostics as dg
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    over = {"stress_balance.model": "ssa+sia", "energy.model": "enthalpy",
+            "basal_yield_stress.model": "mohr_coulomb",
+            "hydrology.model": hydrology,
+            "calving.methods": "eigen_calving",
+            "calving.eigen_calving.K": 3.0e16,
+            "frontal_melt.models": "constant",
+            "frontal_melt.constant.melt_rate": 150.0,
+            "frontal_melt.include_floating_ice": True}
+    g = Grid(Mx=20, My=24, Lx=200e3, Ly=240e3, Mz=5, Lz=3000.0)
+    a = _arrays(21)
+    rng = np.random.default_rng(22)
+    H = np.where(a["bed"] < 200.0, a["H"], 0.0)[:9, :11]
+    H = np.pad(H, ((0, 15), (0, 9)))
+    bed = np.pad(a["bed"][:9, :11], ((0, 15), (0, 9)), constant_values=-600.0)
+    f = {"hydro_W": rng.uniform(0.0, 0.4, g.shape2),
+         "hydro_P": 910.0 * 9.81 * H * rng.uniform(0.2, 1.0, g.shape2),
+         "hydro_Q": rng.uniform(0.0, 1e-2, g.shape2),
+         "u_ssa": rng.normal(0.0, 1e-5, g.shape2),
+         "v_ssa": rng.normal(0.0, 1e-5, g.shape2),
+         "tillwat": rng.uniform(0.0, 2.0, g.shape2)}
+    if hydrology != "distributed":
+        f.pop("hydro_P")
+    if hydrology != "steady":
+        f.pop("hydro_Q")
+    jm = JIceModel(grid=JGrid(**{k: getattr(g, k) for k in
+                                 ("Mx", "My", "Lx", "Ly", "Mz", "Lz")}),
+                   config=JConfig(over), surface=JUniform())
+    tm = IceModel(grid=g, config=Config(over), surface=Uniform(),
+                  device="cpu")
+    js = JModelState(geometry=j_new_geometry(jnp.asarray(H),
+                                             jnp.asarray(bed)),
+                     **{k: jnp.asarray(v) for k, v in f.items()})
+    ts = ModelState(geometry=new_geometry(torch.tensor(H), torch.tensor(bed)),
+                    **{k: torch.tensor(v) for k, v in f.items()})
+    for name in HYDRO_DIAGS:
+        want = np.asarray(j_dg.SPATIAL[name].func(js, jm, 0.0))
+        got = dg.SPATIAL[name].func(ts, tm, 0.0).numpy()
+        scale = max(np.abs(want).max(), 1e-300)
+        assert np.abs(got - want).max() <= 1e-12 * scale, name
+    assert float(np.abs(dg.SPATIAL["frontal_melt_retreat_rate"].func(
+        ts, tm, 0.0)).max()) > 0.0
+
+
+def test_subglacial_water_window_counts_the_routed_layer(tmp_path):
+    """The reporting window's water amount is the till's plus the routed
+    layer's, as the JAX output samples it, so
+    ``tendency_of_subglacial_water_mass`` sees the routed water."""
+    from pism_tpu_torch.model.output import OutputManager
+
+    model, state0, grid, cfg, *_ = _hybrid_routing("netcdf3", tmp_path)
+    W = torch.as_tensor(np.random.default_rng(23).uniform(
+        0.0, 0.5, grid.shape2))
+    state = state0.replace(hydro_W=W)
+    out = OutputManager(grid=grid, config=cfg, format="netcdf3",
+                        extra_vars=("tendency_of_subglacial_water_mass",),
+                        extra_times=[0.0, SPY],
+                        extra_file=str(tmp_path / "ex.nc"))
+    assert out.needs_cell_budget
+    s = out._sample(state, 0.0, model, None, cells=True)
+    np.testing.assert_array_equal(s["water"], (state.tillwat + W).numpy())

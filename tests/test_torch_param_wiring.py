@@ -4,7 +4,9 @@ every key the JAX twins read on this path is read by the port on the same
 path, or the port raises NotImplementedError when it (or the key that
 gates its use) is set off its default, as
 ``tests/test_torch_coupler_factory.py::test_parameter_wiring`` holds the
-bootstrap, coupler and PIK modules."""
+bootstrap, coupler and PIK modules; and of the hydrology and frontal-melt
+slice (every ``hydrology.*`` and ``frontal_melt.*`` key the JAX twins read
+is read by the port)."""
 
 import numpy as np
 import pytest
@@ -102,3 +104,97 @@ def test_mismip_parameter_wiring(tmp_path):
     # a flow law the port lacks is refused on this path
     with pytest.raises(NotImplementedError):
         _reads("torch", dict(over, **{"stress_balance.ssa.flow_law": "hooke"}))
+
+
+#: the keys of the hydrology and frontal-melt slice: every ``hydrology.*``
+#: and ``frontal_melt.*`` key, and the yield stress's transportable water
+SLICE_KEYS = ("basal_yield_stress.add_transportable_water",
+              "basal_yield_stress.mohr_coulomb."
+              "till_log_factor_transportable_water")
+
+
+def _slice(keys):
+    return {k for k in keys
+            if k.startswith(("hydrology.", "frontal_melt.")) or k in SLICE_KEYS}
+
+
+def _slice_reads(pkg, over):
+    """The slice's modules on a small cap: the hydrology of the factory
+    (a step; the steady model's with a stored discharge and its step end),
+    the Mohr-Coulomb yield stress, the frontal melt of the factory and the
+    front retreat it drives."""
+    import jax.numpy as jnp
+    import torch
+    if pkg == "jax":
+        from pism_tpu import state as S
+        from pism_tpu.coupler.frontalmelt import frontal_melt_from_config
+        from pism_tpu.grid import Grid
+        from pism_tpu.model.calving import CalvingModel
+        from pism_tpu.physics import basal
+        from pism_tpu.physics.hydrology import hydrology_from_config
+        arr, cfg = jnp.asarray, JConfig(dict(over))
+    else:
+        from pism_tpu_torch import state as S
+        from pism_tpu_torch.coupler.frontalmelt import frontal_melt_from_config
+        from pism_tpu_torch.grid import Grid
+        from pism_tpu_torch.model.calving import CalvingModel
+        from pism_tpu_torch.physics import basal
+        from pism_tpu_torch.physics.hydrology import hydrology_from_config
+        arr, cfg = torch.tensor, Config(dict(over))
+    grid = Grid(Mx=9, My=7, Lx=20e3, Ly=15e3)
+    X, Y = np.meshgrid(grid.x, grid.y)
+    H = np.maximum(800.0 * (1.0 - (X / 15e3) ** 2 - (Y / 11e3) ** 2), 0.0)
+    z = np.zeros(grid.shape2)
+    state = S.ModelState(
+        geometry=S.new_geometry(arr(H), arr(-0.004 * np.abs(X) - 20.0)),
+        tillwat=arr(z + 2.0), basal_melt_rate=arr(z + 1e-9),
+        hydro_W=arr(z + 0.1), hydro_Q=arr(z), u_ssa=arr(z), v_ssa=arr(z))
+    hyd = hydrology_from_config(grid, cfg) if pkg == "jax" \
+        else hydrology_from_config(grid, cfg, device="cpu")
+    kw = {"t": 20.0 * 3.15569259747e7} if type(hyd).__name__ == "Steady" \
+        else {}
+    state = hyd.step(state, 1e5, **kw)
+    basal.MohrCoulombYieldStress(cfg).compute(state)
+    fields = {k: arr(z + 1.0) for k in ("frontal_melt_rate", "theta_ocean",
+                                         "subglacial_discharge")}
+    fm = frontal_melt_from_config(cfg, grid, inputs=fields)
+    if fm is not None:
+        rate = fm(state.geometry, 0.0, state=state)
+        CalvingModel(grid=grid, config=cfg, methods=("none",)).step(
+            state.geometry, None, 1e5, frontal_melt_rate=rate)
+    return _slice(cfg.used_parameters())
+
+
+def _input_file(path):
+    from scipy.io import netcdf_file
+    from pism_tpu_torch import Grid
+    g = Grid(Mx=9, My=7, Lx=20e3, Ly=15e3)
+    with netcdf_file(str(path), "w") as f:
+        f.createDimension("x", g.Mx)
+        f.createDimension("y", g.My)
+        f.createVariable("x", "d", ("x",))[:] = g.x
+        f.createVariable("y", "d", ("y",))[:] = g.y
+        f.createVariable("water_input_rate", "d", ("y", "x"))[:] = \
+            np.full(g.shape2, 1e-9)
+
+
+@pytest.mark.parametrize("hydrology", ["null", "routing", "distributed",
+                                       "steady"])
+@pytest.mark.parametrize("frontal_melt", ["", "constant", "given", "routing",
+                                          "discharge_given"])
+def test_hydrology_frontal_melt_parameter_wiring(tmp_path, hydrology,
+                                                 frontal_melt):
+    """Every ``hydrology.*`` and ``frontal_melt.*`` key, and the yield
+    stress's transportable-water pair, that the JAX twins read on this
+    slice is read by the port on the same path."""
+    path = tmp_path / "input.nc"
+    _input_file(path)
+    over = {"hydrology.model": hydrology,
+            "hydrology.surface_input.file": str(path),
+            "hydrology.surface_input_from_runoff": True,
+            "basal_yield_stress.add_transportable_water": True,
+            "frontal_melt.models": frontal_melt}
+    jax_reads = _slice_reads("jax", over)
+    port_reads = _slice_reads("torch", over)
+    assert SLICE_KEYS[0] in jax_reads and "hydrology.model" in jax_reads
+    assert jax_reads - port_reads == set()

@@ -239,3 +239,36 @@ def test_preconditioner_routes_agree(frozen_system):
         assert _rel(a.numpy(), b.numpy()) <= 1e-15
     with pytest.raises(NotImplementedError):
         _torch_precond(frozen_system, "pallas")
+
+
+@pytest.mark.parametrize("impl,device,route", [
+    ("xla", "cuda", "kernels"), ("xla", "cuda:0", "kernels"),
+    ("xla", "cpu", "plain"), ("pallas_sublane", "cuda", "kernels"),
+    ("pallas_sublane", "cpu", "kernels")])
+def test_line_route(impl, device, route):
+    """The default ``line_pcr_impl = xla`` takes the PCR kernels on the card
+    and the plain PCR on the CPU; ``pallas_sublane`` takes the kernels (and
+    on CPU tensors their plain versions) everywhere."""
+    assert t_ssa.line_route(impl, torch.device(device)) == route
+
+
+def test_plain_pcr_argument(frozen_system):
+    """``_plain_pcr`` takes the plain route under either ``line_pcr_impl``:
+    on the CPU the default preconditioner is unchanged to the bit by it,
+    and ``pallas_sublane`` with it equals the default."""
+    jg, tg, bc, nuHe, nuHn, beta, r = frozen_system
+    T = torch.from_numpy
+
+    def apply(impl, **kw):
+        tp = t_ssa.make_line_preconditioner(
+            t_ssa.NuH(T(nuHe), T(nuHn)), T(beta), T(bc), jg.dx, jg.dy,
+            TShifter(tg), impl, **kw)
+        return tp((T(r[0]), T(r[1])))
+
+    xla = apply("xla")
+    for got in (apply("xla", _plain_pcr=True),
+                apply("pallas_sublane", _plain_pcr=True)):
+        for a, b in zip(got, xla):
+            assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError):
+        t_ssa.line_route("bf16", torch.device("cpu"))

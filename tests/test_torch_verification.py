@@ -245,9 +245,9 @@ def test_runner_letters_match(letter, kw, monkeypatch, capsys):
 
 
 def test_unported_letters_raise():
-    """B and C are ``setups.halfar_model``, and P (routing hydrology) is
-    not ported."""
-    for letter in ("B", "P"):
+    """B and C are ``setups.halfar_model``, not runner letters (P, the
+    routing hydrology, is one: ``tests/test_torch_hydrology.py``)."""
+    for letter in ("B", "C"):
         with pytest.raises(NotImplementedError):
             t_runner.run_test(letter, Mx=21, years=1.0, device="cpu")
     with pytest.raises(NotImplementedError):
