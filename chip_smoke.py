@@ -49,14 +49,15 @@ compares the two.
 Every path below is driven through ``IceModel.step_once`` with the kernels'
 launch counters set to 0 just before it and read just after:
   phase 2: the default config (``line_pcr_impl = xla``, which on the card
-    takes the PCR kernels, K2/K2b launched), 20 km float32 for 2 model
-    years (cut from 10 to keep the script's time), then the same 2 a with
-    the plain torch PCR (``make_line_preconditioner(..., _plain_pcr=True)``,
+    takes the PCR kernels, K2/K2b launched), 20 km float32 for 1 model
+    year (cut from 10, then 2, to keep the script's time), then the same
+    1 a with the plain torch PCR (``make_line_preconditioner(..., _plain_pcr=True)``,
     the route the default took on the card before; no PCR launch): equal
     steps and dt-limit hits, the volume within 2e-4, Newton sweeps and
     Krylov iterations within 10%, ms/step of both;
-  phase 2b: path A (``line_pcr_impl = pallas_sublane``), 20 km for 10 model
-    years as two calls, 2 a then 8 a; after 2 a its steps and dt-limit hits
+  phase 2b: path A (``line_pcr_impl = pallas_sublane``), 20 km for 5 model
+    years (cut from 10) as two calls, 1 a then 4 a; after 1 a its steps and
+    dt-limit hits
     equal phase 2's and the ice volume is within 2e-4. Then one
     preconditioner application of the default route (one factor and one
     apply launch per layout) against the plain PCR on its state, the
@@ -67,16 +68,17 @@ launch counters set to 0 just before it and read just after:
   phase 3: path A at 5 km for 0.5 model years;
   phase 4: path B, EISMINT II A at 61x61x61 float32 from zero ice, 5000
     model years, then 2000 timed, a few steps profiled and a timed
-    breakdown of 100 a; then 300 more (cut from 1000)
+    breakdown of 100 a; then 150 more (cut from 1000, then 300)
     with ``sia.pallas = off`` against the same 300 on K3;
   phase 5: path C, the isothermal SIA (Halfar test B, K4): (a) 61x61
     float64 for 1000 model years with ``sia.pallas = on``, the card against
     the CPU, and its errors against the exact solution; (b) 601x601 float32
-    (3 km) under ``auto`` for 50 model years from t0 (cut from 200 to keep
-    the script's time), timed, then a few steps profiled and a timed
-    breakdown of 2 a; (c) the same 50 a with ``sia.pallas = off`` against
-    (b); (d) Halfar test C and the runner's letters A, D, H and L at 61x61
-    float64 on the card, under the JAX package's test thresholds.
+    (3 km) under ``auto`` for 25 model years from t0 (cut from 200, then
+    50, to keep the script's time), timed, then a few steps profiled and a
+    timed breakdown of 2 a; (c) the same 25 a with ``sia.pallas = off``
+    against (b); (d) Halfar test C and the runner's letters A, D, H (8,000
+    a, cut from 16,014) and L at 61x61 float64 on the card, under the JAX
+    package's test thresholds.
 
   phase 7: the command line (``pism_tpu_torch.cli.main``, every file
     netcdf3): (a) EISMINT II A 61x61x61 float32 on K3 for 1000 a with
@@ -86,8 +88,9 @@ launch counters set to 0 just before it and read just after:
     the bit, then ``python -m pism_tpu_torch -eisII B -i`` for 200 a;
     (b) Halfar B 61x61 float64 for 1000 a on the card against
     ``-platform cpu`` (equal steps, H within 1e-10 of max) and the exact
-    solution, then K4's route at 601x601 float32 for 20 a, equal to the bit
-    to ``setups.halfar_model`` run by ``IceModel.run``; (c) phase 2b's end
+    solution, then K4's route at 601x601 float32 for 10 a (cut from 20),
+    equal to the bit to ``setups.halfar_model`` run by ``IceModel.run``;
+    (c) phase 2b's end
     state saved and continued by ``-i`` for 0.5 a, equal to the bit (H, E,
     u, steps, Newton sweeps, Krylov iterations) to an in-memory run with
     zero SMB. Each run prints its wall time, ms per step, launches per
@@ -116,8 +119,9 @@ launch counters set to 0 just before it and read just after:
 
   phase 9: the PISM-PIK Antarctic chain (BASELINE config 4,
     ``setups.antarctica_pik_model``): (a) 251x251x31 float32 on path A,
-    the JAX example's first 10 a, a timed 5 a (cut from 10 to make room
-    for phase 13) and 3 a with PICO, calving
+    the JAX example's first 5 a (cut from 10), a timed 2.5 a (cut from 10,
+    then 5, to keep the script's time) and 1 a (cut from 3) with PICO,
+    calving
     and Lingle-Clark timed apart (and the host syncs of a PICO call);
     finite fields, a shelf with PICO melt, K1, the Newton matvec, K2 and
     K2b launched; (b) 125 km float64 on the card against the CPU: one step
@@ -132,8 +136,9 @@ launch counters set to 0 just before it and read just after:
   phase 10: MISMIP3d and MISMIP experiment 1 (BASELINE config 2,
     ``setups.mismip3d_model``, ``setups.mismip_model``): (a) MISMIP3d at
     1 km (1601x101) float32 on path A through ``IceModel.run``: Stnd from
-    the Vialov start for 5 a, a timed 30 a, then P75S and P75R for 10 a
-    each with ``GivenYieldStress`` fields as the example builds them; ms
+    the Vialov start for 5 a, a timed 15 a, then P75S and P75R for 5 a
+    each (cut from 30, 10 and 10 a to keep the script's time) with
+    ``GivenYieldStress`` fields as the example builds them; ms
     per step, steps per model year, dt-limit hits, Newton sweeps, Krylov
     iterations, host syncs and launches per step, the grounding line on
     the centre and edge rows after each phase; finite fields, K1, the
@@ -169,7 +174,7 @@ launch counters set to 0 just before it and read just after:
   phase 12: the ssa+sia ensemble (``setups.hybrid_ensemble_model``, the
     hybrid chain's members differing in their till friction angle, 15-40
     degrees): (a) 100 members at 141x76x41 float32 on path A through
-    ``EnsembleRunner``, 2 a then a timed 2 a: lockstep steps and each
+    ``EnsembleRunner``, 2 a then a timed 1 a: lockstep steps and each
     member's, Newton sweeps and Krylov iterations per lockstep step (the
     lockstep's, and each member's min / median / max), host syncs and
     kernel launches per lockstep step, ms per lockstep step, member-years
@@ -177,9 +182,9 @@ launch counters set to 0 just before it and read just after:
     launched on the member axis and none singly; the members' median
     sliding speed over grounded ice against the till angle (correlation
     below -0.9; the mean is printed too, set by a few margin cells at the
-    speed clamp); (b) members 0, 50 and 99 over the 2 a: equal to the bit to
-    their runs as 1-member ensembles (H, E, u_ssa, steps, hits, Newton and
-    Krylov counts) and within phase 2b's envelope of their solo chains
+    speed clamp); (b) member 0 over the 2 a: equal to the bit to its run
+    as a 1-member ensemble (H, E, u_ssa, steps, hits, Newton and Krylov
+    counts) and within phase 2b's envelope of its solo chain
     (equal steps and hits, volume within 2e-4); (c) on the ensemble's
     linearization K1, the Newton matvec, K2b and K2 factor and apply, the
     member dot and the member dots (the Krylov loop's paired dots) against
@@ -192,18 +197,18 @@ launch counters set to 0 just before it and read just after:
     Antarctic paleo ensemble", ``setups.antarctica_pik_ensemble_model``:
     the PISM-PIK chain from its data file, members differing in PICO's
     ocean temperature, 0-2 K warmer): (a) 100 members at 251x251x31
-    float32 on path A through ``EnsembleRunner``, 1 a then a timed 1 a:
+    float32 on path A through ``EnsembleRunner``, 0.5 a then a timed 0.5 a:
     phase 12's lockstep figures, the peak device memory, the busy share of
     a profiled window, and PICO's, calving's and Lingle-Clark's ms per
     lockstep step with PICO's host syncs per call; finite fields, every
     SSA kernel launched on the member axis and none singly (K3, K4, K5
     idle), calving in every member, the bed moved in every member, a shelf
     with PICO melt in every member, the members' sub-shelf and basal melt
-    against dT (correlation above 0.9); (b) members 0, 50 and 99 over the
-    1 a: equal to the bit to their 1-member ensembles (H, Href, E, u_ssa,
-    the bed, the viscous displacement, PICO's box index, steps, hits,
-    Newton and Krylov counts) and within phase 2b's envelope of their solo
-    chains; (c) on the 3 a state, ``Pico.members`` against 100 single PICO
+    against dT (correlation above 0.9); (b) member 99 over the 0.5 a:
+    equal to the bit to its 1-member ensemble (H, Href, E, u_ssa, the bed,
+    the viscous displacement, PICO's box index, steps, hits, Newton and
+    Krylov counts) and within phase 2b's envelope of its solo chain; (c)
+    on the 1 a state, ``Pico.members`` against 100 single PICO
     calls (its melt within 1e-4 of the single form's, whose basin sums
     add in torch's order) and one member-axis Lingle-Clark solve against
     100 single solves, to the bit, timed; (e) (c) of phase 12 on that
@@ -235,9 +240,9 @@ launch counters set to 0 just before it and read just after:
     61x61x61 float32 through ``setups.eismint2_model``: G and H (Weertman
     sliding; H only on temperate bases) from zero ice and A, 3,000 a each,
     and E (the sector's sliding map) from phase 4's A state at 7 ka for
-    1,000 a: finite fields, the end time reached, K3 once a step and no
-    other kernel, steps, hits, ms/step, volume and the busy share of a
-    profiled 100 a; G slides faster than 1 m/a, H no faster than G, G
+    500 a (cut from 1,000 a): finite fields, the end time reached, K3 once
+    a step and no other kernel, steps, hits, ms/step, volume and the busy
+    share of a profiled 100 a (E: 20 a); G slides faster than 1 m/a, H no faster than G, G
     holds less ice than A, E slides only inside its sector (faster than
     0.5 m/a there); K3 on G's state against its plain version (1e-4,
     timed, with its bound); (b) I-L (the trough and mound beds, the bed
@@ -254,7 +259,7 @@ launch counters set to 0 just before it and read just after:
     below twice the selected max); (b) the 20 km chain (141x76x41 float32,
     ``setups.hybrid_greenland_model(..., hydrology="routing")``: the
     PDD's runoff routed from a saturated till, ``add_transportable_water``)
-    from the synthetic initial state, 1 a then 1 a timed: ms/step, the
+    from the synthetic initial state, 0.5 a then 1 a timed: ms/step, the
     hydrology's ms and share of the step (timed between synchronisations),
     substeps, host syncs, Newton, Krylov, K1, Newton-matvec and K2/K2b
     launches per step, max W and the volume; (c) the distributed model,
@@ -265,6 +270,27 @@ launch counters set to 0 just before it and read just after:
     1 a, card against CPU: equal steps, hits and binding limits, W after
     the first step within 1e-10 of max W, volume and total water within
     2e-4.
+
+  phase 17: the FEM SSA, Blatter-Pattyn, ISMIP-HOM, ``ssa`` and ``none``
+    (no kernel of ``csrc/`` on these paths; each sub-phase asserts every
+    kernel idle but 17g): (a) ISMIP-HOM A at all six L and C (cut to L =
+    160 km) at 40x40x16 float64 through the example's ``run_one``, the
+    transects, Newton, Krylov and ms per Krylov iteration, and L = 20 km at
+    20x20x8 on the card against the CPU (1e-8, equal sweeps); (b) ``-test
+    blatter_xz`` and ``blatter_xz_cfbc`` through ``cli.main`` at the JAX
+    tests' grids under their bounds; (c) ``-test I`` with SSAFEM at 11x61,
+    Newton capped at 25 (cut from 100), against the CPU (equal sweeps,
+    Krylov within 10%, u within 1e-5 of max); (d) phase 2's chain with
+    SSAFEM, a step (cut from 1 a), its SSA share; (e) the JAX Blatter
+    test's dome with enthalpy at 61x61x21, a step (cut from 3), and at
+    16x16x11 for 60 a against the CPU (equal steps and hits, volume within
+    1e-8); (f) one Blatter solve on phase 2's 20 km state (Newton capped at
+    8): ms per Krylov iteration, its device ops and time against its host
+    time, the peak memory; (g) MISMIP 1 at 151x7 with ``ssa`` (K1's and
+    the Newton matvec's periodic route and K2/K2b launched, float64 card
+    against CPU) and ``none`` (no velocity, the volume moved by the SMB
+    budget alone). The CPU runs go to a child process at the phase's start
+    (``cpu_references``).
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -284,12 +310,22 @@ PATH_A = {"stress_balance.ssa.fd.line_pcr_impl": "pallas_sublane"}
 # memory rate, and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# calls of a function under the profiler for its device time per call
+PROFILE_REPS = 10
+# phase 2's window on the default route and on the plain PCR, and phase
+# 2b's first segment (cut from 10 a, then from 2 a, to keep the script's
+# time)
+PHASE2_YEARS = 1.0
+# phase 2b's whole run on path A (cut from 10 a)
+PHASE2B_YEARS = 5.0
 # path C at full width: Halfar test B at 3 km over the 1800 km square
-HALFAR_MX, HALFAR_YEARS = 601, 50.0
+# (cut from 200 to 50 a, then to 25 a, to keep the script's time)
+HALFAR_MX, HALFAR_YEARS = 601, 25.0
 # the EISMINT II A window that phase 4 holds K3 to the plain path over and
-# phase 6b the meshed run to phase 4's K3 run (cut from 1000 a to keep the
-# script's time); path D's 20 km hybrid window (cut from 2 a)
-EISMINT_CHECK_YEARS, MESH_YEARS = 300.0, 1.0
+# phase 6b the meshed run to phase 4's K3 run (cut from 1000 a, then from
+# 300 a, to keep the script's time); path D's 20 km hybrid window (cut from
+# 2 a); phase 6c's meshed Halfar window (cut from 20 a to 5 a)
+EISMINT_CHECK_YEARS, MESH_YEARS, MESH_HALFAR_YEARS = 150.0, 1.0, 5.0
 # operations of each kernel, counted from its plain version's arithmetic:
 # per cell (K1, K1 JVP without a drag tangent, K4), per element and round
 # of cyclic reduction (K2/K2b: 10 in the factor's a, b, c recurrences, 4 in
@@ -339,6 +375,12 @@ def _device_profile(fn, reps, match=None):
     """(device µs per call, device ops per call) from the profiler's CUDA
     activity, of the ops whose name contains ``match`` if given; (None,
     None) if the profiler records no device time."""
+    return _device_profiles(fn, reps, (match,))[0]
+
+
+def _device_profiles(fn, reps, matches):
+    """``_device_profile`` of each name in ``matches`` (None: every device
+    op), all from one profiled run of ``fn``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -350,12 +392,16 @@ def _device_profile(fn, reps, match=None):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and (match is None or match in e.name)]
-        total = sum(e.time_range.elapsed_us() for e in dev)
-        if dev and total > 0:
-            return total / reps, len(dev) / reps
-    return None, None
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out = []
+        for match in matches:
+            dev = [e for e in events if match is None or match in e.name]
+            total = sum(e.time_range.elapsed_us() for e in dev)
+            out.append((total / reps, len(dev) / reps) if dev and total > 0
+                       else (None, None))
+        if all(us is not None for us, _ in out):
+            break
+    return out
 
 
 def _bound(nbytes, nops):
@@ -433,7 +479,7 @@ def _check_launches(label, counts, launched, idle):
                                  "times off its path")
 
 
-def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
+def _kernel_case(name, kern, plain, args, tol, label, nops, reps=50,
                  match=None, nbytes=None, unpack=None, phase="phase1",
                  timed=True):
     """Kernel against plain version on the same inputs, then (if
@@ -469,12 +515,12 @@ def _kernel_case(name, kern, plain, args, tol, label, nops, reps=200,
     bound_ms, bound_by = _bound(nbytes, nops)
     ms = _time_ms(lambda: kern(*args), reps)
     plain_ms = _time_ms(lambda: plain(*args), reps)
-    dev_us, _ = _device_profile(lambda: kern(*args), 50)
-    plain_us, plain_ops = _device_profile(lambda: plain(*args), 50)
+    (dev_us, _), (alone, _) = _device_profiles(lambda: kern(*args),
+                                               PROFILE_REPS, (None, match))
+    plain_us, plain_ops = _device_profile(lambda: plain(*args), PROFILE_REPS)
     dev = "not measured" if dev_us is None or plain_us is None else (
         f"{dev_us:.2f} us / {plain_us:.2f} us in {plain_ops:.0f} ops")
     if match is not None:
-        alone, _ = _device_profile(lambda: kern(*args), 50, match)
         dev += (", the kernel alone not measured" if alone is None
                 else f", the kernel alone {alone:.2f} us")
     print(f"{phase}: {name} {label} rel_err {err:.3e} (tol {tol:.0e}) events "
@@ -817,7 +863,7 @@ def phase1_kernels(dev):
     return out
 
 
-def _us(fn, reps=50):
+def _us(fn, reps=PROFILE_REPS):
     """'<device us> us in <ops> ops' of one call, from the profiler."""
     us, ops = _device_profile(fn, reps)
     return "not measured" if us is None else f"{us:.2f} us in {ops:.0f} ops"
@@ -909,8 +955,8 @@ def phase1_sharded(dev, rng):
                 diff = max(float((g - q).abs().max()) for g, q in zip(got, one))
                 times = ""
                 if timed:
-                    ms = _time_ms(lambda: whole(*wargs), 100)
-                    ms1 = _time_ms(lambda: k1(*k1_args), 100)
+                    ms = _time_ms(lambda: whole(*wargs), 50)
+                    ms1 = _time_ms(lambda: k1(*k1_args), 50)
                     times = (f"; events {ms:.4f} ms against K1 {ms1:.4f} ms; "
                              f"device {_us(lambda: whole(*wargs))} against K1 "
                              f"{_us(lambda: k1(*k1_args))}")
@@ -1019,9 +1065,9 @@ def _newton_sharded(rng, dev, mesh, shape, dtype, tol, label, dx, dy, out):
     def prepare():
         return S.ssa_newton_matvec_sharded(*frozen, mesh, dx, dy)
     times = "" if not timed else (
-        f"; events per matvec {_time_ms(lambda: mv(du, dv), 100):.4f} ms "
+        f"; events per matvec {_time_ms(lambda: mv(du, dv), 50):.4f} ms "
         "against the unsharded "
-        f"{_time_ms(lambda: K.ssa_newton_matvec(*args, dx, dy), 100):.4f} "
+        f"{_time_ms(lambda: K.ssa_newton_matvec(*args, dx, dy), 50):.4f} "
         f"ms, the preparation once per sweep {_time_ms(prepare, 20):.4f} ms;"
         f" device per matvec {_us(lambda: mv(du, dv))}, the preparation "
         f"{_us(prepare)}")
@@ -1208,7 +1254,7 @@ def check_preconditioner(model, state, t):
     line = []
     for route, _ in PCR_ROUTES:
         ms = _time_ms(lambda: pre[route](r), 50)
-        dev_us, ops = _device_profile(lambda: pre[route](r), 20)
+        dev_us, ops = _device_profile(lambda: pre[route](r), PROFILE_REPS)
         line.append(f"{route} {ms:.4f} ms, device {dev_us:.2f} us in "
                     f"{ops:.0f} ops" if dev_us is not None else
                     f"{route} {ms:.4f} ms, device not measured")
@@ -1469,6 +1515,15 @@ def _volume_drift(state, V0):
     return abs(float(state.geometry.ice_thickness.double().sum()) - V0) / V0
 
 
+#: phase 5d's windows, cut to keep the script's time: test C from C_START
+#: t0 to t0 (from 0.6 t0); A, D and H [a] (from the JAX tests' 2,000 and
+#: 2,500 a and H's 0.6 t0 to t0, 16,014 a); each still under its test's
+#: thresholds on the CPU (A 1,000 a dome 6.4 m, D 1,250 a 6.8 m, H 4,000 a
+#: 14.1 m)
+C_START = 0.8
+LETTER_YEARS = {"A": 1000.0, "D": 1250.0, "H": 4000.0}
+
+
 def phase5_halfar(dev):
     """Path C: Halfar test B through K4, and the isothermal verification
     letters. Returns the launch counts of (b), the main path."""
@@ -1557,14 +1612,15 @@ def phase5_halfar(dev):
             or not max(drift_k4, drift_off) <= drift_tol:
         raise AssertionError("phase5c: K4 and the plain path disagree")
 
-    # (d) test C (0.6 t0 to t0) and the runner's letters at 61x61 float64
-    # on the card, under tests/test_halfar.py's and
+    # (d) test C (C_START t0 to t0) and the runner's letters at 61x61
+    # float64 on the card, under tests/test_halfar.py's and
     # tests/test_exact_steady.py's thresholds -----------------------------
     t0 = time.time()
     c_t0 = halfar.test_C().t0
     model, state, grid, sol = setups.halfar_model(
-        "C", 61, "float64", device=dev, t_start=0.6 * c_t0)
-    state, t, stats = model.step_once(state, 0.6 * c_t0, 0.4 * c_t0)
+        "C", 61, "float64", device=dev, t_start=C_START * c_t0)
+    state, t, stats = model.step_once(state, C_START * c_t0,
+                                      (1.0 - C_START) * c_t0)
     _halfar_errors("phase5d C", setups.halfar_report(sol, state, grid, t),
                    {"dome_H": 40.0, "avg_H": 30.0})
     steps, final = {"C": stats.nsteps}, {}
@@ -1573,9 +1629,11 @@ def phase5_halfar(dev):
     def run_sia(*a, **k):
         final["state"], final["stats"] = out = real(*a, **k)
         return out
-    limits = {"A": (2000.0, {"dome_H": 30.0, "avg_H": 100.0, "max_H": 1500.0}),
-              "D": (2500.0, {"dome_H": 35.0, "avg_H": 110.0}),
-              "H": (None, {"dome_H": 60.0, "avg_H": 40.0, "bed": 1e-6}),
+    limits = {"A": (LETTER_YEARS["A"],
+                    {"dome_H": 30.0, "avg_H": 100.0, "max_H": 1500.0}),
+              "D": (LETTER_YEARS["D"], {"dome_H": 35.0, "avg_H": 110.0}),
+              "H": (LETTER_YEARS["H"],
+                    {"dome_H": 60.0, "avg_H": 40.0, "bed": 1e-6}),
               "L": (1000.0, {"dome_H": 15.0, "avg_H": 160.0, "max_H": 1600.0})}
     runner._run_sia = run_sia
     try:
@@ -1731,8 +1789,9 @@ def phase6b_eismint(dev, mesh, start, k3_run):
 
 
 def phase6c_halfar(dev, mesh):
-    """Halfar B at 601x601 float32 on the 2x2 mesh (K4 per shard) for 20 a
-    from t0, in turns with the unmeshed run of the same 20 a."""
+    """Halfar B at 601x601 float32 on the 2x2 mesh (K4 per shard) for
+    MESH_HALFAR_YEARS from t0, in turns with the unmeshed run of the same
+    window."""
     from pism_tpu_torch import setups
 
     ref, state, grid, sol = setups.halfar_model("B", HALFAR_MX, "float32",
@@ -1740,15 +1799,16 @@ def phase6c_halfar(dev, mesh):
     model, _, _, _ = setups.halfar_model("B", HALFAR_MX, "float32",
                                          device=dev, mesh=mesh)
     runs = _in_turns("phase6c",
-                     lambda m: m.step_once(state, sol.t0, 20.0 * SPY),
+                     lambda m: m.step_once(state, sol.t0,
+                                           MESH_HALFAR_YEARS * SPY),
                      ref, model)
     for name in ("unmeshed", "meshed"):
         _, _, st, _, counts = runs[name][0]
         _check_launches(f"phase6c {name}", counts, ("sia_flux",),
                         tuple(k for k in KERNELS if k != "sia_flux"))
-        print(f"phase6c: Halfar B {grid.My}x{grid.Mx} float32 {name}, 20 a "
-              f"from t0: steps {st.nsteps}, K4 launches "
-              f"{counts['sia_flux'] / st.nsteps:.2f}/step")
+        print(f"phase6c: Halfar B {grid.My}x{grid.Mx} float32 {name}, "
+              f"{MESH_HALFAR_YEARS:g} a from t0: steps {st.nsteps}, K4 "
+              f"launches {counts['sia_flux'] / st.nsteps:.2f}/step")
     (sa, _, sta, _, _), (sb, _, stb, _, _) = \
         runs["unmeshed"][0], runs["meshed"][0]
     _compare_meshed("phase6c", (sa, sta), (sb, stb), 1e-6)
@@ -1926,6 +1986,11 @@ def phase7a_eismint(dev, d):
           f"{float(H.max()):.1f} m at {tb / SPY:.1f} a")
 
 
+#: phase 7b's window on K4's route at 601x601 [a] (cut from 20 a to keep
+#: the script's time)
+K4_CLI_YEARS = 10.0
+
+
 def phase7b_halfar(dev, d):
     """Halfar B through the CLI: 61x61 float64 on the card against
     -platform cpu and the exact solution; then K4's route at 601x601
@@ -1962,7 +2027,7 @@ def phase7b_halfar(dev, d):
                                      "rel_volume": 0.01})
 
     f = os.path.join(d, "b601.nc")
-    argv = ["-test", "B", "-Mx", "601", "-y", "20",
+    argv = ["-test", "B", "-Mx", "601", "-y", f"{K4_CLI_YEARS:g}",
             "-config", "stress_balance.sia.surface_gradient_method=mahaffy",
             "-config", "stress_balance.sia.bed_smoother.range=0",
             "-config", "runtime.float_dtype=float32",
@@ -1972,7 +2037,7 @@ def phase7b_halfar(dev, d):
                     tuple(k for k in KERNELS if k != "sia_flux"))
     ref, s0, _, sol = setups.halfar_model("B", Mx=601, dtype="float32",
                                           device=dev)
-    rs, rst = ref.run(s0, Time(sol.t0, sol.t0 + 20 * SPY))
+    rs, rst = ref.run(s0, Time(sol.t0, sol.t0 + K4_CLI_YEARS * SPY))
     print(f"phase7b K4: against setups.halfar_model + IceModel.run: steps "
           f"{stats.nsteps} / {rst.nsteps}, K4 launches {counts['sia_flux']} "
           f"(once per step)")
@@ -1980,7 +2045,8 @@ def phase7b_halfar(dev, d):
         raise AssertionError("phase7b K4: the CLI run and the reference differ")
     _equal("phase7b K4", [("thk", state.geometry.ice_thickness,
                            rs.geometry.ice_thickness)])
-    profile_run(model, state, sol.t0 + 20 * SPY, 0.5, "phase7b K4")
+    profile_run(model, state, sol.t0 + K4_CLI_YEARS * SPY, 0.5,
+                "phase7b K4")
 
 
 def phase7c_restart(dev, d, model, state, t):
@@ -2346,9 +2412,11 @@ def phase8_workflow(dev, d, data_km=5.0, model_km=20.0,
 
 # -- phase 9: the PISM-PIK Antarctic chain -------------------------------
 
-#: the JAX example's width (251 x 251 x 31) and first segment; the timed
-#: window after it and the components' window
-PIK_KM, PIK_FIRST, PIK_WINDOW, PIK_PARTS = 16.0, 10.0, 5.0, 3.0
+#: the JAX example's width (251 x 251 x 31) and the first segment (cut from
+#: the example's 10 a), the timed window after it (cut from 10 to 5 to
+#: 2.5 a) and the components' window (cut from 3 to 1 a), to keep the
+#: script's time
+PIK_KM, PIK_FIRST, PIK_WINDOW, PIK_PARTS = 16.0, 5.0, 2.5, 1.0
 #: the card-against-CPU chain: 125 km (33 x 33 x 31); at 50-100 km the
 #: reference's PICO gives non-finite melt on the initial state
 PIK_CHECK_KM = 125.0
@@ -2470,9 +2538,9 @@ def pik_components(model, state, t, years, label):
 
 
 def phase9a_pik(dev, k1, pcr, off):
-    """The PIK chain at 16 km float32 on path A: the JAX example's first
-    10 a, a timed window, the components' window; PICO melting the shelf.
-    Returns the first segment's launch counts."""
+    """The PIK chain at 16 km float32 on path A: the first PIK_FIRST of
+    the JAX example's, a timed window, the components' window; PICO
+    melting the shelf. Returns the first segment's launch counts."""
     import torch
     from pism_tpu_torch import setups
 
@@ -2718,8 +2786,9 @@ def phase9_pik(dev, k1, pcr, off):
 # -- phase 10: MISMIP3d and MISMIP experiment 1 (BASELINE config 2) --------
 
 #: model years of phase 10a at 1 km: Stnd's first window, its timed window,
-#: P75S, P75R (cut from the protocol's 15,000 + 100 + 2,000 a)
-MISMIP3D_YEARS = (5.0, 30.0, 10.0, 10.0)
+#: P75S, P75R (cut from the protocol's 15,000 + 100 + 2,000 a, then from
+#: 30, 10 and 10 a to keep the script's time)
+MISMIP3D_YEARS = (5.0, 15.0, 5.0, 5.0)
 #: phase 10b's span at 50 km and phase 10c's spans at 151x7 (f32, f64)
 MISMIP3D_CHECK_YEARS, MISMIP1_YEARS = 30.0, (10.0, 10.0)
 
@@ -2944,7 +3013,7 @@ def _periodic_route_case(label, state, model, dtype, rng, timed):
         (du, dv, nuH, beta), tol, f"{label} {str(dtype)[6:]}",
         OPS["ssa_matvec"] * grid.My * grid.Mx, match="ssa_matvec_tile",
         nbytes=7 * grid.My * grid.Mx * u.element_size(),
-        reps=200 if timed else 3, phase="phase10c")
+        reps=50 if timed else 3, phase="phase10c")
 
 
 def phase10c_mismip_periodic(dev, pcr):
@@ -3420,9 +3489,10 @@ def phase11_ensemble(dev, smi):
 
 #: the hybrid chain's ensemble: members, km, the warm-up and the timed
 #: segment [a], the members held against their own runs
-# the timed window cut from 3 a to keep the script's time
-HYB_MEMBERS, HYB_KM, HYB_FIRST, HYB_TIMED = 100, 20.0, 2.0, 2.0
-HYB_SOLO = (0, 50, 99)
+# the timed window cut from 3 a to 2 a to 1 a, and the members held from
+# 0, 50 and 99 to the one with the weakest till, to keep the script's time
+HYB_MEMBERS, HYB_KM, HYB_FIRST, HYB_TIMED = 100, 20.0, 2.0, 1.0
+HYB_SOLO = (0,)
 #: the member-axis kernels of the SSA solve (and their single launches,
 #: which the ensemble must not take)
 SSA_MEMBER_KERNELS = ("ssa_matvec_members", "ssa_newton_matvec_members",
@@ -3535,7 +3605,7 @@ def phase12a_hybrid(dev, smi):
 
 
 def phase12b_members(model, runner, batched, s2, st2):
-    """Members 0, 50 and 99 over the 2 a warm-up: each equal to the bit to
+    """The HYB_SOLO members over the 2 a warm-up: each equal to the bit to
     its run as a 1-member ensemble (H, E, u_ssa, steps, hits, Newton and
     Krylov counts), and within phase 2b's envelope of its solo chain
     (equal steps and dt-limit hits, volume within 2e-4)."""
@@ -3653,7 +3723,7 @@ def _yardstick(phase, name, label, rec, kern, what, call, ref, rounds=3):
                                        100))
     rec["ms"] = statistics.median(times["kernel"])
     rec["library_ms"] = statistics.median(times["library"])
-    dev_us, _ = _device_profile(call, 50)
+    dev_us, _ = _device_profile(call, PROFILE_REPS)
     dev = "not measured" if dev_us is None else f"{dev_us:.2f} us"
     verdict = "no slower" if rec["ms"] <= rec["library_ms"] else "slower"
 
@@ -3843,10 +3913,13 @@ def phase12_hybrid_ensemble(dev, smi):
 #: the PISM-PIK chain's ensemble from its data file: members, the warm-up
 #: and the timed segment [a], the members held against their own runs, the
 #: profiled and the components' windows [a] (one lockstep step each)
-# the timed window cut from 2 a to keep the script's time
-PIKE_MEMBERS, PIKE_FIRST, PIKE_TIMED = 100, 1.0, 1.0
-PIKE_SOLO = (0, 50, 99)
-PIKE_PROFILE, PIKE_PARTS = 0.25, 0.25
+# the timed window cut from 2 a to 1 a to 0.5 a, the warm-up from 1 a,
+# the profiled and the components' windows from 0.25 a, and the members
+# held from 0, 50 and 99 to the warmest, to keep the script's time; the
+# two windows end at 1 a, where Lingle-Clark first moves the bed
+PIKE_MEMBERS, PIKE_FIRST, PIKE_TIMED = 100, 0.5, 0.5
+PIKE_SOLO = (99,)
+PIKE_PROFILE, PIKE_PARTS = 0.1, 0.1
 
 
 def _member_pico(pico, b, solo):
@@ -3891,9 +3964,9 @@ def _pike_components(runner, state, t0, years, label):
 def phase13a_antarctic(dev, smi):
     """The PISM-PIK chain's ensemble at its width: 100 members at 251x251x31
     float32 on path A from the data file, members differing in PICO's
-    ocean temperature (0-2 K warmer), 1 a then 1 a timed. Returns (model,
-    runner, initial batched state, the 1 a state and stats, the 3 a state,
-    dT, counts of the timed run)."""
+    ocean temperature (0-2 K warmer), PIKE_FIRST then PIKE_TIMED timed.
+    Returns (model, runner, initial batched state, the PIKE_FIRST state
+    and stats, the end state, dT, counts of the timed run)."""
     import numpy as np
     import torch
     from pism_tpu_torch import setups
@@ -3967,7 +4040,7 @@ def phase13a_antarctic(dev, smi):
 
 
 def phase13b_members(model, runner, batched, s1, st1):
-    """Members 0, 50 and 99 over the 1 a warm-up: each equal to the bit to
+    """The PIKE_SOLO members over the warm-up: each equal to the bit to
     its run as a 1-member ensemble (H, Href, E, u_ssa, the bed, the viscous
     displacement, PICO's box index, steps, hits, Newton and Krylov
     counts), and within phase 2b's envelope of its solo chain (equal steps
@@ -4035,7 +4108,7 @@ def _wall_ms(fn, reps=3):
 
 
 def phase13c_components(model, state):
-    """On the ensemble's 3 a state: ``Pico.members`` against 100 single
+    """On the ensemble's end state: ``Pico.members`` against 100 single
     PICO calls (box index and distances equal to the single form's, the
     melt to the bit to each member's 1-member call, and within
     ``PICO_SOLO_TOL`` of the single form's, which differs by its basin
@@ -4102,7 +4175,7 @@ def phase13c_components(model, state):
 
 
 def phase13e_kernels(model, state):
-    """Phase 12c's holds on the Antarctic ensemble's 3 a state, 100 x 251 x
+    """Phase 12c's holds on the Antarctic ensemble's end state, 100 x 251 x
     251 (K2b's and K2's lines of n = 251 on the member axis), and PICO's
     basin sums: ``member_sum`` over the (B nb, My, Mx) basin rows of the
     members' water under their shelves against one launch per row (to the
@@ -4462,6 +4535,9 @@ def phase14_ssa_verification(dev, smi):
 
 #: every kernel but K3, idle on the EISMINT II routes
 EIS_OTHERS = tuple(k for k in KERNELS if k != "sia_flux_thermo")
+#: EISMINT II E's window from phase 4's A state (cut from 1,000 a to keep
+#: the script's time)
+EISMINT_E_YEARS = 500.0
 
 
 def _sliding_speed(model, state):
@@ -4517,7 +4593,7 @@ def _eismint_run(dev, smi, experiment, years, label, k3, state=None, t=0.0):
 
 def phase15a_sliding(dev, smi, eismint_7ka):
     """G and H from zero ice and A over the same 3,000 a; E from phase 4's
-    A state for 1,000 a; K3 on G's state against its plain version.
+    A state for EISMINT_E_YEARS; K3 on G's state against its plain version.
     Returns K3's record on G's state."""
     import numpy as np
     import torch
@@ -4539,9 +4615,9 @@ def phase15a_sliding(dev, smi, eismint_7ka):
         raise AssertionError("phase15a: G must slide (> 1 m/a), H no faster "
                              "than G, and G hold less ice than A")
     state7, t7 = eismint_7ka
-    model, st, t, _, _ = _eismint_run(dev, smi, "E", 1000.0, "phase15a E",
-                                      True, state=state7, t=t7)
-    profile_steps(model, st, t, 100.0, "phase15a E")
+    model, st, t, _, _ = _eismint_run(dev, smi, "E", EISMINT_E_YEARS,
+                                      "phase15a E", True, state=state7, t=t7)
+    profile_steps(model, st, t, 20.0, "phase15a E")
     sp = _sliding_speed(model, st).cpu().numpy()
     mu = eismint2.sliding_mu_map_E(model.grid)
     out_max, in_max = float(sp[mu == 0].max()), float(sp[mu > 0].max())
@@ -4805,16 +4881,16 @@ def _hydro_timed(model, state, t, years, label, smi):
 def phase16b_routing(dev, smi):
     """The 20 km chain (141x76x41 float32, ssa+sia, the PDD's runoff
     routed, add_transportable_water) from the synthetic initial state:
-    1 a, then 1 a timed."""
+    0.5 a (cut from 1 a to keep the script's time), then 1 a timed."""
     from pism_tpu_torch import setups
 
     model, state, grid = setups.hybrid_greenland_model(
         "float32", HYDRO_KM, device=dev, hydrology="routing")
-    state, t, st1, _, _ = _hydro_timed(model, state, 0.0, 1.0,
+    state, t, st1, _, _ = _hydro_timed(model, state, 0.0, 0.5,
                                        "phase16b warm-up", smi)
     state, t, st2, counts, _ = _hydro_timed(model, state, t, 1.0,
                                             "phase16b timed", smi)
-    if abs(t - 2.0 * SPY) > 1e-3 or not float(state.hydro_W.max()) > 0.0:
+    if abs(t - 1.5 * SPY) > 1e-3 or not float(state.hydro_W.max()) > 0.0:
         raise AssertionError(f"phase16b: t = {t}, max W "
                              f"{float(state.hydro_W.max())}")
     _profile_hydrology(model, state, "phase16b")
@@ -4972,6 +5048,458 @@ def phase16_hydrology(dev, smi):
     return counts, n
 
 
+# -- phase 17: the FEM SSA, Blatter-Pattyn, ISMIP-HOM, ssa and none --------
+
+#: ISMIP-HOM's L list [km] of phase 17a: all six for A; C cut for the
+#: script's time
+ISMIP_A_L = (5.0, 10.0, 20.0, 40.0, 80.0, 160.0)
+ISMIP_C_L = (160.0,)
+#: the example's width
+ISMIP_M, ISMIP_MZ = 40, 16
+#: steps of the 20 km FEM chain (17d, cut from 1 a) and of the 61x61x21
+#: Blatter dome (17e, cut from 3), for the script's time
+FEM_CHAIN_STEPS, DOME_STEPS = 1, 1
+#: the Newton cap of the 20 km Greenland Blatter solve (17f, cut from 50)
+GREENLAND_NEWTON = 8
+#: the Newton cap of 17c's test I on SSAFEM (cut from 100, where the solve
+#: stops on stagnation after 88 sweeps), for the script's time
+TEST_I_NEWTON = 25
+#: 17c's command-line options
+TEST_I_ARGS = ("-test", "I", "-config", "stress_balance.ssa.method=fem",
+               "-config", "stress_balance.ssa.fd.newton_max_iterations="
+               f"{TEST_I_NEWTON}")
+
+
+def _dome_model(where, M, Mz, L=300e3):
+    """``tests/test_blatter.py``'s Mohr-Coulomb dome with enthalpy,
+    ``stress_balance.model = blatter``, float64: (model, prepared state)."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import Config, Grid
+    from pism_tpu_torch.coupler.surface import Uniform
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.state import ModelState, new_geometry
+
+    grid = Grid(Mx=M, My=M, Lx=L, Ly=L, Mz=Mz, Lz=3000.0)
+    cfg = Config({"stress_balance.model": "blatter",
+                  "energy.model": "enthalpy",
+                  "basal_yield_stress.model": "mohr_coulomb",
+                  "hydrology.model": "null",
+                  "time_stepping.maximum_time_step": 20.0})
+    r = np.asarray(grid.radius)
+    H = torch.as_tensor(2500.0 * np.maximum(1.0 - (r / (0.9333 * L)) ** 2,
+                                            0.0), device=where)
+    model = IceModel(grid=grid, config=cfg, device=where,
+                     surface=Uniform(smb=0.3 / SPY, temperature=253.15))
+    return model, model.prepare_state(ModelState(
+        geometry=new_geometry(H, torch.zeros_like(H))))
+
+
+def _quiet(fn, *a, **k):
+    """``fn``'s result and its standard output's lines."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*a, **k)
+    return res, out.getvalue().strip().splitlines()
+
+
+def cpu_references():
+    """Phase 17's CPU runs, in a child process on other cores than the one
+    that runs the card (``phase17_blatter_fem`` starts it): ISMIP-HOM A at
+    L = 20 km 20x20x8, ``-test I`` with SSAFEM at 11x61, the 16x16x11
+    Blatter dome for 60 a and MISMIP 1 with ``ssa`` at 151x7 float64;
+    picklable results by sub-phase."""
+    import torch
+    from pism_tpu_torch import Time, setups
+    from pism_tpu_torch.examples import ismip_hom
+    from pism_tpu_torch.verification import ssa_tests
+
+    torch.set_num_threads(2)
+    out = {}
+    r = ismip_hom.run_one("A", 20.0, 20, 8, "cpu", raw=True)
+    out["17a"] = {k: r[k] for k in ("newton_iters", "krylov_iters", "_u")}
+    t0 = time.perf_counter()
+    res, lines = _quiet(ssa_tests.run_test, "I",
+                        config={"stress_balance.ssa.method": "fem",
+                                "stress_balance.ssa.fd.newton_max_iterations":
+                                TEST_I_NEWTON},
+                        device="cpu")
+    out["17c"] = (res.u.numpy(), res.info["newton_iters"],
+                  res.info["krylov_iters"], lines[-1],
+                  time.perf_counter() - t0)
+    m, s = _dome_model("cpu", 16, 11)
+    s, st = m.run(s, Time(0.0, 60.0 * SPY))
+    out["17e"] = (float(s.geometry.ice_thickness.double().sum()), st.nsteps,
+                  st.limit_hits_dict(), st.ssa_newton_iters)
+    y = MISMIP1_YEARS[0]
+    m, s, _ = setups.mismip_model("float64", 151, 7, device="cpu",
+                                  extra_cfg={"stress_balance.model": "ssa"})
+    s, st = m.run(s, Time(0.0, y * SPY))
+    out["17g"] = (float(s.geometry.ice_thickness.double().sum()), st.nsteps,
+                  st.limit_hits_dict())
+    return out
+
+
+def phase17a_ismip(dev, smi, refs):
+    """ISMIP-HOM A (all six L) and C at 40x40x16 float64 through the
+    example's ``run_one``, then L = 20 km at 20x20x8 on the card against
+    the CPU (1e-8 relative, equal Newton sweeps). ``refs()``: the CPU
+    runs' results (``cpu_references``)."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch.examples import ismip_hom
+
+    for exp, Ls in (("A", ISMIP_A_L), ("C", ISMIP_C_L)):
+        tot_k = tot_s = 0.0
+        for L in Ls:
+            torch.cuda.synchronize()
+            reset_counts()
+            r = ismip_hom.run_one(exp, L, ISMIP_M, ISMIP_MZ, dev)
+            _check_launches(f"phase17a {exp} {L:g}", read_counts(), (),
+                            KERNELS)
+            tot_k += r["krylov_iters"]
+            tot_s += r["seconds"]
+            print(f"phase17a: {smi}: ISMIP-HOM {exp} L = {L:g} km "
+                  f"{ISMIP_M}x{ISMIP_M}x{ISMIP_MZ} "
+                  f"float64: transect umin {r['umin']} umax {r['umax']} "
+                  f"umean {r['umean']} m/a, Newton {r['newton_iters']}, "
+                  f"Krylov {r['krylov_iters']}, {r['seconds']:.3f} s, "
+                  f"{1e3 * r['seconds'] / max(r['krylov_iters'], 1):.3f} "
+                  "ms/Krylov iteration"
+                  + (f", max_over_sia {r['max_over_sia']}" if exp == "A"
+                     else ""))
+            if not (np.isfinite([r["umin"], r["umax"], r["umean"]]).all()
+                    and 0.0 < r["umin"] <= r["umean"] <= r["umax"]):
+                raise AssertionError(f"phase17a: {exp} {L:g}: {r}")
+        print(f"phase17a: {exp}: {tot_k:.0f} Krylov iterations in "
+              f"{tot_s:.3f} s ({1e3 * tot_s / tot_k:.3f} ms each)")
+    b = ismip_hom.run_one("A", 20.0, 20, 8, dev, raw=True)
+    a = refs()["17a"]
+    rel = float(np.abs(b["_u"] - a["_u"]).max() / np.abs(a["_u"]).max())
+    print(f"phase17a: A L = 20 km 20x20x8 card against CPU: Newton "
+          f"{b['newton_iters']} / {a['newton_iters']}, Krylov "
+          f"{b['krylov_iters']} / {a['krylov_iters']}, u {rel:.3e} of max "
+          "(tol 1e-8)")
+    if b["newton_iters"] != a["newton_iters"] or not rel <= 1e-8:
+        raise AssertionError("phase17a: the card and the CPU disagree")
+
+
+def phase17b_xz(dev, smi):
+    """``-test blatter_xz`` and ``-test blatter_xz_cfbc`` through
+    ``cli.main`` at the JAX tests' grids, under their bounds."""
+    import re
+    from pism_tpu_torch import cli
+
+    def row(test, Mx, Mz):
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, lines = _quiet(cli.main, ["-test", test, "-Mx", str(Mx),
+                                      "-Mz", str(Mz)])
+        wall = time.perf_counter() - t0
+        _check_launches(f"phase17b {test}", read_counts(), (), KERNELS)
+        if rc != 0:
+            raise AssertionError(f"phase17b: -test {test} returned {rc}")
+        nums = [float(x) for x in re.findall(r"\d+\.\d+", lines[-1])]
+        print(f"phase17b: {smi}: -test {test} -Mx {Mx} -Mz {Mz}: "
+              f"{lines[-1].strip()} ({wall:.3f} s)")
+        return nums
+
+    (e1, r1), (e2, r2) = row("blatter_xz", 17, 9), row("blatter_xz", 33, 17)
+    c1, = row("blatter_xz_cfbc", 49, 13)
+    c2, = row("blatter_xz_cfbc", 49, 25)
+    print(f"phase17b: XZ err1/scale {r1:.5f} (< 0.05), err2/err1 "
+          f"{e2 / e1:.4f} (< 0.35); CFBC e1 {c1:.5f} (< 0.06), e2/e1 "
+          f"{c2 / c1:.4f} (< 0.35)")
+    if not (r1 < 0.05 and e2 < 0.35 * e1 and c1 < 0.06 and c2 < 0.35 * c1):
+        raise AssertionError("phase17b: outside the JAX tests' bounds")
+
+
+def phase17c_test_I(dev, smi, refs):
+    """``-test I`` with SSAFEM through ``cli.main`` at 11x61 float64 on the
+    card, Newton capped at ``TEST_I_NEWTON``, against the CPU run: the
+    reports; equal Newton sweeps, Krylov iterations within 10% and
+    velocities within 1e-5 of max|u|."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import cli
+    from pism_tpu_torch.model import ssafem
+
+    solves, orig = [], ssafem.SSAFEM.solve
+
+    def solve(self, *a, **k):
+        out = orig(self, *a, **k)
+        solves.append(out)
+        return out
+
+    ssafem.SSAFEM.solve = solve
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, lines = _quiet(cli.main, list(TEST_I_ARGS))
+        torch.cuda.synchronize()
+        wall, counts = time.perf_counter() - t0, read_counts()
+    finally:
+        ssafem.SSAFEM.solve = orig
+    if rc != 0 or len(solves) != 1:
+        raise AssertionError(f"phase17c: -test I returned {rc}")
+    _check_launches("phase17c", counts, (), KERNELS)
+    ub, ib = solves[0][0].cpu().numpy(), solves[0][2]
+    ua, newton_a, krylov_a, cpu_line, cpu_wall = refs()["17c"]
+    rel = float(np.abs(ub - ua).max() / np.abs(ua).max())
+    print(f"phase17c: {smi}: {lines[-1]} ({wall:.3f} s, "
+          f"{1e3 * wall / ib['krylov_iters']:.3f} ms/Krylov iteration); "
+          f"CPU: {cpu_line} ({cpu_wall:.3f} s)")
+    print(f"phase17c: card / CPU: Newton {ib['newton_iters']} / "
+          f"{newton_a}, Krylov {ib['krylov_iters']} / {krylov_a}, u "
+          f"{rel:.3e} of max (tol 1e-5)")
+    if not rel <= 1e-5 or "SSAFEM" not in lines[-1] \
+            or ib["newton_iters"] != newton_a \
+            or abs(ib["krylov_iters"] - krylov_a) > 0.1 * krylov_a:
+        raise AssertionError("phase17c: the card and the CPU disagree")
+
+
+def phase17d_fem_chain(dev, smi):
+    """Phase 2's 20 km chain (141x76x41 float32) with SSAFEM: steps timed,
+    the SSA's share, every kernel idle (the FD route not taken)."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.model import ssafem
+    from pism_tpu_torch.model.icemodel import StepStats, _merge_stats
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float32", 20.0, device=dev,
+        extra_cfg={"stress_balance.ssa.method": "fem"})
+    if not isinstance(model.ssa, ssafem.SSAFEM):
+        raise AssertionError("phase17d: the chain's SSA is not SSAFEM")
+    state = model.prepare_state(state)
+    acc, orig = [0.0], model.ssa.solve
+
+    def solve(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        acc[0] += time.perf_counter() - t0
+        return out
+
+    model.ssa.solve = solve
+    t, stats = 0.0, None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(FEM_CHAIN_STEPS):
+        state, t, st = model._step(state, t, 10 * SPY, StepStats())
+        stats = _merge_stats(stats, st)
+    torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, read_counts()
+    n = stats.nsteps
+    print(f"phase17d: {smi}: 20 km FEM chain {grid.My}x{grid.Mx}x{grid.Mz} "
+          f"float32, {n} steps to {t / SPY:.4f} a: dt-limit hits "
+          f"{stats.limit_hits_dict()}, {1e3 * wall / n:.1f} ms/step, Newton "
+          f"{stats.ssa_newton_iters / n:.2f}/step, Krylov "
+          f"{stats.ssa_krylov_iters / n:.1f}/step, the SSA "
+          f"{acc[0] / wall:.3f} of the step, launches {counts}")
+    _check_launches("phase17d", counts, (), KERNELS)
+    for name in ("u_ssa", "v_ssa", "enthalpy"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"phase17d: non-finite {name}")
+    if not bool(torch.isfinite(state.geometry.ice_thickness).all()):
+        raise AssertionError("phase17d: non-finite thickness")
+
+
+def phase17e_dome(dev, smi, refs):
+    """The composite Blatter model on the Mohr-Coulomb dome with enthalpy:
+    61x61x21 over 300 km for a few steps; 16x16x11 for 60 a card against
+    CPU (equal steps and hits, volume within 1e-8)."""
+    import torch
+    from pism_tpu_torch import Time
+    from pism_tpu_torch.model.icemodel import StepStats, _merge_stats
+
+    model, state = _dome_model(dev, 61, 21)
+    t, stats = 0.0, None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(DOME_STEPS):
+        state, t, st = model._step(state, t, 1e4 * SPY, StepStats())
+        stats = _merge_stats(stats, st)
+    torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, read_counts()
+    n = stats.nsteps
+    _check_launches("phase17e", counts, (), KERNELS)
+    print(f"phase17e: {smi}: Blatter dome 61x61x21 float64, {n} steps to "
+          f"{t / SPY:.3f} a: {1e3 * wall / n:.1f} ms/step, Newton "
+          f"{stats.ssa_newton_iters / n:.2f}/step, Krylov "
+          f"{stats.ssa_krylov_iters / n:.1f}/step, dt-limit hits "
+          f"{stats.limit_hits_dict()}, max |ubar| "
+          f"{float(state.u_ssa.abs().max()) * SPY:.2f} m/a")
+    for f in (state.u_ssa, state.enthalpy, state.geometry.ice_thickness):
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError("phase17e: non-finite fields")
+    m, s = _dome_model(dev, 16, 11)
+    s, sb = m.run(s, Time(0.0, 60.0 * SPY))
+    vb = float(s.geometry.ice_thickness.double().sum())
+    va, n_a, hits_a, newton_a = refs()["17e"]
+    rel = abs(vb - va) / va
+    print(f"phase17e: 16x16x11 60 a card against CPU: steps {sb.nsteps} / "
+          f"{n_a}, hits {sb.limit_hits_dict()} / {hits_a}, Newton "
+          f"{sb.ssa_newton_iters} / {newton_a}, volume rel diff {rel:.3e} "
+          "(tol 1e-8)")
+    if sb.nsteps != n_a or sb.limit_hits_dict() != hits_a \
+            or not rel <= 1e-8:
+        raise AssertionError("phase17e: the card and the CPU disagree")
+
+
+def phase17f_greenland(dev, smi):
+    """One Blatter solve on phase 2's 20 km initial state (141x76x41
+    float64, Newton capped): sweeps, Krylov, |F|^2/tol, ms per Krylov
+    iteration, the profiler's device ops and time per Krylov iteration
+    against its host time, and the peak memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.model import blatter as bl
+    from pism_tpu_torch.ops import ssa as ssa_ops
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float64", 20.0, device=dev,
+        extra_cfg={"stress_balance.model": "blatter",
+                   "stress_balance.blatter.newton_max_iterations":
+                   GREENLAND_NEWTON})
+    state = model.prepare_state(state)
+    tau_c = model.yield_stress.compute(state, t=0.0)
+    systems, orig = [], ssa_ops.bicgstab_solve
+
+    def keep(matvec, b, x0, precond, **k):
+        if not systems:
+            systems.append((matvec, b, x0, precond))
+        return orig(matvec, b, x0, precond, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bl.ssa_ops.bicgstab_solve = keep
+    try:
+        t0 = time.perf_counter()
+        u, v, info = model.blatter.solve(state, tau_c, diagnostics=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bl.ssa_ops.bicgstab_solve = orig
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_launches("phase17f", read_counts(), (), KERNELS)
+    k = info["krylov_iters"]
+    print(f"phase17f: {smi}: Blatter on the 20 km Greenland state "
+          f"{grid.My}x{grid.Mx}x{grid.Mz} float64: Newton "
+          f"{info['newton_iters']} (cap {GREENLAND_NEWTON}), Krylov {k}, "
+          f"|F|^2/tol {float(info['F2_final'] / info['tol2']):.3e}, "
+          f"{wall:.3f} s, {1e3 * wall / max(k, 1):.3f} ms/Krylov iteration, "
+          f"peak memory {peak:.3f} GiB")
+    if not (bool(torch.isfinite(u).all()) and k > 0):
+        raise AssertionError("phase17f: non-finite velocities")
+    matvec, b, x0, precond = systems[0]
+    res = {}
+    for n in (1, 21):
+        orig(matvec, b, x0, precond, rtol=0.0, max_iter=n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, its, _ = orig(matvec, b, x0, precond, rtol=0.0, max_iter=n)
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        res[n] = (its, len(ev), sum(e.time_range.elapsed_us() for e in ev),
+                  host)
+    (i1, n1, d1, h1), (i21, n21, d21, h21) = res[1], res[21]
+    m = max(i21 - i1, 1)
+    print(f"phase17f: one Krylov iteration on the first sweep's system: "
+          f"{(n21 - n1) / m:.0f} device ops, device {(d21 - d1) / m:.1f} us, "
+          f"profiled host {1e3 * (h21 - h1) / m:.3f} ms ({i21} - {i1} "
+          "iterations)")
+
+
+def phase17g_ssa_none(dev, smi, refs):
+    """MISMIP experiment 1 at 151x7 with ``stress_balance.model = ssa``
+    (float32, the periodic route of K1 and the Newton matvec and the PCR
+    kernels launched), float64 card against CPU at equal steps; then
+    ``none`` on the same initial state: zero velocity, only the SMB moves
+    the ice."""
+    import torch
+    from pism_tpu_torch import Time, setups
+
+    y = MISMIP1_YEARS[0]
+    model, state, grid = setups.mismip_model(
+        "float32", 151, 7, device=dev,
+        extra_cfg={"stress_balance.model": "ssa"})
+    reset_counts()
+    state, t, stats, wall = _mismip_run(model, state, 0.0, y)
+    counts = read_counts()
+    _mismip_check("phase17g", state, grid, torch.float32)
+    ssa_on = ("ssa_matvec_halo", "ssa_newton_matvec_halo", "pcr_lines",
+              "pcr_lines_sub", "pcr_factor_lines", "pcr_factor_lines_sub")
+    _check_launches("phase17g", counts, ssa_on,
+                    ("sia_flux_thermo", "sia_flux", "ssa_matvec",
+                     "ssa_newton_matvec"))
+    _mismip_report(f"phase17g: {smi}: ssa", grid, y, stats, wall, counts,
+                   state)
+    print(f"phase17g: ssa route launches: "
+          f"{ {k: counts[k] for k in ssa_on} }")
+    m, s, _ = setups.mismip_model("float64", 151, 7, device=dev,
+                                  extra_cfg={"stress_balance.model": "ssa"})
+    s, sb = m.run(s, Time(0.0, y * SPY))
+    vb = float(s.geometry.ice_thickness.double().sum())
+    va, n_a, hits_a = refs()["17g"]
+    rel = abs(vb - va) / va
+    print(f"phase17g: ssa 151x7 float64 {y:g} a card against CPU: steps "
+          f"{sb.nsteps} / {n_a}, hits {sb.limit_hits_dict()} / {hits_a}, "
+          f"volume rel diff {rel:.3e} (tol 2e-4)")
+    if sb.nsteps != n_a or sb.limit_hits_dict() != hits_a \
+            or not rel <= 2e-4:
+        raise AssertionError("phase17g: the card and the CPU disagree")
+
+    model, state0, grid = setups.mismip_model(
+        "float32", 151, 7, device=dev,
+        extra_cfg={"stress_balance.model": "none"})
+    reset_counts()
+    state, t, stats, wall = _mismip_run(model, state0, 0.0, y)
+    _check_launches("phase17g none", read_counts(), (), KERNELS)
+    area = grid.dx * grid.dy
+    dV = float((state.geometry.ice_thickness.double()
+                - state0.geometry.ice_thickness.double()).sum()) * area
+    budget = float(stats.sum_smb + stats.sum_bmb + stats.sum_nonneg
+                   + stats.sum_discharge)
+    u = 0.0 if state.u_ssa is None else float(state.u_ssa.abs().max())
+    print(f"phase17g: {smi}: none 151x7 float32 {y:g} a: steps "
+          f"{stats.nsteps}, hits {stats.limit_hits_dict()}, "
+          f"{1e3 * wall / stats.nsteps:.2f} ms/step, max |u| {u}, volume "
+          f"change {dV:.6e} m^3 against SMB + BMB + clipping + discharge "
+          f"{budget:.6e}")
+    if u != 0.0 or not abs(dV - budget) <= 1e-5 * abs(budget) + 1e-3 * area:
+        raise AssertionError("phase17g: none moved the ice other than by SMB")
+
+
+def phase17_blatter_fem(dev, smi):
+    """Phase 17, its CPU runs (``cpu_references``) in a child process
+    beside the card's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        future = pool.submit(cpu_references)
+        _timed("phase17a", phase17a_ismip, dev, smi, future.result)
+        _timed("phase17b", phase17b_xz, dev, smi)
+        _timed("phase17c", phase17c_test_I, dev, smi, future.result)
+        _timed("phase17d", phase17d_fem_chain, dev, smi)
+        _timed("phase17e", phase17e_dome, dev, smi, future.result)
+        _timed("phase17f", phase17f_greenland, dev, smi)
+        _timed("phase17g", phase17g_ssa_none, dev, smi, future.result)
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -4997,16 +5525,18 @@ def main():
     # the old JVP kernels and the per-shard ones are off these paths
     off = ("ssa_matvec_jvp", "ssa_matvec_halo", "ssa_matvec_halo_jvp",
            "ssa_newton_matvec_halo", "sia_flux_thermo", "sia_flux")
-    _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2", None,
-                                   k1 + pcr_names, off)
+    _, _, _, (p2,), _ = run_hybrid(dev, 20.0, (PHASE2_YEARS,), "phase2",
+                                   None, k1 + pcr_names, off)
     # the default route before it went through the PCR kernels
     with plain_pcr():
-        _, _, _, (p2p,), _ = run_hybrid(dev, 20.0, (2.0,), "phase2 plain PCR",
-                                        None, k1, pcr_names + off)
+        _, _, _, (p2p,), _ = run_hybrid(dev, 20.0, (PHASE2_YEARS,),
+                                        "phase2 plain PCR", None, k1,
+                                        pcr_names + off)
     (s2, w2, v2), (s2p, w2p, v2p) = p2, p2p
     rel = abs(v2 - v2p) / v2p
     print(f"phase2: the default route (the PCR kernels) against the plain PCR"
-          f" on the card, 2 a: steps {s2.nsteps} / {s2p.nsteps}, ms/step "
+          f" on the card, {PHASE2_YEARS:g} a: steps {s2.nsteps} / "
+          f"{s2p.nsteps}, ms/step "
           f"{1e3 * w2 / s2.nsteps:.2f} / {1e3 * w2p / s2p.nsteps:.2f}, Newton "
           f"sweeps {s2.ssa_newton_iters} / {s2p.ssa_newton_iters}, Krylov its "
           f"{s2.ssa_krylov_iters} / {s2p.ssa_krylov_iters}, dt-limit hits "
@@ -5021,11 +5551,13 @@ def main():
                              "disagree (steps, hits, volume, or Newton and "
                              "Krylov counts beyond 10%)")
     model, state, t, (a2, a8), counts_a = run_hybrid(
-        dev, 20.0, (2.0, 8.0), "phase2b", PATH_A, k1 + pcr_names, off)
+        dev, 20.0, (PHASE2_YEARS, PHASE2B_YEARS - PHASE2_YEARS), "phase2b",
+        PATH_A, k1 + pcr_names, off)
     path_a = (model, state, t)
     (sa, wa, va) = a2
     rel = abs(va - v2) / v2
-    print(f"phase2b: after 2 a against phase 2: steps {sa.nsteps} / "
+    print(f"phase2b: after {PHASE2_YEARS:g} a against phase 2: steps "
+          f"{sa.nsteps} / "
           f"{s2.nsteps}, dt-limit hits {sa.limit_hits_dict()} / "
           f"{s2.limit_hits_dict()}, ms/step {1e3 * wa / sa.nsteps:.2f} / "
           f"{1e3 * w2 / s2.nsteps:.2f}, Newton sweeps {sa.ssa_newton_iters} / "
@@ -5107,6 +5639,10 @@ def main():
     print(f"phase16: {smi}")
     phase16_hydrology(dev, smi)
     print(f"phase16: {time.time() - t16:.1f} s")
+    t17 = time.time()
+    print(f"phase17: {smi}")
+    phase17_blatter_fem(dev, smi)
+    print(f"phase17: {time.time() - t17:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

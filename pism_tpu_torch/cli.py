@@ -3,11 +3,14 @@ verification runs, the EISMINT II experiments, bootstrapping and restarts).
 
 Routes of the port:
 
-- ``-test A/D/E/F/G/H/K/L/O/P``: the verification runner
-  (``verification/runner.py``; P the routing hydrology);
+- ``-test A/D/E/F/G/H/K/L/O/P``, ``-test blatter_xz[_cfbc]``: the
+  verification runner (``verification/runner.py``; P the routing
+  hydrology; the Blatter XZ problems at ``-Mx``/``-Mz``, or their
+  refinement tables);
 - ``-test B/C``: the Halfar similarity solutions with an error report;
 - ``-test I/J/M/V/N``: the SSA verification tests, one solve each with an
-  error report (``verification/ssa_tests.py``);
+  error report (``verification/ssa_tests.py``; I also with ``-config
+  stress_balance.ssa.method=fem``);
 - ``-eisII A-L``: EISMINT II from zero ice, or, with ``-i``, from a saved
   state (experiments B-E restart from A's end state);
 - ``-i FILE -bootstrap``: a state from a data file on its own grid
@@ -19,10 +22,11 @@ With each route, ``-regrid_file``/``-regrid_vars`` replace 2D fields by
 ones regridded from another file, the coupler flags (``-atmosphere``,
 ``-surface``, ``-ocean``, ``-sea_level``) build chains through
 ``coupler/factory.py``, and ``stress_balance.ssa.dirichlet_bc`` reads the
-SSA's Dirichlet velocities from ``-i``. ``-stress_balance`` takes
-``sia``, ``ssa+sia``, ``weertman_sliding[+sia]`` and
-``prescribed_sliding[+sia]`` (its velocities from
-``stress_balance.prescribed_sliding.file``); ``-hydrology`` takes
+SSA's Dirichlet velocities from ``-i``. ``-stress_balance`` takes every
+value: ``none``, ``sia``, ``ssa``, ``ssa+sia`` (``-ssa_method fd|fem``),
+``blatter``, ``weertman_sliding[+sia]`` and ``prescribed_sliding[+sia]``
+(its velocities from ``stress_balance.prescribed_sliding.file``);
+``-hydrology`` takes
 ``null``, ``routing``, ``distributed`` and ``steady`` (with an SSA), and
 ``-config frontal_melt.models=...`` a frontal melt, its fields from the
 ``frontal_melt.*.file`` keys.
@@ -40,6 +44,8 @@ Examples:
   python -m pism_tpu_torch -eisII G -y 3000 -o g.nc -o_format netcdf3
   python -m pism_tpu_torch -test K
   python -m pism_tpu_torch -test P
+  python -m pism_tpu_torch -test blatter_xz -Mx 33 -Mz 17
+  python -m pism_tpu_torch -test I -config stress_balance.ssa.method=fem
   python -m pism_tpu_torch -i a.nc -y 100 -o b.nc -o_format netcdf3
   python -m pism_tpu_torch -i g_boot.nc -bootstrap -Mx 76 -My 141 -Mz 41 \\
       -Lx 750 -Ly 1400 -Lz 4000 -stress_balance sia \\
@@ -256,6 +262,10 @@ def _apply_config_overrides(cfg: Config, pairs):
                 cfg.update({k: v})
 
 
+#: the runner's Blatter verification problems
+BLATTER_TESTS = ("blatter_xz", "blatter_xz_cfbc")
+
+
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not implemented in pism_tpu_torch (ROADMAP Queue 1 "
@@ -269,7 +279,8 @@ def _refuse_unported(args):
                        ("inverse", "10"), ("view", "4")):
         if getattr(args, flag) not in (None, False):
             raise _unported(f"-{flag}", item)
-    if args.test and args.test.upper() not in tuple("ABCDEFGHKLOPIJMVN"):
+    if args.test and args.test.upper() not in tuple("ABCDEFGHKLOPIJMVN") \
+            and args.test.lower() not in BLATTER_TESTS:
         raise _unported(f"-test {args.test}", "2")
 
 
@@ -561,8 +572,11 @@ def main(argv=None):
                                 Mz=args.Mz or 61, device=device)
             grid, cfg, state, surface = es.grid, es.config, es.state, es.surface
         sliding_mu = es.sliding_mu
-    elif args.test and args.test.upper() in tuple("ADEFGHKLOP"):
-        # pismv-style single-test runs with an error report (runner.py)
+    elif args.test and (args.test.upper() in tuple("ADEFGHKLOP")
+                        or args.test.lower() in BLATTER_TESTS):
+        # pismv-style single-test runs with an error report (runner.py);
+        # the Blatter problems by name, as the JAX package's runner takes
+        # them (its command line refuses them)
         from .verification import runner
         over = Config({})
         _apply_config_overrides(over, args.config or [])

@@ -21,8 +21,12 @@ isothermal ``ssa+sia``, with no 3D velocities, the dt chosen from the 2D
 face velocities); the SIA stress balance with the Weertman sliding law
 (``sliding_mu`` its per-cell coefficient) or a prescribed sliding
 velocity (``prescribed_u``/``prescribed_v``, else
-``stress_balance.prescribed_sliding.file``) and, with ``ssa+sia``, the
-SSAFD solve, the yield stress of
+``stress_balance.prescribed_sliding.file``); with ``ssa`` or ``ssa+sia``
+the SSAFD solve, or SSAFEM with ``stress_balance.ssa.method = fem``; with
+``blatter`` the 3D Blatter-Pattyn solve instead of all of these (the 3D
+velocities of the energy model its own); ``none`` moves the ice by its
+SMB and carried velocities alone; with an SSA or Blatter, the yield
+stress of
 ``basal_yield_stress.model`` (Mohr-Coulomb with ``topg_to_phi``, slippery
 grounding lines and ``add_transportable_water``, constant, or given) and
 the hydrology of ``hydrology.model`` (null, routing, distributed or
@@ -44,8 +48,8 @@ torch raises rather than the model running on the CPU. ``mesh`` (a
 its JVP (K5) and the SIA flux kernels (K3/K4) run per shard on halo-padded
 blocks, while every field stays whole on ``device``
 (``pism_tpu/model/icemodel.py:146-150``). The Weertman and prescribed
-sliding, a bedrock layer, a hydrology model other than null and frontal
-melt raise NotImplementedError under a mesh.
+sliding, Blatter, SSAFEM, a bedrock layer, a hydrology model other than
+null and frontal melt raise NotImplementedError under a mesh.
 
 ``member_axis`` builds the model of an ensemble's members
 (``parallel/ensemble.py``): every field has a leading member axis, the
@@ -63,9 +67,9 @@ with a member form (constant, PIK, PICO, their ``delta_T``),
 and iceberg removal, part-grid, the sub-grid grounding line, and
 Lingle-Clark bed deformation (each member's gate on its own step end). A
 mesh, sea level, pointwise isostasy, another calving method or float
-kill, another stateful surface, the Weertman and prescribed sliding, a
-bedrock layer, a hydrology model other than null and frontal melt raise
-NotImplementedError.
+kill, another stateful surface, the Weertman and prescribed sliding,
+``ssa``, ``none``, Blatter and SSAFEM, a bedrock layer, a hydrology model
+other than null and frontal melt raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -98,10 +102,12 @@ from ..util.logger import log
 from ..util.timecal import Time
 from . import geometry_evolution as ge
 from .beddef import LingleClark, bed_deformation_from_config
+from .blatter import BlatterSolver
 from .btu import BTUFull, btu_from_config
 from .calving import CalvingModel, calving_from_config
 from .energy import EnergyModel, bootstrap_enthalpy
 from .ssa import SSAFD
+from .ssafem import SSAFEM
 from .stressbalance import StressBalance, StressBalanceResult
 
 class CellBudget(NamedTuple):
@@ -309,11 +315,24 @@ class IceModel:
                         f"Queue 1 item {item})")
         # the SSA and what feeds it exist only with an SSA in the model
         # (pism_tpu/model/icemodel.py:185-206)
-        self.ssa = self.hydrology = None
-        if "ssa" in cfg.get_string("stress_balance.model"):
-            self.ssa = SSAFD(grid=self.grid, config=cfg,
-                             flow_law=flow_law_from_config(cfg, "ssa", self.EC),
-                             mesh=self.mesh, lead=self.lead)
+        self.ssa = self.hydrology = self.blatter = None
+        if sb_model == "blatter":
+            # the Blatter flow law when its key is set, else the SSA's
+            # (pism_tpu/model/icemodel.py:169-184)
+            self.blatter = BlatterSolver(
+                grid=self.grid, config=cfg, flow_law=flow_law_from_config(
+                    cfg, "blatter" if cfg.is_set("stress_balance.blatter."
+                                                 "flow_law") else "ssa",
+                    self.EC))
+        if "ssa" in sb_model:
+            require(cfg, "stress_balance.ssa.method", ("fd", "fem"))
+            ssa_cls = SSAFEM if cfg.get_string(
+                "stress_balance.ssa.method") == "fem" else SSAFD
+            self.ssa = ssa_cls(grid=self.grid, config=cfg,
+                               flow_law=flow_law_from_config(cfg, "ssa",
+                                                             self.EC),
+                               mesh=self.mesh, lead=self.lead)
+        if self.ssa is not None or self.blatter is not None:
             if self.yield_stress is None:
                 self.yield_stress = yield_stress_from_config(cfg, self.grid)
             self.hydrology = hydrology_from_config(self.grid, cfg,
@@ -364,12 +383,14 @@ class IceModel:
         self.stress_balance = StressBalance(
             grid=self.grid, config=cfg,
             sia_flow_law=flow_law_from_config(cfg, "sia", self.EC),
-            ssa=self.ssa, compute_3d=self.energy_model is not None,
+            ssa=self.ssa, blatter=self.blatter,
+            compute_3d=self.energy_model is not None,
             mesh=self.mesh, lead=self.lead,
             sliding_mu=on_device(self.sliding_mu),
             prescribed_u=on_device(self.prescribed_u),
             prescribed_v=on_device(self.prescribed_v))
-        if self.energy_model is not None and not self.stress_balance.has_sia:
+        if self.energy_model is not None and not self.stress_balance.has_sia \
+                and self.blatter is None:
             raise ValueError(
                 f"stress_balance.model = {sb_model!r} has no SIA 3D "
                 "velocities for energy.model = enthalpy")
@@ -453,9 +474,9 @@ class IceModel:
         if self.stress_balance.has_sia:
             cand[1] = self.skip_max * sia_ops.max_timestep_diffusivity(
                 max_D, grid.dx, grid.dy, self.adaptive_ratio)
-        if self.stress_balance.model != "sia":
+        if self.stress_balance.model not in ("sia", "none"):
             # the sliding velocity's limit (the SSA's, Weertman's, the
-            # prescribed field's)
+            # prescribed field's, Blatter's vertical mean)
             cand[2] = self.skip_max * (self.cfl_factor * ge.max_timestep_cfl_2d(
                 max_ue, max_vn, grid.dx, grid.dy))
         if self.stress_balance.compute_3d:
@@ -497,9 +518,11 @@ class IceModel:
         supplied. With ``cells`` the returned values also hold the per-cell
         flow, SMB, BMB and clip rates."""
         grid, sh = self.grid, self.sh
-        if qe_d is None:
+        if qe_d is None and self.stress_balance.has_sia:
             flux = self.stress_balance.sia_flux(geometry, state.enthalpy)
             qe_d, qn_d = flux.qe, flux.qn
+        elif qe_d is None:
+            qe_d = qn_d = torch.zeros_like(geometry.ice_thickness)
         qe_adv, qn_adv = ge.advective_flux(sb.u_face_e, sb.v_face_n,
                                            geometry.ice_thickness, sh)
         res = ge.flow_step(geometry, dt_sub, qe_d + qe_adv, qn_d + qn_adv,
@@ -902,7 +925,7 @@ class IceModel:
                 kw["hydro_Q"] = None
         if self.energy_model is not None and state.basal_melt_rate is None:
             kw["basal_melt_rate"] = z2
-        if self.stress_balance.model != "sia":
+        if self.stress_balance.model not in ("sia", "none"):
             if state.u_ssa is None:
                 kw["u_ssa"] = z2
             if state.v_ssa is None:

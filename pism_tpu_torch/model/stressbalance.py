@@ -1,18 +1,25 @@
 """Composite stress balance (port of ``pism_tpu/model/stressbalance.py``,
-the ``ssa+sia``, ``sia``, ``weertman_sliding[+sia]`` and
-``prescribed_sliding[+sia]`` branches of ``update``): the sliding velocity
-(the SSA's with ``ssa+sia``, the Weertman law's, the prescribed fields;
-``sia`` carries the state's own, if any), the SIA diffusive flux on the
-bed-smoothed geometry, and (for the energy model) the 3D velocities,
-strain heating and, with an SSA, basal frictional heating. Without an
-energy model (``compute_3d = False``) the result holds the sliding
-velocities and the 2D maxima only.
+every value of ``stress_balance.model``): the sliding velocity (the SSA's
+with ``ssa`` and ``ssa+sia``, the Weertman law's, the prescribed fields;
+``sia`` and ``none`` carry the state's own, if any), the SIA diffusive
+flux on the bed-smoothed geometry (zero without an SIA), and (for the
+energy model) the 3D velocities, strain heating and, with an SSA, basal
+frictional heating. Without an energy model (``compute_3d = False``) the
+result holds the sliding velocities and the 2D maxima only.
+
+``blatter`` replaces all of it by the 3D Blatter-Pattyn solve
+(``model/blatter.py``): its vertical mean advects the ice (no diffusive
+flux), its bottom level is the sliding velocity, and for the energy model
+its field regridded to the z levels, w from incompressibility, its
+dissipation as the strain heating and the frictional heating of the
+bottom level.
 
 On an ensemble's member axis (``lead = 1``) both models run on
 ``(B, My, Mx[, Mz])`` fields with per-member maxima; with ``ssa+sia`` the
 SSA solve (built with the same ``lead``) converges per member in lockstep
 and its counts are per member. The Weertman and prescribed-sliding
-branches raise NotImplementedError there and under a sharded mesh.
+branches and ``blatter`` raise NotImplementedError there and under a
+sharded mesh, ``ssa`` and ``none`` on the member axis.
 """
 
 from __future__ import annotations
@@ -29,13 +36,13 @@ from ..ops import sia as sia_ops
 from ..ops import sia3d
 from ..ops import stencils as st
 from ..ops.stencils import Shifter
-from ..parallel.mesh import is_sharded, refuse_periodic_mesh
+from ..parallel.mesh import refuse_member_axis_and_mesh, refuse_periodic_mesh
 from . import geometry_evolution as ge
 
-#: the ported values of ``stress_balance.model`` (the JAX package also takes
-#: none, ssa and blatter)
-MODELS = ("ssa+sia", "sia", "weertman_sliding", "weertman_sliding+sia",
-          "prescribed_sliding", "prescribed_sliding+sia")
+#: the values of ``stress_balance.model``
+MODELS = ("ssa+sia", "ssa", "sia", "none", "blatter", "weertman_sliding",
+          "weertman_sliding+sia", "prescribed_sliding",
+          "prescribed_sliding+sia")
 
 
 class StressBalanceResult(NamedTuple):
@@ -64,6 +71,7 @@ class StressBalance:
     config: object
     sia_flow_law: object
     ssa: object = None
+    blatter: object = None    # BlatterSolver (model = blatter)
     compute_3d: bool = True
     # ("y", "x") Mesh: the SIA kernel routes run per shard under it
     mesh: object = None
@@ -83,15 +91,12 @@ class StressBalance:
         self.has_sia = "sia" in self.model.split("+")
         self.sliding = self.model.split("+")[0] \
             if self.model.startswith(("weertman", "prescribed")) else None
-        if self.sliding is not None:
-            for what, present, item in (
-                    ("an ensemble's member axis", self.lead, "3"),
-                    ("a mesh", is_sharded(self.mesh), "10")):
-                if present:
-                    raise NotImplementedError(
-                        f"stress_balance.model = {self.model!r} on {what} "
-                        "is not implemented in pism_tpu_torch (ROADMAP "
-                        f"Queue 1 item {item})")
+        if self.sliding is not None or self.model in ("blatter", "ssa",
+                                                       "none"):
+            # ssa and none run under a mesh (the SSA refuses what it must)
+            refuse_member_axis_and_mesh(
+                f"stress_balance.model = {self.model!r}", self.lead,
+                None if self.model in ("ssa", "none") else self.mesh)
         if self.sliding == "weertman_sliding":
             self.k_weertman = cfg.get_number(
                 "stress_balance.weertman_sliding.k")
@@ -103,6 +108,9 @@ class StressBalance:
                 and self.prescribed_u is None:
             raise ValueError("stress_balance.model = prescribed_sliding needs "
                              "the prescribed_u and prescribed_v fields")
+        if self.model == "blatter" and self.blatter is None:
+            raise ValueError("stress_balance.model = blatter needs a "
+                             "BlatterSolver")
         if self.ssa is not None and self.ssa.lead != self.lead:
             raise ValueError("the SSA and the stress balance take different "
                              "member dims")
@@ -188,15 +196,73 @@ class StressBalance:
             theta_n=theta_n, pallas=pallas, mesh=self.mesh,
             d_limit=self.d_limit)
 
+    def _blatter_update(self, state: S.ModelState, yield_stress):
+        """The 3D Blatter solve as the whole stress balance (JAX
+        ``pism_tpu/model/stressbalance.py:192-250``): warm-started from the
+        previous vertical mean broadcast over depth."""
+        grid, sh = self.grid, self.sh
+        geom = state.geometry
+        H = geom.ice_thickness
+        dtype = H.dtype
+        u0 = v0 = None
+        if state.u_ssa is not None:
+            shape3 = tuple(H.shape) + (grid.Mz,)
+            u0 = state.u_ssa[..., None].expand(shape3)
+            v0 = state.v_ssa[..., None].expand(shape3)
+        u3z, v3z, Phi_z, info = self.blatter.solve(
+            state, yield_stress, u0=u0, v0=v0, full_output=True)
+        ubar = self.blatter.vertical_average(u3z).to(dtype)
+        vbar = self.blatter.vertical_average(v3z).to(dtype)
+        u_b = u3z[..., 0].to(dtype)
+        v_b = v3z[..., 0].to(dtype)
+
+        sia3 = friction = None
+        if self.compute_3d:
+            u3 = self.blatter.regrid_to_z(u3z, H).to(dtype)
+            v3 = self.blatter.regrid_to_z(v3z, H).to(dtype)
+            Phi = self.blatter.regrid_to_z(Phi_z, H).to(dtype)
+            z = torch.as_tensor(grid.z, dtype=dtype, device=H.device)
+            u_x = (sh(u3, 0, 1) - sh(u3, 0, -1)) / (2.0 * grid.dx)
+            v_y = (sh(v3, 1, 0) - sh(v3, -1, 0)) / (2.0 * grid.dy)
+            b_x, b_y = st.centered_grad(geom.bed_elevation, grid.dx,
+                                        grid.dy, sh)
+            w_base = u_b * b_x + v_b * b_y
+            if state.basal_melt_rate is not None:
+                w_base = w_base - state.basal_melt_rate
+            w = w_base[..., None] - sia3d._cumtrapz_z(u_x + v_y, z)
+            in_ice = (z <= H[..., None]) | (torch.arange(
+                z.shape[0], device=H.device) == 0)
+            w = torch.where(in_ice, w, 0.0).to(dtype)
+            sia3 = sia3d.SIA3D(u=u3, v=v3, w=w, strain_heating=Phi,
+                               max_u=torch.max(torch.abs(u3)),
+                               max_v=torch.max(torch.abs(v3)))
+            if yield_stress is not None:
+                beta = self.blatter.sliding_law.beta(yield_stress, u_b, v_b)
+                friction = torch.where(S.grounded_ice(geom.cell_type),
+                                       beta * (u_b ** 2 + v_b ** 2), 0.0)
+
+        u_e, v_n = ge.face_velocities(ubar, vbar, sh)
+        zeros = torch.zeros_like(H)
+        return StressBalanceResult(
+            qe=zeros, qn=zeros, u_face_e=u_e, v_face_n=v_n, u_base=u_b,
+            v_base=v_b, max_diffusivity=torch.zeros((), dtype=dtype,
+                                                    device=H.device),
+            u_ssa=ubar, v_ssa=vbar, sia3=sia3,
+            basal_frictional_heating=friction,
+            ssa_newton_iters=info["newton_iters"],
+            ssa_krylov_iters=info["krylov_iters"])
+
     def update(self, state: S.ModelState, yield_stress,
                active=None) -> StressBalanceResult:
         """``active``: on the member axis, the members whose SSA solves (a
         host list; the others' results are discarded by the caller)."""
+        if self.model == "blatter":
+            return self._blatter_update(state, yield_stress)
         # without an SSA a state's sliding velocities (say, of a restart
         # file) are carried and advect the ice, as in the JAX package
         u_ssa, v_ssa = state.u_ssa, state.v_ssa
         info = {"newton_iters": 0, "krylov_iters": 0}
-        if self.model == "ssa+sia":
+        if self.model in ("ssa", "ssa+sia"):
             u_ssa, v_ssa, info = self.ssa.solve(
                 state, yield_stress, diagnostics=True,
                 **({"active": active} if self.lead else {}))

@@ -142,6 +142,17 @@ def is_sharded(mesh) -> bool:
             and tuple(mesh.axis_names) == ("y", "x"))
 
 
+def refuse_member_axis_and_mesh(what: str, lead: int, mesh) -> None:
+    """Raise NotImplementedError for ``what`` on an ensemble's member axis
+    (ROADMAP Queue 1 item 3) or under a sharded mesh (item 10)."""
+    for where, present, item in (("an ensemble's member axis", lead, "3"),
+                                 ("a mesh", is_sharded(mesh), "10")):
+        if present:
+            raise NotImplementedError(
+                f"{what} on {where} is not implemented in pism_tpu_torch "
+                f"(ROADMAP Queue 1 item {item})")
+
+
 def refuse_periodic_mesh(grid, mesh) -> None:
     """Raise NotImplementedError for a sharded mesh on a periodic grid: the
     routes decompose non-periodic grids only (ROADMAP Queue 1 item 11)."""

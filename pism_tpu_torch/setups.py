@@ -413,14 +413,16 @@ def mismip3d_model(dtype: str, km: float = 1.0, device="cuda",
     return model, _prepared(model, ms.state, dtype), ms.grid
 
 
-def mismip_model(dtype: str, Mx: int = 151, My: int = 7, device="cuda"):
+def mismip_model(dtype: str, Mx: int = 151, My: int = 7, device="cuda",
+                 extra_cfg=None):
     """MISMIP experiment 1 (``verification/mismip.py``) on its periodic-y
     grid of Mx x My cells over [-1500, 1500] km: returns (model, initial
-    state, grid); ``dtype`` is "float32" or "float64"."""
+    state, grid); ``dtype`` is "float32" or "float64"; ``extra_cfg``
+    overrides the setup's config (say, another ``stress_balance.model``)."""
     from .verification import mismip
 
     ms = mismip.setup(Mx=Mx, My=My, device=device)
-    ms.config.update({"runtime.float_dtype": dtype})
+    ms.config.update({"runtime.float_dtype": dtype, **(extra_cfg or {})})
     model = IceModel(grid=ms.grid, config=ms.config, surface=ms.surface,
                      calving=ms.calving, device=device)
     return model, _prepared(model, ms.state, dtype), ms.grid

@@ -11,7 +11,9 @@ on a non-flat bed), O (warm-based conduction column, exact basal melt
 rate) and P (the routing hydrology against its radial steady state,
 ``hydrology_exact.py``). B and C, the Halfar similarity solutions, are
 ``setups.halfar_model`` (the CLI's ``-test B/C`` route); I, J, M, V and N
-are ``ssa_tests.py``. Every other letter raises ``NotImplementedError``.
+are ``ssa_tests.py``. The Blatter problems run as ``blatter_xz`` and
+``blatter_xz_cfbc`` (``blatter_xz.py``), as the JAX package's runner takes
+them. Every other letter raises ``NotImplementedError``.
 
 Every run's fields are float64 on ``device`` (default ``"cuda"``; pass
 ``device="cpu"`` for a run on the CPU).
@@ -428,10 +430,23 @@ def run_P(Mx=51, years=2.5, config=None, device="cuda"):
 def run_test(letter, *, Mx=None, My=None, Mz=None, years=None, config=None,
              device="cuda"):
     """Dispatch a verification run by pismv letter (A, D, E, F, G, H, K, L,
-    O, P). Returns the error dict (also printed as a pismv-style table). The
+    O, P, blatter_xz, blatter_xz_cfbc). Returns the error dict (also
+    printed as a pismv-style table). The
     runs are on square grids, so ``My`` is accepted, as the JAX package's
     runner accepts it, and unused; ``Mz`` sets F, G, K and O's levels and
     ``Mx`` is unused by K and O."""
+    if str(letter).lower() in ("blatter_xz", "blatter_xz_cfbc"):
+        # the JAX runner's rows; Mz, which it leaves to its rule, sets a
+        # single row's levels
+        from .blatter_xz import run_blatter_xz, run_blatter_xz_cfbc
+        kw = {"config": config, "device": device}
+        if Mx is not None:
+            kw["Mx_list"] = (Mx,)
+        if Mz is not None:
+            kw["Mz_list"] = (Mz,)
+        fn = run_blatter_xz if str(letter).lower() == "blatter_xz" \
+            else run_blatter_xz_cfbc
+        return fn(**kw)
     letter = str(letter).upper()
     fn = {"A": run_A, "D": run_D, "E": run_E, "F": run_F, "G": run_G,
           "H": run_H, "K": run_K, "L": run_L, "O": run_O,

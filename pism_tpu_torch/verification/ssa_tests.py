@@ -3,7 +3,8 @@ branches of ``pism_tpu/cli.py:288-451``): each builds its grid, config,
 Dirichlet ring and exact solution as the JAX command line does, runs one
 ``SSAFD`` solve on ``device`` (default ``"cuda"``) in float64, and returns
 the solution, the solve's diagnostics and the JAX command line's report
-line.
+line. Test I takes ``stress_balance.ssa.method = fem`` too: one
+``SSAFEM`` solve.
 
 - I: Schoof's plastic-till stream (exact drag Jacobian, periodic in x,
   prescribed driving stress);
@@ -53,15 +54,15 @@ def _f64(a, device):
 
 
 def _solve(grid, cfg, B, H, bed, device, tau_c=None, bc=None, bc_u=None,
-           bc_v=None, taud=None):
-    """One SSAFD solve of the test's float64 fields on ``device``: (u, v,
-    the solve's diagnostics)."""
+           bc_v=None, taud=None, cls=None):
+    """One solve (SSAFD, or ``cls``) of the test's float64 fields on
+    ``device``: (u, v, the solve's diagnostics)."""
     from ..model.ssa import SSAFD
     from ..physics.rheology import IsothermalGlen
     from ..state import ModelState, new_geometry
 
     f = lambda a: None if a is None else _f64(a, device)   # noqa: E731
-    ssa = SSAFD(grid=grid, config=cfg,
+    ssa = (cls or SSAFD)(grid=grid, config=cfg,
                 flow_law=IsothermalGlen(A=float(B) ** -3.0),
                 bc_mask=None if bc is None else torch.as_tensor(
                     bc, device=device),
@@ -73,7 +74,10 @@ def _solve(grid, cfg, B, H, bed, device, tau_c=None, bc=None, bc_u=None,
 
 
 def ssa_test_I(Mx=None, My=None, config=None, device="cuda"):
+    from ..config import require
     from ..grid import Grid
+    from ..model.ssa import SSAFD
+    from ..model.ssafem import SSAFEM
     from .ssa_exact import ExactI
 
     ti = ExactI()
@@ -83,11 +87,9 @@ def ssa_test_I(Mx=None, My=None, config=None, device="cuda"):
     # Jacobian (frozen beta stagnates here)
     cfg = _config({"stress_balance.ssa.fd.velocity_change_rtol": 0.0,
                    "stress_balance.ssa.fd.drag_jacobian": "exact"}, config)
-    method = cfg.get_string("stress_balance.ssa.method")
-    if method == "fem":
-        raise NotImplementedError(
-            "-test I with stress_balance.ssa.method = fem (SSAFEM) is not "
-            "implemented in pism_tpu_torch (ROADMAP Queue 1 item 8)")
+    require(cfg, "stress_balance.ssa.method", ("fd", "fem"))
+    cls = SSAFEM if cfg.get_string("stress_balance.ssa.method") == "fem" \
+        else SSAFD
     tau_c = np.tile(ti.tau_c(grid.y)[:, None], (1, Mx))
     bc = np.zeros(grid.shape2, bool)
     bc[0, :] = bc[-1, :] = True
@@ -95,11 +97,12 @@ def ssa_test_I(Mx=None, My=None, config=None, device="cuda"):
     u, v, info = _solve(
         grid, cfg, ti.B, np.full(grid.shape2, ti.H0), zero, device,
         tau_c=tau_c, bc=bc, bc_u=zero, bc_v=zero,
-        taud=(np.full(grid.shape2, ti.f), zero))
+        taud=(np.full(grid.shape2, ti.f), zero), cls=cls)
     un = u.cpu().numpy()
     uex = ti.velocity(grid.y)
     err = np.abs(un[:, Mx // 2] - uex) * SPY
-    report = (f"test I (SSAFD): max |u| = {float(np.abs(un).max()) * SPY:.2f} "
+    report = (f"test I ({cls.__name__}): max |u| = "
+              f"{float(np.abs(un).max()) * SPY:.2f} "
               f"m/a (exact {float(np.abs(uex).max()) * SPY:.2f}); max error "
               f"= {err.max():.3f} m/a, avg = {err.mean():.3f} m/a")
     return SSATestResult("I", report, grid, u, v, info,

@@ -244,7 +244,7 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "B", "-Mx", "11", "-ocean", "th"],
     ["-test", "B", "-Mx", "11", "-sea_level", "constant,delta_sl_2d"],
     ["-inverse"], ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
-    ["-test", "I", "-config", "stress_balance.ssa.method=fem"],
+    ["-test", "B", "-Mx", "11", "-energy", "cold"],
     ["-test", "J", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
     ["-test", "M", "-config", "stress_balance.ssa.fd.krylov_method=cg"],
     ["-test", "N", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
@@ -255,7 +255,7 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "B", "-Mx", "11", "-o_size", "big"],
     ["-test", "B", "-Mx", "11", "-extra_file", "e.nc", "-extra_times", "1",
      "-extra_vars", "temppa"],
-    ["-test", "B", "-Mx", "11", "-stress_balance", "ssa"],
+    ["-test", "B", "-Mx", "11", "-bed_def", "given"],
 ])
 def test_unported_options_raise(tmp_path, argv):
     with pytest.raises(NotImplementedError):
@@ -945,3 +945,114 @@ def test_hydrology_flag_runs(tmp_path):
     assert built
     with File(out, "r") as f:
         assert f.has_variable("bwat")
+
+
+@pytest.mark.parametrize("test,Mx", [("blatter_xz", "17"),
+                                     ("blatter_xz_cfbc", "49")])
+def test_cli_blatter_xz_matches_runner(capsys, test, Mx):
+    """``-test blatter_xz[_cfbc] -Mx N`` through the port's ``main`` prints
+    the JAX package's runner table for that row (its command line refuses
+    the name; its runner takes it), the numbers within 1e-6 relative."""
+    from pism_tpu.verification import runner as j_runner
+
+    capsys.readouterr()
+    j_runner.run_test(test, Mx=int(Mx))
+    want = capsys.readouterr().out.strip().splitlines()
+    assert t_cli.main(["-test", test, "-Mx", Mx, "-platform", "cpu"]) == 0
+    got = capsys.readouterr().out.strip().splitlines()
+    num = re.compile(r"[-+]?\d+\.\d+")
+    assert len(got) == len(want) >= 3
+    for a, b in zip(want, got):
+        assert num.sub("#", b) == num.sub("#", a)
+        for x, y in zip(num.findall(a), num.findall(b)):
+            assert float(y) == pytest.approx(float(x), rel=1e-6, abs=1e-9)
+
+
+def test_cli_test_I_fem_matches(capsys):
+    """``-test I -config stress_balance.ssa.method=fem`` (at 11 x 31)
+    through both packages' ``main``: the same report line, its velocities
+    and errors within 1e-5 of max|u| (and the last printed digit)."""
+    argv = ["-test", "I", "-My", "31", "-config",
+            "stress_balance.ssa.method=fem"]
+    capsys.readouterr()
+    assert j_cli.main(argv) == 0
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    assert t_cli.main(argv + ["-platform", "cpu"]) == 0
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got.startswith("test I (SSAFEM): ")
+    num = re.compile(r"[-+]?\d+\.\d+")
+    assert num.sub("#", got) == num.sub("#", want)
+    a, b = [float(x) for x in num.findall(want)], \
+        [float(x) for x in num.findall(got)]
+    for x, y in zip(a, b):
+        assert abs(x - y) <= 1e-5 * a[0] + 0.0051
+
+
+def _blatter_dome_file(path):
+    """The JAX Blatter test's dome (16 x 16 x 11, enthalpy, Mohr-Coulomb)
+    prepared by the port and saved with its config."""
+    from pism_tpu_torch import Config, Grid
+    from pism_tpu_torch.coupler.surface import Uniform
+    from pism_tpu_torch.model.icemodel import IceModel
+    from pism_tpu_torch.state import ModelState, new_geometry
+
+    grid = Grid(Mx=16, My=16, Lx=300e3, Ly=300e3, Mz=11, Lz=3000.0)
+    cfg = Config({"stress_balance.model": "blatter",
+                  "energy.model": "enthalpy",
+                  "basal_yield_stress.model": "mohr_coulomb",
+                  "hydrology.model": "null",
+                  "time_stepping.maximum_time_step": 20.0})
+    r = np.asarray(grid.radius)
+    H = torch.as_tensor(2500.0 * np.maximum(1.0 - (r / 280e3) ** 2, 0.0))
+    model = IceModel(grid=grid, config=cfg, device="cpu",
+                     surface=Uniform(smb=0.3 / SPY, temperature=253.15))
+    state = model.prepare_state(ModelState(
+        geometry=new_geometry(H, torch.zeros_like(H))))
+    t_ckpt.save_state(path, state, grid, 0.0, config=cfg, format="netcdf3")
+
+
+def _mismip_file(path, model_name):
+    from pism_tpu_torch import setups
+    model, state, grid = setups.mismip_model(
+        "float64", 31, 5, device="cpu",
+        extra_cfg={"stress_balance.model": model_name})
+    t_ckpt.save_state(path, state, grid, 0.0, config=model.config,
+                      format="netcdf3")
+
+
+@pytest.mark.parametrize("model,years", [("blatter", 20), ("ssa", 1),
+                                         ("none", 1)])
+def test_cli_stress_balance_runs_and_restarts(tmp_path, model, years):
+    """``-stress_balance blatter`` on a small dome and ``ssa``/``none`` on
+    MISMIP 1 run from a saved state, and a restart from the run's end
+    continues to the bit (two runs of ``years`` against one of twice as
+    long with an output at the middle), in ``-o_format netcdf3``."""
+    from pism_tpu_torch.convert import state_to_numpy
+
+    src = str(tmp_path / "src.nc")
+    (_blatter_dome_file if model == "blatter"
+     else lambda p: _mismip_file(p, model))(src)
+    base = ["-stress_balance", model, "-platform", "cpu", "-verbose", "0",
+            "-o_format", "netcdf3"]
+    full, half, cont = (str(tmp_path / n) for n in ("full.nc", "half.nc",
+                                                    "cont.nc"))
+    assert t_cli.main(["-i", src, "-y", str(2 * years), "-o", full,
+                       "-extra_file", str(tmp_path / "ex.nc"),
+                       "-extra_times", str(years), "-extra_vars", "thk"]
+                      + base) == 0
+    assert t_cli.main(["-i", src, "-y", str(years), "-o", half] + base) == 0
+    assert t_cli.main(["-i", half, "-y", str(years), "-o", cont] + base) == 0
+    a = state_to_numpy(t_ckpt.load_state(full, device="cpu")[0])
+    b = state_to_numpy(t_ckpt.load_state(cont, device="cpu")[0])
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    H0 = t_ckpt.load_state(src, device="cpu")[0].geometry.ice_thickness
+    u = a.get("u_ssa")
+    if model == "none":
+        # no velocity, and a restart's surface is a zero SMB: nothing moves
+        assert u is None or not np.any(u)
+        np.testing.assert_array_equal(a["ice_thickness"], H0.numpy())
+    else:
+        assert not np.array_equal(a["ice_thickness"], H0.numpy())
+        assert np.isfinite(u).all() and np.abs(u).max() > 0

@@ -12,7 +12,9 @@ the 16 km PIK chain; the SSA operator and Newton matvec on periodic grids
 periodic stencils, and MISMIP3d and MISMIP experiment 1 on the card
 against the CPU; the Newton matvec's drag tangent against its plain
 version, the multigrid preconditioner and the SSA verification tests
-against the CPU.
+against the CPU; ISMIP-HOM A (the Blatter solve replayed as CUDA graphs,
+and without them), SSAFEM's test I and the composite Blatter model on a
+dome against the CPU.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -1623,3 +1625,72 @@ def test_default_line_preconditioner_launches_the_pcr_kernels(cuda, dtype):
             K2.SUB_LAUNCHES) == after
     for a, b in zip(got, ref):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ismip_hom_on_the_card_matches_cpu(cuda):
+    """ISMIP-HOM A at L = 20 km, 20 x 20 x 8 float64 (the Blatter solve's
+    operator and preconditioner replayed as CUDA graphs): equal Newton
+    sweeps, u within 1e-8 of max; the graphs' replay equals the plain
+    calls to the bit."""
+    from pism_tpu_torch.examples import ismip_hom
+    from pism_tpu_torch.util import cudagraph
+
+    cpu = ismip_hom.run_one("A", 20.0, 20, 8, "cpu", raw=True)
+    n0 = cudagraph.CAPTURES
+    card = ismip_hom.run_one("A", 20.0, 20, 8, cuda, raw=True)
+    assert cudagraph.CAPTURES - n0 == 2 * card["newton_iters"]
+    assert card["newton_iters"] == cpu["newton_iters"]
+    assert np.abs(card["_u"] - cpu["_u"]).max() \
+        <= 1e-8 * np.abs(cpu["_u"]).max()
+    cudagraph.ENABLED = False
+    try:
+        plain = ismip_hom.run_one("A", 20.0, 20, 8, cuda, raw=True)
+    finally:
+        cudagraph.ENABLED = True
+    np.testing.assert_array_equal(plain["_u"], card["_u"])
+
+
+@pytest.mark.cuda
+def test_fem_test_I_on_the_card_matches_cpu(cuda):
+    """``-test I`` with SSAFEM at 11 x 31 float64: velocities within 1e-5
+    of max|u| of the CPU run's and the report's errors within the JAX
+    test's 40 m/a (the Krylov totals of this solve move with the
+    rounding, so they are not held)."""
+    from pism_tpu_torch.verification import ssa_tests
+
+    cfg = {"stress_balance.ssa.method": "fem"}
+    a = ssa_tests.run_test("I", My=31, config=cfg, device="cpu")
+    b = ssa_tests.run_test("I", My=31, config=cfg, device=cuda)
+    ua, ub = a.u.numpy(), b.u.cpu().numpy()
+    assert np.abs(ub - ua).max() <= 1e-5 * np.abs(ua).max()
+    assert b.errors["max"] < 40.0 and b.info["newton_iters"] > 0
+
+
+@pytest.mark.cuda
+def test_blatter_dome_on_the_card_matches_cpu(cuda):
+    """The composite Blatter model on the JAX test's dome (16 x 16 x 11,
+    enthalpy, 60 a): equal steps and hits, the volume within 1e-8."""
+    from pism_tpu_torch import Config, Grid, Time
+    from pism_tpu_torch.coupler.surface import Uniform
+    from pism_tpu_torch.state import ModelState, new_geometry
+
+    runs = {}
+    for where in ("cpu", cuda):
+        grid = Grid(Mx=16, My=16, Lx=300e3, Ly=300e3, Mz=11, Lz=3000.0)
+        cfg = Config({"stress_balance.model": "blatter",
+                      "energy.model": "enthalpy",
+                      "basal_yield_stress.model": "mohr_coulomb",
+                      "hydrology.model": "null",
+                      "time_stepping.maximum_time_step": 20.0})
+        r = np.asarray(grid.radius)
+        H = torch.as_tensor(2500.0 * np.maximum(1.0 - (r / 280e3) ** 2, 0.0),
+                            device=where)
+        model = IceModel(grid=grid, config=cfg, device=where,
+                         surface=Uniform(smb=0.3 / SPY, temperature=253.15))
+        state, stats = model.run(ModelState(geometry=new_geometry(
+            H, torch.zeros_like(H))), Time(0.0, 60.0 * SPY))
+        runs[str(where)] = (float(state.geometry.ice_thickness.sum()), stats)
+    (va, sa), (vb, sb) = runs["cpu"], runs[str(cuda)]
+    assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
+    assert abs(vb - va) <= 1e-8 * va

@@ -134,7 +134,7 @@ def test_config_lookups_match():
 @pytest.mark.parametrize("override", [
     {"stress_balance.ssa.fd.line_pcr_dtype": "bf16"},
     {"stress_balance.ssa.flow_law": "hooke"},
-    {"stress_balance.model": "ssa"},
+    {"energy.model": "cold"},
     {"stress_balance.ssa.fd.line_block": 64},
     {"stress_balance.ssa.fd.preconditioner": "linemg"},
     {"stress_balance.ssa.fd.krylov_method": "cg"},

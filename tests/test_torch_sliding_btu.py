@@ -411,11 +411,19 @@ def test_new_branches_refuse_the_member_axis_and_a_mesh():
     with pytest.raises(NotImplementedError, match="item 10"):
         IceModel(grid=grid, config=tm.config, surface=tm.surface,
                  device="cpu", mesh=make_mesh(["cpu"] * 4, (2, 2)))
-    # none, ssa and blatter stay refused; prescribed sliding needs fields
+    # none and ssa refuse the member axis, blatter it and a mesh; blatter
+    # needs its solver, prescribed sliding its fields
     for model in ("none", "ssa", "blatter"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="item 3"):
             StressBalance(grid=te.grid, config=Config(
-                {"stress_balance.model": model}), sia_flow_law=law)
+                {"stress_balance.model": model}), sia_flow_law=law, lead=1)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        StressBalance(grid=te.grid, config=Config(
+            {"stress_balance.model": "blatter"}), sia_flow_law=law,
+            mesh=make_mesh(["cpu"] * 4, (2, 2)))
+    with pytest.raises(ValueError):
+        StressBalance(grid=te.grid, config=Config(
+            {"stress_balance.model": "blatter"}), sia_flow_law=law)
     with pytest.raises(ValueError):
         StressBalance(grid=te.grid, config=Config(
             {"stress_balance.model": "prescribed_sliding+sia"}),
