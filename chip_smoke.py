@@ -291,6 +291,32 @@ launch counters set to 0 just before it and read just after:
     against CPU) and ``none`` (no velocity, the volume moved by the SMB
     budget alone). The CPU runs go to a child process at the phase's start
     (``cpu_references``).
+  phase 18: the SSA inversion (``pism_tpu_torch/inverse/``), reverse mode
+    through the VJP kernels (``csrc/ssa_matvec_vjp.cu``): (a)
+    ``ssa_matvec_vjp`` at 141x76, 561x301, 9x33, 33x9, 2x70 and
+    ``ssa_matvec_halo_vjp`` on the periodic route's wrap-padded blocks at
+    151x7 and 1601x101 against their plain versions (``torch.func.vjp`` of
+    the plain operators), 1e-12 in float64 and 1e-5 in float32, the
+    float64 path shapes timed beside their bound; the adjoint identity
+    <g, A w> = <A^T g, w> in float64 to 1e-12; (b) a tau_c twin
+    experiment at 20 km in float64 on path A's initial state, with the
+    exact drag Jacobian and no speed clamp (a clamped cell breaks the
+    adjoint): tau_true 0.03 of its Mohr-Coulomb yield stress (the dry
+    till's own lets no cell slide), the observations its full-convergence
+    solve (Newton history printed), observed
+    over the grounded ice, 2 bounded L-BFGS iterates from tau_true times
+    a smooth factor in [0.7, 0.9], per iterate J, |proj grad|, forward
+    Newton and Krylov, adjoint Krylov, VJP launches, plain-VJP calls (0)
+    and ms per gradient; J must fall and one directional finite
+    difference at the start match the gradient there (rel 2e-2); (c) the
+    misfit gradient at 0.8 tau_true on the card against the CPU's plain
+    path, 1e-4 of its max-norm, on the 100 km chain (18b's problem) and
+    on MISMIP 1's periodic 151x7 (the halo VJP's path); (d) ``-inverse``
+    through ``cli.main``, 2 Adam iterates, ``-o_format netcdf3``: tau_c on
+    (b)'s state and the hardness on the PIK chain at 125 km after 1 a,
+    each writing its design variable and ``inv_misfit``. The CPU runs go
+    to a child process
+    (``inverse_cpu_references``).
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -333,8 +359,11 @@ EISMINT_CHECK_YEARS, MESH_YEARS, MESH_HALFAR_YEARS = 150.0, 1.0, 5.0
 # plus per face (K3)
 # (the Newton matvec: the JVP's 102, the tangent's 19 a face and 4 selects)
 # (the drag tangent: c (u fu + v fv) and its two products and sums, 8 more)
+# (the VJP: per cell the cotangents of its east and north face stresses
+# and their taps, 66, the face cotangents of nuH with u's strains, 44,
+# beta's terms, 7; each face counted once)
 OPS = {"ssa_matvec": 52, "ssa_matvec_jvp": 102, "ssa_newton_matvec": 144,
-       "ssa_newton_matvec_drag": 152,
+       "ssa_newton_matvec_drag": 152, "ssa_matvec_vjp": 117,
        "pcr_factor_round": 10,
        "pcr_apply_round": 4, "sia_thermo_level": 37, "sia_thermo_face": 15,
        "sia_flux": 36}
@@ -444,6 +473,9 @@ def _counters():
             (member_dot, "LAUNCHES", "member_dot"),
             (member_dot, "DOTS_LAUNCHES", "member_dots"),
             (member_dot, "SUM_LAUNCHES", "member_sum"),
+            (ssa_matvec, "VJP_LAUNCHES", "ssa_matvec_vjp"),
+            (ssa_matvec, "HALO_VJP_LAUNCHES", "ssa_matvec_halo_vjp"),
+            (ssa_matvec, "PLAIN_VJP_CALLS", "plain_vjp_calls"),
             (hostsync, "COUNT", "host_syncs"))
 
 
@@ -457,7 +489,7 @@ KERNELS = ("ssa_matvec", "ssa_matvec_jvp", "ssa_newton_matvec",
            "ssa_newton_matvec_members", "pcr_lines_members",
            "pcr_lines_sub_members", "pcr_factor_lines_members",
            "pcr_factor_lines_sub_members", "member_dot", "member_dots",
-           "member_sum")
+           "member_sum", "ssa_matvec_vjp", "ssa_matvec_halo_vjp")
 
 
 def reset_counts():
@@ -665,9 +697,10 @@ def phase1_kernels(dev):
     from pism_tpu_torch.verification import halfar
 
     t0 = time.time()
-    _build.build("ssa_matvec", "pcr", "sia_thermo", "sia_iso", "member_dot")
-    print(f"phase1: built ssa_matvec, pcr, sia_thermo, sia_iso, member_dot in "
-          f"{time.time() - t0:.1f} s")
+    _build.build("ssa_matvec", "ssa_matvec_vjp", "pcr", "sia_thermo",
+                 "sia_iso", "member_dot")
+    print(f"phase1: built ssa_matvec, ssa_matvec_vjp, pcr, sia_thermo, "
+          f"sia_iso, member_dot in {time.time() - t0:.1f} s")
     one = torch.zeros(1, device=dev)
     floor_us, _ = _device_profile(one.zero_, 50)
     print("phase1: launch floor, the device time of the smallest launch the "
@@ -5500,6 +5533,488 @@ def phase17_blatter_fem(dev, smi):
         _timed("phase17g", phase17g_ssa_none, dev, smi, future.result)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the SSA inversion (reverse mode through the VJP kernels)
+# ---------------------------------------------------------------------------
+
+#: phase 18b's L-BFGS iterates; tau_true, the state's Mohr-Coulomb yield
+#: stress times TWIN_SCALE; the start, tau_true times a smooth factor in
+#: [a - b, a + b]. The synthetic state's till is dry: its yield stress,
+#: 1.3-14 MPa over the grounded ice, is far above the driving stress (6-172
+#: kPa), so no cell slides and the velocities do not depend on it; at 0.03
+#: of it the median sliding speed is ~5 m/a and the 90th percentile ~44 m/a
+#: (100 km, after 0.5 a: scripts/inverse_solve_vs_jax.py --sliding). The
+#: twin runs on path A's initial state: after phase 2b's 5 a the
+#: full-convergence solves stagnate at |F|^2/tol ~ 6e4 (53 sweeps, the
+#: adjoint at its 1,000-iteration cap, 21 s a gradient on an NVIDIA H100,
+#: 700 W), where at the start they reach the tolerance in 13 sweeps.
+TWIN_ITERATIONS = 2
+TWIN_SCALE = 0.03
+TWIN_FACTOR = (0.8, 0.1)
+#: the CPU reference's states: the 100 km chain's initial state (path A)
+#: and MISMIP experiment 1's periodic-y grid (151 x 7) with the exact drag
+#: Jacobian (its full-convergence solve takes a few Newton sweeps; with beta
+#: frozen it stagnates in both packages, see ROADMAP "Reference quirks")
+INV_CHECK_KM = 100.0
+EXACT_DRAG = {"stress_balance.ssa.fd.drag_jacobian": "exact"}
+#: the chain's inversions: the exact drag Jacobian, and the SSA's speed
+#: clamp (50 km/a) out of the way. A few isolated floating cells of the
+#: synthetic chain exceed it (31 at 100 km), and at a clamped cell the
+#: residual is not zero, so the implicit-function-theorem gradient is off:
+#: 4.2% against a finite difference at 100 km, 8e-4 without the clamp
+#: (scripts/inverse_solve_vs_jax.py --clamp; the JAX package clamps alike)
+CHAIN_INVERSE = dict(EXACT_DRAG, **{"stress_balance.ssa.fd.max_speed": 1e7})
+
+
+def _vjp_args(rng, shape, dtype, dev):
+    """Random operator inputs and output cotangents of phase 1's scales."""
+    import torch
+    a = [rng.normal(size=shape) * 1e-5, rng.normal(size=shape) * 1e-5,
+         rng.uniform(1e13, 1e16, size=shape), rng.uniform(1e13, 1e16, shape),
+         rng.uniform(0.0, 1e10, size=shape), rng.normal(size=shape),
+         rng.normal(size=shape)]
+    return [torch.tensor(x, dtype=dtype, device=dev) for x in a]
+
+
+def _adjoint_identity(label, A, AT, w, g):
+    """<g, A w> against <A^T g, w> in float64, 1e-12 of |<g, A w>|."""
+    import torch
+    Aw = A(*w)
+    ATg = AT(*g)
+    lhs = float(sum(torch.sum(a * b) for a, b in zip(g, Aw)))
+    rhs = float(sum(torch.sum(a * b) for a, b in zip(ATg, w)))
+    err = abs(lhs - rhs) / abs(lhs)
+    print(f"phase18a: adjoint identity {label}: <g, A w> {lhs:.15e}, "
+          f"<A^T g, w> {rhs:.15e}, rel diff {err:.3e} (tol 1e-12)")
+    if not err <= 1e-12:
+        raise AssertionError(f"phase18a: adjoint identity {label}")
+
+
+def phase18a_vjp_kernels(dev):
+    """The VJP kernels against their plain versions (``torch.func.vjp`` of
+    the plain operators) on the card: ``ssa_matvec_vjp`` at path A's 20 and
+    5 km grids and at 9x33, 33x9, 2x70, ``ssa_matvec_halo_vjp`` on the
+    wrap-padded blocks of the periodic route at 151x7 and 1601x101
+    (periodic in y), K1's tolerances, every output; the adjoint identity in
+    float64. Timed in float64 at each path's shapes. Returns {name:
+    record} at 141x76 and 151x7 float64 (18b's and 18c's shapes)."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch.ops import stencils as st
+    from pism_tpu_torch.ops.kernels import ssa_matvec as K
+
+    rng = np.random.default_rng(20261018)
+    out = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        name = str(dtype)[6:]
+        f64 = dtype == torch.float64
+        for (My, Mx), km in (((141, 76), 20), ((561, 301), 5), ((9, 33), 20),
+                             ((33, 9), 20), ((2, 70), 20)):
+            a = _vjp_args(rng, (My, Mx), dtype, dev)
+            args = (*a, km * 1e3, km * 1e3)
+            timed = f64 and (My, Mx) in ((141, 76), (561, 301))
+            r = _kernel_case("ssa_matvec_vjp", K.ssa_matvec_vjp,
+                             K.ssa_matvec_vjp_plain, args, tol,
+                             f"{My}x{Mx} {name}",
+                             OPS["ssa_matvec_vjp"] * My * Mx,
+                             match="ssa_matvec_vjp", phase="phase18a",
+                             timed=timed)
+            if f64 and (My, Mx) == (141, 76):
+                out["ssa_matvec_vjp"] = r
+            if f64:
+                w = _vjp_args(rng, (My, Mx), dtype, dev)[:2]
+                _adjoint_identity(
+                    f"K1 {My}x{Mx}",
+                    lambda u, v: K.ssa_matvec(u, v, *a[2:5], *args[7:]),
+                    lambda gu, gv: K.ssa_matvec_vjp(
+                        *a[:5], gu, gv, *args[7:], (True, False, False))[:2],
+                    w, a[5:7])
+        for (My, Mx), (dx, dy) in (((7, 151), (4e3, 8.3e3)),
+                                   ((101, 1601), (0.5e3, 0.5e3))):
+            a = _vjp_args(rng, (My, Mx), dtype, dev)
+            pads = (st.pad_ghosts(a[0], 2, True, False),
+                    st.pad_ghosts(a[1], 2, True, False),
+                    st.pad_ghosts(a[2], 1, True, False),
+                    st.pad_ghosts(a[3], 1, True, False))
+            args = (True, False, *pads, *a[4:], dx, dy)
+            r = _kernel_case("ssa_matvec_halo_vjp", K.ssa_matvec_halo_vjp,
+                             K.ssa_matvec_halo_vjp_plain, args, tol,
+                             f"periodic route {My}x{Mx} {name}",
+                             OPS["ssa_matvec_vjp"] * My * Mx,
+                             match="ssa_matvec_vjp", phase="phase18a",
+                             timed=f64)
+            if f64 and Mx == 151:
+                out["ssa_matvec_halo_vjp"] = r
+            if f64:
+                w = [x.clone() for x in _vjp_args(rng, (My, Mx), dtype,
+                                                  dev)[:2]]
+
+                def AT(gu, gv, a=a, dx=dx, dy=dy):
+                    x = [c.clone().requires_grad_() for c in w]
+                    from pism_tpu_torch.ops import ssa as ssa_ops
+                    y = ssa_ops.apply_operator(
+                        x[0], x[1], ssa_ops.NuH(a[2], a[3]), a[4], dx, dy,
+                        (True, False))
+                    return torch.autograd.grad(y, x, (gu, gv))
+
+                from pism_tpu_torch.ops import ssa as ssa_ops
+                _adjoint_identity(
+                    f"periodic route {My}x{Mx}",
+                    lambda u, v, a=a, dx=dx, dy=dy: ssa_ops.ssa_matvec_periodic(
+                        u, v, a[2], a[3], a[4], dx, dy, (True, False)),
+                    AT, w, a[5:7])
+    return out
+
+
+def _inverse_counts():
+    from pism_tpu_torch.inverse import ssa_inverse as I
+    c = read_counts()
+    return dict(I.COUNTS, vjp=c["ssa_matvec_vjp"],
+                halo_vjp=c["ssa_matvec_halo_vjp"], plain=c["plain_vjp_calls"])
+
+
+def _newton_history(info):
+    """|F|^2 / |b|^2 of each Newton sweep of a solve's trace."""
+    return [float(h[0]) for h in info["trace"]]
+
+
+def phase18b_twin(dev):
+    """A tau_c twin experiment at 20 km in float64 on path A's initial
+    state, with ``CHAIN_INVERSE`` (the exact drag Jacobian: with beta
+    frozen the full-convergence solves of sliding ice stagnate in both
+    packages; no speed clamp): tau_true ``TWIN_SCALE`` times the state's
+    Mohr-Coulomb yield stress, the observations its full-convergence solve
+    (Newton history printed), observed over the grounded ice, a start of
+    tau_true times a smooth factor (``TWIN_FACTOR``), ``TWIN_ITERATIONS``
+    bounded L-BFGS iterates with the launch counters set to 0 just before
+    and read just after; per iterate J, |proj grad|, forward Newton sweeps
+    and Krylov iterations, adjoint Krylov iterations, VJP launches,
+    plain-VJP calls and ms per gradient. J must fall, every gradient
+    launch the VJP kernel and none the plain VJP, and one directional
+    finite difference of the objective at the start match the gradient
+    the optimizer took there within JAX's rel 2e-2. Returns (the counts of
+    the L-BFGS run, the model, the state, the observations)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch import state as S
+    from pism_tpu_torch.inverse import ssa_inverse as I
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float64", 20.0, device=dev, extra_cfg=dict(PATH_A, **CHAIN_INVERSE))
+    tau_true = TWIN_SCALE * model.yield_stress.compute(state, t=0.0)
+    solver = I.inverse_solver(model.ssa)
+    t0 = time.time()
+    u_obs, v_obs, info = solver.solve(state, tau_true, diagnostics=True)
+    torch.cuda.synchronize()
+    F2, tol2 = float(info["F2_final"]), float(info["tol2"])
+    print(f"phase18b: the full-convergence solve at tau_true on path A's "
+          f"initial state ({grid.My}x{grid.Mx}): Newton "
+          f"{info['newton_iters']}, Krylov {info['krylov_iters']}, |F|^2/tol "
+          f"{F2 / tol2:.3e} ({'reached' if F2 <= tol2 else 'NOT reached'}), "
+          f"{time.time() - t0:.2f} s; |F|^2/|b|^2 by sweep "
+          f"{['%.3e' % x for x in _newton_history(info)]}")
+    X, Y = np.meshgrid(grid.x, grid.y)
+    factor = TWIN_FACTOR[0] + TWIN_FACTOR[1] * np.cos(
+        np.pi * X / grid.Lx) * np.sin(np.pi * Y / grid.Ly)
+    tau0 = tau_true * torch.tensor(factor, dtype=torch.float64, device=dev)
+    # observed over the grounded ice, where tau_c acts (the few floating
+    # cells that the solve clamps at max_speed would swamp the misfit's
+    # normalization)
+    inv = I.TaucInversion(ssa=model.ssa,
+                          state=state.replace(u_ssa=u_obs, v_ssa=v_obs),
+                          u_obs=u_obs, v_obs=v_obs,
+                          obs_mask=S.grounded_ice(state.geometry.cell_type),
+                          reg_weight=0.0)
+
+    per_grad, first = [], []
+    value_and_grad = I.value_and_grad
+
+    def timed_vg(fn, x):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = value_and_grad(fn, x)
+        torch.cuda.synchronize()
+        per_grad.append(1e3 * (time.perf_counter() - t1))
+        if not first:   # the start's gradient, for the check below
+            first.append((x, out[1]))
+        return out
+
+    last = {}
+
+    def monitor(rec):
+        c = _inverse_counts()
+        d = {k: c[k] - last.get(k, 0) for k in c}
+        last.update(c)
+        ms = per_grad[-1] if per_grad else float("nan")
+        print(f"phase18b: iterate {rec.iteration}: J {rec.J:.9e}, |proj grad| "
+              f"{rec.pgrad_norm:.3e}, step {rec.step:g}; since the last: "
+              f"forward solves {d['forward_solves']} (Newton "
+              f"{d['forward_newton']}, Krylov {d['forward_krylov']}), adjoint "
+              f"solves {d['adjoint_solves']} (Krylov {d['adjoint_krylov']}), "
+              f"VJP launches {d['vjp']}, plain-VJP calls {d['plain']}; "
+              f"{ms:.1f} ms for the last gradient")
+
+    I.reset_counts()
+    torch.cuda.synchronize()
+    reset_counts()
+    I.value_and_grad = timed_vg
+    t0 = time.time()
+    try:
+        res, opt = inv.run_lbfgs(tau0, max_iterations=TWIN_ITERATIONS,
+                                 monitor=monitor)
+    finally:
+        I.value_and_grad = value_and_grad
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    Js = [r.J for r in opt.log]
+    print(f"phase18b: {len(opt.log) - 1} iterates ({opt.reason}) in "
+          f"{wall:.1f} s: J {['%.6e' % j for j in Js]}; {len(per_grad)} "
+          f"gradients, {np.mean(per_grad):.1f} ms each; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; totals "
+          f"{dict(I.COUNTS)}")
+    if not Js[-1] < Js[0] or counts["ssa_matvec_vjp"] <= 0 \
+            or counts["plain_vjp_calls"] != 0:
+        raise AssertionError("phase18b: J did not fall, or the gradients "
+                             "did not go through the VJP kernel alone")
+    if not all(bool(torch.isfinite(x).all()) for x in res[:3]):
+        raise AssertionError("phase18b: non-finite result")
+
+    # one directional finite difference of the objective at the start,
+    # against the gradient the optimizer took there; its two solves start
+    # from the solve at the start
+    theta0, g = first[0]
+    d = torch.tensor(np.sin(2 * np.pi * X / grid.Lx) * np.cos(
+        np.pi * Y / grid.Ly), dtype=torch.float64, device=dev)
+    eps = 1e-3
+    with torch.no_grad():
+        u0, v0 = inv._solve(inv.param.value(theta0))
+        fd_inv = dataclasses.replace(
+            inv, state=state.replace(u_ssa=u0, v_ssa=v0))
+        Jp = float(fd_inv.objective(theta0 + eps * d))
+        Jm = float(fd_inv.objective(theta0 - eps * d))
+    fd, ad = (Jp - Jm) / (2 * eps), float(torch.sum(g * d))
+    print(f"phase18b: directional derivative: adjoint {ad:.9e}, finite "
+          f"difference {fd:.9e}, rel diff {abs(ad - fd) / abs(fd):.3e} "
+          "(tol 2e-2)")
+    if not abs(ad - fd) <= 2e-2 * abs(fd):
+        raise AssertionError("phase18b: the gradient fails its finite-"
+                             "difference check")
+    return counts, model, state, (u_obs, v_obs)
+
+
+def _reference_states(where):
+    """(model's SSA, state, tau_true, observation mask) of 18c's two
+    problems on ``where``, both float64 with the exact drag Jacobian: the
+    100 km chain's initial state (path A, ``CHAIN_INVERSE``) with 18b's
+    tau_true, observed over the grounded ice, and MISMIP experiment 1 at
+    151 x 7 (periodic in y) at its own yield stress, observed over the
+    ice."""
+    import dataclasses
+    from pism_tpu_torch import setups
+    from pism_tpu_torch import state as S
+
+    m, s, _ = setups.hybrid_greenland_model(
+        "float64", INV_CHECK_KM, device=where,
+        extra_cfg=dict(PATH_A, **CHAIN_INVERSE))
+    out = [(m.ssa, s, TWIN_SCALE * m.yield_stress.compute(s, t=0.0),
+            S.grounded_ice(s.geometry.cell_type))]
+    m, s, _ = setups.mismip_model("float64", 151, 7, device=where)
+    cfg = m.ssa.config.copy()
+    cfg.update(EXACT_DRAG)
+    out.append((dataclasses.replace(m.ssa, config=cfg), s,
+                m.yield_stress.compute(s, t=0.0), None))
+    return out
+
+
+def _reference_gradient(ssa, state, tau, mask, obs, fd=False):
+    """J and dJ/dtau of the misfit at 0.8 tau against ``obs``; with ``fd``
+    also (the directional derivative along a smooth relative change of
+    tau, its central finite difference), the two solves of the latter
+    starting from the solve at 0.8 tau."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from pism_tpu_torch.inverse import ssa_inverse as I
+    dev = tau.device
+    u_obs, v_obs = (torch.tensor(o, device=dev) for o in obs)
+    inv = I.TaucInversion(ssa=ssa, state=state, u_obs=u_obs, v_obs=v_obs,
+                          obs_mask=mask, reg_weight=0.0)
+    tc = 0.8 * tau
+    J, g = I.value_and_grad(inv.misfit, tc)
+    if not fd:
+        return float(J), g.cpu().numpy()
+    grid = ssa.grid
+    X, Y = np.meshgrid(grid.x, grid.y)
+    d = tc * torch.tensor(np.sin(2 * np.pi * X / grid.Lx) * np.cos(
+        np.pi * Y / grid.Ly), dtype=tc.dtype, device=dev)
+    eps = 1e-3
+    with torch.no_grad():
+        u, v = inv._solve(tc)
+        near = dataclasses.replace(inv, state=state.replace(u_ssa=u,
+                                                            v_ssa=v))
+        fdv = (float(near.misfit(tc + eps * d))
+               - float(near.misfit(tc - eps * d))) / (2 * eps)
+    return float(J), g.cpu().numpy(), (float(torch.sum(g * d)), fdv)
+
+
+def inverse_cpu_references():
+    """18c's CPU side, in a child process: for each problem the
+    observations (the full-convergence solve at tau_true) and the misfit
+    gradient at 0.8 tau_true."""
+    import torch
+    from pism_tpu_torch.inverse import ssa_inverse as I
+    torch.set_num_threads(4)
+    out = []
+    for ssa, state, tau, mask in _reference_states("cpu"):
+        u, v = I.inverse_solver(ssa).solve(state, tau)
+        obs = (u.numpy(), v.numpy())
+        out.append((obs, _reference_gradient(ssa, state, tau, mask, obs)))
+    return out
+
+
+def phase18c_card_vs_cpu(dev, refs):
+    """The card's misfit gradient against the CPU's plain path on the same
+    inputs (the CPU's observations), 1e-4 of the gradient's max-norm (the
+    CPU tests' bound): the 100 km chain (K1's VJP), whose solves reach
+    ``newton_rtol``, with a directional finite difference on the card
+    (JAX's rel 2e-2), and MISMIP experiment 1 at 151 x 7 (the periodic
+    route's VJP), the launch counters set to 0 just before each card run.
+    Returns the counts of the periodic run."""
+    import numpy as np
+    import torch
+
+    counts = None
+    for (label, launched), (ssa, state, tau, mask), (obs, (Jc, gc)) in zip(
+            ((f"{INV_CHECK_KM:g} km chain", "ssa_matvec_vjp"),
+             ("MISMIP 1 151x7 periodic", "ssa_matvec_halo_vjp")),
+            _reference_states(dev), refs()):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        Jd, gd, *fd = _reference_gradient(ssa, state, tau, mask, obs,
+                                          fd=counts is None)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c = read_counts()
+        if fd:
+            (ad, fdv), = fd
+            print(f"phase18c: {label}: directional derivative on the card: "
+                  f"adjoint {ad:.9e}, finite difference {fdv:.9e}, rel diff "
+                  f"{abs(ad - fdv) / abs(fdv):.3e} (tol 2e-2)")
+            if not abs(ad - fdv) <= 2e-2 * abs(fdv):
+                raise AssertionError(f"phase18c: {label}: the gradient fails "
+                                     "its finite-difference check")
+        err = float(np.abs(gd - gc).max() / np.abs(gc).max())
+        print(f"phase18c: {label}: J card {Jd:.12e} cpu {Jc:.12e}; gradient "
+              f"{err:.3e} of its max-norm apart (tol 1e-4); {wall:.2f} s; "
+              f"launches {launched} {c[launched]}, plain-VJP calls "
+              f"{c['plain_vjp_calls']}")
+        if not (err <= 1e-4 and abs(Jd - Jc) <= 1e-8 * abs(Jc)) \
+                or c[launched] <= 0 or c["plain_vjp_calls"] != 0:
+            raise AssertionError(f"phase18c: {label}: card and cpu disagree, "
+                                 "or the VJP kernel was not launched")
+        counts = c
+    return counts
+
+
+def _inverse_files(d, name, state, grid, t, config, u, v):
+    """A state file of the card's run (with its config, the couplers left
+    at their defaults) and an observations file of (u, v) times 1.1."""
+    import numpy as np
+    from pism_tpu_torch import Config
+    from pism_tpu_torch.io import checkpoint as ckpt
+    from pism_tpu_torch.io.nc4 import File
+
+    cfg = config.copy()
+    defaults = Config()
+    cfg.update({k: defaults.get_string(k) for k in (
+        "atmosphere.models", "surface.models", "ocean.models",
+        "sea_level.models")})
+    path, obs = os.path.join(d, f"{name}.nc"), os.path.join(d, f"{name}_obs.nc")
+    ckpt.save_state(path, state, grid, t, config=cfg, format="netcdf3")
+    with File(obs, "w", format="netcdf3") as f:
+        for dim, c in (("x", grid.x), ("y", grid.y)):
+            f.define_dimension(dim, len(c), values=np.asarray(c),
+                               attrs={"units": "m"})
+        for var, x in (("u_ssa", u), ("v_ssa", v)):
+            f.write(var, 1.1 * x.cpu().numpy(), dims=("y", "x"),
+                    attrs={"units": "m s-1"})
+    return path, obs
+
+
+def phase18d_cli(dev, d, twin):
+    """``-inverse`` through the command line's ``main`` (what ``python -m
+    pism_tpu_torch`` runs) on files this script's forward runs wrote, 2
+    Adam iterates (18b ran L-BFGS; an L-BFGS iterate costs two gradients
+    and a solve more), ``-o_format netcdf3``: tau_c on 18b's 20 km state
+    (path A's start), the hardness on the PIK chain at PIK_CHECK_KM after one
+    model year on the card (its shelves); each writes the state, its design
+    variable and ``inv_misfit``, finite, and launches the VJP kernel."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import cli, setups
+    from pism_tpu_torch.io.nc4 import File
+
+    model, state, (u, v) = twin
+    runs = [("tauc", _inverse_files(d, "tauc", state, model.grid, 0.0,
+                                    model.config, u, v))]
+    m, s, g = setups.antarctica_pik_model("float64", PIK_CHECK_KM, device=dev,
+                                          extra_cfg=PATH_A)
+    s, t, _ = m.step_once(s, 0.0, SPY)
+    runs.append(("hardav", _inverse_files(d, "hardav", s, g, t, m.config,
+                                          s.u_ssa, s.v_ssa)))
+    for design, (path, obs) in runs:
+        out = os.path.join(d, f"{design}_inv.nc")
+        argv = ["-i", path, "-inverse", "-inv_data", obs, "-inv_design",
+                design, "-inv_method", "adam", "-config",
+                "inverse.max_iterations=2", "-o", out, "-o_format",
+                "netcdf3", "-verbose", "2"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c = read_counts()
+        with File(out, "r") as f:
+            x = np.asarray(f.read(design))
+            hist = np.asarray(f.read("inv_misfit"))
+            has_state = f.has_variable("thk") and f.has_variable("u_ssa")
+        print(f"phase18d: -inverse -inv_design {design}: rc {rc}, {wall:.1f} "
+              f"s, {design} {x.shape} in [{x.min():.6e}, {x.max():.6e}], "
+              f"inv_misfit {hist.tolist()}, launches ssa_matvec_vjp "
+              f"{c['ssa_matvec_vjp']}, plain-VJP calls {c['plain_vjp_calls']}")
+        if rc != 0 or not has_state or not np.isfinite(x).all() \
+                or not np.isfinite(hist).all() or hist.size < 2 \
+                or c["ssa_matvec_vjp"] <= 0 or c["plain_vjp_calls"] != 0:
+            raise AssertionError(f"phase18d: -inverse {design} failed")
+
+
+def phase18_inverse(dev, smi):
+    """Phase 18, the CPU references in a child process beside the card's
+    runs; returns ({kernel: record}, {kernel: counts})."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        future = pool.submit(inverse_cpu_references)
+        records = _timed("phase18a", phase18a_vjp_kernels, dev)
+        counts18, model, state, obs = _timed("phase18b", phase18b_twin, dev)
+        counts_halo = _timed("phase18c", phase18c_card_vs_cpu, dev,
+                             future.result)
+    with tempfile.TemporaryDirectory() as d:
+        _timed("phase18d", phase18d_cli, dev, d, (model, state, obs))
+    return records, {"ssa_matvec_vjp": counts18,
+                     "ssa_matvec_halo_vjp": counts_halo}
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -5643,6 +6158,11 @@ def main():
     print(f"phase17: {smi}")
     phase17_blatter_fem(dev, smi)
     print(f"phase17: {time.time() - t17:.1f} s")
+    t18 = time.time()
+    print(f"phase18: {smi}")
+    records18, counts18 = phase18_inverse(dev, smi)
+    timings.update(records18)
+    print(f"phase18: {time.time() - t18:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line
@@ -5674,7 +6194,9 @@ def main():
             ("member_dot", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13),
             ("member_dots", "member_dot.cu", "pism_tpu/ops/ssa.py:332", counts13),
             ("member_sum", "member_dot.cu", "pism_tpu/coupler/pico.py:209", counts13),
-            ("ssa_newton_matvec_halo_drag", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:408", counts14)):
+            ("ssa_newton_matvec_halo_drag", "ssa_matvec.cu", "pism_tpu/ops/pallas_kernels.py:408", counts14),
+            ("ssa_matvec_vjp", "ssa_matvec_vjp.cu", "pism_tpu/inverse/ssa_inverse.py:101", counts18["ssa_matvec_vjp"]),
+            ("ssa_matvec_halo_vjp", "ssa_matvec_vjp.cu", "pism_tpu/inverse/ssa_inverse.py:101", counts18["ssa_matvec_halo_vjp"])):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"pism_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": counts[name],

@@ -16,7 +16,10 @@ Routes of the port:
 - ``-i FILE -bootstrap``: a state from a data file on its own grid
   (``io/bootstrap.py``) on the grid of ``-Mx/-My/-Mz/-Lx/-Ly/-Lz``;
 - ``-i FILE``: continue a state saved by either package; the coupler
-  chains stored in its config are rebuilt (zero SMB without one).
+  chains stored in its config are rebuilt (zero SMB without one);
+- ``-i FILE -inverse -inv_data OBS``: invert tau_c (``-inv_design tauc``,
+  L-BFGS or ``-inv_method adam``) or the hardness (``hardav``, Adam) from
+  observed velocities (``inverse/``), float64 fields only.
 
 With each route, ``-regrid_file``/``-regrid_vars`` replace 2D fields by
 ones regridded from another file, the coupler flags (``-atmosphere``,
@@ -47,6 +50,7 @@ Examples:
   python -m pism_tpu_torch -test blatter_xz -Mx 33 -Mz 17
   python -m pism_tpu_torch -test I -config stress_balance.ssa.method=fem
   python -m pism_tpu_torch -i a.nc -y 100 -o b.nc -o_format netcdf3
+  python -m pism_tpu_torch -i a.nc -inverse -inv_data obs.nc -o inv.nc
   python -m pism_tpu_torch -i g_boot.nc -bootstrap -Mx 76 -My 141 -Mz 41 \\
       -Lx 750 -Ly 1400 -Lz 4000 -stress_balance sia \\
       -atmosphere searise_greenland -surface pdd -y 100 -o g_pre.nc \\
@@ -274,9 +278,9 @@ def _unported(what: str, item: str):
 
 def _refuse_unported(args):
     """Options that need a module the port does not carry yet."""
-    for flag, item in (("list_params", "4"), ("list_diagnostics", "3"),
-                       ("regional", "7"), ("no_model_strip", "7"),
-                       ("inverse", "10"), ("view", "4")):
+    for flag, item in (("list_params", "4"), ("list_diagnostics", "4"),
+                       ("regional", "6"), ("no_model_strip", "6"),
+                       ("view", "4")):
         if getattr(args, flag) not in (None, False):
             raise _unported(f"-{flag}", item)
     if args.test and args.test.upper() not in tuple("ABCDEFGHKLOPIJMVN") \
@@ -506,6 +510,9 @@ def _configure(args, cfg) -> None:
         cfg.update({"runtime.profile.directory": args.profile})
     if args.ts_vars:
         cfg.update({"output.timeseries.variables": args.ts_vars})
+    if args.inverse and args.inv_method is not None:
+        # only when given, so that -config inverse.method=... stands
+        cfg.update({"inverse.method": args.inv_method})
     cfg.update({"run_info.command": " ".join(sys.argv)})
     cfg.update({"runtime.verbosity": args.verbose})
     if args.i:
@@ -692,6 +699,8 @@ def main(argv=None):
         state = state.replace(u_ssa=None, v_ssa=None)
     if cfg.get_flag("stress_balance.ssa.dirichlet_bc") and args.i:
         _dirichlet_bc(args, grid, model, device, fdt)
+    if args.inverse:
+        return _run_inversion(args, model, state, grid, cfg)
 
     # output flags fall back to their config parameters; the CLI values
     # mirror back in for provenance
@@ -782,7 +791,7 @@ def main(argv=None):
     # pass (a classic file cannot be appended to)
     diagnostics = None
     if args.o_size == "big":
-        raise _unported("-o_size big (the 3D diagnostics)", "3")
+        raise _unported("-o_size big (the 3D diagnostics)", "4")
     if args.o_size == "medium":
         names = cfg.get_string("output.sizes.medium").split()
         diagnostics = ckpt.diagnostic_values(names, state, model, t_reached)
@@ -792,6 +801,128 @@ def main(argv=None):
     if sol is not None:
         halfar_report(sol, state, grid, t_reached)
     log.message(1, "done; state written to %s", args.o)
+    return 0
+
+
+def _run_inversion(args, model, state, grid, cfg):
+    """The ``pismi.py`` driver role (JAX ``pism_tpu/cli.py``
+    ``_run_inversion``): invert tau_c (bounded L-BFGS or Adam) or the
+    hardness (Adam) from observed velocities, log the convergence ladder,
+    and write the state, the design variable (``tauc`` or ``hardav``) and
+    the objective history ``inv_misfit`` in one pass (a classic file cannot
+    be reopened for writing)."""
+    import torch
+
+    from .inverse.parameterizations import from_config
+    from .inverse.ssa_inverse import HardnessInversion, TaucInversion
+    from .io import checkpoint as ckpt
+    from .io.bootstrap import read_and_regrid
+    from .util.logger import log
+
+    if args.inv_data is None:
+        print("error: -inverse needs -inv_data FILE", file=sys.stderr)
+        return 1
+    state = model.prepare_state(state)
+    fields = read_and_regrid(args.inv_data, grid, variables=[
+        "u_ssa", "v_ssa", "uvelsurf", "vvelsurf", "u_surface", "v_surface"])
+    u_obs = fields.get("u_ssa", fields.get("uvelsurf",
+                                           fields.get("u_surface")))
+    v_obs = fields.get("v_ssa", fields.get("vvelsurf",
+                                           fields.get("v_surface")))
+    if u_obs is None or v_obs is None:
+        print(f"error: no observed velocities found in {args.inv_data}",
+              file=sys.stderr)
+        return 1
+    ssa = model.ssa
+    if ssa is None:
+        print("error: -inverse needs an SSA stress balance "
+              "(-stress_balance ssa or ssa+sia)", file=sys.stderr)
+        return 1
+    H = state.geometry.ice_thickness
+
+    def field(a):
+        return torch.as_tensor(a, dtype=H.dtype, device=H.device)
+
+    obs_mask = torch.as_tensor(np.isfinite(u_obs) & np.isfinite(v_obs),
+                               device=H.device)
+    u_obs, v_obs = np.nan_to_num(u_obs), np.nan_to_num(v_obs)
+
+    design = args.inv_design or cfg.get_string("inverse.design_variable")
+    reg_kind = {"cH1": "h1", "cL2": "l2", "cTV": "tv"}
+    weights = {k: cfg.get_number(f"inverse.design.{k}")
+               for k in ("cH1", "cL2", "cTV")}
+    kind, w = max(weights.items(), key=lambda kv: kv[1])
+    # the misfit is a dimensionless per-cell mean; so is the design
+    # functional, so that the c* weights are O(1) knobs
+    w = w / (grid.Mx * grid.My)
+    param = from_config(cfg, "tauc" if design == "tauc" else "hardav")
+
+    def monitor(rec):
+        log.message(2, "inv iter %3d: J = %.6e (misfit %.3e, reg %.3e)  "
+                    "|proj grad| = %.3e  step = %.2f", rec.iteration, rec.J,
+                    rec.J_misfit, rec.J_regularization, rec.pgrad_norm,
+                    rec.step)
+
+    max_it = cfg.get_int("inverse.max_iterations")
+    mis_w = cfg.get_number("inverse.ssa.velocity_misfit_weight")
+    grad_scale = cfg.get_number("inverse.ssa.length_scale", "m") / grid.dx
+    tv_eps = cfg.get_number("inverse.design.tv_epsilon")
+    # the Morozov discrepancy target (inverse.target_misfit, m/year) in the
+    # misfit's dimensionless units (J = w 0.5 e_rms^2 / <|u_obs|^2>)
+    wmask = obs_mask.cpu().numpy().astype(float)
+    nobs = max(float(wmask.sum()), 1.0)
+    obs2 = float((u_obs ** 2 * wmask).sum() + (v_obs ** 2 * wmask).sum()) \
+        / nobs
+    target_ms = cfg.get_number("inverse.target_misfit", "m s-1")
+    misfit_target = mis_w * 0.5 * target_ms ** 2 / max(obs2, 1e-30) \
+        if target_ms > 0 else None
+    u_obs, v_obs = field(u_obs), field(v_obs)
+    tau_c = model.yield_stress.compute(state)
+    if design == "tauc":
+        inv = TaucInversion(ssa=ssa, state=state, u_obs=u_obs, v_obs=v_obs,
+                            obs_mask=obs_mask, reg_kind=reg_kind[kind],
+                            reg_weight=w, param=param, misfit_weight=mis_w,
+                            grad_scale=grad_scale, tv_eps=tv_eps)
+        tauc_min = cfg.get_number("inverse.ssa.tauc_min")
+        tauc_max = cfg.get_number("inverse.ssa.tauc_max")
+        if param.kind == "exp":
+            # inverse.log_ratio bounds |ln(tauc / scale)|
+            lr = cfg.get_number("inverse.log_ratio")
+            tauc_min = max(tauc_min, param.scale * float(np.exp(-lr)))
+            tauc_max = min(tauc_max, param.scale * float(np.exp(lr)))
+        if cfg.get_string("inverse.method") == "lbfgs":
+            res, opt = inv.run_lbfgs(
+                tau_c, max_iterations=max_it, tauc_min=tauc_min,
+                tauc_max=tauc_max,
+                grtol=cfg.get_number("inverse.gradient_tolerance"),
+                steptol=cfg.get_number("inverse.step_tolerance"),
+                monitor=monitor, misfit_target=misfit_target)
+            log.message(1, "inversion %s (%s) after %d iterates",
+                        "converged" if opt.converged else "stopped",
+                        opt.reason, len(opt.log))
+        else:
+            res = inv.run(tau_c, iterations=max_it)
+        result_var = ("tauc", "Pa", "inverted basal yield stress")
+    else:
+        inv = HardnessInversion(ssa=ssa, state=state, u_obs=u_obs,
+                                v_obs=v_obs, tau_c=tau_c, obs_mask=obs_mask,
+                                reg_kind=reg_kind[kind], reg_weight=w,
+                                param=param)
+        res = inv.run(torch.full_like(H, param.scale), iterations=max_it)
+        result_var = ("hardav", "Pa s(1/3)",
+                      "inverted vertically-averaged ice hardness")
+
+    out_file = cfg.get_string("inverse.state_file") or args.o
+    name, units, long_name = result_var
+    ckpt.save_state(
+        out_file, state.replace(u_ssa=res.u, v_ssa=res.v), grid, 0.0,
+        config=cfg, format=args.o_format,
+        extra_2d={name: (res.tau_c, {"units": units,
+                                     "long_name": long_name})},
+        series={"inv_misfit": ("inv_iter", res.misfits, {
+            "long_name": "inversion objective history"})})
+    log.message(1, "inverse done; final J = %.6e; state written to %s",
+                float(res.misfits[-1]), out_file)
     return 0
 
 

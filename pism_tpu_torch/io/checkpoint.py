@@ -136,11 +136,14 @@ def _write_diagnostics(f, grid: Grid, values: dict, n: int):
 def save_state(path: str, state: S.ModelState, grid: Grid, t: float,
                config: Optional[Config] = None, format: str = "netcdf4",
                extra_2d: Optional[dict] = None,
-               diagnostics: Optional[dict] = None):
+               diagnostics: Optional[dict] = None,
+               series: Optional[dict] = None):
     """Write the state at model time ``t``. ``format="netcdf3"`` writes
     classic CDF-2 (PISM ``-o_format``).
 
     extra_2d: time-independent 2D fields ``{name: (array, attrs)}``;
+    series: 1D variables on dimensions of their own ``{name: (dim, array,
+    attrs)}`` (the inversion's objective history);
     diagnostics: ``{name: array}`` of ``diagnostic_values``, written in the
     same pass (the ``-o_size`` sets; a classic file cannot be appended to)."""
     with File(path, "w", format=format) as f:
@@ -171,6 +174,10 @@ def save_state(path: str, state: S.ModelState, grid: Grid, t: float,
                     attrs or {})
         if diagnostics:
             _write_diagnostics(f, grid, diagnostics, n)
+        for name, (dim, arr, attrs) in (series or {}).items():
+            arr = _host(arr).astype(np.float64)
+            f.define_dimension(dim, len(arr))
+            f.write(name, arr, (dim,), attrs or {})
         if config is not None:
             f.set_global_attr("pism_config", config.to_json())
             write_projection(f, grid, config)

@@ -230,9 +230,18 @@ class SSAFD:
         return 0.5 * self.g * (self.rho * H ** 2 - self.rho_w * d ** 2)
 
     # ------------------------------------------------------------------
-    def build_problem(self, state: S.ModelState, tau_c=None) -> dict:
+    def build_problem(self, state: S.ModelState, tau_c=None,
+                      hardness=None) -> dict:
         """Masks, right-hand side (driving stress + calving-front terms) and
-        the nonlinear residual closure."""
+        the nonlinear residual closure.
+
+        ``hardness``: the vertically averaged hardness B to use as given,
+        without the SSA enhancement factor (the design variable of the
+        hardness inversion, as in the JAX package). The residual keeps the
+        derivative of beta with respect to (u, v) and tau_c, and where
+        autograd records it, its operator goes through ``SSAMatvec`` (or the
+        periodic route's ``SSAMatvecHalo``), whose backward is the VJP
+        kernel: the inverse toolkit differentiates it in reverse mode."""
         sh = self.sh
         geom = state.geometry
         H = geom.ice_thickness
@@ -241,7 +250,8 @@ class SSAFD:
         dx, dy = self.grid.dx, self.grid.dy
 
         icy = S.icy(mask)
-        B = self._hardness(state)
+        B = self._hardness(state) if hardness is None \
+            else torch.as_tensor(hardness, dtype=dtype, device=H.device)
         if self.taud_x is not None:
             bx, by = self.taud_x.to(dtype), self.taud_y.to(dtype)
         else:
@@ -366,7 +376,7 @@ class SSAFD:
                     bc_u=bc_u, bc_v=bc_v, bx=bx, by=by, icy=icy, tau_c=tau_c)
 
     def solve(self, state: S.ModelState, tau_c=None, u0=None, v0=None,
-              diagnostics: bool = False, active=None):
+              diagnostics: bool = False, active=None, hardness=None):
         """Solve for (u, v). With ``diagnostics=True`` also return a dict with
         the Newton sweep count, the total Krylov iterations (host ints) and
         the residual norms, as the JAX package's ``info``.
@@ -380,7 +390,8 @@ class SSAFD:
         members at their initial guess (members the ensemble's step
         discards). The counts are then lists, one per member, and the
         diagnostics add ``lockstep_newton`` and ``lockstep_krylov``, the
-        sweeps and Krylov iterations the lockstep ran."""
+        sweeps and Krylov iterations the lockstep ran. ``hardness``
+        replaces B as ``build_problem`` says."""
         geom = state.geometry
         H = geom.ice_thickness
         dtype = H.dtype
@@ -392,7 +403,7 @@ class SSAFD:
                 f"the {self.solve_dtype!r} SSA solve of {dtype} fields is not "
                 "implemented in pism_tpu_torch")
 
-        P = self.build_problem(state, tau_c)
+        P = self.build_problem(state, tau_c, hardness)
         apply_op, free, residual = P["apply"], P["free"], P["residual"]
         full, bc_u, bc_v = P["full"], P["bc_u"], P["bc_v"]
         make_nuH, beta_fn = P["make_nuH"], P["beta_fn"]

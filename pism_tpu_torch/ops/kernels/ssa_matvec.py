@@ -57,6 +57,17 @@ launches, and ``HALO_LAUNCHES`` / ``HALO_JVP_LAUNCHES`` /
 ``HALO_NEWTON_LAUNCHES`` those of K5, its fused JVP and its Newton matvec;
 ``NEWTON_DRAG_LAUNCHES`` and ``HALO_NEWTON_DRAG_LAUNCHES`` count the Newton
 matvec's launches with a drag tangent (and only those).
+
+Reverse mode (the inverse toolkit's adjoint): ``ssa_matvec_vjp`` and
+``ssa_matvec_halo_vjp`` launch the transpose of K1 and of its padded-block
+instance, ``pism_tpu_torch/csrc/ssa_matvec_vjp.cu`` (a library of its own,
+built at first use like the others); the JAX package leaves that transpose
+to XLA's reverse mode through its plain operator
+(``pism_tpu/inverse/ssa_inverse.py:101``). ``SSAMatvec`` and
+``SSAMatvecHalo`` reach them as their ``backward``. ``VJP_LAUNCHES`` and
+``HALO_VJP_LAUNCHES`` count their launches; ``PLAIN_VJP_CALLS`` counts
+calls of their plain versions (``torch.func.vjp`` of the plain operators),
+which a CUDA tensor never reaches.
 """
 
 from __future__ import annotations
@@ -79,6 +90,9 @@ MEMBER_LAUNCHES = 0
 NEWTON_MEMBER_LAUNCHES = 0
 NEWTON_DRAG_LAUNCHES = 0
 HALO_NEWTON_DRAG_LAUNCHES = 0
+VJP_LAUNCHES = 0
+HALO_VJP_LAUNCHES = 0
+PLAIN_VJP_CALLS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +321,39 @@ def ssa_newton_matvec_halo_plain(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
     return torch.where(bc, du, Ju), torch.where(bc, dv, Jv)
 
 
+def _vjp_plain(fn, primals, gu, gv, need):
+    """``torch.func.vjp`` of ``fn`` at ``primals`` = (u, v, nuH_e, nuH_n,
+    beta) applied to (gu, gv): (ubar, vbar, nuH_e_bar, nuH_n_bar, beta_bar),
+    None where ``need`` = (velocities, nuH, beta) leaves a pair out."""
+    global PLAIN_VJP_CALLS
+    PLAIN_VJP_CALLS += 1
+    _, vjp = torch.func.vjp(fn, *primals)
+    ub, vb, nb_e, nb_n, bb = vjp((gu, gv))
+    vel, nuh, beta = need
+    return (ub if vel else None, vb if vel else None,
+            nb_e if nuh else None, nb_n if nuh else None,
+            bb if beta else None)
+
+
+def ssa_matvec_vjp_plain(u, v, nuH_e, nuH_n, beta, gu, gv, dx, dy,
+                         need=(True, True, True)):
+    """The cotangents of (u, v, nuH_e, nuH_n, beta) from those (gu, gv) of
+    A(u, v) in plain torch (any device): ``torch.func.vjp`` of
+    ``ssa_matvec_plain``; ``need`` as ``_vjp_plain``."""
+    return _vjp_plain(lambda *a: ssa_matvec_plain(*a, dx, dy),
+                      (u, v, nuH_e, nuH_n, beta), gu, gv, need)
+
+
+def ssa_matvec_halo_vjp_plain(west, south, up, vp, nuH_e, nuH_n, beta, gu,
+                              gv, dx, dy, need=(True, True, True)):
+    """K5's VJP in plain torch: the cotangents of the padded blocks (up, vp
+    with two ghosts, nuH with one) and of beta from those of K5's (my, mx)
+    outputs; ``torch.func.vjp`` of ``ssa_matvec_halo_plain``."""
+    return _vjp_plain(
+        lambda *a: ssa_matvec_halo_plain(west, south, *a, dx, dy),
+        (up, vp, nuH_e, nuH_n, beta), gu, gv, need)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -346,9 +393,26 @@ def _library() -> ctypes.CDLL:
 
 
 def build() -> None:
-    """Compile and load the kernel library now (it is built at first use
-    otherwise)."""
+    """Compile and load the kernel libraries now, both sources in parallel
+    (they are built at first use otherwise)."""
+    _build.build("ssa_matvec", "ssa_matvec_vjp")
     _library()
+    _vjp_library()
+
+
+@functools.lru_cache(maxsize=1)
+def _vjp_library() -> ctypes.CDLL:
+    """The reverse-mode kernels' library (``csrc/ssa_matvec_vjp.cu``)."""
+    lib = _build.library("ssa_matvec_vjp")
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for prec in ("f32", "f64"):
+        fn = getattr(lib, f"pism_ssa_matvec_vjp_{prec}")
+        fn.argtypes = [p] * 12 + [i, i, d, d, p]
+        fn.restype = i
+        fn = getattr(lib, f"pism_ssa_matvec_halo_vjp_{prec}")
+        fn.argtypes = [p] * 12 + [i, i, i, i, d, d, p]
+        fn.restype = i
+    return lib
 
 
 def _check(*tensors, members=False):
@@ -539,6 +603,104 @@ def ssa_newton_matvec_halo(west, south, up, vp, dup, dvp, nuH_e, nuH_n,
     return Ju, Jv
 
 
+def _vjp_outputs(like_vel, like_nuh, like_beta, need):
+    """Empty outputs of a VJP launch, None where ``need`` leaves them out."""
+    want_vel, want_nuh, want_beta = need
+    e = torch.empty_like
+    return (e(like_vel) if want_vel else None,
+            e(like_vel) if want_vel else None,
+            e(like_nuh) if want_nuh else None,
+            e(like_nuh) if want_nuh else None,
+            e(like_beta) if want_beta else None)
+
+
+def ssa_matvec_vjp(u, v, nuH_e, nuH_n, beta, gu, gv, dx, dy,
+                   need=(True, True, True)):
+    """Reverse mode of K1: (ubar, vbar, nuH_e_bar, nuH_n_bar, beta_bar)
+    from the cotangents (gu, gv) of A(u, v) on (My, Mx) tensors; ``need`` =
+    (velocities, nuH, beta) says which pairs to compute (None for the
+    others, which a launch does not write). CUDA tensors launch the kernel;
+    CPU tensors run ``ssa_matvec_vjp_plain``."""
+    _check(u, v, nuH_e, nuH_n, beta, gu, gv)
+    if u.device.type == "cpu":
+        return ssa_matvec_vjp_plain(u, v, nuH_e, nuH_n, beta, gu, gv, dx, dy,
+                                    need)
+    global VJP_LAUNCHES
+    out = _vjp_outputs(u, u, u, need)
+    prec = "f32" if u.dtype == torch.float32 else "f64"
+    fn = getattr(_vjp_library(), f"pism_ssa_matvec_vjp_{prec}")
+    _build.launch(fn, "ssa_matvec_vjp", u.device,
+                  *[t.data_ptr() for t in (u, v, nuH_e, nuH_n, beta, gu, gv)],
+                  *[None if t is None else t.data_ptr() for t in out],
+                  int(u.shape[0]), int(u.shape[1]), float(dx), float(dy))
+    VJP_LAUNCHES += 1
+    return out
+
+
+def ssa_matvec_halo_vjp(west, south, up, vp, nuH_e, nuH_n, beta, gu, gv, dx,
+                        dy, need=(True, True, True)):
+    """Reverse mode of K5 on one padded region (``_check_halo``'s blocks):
+    the cotangents of up, vp ((my+4, mx+4)), nuH_e, nuH_n ((my+2, mx+2))
+    and beta ((my, mx)) from those (gu, gv) of its (my, mx) outputs;
+    ``need`` as ``ssa_matvec_vjp``. CUDA tensors launch the kernel; CPU
+    tensors run ``ssa_matvec_halo_vjp_plain``."""
+    _check_halo((up, vp), (nuH_e, nuH_n), (beta, gu, gv))
+    if up.device.type == "cpu":
+        return ssa_matvec_halo_vjp_plain(west, south, up, vp, nuH_e, nuH_n,
+                                         beta, gu, gv, dx, dy, need)
+    global HALO_VJP_LAUNCHES
+    out = _vjp_outputs(up, nuH_e, beta, need)
+    prec = "f32" if up.dtype == torch.float32 else "f64"
+    fn = getattr(_vjp_library(), f"pism_ssa_matvec_halo_vjp_{prec}")
+    my, mx = beta.shape
+    _build.launch(fn, "ssa_matvec_halo_vjp", up.device,
+                  *[t.data_ptr() for t in (up, vp, nuH_e, nuH_n, beta, gu,
+                                           gv)],
+                  *[None if t is None else t.data_ptr() for t in out],
+                  int(my), int(mx), int(bool(west)), int(bool(south)),
+                  float(dx), float(dy))
+    HALO_VJP_LAUNCHES += 1
+    return out
+
+
+def _need(ctx, first):
+    """(velocities, nuH, beta) of ``ctx.needs_input_grad`` from the index
+    of u among the Function's inputs."""
+    n = ctx.needs_input_grad[first:first + 5]
+    return (n[0] or n[1], n[2] or n[3], n[4])
+
+
+def _grads(gu, gv):
+    """Output cotangents as the kernels take them (contiguous; autograd may
+    hand over an expanded zero)."""
+    return gu.contiguous(), gv.contiguous()
+
+
+class SSAMatvecHalo(torch.autograd.Function):
+    """K5 on one padded region as a differentiable function of its blocks
+    (the periodic route's operator on the wrap-padded field): reverse mode
+    under ``torch.autograd`` through the VJP kernel
+    ``ssa_matvec_halo_vjp``. Forward mode is not provided."""
+
+    @staticmethod
+    def forward(west, south, up, vp, nuH_e, nuH_n, beta, dx, dy):
+        return ssa_matvec_halo(west, south, up, vp, nuH_e, nuH_n, beta, dx,
+                               dy)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        west, south, up, vp, nuH_e, nuH_n, beta, dx, dy = inputs
+        ctx.save_for_backward(up, vp, nuH_e, nuH_n, beta)
+        ctx.args = (west, south, dx, dy)
+
+    @staticmethod
+    def backward(ctx, gu, gv):
+        west, south, dx, dy = ctx.args
+        bars = ssa_matvec_halo_vjp(west, south, *ctx.saved_tensors,
+                                   *_grads(gu, gv), dx, dy, _need(ctx, 2))
+        return (None, None, *bars, None, None)
+
+
 class _SSAMatvecJVP(torch.autograd.Function):
     """The fused JVP kernel as a Function of its own. Under ``torch.func``
     transforms a Function's ``forward`` receives plain tensors, while its
@@ -559,7 +721,11 @@ class SSAMatvec(torch.autograd.Function):
     """The operator as a differentiable function of (u, v, nuH_e, nuH_n,
     beta): forward mode through the fused JVP kernel (the bilinear rule of
     the TPU kernel's custom JVP), under ``torch.autograd.forward_ad`` and
-    ``torch.func.jvp`` alike. Reverse mode is not provided."""
+    ``torch.func.jvp`` alike; reverse mode under ``torch.autograd`` through
+    the VJP kernel (``ssa_matvec_vjp``), which computes only the
+    cotangents of the inputs that need one. (Reverse mode under
+    ``torch.func`` would hand the kernel wrapped tensors without storage,
+    and raises.)"""
 
     @staticmethod
     def forward(u, v, nuH_e, nuH_n, beta, dx, dy):
@@ -569,7 +735,14 @@ class SSAMatvec(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         u, v, nuH_e, nuH_n, beta, dx, dy = inputs
         ctx.save_for_forward(u, v, nuH_e, nuH_n, beta)
+        ctx.save_for_backward(u, v, nuH_e, nuH_n, beta)
         ctx.dx, ctx.dy = dx, dy
+
+    @staticmethod
+    def backward(ctx, gu, gv):
+        bars = ssa_matvec_vjp(*ctx.saved_tensors, *_grads(gu, gv), ctx.dx,
+                              ctx.dy, _need(ctx, 0))
+        return (*bars, None, None)
 
     @staticmethod
     def jvp(ctx, du, dv, dnuH_e, dnuH_n, dbeta, _ddx, _ddy):

@@ -155,12 +155,21 @@ def linearize_nuH(u, v, hardness_B, H, dx, dy, sh, *, n_glen=3.0,
     return nuH, NuHTangent(c_e, c_n, dx, dy, sh)
 
 
+def _tracked(*tensors):
+    """Whether autograd records an operation on ``tensors`` now."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def apply_operator(u, v, nuH: NuH, beta, dx, dy, periodic=(False, False)):
     """A(u, v) = -div T + beta (u, v) through the matvec kernel (its plain
     torch version on CPU tensors); ``periodic`` (y, x): the grid's
-    periodic axes, which take the wrap-padded route."""
+    periodic axes, which take the wrap-padded route. Where autograd
+    records the call (the inverse toolkit's residual), the kernel is
+    reached through ``SSAMatvec``, whose backward is the VJP kernel."""
     if periodic[0] or periodic[1]:
         return ssa_matvec_periodic(u, v, nuH.e, nuH.n, beta, dx, dy, periodic)
+    if _tracked(u, v, nuH.e, nuH.n, beta):
+        return K.SSAMatvec.apply(u, v, nuH.e, nuH.n, beta, dx, dy)
     return K.ssa_matvec(u, v, nuH.e, nuH.n, beta, dx, dy)
 
 
@@ -175,12 +184,17 @@ def ssa_matvec_periodic(u, v, nuH_e, nuH_n, beta, dx, dy, periodic):
     repeat the edge on the other, and the edge flags set only on the
     closed axes. The ghosts give the west (south) faces of the first
     column (row) the values of the faces across the wrap, which is what
-    the periodic stencil computes."""
+    the periodic stencil computes. Where autograd records the call it goes
+    through ``SSAMatvecHalo`` (reverse mode by the VJP kernel)."""
     py, px = periodic
-    return K.ssa_matvec_halo(
-        not px, not py, st.pad_ghosts(u, 2, py, px), st.pad_ghosts(v, 2, py, px),
-        st.pad_ghosts(nuH_e, 1, py, px), st.pad_ghosts(nuH_n, 1, py, px),
-        beta.contiguous(), dx, dy)
+    args = (not px, not py, st.pad_ghosts(u, 2, py, px),
+            st.pad_ghosts(v, 2, py, px), st.pad_ghosts(nuH_e, 1, py, px),
+            st.pad_ghosts(nuH_n, 1, py, px), beta.contiguous(), dx, dy)
+    if _tracked(u, v, nuH_e, nuH_n, beta):
+        # reverse mode: the VJP kernel on the padded blocks, then the
+        # padding's own transpose under autograd
+        return K.SSAMatvecHalo.apply(*args)
+    return K.ssa_matvec_halo(*args)
 
 
 def ssa_newton_matvec_periodic(u, v, nuH_e, nuH_n, coef_e, coef_n, beta,

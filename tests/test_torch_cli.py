@@ -243,7 +243,9 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "B", "-Mx", "11", "-surface", "pdd,cache"],
     ["-test", "B", "-Mx", "11", "-ocean", "th"],
     ["-test", "B", "-Mx", "11", "-sea_level", "constant,delta_sl_2d"],
-    ["-inverse"], ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
+    ["-i", "{dome}", "-stress_balance", "ssa+sia", "-inverse", "-inv_data",
+     "{obs}", "-config", "runtime.float_dtype=float32"],
+    ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
     ["-test", "B", "-Mx", "11", "-energy", "cold"],
     ["-test", "J", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
     ["-test", "M", "-config", "stress_balance.ssa.fd.krylov_method=cg"],
@@ -258,10 +260,82 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "B", "-Mx", "11", "-bed_def", "given"],
 ])
 def test_unported_options_raise(tmp_path, argv):
+    if "-inverse" in argv:   # the inversion of float32 fields
+        dome, obs = inverse_inputs(tmp_path)
+        argv = [a.format(dome=dome, obs=obs) for a in argv]
     with pytest.raises(NotImplementedError):
         t_cli.main(argv + ["-platform", "cpu", "-y", "1", "-verbose", "0",
                            "-o", str(tmp_path / "o.nc"),
                            "-o_format", "netcdf3"])
+
+
+def inverse_inputs(d):
+    """(state file, observations file) of a small inversion: EISMINT II
+    A's 11x11x5 setup with a 1000 m parabolic dome, saved by the port (its
+    config and enthalpy), and observed velocities of 20 m/a pointing away
+    from the centre over the ice, NaN (no data) outside it."""
+    import torch
+    from pism_tpu_torch.state import new_geometry
+    from pism_tpu_torch.verification import eismint2
+    es = eismint2.setup("A", Mx=11, Mz=5, device="cpu")
+    grid = es.grid
+    X, Y = np.meshgrid(grid.x, grid.y)
+    R = np.sqrt(X ** 2 + Y ** 2) / 600e3
+    H = np.where(R < 1, 1000.0 * np.sqrt(np.clip(1 - R ** 2, 0, 1)), 0.0)
+    state = es.state.replace(geometry=new_geometry(
+        torch.tensor(H), es.state.geometry.bed_elevation))
+    dome, obs = str(d / "dome.nc"), str(d / "obs.nc")
+    t_ckpt.save_state(dome, state, grid, 0.0, config=es.config,
+                      format="netcdf3")
+    u = np.where(H > 10.0, 20.0 / SPY * X / 600e3, np.nan)
+    v = np.where(H > 10.0, 20.0 / SPY * Y / 600e3, np.nan)
+    with File(obs, "w", format="netcdf3") as f:
+        for name, c in (("x", grid.x), ("y", grid.y)):
+            f.define_dimension(name, len(c), values=np.asarray(c),
+                               attrs={"units": "m"})
+        f.write("u_ssa", u, dims=("y", "x"), attrs={"units": "m s-1"})
+        f.write("v_ssa", v, dims=("y", "x"), attrs={"units": "m s-1"})
+    return dome, obs
+
+
+#: the inversion's command line: pseudo-plastic till at 30 kPa (off the
+#: plastic dead zone), the exact drag Jacobian (few Newton sweeps), a light
+#: L2 weight and no Morozov stop, two L-BFGS iterates
+INVERSE_ARGV = ["-stress_balance", "ssa+sia", "-inverse", "-pseudo_plastic",
+                "-config", "basal_yield_stress.model=constant",
+                "-config", "basal_yield_stress.constant.value=3e4",
+                "-config", "stress_balance.ssa.fd.drag_jacobian=exact",
+                "-config", "inverse.design.cL2=1e-4",
+                "-config", "inverse.target_misfit=0",
+                "-config", "inverse.max_iterations=2", "-verbose", "1"]
+
+
+def test_cli_inverse_matches_jax(tmp_path):
+    """``-inverse`` (tau_c, bounded L-BFGS) through both packages' ``main``
+    on the same files: the port writes ``tauc`` and ``inv_misfit`` in one
+    pass in both formats, and they agree with the JAX package's within
+    1e-4 (the gradient tests' bound in ``tests/test_torch_inverse.py``).
+    The JAX package writes them by reopening its state file "r+", which
+    only a NetCDF-4 file takes, so its run is NetCDF-4."""
+    dome, obs = inverse_inputs(tmp_path)
+    argv = ["-i", dome, "-inv_data", obs] + INVERSE_ARGV
+    ref = tmp_path / "jax.nc"
+    assert j_cli.main(argv + ["-o", str(ref)]) == 0
+    with File(str(ref), "r") as f:
+        want = {v: np.asarray(f.read(v)) for v in ("tauc", "inv_misfit")}
+    assert want["inv_misfit"].shape == (3,)
+    assert want["inv_misfit"][-1] < want["inv_misfit"][0]
+    for fmt in ("netcdf3", "netcdf4"):
+        out = tmp_path / f"port_{fmt}.nc"
+        assert t_cli.main(argv + ["-o", str(out), "-o_format", fmt,
+                                  "-platform", "cpu"]) == 0
+        with File(str(out), "r") as f:
+            assert f.has_variable("thk") and f.has_variable("u_ssa")
+            for v, x in want.items():
+                got = np.asarray(f.read(v))
+                assert got.shape == x.shape, v
+                np.testing.assert_allclose(got, x, rtol=0,
+                                           atol=1e-4 * np.abs(x).max())
 
 
 SLIDING = [["-eisII", "G", "-Mx", "21", "-Mz", "11", "-y", "300"],

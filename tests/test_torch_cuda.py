@@ -14,7 +14,9 @@ against the CPU; the Newton matvec's drag tangent against its plain
 version, the multigrid preconditioner and the SSA verification tests
 against the CPU; ISMIP-HOM A (the Blatter solve replayed as CUDA graphs,
 and without them), SSAFEM's test I and the composite Blatter model on a
-dome against the CPU.
+dome against the CPU; the VJP kernels (the reverse mode of K1 and of its
+padded-block instance) against their plain versions, with the adjoint
+identity, and reverse mode through ``SSAMatvec`` on the card.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -112,6 +114,79 @@ def test_function_jvp_on_the_card(cuda):
                            args, tangents)
     for g, r in zip(jf, jp):
         assert _rel(g, r) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape,periodic", [
+    ((141, 76), None), ((561, 301), None), ((9, 33), None), ((33, 9), None),
+    ((2, 70), None), ((7, 151), (True, False)), ((101, 1601), (True, False))])
+def test_vjp_kernels_match_plain(cuda, dtype, shape, periodic):
+    """The VJP kernels (the reverse mode of K1 and of its padded-block
+    instance) against the plain VJPs on the same inputs, every output and
+    each design's subset; the adjoint identity <g, A w> = <A^T g, w> in
+    float64; no plain VJP call from the wrappers on the card."""
+    from pism_tpu_torch.ops.stencils import pad_ghosts
+    x = _inputs(shape, dtype, cuda, 12)
+    g = _inputs(shape, dtype, cuda, 13)
+    gu, gv = g["du"] * 1e5, g["dv"] * 1e5
+    if periodic is None:
+        args = (x["u"], x["v"], x["nuH_e"], x["nuH_n"], x["beta"])
+        kern, plain, launches = K.ssa_matvec_vjp, K.ssa_matvec_vjp_plain, \
+            "VJP_LAUNCHES"
+    else:
+        py, px = periodic
+        args = (not px, not py, pad_ghosts(x["u"], 2, py, px),
+                pad_ghosts(x["v"], 2, py, px),
+                pad_ghosts(x["nuH_e"], 1, py, px),
+                pad_ghosts(x["nuH_n"], 1, py, px), x["beta"])
+        kern, plain, launches = K.ssa_matvec_halo_vjp, \
+            K.ssa_matvec_halo_vjp_plain, "HALO_VJP_LAUNCHES"
+    ref = plain(*args, gu, gv, DX, DY)
+    for need in ((True, True, True), (False, False, True),
+                 (False, True, False)):
+        n0, p0 = getattr(K, launches), K.PLAIN_VJP_CALLS
+        got = kern(*args, gu, gv, DX, DY, need)
+        torch.cuda.synchronize()
+        assert getattr(K, launches) == n0 + 1 and K.PLAIN_VJP_CALLS == p0
+        for a, b, w in zip(got, ref, (need[0], need[0], need[1], need[1],
+                                      need[2])):
+            assert (a is None) == (not w)
+            if w:
+                assert _rel(a, b) < TOL[dtype]
+    if dtype == torch.float64:
+        w_u, w_v = x["du"], x["dv"]
+        if periodic is None:
+            Au, Av = K.ssa_matvec(w_u, w_v, *args[2:], DX, DY)
+            ub, vb = kern(*args, gu, gv, DX, DY, (True, False, False))[:2]
+        else:
+            Au, Av = ssa_ops.ssa_matvec_periodic(
+                w_u, w_v, x["nuH_e"], x["nuH_n"], x["beta"], DX, DY, periodic)
+            wu = w_u.clone().requires_grad_()
+            wv = w_v.clone().requires_grad_()
+            out = ssa_ops.apply_operator(wu, wv, ssa_ops.NuH(
+                x["nuH_e"], x["nuH_n"]), x["beta"], DX, DY, periodic)
+            ub, vb = torch.autograd.grad(out, (wu, wv), (gu, gv))
+        lhs = float(torch.sum(gu * Au) + torch.sum(gv * Av))
+        rhs = float(torch.sum(ub * w_u) + torch.sum(vb * w_v))
+        assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+@pytest.mark.cuda
+def test_function_vjp_on_the_card(cuda):
+    """Reverse mode through ``SSAMatvec`` on the card launches the VJP
+    kernel and agrees with autograd of the plain version."""
+    x = _inputs((24, 40), torch.float64, cuda, 14)
+    names = ("u", "v", "nuH_e", "nuH_n", "beta")
+    a = [x[k].clone().requires_grad_() for k in names]
+    b = [x[k].clone().requires_grad_() for k in names]
+    gu, gv = x["du"], x["dv"]
+    n0, p0 = K.VJP_LAUNCHES, K.PLAIN_VJP_CALLS
+    ga = torch.autograd.grad(K.SSAMatvec.apply(*a, DX, DY), a, (gu, gv))
+    gb = torch.autograd.grad(K.ssa_matvec_plain(*b, DX, DY), b, (gu, gv))
+    assert K.VJP_LAUNCHES == n0 + 1 and K.PLAIN_VJP_CALLS == p0
+    for p, q in zip(ga, gb):
+        assert _rel(p, q) < 1e-12
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ def test_port_imports_no_jax():
         "import pism_tpu_torch.verification.eismint2\n"
         "import pism_tpu_torch.parallel.ensemble\n"
         "import pism_tpu_torch.examples.paleo_ensemble\n"
+        "import pism_tpu_torch.inverse.ssa_inverse, pism_tpu_torch.inverse.lbfgs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pism_tpu' or m.startswith('pism_tpu.'))\n"
         "assert not bad, bad\n"

@@ -198,3 +198,32 @@ def test_hydrology_frontal_melt_parameter_wiring(tmp_path, hydrology,
     port_reads = _slice_reads("torch", over)
     assert SLICE_KEYS[0] in jax_reads and "hydrology.model" in jax_reads
     assert jax_reads - port_reads == set()
+
+
+def test_inverse_parameter_wiring(tmp_path, monkeypatch):
+    """Every ``inverse.*`` key of the parameter database (all of which the
+    JAX package's ``-inverse`` driver reads) is read by the port's
+    ``-inverse`` over its three routes: tau_c by L-BFGS (the default), tau_c
+    by Adam, the hardness."""
+    from pism_tpu.config.parameters import PARAMETERS as J_PARAMETERS
+    from pism_tpu_torch import cli as t_cli
+    from pism_tpu_torch.config import config as tc
+    from test_torch_cli import INVERSE_ARGV, inverse_inputs
+
+    read = set()
+    get = tc.Config._get
+
+    def recording_get(self, name):
+        read.add(name)
+        return get(self, name)
+
+    monkeypatch.setattr(tc.Config, "_get", recording_get)
+    dome, obs = inverse_inputs(tmp_path)
+    for route in ([], ["-inv_method", "adam"], ["-inv_design", "hardav"]):
+        assert t_cli.main(["-i", dome, "-inv_data", obs] + INVERSE_ARGV + [
+            "-config", "inverse.max_iterations=1", *route,
+            "-o", str(tmp_path / "o.nc"), "-o_format", "netcdf3",
+            "-platform", "cpu"]) == 0
+    keys = {k for k in J_PARAMETERS if k.startswith("inverse.")}
+    assert len(keys) == 19
+    assert keys - read == set()
