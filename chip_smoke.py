@@ -73,9 +73,10 @@ launch counters set to 0 just before it and read just after:
   phase 5: path C, the isothermal SIA (Halfar test B, K4): (a) 61x61
     float64 for 1000 model years with ``sia.pallas = on``, the card against
     the CPU, and its errors against the exact solution; (b) 601x601 float32
-    (3 km) under ``auto`` for 25 model years from t0 (cut from 200, then
-    50, to keep the script's time), timed, then a few steps profiled and a
-    timed breakdown of 2 a; (c) the same 25 a with ``sia.pallas = off``
+    (3 km) under ``auto`` for 12.5 model years from t0 (cut from 200, then
+    50, then 25, to keep the script's time), timed, then a few steps
+    profiled and a timed breakdown of 2 a; (c) the same 12.5 a with
+    ``sia.pallas = off``
     against (b); (d) Halfar test C and the runner's letters A, D, H (8,000
     a, cut from 16,014) and L at 61x61 float64 on the card, under the JAX
     package's test thresholds.
@@ -119,8 +120,9 @@ launch counters set to 0 just before it and read just after:
 
   phase 9: the PISM-PIK Antarctic chain (BASELINE config 4,
     ``setups.antarctica_pik_model``): (a) 251x251x31 float32 on path A,
-    the JAX example's first 5 a (cut from 10), a timed 2.5 a (cut from 10,
-    then 5, to keep the script's time) and 1 a (cut from 3) with PICO,
+    the JAX example's first 2.5 a (cut from 10, then 5), a timed 2.5 a
+    (cut from 10, then 5, to keep the script's time) and 1 a (cut from 3)
+    with PICO,
     calving
     and Lingle-Clark timed apart (and the host syncs of a PICO call);
     finite fields, a shelf with PICO melt, K1, the Newton matvec, K2 and
@@ -136,8 +138,9 @@ launch counters set to 0 just before it and read just after:
   phase 10: MISMIP3d and MISMIP experiment 1 (BASELINE config 2,
     ``setups.mismip3d_model``, ``setups.mismip_model``): (a) MISMIP3d at
     1 km (1601x101) float32 on path A through ``IceModel.run``: Stnd from
-    the Vialov start for 5 a, a timed 15 a, then P75S and P75R for 5 a
-    each (cut from 30, 10 and 10 a to keep the script's time) with
+    the Vialov start for 5 a, a timed 10 a, then P75S and P75R for 5 a
+    each (cut from 30, 10 and 10 a, the timed window then from 15 a, to
+    keep the script's time) with
     ``GivenYieldStress`` fields as the example builds them; ms
     per step, steps per model year, dt-limit hits, Newton sweeps, Krylov
     iterations, host syncs and launches per step, the grounding line on
@@ -174,7 +177,7 @@ launch counters set to 0 just before it and read just after:
   phase 12: the ssa+sia ensemble (``setups.hybrid_ensemble_model``, the
     hybrid chain's members differing in their till friction angle, 15-40
     degrees): (a) 100 members at 141x76x41 float32 on path A through
-    ``EnsembleRunner``, 2 a then a timed 1 a: lockstep steps and each
+    ``EnsembleRunner``, 1 a then a timed 1 a: lockstep steps and each
     member's, Newton sweeps and Krylov iterations per lockstep step (the
     lockstep's, and each member's min / median / max), host syncs and
     kernel launches per lockstep step, ms per lockstep step, member-years
@@ -182,7 +185,7 @@ launch counters set to 0 just before it and read just after:
     launched on the member axis and none singly; the members' median
     sliding speed over grounded ice against the till angle (correlation
     below -0.9; the mean is printed too, set by a few margin cells at the
-    speed clamp); (b) member 0 over the 2 a: equal to the bit to its run
+    speed clamp); (b) member 0 over the 1 a: equal to the bit to its run
     as a 1-member ensemble (H, E, u_ssa, steps, hits, Newton and Krylov
     counts) and within phase 2b's envelope of its solo chain
     (equal steps and hits, volume within 2e-4); (c) on the ensemble's
@@ -263,7 +266,8 @@ launch counters set to 0 just before it and read just after:
     hydrology's ms and share of the step (timed between synchronisations),
     substeps, host syncs, Newton, Krylov, K1, Newton-matvec and K2/K2b
     launches per step, max W and the volume; (c) the distributed model,
-    1 a, the same and the range of P / P_overburden; (d) the steady model
+    0.5 a (cut from 1 a), the same and the range of P / P_overburden; (d)
+    the steady model
     (its discharge every 0.25 a) with the discharge-routing frontal melt
     on floating fronts and no thickness calving, 1 a: sweeps per solve,
     the frontal-melt retreat volume (> 0); (e) 100 km float64 routing,
@@ -273,8 +277,9 @@ launch counters set to 0 just before it and read just after:
 
   phase 17: the FEM SSA, Blatter-Pattyn, ISMIP-HOM, ``ssa`` and ``none``
     (no kernel of ``csrc/`` on these paths; each sub-phase asserts every
-    kernel idle but 17g): (a) ISMIP-HOM A at all six L and C (cut to L =
-    160 km) at 40x40x16 float64 through the example's ``run_one``, the
+    kernel idle but 17g): (a) ISMIP-HOM A at L = 5, 20, 80 km (cut from
+    all six) and C (cut to L = 160 km) at 40x40x16 float64 through the
+    example's ``run_one``, the
     transects, Newton, Krylov and ms per Krylov iteration, and L = 20 km at
     20x20x8 on the card against the CPU (1e-8, equal sweeps); (b) ``-test
     blatter_xz`` and ``blatter_xz_cfbc`` through ``cli.main`` at the JAX
@@ -289,8 +294,8 @@ launch counters set to 0 just before it and read just after:
     time, the peak memory; (g) MISMIP 1 at 151x7 with ``ssa`` (K1's and
     the Newton matvec's periodic route and K2/K2b launched, float64 card
     against CPU) and ``none`` (no velocity, the volume moved by the SMB
-    budget alone). The CPU runs go to a child process at the phase's start
-    (``cpu_references``).
+    budget alone). The CPU runs go to a child process started before phase
+    13 (``cpu_references``).
   phase 18: the SSA inversion (``pism_tpu_torch/inverse/``), reverse mode
     through the VJP kernels (``csrc/ssa_matvec_vjp.cu``): (a)
     ``ssa_matvec_vjp`` at 141x76, 561x301, 9x33, 33x9, 2x70 and
@@ -315,8 +320,35 @@ launch counters set to 0 just before it and read just after:
     through ``cli.main``, 2 Adam iterates, ``-o_format netcdf3``: tau_c on
     (b)'s state and the hardness on the PIK chain at 125 km after 1 a,
     each writing its design variable and ``inv_misfit``. The CPU runs go
-    to a child process
+    to the child process started before phase 13
     (``inverse_cpu_references``).
+  phase 19: the rest of the coupler (no kernel of its own): (a) the
+    Greenland dEBM chain (``examples/greenland_debm.py``) at 20 km
+    (141x76x41) float32, plain, with 3 K of warming and with the paleo
+    orbit, 0.55 a and then a timed 1 a each, both ending in mid-July (cut
+    from the example's 10 + 100 a): ms/step, steps, hits, Newton, Krylov,
+    K1, Newton-matvec and K2/K2b launches per step, dEBM's ms per update
+    (timed apart from the window), volume, the summer albedo's minimum and
+    margin mean, the summer melt's maximum; finite fields, the albedo
+    within [albedo_min, albedo_max] and below albedo_max somewhere; the
+    device ops of one dEBM update; K1, the Newton matvec and K2/K2b
+    against their plain versions
+    on the chain's linearization (``check_path_kernels``); (b) the chain's
+    command line from the synthetic 20 km Greenland data file (-atmosphere
+    searise_greenland,orographic_precipitation -surface debm_simple
+    -o_size medium, 1.55 a): the output holds albedo and insolation; a plain
+    -i restart for 0.05 a equal to the bit to the run continued in memory;
+    (c) the hysteresis sweep (``examples/hysteresis.py``) at 50 km
+    (33x33x21) float32, levels 0, 4, 8, 4, 0 K at 10 a each (cut from
+    1,500 a): volumes, the gap, ms/step, finite fields; (d) -surface
+    ismip6 -ocean th,anomaly,cache -sea_level constant,delta_sl_2d with
+    calving.rate_scaling.file on the 16 km Antarctic data file
+    (251x251x31 float32), 0.5 a: ms/step and the couplers' share; (e) the
+    100 km dEBM chain in float64 to mid-July and on to 1 a, on the card
+    against the CPU (child process, ``debm_cpu_references``; H and the
+    summer albedo), on one state the
+    orographic field, the ``th`` melt and the ISMIP6 SMB against the CPU's,
+    and ``GivenStreamed``'s records against the stack loaded up front.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -345,13 +377,14 @@ PHASE2_YEARS = 1.0
 # phase 2b's whole run on path A (cut from 10 a)
 PHASE2B_YEARS = 5.0
 # path C at full width: Halfar test B at 3 km over the 1800 km square
-# (cut from 200 to 50 a, then to 25 a, to keep the script's time)
-HALFAR_MX, HALFAR_YEARS = 601, 25.0
+# (cut from 200 to 50 a, then to 25 a, then to 12.5 a, to keep the
+# script's time)
+HALFAR_MX, HALFAR_YEARS = 601, 12.5
 # the EISMINT II A window that phase 4 holds K3 to the plain path over and
 # phase 6b the meshed run to phase 4's K3 run (cut from 1000 a, then from
 # 300 a, to keep the script's time); path D's 20 km hybrid window (cut from
-# 2 a); phase 6c's meshed Halfar window (cut from 20 a to 5 a)
-EISMINT_CHECK_YEARS, MESH_YEARS, MESH_HALFAR_YEARS = 150.0, 1.0, 5.0
+# 2 a, then from 1 a); phase 6c's meshed Halfar window (cut from 20 a to 5 a)
+EISMINT_CHECK_YEARS, MESH_YEARS, MESH_HALFAR_YEARS = 150.0, 0.5, 5.0
 # operations of each kernel, counted from its plain version's arithmetic:
 # per cell (K1, K1 JVP without a drag tangent, K4), per element and round
 # of cyclic reduction (K2/K2b: 10 in the factor's a, b, c recurrences, 4 in
@@ -2446,10 +2479,10 @@ def phase8_workflow(dev, d, data_km=5.0, model_km=20.0,
 # -- phase 9: the PISM-PIK Antarctic chain -------------------------------
 
 #: the JAX example's width (251 x 251 x 31) and the first segment (cut from
-#: the example's 10 a), the timed window after it (cut from 10 to 5 to
-#: 2.5 a) and the components' window (cut from 3 to 1 a), to keep the
-#: script's time
-PIK_KM, PIK_FIRST, PIK_WINDOW, PIK_PARTS = 16.0, 5.0, 2.5, 1.0
+#: the example's 10 a to 5 a, then to 2.5 a), the timed window after it
+#: (cut from 10 to 5 to 2.5 a) and the components' window (cut from 3 to
+#: 1 a), to keep the script's time
+PIK_KM, PIK_FIRST, PIK_WINDOW, PIK_PARTS = 16.0, 2.5, 2.5, 1.0
 #: the card-against-CPU chain: 125 km (33 x 33 x 31); at 50-100 km the
 #: reference's PICO gives non-finite melt on the initial state
 PIK_CHECK_KM = 125.0
@@ -2820,8 +2853,9 @@ def phase9_pik(dev, k1, pcr, off):
 
 #: model years of phase 10a at 1 km: Stnd's first window, its timed window,
 #: P75S, P75R (cut from the protocol's 15,000 + 100 + 2,000 a, then from
-#: 30, 10 and 10 a to keep the script's time)
-MISMIP3D_YEARS = (5.0, 15.0, 5.0, 5.0)
+#: 30, 10 and 10 a, and Stnd's timed 15 a to 10 a, to keep the script's
+#: time)
+MISMIP3D_YEARS = (5.0, 10.0, 5.0, 5.0)
 #: phase 10b's span at 50 km and phase 10c's spans at 151x7 (f32, f64)
 MISMIP3D_CHECK_YEARS, MISMIP1_YEARS = 30.0, (10.0, 10.0)
 
@@ -3522,9 +3556,10 @@ def phase11_ensemble(dev, smi):
 
 #: the hybrid chain's ensemble: members, km, the warm-up and the timed
 #: segment [a], the members held against their own runs
-# the timed window cut from 3 a to 2 a to 1 a, and the members held from
-# 0, 50 and 99 to the one with the weakest till, to keep the script's time
-HYB_MEMBERS, HYB_KM, HYB_FIRST, HYB_TIMED = 100, 20.0, 2.0, 1.0
+# the warm-up cut from 2 a to 1 a, the timed window from 3 a to 2 a to 1 a,
+# and the members held from 0, 50 and 99 to the one with the weakest till,
+# to keep the script's time
+HYB_MEMBERS, HYB_KM, HYB_FIRST, HYB_TIMED = 100, 20.0, 1.0, 1.0
 HYB_SOLO = (0,)
 #: the member-axis kernels of the SSA solve (and their single launches,
 #: which the ensemble must not take)
@@ -3587,7 +3622,8 @@ def _hybrid_run(runner, state, t0, years, label, launched=SSA_MEMBER_KERNELS):
 
 def phase12a_hybrid(dev, smi):
     """The hybrid chain's ensemble at its width: 100 members at 141x76x41
-    float32 on path A through EnsembleRunner, 2 a then 2 a timed; the
+    float32 on path A through EnsembleRunner, HYB_FIRST then HYB_TIMED
+    timed; the
     sliding speed against the till angle. Returns (model, runner, initial
     batched state, the 2 a state and stats)."""
     import numpy as np
@@ -3638,9 +3674,9 @@ def phase12a_hybrid(dev, smi):
 
 
 def phase12b_members(model, runner, batched, s2, st2):
-    """The HYB_SOLO members over the 2 a warm-up: each equal to the bit to
-    its run as a 1-member ensemble (H, E, u_ssa, steps, hits, Newton and
-    Krylov counts), and within phase 2b's envelope of its solo chain
+    """The HYB_SOLO members over the HYB_FIRST warm-up: each equal to the
+    bit to its run as a 1-member ensemble (H, E, u_ssa, steps, hits, Newton
+    and Krylov counts), and within phase 2b's envelope of its solo chain
     (equal steps and dt-limit hits, volume within 2e-4)."""
     import torch
     from pism_tpu_torch.parallel.ensemble import member, stack_states
@@ -4464,16 +4500,36 @@ def _solve_counts(solves):
             [int(s[2]["krylov_iters"]) for s in solves])
 
 
-def phase14b_tests(dev, smi):
-    """The five tests on the card against their CPU runs and the JAX
-    command line's report; returns ({letter: (solves, counts, wall)}, the
-    phase's launch counts summed over the five)."""
+def verification_cpu_references(threads):
+    """Phases 14b's and 15d's CPU runs, in a child process started before
+    phase 13 (its untimed warm-up hides them) on the main process's
+    intra-op thread count, so that each equals the run made inline:
+    {"14b": {letter: (solves, wall)}, "15d": {letter: (errors, wall)}}."""
+    import torch
+
+    torch.set_num_threads(threads)
+    ssa = {}
+    for letter in "IVNMJ":
+        _, solves, _, wall = _ssa_test(letter, "cpu")
+        ssa[letter] = (solves, wall)
+    sia = {}
+    for letter in "EFGKO":
+        _, errs, _, wall = _letter(letter, "cpu")
+        sia[letter] = (errs, wall)
+    return {"14b": ssa, "15d": sia}
+
+
+def phase14b_tests(dev, smi, refs):
+    """The five tests on the card against their CPU runs (``refs()``:
+    ``verification_cpu_references``) and the JAX command line's report;
+    returns ({letter: (solves, counts, wall)}, the phase's launch counts
+    summed over the five)."""
     import torch
 
     total, runs = {}, {}
     for letter in "IVNMJ":
-        cpu_line, cpu_solves, _, cpu_wall = _ssa_test(letter, "cpu")
         line, solves, counts, wall = _ssa_test(letter, dev)
+        cpu_solves, cpu_wall = refs()["14b"][letter]
         sweeps, krylov = _solve_counts(solves)
         cpu_sweeps, cpu_krylov = _solve_counts(cpu_solves)
         n = len(solves)
@@ -4552,12 +4608,12 @@ def phase14c_pcr(dev, runs):
         _check_launches(f"phase14c -test {letter}", counts, (), PCR_KERNELS)
 
 
-def phase14_ssa_verification(dev, smi):
+def phase14_ssa_verification(dev, smi, refs):
     """Phase 14; returns (the drag instance's record, the launch counts of
     (b)'s five tests)."""
     record = _timed("phase14a", phase14a_drag_kernel, dev)
     t = time.time()
-    runs, counts = phase14b_tests(dev, smi)
+    runs, counts = phase14b_tests(dev, smi, refs)
     print(f"phase14b: {time.time() - t:.1f} s")
     _timed("phase14c", phase14c_pcr, dev, runs)
     return record, counts
@@ -4754,14 +4810,15 @@ def _letter(letter, device):
     return out.getvalue().strip().splitlines(), errs[-1], counts, wall
 
 
-def phase15d_letters(dev, smi):
+def phase15d_letters(dev, smi, refs):
     """``-test E, F, G, K, O`` through ``cli.main`` on the card at the JAX
-    command line's defaults, against the port's CPU run of each: the same
-    error numbers within 1e-6 relative (1e-9 absolute at rounding level);
-    no kernel launched (float64: the plain SIA route)."""
+    command line's defaults, against the port's CPU run of each
+    (``refs()``: ``verification_cpu_references``): the same error numbers
+    within 1e-6 relative (1e-9 absolute at rounding level); no kernel
+    launched (float64: the plain SIA route)."""
     for letter in "EFGKO":
         lines, errs, counts, wall = _letter(letter, dev)
-        _, cpu_errs, _, cpu_wall = _letter(letter, "cpu")
+        cpu_errs, cpu_wall = refs()["15d"][letter]
         for line in lines:
             print(f"phase15d: {line}")
         print(f"phase15d: {smi}: -test {letter}: main() wall {wall:.3f} s "
@@ -4776,18 +4833,20 @@ def phase15d_letters(dev, smi):
                                  f"CPU {bad}")
 
 
-def phase15_sia_verification(dev, smi, eismint_7ka):
+def phase15_sia_verification(dev, smi, eismint_7ka, refs):
     """Phase 15; returns K3's record on EISMINT II G's state."""
     record = _timed("phase15a", phase15a_sliding, dev, smi, eismint_7ka)
     _timed("phase15b", phase15b_beds, dev, smi)
     _timed("phase15c", phase15c_card_vs_cpu, dev)
-    _timed("phase15d", phase15d_letters, dev, smi)
+    _timed("phase15d", phase15d_letters, dev, smi, refs)
     return record
 
 
 # -- phase 16: subglacial hydrology, frontal melt and test P -------------------
 
 HYDRO_KM = 20.0
+#: phase 16c's run [a] (cut from 1 a for the script's time)
+DISTRIBUTED_YEARS = 0.5
 #: the hybrid chain's kernels: K1, the Newton matvec, K2/K2b
 HYDRO_ON = ("ssa_matvec", "ssa_newton_matvec", "pcr_lines", "pcr_lines_sub",
             "pcr_factor_lines", "pcr_factor_lines_sub")
@@ -4958,7 +5017,8 @@ def _profile_hydrology(model, state, label, years=0.15):
 
 
 def phase16c_distributed(dev, smi):
-    """The same chain with the distributed model, 1 a; the range of
+    """The same chain with the distributed model, DISTRIBUTED_YEARS; the
+    range of
     P / P_overburden under the grounded ice at the end (P is clipped to the
     overburden of the thickness its step saw, so the mass transport after
     it can leave P above the new one)."""
@@ -4968,7 +5028,8 @@ def phase16c_distributed(dev, smi):
 
     model, state, grid = setups.hybrid_greenland_model(
         "float32", HYDRO_KM, device=dev, hydrology="distributed")
-    state, t, _, _, _ = _hydro_timed(model, state, 0.0, 1.0, "phase16c", smi)
+    state, t, _, _, _ = _hydro_timed(model, state, 0.0, DISTRIBUTED_YEARS,
+                                     "phase16c", smi)
     H = state.geometry.ice_thickness
     P_ov = model.rho_i * model.config.get_number(
         "constants.standard_gravity") * H
@@ -5083,9 +5144,9 @@ def phase16_hydrology(dev, smi):
 
 # -- phase 17: the FEM SSA, Blatter-Pattyn, ISMIP-HOM, ssa and none --------
 
-#: ISMIP-HOM's L list [km] of phase 17a: all six for A; C cut for the
-#: script's time
-ISMIP_A_L = (5.0, 10.0, 20.0, 40.0, 80.0, 160.0)
+#: ISMIP-HOM's L list [km] of phase 17a: three of the six for A (cut from
+#: all six), one for C, for the script's time
+ISMIP_A_L = (5.0, 20.0, 80.0)
 ISMIP_C_L = (160.0,)
 #: the example's width
 ISMIP_M, ISMIP_MZ = 40, 16
@@ -5139,9 +5200,9 @@ def _quiet(fn, *a, **k):
 
 
 def cpu_references():
-    """Phase 17's CPU runs, in a child process on other cores than the one
-    that runs the card (``phase17_blatter_fem`` starts it): ISMIP-HOM A at
-    L = 20 km 20x20x8, ``-test I`` with SSAFEM at 11x61, the 16x16x11
+    """Phase 17's CPU runs, in the child process on other cores than the
+    one that runs the card (``main`` starts it before phase 13): ISMIP-HOM
+    A at L = 20 km 20x20x8, ``-test I`` with SSAFEM at 11x61, the 16x16x11
     Blatter dome for 60 a and MISMIP 1 with ``ssa`` at 151x7 float64;
     picklable results by sub-phase."""
     import torch
@@ -5176,7 +5237,7 @@ def cpu_references():
 
 
 def phase17a_ismip(dev, smi, refs):
-    """ISMIP-HOM A (all six L) and C at 40x40x16 float64 through the
+    """ISMIP-HOM A (ISMIP_A_L) and C at 40x40x16 float64 through the
     example's ``run_one``, then L = 20 km at 20x20x8 on the card against
     the CPU (1e-8 relative, equal Newton sweeps). ``refs()``: the CPU
     runs' results (``cpu_references``)."""
@@ -5515,22 +5576,16 @@ def phase17g_ssa_none(dev, smi, refs):
         raise AssertionError("phase17g: none moved the ice other than by SMB")
 
 
-def phase17_blatter_fem(dev, smi):
-    """Phase 17, its CPU runs (``cpu_references``) in a child process
-    beside the card's."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    with ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        future = pool.submit(cpu_references)
-        _timed("phase17a", phase17a_ismip, dev, smi, future.result)
-        _timed("phase17b", phase17b_xz, dev, smi)
-        _timed("phase17c", phase17c_test_I, dev, smi, future.result)
-        _timed("phase17d", phase17d_fem_chain, dev, smi)
-        _timed("phase17e", phase17e_dome, dev, smi, future.result)
-        _timed("phase17f", phase17f_greenland, dev, smi)
-        _timed("phase17g", phase17g_ssa_none, dev, smi, future.result)
+def phase17_blatter_fem(dev, smi, refs):
+    """Phase 17; ``refs()``: its CPU runs (``cpu_references``, computed in
+    a child process ahead of the phase, or the function itself)."""
+    _timed("phase17a", phase17a_ismip, dev, smi, refs)
+    _timed("phase17b", phase17b_xz, dev, smi)
+    _timed("phase17c", phase17c_test_I, dev, smi, refs)
+    _timed("phase17d", phase17d_fem_chain, dev, smi)
+    _timed("phase17e", phase17e_dome, dev, smi, refs)
+    _timed("phase17f", phase17f_greenland, dev, smi)
+    _timed("phase17g", phase17g_ssa_none, dev, smi, refs)
 
 
 # ---------------------------------------------------------------------------
@@ -5995,24 +6050,554 @@ def phase18d_cli(dev, d, twin):
             raise AssertionError(f"phase18d: -inverse {design} failed")
 
 
-def phase18_inverse(dev, smi):
-    """Phase 18, the CPU references in a child process beside the card's
-    runs; returns ({kernel: record}, {kernel: counts})."""
-    import multiprocessing
+def phase18_inverse(dev, smi, refs):
+    """Phase 18; ``refs()``: 18c's CPU runs (``inverse_cpu_references``,
+    computed in a child process ahead of the phase, or the function
+    itself); returns ({kernel: record}, {kernel: counts})."""
     import tempfile
-    from concurrent.futures import ProcessPoolExecutor
 
-    with ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        future = pool.submit(inverse_cpu_references)
-        records = _timed("phase18a", phase18a_vjp_kernels, dev)
-        counts18, model, state, obs = _timed("phase18b", phase18b_twin, dev)
-        counts_halo = _timed("phase18c", phase18c_card_vs_cpu, dev,
-                             future.result)
+    records = _timed("phase18a", phase18a_vjp_kernels, dev)
+    counts18, model, state, obs = _timed("phase18b", phase18b_twin, dev)
+    counts_halo = _timed("phase18c", phase18c_card_vs_cpu, dev, refs)
     with tempfile.TemporaryDirectory() as d:
         _timed("phase18d", phase18d_cli, dev, d, (model, state, obs))
     return records, {"ssa_matvec_vjp": counts18,
                      "ssa_matvec_halo_vjp": counts_halo}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the rest of the coupler (dEBM-simple, orographic precipitation,
+# ISMIP6, th and given forcings, the modifiers, streamed forcing,
+# file-driven calving); the Greenland dEBM chain and the hysteresis sweep
+# ---------------------------------------------------------------------------
+
+#: phase 19a's and 19b's grid [km] and 19a's spin-up and timed window [a]
+#: (cut from the example's 10 + 100 a); each ends in mid-July (x.55 a),
+#: where the stored albedo is a summer one
+DEBM_KM, DEBM_YEARS = 20.0, (0.55, 1.0)
+#: phase 19b's run (to mid-July: the summer albedo and insolation) and
+#: its -i restart [a]
+DEBM_CLI_YEARS = (1.55, 0.05)
+#: phase 19c's grid [km], levels [K] and years per level (cut from 1,500 a)
+HYSTERESIS_KM = 50.0
+HYSTERESIS_LEVELS, HYSTERESIS_YEARS = (0.0, 4.0, 8.0, 4.0, 0.0), 10.0
+#: phase 19d's run at 16 km [a]
+FORCING_YEARS = 0.5
+#: phase 19e's two legs of the 100 km chain [a]: to mid-July, then to 1 a
+DEBM_CHECK_YEARS = (0.55, 0.45)
+
+
+def _debm_timed(model, state, t, years, label, smi):
+    """``years`` of the dEBM chain through ``step_once`` with the counters
+    set to 0 just before and read just after, nothing else in the window;
+    then dEBM's update timed apart (``_debm_update_cost``) at the window's
+    mean step. Prints ms/step, steps, hits, Newton and Krylov, the path
+    kernels' launches per step, dEBM's ms per update, the stored albedo
+    and the example's summary; the window ends in mid-July, so the stored
+    albedo is a summer one and must lie below albedo_max somewhere.
+    Returns (state, t, stats, counts)."""
+    import torch
+    from pism_tpu_torch.examples import greenland_debm
+
+    t_start = t
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, t, stats = model.step_once(state, t, years * SPY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = stats.nsteps
+    grid = model.grid
+    per = {k: round(v / n, 2) for k, v in counts.items()
+           if v and k in HYDRO_ON}
+    upd_ms, _, _ = _debm_update_cost(model, state, t, (t - t_start) / n,
+                                     profile=False)
+    s = greenland_debm.summary(model, state, t)
+    alb = state.surface_albedo
+    print(f"{label}: {smi}: {grid.My}x{grid.Mx}x{grid.Mz} "
+          f"{str(state.geometry.ice_thickness.dtype)[6:]}, {years:g} a to "
+          f"{t / SPY:g} a: steps {n}, wall {wall:.3f} s, "
+          f"{1e3 * wall / n:.2f} ms/step, dt-limit hits "
+          f"{stats.limit_hits_dict()}, Newton sweeps "
+          f"{stats.ssa_newton_iters / n:.2f}/step, Krylov its "
+          f"{stats.ssa_krylov_iters / n:.2f}/step, launches per step {per}, "
+          f"dEBM {upd_ms:.2f} ms per update (timed apart at the mean step "
+          f"{(t - t_start) / n / SPY:.4f} a; {upd_ms / (1e3 * wall / n):.3f} "
+          f"of a step), stored albedo in [{float(alb.min()):.4f}, "
+          f"{float(alb.max()):.4f}], volume {s['volume_1e6_km3']:.6f} 1e6 "
+          f"km^3, summer albedo min {s['summer_albedo_min']} margin mean "
+          f"{s['summer_albedo_margin_mean']}, summer melt max "
+          f"{s['summer_melt_max_m_a']} m/a")
+    _check_launches(label, counts, HYDRO_ON, HYDRO_OFF)
+    surf = model.surface
+    for name in ("ice_thickness", "enthalpy", "u_ssa", "surface_albedo",
+                 "snow_depth"):
+        f = getattr(state.geometry if name == "ice_thickness" else state,
+                    name)
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    # the bounds as the field's dtype rounds them
+    lo, hi = (torch.tensor(b, dtype=alb.dtype).item()
+              for b in (surf.albedo_min, surf.albedo_max))
+    if not (float(alb.min()) >= lo and float(alb.max()) <= hi) or s["nan"] \
+            or not surf.albedo_min <= s["summer_albedo_min"] <= surf.albedo_max:
+        raise AssertionError(f"{label}: albedo outside [albedo_min, "
+                             "albedo_max]")
+    if not float(alb.min()) < hi:
+        raise AssertionError(f"{label}: the mid-summer albedo is albedo_max "
+                             "everywhere")
+    return state, t, stats, counts
+
+
+def _debm_update_cost(model, state, t, dt, reps=5, profile=True):
+    """dEBM's update over a step ``dt`` from ``state`` at ``t``, apart from
+    the chain: ms per update over ``reps`` back-to-back updates (host wall,
+    the card synchronised before and after) and, under the profiler, the
+    device ops and device time [ms] of one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+    from pism_tpu_torch.coupler.surface import SurfaceCarry
+
+    dtype = state.geometry.ice_thickness.dtype
+    dt = torch.tensor(dt, dtype=dtype).item()
+    carry = SurfaceCarry(snow=state.snow_depth, firn=state.firn_depth,
+                         albedo=state.surface_albedo)
+    model.surface.update(state.geometry, t, dt, carry)    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model.surface.update(state.geometry, t, dt, carry)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    if not profile:
+        return ms, None, None
+    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+        model.surface.update(state.geometry, t, dt, carry)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return ms, len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
+
+
+def phase19a_debm(dev, smi):
+    """The Greenland dEBM chain (``examples/greenland_debm.py``) at 20 km
+    (141x76x41) float32: plain, ``--warming 3`` and ``--paleo``, each
+    DEBM_YEARS[0] a and then a timed DEBM_YEARS[1] a; the device ops of
+    one dEBM update; K1, the Newton matvec and K2/K2b held against their
+    plain versions on the plain run's linearization."""
+    from pism_tpu_torch.examples import greenland_debm
+
+    out = {}
+    for label, warming, paleo in (("plain", 0.0, False),
+                                  ("warming 3", 3.0, False),
+                                  ("paleo", 0.0, True)):
+        model, state, grid = greenland_debm.greenland_debm_model(
+            "float32", DEBM_KM, warming, paleo, dev)
+        state, t, _, _ = _debm_timed(model, state, 0.0, DEBM_YEARS[0],
+                                     f"phase19a {label} spin-up", smi)
+        state, t, stats, counts = _debm_timed(model, state, t, DEBM_YEARS[1],
+                                              f"phase19a {label} timed", smi)
+        out[label] = (model, state, t, stats, counts)
+    model, state, t, stats, counts = out["plain"]
+    dt = DEBM_YEARS[1] * SPY / stats.nsteps
+    ms, ops, busy = _debm_update_cost(model, state, t, dt)
+    n = model.surface.n_intervals
+    print(f"phase19a: one dEBM update of the timed window's mean step "
+          f"{dt / SPY:.4f} a ({n} sub-intervals) on the {DEBM_KM:g} km "
+          f"state: {ops} device ops ({ops / n:.1f} per sub-interval), "
+          f"device time {busy:.3f} ms, {ms:.3f} ms of host wall an update "
+          "(profiler off)")
+    v = {k: float(o[1].geometry.ice_thickness.double().sum())
+         for k, o in out.items()}
+    print(f"phase19a: volumes after {sum(DEBM_YEARS):g} a [m^3 / cell area]: "
+          f"plain {v['plain']:.6e}, warming 3 {v['warming 3']:.6e}, paleo "
+          f"{v['paleo']:.6e}")
+    if not v["warming 3"] < v["plain"]:
+        raise AssertionError("phase19a: 3 K of warming did not lose ice")
+    check_path_kernels(model, state, t, "on the dEBM chain's linearization",
+                       "phase19a")
+    return counts, stats.nsteps
+
+
+def phase19b_cli(dev, d, smi):
+    """The dEBM chain's command line (``greenland_debm.cli_argv``) from the
+    synthetic 20 km Greenland data file (classic NetCDF, polar
+    stereographic): -atmosphere searise_greenland,orographic_precipitation
+    -surface debm_simple -o_size medium, DEBM_CLI_YEARS[0] a; the output
+    holds albedo and insolation; then a plain -i restart for
+    DEBM_CLI_YEARS[1] a, equal to the bit to the first run continued in
+    memory."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch.examples import greenland_debm
+    from pism_tpu_torch.io.nc4 import File
+    from pism_tpu_torch.util.timecal import Time
+
+    data = os.path.join(d, "g20.nc")
+    greenland_debm.synthesize_data_file(data, DEBM_KM, "netcdf3")
+    o1, o2 = os.path.join(d, "debm_1.nc"), os.path.join(d, "debm_2.nc")
+    y1, y2 = DEBM_CLI_YEARS
+    argv = greenland_debm.cli_argv(data, o1, DEBM_KM, y1, "netcdf3",
+                                   dtype="float32", extra=("-verbose", "1"))
+    model, st1, stats1, counts = _cli("phase19b bootstrap", argv, [o1])
+    _check_launches("phase19b bootstrap", counts, HYDRO_ON, HYDRO_OFF)
+    with File(o1, "r") as f:
+        names = set(f.variables())
+        alb, ins = np.asarray(f.read("albedo")), np.asarray(
+            f.read("insolation"))
+    print(f"phase19b: {o1.rsplit('/', 1)[-1]} holds {len(names)} variables; "
+          f"albedo in [{alb.min():.4f}, {alb.max():.4f}], insolation in "
+          f"[{ins.min():.2f}, {ins.max():.2f}] W m-2")
+    lo, hi = (np.float32(b) for b in (model.surface.albedo_min,
+                                      model.surface.albedo_max))
+    if not {"albedo", "insolation", "snow_depth"} <= names \
+            or not np.isfinite(alb).all() or not np.isfinite(ins).all() \
+            or alb.min() < lo or alb.max() > hi:
+        raise AssertionError("phase19b: the output lacks albedo or "
+                             "insolation, or they are out of range")
+    _, st2, stats2, counts2 = _cli(
+        "phase19b restart", ["-i", o1, "-y", f"{y2:g}", "-o", o2,
+                             "-o_format", "netcdf3", "-verbose", "1"],
+        [o1, o2])
+    cont, stc = model.run(st1, Time(y1 * SPY, (y1 + y2) * SPY))
+    if stc.nsteps != stats2.nsteps:
+        raise AssertionError("phase19b: the restart took other steps")
+    fields = lambda s: {"H": s.geometry.ice_thickness, "E": s.enthalpy,
+                        "u_ssa": s.u_ssa, "albedo": s.surface_albedo,
+                        "snow": s.snow_depth}
+    _same_bits(f"phase19b -i restart / in-memory continuation (steps "
+               f"{stc.nsteps})", [(k, v, fields(cont)[k])
+                                  for k, v in fields(st2).items()])
+    if torch.equal(st2.surface_albedo, st1.surface_albedo) \
+            and torch.equal(st2.snow_depth, st1.snow_depth):
+        raise AssertionError("phase19b: the restart's step left the "
+                             "surface state as it was")
+
+
+def phase19c_hysteresis(dev, smi):
+    """The hysteresis sweep (``examples/hysteresis.py``) at 50 km
+    (33x33x21) float32, HYSTERESIS_LEVELS at HYSTERESIS_YEARS each (levels
+    of equal length, where the example lets level i run t_i + its years):
+    the volume at each level, the gap between the branches, ms/step."""
+    import torch
+    from pism_tpu_torch.examples import hysteresis
+
+    grid, st, build = hysteresis.setup(HYSTERESIS_KM, "float32", dev)
+    n_up = HYSTERESIS_LEVELS.index(max(HYSTERESIS_LEVELS)) + 1
+    recs, steps, t = [], 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, dT in enumerate(HYSTERESIS_LEVELS):
+        st, t, stats = build(dT).step_once(st, t, HYSTERESIS_YEARS * SPY)
+        recs.append(hysteresis.record(grid, st, stats, dT, i < n_up))
+        steps += stats.nsteps
+        for name, f in (("ice_thickness", st.geometry.ice_thickness),
+                        ("u_ssa", st.u_ssa), ("snow_depth", st.snow_depth)):
+            if not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"phase19c: non-finite {name}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"phase19c: {smi}: {grid.My}x{grid.Mx}x{grid.Mz} float32, levels "
+          f"{list(HYSTERESIS_LEVELS)} K at {HYSTERESIS_YEARS:g} a: volumes "
+          f"[1e6 km^3] {[r['volume_1e6_km3'] for r in recs]}, steps "
+          f"{[r['steps'] for r in recs]}, gap by dT "
+          f"{hysteresis.gaps(recs)}, {steps} steps in {wall:.3f} s, "
+          f"{1e3 * wall / steps:.2f} ms/step")
+    if abs(t - len(HYSTERESIS_LEVELS) * HYSTERESIS_YEARS * SPY) > 1e-3:
+        raise AssertionError(f"phase19c: ended at {t / SPY} a")
+
+
+def _forcing_files(d, data, km):
+    """ISMIP6 reference and forcing, the ocean anomaly, the 2D sea-level
+    offset and the calving-rate scaling on the data file's grid (classic
+    NetCDF); returns their -config options."""
+    import numpy as np
+    from pism_tpu_torch.io.nc4 import File
+
+    with File(data, "r") as f:
+        x, y = f.read("x"), f.read("y")
+        thk, topg = f.read("thk"), f.read("topg")
+    shp = (y.size, x.size)
+    usurf = np.maximum(thk + topg, 0.0)
+    p = {k: os.path.join(d, f"{k}.nc") for k in
+         ("ismip6_ref", "ismip6", "anomaly", "dsl", "scale")}
+
+    def grid_file(path, fields, times=None):
+        with File(path, "w", format="netcdf3") as f:
+            if times is not None:
+                f.define_dimension("time", None, attrs={"units": "years"})
+            f.define_dimension("y", y.size, y)
+            f.define_dimension("x", x.size, x)
+            if times is None:
+                for name, (a, u) in fields.items():
+                    f.write(name, a, ("y", "x"), {"units": u})
+                return
+            for k, tk in enumerate(times):
+                n = f.append_time(tk)
+                for name, (a, u) in fields.items():
+                    f.write(name, a[k][None], ("time", "y", "x"),
+                            {"units": u}, time_index=n)
+
+    grid_file(p["ismip6_ref"], {
+        "climatic_mass_balance": (np.full(shp, 200.0), "kg m-2 year-1"),
+        "ice_surface_temp": (243.0 - 0.008 * usurf, "K"),
+        "usurf": (usurf, "m")})
+    # the anomaly and gradient stacks are read without a unit conversion
+    # (as the JAX package reads them): internal units, m s-1 ice equivalent
+    ramp = np.arange(3.0)[:, None, None] * np.ones(shp)
+    grid_file(p["ismip6"], {
+        "climatic_mass_balance_anomaly": (-0.05 / SPY * ramp, "m s-1"),
+        "ice_surface_temp_anomaly": (0.5 * ramp, "K"),
+        "climatic_mass_balance_gradient": (-1e-4 / SPY * ramp, "s-1"),
+        "ice_surface_temp_gradient": (-0.001 * ramp, "K m-1")},
+        times=[0.0, 0.5, 1.0])
+    grid_file(p["anomaly"], {"shelf_base_mass_flux_anomaly": (
+        0.05 / SPY * ramp, "m s-1")}, times=[0.0, 0.5, 1.0])
+    grid_file(p["dsl"], {"delta_SL": (0.3 * (ramp + 1.0), "m")},
+              times=[0.0, 0.5, 1.0])
+    with File(p["scale"], "w", format="netcdf3") as f:
+        f.define_dimension("time", 2, np.array([0.0, 2.0]),
+                           attrs={"units": "years"})
+        f.write("frac_calving_rate", np.array([1.0, 1.5]), ("time",))
+    return ["-config", f"surface.ismip6.reference_file={p['ismip6_ref']}",
+            "-config", f"surface.ismip6.file={p['ismip6']}",
+            "-config", f"ocean.th.file={data}",
+            "-config", f"ocean.anomaly.file={p['anomaly']}",
+            "-config", f"ocean.delta_sl_2d.file={p['dsl']}",
+            "-config", f"calving.rate_scaling.file={p['scale']}"]
+
+
+def phase19d_forcing(dev, d, smi):
+    """The forcing routes on the synthetic 16 km Antarctic data file
+    (251x251x31 float32; the PIK chain's flags): -surface ismip6 -ocean
+    th,anomaly,cache -sea_level constant,delta_sl_2d with
+    calving.rate_scaling.file, FORCING_YEARS a through ``cli.main``: ms per
+    step and the couplers' share of it (the surface, ocean and sea-level
+    calls timed between card synchronisations), finite fields."""
+    import torch
+    from pism_tpu_torch.coupler import ocean as ocn
+    from pism_tpu_torch.coupler import sealevel as sl
+    from pism_tpu_torch.coupler import surface as srf
+    from pism_tpu_torch.examples.antarctica_pik import (
+        bootstrap_argv, synthesize_data_file)
+
+    data = os.path.join(d, "ant16.nc")
+    synthesize_data_file(data, PIK_KM, "netcdf3")
+    out = os.path.join(d, "forcing.nc")
+    argv = bootstrap_argv(data, out, PIK_KM, FORCING_YEARS, "netcdf3",
+                          extra=tuple(_forcing_files(d, data, PIK_KM)))
+    argv[argv.index("-surface") + 1] = "ismip6"
+    argv[argv.index("-ocean") + 1] = "th,anomaly,cache"
+    argv += ["-sea_level", "constant,delta_sl_2d"]
+    acc = {"surface": 0.0, "ocean": 0.0, "sea level": 0.0}
+
+    def wrap(lab, orig):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(*a, **k)
+            torch.cuda.synchronize()
+            acc[lab] += time.perf_counter() - t0
+            return res
+        return timed
+
+    runs = []
+    with _patched([(srf.ISMIP6, "__call__", "surface"),
+                   (ocn.Cache, "inputs", "ocean"),
+                   (sl.DeltaSL2D, "__call__", "sea level")], wrap), \
+            _recording_run(runs):
+        model, st, stats, counts = _cli("phase19d", argv, [out])
+    _check_launches("phase19d", counts, HYDRO_ON, HYDRO_OFF)
+    n = stats.nsteps
+    cpl, run_wall = sum(acc.values()), runs[0][4]
+    print(f"phase19d: {smi}: -surface ismip6 -ocean th,anomaly,cache "
+          f"-sea_level constant,delta_sl_2d, calving rate scaling: "
+          f"{1e3 * run_wall / n:.2f} ms/step, the couplers "
+          f"{1e3 * cpl / n:.2f} ms/step, {cpl / run_wall:.4f} of it ("
+          + ", ".join(f"{k} {1e3 * v / n:.2f}" for k, v in acc.items())
+          + f"), sum_calving {float(stats.sum_calving):.6e} m^3")
+    for name, f in (("ice_thickness", st.geometry.ice_thickness),
+                    ("sea_level", st.geometry.sea_level),
+                    ("enthalpy", st.enthalpy), ("u_ssa", st.u_ssa)):
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"phase19d: non-finite {name}")
+    if not float(st.geometry.sea_level.max()) > 0.0:
+        raise AssertionError("phase19d: the 2D sea-level offset did not act")
+
+
+def _coupler_inputs(grid, seed=19):
+    """The numpy inputs of phase 19e's single-state coupler cases: the
+    example's synthetic Greenland geometry on ``grid`` and forcing made
+    from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nt = 3
+    shape = grid.shape2
+    X, Y = np.meshgrid(grid.x, grid.y)
+    r2 = (X / (0.55 * grid.Lx)) ** 2 + (Y / (0.8 * grid.Ly)) ** 2
+    bed = 400.0 - 900.0 * r2 + 150.0 * np.sin(X / 120e3) * np.cos(Y / 160e3)
+    return {"H": 2800.0 * np.maximum(1.0 - r2, 0.0) ** 1.5 * (bed > -600),
+            "bed": bed,
+            "theta": 271.0 + rng.uniform(0.0, 3.0, (nt,) + shape),
+            "salt": 34.0 + rng.uniform(0.0, 1.0, (nt,) + shape),
+            "smb_ref": rng.uniform(-3e-8, 3e-8, shape),
+            "T_ref": rng.uniform(240.0, 270.0, shape),
+            "h_ref": rng.uniform(0.0, 3000.0, shape),
+            "a": rng.uniform(-1e-8, 1e-8, (nt,) + shape),
+            "g": rng.uniform(-1e-11, 1e-11, (nt,) + shape),
+            "times": np.array([0.0, 0.5, 1.5]) * SPY}
+
+
+def _coupler_cases(where, grid, t=0.7 * SPY):
+    """Phase 19e's single-state cases on ``where``, from the same numpy
+    state on every device: the orographic field on its surface, the ``th``
+    melt and the ISMIP6 SMB (numpy)."""
+    import torch
+    from pism_tpu_torch import Config, new_geometry
+    from pism_tpu_torch.coupler import ocean as ocn
+    from pism_tpu_torch.coupler import surface as srf
+    from pism_tpu_torch.coupler.orographic import OrographicPrecipitation
+
+    x = _coupler_inputs(grid)
+
+    def T(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=where)
+
+    geom = new_geometry(T(x["H"]), T(x["bed"]))
+    P = OrographicPrecipitation(grid=grid, wind_v=4.0, f_cor=1.3e-4) \
+        .precipitation_field(geom.ice_surface_elevation)
+    th = ocn.GivenTH(theta_ocean=T(x["theta"]), salinity_ocean=T(x["salt"]),
+                     config=Config(), times=x["times"]).inputs(geom, t)
+    ism = srf.ISMIP6(smb_ref=T(x["smb_ref"]), temperature_ref=T(x["T_ref"]),
+                     surface_ref=T(x["h_ref"]), anomaly_times=x["times"],
+                     a_smb=T(x["a"]), dsmb_dz=T(x["g"]))(geom, t)
+    return {"orographic": P.cpu().numpy(),
+            "th melt": th.shelf_base_melt.cpu().numpy(),
+            "ismip6 smb": ism.smb.cpu().numpy()}
+
+
+def debm_cpu_references():
+    """Phase 19e's CPU runs, in the child process started before phase 13:
+    the 100 km dEBM chain in float64 to mid-July and on to 1 a, and the
+    single-state coupler cases."""
+    import torch
+    from pism_tpu_torch.convert import state_to_numpy
+    from pism_tpu_torch.examples import greenland_debm
+
+    torch.set_num_threads(2)
+    model, state, grid = greenland_debm.greenland_debm_model(
+        "float64", 100.0, 0.0, False, "cpu")
+    legs = []
+    for t, years in zip((0.0, DEBM_CHECK_YEARS[0]), DEBM_CHECK_YEARS):
+        state, _, stats = model.step_once(state, t * SPY, years * SPY)
+        legs.append((state_to_numpy(state), stats.nsteps,
+                     stats.limit_hits_dict()))
+    return legs, _coupler_cases("cpu", grid)
+
+
+def phase19e_card_vs_cpu(dev, refs):
+    """The 100 km dEBM chain (float64) on the card against the CPU (child
+    process), in two legs, to mid-July (where the stored albedo is a summer
+    one) and on to 1 a: after each, equal steps and hits, volumes within
+    1e-8, H and the albedo within 1e-5 of their maxima; at mid-July the
+    albedo below albedo_max somewhere. On one state (the chain's synthetic
+    geometry from numpy) the orographic field, the ``th`` melt and the
+    ISMIP6 SMB against the CPU's (1e-11 of max, cuFFT against the CPU's
+    FFT; 1e-12 elementwise); a ``GivenStreamed`` run against the same
+    records loaded up front: the stream's records equal to the bit."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch.convert import state_to_numpy
+    from pism_tpu_torch.coupler.stream import ForcingStream
+    from pism_tpu_torch.examples import greenland_debm
+    from pism_tpu_torch.io.bootstrap import read_forcing_fields
+    from pism_tpu_torch.io.nc4 import File
+    from pism_tpu_torch.util.forcing import constant_slice
+
+    model, state, grid = greenland_debm.greenland_debm_model(
+        "float64", 100.0, 0.0, False, dev)
+    legs, cases_cpu = refs()
+    t = 0.0
+    for leg, (years, (a, n_cpu, hits_cpu)) in enumerate(
+            zip(DEBM_CHECK_YEARS, legs)):
+        state, _, stats = model.step_once(state, t * SPY, years * SPY)
+        t += years
+        b = state_to_numpy(state)
+        Ha, Hb = a["ice_thickness"], b["ice_thickness"]
+        dv = abs(Hb.sum() - Ha.sum()) / Ha.sum()
+        dH = np.abs(Hb - Ha).max() / Ha.max()
+        Aa, Ab = a["surface_albedo"], b["surface_albedo"]
+        dA = np.abs(Ab - Aa).max() / Aa.max()
+        print(f"phase19e: the 100 km dEBM chain, float64, to {t:g} a, card /"
+              f" CPU: steps {stats.nsteps} / {n_cpu}, hits "
+              f"{stats.limit_hits_dict()} / {hits_cpu}, volume rel diff "
+              f"{dv:.3e} (tol 1e-8), H {dH:.3e} of max (tol 1e-5), albedo "
+              f"{dA:.3e} of max (tol 1e-5), in [{Ab.min():.4f}, "
+              f"{Ab.max():.4f}], {int((Ab < Ab.max()).sum())} cells below "
+              f"its max")
+        if stats.nsteps != n_cpu or stats.limit_hits_dict() != hits_cpu \
+                or not dv <= 1e-8 or not dH <= 1e-5 or not dA <= 1e-5:
+            raise AssertionError("phase19e: the dEBM chain's card and CPU "
+                                 "runs disagree")
+        if leg == 0 and not Ab.min() < model.surface.albedo_max:
+            raise AssertionError("phase19e: the mid-July albedo is "
+                                 "albedo_max everywhere")
+    cases = _coupler_cases(dev, grid)
+    for name, tol in (("orographic", 1e-11), ("th melt", 1e-12),
+                      ("ismip6 smb", 1e-12)):
+        want = cases_cpu[name]
+        err = np.abs(cases[name] - want).max() / np.abs(want).max()
+        print(f"phase19e: {name} on the card / CPU rel err {err:.3e} "
+              f"(tol {tol:.0e})")
+        if not err <= tol:
+            raise AssertionError(f"phase19e: {name} disagrees")
+    # the streamed records against the stack loaded up front
+    import tempfile
+    x = _coupler_inputs(grid)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "stream.nc")
+        with File(path, "w", format="netcdf3") as f:
+            f.define_dimension("time", None, attrs={"units": "s"})
+            f.define_dimension("y", grid.My, grid.y)
+            f.define_dimension("x", grid.Mx, grid.x)
+            for k, tk in enumerate(x["times"]):
+                n = f.append_time(tk)
+                f.write("ice_surface_temp", x["theta"][k][None],
+                        ("time", "y", "x"), {"units": "K"}, time_index=n)
+        fields, times = read_forcing_fields(path, grid, ["ice_surface_temp"])
+        stack = torch.as_tensor(fields["ice_surface_temp"], dtype=torch.float32,
+                                device=dev)
+        s = ForcingStream(path, "ice_surface_temp", lookahead=1,
+                          cache_slices=2)
+        ts = np.linspace(-0.2, 2.0, 23) * SPY
+        same = all(torch.equal(s.slice_at(tk, dev),
+                               constant_slice(stack, times, 0.0, tk,
+                                              torch.float32)) for tk in ts)
+        torch.cuda.synchronize()
+        print(f"phase19e: GivenStreamed's records on the card (pinned "
+              f"buffers, non-blocking copies) against the stack loaded up "
+              f"front at {ts.size} times: equal to the bit {same} "
+              f"({s.misses} reads, {s.prefetch_hits} read-ahead hits)")
+        s.close()
+        if not same:
+            raise AssertionError("phase19e: the streamed records differ")
+
+
+def phase19_coupler(dev, smi, refs):
+    """Phase 19; ``refs()``: 19e's CPU runs (``debm_cpu_references``,
+    computed in a child process ahead of the phase, or the function
+    itself); returns the dEBM chain's launch counts."""
+    import tempfile
+
+    counts, _ = _timed("phase19a", phase19a_debm, dev, smi)
+    with tempfile.TemporaryDirectory() as d:
+        _timed("phase19b", phase19b_cli, dev, d, smi)
+        _timed("phase19d", phase19d_forcing, dev, d, smi)
+    _timed("phase19c", phase19c_hysteresis, dev, smi)
+    _timed("phase19e", phase19e_card_vs_cpu, dev, refs)
+    return counts
 
 
 def main():
@@ -6133,36 +6718,51 @@ def main():
     print(f"phase12: {smi}")
     phase12_hybrid_ensemble(dev, smi)
     print(f"phase12: {time.time() - t12:.1f} s")
-    t13 = time.time()
-    print(f"phase13: {smi}")
-    records13, counts13 = phase13_antarctic_ensemble(dev, smi)
-    # the member-axis kernels' entries are this slice's path's: phase 13's
-    # records at 100x251x251 and its timed run's launches (phase 12c's
-    # records at 100x141x76 are in its lines above)
-    timings.update(records13)
-    print(f"phase13: {time.time() - t13:.1f} s")
-    t14 = time.time()
-    print(f"phase14: {smi}")
-    timings["ssa_newton_matvec_halo_drag"], counts14 = \
-        phase14_ssa_verification(dev, smi)
-    print(f"phase14: {time.time() - t14:.1f} s")
-    t15 = time.time()
-    print(f"phase15: {smi}")
-    phase15_sia_verification(dev, smi, eismint_7ka)
-    print(f"phase15: {time.time() - t15:.1f} s")
-    t16 = time.time()
-    print(f"phase16: {smi}")
-    phase16_hydrology(dev, smi)
-    print(f"phase16: {time.time() - t16:.1f} s")
-    t17 = time.time()
-    print(f"phase17: {smi}")
-    phase17_blatter_fem(dev, smi)
-    print(f"phase17: {time.time() - t17:.1f} s")
-    t18 = time.time()
-    print(f"phase18: {smi}")
-    records18, counts18 = phase18_inverse(dev, smi)
-    timings.update(records18)
-    print(f"phase18: {time.time() - t18:.1f} s")
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    # phases 14-19's CPU references, one after another in one child process
+    # from here on: the card's phases 13-16 hide them
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = pool.submit(verification_cpu_references,
+                           torch.get_num_threads()).result
+        refs17 = pool.submit(cpu_references).result
+        refs18 = pool.submit(inverse_cpu_references).result
+        refs19 = pool.submit(debm_cpu_references).result
+        t13 = time.time()
+        print(f"phase13: {smi}")
+        records13, counts13 = phase13_antarctic_ensemble(dev, smi)
+        # the member-axis kernels' entries are this slice's path's: phase
+        # 13's records at 100x251x251 and its timed run's launches (phase
+        # 12c's records at 100x141x76 are in its lines above)
+        timings.update(records13)
+        print(f"phase13: {time.time() - t13:.1f} s")
+        t14 = time.time()
+        print(f"phase14: {smi}")
+        timings["ssa_newton_matvec_halo_drag"], counts14 = \
+            phase14_ssa_verification(dev, smi, refs)
+        print(f"phase14: {time.time() - t14:.1f} s")
+        t15 = time.time()
+        print(f"phase15: {smi}")
+        phase15_sia_verification(dev, smi, eismint_7ka, refs)
+        print(f"phase15: {time.time() - t15:.1f} s")
+        t16 = time.time()
+        print(f"phase16: {smi}")
+        phase16_hydrology(dev, smi)
+        print(f"phase16: {time.time() - t16:.1f} s")
+        t17 = time.time()
+        print(f"phase17: {smi}")
+        phase17_blatter_fem(dev, smi, refs17)
+        print(f"phase17: {time.time() - t17:.1f} s")
+        t18 = time.time()
+        print(f"phase18: {smi}")
+        records18, counts18 = phase18_inverse(dev, smi, refs18)
+        timings.update(records18)
+        print(f"phase18: {time.time() - t18:.1f} s")
+        t19 = time.time()
+        print(f"phase19: {smi}")
+        phase19_coupler(dev, smi, refs19)
+        print(f"phase19: {time.time() - t19:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

@@ -376,7 +376,8 @@ def _couplers(args, cfg, grid, device):
                     inputs["precipitation"] = field(p[-1] if p.ndim == 3
                                                     else p)
         atm = cf.atmosphere_from_config(cfg, inputs=inputs, grid=grid)
-    elif surf_sel and any(m in surf_sel for m in ("simple", "pdd", "pik")):
+    elif surf_sel and any(m in surf_sel for m in ("simple", "pdd",
+                                                  "debm_simple", "pik")):
         # a restored surface chain that needs an atmosphere whose own chain
         # is the default (not stored as non-default): built from the config
         atm = cf.atmosphere_from_config(
@@ -385,8 +386,8 @@ def _couplers(args, cfg, grid, device):
     if surf_sel:
         cfg.update({"surface.models": surf_sel})
         inputs = cf.inputs_from_files(cfg, grid, "surface", device)
-        if args.i and "pik" in surf_sel:
-            # the latitude-dependent surface model reads lat from the input
+        if args.i and any(m in surf_sel for m in ("debm_simple", "pik")):
+            # the latitude-dependent surface models read lat from the input
             # file (PISM's mandatory lat/lon), else from its projection
             flds = read_and_regrid(args.i, grid,
                                    variables=["lat", "latitude"])
@@ -396,6 +397,7 @@ def _couplers(args, cfg, grid, device):
                 lat = latitude_from_projection(args.i, grid)
             if lat is not None:
                 inputs["latitude"] = field(lat)
+        inputs["_grid"], inputs["_device"] = grid, device
         surface = cf.surface_from_config(cfg, inputs=inputs, atmosphere=atm)
     elif atm is not None:
         from .coupler.surface import Simple

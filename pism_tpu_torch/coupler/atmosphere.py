@@ -1,10 +1,13 @@
 """Atmosphere boundary models (port of ``pism_tpu/coupler/atmosphere.py``:
-``Uniform``, ``Given``, ``SeariseGreenland``, ``PIK`` and the scalar
-modifiers ``DeltaT`` and ``DeltaP``): near-surface air temperature [K] and
-precipitation [m/s ice equivalent] from geometry and model time.
+``Uniform``, ``Given``, ``SeariseGreenland``, ``PIK``, ``CosineYearlyCycle``,
+``WeatherStation`` and the modifiers ``ElevationChange``, ``DeltaT``,
+``DeltaP``, ``FracP``, ``PrecipitationScaling`` and ``Anomaly``):
+near-surface air temperature [K] and precipitation [m/s ice equivalent]
+from geometry and model time.
 
-Model time is a host float; ``Given``'s time stack is a
-``util.forcing.TimeStack``.
+Model time is a host float; a time stack's record and weight are found on
+the host (``util.forcing``); a scalar series (``util.forcing.
+ScalarForcing``) enters the fields as a Python float.
 """
 
 from __future__ import annotations
@@ -12,10 +15,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
+import math
+
 import numpy as np
 import torch
 
-from ..util.forcing import TimeStack
+from ..util.forcing import TimeStack, constant_slice
 
 
 class AtmosphereInputs(NamedTuple):
@@ -25,8 +30,22 @@ class AtmosphereInputs(NamedTuple):
 
 
 class AtmosphereModel:
+    #: day of year of the summer peak of the cosine yearly cycle
+    #: (atmosphere.fausto_air_temp.summer_peak_day; the factory sets it)
+    summer_peak_day: float = 182.5
+
     def __call__(self, geometry, t) -> AtmosphereInputs:
         raise NotImplementedError
+
+    def temperature_at(self, geometry, t, year_fraction: float):
+        """The air temperature within the yearly cycle (PISM
+        ``AtmosphereModel::temp_time_series``), a cosine peaking on
+        ``summer_peak_day``."""
+        a = self(geometry, t)
+        Ta, Tj = a.temperature, a.temperature_july
+        peak = self.summer_peak_day / 365.0
+        return Ta + (Tj - Ta) * math.cos(2.0 * math.pi
+                                         * (year_fraction - peak))
 
     def members(self, geometry, t) -> AtmosphereInputs:
         """The air over an ensemble's members: ``geometry`` with a leading
@@ -182,3 +201,122 @@ class DeltaP(AtmosphereModel):
         a = self.inner(geometry, t)
         return AtmosphereInputs(a.temperature, a.temperature_july,
                                 a.precipitation + self.offset(t))
+
+
+@dataclass
+class ElevationChange(AtmosphereModel):
+    """Lapse-rate modifier (PISM ``atmosphere::ElevationChange``): the inner
+    model's temperatures corrected for the surface's change against a
+    reference surface; the precipitation scaled by exp(factor dT)
+    ("scale") or shifted by a lapse rate and floored at 0 ("shift")."""
+
+    inner: AtmosphereModel
+    reference_surface: torch.Tensor
+    lapse_rate: float = 6.0e-3        # K/m (positive: cooler when higher)
+    precip_scale_factor: float = 0.0  # "scale": per K of warming
+    precip_lapse_rate: float = 0.0    # "shift": m/s ice-eq per m of uplift
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        a = self.inner(geometry, t)
+        dh = geometry.ice_surface_elevation \
+            - self.reference_surface.to(geometry.ice_thickness.dtype)
+        dT = -self.lapse_rate * dh
+        precip = a.precipitation
+        if self.precip_scale_factor != 0.0:
+            precip = precip * torch.exp(self.precip_scale_factor * dT)
+        if self.precip_lapse_rate != 0.0:
+            precip = torch.clamp(precip - self.precip_lapse_rate * dh,
+                                 min=0.0)
+        return AtmosphereInputs(a.temperature + dT, a.temperature_july + dT,
+                                precip)
+
+
+@dataclass
+class FracP(AtmosphereModel):
+    """PISM ``-atmosphere ...,frac_P``: the precipitation times a scalar
+    series ``fraction(t)``."""
+
+    inner: AtmosphereModel
+    fraction: Callable          # t -> dimensionless factor
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        a = self.inner(geometry, t)
+        return AtmosphereInputs(a.temperature, a.temperature_july,
+                                a.precipitation * self.fraction(t))
+
+
+@dataclass
+class PrecipitationScaling(AtmosphereModel):
+    """PISM ``-atmosphere ...,precip_scaling``: P -> P exp(C dT(t)) with a
+    temperature-offset series dT and C =
+    ``atmosphere.precip_exponential_factor_for_temperature``."""
+
+    inner: AtmosphereModel
+    delta_T: Callable           # t -> K offset
+    exp_factor: float = 0.07042
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        a = self.inner(geometry, t)
+        scale = math.exp(self.exp_factor * self.delta_T(t))
+        return AtmosphereInputs(a.temperature, a.temperature_july,
+                                a.precipitation * scale)
+
+
+@dataclass
+class Anomaly(AtmosphereModel):
+    """PISM ``-atmosphere ...,anomaly``: prescribed temperature and
+    precipitation anomaly fields (or stacks with ``times``,
+    piecewise-constant) added to the inner model's."""
+
+    inner: AtmosphereModel
+    temp_anomaly: Optional[torch.Tensor] = None      # K
+    precip_anomaly: Optional[torch.Tensor] = None    # m/s
+    times: Optional[np.ndarray] = None               # (Nt,) [s] if stacked
+    period: float = 0.0   # [s]; > 0 cycles (atmosphere.anomaly.periodic)
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        a = self.inner(geometry, t)
+        dt_ = a.temperature.dtype
+        Ta, Tj, P = a
+        if self.temp_anomaly is not None:
+            dT = constant_slice(self.temp_anomaly, self.times, self.period,
+                                t, dt_)
+            Ta, Tj = Ta + dT, Tj + dT
+        if self.precip_anomaly is not None:
+            P = P + constant_slice(self.precip_anomaly, self.times,
+                                   self.period, t, dt_)
+        return AtmosphereInputs(Ta, Tj, P)
+
+
+@dataclass
+class CosineYearlyCycle(AtmosphereModel):
+    """PISM ``-atmosphere yearly_cycle``: prescribed mean-annual and
+    mean-summer temperatures and precipitation; ``scaling(t)`` (a scalar
+    series) modulates the cycle's amplitude."""
+
+    temperature_mean_annual: torch.Tensor   # K
+    temperature_mean_summer: torch.Tensor   # K
+    precipitation: torch.Tensor             # m/s ice equivalent
+    scaling: Optional[Callable] = None      # t -> amplitude factor
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        dt_ = geometry.ice_thickness.dtype
+        Ta = self.temperature_mean_annual.to(dt_)
+        Tj = self.temperature_mean_summer.to(dt_)
+        if self.scaling is not None:
+            Tj = Ta + (Tj - Ta) * self.scaling(t)
+        return AtmosphereInputs(Ta, Tj, self.precipitation.to(dt_))
+
+
+@dataclass
+class WeatherStation(AtmosphereModel):
+    """PISM ``-atmosphere one_station``: scalar series of the air
+    temperature and the precipitation, uniform over the domain."""
+
+    temperature: Callable        # t -> K
+    precipitation: Callable      # t -> m/s ice equivalent
+
+    def __call__(self, geometry, t) -> AtmosphereInputs:
+        H = geometry.ice_thickness
+        T = torch.full_like(H, self.temperature(t))
+        return AtmosphereInputs(T, T, torch.full_like(H, self.precipitation(t)))

@@ -5,19 +5,26 @@ config strings (port of ``pism_tpu/coupler/factory.py``; PISM
 A chain is ``base,modifier,...`` (``-atmosphere searise_greenland,delta_T
 -surface pdd``): the first entry is the base model, the rest wrap it left
 to right. The factory functions take an ``inputs`` dict of loaded fields
-(tensors on the model's device) and forcing callables;
-``inputs_from_files`` fills it from the files the config names. The port builds these names:
+(tensors on the model's device), host time axes and forcing callables;
+``inputs_from_files`` fills it from the files the config names. The port
+builds every name the JAX package builds:
 
-- atmosphere ``uniform``, ``given``, ``searise_greenland``, ``pik``;
-  modifiers ``delta_T``, ``delta_P``;
-- surface ``simple``, ``uniform``, ``given``, ``pdd``, ``pik``; modifier
-  ``delta_T``;
-- ocean ``constant``, ``pik``, ``pico``; modifier ``delta_T``;
-- sea level ``constant``; modifier ``delta_sl``;
+- atmosphere ``uniform``, ``given``, ``searise_greenland``,
+  ``yearly_cycle``, ``pik``, ``one_station``; modifiers
+  ``elevation_change``, ``delta_T``, ``delta_P``, ``frac_P``,
+  ``precip_scaling``, ``anomaly``, ``orographic_precipitation``;
+- surface ``simple``, ``uniform``, ``given``, ``elevation``, ``pdd``,
+  ``debm_simple``, ``pik``, ``ismip6``; modifiers ``anomaly``, ``delta_T``,
+  ``cache``, ``elevation_change``, ``force_to_thickness``;
+- ocean ``constant``, ``pik``, ``th``, ``given``, ``pico``; modifiers
+  ``anomaly``, ``delta_T``, ``delta_SMB``, ``frac_SMB``, ``runoff_SMB``,
+  ``frac_MBP``, ``delta_MBP``, ``cache`` (and the melange back pressure of
+  ``ocean.melange_back_pressure_fraction``);
+- sea level ``constant``; modifiers ``delta_sl``, ``delta_sl_2d``;
 - the fields of the frontal-melt models (``coupler/frontalmelt.py``),
   group ``frontal_melt`` of ``inputs_from_files``.
 
-Every other name raises NotImplementedError (ROADMAP Queue 1 item 8).
+A name neither package knows raises ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +34,6 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from ..config import require
 from ..config.parameters import PARAMETERS
 from . import atmosphere as _atm
 from . import ocean as _ocn
@@ -48,10 +54,10 @@ def _need(inputs: Mapping, key: str, model: str):
     return inputs[key]
 
 
-def _refuse(kind: str, name: str, modifier: bool = False):
-    return NotImplementedError(
-        f"the {kind} {'modifier' if modifier else 'model'} {name!r} is not "
-        "implemented in pism_tpu_torch (ROADMAP Queue 1 item 8)")
+def _fdt(config):
+    return torch.float32 \
+        if config.get_string("runtime.float_dtype") == "float32" \
+        else torch.float64
 
 
 def stack_period(config, prefix, times):
@@ -76,8 +82,13 @@ def atmosphere_from_config(config, inputs: Optional[Mapping] = None,
     """The atmosphere chain of ``atmosphere.models``. Inputs: ``given``
     (air_temp, precipitation [, air_temp_summer, times]),
     ``searise_greenland`` (latitude, longitude, precipitation), ``pik``
-    (latitude, precipitation); modifiers
-    ``delta_T`` and ``delta_P`` (callables of model time)."""
+    (latitude, precipitation), ``yearly_cycle`` (air_temp_mean_annual,
+    air_temp_mean_summer, precipitation [, scaling]), ``one_station``
+    (air_temp, precipitation: callables of model time); modifiers
+    ``elevation_change`` (reference_surface), ``delta_T``, ``delta_P``,
+    ``frac_P``, ``precip_scaling`` (delta_T) (callables), ``anomaly``
+    (air_temp_anomaly / precipitation_anomaly [, anomaly_times]),
+    ``orographic_precipitation`` (needs ``grid``)."""
     inputs = inputs or {}
     base, mods = _split(config.get_string("atmosphere.models"))
     if base == "uniform":
@@ -102,33 +113,132 @@ def atmosphere_from_config(config, inputs: Optional[Mapping] = None,
             longitude=_need(inputs, "longitude", base),
             precipitation=_need(inputs, "precipitation", base),
             config=config)
+    elif base == "yearly_cycle":
+        model = _atm.CosineYearlyCycle(
+            temperature_mean_annual=_need(inputs, "air_temp_mean_annual",
+                                          base),
+            temperature_mean_summer=_need(inputs, "air_temp_mean_summer",
+                                          base),
+            precipitation=_need(inputs, "precipitation", base),
+            scaling=inputs.get("scaling"))
     elif base == "pik":
         model = _atm.PIK(
             latitude=_need(inputs, "latitude", base),
             precipitation=_need(inputs, "precipitation", base),
             parameterization=config.get_string(
                 "atmosphere.pik.parameterization"))
+    elif base == "one_station":
+        model = _atm.WeatherStation(
+            temperature=_need(inputs, "air_temp", base),
+            precipitation=_need(inputs, "precipitation", base))
     else:
-        raise _refuse("atmosphere", base)
+        raise ValueError(f"unknown atmosphere model {base!r}")
+    model.summer_peak_day = config.get_number(
+        "atmosphere.fausto_air_temp.summer_peak_day")
     for mod in mods:
-        if mod == "delta_T":
+        if mod == "elevation_change":
+            method = config.get_string(
+                "atmosphere.elevation_change.precipitation.method")
+            model = _atm.ElevationChange(
+                inner=model,
+                reference_surface=_need(inputs, "reference_surface", mod),
+                lapse_rate=config.get_number(
+                    "atmosphere.elevation_change.temperature_lapse_rate"),
+                precip_scale_factor=config.get_number(
+                    "atmosphere.precip_exponential_factor_for_temperature")
+                if method == "scale" else 0.0,
+                precip_lapse_rate=config.get_number(
+                    "atmosphere.elevation_change.precipitation.lapse_rate")
+                if method == "shift" else 0.0)
+        elif mod == "delta_T":
             model = _atm.DeltaT(inner=model,
                                 offset=_need(inputs, "delta_T", mod))
         elif mod == "delta_P":
             model = _atm.DeltaP(inner=model,
                                 offset=_need(inputs, "delta_P", mod))
+        elif mod == "frac_P":
+            model = _atm.FracP(inner=model,
+                               fraction=_need(inputs, "frac_P", mod))
+        elif mod == "precip_scaling":
+            model = _atm.PrecipitationScaling(
+                inner=model, delta_T=_need(inputs, "delta_T", mod),
+                exp_factor=config.get_number(
+                    "atmosphere.precip_exponential_factor_for_temperature"))
+        elif mod == "anomaly":
+            model = _atm.Anomaly(
+                inner=model,
+                temp_anomaly=inputs.get("air_temp_anomaly"),
+                precip_anomaly=inputs.get("precipitation_anomaly"),
+                times=inputs.get("anomaly_times"),
+                period=stack_period(config, "atmosphere.anomaly",
+                                    inputs.get("anomaly_times")))
+        elif mod == "orographic_precipitation":
+            from .orographic import OrographicModifier, orographic_from_config
+            if grid is None:
+                raise ValueError(
+                    "atmosphere modifier 'orographic_precipitation' needs "
+                    "the grid (FFT wavenumbers)")
+            model = OrographicModifier(
+                inner=model, ltop=orographic_from_config(grid, config))
         else:
-            raise _refuse("atmosphere", mod, modifier=True)
+            raise ValueError(f"unknown atmosphere modifier {mod!r}")
     return model
 
 
 # ---------------------------------------------------------------- surface
+def _ismip6_from_files(config, grid, device):
+    """``-surface ismip6`` from the protocol's files: the reference climate
+    (surface.ismip6.reference_file) and the anomaly and elevation-gradient
+    stacks (surface.ismip6.file)."""
+    from ..io.bootstrap import read_forcing_fields
+    ref_path = config.get_string("surface.ismip6.reference_file")
+    frc_path = config.get_string("surface.ismip6.file")
+    if not ref_path or not frc_path or grid is None:
+        raise ValueError(
+            "surface model 'ismip6' needs surface.ismip6.file and "
+            "surface.ismip6.reference_file (CLI) or a prebuilt "
+            "inputs['ismip6_model']")
+    ref, _ = read_forcing_fields(ref_path, grid,
+                                 ["climatic_mass_balance", "ice_surface_temp",
+                                  "usurf", "surface_altitude"])
+    frc, a_times = read_forcing_fields(
+        frc_path, grid, ["climatic_mass_balance_anomaly",
+                         "ice_surface_temp_anomaly",
+                         "climatic_mass_balance_gradient",
+                         "ice_surface_temp_gradient"],
+        calendar=config.get_string("time.calendar"),
+        reference_date=config.get_string("time.reference_date"))
+
+    def field(d, *names):
+        for n in names:
+            if n in d:
+                # the JAX package loads these as float64
+                return torch.as_tensor(np.nan_to_num(d[n])).to(
+                    device=device, dtype=torch.float64)
+        return None
+
+    return _srf.ISMIP6(
+        smb_ref=field(ref, "climatic_mass_balance"),
+        temperature_ref=field(ref, "ice_surface_temp"),
+        surface_ref=field(ref, "usurf", "surface_altitude"),
+        anomaly_times=a_times,
+        a_smb=field(frc, "climatic_mass_balance_anomaly"),
+        a_temp=field(frc, "ice_surface_temp_anomaly"),
+        dsmb_dz=field(frc, "climatic_mass_balance_gradient"),
+        dtemp_dz=field(frc, "ice_surface_temp_gradient"))
+
+
 def surface_from_config(config, inputs: Optional[Mapping] = None,
                         atmosphere=None):
-    """The surface chain of ``surface.models``: ``simple`` and ``pdd`` (on
-    ``atmosphere``), ``pik`` (on ``atmosphere``; latitude), ``uniform``,
-    ``given`` (climatic_mass_balance, ice_surface_temp [, times]); modifier
-    ``delta_T``."""
+    """The surface chain of ``surface.models``: ``simple``, ``pdd`` (on
+    ``atmosphere``; air_temp_sd, latitude), ``debm_simple`` (on
+    ``atmosphere``; latitude [, albedo, paleo_times with eccentricity,
+    obliquity, perihelion_longitude]), ``pik`` (on ``atmosphere``;
+    latitude), ``uniform``, ``elevation``, ``given`` (climatic_mass_balance,
+    ice_surface_temp [, times]), ``ismip6`` (inputs["ismip6_model"], or its
+    files, inputs["_grid"] and inputs["_device"]); modifiers ``anomaly``, ``delta_T``,
+    ``cache``, ``elevation_change`` (reference_surface),
+    ``force_to_thickness`` (target_thickness)."""
     inputs = inputs or {}
     base, mods = _split(config.get_string("surface.models"))
 
@@ -148,34 +258,113 @@ def surface_from_config(config, inputs: Optional[Mapping] = None,
             times=inputs.get("times"),
             period=stack_period(config, "surface.given",
                                 inputs.get("times")))
+    elif base == "elevation":
+        model = _srf.ElevationDependent(
+            z_min=config.get_number("surface.elevation_dependent.z_min"),
+            z_ela=config.get_number("surface.elevation_dependent.z_ela"),
+            z_max=config.get_number("surface.elevation_dependent.z_max"),
+            m_min=config.get_number("surface.elevation_dependent.m_min",
+                                    "m s-1"),
+            m_max=config.get_number("surface.elevation_dependent.m_max",
+                                    "m s-1"))
     elif base == "pdd":
         from .pdd import TemperatureIndex
-        model = TemperatureIndex(atmosphere=need_atm(base), config=config)
+        model = TemperatureIndex(atmosphere=need_atm(base), config=config,
+                                 sigma_field=inputs.get("air_temp_sd"),
+                                 latitude=inputs.get("latitude"))
+    elif base == "debm_simple":
+        from .debm import DEBMSimple
+        paleo = None
+        if "paleo_times" in inputs:
+            deg = np.pi / 180.0
+            paleo = (inputs["paleo_times"], inputs.get("eccentricity"),
+                     np.asarray(inputs.get("obliquity")) * deg,
+                     np.asarray(inputs.get("perihelion_longitude")) * deg)
+        model = DEBMSimple(atmosphere=need_atm(base),
+                           latitude=_need(inputs, "latitude", base),
+                           config=config, albedo_field=inputs.get("albedo"),
+                           paleo_series=paleo)
     elif base == "pik":
         model = _srf.PIK(atmosphere=need_atm(base),
                          latitude=_need(inputs, "latitude", base))
+    elif base == "ismip6":
+        model = inputs.get("ismip6_model")
+        if model is None:
+            grid = inputs.get("_grid")
+            model = _ismip6_from_files(
+                config, grid, inputs.get("_device", "cuda"))
     else:
-        raise _refuse("surface", base)
+        raise ValueError(f"unknown surface model {base!r}")
     for mod in mods:
-        if mod == "delta_T":
+        if mod == "anomaly":
+            model = _srf.Anomaly(
+                inner=model,
+                smb_anomaly=inputs.get("climatic_mass_balance_anomaly"),
+                temp_anomaly=inputs.get("ice_surface_temp_anomaly"),
+                times=inputs.get("anomaly_times"),
+                period=stack_period(config, "surface.anomaly",
+                                    inputs.get("anomaly_times")))
+        elif mod == "delta_T":
             model = _srf.DeltaT(inner=model,
                                 offset=_need(inputs, "delta_T", mod))
+        elif mod == "cache":
+            model = _srf.Cache(inner=model, update_interval=config.get_number(
+                "surface.cache.update_interval", "seconds"))
+        elif mod == "elevation_change":
+            method = config.get_string("surface.elevation_change.smb.method")
+            model = _srf.ElevationChange(
+                inner=model,
+                reference_surface=_need(inputs, "reference_surface", mod),
+                temp_lapse_rate=config.get_number(
+                    "surface.elevation_change.temperature_lapse_rate"),
+                smb_lapse_rate=config.get_number(
+                    "surface.elevation_change.smb.lapse_rate")
+                if method == "shift" else 0.0,
+                smb_exp_factor=config.get_number(
+                    "surface.elevation_change.smb.exp_factor")
+                if method == "scale" else 0.0)
+        elif mod == "force_to_thickness":
+            model = _srf.ForceThickness(
+                inner=model,
+                target_thickness=_need(inputs, "target_thickness", mod),
+                alpha=config.get_number("surface.force_to_thickness.alpha",
+                                        "s-1"),
+                ice_free_alpha_factor=config.get_number(
+                    "surface.force_to_thickness.ice_free_alpha_factor"),
+                start_time=config.get_number(
+                    "surface.force_to_thickness.start_time", "seconds"))
         else:
-            raise _refuse("surface", mod, modifier=True)
+            raise ValueError(f"unknown surface modifier {mod!r}")
     return model
 
 
 # ---------------------------------------------------------------- ocean
 def ocean_from_config(config, inputs: Optional[Mapping] = None, grid=None):
-    """The ocean chain of ``ocean.models``: ``constant``, ``pik``, ``pico``
+    """The ocean chain of ``ocean.models``: ``constant``, ``pik``, ``th``
+    (theta_ocean, salinity_ocean [, times]), ``given``
+    (shelf_base_mass_flux [, shelf_base_temperature, times]), ``pico``
     (theta_ocean, salinity_ocean [, basins, times]; needs ``grid``);
-    modifier ``delta_T`` (a callable of model time)."""
+    modifiers ``anomaly`` (melt_anomaly [, anomaly_times]), ``delta_T``,
+    ``delta_SMB``, ``frac_SMB``, ``runoff_SMB`` (delta_T), ``frac_MBP``,
+    ``delta_MBP`` (callables of model time), ``cache``."""
     inputs = inputs or {}
     base, mods = _split(config.get_string("ocean.models"))
     if base == "constant":
         model = _ocn.Constant(config=config)
     elif base == "pik":
         model = _ocn.PIK(config=config)
+    elif base == "th":
+        model = _ocn.GivenTH(
+            theta_ocean=_need(inputs, "theta_ocean", base),
+            salinity_ocean=_need(inputs, "salinity_ocean", base),
+            config=config, times=inputs.get("times"),
+            period=stack_period(config, "ocean.th", inputs.get("times")))
+    elif base == "given":
+        model = _ocn.Given(
+            melt_rate=_need(inputs, "shelf_base_mass_flux", base),
+            temperature=inputs.get("shelf_base_temperature"),
+            times=inputs.get("times"),
+            period=stack_period(config, "ocean.given", inputs.get("times")))
     elif base == "pico":
         from .pico import Pico
         if grid is None:
@@ -187,59 +376,80 @@ def ocean_from_config(config, inputs: Optional[Mapping] = None, grid=None):
             times=inputs.get("times"),
             period=stack_period(config, "ocean.pico", inputs.get("times")))
     else:
-        raise _refuse("ocean", base)
+        raise ValueError(f"unknown ocean model {base!r}")
     for mod in mods:
-        if mod == "delta_T":
+        if mod == "anomaly":
+            model = _ocn.Anomaly(
+                inner=model, anomaly=_need(inputs, "melt_anomaly", mod),
+                times=inputs.get("anomaly_times"),
+                period=stack_period(config, "ocean.anomaly",
+                                    inputs.get("anomaly_times")))
+        elif mod == "delta_T":
             model = _ocn.DeltaT(inner=model,
                                 offset=_need(inputs, "delta_T", mod))
+        elif mod == "delta_SMB":
+            model = _ocn.DeltaSMB(inner=model,
+                                  offset=_need(inputs, "delta_SMB", mod))
+        elif mod == "frac_SMB":
+            model = _ocn.FracSMB(inner=model,
+                                 fraction=_need(inputs, "frac_SMB", mod))
+        elif mod == "runoff_SMB":
+            model = _ocn.RunoffSMB(
+                inner=model, delta_T=_need(inputs, "delta_T", mod),
+                temp_to_runoff_a=config.get_number(
+                    "ocean.runoff_to_ocean_melt.temp_to_runoff_a"),
+                melt_factor_B=config.get_number(
+                    "ocean.runoff_to_ocean_melt_factor"),
+                alpha=config.get_number(
+                    "ocean.runoff_to_ocean_melt_power_alpha"),
+                beta=config.get_number(
+                    "ocean.runoff_to_ocean_melt_power_beta"))
+        elif mod == "frac_MBP":
+            model = _ocn.FracMBP(inner=model,
+                                 fraction=_need(inputs, "frac_MBP", mod))
+        elif mod == "delta_MBP":
+            model = _ocn.DeltaMBP(inner=model,
+                                  offset=_need(inputs, "delta_MBP", mod))
+        elif mod == "cache":
+            model = _ocn.Cache(inner=model, update_interval=config.get_number(
+                "ocean.cache.update_interval", "seconds"))
         else:
-            raise _refuse("ocean", mod, modifier=True)
-    # the JAX factory wraps a melange back pressure modifier around any
-    # chain when this fraction is > 0
-    require(config, "ocean.melange_back_pressure_fraction", (0.0,))
+            raise ValueError(f"unknown ocean modifier {mod!r}")
+    # -melange_back_pressure_fraction: a constant melange back pressure,
+    # unless a back-pressure modifier is in the chain already
+    mbp = config.get_number("ocean.melange_back_pressure_fraction")
+    if mbp > 0.0 and "frac_MBP" not in mods and "delta_MBP" not in mods:
+        model = _ocn.FracMBP(inner=model, fraction=lambda t, _f=mbp: _f)
     return model
 
 
 # ---------------------------------------------------------------- sea level
 def sea_level_from_config(config, inputs: Optional[Mapping] = None):
-    """The sea-level chain of ``sea_level.models``: ``constant``; modifier
-    ``delta_sl`` (a callable of model time)."""
+    """The sea-level chain of ``sea_level.models``: ``constant``; modifiers
+    ``delta_sl`` (a callable of model time), ``delta_sl_2d`` (delta_SL_2D
+    [, delta_SL_2D_times])."""
     inputs = inputs or {}
     base, mods = _split(config.get_string("sea_level.models"))
     if base != "constant":
-        raise _refuse("sea level", base)
+        raise ValueError(f"unknown sea level model {base!r}")
     model = _sl.Constant(value=config.get_number("sea_level.constant.value")
                          + config.get_number("sea_level.constant.delta_SL"))
     for mod in mods:
         if mod == "delta_sl":
             model = _sl.DeltaSL(inner=model,
                                 offset=_need(inputs, "delta_SL", mod))
+        elif mod == "delta_sl_2d":
+            model = _sl.DeltaSL2D(
+                inner=model, offset_field=_need(inputs, "delta_SL_2D", mod),
+                times=inputs.get("delta_SL_2D_times"),
+                period=stack_period(config, "sea_level.delta_sl_2d",
+                                    inputs.get("delta_SL_2D_times")))
         else:
-            raise _refuse("sea level", mod, modifier=True)
+            raise ValueError(f"unknown sea level modifier {mod!r}")
     return model
 
 
 # ---------------------------------------------------------------- files
-#: forcing files the JAX ``inputs_from_files`` reads for models the port
-#: does not build: refused when set
-_UNPORTED_FILES = {
-    "atmosphere": ("atmosphere.yearly_cycle.file",
-                   "atmosphere.yearly_cycle.scaling.file",
-                   "atmosphere.anomaly.file", "atmosphere.elevation_change.file",
-                   "atmosphere.one_station.file", "atmosphere.frac_P.file",
-                   "atmosphere.precip_scaling.file"),
-    "surface": ("surface.anomaly.file", "surface.pdd.std_dev.file",
-                "surface.elevation_change.file",
-                "surface.force_to_thickness.file",
-                "surface.debm_simple.paleo.file",
-                "surface.debm_simple.albedo_input.file"),
-    "ocean": ("ocean.given.file", "ocean.th.file",
-              "ocean.frac_MBP.file", "ocean.delta_MBP.file",
-              "ocean.frac_SMB.file", "ocean.anomaly.file"),
-    "sea_level": ("ocean.delta_sl_2d.file",),
-}
-
-
 def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
     """The ``inputs`` of a coupler group from the forcing files its config
     names: spatial fields regridded onto the model grid, converted to
@@ -247,16 +457,17 @@ def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
     stack's ``times`` stay a host array); scalar series as
     ``util.forcing.ScalarForcing``."""
     from ..io.bootstrap import read_forcing_fields
+    from ..io.nc4 import File
     from ..util.forcing import ScalarForcing
+    from ..util.units import SEC_PER_YEAR
 
-    for key in _UNPORTED_FILES.get(group, ()):
-        require(config, key, ("",))
     inputs = {}
-    fdt = torch.float32 \
-        if config.get_string("runtime.float_dtype") == "float32" \
-        else torch.float64
+    fdt = _fdt(config)
     cal = config.get_string("time.calendar")
     ref = config.get_string("time.reference_date")
+
+    def tensor(a, dtype=fdt):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
     def spatial(file_key, variables):
         path = config.get_string(file_key)
@@ -270,19 +481,51 @@ def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
                 raise ValueError(
                     f"forcing variable {k!r} from {path!r} does not cover "
                     "the model grid (regrid produced NaNs)")
-            inputs[k] = torch.as_tensor(v).to(device=device, dtype=fdt)
+            inputs[k] = tensor(v)
         if times is not None:
             inputs["times"] = times
 
-    def scalar(file_key, input_key):
+    def scalar(file_key, input_key, variable=None):
         path = config.get_string(file_key)
         if path:
             # every scalar forcing has a sibling ".periodic" flag
             pkey = file_key[:-len(".file")] + ".periodic"
             periodic = pkey in PARAMETERS and config.get_flag(pkey)
             inputs[input_key] = ScalarForcing.from_file(
-                path, input_key, periodic=periodic, calendar=cal,
+                path, variable or input_key, periodic=periodic, calendar=cal,
                 reference_date=ref)
+
+    def anomaly(file_key, variables, one_key=None):
+        """An anomaly stack with its own time axis (``anomaly_times``);
+        ``one_key``: the first of ``variables`` found goes in under it."""
+        path = config.get_string(file_key)
+        if not path:
+            return
+        fields, a_times = read_forcing_fields(path, grid, variables,
+                                              calendar=cal,
+                                              reference_date=ref)
+        for k in variables:
+            if k in fields:
+                inputs[one_key or k] = tensor(fields[k])
+                if one_key:
+                    break
+        if a_times is not None:
+            inputs["anomaly_times"] = a_times
+
+    def last_record(file_key, variables, key, calendar=False, nan=False):
+        """The first of ``variables`` in the file (a stack: its last
+        record) under ``key``."""
+        path = config.get_string(file_key)
+        if not path:
+            return
+        kw = dict(calendar=cal, reference_date=ref) if calendar else {}
+        fields, _ = read_forcing_fields(path, grid, variables, **kw)
+        for k in variables:
+            if k in fields:
+                a = fields[k]
+                a = a[-1] if a.ndim == 3 else a
+                inputs.setdefault(key, tensor(np.nan_to_num(a) if nan else a))
+                break
 
     if group == "atmosphere":
         spatial("atmosphere.given.file",
@@ -293,8 +536,29 @@ def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
         for short, full in (("lat", "latitude"), ("lon", "longitude")):
             if short in inputs:
                 inputs.setdefault(full, inputs.pop(short))
+        spatial("atmosphere.yearly_cycle.file",
+                ["air_temp_mean_annual", "air_temp_mean_summer",
+                 "air_temp_mean_july", "precipitation"])
+        if "air_temp_mean_july" in inputs:
+            inputs.setdefault("air_temp_mean_summer",
+                              inputs.pop("air_temp_mean_july"))
+        scalar("atmosphere.yearly_cycle.scaling.file", "scaling",
+               "amplitude_scaling")
+        anomaly("atmosphere.anomaly.file",
+                ["air_temp_anomaly", "precipitation_anomaly"])
+        last_record("atmosphere.elevation_change.file",
+                    ["usurf", "surface_altitude", "surface"],
+                    "reference_surface")
+        path = config.get_string("atmosphere.one_station.file")
+        if path:
+            inputs.setdefault("air_temp",
+                              ScalarForcing.from_file(path, "air_temp"))
+            inputs.setdefault("precipitation",
+                              ScalarForcing.from_file(path, "precipitation"))
         scalar("atmosphere.delta_T.file", "delta_T")
         scalar("atmosphere.delta_P.file", "delta_P")
+        scalar("atmosphere.frac_P.file", "frac_P")
+        scalar("atmosphere.precip_scaling.file", "scaling_delta_T", "delta_T")
     elif group == "surface":
         # surface.given.smb_max: an error on implausible SMB magnitudes
         # (unit mistakes in forcing files)
@@ -310,7 +574,35 @@ def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
                     f"surface.given.smb_max ({smb_cap:.3e} m/s) - check the "
                     "input units")
         scalar("surface.delta_T.file", "delta_T")
+        anomaly("surface.anomaly.file", ["climatic_mass_balance_anomaly",
+                                         "ice_surface_temp_anomaly"])
+        last_record("surface.pdd.std_dev.file", ["air_temp_sd"],
+                    "air_temp_sd")
+        last_record("surface.elevation_change.file",
+                    ["usurf", "surface_altitude", "surface"],
+                    "reference_surface", calendar=True)
+        last_record("surface.force_to_thickness.file",
+                    ["thk", "land_ice_thickness"], "target_thickness",
+                    calendar=True, nan=True)
+        path = config.get_string("surface.debm_simple.paleo.file")
+        if path:
+            with File(path, "r") as f:
+                tt = np.asarray(f.read("time"), float)
+                tu = dict(f.read_attrs("time")).get("units", b"years")
+                if isinstance(tu, bytes):
+                    tu = tu.decode()
+                if "year" in str(tu):
+                    tt = tt * SEC_PER_YEAR
+                inputs["paleo_times"] = tt
+                for v in ("eccentricity", "obliquity",
+                          "perihelion_longitude"):
+                    inputs[v] = np.asarray(f.read(v), float)
+        last_record("surface.debm_simple.albedo_input.file", ["albedo"],
+                    "albedo")
     elif group == "ocean":
+        spatial("ocean.given.file",
+                ["shelf_base_mass_flux", "shelf_base_temperature"])
+        spatial("ocean.th.file", ["theta_ocean", "salinity_ocean"])
         spatial("ocean.pico.file",
                 ["theta_ocean", "salinity_ocean", "basins"])
         # drainage basins may come from their own file
@@ -318,11 +610,28 @@ def inputs_from_files(config, grid, group: str, device="cuda") -> dict:
         if "basins" in inputs and inputs["basins"].ndim == 3:
             inputs["basins"] = inputs["basins"][-1]
         scalar("ocean.delta_T.file", "delta_T")
+        scalar("ocean.frac_MBP.file", "frac_MBP")
+        scalar("ocean.delta_MBP.file", "delta_MBP")
+        scalar("ocean.frac_SMB.file", "frac_SMB")
+        anomaly("ocean.anomaly.file", ["shelf_base_mass_flux_anomaly",
+                                       "shelf_base_mass_flux"],
+                one_key="melt_anomaly")
     elif group == "sea_level":
         scalar("sea_level.delta_sl.file", "delta_SL")
         # the reference's -ocean ...,delta_SL file option, an alias
         if "delta_SL" not in inputs:
             scalar("ocean.delta_SL.file", "delta_SL")
+        path = config.get_string("ocean.delta_sl_2d.file")
+        if path:
+            names = ["delta_SL_2D", "delta_SL", "sea_level_change"]
+            fields, sl_times = read_forcing_fields(
+                path, grid, names, calendar=cal, reference_date=ref)
+            for k in names:
+                if k in fields:
+                    inputs["delta_SL_2D"] = tensor(fields[k])
+                    break
+            if sl_times is not None:
+                inputs["delta_SL_2D_times"] = sl_times
     elif group == "frontal_melt":
         spatial("frontal_melt.given.file", ["frontal_melt_rate"])
         spatial("frontal_melt.routing.file", ["theta_ocean"])

@@ -1,8 +1,9 @@
 """Positive-degree-day (temperature index) surface mass balance (port of
-``pism_tpu/coupler/pdd.py``, ``method = expectation_integral``).
+``pism_tpu/coupler/pdd.py``).
 
 The expected positive degree days come from the Calov & Greve (2005)
-integral over Gaussian daily variability sigma,
+integral over Gaussian daily variability sigma (``method =
+expectation_integral``),
 
     E[max(T, 0)] = sigma/sqrt(2 pi) exp(-T^2 / (2 sigma^2))
                    + (T/2) erfc(-T / (sqrt(2) sigma)).
@@ -15,27 +16,40 @@ pdd.py:197-199, 288``); here dt is a host float, so the count and the
 balance-year rollover test are host arithmetic in the field dtype and need
 no sync. ``members_update`` is the same update for an ensemble's members,
 each with its own time, dt and trip count.
+
+sigma is the scalar ``std_dev.value``, the Seguinot (2013) sigma(T)
+(``std_dev.param_enabled``), a 2D field (``std_dev.file``) and/or lapsed
+with latitude; the degree-day factors are the scalar ones or Fausto et al.
+(2009)'s. The Monte-Carlo methods (``random_process``,
+``repeatable_random_process``) draw 32 daily temperatures per interval and
+cell, each draw from a ``torch.Generator`` seeded with the model's seed and
+the draw's slot of absolute model time (86400/32 s), as the JAX package
+folds the slot into its key: the same model time sees the same draws, so a
+restarted repeatable run draws the same numbers. jax.random's bits are not
+reproduced.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..config import require
 from ..state import dt_divide
 from ..util.units import SEC_PER_YEAR
 from .atmosphere import AtmosphereModel
 from .surface import SurfaceCarry, SurfaceInputs, SurfaceModel
 
 
-def expected_pdd_rate(T, T_threshold, sigma: float):
-    """Calov-Greve expectation of max(T - T_threshold, 0) [K]."""
+def expected_pdd_rate(T, T_threshold, sigma):
+    """Calov-Greve expectation of max(T - T_threshold, 0) [K]; ``sigma`` a
+    float or a field."""
     dT = T - T_threshold
-    sig = max(sigma, 1e-3)
+    sig = torch.clamp(sigma, min=1e-3) if torch.is_tensor(sigma) \
+        else max(sigma, 1e-3)
     z = dT / (math.sqrt(2.0) * sig)
     return (sig / math.sqrt(2.0 * math.pi) * torch.exp(-z ** 2)
             + 0.5 * dT * torch.special.erfc(-z))
@@ -53,18 +67,48 @@ class TemperatureIndex(SurfaceModel):
 
     atmosphere: AtmosphereModel
     config: object = None
+    sigma_field: object = None   # optional 2D air_temp_sd [K]
+    #                              (surface.pdd.std_dev.file)
+    latitude: object = None      # optional 2D latitude [deg N] (Fausto
+    #                              factors, the sigma latitude lapse)
     n_intervals: int = 0   # sub-intervals per update; 0 = from the config
 
     stateful = True
 
+    #: Monte-Carlo draws per interval and their slot of model time [s]
+    DRAWS = 32
+
     def __post_init__(self):
         cfg = self.config
-        require(cfg, "surface.pdd.method", ("expectation_integral",))
-        require(cfg, "surface.pdd.fausto.enabled", (False,))
-        require(cfg, "surface.pdd.std_dev.param_enabled", (False,))
-        require(cfg, "surface.pdd.std_dev.file", ("",))
-        # the JAX model ramps sigma with latitude when given one
-        require(cfg, "surface.pdd.std_dev.lapse_lat_rate", (0.0,))
+        self.method = cfg.get_string("surface.pdd.method")
+        if self.method not in ("expectation_integral", "random_process",
+                               "repeatable_random_process"):
+            raise ValueError(f"unknown surface.pdd.method {self.method!r}")
+        # random_process seeds from the OS when built (the reference seeds
+        # with time(NULL)); the repeatable one with 0
+        self._seed = int.from_bytes(os.urandom(4), "little") \
+            if self.method == "random_process" else 0
+        self.sigma_a = cfg.get_number("surface.pdd.std_dev.param_a")
+        self.sigma_b = cfg.get_number("surface.pdd.std_dev.param_b")
+        self.sigma_param = cfg.get_flag("surface.pdd.std_dev.param_enabled")
+        self.sigma_lat_base = cfg.get_number(
+            "surface.pdd.std_dev.lapse_lat_base")
+        self.sigma_lat_rate = cfg.get_number(
+            "surface.pdd.std_dev.lapse_lat_rate")
+        self.fausto = cfg.get_flag("surface.pdd.fausto.enabled")
+        if self.fausto:
+            day = 86400.0
+            self.fausto_T_c = cfg.get_number("surface.pdd.fausto.T_c")
+            self.fausto_T_w = cfg.get_number("surface.pdd.fausto.T_w")
+            self.fausto_beta = {
+                "ice_c": cfg.get_number("surface.pdd.fausto.beta_ice_c") / day,
+                "ice_w": cfg.get_number("surface.pdd.fausto.beta_ice_w") / day,
+                "snow_c": cfg.get_number("surface.pdd.fausto.beta_snow_c")
+                / day,
+                "snow_w": cfg.get_number("surface.pdd.fausto.beta_snow_w")
+                / day}
+            self.fausto_lat_w = cfg.get_number(
+                "surface.pdd.fausto.latitude_beta_w")
         self.factor_snow = cfg.get_number("surface.pdd.factor_snow", "m K-1 s-1")
         self.factor_ice = cfg.get_number("surface.pdd.factor_ice", "m K-1 s-1")
         self.refreeze = cfg.get_number("surface.pdd.refreeze")
@@ -116,10 +160,73 @@ class TemperatureIndex(SurfaceModel):
         return _round_to(math.cos(2.0 * math.pi * (frac - self.summer_peak)),
                          dtype)
 
-    def _interval(self, atm, cyc, dt_if, snow, firn):
+    def _factors(self, T_mj, dtype):
+        """(factor_snow, factor_ice) [m K-1 s-1]: the scalar factors, or
+        Fausto's cubic between the cold (T_mj <= T_c) and warm (T_mj >=
+        T_w) bands, warm south of ``latitude_beta_w``."""
+        if not self.fausto:
+            return self.factor_snow, self.factor_ice
+        w = torch.clamp((self.fausto_T_w - T_mj)
+                        / (self.fausto_T_w - self.fausto_T_c), 0.0, 1.0) ** 3
+        fb = self.fausto_beta
+        f_ice = fb["ice_w"] + (fb["ice_c"] - fb["ice_w"]) * w
+        f_snow = fb["snow_w"] + (fb["snow_c"] - fb["snow_w"]) * w
+        if self.latitude is not None:
+            south = self.latitude.to(dtype) < self.fausto_lat_w
+            f_ice = torch.where(south, fb["ice_w"], f_ice)
+            f_snow = torch.where(south, fb["snow_w"], f_snow)
+        return f_snow.to(dtype), f_ice.to(dtype)
+
+    def effective_sigma(self, T):
+        """The daily variability sigma [K] at air temperature T: the 2D
+        field, else the scalar or Seguinot's sigma(T), lapsed with latitude
+        north of its base when given a latitude; a float for the plain
+        scalar."""
+        dtype = T.dtype
+        if self.sigma_field is not None:
+            return self.sigma_field.to(dtype)
+        lat_lapse = self.sigma_lat_rate != 0.0 and self.latitude is not None
+        if not self.sigma_param and not lat_lapse:
+            return self.sigma
+        sigma = torch.tensor(self.sigma, dtype=dtype, device=T.device)
+        if self.sigma_param:
+            sigma = torch.clamp(self.sigma_a * (T - 273.15) + self.sigma_b,
+                                min=1e-3)
+        if lat_lapse:
+            lat = self.latitude.to(dtype)
+            sigma = torch.clamp(sigma + self.sigma_lat_rate * torch.clamp(
+                lat - self.sigma_lat_base, min=0.0), min=1e-3)
+        return sigma.expand(T.shape)
+
+    def _draw_seeds(self, t0: float, dt_i) -> list:
+        """The seeds of one interval's draws: draw s stands for the slice
+        [t0 + s dt_i/S, ...) and is keyed on its midpoint's slot of
+        86400/S s of absolute model time (the JAX package's fold_in of the
+        slot, ``pism_tpu/coupler/pdd.py:583-590``), formed as it forms them
+        (``dt_i`` in the field dtype)."""
+        S = self.DRAWS
+        f = type(dt_i)
+        t_s = t0 + (np.arange(S, dtype=np.float64) + 0.5) * float(dt_i / f(S))
+        slots = (t_s / (86400.0 / S)).astype(np.int64).astype(np.int32) \
+            & 0x7FFFFFFF
+        return [(self._seed << 32) | int(s) for s in slots]
+
+    def _random_pdd(self, T, sigma, seeds):
+        """The mean of max(T + eps - T_melt, 0) over the draws eps ~
+        N(0, sigma), one generator per draw."""
+        acc = torch.zeros_like(T)
+        for seed in seeds:
+            g = torch.Generator(device=T.device).manual_seed(seed)
+            eps = torch.randn(T.shape, generator=g, dtype=T.dtype,
+                              device=T.device) * sigma
+            acc = acc + torch.clamp(T + eps - self.T_melt, min=0.0)
+        return acc / len(seeds)
+
+    def _interval(self, atm, cyc, dt_if, snow, firn, seeds=None):
         """One sub-interval's budget from the air temperatures ``atm``, the
-        cycle weight and the interval length in the field dtype: (snowfall,
-        melt, refrozen, snow, firn) after it."""
+        cycle weight and the interval length in the field dtype (``seeds``:
+        the Monte-Carlo draws' seeds): (snowfall, melt, refrozen, snow,
+        firn) after it."""
         Ta, Tj = atm.temperature, atm.temperature_july
         T = Ta + (Tj - Ta) * cyc
         if self.precip_as_snow:
@@ -129,15 +236,20 @@ class TemperatureIndex(SurfaceModel):
                              / (self.T_all_rain - self.T_all_snow), 0.0, 1.0)
         snowfall = atm.precipitation * sf * dt_if    # m ice equivalent
         snow = snow + snowfall
-        pdd = expected_pdd_rate(T, self.T_melt, self.sigma) * dt_if / 86400.0
+        sigma = self.effective_sigma(T)
+        if seeds is None:
+            pdd = expected_pdd_rate(T, self.T_melt, sigma) * dt_if / 86400.0
+        else:
+            pdd = self._random_pdd(T, sigma, seeds) * dt_if / 86400.0
         # melt snow, then firn (snow factor), then ice
-        snowfirn_cap = self.factor_snow * 86400.0 * pdd
+        f_snow, f_ice = self._factors(Tj, T.dtype)
+        snowfirn_cap = f_snow * 86400.0 * pdd
         snow_melt = torch.minimum(snow, snowfirn_cap)
         firn_melt = torch.minimum(firn, snowfirn_cap - snow_melt)
         used = torch.where(snowfirn_cap > 0,
                            (snow_melt + firn_melt)
                            / torch.clamp(snowfirn_cap, min=1e-30), 0.0)
-        ice_melt = self.factor_ice * 86400.0 * pdd * (1.0 - used)
+        ice_melt = f_ice * 86400.0 * pdd * (1.0 - used)
         refrozen = self.refreeze * (snow_melt + firn_melt)
         if self.refreeze_ice:
             refrozen = refrozen + self.refreeze * ice_melt
@@ -171,8 +283,10 @@ class TemperatureIndex(SurfaceModel):
                 firn = firn + self.firn_compaction * snow
                 snow = torch.zeros_like(snow)
             yr = yr_k
+            seeds = None if self.method == "expectation_integral" \
+                else self._draw_seeds(t + float(f(k) * dt_i), dt_i)
             snowfall, melt_k, refrozen, snow, firn = self._interval(
-                atm, self._cycle(tk, dtype), dt_if, snow, firn)
+                atm, self._cycle(tk, dtype), dt_if, snow, firn, seeds)
             smb = smb + snowfall - melt_k + refrozen
             melt_a = melt_a + melt_k
             runoff_a = runoff_a + melt_k - refrozen
@@ -195,6 +309,11 @@ class TemperatureIndex(SurfaceModel):
         the most intervals any member takes, and a member past its own count
         keeps its accumulators (the JAX package's ``fori_loop`` under
         ``vmap``, ``pism_tpu/coupler/pdd.py:288``)."""
+        if self.method != "expectation_integral":
+            raise NotImplementedError(
+                f"surface.pdd.method = {self.method!r} on an ensemble's "
+                "member axis is not implemented in pism_tpu_torch (ROADMAP "
+                "Queue 1 item 3)")
         H = geometry.ice_thickness
         dtype = H.dtype
         snow = carry.snow if carry.snow is not None else torch.zeros_like(H)

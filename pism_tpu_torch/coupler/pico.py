@@ -237,7 +237,7 @@ class Pico(OceanModel, TimeStack):
         if self.times is not None:
             raise NotImplementedError(
                 "PICO forcing stacks on an ensemble's member axis are not "
-                "implemented in pism_tpu_torch (ROADMAP Queue 1 item 11)")
+                "implemented in pism_tpu_torch (ROADMAP Queue 1 item 3)")
         dtype = geometry.ice_thickness.dtype
         T0 = self.temperature_ocean
         if self.member_temperature is not None:

@@ -50,13 +50,15 @@ _STATE_VARS = {
                                   "PDD snow depth (melt bookkeeping)"}, 2),
     "firn_depth": ("firn_depth", {"units": "m", "long_name":
                                   "PDD firn depth (melt bookkeeping)"}, 2),
+    "surface_albedo": ("albedo", {"units": "1", "long_name":
+                                  "dEBM-simple surface albedo"}, 2),
 }
 
 #: state variables of the JAX package's components the port does not carry
-#: (age, fracture, isochrones, dEBM): a file that holds one cannot be
-#: continued here
+#: (age, fracture, isochrones): a file that holds one cannot be continued
+#: here
 _UNPORTED_VARS = ("age", "ch_enthalpy", "fracture_density", "fracture_age",
-                  "albedo", "isochronal_layer_thickness")
+                  "isochronal_layer_thickness")
 
 _XY = ("time", "y", "x")
 

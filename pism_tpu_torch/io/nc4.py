@@ -160,6 +160,13 @@ class File:
     def read(self, name: str) -> np.ndarray:
         return np.asarray(self.h5[name])
 
+    def read_slice(self, name: str, index: int) -> np.ndarray:
+        """Record ``index`` of a variable's first (time) dimension."""
+        return np.asarray(self.h5[name][index])
+
+    def shape(self, name: str) -> tuple:
+        return tuple(self.h5[name].shape)
+
     def read_attrs(self, name: str) -> dict:
         return {k: (v.decode() if isinstance(v, bytes) else v)
                 for k, v in self.h5[name].attrs.items()}
@@ -207,17 +214,26 @@ def _native(arr):
 
 
 class ClassicFile:
-    """Read-only classic NetCDF (CDF-1/2/5) through scipy."""
+    """Read-only classic NetCDF (CDF-1/2/5) through scipy; ``mmap=True``
+    maps the file instead of reading it whole (a reader of single records,
+    ``read_slice``)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, mmap: bool = False):
         from scipy.io import netcdf_file
-        self.nc = netcdf_file(path, "r", mmap=False, maskandscale=False)
+        self.nc = netcdf_file(path, "r", mmap=mmap, maskandscale=False)
 
     def has_dimension(self, name: str) -> bool:
         return name in self.nc.dimensions
 
     def read(self, name: str) -> np.ndarray:
         return _native(np.array(self.nc.variables[name].data))
+
+    def read_slice(self, name: str, index: int) -> np.ndarray:
+        """Record ``index`` of a variable's first (time) dimension."""
+        return _native(np.array(self.nc.variables[name].data[index]))
+
+    def shape(self, name: str) -> tuple:
+        return tuple(self.nc.variables[name].shape)
 
     def read_attrs(self, name: str) -> dict:
         return {k: _decode(v)

@@ -7,9 +7,13 @@ the rate laws ``eigen_calving`` (with ``make_margin_floating``),
 ``frontal_melt.include_floating_ice``) summed into one retreat rate and
 applied as a front retreat (part-grid aware, or by thickness scaling
 without part-grid), the retreat split between calving and frontal melt by
-rate share, the front-retreat dt limit and iceberg removal.
-``prescribed_retreat`` and the rate-scaling and 2D threshold files
-raise.
+rate share, the front-retreat dt limit and iceberg removal; the
+file-driven inputs: ``prescribed_retreat`` (the ISMIP6 retreat masks of
+``geometry.front_retreat.prescribed.file``), the rate-scaling series
+(``calving.rate_scaling.file``) and the 2D threshold fields
+(``calving.thickness_calving.file``,
+``calving.vonmises_calving.sigma_max_file``). A retreat mask's record and
+the scaling's value are found on the host from the host time.
 
 Icebergs are removed by a flood fill from grounded ice over the icy mask.
 The JAX package runs it as a ``lax.while_loop`` until no cell changes
@@ -32,15 +36,30 @@ import math
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import state as S
-from ..config import require
 from ..ops.stencils import Shifter
 from ..util.hostsync import fixed_point
 from ..util.units import SEC_PER_YEAR
 
 RATE_METHODS = ("eigen_calving", "vonmises_calving", "hayhurst_calving")
+
+
+@dataclass
+class PrescribedRetreat:
+    """PISM ``-front_retreat prescribed`` (the ISMIP6 ``retreat_file``
+    protocol): a series of ice-extent fraction masks in [0, 1], the
+    thickness scaled by the record at or before t (clamped at the ends)."""
+
+    times: np.ndarray           # (Nt,) [s], sorted
+    fraction: torch.Tensor      # (Nt, My, Mx) in [0, 1]
+
+    def __call__(self, H, t: float):
+        k = int(np.clip(np.searchsorted(self.times, t, side="right") - 1,
+                        0, self.times.shape[0] - 1))
+        return H * torch.clamp(self.fraction[k].to(H.dtype), 0.0, 1.0)
 
 
 def front_mask(icy, ice_free_ocean, sh):
@@ -82,6 +101,8 @@ class CalvingModel:
     # the methods; empty: ``calving.methods``. ("none",) is the front
     # retreat of a frontal melt with no calving law
     methods: tuple = ()
+    prescribed_retreat: Optional[PrescribedRetreat] = None
+    device: object = "cpu"   # of the fields read from files
 
     def __post_init__(self):
         cfg = self.config
@@ -97,17 +118,13 @@ class CalvingModel:
                 f"{cfg.get_flag('calving.float_kill.enabled')}) in an "
                 "ensemble is not implemented in pism_tpu_torch (supported: "
                 "thickness_calving, eigen_calving and iceberg removal; "
-                "ROADMAP Queue 1 item 11)")
+                "ROADMAP Queue 1 item 3)")
         for name in self.methods:
             if name not in ("none", "thickness_calving", "ocean_kill",
-                            "float_kill") + RATE_METHODS:
+                            "float_kill", "prescribed_retreat") + RATE_METHODS:
                 raise NotImplementedError(
                     f"calving method {name!r} is not implemented in "
-                    "pism_tpu_torch (ROADMAP Queue 1 item 8)")
-        for key in ("calving.thickness_calving.file",
-                    "calving.vonmises_calving.sigma_max_file",
-                    "calving.rate_scaling.file"):
-            require(cfg, key, ("",))
+                    "pism_tpu_torch (ROADMAP Queue 1 item 7)")
         self.H_threshold = cfg.get_number("calving.thickness_calving.threshold")
         self.eigen_K = cfg.get_number("calving.eigen_calving.K")
         self.vm_sigma_max = cfg.get_number("calving.vonmises_calving.sigma_max")
@@ -133,6 +150,61 @@ class CalvingModel:
         # partially filled (Href) cells; without it, thickness scaling
         self.part_grid = cfg.get_flag("geometry.part_grid.enabled")
         self.rate_methods = tuple(m for m in RATE_METHODS if m in self.methods)
+        self.rate_scaling = None
+        path = cfg.get_string("calving.rate_scaling.file")
+        if path:
+            from ..util.forcing import ScalarForcing
+            self.rate_scaling = ScalarForcing.from_file(
+                path, "frac_calving_rate",
+                calendar=cfg.get_string("time.calendar"),
+                reference_date=cfg.get_string("time.reference_date"))
+        # 2D threshold fields override the scalar thresholds where given
+        self.H_threshold_field = self._read_2d(
+            cfg.get_string("calving.thickness_calving.file"),
+            ["calving_threshold", "thickness_calving_threshold"])
+        self.vm_sigma_max_field = self._read_2d(
+            cfg.get_string("calving.vonmises_calving.sigma_max_file"),
+            ["vonmises_calving_threshold", "sigma_max"])
+        if self.prescribed_retreat is None \
+                and "prescribed_retreat" in self.methods:
+            self.prescribed_retreat = self._read_retreat(cfg)
+
+    def _read_2d(self, path, names):
+        """The first of ``names`` in ``path`` (a stack: its last record),
+        float64 on the card, as the JAX package loads it."""
+        if not path:
+            return None
+        from ..io.bootstrap import read_forcing_fields
+        fields, _ = read_forcing_fields(path, self.grid, names)
+        for n in names:
+            if n in fields:
+                a = np.asarray(fields[n])
+                return torch.as_tensor(a[-1] if a.ndim == 3 else a,
+                                       dtype=torch.float64,
+                                       device=self.device)
+        raise ValueError(f"{path!r}: none of {names} found")
+
+    def _read_retreat(self, cfg):
+        """The retreat masks of geometry.front_retreat.prescribed.file."""
+        path = cfg.get_string("geometry.front_retreat.prescribed.file")
+        if not path:
+            raise ValueError("calving method 'prescribed_retreat' needs "
+                             "geometry.front_retreat.prescribed.file")
+        from ..io.bootstrap import read_forcing_fields
+        fields, times = read_forcing_fields(
+            path, self.grid, ["land_ice_area_fraction_retreat"],
+            calendar=cfg.get_string("time.calendar"),
+            reference_date=cfg.get_string("time.reference_date"))
+        fr = fields.get("land_ice_area_fraction_retreat")
+        if fr is None:
+            raise ValueError(f"{path!r} has no land_ice_area_fraction_retreat")
+        fr = np.asarray(fr)
+        if fr.ndim == 2:
+            fr, times = fr[None], np.zeros(1)
+        return PrescribedRetreat(
+            times=np.asarray(times, np.float64),
+            fraction=torch.as_tensor(np.nan_to_num(fr, nan=1.0),
+                                     dtype=torch.float64, device=self.device))
 
     # -- strain-rate eigenvalues from the SSA velocity ---------------------
     def _strain_eigenvalues(self, u, v):
@@ -181,7 +253,9 @@ class CalvingModel:
             eff = torch.sqrt(0.5 * (e1 ** 2 + e2 ** 2))
             sigma = math.sqrt(3.0) * hardness_B * eff ** (1.0 / self.n_glen)
             speed = torch.sqrt(u_ssa ** 2 + v_ssa ** 2)
-            rate = rate + speed * sigma / self.vm_sigma_max
+            sig_max = self.vm_sigma_max if self.vm_sigma_max_field is None \
+                else self.vm_sigma_max_field.to(sigma.dtype)
+            rate = rate + speed * sigma / sig_max
         if "hayhurst_calving" in self.methods:
             rate = rate + self.hayhurst_rate(geometry)
         return rate
@@ -289,8 +363,8 @@ class CalvingModel:
         With ``with_parts=True`` return ``(geometry, parts)``, ``parts`` the
         per-mechanism thickness changes [m] (<= 0, counted as H + Href):
         ``calving`` (the laws and iceberg removal), ``frontal_melt`` (the
-        retreat's share of the melt rate) and ``forced_retreat`` (zero:
-        prescribed retreat is not ported)."""
+        retreat's share of the melt rate) and ``forced_retreat`` (the
+        prescribed retreat's)."""
         sh = self.sh
         mask = geometry.cell_type
         icy = S.icy(mask)
@@ -319,7 +393,9 @@ class CalvingModel:
             H = torch.where(okm, 0.0, H)
 
         if "thickness_calving" in self.methods and self.H_threshold > 0:
-            calve = front & floating & (H < self.H_threshold)
+            H_thr = self.H_threshold if self.H_threshold_field is None \
+                else self.H_threshold_field.to(H.dtype)
+            calve = front & floating & (H < H_thr)
             H = torch.where(calve, 0.0, H)
         C_inst = H + Href   # ice content after the instantaneous laws
 
@@ -331,6 +407,10 @@ class CalvingModel:
         if self.rate_methods:
             r = self.retreat_rate(geometry, sb.u_ssa, sb.v_ssa,
                                   hardness_B=hardness_B)
+            if self.rate_scaling is not None:
+                # calving.rate_scaling.file: a scalar series times every
+                # calving law's rate, in the field dtype
+                r = r * torch.tensor(self.rate_scaling(t), dtype=r.dtype).item()
             rate_c = torch.where(self._law_where(front, floating, marine),
                                  torch.clamp(r, min=0.0), 0.0)
         if frontal_melt_rate is not None:
@@ -354,6 +434,9 @@ class CalvingModel:
                 loss_frac = torch.clamp(rate * dt / self.grid.dx, 0.0, 1.0)
                 H = H - H * loss_frac
         C_rate = H + Href
+        if self.prescribed_retreat is not None:
+            H = self.prescribed_retreat(H, t)
+        C_forced = H + Href
 
         geometry = geometry.replace(ice_thickness=H,
                                     ice_area_specific_volume=Href)
@@ -374,17 +457,18 @@ class CalvingModel:
         parts = {
             "calving": (C_inst - (H_in + Href_in))
             + (rate_d if share_c is None else rate_d * share_c)
-            + (C_out - C_rate),
+            + (C_out - C_forced),
             "frontal_melt": zero if share_c is None
             else rate_d * (1.0 - share_c),
-            "forced_retreat": zero,
+            "forced_retreat": zero if self.prescribed_retreat is None
+            else C_forced - C_rate,
         }
         return geometry, parts
 
 
-def calving_from_config(grid, config, lead: int = 0):
+def calving_from_config(grid, config, lead: int = 0, device="cpu"):
     if not config.get_string("calving.methods") \
             and not config.get_flag("calving.float_kill.enabled") \
             and not config.get_flag("geometry.remove_icebergs"):
         return None
-    return CalvingModel(grid=grid, config=config, lead=lead)
+    return CalvingModel(grid=grid, config=config, lead=lead, device=device)

@@ -13,7 +13,9 @@ frontal-melt and total retreat rates, ``frontal_melt_rate``,
 ``bwp``, ``bwprel``, ``effbwp``, ``hydraulic_potential``, ``bwatflux``,
 ``bwatvel_x``/``_y``, ``wallmelt``), the
 bedrock layer's ``bedtoptemp``, ``heat_flux_from_bedrock`` and
-``litho_temp`` (the column, ``(..., Mbz)``), and
+``litho_temp`` (the column, ``(..., Mbz)``), the surface model's state
+(``snow_depth``, ``firn_depth``, ``surface_albedo``) and dEBM-simple's
+``insolation`` and ``debm_*_melt_flux`` fields, and
 the interval-averaged rates: the scalar ones
 (``Window``, ``RATE``) from ``StepStats``' volume sums, and the spatial
 ones (``Window2D``, ``SPATIAL_RATE``) from its per-cell ``CellBudget``.
@@ -33,6 +35,7 @@ import torch
 
 from .. import state as S
 from ..ops import stencils as st
+from ..util.units import SEC_PER_YEAR
 
 
 class Diagnostic(NamedTuple):
@@ -194,6 +197,79 @@ def _tauc(state, model, t):
          "magnitude of vertically-integrated horizontal flux")
 def _fluxmag(state, model, t):
     return _velbar(state, model, t) * state.geometry.ice_thickness
+
+
+@spatial("snow_depth", "m", "PDD snow cover depth (ice equivalent)")
+def _snowdepth(state, model, t):
+    return state.snow_depth if state.snow_depth is not None \
+        else _zeros2(state)
+
+
+@spatial("firn_depth", "m", "PDD firn layer depth (ice equivalent)")
+def _firndepth(state, model, t):
+    return state.firn_depth if state.firn_depth is not None \
+        else _zeros2(state)
+
+
+@spatial("surface_albedo", "1", "dEBM-simple surface albedo")
+def _surfalbedo(state, model, t):
+    return state.surface_albedo if state.surface_albedo is not None \
+        else _zeros2(state)
+
+
+def _debm_model(model):
+    from ..coupler.debm import DEBMSimple
+    surf = getattr(model, "surface", None)
+    while surf is not None and not isinstance(surf, DEBMSimple):
+        surf = getattr(surf, "inner", None)
+    return surf
+
+
+@spatial("insolation", "W m-2",
+         "mean top-of-atmosphere insolation during the dEBM melt period")
+def _insolation(state, model, t):
+    surf = _debm_model(model)
+    if surf is None:
+        return _zeros2(state)
+    H = state.geometry.ice_thickness
+    return surf.insolation_at(t, H.dtype, H.device)
+
+
+def _debm_melt_parts(state, model, t):
+    """The dEBM melt components at model time t [m ice equivalent s-1]."""
+    surf = _debm_model(model)
+    if surf is None:
+        z = _zeros2(state)
+        return z, z, z
+    geom = state.geometry
+    atm = surf.atmosphere(geom, t)
+    frac = t / SEC_PER_YEAR - math.floor(t / SEC_PER_YEAR)
+    cyc = torch.tensor(math.cos(2.0 * math.pi * (frac - 0.5)),
+                       dtype=geom.ice_thickness.dtype).item()
+    T = atm.temperature + (atm.temperature_july - atm.temperature) * cyc
+    alb = state.surface_albedo if state.surface_albedo is not None \
+        else torch.full_like(geom.ice_thickness, surf.albedo_max)
+    insol, temp, offset, _ = surf.melt_components(
+        t, T, geom.ice_surface_elevation, alb)
+    return insol, temp, offset
+
+
+@spatial("debm_insolation_driven_melt_flux", "kg m-2 s-1",
+         "dEBM-simple insolation-driven melt flux")
+def _debm_insol_melt(state, model, t):
+    return _debm_melt_parts(state, model, t)[0] * 910.0
+
+
+@spatial("debm_temperature_driven_melt_flux", "kg m-2 s-1",
+         "dEBM-simple temperature-driven melt flux")
+def _debm_temp_melt(state, model, t):
+    return _debm_melt_parts(state, model, t)[1] * 910.0
+
+
+@spatial("debm_offset_melt_flux", "kg m-2 s-1",
+         "dEBM-simple background (offset) melt flux")
+def _debm_offset_melt(state, model, t):
+    return _debm_melt_parts(state, model, t)[2] * 910.0
 
 
 @spatial("climatic_mass_balance", "kg m-2 s-1",
@@ -844,10 +920,10 @@ def expand_names(names):
 def require_known(names, tables, option):
     """Raise NotImplementedError for a name that none of ``tables`` holds:
     the port registers the diagnostics of its routes' default outputs, and
-    the rest of the JAX package's registry is ROADMAP Queue 1 item 3."""
+    the rest of the JAX package's registry is ROADMAP Queue 1 item 4."""
     missing = [n for n in names if not any(n in tab for tab in tables)]
     if missing:
         raise NotImplementedError(
             f"{option} {', '.join(missing)}: not in pism_tpu_torch's "
             "diagnostics registry (the rest of model/diagnostics.py is "
-            "ROADMAP Queue 1 item 3)")
+            "ROADMAP Queue 1 item 4)")

@@ -296,6 +296,8 @@ class IceModel:
         if self.surface is None:
             raise NotImplementedError("pism_tpu_torch needs a surface model")
         self.stateful_surface = getattr(self.surface, "stateful", False)
+        self.midpoint_surface = getattr(self.surface, "midpoint_sampling",
+                                        False)
         self.sh = Shifter(self.grid, self.lead)
         self.EC = EnthalpyConverter.from_config(cfg)
         self.dtype = torch.float64 \
@@ -354,7 +356,8 @@ class IceModel:
                     f"frontal melt in {what} is not implemented in "
                     f"pism_tpu_torch (ROADMAP Queue 1 item {item})")
         if self.calving is None:
-            self.calving = calving_from_config(self.grid, cfg, self.lead)
+            self.calving = calving_from_config(self.grid, cfg, self.lead,
+                                               self.device)
             if self.calving is None and self.frontal_melt is not None:
                 # frontal melt needs the front retreat with no calving law
                 self.calving = CalvingModel(grid=self.grid, config=cfg,
@@ -434,7 +437,7 @@ class IceModel:
                 if present:
                     raise NotImplementedError(
                         f"{what} in an ensemble is not implemented in "
-                        "pism_tpu_torch (ROADMAP Queue 1 item 11)")
+                        "pism_tpu_torch (ROADMAP Queue 1 item 3)")
 
     # ------------------------------------------------------------------ step
     def _dt_maxima(self, sb: StressBalanceResult, front_retreat_rate=None):
@@ -578,7 +581,13 @@ class IceModel:
         tau_c = None
         if self.yield_stress is not None:
             tau_c = self.yield_stress.compute(state, t=t)
-        sb = self.stress_balance.update(state, tau_c)
+        wcp = None
+        if self.ocean is not None:
+            # melange back-pressure modifiers raise the front water-column
+            # pressure; None is the hydrostatic default in the SSA
+            wcp = self.ocean.water_column_pressure(state.geometry, t)
+        sb = self.stress_balance.update(state, tau_c,
+                                        water_column_pressure=wcp)
         fr_rate = None
         if self.front_retreat_cfl:
             fr_rate = self.calving.max_rate(
@@ -590,8 +599,14 @@ class IceModel:
         if self.stateful_surface:
             smb_in, carry = self.surface.update(
                 state.geometry, t, dt_f,
-                SurfaceCarry(snow=state.snow_depth, firn=state.firn_depth))
-            state = state.replace(snow_depth=carry.snow, firn_depth=carry.firn)
+                SurfaceCarry(snow=state.snow_depth, firn=state.firn_depth,
+                             albedo=state.surface_albedo))
+            state = state.replace(snow_depth=carry.snow, firn_depth=carry.firn,
+                                  surface_albedo=carry.albedo)
+        elif self.midpoint_surface:
+            # piecewise-constant file forcing: the step's value is the
+            # record covering the interval's midpoint (GivenStreamed)
+            smb_in = self.surface(state.geometry, t + 0.5 * dt)
         else:
             smb_in = self.surface(state.geometry, t)
 
@@ -935,6 +950,15 @@ class IceModel:
                 kw["snow_depth"] = z2
             if state.firn_depth is None:
                 kw["firn_depth"] = z2
+            if getattr(self.surface, "uses_albedo", False) \
+                    and state.surface_albedo is None:
+                # the innermost model's initial albedo (dEBM: albedo_max)
+                base = self.surface
+                while not hasattr(base, "initial_albedo") \
+                        and getattr(base, "inner", None) is not None:
+                    base = base.inner
+                kw["surface_albedo"] = torch.full_like(
+                    H, getattr(base, "initial_albedo", 0.8))
         if state.till_phi is None \
                 and getattr(self.yield_stress, "t2p_enabled", False):
             # PISM -topg_to_phi: the friction angle from the initial bed

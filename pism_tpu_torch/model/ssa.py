@@ -220,9 +220,14 @@ class SSAFD:
         # SSA enhancement factor scales softness: B -> B * e^(-1/n)
         return B * self.e_ssa ** (-1.0 / self.n_glen)
 
-    def _front_stress(self, geometry):
-        """T_front = 1/2 g (rho_i H^2 - rho_w d^2) per cell [Pa m]."""
+    def _front_stress(self, geometry, water_column_pressure=None):
+        """T_front = 1/2 g (rho_i H^2 - rho_w d^2) per cell [Pa m]; with an
+        ocean model's front water-column pressure P_w (melange back
+        pressure) H (1/2 g rho_i H - P_w)."""
         H = geometry.ice_thickness
+        if water_column_pressure is not None:
+            Pw = water_column_pressure.to(H.dtype)
+            return H * (0.5 * self.g * self.rho * H - Pw)
         mu = self.rho / self.rho_w
         d = torch.minimum(
             torch.clamp(geometry.sea_level - geometry.bed_elevation, min=0.0),
@@ -231,7 +236,7 @@ class SSAFD:
 
     # ------------------------------------------------------------------
     def build_problem(self, state: S.ModelState, tau_c=None,
-                      hardness=None) -> dict:
+                      hardness=None, water_column_pressure=None) -> dict:
         """Masks, right-hand side (driving stress + calving-front terms) and
         the nonlinear residual closure.
 
@@ -258,7 +263,7 @@ class SSAFD:
             bx, by = self.driving_stress(geom, icy)
 
         # calving-front pressure-imbalance terms on front faces
-        Tf = self._front_stress(geom)
+        Tf = self._front_stress(geom, water_column_pressure)
         icy_e, icy_w = sh(icy, 0, 1), sh(icy, 0, -1)
         icy_n, icy_s = sh(icy, 1, 0), sh(icy, -1, 0)
         bx = bx + torch.where(icy & ~icy_e, Tf / dx, 0.0) \
@@ -376,7 +381,8 @@ class SSAFD:
                     bc_u=bc_u, bc_v=bc_v, bx=bx, by=by, icy=icy, tau_c=tau_c)
 
     def solve(self, state: S.ModelState, tau_c=None, u0=None, v0=None,
-              diagnostics: bool = False, active=None, hardness=None):
+              diagnostics: bool = False, active=None, hardness=None,
+              water_column_pressure=None):
         """Solve for (u, v). With ``diagnostics=True`` also return a dict with
         the Newton sweep count, the total Krylov iterations (host ints) and
         the residual norms, as the JAX package's ``info``.
@@ -391,7 +397,8 @@ class SSAFD:
         discards). The counts are then lists, one per member, and the
         diagnostics add ``lockstep_newton`` and ``lockstep_krylov``, the
         sweeps and Krylov iterations the lockstep ran. ``hardness``
-        replaces B as ``build_problem`` says."""
+        replaces B as ``build_problem`` says; ``water_column_pressure`` is
+        the front's water-column pressure of ``_front_stress``."""
         geom = state.geometry
         H = geom.ice_thickness
         dtype = H.dtype
@@ -403,7 +410,7 @@ class SSAFD:
                 f"the {self.solve_dtype!r} SSA solve of {dtype} fields is not "
                 "implemented in pism_tpu_torch")
 
-        P = self.build_problem(state, tau_c, hardness)
+        P = self.build_problem(state, tau_c, hardness, water_column_pressure)
         apply_op, free, residual = P["apply"], P["free"], P["residual"]
         full, bc_u, bc_v = P["full"], P["bc_u"], P["bc_v"]
         make_nuH, beta_fn = P["make_nuH"], P["beta_fn"]

@@ -253,9 +253,13 @@ class StressBalance:
             ssa_krylov_iters=info["krylov_iters"])
 
     def update(self, state: S.ModelState, yield_stress,
-               active=None) -> StressBalanceResult:
+               active=None, water_column_pressure=None) -> StressBalanceResult:
         """``active``: on the member axis, the members whose SSA solves (a
-        host list; the others' results are discarded by the caller)."""
+        host list; the others' results are discarded by the caller).
+        ``water_column_pressure``: the ocean model's front water-column
+        pressure [Pa] (melange back pressure; None: hydrostatic), which
+        the finite-difference SSA's calving-front term takes and SSAFEM
+        ignores, as in the JAX package."""
         if self.model == "blatter":
             return self._blatter_update(state, yield_stress)
         # without an SSA a state's sliding velocities (say, of a restart
@@ -263,9 +267,12 @@ class StressBalance:
         u_ssa, v_ssa = state.u_ssa, state.v_ssa
         info = {"newton_iters": 0, "krylov_iters": 0}
         if self.model in ("ssa", "ssa+sia"):
+            kw = {"active": active} if self.lead else {}
+            if water_column_pressure is not None \
+                    and hasattr(self.ssa, "_front_stress"):
+                kw["water_column_pressure"] = water_column_pressure
             u_ssa, v_ssa, info = self.ssa.solve(
-                state, yield_stress, diagnostics=True,
-                **({"active": active} if self.lead else {}))
+                state, yield_stress, diagnostics=True, **kw)
         elif self.sliding == "weertman_sliding":
             u_ssa, v_ssa = self._weertman(state)
         elif self.sliding == "prescribed_sliding":

@@ -169,6 +169,7 @@ class ModelState:
     geothermal_flux: Optional[torch.Tensor] = None    # 2D bheatflx W/m^2
     snow_depth: Optional[torch.Tensor] = None         # PDD snow bookkeeping m
     firn_depth: Optional[torch.Tensor] = None         # PDD firn bookkeeping m
+    surface_albedo: Optional[torch.Tensor] = None     # dEBM-simple albedo 1
     bed_uplift: Optional[torch.Tensor] = None         # Lingle-Clark viscous bed displacement m
     bed_load_reference: Optional[torch.Tensor] = None  # ice load at the reference bed m
     bed_reference: Optional[torch.Tensor] = None      # undeformed bed + initial load

@@ -69,6 +69,41 @@ def _scalar(x, dtype):
     return (np.float32 if dtype == torch.float32 else np.float64)(x)
 
 
+def _stack_time(times, period: float, t: float):
+    times = np.asarray(times, np.float64)
+    if period > 0.0:
+        t = times[0] + np.mod(t - times[0], period)
+    return t, times
+
+
+def linear_slice(f, times, period: float, t: float, dtype):
+    """Piecewise-linear in time between the records of a ``(Nt, My, Mx)``
+    stack (a 2D field, or no ``times``: itself), the weight found on the
+    host in float64 and rounded to ``dtype``; clamped at the ends,
+    ``period`` > 0 cycles the series."""
+    if times is None or f.ndim == 2:
+        return f.to(dtype)
+    tt, times = _stack_time(times, period, t)
+    k = int(np.clip(np.searchsorted(times, tt, side="right") - 1,
+                    0, times.shape[0] - 2))
+    w = np.clip((tt - times[k]) / max(times[k + 1] - times[k], 1e-30),
+                0.0, 1.0)
+    w = _scalar(w, dtype)
+    return float(_scalar(1.0, dtype) - w) * f[k].to(dtype) \
+        + float(w) * f[k + 1].to(dtype)
+
+
+def constant_slice(f, times, period: float, t: float, dtype):
+    """Piecewise-constant over the stack's intervals (the record at or
+    before ``t``, clamped at the ends)."""
+    if times is None or f.ndim == 2:
+        return f.to(dtype)
+    tt, times = _stack_time(times, period, t)
+    k = int(np.clip(np.searchsorted(times, tt, side="right") - 1,
+                    0, times.shape[0] - 1))
+    return f[k].to(dtype)
+
+
 class TimeStack:
     """Interval lookup in a sorted ``times`` axis [s] at a host time, with
     ``period`` > 0 cycling the series (the ``Given`` couplers' ``_t``)."""
@@ -76,31 +111,10 @@ class TimeStack:
     times: Optional[np.ndarray]
     period: float
 
-    def _t(self, t: float):
-        times = np.asarray(self.times, np.float64)
-        if self.period > 0.0:
-            t = times[0] + np.mod(t - times[0], self.period)
-        return t, times
-
     def _linear(self, f, t, dtype):
         """Piecewise-linear in time (a 2D field or no times: itself)."""
-        f = f.to(dtype)
-        if self.times is None or f.ndim == 2:
-            return f
-        tt, times = self._t(t)
-        k = int(np.clip(np.searchsorted(times, tt, side="right") - 1,
-                        0, times.shape[0] - 2))
-        w = np.clip((tt - times[k]) / max(times[k + 1] - times[k], 1e-30),
-                    0.0, 1.0)
-        w = _scalar(w, dtype)
-        return float(_scalar(1.0, dtype) - w) * f[k] + float(w) * f[k + 1]
+        return linear_slice(f, self.times, self.period, t, dtype)
 
     def _constant(self, f, t, dtype):
         """Piecewise-constant over the stack's intervals."""
-        f = f.to(dtype)
-        if self.times is None or f.ndim == 2:
-            return f
-        tt, times = self._t(t)
-        k = int(np.clip(np.searchsorted(times, tt, side="right") - 1,
-                        0, times.shape[0] - 1))
-        return f[k]
+        return constant_slice(f, self.times, self.period, t, dtype)

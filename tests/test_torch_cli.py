@@ -234,15 +234,49 @@ def test_shorthands_set_the_config(tmp_path):
     assert cfgs["torch"]["time_stepping.skip.max"] == 3
 
 
-@pytest.mark.parametrize("argv", [
+#: options that the port refused before it carried the whole coupler: each
+#: now does in the port what it does in the JAX package
+COUPLER_ARGV = [
     ["-test", "B", "-Mx", "11", "-atmosphere", "yearly_cycle"],
     ["-test", "B", "-Mx", "11", "-sea_level", "constant",
-     "-config", "ocean.delta_sl_2d.file=x.nc"], ["-regional"],
-    ["-no_model_strip", "30"],
+     "-config", "ocean.delta_sl_2d.file=x.nc"],
     ["-test", "B", "-Mx", "11", "-atmosphere", "uniform,anomaly"],
     ["-test", "B", "-Mx", "11", "-surface", "pdd,cache"],
     ["-test", "B", "-Mx", "11", "-ocean", "th"],
     ["-test", "B", "-Mx", "11", "-sea_level", "constant,delta_sl_2d"],
+    ["-test", "B", "-Mx", "11", "-surface", "elevation"],
+]
+
+
+@pytest.mark.parametrize("argv", COUPLER_ARGV)
+def test_coupler_options_behave_as_jax(tmp_path, argv):
+    """The same outcome through both command lines: the same exception
+    where an input is missing, else the same steps and dt-limit hits."""
+    import contextlib
+    import io
+
+    res = {}
+    for pkg, main, fmt, extra in (
+            ("jax", j_cli.main, "netcdf4", []),
+            ("torch", t_cli.main, "netcdf3", ["-platform", "cpu"])):
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                main(argv + extra + [
+                    "-y", "1", "-o", str(tmp_path / f"{pkg}.nc"),
+                    "-o_format", fmt, "-config",
+                    "time_stepping.count_time_steps=true"])
+        except (ValueError, OSError) as e:
+            res[pkg] = type(e).__name__
+            continue
+        m = re.search(r"count_time_steps: (\d+) adaptive steps", buf.getvalue())
+        res[pkg] = int(m.group(1))
+    assert res["torch"] == res["jax"], res
+
+
+@pytest.mark.parametrize("argv", [
+    ["-regional"],
+    ["-no_model_strip", "30"],
     ["-i", "{dome}", "-stress_balance", "ssa+sia", "-inverse", "-inv_data",
      "{obs}", "-config", "runtime.float_dtype=float32"],
     ["-view", "thk"], ["-list_params"], ["-list_diagnostics"],
@@ -250,7 +284,6 @@ def test_shorthands_set_the_config(tmp_path):
     ["-test", "J", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
     ["-test", "M", "-config", "stress_balance.ssa.fd.krylov_method=cg"],
     ["-test", "N", "-config", "stress_balance.ssa.fd.preconditioner=linemg"],
-    ["-test", "B", "-Mx", "11", "-surface", "elevation"],
     ["-test", "V", "-config", "stress_balance.ssa.fd.line_block=64"],
     ["-test", "B", "-Mx", "11", "-config", "grid.Nx=2",
      "-config", "grid.Ny=2"],
@@ -1130,3 +1163,173 @@ def test_cli_stress_balance_runs_and_restarts(tmp_path, model, years):
     else:
         assert not np.array_equal(a["ice_thickness"], H0.numpy())
         assert np.isfinite(u).all() and np.abs(u).max() > 0
+
+
+# -- the rest of the coupler through the command line -----------------------
+
+def _ismip6_files(d, boot):
+    """An ISMIP6 reference climate and a three-record anomaly/gradient
+    forcing on the bootstrap file's grid (classic NetCDF). Both packages
+    read the anomalies and gradients without a unit conversion, so they
+    are in internal units (m s-1 ice equivalent)."""
+    with File(boot, "r") as f:
+        x, y = f.read("x"), f.read("y")
+        usurf = np.maximum(f.read("thk") + f.read("topg"), 0.0)
+    shp = (y.size, x.size)
+    ref, frc = str(d / "ismip6_ref.nc"), str(d / "ismip6.nc")
+    with File(ref, "w", format="netcdf3") as f:
+        f.define_dimension("y", y.size, y)
+        f.define_dimension("x", x.size, x)
+        f.write("climatic_mass_balance", np.full(shp, 250.0) - 0.1 * usurf,
+                ("y", "x"), {"units": "kg m-2 year-1"})
+        f.write("ice_surface_temp", 265.0 - 0.006 * usurf, ("y", "x"),
+                {"units": "K"})
+        f.write("usurf", usurf, ("y", "x"), {"units": "m"})
+    with File(frc, "w", format="netcdf3") as f:
+        f.define_dimension("time", None, attrs={"units": "years"})
+        f.define_dimension("y", y.size, y)
+        f.define_dimension("x", x.size, x)
+        for k in range(3):
+            n = f.append_time(0.5 * k)
+            for name, v, u in (
+                    ("climatic_mass_balance_anomaly", -0.06 / SPY * k,
+                     "m s-1"),
+                    ("ice_surface_temp_anomaly", 0.8 * k, "K"),
+                    ("climatic_mass_balance_gradient", -2e-5 / SPY * k,
+                     "s-1"),
+                    ("ice_surface_temp_gradient", -0.001 * k, "K m-1")):
+                f.write(name, np.full((1,) + shp, v), ("time", "y", "x"),
+                        {"units": u}, time_index=n)
+    return ref, frc
+
+
+@pytest.fixture(scope="module")
+def coupler_runs(tmp_path_factory):
+    """The rest of the coupler through both command lines, each bootstrapped
+    and run in float64: dEBM over the SeaRISE atmosphere with
+    orographic precipitation (``examples/greenland_debm.py``'s command
+    line: ``-o_size medium`` with the dEBM diagnostics) and ISMIP6 on the
+    example's synthetic Greenland file at 100 km (SIA; 1.55 a and 1 a),
+    the three-equation ``-ocean th`` on the synthetic Antarctic file at
+    200 km (the PIK chain's flags, 1 a from the bootstrap with its ties
+    moved, as the ``pik`` fixture runs); then the port's dEBM run continued
+    by a plain -i restart for 0.5 a. ``IceModel.run`` is recorded."""
+    from pism_tpu_torch.examples import greenland_debm
+    from pism_tpu_torch.examples.antarctica_pik import (
+        bootstrap_argv, synthesize_data_file)
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    d = tmp_path_factory.mktemp("couplers")
+    boot, ant = str(d / "g.nc"), str(d / "ant.nc")
+    greenland_debm.synthesize_data_file(boot, 100.0, "netcdf4")
+    synthesize_data_file(ant, 200.0, "netcdf4")
+    ref, frc = _ismip6_files(d, boot)
+    sia = ("-stress_balance", "sia")
+    # to mid-July, where the high latitudes see the sun
+    debm = greenland_debm.cli_argv(boot, "x.nc", 100.0, 1.55, Mz=11,
+                                   extra=sia)
+    i = debm.index("-o")
+    del debm[i:i + 4]          # -o x.nc -o_format netcdf4
+    cases = {
+        "debm": debm,
+        "ismip6": ["-i", boot, "-bootstrap", "-Mx", "16", "-My", "29", "-Mz",
+                   "11", "-Lx", "750", "-Ly", "1400", "-Lz", "4000", "-y", "1",
+                   "-surface", "ismip6",
+                   "-config", "runtime.float_dtype=float64",
+                   "-config", f"surface.ismip6.reference_file={ref}",
+                   "-config", f"surface.ismip6.file={frc}", *sia],
+    }
+    out = {"dir": d}
+    for name, argv in cases.items():
+        # the bootstrap (zero length), its enthalpy ties moved, the run
+        def boot0(p, fmt, argv=argv, name=name):
+            out[name + "0", p] = str(d / f"{name}0_{p}.nc")
+            a = list(argv)
+            a[a.index("-y") + 1] = "0"
+            return a + ["-o", out[name + "0", p], "-o_format", fmt]
+
+        def run(p, fmt, argv=argv, name=name):
+            out[name, p] = str(d / f"{name}_{p}.nc")
+            return ["-i", out[name + "tie"]] + argv[argv.index("-Lz") + 2:] + [
+                "-o", out[name, p], "-o_format", fmt]
+
+        _both_clis(boot0)
+        out[name + "tie"] = str(d / f"{name}_tie.nc")
+        _untie(out[name + "0", "torch"], out[name + "tie"])
+        out[name] = _both_clis(run)
+        cases[name] = run("torch", "netcdf3")[:-4]
+
+    def th(p, fmt, key, y, src=None):
+        out[key, p] = str(d / f"{key}_{p}.nc")
+        a = bootstrap_argv(ant, out[key, p], 200.0, y, fmt, Mz=11,
+                           dtype="float64")
+        i = a.index("-verbose")
+        del a[i:i + 2]
+        a[a.index("pico")] = "th"
+        if src is not None:   # the same flags on a -i of ``src``
+            a = ["-i", src] + a[a.index("-stress_balance"):]
+        return a + ["-config", f"ocean.th.file={ant}"]
+
+    # as the PIK fixture: the bootstrap, its enthalpy ties moved, the run
+    _both_clis(lambda p, fmt: th(p, fmt, "th0", 0.0))
+    tie = str(d / "th_tie.nc")
+    _untie(out["th0", "torch"], tie)
+    out["th"] = _both_clis(lambda p, fmt: th(p, fmt, "th", 1.0, src=tie))
+    records = []
+    orig = IceModel.run
+
+    def run(self, state, time, *a, **k):
+        res = orig(self, state, time, *a, **k)
+        records.append((self, time, res[0]))
+        return res
+
+    IceModel.run = run
+    try:
+        first = str(d / "debm_first.nc")
+        assert t_cli.main(cases["debm"] + ["-o", first, "-o_format",
+                                           "netcdf3", "-platform", "cpu",
+                                           "-verbose", "0"]) == 0
+        out["restart"] = str(d / "debm_restart.nc")
+        assert t_cli.main(["-i", first, "-y", "0.5", "-o", out["restart"],
+                           "-o_format", "netcdf3", "-platform", "cpu"]) == 0
+    finally:
+        IceModel.run = orig
+    out["records"] = records
+    return out
+
+
+@pytest.mark.parametrize("case", ["debm", "ismip6", "th"])
+def test_coupler_routes_match(coupler_runs, case):
+    """Equal steps and dt-limit hits through both command lines, the ice
+    and the surface's state within 5e-7 of their maxima (the bound
+    tests/test_torch_hybrid_chain.py and test_pik_run_matches hold H to)."""
+    r = coupler_runs
+    steps = r[case]
+    assert steps["torch"] == steps["jax"] and steps["torch"][0] > 0
+    names = {"debm": ["snow_depth", "albedo"], "th": ["usurf"]}.get(case, [])
+    assert _cmp(r[case, "torch"], r[case, "jax"], ["thk"] + names,
+                5e-7) == []
+
+
+def test_debm_output_holds_albedo_and_insolation(coupler_runs):
+    with File(coupler_runs["debm", "torch"], "r") as f:
+        names = set(f.variables())
+        alb, ins = f.read("albedo"), f.read("insolation")
+    assert {"albedo", "insolation", "snow_depth", "climatic_mass_balance"} \
+        <= names
+    assert alb.min() >= 0.47 and alb.max() <= 0.82
+    assert np.isfinite(ins).all() and ins.max() > 0.0
+
+
+def test_debm_restart_continues_to_the_bit(coupler_runs):
+    """A plain -i restart of the dEBM run (its chains rebuilt from the
+    stored config, lat from the file) equals the first run's state
+    continued in memory for the same 0.5 a, to the bit."""
+    from pism_tpu_torch.util.timecal import Time
+
+    model, time, end = coupler_runs["records"][-2]
+    st, _ = model.run(end, Time(time.end, time.end + 0.5 * SPY))
+    rst = t_ckpt.load_state(coupler_runs["restart"], device="cpu")[0]
+    assert torch.equal(st.geometry.ice_thickness, rst.geometry.ice_thickness)
+    for name in ("enthalpy", "surface_albedo", "snow_depth"):
+        assert torch.equal(getattr(st, name), getattr(rst, name)), name

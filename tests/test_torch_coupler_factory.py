@@ -3,11 +3,14 @@ the CPU in float64: every chain the port builds gives the same fields at a
 few model times (1e-12 relative), built from the same inputs and from the
 same forcing files (``inputs_from_files``), the PIK atmosphere and surface
 and the ocean chains (``constant``, ``pik``, PICO with and without basins,
-``delta_T``) included; every name the port does not build raises. Then the
-sea-level update through one ``IceModel`` step, and the wiring of the
-config keys of these modules and of the PIK chain's (PICO, calving,
-Lingle-Clark, the Mohr-Coulomb options): every key the JAX twins read on
-these paths is read by the port or refused when set off its default.
+``delta_T``) included, and the names of the rest of the coupler (the
+yearly cycle, one station, dEBM, ISMIP6-style ``th``, the modifiers); a
+name neither package knows raises ValueError in both. Then the sea-level
+update through one ``IceModel`` step, and the wiring of the config keys of
+these modules, of every coupler model and modifier and of the PIK chain's
+(PICO, calving, Lingle-Clark, the Mohr-Coulomb options): every key the JAX
+twins read on these paths is read by the port or refused when set off its
+default.
 """
 
 import dataclasses
@@ -80,7 +83,27 @@ def _inputs(f, pkg):
         "delta_T": S.from_arrays(t, v, periodic=True),
         "delta_P": S.from_arrays(t, np.asarray(v) * 1e-9),
         "delta_SL": S.from_arrays(t, np.asarray(v) * 10.0),
+        "frac_P": S.from_arrays(t, 1.0 + 0.1 * np.asarray(v)),
+        "reference_surface": arr(f["bed"] + 300.0),
+        "air_temp_mean_annual": arr(f["air_temp"][0]),
+        "air_temp_mean_summer": arr(f["air_temp_summer"]),
+        "climatic_mass_balance_anomaly": arr(f["smb_stack"]),
+        "ice_surface_temp_anomaly": arr(f["tsfc_stack"] - 255.0),
+        "anomaly_times": times,
+        "delta_SL_2D": arr(f["tsfc_stack"] - 255.0),
+        "delta_SL_2D_times": times,
     }
+
+
+def _chain_inputs(chain, f, pkg):
+    """The inputs of one atmosphere chain: ``given`` takes a precipitation
+    stack, ``one_station`` scalar series."""
+    out = _given_precip_stack(_inputs(f, pkg), f, pkg)
+    if chain.startswith("one_station"):
+        S = JScalar if pkg == "jax" else ScalarForcing
+        out["air_temp"] = S.from_arrays([0.0, 3.0], [245.0, 262.0])
+        out["precipitation"] = S.from_arrays([0.0, 3.0], [1e-8, 2.5e-8])
+    return out
 
 
 def _given_precip_stack(inputs, f, pkg):
@@ -112,11 +135,15 @@ BASE = {"runtime.float_dtype": "float64",
 
 ATMOSPHERE = ["uniform", "given", "searise_greenland",
               "searise_greenland,delta_T", "given,delta_T,delta_P",
-              "uniform,delta_P", "pik", "pik,delta_T,delta_P"]
+              "uniform,delta_P", "pik", "pik,delta_T,delta_P",
+              "yearly_cycle", "one_station", "uniform,elevation_change",
+              "uniform,frac_P"]
 SURFACE = [("simple", "searise_greenland"), ("uniform", "uniform"),
            ("given", "uniform"), ("given,delta_T", "uniform"),
            ("simple,delta_T", "given,delta_P"), ("pik", "uniform"),
-           ("pik,delta_T", "pik")]
+           ("pik,delta_T", "pik"), ("elevation", "uniform"),
+           ("debm_simple", "searise_greenland"),
+           ("pdd,cache", "searise_greenland"), ("simple,anomaly", "uniform")]
 
 
 @pytest.mark.parametrize("chain", ATMOSPHERE)
@@ -124,10 +151,10 @@ def test_atmosphere_chains_match(chain):
     f = _fields()
     jg, tg = _geoms(f)
     cfg = dict(BASE, **{"atmosphere.models": chain})
-    jm = j_cf.atmosphere_from_config(
-        JConfig(cfg), _given_precip_stack(_inputs(f, "jax"), f, "jax"))
-    tm = t_cf.atmosphere_from_config(
-        Config(cfg), _given_precip_stack(_inputs(f, "torch"), f, "torch"))
+    jm = j_cf.atmosphere_from_config(JConfig(cfg),
+                                     _chain_inputs(chain, f, "jax"))
+    tm = t_cf.atmosphere_from_config(Config(cfg),
+                                     _chain_inputs(chain, f, "torch"))
     for t in TIMES:
         for name, a, b in zip(("T", "T_july", "P"), tm(tg, t), jm(jg, t)):
             _close(a, b, f"{chain} {name} at {t / SPY} a")
@@ -192,7 +219,8 @@ def test_pdd_chains_match(chain):
         _close(tc.firn, jc.firn, "firn")
 
 
-@pytest.mark.parametrize("chain", ["constant", "constant,delta_sl"])
+@pytest.mark.parametrize("chain", ["constant", "constant,delta_sl",
+                                   "constant,delta_sl_2d"])
 def test_sea_level_and_ocean_match(chain):
     f = _fields()
     jg, tg = _geoms(f)
@@ -219,13 +247,15 @@ def _ocean_inputs(f, pkg, basins=True):
     if pkg == "jax":
         out = {"theta_ocean": jnp.asarray(theta),
                "salinity_ocean": jnp.asarray(salt),
-               "delta_T": JScalar.from_arrays(t, v)}
+               "delta_T": JScalar.from_arrays(t, v),
+               "delta_SMB": JScalar.from_arrays(t, np.asarray(v) * 1e-9)}
         if basins:
             out["basins"] = jnp.asarray(b)
     else:
         out = {"theta_ocean": torch.tensor(theta),
                "salinity_ocean": torch.tensor(salt),
-               "delta_T": ScalarForcing.from_arrays(t, v)}
+               "delta_T": ScalarForcing.from_arrays(t, v),
+               "delta_SMB": ScalarForcing.from_arrays(t, np.asarray(v) * 1e-9)}
         if basins:
             out["basins"] = torch.tensor(b)
     return out
@@ -234,7 +264,7 @@ def _ocean_inputs(f, pkg, basins=True):
 @pytest.mark.parametrize("chain,basins", [
     ("constant", True), ("constant,delta_T", True), ("pik", True),
     ("pik,delta_T", True), ("pico", True), ("pico", False),
-    ("pico,delta_T", True)])
+    ("pico,delta_T", True), ("th", True), ("pik,delta_SMB", True)])
 def test_ocean_chains_match(chain, basins):
     """Melt and shelf-base temperature of every ocean chain (``inputs``),
     and the melt the step takes (``__call__``)."""
@@ -399,32 +429,23 @@ def test_forcing_that_does_not_cover_the_grid_raises(tmp_path):
 
 
 @pytest.mark.parametrize("key,chain,exc", [
-    ("atmosphere.models", "yearly_cycle", NotImplementedError),
-    ("atmosphere.models", "one_station", NotImplementedError),
-    ("atmosphere.models", "uniform,elevation_change", NotImplementedError),
-    ("atmosphere.models", "uniform,frac_P", NotImplementedError),
-    ("atmosphere.models", "no_such_model", NotImplementedError),
-    ("surface.models", "elevation", NotImplementedError),
-    ("surface.models", "debm_simple", NotImplementedError),
-    ("surface.models", "pdd,cache", NotImplementedError),
-    ("surface.models", "simple,anomaly", NotImplementedError),
-    ("surface.models", "simple,no_such_modifier", NotImplementedError),
-    ("ocean.models", "th", NotImplementedError),
-    ("ocean.models", "pik,delta_SMB", NotImplementedError),
-    ("sea_level.models", "constant,delta_sl_2d", NotImplementedError),
-    ("sea_level.models", "tides", NotImplementedError),
+    ("atmosphere.models", "no_such_model", ValueError),
+    ("surface.models", "simple,no_such_modifier", ValueError),
+    ("sea_level.models", "tides", ValueError),
 ])
 def test_unported_names_raise(key, chain, exc):
-    cfg = Config(dict(BASE, **{key: chain}))
-    build = {"atmosphere.models": t_cf.atmosphere_from_config,
-             "ocean.models": t_cf.ocean_from_config,
-             "sea_level.models": t_cf.sea_level_from_config}.get(key)
-    with pytest.raises(exc):
-        if build is None:
-            t_cf.surface_from_config(cfg, {}, atmosphere=t_cf.
-                                     atmosphere_from_config(Config(BASE)))
-        else:
-            build(cfg, {})
+    """A name neither package knows: ValueError in both."""
+    for cf, C in ((j_cf, JConfig), (t_cf, Config)):
+        cfg = C(dict(BASE, **{key: chain}))
+        build = {"atmosphere.models": cf.atmosphere_from_config,
+                 "ocean.models": cf.ocean_from_config,
+                 "sea_level.models": cf.sea_level_from_config}.get(key)
+        with pytest.raises(exc, match="unknown"):
+            if build is None:
+                cf.surface_from_config(cfg, {}, atmosphere=cf.
+                                       atmosphere_from_config(C(BASE)))
+            else:
+                build(cfg, {})
 
 
 @pytest.mark.parametrize("key", ["atmosphere.given.period",
@@ -585,7 +606,98 @@ def _wiring_paths(tmp_path):
         ("factory", chains(j_cf, ji, JGrid(**GRID), None),
          chains(t_cf, ti, Grid(**GRID), "cpu")),
         ("pik", _pik_path("jax", f), _pik_path("torch", f)),
+        ("coupler", _coupler_path("jax", f, tmp_path),
+         _coupler_path("torch", f, tmp_path)),
     ]
+
+
+#: every model and modifier of the coupler's four factories
+COUPLER_CHAINS = {
+    "atmosphere.models": [
+        "uniform,elevation_change,delta_T,delta_P,frac_P,precip_scaling,"
+        "anomaly,orographic_precipitation", "given", "searise_greenland",
+        "yearly_cycle", "pik", "one_station"],
+    "surface.models": [
+        "simple,anomaly,delta_T,cache,elevation_change,force_to_thickness",
+        "uniform", "given", "elevation", "pdd", "debm_simple", "pik",
+        "ismip6"],
+    "ocean.models": [
+        "constant,anomaly,delta_T,delta_SMB,frac_SMB,runoff_SMB,frac_MBP,"
+        "delta_MBP,cache", "pik", "th", "given", "pico"],
+    "sea_level.models": ["constant,delta_sl,delta_sl_2d"],
+}
+
+
+def _ismip6_files(d):
+    """The ISMIP6 reference and forcing files on the factory test's grid."""
+    g = Grid(**GRID)
+    ref, frc = str(d / "ismip6_ref.nc"), str(d / "ismip6.nc")
+    with File(ref, "w", format="netcdf3") as fh:
+        fh.define_dimension("y", g.My, g.y)
+        fh.define_dimension("x", g.Mx, g.x)
+        for name, v in (("climatic_mass_balance", 100.0),
+                        ("ice_surface_temp", 250.0), ("usurf", 900.0)):
+            fh.write(name, np.full(g.shape2, v), ("y", "x"))
+    with File(frc, "w", format="netcdf3") as fh:
+        fh.define_dimension("time", None, attrs={"units": "years"})
+        fh.define_dimension("y", g.My, g.y)
+        fh.define_dimension("x", g.Mx, g.x)
+        for k in range(2):
+            n = fh.append_time(float(k))
+            for name in ("climatic_mass_balance_anomaly",
+                         "ice_surface_temp_anomaly",
+                         "climatic_mass_balance_gradient",
+                         "ice_surface_temp_gradient"):
+                fh.write(name, np.full((1,) + g.shape2, 0.1 * k),
+                         ("time", "y", "x"), time_index=n)
+    return {"surface.ismip6.reference_file": ref, "surface.ismip6.file": frc}
+
+
+def _coupler_path(pkg, f, d):
+    """Every coupler model and modifier built, with the PDD's and dEBM's
+    options on, through both packages' factories."""
+    files = _ismip6_files(d)
+    if pkg == "jax":
+        cf, grid, geoms, arr = j_cf, JGrid(**GRID), _geoms(f)[0], jnp.asarray
+        S = JScalar
+    else:
+        cf, grid, geoms = t_cf, Grid(**GRID), _geoms(f)[1]
+        arr, S = torch.tensor, ScalarForcing
+    t, v = _series()
+    one = S.from_arrays(t, np.ones(len(t)))
+    inputs = dict(_inputs(f, pkg), **_ocean_inputs(f, pkg))
+    inputs.update({
+        "scaling": one, "frac_SMB": one, "frac_MBP": one,
+        "delta_MBP": one, "target_thickness": arr(f["H"]),
+        "melt_anomaly": arr(f["smb_stack"]),
+        "shelf_base_mass_flux": arr(f["smb_stack"]), "_grid": grid,
+        "_device": "cpu"})
+
+    def run(cfg):
+        cfg.update(files)
+        cfg.update({"surface.pdd.fausto.enabled": True,
+                    "surface.pdd.std_dev.param_enabled": True,
+                    "surface.pdd.std_dev.lapse_lat_rate": 0.1,
+                    "ocean.melange_back_pressure_fraction": 0.5})
+        atm = None
+        for key, chains in COUPLER_CHAINS.items():
+            for chain in chains:
+                cfg.update({key: chain})
+                if key == "atmosphere.models":
+                    ins = _chain_inputs(chain, f, pkg) if chain.startswith(
+                        ("given", "one_station")) else inputs
+                    m = cf.atmosphere_from_config(cfg, ins, grid=grid)
+                    if atm is None:
+                        atm = m
+                elif key == "surface.models":
+                    m = cf.surface_from_config(cfg, inputs, atmosphere=atm)
+                elif key == "ocean.models":
+                    m = cf.ocean_from_config(cfg, inputs, grid=grid)
+                    m.inputs(geoms, 0.0)
+                    m.water_column_pressure(geoms, 0.0)
+                else:
+                    m = cf.sea_level_from_config(cfg, inputs)
+    return run
 
 
 def _pik_path(pkg, f):
@@ -630,44 +742,35 @@ def _pik_path(pkg, f):
 
 #: keys the JAX twins read whose value matters only through another key
 #: (the gate), which the port refuses off its default: the gate is tested
-GATED_PDD = {
-    "surface.pdd.std_dev.param_a": "surface.pdd.std_dev.param_enabled",
-    "surface.pdd.std_dev.param_b": "surface.pdd.std_dev.param_enabled",
-    "surface.pdd.std_dev.lapse_lat_base": "surface.pdd.std_dev.lapse_lat_rate",
-}
 _OPT = "basal_yield_stress.mohr_coulomb.tillphi_opt."
 GATED_PIK = {
     **{_OPT + k: _OPT + "enabled"
        for k in ("dh_min", "dphi_max", "dphi_scale", "dt", "phi_max",
                  "phi_min")},
 }
-GATED = {**GATED_PDD, **GATED_PIK}
+GATED = dict(GATED_PIK)
 #: read by the JAX PDD and never used there (pism_tpu/coupler/pdd.py:83)
 UNUSED = {"constants.fresh_water.density"}
-#: read on a path and used by no module of it: the JAX atmosphere factory
-#: records the summer peak day on every model for the PDD's yearly cycle
-#: (pism_tpu/coupler/factory.py:111-114); the port's PDD reads it itself
-UNUSED_ON = {"pik": {"atmosphere.fausto_air_temp.summer_peak_day"}}
 
 
 def test_parameter_wiring(tmp_path):
     """Every key the JAX twins read on the supported paths of bootstrapping
-    and the coupler factory is read by the port on the same path, or the
-    port raises NotImplementedError when it (or the key that gates its
-    use) is set off its default."""
+    and the coupler factory, and with every coupler model and modifier
+    built, is read by the port on the same path, or the port raises
+    NotImplementedError when it (or the key that gates its use) is set off
+    its default."""
     from pism_tpu_torch.config.parameters import PARAMETERS
     unread = {}
     for name, jrun, trun in _wiring_paths(tmp_path):
-        missing = _jax_reads(jrun) - _port_reads(trun) - UNUSED \
-            - UNUSED_ON.get(name, set())
+        missing = _jax_reads(jrun) - _port_reads(trun) - UNUSED
         for key in sorted(missing):
             key = GATED.get(key, key)
             with pytest.raises(NotImplementedError):
                 _port_reads(trun, {key: _off_default(PARAMETERS[key][0])})
         unread[name] = missing
     # (a refusal reads its key too: what is left are the gated keys)
-    assert unread == {"bootstrap": set(), "factory": set(GATED_PDD),
-                      "pik": set(GATED_PIK)}
+    assert unread == {"bootstrap": set(), "factory": set(),
+                      "pik": set(GATED_PIK), "coupler": set()}
 
 
 def test_cli_sections_name_their_keys():

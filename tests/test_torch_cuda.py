@@ -16,7 +16,8 @@ against the CPU; ISMIP-HOM A (the Blatter solve replayed as CUDA graphs,
 and without them), SSAFEM's test I and the composite Blatter model on a
 dome against the CPU; the VJP kernels (the reverse mode of K1 and of its
 padded-block instance) against their plain versions, with the adjoint
-identity, and reverse mode through ``SSAMatvec`` on the card.
+identity, and reverse mode through ``SSAMatvec`` on the card; the
+Greenland dEBM chain on the card against the CPU.
 
 They skip without a CUDA card. This file imports no JAX, so on a machine
 with a card and no JAX it runs without the JAX-loading conftest:
@@ -1769,3 +1770,33 @@ def test_blatter_dome_on_the_card_matches_cpu(cuda):
     (va, sa), (vb, sb) = runs["cpu"], runs[str(cuda)]
     assert sb.nsteps == sa.nsteps and sb.limit_hits_dict() == sa.limit_hits_dict()
     assert abs(vb - va) <= 1e-8 * va
+
+
+@pytest.mark.cuda
+def test_greenland_debm_chain_on_the_card_matches_cpu(cuda):
+    """The Greenland dEBM chain (``examples/greenland_debm.py``) at 100 km in
+    float64 for 1.5 model years (a few steps): equal step counts and hits,
+    the bounds of test_chain_on_the_card_matches_cpu for H and the volume,
+    and the albedo and snow within 1e-5 of their maxima (they follow the
+    surface, which carries H's difference)."""
+    from pism_tpu_torch.examples import greenland_debm
+
+    runs = {}
+    for where in ("cpu", cuda):
+        model, state, _ = greenland_debm.greenland_debm_model(
+            "float64", 100.0, 0.0, False, where)
+        n0 = K.NEWTON_LAUNCHES
+        state, t, stats = model.step_once(state, 0.0, 1.5 * SPY)
+        runs[str(where)] = (state_to_numpy(state), stats,
+                            K.NEWTON_LAUNCHES - n0)
+    (a, sa, la), (b, sb, lb) = runs["cpu"], runs[str(cuda)]
+    assert la == 0 and lb > 0
+    assert sb.nsteps == sa.nsteps > 0
+    assert sb.limit_hits_dict() == sa.limit_hits_dict()
+    Ha, Hb = a["ice_thickness"], b["ice_thickness"]
+    assert np.all(np.isfinite(Hb))
+    assert np.abs(Hb - Ha).max() <= 1e-5 * Ha.max()
+    assert abs(Hb.sum() - Ha.sum()) <= 1e-8 * Ha.sum()
+    for name in ("surface_albedo", "snow_depth"):
+        assert np.abs(b[name] - a[name]).max() <= 1e-5 * np.abs(a[name]).max()
+    assert 0.47 <= b["surface_albedo"].min() <= b["surface_albedo"].max() <= 0.82

@@ -142,8 +142,8 @@ def test_config_lookups_match():
     {"grid.periodicity": "xy"},
     {"basal_yield_stress.mohr_coulomb.tillphi_opt.enabled": True},
     {"bed_deformation.model": "given"},
-    {"calving.methods": "prescribed_retreat"},
-    {"surface.pdd.method": "random_process"},
+    {"fracture_density.enabled": True},
+    {"energy.ch_warming.enabled": True},
     {"stress_balance.ssa.fd.velocity_change_rtol": 0.0,
      "runtime.float_dtype": "float32"},
     {"age.enabled": True},
@@ -167,6 +167,26 @@ def test_unsupported_config_raises(override):
     dtype = override.pop("runtime.float_dtype", "float64")
     with pytest.raises(NotImplementedError):
         setups.hybrid_greenland_model(dtype, km=200.0, device="cpu",
+                                      extra_cfg=override)
+
+
+@pytest.mark.parametrize("override,exc", [
+    ({"calving.methods": "prescribed_retreat"}, ValueError),
+    ({"surface.pdd.method": "random_process"}, None),
+])
+def test_formerly_refused_config_behaves_as_jax(override, exc):
+    """Two settings the port refused before it carried the whole coupler:
+    prescribed retreat without its file raises the JAX package's
+    ValueError, the Monte-Carlo PDD builds."""
+    from pism_tpu_torch import setups
+
+    if exc is None:
+        model, _, _ = setups.hybrid_greenland_model(
+            "float64", km=200.0, device="cpu", extra_cfg=override)
+        assert model.surface.method == "random_process"
+        return
+    with pytest.raises(exc, match="prescribed.file"):
+        setups.hybrid_greenland_model("float64", km=200.0, device="cpu",
                                       extra_cfg=override)
 
 

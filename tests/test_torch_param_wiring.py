@@ -227,3 +227,58 @@ def test_inverse_parameter_wiring(tmp_path, monkeypatch):
     keys = {k for k in J_PARAMETERS if k.startswith("inverse.")}
     assert len(keys) == 19
     assert keys - read == set()
+
+
+def _literal_keys(paths):
+    import pathlib
+    import re
+    root = pathlib.Path(__file__).resolve().parents[1]
+    text = "".join((root / p).read_text() for p in paths)
+    return set(re.findall(r'"([a-z_]+(?:\.[A-Za-z_0-9]+)+)"', text))
+
+
+def test_coupler_modules_name_every_key():
+    """Every parameter that the JAX coupler modules name (``pism_tpu/
+    coupler/*.py``, a literal search) and the file-driven calving inputs of
+    ``model/calving.py`` is named by the port's twins."""
+    import pathlib
+    from pism_tpu_torch.config.parameters import PARAMETERS
+    root = pathlib.Path(__file__).resolve().parents[1]
+    jax_files = [p.relative_to(root) for p in
+                 (root / "pism_tpu" / "coupler").glob("*.py")]
+    port_files = [p.relative_to(root) for p in
+                  (root / "pism_tpu_torch" / "coupler").glob("*.py")]
+    keys = {k for k in _literal_keys(jax_files) if k in PARAMETERS}
+    assert len(keys) >= 150
+    assert keys - _literal_keys(port_files) == set()
+    calving = {"calving.rate_scaling.file", "calving.thickness_calving.file",
+               "calving.vonmises_calving.sigma_max_file",
+               "geometry.front_retreat.prescribed.file"}
+    assert calving <= _literal_keys(["pism_tpu/model/calving.py"])
+    assert calving <= _literal_keys(["pism_tpu_torch/model/calving.py"])
+
+
+@pytest.mark.parametrize("key", [
+    "calving.rate_scaling.file", "calving.thickness_calving.file",
+    "calving.vonmises_calving.sigma_max_file",
+    "geometry.front_retreat.prescribed.file"])
+def test_calving_file_keys_are_read(key):
+    """The port's calving model reads each file key as the JAX one does
+    (an empty name reads no file)."""
+    from pism_tpu.grid import Grid as JGrid
+    from pism_tpu.model import calving as j_calv
+    from pism_tpu_torch import Grid
+    from pism_tpu_torch.model import calving as t_calv
+    methods = "prescribed_retreat" if "front_retreat" in key \
+        else "thickness_calving,vonmises_calving"
+    reads = []
+    for C, G, m in ((JConfig, JGrid, j_calv), (Config, Grid, t_calv)):
+        cfg = C({"calving.methods": methods,
+                 "geometry.front_retreat.prescribed.file": "",
+                 **({} if "front_retreat" not in key else {key: ""})})
+        try:
+            m.CalvingModel(grid=G(Mx=5, My=5, Lx=1e4, Ly=1e4), config=cfg)
+        except ValueError:
+            pass
+        reads.append(key in set(cfg.used_parameters()))
+    assert reads == [True, True]
