@@ -349,6 +349,28 @@ launch counters set to 0 just before it and read just after:
     summer albedo), on one state the
     orographic field, the ``th`` melt and the ISMIP6 SMB against the CPU's,
     and ``GivenStreamed``'s records against the stack loaded up front.
+  phase 20: the column tracers and the damage physics (no kernel of their
+    own): (a) the tracer chain (``setups.TRACER_CFG``: the age with the
+    age-coupled SIA enhancement, the ice of the initial state dated 15 ka,
+    isochrones every 0.25 a, CH warming, k(T), upstream w) on the 20 km
+    hybrid chain (141x76x41) float32, path A, 0.5 a and then a timed 1 a
+    (a depth cut of a paleo run): ms/step, Newton, Krylov, K1,
+    Newton-matvec and K2/K2b launches per step, the age, CH and isochrone
+    updates' ms and device ops (timed apart), max age, the interglacial
+    share of the ice, the active top layer, volume; finite fields,
+    0 <= age <= t + age.initial_value in the ice, the layers summing to H
+    in the icy columns; K1, the Newton matvec and K2/K2b against their
+    plain versions on its linearization; (b) fracture density with
+    softening (``setups.FRACTURE_CFG``) on the 16 km PIK chain (251x251x31)
+    float32, path A, 0.5 a with the first-order transport and 0.5 a with
+    ``fd2d_scheme``: ms/step, the fracture step's ms and device ops, the
+    damaged floating area, max phi; phi in [0, 1], the SSA's hardness
+    softened exactly where phi > 0; the path kernels on its linearization;
+    (c) the 100 km tracer chain in float64 for 1 a on the card against the
+    CPU (child process, ``tracer_cpu_references``), one age and one energy
+    update with the CH system on equal inputs, the fracture step on one
+    125 km PIK state, and a ``-o_format netcdf3`` restart continued to the
+    bit.
 
 Every failure raises, so the script exits non-zero. Without a CUDA card it
 exits non-zero before printing any result. The second-to-last line is the
@@ -6150,35 +6172,44 @@ def _debm_timed(model, state, t, years, label, smi):
     return state, t, stats, counts
 
 
-def _debm_update_cost(model, state, t, dt, reps=5, profile=True):
-    """dEBM's update over a step ``dt`` from ``state`` at ``t``, apart from
-    the chain: ms per update over ``reps`` back-to-back updates (host wall,
-    the card synchronised before and after) and, under the profiler, the
-    device ops and device time [ms] of one."""
+def _op_cost(fn, reps=5, profile=True):
+    """``fn()`` apart from the chain: ms per call over ``reps`` back-to-back
+    calls after a warm one (host wall, the card synchronised before and
+    after) and, with ``profile``, under the profiler the device ops and
+    device time [ms] of one call (else None, None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    if not profile:
+        return ms, None, None
+    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return ms, len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
+
+
+def _debm_update_cost(model, state, t, dt, reps=5, profile=True):
+    """dEBM's update over a step ``dt`` from ``state`` at ``t``, apart from
+    the chain (``_op_cost``)."""
+    import torch
     from pism_tpu_torch.coupler.surface import SurfaceCarry
 
     dtype = state.geometry.ice_thickness.dtype
     dt = torch.tensor(dt, dtype=dtype).item()
     carry = SurfaceCarry(snow=state.snow_depth, firn=state.firn_depth,
                          albedo=state.surface_albedo)
-    model.surface.update(state.geometry, t, dt, carry)    # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        model.surface.update(state.geometry, t, dt, carry)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / reps
-    if not profile:
-        return ms, None, None
-    with profiler(activities=[ProfilerActivity.CUDA]) as prof:
-        model.surface.update(state.geometry, t, dt, carry)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return ms, len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return _op_cost(lambda: model.surface.update(state.geometry, t, dt,
+                                                 carry), reps, profile)
 
 
 def phase19a_debm(dev, smi):
@@ -6600,6 +6631,438 @@ def phase19_coupler(dev, smi, refs):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the column tracers and the damage physics (no kernel of their
+# own; the SSAFD solve's K1, Newton matvec and K2/K2b on every step)
+# ---------------------------------------------------------------------------
+
+#: phase 20a's grid [km] and its spin-up and timed window [a]
+TRACER_KM, TRACER_YEARS = 20.0, (0.5, 1.0)
+#: phase 20b's run of each fracture transport on the 16 km PIK chain [a]
+FRACTURE_YEARS = 0.5
+#: phase 20c's card-against-CPU chain [km] and run [a], and its restart's
+#: two legs [a]
+TRACER_CHECK_KM, TRACER_CHECK_YEARS, TRACER_RESTART_YEARS = \
+    100.0, 1.0, (0.5, 0.5)
+
+
+def _chain_window(model, state, t, years, label, smi):
+    """``years`` through ``step_once`` with the counters set to 0 just
+    before and read just after; prints ms/step, steps, hits, Newton and
+    Krylov and the path kernels' launches a step, and checks that each
+    launched. Returns (state, t, stats, counts, wall)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, t, stats = model.step_once(state, t, years * SPY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n, grid = stats.nsteps, model.grid
+    per = {k: round(v / n, 2) for k, v in counts.items()
+           if v and k in HYDRO_ON}
+    print(f"{label}: {smi}: {grid.My}x{grid.Mx}x{grid.Mz} "
+          f"{str(state.geometry.ice_thickness.dtype)[6:]}, {years:g} a to "
+          f"{t / SPY:g} a: steps {n}, wall {wall:.3f} s, "
+          f"{1e3 * wall / n:.2f} ms/step, dt-limit hits "
+          f"{stats.limit_hits_dict()}, Newton sweeps "
+          f"{stats.ssa_newton_iters / n:.2f}/step, Krylov its "
+          f"{stats.ssa_krylov_iters / n:.2f}/step, host syncs "
+          f"{stats.host_syncs / n:.1f}/step, launches per step {per}")
+    _check_launches(label, counts, HYDRO_ON, HYDRO_OFF)
+    return state, t, stats, counts, wall
+
+
+def _finite(label, fields):
+    import torch
+    for name, f in fields.items():
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+
+
+def _in_ice(model, state):
+    """The levels inside the ice of icy columns."""
+    import torch
+    from pism_tpu_torch import state as S
+    H = state.geometry.ice_thickness
+    z = torch.as_tensor(model.grid.z, dtype=H.dtype, device=H.device)
+    return (z <= H[..., None]) & S.icy(state.geometry.cell_type)[..., None]
+
+
+def _tracer_updates(model, state, t, dt, label, smi):
+    """The age, CH and isochrone updates of ``state`` at ``t`` over a step
+    ``dt`` (the window's mean), each timed apart from the chain
+    (``_op_cost``): the age step, the energy step with and without the CH
+    system (the CH cost their difference), one isochrone substep (times
+    ``skip_max`` a step). Returns {name: (ms, ops, device ms)}."""
+    import torch
+    from pism_tpu_torch.coupler.surface import SurfaceCarry
+    from pism_tpu_torch.model.isochrones import IsochroneState
+
+    dtype = state.geometry.ice_thickness.dtype
+    dt = torch.tensor(dt, dtype=dtype).item()
+    sb = model.stress_balance.update(
+        state, model.yield_stress.compute(state, t=t), t=t)
+    smb, _ = model.surface.update(
+        state.geometry, t, dt, SurfaceCarry(snow=state.snow_depth,
+                                            firn=state.firn_depth,
+                                            albedo=state.surface_albedo))
+    G = torch.full_like(state.geometry.ice_thickness, model.geothermal)
+    em = model.energy_model
+
+    def energy(ch):
+        return em.step(state, sb.sia3, smb.temperature, dt, G,
+                       frictional_heating=sb.basal_frictional_heating,
+                       tillwat=state.tillwat,
+                       ch_enthalpy=state.ch_enthalpy if ch else None,
+                       surface_melt=smb.melt)
+
+    iso = IsochroneState(state.iso_layers, state.iso_top, model._iso_times)
+    H = state.geometry.ice_thickness
+    sub = torch.tensor(dt / model.skip_max, dtype=dtype).item()
+    out = {"age": _op_cost(lambda: model.age_model.step(state, sb.sia3, dt)),
+           "energy with CH": _op_cost(lambda: energy(True)),
+           "energy without CH": _op_cost(lambda: energy(False)),
+           "isochrone substep": _op_cost(lambda: model.isochrones.step(
+               iso, t, sub, sb.qe, sb.qn, H, H, smb.smb,
+               state.basal_melt_rate))}
+    ch = tuple(a - b for a, b in zip(out["energy with CH"],
+                                     out["energy without CH"]))
+    parts = ", ".join(f"{k} {ms:.3f} ms ({ops} device ops, {dev:.3f} ms "
+                      "device)" for k, (ms, ops, dev) in out.items())
+    print(f"{label}: {smi}: updates timed apart at the mean step "
+          f"{dt / SPY:.4f} a: {parts}; the CH system {ch[0]:.3f} ms, "
+          f"{ch[1]} device ops, {ch[2]:.3f} ms device a step; the "
+          f"isochrones x{model.skip_max} substeps "
+          f"{model.skip_max * out['isochrone substep'][0]:.3f} ms, "
+          f"{model.skip_max * out['isochrone substep'][1]} device ops a step")
+    return out
+
+
+def _tracer_checks(label, model, state, t, t0, interglacial):
+    """Finite fields, 0 <= age <= t - t0 + age.initial_value in the ice
+    (within float32 rounding), the isochrone layers summing to H in the
+    icy columns within the field's rounding; returns (max age [a], the
+    interglacial share of the ice, the active top layer, volume [m^3])."""
+    import torch
+    from pism_tpu_torch import state as S
+
+    g = state.geometry
+    _finite(label, {"ice_thickness": g.ice_thickness,
+                    "enthalpy": state.enthalpy, "age": state.age,
+                    "ch_enthalpy": state.ch_enthalpy,
+                    "iso_layers": state.iso_layers, "u_ssa": state.u_ssa})
+    age0 = model.config.get_number("age.initial_value", "seconds")
+    ice = _in_ice(model, state)
+    age = state.age.double()
+    eps = torch.finfo(state.age.dtype).eps
+    if not (float(age.min()) >= 0.0
+            and float(age[ice].max()) <= (t - t0 + age0) * (1.0 + 8 * eps)):
+        raise AssertionError(f"{label}: age outside [0, t - t0 + "
+                             "age.initial_value]")
+    H = g.ice_thickness.double()
+    icy = S.icy(g.cell_type)
+    total = state.iso_layers.double().sum(-1)
+    err = float(((total - H).abs() / H.clamp(min=1.0))[icy].max())
+    nl = state.iso_layers.shape[-1]
+    if not err <= 4 * nl * torch.finfo(state.iso_layers.dtype).eps:
+        raise AssertionError(f"{label}: the isochrone layers sum to H only "
+                             f"within {err:.3e}")
+    e = model.stress_balance.age_enhancement(state, t)
+    share = float(((e == interglacial) & ice).sum()) / float(ice.sum())
+    vol = float(H.sum()) * model.grid.dx * model.grid.dy
+    return float(age[ice].max()) / SPY, share, state.iso_top, vol, err
+
+
+def phase20a_tracers(dev, smi):
+    """The tracer chain (``setups.TRACER_CFG``) on the 20 km hybrid chain,
+    path A, float32: TRACER_YEARS[0] of spin-up, then a timed
+    TRACER_YEARS[1]; the updates timed apart; the checks; K1, the Newton
+    matvec and K2/K2b against their plain versions on its linearization.
+    Returns the timed window's counts."""
+    from pism_tpu_torch import setups
+
+    model, state, grid = setups.hybrid_greenland_model(
+        "float32", TRACER_KM, device=dev,
+        extra_cfg=dict(PATH_A, **setups.TRACER_CFG))
+    e_ig = model.stress_balance.e_sia_interglacial
+    state, t, _, _, _ = _chain_window(model, state, 0.0, TRACER_YEARS[0],
+                                      "phase20a spin-up", smi)
+    t1 = t
+    state, t, stats, counts, wall = _chain_window(
+        model, state, t, TRACER_YEARS[1], "phase20a timed", smi)
+    age_max, share, top, vol, err = _tracer_checks("phase20a", model, state,
+                                                   t, 0.0, e_ig)
+    print(f"phase20a: after {t / SPY:g} a: max age {age_max:.4f} a (initial "
+          f"{model.config.get_number('age.initial_value'):g} a), "
+          f"interglacial share of the ice {share:.4f} (e = {e_ig:g}; e_sia "
+          f"{model.stress_balance.e_sia:g} elsewhere), active top layer "
+          f"{top} of {state.iso_layers.shape[-1]}, the layers' sum against H "
+          f"{err:.3e} (relative, icy columns), volume {vol:.6e} m^3")
+    if not 0.0 < share < 1.0 or top < 1:
+        raise AssertionError("phase20a: the age coupling or the isochrones "
+                             "did not act (interglacial share, top layer)")
+    _tracer_updates(model, state, t, (t - t1) / stats.nsteps, "phase20a", smi)
+    check_path_kernels(model, state, t, "on the tracer chain's "
+                       "linearization", "phase20a")
+    return counts
+
+
+def phase20b_fracture(dev, smi):
+    """Fracture density with softening (``setups.FRACTURE_CFG``) on the 16
+    km PIK chain, path A, float32, for FRACTURE_YEARS with the first-order
+    transport and then with ``fd2d_scheme``: ms/step, the fracture step
+    timed apart, the damaged floating area and max phi; phi in [0, 1] and
+    the SSA's hardness softened by max(1 - (1 - eps) phi, eps), exactly
+    where phi > 0; then the path's
+    kernels on the last run's linearization."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch import state as S
+
+    for scheme in (False, True):
+        label = f"phase20b {'fd2d_scheme' if scheme else 'first order'}"
+        model, state, grid = setups.antarctica_pik_model(
+            "float32", PIK_KM, device=dev, extra_cfg=dict(
+                PATH_A, **setups.FRACTURE_CFG,
+                **{"fracture_density.fd2d_scheme": scheme}))
+        state, t, stats, _, _ = _chain_window(model, state, 0.0,
+                                              FRACTURE_YEARS, label, smi)
+        phi = state.fracture_density
+        _finite(label, {"ice_thickness": state.geometry.ice_thickness,
+                        "fracture_density": phi,
+                        "fracture_age": state.fracture_age,
+                        "u_ssa": state.u_ssa})
+        dt = torch.tensor(t / stats.nsteps, dtype=phi.dtype).item()
+        ms, ops, busy = _op_cost(lambda: model.fracture.step(
+            state, state.u_ssa, state.v_ssa, dt))
+        floating = S.floating_ice(state.geometry.cell_type)
+        dmg = phi > 0.0
+        B = model.ssa._hardness(state)
+        B0 = model.ssa._hardness(state.replace(fracture_density=None))
+        area = float((dmg & floating).sum()) * grid.dx * grid.dy / 1e6
+        print(f"{label}: {smi}: the fracture step {ms:.3f} ms ({ops} device "
+              f"ops, {busy:.3f} ms device) at the mean step "
+              f"{dt / SPY:.4f} a; damaged floating area {area:.1f} km^2 "
+              f"({int((dmg & floating).sum())} cells), max phi "
+              f"{float(phi.max()):.6f}, hardness at most "
+              f"{float((B / B0)[dmg].min()) if bool(dmg.any()) else 1.0:.6f}"
+              " of its unsoftened value")
+        if not (float(phi.min()) >= 0.0 and float(phi.max()) <= 1.0):
+            raise AssertionError(f"{label}: phi outside [0, 1]")
+        if not bool((dmg & floating).any()):
+            raise AssertionError(f"{label}: no floating ice fractured")
+        # B = B0 max(1 - (1 - eps) phi, eps): equal to that product to the
+        # bit, unchanged where phi = 0 and softer where phi shows in the
+        # float32 factor (phi above 1e-6)
+        eps = model.ssa.frac_soft_min
+        if not (torch.equal(B, B0 * torch.clamp(1.0 - (1.0 - eps) * phi,
+                                                min=eps))
+                and torch.equal(B[~dmg], B0[~dmg])
+                and bool((B[phi > 1e-6] < B0[phi > 1e-6]).all())):
+            raise AssertionError(f"{label}: the SSA's hardness is not "
+                                 "softened exactly where phi > 0")
+    check_path_kernels(model, state, t, "on the fracture chain's "
+                       "linearization", "phase20b")
+
+
+def _fracture_case(where):
+    """The fracture step on one PIK state at PIK_CHECK_KM (float64): phi,
+    its age and a spreading velocity from numpy (seed 20), one step with
+    the minmod transport and the strain-rate criterion, and one with the
+    maximum-shear-stress criterion on the SSA's softened hardness; the
+    new phi of both as numpy."""
+    import numpy as np
+    import torch
+    from pism_tpu_torch import Config, setups
+    from pism_tpu_torch.model.fracture import FractureDensity
+
+    model, state, grid = setups.antarctica_pik_model(
+        "float64", PIK_CHECK_KM, device=where, extra_cfg=setups.FRACTURE_CFG)
+    rng = np.random.default_rng(20)
+    X, Y = np.meshgrid(grid.x, grid.y)
+    f = {"u": 3e-9 * X + 1e-5 * rng.standard_normal(X.shape),
+         "v": 2e-9 * Y + 1e-5 * rng.standard_normal(X.shape),
+         "phi": rng.uniform(0.0, 0.6, X.shape),
+         "age": rng.uniform(0.0, 50.0 * SPY, X.shape)}
+    f = {k: torch.as_tensor(v, device=where) for k, v in f.items()}
+    state = state.replace(fracture_density=f["phi"], fracture_age=f["age"])
+    dt = 0.3 * SPY
+    out = [model.fracture.step(state, f["u"], f["v"], dt)]
+    shear = FractureDensity(grid=grid, config=Config(dict(
+        setups.FRACTURE_CFG, **{"fracture_density.max_shear_stress": True,
+                                "fracture_density.initiation_stress_threshold":
+                                5e4})))
+    out.append(shear.step(state, f["u"], f["v"], dt,
+                          hardness=model.ssa._hardness(state)))
+    return [(r.density.cpu().numpy(), r.age.cpu().numpy()) for r in out]
+
+
+def tracer_cpu_references():
+    """Phase 20c's CPU runs, in the child process started before phase 13:
+    20a's configuration at TRACER_CHECK_KM in float64 for
+    TRACER_CHECK_YEARS, and the fracture steps of ``_fracture_case``."""
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.convert import state_to_numpy
+
+    torch.set_num_threads(2)
+    model, state, _ = setups.hybrid_greenland_model(
+        "float64", TRACER_CHECK_KM, device="cpu", extra_cfg=setups.TRACER_CFG)
+    state, t, stats = model.step_once(state, 0.0, TRACER_CHECK_YEARS * SPY)
+    inputs = _column_inputs(model, state, t)
+    return ((state_to_numpy(state), stats.nsteps, stats.limit_hits_dict()),
+            _fracture_case("cpu"), (inputs, _column_steps(model, inputs,
+                                                          "cpu")))
+
+
+def _column_inputs(model, state, t):
+    """The inputs of one age step and one energy step with the CH system
+    on ``state`` at ``t`` as numpy: the state, the 3D velocities and
+    strain heating of its stress balance, the surface temperature and
+    melt of the PDD over 0.1 a, the basal frictional heating."""
+    from pism_tpu_torch.convert import state_to_numpy
+    from pism_tpu_torch.coupler.surface import SurfaceCarry
+
+    sb = model.stress_balance.update(
+        state, model.yield_stress.compute(state, t=t), t=t)
+    smb, _ = model.surface.update(
+        state.geometry, t, 0.1 * SPY, SurfaceCarry(
+            snow=state.snow_depth, firn=state.firn_depth,
+            albedo=state.surface_albedo))
+    host = lambda x: x.detach().cpu().numpy()           # noqa: E731
+    return {"state": state_to_numpy(state),
+            "sia3": [host(x) for x in sb.sia3[:4]],
+            "T_s": host(smb.temperature), "melt": host(smb.melt),
+            "fric": host(sb.basal_frictional_heating)}
+
+
+def _column_steps(model, inputs, where):
+    """The age step and the energy step with the CH system of
+    ``_column_inputs`` on ``where`` (0.1 a): the new age, E and CH state as
+    numpy."""
+    import torch
+    from pism_tpu_torch.convert import state_from_numpy
+    from pism_tpu_torch.ops.sia3d import SIA3D
+
+    state = state_from_numpy(inputs["state"], device=where)
+    T = lambda a: torch.as_tensor(a, device=where)      # noqa: E731
+    zero = torch.zeros((), dtype=torch.float64, device=where)
+    sia3 = SIA3D(*(T(a) for a in inputs["sia3"]), max_u=zero, max_v=zero)
+    dt = 0.1 * SPY
+    age = model.age_model.step(state, sia3, dt)
+    G = torch.full_like(state.geometry.ice_thickness, model.geothermal)
+    res = model.energy_model.step(
+        state, sia3, T(inputs["T_s"]), dt, G,
+        frictional_heating=T(inputs["fric"]), tillwat=state.tillwat,
+        ch_enthalpy=state.ch_enthalpy, surface_melt=T(inputs["melt"]))
+    return [x.cpu().numpy() for x in (age, res.enthalpy, res.ch_enthalpy)]
+
+
+def phase20c_card_vs_cpu(dev, refs):
+    """20a's configuration at TRACER_CHECK_KM float64 for
+    TRACER_CHECK_YEARS on the card against the CPU (child process): equal
+    steps and hits, the volume within 1e-8, the age within 1e-5 of its
+    max (the chain's H envelope: the upwinded age steps 15 ka at the
+    margins, so the sliding velocity's rounding moves it); one age update
+    and one energy update with the CH system on the CPU run's end state
+    (equal inputs) within 1e-12; the fracture steps on one PIK state (``_fracture_case``): phi
+    within 1e-12; then the card's chain saved after TRACER_RESTART_YEARS[0]
+    through ``save_state(..., format="netcdf3")`` and continued by a new
+    model from ``load_state``, equal to the bit (every field, the active
+    isochrone layer, steps) to the run continued in memory."""
+    import tempfile
+    import numpy as np
+    import torch
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.convert import state_to_numpy
+    from pism_tpu_torch.io.checkpoint import load_state, save_state
+
+    (a, n_cpu, hits_cpu), frac_cpu, (inputs, cols_cpu) = refs()
+    model, state0, grid = setups.hybrid_greenland_model(
+        "float64", TRACER_CHECK_KM, device=dev, extra_cfg=setups.TRACER_CFG)
+    state, _, stats = model.step_once(state0, 0.0, TRACER_CHECK_YEARS * SPY)
+    b = state_to_numpy(state)
+    dv = abs(b["ice_thickness"].sum() - a["ice_thickness"].sum()) \
+        / a["ice_thickness"].sum()
+    dA = np.abs(b["age"] - a["age"]).max() / np.abs(a["age"]).max()
+    ice = (np.asarray(grid.z) <= b["ice_thickness"][..., None]) \
+        & np.isin(b["cell_type"], (2, 3))[..., None]
+    far = int((np.abs(b["age"] - a["age"]) > 1e-10 * np.abs(a["age"]).max())
+              [ice].sum())
+    print(f"phase20c: the {TRACER_CHECK_KM:g} km tracer chain, float64, "
+          f"{TRACER_CHECK_YEARS:g} a, card / CPU: steps {stats.nsteps} / "
+          f"{n_cpu}, hits {stats.limit_hits_dict()} / {hits_cpu}, top layer "
+          f"{int(b['iso_top'])} / {int(a['iso_top'])}, volume rel diff "
+          f"{dv:.3e} (tol 1e-8), age {dA:.3e} of max (tol 1e-5, the "
+          f"chain's H envelope of 19e; {far} of {int(ice.sum())} ice cells "
+          "beyond 1e-10: the sliding velocity's rounding moves the upwinded "
+          "age across its 15 ka step at the margins)")
+    if stats.nsteps != n_cpu or stats.limit_hits_dict() != hits_cpu \
+            or int(b["iso_top"]) != int(a["iso_top"]) or not dv <= 1e-8 \
+            or not dA <= 1e-5:
+        raise AssertionError("phase20c: the tracer chain's card and CPU "
+                             "runs disagree")
+    # the column updates alone on the CPU's end state: equal inputs
+    for name, x, y in zip(("age", "enthalpy", "CH enthalpy"),
+                          _column_steps(model, inputs, dev), cols_cpu):
+        e = np.abs(x - y).max() / np.abs(y).max()
+        print(f"phase20c: one {name} update (0.1 a) on the CPU run's end "
+              f"state, card / CPU: {e:.3e} of max (tol 1e-12)")
+        if not e <= 1e-12:
+            raise AssertionError(f"phase20c: the {name} update's card and "
+                                 "CPU results disagree")
+    for name, (phi, age), (phi_c, age_c) in zip(
+            ("strain rate, fd2d", "max shear stress"), _fracture_case(dev),
+            frac_cpu):
+        e = np.abs(phi - phi_c).max()
+        print(f"phase20c: the fracture step ({name}) on the "
+              f"{PIK_CHECK_KM:g} km PIK state, card / CPU: phi {e:.3e} "
+              f"(tol 1e-12), {int((phi > 0).sum())} / "
+              f"{int((phi_c > 0).sum())} cells with phi > 0, age "
+              f"{np.abs(age - age_c).max() / np.abs(age_c).max():.3e} of max")
+        if not e <= 1e-12:
+            raise AssertionError("phase20c: the fracture step's card and CPU "
+                                 "results disagree")
+    # the restart: the first leg, saved and continued by a new model
+    y0, y1 = TRACER_RESTART_YEARS
+    s1, t1, _ = model.step_once(state0, 0.0, y0 * SPY)
+    mem, tm, sm = model.step_once(s1, t1, y1 * SPY)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tracers.nc")
+        save_state(path, s1, grid, t1, config=model.config, format="netcdf3")
+        m2, _, _ = setups.hybrid_greenland_model(
+            "float64", TRACER_CHECK_KM, device=dev,
+            extra_cfg=setups.TRACER_CFG)
+        s2, t2 = load_state(path, config=m2.config, device=dev)
+        rst, tr, sr = m2.step_once(s2, t2, y1 * SPY)
+    x, y = state_to_numpy(mem), state_to_numpy(rst)
+    same = sorted(x) == sorted(y) and all(np.array_equal(x[k], y[k])
+                                          for k in x)
+    print(f"phase20c: the {TRACER_CHECK_KM:g} km tracer chain saved at "
+          f"{t1 / SPY:g} a (netcdf3) and continued {y1:g} a by a new model, "
+          f"against the run continued in memory: steps {sr.nsteps} / "
+          f"{sm.nsteps}, top layer {int(y['iso_top'])} / "
+          f"{int(x['iso_top'])}, every field equal to the bit {same} "
+          f"({', '.join(k for k in ('age', 'ch_enthalpy', 'iso_layers') if k in y)} "
+          "among them)")
+    if not same or sr.nsteps != sm.nsteps or tr != tm:
+        raise AssertionError("phase20c: the restart does not continue to the "
+                             "bit")
+
+
+def phase20_tracers(dev, smi, refs):
+    """Phase 20; ``refs()``: 20c's CPU runs (``tracer_cpu_references``,
+    computed in the child process, or the function itself). Returns 20a's
+    timed window's launch counts."""
+    counts = _timed("phase20a", phase20a_tracers, dev, smi)
+    _timed("phase20b", phase20b_fracture, dev, smi)
+    _timed("phase20c", phase20c_card_vs_cpu, dev, refs)
+    return counts
+
+
 def main():
     torch = _require_cuda()
     dev = torch.device("cuda:0")
@@ -6729,6 +7192,7 @@ def main():
         refs17 = pool.submit(cpu_references).result
         refs18 = pool.submit(inverse_cpu_references).result
         refs19 = pool.submit(debm_cpu_references).result
+        refs20 = pool.submit(tracer_cpu_references).result
         t13 = time.time()
         print(f"phase13: {smi}")
         records13, counts13 = phase13_antarctic_ensemble(dev, smi)
@@ -6763,6 +7227,10 @@ def main():
         print(f"phase19: {smi}")
         phase19_coupler(dev, smi, refs19)
         print(f"phase19: {time.time() - t19:.1f} s")
+        t20 = time.time()
+        print(f"phase20: {smi}")
+        phase20_tracers(dev, smi, refs20)
+        print(f"phase20: {time.time() - t20:.1f} s")
     print(f"chip_smoke: all phases passed in {time.time() - start:.1f} s")
 
     # library_ms: torch.linalg.solve on the dense matrices for the line

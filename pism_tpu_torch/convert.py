@@ -8,7 +8,8 @@ surface model returns. An ensemble's batched state, every array with a
 leading member axis (the layout ``jax.vmap`` takes and
 ``parallel.ensemble.stack_states`` builds), converts the same way, member
 for member. The bedrock column ``bedrock_temperature`` (``(..., Mbz)``) is
-a state field like the others; ``setup_to_numpy`` adds an EISMINT II
+a state field like the others, and so are the tracers (``iso_top``, the
+active isochrone layer, a 0-dim int32 array); ``setup_to_numpy`` adds an EISMINT II
 setup's per-cell sliding map ``sliding_mu`` (experiment E) to its state's
 fields.
 """
@@ -45,7 +46,8 @@ def state_from_numpy(arrays: dict, device="cuda", dtype=torch.float64
 
     geom = Geometry(**{k: tensor(arrays[k]) for k in _GEOMETRY})
     return ModelState(geometry=geom, **{
-        k: tensor(arrays[k]) for k in _STATE if k in arrays})
+        k: int(arrays[k]) if k == "iso_top" else tensor(arrays[k])
+        for k in _STATE if k in arrays})
 
 
 def state_to_numpy(state: ModelState) -> dict:
@@ -55,7 +57,9 @@ def state_to_numpy(state: ModelState) -> dict:
     for k in _STATE:
         v = getattr(state, k)
         if v is not None:
-            out[k] = v.detach().cpu().numpy()
+            # the active isochrone layer is a host int (the JAX int32)
+            out[k] = np.asarray(v, np.int32) if k == "iso_top" \
+                else v.detach().cpu().numpy()
     return out
 
 

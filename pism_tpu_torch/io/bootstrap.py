@@ -204,9 +204,6 @@ def bootstrap(path: str, grid: Grid, config, device="cuda") -> ModelState:
             or config.get_number("bootstrapping.defaults.bwat") > 0.0:
         raise _unported("bootstrapping transportable water (bwat, the "
                         "routing hydrology's state)", "6")
-    if "fracture_density" in fields:
-        raise _unported("bootstrapping fracture_density (fracture density "
-                        "model)", "6")
     # missing-variable fallbacks (PISM bootstrapping.defaults.*)
     d_thk = config.get_number("bootstrapping.defaults.ice_thickness")
     d_bed = config.get_number("bootstrapping.defaults.bed")
@@ -228,6 +225,10 @@ def bootstrap(path: str, grid: Grid, config, device="cuda") -> ModelState:
         kw["tillwat"] = field(np.nan_to_num(fields["tillwat"], nan=d_tillwat))
     elif d_tillwat > 0.0:
         kw["tillwat"] = field(np.full(grid.shape2, d_tillwat))
+    if "fracture_density" in fields:
+        kw["fracture_density"] = field(np.nan_to_num(
+            fields["fracture_density"],
+            nan=config.get_number("bootstrapping.defaults.fracture_density")))
     d_bmelt = config.get_number("bootstrapping.defaults.bmelt")
     if "bmelt" in fields:
         kw["basal_melt_rate"] = field(np.nan_to_num(fields["bmelt"],

@@ -10,7 +10,9 @@ JAX package's, so either package reads the other's files, in both formats
 (``format="netcdf4"`` through h5py, ``"netcdf3"`` through scipy).
 
 Layout: 2D fields (time, y, x); 3D fields (time, y, x, z) with z = height
-above the ice base; the bedrock temperature (time, y, x, zb).
+above the ice base; the bedrock temperature (time, y, x, zb); the
+isochrones' layers ``isochronal_layer_thickness`` (time, y, x, nl) with
+the active top layer in the global attribute ``iso_top``.
 """
 
 from __future__ import annotations
@@ -40,9 +42,15 @@ _STATE_VARS = {
     "hydro_W": ("bwat", {"units": "m"}, 2),
     "hydro_P": ("bwp", {"units": "Pa"}, 2),
     "hydro_Q": ("bwatflux", {"units": "m2 s-1"}, 2),
+    "age": ("age", {"units": "s"}, 3),
+    "ch_enthalpy": ("ch_enthalpy", {"units": "J kg-1", "long_name":
+                                    "cryo-hydrologic system enthalpy"}, 3),
     "bed_uplift": ("viscous_bed_displacement", {"units": "m"}, 2),
     "bed_load_reference": ("bed_def_load_reference", {"units": "m"}, 2),
     "bed_reference": ("bed_def_reference", {"units": "m"}, 2),
+    "fracture_density": ("fracture_density", {"units": "1"}, 2),
+    "fracture_age": ("fracture_age", {"units": "s", "long_name":
+                                      "age of the fractures"}, 2),
     "geothermal_flux": ("bheatflx", {"units": "W m-2", "long_name":
                                      "upward geothermal flux at the bedrock "
                                      "thermal layer base"}, 2),
@@ -54,11 +62,9 @@ _STATE_VARS = {
                                   "dEBM-simple surface albedo"}, 2),
 }
 
-#: state variables of the JAX package's components the port does not carry
-#: (age, fracture, isochrones): a file that holds one cannot be continued
-#: here
-_UNPORTED_VARS = ("age", "ch_enthalpy", "fracture_density", "fracture_age",
-                  "isochronal_layer_thickness")
+#: the 3D fields that a column solve leaves level-major in memory; a
+#: restart reads them so, since torch's reductions over z round by layout
+_LEVEL_MAJOR = ("enthalpy", "age", "ch_enthalpy")
 
 _XY = ("time", "y", "x")
 
@@ -129,8 +135,13 @@ def _write_diagnostics(f, grid: Grid, values: dict, n: int):
             if not f.has_dimension("z"):
                 f.define_dimension("z", grid.Mz, grid.z, attrs={
                     "units": "m", "axis": "Z", "positive": "up"})
+        elif v.ndim == 3 and name == "litho_temp":
+            dims = _XY + ("zb",)
         elif v.ndim == 3:
-            dims = _XY + ("zb",)   # litho_temp
+            # a layer-indexed field (isochrone_depth)
+            dims = _XY + ("nl",)
+            if not f.has_dimension("nl"):
+                f.define_dimension("nl", v.shape[-1])
         f.write(name, v[None], dims,
                 {"units": d.units, "long_name": d.long_name}, time_index=n)
 
@@ -171,6 +182,12 @@ def save_state(path: str, state: S.ModelState, grid: Grid, t: float,
             dims = _XY if rank == 2 else _XY + (
                 "zb" if field == "bedrock_temperature" else "z",)
             f.write(var, _host(val)[None], dims, attrs, time_index=n)
+        if state.iso_layers is not None:
+            f.define_dimension("nl", int(state.iso_layers.shape[-1]))
+            f.write("isochronal_layer_thickness",
+                    _host(state.iso_layers)[None], _XY + ("nl",),
+                    {"units": "m"}, time_index=n)
+            f.set_global_attr("iso_top", int(state.iso_top))
         for name, (arr, attrs) in (extra_2d or {}).items():
             f.write(name, _host(arr).astype(np.float64), ("y", "x"),
                     attrs or {})
@@ -226,12 +243,6 @@ def load_state(path: str, config: Optional[Config] = None, device="cuda"):
         else torch.float64
     device = torch.device(device)
     with File(path, "r") as f:
-        bad = [v for v in _UNPORTED_VARS if f.has_variable(v)]
-        if bad:
-            raise NotImplementedError(
-                f"{path} holds {', '.join(bad)}, state of components not "
-                "implemented in pism_tpu_torch (ROADMAP Queue 1 items 5-7)")
-
         def field(var):
             return torch.as_tensor(f.read(var)[-1], dtype=fdt, device=device)
 
@@ -246,12 +257,15 @@ def load_state(path: str, config: Optional[Config] = None, device="cuda"):
             subgl=cfg.get_flag("geometry.grounded_cell_fraction"))
         kw = {name: field(var) for name, (var, _, _) in _STATE_VARS.items()
               if f.has_variable(var)}
-    if "enthalpy" in kw:
-        # the level-major layout the energy step leaves E in (its column
-        # solve's, util/tridiag.py): reductions over z round by layout, so
-        # a restart reads E as the uninterrupted run holds it
-        kw["enthalpy"] = kw["enthalpy"].movedim(-1, 0).contiguous() \
-            .movedim(0, -1)
+        if f.has_variable("isochronal_layer_thickness"):
+            kw["iso_layers"] = field("isochronal_layer_thickness")
+            kw["iso_top"] = int(f.get_global_attr("iso_top"))
+    for name in _LEVEL_MAJOR:
+        if name in kw:
+            # the level-major layout the column solves leave (util/
+            # tridiag.py): a restart reads the field as the uninterrupted
+            # run holds it
+            kw[name] = kw[name].movedim(-1, 0).contiguous().movedim(0, -1)
     return S.ModelState(geometry=geom, **kw), t
 
 

@@ -15,7 +15,10 @@ frontal-melt and total retreat rates, ``frontal_melt_rate``,
 bedrock layer's ``bedtoptemp``, ``heat_flux_from_bedrock`` and
 ``litho_temp`` (the column, ``(..., Mbz)``), the surface model's state
 (``snow_depth``, ``firn_depth``, ``surface_albedo``) and dEBM-simple's
-``insolation`` and ``debm_*_melt_flux`` fields, and
+``insolation`` and ``debm_*_melt_flux`` fields, the column tracers' and
+the damage field's (``age``, ``isochrone_depth`` on the layer axis ``nl``,
+``ch_temp``, ``ch_liqfrac``, ``ch_heat_flux``, ``fracture_density``,
+``fracture_age``, ``fracture_flow_enhancement``), and
 the interval-averaged rates: the scalar ones
 (``Window``, ``RATE``) from ``StepStats``' volume sums, and the spatial
 ones (``Window2D``, ``SPATIAL_RATE``) from its per-cell ``CellBudget``.
@@ -87,7 +90,7 @@ def _sb(state, model, t=None):
     tau_c = None
     if model.yield_stress is not None:
         tau_c = model.yield_stress.compute(state, t=t)
-    res = model.stress_balance.update(state, tau_c)
+    res = model.stress_balance.update(state, tau_c, t=t)
     model._diag_sb_cache = (state, res)
     return res
 
@@ -340,6 +343,86 @@ def _litho_temp(state, model, t):
 # --------------------------------------------------------------------------
 # ocean, calving and bed deformation (the PIK chain's fields)
 # --------------------------------------------------------------------------
+
+def _zeros3(state, model):
+    H = state.geometry.ice_thickness
+    return torch.zeros(tuple(H.shape) + (model.grid.Mz,), dtype=H.dtype,
+                       device=H.device)
+
+
+def _pressure3(state, model):
+    H = state.geometry.ice_thickness
+    z = torch.as_tensor(model.grid.z, dtype=H.dtype, device=H.device)
+    return model.EC.pressure(torch.clamp(H[..., None] - z, min=0.0))
+
+
+@spatial("ch_temp", "K", "3D cryo-hydrologic system temperature")
+def _chtemp3(state, model, t):
+    if state.ch_enthalpy is None:
+        return _zeros3(state, model)
+    return model.EC.temperature(state.ch_enthalpy, _pressure3(state, model))
+
+
+@spatial("ch_liqfrac", "1", "3D cryo-hydrologic system liquid water fraction")
+def _chliqfrac3(state, model, t):
+    if state.ch_enthalpy is None:
+        return _zeros3(state, model)
+    return model.EC.water_fraction(state.ch_enthalpy,
+                                   _pressure3(state, model))
+
+
+@spatial("ch_heat_flux", "W m-3",
+         "3D cryo-hydrologic warming volumetric heat flux into the ice")
+def _chheat3(state, model, t):
+    em = getattr(model, "energy_model", None)
+    if state.ch_enthalpy is None or state.enthalpy is None or em is None \
+            or not em.ch_enabled:
+        return _zeros3(state, model)
+    EC, p = model.EC, _pressure3(state, model)
+    dT = EC.temperature(state.ch_enthalpy, p) \
+        - EC.temperature(state.enthalpy, p)
+    return em.k_i * torch.clamp(dT, min=0.0) / em.ch_spacing ** 2
+
+
+@spatial("age", "s", "age of the ice", "age_of_glacier_ice")
+def _age3(state, model, t):
+    return _zeros3(state, model) if state.age is None else state.age
+
+
+@spatial("fracture_density", "1", "fracture density phase field")
+def _fracdens(state, model, t):
+    return state.fracture_density if state.fracture_density is not None \
+        else _zeros2(state)
+
+
+@spatial("fracture_age", "s", "age of the fractures")
+def _fracage(state, model, t):
+    return state.fracture_age if state.fracture_age is not None \
+        else _zeros2(state)
+
+
+@spatial("fracture_flow_enhancement", "1",
+         "flow enhancement from fracture-induced softening")
+def _fracenh(state, model, t):
+    # the JAX package's later registration (model/diagnostics_ext.py:700),
+    # with flow_enhancement's default exponent 3
+    f = getattr(model, "fracture", None)
+    if f is None or state.fracture_density is None:
+        return torch.ones_like(state.geometry.ice_thickness)
+    return f.flow_enhancement(state.fracture_density)
+
+
+@spatial("isochrone_depth", "m",
+         "depth below the ice surface of each tracked isochrone "
+         "(last axis = deposition-time layer boundary)")
+def _isochrone_depth(state, model, t):
+    if state.iso_layers is None:
+        H = state.geometry.ice_thickness
+        return torch.zeros(tuple(H.shape) + (1,), dtype=torch.float64,
+                           device=H.device)
+    from .isochrones import isochrone_depth
+    return isochrone_depth(state.iso_layers)
+
 
 @spatial("shelfbmassflux", "kg m-2 s-1", "sub-shelf mass flux (melt positive)")
 def _shelfbmf(state, model, t):

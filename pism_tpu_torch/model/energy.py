@@ -10,6 +10,16 @@ and conduction are implicit. Basal boundary: cold grounded base ->
 Neumann (geothermal + friction heating); temperate or floating base ->
 Dirichlet at E_s(p_b) with the melt rate from the flux imbalance.
 
+``energy.temperature_dependent_conductivity`` takes k(T) = 9.828
+exp(-0.0057 T) for cold ice, lagged on the previous step's E.
+``energy.ch_warming.enabled`` adds the cryo-hydrologic system (Phillips et
+al. 2010; PISM ``CHSystem``): a parallel enthalpy column of water-filled
+crevasses, reset to water-saturated at the pressure-melting point where
+the surface melts and else cooled by its own conduction-only column
+solve, which heats the ice by k_i max(T_ch - T_ice, 0) / R^2 (R the
+channel spacing). Both column solves go through ``util/tridiag``'s
+``solve_batched``.
+
 On an ensemble's member axis (``lead = 1``: E ``(B, My, Mx, Mz)``) the time
 step is a host float or a per-member tensor of the field dtype shaped
 ``(B, 1, 1)``; each column's solve is its own, so a member computes what a
@@ -20,7 +30,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ from ..util.tridiag import solve_batched
 class EnergyStepResult(NamedTuple):
     enthalpy: torch.Tensor
     basal_melt_rate: torch.Tensor
+    ch_enthalpy: Optional[torch.Tensor] = None  # cryo-hydrologic system
 
 
 @dataclass
@@ -48,8 +59,6 @@ class EnergyModel:
     def __post_init__(self):
         cfg = self.config
         require(cfg, "energy.model", ("enthalpy",))
-        require(cfg, "energy.ch_warming.enabled", (False,))
-        require(cfg, "energy.temperature_dependent_conductivity", (False,))
         self.rho = cfg.get_number("constants.ice.density")
         self.c_i = cfg.get_number("constants.ice.specific_heat_capacity")
         self.k_i = cfg.get_number("constants.ice.thermal_conductivity")
@@ -60,16 +69,30 @@ class EnergyModel:
         self.drain_rate = cfg.get_number("energy.drainage_maximum_rate", "s-1")
         self.bulge_max = cfg.get_number("energy.enthalpy.cold_bulge_max")
         self.drain_target = cfg.get_number("energy.drainage_target_water_fraction")
+        self.ch_enabled = cfg.get_flag("energy.ch_warming.enabled")
+        self.ch_spacing = cfg.get_number(
+            "energy.ch_warming.average_channel_spacing")
+        self.k_of_T = cfg.get_flag("energy.temperature_dependent_conductivity")
         self.basal_melt_max = cfg.get_number("energy.basal_melt.max", "m s-1")
+        self.ch_omega = cfg.get_number(
+            "energy.ch_warming.residual_water_fraction")
+        if self.lead and self.ch_enabled:
+            raise NotImplementedError(
+                "energy.ch_warming.enabled in an ensemble is not implemented "
+                "in pism_tpu_torch (ROADMAP Queue 1 item 3)")
         self.sh = Shifter(self.grid, self.lead)
 
     def step(self, state: S.ModelState, sia3: SIA3D, surface_T, dt,
              geothermal_flux, frictional_heating=None,
-             tillwat=None) -> EnergyStepResult:
+             tillwat=None, ch_enthalpy=None,
+             surface_melt=None) -> EnergyStepResult:
         """Advance enthalpy by dt (a host float, or per member a tensor of
         the field dtype shaped to the 2D fields). surface_T: ice surface
         temperature [K]; geothermal_flux [W/m^2]; frictional_heating:
-        tau_b . u_b [W/m^2]."""
+        tau_b . u_b [W/m^2]; ch_enthalpy: the cryo-hydrologic system's E
+        (with ``energy.ch_warming.enabled``); surface_melt [m/s]: where it
+        is positive the CH columns flush (without it, where the surface
+        is within 1 mK of melting)."""
         EC, grid, sh = self.EC, self.grid, self.sh
         E = state.enthalpy
         H = state.geometry.ice_thickness
@@ -107,9 +130,19 @@ class EnergyModel:
         depth = torch.clamp(Hc - z, min=0.0)
         p3 = EC.pressure(depth)
         temperate3 = E >= EC.enthalpy_cts(p3)
-        kappa = torch.where(temperate3,
-                            torch.full_like(E, self.kappa_cold * self.temperate_ratio),
-                            self.kappa_cold)
+        if self.k_of_T:
+            # k(T) = 9.828 exp(-0.0057 T) [W/m/K] for cold ice, lagged on
+            # the previous step's E
+            kappa_cold3 = 9.828 * torch.exp(-0.0057 * EC.temperature(E, p3)) \
+                / (self.rho * self.c_i)
+            kappa = torch.where(temperate3,
+                                self.kappa_cold * self.temperate_ratio,
+                                kappa_cold3)
+        else:
+            kappa = torch.where(
+                temperate3,
+                torch.full_like(E, self.kappa_cold * self.temperate_ratio),
+                self.kappa_cold)
         kap_m = 0.5 * (kappa[..., 1:] + kappa[..., :-1])      # at interfaces
 
         dz_l = torch.cat([dz[:1], dz])                        # dz below level k
@@ -134,6 +167,15 @@ class EnergyModel:
         b = 1.0 - a - c
         d = E + dt3 * (sia3.strain_heating / self.rho + rhs_adv)
 
+        # -- cryo-hydrologic warming source (explicit in the CH state) ------
+        ch = self.ch_enabled and ch_enthalpy is not None
+        if ch:
+            Q_ch = self.k_i * torch.clamp(EC.temperature(ch_enthalpy, p3)
+                                          - EC.temperature(E, p3), min=0.0) \
+                / self.ch_spacing ** 2                       # W/m^3
+            in_ice = (z <= Hc) & icy[..., None]
+            d = d + torch.where(in_ice, dt3 * Q_ch / self.rho, 0.0)
+
         # -- air rows (levels above the ice surface): E = E_sfc --------------
         is_air = z > Hc
         a = torch.where(is_air, 0.0, a)
@@ -143,11 +185,12 @@ class EnergyModel:
 
         # -- basal row: Neumann (cold grounded) E0 - E1 = G dz0 c_i / k_i ----
         dirichlet = base_temperate
+        c0 = torch.where(dirichlet, 0.0, -1.0).to(E.dtype)
+        d0 = torch.where(dirichlet, Es_base, G * dz[0] * self.c_i / self.k_i)
         a[..., 0] = 0.0
         b[..., 0] = 1.0
-        c[..., 0] = torch.where(dirichlet, 0.0, -1.0).to(E.dtype)
-        d[..., 0] = torch.where(dirichlet, Es_base,
-                                G * dz[0] * self.c_i / self.k_i)
+        c[..., 0] = c0
+        d[..., 0] = d0
 
         E_new = solve_batched(a, b, c, d)
 
@@ -156,7 +199,8 @@ class EnergyModel:
 
         # -- thin/ice-free columns: surface-value column ---------------------
         thin = H < max(z1, 1.0)
-        E_new = torch.where((thin | ~icy)[..., None], E_sfc[..., None], E_new)
+        bare = (thin | ~icy)[..., None]
+        E_new = torch.where(bare, E_sfc[..., None], E_new)
 
         # -- drainage of excess liquid water --------------------------------
         omega = EC.water_fraction(E_new, p3)
@@ -170,6 +214,30 @@ class EnergyModel:
         drain_flux = S.dt_divide(
             torch.sum(mid_drain * in_ice_mid * dz, dim=-1), dt)
 
+        # -- cryo-hydrologic column: conduction only, the same surface and
+        # basal rows; flushed to water-saturated at the pressure-melting
+        # point (+ the residual water fraction) where the surface melts ----
+        ch_new = None
+        if ch:
+            a_ch = dt3 * (-kap_below / (dz_l3 * dz_c))
+            c_ch = dt3 * (-kap_above / (dz_u3 * dz_c))
+            b_ch = 1.0 - a_ch - c_ch
+            a_ch = torch.where(is_air, 0.0, a_ch)
+            c_ch = torch.where(is_air, 0.0, c_ch)
+            b_ch = torch.where(is_air, 1.0, b_ch)
+            d_ch = torch.where(is_air, E_sfc[..., None], ch_enthalpy)
+            a_ch[..., 0] = 0.0
+            b_ch[..., 0] = 1.0
+            c_ch[..., 0] = c0
+            d_ch[..., 0] = d0
+            ch_cooled = solve_batched(a_ch, b_ch, c_ch, d_ch)
+            E_sat = EC.enthalpy_cts(p3) + self.ch_omega * self.L
+            melting = surface_T >= (EC.T_melting - 1e-3) \
+                if surface_melt is None else surface_melt > 0.0
+            ch_new = torch.where((melting & icy)[..., None] & (z <= Hc),
+                                 E_sat, ch_cooled)
+            ch_new = torch.where(bare, E_sfc[..., None], ch_new)
+
         # -- basal melt budget (grounded) ------------------------------------
         q_ice = -(kap_m[..., 0] * self.rho) * (E_new[..., 1] - E_new[..., 0]) \
             / dz[0]
@@ -182,7 +250,8 @@ class EnergyModel:
         M_b = torch.where(icy & ~floating, M_b + drain_flux, 0.0)
         if self.basal_melt_max > 0.0:
             M_b = torch.clamp(M_b, -self.basal_melt_max, self.basal_melt_max)
-        return EnergyStepResult(enthalpy=E_new, basal_melt_rate=M_b)
+        return EnergyStepResult(enthalpy=E_new, basal_melt_rate=M_b,
+                                ch_enthalpy=ch_new)
 
 
 def bootstrap_enthalpy(grid, EC: EnthalpyConverter, thickness, surface_T,

@@ -38,6 +38,9 @@ class MassTransportResult(NamedTuple):
     # ``fields``, for the per-cell budget)
     flow_field: Optional[torch.Tensor] = None
     nonneg_field: Optional[torch.Tensor] = None
+    # the limited staggered flux [m^2/s] (the isochrones' transport)
+    Qe: Optional[torch.Tensor] = None
+    Qn: Optional[torch.Tensor] = None
 
 
 def advective_flux(u_face_e, v_face_n, H, sh):
@@ -137,10 +140,11 @@ def flow_step(geometry: S.Geometry, dt, Qe, Qn, grid, sh,
     nonneg = S.member_sum(nonneg_field, sh.lead) * dx * dy
     if not fields:
         return MassTransportResult(thickness=clipped, flux_divergence=div,
-                                   nonneg_flux=nonneg, Href=Href)
+                                   nonneg_flux=nonneg, Href=Href, Qe=Qe, Qn=Qn)
     return MassTransportResult(
         thickness=clipped, flux_divergence=div, nonneg_flux=nonneg, Href=Href,
-        flow_field=S.dt_divide(H_new - H, dt), nonneg_field=nonneg_field)
+        flow_field=S.dt_divide(H_new - H, dt), nonneg_field=nonneg_field,
+        Qe=Qe, Qn=Qn)
 
 
 def source_term_step(H, dt, smb, bmb, dx: float, dy: float,

@@ -39,7 +39,15 @@ isostasy, Lingle-Clark or no bed deformation; part-grid mass transport
 with skip substeps; a stateful PDD surface model or a stateless one; an
 optional ocean model (``constant``, ``pik``, PICO, evaluated in every
 mass substep); an optional sea-level model, evaluated before each step's
-dynamics. Any other configured component raises NotImplementedError.
+dynamics; the column tracers and the damage field (``age.enabled``: the age
+after the energy step, where the 3D velocities exist;
+``age.isochrones.enabled``: the isochrone layers in every mass substep,
+each new layer switched on by the host from the float64 clock;
+``fracture_density.enabled``: the fracture step on the SSA velocity, with
+the SSA's hardness for the stress criteria; the CH system through the
+energy step), ordered as the JAX step orders them
+(``pism_tpu/model/icemodel.py:529-552, :568-682``). Any other configured
+component raises NotImplementedError.
 
 ``device`` (default ``"cuda"``) is where every field lives:
 ``prepare_state`` moves the state there, and on a machine without a card
@@ -69,7 +77,8 @@ Lingle-Clark bed deformation (each member's gate on its own step end). A
 mesh, sea level, pointwise isostasy, another calving method or float
 kill, another stateful surface, the Weertman and prescribed sliding,
 ``ssa``, ``none``, Blatter and SSAFEM, a bedrock layer, a hydrology model
-other than null and frontal melt raise NotImplementedError.
+other than null, frontal melt, the age, the isochrones, the fracture
+density and the CH system raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -101,11 +110,14 @@ from ..util import hostsync
 from ..util.logger import log
 from ..util.timecal import Time
 from . import geometry_evolution as ge
+from . import isochrones as iso_mod
+from .age import AgeModel
 from .beddef import LingleClark, bed_deformation_from_config
 from .blatter import BlatterSolver
 from .btu import BTUFull, btu_from_config
 from .calving import CalvingModel, calving_from_config
 from .energy import EnergyModel, bootstrap_enthalpy
+from .fracture import FractureDensity
 from .ssa import SSAFD
 from .ssafem import SSAFEM
 from .stressbalance import StressBalance, StressBalanceResult
@@ -287,9 +299,14 @@ class IceModel:
             require(cfg, "stress_balance.ssa.flow_law", ("isothermal_glen",))
         require(cfg, "ocean.always_grounded", (False,))
         require(cfg, "time_stepping.adaptive_timestepping", (True,))
-        for flag in ("age.enabled", "age.isochrones.enabled",
-                     "fracture_density.enabled"):
-            require(cfg, flag, (False,))
+        if self.member_axis:
+            for flag in ("age.enabled", "age.isochrones.enabled",
+                         "fracture_density.enabled",
+                         "energy.ch_warming.enabled"):
+                if cfg.get_flag(flag):
+                    raise NotImplementedError(
+                        f"{flag} in an ensemble is not implemented in "
+                        "pism_tpu_torch (ROADMAP Queue 1 item 3)")
         if cfg.get_number("time_stepping.dt_force") > 0.0:
             raise NotImplementedError(
                 "time_stepping.dt_force > 0 is not implemented in pism_tpu_torch")
@@ -370,6 +387,21 @@ class IceModel:
             cfg.get_flag("calving.front_retreat.use_cfl")
             or cfg.get_flag("geometry.front_retreat.use_cfl"))
         self.bed_deformation = bed_deformation_from_config(self.grid, cfg)
+        # the column tracers and the damage field
+        # (pism_tpu/model/icemodel.py:236-267)
+        self.isochrones = self.fracture = self.age_model = None
+        if cfg.get_flag("age.isochrones.enabled"):
+            self._iso_dep_times = iso_mod.deposition_times(cfg)
+            self.isochrones = iso_mod.Isochrones(
+                grid=self.grid, n_layers=iso_mod.n_layers(cfg))
+            self._iso_times = iso_mod.times_array(self.isochrones.n_layers,
+                                                  self._iso_dep_times)
+        if cfg.get_flag("fracture_density.enabled"):
+            self.fracture = FractureDensity(
+                grid=self.grid, config=cfg,
+                bc_mask=getattr(self.ssa, "bc_mask", None))
+        if cfg.get_flag("age.enabled"):
+            self.age_model = AgeModel(grid=self.grid, config=cfg)
         self.geothermal = cfg.get_number("bootstrapping.defaults.geothermal_flux")
         if sb_model.startswith("prescribed_sliding") \
                 and self.prescribed_u is None:
@@ -515,11 +547,14 @@ class IceModel:
         return min(dt, t_end - t), idx
 
     def _mass_substep(self, state, sb, smb, geometry, t, dt_sub,
-                      qe_d=None, qn_d=None, cells=False):
+                      qe_d=None, qn_d=None, cells=False, iso=None):
         """One mass-continuity substep with frozen sliding velocities; the
         SIA diffusive flux is recomputed from the current geometry unless
         supplied. With ``cells`` the returned values also hold the per-cell
-        flow, SMB, BMB and clip rates."""
+        flow, SMB, BMB and clip rates. ``iso``: the isochrones'
+        ``IsochroneState``, stepped with the limited flux and the applied
+        rates at the step's start ``t`` (as the JAX step passes it).
+        Returns (geometry, values, iso)."""
         grid, sh = self.grid, self.sh
         if qe_d is None and self.stress_balance.has_sia:
             flux = self.stress_balance.sia_flux(geometry, state.enthalpy)
@@ -554,6 +589,9 @@ class IceModel:
         src = ge.source_term_step(H, dt_sub, smb_eff, bmb, grid.dx, grid.dy,
                                   fields=cells, lead=self.lead)
         H, smb_app, bmb_app = src[:3]
+        if iso is not None:
+            iso = self.isochrones.step(iso, t, dt_sub, res.Qe, res.Qn,
+                                       geometry.ice_thickness, H, smb_eff, bmb)
         geometry = S.ensure_consistency(geometry.replace(ice_thickness=H),
                                         self.rho_i, self.rho_w, self.Hmin,
                                         self.subgl, self.lead)
@@ -562,7 +600,7 @@ class IceModel:
         vals = (smb_app, bmb_app, div_vol, res.nonneg_flux)
         if cells:
             vals += (res.flow_field, src[3], src[4], res.nonneg_field)
-        return geometry, vals
+        return geometry, vals, iso
 
     def _step(self, state: S.ModelState, t: float, t_end: float,
               stats: StepStats):
@@ -587,7 +625,7 @@ class IceModel:
             # pressure; None is the hydrostatic default in the SSA
             wcp = self.ocean.water_column_pressure(state.geometry, t)
         sb = self.stress_balance.update(state, tau_c,
-                                        water_column_pressure=wcp)
+                                        water_column_pressure=wcp, t=t)
         fr_rate = None
         if self.front_retreat_cfl:
             fr_rate = self.calving.max_rate(
@@ -699,9 +737,30 @@ class IceModel:
             eres = self.energy_model.step(
                 state, sb.sia3, smb_in.temperature, dt_f, geothermal_flux=G,
                 frictional_heating=sb.basal_frictional_heating,
-                tillwat=state.tillwat)
+                tillwat=state.tillwat, ch_enthalpy=state.ch_enthalpy,
+                surface_melt=smb_in.melt)
             state = state.replace(enthalpy=eres.enthalpy,
                                   basal_melt_rate=eres.basal_melt_rate)
+            if eres.ch_enthalpy is not None:
+                state = state.replace(ch_enthalpy=eres.ch_enthalpy)
+
+        # 4. age transport, where the 3D velocities exist -------------------
+        if self.age_model is not None and state.age is not None \
+                and sb.sia3 is not None:
+            state = state.replace(age=self.age_model.step(state, sb.sia3,
+                                                          dt_f))
+
+        # 4b. fracture density on the membrane velocity ---------------------
+        if self.fracture is not None and state.fracture_density is not None \
+                and sb.u_ssa is not None:
+            hard = None
+            if (self.fracture.max_shear or self.fracture.lefm) \
+                    and self.ssa is not None:
+                hard = self.ssa._hardness(state)
+            fres = self.fracture.step(state, sb.u_ssa, sb.v_ssa, dt_f,
+                                      hardness=hard)
+            state = state.replace(fracture_density=fres.density,
+                                  fracture_age=fres.age)
 
         # 5. hydrology -----------------------------------------------------
         if self.hydrology is not None:
@@ -717,21 +776,27 @@ class IceModel:
         geometry = state.geometry
         zero = torch.zeros(H.shape[:self.lead], dtype=dtype, device=H.device)
         vals = (zero,) * 4 + ((torch.zeros_like(H),) * 4 if cells else ())
+        iso = None
+        if self.isochrones is not None and state.iso_layers is not None:
+            iso = iso_mod.IsochroneState(state.iso_layers, state.iso_top,
+                                         self._iso_times)
         if self.geometry_evolves:
             if self.skip_max > 1:
                 qe_f = None if self.refresh_diffusivity else sb.qe
                 qn_f = None if self.refresh_diffusivity else sb.qn
                 acc = vals
                 for _ in range(self.skip_max):
-                    geometry, vals = self._mass_substep(
+                    geometry, vals, iso = self._mass_substep(
                         state, sb, smb_in.smb, geometry, t, dt_sub, qe_f, qn_f,
-                        cells=cells)
+                        cells=cells, iso=iso)
                     acc = tuple(a + v for a, v in zip(acc, vals))
                 vals = tuple(v / self.skip_max for v in acc)
             else:
-                geometry, vals = self._mass_substep(
+                geometry, vals, iso = self._mass_substep(
                     state, sb, smb_in.smb, geometry, t, dt_f, sb.qe, sb.qn,
-                    cells=cells)
+                    cells=cells, iso=iso)
+        if iso is not None:
+            state = state.replace(iso_layers=iso.layers, iso_top=iso.top)
         return state, geometry, vals
 
     def _frontal_melt(self, geometry, t, state):
@@ -940,6 +1005,20 @@ class IceModel:
                 kw["hydro_Q"] = None
         if self.energy_model is not None and state.basal_melt_rate is None:
             kw["basal_melt_rate"] = z2
+        if self.age_model is not None and state.age is None:
+            # age.initial_value: a uniform initial age
+            age0 = self.config.get_number("age.initial_value", "seconds")
+            kw["age"] = torch.full(tuple(H.shape) + (self.grid.Mz,), age0,
+                                   dtype=H.dtype, device=H.device)
+        if self.fracture is not None:
+            if state.fracture_density is None:
+                kw["fracture_density"] = z2
+            if state.fracture_age is None:
+                kw["fracture_age"] = z2
+        if self.isochrones is not None and state.iso_layers is None:
+            iso0 = self.isochrones.initialize(H, self._iso_dep_times)
+            kw["iso_layers"], kw["iso_top"] = iso0.layers, iso0.top
+            self._iso_times = iso0.deposition_times
         if self.stress_balance.model not in ("sia", "none"):
             if state.u_ssa is None:
                 kw["u_ssa"] = z2
@@ -995,6 +1074,12 @@ class IceModel:
         if isinstance(self.btu, BTUFull) and state.bedrock_temperature is None:
             kw["bedrock_temperature"] = self._initial_bedrock_temperature(
                 state, kw.get("enthalpy", state.enthalpy))
+        if self.energy_model is not None and self.energy_model.ch_enabled \
+                and state.ch_enthalpy is None:
+            # the CH system starts in thermal equilibrium with the ice
+            E0 = kw.get("enthalpy", state.enthalpy)
+            if E0 is not None:
+                kw["ch_enthalpy"] = E0
         return state.replace(**kw)
 
     def _initial_bedrock_temperature(self, state, E0):
@@ -1086,7 +1171,7 @@ class IceModel:
             raise RuntimeError(
                 f"ice thickness ({Hmax:.1f} m) exceeds "
                 f"geometry.ice_thickness.max ({H_cap:.1f} m)")
-        if self.energy_model is None:
+        if self.energy_model is None and self.age_model is None:
             return
         if Hmax >= self.grid.Lz:
             raise RuntimeError(

@@ -114,6 +114,10 @@ class SSAFD:
         require(cfg, "basal_resistance.beta_lateral_margin", (0.0,))
         require(cfg, "stress_balance.ssa.fd.extrapolate_initial_guess", (False,))
         self.pcr_impl = cfg.get_string("stress_balance.ssa.fd.line_pcr_impl")
+        # the fracture softening of the hardness (Albrecht & Levermann
+        # 2012; PISM SSAFD::compute_nuH), off at 1
+        self.frac_soft_min = cfg.get_number(
+            "fracture_density.softening_lower_limit")
         self.precond_kind = cfg.get_string("stress_balance.ssa.fd.preconditioner")
         self.exact_drag = cfg.get_string(
             "stress_balance.ssa.fd.drag_jacobian") == "exact"
@@ -218,7 +222,14 @@ class SSAFD:
             z = torch.as_tensor(self.grid.z, dtype=H.dtype, device=H.device)
             B = self.flow_law.averaged_hardness(H, state.enthalpy, z)
         # SSA enhancement factor scales softness: B -> B * e^(-1/n)
-        return B * self.e_ssa ** (-1.0 / self.n_glen)
+        B = B * self.e_ssa ** (-1.0 / self.n_glen)
+        # fracture softening: softness A -> A (1 - (1-eps) phi)^(-n), i.e.
+        # B -> B max(1 - (1-eps) phi, eps)
+        phi = state.fracture_density
+        if phi is not None and self.frac_soft_min != 1.0:
+            eps = self.frac_soft_min
+            B = B * torch.clamp(1.0 - (1.0 - eps) * phi.to(B.dtype), min=eps)
+        return B
 
     def _front_stress(self, geometry, water_column_pressure=None):
         """T_front = 1/2 g (rho_i H^2 - rho_w d^2) per cell [Pa m]; with an

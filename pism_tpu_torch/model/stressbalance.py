@@ -14,6 +14,13 @@ its field regridded to the z levels, w from incompressibility, its
 dissipation as the strain heating and the frictional heating of the
 bottom level.
 
+The SIA takes every surface-gradient method (``mahaffy``, ``haseloff``,
+``eta``) and, with ``stress_balance.sia.e_age_coupling``, a 3D enhancement
+field from the ice's depositional time t - age (``age_enhancement``);
+the 3D vertical velocity's divergence is centered or ``upstream``
+(``stress_balance.vertical_velocity_approximation``); ``-brutal_sliding``
+scales the SSA's velocity.
+
 On an ensemble's member axis (``lead = 1``) both models run on
 ``(B, My, Mx[, Mz])`` fields with per-member maxima; with ``ssa+sia`` the
 SSA solve (built with the same ``lead``) converges per member in lockstep
@@ -114,12 +121,30 @@ class StressBalance:
         if self.ssa is not None and self.ssa.lead != self.lead:
             raise ValueError("the SSA and the stress balance take different "
                              "member dims")
-        require(cfg, "stress_balance.vertical_velocity_approximation",
-                ("centered",))
-        require(cfg, "stress_balance.sia.e_age_coupling", (False,))
-        require(cfg, "stress_balance.ssa.fd.brutal_sliding", (False,))
+        self.w_approx = cfg.get_string(
+            "stress_balance.vertical_velocity_approximation")
+        if self.w_approx not in ("centered", "upstream"):
+            raise ValueError(
+                "stress_balance.vertical_velocity_approximation = "
+                f"{self.w_approx!r}: expected centered | upstream")
+        # PISM -brutal_sliding: the SSA's sliding speeds times a constant
+        self.brutal_scale = cfg.get_number(
+            "stress_balance.ssa.fd.brutal_sliding_scale") \
+            if cfg.get_flag("stress_balance.ssa.fd.brutal_sliding") else None
+        # the age-coupled interglacial enhancement: ice deposited in the
+        # Eemian or after the Holocene's onset flows with
+        # enhancement_factor_interglacial instead of e_sia
+        self.e_age_coupling = cfg.get_flag("stress_balance.sia.e_age_coupling")
+        if self.e_age_coupling and not cfg.get_flag("age.enabled"):
+            raise ValueError(
+                "stress_balance.sia.e_age_coupling requires age.enabled")
+        self.e_sia_interglacial = cfg.get_number(
+            "stress_balance.sia.enhancement_factor_interglacial")
+        self.eemian_start = cfg.get_number("time.eemian_start", "seconds")
+        self.eemian_end = cfg.get_number("time.eemian_end", "seconds")
+        self.holocene_start = cfg.get_number("time.holocene_start", "seconds")
         require(cfg, "stress_balance.sia.surface_gradient_method",
-                ("haseloff", "mahaffy"))
+                ("eta", "haseloff", "mahaffy"))
         refuse_periodic_mesh(self.grid, self.mesh)
         self.sh = Shifter(self.grid, self.lead)
         self.n_sia = cfg.get_number("stress_balance.sia.Glen_exponent")
@@ -188,10 +213,14 @@ class StressBalance:
                 torch.where(sliding, fac * tdy, 0.0))
 
     def sia_flux(self, geometry, enthalpy, theta_e=None, theta_n=None,
-                 pallas=None):
+                 pallas=None, enhancement=None):
+        """The SIA flux; ``enhancement`` defaults to the scalar e_sia (the
+        mass substeps' refreshed flux takes it, as in the JAX package)."""
         return sia_ops.diffusivity(
             self.sia_flow_law, geometry, enthalpy, self.grid, self.sh,
-            n=self.n_sia, enhancement=self.e_sia, rho=self.rho, g=self.g,
+            n=self.n_sia,
+            enhancement=self.e_sia if enhancement is None else enhancement,
+            rho=self.rho, g=self.g,
             gradient_method=self.gradient_method, theta_e=theta_e,
             theta_n=theta_n, pallas=pallas, mesh=self.mesh,
             d_limit=self.d_limit)
@@ -252,14 +281,33 @@ class StressBalance:
             ssa_newton_iters=info["newton_iters"],
             ssa_krylov_iters=info["krylov_iters"])
 
+    def age_enhancement(self, state: S.ModelState, t: float):
+        """The SIA enhancement of ``state`` at model time ``t`` (a host
+        float64): with ``e_age_coupling`` a 3D field of the field dtype,
+        ``enhancement_factor_interglacial`` where the ice's depositional
+        time t - age falls in the Eemian or after the Holocene's onset
+        (formed in float64, as the JAX step forms it from its float64
+        clock), else the scalar e_sia."""
+        if not (self.e_age_coupling and state.age is not None
+                and t is not None):
+            return self.e_sia
+        depo = t - state.age.to(torch.float64)
+        inter = ((depo >= self.eemian_start) & (depo <= self.eemian_end)) \
+            | (depo >= self.holocene_start)
+        f64 = dict(dtype=torch.float64, device=depo.device)
+        return torch.where(inter, torch.tensor(self.e_sia_interglacial, **f64),
+                           torch.tensor(self.e_sia, **f64)).to(state.age.dtype)
+
     def update(self, state: S.ModelState, yield_stress,
-               active=None, water_column_pressure=None) -> StressBalanceResult:
+               active=None, water_column_pressure=None,
+               t=None) -> StressBalanceResult:
         """``active``: on the member axis, the members whose SSA solves (a
         host list; the others' results are discarded by the caller).
         ``water_column_pressure``: the ocean model's front water-column
         pressure [Pa] (melange back pressure; None: hydrostatic), which
         the finite-difference SSA's calving-front term takes and SSAFEM
-        ignores, as in the JAX package."""
+        ignores, as in the JAX package. ``t``: model time [s], which the
+        age-coupled enhancement needs (without it e_sia is the scalar)."""
         if self.model == "blatter":
             return self._blatter_update(state, yield_stress)
         # without an SSA a state's sliding velocities (say, of a restart
@@ -273,6 +321,9 @@ class StressBalance:
                 kw["water_column_pressure"] = water_column_pressure
             u_ssa, v_ssa, info = self.ssa.solve(
                 state, yield_stress, diagnostics=True, **kw)
+            if self.brutal_scale is not None:
+                u_ssa = u_ssa * self.brutal_scale
+                v_ssa = v_ssa * self.brutal_scale
         elif self.sliding == "weertman_sliding":
             u_ssa, v_ssa = self._weertman(state)
         elif self.sliding == "prescribed_sliding":
@@ -280,10 +331,11 @@ class StressBalance:
             u_ssa = self.prescribed_u.to(H.dtype)
             v_ssa = self.prescribed_v.to(H.dtype)
 
+        e_sia = self.age_enhancement(state, t)
         if self.has_sia:
             geom, th_e, th_n = self._apply_bed_smoother(state.geometry)
             flux = self.sia_flux(geom, state.enthalpy, th_e, th_n,
-                                 pallas=self.sia_pallas)
+                                 pallas=self.sia_pallas, enhancement=e_sia)
         else:
             zeros = torch.zeros_like(state.geometry.ice_thickness)
             flux = sia_ops.SIAFlux(zeros, zeros, zeros, zeros,
@@ -299,10 +351,11 @@ class StressBalance:
         if self.compute_3d and self.has_sia:
             sia3 = sia3d.sia_3d(
                 self.sia_flow_law, state.geometry, state.enthalpy, self.grid,
-                self.sh, n=self.n_sia, enhancement=self.e_sia, rho=self.rho,
+                self.sh, n=self.n_sia, enhancement=e_sia, rho=self.rho,
                 g=self.g, u_base=u_ssa, v_base=v_ssa,
                 basal_melt_rate=state.basal_melt_rate,
-                max_diffusivity=self.d_limit, icy_threshold=self.icy_thresh)
+                max_diffusivity=self.d_limit, w_approximation=self.w_approx,
+                icy_threshold=self.icy_thresh)
             if u_ssa is not None and self.ssa is not None:
                 # tau_b . u_b = beta(|u|) |u|^2  [W/m^2]
                 beta = self.ssa.sliding_law.beta(yield_stress, u_ssa, v_ssa)

@@ -1,19 +1,24 @@
 """Shallow-ice approximation (SIA) diffusivity and flux (port of
-``pism_tpu/ops/sia.py``): Mahaffy and Haseloff staggered surface
-gradients and the diffusivity
+``pism_tpu/ops/sia.py``): Mahaffy, eta-transform and Haseloff staggered
+surface gradients and the diffusivity
 
     D = 2 e (rho g)^n |grad s|^(n-1) K,
     K = int_0^H A(E(z), p(H - z)) (H - z)^(n+1) dz   (z above base),
 
 which for an isothermal law (no enthalpy field, ``energy.model = none``)
 is the closed form K = A H^(n+2) / (n+2); then q = -D grad(s) on the
-faces. ``diffusivity`` routes as the JAX package does
+faces. A law with no Glen softness (Goldsby-Kohlstedt) takes the
+stress-dependent integral D = 2 rho g int F(sigma, E, p) (H - z)^2 dz
+instead, and the enhancement may be a 3D field (the age-coupled one),
+averaged onto the faces. ``diffusivity`` routes as the JAX package does
 (``pism_tpu/ops/sia.py:225-270``): a fused kernel where it computes the same
 quantity (K3, ``ops/kernels/sia_thermo.py``, with an enthalpy field; K4,
 ``ops/kernels/sia_iso.py``, without one), else the plain path here. The
 hybrid chain, with Haseloff gradients and the bed smoother, takes the
 plain path; EISMINT II and the Halfar setup, with Mahaffy gradients and no
-bed-smoother theta, take a kernel.
+bed-smoother theta, take a kernel. A 3D enhancement field sends the flux
+down the plain path whatever ``pallas`` says (``pism_tpu/ops/sia.py:226-230``):
+the kernels bake a scalar factor into their integral.
 
 With a ("y", "x") mesh of more than one device, a kernel route runs the
 kernel per shard on halo-padded blocks (``ops/sharded.py``), as the JAX
@@ -41,6 +46,7 @@ from .kernels import sia_iso as K4
 from .kernels import sia_thermo as K3
 from .. import state as S
 from ..parallel.mesh import is_sharded
+from ..physics.rheology import GPBLD, PatersonBudd
 
 
 class StaggeredGrad(NamedTuple):
@@ -70,6 +76,34 @@ def surface_gradient_mahaffy(surface, grid, sh) -> StaggeredGrad:
     )
 
 
+def surface_gradient_eta(thickness, bed, grid, sh, n: float = 3.0
+                         ) -> StaggeredGrad:
+    """Eta-transform scheme (PISM ``SIAFD::surface_gradient_eta``):
+    eta = H^((2n+2)/n) is smooth at margins; grad H by the chain rule from
+    grad eta on the faces, then grad s = grad H + grad b."""
+    etapow = (2.0 * n + 2.0) / n
+    eta = thickness ** etapow
+    factor = 1.0 / etapow
+    dx, dy = grid.dx, grid.dy
+
+    def dH(eta_face_grad, eta_face):
+        safe = torch.clamp(eta_face, min=1e-30)
+        return factor * safe ** (1.0 / etapow - 1.0) \
+            * torch.where(eta_face > 0, eta_face_grad, 0.0)
+
+    eta_e = st.avg_to_east(eta, sh)
+    eta_n = st.avg_to_north(eta, sh)
+    return StaggeredGrad(
+        sx_e=dH(st.grad_x_east(eta, dx, sh), eta_e)
+        + st.grad_x_east(bed, dx, sh),
+        sy_e=dH(st.grad_y_east(eta, dy, sh), eta_e)
+        + st.grad_y_east(bed, dy, sh),
+        sx_n=dH(st.grad_x_north(eta, dx, sh), eta_n)
+        + st.grad_x_north(bed, dx, sh),
+        sy_n=dH(st.grad_y_north(eta, dy, sh), eta_n)
+        + st.grad_y_north(bed, dy, sh))
+
+
 def surface_gradient_haseloff(geometry, grid, sh) -> StaggeredGrad:
     """Mahaffy gradients with the margin fix: faces between an icy cell and
     an ice-free cell whose surface is higher get zero across-face gradient
@@ -85,26 +119,47 @@ def surface_gradient_haseloff(geometry, grid, sh) -> StaggeredGrad:
                          sx_n=g.sx_n, sy_n=torch.where(wall_n, 0.0, g.sy_n))
 
 
-def surface_gradient(geometry, grid, sh, method: str = "mahaffy"
-                     ) -> StaggeredGrad:
+def surface_gradient(geometry, grid, sh, method: str = "mahaffy",
+                     n: float = 3.0) -> StaggeredGrad:
+    """The JAX package's dispatch: ``eta``, ``haseloff``, and Mahaffy for
+    any other name."""
+    if method == "eta":
+        return surface_gradient_eta(geometry.ice_thickness,
+                                    geometry.bed_elevation, grid, sh, n)
     if method == "haseloff":
         return surface_gradient_haseloff(geometry, grid, sh)
-    if method == "mahaffy":
-        return surface_gradient_mahaffy(geometry.ice_surface_elevation, grid, sh)
-    raise NotImplementedError(
-        f"stress_balance.sia.surface_gradient_method = {method!r} is not "
-        "implemented in pism_tpu_torch (supported: 'haseloff', 'mahaffy')")
+    return surface_gradient_mahaffy(geometry.ice_surface_elevation, grid, sh)
 
 
-def _softness_integral(flow_law, E3, H_face, z, n: float, enhancement: float):
-    """K = int_0^H A(E(z), p) (H-z)^(n+1) dz on one set of faces; E3 is the
-    enthalpy averaged onto the faces. Trapezoid on levels clipped to H."""
+def _softness_integral(flow_law, E3, H_face, z, n: float, enhancement):
+    """K = int_0^H e A(E(z), p) (H-z)^(n+1) dz on one set of faces; E3 is
+    the enthalpy averaged onto the faces, ``enhancement`` a number or a
+    field on the same faces (folded into the integrand). Trapezoid on
+    levels clipped to H."""
     H = H_face[..., None]
     depth = torch.clamp(H - z, min=0.0)
     A = flow_law.softness(E3, flow_law.EC.pressure(depth))
     f = enhancement * A * depth ** (n + 1.0)
     w = torch.diff(torch.minimum(z, H), dim=-1)
     return torch.sum(0.5 * (f[..., 1:] + f[..., :-1]) * w, dim=-1)
+
+
+def _flow_integral(flow_law, E3, H_face, z, slope_face, rho, g, enhancement):
+    """The diffusivity of a law with no Glen softness (PISM
+    ``SIAFD::compute_diffusivity``'s full flow-law form):
+
+        D = 2 rho g int_0^H e F(sigma(z), E, p) (H-z)^2 dz,
+        sigma(z) = rho g (H - z) |grad s|,
+
+    F the law's ``flow`` (eps = F sigma)."""
+    H = H_face[..., None]
+    depth = torch.clamp(H - z, min=0.0)
+    p = flow_law.EC.pressure(depth)
+    sigma = rho * g * depth * slope_face[..., None]
+    f = enhancement * flow_law.flow(sigma, E3, p) * depth ** 2
+    w = torch.diff(torch.minimum(z, H), dim=-1)
+    K = torch.sum(0.5 * (f[..., 1:] + f[..., :-1]) * w, dim=-1)
+    return 2.0 * rho * g * K
 
 
 def _isothermal_softness(flow_law, dtype, device="cpu"):
@@ -115,14 +170,15 @@ def _isothermal_softness(flow_law, dtype, device="cpu"):
 
 
 def _iso_kernel_eligible(grid, H, gradient_method, theta_e, theta_n,
-                         enhancement) -> bool:
+                         enhancement, flow_law=None) -> bool:
     """The ``auto`` rule of the JAX package's ``_pallas_eligible``
     (``pism_tpu/ops/sia.py:170-190``, ``:227-239``) for K4, with a CUDA card
     where it has a TPU: the kernel computes the identical quantity for
     float32 fields, Mahaffy gradients, clamped (non-periodic) ghosts, no
-    bed-smoother multipliers and a scalar enhancement factor. No cell-count
-    limit (see the module's docstring)."""
+    bed-smoother multipliers, a scalar enhancement factor and a law with a
+    Glen softness. No cell-count limit (see the module's docstring)."""
     return (H.device.type == "cuda"
+            and not getattr(flow_law, "generalized", False)
             and H.dtype == torch.float32
             and gradient_method == "mahaffy"
             and theta_e is None and theta_n is None
@@ -132,11 +188,12 @@ def _iso_kernel_eligible(grid, H, gradient_method, theta_e, theta_n,
 
 def _kernel_eligible(flow_law, enthalpy, grid, H, gradient_method,
                      theta_e, theta_n, enhancement) -> bool:
-    """The same rule for K3: K4's, plus an enthalpy field and a
-    Paterson-Budd-family law."""
+    """The same rule for K3: K4's, plus an enthalpy field and the
+    Paterson-Budd or GPBLD law, whose softness the kernel computes (the JAX
+    rule tests for the Paterson-Budd constants, which the cold, warm and
+    Hooke laws carry too; on the CPU its rule never holds)."""
     return (enthalpy is not None
-            and all(hasattr(flow_law, a) for a in
-                    ("A_cold", "A_warm", "Q_cold", "Q_warm", "T_critical", "R"))
+            and type(flow_law) in (PatersonBudd, GPBLD)
             and _iso_kernel_eligible(grid, H, gradient_method, theta_e,
                                      theta_n, enhancement))
 
@@ -163,10 +220,12 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
     H = geometry.ice_thickness
     s = geometry.ice_surface_elevation
     sharded_route = is_sharded(mesh)
-    use_kernel = pallas
+    field_enh = torch.is_tensor(enhancement) and enhancement.dim() > 0
+    # a 3D enhancement field takes the plain path even under pallas = on
+    use_kernel = False if field_enh else pallas
     if use_kernel is None and enthalpy is None:
         use_kernel = _iso_kernel_eligible(grid, H, gradient_method, theta_e,
-                                          theta_n, enhancement)
+                                          theta_n, enhancement, flow_law)
     elif use_kernel is None:
         use_kernel = _kernel_eligible(flow_law, enthalpy, grid, H,
                                       gradient_method, theta_e, theta_n,
@@ -194,21 +253,39 @@ def diffusivity(flow_law, geometry, enthalpy, grid, sh, *, n: float = 3.0,
         return SIAFlux(*K3.sia_flux_thermo(
             H.contiguous(), s.contiguous(), enthalpy, z, **kw))
 
-    grad = surface_gradient(geometry, grid, sh, gradient_method)
+    grad = surface_gradient(geometry, grid, sh, gradient_method, n)
     H_e, H_n = st.avg_to_east(H, sh), st.avg_to_north(H, sh)
-    if enthalpy is None:
-        # isothermal closed form: K = e A H^(n+2) / (n+2)
-        A = _isothermal_softness(flow_law, H.dtype, H.device)
-        Ke = enhancement * A * H_e ** (n + 2.0) / (n + 2.0)
-        Kn = enhancement * A * H_n ** (n + 2.0) / (n + 2.0)
+    slope2_e = grad.sx_e ** 2 + grad.sy_e ** 2
+    slope2_n = grad.sx_n ** 2 + grad.sy_n ** 2
+    enh_e = enh_n = enhancement
+    if field_enh:
+        enh_e = st.avg_to_east(enhancement, sh)
+        enh_n = st.avg_to_north(enhancement, sh)
+    if getattr(flow_law, "generalized", False):
+        if enthalpy is None:
+            raise ValueError("generalized (Goldsby-Kohlstedt) SIA "
+                             "diffusivity needs an enthalpy field")
+        De = _flow_integral(flow_law, st.avg_to_east(enthalpy, sh), H_e, z,
+                            torch.sqrt(slope2_e), rho, g, enh_e)
+        Dn = _flow_integral(flow_law, st.avg_to_north(enthalpy, sh), H_n, z,
+                            torch.sqrt(slope2_n), rho, g, enh_n)
     else:
-        Ke = _softness_integral(flow_law, st.avg_to_east(enthalpy, sh), H_e,
-                                z, n, enhancement)
-        Kn = _softness_integral(flow_law, st.avg_to_north(enthalpy, sh),
-                                H_n, z, n, enhancement)
-    C = 2.0 * (rho * g) ** n
-    De = C * (grad.sx_e ** 2 + grad.sy_e ** 2) ** ((n - 1.0) / 2.0) * Ke
-    Dn = C * (grad.sx_n ** 2 + grad.sy_n ** 2) ** ((n - 1.0) / 2.0) * Kn
+        if enthalpy is None:
+            if field_enh:
+                raise ValueError("age-coupled (3D) enhancement needs the "
+                                 "thermal (enthalpy) SIA path")
+            # isothermal closed form: K = e A H^(n+2) / (n+2)
+            A = _isothermal_softness(flow_law, H.dtype, H.device)
+            Ke = enhancement * A * H_e ** (n + 2.0) / (n + 2.0)
+            Kn = enhancement * A * H_n ** (n + 2.0) / (n + 2.0)
+        else:
+            Ke = _softness_integral(flow_law, st.avg_to_east(enthalpy, sh),
+                                    H_e, z, n, enh_e)
+            Kn = _softness_integral(flow_law, st.avg_to_north(enthalpy, sh),
+                                    H_n, z, n, enh_n)
+        C = 2.0 * (rho * g) ** n
+        De = C * slope2_e ** ((n - 1.0) / 2.0) * Ke
+        Dn = C * slope2_n ** ((n - 1.0) / 2.0) * Kn
     if theta_e is not None:
         De = De * theta_e
     if theta_n is not None:

@@ -53,7 +53,7 @@ def stack_states(states: Sequence[S.ModelState]) -> S.ModelState:
     out as the first member's."""
     def stack(get):
         xs = [get(s) for s in states]
-        return None if xs[0] is None else _stack(xs)
+        return _stack(xs) if torch.is_tensor(xs[0]) else xs[0]
 
     geom = S.Geometry(**{k.name: stack(
         lambda s, k=k: getattr(s.geometry, k.name))

@@ -50,6 +50,32 @@ from .state import ModelState, grounded_ice, map_tensors, new_geometry
 SPY = 3.15569259747e7
 
 
+#: the column tracers on the hybrid chain (``hybrid_greenland_model``'s
+#: ``extra_cfg``): the age with its age-coupled SIA enhancement (the ice
+#: of the initial state dated 15 ka, glacial, e_sia = 1; new ice Holocene,
+#: e = 3), isochrones deposited every 0.25 a, cryo-hydrologic warming,
+#: k(T) and the upstream vertical velocity
+TRACER_CFG = {
+    "age.enabled": True,
+    "age.initial_value": 15000.0,
+    "stress_balance.sia.e_age_coupling": True,
+    "stress_balance.sia.enhancement_factor_interglacial": 3.0,
+    "age.isochrones.enabled": True,
+    "age.isochrones.deposition_times": "0.25:0.25:10",
+    "energy.ch_warming.enabled": True,
+    "energy.temperature_dependent_conductivity": True,
+    "stress_balance.vertical_velocity_approximation": "upstream",
+}
+
+#: the fracture density with the SSA's softening on the PISM-PIK chain
+#: (``antarctica_pik_model``'s ``extra_cfg``; add
+#: ``fracture_density.fd2d_scheme``, on by default, to pick the transport)
+FRACTURE_CFG = {
+    "fracture_density.enabled": True,
+    "fracture_density.softening_lower_limit": 0.5,
+}
+
+
 def to_dtype(state: ModelState, dtype) -> ModelState:
     """Cast every float64 field of the state to ``dtype``."""
     return map_tensors(state, lambda x: x.to(dtype)

@@ -153,7 +153,10 @@ def ice_free(cell_type):
 class ModelState:
     """Prognostic state of the hybrid chain. Field names are those of the
     JAX ``ModelState``; optional fields stay ``None`` until the component
-    that needs them is enabled (``IceModel.prepare_state``)."""
+    that needs them is enabled (``IceModel.prepare_state``). The 3D fields
+    E, age and the cryo-hydrologic E keep the layout their column solve
+    leaves (level-major in memory), since torch's reductions over z round
+    by layout."""
 
     geometry: Geometry
     enthalpy: Optional[torch.Tensor] = None           # (My, Mx, Mz) J/kg
@@ -173,6 +176,14 @@ class ModelState:
     bed_uplift: Optional[torch.Tensor] = None         # Lingle-Clark viscous bed displacement m
     bed_load_reference: Optional[torch.Tensor] = None  # ice load at the reference bed m
     bed_reference: Optional[torch.Tensor] = None      # undeformed bed + initial load
+    age: Optional[torch.Tensor] = None                # (My, Mx, Mz) s
+    ch_enthalpy: Optional[torch.Tensor] = None        # cryo-hydrologic E, 3D
+    fracture_density: Optional[torch.Tensor] = None   # (My, Mx) in [0, 1]
+    fracture_age: Optional[torch.Tensor] = None       # (My, Mx) s
+    iso_layers: Optional[torch.Tensor] = None         # (My, Mx, NL) m
+    # the active top isochrone layer: a host int, decided on the host from
+    # the float64 clock (the JAX package carries an int32 on the device)
+    iso_top: Optional[int] = None
 
     def replace(self, **kw) -> "ModelState":
         return dataclasses.replace(self, **kw)
@@ -237,7 +248,7 @@ def select_members(active: torch.Tensor, new: ModelState,
     (the select of a ``vmap``-ed device loop that freezes finished
     members)."""
     def pick(a, b):
-        if a is None or b is None:
+        if not torch.is_tensor(a) or b is None:
             return a
         return torch.where(active.view(-1, *(1,) * (a.dim() - 1)), a, b)
 

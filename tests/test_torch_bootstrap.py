@@ -175,7 +175,7 @@ def test_read_forcing_fields_matches(tmp_path):
 
 
 @pytest.mark.parametrize("extra,over", [
-    (("bwat",), {}), (("fracture_density",), {}),
+    (("bwat",), {}),
     ((), {"bootstrapping.defaults.bwat": 0.5}),
 ])
 def test_unported_bootstrap_inputs_raise(tmp_path, extra, over):
@@ -183,6 +183,22 @@ def test_unported_bootstrap_inputs_raise(tmp_path, extra, over):
     cfg = Config(dict({"runtime.float_dtype": "float64"}, **over))
     with pytest.raises(NotImplementedError, match="item 6"):
         t_boot.bootstrap(path, Grid(**GRID), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("default", [0.0, 0.3])
+def test_fracture_density_bootstraps_as_jax(tmp_path, default):
+    """A file's fracture_density is regridded as in JAX, missing values
+    taking bootstrapping.defaults.fracture_density."""
+    path = _data_file(tmp_path / "boot.nc", extra=("fracture_density",))
+    with File(path, "a") as f:
+        phi = np.asarray(f.read("fracture_density"))
+        phi[5, 6] = np.nan
+        f.write("fracture_density", phi, ("y", "x"), {})
+    a, b = _both(path, {"bootstrapping.defaults.fracture_density": default})
+    assert "fracture_density" in a and "fracture_density" in b
+    assert np.isfinite(b["fracture_density"]).all()
+    np.testing.assert_allclose(b["fracture_density"], a["fracture_density"],
+                               rtol=0, atol=1e-12)
 
 
 def test_float32_fields_and_lonlat(tmp_path):

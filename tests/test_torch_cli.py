@@ -1333,3 +1333,121 @@ def test_debm_restart_continues_to_the_bit(coupler_runs):
     assert torch.equal(st.geometry.ice_thickness, rst.geometry.ice_thickness)
     for name in ("enthalpy", "surface_albedo", "snow_depth"):
         assert torch.equal(getattr(st, name), getattr(rst, name)), name
+
+
+# -- the column tracers through both command lines ------------------------
+
+TRACER_CONFIG = ("age.enabled=true", "age.initial_value=15000",
+                 "age.isochrones.enabled=true",
+                 "age.isochrones.deposition_times=4:0.1:6",
+                 "energy.ch_warming.enabled=true")
+TRACER_VARS = "age,isochrone_depth,ch_temp"
+
+
+@pytest.fixture(scope="module")
+def tracer_cli(workflow):
+    """Stage 3 of the 100 km std-greenland workflow from its untied
+    stage-2 file with ``-config`` turning on the age, isochrones (every
+    0.1 a) and the CH system, 0.5 a (one step) with ``-extra_vars
+    age,isochrone_depth,ch_temp`` at its end: through the JAX command line
+    (NetCDF-4) and the port's in both formats; then the port's classic
+    output continued by a plain -i restart for 0.5 a. ``IceModel.run`` is
+    recorded, so the port's run can be continued in memory."""
+    from pism_tpu_torch.examples.std_greenland_workflow import stage_argv
+    from pism_tpu_torch.model.icemodel import IceModel
+
+    d, boot = workflow["dir"], workflow["boot"]
+    src = str(d / "tie2.nc")
+    t0 = t_ckpt.load_state(src, device="cpu")[1] / SPY
+    out = {}
+
+    def argv(p, fmt):
+        a = stage_argv(boot, (None, None, None), 100.0, (2.0, 2.0, 0.5),
+                       fmt, dtype="float64")[2]
+        a[a.index("-i") + 1] = src
+        a[a.index("-o") + 1] = str(d / f"tr_{p}_{fmt}.nc")
+        for kv in TRACER_CONFIG:
+            a += ["-config", kv]
+        return a + ["-extra_file", str(d / f"trx_{p}_{fmt}.nc"),
+                    "-extra_vars", TRACER_VARS,
+                    "-extra_times", f"{t0 + 0.5:.10g}"]
+
+    out["counts"] = _both_clis(argv)
+    records = []
+    orig = IceModel.run
+
+    def run(self, state, time, *a, **k):
+        res = orig(self, state, time, *a, **k)
+        records.append((self, time, res[0]))
+        return res
+
+    IceModel.run = run
+    try:
+        assert t_cli.main(argv("torch", "netcdf4") + ["-platform", "cpu"]) \
+            == 0
+        out["first"] = records[-1]
+        rst = str(d / "tr_restart.nc")
+        # (the stored config names the first run's extra file: the
+        # restart writes its own)
+        assert t_cli.main(["-i", str(d / "tr_torch_netcdf3.nc"), "-y", "0.5",
+                           "-o", rst, "-o_format", "netcdf3", "-platform",
+                           "cpu", "-verbose", "0", "-extra_file",
+                           str(d / "trx_restart.nc")]) == 0
+    finally:
+        IceModel.run = orig
+    out.update(dir=d, restart=rst, t0=t0)
+    return out
+
+
+def test_tracer_cli_matches_jax(tracer_cli):
+    """Equal steps and hits; the state files' tracers and the extra file's
+    isochrone_depth and ch_temp within the hybrid chain's 5e-7 of max (one
+    step from equal states), the layer axis ``nl`` in both. The age within
+    1e-5 of max: this stage's SSA solve stagnates in both packages and
+    leaves the sliding velocity 5e-4 apart at the western margin
+    (``test_workflow_hybrid_stage_matches`` holds it at 5e-2), where the
+    age steps from 15 ka to 0 between neighbours, so the upwinded age at
+    some 60 of 19,024 basal margin cells moves by up to 3e-6 of max."""
+    d = tracer_cli["dir"]
+    assert tracer_cli["counts"]["torch"] == tracer_cli["counts"]["jax"]
+    assert _cmp(str(d / "tr_torch_netcdf4.nc"), str(d / "tr_jax_netcdf4.nc"),
+                ["thk", "enthalpy", "ch_enthalpy",
+                 "isochronal_layer_thickness"], 5e-7) == []
+    a, b = str(d / "trx_torch_netcdf4.nc"), str(d / "trx_jax_netcdf4.nc")
+    assert _cmp(a, b, ["isochrone_depth", "ch_temp"], 5e-7) == []
+    for x, y in ((a, b), (str(d / "tr_torch_netcdf4.nc"),
+                          str(d / "tr_jax_netcdf4.nc"))):
+        assert _cmp(x, y, ["age"], 1e-5) == []
+    with File(a, "r") as f:
+        assert f.read("isochrone_depth").shape[-1] == 16
+        assert f.read("age").shape[-1] == 41
+    with File(str(d / "tr_torch_netcdf3.nc"), "r") as f:
+        assert int(f.get_global_attr("iso_top")) >= 1
+
+
+def test_tracer_cli_formats_equal(tracer_cli):
+    """The port's classic and NetCDF-4 outputs hold the same values."""
+    d = tracer_cli["dir"]
+    for name in ("tr", "trx"):
+        (va, ta), (vb, tb) = _read(d / f"{name}_torch_netcdf3.nc"), \
+            _read(d / f"{name}_torch_netcdf4.nc")
+        assert sorted(va) == sorted(vb)
+        np.testing.assert_array_equal(ta, tb)
+        for k, (x, _) in va.items():
+            np.testing.assert_array_equal(x, vb[k][0], err_msg=k)
+
+
+def test_tracer_cli_restart_continues_to_the_bit(tracer_cli):
+    """A plain -i restart of the classic output (the tracers rebuilt from
+    the stored config) equals the first run continued in memory for the
+    same 0.5 a, to the bit: H, E, the age, the CH state, the isochrone
+    layers and the active layer."""
+    from pism_tpu_torch.util.timecal import Time
+
+    model, time, end = tracer_cli["first"]
+    st, _ = model.run(end, Time(time.end, time.end + 0.5 * SPY))
+    rst = t_ckpt.load_state(tracer_cli["restart"], device="cpu")[0]
+    assert torch.equal(st.geometry.ice_thickness, rst.geometry.ice_thickness)
+    for name in ("enthalpy", "age", "ch_enthalpy", "iso_layers", "u_ssa"):
+        assert torch.equal(getattr(st, name), getattr(rst, name)), name
+    assert st.iso_top == rst.iso_top >= 2

@@ -134,7 +134,7 @@ def test_config_lookups_match():
 
 @pytest.mark.parametrize("override", [
     {"stress_balance.ssa.fd.line_pcr_dtype": "bf16"},
-    {"stress_balance.ssa.flow_law": "hooke"},
+    {"stress_balance.ssa.fd.lateral_drag.enabled": True},
     {"energy.model": "cold"},
     {"stress_balance.ssa.fd.line_block": 64},
     {"stress_balance.ssa.fd.preconditioner": "linemg"},
@@ -142,11 +142,11 @@ def test_config_lookups_match():
     {"grid.periodicity": "xy"},
     {"basal_yield_stress.mohr_coulomb.tillphi_opt.enabled": True},
     {"bed_deformation.model": "given"},
-    {"fracture_density.enabled": True},
-    {"energy.ch_warming.enabled": True},
+    {"basal_resistance.regularized_coulomb.enabled": True},
+    {"basal_resistance.beta_lateral_margin": 1e9},
     {"stress_balance.ssa.fd.velocity_change_rtol": 0.0,
      "runtime.float_dtype": "float32"},
-    {"age.enabled": True},
+    {"stress_balance.ssa.fd.extrapolate_initial_guess": True},
     {"energy.model": "none"},
 ])
 def test_unsupported_config_raises(override):
@@ -168,6 +168,53 @@ def test_unsupported_config_raises(override):
     with pytest.raises(NotImplementedError):
         setups.hybrid_greenland_model(dtype, km=200.0, device="cpu",
                                       extra_cfg=override)
+
+
+@pytest.mark.parametrize("override", [
+    {"stress_balance.ssa.flow_law": "hooke"},
+    {"fracture_density.enabled": True},
+    {"energy.ch_warming.enabled": True},
+    {"age.enabled": True},
+])
+def test_lifted_config_builds_as_jax(override):
+    """The values the port refused before its tracer slice build the 200 km
+    hybrid chain, each component as the JAX package's: the SSA's Hooke law
+    (its constants), the fracture model (every option it read), the CH
+    system (its constants) and the age model (the initial age of
+    ``prepare_state``)."""
+    import bench
+    from pism_tpu_torch import setups
+    from pism_tpu_torch.convert import state_to_numpy
+    from test_torch_hybrid_chain import jax_to_numpy
+
+    jm, js, _ = bench.hybrid_greenland_model("float64", km=200.0,
+                                             extra_cfg=override)
+    tm, ts, _ = setups.hybrid_greenland_model("float64", km=200.0,
+                                              device="cpu", extra_cfg=override)
+    if "stress_balance.ssa.flow_law" in override:
+        jl, tl = jm.ssa.flow_law, tm.ssa.flow_law
+        assert type(tl).__name__ == type(jl).__name__ == "Hooke"
+        for k in ("n", "A_Hooke", "Q_Hooke", "C_Hooke", "K_Hooke", "Tr_Hooke",
+                  "A_cold", "Q_warm", "R"):
+            assert getattr(tl, k) == getattr(jl, k), k
+    elif "fracture_density.enabled" in override:
+        names = ("gamma", "eps_cr", "sigma_cr", "gamma_h", "eps_h",
+                 "soft_min", "phi0", "constant_fd", "constant_healing",
+                 "weighted_healing", "include_grounded", "max_shear", "lefm",
+                 "borstad", "limited", "n_glen")
+        assert {k: getattr(tm.fracture, k) for k in names} \
+            == {k: getattr(jm.fracture, k) for k in names}
+    elif "energy.ch_warming.enabled" in override:
+        je, te = jm.energy_model, tm.energy_model
+        assert te.ch_enabled and je.ch_enabled
+        assert (te.ch_spacing, te.ch_omega, te.k_of_T) \
+            == (je.ch_spacing, je.ch_omega, je.k_of_T)
+    a = jax_to_numpy(jm.prepare_state(js))
+    b = state_to_numpy(tm.prepare_state(ts))
+    assert sorted(a) == sorted(b)
+    for k in ("age", "ch_enthalpy", "fracture_density", "fracture_age"):
+        if k in a:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
 
 
 @pytest.mark.parametrize("override,exc", [

@@ -131,17 +131,32 @@ def test_files_read_across_packages(tmp_path, fmt, writer):
     _assert_states_equal(state, ref)
 
 
-def test_unported_state_variables_raise(tmp_path):
-    """A file holding state of a component the port does not carry (here
-    the ice age) cannot be continued by the port."""
+@pytest.mark.parametrize("fmt", ["netcdf3", "netcdf4"])
+def test_unported_state_variables_raise(tmp_path, fmt):
+    """A JAX file holding the state of the tracer components (the age, the
+    CH system, the fracture density and age, the isochrone layers and the
+    active layer), which the port refused before it carried them, loads
+    with the JAX values; the 3D fields come back level-major, as their
+    column solves leave them."""
     a = _arrays(3)
     path = str(tmp_path / "s.nc")
     g = JGrid(**GRID)
-    j_ckpt.save_state(path, _jax_state(a).replace(
-        age=jnp.zeros(g.shape3)), g, 0.0, config=JConfig(CFG),
-        format="netcdf3")
-    with pytest.raises(NotImplementedError, match="age"):
-        ckpt.load_state(path, device="cpu")
+    rng = np.random.default_rng(4)
+    extra = {"age": rng.uniform(0, 1e12, g.shape3),
+             "ch_enthalpy": rng.uniform(1e5, 3e5, g.shape3),
+             "fracture_density": rng.uniform(0, 1, g.shape2),
+             "fracture_age": rng.uniform(0, 1e9, g.shape2),
+             "iso_layers": rng.uniform(0, 100, g.shape2 + (6,))}
+    js = _jax_state(a).replace(iso_top=jnp.asarray(3, jnp.int32),
+                               **{k: jnp.asarray(v) for k, v in extra.items()})
+    j_ckpt.save_state(path, js, g, 0.0, config=JConfig(CFG), format=fmt)
+    st, t = ckpt.load_state(path, device="cpu")
+    for name, want in extra.items():
+        got = getattr(st, name)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    assert st.iso_top == 3
+    for name in ("enthalpy", "age", "ch_enthalpy"):
+        assert getattr(st, name).movedim(-1, 0).is_contiguous(), name
 
 
 def _halfar(fmt, tmp_path):

@@ -316,8 +316,11 @@ def test_run_with_every_diagnostic_then_restart(tmp_path, which):
             for v in vars_:
                 x = f.read(v)
                 # litho_temp is the bedrock column, one level without a
-                # bedrock layer
-                want = shape + (1,) if v == "litho_temp" else shape
+                # bedrock layer; the 3D tracer fields have this grid's one
+                # level, isochrone_depth one layer without isochrones
+                want = shape + (1,) if v in (
+                    "litho_temp", "age", "ch_temp", "ch_liqfrac",
+                    "ch_heat_flux", "isochrone_depth") else shape
                 assert x.shape == want and np.all(np.isfinite(x)), (name, v)
     with File(str(tmp_path / "ex.nc"), "r") as f:
         assert np.abs(f.read("velbar_mag")).max() > 0

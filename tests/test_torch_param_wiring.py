@@ -32,8 +32,6 @@ UNUSED = {"constants.ideal_gas_constant", "flow_law.Paterson_Budd.A_cold",
 #: keys whose use another setting gates, with that setting: the port refuses
 #: the setting
 GATED = {
-    "fracture_density.softening_lower_limit": {"fracture_density.enabled":
-                                               True},
     "stress_balance.ssa.fd.lateral_drag.viscosity": {
         "stress_balance.ssa.fd.lateral_drag.enabled": True},
     "stress_balance.ssa.fd.mixed_production_rtol": {
@@ -101,7 +99,10 @@ def test_mismip_parameter_wiring(tmp_path):
     for key in sorted(missing):
         with pytest.raises(NotImplementedError):
             _reads("torch", dict(over, **GATED[key]))
-    # a flow law the port lacks is refused on this path
+    # the SSA reads the fracture softening's limit as the JAX one does
+    assert "fracture_density.softening_lower_limit" in port_reads
+    # a law other than the isothermal one is refused on this isothermal
+    # path (by the model; the factory builds every law)
     with pytest.raises(NotImplementedError):
         _reads("torch", dict(over, **{"stress_balance.ssa.flow_law": "hooke"}))
 
@@ -282,3 +283,63 @@ def test_calving_file_keys_are_read(key):
             pass
         reads.append(key in set(cfg.used_parameters()))
     assert reads == [True, True]
+
+
+#: the config groups of the tracer and damage slice
+TRACER_PREFIXES = ("age.", "isochrones.", "fracture_density.",
+                   "energy.ch_warming.", "energy.temperature_dependent",
+                   "flow_law.", "time.eemian_", "time.holocene_start",
+                   "stress_balance.sia.e_age_coupling",
+                   "stress_balance.sia.enhancement_factor_interglacial",
+                   "stress_balance.vertical_velocity_approximation",
+                   "stress_balance.ssa.fd.brutal_sliding",
+                   "bootstrapping.defaults.fracture_density")
+
+
+def _tracer_reads(pkg, over):
+    """The keys of the slice that the hybrid chain with every new component
+    reads through its construction, ``prepare_state`` and one step (the
+    JAX twin: ``bench.hybrid_greenland_model``), and every flow law of
+    the factory."""
+    import bench
+    from pism_tpu_torch import setups
+    SPY = 3.15569259747e7
+    if pkg == "jax":
+        from pism_tpu.physics import rheology
+        model, state, _ = bench.hybrid_greenland_model(
+            "float64", km=200.0, extra_cfg=over)
+    else:
+        from pism_tpu_torch.physics import rheology
+        model, state, _ = setups.hybrid_greenland_model(
+            "float64", km=200.0, device="cpu", extra_cfg=over)
+    model.step_once(state, 0.0, 0.1 * SPY)
+    cfg = model.config
+    for name in ("isothermal_glen", "pb", "pb_cold", "pb_warm", "hooke",
+                 "gpbld"):
+        cfg.update({"stress_balance.sia.flow_law": name})
+        rheology.flow_law_from_config(cfg, "sia")
+    cfg.update({"flow_law.grain_aware_GK": True})
+    rheology.flow_law_from_config(cfg, "sia")
+    return {k for k in cfg.used_parameters() if k.startswith(TRACER_PREFIXES)}
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"fracture_density.max_shear_stress": True,
+         "fracture_density.fd2d_scheme": False,
+         "isochrones.deposition_times": "0.05,0.1",
+         "isochrones.bootstrapping.n_layers": 4,
+         "stress_balance.ssa.fd.brutal_sliding": True}])
+def test_tracer_parameter_wiring(extra):
+    """Every key of the slice's groups (``age.*``, ``isochrones.*``,
+    ``fracture_density.*``, ``energy.ch_warming.*``, k(T), ``flow_law.*``,
+    ``time.eemian_*``, ``time.holocene_start``, the SIA's age coupling,
+    upstream w, brutal sliding) that the JAX twins read on the chain with
+    every new component is read by the port on the same path."""
+    from pism_tpu_torch import setups
+    over = dict(setups.TRACER_CFG, **setups.FRACTURE_CFG, **extra)
+    jax_reads = _tracer_reads("jax", over)
+    port_reads = _tracer_reads("torch", over)
+    assert {"age.initial_value", "time.holocene_start",
+            "fracture_density.gamma", "energy.ch_warming.average_channel_"
+            "spacing", "flow_law.Hooke.A"} <= jax_reads
+    assert jax_reads - port_reads == set()

@@ -273,6 +273,14 @@ def test_isothermal_glen_from_config():
     tl = t_rh.flow_law_from_config(pt.Config(over), "ssa")
     assert isinstance(tl, t_rh.IsothermalGlen)
     assert (tl.A, tl.n) == (jl.A, jl.n)
-    with pytest.raises(NotImplementedError):
-        t_rh.flow_law_from_config(
-            pt.Config({"stress_balance.ssa.flow_law": "hooke"}), "ssa")
+    # the Hooke law builds as the JAX package's; an unknown name raises
+    # ValueError in both
+    over = {"stress_balance.ssa.flow_law": "hooke"}
+    jl = j_rh.flow_law_from_config(JConfig(over), "ssa")
+    tl = t_rh.flow_law_from_config(pt.Config(over), "ssa")
+    assert isinstance(tl, t_rh.Hooke)
+    assert (tl.A_Hooke, tl.Q_Hooke, tl.n) == (jl.A_Hooke, jl.Q_Hooke, jl.n)
+    over = {"stress_balance.ssa.flow_law": "nonesuch"}
+    for mod, cfg in ((j_rh, JConfig), (t_rh, pt.Config)):
+        with pytest.raises(ValueError):
+            mod.flow_law_from_config(cfg(over), "ssa")
